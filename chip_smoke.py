@@ -7,15 +7,23 @@ Phases (each raises on failure, so any failure exits nonzero):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels from ``mf_data_locality_tpu_torch/csrc`` with nvcc;
-3. at the main path's size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
-   kernel with its plain PyTorch version on the same inputs, and time both;
-4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations,
-   f32 "split2m" 91..94 and converge;
-5. the main path: ``benchmark.run_one(4, 13, solver="fused",
-   precision="split2m")`` with the kernels' launch counters zeroed just
-   before and read just after; then the solution of the same solve is
-   checked for shape, finiteness, and its true residual against the
-   solver's estimate;
+3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
+   kernel with its plain PyTorch version on the same inputs, and time both:
+   B1/B2 (f32 split2m, f64 highest), B3-B6 (f32 highest, f32 split2m except
+   B4, f64 highest);
+4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
+   fused, merged and baseline alike — f32 "split2m" (fused) and f32
+   "highest" (merged, baseline) 91..94 and converge;
+5. the paths, each with the kernels' launch counters zeroed just before and
+   read just after:
+   - the fused path ``benchmark.run_one(4, 13, solver="fused",
+     precision="split2m", windowing="pieces")`` (B1, B2);
+   - the JAX CLI's default path ``benchmark.run_one(4, 13,
+     solver="merged", windowing="reshape", precision="highest")`` (B3);
+   - short runs at s=11 of the baseline solver (B3), ``--geometry
+     onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6);
+   then the solutions of the two p=4 s=13 paths are checked for shape,
+   finiteness, and their true residual against the solver's estimate;
 6. print the kernels' JSON line and, last, the device JSON line.
 """
 
@@ -28,11 +36,11 @@ import time
 
 import torch
 
-DEGREE, S = 4, 13
-SOURCE = "mf_data_locality_tpu_torch/csrc/cg_fused.cu"
+DEGREE, S, S_SHORT = 4, 13, 11
+CSRC = "mf_data_locality_tpu_torch/csrc/"
 # tolerances of kernel vs plain version (max |diff| / max |plain|): the two
-# sum in different orders; f32 sums of ~2e2-term contractions and, for the
-# scalars, of ~5e6 dot-product terms
+# sum in different orders; f32 sums of ~2e2-term (B1/B2) and ~6e2-term
+# (B3-B6) contractions and, for the scalars, of ~5e6 dot-product terms
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_SCAL_F32 = 1e-4
 
@@ -58,6 +66,15 @@ def random_state(op, n: int, seed: int):
             for _ in range(n)]
 
 
+def time_pair(kern, plain, dev, timing, inner: int = 20):
+    """(kernel ms, plain ms): alternate plain, kernel, kernel, plain."""
+    tp1 = timing.time_per_call(plain, dev, inner=5, repeats=3)
+    tk1 = timing.time_per_call(kern, dev, inner=inner, repeats=3)
+    tk2 = timing.time_per_call(kern, dev, inner=inner, repeats=3)
+    tp2 = timing.time_per_call(plain, dev, inner=5, repeats=3)
+    return min(tk1, tk2) * 1e3, min(tp1, tp2) * 1e3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -66,8 +83,32 @@ def main() -> int:
     from mf_data_locality_tpu_torch.models import bp4
     from mf_data_locality_tpu_torch.ops import _build
     from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+    from mf_data_locality_tpu_torch.ops import laplace_apply as la
     from mf_data_locality_tpu_torch.solvers import cg_fused
     from mf_data_locality_tpu_torch.utils import timing
+
+    # name -> (wrapper, source, TPU kernel it replaces)
+    kernels = {
+        "matvec": (fk.matvec, "cg_fused.cu", "cg_fused_kernel.py:1116"),
+        "fused_cg_iteration": (fk.fused_cg_iteration, "cg_fused.cu",
+                               "cg_fused_kernel.py:1476"),
+        "apply_local_batched_g": (la.apply_local_batched_g,
+                                  "laplace_apply.cu", "laplace_pallas.py:1023"),
+        "apply_local_batched_onthefly": (la.apply_local_batched_onthefly,
+                                         "laplace_apply.cu",
+                                         "laplace_pallas.py:1043"),
+        "apply_lattice_pieces": (la.apply_lattice_pieces, "laplace_apply.cu",
+                                 "laplace_pallas.py:947"),
+        "apply_lattice_zslab": (la.apply_lattice_zslab, "laplace_apply.cu",
+                                "laplace_pallas.py:664"),
+    }
+
+    def zero_counts():
+        for fn, _, _ in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, (fn, _, _) in kernels.items()}
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -83,10 +124,10 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.name})")
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "spill" in line and "0 bytes spill" not in line:
             print("  ptxas:", line.strip())
 
-    # -- 3. kernels vs plain versions at the main path's size -------------
+    # -- 3. kernels vs plain versions at the main paths' size -------------
     print(f"kernels vs plain at p={DEGREE}, s={S}:")
     errs, times = {}, {}
     for dtype, precision in ((torch.float32, "split2m"),
@@ -116,29 +157,69 @@ def main() -> int:
               scal_rel, TOL_SCAL_F32 if dtype == torch.float32
               else TOL[dtype])
 
-        if dtype != torch.float32:
-            continue
-        errs["matvec"], errs["fused_cg_iteration"] = diff, fdiff
-        out = torch.empty_like(d)
-        work = fk.Workspace(op)
-        bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
-        for name, kern, plain in (
-                ("matvec", lambda: fk.matvec(op, d, out=out, work=work),
-                 lambda: fk._matvec_plain(op, d)),
-                ("fused_cg_iteration",
-                 lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
-                                               out=bufs, work=work),
-                 lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal,
-                                                   prec))):
-            # alternate plain, kernel, kernel, plain on the same card
-            tp1 = timing.time_per_call(plain, dev, inner=5, repeats=3)
-            tk1 = timing.time_per_call(kern, dev, inner=20, repeats=3)
-            tk2 = timing.time_per_call(kern, dev, inner=20, repeats=3)
-            tp2 = timing.time_per_call(plain, dev, inner=5, repeats=3)
-            times[name] = (min(tk1, tk2) * 1e3, min(tp1, tp2) * 1e3)
-            print(f"  {name} f32 split2m: kernel {times[name][0]:.4f} ms, "
-                  f"plain {times[name][1]:.4f} ms")
-        del pb, op, d, x, g, dd, h, want, got, bufs, work, out
+        if dtype == torch.float32:
+            errs["matvec"], errs["fused_cg_iteration"] = diff, fdiff
+            out = torch.empty_like(d)
+            work = fk.Workspace(op)
+            bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
+            times["matvec"] = time_pair(
+                lambda: fk.matvec(op, d, out=out, work=work),
+                lambda: fk._matvec_plain(op, d), dev, timing)
+            times["fused_cg_iteration"] = time_pair(
+                lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
+                                              out=bufs, work=work),
+                lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal,
+                                                  prec), dev, timing)
+            for name in ("matvec", "fused_cg_iteration"):
+                print(f"  {name} f32 split2m: kernel {times[name][0]:.4f} "
+                      f"ms, plain {times[name][1]:.4f} ms")
+            del out, work, bufs
+        del pb, op, d, x, g, dd, h, want, got
+        torch.cuda.empty_cache()
+
+    for dtype, precision in ((torch.float32, "highest"),
+                             (torch.float32, "split2m"),
+                             (torch.float64, "highest")):
+        tag = f"{str(dtype)[6:]} {precision}"
+        ops = {"precomputed": bp4.build(S, DEGREE, dtype, precision,
+                                        factor="dense", metric="precomputed",
+                                        windowing="reshape", device=dev).op}
+        if precision == "highest":  # B4 is exact on every rung
+            ops["onthefly"] = bp4.build(S, DEGREE, dtype, precision,
+                                        factor="dense", metric="onthefly",
+                                        windowing="reshape", device=dev).op
+        opg = ops["precomputed"]
+        (u,) = random_state(opg, 1, seed=3)
+        u_loc = la.to_cell_batches(u, DEGREE).contiguous()
+        split = precision == "split2m"
+        cases = {
+            "apply_local_batched_g": (
+                lambda: la.apply_local_batched_g(opg, u_loc),
+                lambda: la._batched_plain(opg, u_loc, la._metric(opg),
+                                          split)),
+            "apply_lattice_pieces": (
+                lambda: la.apply_lattice_pieces(opg, u),
+                lambda: la._lattice_plain(opg, u, la._index_mask(opg))),
+            "apply_lattice_zslab": (
+                lambda: la.apply_lattice_zslab(opg, u),
+                lambda: la._lattice_plain(opg, u, opg.mask)),
+        }
+        if "onthefly" in ops:
+            opo = ops["onthefly"]
+            cases["apply_local_batched_onthefly"] = (
+                lambda: la.apply_local_batched_onthefly(opo, u_loc),
+                lambda: la._batched_plain(opo, u_loc, la._metric(opo),
+                                          False))
+        for name, (kern, plain) in cases.items():
+            rel, diff = rel_err(kern(), plain())
+            check(f"{name} {tag}", rel, TOL[dtype])
+            if dtype == torch.float32:
+                t = time_pair(kern, plain, dev, timing, inner=10)
+                print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain "
+                      f"{t[1]:.4f} ms")
+                if precision == "highest":
+                    errs[name], times[name] = diff, t
+        del ops, opg, u, u_loc, cases
         torch.cuda.empty_cache()
 
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
@@ -150,60 +231,107 @@ def main() -> int:
         res = cg_fused.fused_merged_cg_solve(
             pb.op, lat, pb.b.reshape((3,) + lat),
             pb.inv_diag.reshape((1,) + lat))
-        print(f"p=4 s=7 {str(dtype)[6:]} {precision}: itCG "
+        print(f"p=4 s=7 fused {str(dtype)[6:]} {precision}: itCG "
               f"{res.n_iterations}, converged {res.converged}")
         if res.n_iterations not in allowed or not res.converged:
-            raise AssertionError(f"p=4 s=7 {precision}: itCG "
+            raise AssertionError(f"p=4 s=7 fused {precision}: itCG "
                                  f"{res.n_iterations} not in {allowed}")
+    for dtype, allowed in ((torch.float64, (91,)),
+                           (torch.float32, (91, 92, 93, 94))):
+        pb = bp4.build(7, DEGREE, dtype, "highest", factor="dense",
+                       metric="precomputed", windowing="reshape", device=dev)
+        its = {}
+        for solver, solve in (("merged", bp4.solve_merged),
+                              ("baseline", bp4.solve_baseline)):
+            res = solve(pb)
+            its[solver] = res.n_iterations
+            print(f"p=4 s=7 {solver} {str(dtype)[6:]} highest: itCG "
+                  f"{res.n_iterations}, converged {res.converged}")
+            if res.n_iterations not in allowed or not res.converged:
+                raise AssertionError(f"p=4 s=7 {solver}: itCG "
+                                     f"{res.n_iterations} not in {allowed}")
+        if dtype == torch.float64 and its["merged"] != its["baseline"]:
+            raise AssertionError(f"merged and baseline itCG differ: {its}")
 
-    # -- 5. the main path -----------------------------------------------
+    # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
-    fk.matvec.launches = 0
-    fk.fused_cg_iteration.launches = 0
-    r = benchmark.run_one(DEGREE, S, solver="fused", precision="split2m",
-                          device=dev)
-    launches = {"matvec": fk.matvec.launches,
-                "fused_cg_iteration": fk.fused_cg_iteration.launches}
-    share = r.dofs_per_s_per_it / (bw / 36)  # 9 f32 words/DoF (bench.py)
-    print(f"main path p={DEGREE} s={S} f32 split2m: n_dofs {r.n_dofs} "
-          f"itCG {r.n_iterations} converged {r.converged} "
-          f"time/it {r.time_per_it:.6e} s DoF/s/it {r.dofs_per_s_per_it:.6e} "
-          f"time/matvec {r.time_per_matvec:.6e} s triad {bw / 1e9:.1f} GB/s "
-          f"roofline share {share:.4f}")
-    print(f"launches in the main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never ran: "
-                             f"{launches}")
-    if not (r.n_dofs == 1_635_075 and 0 < r.n_iterations <= 100
-            and r.time_per_it > 0 and r.time_per_matvec > 0):
-        raise AssertionError(f"implausible main-path row: {r}")
+    launches = {}
 
-    # the main path's solution: shape, finite, and its true residual
+    def drive(label, s, expect, record=True, **kw):
+        zero_counts()
+        r = benchmark.run_one(DEGREE, s, device=dev, **kw)
+        got = counts()
+        share = r.dofs_per_s_per_it / (bw / 36)  # 9 f32 words/DoF (bench.py)
+        print(f"{label} p={DEGREE} s={s}: n_dofs {r.n_dofs} itCG "
+              f"{r.n_iterations} converged {r.converged} time/it "
+              f"{r.time_per_it:.6e} s DoF/s/it {r.dofs_per_s_per_it:.6e} "
+              f"time/matvec {r.time_per_matvec:.6e} s roofline share "
+              f"{share:.4f}")
+        print(f"  launches: { {k: v for k, v in got.items() if v} }")
+        if min(got[name] for name in expect) <= 0:
+            raise AssertionError(f"{label}: a kernel of the path never "
+                                 f"ran: {got}")
+        if not (0 < r.n_iterations <= 100 and r.time_per_it > 0
+                and r.time_per_matvec > 0):
+            raise AssertionError(f"{label}: implausible row: {r}")
+        if record:
+            launches.update({name: got[name] for name in expect})
+        return r
+
+    print(f"triad {bw / 1e9:.1f} GB/s")
+    r_fused = drive("fused path (f32 split2m, pieces)", S,
+                    ("matvec", "fused_cg_iteration"), solver="fused",
+                    precision="split2m", windowing="pieces")
+    r_main = drive("main path (merged, f32 highest, reshape)", S,
+                   ("apply_local_batched_g",), solver="merged",
+                   precision="highest", windowing="reshape")
+    for r in (r_fused, r_main):
+        if r.n_dofs != 1_635_075:
+            raise AssertionError(f"main-path row at the wrong size: {r}")
+    short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=5)
+    # B3's count in the kernels line is the main path's
+    drive("baseline (reshape)", S_SHORT, ("apply_local_batched_g",),
+          record=False, solver="baseline", **short)
+    drive("merged --geometry onthefly", S_SHORT,
+          ("apply_local_batched_onthefly",), solver="merged",
+          metric="onthefly", **short)
+    drive("merged --windowing pieces", S_SHORT, ("apply_lattice_pieces",),
+          solver="merged", windowing="pieces", **short)
+    drive("merged --windowing zslab", S_SHORT, ("apply_lattice_zslab",),
+          solver="merged", windowing="zslab", **short)
+
+    # the two p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
-    # solve stops at the 100-iteration cap, so the residual is not small)
+    # f32 solves stop at the 100-iteration cap, so the residual is not small)
     pb = bp4.build(S, DEGREE, torch.float32, "split2m", device=dev)
     lat = pb.layout.n_nodes_axis
     b = pb.b.reshape((3,) + lat)
     res = cg_fused.fused_merged_cg_solve(pb.op, lat, b,
                                          pb.inv_diag.reshape((1,) + lat))
-    true_res = torch.linalg.norm(
-        b - fk.matvec(pb.op, res.x.contiguous())).item()
-    gap = abs(true_res - res.res_norm) / res.res_norm
-    print(f"main-path solution: shape {tuple(res.x.shape)}, itCG "
-          f"{res.n_iterations}, |b - Ax| {true_res:.6e} vs estimate "
-          f"{res.res_norm:.6e} (rel gap {gap:.2e}, tol 1e-3)")
-    if tuple(res.x.shape) != (3,) + lat or not torch.isfinite(res.x).all() \
-            or res.n_iterations != r.n_iterations or not gap < 1e-3:
-        raise AssertionError("main-path solution is wrong")
+    solutions = [("fused", res, torch.linalg.norm(
+        b - fk.matvec(pb.op, res.x.contiguous())).item(), (3,) + lat,
+        r_fused)]
+    del pb, b
+    pb = bp4.build(S, DEGREE, torch.float32, "highest", factor="dense",
+                   metric="precomputed", windowing="reshape", device=dev)
+    res = bp4.solve_merged(pb)
+    solutions.append(("merged", res, torch.linalg.norm(
+        pb.b - pb.a_apply(res.x)).item(), tuple(pb.b.shape), r_main))
+    for label, res, true_res, shape, row in solutions:
+        gap = abs(true_res - res.res_norm) / res.res_norm
+        print(f"{label} solution: shape {tuple(res.x.shape)}, itCG "
+              f"{res.n_iterations}, |b - Ax| {true_res:.6e} vs estimate "
+              f"{res.res_norm:.6e} (rel gap {gap:.2e}, tol 1e-3)")
+        if tuple(res.x.shape) != shape or not torch.isfinite(res.x).all() \
+                or res.n_iterations != row.n_iterations or not gap < 1e-3:
+            raise AssertionError(f"{label} solution is wrong")
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": f"mf_data_locality_tpu/ops/cg_fused_kernel.py:"
-                            f"{line}",
-                "launches": launches[name], "max_abs_err": errs[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
-               for name, line in (("matvec", 1116),
-                                  ("fused_cg_iteration", 1476))]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": CSRC + src,
+         "replaces": f"mf_data_locality_tpu/ops/{line}",
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (_, src, line) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

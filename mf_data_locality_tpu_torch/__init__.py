@@ -7,12 +7,13 @@ FE_Q(p) with Gauss(p+2) quadrature and a node-blocked Jacobi
 preconditioner — with the merged ("data-locality") conjugate gradient:
 each iteration makes one pass over the vectors and one 7-scalar reduction.
 
-Solver state lives in lattice form ``(C, Nz, Ny, Nx)``.  The two hot
-kernels — the operator apply and the whole fused CG iteration — are
-hand-written CUDA (``csrc/``), compiled with ``nvcc`` at first use
-(:mod:`.ops._build`).  Every kernel has a plain-PyTorch version beside it
-(:mod:`.ops.cg_fused_kernel`), which a wrapper takes only for tensors on
-the CPU.
+Solver state lives in lattice form ``(C, Nz, Ny, Nx)``.  Three solvers:
+the fused merged CG (one kernel per iteration), and the merged and the
+textbook (baseline) CG on the dense operator apply, cell-batched or on the
+lattice.  Every kernel is hand-written CUDA (``csrc/``), compiled with
+``nvcc`` at first use (:mod:`.ops._build`), and has a plain-PyTorch
+version beside it (:mod:`.ops.cg_fused_kernel`, :mod:`.ops.laplace_apply`),
+which a wrapper takes only for tensors on the CPU.
 
 The runtime imports ``torch`` and ``numpy``; it never imports JAX.
 

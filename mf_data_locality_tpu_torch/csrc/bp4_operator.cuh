@@ -1,5 +1,7 @@
 // BP4 cell operator for Hopper (sm_90a): the shared core of the matvec
-// (B1) and fused CG iteration (B2) kernels in cg_fused.cu.
+// (B1) and fused CG iteration (B2) kernels in cg_fused.cu; the metric
+// rebuild (onthefly_metric) and the assemble pass are also used by the apply
+// family (B3-B6) in laplace_apply.cu.
 //
 // What it computes, per hex cell of the lattice (C = 3 components, degree P,
 // Q = P + 2 Gauss points per direction), on the cell's (P+1)^3 node values u:
@@ -117,6 +119,41 @@ struct CellSmem {
   T w2[NP];
 };
 
+// Metric entries (00, 01, 02, 11, 12, 22) at one q-point, rebuilt from the
+// cell's 24 trilinear coefficients: J = pds . c24 in exact FMA, the adjugate
+// chain ("adjj"), G = w adj adj^T / det.  `pq` is the q-point's row of pds
+// (d(monomial k)/d(u_e) at e*8 + k), `c24` holds coordinate d's coefficient
+// k at d*8 + k.
+template <typename T>
+__device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
+                                                T w, T* g) {
+  T J[3][3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      T a = T(0);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a = fma(pq[e * 8 + k], c24[d * 8 + k], a);
+      J[d][e] = a;
+    }
+  const T a = J[0][0], b = J[0][1], c = J[0][2];
+  const T d = J[1][0], e = J[1][1], f = J[1][2];
+  const T gg = J[2][0], h = J[2][1], i = J[2][2];
+  const T adj[3][3] = {{e * i - f * h, c * h - b * i, b * f - c * e},
+                       {f * gg - d * i, a * i - c * gg, c * d - a * f},
+                       {d * h - e * gg, b * gg - a * h, a * e - b * d}};
+  const T det = a * adj[0][0] + b * adj[1][0] + c * adj[2][0];
+  const T scale = w / (det == T(0) ? T(1) : det);
+  int r = 0;
+#pragma unroll
+  for (int e0 = 0; e0 < 3; ++e0)
+#pragma unroll
+    for (int f0 = e0; f0 < 3; ++f0, ++r)
+      g[r] = (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
+              adj[e0][2] * adj[f0][2]) * scale;
+}
+
 // Copy the operator tables and this cell's coefficients to shared memory.
 template <typename T, int P, bool SPLIT>
 __device__ void load_tables(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
@@ -144,33 +181,10 @@ __device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
 
   // metric at each q-point, rebuilt from the 24 coefficients
   for (int qp = tid; qp < S::Q3; qp += blockDim.x) {
-    const T* pq = tb.pds + qp * 24;
-    T J[3][3];
+    T g[6];
+    onthefly_metric(tb.pds + qp * 24, sm.c24, tb.w3[qp], g);
 #pragma unroll
-    for (int d = 0; d < 3; ++d)
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        T a = T(0);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) a = fma(pq[e * 8 + k], sm.c24[d * 8 + k], a);
-        J[d][e] = a;
-      }
-    const T a = J[0][0], b = J[0][1], c = J[0][2];
-    const T d = J[1][0], e = J[1][1], f = J[1][2];
-    const T g = J[2][0], h = J[2][1], i = J[2][2];
-    const T adj[3][3] = {{e * i - f * h, c * h - b * i, b * f - c * e},
-                         {f * g - d * i, a * i - c * g, c * d - a * f},
-                         {d * h - e * g, b * g - a * h, a * e - b * d}};
-    const T det = a * adj[0][0] + b * adj[1][0] + c * adj[2][0];
-    const T scale = tb.w3[qp] / (det == T(0) ? T(1) : det);
-    int r = 0;
-#pragma unroll
-    for (int e0 = 0; e0 < 3; ++e0)
-#pragma unroll
-      for (int f0 = e0; f0 < 3; ++f0, ++r)
-        sm.g6[r * S::Q3 + qp] =
-            (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
-             adj[e0][2] * adj[f0][2]) * scale;
+    for (int r = 0; r < 6; ++r) sm.g6[r * S::Q3 + qp] = g[r];
   }
 
   // z stage: (c, qz, ky, kx) planes
@@ -332,6 +346,57 @@ __device__ void block_sum(T (*red)[kNodeThreads], const T* v) {
       for (int k = 0; k < kDots; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + s];
     __syncthreads();
   }
+}
+
+// The assemble pass: one thread per lattice node sums the node's <= 8
+// cell-local contributions (cells[(c * n_cells + cell) * P13 + l]) in a
+// fixed order, masks, and writes h; with DOTS it also writes per-block
+// partials of the 7 update3b sums over d', g' as stored and h'
+// (cg_fused_kernel.py:877-895).  Replaces the TPU kernels' lane-roll
+// consistency and z carry plane.
+template <typename T, int P, bool DOTS>
+__global__ void __launch_bounds__(kNodeThreads)
+    assemble_kernel(Grid gr, const T* __restrict__ cells, T* __restrict__ h,
+                    const T* __restrict__ g, const T* __restrict__ d,
+                    const T* __restrict__ prec, T* __restrict__ partials) {
+  __shared__ T red[DOTS ? kDots : 1][kNodeThreads];
+  const int n_nodes = gr.n_nodes();
+  const int node = blockIdx.x * kNodeThreads + threadIdx.x;
+  T acc[kDots] = {};
+  if (node < n_nodes) {
+    const int x = node % gr.nx, y = (node / gr.nx) % gr.ny,
+              z = node / (gr.nx * gr.ny);
+    const bool in = interior(gr, z, y, x);
+    T pv = T(0);
+    if constexpr (DOTS) pv = prec[node];
+    for (int c = 0; c < kComps; ++c) {
+      const size_t idx = static_cast<size_t>(c) * n_nodes + node;
+      const T hv = in ? gather_node<T, P>(cells, gr, c, z, y, x) : T(0);
+      h[idx] = hv;
+      if constexpr (DOTS) {
+        const T gv = g[idx], dv = d[idx];
+        const T ph = pv * hv, pg = pv * gv;
+        acc[0] += dv * hv;
+        acc[1] += hv * hv;
+        acc[2] += gv * hv;
+        acc[3] += gv * gv;
+        acc[4] += gv * ph;
+        acc[5] += hv * ph;
+        acc[6] += gv * pg;
+      }
+    }
+  }
+  if constexpr (DOTS) {
+    block_sum(red, acc);
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kDots; ++k) partials[blockIdx.x * 8 + k] = red[k][0];
+      partials[blockIdx.x * 8 + kDots] = T(0);
+    }
+  }
+}
+
+inline int node_blocks(const Grid& gr) {
+  return (gr.n_nodes() + kNodeThreads - 1) / kNodeThreads;
 }
 
 }  // namespace bp4

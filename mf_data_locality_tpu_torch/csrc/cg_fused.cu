@@ -111,48 +111,6 @@ __global__ void __launch_bounds__(kCellThreads)
   cell_apply(sm, tb, gr, cell, cz, cy, cx, cells);
 }
 
-template <typename T, int P, bool DOTS>
-__global__ void __launch_bounds__(kNodeThreads)
-    assemble_kernel(Grid gr, const T* __restrict__ cells, T* __restrict__ h,
-                    const T* __restrict__ g, const T* __restrict__ d,
-                    const T* __restrict__ prec, T* __restrict__ partials) {
-  __shared__ T red[DOTS ? kDots : 1][kNodeThreads];
-  const int n_nodes = gr.n_nodes();
-  const int node = blockIdx.x * kNodeThreads + threadIdx.x;
-  T acc[kDots] = {};
-  if (node < n_nodes) {
-    const int x = node % gr.nx, y = (node / gr.nx) % gr.ny,
-              z = node / (gr.nx * gr.ny);
-    const bool in = interior(gr, z, y, x);
-    T pv = T(0);
-    if constexpr (DOTS) pv = prec[node];
-    for (int c = 0; c < kComps; ++c) {
-      const size_t idx = static_cast<size_t>(c) * n_nodes + node;
-      const T hv = in ? gather_node<T, P>(cells, gr, c, z, y, x) : T(0);
-      h[idx] = hv;
-      if constexpr (DOTS) {
-        // update3b sums over d', g' as stored and h' (cg_fused_kernel.py:877-895)
-        const T gv = g[idx], dv = d[idx];
-        const T ph = pv * hv, pg = pv * gv;
-        acc[0] += dv * hv;
-        acc[1] += hv * hv;
-        acc[2] += gv * hv;
-        acc[3] += gv * gv;
-        acc[4] += gv * ph;
-        acc[5] += hv * ph;
-        acc[6] += gv * pg;
-      }
-    }
-  }
-  if constexpr (DOTS) {
-    block_sum(red, acc);
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < kDots; ++k) partials[blockIdx.x * 8 + k] = red[k][0];
-      partials[blockIdx.x * 8 + kDots] = T(0);
-    }
-  }
-}
-
 // The merged-CG scalar update from the 7 sums (cg_fused_kernel.scalar_recurrence,
 // solver_cg_optimized.h:249-295).  d.h = 0 (breakdown) propagates NaN into
 // alpha and res2 on purpose: the solver's `res > tol` test then ends the solve.
@@ -191,10 +149,6 @@ __global__ void __launch_bounds__(kNodeThreads)
     for (int k = 0; k < kDots; ++k) s[k] = red[k][0];
     scalar_recurrence(s, scal, scal2);
   }
-}
-
-inline int node_blocks(const Grid& gr) {
-  return (gr.n_nodes() + kNodeThreads - 1) / kNodeThreads;
 }
 
 template <typename T, int P, bool SPLIT>

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (``csrc/``) at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared library with a
-plain C interface, which is loaded with :mod:`ctypes` (no PyTorch headers,
-so a build takes seconds).  The library lands in ``_kernel_build/`` inside
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
+sources at once in parallel processes, and links them into one shared
+library with a plain C interface, which is loaded with :mod:`ctypes` (no
+PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
 the package, under a name keyed by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  A missing
 ``nvcc`` or a failed build raises.
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,8 @@ _SIGNATURES = {
     "bp4_error_string": (ctypes.c_char_p, [_I]),
     "bp4_matvec": (_I, [_I] * 3 + [_P] * 9 + [_I] * 3 + [_P]),
     "bp4_fused_iteration": (_I, [_I] * 3 + [_P] * 19 + [_I] * 3 + [_P]),
+    "bp4_apply_batched": (_I, [_I] * 4 + [_P] * 8 + [_I] + [_P]),
+    "bp4_apply_lattice": (_I, [_I] * 3 + [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 
@@ -73,14 +76,31 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    failed = [p.args[-3] for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, lib)  # atomic: another process never loads half a file
     (BUILD_DIR / (lib.stem + ".log")).write_text(log)
     return lib, log

@@ -163,24 +163,29 @@ def delayed_x_fixup(x, g, d, prec, scal, it: int):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
-    """Raise unless every tensor is contiguous, of the operator's dtype, on
-    the operator's device, and of its expected shape."""
-    if op.degree not in KERNEL_DEGREES:
+def check_tensors(op: OperatorData, degrees, pairs) -> None:
+    """Raise unless ``op.degree`` has a kernel (``degrees``) and every
+    (tensor, shape) pair is a contiguous tensor of the operator's dtype,
+    on its device, of that shape."""
+    if op.degree not in degrees:
         raise NotImplementedError(
             f"degree {op.degree} has no CUDA kernel instantiated "
-            f"(have {KERNEL_DEGREES}); see ROADMAP.md queue B")
-    want = [(v, (N_COMPONENTS,) + op.n_nodes_axis) for v in vectors]
-    if prec is not None:
-        want.append((prec, (1,) + op.n_nodes_axis))
-    want += [(s, (8,)) for s in scals]
-    for t, shape in want:
+            f"(have {degrees}); see ROADMAP.md queue B")
+    for t, shape in pairs:
         if (t.device != op.device or t.dtype != op.dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
                 f"expected a contiguous {op.dtype} tensor of shape {shape} "
                 f"on {op.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
+
+
+def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
+    want = [(v, (N_COMPONENTS,) + op.n_nodes_axis) for v in vectors]
+    if prec is not None:
+        want.append((prec, (1,) + op.n_nodes_axis))
+    want += [(s, (8,)) for s in scals]
+    check_tensors(op, KERNEL_DEGREES, want)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -191,9 +196,13 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def dtype_code(op: OperatorData) -> int:
+    """The kernels' dtype argument: 0 = float32, 1 = float64."""
+    return {torch.float32: 0, torch.float64: 1}[op.dtype]
+
+
 def _common_args(op: OperatorData):
-    dtype_code = {torch.float32: 0, torch.float64: 1}[op.dtype]
-    return (dtype_code, int(op.precision == "split2m"), op.degree,
+    return (dtype_code(op), int(op.precision == "split2m"), op.degree,
             op.mats2d.data_ptr(), op.sz.data_ptr(), op.dz.data_ptr(),
             op.kpds.data_ptr(), op.w3.data_ptr(), op.kcoeffs.data_ptr())
 

@@ -1,0 +1,277 @@
+"""The apply family of the BP4 operator: cell-batched and lattice applies.
+
+Counterparts of ``mf_data_locality_tpu.ops.laplace_pallas`` for the dense
+factorization (``factor="dense"``), the operator of the merged and baseline
+solvers.  Per cell, ``v = sum_e M_e^T G_ef M_f u`` with the dense gradient
+matrices ``M`` and the symmetric metric ``G``.  The kernels:
+
+* :func:`apply_local_batched_g` — B3, ``apply_local_batched`` with the
+  precomputed metric (TPU kernel ``_kernel_g``);
+* :func:`apply_local_batched_onthefly` — B4, ``apply_local_batched`` with the
+  metric rebuilt per q-point (TPU kernel ``_kernel``), exact at the working
+  dtype on every rung;
+* :func:`apply_lattice_pieces` — B5 (``_kernel_g_pieces``): M A M on the
+  lattice, the Dirichlet mask computed from the node indices;
+* :func:`apply_lattice_zslab` — B6 (``_kernel_g_zslab``): the same, the mask
+  read from the operator's mask tensor.
+
+Cell batches are ``(C (p+1)^3, n_cells)``, rows (c, kz, ky, kx), columns
+cells (cz, cy, cx) — the JAX layout, without its lane padding.  Lattice
+vectors are ``(C, Nz, Ny, Nx)``.  The windowing between the two
+(:func:`to_cell_batches`, :func:`from_cell_batches`) is plain PyTorch, as it
+is XLA outside the Pallas kernels in JAX.
+
+Each kernel wrapper runs the hand-written CUDA kernel
+(``csrc/laplace_apply.cu``) for tensors on a CUDA device and its plain
+PyTorch version (einsum over cells, the same bf16 rounding points for
+``split2m``) for tensors on the CPU; other devices raise.  Each wrapper
+counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
+from mf_data_locality_tpu_torch.ops import _build
+from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
+    N_COMPONENTS, _parts, _route, check_tensors, dtype_code, metric_onthefly)
+from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
+
+KERNEL_DEGREES = (1, 2, 3, 4)  # degrees instantiated in csrc/laplace_apply.cu
+
+
+# ---------------------------------------------------------------------------
+# windowing (laplace_structured.cellify_t / overlap_add_t,
+# laplace_pallas._to_cell_batches / _from_cell_batches)
+# ---------------------------------------------------------------------------
+
+def cellify_t(t: torch.Tensor, axis: int, p: int) -> torch.Tensor:
+    """Split a node axis of size nc p + 1 into (p+1, nc) overlapping
+    windows, the window dim first: element [k, c] is node c p + k."""
+    return t.unfold(axis, p + 1, p).movedim(-1, axis)
+
+
+def overlap_add_t(v: torch.Tensor, axis: int, p: int) -> torch.Tensor:
+    """Adjoint of :func:`cellify_t`: (p+1, nc) at (axis, axis+1) -> node axis.
+
+    A shared node c p receives window p of cell c-1 and window 0 of cell c;
+    each sum has two terms, so it equals the JAX package's to the bit.
+    """
+    nc = v.shape[axis + 1]
+    lead, tail = v.shape[:axis], v.shape[axis + 2:]
+    out = v.new_zeros(lead + (nc * p + 1,) + tail)
+    main = v.narrow(axis, 0, p).transpose(axis, axis + 1)  # (nc, p)
+    out.narrow(axis, 0, nc * p).copy_(main.reshape(lead + (nc * p,) + tail))
+    index = (slice(None),) * axis + (slice(p, None, p),)
+    out[index] += v.select(axis, p)
+    return out
+
+
+def to_cell_batches(u: torch.Tensor, p: int) -> torch.Tensor:
+    """(C, Nz, Ny, Nx) lattice -> (C (p+1)^3, n_cells) cell batches."""
+    t = cellify_t(u, 3, p)  # (C, Nz, Ny, p1, ncx)
+    t = cellify_t(t, 2, p)  # (C, Nz, p1, ncy, p1, ncx)
+    t = cellify_t(t, 1, p)  # (C, p1, ncz, p1, ncy, p1, ncx)
+    t = t.permute(0, 1, 3, 5, 2, 4, 6)
+    return t.reshape(u.shape[0] * (p + 1) ** 3, -1)
+
+
+def from_cell_batches(v: torch.Tensor, p: int, n_cells_axis) -> torch.Tensor:
+    """(C (p+1)^3, n_cells) -> (C, Nz, Ny, Nx), summing shared nodes axis by
+    axis (z, then y, then x)."""
+    ncz, ncy, ncx = n_cells_axis
+    p1 = p + 1
+    n_comp = v.shape[0] // p1 ** 3
+    v = v.reshape(n_comp, p1, p1, p1, ncz, ncy, ncx)
+    v = v.permute(0, 1, 4, 2, 5, 3, 6)  # (C, p1z, ncz, p1y, ncy, p1x, ncx)
+    v = overlap_add_t(v, 1, p)
+    v = overlap_add_t(v, 2, p)
+    return overlap_add_t(v, 3, p)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _metric(op: OperatorData) -> torch.Tensor:
+    """(6, q^3, n_cells): the streamed metric, or the rebuilt one."""
+    q3 = op.n_q ** 3
+    if op.gmetric is not None:
+        return op.gmetric.reshape(6, q3, op.n_cells)
+    return metric_onthefly(op).permute(0, 2, 1)
+
+
+def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
+                   split: bool) -> torch.Tensor:
+    """v = sum_e M_e^T G_ef M_f u on a cell batch (``_kernel_g`` / ``_kernel``)."""
+    p13 = (op.degree + 1) ** 3
+    q3 = op.n_q ** 3
+    nc = u_loc.shape[1]
+    u = u_loc.reshape(-1, p13, nc)
+    m = op.mats.to(torch.bfloat16).to(op.dtype) if split else op.mats
+    g = sum(torch.einsum("rk,ckn->crn", m, b) for b in _parts(u, split))
+    gx, gy, gz = g.reshape(-1, 3, q3, nc).unbind(1)
+    t = torch.stack([G[0] * gx + G[1] * gy + G[2] * gz,
+                     G[1] * gx + G[3] * gy + G[4] * gz,
+                     G[2] * gx + G[4] * gy + G[5] * gz], dim=1)
+    t = t.reshape(-1, 3 * q3, nc)
+    v = sum(torch.einsum("rk,crn->ckn", m, b) for b in _parts(t, split))
+    return v.reshape(-1, nc)
+
+
+def _lattice_plain(op: OperatorData, u: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """M A M u on the lattice through the cell batches."""
+    p = op.degree
+    v = _batched_plain(op, to_cell_batches(u * mask, p), _metric(op),
+                       op.precision == "split2m")
+    return from_cell_batches(v, p, op.n_cells_axis) * mask
+
+
+def _index_mask(op: OperatorData) -> torch.Tensor:
+    """The box's Dirichlet mask built from the node indices (B5's source)."""
+    m = ~boundary_node_mask(op.n_nodes_axis)
+    return torch.as_tensor(m.reshape((1,) + op.n_nodes_axis)).to(
+        device=op.device, dtype=op.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _tables(op: OperatorData) -> list:
+    """The operator tables the kernels read by pointer, with their shapes."""
+    p13, r = (op.degree + 1) ** 3, 3 * op.n_q ** 3
+    pairs = [(op.mats, (r, p13)), (op.kmats, (p13, r))]
+    if op.gmetric is not None:
+        pairs.append((op.gmetric, (2 * r, op.n_cells)))
+    return pairs
+
+
+def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
+                    onthefly: bool) -> torch.Tensor:
+    shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
+    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + _tables(op))
+    lib = _build.load()
+    out = torch.empty_like(u_loc)
+    rc = lib.bp4_apply_batched(
+        dtype_code(op), int(op.precision == "split2m" and not onthefly),
+        op.degree, int(onthefly), op.mats.data_ptr(), op.kmats.data_ptr(),
+        0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
+        op.w3.data_ptr(), op.kcoeffs.data_ptr(), u_loc.data_ptr(),
+        out.data_ptr(), op.n_cells,
+        torch.cuda.current_stream(u_loc.device).cuda_stream)
+    _build.check(lib, rc, "bp4_apply_batched")
+    return out
+
+
+def apply_local_batched_g(op: OperatorData, u_loc: torch.Tensor) -> torch.Tensor:
+    """B3: the cell-batch apply with the streamed metric, at ``op.precision``."""
+    if op.gmetric is None:
+        raise ValueError("apply_local_batched_g needs metric='precomputed'")
+    if _route(u_loc) == "plain":
+        return _batched_plain(op, u_loc, _metric(op),
+                              op.precision == "split2m")
+    out = _batched_kernel(op, u_loc, onthefly=False)
+    apply_local_batched_g.launches += 1
+    return out
+
+
+apply_local_batched_g.launches = 0
+
+
+def apply_local_batched_onthefly(op: OperatorData,
+                                 u_loc: torch.Tensor) -> torch.Tensor:
+    """B4: the cell-batch apply with the metric rebuilt per q-point from
+    the trilinear coefficients; exact at the working dtype whatever
+    ``op.precision`` says (``_kernel`` runs at ``Precision.HIGHEST``)."""
+    if _route(u_loc) == "plain":
+        return _batched_plain(op, u_loc, metric_onthefly(op).permute(0, 2, 1),
+                              split=False)
+    out = _batched_kernel(op, u_loc, onthefly=True)
+    apply_local_batched_onthefly.launches += 1
+    return out
+
+
+apply_local_batched_onthefly.launches = 0
+
+
+def apply_local_batched(op: OperatorData, u_loc: torch.Tensor) -> torch.Tensor:
+    """(C (p+1)^3, n_cells) -> same: B3 with a precomputed metric, else B4."""
+    if op.gmetric is not None:
+        return apply_local_batched_g(op, u_loc)
+    return apply_local_batched_onthefly(op, u_loc)
+
+
+def _lattice_kernel(op: OperatorData, u: torch.Tensor,
+                    mask: torch.Tensor | None) -> torch.Tensor:
+    if op.gmetric is None:
+        raise ValueError("the lattice applies need metric='precomputed'")
+    lat = (N_COMPONENTS,) + op.n_nodes_axis
+    check_tensors(op, KERNEL_DEGREES, [(u, lat)] + _tables(op))
+    lib = _build.load()
+    out = torch.empty_like(u)
+    cells = torch.empty((N_COMPONENTS, op.n_cells, (op.degree + 1) ** 3),
+                        dtype=op.dtype, device=op.device)
+    ncz, ncy, ncx = op.n_cells_axis
+    rc = lib.bp4_apply_lattice(
+        dtype_code(op), int(op.precision == "split2m"), op.degree,
+        op.mats.data_ptr(), op.kmats.data_ptr(), op.gmetric.data_ptr(),
+        0 if mask is None else mask.data_ptr(), u.data_ptr(),
+        cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, rc, "bp4_apply_lattice")
+    return out
+
+
+def apply_lattice_pieces(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
+    """B5: M A M u on a (C, Nz, Ny, Nx) lattice, the Dirichlet mask built
+    from the node indices (``_dirichlet_mask_pieces``)."""
+    if _route(u) == "plain":
+        return _lattice_plain(op, u, _index_mask(op))
+    out = _lattice_kernel(op, u, mask=None)
+    apply_lattice_pieces.launches += 1
+    return out
+
+
+apply_lattice_pieces.launches = 0
+
+
+def apply_lattice_zslab(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
+    """B6: M A M u on a (C, Nz, Ny, Nx) lattice, the mask read from
+    ``op.mask``."""
+    if _route(u) == "plain":
+        return _lattice_plain(op, u, op.mask)
+    check_tensors(op, KERNEL_DEGREES, [(op.mask, (1,) + op.n_nodes_axis)])
+    out = _lattice_kernel(op, u, mask=op.mask)
+    apply_lattice_zslab.launches += 1
+    return out
+
+
+apply_lattice_zslab.launches = 0
+
+
+def apply_lattice(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
+    """The operator on a (C, Nz, Ny, Nx) lattice by ``op.windowing``; the
+    ``pieces`` and ``zslab`` applies mask both sides themselves."""
+    if op.windowing == "zslab":
+        return apply_lattice_zslab(op, u)
+    if op.windowing == "pieces":
+        return apply_lattice_pieces(op, u)
+    p = op.degree
+    v_loc = apply_local_batched(op, to_cell_batches(u, p).contiguous())
+    return from_cell_batches(v_loc, p, op.n_cells_axis)
+
+
+def vmult(op: OperatorData, u: torch.Tensor,
+          constrained_identity: bool = True) -> torch.Tensor:
+    """The full operator with Dirichlet masking (``laplace_pallas.vmult``):
+    M A M u, plus u at the constrained nodes when ``constrained_identity``."""
+    if op.windowing in ("zslab", "pieces"):
+        v = apply_lattice(op, u)
+    else:
+        v = apply_lattice(op, u * op.mask) * op.mask
+    if constrained_identity:
+        v = v + u * (1.0 - op.mask)
+    return v

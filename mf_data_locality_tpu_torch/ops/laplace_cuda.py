@@ -1,27 +1,42 @@
 """Operator data for the BP4 kernels (counterpart of ``laplace_pallas.make_pallas_operator``).
 
-The slice's configuration only: the two-stage factorization (z direction
-contracted by 1D factors, then a dense 2D stage), geometry rebuilt per
-quadrature point from 24 trilinear coefficients per cell ("onthefly"),
-and the adjugate-of-J inversion chain ("adjj").  The arrays are kept in
-canonical order — the port works on the lattice ``(C, Nz, Ny, Nx)``, not on
-the TPU's corner-piece rows, so no column permutation is applied to the
-2D matrices.
+Two families of configurations, named by (factor, metric, windowing):
+
+* the fused path (``solvers/cg_fused``, kernels B1/B2): ``("twostage",
+  "onthefly", "pieces")`` with the adjugate inversion chain ("adjj") — the z
+  direction contracted by 1D factors, a dense 2D stage, geometry rebuilt per
+  quadrature point from 24 trilinear coefficients per cell;
+* the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
+  and baseline solvers): the dense factorization with the metric streamed
+  (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
+  ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``).
+
+The arrays are kept in canonical order — the port works on the lattice
+``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
+permutation, no cell padding and no windowed mask are held.
 
 Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 * ``mats2d`` (3 q^2, (p+1)^2): ``[Dx2d; Dy2d; S2d]``, rows (qy, qx) and
   columns (ky, kx), x fastest (``laplace_pallas._dense_gradient_matrices_2d``),
-  as the kernels consume them: for the ``split2m`` rung rounded to bf16 once
-  here (``cg_fused_kernel._prestack``), held in the working dtype.
+  as the fused kernels consume them: for the ``split2m`` rung rounded to
+  bf16 once here (``cg_fused_kernel._prestack``), held in the working dtype.
 * ``sz``, ``dz`` (q, p+1): the 1D z factors (``laplace_pallas._z_matrices``).
+* ``mats`` (3 q^3, (p+1)^3): ``[M_x; M_y; M_z]``, the dense gradient
+  matrices (``laplace_pallas._dense_gradient_matrices``), unrounded: the
+  apply family rounds them at the product for ``split2m``, as ``_mm`` does,
+  and the on-the-fly apply (B4) always uses them exactly.
+* ``gmetric`` (6 q^3, n_cells) or None: the metric entries (00, 01, 02, 11,
+  12, 22) per q-point, computed on the host in f64 and rounded to ``T``
+  once (``metric="precomputed"``).
 * ``pds`` (3 q^3, 8): derivatives of the trilinear monomials at the tensor
   quadrature points; ``w3`` (q^3, 1) the tensor weights.
 * ``coeffs`` (3, 8, n_cells): trilinear coefficients, cell-minor.
 * ``mask`` (1, Nz, Ny, Nx): 1 at free nodes, 0 at Dirichlet nodes.
 
-``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24) are the same data in the
-layouts the kernels read (one contiguous row per q-point / per cell).
+``kmats`` ((p+1)^3, 3 q^3), ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24)
+are the same data in the layouts the kernels read (one contiguous row per
+node / per q-point / per cell).
 """
 
 from __future__ import annotations
@@ -37,6 +52,28 @@ from mf_data_locality_tpu_torch.ops import geometry, lagrange
 
 _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
          "configurations)")
+
+WINDOWINGS = ("reshape", "pieces", "zslab")
+# (factor, metric, windowing) the port has; the fused path needs the first
+FUSED_CONFIG = ("twostage", "onthefly", "pieces")
+APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
+                 ("dense", "precomputed", "pieces"),
+                 ("dense", "precomputed", "zslab"),
+                 ("dense", "onthefly", "reshape"))
+
+
+def dense_gradient_matrices(p: int, q: int) -> np.ndarray:
+    """[M_x; M_y; M_z] stacked (3 q^3, (p+1)^3): rows (qz, qy, qx) and
+    columns (kz, ky, kx), x fastest."""
+    shape = lagrange.make_shape(p, q)
+    S, Sg = shape.values, shape.grads
+
+    def t3(az, ay, ax):
+        out = np.einsum("ck,bj,ai->cbakji", az, ay, ax)
+        return out.reshape(q ** 3, (p + 1) ** 3)
+
+    return np.ascontiguousarray(
+        np.concatenate([t3(S, S, Sg), t3(S, Sg, S), t3(Sg, S, S)], axis=0))
 
 
 def dense_gradient_matrices_2d(p: int, q: int) -> np.ndarray:
@@ -79,29 +116,54 @@ def tensor_weights(p: int, q: int) -> np.ndarray:
     return (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(-1, 1)
 
 
+def metric_entries(coeffs: np.ndarray, q_points: np.ndarray,
+                   w3: np.ndarray) -> np.ndarray:
+    """G = det(J) w J^{-1} J^{-T} at every q-point, on the host in f64
+    (``laplace_pallas._metric_entries``, its NumPy branch).
+
+    ``coeffs``: (n_cells, 8, 3).  Returns the 6 unique entries (00, 01, 02,
+    11, 12, 22) stacked as rows: (6 q^3, n_cells).
+    """
+    qp = q_points
+    w, v, u = np.meshgrid(qp, qp, qp, indexing="ij")
+    uvw = np.stack([u.reshape(-1), v.reshape(-1), w.reshape(-1)], axis=-1)
+    jac = geometry.jacobian(np.asarray(coeffs, np.float64)[:, None, :, :],
+                            uvw[None, :, :])
+    inv, det = geometry.invert_3x3(jac)  # (nc, q^3, 3, 3), (nc, q^3)
+    g = np.einsum("cqed,cqfd->cqef", inv, inv) * (det * w3.reshape(1, -1))[
+        ..., None, None]
+    entries = [g[..., 0, 0], g[..., 0, 1], g[..., 0, 2],
+               g[..., 1, 1], g[..., 1, 2], g[..., 2, 2]]
+    return np.concatenate([e.T for e in entries], axis=0)
+
+
 @dataclass(frozen=True)
 class OperatorData:
     mats2d: torch.Tensor
     sz: torch.Tensor
     dz: torch.Tensor
+    mats: torch.Tensor
+    gmetric: torch.Tensor | None
     pds: torch.Tensor
     w3: torch.Tensor
     coeffs: torch.Tensor
     mask: torch.Tensor
+    kmats: torch.Tensor
     kpds: torch.Tensor
     kcoeffs: torch.Tensor
     degree: int
     n_q: int
     n_cells_axis: tuple[int, int, int]
     precision: str
+    windowing: str = "pieces"
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.mats2d.dtype
+        return self.w3.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.mats2d.device
+        return self.w3.device
 
     @property
     def n_cells(self) -> int:
@@ -115,69 +177,108 @@ class OperatorData:
 
 def check_config(precision: str, factor: str = "twostage",
                  metric: str = "onthefly", cofactor: str = "adjj",
-                 dtype: torch.dtype = torch.float32) -> None:
-    """Raise NotImplementedError for a configuration the port lacks."""
+                 dtype: torch.dtype = torch.float32,
+                 windowing: str = "pieces", solver: str | None = None) -> None:
+    """Raise for a configuration the port lacks (NotImplementedError) or
+    that the JAX package refuses too (ValueError).
+
+    ``solver``: also check that the configuration is the one its solver
+    runs on — the fused path on the fused configuration, the merged and
+    baseline solvers on the apply family.
+    """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
-    if (factor, metric, cofactor) != ("twostage", "onthefly", "adjj"):
-        raise NotImplementedError(
-            f"factor={factor!r}, metric={metric!r}, cofactor={cofactor!r} "
-            f"is {_TODO}; the port has twostage + onthefly + adjj")
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"dtype={dtype} is {_TODO}")
     if precision == "split2m" and dtype != torch.float32:
         raise NotImplementedError(
             f"precision='split2m' with dtype={dtype} is {_TODO}")
+    if windowing not in WINDOWINGS:
+        raise NotImplementedError(
+            f"windowing={windowing!r} is not ported (XLA-level windowing in "
+            f"front of B3/B4): see ROADMAP.md, queue A item 10")
+    if solver == "fused" and windowing != "pieces":
+        raise ValueError("--solver fused requires --windowing pieces")
+    if metric == "onthefly" and windowing == "zslab":
+        raise ValueError("windowing='zslab' requires metric='precomputed'")
+    config = (factor, metric, windowing)
+    if metric == "onthefly" and cofactor != "adjj":
+        raise NotImplementedError(
+            f"cofactor={cofactor!r} is {_TODO}; the port has adjj")
+    wanted = ((FUSED_CONFIG,) if solver == "fused" else APPLY_CONFIGS
+              if solver is not None else (FUSED_CONFIG,) + APPLY_CONFIGS)
+    if config not in wanted:
+        raise NotImplementedError(
+            f"factor={factor!r}, metric={metric!r}, windowing={windowing!r}"
+            + (f" with solver={solver!r}" if solver else "")
+            + f" is {_TODO}; the port has {wanted}")
 
 
-def operator_from_arrays(mats2d: np.ndarray, pds: np.ndarray, w3: np.ndarray,
-                         coeffs: np.ndarray, mask: np.ndarray, degree: int,
+def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
+                         mask: np.ndarray, degree: int,
                          n_cells_axis: tuple[int, int, int], precision: str,
                          dtype: torch.dtype = torch.float32,
-                         device: torch.device | str = "cpu") -> OperatorData:
+                         device: torch.device | str = "cpu", *,
+                         mats2d: np.ndarray | None = None,
+                         mats: np.ndarray | None = None,
+                         gmetric: np.ndarray | None = None,
+                         factor: str = "twostage",
+                         windowing: str = "pieces") -> OperatorData:
     """Wrap host arrays (any float dtype) as an :class:`OperatorData`.
 
-    Values are rounded to ``dtype`` first and, for ``split2m``, from there to
+    ``mats2d`` and ``mats`` default to the canonical matrices of ``degree``;
+    ``gmetric`` given means ``metric="precomputed"``.  Values are rounded to
+    ``dtype`` first and, for ``mats2d`` under ``split2m``, from there to
     bf16 — the same two roundings the JAX package applies.
     """
-    check_config(precision, dtype=dtype)
+    metric = "onthefly" if gmetric is None else "precomputed"
+    check_config(precision, factor, metric, "adjj", dtype, windowing)
     p = degree
     q = p + 2
 
     def t(a):
-        return torch.tensor(np.asarray(a)).to(device=device, dtype=dtype)
+        # C order: the kernels read the tables by raw pointer
+        return torch.tensor(np.ascontiguousarray(a)).to(device=device,
+                                                         dtype=dtype)
 
-    m2 = t(mats2d)
+    m2 = t(dense_gradient_matrices_2d(p, q) if mats2d is None else mats2d)
     if precision == "split2m":
         m2 = m2.to(torch.bfloat16).to(dtype)
+    m3 = t(dense_gradient_matrices(p, q) if mats is None else mats)
     sz, dz = z_matrices(p, q)
     pds_t = t(pds)
     co = t(coeffs)
     nc = co.shape[-1]
     return OperatorData(
-        mats2d=m2, sz=t(sz), dz=t(dz), pds=pds_t, w3=t(w3),
-        coeffs=co, mask=t(mask),
+        mats2d=m2, sz=t(sz), dz=t(dz), mats=m3,
+        gmetric=None if gmetric is None else t(gmetric),
+        pds=pds_t, w3=t(w3), coeffs=co, mask=t(mask),
+        kmats=m3.t().contiguous(),
         kpds=pds_t.reshape(3, q**3, 8).permute(1, 0, 2).reshape(q**3, 24)
         .contiguous(),
         kcoeffs=co.reshape(24, nc).t().contiguous(),
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
-        precision=precision)
+        precision=precision, windowing=windowing)
 
 
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   precision: str = "split2m", factor: str = "twostage",
                   metric: str = "onthefly", cofactor: str = "adjj",
-                  device: torch.device | str = "cpu") -> OperatorData:
+                  device: torch.device | str = "cpu",
+                  windowing: str = "pieces") -> OperatorData:
     """Build the operator data for ``layout`` (q = p + 2 Gauss points)."""
-    check_config(precision, factor, metric, cofactor, dtype)
+    check_config(precision, factor, metric, cofactor, dtype, windowing)
     p = layout.degree
     q = p + 2
     shape = lagrange.make_shape(p, q)
     coeffs = geometry.trilinear_coefficients(layout.mesh.cell_vertices)
+    w3 = tensor_weights(p, q)
+    gmetric = (metric_entries(coeffs, shape.q_points, w3)
+               if metric == "precomputed" else None)
     nz, ny, nx = layout.n_nodes_axis
     mask = (~boundary_node_mask((nz, ny, nx))).reshape(1, nz, ny, nx)
     return operator_from_arrays(
-        dense_gradient_matrices_2d(p, q),
-        monomial_derivative_matrices(shape.q_points), tensor_weights(p, q),
+        monomial_derivative_matrices(shape.q_points), w3,
         coeffs.transpose(2, 1, 0), mask.astype(np.float64), p,
-        layout.mesh.n_cells_axis, precision, dtype, device)
+        layout.mesh.n_cells_axis, precision, dtype, device, gmetric=gmetric,
+        factor=factor, windowing=windowing)

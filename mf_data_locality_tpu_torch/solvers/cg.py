@@ -1,9 +1,21 @@
-"""Solver result type shared by the CG solvers."""
+"""Baseline preconditioned conjugate gradient, and the solver result type.
+
+The reference's ``benchmark_precond`` executable: stock deal.II ``SolverCG``
+with ``ReductionControl(100, 1e-15, 1e-8)`` (``benchmark_precond/bench.cc:
+4-25``), the textbook algorithm with 3 separate reductions and several vector
+sweeps per iteration, kept un-merged as the comparison for :mod:`cg_merged`
+(counterpart of ``mf_data_locality_tpu.solvers.cg``).
+
+The loop runs on the host with the reference's condition ``(res > tol) &
+(it < max_iter)``; the vector updates and dots stay on the device, and the
+residual norm is read on the host once per iteration.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -13,3 +25,60 @@ class SolveResult(NamedTuple):
     res_norm: float            # final monitored residual norm (NaN on breakdown)
     res_history: torch.Tensor  # (max_iter + 1,) monitored norms; NaN where unused
     converged: bool
+
+
+def _prec_apply(prec: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Node-blocked Jacobi: one diagonal entry per node, all components
+    (``prec`` of shape (1, n_nodes) broadcast against (C, n_nodes))."""
+    return prec * v
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b)
+
+
+def np_dtype(dtype: torch.dtype):
+    """The numpy type of the host-side residual history."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
+             b: torch.Tensor, prec: torch.Tensor,
+             x0: torch.Tensor | None = None, max_iter: int = 100,
+             abs_tol: float = 1e-15, rel_tol: float = 1e-8) -> SolveResult:
+    """Textbook PCG solving A x = b to ``max(abs_tol, rel_tol * ||r0||)``.
+
+    ``a_apply`` must be symmetric positive definite on the masked subspace;
+    ``b`` of shape (C, n_nodes); ``prec`` the inverse node diagonal,
+    broadcastable against ``b``.  Iterations count as deal.II's
+    ``ReductionControl`` does: the initial residual is step 0, each
+    iteration adds one and is checked after the residual update.
+    """
+    nd = np_dtype(b.dtype)
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
+    r = b - a_apply(x) if x0 is not None else b.clone()
+    res0 = nd(torch.sqrt(_dot(r, r)).item())
+    tol = max(nd(abs_tol), nd(rel_tol) * res0)
+    history = np.full((max_iter + 1,), np.nan, nd)
+    history[0] = res0
+
+    z = _prec_apply(prec, r)
+    p = z
+    rz = _dot(r, z)
+    it, res = 0, res0
+    while res > tol and it < max_iter:
+        ap = a_apply(p)
+        alpha = rz / _dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        res = nd(torch.sqrt(_dot(r, r)).item())
+        z = _prec_apply(prec, r)
+        rz_new = _dot(r, z)
+        beta = rz_new / rz
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+        history[it] = res
+    return SolveResult(x, it, float(res),
+                       torch.as_tensor(history, device=b.device),
+                       bool(res <= tol))

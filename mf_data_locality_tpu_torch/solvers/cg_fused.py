@@ -19,7 +19,7 @@ import torch
 
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
-from mf_data_locality_tpu_torch.solvers.cg import SolveResult
+from mf_data_locality_tpu_torch.solvers.cg import SolveResult, np_dtype
 
 
 def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
@@ -40,7 +40,7 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
         raise ValueError(f"b has shape {tuple(b.shape)}, expected (C,) + "
                          f"{tuple(n_nodes_axis)}")
     dtype = op.dtype
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    nd = np_dtype(dtype)
     mask = op.mask
     work = fk.Workspace(op) if b.device.type == "cuda" else None
 
@@ -53,9 +53,9 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
     P = prec[:1].to(dtype).contiguous()
 
     g0 = (-b_eff).contiguous()
-    res0 = np_dtype(torch.sqrt(torch.sum(g0 * g0)).item())
-    tol = max(np_dtype(abs_tol), np_dtype(rel_tol) * res0)
-    history = np.full((max_iter + 1,), np.nan, np_dtype)
+    res0 = nd(torch.sqrt(torch.sum(g0 * g0)).item())
+    tol = max(nd(abs_tol), nd(rel_tol) * res0)
+    history = np.full((max_iter + 1,), np.nan, nd)
     history[0] = res0
 
     zeros = [torch.zeros_like(g0) for _ in range(3)]
@@ -69,7 +69,7 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
         it += 1
         new = fk.fused_cg_iteration(op, *state, P, out=spare, work=work)
         state, spare = new, state
-        res = np.sqrt(np.maximum(np_dtype(state[4][5].item()), 0))
+        res = np.sqrt(np.maximum(nd(state[4][5].item()), 0))
         history[it] = res
 
     x, g, d, _, scal = state

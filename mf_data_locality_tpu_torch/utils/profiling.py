@@ -2,11 +2,15 @@
 device's idle share, from ``torch.profiler``.
 
     python -m mf_data_locality_tpu_torch.utils.profiling [degree] [s] \
-        [--dtype f32|f64] [--precision split2m|highest]
+        [--solver merged|baseline|fused] [--windowing reshape|pieces|zslab] \
+        [--geometry auto|qpoint|onthefly] [--dtype f32|f64] \
+        [--precision highest|split2m]
 
-profiles one fused merged-CG solve (after a warm-up solve) and prints one
-line per kernel name (calls, total device time, time per call) and the
-wall time, the summed kernel time and the idle share 1 - kernels / wall.
+profiles one solve (after a warm-up solve) of the configuration the
+benchmark CLI resolves for the same flags (defaults: merged CG, reshape,
+highest) and prints one line per kernel name (calls, total device time,
+time per call) and the wall time, the summed kernel time and the idle
+share 1 - kernels / wall.
 """
 
 from __future__ import annotations
@@ -47,30 +51,38 @@ def kernel_breakdown(fn: Callable[[], object], device: torch.device | str):
 
 
 def main(argv: list[str] | None = None) -> None:
+    from mf_data_locality_tpu_torch import benchmark
     from mf_data_locality_tpu_torch.models import bp4
-    from mf_data_locality_tpu_torch.solvers import cg_fused
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("degree", type=int, nargs="?", default=4)
     ap.add_argument("s", type=int, nargs="?", default=13)
+    ap.add_argument("--solver", choices=["merged", "baseline", "fused"],
+                    default="merged")
+    ap.add_argument("--windowing", choices=["reshape", "pieces", "zslab"],
+                    default="reshape")
+    ap.add_argument("--geometry", choices=["auto", "qpoint", "onthefly"],
+                    default="auto")
     ap.add_argument("--dtype", choices=["f32", "f64"], default="f32")
-    ap.add_argument("--precision", choices=["split2m", "highest"],
-                    default="split2m")
+    ap.add_argument("--precision", choices=["highest", "split2m"],
+                    default="highest")
     args = ap.parse_args(argv)
     device = require_cuda("cuda")
     dtype = torch.float32 if args.dtype == "f32" else torch.float64
-    pb = bp4.build(args.s, args.degree, dtype, args.precision, device=device)
-    lat = pb.layout.n_nodes_axis
-
-    def solve():
-        return cg_fused.fused_merged_cg_solve(
-            pb.op, lat, pb.b.reshape((3,) + lat),
-            pb.inv_diag.reshape((1,) + lat))
+    factor, metric, cofactor = benchmark.resolve_config(
+        args.degree, args.solver, args.windowing, args.precision, dtype,
+        metric={"auto": "auto", "qpoint": "precomputed",
+                "onthefly": "onthefly"}[args.geometry])
+    pb = bp4.build(args.s, args.degree, dtype, args.precision, factor=factor,
+                   metric=metric, cofactor=cofactor, device=device,
+                   windowing=args.windowing)
+    solve = benchmark.solver_call(pb, args.solver)
 
     n_it = solve().n_iterations  # warm-up
     rows, wall = kernel_breakdown(solve, device)
     busy = sum(r[2] for r in rows)
-    print(f"p={args.degree} s={args.s} {args.dtype} {args.precision}: "
+    print(f"p={args.degree} s={args.s} {args.solver} {args.windowing} "
+          f"{factor}/{metric} {args.dtype} {args.precision}: "
           f"{n_it} iterations")
     for name, calls, sec in rows:
         print(f"  {sec * 1e3:10.3f} ms  {calls:5d} calls  "

@@ -61,20 +61,61 @@ def test_row_and_ladder_match_jax():
 
 def test_run_one_refuses_without_card_and_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        benchmark.run_one(4, 3, solver="merged", device="cpu")
+        benchmark.run_one(4, 3, solver="merged", windowing="matmul",
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         benchmark.run_one(4, 3, solver="fused", precision="highest",
+                          windowing="pieces",
                           device="cpu")  # resolves to dense + precomputed
-    with pytest.raises(RuntimeError, match="CUDA"):
+    with pytest.raises(ValueError, match="pieces"):
         benchmark.run_one(4, 3, solver="fused", precision="split2m",
-                          device="cpu")
+                          device="cpu")  # the JAX CLI's refusal too
+    for kw in ({"solver": "fused", "precision": "split2m",
+                "windowing": "pieces"},
+               {"solver": "merged"}, {"solver": "baseline",
+                                      "windowing": "zslab"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            benchmark.run_one(4, 3, device="cpu", **kw)
+
+
+def test_cli_defaults_match_jax(monkeypatch):
+    """Called with no flags, both CLIs run the same configuration: solver,
+    precision, windowing and the metric the resolvers pick."""
+    seen = {}
+
+    def fake(mod, key):
+        def run_one(degree, s, **kw):
+            seen[key] = kw
+            return mod.RunResult(degree, degree + 2, 8, 375, 1e-4, 1e9, 10,
+                                 1e-4, True)
+        return run_one
+
+    monkeypatch.setattr(jbench, "run_one", fake(jbench, "jax"))
+    monkeypatch.setattr(benchmark, "run_one", fake(benchmark, "port"))
+    jbench.main(["4", "3"])
+    benchmark.main(["4", "3"])
+    resolved = {}
+    for key, mod in (("jax", jbench), ("port", benchmark)):
+        kw = seen[key]
+        factor = mod.resolve_factor(kw["factor"], 4, kw["windowing"],
+                                    precision=kw["precision"],
+                                    solver=kw["solver"], metric=kw["metric"])
+        resolved[key] = (kw["solver"], kw["precision"], kw["windowing"],
+                         mod.resolve_metric(kw["metric"], kw["solver"],
+                                            kw["windowing"], factor, 4,
+                                            precision=kw["precision"]))
+    assert resolved["port"] == resolved["jax"] == (
+        "merged", "highest", "reshape", "precomputed")
 
 
 def test_imports_no_jax():
     code = ("import sys\n"
             "import mf_data_locality_tpu_torch, "
             "mf_data_locality_tpu_torch.benchmark, "
-            "mf_data_locality_tpu_torch.solvers.cg_fused\n"
+            "mf_data_locality_tpu_torch.solvers.cg_fused, "
+            "mf_data_locality_tpu_torch.solvers.cg_merged, "
+            "mf_data_locality_tpu_torch.ops.laplace_apply, "
+            "mf_data_locality_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mf_data_locality_tpu.'))"
             " or m == 'mf_data_locality_tpu']\n"

@@ -13,6 +13,7 @@ import torch
 from mf_data_locality_tpu_torch import benchmark
 from mf_data_locality_tpu_torch.models import bp4
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+from mf_data_locality_tpu_torch.ops import laplace_apply as la
 from mf_data_locality_tpu_torch.solvers import cg_fused
 
 P = 4
@@ -118,6 +119,71 @@ def test_solve_on_card_matches_plain_solve(cuda_device):
 @pytest.mark.cuda
 def test_run_one_on_card(cuda_device):
     r = benchmark.run_one(4, 5, solver="fused", precision="split2m",
-                          solve_repeats=1, matvec_repeats=1, matvec_inner=5,
+                          windowing="pieces", solve_repeats=1,
+                          matvec_repeats=1, matvec_inner=5,
                           device=cuda_device)
     assert r.converged and r.time_per_it > 0 and r.time_per_matvec > 0
+
+
+RUNGS = [(torch.float32, "highest"), (torch.float32, "split2m"),
+         (torch.float64, "highest")]
+APPLY_CASES = [(p, kernel, dtype, precision)
+               for p in (1, 2, 3, 4)
+               for kernel in ("batched_g", "batched_onthefly", "pieces",
+                              "zslab")
+               for dtype, precision in RUNGS
+               if not (kernel == "batched_onthefly" and precision == "split2m")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,kernel,dtype,precision", APPLY_CASES)
+def test_apply_kernel_matches_plain(cuda_device, p, kernel, dtype, precision):
+    """B3 (batched_g), B4 (batched_onthefly), B5 (pieces), B6 (zslab) at
+    every instantiated degree; at p=2 the mesh (2 cells, one interior
+    node row) is smaller than one block's cells: the ragged tail."""
+    s = {1: 4, 2: 1, 3: 4, 4: 5}[p]
+    metric = "onthefly" if kernel == "batched_onthefly" else "precomputed"
+    op = bp4.build(s, p, dtype, precision, factor="dense", metric=metric,
+                   windowing="reshape", device=cuda_device).op
+    (u,) = _state(op, 1, seed=p)
+    if kernel.startswith("batched"):
+        u_loc = la.to_cell_batches(u, p).contiguous()
+        wrapper = (la.apply_local_batched_g if kernel == "batched_g"
+                   else la.apply_local_batched_onthefly)
+        args = (op, u_loc)
+        want = la._batched_plain(op, u_loc, la._metric(op),
+                                 precision == "split2m" and metric != "onthefly")
+    else:
+        wrapper = (la.apply_lattice_pieces if kernel == "pieces"
+                   else la.apply_lattice_zslab)
+        args = (op, u)
+        want = la._lattice_plain(op, u, op.mask)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["merged", "baseline"])
+@pytest.mark.parametrize("windowing", ["reshape", "pieces", "zslab"])
+def test_solves_on_card_match_plain_solves(cuda_device, solver, windowing):
+    """f64 at p=4, s=5: the card's solve takes the CPU plain solve's
+    iterations and reaches its solution."""
+    solve = bp4.solve_merged if solver == "merged" else bp4.solve_baseline
+    kw = dict(factor="dense", metric="precomputed", windowing=windowing)
+    res = solve(bp4.build(5, P, torch.float64, "highest", device=cuda_device,
+                          **kw))
+    ref = solve(bp4.build(5, P, torch.float64, "highest", **kw))
+    assert res.converged and res.n_iterations == ref.n_iterations
+    assert _rel(res.x.cpu(), ref.x) < 1e-10
+
+
+@pytest.mark.cuda
+def test_run_one_merged_and_baseline_on_card(cuda_device):
+    rows = [benchmark.run_one(4, 5, solver=solver, solve_repeats=1,
+                              matvec_repeats=1, matvec_inner=5,
+                              device=cuda_device)
+            for solver in ("merged", "baseline")]
+    assert all(r.converged and r.time_per_it > 0 for r in rows)
