@@ -10,21 +10,27 @@ Phases (each raises on failure, so any failure exits nonzero):
 3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
    kernel with its plain PyTorch version on the same inputs, and time both:
    B1/B2 (f32 split2m, f64 highest), B3-B6 (f32 highest, f32 split2m except
-   B4, f64 highest);
+   B4 — the tensor-core pass of B3/B5/B6 —, f64 highest);
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
-   fused, merged and baseline alike — f32 "split2m" (fused) and f32
-   "highest" (merged, baseline) 91..94 and converge;
+   fused, merged and baseline alike — f32 "split2m" (fused; merged with
+   ``--windowing reshape``) and f32 "highest" (merged, baseline) 91..94
+   and converge;
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
      precision="split2m", windowing="pieces")`` (B1, B2);
    - the JAX CLI's default path ``benchmark.run_one(4, 13,
      solver="merged", windowing="reshape", precision="highest")`` (B3);
+   - the same path under f32 split2m ``benchmark.run_one(4, 13,
+     solver="merged", windowing="reshape", precision="split2m")`` (B3 on
+     the tensor cores);
    - short runs at s=11 of the baseline solver (B3), ``--geometry
-     onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6);
-   then the solutions of the two p=4 s=13 paths are checked for shape,
+     onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6), and
+     ``zslab`` under split2m (B6 on the tensor cores);
+   then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
-6. print the kernels' JSON line and, last, the device JSON line.
+6. print the kernels' JSON line (B3/B5/B6 also with their split2m times)
+   and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -129,7 +135,7 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print(f"kernels vs plain at p={DEGREE}, s={S}:")
-    errs, times = {}, {}
+    errs, times, errs_split, times_split = {}, {}, {}, {}
     for dtype, precision in ((torch.float32, "split2m"),
                              (torch.float64, "highest")):
         pb = bp4.build(S, DEGREE, dtype, precision, device=dev)
@@ -219,6 +225,8 @@ def main() -> int:
                       f"{t[1]:.4f} ms")
                 if precision == "highest":
                     errs[name], times[name] = diff, t
+                else:
+                    errs_split[name], times_split[name] = diff, t
         del ops, opg, u, u_loc, cases
         torch.cuda.empty_cache()
 
@@ -236,16 +244,18 @@ def main() -> int:
         if res.n_iterations not in allowed or not res.converged:
             raise AssertionError(f"p=4 s=7 fused {precision}: itCG "
                                  f"{res.n_iterations} not in {allowed}")
-    for dtype, allowed in ((torch.float64, (91,)),
-                           (torch.float32, (91, 92, 93, 94))):
-        pb = bp4.build(7, DEGREE, dtype, "highest", factor="dense",
+    for dtype, precision, allowed, solvers in (
+            (torch.float64, "highest", (91,), ("merged", "baseline")),
+            (torch.float32, "highest", (91, 92, 93, 94),
+             ("merged", "baseline")),
+            (torch.float32, "split2m", (91, 92, 93, 94), ("merged",))):
+        pb = bp4.build(7, DEGREE, dtype, precision, factor="dense",
                        metric="precomputed", windowing="reshape", device=dev)
         its = {}
-        for solver, solve in (("merged", bp4.solve_merged),
-                              ("baseline", bp4.solve_baseline)):
-            res = solve(pb)
+        for solver in solvers:
+            res = benchmark.solver_call(pb, solver)()
             its[solver] = res.n_iterations
-            print(f"p=4 s=7 {solver} {str(dtype)[6:]} highest: itCG "
+            print(f"p=4 s=7 {solver} {str(dtype)[6:]} {precision}: itCG "
                   f"{res.n_iterations}, converged {res.converged}")
             if res.n_iterations not in allowed or not res.converged:
                 raise AssertionError(f"p=4 s=7 {solver}: itCG "
@@ -255,9 +265,9 @@ def main() -> int:
 
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
-    launches = {}
+    launches, launches_split = {}, {}
 
-    def drive(label, s, expect, record=True, **kw):
+    def drive(label, s, expect, into=launches, **kw):
         zero_counts()
         r = benchmark.run_one(DEGREE, s, device=dev, **kw)
         got = counts()
@@ -274,8 +284,8 @@ def main() -> int:
         if not (0 < r.n_iterations <= 100 and r.time_per_it > 0
                 and r.time_per_matvec > 0):
             raise AssertionError(f"{label}: implausible row: {r}")
-        if record:
-            launches.update({name: got[name] for name in expect})
+        if into is not None:
+            into.update({name: got[name] for name in expect})
         return r
 
     print(f"triad {bw / 1e9:.1f} GB/s")
@@ -285,13 +295,16 @@ def main() -> int:
     r_main = drive("main path (merged, f32 highest, reshape)", S,
                    ("apply_local_batched_g",), solver="merged",
                    precision="highest", windowing="reshape")
-    for r in (r_fused, r_main):
+    r_split = drive("merged, f32 split2m, reshape", S,
+                    ("apply_local_batched_g",), into=launches_split,
+                    solver="merged", precision="split2m", windowing="reshape")
+    for r in (r_fused, r_main, r_split):
         if r.n_dofs != 1_635_075:
             raise AssertionError(f"main-path row at the wrong size: {r}")
     short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=5)
     # B3's count in the kernels line is the main path's
     drive("baseline (reshape)", S_SHORT, ("apply_local_batched_g",),
-          record=False, solver="baseline", **short)
+          into=None, solver="baseline", **short)
     drive("merged --geometry onthefly", S_SHORT,
           ("apply_local_batched_onthefly",), solver="merged",
           metric="onthefly", **short)
@@ -299,8 +312,11 @@ def main() -> int:
           solver="merged", windowing="pieces", **short)
     drive("merged --windowing zslab", S_SHORT, ("apply_lattice_zslab",),
           solver="merged", windowing="zslab", **short)
+    drive("merged --windowing zslab, f32 split2m", S_SHORT,
+          ("apply_lattice_zslab",), into=launches_split, solver="merged",
+          windowing="zslab", precision="split2m", **short)
 
-    # the two p=4 s=13 solutions: shape, finite, and their true residual
+    # the three p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
     # f32 solves stop at the 100-iteration cap, so the residual is not small)
     pb = bp4.build(S, DEGREE, torch.float32, "split2m", device=dev)
@@ -312,11 +328,13 @@ def main() -> int:
         b - fk.matvec(pb.op, res.x.contiguous())).item(), (3,) + lat,
         r_fused)]
     del pb, b
-    pb = bp4.build(S, DEGREE, torch.float32, "highest", factor="dense",
-                   metric="precomputed", windowing="reshape", device=dev)
-    res = bp4.solve_merged(pb)
-    solutions.append(("merged", res, torch.linalg.norm(
-        pb.b - pb.a_apply(res.x)).item(), tuple(pb.b.shape), r_main))
+    for precision, row in (("highest", r_main), ("split2m", r_split)):
+        pb = bp4.build(S, DEGREE, torch.float32, precision, factor="dense",
+                       metric="precomputed", windowing="reshape", device=dev)
+        res = bp4.solve_merged(pb)
+        solutions.append((f"merged {precision}", res, torch.linalg.norm(
+            pb.b - pb.a_apply(res.x)).item(), tuple(pb.b.shape), row))
+        del pb
     for label, res, true_res, shape, row in solutions:
         gap = abs(true_res - res.res_norm) / res.res_norm
         print(f"{label} solution: shape {tuple(res.x.shape)}, itCG "
@@ -326,12 +344,21 @@ def main() -> int:
                 or res.n_iterations != row.n_iterations or not gap < 1e-3:
             raise AssertionError(f"{label} solution is wrong")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": CSRC + src,
-         "replaces": f"mf_data_locality_tpu/ops/{line}",
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (_, src, line) in kernels.items()]}))
+    rows = []
+    for name, (_, src, line) in kernels.items():
+        row = {"name": name, "route": "cuda", "source": CSRC + src,
+               "replaces": f"mf_data_locality_tpu/ops/{line}",
+               "launches": launches[name], "max_abs_err": errs[name],
+               "ms": times[name][0], "plain_ms": times[name][1]}
+        if name in times_split:  # B3, B5, B6: the tensor-core split2m pass
+            row.update(source_split2m=CSRC + "apply_mma.cuh",
+                       ms_split2m=times_split[name][0],
+                       plain_ms_split2m=times_split[name][1],
+                       max_abs_err_split2m=errs_split[name])
+            if name in launches_split:
+                row["launches_split2m"] = launches_split[name]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 // BP4 cell operator for Hopper (sm_90a): the shared core of the matvec
 // (B1) and fused CG iteration (B2) kernels in cg_fused.cu; the metric
-// rebuild (onthefly_metric) and the assemble pass are also used by the apply
-// family (B3-B6) in laplace_apply.cu.
+// rebuild (onthefly_metric), the lattice gather (cell_node) and the
+// assemble pass are also used by the apply family (B3-B6) in
+// laplace_apply.cu and apply_mma.cuh.
 //
 // What it computes, per hex cell of the lattice (C = 3 components, degree P,
 // Q = P + 2 Gauss points per direction), on the cell's (P+1)^3 node values u:
@@ -82,6 +83,22 @@ struct Grid {
 __device__ __forceinline__ bool interior(const Grid& gr, int z, int y, int x) {
   return z > 0 && z < gr.nz - 1 && y > 0 && y < gr.ny - 1 && x > 0 &&
          x < gr.nx - 1;
+}
+
+// The lattice node of local node k of a cell, and its mask value: the mask
+// tensor's where one is given (B6), else the box's Dirichlet mask from the
+// indices (B5).
+template <int P, typename T>
+__device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
+                                            const T* mask, T* m) {
+  using S = Shape<P>;
+  const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
+            cz = cell / (gr.ncx * gr.ncy);
+  const int z = cz * P + k / S::P12, y = cy * P + (k / S::P1) % S::P1,
+            x = cx * P + k % S::P1;
+  const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + x;
+  *m = mask ? mask[node] : (interior(gr, z, y, x) ? T(1) : T(0));
+  return node;
 }
 
 // Stream parts of one value: the value itself, or its bf16 hi/lo pair.

@@ -8,7 +8,7 @@
 //   B5  apply_lattice_pieces -> _kernel_g_pieces                (pallas_call :947)
 //   B6  apply_lattice_zslab  -> _kernel_g_zslab                 (pallas_call :664)
 //
-// What one block computes, for BC consecutive cells (8 in f32: one 32-byte
+// What one block of apply_kernel computes, for BC consecutive cells (8 in f32: one 32-byte
 // sector of every streamed metric row; 4 in f64), Q3 = q^3 q-points, P13 =
 // (p+1)^3 nodes, R = 3 Q3 gradient rows:
 //
@@ -28,25 +28,24 @@
 // layers in order carrying the shared z plane in VMEM; here the assemble pass
 // takes the carry's place, so blocks run in any order.
 //
-// Precision (laplace_pallas._mm): "highest" is plain FMA at the working type.
-// SPLIT (f32 "split2m"): M rounded to bf16 at the product (it is held
-// unrounded), the streamed operand (u forward, t backward) split into bf16
-// hi and lo parts, f32 accumulation, hi products first.  B4 is exact at the
-// working type on every rung, as _kernel (Precision.HIGHEST, :529).
+// Precision (laplace_pallas._mm): "highest" is plain FMA at the working type,
+// in apply_kernel below.  f32 "split2m" (B3, B5, B6) runs on the tensor
+// cores in apply_mma.cuh, whose note gives its design and bounds.  B4 is
+// exact at the working type on every rung, as _kernel (Precision.HIGHEST,
+// :529).
 //
-// Bound on the H100 (p=4, s=13, 8192 cells): 2 R P13 C = 4.9e5 FMAs per cell
-// in f32 highest (twice that under SPLIT), 4.0e9 per apply, against 1296
-// metric words + 2 x 375 u/v words per cell (~67 MB per apply in f32).  At
-// the CUDA cores' ~3.3e13 FMA/s the arithmetic needs >= 0.12 ms and the
-// bytes ~0.02 ms, so the kernel is bound by its FMAs and the shared-memory
-// and L2 reads that feed them (M, 324 KB in f32, is read from L2 by every
-// block).  The dense form is the TPU's MXU choice; later PRs move it onto
-// the tensor cores or sum-factorize it (PERF.md).
+// Bound of apply_kernel on the H100 (p=4, s=13, 8192 cells): 2 R P13 C =
+// 4.9e5 FMAs per cell, 4.0e9 per apply, against 1296 metric words + 2 x 375
+// u/v words per cell (~67 MB per apply in f32).  At the CUDA cores' ~3.3e13
+// FMA/s the arithmetic needs >= 0.12 ms and the bytes ~0.02 ms, so the
+// kernel is bound by its FMAs and the shared-memory and L2 reads that feed
+// them (M, 324 KB in f32, is read from L2 by every block).
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success),
 // or -1 for a configuration with no instantiation.
 
+#include "apply_mma.cuh"
 #include "bp4_operator.cuh"
 
 namespace bp4 {
@@ -73,49 +72,22 @@ struct ApplyTables {
   const T* coeffs;   // (n_cells, 24)
 };
 
-template <typename T, int P, bool SPLIT, bool ONTHEFLY>
+template <typename T, int P, bool ONTHEFLY>
 struct ApplySmem {
   using S = Shape<P>;
   static constexpr int BC = ApplyCells<T>::N;
-  static constexpr int NS = Stream<T, SPLIT>::N;
-  T u[NS][S::P13][kComps][BC];     // input stream parts, (node, comp, cell)
-  T t[NS][kComps][3 * S::Q3][BC];  // metric-applied gradients, stream parts
+  T u[S::P13][kComps][BC];             // input, (node, comp, cell)
+  T t[kComps][3 * S::Q3][BC];          // metric-applied gradients
   T g6[ONTHEFLY ? 6 * S::Q3 : 1][BC];  // rebuilt metric (B4)
 };
 
-template <typename T, bool SPLIT>
-__device__ __forceinline__ T matrix_value(T m) {
-  if constexpr (SPLIT) {
-    return __bfloat162float(__float2bfloat16_rn(m));
-  } else {
-    return m;
-  }
-}
-
-// The lattice node of local node k of a cell, and its mask value: the mask
-// tensor's where one is given (B6), else the box's Dirichlet mask from the
-// indices (B5).
-template <int P, typename T>
-__device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
-                                            const T* mask, T* m) {
-  using S = Shape<P>;
-  const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
-            cz = cell / (gr.ncx * gr.ncy);
-  const int z = cz * P + k / S::P12, y = cy * P + (k / S::P1) % S::P1,
-            x = cx * P + k % S::P1;
-  const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + x;
-  *m = mask ? mask[node] : (interior(gr, z, y, x) ? T(1) : T(0));
-  return node;
-}
-
-template <typename T, int P, bool SPLIT, bool ONTHEFLY, bool LATTICE>
+template <typename T, int P, bool ONTHEFLY, bool LATTICE>
 __global__ void __launch_bounds__(kApplyThreads)
     apply_kernel(ApplyTables<T> tb, Grid gr, const T* __restrict__ mask,
                  const T* __restrict__ u, T* __restrict__ out) {
   using S = Shape<P>;
-  using Sm = ApplySmem<T, P, SPLIT, ONTHEFLY>;
-  using St = Stream<T, SPLIT>;
-  constexpr int BC = Sm::BC, NS = Sm::NS, Q3 = S::Q3, P13 = S::P13;
+  using Sm = ApplySmem<T, P, ONTHEFLY>;
+  constexpr int BC = Sm::BC, Q3 = S::Q3, P13 = S::P13;
   constexpr int R = 3 * Q3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Sm*>(smem_raw);
@@ -124,7 +96,7 @@ __global__ void __launch_bounds__(kApplyThreads)
   const int tid = threadIdx.x;
   const size_t n_nodes = gr.n_nodes();
 
-  // input, split into stream parts; cells past the end are zero
+  // input; cells past the end are zero
   for (int i = tid; i < kComps * P13 * BC; i += blockDim.x) {
     const int b = i % BC, k = (i / BC) % P13, c = i / (BC * P13);
     const int cell = cell0 + b;
@@ -138,10 +110,7 @@ __global__ void __launch_bounds__(kApplyThreads)
         val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
       }
     }
-    T parts[NS];
-    St::split(val, parts);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) sm.u[n][k][c][b] = parts[n];
+    sm.u[k][c][b] = val;
   }
   if constexpr (ONTHEFLY) {
     for (int i = tid; i < Q3 * BC; i += blockDim.x) {
@@ -164,23 +133,18 @@ __global__ void __launch_bounds__(kApplyThreads)
       for (int c = 0; c < kComps; ++c)
 #pragma unroll
         for (int b = 0; b < BC; ++b) acc[d][c][b] = T(0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
 #pragma unroll 5
-      for (int k = 0; k < P13; ++k) {
-        const T* mk = tb.kmats + k * R + qp;
-        const T m[3] = {matrix_value<T, SPLIT>(mk[0]),
-                        matrix_value<T, SPLIT>(mk[Q3]),
-                        matrix_value<T, SPLIT>(mk[2 * Q3])};
+    for (int k = 0; k < P13; ++k) {
+      const T* mk = tb.kmats + k * R + qp;
+      const T m[3] = {mk[0], mk[Q3], mk[2 * Q3]};
 #pragma unroll
-        for (int c = 0; c < kComps; ++c)
+      for (int c = 0; c < kComps; ++c)
 #pragma unroll
-          for (int b = 0; b < BC; ++b) {
-            const T uv = sm.u[n][k][c][b];
+        for (int b = 0; b < BC; ++b) {
+          const T uv = sm.u[k][c][b];
 #pragma unroll
-            for (int d = 0; d < 3; ++d) acc[d][c][b] = fma(m[d], uv, acc[d][c][b]);
-          }
-      }
+          for (int d = 0; d < 3; ++d) acc[d][c][b] = fma(m[d], uv, acc[d][c][b]);
+        }
     }
 #pragma unroll
     for (int b = 0; b < BC; ++b) {
@@ -198,16 +162,9 @@ __global__ void __launch_bounds__(kApplyThreads)
 #pragma unroll
       for (int c = 0; c < kComps; ++c) {
         const T gx = acc[0][c][b], gy = acc[1][c][b], gz = acc[2][c][b];
-        const T t[3] = {G[0] * gx + G[1] * gy + G[2] * gz,
-                        G[1] * gx + G[3] * gy + G[4] * gz,
-                        G[2] * gx + G[4] * gy + G[5] * gz};
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          T parts[NS];
-          St::split(t[e], parts);
-#pragma unroll
-          for (int n = 0; n < NS; ++n) sm.t[n][c][e * Q3 + qp][b] = parts[n];
-        }
+        sm.t[c][qp][b] = G[0] * gx + G[1] * gy + G[2] * gz;
+        sm.t[c][Q3 + qp][b] = G[1] * gx + G[3] * gy + G[4] * gz;
+        sm.t[c][2 * Q3 + qp][b] = G[2] * gx + G[4] * gy + G[5] * gz;
       }
     }
   }
@@ -219,14 +176,11 @@ __global__ void __launch_bounds__(kApplyThreads)
     T acc[BC];
 #pragma unroll
     for (int b = 0; b < BC; ++b) acc[b] = T(0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
 #pragma unroll 4
-      for (int r = 0; r < R; ++r) {
-        const T m = matrix_value<T, SPLIT>(tb.mats[r * P13 + j]);
+    for (int r = 0; r < R; ++r) {
+      const T m = tb.mats[r * P13 + j];
 #pragma unroll
-        for (int b = 0; b < BC; ++b) acc[b] = fma(m, sm.t[n][c][r][b], acc[b]);
-      }
+      for (int b = 0; b < BC; ++b) acc[b] = fma(m, sm.t[c][r][b], acc[b]);
     }
 #pragma unroll
     for (int b = 0; b < BC; ++b) {
@@ -243,38 +197,17 @@ __global__ void __launch_bounds__(kApplyThreads)
   }
 }
 
-template <typename T, int P, bool SPLIT, bool ONTHEFLY, bool LATTICE>
+template <typename T, int P, bool ONTHEFLY, bool LATTICE>
 cudaError_t launch_cells(const ApplyTables<T>& tb, const Grid& gr,
                          const T* mask, const T* u, T* out, cudaStream_t st) {
-  using Sm = ApplySmem<T, P, SPLIT, ONTHEFLY>;
-  auto kern = apply_kernel<T, P, SPLIT, ONTHEFLY, LATTICE>;
+  using Sm = ApplySmem<T, P, ONTHEFLY>;
+  auto kern = apply_kernel<T, P, ONTHEFLY, LATTICE>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
   const int blocks = (gr.n_cells() + Sm::BC - 1) / Sm::BC;
   kern<<<blocks, kApplyThreads, sizeof(Sm), st>>>(tb, gr, mask, u, out);
-  return cudaGetLastError();
-}
-
-// B3 (ONTHEFLY false) and B4 (true) on a cell batch (C P13, n_cells).
-template <typename T, int P, bool SPLIT, bool ONTHEFLY>
-int apply_batched(const ApplyTables<T>& tb, int n_cells, const T* u, T* v,
-                  cudaStream_t st) {
-  const Grid gr{1, 1, n_cells, 1, 1, 1};
-  return launch_cells<T, P, SPLIT, ONTHEFLY, false>(tb, gr, nullptr, u, v, st);
-}
-
-// B5 (mask null: the box's Dirichlet mask from the indices) and B6 (mask
-// tensor) on the lattice: the cell pass, then the assemble pass.
-template <typename T, int P, bool SPLIT>
-int apply_lattice(const ApplyTables<T>& tb, const Grid& gr, const T* mask,
-                  const T* u, T* cells, T* v, cudaStream_t st) {
-  cudaError_t e =
-      launch_cells<T, P, SPLIT, false, true>(tb, gr, mask, u, cells, st);
-  if (e != cudaSuccess) return e;
-  assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-      gr, cells, v, nullptr, nullptr, nullptr, nullptr);
   return cudaGetLastError();
 }
 
@@ -287,57 +220,83 @@ ApplyTables<T> apply_tables(const void* mats, const void* kmats,
           static_cast<const T*>(w3), static_cast<const T*>(coeffs)};
 }
 
+// B3 (metric streamed) and B4 (onthefly) on a cell batch (C P13, n_cells).
+// Under split, mats and kmats are apply_mma.cuh's bf16 fragment tables.
 template <int P>
 int batched_for_degree(int dtype, int split, int onthefly, const void* mats,
                        const void* kmats, const void* gmetric, const void* pds,
                        const void* w3, const void* coeffs, const void* u,
                        void* v, int n_cells, cudaStream_t st) {
+  const Grid gr{1, 1, n_cells, 1, 1, 1};
+  if (split && !onthefly) {  // B4 is exact on every rung
+    if (dtype != 0) return -1;
+    return launch_mma<P, false>(mats, kmats, static_cast<const float*>(gmetric),
+                                gr, nullptr, static_cast<const float*>(u),
+                                static_cast<float*>(v), st);
+  }
   if (dtype == 0) {
     const auto tb = apply_tables<float>(mats, kmats, gmetric, pds, w3, coeffs);
     const auto uu = static_cast<const float*>(u);
     const auto vv = static_cast<float*>(v);
-    if (onthefly) return apply_batched<float, P, false, true>(tb, n_cells, uu, vv, st);
-    return split ? apply_batched<float, P, true, false>(tb, n_cells, uu, vv, st)
-                 : apply_batched<float, P, false, false>(tb, n_cells, uu, vv, st);
+    return onthefly ? launch_cells<float, P, true, false>(tb, gr, nullptr, uu, vv, st)
+                    : launch_cells<float, P, false, false>(tb, gr, nullptr, uu, vv, st);
   }
-  if (dtype == 1 && !split) {
+  if (dtype == 1) {
     const auto tb = apply_tables<double>(mats, kmats, gmetric, pds, w3, coeffs);
     const auto uu = static_cast<const double*>(u);
     const auto vv = static_cast<double*>(v);
-    return onthefly ? apply_batched<double, P, false, true>(tb, n_cells, uu, vv, st)
-                    : apply_batched<double, P, false, false>(tb, n_cells, uu, vv, st);
+    return onthefly ? launch_cells<double, P, true, false>(tb, gr, nullptr, uu, vv, st)
+                    : launch_cells<double, P, false, false>(tb, gr, nullptr, uu, vv, st);
   }
   return -1;
 }
 
+template <typename T, int P>
+int assemble(const Grid& gr, const T* cells, T* v, cudaStream_t st) {
+  assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
+      gr, cells, v, nullptr, nullptr, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+// B5 (mask null: the box's Dirichlet mask from the indices) and B6 (mask
+// tensor) on the lattice: the cell pass, then the assemble pass.  Under
+// split, mats and kmats are apply_mma.cuh's bf16 fragment tables.
 template <int P>
 int lattice_for_degree(int dtype, int split, const void* mats,
                        const void* kmats, const void* gmetric,
                        const void* mask, const void* u, void* cells, void* v,
                        const Grid& gr, cudaStream_t st) {
   if (dtype == 0) {
-    const auto tb = apply_tables<float>(mats, kmats, gmetric, nullptr, nullptr,
-                                        nullptr);
+    const auto gm = static_cast<const float*>(gmetric);
     const auto mm = static_cast<const float*>(mask);
     const auto uu = static_cast<const float*>(u);
     const auto cc = static_cast<float*>(cells);
-    const auto vv = static_cast<float*>(v);
-    return split ? apply_lattice<float, P, true>(tb, gr, mm, uu, cc, vv, st)
-                 : apply_lattice<float, P, false>(tb, gr, mm, uu, cc, vv, st);
+    const cudaError_t e =
+        split ? launch_mma<P, true>(mats, kmats, gm, gr, mm, uu, cc, st)
+              : launch_cells<float, P, false, true>(
+                    apply_tables<float>(mats, kmats, gmetric, nullptr, nullptr,
+                                        nullptr),
+                    gr, mm, uu, cc, st);
+    if (e != cudaSuccess) return e;
+    return assemble<float, P>(gr, cc, static_cast<float*>(v), st);
   }
   if (dtype == 1 && !split) {
-    return apply_lattice<double, P, false>(
+    const auto cc = static_cast<double*>(cells);
+    const cudaError_t e = launch_cells<double, P, false, true>(
         apply_tables<double>(mats, kmats, gmetric, nullptr, nullptr, nullptr),
         gr, static_cast<const double*>(mask), static_cast<const double*>(u),
-        static_cast<double*>(cells), static_cast<double*>(v), st);
+        cc, st);
+    if (e != cudaSuccess) return e;
+    return assemble<double, P>(gr, cc, static_cast<double*>(v), st);
   }
   return -1;
 }
 
 }  // namespace bp4
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; f32 with and
-// without the split2m stream split, f64 without; B4 (onthefly) ignores split.
+// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; f32 highest
+// (CUDA cores) and split2m (tensor cores, apply_mma.cuh), f64 highest; B4
+// (onthefly) ignores split.
 extern "C" {
 
 int bp4_apply_batched(int dtype, int split, int degree, int onthefly,

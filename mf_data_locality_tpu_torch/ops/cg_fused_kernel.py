@@ -165,17 +165,19 @@ def delayed_x_fixup(x, g, d, prec, scal, it: int):
 
 def check_tensors(op: OperatorData, degrees, pairs) -> None:
     """Raise unless ``op.degree`` has a kernel (``degrees``) and every
-    (tensor, shape) pair is a contiguous tensor of the operator's dtype,
-    on its device, of that shape."""
+    (tensor, shape) or (tensor, shape, dtype) entry is a contiguous tensor
+    of that dtype (default: the operator's), on its device, of that
+    shape."""
     if op.degree not in degrees:
         raise NotImplementedError(
             f"degree {op.degree} has no CUDA kernel instantiated "
             f"(have {degrees}); see ROADMAP.md queue B")
-    for t, shape in pairs:
-        if (t.device != op.device or t.dtype != op.dtype
+    for t, shape, *dtype in pairs:
+        want = dtype[0] if dtype else op.dtype
+        if (t.device != op.device or t.dtype != want
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
-                f"expected a contiguous {op.dtype} tensor of shape {shape} "
+                f"expected a contiguous {want} tensor of shape {shape} "
                 f"on {op.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
 

@@ -22,10 +22,12 @@ vectors are ``(C, Nz, Ny, Nx)``.  The windowing between the two
 is XLA outside the Pallas kernels in JAX.
 
 Each kernel wrapper runs the hand-written CUDA kernel
-(``csrc/laplace_apply.cu``) for tensors on a CUDA device and its plain
-PyTorch version (einsum over cells, the same bf16 rounding points for
-``split2m``) for tensors on the CPU; other devices raise.  Each wrapper
-counts its kernel launches in ``.launches``.
+(``csrc/laplace_apply.cu``; under f32 ``split2m`` B3, B5 and B6 run its
+tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16 tables
+``op.mma_mats``) for tensors on a CUDA device and its plain PyTorch version
+(einsum over cells, the same bf16 rounding points for ``split2m``) for
+tensors on the CPU; other devices raise.  Each wrapper counts its kernel
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
-from mf_data_locality_tpu_torch.ops import _build
+from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
     N_COMPONENTS, _parts, _route, check_tensors, dtype_code, metric_onthefly)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
@@ -120,6 +122,30 @@ def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
     return v.reshape(-1, nc)
 
 
+def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
+                          G: torch.Tensor) -> torch.Tensor:
+    """The split2m tensor-core kernel's arithmetic (``csrc/apply_mma.cuh``)
+    in plain PyTorch, for the tests: M from its packed bf16 tables,
+    nodes and q-points zero-padded, the K-stacked products [Mh | Mh] [uh;
+    ul] and [Mh | Mh]^T [th; tl] in f32, t split after the metric apply."""
+    p13, q3 = (op.degree + 1) ** 3, op.n_q ** 3
+    q3p, p13p = laplace_cuda.mma_dims(op.degree)
+    mf, mb = (m.to(op.dtype)
+              for m in laplace_cuda.unpack_mma_tables(op.mma_mats, op.degree))
+    nc = u_loc.shape[1]
+    u = torch.nn.functional.pad(u_loc.reshape(-1, p13, nc),
+                                (0, 0, 0, p13p - p13))
+    g = torch.cat([mf, mf], dim=1) @ torch.cat(_parts(u, True), dim=1)
+    gx, gy, gz = g.reshape(-1, 3, q3p, nc).unbind(1)
+    G = torch.nn.functional.pad(G, (0, 0, 0, q3p - q3))
+    t = torch.stack([G[0] * gx + G[1] * gy + G[2] * gz,
+                     G[1] * gx + G[3] * gy + G[4] * gz,
+                     G[2] * gx + G[4] * gy + G[5] * gz], dim=1)
+    t = t.reshape(-1, 3 * q3p, nc)
+    v = torch.cat([mb, mb], dim=0).t() @ torch.cat(_parts(t, True), dim=1)
+    return v[:, :p13].reshape(-1, nc)
+
+
 def _lattice_plain(op: OperatorData, u: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """M A M u on the lattice through the cell batches."""
@@ -140,24 +166,34 @@ def _index_mask(op: OperatorData) -> torch.Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _tables(op: OperatorData) -> list:
-    """The operator tables the kernels read by pointer, with their shapes."""
+def _tables(op: OperatorData, split: bool) -> tuple[list, int, int]:
+    """The operator tables the kernels read by pointer, with their shapes
+    (and dtype where it is not the operator's), and the two matrix
+    pointers: M and its transpose, or under ``split`` the bf16 fragment
+    tables of the tensor-core kernel."""
     p13, r = (op.degree + 1) ** 3, 3 * op.n_q ** 3
-    pairs = [(op.mats, (r, p13)), (op.kmats, (p13, r))]
+    if split:
+        q3p, p13p = laplace_cuda.mma_dims(op.degree)
+        pairs = [(op.mma_mats, (2, 3 * q3p * p13p), torch.bfloat16)]
+        ptrs = (op.mma_mats[0].data_ptr(), op.mma_mats[1].data_ptr())
+    else:
+        pairs = [(op.mats, (r, p13)), (op.kmats, (p13, r))]
+        ptrs = (op.mats.data_ptr(), op.kmats.data_ptr())
     if op.gmetric is not None:
         pairs.append((op.gmetric, (2 * r, op.n_cells)))
-    return pairs
+    return pairs, *ptrs
 
 
 def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
     shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
-    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + _tables(op))
+    split = op.precision == "split2m" and not onthefly
+    tables, mats, kmats = _tables(op, split)
+    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + tables)
     lib = _build.load()
     out = torch.empty_like(u_loc)
     rc = lib.bp4_apply_batched(
-        dtype_code(op), int(op.precision == "split2m" and not onthefly),
-        op.degree, int(onthefly), op.mats.data_ptr(), op.kmats.data_ptr(),
+        dtype_code(op), int(split), op.degree, int(onthefly), mats, kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
         op.w3.data_ptr(), op.kcoeffs.data_ptr(), u_loc.data_ptr(),
         out.data_ptr(), op.n_cells,
@@ -209,15 +245,17 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
     if op.gmetric is None:
         raise ValueError("the lattice applies need metric='precomputed'")
     lat = (N_COMPONENTS,) + op.n_nodes_axis
-    check_tensors(op, KERNEL_DEGREES, [(u, lat)] + _tables(op))
+    split = op.precision == "split2m"
+    tables, mats, kmats = _tables(op, split)
+    check_tensors(op, KERNEL_DEGREES, [(u, lat)] + tables)
     lib = _build.load()
     out = torch.empty_like(u)
     cells = torch.empty((N_COMPONENTS, op.n_cells, (op.degree + 1) ** 3),
                         dtype=op.dtype, device=op.device)
     ncz, ncy, ncx = op.n_cells_axis
     rc = lib.bp4_apply_lattice(
-        dtype_code(op), int(op.precision == "split2m"), op.degree,
-        op.mats.data_ptr(), op.kmats.data_ptr(), op.gmetric.data_ptr(),
+        dtype_code(op), int(split), op.degree, mats, kmats,
+        op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
         cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,
         torch.cuda.current_stream(u.device).cuda_stream)

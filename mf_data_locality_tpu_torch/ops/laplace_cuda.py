@@ -24,8 +24,9 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 * ``sz``, ``dz`` (q, p+1): the 1D z factors (``laplace_pallas._z_matrices``).
 * ``mats`` (3 q^3, (p+1)^3): ``[M_x; M_y; M_z]``, the dense gradient
   matrices (``laplace_pallas._dense_gradient_matrices``), unrounded: the
-  apply family rounds them at the product for ``split2m``, as ``_mm`` does,
-  and the on-the-fly apply (B4) always uses them exactly.
+  plain versions round them at the product for ``split2m``, as ``_mm``
+  does, the split2m kernels read ``mma_mats`` (rounded once), and the
+  on-the-fly apply (B4) always uses them exactly.
 * ``gmetric`` (6 q^3, n_cells) or None: the metric entries (00, 01, 02, 11,
   12, 22) per q-point, computed on the host in f64 and rounded to ``T``
   once (``metric="precomputed"``).
@@ -36,7 +37,9 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 ``kmats`` ((p+1)^3, 3 q^3), ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24)
 are the same data in the layouts the kernels read (one contiguous row per
-node / per q-point / per cell).
+node / per q-point / per cell).  ``mma_mats`` (apply family under
+``split2m`` only) is ``mats`` rounded once to bf16 and packed as the
+tensor-core kernel's fragments (:func:`mma_tables`).
 """
 
 from __future__ import annotations
@@ -156,6 +159,7 @@ class OperatorData:
     n_cells_axis: tuple[int, int, int]
     precision: str
     windowing: str = "pieces"
+    mma_mats: torch.Tensor | None = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -173,6 +177,48 @@ class OperatorData:
     @property
     def n_nodes_axis(self) -> tuple[int, int, int]:
         return tuple(self.mask.shape[1:])
+
+
+def mma_dims(p: int) -> tuple[int, int]:
+    """(q-points per direction, nodes) of degree ``p``, each padded to a
+    multiple of 16: the tensor-core tiles of ``csrc/apply_mma.cuh``."""
+    return -(-(p + 2) ** 3 // 16) * 16, -(-(p + 1) ** 3 // 16) * 16
+
+
+def _fragments(b: torch.Tensor) -> torch.Tensor:
+    """(K, N) B operand -> its mma.m16n8k16 fragments, flat: fragment (n8
+    tile, k16 step), lane = 4 row group + column pair, then the lane's four
+    values (rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 of the k16 step)."""
+    k, n = b.shape
+    t = b.reshape(k // 16, 2, 4, 2, n // 8, 8)  # (ks, half, t, e, nt, g)
+    return t.permute(4, 0, 5, 2, 1, 3).reshape(-1)
+
+
+def _from_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`_fragments`."""
+    t = f.reshape(n // 8, k // 16, 8, 4, 2, 2)  # (nt, ks, g, t, half, e)
+    return t.permute(1, 4, 3, 5, 0, 2).reshape(k, n)
+
+
+def mma_tables(mats: torch.Tensor, p: int) -> torch.Tensor:
+    """The split2m kernel's M: ``mats`` (3 q^3, (p+1)^3) rounded once to
+    bf16, zero-padded to (3 Q3P, P13P) (:func:`mma_dims`, per direction),
+    packed as fragments: row 0 for the forward product (B = Mh^T), row 1
+    for the backward (B = Mh).  Shape (2, 3 Q3P P13P), bf16."""
+    q3p, p13p = mma_dims(p)
+    mh = mats.new_zeros((3, q3p, p13p), dtype=torch.bfloat16)
+    mh[:, :(p + 2) ** 3, :(p + 1) ** 3] = mats.reshape(3, (p + 2) ** 3, -1)
+    mh = mh.reshape(3 * q3p, p13p)
+    return torch.stack([_fragments(mh.t()), _fragments(mh)])
+
+
+def unpack_mma_tables(tables: torch.Tensor,
+                      p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded (3 Q3P, P13P) bf16 matrices the two rows of
+    :func:`mma_tables` hold: (forward's, backward's)."""
+    q3p, p13p = mma_dims(p)
+    return (_from_fragments(tables[0], p13p, 3 * q3p).t(),
+            _from_fragments(tables[1], 3 * q3p, p13p))
 
 
 def check_config(precision: str, factor: str = "twostage",
@@ -258,7 +304,9 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         .contiguous(),
         kcoeffs=co.reshape(24, nc).t().contiguous(),
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
-        precision=precision, windowing=windowing)
+        precision=precision, windowing=windowing,
+        mma_mats=(mma_tables(m3, p)
+                  if precision == "split2m" and factor == "dense" else None))
 
 
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,

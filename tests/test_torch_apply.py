@@ -74,6 +74,47 @@ def test_apply_local_batched_matches_jax(p, s, metric):
     assert _rel(got, ref[:, :nc]) < tol
 
 
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_mma_tables_unpack_to_bf16_mats(p):
+    """The split2m kernel's packed M: both fragment orders unpack to
+    ``op.mats`` rounded to bf16, bit for bit, and every pad entry is 0."""
+    op = bp4.build(1, p, torch.float32, "split2m", factor="dense",
+                   metric="precomputed", windowing="reshape").op
+    q3, p13 = (p + 2) ** 3, (p + 1) ** 3
+    q3p, p13p = laplace_cuda.mma_dims(p)
+    assert q3p % 16 == 0 and p13p % 16 == 0
+    assert op.mma_mats.dtype == torch.bfloat16
+    assert tuple(op.mma_mats.shape) == (2, 3 * q3p * p13p)
+    want = op.mats.to(torch.bfloat16).reshape(3, q3, p13).view(torch.int16)
+    for m in laplace_cuda.unpack_mma_tables(op.mma_mats, p):
+        m = m.reshape(3, q3p, p13p).view(torch.int16).clone()
+        assert torch.equal(m[:, :q3, :p13], want)
+        m[:, :q3, :p13] = 0
+        assert not m.any()
+    highest = bp4.build(1, p, torch.float32, "highest", factor="dense",
+                        metric="precomputed", windowing="reshape").op
+    assert highest.mma_mats is None
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_mma_emulation_matches_jax_split2m(p):
+    """The split2m kernel's arithmetic (padded, K-stacked bf16 products,
+    f32 accumulation, t split after the metric apply) against JAX's
+    ``apply_local_batched`` at ``precision="split2m"``, f32 interpret
+    mode: 1e-5, the f32 class of sums of <= 1,296 exact products."""
+    s = 3
+    jp, tp, nd, tol = _problems(s, p, "split2m", "reshape", "precomputed")
+    nc = tp.op.n_cells
+    rng = np.random.default_rng(20 + p)
+    u = rng.standard_normal((3 * (p + 1) ** 3, nc)).astype(nd)
+    u_pad = np.zeros((u.shape[0], jp.op.coeffs.shape[2]), nd)
+    u_pad[:, :nc] = u
+    ref = np.asarray(jlp.apply_local_batched(jp.op, jnp.asarray(u_pad)))
+    got = la._batched_mma_emulated(tp.op, torch.as_tensor(u),
+                                   la._metric(tp.op)).numpy()
+    assert _rel(got, ref[:, :nc]) < tol
+
+
 def test_onthefly_apply_ignores_precision():
     """B4 is exact at the working dtype on every rung, as ``_kernel``."""
     s, p = 3, 2

@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from mf_data_locality_tpu_torch import benchmark
+from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
 from mf_data_locality_tpu_torch.models import bp4
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.ops import laplace_apply as la
+from mf_data_locality_tpu_torch.ops import laplace_cuda
 from mf_data_locality_tpu_torch.solvers import cg_fused
 
 P = 4
@@ -163,6 +166,32 @@ def test_apply_kernel_matches_plain(cuda_device, p, kernel, dtype, precision):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("kernel", ["batched_g", "zslab"])
+def test_split2m_kernels_ragged_and_deterministic(cuda_device, p, kernel):
+    """The tensor-core split2m pass of B3 and B6 on 3 x 5 x 7 = 105 cells,
+    not a multiple of a block's cells (the ragged last block stores
+    nothing past the end), against the plain version; two calls give
+    bitwise-equal output (fixed order, no atomics)."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(layout, torch.float32, "split2m",
+                                    factor="dense", metric="precomputed",
+                                    device=cuda_device, windowing="zslab")
+    (u,) = _state(op, 1, seed=10 + p)
+    if kernel == "batched_g":
+        x = la.to_cell_batches(u, p).contiguous()
+        wrapper = la.apply_local_batched_g
+        want = la._batched_plain(op, x, la._metric(op), True)
+    else:
+        x, wrapper = u, la.apply_lattice_zslab
+        want = la._lattice_plain(op, u, op.mask)
+    got, again = wrapper(op, x), wrapper(op, x)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL[torch.float32]
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
