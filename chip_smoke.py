@@ -9,8 +9,9 @@ Phases (each raises on failure, so any failure exits nonzero):
 2. build the kernels from ``mf_data_locality_tpu_torch/csrc`` with nvcc;
 3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
    kernel with its plain PyTorch version on the same inputs, and time both:
-   B1/B2 (f32 split2m, f64 highest), B3-B6 (f32 highest, f32 split2m except
-   B4 — the tensor-core pass of B3/B5/B6 —, f64 highest);
+   B1/B2 (f32 split2m — the tensor-core cell pass —, f32 highest, f64
+   highest), B3-B6 (f32 highest, f32 split2m except B4 — the tensor-core
+   pass of B3/B5/B6 —, f64 highest);
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged and baseline alike — f32 "split2m" (fused; merged with
    ``--windowing reshape``) and f32 "highest" (merged, baseline) 91..94
@@ -29,8 +30,9 @@ Phases (each raises on failure, so any failure exits nonzero):
      ``zslab`` under split2m (B6 on the tensor cores);
    then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
-6. print the kernels' JSON line (B3/B5/B6 also with their split2m times)
-   and, last, the device JSON line.
+6. print the kernels' JSON line (B1/B2 at f32 split2m, B3-B6 at f32
+   highest and also with their split2m times; each row with the bound of
+   its work on this card, from the shapes) and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -49,6 +51,41 @@ CSRC = "mf_data_locality_tpu_torch/csrc/"
 # (B3-B6) contractions and, for the scalars, of ~5e6 dot-product terms
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_SCAL_F32 = 1e-4
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA
+# cores, HBM3
+PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+METRIC_FMA = 117  # adjj rebuild per q-point: J 72, adjugate 21, entries 24
+
+
+def bound(name: str, op, split: bool) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for the
+    kernel's work on ``op``'s shapes — the larger of its bytes (inputs read
+    once, outputs written once) over HBM_BPS and its operations over the
+    peak of their type (under split2m the products on the tensor cores in
+    bf16, counting both stream parts, the rest in f32; else all in f32)."""
+    p, q, nc = op.degree, op.n_q, op.n_cells
+    nz, ny, nx = op.n_nodes_axis
+    nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
+    word = op.dtype.itemsize
+    if name in ("matvec", "fused_cg_iteration"):  # twostage, rebuilt metric
+        products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
+        other = 12 * q * p13 + 27 * q3 + METRIC_FMA * q3
+        words = (6 if name == "matvec" else 25) * nn + 24 * nc
+    else:  # dense; metric streamed, or rebuilt (B4)
+        products = 2 * 3 * 3 * q3 * p13
+        onthefly = name == "apply_local_batched_onthefly"
+        other = 27 * q3 + (METRIC_FMA * q3 if onthefly else 0)
+        words = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
+                 + (24 if onthefly else 6 * q3) * nc
+                 + (nn if name == "apply_lattice_zslab" else 0))
+    t_bytes = words * word / HBM_BPS
+    if split:
+        t_ops = max(2 * 2 * products * nc / PEAK_BF16,
+                    2 * other * nc / PEAK_F32)
+    else:
+        t_ops = 2 * (products + other) * nc / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -135,8 +172,9 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print(f"kernels vs plain at p={DEGREE}, s={S}:")
-    errs, times, errs_split, times_split = {}, {}, {}, {}
+    errs, times, errs_split, times_split, bounds = {}, {}, {}, {}, {}
     for dtype, precision in ((torch.float32, "split2m"),
+                             (torch.float32, "highest"),
                              (torch.float64, "highest")):
         pb = bp4.build(S, DEGREE, dtype, precision, device=dev)
         op = pb.op
@@ -163,8 +201,15 @@ def main() -> int:
               scal_rel, TOL_SCAL_F32 if dtype == torch.float32
               else TOL[dtype])
 
-        if dtype == torch.float32:
+        if precision == "highest" and dtype == torch.float32:
+            out = torch.empty_like(d)
+            t = time_pair(lambda: fk.matvec(op, d, out=out),
+                          lambda: fk._matvec_plain(op, d), dev, timing)
+            print(f"  matvec {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+        elif dtype == torch.float32:
             errs["matvec"], errs["fused_cg_iteration"] = diff, fdiff
+            for name in ("matvec", "fused_cg_iteration"):
+                bounds[name] = bound(name, op, split=True)
             out = torch.empty_like(d)
             work = fk.Workspace(op)
             bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
@@ -179,8 +224,8 @@ def main() -> int:
             for name in ("matvec", "fused_cg_iteration"):
                 print(f"  {name} f32 split2m: kernel {times[name][0]:.4f} "
                       f"ms, plain {times[name][1]:.4f} ms")
-            del out, work, bufs
         del pb, op, d, x, g, dd, h, want, got
+        out = work = bufs = None
         torch.cuda.empty_cache()
 
     for dtype, precision in ((torch.float32, "highest"),
@@ -223,10 +268,13 @@ def main() -> int:
                 t = time_pair(kern, plain, dev, timing, inner=10)
                 print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain "
                       f"{t[1]:.4f} ms")
+                b = bound(name, opo if name.endswith("onthefly") else opg,
+                          split)
                 if precision == "highest":
-                    errs[name], times[name] = diff, t
+                    errs[name], times[name], bounds[name] = diff, t, b
                 else:
                     errs_split[name], times_split[name] = diff, t
+                    bounds[name + "_split2m"] = b
         del ops, opg, u, u_loc, cases
         torch.cuda.empty_cache()
 
@@ -344,17 +392,26 @@ def main() -> int:
                 or res.n_iterations != row.n_iterations or not gap < 1e-3:
             raise AssertionError(f"{label} solution is wrong")
 
+    # no single PyTorch call computes any of these functions (each is a
+    # fused chain of contractions, the metric apply and masking), so
+    # library_ms is null throughout
     rows = []
     for name, (_, src, line) in kernels.items():
         row = {"name": name, "route": "cuda", "source": CSRC + src,
                "replaces": f"mf_data_locality_tpu/ops/{line}",
                "launches": launches[name], "max_abs_err": errs[name],
-               "ms": times[name][0], "plain_ms": times[name][1]}
+               "ms": times[name][0], "plain_ms": times[name][1],
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+               "library_ms": None}
+        if name in ("matvec", "fused_cg_iteration"):  # measured at split2m
+            row["source_split2m"] = CSRC + "cell_mma.cuh"
         if name in times_split:  # B3, B5, B6: the tensor-core split2m pass
             row.update(source_split2m=CSRC + "apply_mma.cuh",
                        ms_split2m=times_split[name][0],
                        plain_ms_split2m=times_split[name][1],
-                       max_abs_err_split2m=errs_split[name])
+                       max_abs_err_split2m=errs_split[name],
+                       bound_ms_split2m=bounds[name + "_split2m"][0],
+                       bound_by_split2m=bounds[name + "_split2m"][1])
             if name in launches_split:
                 row["launches_split2m"] = launches_split[name]
         rows.append(row)

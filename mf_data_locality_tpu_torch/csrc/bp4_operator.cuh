@@ -19,29 +19,25 @@
 // This is the arithmetic of the TPU kernel's _operator_block twostage branch
 // with _metric_onthefly's adjj chain (mf_data_locality_tpu/ops/
 // cg_fused_kernel.py:583-651, :178-265), not its block structure: the TPU
-// kernel puts cells in vector lanes and walks z-cell layers in order; here
-// one thread block owns one cell and its threads walk the cell's nodes,
-// q-points and planes, with every intermediate in shared memory.
+// kernel puts cells in vector lanes and walks z-cell layers in order.
 //
-// Precision rungs (laplace_pallas._mm, cg_fused_kernel._stream_parts):
-//   SPLIT (f32 "split2m"): the 2D-stage matrices arrive rounded to bf16;
-//     each streamed value b is split into bh = bf16(b), bl = bf16(b - bh)
-//     and the products mh*bh + mh*bl are accumulated in f32, hi parts
-//     first, as the TPU's K-stacked matmul orders them.
-//   !SPLIT ("highest", f32 or f64): plain FMA at the working type.
-// The z stage runs at the working type, unrounded, as on the TPU.
-// The Jacobian J = pds . c24 is exact FMA at the working type.  Deliberate
-// difference: the TPU kernel evaluates it under every f32 rung as a split3
-// bf16 hi/lo product (cg_fused_kernel.py:208), whose intent is f32 class;
-// exact f32 is that class without the emulation.
+// cell_apply below is the "highest" rung (f32 or f64): one thread block
+// owns one cell, its threads walk the cell's nodes, q-points and planes,
+// every intermediate in shared memory, plain FMA at the working type.  The
+// f32 "split2m" rung (bf16 x bf16 products of the 2D stage, f32
+// accumulation) runs on the tensor cores instead, 16 cells a block
+// (cell_mma.cuh).  On both, the z stage runs at the working type,
+// unrounded, as on the TPU, and the Jacobian J = pds . c24 is exact FMA at
+// the working type.  Deliberate difference: the TPU kernel evaluates it
+// under every f32 rung as a split3 bf16 hi/lo product
+// (cg_fused_kernel.py:208), whose intent is f32 class; exact f32 is that
+// class without the emulation.
 //
-// Bound on the H100: one cell costs ~2.4e5 FMAs (3 components x (2D stage
-// forward + backward with two stream parts) + the metric rebuild) against
-// ~4.5 KB of node data, so the cell kernel is bound by the CUDA cores'
-// FMA rate and shared-memory traffic, not by DRAM.  A later PR moves the
-// 2D stage onto the tensor cores (wgmma / mma.sync: split2m is by
-// definition bf16 x bf16 products with f32 accumulation) and stages node
-// planes with TMA; PERF.md records the measured split.
+// Bound of cell_apply on the H100: one cell costs ~1.4e5 FMAs (3
+// components x the 2D stage forward + backward + the metric rebuild)
+// against ~4.5 KB of node data, so it is bound by the CUDA cores' FMA rate
+// and shared-memory traffic, not by DRAM; PERF.md records the measured
+// split.
 
 #pragma once
 
@@ -101,26 +97,9 @@ __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
   return node;
 }
 
-// Stream parts of one value: the value itself, or its bf16 hi/lo pair.
-template <typename T, bool SPLIT>
-struct Stream {
-  static constexpr int N = 1;
-  __device__ static void split(T v, T* parts) { parts[0] = v; }
-};
-template <>
-struct Stream<float, true> {
-  static constexpr int N = 2;
-  __device__ static void split(float v, float* parts) {
-    const float hi = __bfloat162float(__float2bfloat16_rn(v));
-    parts[0] = hi;
-    parts[1] = __bfloat162float(__float2bfloat16_rn(v - hi));
-  }
-};
-
-template <typename T, int P, bool SPLIT>
+template <typename T, int P>
 struct CellSmem {
   using S = Shape<P>;
-  static constexpr int NS = Stream<T, SPLIT>::N;
   static constexpr int NP = kComps * S::Q * S::P12;  // plane values, all comps
   static constexpr int NQ = kComps * S::Q3;          // q-point values, all comps
   T mats[3 * S::Q2 * S::P12];
@@ -129,9 +108,9 @@ struct CellSmem {
   T c24[24];
   T u[kComps * S::P13];  // operator input at the cell's nodes
   T g6[6 * S::Q3];       // metric entries 00, 01, 02, 11, 12, 22 per q-point
-  T us[NS][NP];          // z-interpolated planes (stream parts)
-  T ud[NS][NP];          // z-differentiated planes
-  T t[3][NS][NQ];        // metric-applied gradients (stream parts)
+  T us[NP];              // z-interpolated planes
+  T ud[NP];              // z-differentiated planes
+  T t[3][NQ];            // metric-applied gradients
   T w1[NP];              // backward 2D stage
   T w2[NP];
 };
@@ -172,8 +151,8 @@ __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
 }
 
 // Copy the operator tables and this cell's coefficients to shared memory.
-template <typename T, int P, bool SPLIT>
-__device__ void load_tables(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
+template <typename T, int P>
+__device__ void load_tables(CellSmem<T, P>& sm, const OpTables<T>& tb,
                             int cell) {
   using S = Shape<P>;
   for (int i = threadIdx.x; i < 3 * S::Q2 * S::P12; i += blockDim.x)
@@ -185,15 +164,54 @@ __device__ void load_tables(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
   if (threadIdx.x < 24) sm.c24[threadIdx.x] = tb.coeffs[cell * 24 + threadIdx.x];
 }
 
+// The vectors of the B1 (d -> cells) and B2 (update4b, then d' -> cells)
+// cell passes; B1 sets only d.
+template <typename T>
+struct CellIo {
+  const T *x, *g, *d, *h, *prec, *scal;
+  T *x2, *g2, *d2;
+};
+
+// The operator input at local node (kz, ky, kx) of cell (cz, cy, cx),
+// component c, zero at Dirichlet nodes: B1 d; B2 update4b's d'
+// (cg_fused_kernel.py:836-858) from the scalars sc = (alpha, beta, c1,
+// aob), and the node's owner cell writes x', g', d'.
+template <typename T, int P, bool FUSED>
+__device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
+                                        const Grid& gr, int c, int cz, int cy,
+                                        int cx, int kz, int ky, int kx) {
+  const int z = cz * P + kz, y = cy * P + ky, xx = cx * P + kx;
+  const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + xx;
+  const size_t idx = c * static_cast<size_t>(gr.n_nodes()) + node;
+  const bool in = interior(gr, z, y, xx);
+  if constexpr (!FUSED) {
+    return in ? io.d[idx] : T(0);
+  } else {
+    const T pv = io.prec[node], gv = io.g[idx], dv = io.d[idx];
+    const T gn = gv + sc[0] * io.h[idx];
+    const T dn = sc[1] * dv - pv * gn;
+    // each node is written by exactly one cell: the one it is local node
+    // (k < P) of, or the last cell along an axis for the top face
+    const bool owner = (kz < P || cz == gr.ncz - 1) &&
+                       (ky < P || cy == gr.ncy - 1) &&
+                       (kx < P || cx == gr.ncx - 1);
+    if (owner) {
+      io.x2[idx] = io.x[idx] + sc[2] * dv + sc[3] * (pv * gv);
+      io.g2[idx] = gn;
+      io.d2[idx] = dn;
+    }
+    return in ? dn : T(0);
+  }
+}
+
 // Apply the operator to sm.u (loaded and synchronised by the caller) and
 // write the masked cell-local result to cells[(c * n_cells + cell) * P13 + l].
-template <typename T, int P, bool SPLIT>
-__device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
+template <typename T, int P>
+__device__ void cell_apply(CellSmem<T, P>& sm, const OpTables<T>& tb,
                            const Grid& gr, int cell, int cz, int cy, int cx,
                            T* __restrict__ cells) {
   using S = Shape<P>;
-  using St = Stream<T, SPLIT>;
-  constexpr int NS = St::N;
+  using Sm = CellSmem<T, P>;
   const int tid = threadIdx.x;
 
   // metric at each q-point, rebuilt from the 24 coefficients
@@ -205,7 +223,7 @@ __device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
   }
 
   // z stage: (c, qz, ky, kx) planes
-  for (int i = tid; i < CellSmem<T, P, SPLIT>::NP; i += blockDim.x) {
+  for (int i = tid; i < Sm::NP; i += blockDim.x) {
     const int c = i / (S::Q * S::P12);
     const int qz = (i / S::P12) % S::Q;
     const int k2 = i % S::P12;
@@ -217,19 +235,13 @@ __device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
       s = fma(uc[kz * S::P12], sm.sz[qz * S::P1 + kz], s);
       dd = fma(uc[kz * S::P12], sm.dz[qz * S::P1 + kz], dd);
     }
-    T ps[NS], pd[NS];
-    St::split(s, ps);
-    St::split(dd, pd);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      sm.us[n][i] = ps[n];
-      sm.ud[n][i] = pd[n];
-    }
+    sm.us[i] = s;
+    sm.ud[i] = dd;
   }
   __syncthreads();
 
   // forward 2D stage and metric apply: (c, qz, qy, qx) q-points
-  for (int i = tid; i < CellSmem<T, P, SPLIT>::NQ; i += blockDim.x) {
+  for (int i = tid; i < Sm::NQ; i += blockDim.x) {
     const int c = i / S::Q3;
     const int qp = i % S::Q3;
     const int qz = qp / S::Q2;
@@ -237,17 +249,14 @@ __device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
     const T* mx = sm.mats + r * S::P12;
     const T* my = sm.mats + (S::Q2 + r) * S::P12;
     const T* mz = sm.mats + (2 * S::Q2 + r) * S::P12;
+    const T* bs = sm.us + (c * S::Q + qz) * S::P12;
+    const T* bd = sm.ud + (c * S::Q + qz) * S::P12;
     T gx = T(0), gy = T(0), gz = T(0);
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const T* bs = sm.us[n] + (c * S::Q + qz) * S::P12;
-      const T* bd = sm.ud[n] + (c * S::Q + qz) * S::P12;
-#pragma unroll
-      for (int k = 0; k < S::P12; ++k) {
-        gx = fma(mx[k], bs[k], gx);
-        gy = fma(my[k], bs[k], gy);
-        gz = fma(mz[k], bd[k], gz);
-      }
+    for (int k = 0; k < S::P12; ++k) {
+      gx = fma(mx[k], bs[k], gx);
+      gy = fma(my[k], bs[k], gy);
+      gz = fma(mz[k], bd[k], gz);
     }
     const T* G = sm.g6 + qp;
     const T g00 = G[0], g01 = G[S::Q3], g02 = G[2 * S::Q3];
@@ -256,33 +265,23 @@ __device__ void cell_apply(CellSmem<T, P, SPLIT>& sm, const OpTables<T>& tb,
                     g01 * gx + g11 * gy + g12 * gz,
                     g02 * gx + g12 * gy + g22 * gz};
 #pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      T parts[NS];
-      St::split(t[e], parts);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) sm.t[e][n][i] = parts[n];
-    }
+    for (int e = 0; e < 3; ++e) sm.t[e][i] = t[e];
   }
   __syncthreads();
 
   // backward 2D stage: (c, qz, ky, kx) planes
-  for (int i = tid; i < CellSmem<T, P, SPLIT>::NP; i += blockDim.x) {
+  for (int i = tid; i < Sm::NP; i += blockDim.x) {
     const int c = i / (S::Q * S::P12);
     const int qz = (i / S::P12) % S::Q;
     const int k2 = i % S::P12;
     const int q0 = c * S::Q3 + qz * S::Q2;
     T w1 = T(0), w2 = T(0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      for (int r = 0; r < S::Q2; ++r)
-        w1 = fma(sm.mats[r * S::P12 + k2], sm.t[0][n][q0 + r], w1);
-      for (int r = 0; r < S::Q2; ++r)
-        w1 = fma(sm.mats[(S::Q2 + r) * S::P12 + k2], sm.t[1][n][q0 + r], w1);
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-      for (int r = 0; r < S::Q2; ++r)
-        w2 = fma(sm.mats[(2 * S::Q2 + r) * S::P12 + k2], sm.t[2][n][q0 + r], w2);
+    for (int r = 0; r < S::Q2; ++r)
+      w1 = fma(sm.mats[r * S::P12 + k2], sm.t[0][q0 + r], w1);
+    for (int r = 0; r < S::Q2; ++r)
+      w1 = fma(sm.mats[(S::Q2 + r) * S::P12 + k2], sm.t[1][q0 + r], w1);
+    for (int r = 0; r < S::Q2; ++r)
+      w2 = fma(sm.mats[(2 * S::Q2 + r) * S::P12 + k2], sm.t[2][q0 + r], w2);
     sm.w1[i] = w1;
     sm.w2[i] = w2;
   }

@@ -10,9 +10,10 @@
 // shared z plane and the dot partials from one grid step to the next; the
 // H100 runs blocks in no order, so each apply is split into passes:
 //
-//   cells     one block per cell: (B2: update4b at the cell's nodes, the
-//             owning cell writes x', g', d') then the cell operator; writes
-//             the masked cell-local result to scratch (C, n_cells, (P+1)^3).
+//   cells     one block per cell (split2m: per 16 cells): (B2: update4b at
+//             the cells' nodes, the owning cell writes x', g', d') then the
+//             cell operator; writes the masked cell-local result to scratch
+//             (C, n_cells, (P+1)^3).
 //   assemble  one thread per lattice node: sums its <= 8 cell contributions
 //             in a fixed order, masks, writes h (replaces the TPU's lane-roll
 //             consistency and z carry plane, cg_fused_kernel.py:869-905);
@@ -25,14 +26,13 @@
 // iteration): the TPU's in-place update relied on its sequential grid to
 // read each +1 plane before it was overwritten (cg_fused_kernel.py:820-829).
 //
-// Bound on the H100 at p=4, s=13: one lattice vector is 6.5 MB; an
-// iteration reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26 MB)
-// and passes ~12 MB through the cell scratch, all close to the 50 MB L2.
-// The cell pass does ~1.9e9 FMAs per apply, so it, not DRAM, sets the time:
-// measured on an H100 SXM (700 W), f32 split2m, one iteration is 446 us of
-// cell pass, 25 us of assemble and 4 us of finalize, while the whole
-// iteration's traffic would take ~26 us at the measured 3.0 TB/s.  Later:
-// the 2D stage on the tensor cores (wgmma), TMA-staged node planes, and the
+// The cell pass has two designs.  "highest" (f32, f64): one block per cell
+// on the CUDA cores (bp4_operator.cuh's cell_apply).  f32 "split2m": one
+// block per 16 cells, the 2D stage on the tensor cores (cell_mma.cuh,
+// whose note gives its bound and budget).  Bound of an iteration on the
+// H100 at p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d',
+// h' (~26 MB) and passes ~12 MB through the cell scratch, all close to the
+// 50 MB L2; the cell pass takes most of the time (PERF.md).  Later: the
 // node passes fused into the cell pass once a cell owns its output nodes.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
@@ -40,75 +40,51 @@
 // or -1 for a configuration with no instantiation.
 
 #include "bp4_operator.cuh"
+#include "cell_mma.cuh"
 
 namespace bp4 {
 
-template <typename T, int P, bool SPLIT>
+// The CUDA-core cell pass ("highest"): one block per cell.  B1 gathers d
+// at the cell's nodes; B2 (FUSED) runs update4b there first.
+template <typename T, int P, bool FUSED>
 __global__ void __launch_bounds__(kCellThreads)
-    matvec_cells_kernel(OpTables<T> tb, Grid gr, const T* __restrict__ d,
-                        T* __restrict__ cells) {
+    cells_kernel(OpTables<T> tb, Grid gr, CellIo<T> io, T* __restrict__ cells) {
   using S = Shape<P>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellSmem<T, P, SPLIT>*>(smem_raw);
+  auto& sm = *reinterpret_cast<CellSmem<T, P>*>(smem_raw);
   const int cell = blockIdx.x;
   const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
             cz = cell / (gr.ncx * gr.ncy);
   load_tables(sm, tb, cell);
-  const size_t n_nodes = gr.n_nodes();
+  T sc[4] = {T(0), T(0), T(0), T(0)};
+  if constexpr (FUSED) {
+    for (int k = 0; k < 4; ++k) sc[k] = io.scal[k];
+  }
   for (int i = threadIdx.x; i < kComps * S::P13; i += blockDim.x) {
     const int c = i / S::P13, l = i % S::P13;
-    const int z = cz * P + l / S::P12, y = cy * P + (l / S::P1) % S::P1,
-              x = cx * P + l % S::P1;
-    const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + x;
-    sm.u[i] = interior(gr, z, y, x) ? d[c * n_nodes + node] : T(0);
+    sm.u[i] = cell_input<T, P, FUSED>(io, sc, gr, c, cz, cy, cx, l / S::P12,
+                                      (l / S::P1) % S::P1, l % S::P1);
   }
   __syncthreads();
   cell_apply(sm, tb, gr, cell, cz, cy, cx, cells);
 }
 
-// update4b (cg_fused_kernel.py:836-858) at every node of the cell, then the
-// operator on d'.  Scalars come from the device (scal = alpha, beta, c1, aob,
-// ...), so iterations chain with no host round trip in between.
-template <typename T, int P, bool SPLIT>
-__global__ void __launch_bounds__(kCellThreads)
-    fused_cells_kernel(OpTables<T> tb, Grid gr, const T* __restrict__ x,
-                       const T* __restrict__ g, const T* __restrict__ d,
-                       const T* __restrict__ h, const T* __restrict__ prec,
-                       const T* __restrict__ scal, T* __restrict__ x2,
-                       T* __restrict__ g2, T* __restrict__ d2,
-                       T* __restrict__ cells) {
-  using S = Shape<P>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellSmem<T, P, SPLIT>*>(smem_raw);
-  const int cell = blockIdx.x;
-  const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
-            cz = cell / (gr.ncx * gr.ncy);
-  load_tables(sm, tb, cell);
-  const T alpha = scal[0], beta = scal[1], c1 = scal[2], aob = scal[3];
-  const size_t n_nodes = gr.n_nodes();
-  for (int i = threadIdx.x; i < kComps * S::P13; i += blockDim.x) {
-    const int c = i / S::P13, l = i % S::P13;
-    const int kz = l / S::P12, ky = (l / S::P1) % S::P1, kx = l % S::P1;
-    const int z = cz * P + kz, y = cy * P + ky, xx = cx * P + kx;
-    const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + xx;
-    const size_t idx = c * n_nodes + node;
-    const T pv = prec[node], gv = g[idx], dv = d[idx];
-    const T gn = gv + alpha * h[idx];
-    const T dn = beta * dv - pv * gn;
-    // each node is written by exactly one cell: the one it is local node
-    // (k < P) of, or the last cell along an axis for the top face
-    const bool owner = (kz < P || cz == gr.ncz - 1) &&
-                       (ky < P || cy == gr.ncy - 1) &&
-                       (kx < P || cx == gr.ncx - 1);
-    if (owner) {
-      x2[idx] = x[idx] + c1 * dv + aob * (pv * gv);
-      g2[idx] = gn;
-      d2[idx] = dn;
-    }
-    sm.u[i] = interior(gr, z, y, xx) ? dn : T(0);
+// The cell pass of B1 (FUSED false) or B2, on the tensor cores under split2m.
+template <typename T, int P, bool SPLIT, bool FUSED>
+cudaError_t launch_cells(const OpTables<T>& tb, const Grid& gr,
+                         const CellIo<T>& io, T* cells, cudaStream_t st) {
+  if constexpr (SPLIT) {
+    return launch_cells_mma<P, FUSED>(tb, gr, io, cells, st);
+  } else {
+    using Smem = CellSmem<T, P>;
+    auto kern = cells_kernel<T, P, FUSED>;
+    // above 48 KB a block's shared memory must be requested explicitly
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
+    if (attr != cudaSuccess) return attr;
+    kern<<<gr.n_cells(), kCellThreads, sizeof(Smem), st>>>(tb, gr, io, cells);
+    return cudaGetLastError();
   }
-  __syncthreads();
-  cell_apply(sm, tb, gr, cell, cz, cy, cx, cells);
 }
 
 // The merged-CG scalar update from the 7 sums (cg_fused_kernel.scalar_recurrence,
@@ -153,29 +129,12 @@ __global__ void __launch_bounds__(kNodeThreads)
 
 template <typename T, int P, bool SPLIT>
 struct Launch {
-  using Smem = CellSmem<T, P, SPLIT>;
-
-  static cudaError_t prepare() {
-    // above 48 KB a block's shared memory must be requested explicitly
-    static const cudaError_t err = [] {
-      cudaError_t e = cudaFuncSetAttribute(
-          matvec_cells_kernel<T, P, SPLIT>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
-      if (e != cudaSuccess) return e;
-      return cudaFuncSetAttribute(fused_cells_kernel<T, P, SPLIT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  sizeof(Smem));
-    }();
-    return err;
-  }
-
   static int matvec(const OpTables<T>& tb, const Grid& gr, const T* d,
                     T* cells, T* h, cudaStream_t st) {
-    cudaError_t e = prepare();
+    CellIo<T> io{};
+    io.d = d;
+    cudaError_t e = launch_cells<T, P, SPLIT, false>(tb, gr, io, cells, st);
     if (e != cudaSuccess) return e;
-    matvec_cells_kernel<T, P, SPLIT>
-        <<<gr.n_cells(), kCellThreads, sizeof(Smem), st>>>(tb, gr, d, cells);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
         gr, cells, h, nullptr, nullptr, nullptr, nullptr);
     return cudaGetLastError();
@@ -185,12 +144,9 @@ struct Launch {
                    const T* g, const T* d, const T* h, const T* prec,
                    const T* scal, T* x2, T* g2, T* d2, T* h2, T* scal2,
                    T* cells, T* partials, cudaStream_t st) {
-    cudaError_t e = prepare();
+    const CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
+    cudaError_t e = launch_cells<T, P, SPLIT, true>(tb, gr, io, cells, st);
     if (e != cudaSuccess) return e;
-    fused_cells_kernel<T, P, SPLIT>
-        <<<gr.n_cells(), kCellThreads, sizeof(Smem), st>>>(
-            tb, gr, x, g, d, h, prec, scal, x2, g2, d2, cells);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     const int nb = node_blocks(gr);
     assemble_kernel<T, P, true><<<nb, kNodeThreads, 0, st>>>(
         gr, cells, h2, g2, d2, prec, partials);
@@ -222,8 +178,9 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: degree 4; f32 with and
-// without the split2m stream split, f64 without.
+// dtype: 0 = float32, 1 = float64.  Instantiated: degree 4; f32 "highest"
+// and "split2m" (split = 1: mats is the bf16 fragment tables of
+// cell_mma.cuh), f64 "highest".
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {

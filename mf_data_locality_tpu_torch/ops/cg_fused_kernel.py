@@ -12,12 +12,13 @@ Vectors are lattices ``(C, Nz, Ny, Nx)`` that vanish on the boundary (the
 solver's invariant); the preconditioner is ``(1, Nz, Ny, Nx)``; ``scal`` is
 the 8-vector (alpha, beta, c1, aob, parity, res2, alpha_old, beta_old).
 
-Each wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``) for
-tensors on a CUDA device and the plain PyTorch version
-(:func:`_matvec_plain`, :func:`_fused_iteration_plain`) for tensors on the
-CPU; other devices raise.  The plain versions do the same arithmetic —
-same bf16 rounding points for ``split2m``, same masking — with einsum over
-cells, in another summation order.  ``matvec.launches`` and
+Each wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``; its
+f32 ``split2m`` cell pass is the tensor-core pass of ``csrc/cell_mma.cuh``
+on the bf16 tables ``op.mma_mats``) for tensors on a CUDA device and the
+plain PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
+for tensors on the CPU; other devices raise.  The plain versions do the same
+arithmetic — same bf16 rounding points for ``split2m``, same masking — with
+einsum over cells, in another summation order.  ``matvec.launches`` and
 ``fused_cg_iteration.launches`` count kernel launches (not plain calls).
 """
 
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from mf_data_locality_tpu_torch.ops import _build
+from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
 KERNEL_DEGREES = (4,)  # degrees instantiated in csrc/cg_fused.cu
@@ -84,6 +85,46 @@ def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     t01 = torch.cat([t0, t1], dim=-1)
     w1 = sum(torch.einsum("sr,cnqs->cnqr", mxy, b) for b in _parts(t01, split))
     w2 = sum(torch.einsum("sr,cnqs->cnqr", mz, b) for b in _parts(t2, split))
+    return (torch.einsum("qk,cnqr->cnkr", op.sz, w1)
+            + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
+
+
+def _cell_apply_mma_emulated(op: OperatorData,
+                             u: torch.Tensor) -> torch.Tensor:
+    """The split2m tensor-core cell pass's arithmetic (``csrc/cell_mma.cuh``)
+    in plain PyTorch, for the tests: the 2D matrices from their packed bf16
+    tables, (ky, kx) columns and q^2 rows zero-padded, the f32 z stage
+    unrounded, the K-stacked products [Mh | Mh] [uh; ul] and, after the
+    metric apply, [Mh | Mh]^T [th; tl] in f32.  Same result shape as
+    :func:`_cell_apply`."""
+    p, q = op.degree, op.n_q
+    p1, q2 = p + 1, q * q
+    q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
+    mf, mb = (m.to(op.dtype) for m in laplace_cuda.unpack_mma_tables(
+        op.mma_mats, p, "twostage"))
+    n_comp, nc = u.shape[0], op.n_cells
+    cells = (u.unfold(1, p1, p).unfold(2, p1, p).unfold(3, p1, p)
+             .reshape(n_comp, nc, p1, p1 * p1))
+    cells = torch.nn.functional.pad(cells, (0, p12p - p1 * p1))
+    uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
+    uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
+
+    def fwd(m, b):  # (rows, p12p) x (..., p12p), K-stacked hi/lo
+        return torch.cat(_parts(b, True), -1) @ torch.cat([m, m], 1).t()
+
+    gxy = fwd(mf[:2 * q2p], uS)
+    gx, gy, gz = gxy[..., :q2p], gxy[..., q2p:], fwd(mf[2 * q2p:], uD)
+    G = torch.nn.functional.pad(metric_onthefly(op).reshape(6, 1, nc, q, q2),
+                                (0, q2p - q2))
+    t0 = G[0] * gx + G[1] * gy + G[2] * gz
+    t1 = G[1] * gx + G[3] * gy + G[4] * gz
+    t2 = G[2] * gx + G[4] * gy + G[5] * gz
+
+    def bwd(m, b):  # (rows, p12p)^T x (..., rows), K-stacked hi/lo
+        return torch.cat(_parts(b, True), -1) @ torch.cat([m, m], 0)
+
+    w1 = bwd(mb[:2 * q2p], torch.cat([t0, t1], -1))[..., :p1 * p1]
+    w2 = bwd(mb[2 * q2p:], t2)[..., :p1 * p1]
     return (torch.einsum("qk,cnqr->cnkr", op.sz, w1)
             + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
 
@@ -187,6 +228,9 @@ def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
     if prec is not None:
         want.append((prec, (1,) + op.n_nodes_axis))
     want += [(s, (8,)) for s in scals]
+    if op.precision == "split2m":
+        q2p, p12p = laplace_cuda.mma_dims(op.degree, "twostage")
+        want.append((op.mma_mats, (2, 3 * q2p * p12p), torch.bfloat16))
     check_tensors(op, KERNEL_DEGREES, want)
 
 
@@ -204,8 +248,11 @@ def dtype_code(op: OperatorData) -> int:
 
 
 def _common_args(op: OperatorData):
-    return (dtype_code(op), int(op.precision == "split2m"), op.degree,
-            op.mats2d.data_ptr(), op.sz.data_ptr(), op.dz.data_ptr(),
+    # under split2m the kernels read the 2D matrices as bf16 fragment tables
+    split = op.precision == "split2m"
+    return (dtype_code(op), int(split), op.degree,
+            (op.mma_mats if split else op.mats2d).data_ptr(),
+            op.sz.data_ptr(), op.dz.data_ptr(),
             op.kpds.data_ptr(), op.w3.data_ptr(), op.kcoeffs.data_ptr())
 
 

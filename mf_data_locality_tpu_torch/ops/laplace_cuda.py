@@ -37,9 +37,10 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 ``kmats`` ((p+1)^3, 3 q^3), ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24)
 are the same data in the layouts the kernels read (one contiguous row per
-node / per q-point / per cell).  ``mma_mats`` (apply family under
-``split2m`` only) is ``mats`` rounded once to bf16 and packed as the
-tensor-core kernel's fragments (:func:`mma_tables`).
+node / per q-point / per cell).  ``mma_mats`` (``split2m`` only) is the
+matrix of the tensor-core cell pass rounded once to bf16 and packed as its
+fragments (:func:`mma_tables`): ``mats`` for the apply family, ``mats2d``
+for the fused path.
 """
 
 from __future__ import annotations
@@ -179,10 +180,23 @@ class OperatorData:
         return tuple(self.mask.shape[1:])
 
 
-def mma_dims(p: int) -> tuple[int, int]:
+def _mma_block(p: int, factor: str) -> tuple[int, int]:
+    """(rows, columns) of one direction's block of the matrix the
+    tensor-core pass of ``factor`` reads: the dense (q^3, (p+1)^3) or the
+    2D stage's (q^2, (p+1)^2)."""
+    if factor == "dense":
+        return (p + 2) ** 3, (p + 1) ** 3
+    if factor == "twostage":
+        return (p + 2) ** 2, (p + 1) ** 2
+    raise ValueError(f"no tensor-core tables for factor={factor!r}")
+
+
+def mma_dims(p: int, factor: str = "dense") -> tuple[int, int]:
     """(q-points per direction, nodes) of degree ``p``, each padded to a
-    multiple of 16: the tensor-core tiles of ``csrc/apply_mma.cuh``."""
-    return -(-(p + 2) ** 3 // 16) * 16, -(-(p + 1) ** 3 // 16) * 16
+    multiple of 16: the tensor-core tiles of ``csrc/apply_mma.cuh``
+    (``factor="dense"``) or of the 2D stage in ``csrc/cell_mma.cuh``
+    (``"twostage"``: q^2 and (p+1)^2)."""
+    return tuple(-(-n // 16) * 16 for n in _mma_block(p, factor))
 
 
 def _fragments(b: torch.Tensor) -> torch.Tensor:
@@ -200,25 +214,29 @@ def _from_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return t.permute(1, 4, 3, 5, 0, 2).reshape(k, n)
 
 
-def mma_tables(mats: torch.Tensor, p: int) -> torch.Tensor:
-    """The split2m kernel's M: ``mats`` (3 q^3, (p+1)^3) rounded once to
-    bf16, zero-padded to (3 Q3P, P13P) (:func:`mma_dims`, per direction),
-    packed as fragments: row 0 for the forward product (B = Mh^T), row 1
-    for the backward (B = Mh).  Shape (2, 3 Q3P P13P), bf16."""
-    q3p, p13p = mma_dims(p)
-    mh = mats.new_zeros((3, q3p, p13p), dtype=torch.bfloat16)
-    mh[:, :(p + 2) ** 3, :(p + 1) ** 3] = mats.reshape(3, (p + 2) ** 3, -1)
-    mh = mh.reshape(3 * q3p, p13p)
+def mma_tables(mats: torch.Tensor, p: int,
+               factor: str = "dense") -> torch.Tensor:
+    """The split2m tensor-core pass's matrix: ``mats`` ((3 q^3, (p+1)^3)
+    dense, or the (3 q^2, (p+1)^2) 2D stage for ``factor="twostage"``)
+    rounded once to bf16, each direction's block zero-padded to (RP, CP)
+    (:func:`mma_dims`), packed as fragments: row 0 for the forward product
+    (B = Mh^T), row 1 for the backward (B = Mh).  Shape (2, 3 RP CP),
+    bf16."""
+    rows, cols = _mma_block(p, factor)
+    rp, cp = mma_dims(p, factor)
+    mh = mats.new_zeros((3, rp, cp), dtype=torch.bfloat16)
+    mh[:, :rows, :cols] = mats.reshape(3, rows, cols)
+    mh = mh.reshape(3 * rp, cp)
     return torch.stack([_fragments(mh.t()), _fragments(mh)])
 
 
-def unpack_mma_tables(tables: torch.Tensor,
-                      p: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The padded (3 Q3P, P13P) bf16 matrices the two rows of
+def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded (3 RP, CP) bf16 matrices the two rows of
     :func:`mma_tables` hold: (forward's, backward's)."""
-    q3p, p13p = mma_dims(p)
-    return (_from_fragments(tables[0], p13p, 3 * q3p).t(),
-            _from_fragments(tables[1], 3 * q3p, p13p))
+    rp, cp = mma_dims(p, factor)
+    return (_from_fragments(tables[0], cp, 3 * rp).t(),
+            _from_fragments(tables[1], 3 * rp, cp))
 
 
 def check_config(precision: str, factor: str = "twostage",
@@ -305,8 +323,8 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         kcoeffs=co.reshape(24, nc).t().contiguous(),
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
         precision=precision, windowing=windowing,
-        mma_mats=(mma_tables(m3, p)
-                  if precision == "split2m" and factor == "dense" else None))
+        mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor)
+                  if precision == "split2m" else None))
 
 
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,

@@ -86,6 +86,34 @@ def test_fused_iteration_kernel_matches_plain(cuda_device, dtype, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [3, 5, 7, 10])
+def test_split2m_cell_pass_matches_plain_and_repeats(cuda_device, s):
+    """B1 and B2 under f32 split2m run the tensor-core cell pass: against
+    their plain versions, and two calls give bitwise-equal output (fixed
+    order, no atomics).  s=3: 8 cells, one ragged 16-cell tile; s=5, 7:
+    tiles that cross rows of cells (4 and 8 cells a row); s=10: every tile
+    one row of 16 cells (the row gather)."""
+    pb = bp4.build(s, P, torch.float32, "split2m", device=cuda_device)
+    op = pb.op
+    (u,) = _state(op, 1, seed=20 + s)
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[torch.float32]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=30 + s)
+    prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
+    scal = torch.tensor(SCAL, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[torch.float32]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_their_arguments(cuda_device):
     pb = bp4.build(4, P, torch.float32, "split2m", device=cuda_device)
     op = pb.op

@@ -19,6 +19,7 @@ from mf_data_locality_tpu.ops import cg_fused_kernel as jfk
 from mf_data_locality_tpu.ops import laplace_pallas as jlp
 from mf_data_locality_tpu_torch.models import bp4
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+from mf_data_locality_tpu_torch.ops import laplace_cuda
 
 P = 4
 
@@ -89,3 +90,44 @@ def test_matvec_cpu_uses_plain_version():
     assert res is out
     assert fk.matvec.launches == before
     np.testing.assert_array_equal(out.numpy(), fk._matvec_plain(op, u).numpy())
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_mma_tables_2d_unpack_to_bf16_mats2d(p):
+    """The fused path's split2m tables: both fragment orders unpack to
+    ``op.mats2d`` in bf16, bit for bit, every pad entry is 0, and the
+    rounding to bf16 is exact (``mats2d`` is already bf16-valued)."""
+    op = bp4.build(1, p, torch.float32, "split2m").op
+    q2, p12 = (p + 2) ** 2, (p + 1) ** 2
+    q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
+    assert q2p % 16 == 0 and p12p % 16 == 0
+    assert q2p - q2 < 16 and p12p - p12 < 16
+    assert op.mma_mats.dtype == torch.bfloat16
+    assert tuple(op.mma_mats.shape) == (2, 3 * q2p * p12p)
+    bf = op.mats2d.to(torch.bfloat16)
+    assert torch.equal(bf.to(torch.float32), op.mats2d)
+    want = bf.reshape(3, q2, p12).view(torch.int16)
+    for m in laplace_cuda.unpack_mma_tables(op.mma_mats, p, "twostage"):
+        m = m.reshape(3, q2p, p12p).view(torch.int16).clone()
+        assert torch.equal(m[:, :q2, :p12], want)
+        m[:, :q2, :p12] = 0
+        assert not m.any()
+    assert bp4.build(1, p, torch.float32, "highest").op.mma_mats is None
+
+
+@pytest.mark.parametrize("s", [3, 5])
+def test_cell_mma_emulation_matches_piece_vmult(s):
+    """The split2m tensor-core cell pass's arithmetic (padded bf16 tables,
+    hi/lo parts of the f32 z stage, f32 accumulation, t split after the
+    metric apply) against JAX's ``piece_vmult`` under split2m in interpret
+    mode, and against the plain cell pass: 1e-5 relative, the f32 class
+    (s=3: 8 cells, one ragged 16-cell tile)."""
+    u = _random_state(s, np.float32, seed=30 + s)
+    ref = _jax_matvec(s, u, jnp.float32, "split2m")
+    op = bp4.build(s, P, dtype=torch.float32, precision="split2m").op
+    ut = torch.as_tensor(u) * op.mask
+    cells = fk._cell_apply_mma_emulated(op, ut)
+    got = (fk._assemble(op, cells) * op.mask).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
+    plain = fk._cell_apply(op, ut)
+    assert ((cells - plain).abs().max() / plain.abs().max()).item() < 1e-5
