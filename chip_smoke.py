@@ -10,8 +10,9 @@ Phases (each raises on failure, so any failure exits nonzero):
 3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
    kernel with its plain PyTorch version on the same inputs, and time both:
    B1/B2 (f32 split2m — the tensor-core cell pass —, f32 highest, f64
-   highest), B3-B6 (f32 highest, f32 split2m except B4 — the tensor-core
-   pass of B3/B5/B6 —, f64 highest);
+   highest), B3-B6 (f32 highest — the sum-factorized pass of B3/B5/B6 —,
+   f32 split2m except B4 — the tensor-core pass of B3/B5/B6 —, f64
+   highest, whose B3/B5/B6 times are printed with their bounds);
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged and baseline alike — f32 "split2m" (fused; merged with
    ``--windowing reshape``) and f32 "highest" (merged, baseline) 91..94
@@ -31,8 +32,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
 6. print the kernels' JSON line (B1/B2 at f32 split2m, B3-B6 at f32
-   highest and also with their split2m times; each row with the bound of
-   its work on this card, from the shapes) and, last, the device JSON line.
+   highest and B3/B5/B6 also with their split2m and f64 times; each row
+   with the bound of its work on this card, from the shapes) and, last,
+   the device JSON line.
 """
 
 from __future__ import annotations
@@ -51,10 +53,17 @@ CSRC = "mf_data_locality_tpu_torch/csrc/"
 # (B3-B6) contractions and, for the scalars, of ~5e6 dot-product terms
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_SCAL_F32 = 1e-4
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3
-PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 and
+# f64 CUDA cores, HBM3
+PEAK_BF16, PEAK_F32, PEAK_F64, HBM_BPS = 989e12, 67e12, 34e12, 3.35e12
 METRIC_FMA = 117  # adjj rebuild per q-point: J 72, adjugate 21, entries 24
+
+
+def sumfac_fma(p: int, q: int) -> int:
+    """FMAs of the sum-factorized apply a cell, three components: forward
+    x pass (S, D), y pass (3), z pass (3), and the same backward."""
+    p1 = p + 1
+    return 3 * 2 * (2 * p1 ** 3 * q + 3 * p1 ** 2 * q ** 2 + 3 * p1 * q ** 3)
 
 
 def bound(name: str, op, split: bool) -> tuple[float, str]:
@@ -62,7 +71,11 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
     kernel's work on ``op``'s shapes — the larger of its bytes (inputs read
     once, outputs written once) over HBM_BPS and its operations over the
     peak of their type (under split2m the products on the tensor cores in
-    bf16, counting both stream parts, the rest in f32; else all in f32)."""
+    bf16, counting both stream parts, the rest in f32; else all at the
+    working type).  The apply family's products: under split2m the dense
+    count, because split2m's rounding of the dense entries defines that
+    function; under highest the sum-factorized count, the least work for
+    the function."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
@@ -71,8 +84,8 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
         products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
         other = 12 * q * p13 + 27 * q3 + METRIC_FMA * q3
         words = (6 if name == "matvec" else 25) * nn + 24 * nc
-    else:  # dense; metric streamed, or rebuilt (B4)
-        products = 2 * 3 * 3 * q3 * p13
+    else:  # the apply family; metric streamed, or rebuilt (B4)
+        products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
         onthefly = name == "apply_local_batched_onthefly"
         other = 27 * q3 + (METRIC_FMA * q3 if onthefly else 0)
         words = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
@@ -83,7 +96,8 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
         t_ops = max(2 * 2 * products * nc / PEAK_BF16,
                     2 * other * nc / PEAK_F32)
     else:
-        t_ops = 2 * (products + other) * nc / PEAK_F32
+        peak = PEAK_F32 if op.dtype == torch.float32 else PEAK_F64
+        t_ops = 2 * (products + other) * nc / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -136,13 +150,13 @@ def main() -> int:
         "fused_cg_iteration": (fk.fused_cg_iteration, "cg_fused.cu",
                                "cg_fused_kernel.py:1476"),
         "apply_local_batched_g": (la.apply_local_batched_g,
-                                  "laplace_apply.cu", "laplace_pallas.py:1023"),
+                                  "apply_sumfac.cuh", "laplace_pallas.py:1023"),
         "apply_local_batched_onthefly": (la.apply_local_batched_onthefly,
                                          "laplace_apply.cu",
                                          "laplace_pallas.py:1043"),
-        "apply_lattice_pieces": (la.apply_lattice_pieces, "laplace_apply.cu",
+        "apply_lattice_pieces": (la.apply_lattice_pieces, "apply_sumfac.cuh",
                                  "laplace_pallas.py:947"),
-        "apply_lattice_zslab": (la.apply_lattice_zslab, "laplace_apply.cu",
+        "apply_lattice_zslab": (la.apply_lattice_zslab, "apply_sumfac.cuh",
                                 "laplace_pallas.py:664"),
     }
 
@@ -173,6 +187,7 @@ def main() -> int:
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print(f"kernels vs plain at p={DEGREE}, s={S}:")
     errs, times, errs_split, times_split, bounds = {}, {}, {}, {}, {}
+    f64 = {}  # B3, B5, B6 at f64 highest: (kernel ms, plain ms), bound
     for dtype, precision in ((torch.float32, "split2m"),
                              (torch.float32, "highest"),
                              (torch.float64, "highest")):
@@ -264,17 +279,20 @@ def main() -> int:
         for name, (kern, plain) in cases.items():
             rel, diff = rel_err(kern(), plain())
             check(f"{name} {tag}", rel, TOL[dtype])
-            if dtype == torch.float32:
-                t = time_pair(kern, plain, dev, timing, inner=10)
-                print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain "
-                      f"{t[1]:.4f} ms")
-                b = bound(name, opo if name.endswith("onthefly") else opg,
-                          split)
-                if precision == "highest":
-                    errs[name], times[name], bounds[name] = diff, t, b
-                else:
-                    errs_split[name], times_split[name] = diff, t
-                    bounds[name + "_split2m"] = b
+            onthefly = name.endswith("onthefly")
+            if dtype == torch.float64 and onthefly:
+                continue
+            t = time_pair(kern, plain, dev, timing, inner=10)
+            b = bound(name, opo if onthefly else opg, split)
+            print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
+                  f"ms, bound {b[0]:.4f} ms ({b[1]})")
+            if dtype == torch.float64:
+                f64[name] = t, b
+            elif precision == "highest":
+                errs[name], times[name], bounds[name] = diff, t, b
+            else:
+                errs_split[name], times_split[name] = diff, t
+                bounds[name + "_split2m"] = b
         del ops, opg, u, u_loc, cases
         torch.cuda.empty_cache()
 
@@ -414,6 +432,10 @@ def main() -> int:
                        bound_by_split2m=bounds[name + "_split2m"][1])
             if name in launches_split:
                 row["launches_split2m"] = launches_split[name]
+        if name in f64:  # B3, B5, B6 at f64 highest
+            (k, pl), (bms, by) = f64[name]
+            row.update(ms_f64=k, plain_ms_f64=pl, bound_ms_f64=bms,
+                       bound_by_f64=by)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// The apply family of the BP4 operator for Hopper (sm_90a): the dense
-// factorization v = sum_e M_e^T G_ef M_f u per cell, on cell batches (B3, B4)
-// and on the lattice (B5, B6).
+// The apply family of the BP4 operator for Hopper (sm_90a): v = sum_e
+// M_e^T G_ef M_f u per cell, on cell batches (B3, B4) and on the lattice
+// (B5, B6), and its C interface.
 //
 // Replace the TPU kernels of mf_data_locality_tpu/ops/laplace_pallas.py:
 //   B3  apply_local_batched, precomputed metric -> _kernel_g   (pallas_call :1023)
@@ -8,44 +8,46 @@
 //   B5  apply_lattice_pieces -> _kernel_g_pieces                (pallas_call :947)
 //   B6  apply_lattice_zslab  -> _kernel_g_zslab                 (pallas_call :664)
 //
-// What one block of apply_kernel computes, for BC consecutive cells (8 in f32: one 32-byte
-// sector of every streamed metric row; 4 in f64), Q3 = q^3 q-points, P13 =
-// (p+1)^3 nodes, R = 3 Q3 gradient rows:
+// Which cell pass runs (precision: laplace_pallas._mm):
+//   B3, B5, B6  "highest", f32 or f64: the sum-factorized pass on the CUDA
+//               cores, apply_sumfac.cuh;
+//               f32 "split2m": the tensor-core pass, apply_mma.cuh;
+//   B4          every rung, exact at the working type as _kernel
+//               (Precision.HIGHEST, :529): apply_kernel below, the dense
+//               form with the metric rebuilt per q-point.
+// B5 and B6 write masked cell-local values to scratch; the assemble pass
+// (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
+// order (no atomics).  The TPU kernels walk z-cell layers in order carrying
+// the shared z plane in VMEM; the assemble pass takes the carry's place, so
+// blocks run in any order.
 //
-//   input     u[c][k] per cell: B3/B4 from the cell batch (C P13, n_cells);
-//             B5/B6 from the lattice by index, times the Dirichlet mask
-//             (B5: computed from the indices, B6: read from the mask tensor)
-//   metric    B3/B5/B6 stream the 6 entries G[e Q3 + qp][cell]; B4 rebuilds
-//             them from the 24 trilinear coefficients (onthefly_metric)
+// What one block of apply_kernel (B4) computes, for BC consecutive cells (8
+// in f32: one 32-byte sector of every coefficient row; 4 in f64), Q3 = q^3
+// q-points, P13 = (p+1)^3 nodes, R = 3 Q3 gradient rows:
+//
+//   input     u[c][k] per cell from the cell batch (C P13, n_cells)
+//   metric    rebuilt from the 24 trilinear coefficients (onthefly_metric)
 //   forward   g[r] = sum_k M[r][k] u[k]          one thread per q-point
 //   apply     t = G [gx, gy, gz]
 //   backward  v[j] = sum_r M[r][j] t[r]          one thread per (node, comp)
-//   output    B3/B4: the cell batch; B5/B6: the masked cell-local values to
-//             scratch, then the assemble pass (bp4_operator.cuh) sums each
-//             node's <= 8 contributions in a fixed order (no atomics)
-//
-// The TPU kernels put cells in vector lanes and, for B5/B6, walk z-cell
-// layers in order carrying the shared z plane in VMEM; here the assemble pass
-// takes the carry's place, so blocks run in any order.
-//
-// Precision (laplace_pallas._mm): "highest" is plain FMA at the working type,
-// in apply_kernel below.  f32 "split2m" (B3, B5, B6) runs on the tensor
-// cores in apply_mma.cuh, whose note gives its design and bounds.  B4 is
-// exact at the working type on every rung, as _kernel (Precision.HIGHEST,
-// :529).
 //
 // Bound of apply_kernel on the H100 (p=4, s=13, 8192 cells): 2 R P13 C =
-// 4.9e5 FMAs per cell, 4.0e9 per apply, against 1296 metric words + 2 x 375
-// u/v words per cell (~67 MB per apply in f32).  At the CUDA cores' ~3.3e13
-// FMA/s the arithmetic needs >= 0.12 ms and the bytes ~0.02 ms, so the
+// 4.9e5 FMAs per cell plus the rebuild, 4.0e9 per apply, against 24
+// coefficient + 2 x 375 u/v words per cell; at the CUDA cores' ~3.3e13
+// FMA/s the arithmetic needs >= 0.12 ms and the bytes ~0.01 ms, so the
 // kernel is bound by its FMAs and the shared-memory and L2 reads that feed
-// them (M, 324 KB in f32, is read from L2 by every block).
+// them (M, 324 KB in f32, is read from L2 by every block).  The
+// sum-factorized form (apply_sumfac.cuh) would cut that work ~10x; B4 has
+// not moved to it yet.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success),
 // or -1 for a configuration with no instantiation.
 
+#include <type_traits>
+
 #include "apply_mma.cuh"
+#include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
 
 namespace bp4 {
@@ -61,66 +63,52 @@ struct ApplyCells<double> {
   static constexpr int N = 4;
 };
 
-// Read-only tables of the apply family, device pointers at the working type.
+// Read-only tables of B4, device pointers at the working type.
 template <typename T>
 struct ApplyTables {
-  const T* mats;     // (R, P13): [M_x; M_y; M_z], rows (dir, qz, qy, qx)
-  const T* kmats;    // (P13, R): the same, transposed
-  const T* gmetric;  // (6 Q3, n_cells), or null for the on-the-fly metric
-  const T* pds;      // (Q3, 24)
-  const T* w3;       // (Q3,)
-  const T* coeffs;   // (n_cells, 24)
+  const T* mats;    // (R, P13): [M_x; M_y; M_z], rows (dir, qz, qy, qx)
+  const T* kmats;   // (P13, R): the same, transposed
+  const T* pds;     // (Q3, 24)
+  const T* w3;      // (Q3,)
+  const T* coeffs;  // (n_cells, 24)
 };
 
-template <typename T, int P, bool ONTHEFLY>
+template <typename T, int P>
 struct ApplySmem {
   using S = Shape<P>;
   static constexpr int BC = ApplyCells<T>::N;
-  T u[S::P13][kComps][BC];             // input, (node, comp, cell)
-  T t[kComps][3 * S::Q3][BC];          // metric-applied gradients
-  T g6[ONTHEFLY ? 6 * S::Q3 : 1][BC];  // rebuilt metric (B4)
+  T u[S::P13][kComps][BC];     // input, (node, comp, cell)
+  T t[kComps][3 * S::Q3][BC];  // metric-applied gradients
+  T g6[6 * S::Q3][BC];         // rebuilt metric
 };
 
-template <typename T, int P, bool ONTHEFLY, bool LATTICE>
+template <typename T, int P>
 __global__ void __launch_bounds__(kApplyThreads)
-    apply_kernel(ApplyTables<T> tb, Grid gr, const T* __restrict__ mask,
-                 const T* __restrict__ u, T* __restrict__ out) {
+    apply_kernel(ApplyTables<T> tb, int nc, const T* __restrict__ u,
+                 T* __restrict__ out) {
   using S = Shape<P>;
-  using Sm = ApplySmem<T, P, ONTHEFLY>;
+  using Sm = ApplySmem<T, P>;
   constexpr int BC = Sm::BC, Q3 = S::Q3, P13 = S::P13;
   constexpr int R = 3 * Q3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Sm*>(smem_raw);
-  const int nc = gr.n_cells();
   const int cell0 = blockIdx.x * BC;
   const int tid = threadIdx.x;
-  const size_t n_nodes = gr.n_nodes();
 
   // input; cells past the end are zero
   for (int i = tid; i < kComps * P13 * BC; i += blockDim.x) {
     const int b = i % BC, k = (i / BC) % P13, c = i / (BC * P13);
     const int cell = cell0 + b;
-    T val = T(0);
-    if (cell < nc) {
-      if constexpr (LATTICE) {
-        T m;
-        const size_t node = cell_node<P>(gr, cell, k, mask, &m);
-        val = u[c * n_nodes + node] * m;
-      } else {
-        val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
-      }
-    }
-    sm.u[k][c][b] = val;
+    sm.u[k][c][b] =
+        cell < nc ? u[static_cast<size_t>(c * P13 + k) * nc + cell] : T(0);
   }
-  if constexpr (ONTHEFLY) {
-    for (int i = tid; i < Q3 * BC; i += blockDim.x) {
-      const int b = i % BC, qp = i / BC;
-      const int cell = min(cell0 + b, nc - 1);  // tail: results not stored
-      T g[6];
-      onthefly_metric(tb.pds + qp * 24, tb.coeffs + cell * 24, tb.w3[qp], g);
+  for (int i = tid; i < Q3 * BC; i += blockDim.x) {
+    const int b = i % BC, qp = i / BC;
+    const int cell = min(cell0 + b, nc - 1);  // tail: results not stored
+    T g[6];
+    onthefly_metric(tb.pds + qp * 24, tb.coeffs + cell * 24, tb.w3[qp], g);
 #pragma unroll
-      for (int e = 0; e < 6; ++e) sm.g6[e * Q3 + qp][b] = g[e];
-    }
+    for (int e = 0; e < 6; ++e) sm.g6[e * Q3 + qp][b] = g[e];
   }
   __syncthreads();
 
@@ -150,15 +138,7 @@ __global__ void __launch_bounds__(kApplyThreads)
     for (int b = 0; b < BC; ++b) {
       T G[6];
 #pragma unroll
-      for (int e = 0; e < 6; ++e) {
-        if constexpr (ONTHEFLY) {
-          G[e] = sm.g6[e * Q3 + qp][b];
-        } else {
-          G[e] = cell0 + b < nc
-                     ? tb.gmetric[static_cast<size_t>(e * Q3 + qp) * nc + cell0 + b]
-                     : T(0);
-        }
-      }
+      for (int e = 0; e < 6; ++e) G[e] = sm.g6[e * Q3 + qp][b];
 #pragma unroll
       for (int c = 0; c < kComps; ++c) {
         const T gx = acc[0][c][b], gy = acc[1][c][b], gz = acc[2][c][b];
@@ -186,117 +166,110 @@ __global__ void __launch_bounds__(kApplyThreads)
     for (int b = 0; b < BC; ++b) {
       const int cell = cell0 + b;
       if (cell >= nc) break;
-      if constexpr (LATTICE) {
-        T m;
-        cell_node<P>(gr, cell, j, mask, &m);
-        out[(static_cast<size_t>(c) * nc + cell) * P13 + j] = acc[b] * m;
-      } else {
-        out[static_cast<size_t>(c * P13 + j) * nc + cell] = acc[b];
-      }
+      out[static_cast<size_t>(c * P13 + j) * nc + cell] = acc[b];
     }
   }
 }
 
-template <typename T, int P, bool ONTHEFLY, bool LATTICE>
-cudaError_t launch_cells(const ApplyTables<T>& tb, const Grid& gr,
-                         const T* mask, const T* u, T* out, cudaStream_t st) {
-  using Sm = ApplySmem<T, P, ONTHEFLY>;
-  auto kern = apply_kernel<T, P, ONTHEFLY, LATTICE>;
+template <typename T, int P>
+cudaError_t launch_onthefly(const void* mats, const void* kmats,
+                            const void* pds, const void* w3,
+                            const void* coeffs, const void* u, void* out,
+                            int nc, cudaStream_t st) {
+  using Sm = ApplySmem<T, P>;
+  auto kern = apply_kernel<T, P>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
-  const int blocks = (gr.n_cells() + Sm::BC - 1) / Sm::BC;
-  kern<<<blocks, kApplyThreads, sizeof(Sm), st>>>(tb, gr, mask, u, out);
+  const ApplyTables<T> tb{
+      static_cast<const T*>(mats), static_cast<const T*>(kmats),
+      static_cast<const T*>(pds), static_cast<const T*>(w3),
+      static_cast<const T*>(coeffs)};
+  kern<<<(nc + Sm::BC - 1) / Sm::BC, kApplyThreads, sizeof(Sm), st>>>(
+      tb, nc, static_cast<const T*>(u), static_cast<T*>(out));
   return cudaGetLastError();
 }
 
-template <typename T>
-ApplyTables<T> apply_tables(const void* mats, const void* kmats,
-                            const void* gmetric, const void* pds,
-                            const void* w3, const void* coeffs) {
-  return {static_cast<const T*>(mats), static_cast<const T*>(kmats),
-          static_cast<const T*>(gmetric), static_cast<const T*>(pds),
-          static_cast<const T*>(w3), static_cast<const T*>(coeffs)};
+// The cell pass of B3, B5 and B6 (streamed metric): under split (f32 only)
+// the tensor-core pass, whose m0/m1 are apply_mma.cuh's bf16 fragment
+// tables; else the sum-factorized pass, whose m0/m1 are S and D (Q, P1).
+template <typename T, int P, bool LATTICE>
+cudaError_t metric_pass(int split, const void* m0, const void* m1,
+                        const void* gmetric, const Grid& gr, const void* mask,
+                        const void* u, void* out, cudaStream_t st) {
+  const auto gm = static_cast<const T*>(gmetric);
+  const auto mm = static_cast<const T*>(mask);
+  const auto uu = static_cast<const T*>(u);
+  const auto oo = static_cast<T*>(out);
+  if (!split)
+    return launch_sumfac<T, P, LATTICE>(static_cast<const T*>(m0),
+                                        static_cast<const T*>(m1), gm, gr, mm,
+                                        uu, oo, st);
+  if constexpr (std::is_same_v<T, float>)
+    return launch_mma<P, LATTICE>(m0, m1, gm, gr, mm, uu, oo, st);
+  return static_cast<cudaError_t>(-1);
 }
 
 // B3 (metric streamed) and B4 (onthefly) on a cell batch (C P13, n_cells).
-// Under split, mats and kmats are apply_mma.cuh's bf16 fragment tables.
+// mats/kmats: B4's M and M^T; B3's tables of metric_pass.
 template <int P>
 int batched_for_degree(int dtype, int split, int onthefly, const void* mats,
                        const void* kmats, const void* gmetric, const void* pds,
                        const void* w3, const void* coeffs, const void* u,
                        void* v, int n_cells, cudaStream_t st) {
   const Grid gr{1, 1, n_cells, 1, 1, 1};
-  if (split && !onthefly) {  // B4 is exact on every rung
-    if (dtype != 0) return -1;
-    return launch_mma<P, false>(mats, kmats, static_cast<const float*>(gmetric),
-                                gr, nullptr, static_cast<const float*>(u),
-                                static_cast<float*>(v), st);
-  }
-  if (dtype == 0) {
-    const auto tb = apply_tables<float>(mats, kmats, gmetric, pds, w3, coeffs);
-    const auto uu = static_cast<const float*>(u);
-    const auto vv = static_cast<float*>(v);
-    return onthefly ? launch_cells<float, P, true, false>(tb, gr, nullptr, uu, vv, st)
-                    : launch_cells<float, P, false, false>(tb, gr, nullptr, uu, vv, st);
-  }
-  if (dtype == 1) {
-    const auto tb = apply_tables<double>(mats, kmats, gmetric, pds, w3, coeffs);
-    const auto uu = static_cast<const double*>(u);
-    const auto vv = static_cast<double*>(v);
-    return onthefly ? launch_cells<double, P, true, false>(tb, gr, nullptr, uu, vv, st)
-                    : launch_cells<double, P, false, false>(tb, gr, nullptr, uu, vv, st);
-  }
+  if (dtype == 0)
+    return onthefly  // B4 is exact on every rung
+               ? launch_onthefly<float, P>(mats, kmats, pds, w3, coeffs, u, v,
+                                           n_cells, st)
+               : metric_pass<float, P, false>(split, mats, kmats, gmetric, gr,
+                                              nullptr, u, v, st);
+  if (dtype == 1)
+    return onthefly
+               ? launch_onthefly<double, P>(mats, kmats, pds, w3, coeffs, u,
+                                            v, n_cells, st)
+               : metric_pass<double, P, false>(split, mats, kmats, gmetric,
+                                               gr, nullptr, u, v, st);
   return -1;
 }
 
+// B5 (mask null: the box's Dirichlet mask from the indices) and B6 (mask
+// tensor) on the lattice: the cell pass into the scratch `cells`, then the
+// assemble pass.  mats/kmats: the tables of metric_pass.
 template <typename T, int P>
-int assemble(const Grid& gr, const T* cells, T* v, cudaStream_t st) {
+int lattice_typed(int split, const void* mats, const void* kmats,
+                  const void* gmetric, const void* mask, const void* u,
+                  void* cells, void* v, const Grid& gr, cudaStream_t st) {
+  const cudaError_t e = metric_pass<T, P, true>(split, mats, kmats, gmetric,
+                                                gr, mask, u, cells, st);
+  if (e != cudaSuccess) return e;
   assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-      gr, cells, v, nullptr, nullptr, nullptr, nullptr);
+      gr, static_cast<const T*>(cells), static_cast<T*>(v), nullptr, nullptr,
+      nullptr, nullptr);
   return cudaGetLastError();
 }
 
-// B5 (mask null: the box's Dirichlet mask from the indices) and B6 (mask
-// tensor) on the lattice: the cell pass, then the assemble pass.  Under
-// split, mats and kmats are apply_mma.cuh's bf16 fragment tables.
 template <int P>
 int lattice_for_degree(int dtype, int split, const void* mats,
                        const void* kmats, const void* gmetric,
                        const void* mask, const void* u, void* cells, void* v,
                        const Grid& gr, cudaStream_t st) {
-  if (dtype == 0) {
-    const auto gm = static_cast<const float*>(gmetric);
-    const auto mm = static_cast<const float*>(mask);
-    const auto uu = static_cast<const float*>(u);
-    const auto cc = static_cast<float*>(cells);
-    const cudaError_t e =
-        split ? launch_mma<P, true>(mats, kmats, gm, gr, mm, uu, cc, st)
-              : launch_cells<float, P, false, true>(
-                    apply_tables<float>(mats, kmats, gmetric, nullptr, nullptr,
-                                        nullptr),
-                    gr, mm, uu, cc, st);
-    if (e != cudaSuccess) return e;
-    return assemble<float, P>(gr, cc, static_cast<float*>(v), st);
-  }
-  if (dtype == 1 && !split) {
-    const auto cc = static_cast<double*>(cells);
-    const cudaError_t e = launch_cells<double, P, false, true>(
-        apply_tables<double>(mats, kmats, gmetric, nullptr, nullptr, nullptr),
-        gr, static_cast<const double*>(mask), static_cast<const double*>(u),
-        cc, st);
-    if (e != cudaSuccess) return e;
-    return assemble<double, P>(gr, cc, static_cast<double*>(v), st);
-  }
+  if (dtype == 0)
+    return lattice_typed<float, P>(split, mats, kmats, gmetric, mask, u,
+                                   cells, v, gr, st);
+  if (dtype == 1)
+    return lattice_typed<double, P>(split, mats, kmats, gmetric, mask, u,
+                                    cells, v, gr, st);
   return -1;
 }
 
 }  // namespace bp4
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; f32 highest
-// (CUDA cores) and split2m (tensor cores, apply_mma.cuh), f64 highest; B4
-// (onthefly) ignores split.
+// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; "highest"
+// f32 and f64 (B3, B5, B6: the sum-factorized pass, mats = S, kmats = D),
+// f32 split2m (B3, B5, B6: the tensor-core pass, mats/kmats = its fragment
+// tables); B4 (onthefly, mats = M, kmats = M^T) ignores split.
 extern "C" {
 
 int bp4_apply_batched(int dtype, int split, int degree, int onthefly,

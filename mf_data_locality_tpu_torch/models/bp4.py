@@ -84,7 +84,7 @@ def rhs(layout: DofLayout, n_components: int = 3) -> np.ndarray:
 def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
           precision: str = "split2m", factor: str = "twostage",
           metric: str = "onthefly", cofactor: str = "adjj",
-          device: torch.device | str = "cpu",
+          device: torch.device | str = "cuda",
           windowing: str = "pieces") -> BP4Problem:
     """BP4 on 2**s cells at ``degree``; every array on ``device``.
 
@@ -114,7 +114,7 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
                     factor: str = "twostage", windowing: str = "pieces",
                     precision: str = "split2m",
                     dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cpu") -> BP4Problem:
+                    device: torch.device | str = "cuda") -> BP4Problem:
     """The port's problem from the JAX package's arrays, passed as numpy.
 
     Takes the arrays of a ``BP4Problem`` / ``PallasOperatorData`` built with

@@ -22,11 +22,13 @@ vectors are ``(C, Nz, Ny, Nx)``.  The windowing between the two
 is XLA outside the Pallas kernels in JAX.
 
 Each kernel wrapper runs the hand-written CUDA kernel
-(``csrc/laplace_apply.cu``; under f32 ``split2m`` B3, B5 and B6 run its
-tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16 tables
-``op.mma_mats``) for tensors on a CUDA device and its plain PyTorch version
-(einsum over cells, the same bf16 rounding points for ``split2m``) for
-tensors on the CPU; other devices raise.  Each wrapper counts its kernel
+(``csrc/laplace_apply.cu``: B3, B5 and B6 run its sum-factorized pass,
+``csrc/apply_sumfac.cuh``, on the 1D factors ``op.sz`` and ``op.dz`` under
+``highest``, and its tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16
+tables ``op.mma_mats`` under f32 ``split2m``; B4 its dense pass) for
+tensors on a CUDA device and its plain PyTorch version (the dense einsum
+over cells, the same bf16 rounding points for ``split2m``) for tensors on
+the CPU; other devices raise.  Each wrapper counts its kernel
 launches in ``.launches``.
 """
 
@@ -146,6 +148,39 @@ def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
     return v[:, :p13].reshape(-1, nc)
 
 
+def _batched_sumfac_emulated(op: OperatorData, u_loc: torch.Tensor,
+                             G: torch.Tensor) -> torch.Tensor:
+    """The ``highest`` sum-factorized kernel's arithmetic
+    (``csrc/apply_sumfac.cuh``) in plain PyTorch, for the tests: 1D
+    contractions with ``op.sz`` (S) and ``op.dz`` (D) in the kernel's order
+    — x, y, z forward, the metric apply, z, y, x backward — in place of the
+    dense ``M = [S S D; S D S; D S S]``."""
+    p1, q = op.degree + 1, op.n_q
+    nc = u_loc.shape[1]
+    s, d = op.sz, op.dz
+    u = u_loc.reshape(-1, p1, p1, p1, nc)  # (c, kz, ky, kx, cell)
+    xs = torch.einsum("ai,czyin->czyan", s, u)  # (c, kz, ky, qx, cell)
+    xd = torch.einsum("ai,czyin->czyan", d, u)
+    uss = torch.einsum("bj,czjan->czban", s, xs)  # (c, kz, qy, qx, cell)
+    uds = torch.einsum("bj,czjan->czban", d, xs)
+    usd = torch.einsum("bj,czjan->czban", s, xd)
+    grads = [torch.einsum("gz,czban->cgban", m, v).reshape(-1, q ** 3, nc)
+             for m, v in ((s, usd), (s, uds), (d, uss))]
+    gx, gy, gz = grads
+    tx = G[0] * gx + G[1] * gy + G[2] * gz
+    ty = G[1] * gx + G[3] * gy + G[4] * gz
+    tz = G[2] * gx + G[4] * gy + G[5] * gz
+    wsd, wds, wss = (torch.einsum("gz,cgban->czban", m,
+                                  v.reshape(-1, q, q, q, nc))
+                     for m, v in ((s, tx), (s, ty), (d, tz)))
+    vs = (torch.einsum("bj,czban->czjan", d, wds)
+          + torch.einsum("bj,czban->czjan", s, wss))
+    vd = torch.einsum("bj,czban->czjan", s, wsd)
+    v = (torch.einsum("ai,czjan->czjin", s, vs)
+         + torch.einsum("ai,czjan->czjin", d, vd))
+    return v.reshape(-1, nc)
+
+
 def _lattice_plain(op: OperatorData, u: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """M A M u on the lattice through the cell batches."""
@@ -166,19 +201,24 @@ def _index_mask(op: OperatorData) -> torch.Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _tables(op: OperatorData, split: bool) -> tuple[list, int, int]:
+def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     """The operator tables the kernels read by pointer, with their shapes
-    (and dtype where it is not the operator's), and the two matrix
-    pointers: M and its transpose, or under ``split`` the bf16 fragment
-    tables of the tensor-core kernel."""
-    p13, r = (op.degree + 1) ** 3, 3 * op.n_q ** 3
-    if split:
+    (and dtype where it is not the operator's), and the two pointers of the
+    C interface's matrix slots: for B4 (``onthefly``) M and its transpose;
+    for B3/B5/B6 under ``split2m`` the tensor-core pass's bf16 fragment
+    tables, else the sum-factorized pass's 1D factors S and D."""
+    p1, q = op.degree + 1, op.n_q
+    r = 3 * q ** 3
+    if onthefly:
+        pairs = [(op.mats, (r, p1 ** 3)), (op.kmats, (p1 ** 3, r))]
+        ptrs = (op.mats.data_ptr(), op.kmats.data_ptr())
+    elif op.precision == "split2m":
         q3p, p13p = laplace_cuda.mma_dims(op.degree)
         pairs = [(op.mma_mats, (2, 3 * q3p * p13p), torch.bfloat16)]
         ptrs = (op.mma_mats[0].data_ptr(), op.mma_mats[1].data_ptr())
     else:
-        pairs = [(op.mats, (r, p13)), (op.kmats, (p13, r))]
-        ptrs = (op.mats.data_ptr(), op.kmats.data_ptr())
+        pairs = [(op.sz, (q, p1)), (op.dz, (q, p1))]
+        ptrs = (op.sz.data_ptr(), op.dz.data_ptr())
     if op.gmetric is not None:
         pairs.append((op.gmetric, (2 * r, op.n_cells)))
     return pairs, *ptrs
@@ -188,7 +228,7 @@ def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
     shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
     split = op.precision == "split2m" and not onthefly
-    tables, mats, kmats = _tables(op, split)
+    tables, mats, kmats = _tables(op, onthefly)
     check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + tables)
     lib = _build.load()
     out = torch.empty_like(u_loc)
@@ -246,7 +286,7 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
         raise ValueError("the lattice applies need metric='precomputed'")
     lat = (N_COMPONENTS,) + op.n_nodes_axis
     split = op.precision == "split2m"
-    tables, mats, kmats = _tables(op, split)
+    tables, mats, kmats = _tables(op, onthefly=False)
     check_tensors(op, KERNEL_DEGREES, [(u, lat)] + tables)
     lib = _build.load()
     out = torch.empty_like(u)

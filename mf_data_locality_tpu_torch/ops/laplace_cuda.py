@@ -282,7 +282,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          mask: np.ndarray, degree: int,
                          n_cells_axis: tuple[int, int, int], precision: str,
                          dtype: torch.dtype = torch.float32,
-                         device: torch.device | str = "cpu", *,
+                         device: torch.device | str = "cuda", *,
                          mats2d: np.ndarray | None = None,
                          mats: np.ndarray | None = None,
                          gmetric: np.ndarray | None = None,
@@ -330,7 +330,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   precision: str = "split2m", factor: str = "twostage",
                   metric: str = "onthefly", cofactor: str = "adjj",
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   windowing: str = "pieces") -> OperatorData:
     """Build the operator data for ``layout`` (q = p + 2 Gauss points)."""
     check_config(precision, factor, metric, cofactor, dtype, windowing)

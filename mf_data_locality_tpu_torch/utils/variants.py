@@ -1,6 +1,7 @@
-"""Time source variants of the f32 split2m B1/B2 cell pass on the card.
+"""Time source variants of the cell passes on the card.
 
-    python -m mf_data_locality_tpu_torch.utils.variants [ablate|stamps]
+    python -m mf_data_locality_tpu_torch.utils.variants \
+        [ablate|stamps|sumfac|sfstamps]
 
 Each variant is a copy of the package with a few text patches applied to
 ``csrc/`` (built by its own process, all builds at once, into the copy's
@@ -16,9 +17,16 @@ fail, so every variant is timed in its own process.
 * ``stamps`` builds the pass with ``clock64()`` stamps at its phase
   boundaries (thread 0 of each block, after a barrier) and prints the mean
   and maximum cycles of each phase over the blocks of one B1 call.
+* ``sumfac [sf_name ...]`` times B3, B5 and B6 under ``highest`` (f32
+  and f64) at p=4 s=13, the sum-factorized pass of
+  ``csrc/apply_sumfac.cuh``, as it is and in variants (those named, else
+  all), in turns, and prints the ptxas resource line of its f32 B3
+  kernel; ``sfstamps`` prints per-phase ``clock64()`` cycles of its f32
+  B3 pass and how many of its blocks an SM runs at once.
 
-The patches match this version of ``csrc/cell_mma.cuh``; a patch that no
-longer matches raises.  Copies go to ``_scratch/variants/`` (gitignored).
+The patches match this version of ``csrc/cell_mma.cuh`` and
+``csrc/apply_sumfac.cuh``; a patch that no longer matches raises.  Copies
+go to ``_scratch/variants/`` (gitignored).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 ROOT = PKG.parent / "_scratch" / "variants"
 CM = "csrc/cell_mma.cuh"
+SF = "csrc/apply_sumfac.cuh"
 _STAMP = "if (threadIdx.x == 0) g_prof[blockIdx.x][{k}] = clock64();"
 
 ABLATE = {
@@ -100,6 +109,133 @@ STAMPS = {"stamps": [
      "const char* bp4_error_string(int err) {"),
 ]}
 
+_SF_PREFETCH = r'''
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+template <typename T, int P, bool LATTICE>
+__device__ __forceinline__ void sumfac_prefetch(const Grid& gr,
+                                                const T* gmetric, const T* u,
+                                                int cell0) {
+  using S = Shape<P>;
+  using Sm = SumfacSmem<T, P>;
+  const int nc = gr.n_cells();
+  if (cell0 >= nc) return;
+  for (int r = threadIdx.x; r < 6 * S::Q3; r += Sm::kThreads)
+    prefetch_l2(gmetric + static_cast<size_t>(r) * nc + cell0);
+  if constexpr (LATTICE) {
+    for (int r = threadIdx.x; r < Sm::BC * kComps * S::P12; r += Sm::kThreads) {
+      const int cell = cell0 + r % Sm::BC, row = r / Sm::BC;
+      if (cell >= nc) continue;
+      T m;
+      const size_t node = cell_node<P>(gr, cell, (row % S::P12) * S::P1,
+                                       static_cast<const T*>(nullptr), &m);
+      prefetch_l2(u + (row / S::P12) * static_cast<size_t>(gr.n_nodes())
+                  + node);
+    }
+  } else {
+    for (int r = threadIdx.x; r < kComps * S::P13; r += Sm::kThreads)
+      prefetch_l2(u + static_cast<size_t>(r) * nc + cell0);
+  }
+}
+
+'''
+
+SUMFAC = {
+    "sf_base": [],
+    # no minimum of three blocks an SM in __launch_bounds__
+    "sf_minblocks_free": [(SF, "SumfacSmem<T, P>::kThreads, 3)",
+                           "SumfacSmem<T, P>::kThreads)")],
+    # once its metric has arrived, a block brings the inputs of the block
+    # that runs one wave later (132 SMs x 3 blocks) into L2
+    "sf_l2_prefetch": [
+        (SF, "// LATTICE false (B3): u and out",
+         _SF_PREFETCH + "// LATTICE false (B3): u and out"),
+        (SF, "    if (c == 0) __pipeline_wait_prior(0);  // this thread's "
+             "metric copies\n    __syncthreads();\n",
+         "    if (c == 0) __pipeline_wait_prior(0);\n    __syncthreads();\n"
+         "    if (c == 0)\n      sumfac_prefetch<T, P, LATTICE>(gr, gmetric, "
+         "u, cell0 + 396 * BC);\n")],
+    # the metric staged by plain loads, not cp.async
+    "sf_sync_metric": [
+        (SF, "    __pipeline_memcpy_async(\n        &sm.g[0][0][0] + i,\n"
+             "        gmetric + static_cast<size_t>(i / BC) * nc + cell0 + "
+             "min(bb, nlive - 1),\n        sizeof(T), bb < nlive ? 0 : "
+             "sizeof(T));",
+         "    (&sm.g[0][0][0])[i] = bb < nlive ? gmetric[static_cast<size_t>"
+         "(i / BC) * nc + cell0 + bb] : T(0);")],
+    # the next component's input loaded ahead in every form (the lattice
+    # form too), or just before its store in every form (B3 too)
+    "sf_ahead_all": [(SF, "constexpr bool kAhead = !LATTICE;",
+                      "constexpr bool kAhead = true;")],
+    "sf_ahead_none": [(SF, "constexpr bool kAhead = !LATTICE;",
+                       "constexpr bool kAhead = false;")],
+    # four f32 cells a block (half a sector a row), 144 threads, six blocks
+    # an SM
+    "sf_bc4": [(SF, "struct SumfacCells {\n  static constexpr int N = 8;",
+                "struct SumfacCells {\n  static constexpr int N = 4;"),
+               (SF, "SumfacSmem<T, P>::kThreads, 3)",
+                "SumfacSmem<T, P>::kThreads, 6)")],
+    # S and D read from (unset) constant memory, not shared memory: what
+    # the table loads cost
+    "sf_const_tables": [
+        (SF, "template <typename T>\nstruct SumfacCells {",
+         "__constant__ float c_sf_f[2][64];\n__constant__ double c_sf_d[2][64];"
+         "\ntemplate <typename T>\n__device__ __forceinline__ const T* "
+         "sf_ct(int i) {\n  if constexpr (sizeof(T) == 4) return "
+         "reinterpret_cast<const T*>(c_sf_f[i]);\n  else return "
+         "reinterpret_cast<const T*>(c_sf_d[i]);\n}\n\n"
+         "template <typename T>\nstruct SumfacCells {"),
+        (SF, "    sm.sz[i] = sz[i];\n    sm.dz[i] = dz[i];", "    ;"),
+        (SF, "sm.sz[", "sf_ct<T>(0)["), (SF, "sm.dz[", "sf_ct<T>(1)[")],
+    # the metric entries not read from shared memory (constants): what
+    # the metric's shared-memory loads cost
+    "sf_no_metric_reads": [
+        (SF, "        const T g00 = sm.g[0][qp][b], g01 = sm.g[1][qp][b],\n"
+             "                g02 = sm.g[2][qp][b], g11 = sm.g[3][qp][b],\n"
+             "                g12 = sm.g[4][qp][b], g22 = sm.g[5][qp][b];",
+         "        const T g00 = T(1.5), g01 = T(0.25), g02 = T(0.125), "
+         "g11 = T(1.25), g12 = T(0.0625), g22 = T(1.125);")],
+    # no lattice gather (B5, B6): the inputs are constants
+    "sf_nogather": [
+        (SF, "          const size_t node = cell_node<P>(gr, cell0 + bb, k, "
+             "mask, &m[j]);\n          v[j] = u[c * static_cast<size_t>"
+             "(gr.n_nodes()) + node];",
+         "          m[j] = T(1);\n          v[j] = T(0.25) * (k % 7);")],
+}
+
+_SF_STAMP = "    sf_stamp({k});\n"
+SF_STAMPS = {"sf_stamps": [
+    (SF, "namespace bp4 {\n",
+     "namespace bp4 {\n__device__ long long g_sfprof[16384][16];\n"
+     "__device__ __forceinline__ void sf_stamp(int k) {\n"
+     "  if (threadIdx.x == 0) g_sfprof[blockIdx.x][k] = clock64();\n}\n"),
+    (SF, "  const int b = tid % BC, col = tid / BC;\n",
+     "  const int b = tid % BC, col = tid / BC;\n  sf_stamp(0);\n  if (tid == 0) "
+     "{ unsigned id; asm(\"mov.u32 %0, %%smid;\" : \"=r\"(id)); "
+     "g_sfprof[blockIdx.x][15] = id; }\n"),
+    (SF, "  for (int c = 0; c < kComps; ++c) {\n    __syncthreads();\n",
+     "  for (int c = 0; c < kComps; ++c) {\n    __syncthreads();\n"
+     + _SF_STAMP.format(k="1 + 4 * c")),
+    (SF, "    if (c == 0) __pipeline_wait_prior(0);  // this thread's metric "
+         "copies\n    __syncthreads();\n",
+     "    if (c == 0) __pipeline_wait_prior(0);\n    __syncthreads();\n"
+     + _SF_STAMP.format(k="2 + 4 * c")),
+    (SF, "nlive);\n    __syncthreads();\n",
+     "nlive);\n    __syncthreads();\n" + _SF_STAMP.format(k="3 + 4 * c")),
+    (SF, "        sm.x[1][kz][ky][qx][b] = vd;\n      }\n    }\n"
+         "    __syncthreads();\n",
+     "        sm.x[1][kz][ky][qx][b] = vd;\n      }\n    }\n"
+     "    __syncthreads();\n" + _SF_STAMP.format(k="4 + 4 * c")),
+    (SF, "      in.store(sm);\n    }\n  }\n}",
+     "      in.store(sm);\n    }\n  }\n  __syncthreads();\n"
+     + _SF_STAMP.format(k=13) + "}"),
+    ("csrc/laplace_apply.cu", "int bp4_apply_batched(",
+     "int bp4_sfprof_read(void* dst, int n) {\n  return cudaMemcpyFromSymbol("
+     "dst, bp4::g_sfprof, n * 16 * sizeof(long long));\n}\n\n"
+     "int bp4_apply_batched("),
+]}
+
 _SETUP = r'''
 import ctypes, json, numpy as np, torch
 from mf_data_locality_tpu_torch.models import bp4
@@ -148,6 +284,75 @@ print(f"  block total mean {total.mean():.0f} cycles, max {total.max()}, "
 '''
 
 
+_TIME_SUMFAC = r'''
+import json, torch
+from mf_data_locality_tpu_torch.models import bp4
+from mf_data_locality_tpu_torch.ops import laplace_apply as la
+from mf_data_locality_tpu_torch.utils import timing
+dev = torch.device("cuda")
+out = {}
+for dtype in (torch.float32, torch.float64):
+    op = bp4.build(13, 4, dtype, "highest", factor="dense",
+                   metric="precomputed", windowing="reshape", device=dev).op
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = (torch.randn((3,) + op.n_nodes_axis, generator=gen, device=dev,
+                     dtype=dtype) * op.mask).contiguous()
+    ul = la.to_cell_batches(u, 4).contiguous()
+    for name, fn in (("B3", lambda: la.apply_local_batched_g(op, ul)),
+                     ("B5", lambda: la.apply_lattice_pieces(op, u)),
+                     ("B6", lambda: la.apply_lattice_zslab(op, u))):
+        out[f"{name} {str(dtype)[6:]}"] = timing.time_per_call(
+            fn, dev, inner=50, repeats=5) * 1e3
+print(json.dumps(out))
+'''
+
+
+_READ_SF_STAMPS = r'''
+import ctypes, numpy as np, torch
+from mf_data_locality_tpu_torch.models import bp4
+from mf_data_locality_tpu_torch.ops import _build, laplace_apply as la
+from mf_data_locality_tpu_torch.utils import timing
+dev = torch.device("cuda")
+op = bp4.build(13, 4, torch.float32, "highest", factor="dense",
+               metric="precomputed", windowing="reshape", device=dev).op
+gen = torch.Generator(device=dev).manual_seed(3)
+u = (torch.randn((3,) + op.n_nodes_axis, generator=gen, device=dev)
+     * op.mask).contiguous()
+ul = la.to_cell_batches(u, 4).contiguous()
+ms = timing.time_per_call(lambda: la.apply_local_batched_g(op, ul), dev,
+                          inner=20, repeats=3) * 1e3
+lib = _build.load()
+lib.bp4_sfprof_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+la.apply_local_batched_g(op, ul)
+torch.cuda.synchronize()
+nb = op.n_cells // 8
+buf = np.zeros((nb, 16), np.int64)
+assert lib.bp4_sfprof_read(buf.ctypes.data, nb) == 0
+names = ["prologue (tables, metric issue, input 0)"] + [
+    f"component {c}: {s}" for c in range(3) for s in (
+        "x pass (+ metric wait)", "y pass, z passes, metric apply",
+        "backward y pass", "backward x pass, output, next input")]
+steps = np.diff(buf[:, :14], axis=1)
+for name, col in zip(names, steps.T):
+    print(f"  {name:52s} mean {col.mean():8.0f} cycles, max {col.max():7d}")
+total = buf[:, 13] - buf[:, 0]
+conc = []
+for sm in np.unique(buf[:, 15]):
+    rows = buf[buf[:, 15] == sm]
+    span = rows[:, 13].max() - rows[:, 0].min()
+    conc.append(((rows[:, 13] - rows[:, 0]).sum() / span, len(rows), span))
+conc = np.array(conc)
+wave = np.argsort(buf[:, 0]) < 3 * len(conc)
+print(f"  block total mean {total.mean():.0f} cycles, max {total.max()}; "
+      f"{nb} blocks on {len(conc)} SMs, {conc[:, 1].mean():.2f} a SM; "
+      f"blocks in flight a SM (mean) {conc[:, 0].mean():.2f}; SM span mean "
+      f"{conc[:, 2].mean():.0f} cycles; prologue of the first wave "
+      f"{(buf[wave, 1] - buf[wave, 0]).mean():.0f}, of the rest "
+      f"{(buf[~wave, 1] - buf[~wave, 0]).mean():.0f} cycles; kernel "
+      f"{ms:.4f} ms (timed, without stamps between)")
+'''
+
+
 def _copy(name: str, patches) -> Path:
     dst = ROOT / name
     if dst.exists():
@@ -171,8 +376,11 @@ def _run(root: Path, code: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True)
 
 
-def build_all(variants: dict) -> dict[str, Path]:
-    """Copy, patch and build every variant at once; return the built ones."""
+def build_all(variants: dict, kernel: str = "cells_mma_kernelILi4ELb1E"
+              ) -> dict[str, Path]:
+    """Copy, patch and build every variant at once; return the built ones
+    and print the ptxas resource line of ``kernel`` (a mangled-name
+    fragment) in each."""
     roots = {name: _copy(name, p) for name, p in variants.items()}
     procs = {name: subprocess.Popen(
         [sys.executable, "-c", "from mf_data_locality_tpu_torch.ops import "
@@ -188,30 +396,51 @@ def build_all(variants: dict) -> dict[str, Path]:
         built[name] = roots[name]
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and \
-                    "cells_mma_kernelILi4ELb1E" in line:
+                    kernel in line:
                 print(f"{name}: " + " | ".join(
                     s.split("ptxas info    : ")[-1].strip()
                     for s in lines[i + 1:i + 4]))
     return built
 
 
+def time_in_turns(built: dict[str, Path], code: str) -> dict[str, list]:
+    """Run ``code`` (prints one JSON line) in every built variant, every
+    variant and then every variant in reverse order; the rows of each."""
+    names = list(built)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            r = _run(built[name], code)
+            if r.returncode:
+                print(f"{name}: run failed\n{r.stderr[-2000:]}")
+                continue
+            times[name].append(json.loads(r.stdout.splitlines()[-1]))
+    return times
+
+
 def main(argv: list[str] | None = None) -> None:
     which = (argv if argv is not None else sys.argv[1:]) or ["ablate"]
+    if "sfstamps" in which:
+        for name, root in build_all(SF_STAMPS,
+                                    "apply_sumfac_kernelIfLi4ELb0E").items():
+            r = _run(root, _READ_SF_STAMPS)
+            print(f"{name}:\n{r.stdout}{r.stderr[-2000:]}")
+    if "sumfac" in which:
+        names = [w for w in which if w in SUMFAC] or list(SUMFAC)
+        built = build_all({n: SUMFAC[n] for n in names},
+                          "apply_sumfac_kernelIfLi4ELb0E")
+        times = time_in_turns(built, _TIME_SUMFAC)
+        for name, rows in times.items():
+            if rows:
+                print(f"{name:14s} " + "  ".join(
+                    f"{k} {min(r[k] for r in rows):.4f}" for k in rows[0])
+                    + " ms")
     if "stamps" in which:
         for name, root in build_all(STAMPS).items():
             r = _run(root, _READ_STAMPS)
             print(f"{name}:\n{r.stdout}{r.stderr[-2000:]}")
     if "ablate" in which:
-        built = build_all(ABLATE)
-        names = list(built)
-        times = {name: [] for name in names}
-        for order in (names, names[::-1]):
-            for name in order:
-                r = _run(built[name], _TIME)
-                if r.returncode:
-                    print(f"{name}: run failed\n{r.stderr[-2000:]}")
-                    continue
-                times[name].append(json.loads(r.stdout.splitlines()[-1]))
+        times = time_in_turns(build_all(ABLATE), _TIME)
         for name, rows in times.items():
             if rows:
                 print(f"{name:12s} B1 {min(t['b1_ms'] for t in rows):.4f} ms"

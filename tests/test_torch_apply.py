@@ -34,7 +34,7 @@ def _problems(s, p, rung, windowing, metric):
     jp = jbp4.build(s, p, dtype=jd, backend="pallas", precision=precision,
                     windowing=windowing, factor="dense", metric=metric)
     tp = bp4.build(s, p, td, precision, factor="dense", metric=metric,
-                   windowing=windowing)
+                   windowing=windowing, device="cpu")
     return jp, tp, np.dtype(jd), tol
 
 
@@ -79,7 +79,8 @@ def test_mma_tables_unpack_to_bf16_mats(p):
     """The split2m kernel's packed M: both fragment orders unpack to
     ``op.mats`` rounded to bf16, bit for bit, and every pad entry is 0."""
     op = bp4.build(1, p, torch.float32, "split2m", factor="dense",
-                   metric="precomputed", windowing="reshape").op
+                   metric="precomputed", windowing="reshape",
+                   device="cpu").op
     q3, p13 = (p + 2) ** 3, (p + 1) ** 3
     q3p, p13p = laplace_cuda.mma_dims(p)
     assert q3p % 16 == 0 and p13p % 16 == 0
@@ -92,7 +93,8 @@ def test_mma_tables_unpack_to_bf16_mats(p):
         m[:, :q3, :p13] = 0
         assert not m.any()
     highest = bp4.build(1, p, torch.float32, "highest", factor="dense",
-                        metric="precomputed", windowing="reshape").op
+                        metric="precomputed", windowing="reshape",
+                        device="cpu").op
     assert highest.mma_mats is None
 
 
@@ -115,11 +117,67 @@ def test_mma_emulation_matches_jax_split2m(p):
     assert _rel(got, ref[:, :nc]) < tol
 
 
+@pytest.mark.parametrize("rung", ["f64", "f32"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_sumfac_emulation_matches_jax_highest(p, rung):
+    """The ``highest`` kernel's sum-factorized arithmetic (1D contractions
+    with S and D in the kernel's order) against JAX's dense
+    ``apply_local_batched`` at ``precision="highest"``, interpret mode:
+    1e-12 in f64, 1e-5 in f32 against the JAX f32 run (another order of
+    the sums, and S S D against the rounded dense entry)."""
+    s = 3
+    jp, tp, nd, tol = _problems(s, p, rung, "reshape", "precomputed")
+    nc = tp.op.n_cells
+    rng = np.random.default_rng(30 + p)
+    u = rng.standard_normal((3 * (p + 1) ** 3, nc)).astype(nd)
+    u_pad = np.zeros((u.shape[0], jp.op.coeffs.shape[2]), nd)
+    u_pad[:, :nc] = u
+    ref = np.asarray(jlp.apply_local_batched(jp.op, jnp.asarray(u_pad)))
+    got = la._batched_sumfac_emulated(tp.op, torch.as_tensor(u),
+                                      la._metric(tp.op)).numpy()
+    assert _rel(got, ref[:, :nc]) < tol
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_sumfac_factors_reproduce_dense_mats(p):
+    """What the sum-factorized pass relies on: kron(S, S, D), kron(S, D, S)
+    and kron(D, S, S) of ``op.sz`` (S) and ``op.dz`` (D) are ``op.mats``'
+    M_x, M_y and M_z within f32 rounding, for an operator from ``build``
+    and one converted from the JAX package's arrays (pieces windowing, so
+    the converter undoes the piece column order)."""
+    s = 3
+    jp = jbp4.build(s, p, dtype=jnp.float32, backend="pallas",
+                    precision="highest", windowing="pieces", factor="dense",
+                    metric="precomputed")
+    jop = jp.op
+    conv = bp4.from_jax_arrays(
+        s, p, mats=np.asarray(jop.mats), gmetric=np.asarray(jop.gmetric),
+        pds=np.asarray(jop.pds), w3=np.asarray(jop.w3),
+        coeffs=np.asarray(jop.coeffs), mask=np.asarray(jop.mask),
+        b=np.asarray(jp.b), inv_diag=np.asarray(jp.inv_diag),
+        factor="dense", windowing="pieces", precision="highest",
+        dtype=torch.float32, device="cpu")
+    own = bp4.build(s, p, torch.float32, "highest", factor="dense",
+                    metric="precomputed", windowing="pieces", device="cpu")
+    eps = torch.finfo(torch.float32).eps
+    for op in (own.op, conv.op):
+        S, D = op.sz.double(), op.dz.double()
+
+        def kron(a, b, c):
+            return torch.kron(torch.kron(a, b), c)
+
+        want = torch.cat([kron(S, S, D), kron(S, D, S), kron(D, S, S)])
+        got = op.mats.double()
+        assert got.shape == want.shape == (3 * (p + 2) ** 3, (p + 1) ** 3)
+        assert (got - want).abs().max() <= 4 * eps * got.abs().max()
+
+
 def test_onthefly_apply_ignores_precision():
     """B4 is exact at the working dtype on every rung, as ``_kernel``."""
     s, p = 3, 2
     ops = [bp4.build(s, p, torch.float32, prec, factor="dense",
-                     metric="onthefly", windowing="reshape").op
+                     metric="onthefly", windowing="reshape",
+                     device="cpu").op
            for prec in ("highest", "split2m")]
     u = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (3 * (p + 1) ** 3, ops[0].n_cells)).astype(np.float32))
@@ -162,7 +220,7 @@ def test_operator_from_jax_arrays(windowing):
         coeffs=np.asarray(jop.coeffs), mask=np.asarray(jop.mask),
         b=np.asarray(jp.b), inv_diag=np.asarray(jp.inv_diag),
         factor="dense", windowing=windowing, precision="highest",
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     for name in ("mats", "kmats", "gmetric", "pds", "w3", "coeffs", "mask",
                  "kcoeffs"):
         np.testing.assert_allclose(getattr(conv.op, name).numpy(),
@@ -175,7 +233,7 @@ def test_operator_from_jax_arrays(windowing):
 def test_lattice_applies_are_symmetric_and_masked():
     s, p = 3, 2
     op = bp4.build(s, p, torch.float64, "highest", factor="dense",
-                   metric="precomputed", windowing="zslab").op
+                   metric="precomputed", windowing="zslab", device="cpu").op
     rng = np.random.default_rng(3)
     u, v = (torch.as_tensor(rng.standard_normal((3,) + op.n_nodes_axis))
             for _ in range(2))
@@ -189,7 +247,7 @@ def test_lattice_applies_are_symmetric_and_masked():
 def test_wrappers_use_plain_versions_on_cpu():
     """CPU tensors run the plain versions and count no kernel launch."""
     op = bp4.build(3, 2, torch.float64, "highest", factor="dense",
-                   metric="precomputed", windowing="reshape").op
+                   metric="precomputed", windowing="reshape", device="cpu").op
     u = torch.zeros((3,) + op.n_nodes_axis, dtype=torch.float64)
     u_loc = la.to_cell_batches(u, 2)
     wrappers = (la.apply_local_batched_g, la.apply_local_batched_onthefly,

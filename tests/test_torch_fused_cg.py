@@ -29,7 +29,7 @@ def _jax_problem(s, dtype=jnp.float64, precision="highest"):
 
 
 def _port_problem(s, dtype=torch.float64, precision="highest"):
-    return bp4.build(s, P, dtype=dtype, precision=precision)
+    return bp4.build(s, P, dtype=dtype, precision=precision, device="cpu")
 
 
 def _to_compact(u, p):

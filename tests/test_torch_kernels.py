@@ -45,7 +45,7 @@ def _rel(a, b):
 
 def test_wrappers_refuse_other_devices():
     """Only CPU (plain version) and CUDA (kernel) tensors are accepted."""
-    op = bp4.build(3, P, torch.float64, "highest").op
+    op = bp4.build(3, P, torch.float64, "highest", device="cpu").op
     d = torch.empty((3,) + op.n_nodes_axis, device="meta")
     with pytest.raises(ValueError, match="meta"):
         fk.matvec(op, d)
@@ -140,7 +140,7 @@ def test_solve_on_card_matches_plain_solve(cuda_device):
     before = fk.fused_cg_iteration.launches
     res = cg_fused.fused_merged_cg_solve(pb.op, lat, *args)
     assert fk.fused_cg_iteration.launches - before == res.n_iterations
-    cpu = bp4.build(5, P, torch.float64, "highest")
+    cpu = bp4.build(5, P, torch.float64, "highest", device="cpu")
     ref = cg_fused.fused_merged_cg_solve(
         cpu.op, lat, *(a.cpu() for a in args))
     assert res.converged and res.n_iterations == ref.n_iterations
@@ -197,28 +197,34 @@ def test_apply_kernel_matches_plain(cuda_device, p, kernel, dtype, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "split2m"), (torch.float32, "highest"),
+    (torch.float64, "highest")])
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 @pytest.mark.parametrize("kernel", ["batched_g", "zslab"])
-def test_split2m_kernels_ragged_and_deterministic(cuda_device, p, kernel):
-    """The tensor-core split2m pass of B3 and B6 on 3 x 5 x 7 = 105 cells,
-    not a multiple of a block's cells (the ragged last block stores
-    nothing past the end), against the plain version; two calls give
-    bitwise-equal output (fixed order, no atomics)."""
+def test_split2m_kernels_ragged_and_deterministic(cuda_device, p, kernel,
+                                                  dtype, precision):
+    """The cell passes of B3 and B6 on every rung — the tensor-core pass
+    (f32 split2m) and the sum-factorized pass (f32 and f64 highest) — on
+    3 x 5 x 7 = 105 cells, not a multiple of a block's cells (the ragged
+    last block stores nothing past the end), against the plain version;
+    two calls give bitwise-equal output (fixed order, no atomics)."""
     layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
-    op = laplace_cuda.make_operator(layout, torch.float32, "split2m",
+    op = laplace_cuda.make_operator(layout, dtype, precision,
                                     factor="dense", metric="precomputed",
                                     device=cuda_device, windowing="zslab")
     (u,) = _state(op, 1, seed=10 + p)
     if kernel == "batched_g":
         x = la.to_cell_batches(u, p).contiguous()
         wrapper = la.apply_local_batched_g
-        want = la._batched_plain(op, x, la._metric(op), True)
+        want = la._batched_plain(op, x, la._metric(op),
+                                 precision == "split2m")
     else:
         x, wrapper = u, la.apply_lattice_zslab
         want = la._lattice_plain(op, u, op.mask)
     got, again = wrapper(op, x), wrapper(op, x)
     torch.cuda.synchronize()
-    assert _rel(got, want) < TOL[torch.float32]
+    assert _rel(got, want) < TOL[dtype]
     assert torch.equal(got, again)
 
 
@@ -232,7 +238,8 @@ def test_solves_on_card_match_plain_solves(cuda_device, solver, windowing):
     kw = dict(factor="dense", metric="precomputed", windowing=windowing)
     res = solve(bp4.build(5, P, torch.float64, "highest", device=cuda_device,
                           **kw))
-    ref = solve(bp4.build(5, P, torch.float64, "highest", **kw))
+    ref = solve(bp4.build(5, P, torch.float64, "highest", device="cpu",
+                          **kw))
     assert res.converged and res.n_iterations == ref.n_iterations
     assert _rel(res.x.cpu(), ref.x) < 1e-10
 

@@ -37,7 +37,8 @@ def _jax_matvec(s, u, dtype, precision):
 
 
 def _random_state(s, dtype, seed):
-    pb = bp4.build(s, P, dtype=torch.float64, precision="highest")
+    pb = bp4.build(s, P, dtype=torch.float64, precision="highest",
+                   device="cpu")
     rng = np.random.default_rng(seed)
     u = rng.standard_normal((3,) + pb.layout.n_nodes_axis)
     return (u * pb.op.mask.numpy()).astype(dtype)
@@ -50,7 +51,7 @@ def _random_state(s, dtype, seed):
 def test_matvec_matches_piece_vmult(s, dtype, tdtype, precision, tol):
     u = _random_state(s, dtype, seed=s)
     ref = _jax_matvec(s, u, jnp.dtype(dtype), precision)
-    op = bp4.build(s, P, dtype=tdtype, precision=precision).op
+    op = bp4.build(s, P, dtype=tdtype, precision=precision, device="cpu").op
     got = fk.matvec(op, torch.as_tensor(u)).numpy()
     err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err < tol, err
@@ -60,7 +61,8 @@ def test_metric_matches_host_metric():
     """The on-the-fly metric rebuild (f64) equals the JAX package's host
     f64 metric ``laplace_pallas._metric_entries``."""
     s = 4
-    op = bp4.build(s, P, dtype=torch.float64, precision="highest").op
+    op = bp4.build(s, P, dtype=torch.float64, precision="highest",
+                   device="cpu").op
     q = P + 2
     ref = jlp.metric_for_coeffs(op.coeffs.numpy(), P, q)  # (6 q^3, nc)
     got = fk.metric_onthefly(op).permute(0, 2, 1).reshape(6 * q ** 3, -1)
@@ -70,7 +72,8 @@ def test_metric_matches_host_metric():
 
 def test_matvec_is_symmetric_and_masked():
     s = 3
-    op = bp4.build(s, P, dtype=torch.float64, precision="highest").op
+    op = bp4.build(s, P, dtype=torch.float64, precision="highest",
+                   device="cpu").op
     u, v = (torch.as_tensor(_random_state(s, np.float64, seed))
             for seed in (1, 2))
     au, av = fk.matvec(op, u), fk.matvec(op, v)
@@ -82,7 +85,8 @@ def test_matvec_is_symmetric_and_masked():
 def test_matvec_cpu_uses_plain_version():
     """On CPU tensors the wrapper runs the plain version and counts no
     kernel launch; an ``out`` buffer receives the result."""
-    op = bp4.build(3, P, dtype=torch.float64, precision="highest").op
+    op = bp4.build(3, P, dtype=torch.float64, precision="highest",
+                   device="cpu").op
     u = torch.as_tensor(_random_state(3, np.float64, seed=4))
     before = fk.matvec.launches
     out = torch.empty_like(u)
@@ -97,7 +101,7 @@ def test_mma_tables_2d_unpack_to_bf16_mats2d(p):
     """The fused path's split2m tables: both fragment orders unpack to
     ``op.mats2d`` in bf16, bit for bit, every pad entry is 0, and the
     rounding to bf16 is exact (``mats2d`` is already bf16-valued)."""
-    op = bp4.build(1, p, torch.float32, "split2m").op
+    op = bp4.build(1, p, torch.float32, "split2m", device="cpu").op
     q2, p12 = (p + 2) ** 2, (p + 1) ** 2
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
     assert q2p % 16 == 0 and p12p % 16 == 0
@@ -112,7 +116,8 @@ def test_mma_tables_2d_unpack_to_bf16_mats2d(p):
         assert torch.equal(m[:, :q2, :p12], want)
         m[:, :q2, :p12] = 0
         assert not m.any()
-    assert bp4.build(1, p, torch.float32, "highest").op.mma_mats is None
+    assert bp4.build(1, p, torch.float32, "highest",
+                     device="cpu").op.mma_mats is None
 
 
 @pytest.mark.parametrize("s", [3, 5])
@@ -124,7 +129,8 @@ def test_cell_mma_emulation_matches_piece_vmult(s):
     (s=3: 8 cells, one ragged 16-cell tile)."""
     u = _random_state(s, np.float32, seed=30 + s)
     ref = _jax_matvec(s, u, jnp.float32, "split2m")
-    op = bp4.build(s, P, dtype=torch.float32, precision="split2m").op
+    op = bp4.build(s, P, dtype=torch.float32, precision="split2m",
+                   device="cpu").op
     ut = torch.as_tensor(u) * op.mask
     cells = fk._cell_apply_mma_emulated(op, ut)
     got = (fk._assemble(op, cells) * op.mask).numpy()

@@ -1,6 +1,8 @@
 """PyTorch port: host setup (quadrature, bases, mesh, DoFs, diagonal,
 operator arrays) against the JAX package, at small sizes."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,8 +95,9 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
         s, p, mats2d=np.asarray(jop.mats2d), pds=np.asarray(jop.pds),
         w3=np.asarray(jop.w3), coeffs=np.asarray(jop.coeffs),
         mask=np.asarray(jop.mask), b=np.asarray(jp.b),
-        inv_diag=np.asarray(jp.inv_diag), precision=precision, dtype=tdtype)
-    own = bp4.build(s, p, dtype=tdtype, precision=precision)
+        inv_diag=np.asarray(jp.inv_diag), precision=precision, dtype=tdtype,
+        device="cpu")
+    own = bp4.build(s, p, dtype=tdtype, precision=precision, device="cpu")
     for name in ("mats2d", "sz", "dz", "pds", "w3", "coeffs", "mask",
                  "kpds", "kcoeffs"):
         a, b = getattr(own.op, name), getattr(conv.op, name)
@@ -114,3 +117,12 @@ def test_operator_rejects_unported_configurations():
                {"precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             laplace_cuda.make_operator(layout, **kw)
+
+
+def test_builders_default_to_the_card():
+    """The public builders put the operator on the card unless the caller
+    asks for the CPU (the tests pass ``device="cpu"``)."""
+    for fn in (bp4.build, bp4.from_jax_arrays, laplace_cuda.make_operator,
+               laplace_cuda.operator_from_arrays):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__name__

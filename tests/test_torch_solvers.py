@@ -28,7 +28,7 @@ SOLVERS = {"merged": (jcg_merged.merged_cg_solve, cg_merged.merged_cg_solve,
 def _pair(s, p, windowing="reshape", jd=jnp.float64, td=torch.float64):
     jp = jbp4.build(s, p, dtype=jd, backend="pallas", windowing=windowing)
     tp = bp4.build(s, p, td, "highest", factor="dense", metric="precomputed",
-                   windowing=windowing)
+                   windowing=windowing, device="cpu")
     return jp, tp
 
 
@@ -63,7 +63,7 @@ def test_baseline_count_equals_merged():
     """The reference's own invariant: in f64 the textbook and the merged
     CG take the same iterations, with histories equal to roundoff."""
     tp = bp4.build(4, 4, torch.float64, "highest", factor="dense",
-                   metric="precomputed", windowing="reshape")
+                   metric="precomputed", windowing="reshape", device="cpu")
     rm, rb = bp4.solve_merged(tp), bp4.solve_baseline(tp)
     assert rm.converged and rm.n_iterations == rb.n_iterations
     n = rm.n_iterations
@@ -126,7 +126,7 @@ def test_breakdown_ends_the_solve():
     """A zero operator makes d.h = 0: alpha and the residual estimate are
     NaN, and the solve ends unconverged after one iteration."""
     tp = bp4.build(3, 2, torch.float64, "highest", factor="dense",
-                   metric="precomputed", windowing="reshape")
+                   metric="precomputed", windowing="reshape", device="cpu")
     res = cg_merged.merged_cg_solve(lambda u: torch.zeros_like(u), tp.b,
                                     tp.inv_diag)
     assert res.n_iterations == 1 and np.isnan(res.res_norm)
