@@ -8,15 +8,16 @@ Phases (each raises on failure, so any failure exits nonzero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels from ``mf_data_locality_tpu_torch/csrc`` with nvcc;
 3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
-   kernel with its plain PyTorch version on the same inputs, and time both:
-   B1/B2 (f32 split2m — the tensor-core cell pass —, f32 highest, f64
-   highest), B3-B6 (f32 highest — the sum-factorized pass of B3/B5/B6 —,
-   f32 split2m except B4 — the tensor-core pass of B3/B5/B6 —, f64
-   highest, whose B3/B5/B6 times are printed with their bounds);
+   kernel with its plain PyTorch version on the same inputs, and time both
+   beside the bound of its work: B1/B2 (f32 split2m — the tensor-core cell
+   pass —, f32 highest and f64 — the sum-factorized pass with the metric
+   rebuilt), B3-B6 (f32 highest — the sum-factorized pass, B4's with the
+   metric rebuilt —, f32 split2m except B4 — the tensor-core pass of
+   B3/B5/B6 —, f64 highest);
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
-   fused, merged and baseline alike — f32 "split2m" (fused; merged with
-   ``--windowing reshape``) and f32 "highest" (merged, baseline) 91..94
-   and converge;
+   fused, merged (streamed metric and ``metric="onthefly"``) and baseline
+   alike — f32 "split2m" (fused; merged with ``--windowing reshape``) and
+   f32 "highest" (fused, merged, baseline) 91..94 and converge;
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
@@ -27,19 +28,21 @@ Phases (each raises on failure, so any failure exits nonzero):
      solver="merged", windowing="reshape", precision="split2m")`` (B3 on
      the tensor cores);
    - short runs at s=11 of the baseline solver (B3), ``--geometry
-     onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6), and
-     ``zslab`` under split2m (B6 on the tensor cores);
+     onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6),
+     ``zslab`` under split2m (B6 on the tensor cores), and the fused solver
+     under f32 highest (B1, B2 on the sum-factorized pass);
    then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
-6. print the kernels' JSON line (B1/B2 at f32 split2m, B3-B6 at f32
-   highest and B3/B5/B6 also with their split2m and f64 times; each row
-   with the bound of its work on this card, from the shapes) and, last,
-   the device JSON line.
+6. print the kernels' JSON line (B1/B2 at f32 split2m, also with their f32
+   highest and f64 times; B3-B6 at f32 highest, also with their f64 and
+   (B3/B5/B6) split2m times; each row with the bound of its work on this
+   card, from the shapes) and, last, the device JSON line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +60,8 @@ TOL_SCAL_F32 = 1e-4
 # f64 CUDA cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_F64, HBM_BPS = 989e12, 67e12, 34e12, 3.35e12
 METRIC_FMA = 117  # adjj rebuild per q-point: J 72, adjugate 21, entries 24
+# the fused solver's configuration (B1, B2)
+FUSED = dict(factor="twostage", metric="onthefly", windowing="pieces")
 
 
 def sumfac_fma(p: int, q: int) -> int:
@@ -72,17 +77,21 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
     once, outputs written once) over HBM_BPS and its operations over the
     peak of their type (under split2m the products on the tensor cores in
     bf16, counting both stream parts, the rest in f32; else all at the
-    working type).  The apply family's products: under split2m the dense
-    count, because split2m's rounding of the dense entries defines that
-    function; under highest the sum-factorized count, the least work for
-    the function."""
+    working type).  The products: under split2m the dense count (B3-B6)
+    or twostage's 2D stage (B1/B2), because split2m's rounding of those
+    entries defines that function; under highest the sum-factorized count,
+    the least work for the function."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
     word = op.dtype.itemsize
-    if name in ("matvec", "fused_cg_iteration"):  # twostage, rebuilt metric
-        products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
-        other = 12 * q * p13 + 27 * q3 + METRIC_FMA * q3
+    if name in ("matvec", "fused_cg_iteration"):  # rebuilt metric
+        if split:  # twostage: the 2D stage on the tensor cores
+            products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
+            other = 12 * q * p13 + 27 * q3 + METRIC_FMA * q3
+        else:
+            products = sumfac_fma(p, q)
+            other = 27 * q3 + METRIC_FMA * q3
         words = (6 if name == "matvec" else 25) * nn + 24 * nc
     else:  # the apply family; metric streamed, or rebuilt (B4)
         products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
@@ -152,7 +161,7 @@ def main() -> int:
         "apply_local_batched_g": (la.apply_local_batched_g,
                                   "apply_sumfac.cuh", "laplace_pallas.py:1023"),
         "apply_local_batched_onthefly": (la.apply_local_batched_onthefly,
-                                         "laplace_apply.cu",
+                                         "apply_sumfac.cuh",
                                          "laplace_pallas.py:1043"),
         "apply_lattice_pieces": (la.apply_lattice_pieces, "apply_sumfac.cuh",
                                  "laplace_pallas.py:947"),
@@ -180,18 +189,23 @@ def main() -> int:
     lib_path, log = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.name})")
+    entry = ""  # the kernel a ptxas line is about
     for line in log.splitlines():
-        if "spill" in line and "0 bytes spill" not in line:
-            print("  ptxas:", line.strip())
+        if "Function properties for" in line:
+            entry = line.split("for ")[-1].strip()
+        elif re.search(r"[1-9]\d* bytes spill", line):
+            print("  ptxas:", entry[:60], line.strip())
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print(f"kernels vs plain at p={DEGREE}, s={S}:")
     errs, times, errs_split, times_split, bounds = {}, {}, {}, {}, {}
-    f64 = {}  # B3, B5, B6 at f64 highest: (kernel ms, plain ms), bound
+    # B1-B6 at f64 highest, B1/B2 at f32 highest: (kernel ms, plain ms),
+    # bound, max |diff|
+    f64, highest = {}, {}
     for dtype, precision in ((torch.float32, "split2m"),
                              (torch.float32, "highest"),
                              (torch.float64, "highest")):
-        pb = bp4.build(S, DEGREE, dtype, precision, device=dev)
+        pb = bp4.build(S, DEGREE, dtype, precision, device=dev, **FUSED)
         op = pb.op
         prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
         tag = f"{str(dtype)[6:]} {precision}"
@@ -216,29 +230,27 @@ def main() -> int:
               scal_rel, TOL_SCAL_F32 if dtype == torch.float32
               else TOL[dtype])
 
-        if precision == "highest" and dtype == torch.float32:
-            out = torch.empty_like(d)
-            t = time_pair(lambda: fk.matvec(op, d, out=out),
-                          lambda: fk._matvec_plain(op, d), dev, timing)
-            print(f"  matvec {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
-        elif dtype == torch.float32:
-            errs["matvec"], errs["fused_cg_iteration"] = diff, fdiff
-            for name in ("matvec", "fused_cg_iteration"):
-                bounds[name] = bound(name, op, split=True)
-            out = torch.empty_like(d)
-            work = fk.Workspace(op)
-            bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
-            times["matvec"] = time_pair(
-                lambda: fk.matvec(op, d, out=out, work=work),
-                lambda: fk._matvec_plain(op, d), dev, timing)
-            times["fused_cg_iteration"] = time_pair(
-                lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
-                                              out=bufs, work=work),
-                lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal,
-                                                  prec), dev, timing)
-            for name in ("matvec", "fused_cg_iteration"):
-                print(f"  {name} f32 split2m: kernel {times[name][0]:.4f} "
-                      f"ms, plain {times[name][1]:.4f} ms")
+        out = torch.empty_like(d)
+        work = fk.Workspace(op)
+        bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
+        t = {"matvec": time_pair(
+                 lambda: fk.matvec(op, d, out=out, work=work),
+                 lambda: fk._matvec_plain(op, d), dev, timing),
+             "fused_cg_iteration": time_pair(
+                 lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
+                                               out=bufs, work=work),
+                 lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal,
+                                                   prec), dev, timing)}
+        for name, err in (("matvec", diff), ("fused_cg_iteration", fdiff)):
+            b = bound(name, op, split=precision == "split2m")
+            print(f"  {name} {tag}: kernel {t[name][0]:.4f} ms, plain "
+                  f"{t[name][1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+            if dtype == torch.float64:
+                f64[name] = t[name], b, err
+            elif precision == "highest":
+                highest[name] = t[name], b, err
+            else:
+                errs[name], times[name], bounds[name] = err, t[name], b
         del pb, op, d, x, g, dd, h, want, got
         out = work = bufs = None
         torch.cuda.empty_cache()
@@ -280,14 +292,12 @@ def main() -> int:
             rel, diff = rel_err(kern(), plain())
             check(f"{name} {tag}", rel, TOL[dtype])
             onthefly = name.endswith("onthefly")
-            if dtype == torch.float64 and onthefly:
-                continue
             t = time_pair(kern, plain, dev, timing, inner=10)
             b = bound(name, opo if onthefly else opg, split)
             print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
                   f"ms, bound {b[0]:.4f} ms ({b[1]})")
             if dtype == torch.float64:
-                f64[name] = t, b
+                f64[name] = t, b, diff
             elif precision == "highest":
                 errs[name], times[name], bounds[name] = diff, t, b
             else:
@@ -298,9 +308,11 @@ def main() -> int:
 
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
     for dtype, precision, allowed in ((torch.float64, "highest", (91,)),
+                                      (torch.float32, "highest",
+                                       (91, 92, 93, 94)),
                                       (torch.float32, "split2m",
                                        (91, 92, 93, 94))):
-        pb = bp4.build(7, DEGREE, dtype, precision, device=dev)
+        pb = bp4.build(7, DEGREE, dtype, precision, device=dev, **FUSED)
         lat = pb.layout.n_nodes_axis
         res = cg_fused.fused_merged_cg_solve(
             pb.op, lat, pb.b.reshape((3,) + lat),
@@ -310,28 +322,31 @@ def main() -> int:
         if res.n_iterations not in allowed or not res.converged:
             raise AssertionError(f"p=4 s=7 fused {precision}: itCG "
                                  f"{res.n_iterations} not in {allowed}")
-    for dtype, precision, allowed, solvers in (
-            (torch.float64, "highest", (91,), ("merged", "baseline")),
-            (torch.float32, "highest", (91, 92, 93, 94),
+    for dtype, precision, metric, allowed, solvers in (
+            (torch.float64, "highest", "precomputed", (91,),
              ("merged", "baseline")),
-            (torch.float32, "split2m", (91, 92, 93, 94), ("merged",))):
+            (torch.float64, "highest", "onthefly", (91,), ("merged",)),
+            (torch.float32, "highest", "precomputed", (91, 92, 93, 94),
+             ("merged", "baseline")),
+            (torch.float32, "split2m", "precomputed", (91, 92, 93, 94),
+             ("merged",))):
         pb = bp4.build(7, DEGREE, dtype, precision, factor="dense",
-                       metric="precomputed", windowing="reshape", device=dev)
+                       metric=metric, windowing="reshape", device=dev)
         its = {}
         for solver in solvers:
             res = benchmark.solver_call(pb, solver)()
             its[solver] = res.n_iterations
-            print(f"p=4 s=7 {solver} {str(dtype)[6:]} {precision}: itCG "
-                  f"{res.n_iterations}, converged {res.converged}")
+            print(f"p=4 s=7 {solver} {str(dtype)[6:]} {precision} {metric}: "
+                  f"itCG {res.n_iterations}, converged {res.converged}")
             if res.n_iterations not in allowed or not res.converged:
-                raise AssertionError(f"p=4 s=7 {solver}: itCG "
+                raise AssertionError(f"p=4 s=7 {solver} {metric}: itCG "
                                      f"{res.n_iterations} not in {allowed}")
-        if dtype == torch.float64 and its["merged"] != its["baseline"]:
+        if dtype == torch.float64 and len(set(its.values())) > 1:
             raise AssertionError(f"merged and baseline itCG differ: {its}")
 
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
-    launches, launches_split = {}, {}
+    launches, launches_split, launches_highest = {}, {}, {}
 
     def drive(label, s, expect, into=launches, **kw):
         zero_counts()
@@ -381,11 +396,15 @@ def main() -> int:
     drive("merged --windowing zslab, f32 split2m", S_SHORT,
           ("apply_lattice_zslab",), into=launches_split, solver="merged",
           windowing="zslab", precision="split2m", **short)
+    drive("fused, f32 highest (twostage, onthefly)", S_SHORT,
+          ("matvec", "fused_cg_iteration"), into=launches_highest,
+          solver="fused", precision="highest", factor="twostage",
+          metric="onthefly", windowing="pieces", **short)
 
     # the three p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
     # f32 solves stop at the 100-iteration cap, so the residual is not small)
-    pb = bp4.build(S, DEGREE, torch.float32, "split2m", device=dev)
+    pb = bp4.build(S, DEGREE, torch.float32, "split2m", device=dev, **FUSED)
     lat = pb.layout.n_nodes_axis
     b = pb.b.reshape((3,) + lat)
     res = cg_fused.fused_merged_cg_solve(pb.op, lat, b,
@@ -421,8 +440,14 @@ def main() -> int:
                "ms": times[name][0], "plain_ms": times[name][1],
                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                "library_ms": None}
-        if name in ("matvec", "fused_cg_iteration"):  # measured at split2m
-            row["source_split2m"] = CSRC + "cell_mma.cuh"
+        if name in highest:  # B1, B2: measured at split2m, then highest
+            (k, pl), (bms, by), err = highest[name]
+            row.update(source_split2m=CSRC + "cell_mma.cuh",
+                       source_highest=CSRC + "apply_sumfac.cuh",
+                       ms_highest=k, plain_ms_highest=pl,
+                       max_abs_err_highest=err, bound_ms_highest=bms,
+                       bound_by_highest=by,
+                       launches_highest=launches_highest[name])
         if name in times_split:  # B3, B5, B6: the tensor-core split2m pass
             row.update(source_split2m=CSRC + "apply_mma.cuh",
                        ms_split2m=times_split[name][0],
@@ -432,10 +457,10 @@ def main() -> int:
                        bound_by_split2m=bounds[name + "_split2m"][1])
             if name in launches_split:
                 row["launches_split2m"] = launches_split[name]
-        if name in f64:  # B3, B5, B6 at f64 highest
-            (k, pl), (bms, by) = f64[name]
-            row.update(ms_f64=k, plain_ms_f64=pl, bound_ms_f64=bms,
-                       bound_by_f64=by)
+        if name in f64:  # every kernel at f64 highest
+            (k, pl), (bms, by), err = f64[name]
+            row.update(ms_f64=k, plain_ms_f64=pl, max_abs_err_f64=err,
+                       bound_ms_f64=bms, bound_by_f64=by)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

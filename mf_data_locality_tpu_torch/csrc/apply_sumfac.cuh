@@ -1,56 +1,94 @@
-// The "highest" cell pass of the precomputed-metric apply on Hopper's CUDA
-// cores (sm_90a), f32 or f64: v = sum_e M_e^T G_ef M_f u per cell, by sum
-// factorization, on cell batches (B3) and on the lattice (B5, B6; the
-// assemble pass follows in laplace_apply.cu).
+// The "highest" cell pass of the BP4 operator on Hopper's CUDA cores
+// (sm_90a), f32 or f64: v = sum_e M_e^T G_ef M_f u per cell, by sum
+// factorization, with the metric G streamed (B3, B5, B6) or rebuilt in the
+// kernel from the cell's trilinear coefficients (B4, B1, B2), on cell
+// batches (B3, B4) or on the lattice (B5, B6, B1, B2; the assemble pass of
+// bp4_operator.cuh follows in laplace_apply.cu and cg_fused.cu).
 //
-// Replaces, under precision "highest" (f32 and f64), the TPU kernels of
-// mf_data_locality_tpu/ops/laplace_pallas.py:
-//   B3  _kernel_g          :479  (pallas_call :1023)
-//   B6  _kernel_g_zslab    :576  (pallas_call :664)
-//   B5  _kernel_g_pieces   :845  (pallas_call :947)
-// The f32 "split2m" rung runs on the tensor cores (apply_mma.cuh): its
-// rounding of the dense entries defines that function, and a factorized
-// form does not reproduce it.
+// Replaces, under precision "highest" (f32 and f64; B4 on every rung), the
+// TPU kernels of mf_data_locality_tpu/ops/:
+//   B3  laplace_pallas.py  _kernel_g         :479   (pallas_call :1023)
+//   B4  laplace_pallas.py  _kernel           :515   (pallas_call :1043)
+//   B6  laplace_pallas.py  _kernel_g_zslab   :576   (pallas_call :664)
+//   B5  laplace_pallas.py  _kernel_g_pieces  :845   (pallas_call :947)
+//   B1  cg_fused_kernel.py _matvec_kernel           (pallas_call :1116)
+//   B2  cg_fused_kernel.py _fused_cg_kernel         (pallas_call :1476)
+// The f32 "split2m" rung of B3/B5/B6 runs on the tensor cores
+// (apply_mma.cuh), and that of B1/B2 too (cell_mma.cuh): its rounding of
+// the dense (B3-B6) or 2D (B1/B2) entries defines that function, and a
+// factorized form does not reproduce it.  B4 is exact on every rung
+// (_kernel runs at Precision.HIGHEST, :529), so this pass serves all of them.
 //
 // The TPU kernels multiply by the dense gradient matrices M_x = S (x) S (x) D,
 // M_y = S (x) D (x) S, M_z = D (x) S (x) S ((z, y, x) order; S, D the (Q,
 // P1) values and derivatives of the 1D basis at the Gauss points), because
-// contractions of depth P1 waste the MXU (laplace_pallas.py:15-20).  Exact
-// f32 or f64 on this card runs on the CUDA cores, where the FMA count is
-// what binds, so this pass applies the 1D factors instead (p=4: ~5.0e4 FMAs
-// a cell against the dense form's 4.9e5):
+// contractions of depth P1 waste the MXU (laplace_pallas.py:15-20); B1/B2
+// contract z by S, D and then a dense 2D stage (twostage).  Exact f32 or f64
+// on this card runs on the CUDA cores, where the FMA count is what binds, so
+// this pass applies the 1D factors in x, y, z (p=4: ~5.0e4 FMAs a cell
+// against the dense form's 4.9e5 and twostage's 1.4e5).  Under "highest" it
+// is the same function summed in another order: it agrees with the dense
+// and twostage plain versions within 1e-5 (f32) and 1e-12 (f64) relative.
 //
 //   forward   x pass   xs, xd     = S_x u, D_x u             (kz, ky, qx)
 //             y pass   uss, uds, usd = S_y xs, D_y xs, S_y xd (kz, qy, qx)
 //             z pass   gx, gy, gz = S_z usd, S_z uds, D_z uss (qz, qy, qx)
-//   apply     t = G [gx, gy, gz], the 6 streamed entries of the symmetric G
+//   apply     t = G [gx, gy, gz], the 6 entries of the symmetric G
 //   backward  the transposes in reverse order: z, then y, then x
 //
 // Layout: one block is BC cells (8 f32, 4 f64: one 32-byte sector of every
-// streamed row) times the Q^2 (qy, qx) columns of a cell, the cell the
-// fastest thread index, so the metric, the batched u and v are read and
-// written a full sector per 8 (4) threads.  A thread owns one column and
-// carries the z direction in registers ("2D threads, z in registers", as in
-// GPU sum-factorization kernels); the x and y passes exchange through
-// shared planes.  The forward z pass, the metric apply and the backward z
-// pass are fused per qz, so gx, gy, gz never leave registers.  The block's
-// metric (6 Q^3 BC words) is read once into shared memory and serves the
-// three components; S and D (2 Q P1 words) sit in shared memory too.
+// cell-fastest row) times the Q^2 (qy, qx) columns of a cell, the cell the
+// fastest thread index, so the metric or coefficients, the batched u and v
+// are read and written a full sector per 8 (4) threads.  A thread owns one
+// column and carries the z direction in registers ("2D threads, z in
+// registers", as in GPU sum-factorization kernels); the x and y passes
+// exchange through shared planes.  The forward z pass, the metric apply and
+// the backward z pass are fused per qz, so gx, gy, gz never leave
+// registers.  The block's metric (6 Q^3 BC words) sits in shared memory and
+// serves the three components; S and D (2 Q P1 words) sit there too.  Thread
+// (col, b) reads the metric only at its own (qz, col, b) slots.
 //
-// Lattice form (B5, B6): u is gathered by cell_node with the mask (B5 from
-// the indices, B6 from the mask tensor), as apply_kernel did; with the cell
-// the fastest index, a warp's gather reads P-strided nodes that neighbouring
-// threads complete, so it touches about one sector per 8 words.  The masked
-// cell-local result is staged in shared memory and stored as one contiguous
-// run of BC P13 words a component, then the fixed-order assemble pass
-// (bp4_operator.cuh) sums each node: no atomics, two calls bitwise equal.
+// Metric source (REBUILD):
+//   streamed  the 6 Q^3 words a cell, copied by cp.async while component
+//             0's input arrives and its x pass runs;
+//   rebuilt   the block's 24 BC coefficients (24 words a cell, in place of
+//             1,296 at p=4) copied to shared memory; in the prologue, while
+//             component 0's input arrives, each thread rebuilds G at its
+//             own Q slots by onthefly_metric (J = pds . c24 in exact FMA at
+//             the working type, the adjugate, G = w adj adj^T / det), once
+//             per (cell, q-point) for the three components, as _kernel does
+//             (laplace_pallas.py:558-560); the slots are thread-private, so
+//             the rebuild needs only the coefficients' barrier.  The pds
+//             row of a q-point is read by 16-byte loads that the BC threads
+//             of a column share, a broadcast.  Placed after component 0's x
+//             pass instead, the rebuild made the lattice forms spill and
+//             ran slower (PERF.md, utils/variants.py).
+//
+// Input forms (FORM):
+//   kCellBatch      B3, B4: u and out are cell batches (C P13, n_cells);
+//   kLattice        B5, B6, B1: u is the lattice, gathered by cell_node
+//                   times the mask (B6: the mask tensor; B5, B1: the box's
+//                   Dirichlet mask from the indices); out the masked
+//                   cell-local values (C, n_cells, P13);
+//   kLatticeUpdate  B2: as kLattice, the input being update4b's d' at each
+//                   (cell, node) (cell_input), whose owner cell writes x',
+//                   g', d'; the four scalars are staged once a block.
+// With the cell the fastest index, a warp's gather reads P-strided nodes
+// that neighbouring threads complete, so it touches about one sector per 8
+// words.  The masked cell-local result is staged in shared memory and
+// stored as one contiguous run of BC P13 words a component, then the
+// fixed-order assemble pass sums each node: no atomics, two calls bitwise
+// equal.
 //
 // Bound (p=4, s=13, 8192 cells): 50,472 FMAs a cell (per component forward
 // 1,500 + 2,700 + 3,240, the same backward, x3, plus 27 Q^3 for the metric
-// apply), 4.1e8 FMAs, 12.3 us at the 67 TFLOP/s f32 peak; the bytes, the
-// metric (6 Q^3 words a cell) plus u and v, 67 MB in f32, 20.0 us at 3.35
-// TB/s.  So it is bound by bytes in f32 and f64 (40 us; 24 us of FP64
-// FMAs).  The measured time and what holds it are in PERF.md.
+// apply), 4.1e8 FMAs, 12.3 us at the 67 TFLOP/s f32 peak; the bytes of B3,
+// the metric (6 Q^3 words a cell) plus u and v, 67 MB in f32, 20.0 us at
+// 3.35 TB/s: B3/B5/B6 are bound by bytes.  A rebuilt metric adds 117 Q^3 =
+// 25,272 FMAs a cell and takes 1,272 words a cell off the bytes: B4 (25 MB
+// in f32) is bound by its operations, 18.5 us (f64 37 us); B1 (14 MB) by
+// its operations too, B2 (55 MB) by its bytes, 16.5 us.  The measured times
+// and what holds them are in PERF.md.
 
 #pragma once
 
@@ -59,6 +97,8 @@
 #include "bp4_operator.cuh"
 
 namespace bp4 {
+
+enum : int { kCellBatch = 0, kLattice = 1, kLatticeUpdate = 2 };
 
 template <typename T>
 struct SumfacCells {
@@ -69,7 +109,22 @@ struct SumfacCells<double> {
   static constexpr int N = 4;
 };
 
-template <typename T, int P>
+// What the pass reads and writes, device pointers at the working type T.
+template <typename T>
+struct SumfacArgs {
+  const T* sz;       // S (Q, P1)
+  const T* dz;       // D (Q, P1)
+  const T* gmetric;  // streamed: (6 Q3, n_cells), entries 00 01 02 11 12 22
+  const T* pds;      // rebuilt: (Q3, 24), d(monomial k)/d(u_e) at e*8 + k
+  const T* w3;       // rebuilt: (Q3,)
+  const T* coeffs;   // rebuilt: (24, n_cells), coordinate d's monomial k at
+                     // row d*8 + k
+  const T* mask;     // B6's mask tensor; null: the box's mask from the indices
+  CellIo<T> io;      // io.d the input; kLatticeUpdate: update4b's vectors
+  T* out;
+};
+
+template <typename T, int P, bool REBUILD>
 struct SumfacSmem {
   using S = Shape<P>;
   static constexpr int BC = SumfacCells<T>::N;
@@ -77,45 +132,57 @@ struct SumfacSmem {
   T g[6][S::Q3][BC];               // the block's metric, entries 00 .. 22
   T x[2][S::P1][S::P1][S::Q][BC];  // x-direction partials (S, D): (kz, ky, qx)
   T w[3][S::P1][S::Q2][BC];        // backward z pass: (kz, qy qx); lattice
-                                   // form: then the output, (cell, node)
+                                   // forms: then the output, (cell, node)
   T u[S::P13][BC];                 // one component's input
   T sz[S::Q * S::P1];              // S (Q, P1)
   T dz[S::Q * S::P1];              // D (Q, P1)
+  T c24[REBUILD ? 24 : 1][BC];     // rebuilt: the cells' coefficients
+  T sc[4];                         // kLatticeUpdate: alpha, beta, c1, aob
   // input elements a thread loads for one component
   static constexpr int PER = (S::P13 * BC + kThreads - 1) / kThreads;
 };
 
 // One component's input elements of this thread, i = tid + j kThreads =
-// node k BC + cell: the values and (lattice) their mask, multiplied at the
+// node k BC + cell: the values and (kLattice) their mask, multiplied at the
 // store into shared memory.  The cell-batch form loads the next
 // component's input ahead, so that the loads' latency overlaps the passes
-// between; the lattice form loads it just before the store, because its
+// between; the lattice forms load it just before the store, because their
 // values and masks held across the passes spill under the three blocks an
 // SM and ran slower (PERF.md).
-template <typename T, int P, bool LATTICE>
+template <typename T, int P, bool REBUILD, int FORM>
 struct SumfacInput {
-  using Sm = SumfacSmem<T, P>;
+  using Sm = SumfacSmem<T, P, REBUILD>;
+  static constexpr bool kMasked = FORM == kLattice;
   T v[Sm::PER];
-  T m[LATTICE ? Sm::PER : 1];
+  T m[kMasked ? Sm::PER : 1];
 
-  __device__ __forceinline__ void load(const Grid& gr, const T* mask,
-                                       const T* u, int c, int cell0,
+  __device__ __forceinline__ void load(const Grid& gr, const SumfacArgs<T>& a,
+                                       const Sm& sm, int c, int cell0,
                                        int nlive) {
-    constexpr int BC = Sm::BC, P13 = Shape<P>::P13;
+    using S = Shape<P>;
+    constexpr int BC = Sm::BC, P13 = S::P13;
     const int nc = gr.n_cells();
 #pragma unroll
     for (int j = 0; j < Sm::PER; ++j) {
       const int i = threadIdx.x + j * Sm::kThreads, bb = i % BC, k = i / BC;
       const bool live = i < P13 * BC && bb < nlive;  // past the end: zeros
       v[j] = T(0);
-      if constexpr (LATTICE) {
+      if constexpr (FORM == kLattice) {
         m[j] = T(0);
         if (live) {
-          const size_t node = cell_node<P>(gr, cell0 + bb, k, mask, &m[j]);
-          v[j] = u[c * static_cast<size_t>(gr.n_nodes()) + node];
+          const size_t node = cell_node<P>(gr, cell0 + bb, k, a.mask, &m[j]);
+          v[j] = a.io.d[c * static_cast<size_t>(gr.n_nodes()) + node];
+        }
+      } else if constexpr (FORM == kLatticeUpdate) {
+        if (live) {
+          const int cell = cell0 + bb;
+          v[j] = cell_input<T, P, true>(
+              a.io, sm.sc, gr, c, cell / (gr.ncx * gr.ncy),
+              (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
+              (k / S::P1) % S::P1, k % S::P1);
         }
       } else if (live) {
-        v[j] = u[static_cast<size_t>(c * P13 + k) * nc + cell0 + bb];
+        v[j] = a.io.d[static_cast<size_t>(c * P13 + k) * nc + cell0 + bb];
       }
     }
   }
@@ -125,26 +192,45 @@ struct SumfacInput {
     for (int j = 0; j < Sm::PER; ++j) {
       const int i = threadIdx.x + j * Sm::kThreads;
       if (i < Shape<P>::P13 * Sm::BC)
-        (&sm.u[0][0])[i] = LATTICE ? v[j] * m[j] : v[j];
+        (&sm.u[0][0])[i] = kMasked ? v[j] * m[j] : v[j];
     }
   }
 };
 
-// LATTICE false (B3): u and out are cell batches (C P13, n_cells); true (B5,
-// B6): u is the lattice, gathered times the mask, and out the masked
-// cell-local values (C, n_cells, P13).  Three blocks an SM (72.6 KB of
-// shared memory each at p=4) cap a thread at 72 registers in f32.
-template <typename T, int P, bool LATTICE>
-__global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
-    apply_sumfac_kernel(const T* __restrict__ sz, const T* __restrict__ dz,
-                        const T* __restrict__ gmetric, Grid gr,
-                        const T* __restrict__ mask, const T* __restrict__ u,
-                        T* __restrict__ out) {
+// The pds row of one q-point (24 words, 16-byte aligned) by 16-byte loads.
+template <typename T>
+__device__ __forceinline__ void load_pds_row(const T* row, T (&pq)[24]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float4 v = __ldg(r + k);
+      pq[4 * k] = v.x;
+      pq[4 * k + 1] = v.y;
+      pq[4 * k + 2] = v.z;
+      pq[4 * k + 3] = v.w;
+    }
+  } else {
+    const double2* r = reinterpret_cast<const double2*>(row);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const double2 v = __ldg(r + k);
+      pq[2 * k] = v.x;
+      pq[2 * k + 1] = v.y;
+    }
+  }
+}
+
+// Three blocks an SM (73.4 KB of shared memory each at p=4 with the rebuilt
+// metric, 72.6 KB streamed) cap a thread at 72 registers in f32.
+template <typename T, int P, int FORM, bool REBUILD>
+__global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads, 3)
+    apply_sumfac_kernel(SumfacArgs<T> a, Grid gr) {
   using S = Shape<P>;
-  using Sm = SumfacSmem<T, P>;
+  using Sm = SumfacSmem<T, P, REBUILD>;
   constexpr int BC = Sm::BC, NT = Sm::kThreads;
   constexpr int P1 = S::P1, Q = S::Q, Q2 = S::Q2, Q3 = S::Q3, P13 = S::P13;
-  constexpr bool kAhead = !LATTICE;  // next component's input (SumfacInput)
+  constexpr bool kAhead = FORM == kCellBatch;  // next component's input
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Sm*>(smem_raw);
   const int nc = gr.n_cells();
@@ -154,21 +240,49 @@ __global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
   const int b = tid % BC, col = tid / BC;
 
   for (int i = tid; i < Q * P1; i += NT) {
-    sm.sz[i] = sz[i];
-    sm.dz[i] = dz[i];
+    sm.sz[i] = a.sz[i];
+    sm.dz[i] = a.dz[i];
   }
-  // the block's metric, copied asynchronously (cp.async) while component
-  // 0's input arrives and its x pass runs; cells past the end zero-filled
-  for (int i = tid; i < 6 * Q3 * BC; i += NT) {
-    const int bb = i % BC;
-    __pipeline_memcpy_async(
-        &sm.g[0][0][0] + i,
-        gmetric + static_cast<size_t>(i / BC) * nc + cell0 + min(bb, nlive - 1),
-        sizeof(T), bb < nlive ? 0 : sizeof(T));
+  if constexpr (REBUILD) {
+    // the cells' coefficients (zero past the end: a zero metric)
+    for (int i = tid; i < 24 * BC; i += NT) {
+      const int bb = i % BC;
+      (&sm.c24[0][0])[i] =
+          bb < nlive ? a.coeffs[static_cast<size_t>(i / BC) * nc + cell0 + bb]
+                     : T(0);
+    }
+  } else {
+    // the block's metric, copied asynchronously (cp.async) while component
+    // 0's input arrives and its x pass runs; cells past the end zero-filled
+    for (int i = tid; i < 6 * Q3 * BC; i += NT) {
+      const int bb = i % BC;
+      __pipeline_memcpy_async(
+          &sm.g[0][0][0] + i,
+          a.gmetric + static_cast<size_t>(i / BC) * nc + cell0 +
+              min(bb, nlive - 1),
+          sizeof(T), bb < nlive ? 0 : sizeof(T));
+    }
+    __pipeline_commit();
   }
-  __pipeline_commit();
-  SumfacInput<T, P, LATTICE> in;
-  in.load(gr, mask, u, 0, cell0, nlive);
+  if constexpr (FORM == kLatticeUpdate) {
+    if (tid < 4) sm.sc[tid] = a.io.scal[tid];
+    __syncthreads();
+  }
+  SumfacInput<T, P, REBUILD, FORM> in;
+  in.load(gr, a, sm, 0, cell0, nlive);
+  if constexpr (REBUILD) {
+    // while component 0's input arrives: G at this thread's own slots
+    // (qz, col, b), read only by it
+    __syncthreads();  // the coefficients
+    for (int qz = 0; qz < Q; ++qz) {
+      const int qp = qz * Q2 + col;
+      T pq[24], gm[6];
+      load_pds_row(a.pds + qp * 24, pq);
+      onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
+#pragma unroll
+      for (int e = 0; e < 6; ++e) sm.g[e][qp][b] = gm[e];
+    }
+  }
   in.store(sm);
 
   for (int c = 0; c < kComps; ++c) {
@@ -196,7 +310,9 @@ __global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
         sm.x[1][kz][ky][qx][b] = ad;
       }
     }
-    if (c == 0) __pipeline_wait_prior(0);  // this thread's metric copies
+    if constexpr (!REBUILD) {
+      if (c == 0) __pipeline_wait_prior(0);  // this thread's metric copies
+    }
     __syncthreads();
 
     // y pass, then per qz plane: z pass, metric apply, backward z pass;
@@ -265,7 +381,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
         sm.w[2][kz][col][b] = wss[kz];
       }
     }
-    if (kAhead && c + 1 < kComps) in.load(gr, mask, u, c + 1, cell0, nlive);
+    if (kAhead && c + 1 < kComps) in.load(gr, a, sm, c + 1, cell0, nlive);
     __syncthreads();
 
     // backward y pass: thread (ky, qx)
@@ -294,7 +410,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
     __syncthreads();
 
     // backward x pass and output: thread (ky, kx)
-    T* stage = &sm.w[0][0][0][0];  // lattice form: (cell, node)
+    T* stage = &sm.w[0][0][0][0];  // lattice forms: (cell, node)
     if (col < P1 * P1) {
       const int ky = col / P1, kx = col % P1;
       T s[Q], d[Q];
@@ -312,40 +428,38 @@ __global__ void __launch_bounds__(SumfacSmem<T, P>::kThreads, 3)
           v = fma(d[qx], sm.x[1][kz][ky][qx][b], v);
         }
         const int k = (kz * P1 + ky) * P1 + kx;
-        if constexpr (LATTICE) {
+        if constexpr (FORM != kCellBatch) {
           T m = T(0);
-          if (b < nlive) cell_node<P>(gr, cell0 + b, k, mask, &m);
+          if (b < nlive) cell_node<P>(gr, cell0 + b, k, a.mask, &m);
           stage[b * P13 + k] = v * m;
         } else if (b < nlive) {
-          out[static_cast<size_t>(c * P13 + k) * nc + cell0 + b] = v;
+          a.out[static_cast<size_t>(c * P13 + k) * nc + cell0 + b] = v;
         }
       }
     }
-    if constexpr (LATTICE) {
+    if constexpr (FORM != kCellBatch) {
       __syncthreads();
-      T* dst = out + (static_cast<size_t>(c) * nc + cell0) * P13;
+      T* dst = a.out + (static_cast<size_t>(c) * nc + cell0) * P13;
       for (int i = tid; i < nlive * P13; i += NT) dst[i] = stage[i];
     }
     if (c + 1 < kComps) {  // sm.u was last read by the x pass
-      if (!kAhead) in.load(gr, mask, u, c + 1, cell0, nlive);
+      if (!kAhead) in.load(gr, a, sm, c + 1, cell0, nlive);
       in.store(sm);
     }
   }
 }
 
-template <typename T, int P, bool LATTICE>
-cudaError_t launch_sumfac(const T* sz, const T* dz, const T* gmetric,
-                          const Grid& gr, const T* mask, const T* u, T* out,
+template <typename T, int P, int FORM, bool REBUILD>
+cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
                           cudaStream_t st) {
-  using Sm = SumfacSmem<T, P>;
-  auto kern = apply_sumfac_kernel<T, P, LATTICE>;
+  using Sm = SumfacSmem<T, P, REBUILD>;
+  auto kern = apply_sumfac_kernel<T, P, FORM, REBUILD>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
   const int blocks = (gr.n_cells() + Sm::BC - 1) / Sm::BC;
-  kern<<<blocks, Sm::kThreads, sizeof(Sm), st>>>(sz, dz, gmetric, gr, mask, u,
-                                                 out);
+  kern<<<blocks, Sm::kThreads, sizeof(Sm), st>>>(a, gr);
   return cudaGetLastError();
 }
 

@@ -1,11 +1,14 @@
-// BP4 cell operator for Hopper (sm_90a): the shared core of the matvec
-// (B1) and fused CG iteration (B2) kernels in cg_fused.cu; the metric
-// rebuild (onthefly_metric), the lattice gather (cell_node) and the
-// assemble pass are also used by the apply family (B3-B6) in
-// laplace_apply.cu and apply_mma.cuh.
+// BP4 cell operator for Hopper (sm_90a): what the cell passes of the
+// matvec (B1) and fused CG iteration (B2) in cg_fused.cu and of the apply
+// family (B3-B6) in laplace_apply.cu share -- the metric rebuild
+// (onthefly_metric), the lattice gather (cell_node), update4b at a cell's
+// nodes (cell_input) and the assemble pass.
 //
-// What it computes, per hex cell of the lattice (C = 3 components, degree P,
-// Q = P + 2 Gauss points per direction), on the cell's (P+1)^3 node values u:
+// What B1/B2 compute, per hex cell of the lattice (C = 3 components, degree
+// P, Q = P + 2 Gauss points per direction), on the cell's (P+1)^3 node
+// values u (the TPU kernel's _operator_block twostage branch with
+// _metric_onthefly's adjj chain, mf_data_locality_tpu/ops/
+// cg_fused_kernel.py:583-651, :178-265):
 //
 //   z stage     uS[qz] = sum_kz Sz[qz,kz] u[kz],  uD[qz] = sum_kz Dz[qz,kz] u[kz]
 //   2D stage    gx, gy = [Dx2d; Dy2d] uS[qz],     gz = S2d uD[qz]
@@ -16,28 +19,15 @@
 //               v[kz] = sum_qz Sz[qz,kz] w1[qz] + Dz[qz,kz] w2[qz]
 //   mask        v = 0 at Dirichlet nodes
 //
-// This is the arithmetic of the TPU kernel's _operator_block twostage branch
-// with _metric_onthefly's adjj chain (mf_data_locality_tpu/ops/
-// cg_fused_kernel.py:583-651, :178-265), not its block structure: the TPU
-// kernel puts cells in vector lanes and walks z-cell layers in order.
-//
-// cell_apply below is the "highest" rung (f32 or f64): one thread block
-// owns one cell, its threads walk the cell's nodes, q-points and planes,
-// every intermediate in shared memory, plain FMA at the working type.  The
-// f32 "split2m" rung (bf16 x bf16 products of the 2D stage, f32
-// accumulation) runs on the tensor cores instead, 16 cells a block
-// (cell_mma.cuh).  On both, the z stage runs at the working type,
-// unrounded, as on the TPU, and the Jacobian J = pds . c24 is exact FMA at
-// the working type.  Deliberate difference: the TPU kernel evaluates it
-// under every f32 rung as a split3 bf16 hi/lo product
+// The "highest" rung (f32, f64) applies the same operator by 1D factors in
+// x, y and z (apply_sumfac.cuh, whose note gives the tolerance); the f32
+// "split2m" rung keeps the 2D stage as bf16 x bf16 products with f32
+// accumulation on the tensor cores (cell_mma.cuh), because its rounding of
+// the 2D entries defines that rung.  On both the Jacobian J = pds . c24 is
+// exact FMA at the working type.  Deliberate difference: the TPU kernel
+// evaluates it under every f32 rung as a split3 bf16 hi/lo product
 // (cg_fused_kernel.py:208), whose intent is f32 class; exact f32 is that
 // class without the emulation.
-//
-// Bound of cell_apply on the H100: one cell costs ~1.4e5 FMAs (3
-// components x the 2D stage forward + backward + the metric rebuild)
-// against ~4.5 KB of node data, so it is bound by the CUDA cores' FMA rate
-// and shared-memory traffic, not by DRAM; PERF.md records the measured
-// split.
 
 #pragma once
 
@@ -47,7 +37,6 @@
 namespace bp4 {
 
 constexpr int kComps = 3;           // vector components of BP4
-constexpr int kCellThreads = 256;   // threads per cell block
 constexpr int kNodeThreads = 256;   // threads per block of the node passes
 constexpr int kDots = 7;            // update3b sums (cg_fused_kernel.py:891)
 
@@ -58,15 +47,19 @@ struct Shape {
   static constexpr int Q2 = Q * Q, Q3 = Q2 * Q;
 };
 
-// Read-only operator tables, device pointers at the working type T.
+// Read-only operator tables of B1/B2, device pointers at the working type T.
+// split2m (cell_mma.cuh): mats the bf16 fragment tables of the 2D stage,
+// coeffs (n_cells, 24); highest (apply_sumfac.cuh): mats unused, coeffs
+// (24, n_cells), the cell fastest.  Coordinate d's monomial coefficient k
+// is entry d*8 + k of a cell.
 template <typename T>
 struct OpTables {
-  const T* mats;    // (3 Q2, P12): [Dx2d; Dy2d; S2d], rows (qy,qx), cols (ky,kx)
+  const T* mats;
   const T* sz;      // (Q, P1)
   const T* dz;      // (Q, P1)
   const T* pds;     // (Q3, 24): d(monomial k)/d(u_e) at e*8 + k
   const T* w3;      // (Q3,)
-  const T* coeffs;  // (n_cells, 24): monomial coefficient k of coordinate d at d*8 + k
+  const T* coeffs;
 };
 
 struct Grid {
@@ -97,30 +90,12 @@ __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
   return node;
 }
 
-template <typename T, int P>
-struct CellSmem {
-  using S = Shape<P>;
-  static constexpr int NP = kComps * S::Q * S::P12;  // plane values, all comps
-  static constexpr int NQ = kComps * S::Q3;          // q-point values, all comps
-  T mats[3 * S::Q2 * S::P12];
-  T sz[S::Q * S::P1];
-  T dz[S::Q * S::P1];
-  T c24[24];
-  T u[kComps * S::P13];  // operator input at the cell's nodes
-  T g6[6 * S::Q3];       // metric entries 00, 01, 02, 11, 12, 22 per q-point
-  T us[NP];              // z-interpolated planes
-  T ud[NP];              // z-differentiated planes
-  T t[3][NQ];            // metric-applied gradients
-  T w1[NP];              // backward 2D stage
-  T w2[NP];
-};
-
 // Metric entries (00, 01, 02, 11, 12, 22) at one q-point, rebuilt from the
 // cell's 24 trilinear coefficients: J = pds . c24 in exact FMA, the adjugate
 // chain ("adjj"), G = w adj adj^T / det.  `pq` is the q-point's row of pds
 // (d(monomial k)/d(u_e) at e*8 + k), `c24` holds coordinate d's coefficient
-// k at d*8 + k.
-template <typename T>
+// k at (d*8 + k) STRIDE.
+template <int STRIDE = 1, typename T>
 __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
                                                 T w, T* g) {
   T J[3][3];
@@ -130,7 +105,8 @@ __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
     for (int e = 0; e < 3; ++e) {
       T a = T(0);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) a = fma(pq[e * 8 + k], c24[d * 8 + k], a);
+      for (int k = 0; k < 8; ++k)
+        a = fma(pq[e * 8 + k], c24[(d * 8 + k) * STRIDE], a);
       J[d][e] = a;
     }
   const T a = J[0][0], b = J[0][1], c = J[0][2];
@@ -148,20 +124,6 @@ __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
     for (int f0 = e0; f0 < 3; ++f0, ++r)
       g[r] = (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
               adj[e0][2] * adj[f0][2]) * scale;
-}
-
-// Copy the operator tables and this cell's coefficients to shared memory.
-template <typename T, int P>
-__device__ void load_tables(CellSmem<T, P>& sm, const OpTables<T>& tb,
-                            int cell) {
-  using S = Shape<P>;
-  for (int i = threadIdx.x; i < 3 * S::Q2 * S::P12; i += blockDim.x)
-    sm.mats[i] = tb.mats[i];
-  for (int i = threadIdx.x; i < S::Q * S::P1; i += blockDim.x) {
-    sm.sz[i] = tb.sz[i];
-    sm.dz[i] = tb.dz[i];
-  }
-  if (threadIdx.x < 24) sm.c24[threadIdx.x] = tb.coeffs[cell * 24 + threadIdx.x];
 }
 
 // The vectors of the B1 (d -> cells) and B2 (update4b, then d' -> cells)
@@ -201,110 +163,6 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
       io.d2[idx] = dn;
     }
     return in ? dn : T(0);
-  }
-}
-
-// Apply the operator to sm.u (loaded and synchronised by the caller) and
-// write the masked cell-local result to cells[(c * n_cells + cell) * P13 + l].
-template <typename T, int P>
-__device__ void cell_apply(CellSmem<T, P>& sm, const OpTables<T>& tb,
-                           const Grid& gr, int cell, int cz, int cy, int cx,
-                           T* __restrict__ cells) {
-  using S = Shape<P>;
-  using Sm = CellSmem<T, P>;
-  const int tid = threadIdx.x;
-
-  // metric at each q-point, rebuilt from the 24 coefficients
-  for (int qp = tid; qp < S::Q3; qp += blockDim.x) {
-    T g[6];
-    onthefly_metric(tb.pds + qp * 24, sm.c24, tb.w3[qp], g);
-#pragma unroll
-    for (int r = 0; r < 6; ++r) sm.g6[r * S::Q3 + qp] = g[r];
-  }
-
-  // z stage: (c, qz, ky, kx) planes
-  for (int i = tid; i < Sm::NP; i += blockDim.x) {
-    const int c = i / (S::Q * S::P12);
-    const int qz = (i / S::P12) % S::Q;
-    const int k2 = i % S::P12;
-    const T* uc = sm.u + c * S::P13 + k2;
-    T s = uc[0] * sm.sz[qz * S::P1];
-    T dd = uc[0] * sm.dz[qz * S::P1];
-#pragma unroll
-    for (int kz = 1; kz < S::P1; ++kz) {
-      s = fma(uc[kz * S::P12], sm.sz[qz * S::P1 + kz], s);
-      dd = fma(uc[kz * S::P12], sm.dz[qz * S::P1 + kz], dd);
-    }
-    sm.us[i] = s;
-    sm.ud[i] = dd;
-  }
-  __syncthreads();
-
-  // forward 2D stage and metric apply: (c, qz, qy, qx) q-points
-  for (int i = tid; i < Sm::NQ; i += blockDim.x) {
-    const int c = i / S::Q3;
-    const int qp = i % S::Q3;
-    const int qz = qp / S::Q2;
-    const int r = qp % S::Q2;
-    const T* mx = sm.mats + r * S::P12;
-    const T* my = sm.mats + (S::Q2 + r) * S::P12;
-    const T* mz = sm.mats + (2 * S::Q2 + r) * S::P12;
-    const T* bs = sm.us + (c * S::Q + qz) * S::P12;
-    const T* bd = sm.ud + (c * S::Q + qz) * S::P12;
-    T gx = T(0), gy = T(0), gz = T(0);
-#pragma unroll
-    for (int k = 0; k < S::P12; ++k) {
-      gx = fma(mx[k], bs[k], gx);
-      gy = fma(my[k], bs[k], gy);
-      gz = fma(mz[k], bd[k], gz);
-    }
-    const T* G = sm.g6 + qp;
-    const T g00 = G[0], g01 = G[S::Q3], g02 = G[2 * S::Q3];
-    const T g11 = G[3 * S::Q3], g12 = G[4 * S::Q3], g22 = G[5 * S::Q3];
-    const T t[3] = {g00 * gx + g01 * gy + g02 * gz,
-                    g01 * gx + g11 * gy + g12 * gz,
-                    g02 * gx + g12 * gy + g22 * gz};
-#pragma unroll
-    for (int e = 0; e < 3; ++e) sm.t[e][i] = t[e];
-  }
-  __syncthreads();
-
-  // backward 2D stage: (c, qz, ky, kx) planes
-  for (int i = tid; i < Sm::NP; i += blockDim.x) {
-    const int c = i / (S::Q * S::P12);
-    const int qz = (i / S::P12) % S::Q;
-    const int k2 = i % S::P12;
-    const int q0 = c * S::Q3 + qz * S::Q2;
-    T w1 = T(0), w2 = T(0);
-    for (int r = 0; r < S::Q2; ++r)
-      w1 = fma(sm.mats[r * S::P12 + k2], sm.t[0][q0 + r], w1);
-    for (int r = 0; r < S::Q2; ++r)
-      w1 = fma(sm.mats[(S::Q2 + r) * S::P12 + k2], sm.t[1][q0 + r], w1);
-    for (int r = 0; r < S::Q2; ++r)
-      w2 = fma(sm.mats[(2 * S::Q2 + r) * S::P12 + k2], sm.t[2][q0 + r], w2);
-    sm.w1[i] = w1;
-    sm.w2[i] = w2;
-  }
-  __syncthreads();
-
-  // backward z stage and Dirichlet mask: (c, kz, ky, kx) nodes
-  const int n_cells = gr.n_cells();
-  for (int i = tid; i < kComps * S::P13; i += blockDim.x) {
-    const int c = i / S::P13;
-    const int l = i % S::P13;
-    const int kz = l / S::P12;
-    const int k2 = l % S::P12;
-    const T* w1 = sm.w1 + c * S::Q * S::P12 + k2;
-    const T* w2 = sm.w2 + c * S::Q * S::P12 + k2;
-    T a = T(0);
-#pragma unroll
-    for (int qz = 0; qz < S::Q; ++qz) {
-      a = fma(w1[qz * S::P12], sm.sz[qz * S::P1 + kz], a);
-      a = fma(w2[qz * S::P12], sm.dz[qz * S::P1 + kz], a);
-    }
-    const int z = cz * P + kz, y = cy * P + k2 / S::P1, x = cx * P + k2 % S::P1;
-    cells[(static_cast<size_t>(c) * n_cells + cell) * S::P13 + l] =
-        interior(gr, z, y, x) ? a : T(0);
   }
 }
 

@@ -8,8 +8,8 @@
 //   B1  piece_vmult -> _matvec_kernel          (pallas_call :1116)
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call :1476)
 // for the twostage + onthefly + adjj configuration.  "highest" (f32, f64)
-// stays on bp4_operator.cuh's cell_apply: bf16 products cannot give exact
-// f32 or f64.
+// runs on the CUDA cores (apply_sumfac.cuh): bf16 products cannot give
+// exact f32 or f64.
 //
 // split2m (_prestack :86-99, _mm_pre :328-355) is by definition bf16 x bf16
 // products with f32 accumulation: the 2D matrices M rounded once to bf16,
@@ -61,7 +61,7 @@
 // at 67 TFLOP/s; B1's d read and h written are 13.9 MB, 4.1 us at 3.35
 // TB/s (B2: 55 MB, 16.5 us).  The f32 CUDA-core work sets B1's bound.
 //
-// What bounded the design this replaces (cell_apply with bf16 stream
+// What bounded the design this replaces (a CUDA-core pass with bf16 stream
 // parts, one 256-thread block per cell; 0.425 ms for B1 at p=4 s=13 on an
 // H100 80GB HBM3 at 700 W): its forward loop issued 5 shared loads per 3
 // FMAs and its backward 2 per FMA, capping it near 15% of the f32 peak; the

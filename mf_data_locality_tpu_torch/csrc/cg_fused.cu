@@ -10,10 +10,10 @@
 // shared z plane and the dot partials from one grid step to the next; the
 // H100 runs blocks in no order, so each apply is split into passes:
 //
-//   cells     one block per cell (split2m: per 16 cells): (B2: update4b at
-//             the cells' nodes, the owning cell writes x', g', d') then the
-//             cell operator; writes the masked cell-local result to scratch
-//             (C, n_cells, (P+1)^3).
+//   cells     one block per 8 f32 or 4 f64 cells (split2m: per 16 cells):
+//             (B2: update4b at the cells' nodes, the owning cell writes x',
+//             g', d') then the cell operator; writes the masked cell-local
+//             result to scratch (C, n_cells, (P+1)^3).
 //   assemble  one thread per lattice node: sums its <= 8 cell contributions
 //             in a fixed order, masks, writes h (replaces the TPU's lane-roll
 //             consistency and z carry plane, cg_fused_kernel.py:869-905);
@@ -26,64 +26,42 @@
 // iteration): the TPU's in-place update relied on its sequential grid to
 // read each +1 plane before it was overwritten (cg_fused_kernel.py:820-829).
 //
-// The cell pass has two designs.  "highest" (f32, f64): one block per cell
-// on the CUDA cores (bp4_operator.cuh's cell_apply).  f32 "split2m": one
-// block per 16 cells, the 2D stage on the tensor cores (cell_mma.cuh,
-// whose note gives its bound and budget).  Bound of an iteration on the
-// H100 at p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d',
-// h' (~26 MB) and passes ~12 MB through the cell scratch, all close to the
-// 50 MB L2; the cell pass takes most of the time (PERF.md).  Later: the
-// node passes fused into the cell pass once a cell owns its output nodes.
+// The cell pass has two designs.  "highest" (f32, f64): the sum-factorized
+// pass of apply_sumfac.cuh in its lattice forms with the metric rebuilt
+// from the coefficients (B1: the gather masked from the indices, as B5;
+// B2: update4b at the gathered nodes), 8 f32 (4 f64) cells a block.  f32
+// "split2m": one block per 16 cells, the 2D stage on the tensor cores
+// (cell_mma.cuh).  Their notes give each pass's bound.  Bound of an
+// iteration on the H100 at p=4, s=13: it reads x, g, d, h, P (~28 MB),
+// writes x', g', d', h' (~26 MB) and passes ~12 MB through the cell
+// scratch, all close to the 50 MB L2; the cell pass takes most of the time
+// (PERF.md).  Later: the node passes fused into the cell pass once a cell
+// owns its output nodes.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success),
 // or -1 for a configuration with no instantiation.
 
+#include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
 #include "cell_mma.cuh"
 
 namespace bp4 {
 
-// The CUDA-core cell pass ("highest"): one block per cell.  B1 gathers d
-// at the cell's nodes; B2 (FUSED) runs update4b there first.
-template <typename T, int P, bool FUSED>
-__global__ void __launch_bounds__(kCellThreads)
-    cells_kernel(OpTables<T> tb, Grid gr, CellIo<T> io, T* __restrict__ cells) {
-  using S = Shape<P>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellSmem<T, P>*>(smem_raw);
-  const int cell = blockIdx.x;
-  const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
-            cz = cell / (gr.ncx * gr.ncy);
-  load_tables(sm, tb, cell);
-  T sc[4] = {T(0), T(0), T(0), T(0)};
-  if constexpr (FUSED) {
-    for (int k = 0; k < 4; ++k) sc[k] = io.scal[k];
-  }
-  for (int i = threadIdx.x; i < kComps * S::P13; i += blockDim.x) {
-    const int c = i / S::P13, l = i % S::P13;
-    sm.u[i] = cell_input<T, P, FUSED>(io, sc, gr, c, cz, cy, cx, l / S::P12,
-                                      (l / S::P1) % S::P1, l % S::P1);
-  }
-  __syncthreads();
-  cell_apply(sm, tb, gr, cell, cz, cy, cx, cells);
-}
-
-// The cell pass of B1 (FUSED false) or B2, on the tensor cores under split2m.
+// The cell pass of B1 (FUSED false) or B2: under split2m the tensor-core
+// pass, else the sum-factorized pass with the metric rebuilt (tb.coeffs
+// cell-fastest); both write the masked cell-local result to
+// cells[(c * n_cells + cell) * P13 + l].
 template <typename T, int P, bool SPLIT, bool FUSED>
 cudaError_t launch_cells(const OpTables<T>& tb, const Grid& gr,
                          const CellIo<T>& io, T* cells, cudaStream_t st) {
   if constexpr (SPLIT) {
     return launch_cells_mma<P, FUSED>(tb, gr, io, cells, st);
   } else {
-    using Smem = CellSmem<T, P>;
-    auto kern = cells_kernel<T, P, FUSED>;
-    // above 48 KB a block's shared memory must be requested explicitly
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
-    if (attr != cudaSuccess) return attr;
-    kern<<<gr.n_cells(), kCellThreads, sizeof(Smem), st>>>(tb, gr, io, cells);
-    return cudaGetLastError();
+    const SumfacArgs<T> a{tb.sz,     tb.dz,   nullptr, tb.pds, tb.w3,
+                          tb.coeffs, nullptr, io,      cells};
+    return launch_sumfac<T, P, FUSED ? kLatticeUpdate : kLattice, true>(
+        a, gr, st);
   }
 }
 
@@ -180,7 +158,8 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 
 // dtype: 0 = float32, 1 = float64.  Instantiated: degree 4; f32 "highest"
 // and "split2m" (split = 1: mats is the bf16 fragment tables of
-// cell_mma.cuh), f64 "highest".
+// cell_mma.cuh, coeffs (n_cells, 24)), f64 "highest" (mats unused, coeffs
+// (24, n_cells)).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {

@@ -82,15 +82,17 @@ def rhs(layout: DofLayout, n_components: int = 3) -> np.ndarray:
 
 
 def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
-          precision: str = "split2m", factor: str = "twostage",
-          metric: str = "onthefly", cofactor: str = "adjj",
+          precision: str = "highest", factor: str = "dense",
+          metric: str = "precomputed", cofactor: str = "adjj",
           device: torch.device | str = "cuda",
-          windowing: str = "pieces") -> BP4Problem:
+          windowing: str = "reshape") -> BP4Problem:
     """BP4 on 2**s cells at ``degree``; every array on ``device``.
 
-    The defaults build the fused solver's operator; ``factor="dense"`` with
-    ``metric="precomputed"`` (any windowing) or ``metric="onthefly"``
-    (``windowing="reshape"``) builds the apply family's.
+    The defaults are the JAX ``bp4.build``'s: the apply family's exact
+    operator (dense factorization, streamed metric, reshape windowing);
+    ``metric="onthefly"`` (reshape) or the ``pieces`` and ``zslab``
+    windowings select its other kernels, and ``factor="twostage",
+    metric="onthefly", windowing="pieces"`` builds the fused solver's.
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     op = laplace_cuda.make_operator(layout, dtype=dtype, precision=precision,

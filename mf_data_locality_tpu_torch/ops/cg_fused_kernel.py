@@ -14,11 +14,16 @@ the 8-vector (alpha, beta, c1, aob, parity, res2, alpha_old, beta_old).
 
 Each wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``; its
 f32 ``split2m`` cell pass is the tensor-core pass of ``csrc/cell_mma.cuh``
-on the bf16 tables ``op.mma_mats``) for tensors on a CUDA device and the
-plain PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
-for tensors on the CPU; other devices raise.  The plain versions do the same
-arithmetic — same bf16 rounding points for ``split2m``, same masking — with
-einsum over cells, in another summation order.  ``matvec.launches`` and
+on the bf16 tables ``op.mma_mats``, its ``highest`` cell pass the
+sum-factorized pass of ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz``
+with the metric rebuilt from ``op.coeffs``) for tensors on a CUDA device
+and the plain PyTorch version (:func:`_matvec_plain`,
+:func:`_fused_iteration_plain`) for tensors on the CPU; other devices
+raise.  The plain versions do the same arithmetic — same bf16 rounding
+points for ``split2m``, same masking — with einsum over cells, in another
+summation order (under ``highest`` the kernel contracts x, y, z by the 1D
+factors where the plain version runs twostage's z stage and 2D matrices:
+the same function, summed in another order).  ``matvec.launches`` and
 ``fused_cg_iteration.launches`` count kernel launches (not plain calls).
 """
 
@@ -129,6 +134,27 @@ def _cell_apply_mma_emulated(op: OperatorData,
             + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
 
 
+def _cell_apply_sumfac_emulated(op: OperatorData,
+                                u: torch.Tensor) -> torch.Tensor:
+    """The ``highest`` cell pass's arithmetic (``csrc/apply_sumfac.cuh`` in
+    its lattice forms, the metric rebuilt) in plain PyTorch, for the tests:
+    the x, y, z passes with S and D in the kernel's order and the rebuilt
+    metric, in place of twostage's z stage and 2D matrices.  Same result
+    shape as :func:`_cell_apply`."""
+    # laplace_apply imports this module, so it is imported here
+    from mf_data_locality_tpu_torch.ops import laplace_apply
+
+    p1 = op.degree + 1
+    n_comp, nc = u.shape[0], op.n_cells
+    cells = (u.unfold(1, p1, op.degree).unfold(2, p1, op.degree)
+             .unfold(3, p1, op.degree).reshape(n_comp, nc, p1 ** 3))
+    v = laplace_apply._batched_sumfac_emulated(
+        op, cells.transpose(1, 2).reshape(n_comp * p1 ** 3, nc),
+        metric_onthefly(op).transpose(1, 2))
+    return v.reshape(n_comp, p1 ** 3, nc).transpose(1, 2).reshape(
+        n_comp, nc, p1, p1 * p1)
+
+
 def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
     """Sum cell-local values (C, n_cells, p1, p1^2) into the lattice."""
     p = op.degree
@@ -145,8 +171,11 @@ def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _matvec_plain(op: OperatorData, d: torch.Tensor) -> torch.Tensor:
-    return _assemble(op, _cell_apply(op, d * op.mask)) * op.mask
+def _matvec_plain(op: OperatorData, d: torch.Tensor,
+                  cell_apply=_cell_apply) -> torch.Tensor:
+    """h = M A M d; ``cell_apply`` the cell pass (the tests pass the
+    kernels' emulations)."""
+    return _assemble(op, cell_apply(op, d * op.mask)) * op.mask
 
 
 def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
@@ -171,12 +200,13 @@ def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
                         alpha, beta])
 
 
-def _fused_iteration_plain(op, x, g, d, h, scal, prec):
+def _fused_iteration_plain(op, x, g, d, h, scal, prec,
+                           cell_apply=_cell_apply):
     alpha, beta, c1, aob = scal[0], scal[1], scal[2], scal[3]
     g2 = g + alpha * h
     d2 = beta * d - prec * g2
     x2 = x + c1 * d + aob * (prec * g)
-    h2 = _matvec_plain(op, d2)
+    h2 = _matvec_plain(op, d2, cell_apply)
     ph, pg = prec * h2, prec * g2
     s = torch.stack([torch.sum(d2 * h2), torch.sum(h2 * h2),
                      torch.sum(g2 * h2), torch.sum(g2 * g2),
@@ -228,9 +258,15 @@ def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
     if prec is not None:
         want.append((prec, (1,) + op.n_nodes_axis))
     want += [(s, (8,)) for s in scals]
+    q, p1 = op.n_q, op.degree + 1
+    want += [(op.sz, (q, p1)), (op.dz, (q, p1)), (op.kpds, (q ** 3, 24)),
+             (op.w3, (q ** 3, 1))]
     if op.precision == "split2m":
         q2p, p12p = laplace_cuda.mma_dims(op.degree, "twostage")
-        want.append((op.mma_mats, (2, 3 * q2p * p12p), torch.bfloat16))
+        want += [(op.mma_mats, (2, 3 * q2p * p12p), torch.bfloat16),
+                 (op.kcoeffs, (op.n_cells, 24))]
+    else:
+        want.append((op.coeffs, (3, 8, op.n_cells)))
     check_tensors(op, KERNEL_DEGREES, want)
 
 
@@ -248,12 +284,14 @@ def dtype_code(op: OperatorData) -> int:
 
 
 def _common_args(op: OperatorData):
-    # under split2m the kernels read the 2D matrices as bf16 fragment tables
+    # split2m: the 2D matrices as bf16 fragment tables and the coefficients
+    # a row per cell; highest: no matrix (the sum-factorized pass applies S
+    # and D) and the coefficients (3, 8, n_cells), the cell fastest
     split = op.precision == "split2m"
     return (dtype_code(op), int(split), op.degree,
-            (op.mma_mats if split else op.mats2d).data_ptr(),
-            op.sz.data_ptr(), op.dz.data_ptr(),
-            op.kpds.data_ptr(), op.w3.data_ptr(), op.kcoeffs.data_ptr())
+            op.mma_mats.data_ptr() if split else None,
+            op.sz.data_ptr(), op.dz.data_ptr(), op.kpds.data_ptr(),
+            op.w3.data_ptr(), (op.kcoeffs if split else op.coeffs).data_ptr())
 
 
 class Workspace:

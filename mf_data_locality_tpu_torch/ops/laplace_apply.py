@@ -25,11 +25,12 @@ Each kernel wrapper runs the hand-written CUDA kernel
 (``csrc/laplace_apply.cu``: B3, B5 and B6 run its sum-factorized pass,
 ``csrc/apply_sumfac.cuh``, on the 1D factors ``op.sz`` and ``op.dz`` under
 ``highest``, and its tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16
-tables ``op.mma_mats`` under f32 ``split2m``; B4 its dense pass) for
-tensors on a CUDA device and its plain PyTorch version (the dense einsum
-over cells, the same bf16 rounding points for ``split2m``) for tensors on
-the CPU; other devices raise.  Each wrapper counts its kernel
-launches in ``.launches``.
+tables ``op.mma_mats`` under f32 ``split2m``; B4 the sum-factorized pass
+with the metric rebuilt from ``op.coeffs`` on every rung) for tensors on a
+CUDA device and its plain PyTorch version (the dense einsum over cells,
+the same bf16 rounding points for ``split2m``) for tensors on the CPU;
+other devices raise.  Each wrapper counts its kernel launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -204,23 +205,22 @@ def _index_mask(op: OperatorData) -> torch.Tensor:
 def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     """The operator tables the kernels read by pointer, with their shapes
     (and dtype where it is not the operator's), and the two pointers of the
-    C interface's matrix slots: for B4 (``onthefly``) M and its transpose;
-    for B3/B5/B6 under ``split2m`` the tensor-core pass's bf16 fragment
-    tables, else the sum-factorized pass's 1D factors S and D."""
-    p1, q = op.degree + 1, op.n_q
-    r = 3 * q ** 3
-    if onthefly:
-        pairs = [(op.mats, (r, p1 ** 3)), (op.kmats, (p1 ** 3, r))]
-        ptrs = (op.mats.data_ptr(), op.kmats.data_ptr())
-    elif op.precision == "split2m":
+    C interface's matrix slots: for B3/B5/B6 under ``split2m`` the
+    tensor-core pass's bf16 fragment tables, else (B4 on every rung) the
+    sum-factorized pass's 1D factors S and D."""
+    p1, q3 = op.degree + 1, op.n_q ** 3
+    if op.precision == "split2m" and not onthefly:
         q3p, p13p = laplace_cuda.mma_dims(op.degree)
         pairs = [(op.mma_mats, (2, 3 * q3p * p13p), torch.bfloat16)]
         ptrs = (op.mma_mats[0].data_ptr(), op.mma_mats[1].data_ptr())
     else:
-        pairs = [(op.sz, (q, p1)), (op.dz, (q, p1))]
+        pairs = [(op.sz, (op.n_q, p1)), (op.dz, (op.n_q, p1))]
         ptrs = (op.sz.data_ptr(), op.dz.data_ptr())
-    if op.gmetric is not None:
-        pairs.append((op.gmetric, (2 * r, op.n_cells)))
+    if onthefly:  # the metric rebuilt from the coefficients, cell fastest
+        pairs += [(op.kpds, (q3, 24)), (op.w3, (q3, 1)),
+                  (op.coeffs, (3, 8, op.n_cells))]
+    else:
+        pairs.append((op.gmetric, (6 * q3, op.n_cells)))
     return pairs, *ptrs
 
 
@@ -235,7 +235,7 @@ def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
     rc = lib.bp4_apply_batched(
         dtype_code(op), int(split), op.degree, int(onthefly), mats, kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
-        op.w3.data_ptr(), op.kcoeffs.data_ptr(), u_loc.data_ptr(),
+        op.w3.data_ptr(), op.coeffs.data_ptr(), u_loc.data_ptr(),
         out.data_ptr(), op.n_cells,
         torch.cuda.current_stream(u_loc.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_batched")

@@ -19,28 +19,33 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 * ``mats2d`` (3 q^2, (p+1)^2): ``[Dx2d; Dy2d; S2d]``, rows (qy, qx) and
   columns (ky, kx), x fastest (``laplace_pallas._dense_gradient_matrices_2d``),
-  as the fused kernels consume them: for the ``split2m`` rung rounded to
-  bf16 once here (``cg_fused_kernel._prestack``), held in the working dtype.
-* ``sz``, ``dz`` (q, p+1): the 1D z factors (``laplace_pallas._z_matrices``).
+  as the fused path's plain version applies them: for the ``split2m`` rung
+  rounded to bf16 once here (``cg_fused_kernel._prestack``), held in the
+  working dtype (its kernel reads them as ``mma_mats``).
+* ``sz``, ``dz`` (q, p+1): the 1D factors S and D
+  (``laplace_pallas._z_matrices``): twostage's z factors, and every
+  direction's in the sum-factorized ``highest`` kernels.
 * ``mats`` (3 q^3, (p+1)^3): ``[M_x; M_y; M_z]``, the dense gradient
   matrices (``laplace_pallas._dense_gradient_matrices``), unrounded: the
   plain versions round them at the product for ``split2m``, as ``_mm``
   does, the split2m kernels read ``mma_mats`` (rounded once), and the
-  on-the-fly apply (B4) always uses them exactly.
+  on-the-fly apply (B4) is exact on every rung; the ``highest`` kernels
+  apply their factors ``sz`` and ``dz`` instead.
 * ``gmetric`` (6 q^3, n_cells) or None: the metric entries (00, 01, 02, 11,
   12, 22) per q-point, computed on the host in f64 and rounded to ``T``
   once (``metric="precomputed"``).
 * ``pds`` (3 q^3, 8): derivatives of the trilinear monomials at the tensor
   quadrature points; ``w3`` (q^3, 1) the tensor weights.
-* ``coeffs`` (3, 8, n_cells): trilinear coefficients, cell-minor.
+* ``coeffs`` (3, 8, n_cells): trilinear coefficients, cell-minor (the
+  JAX layout; the sum-factorized passes read it, the cell fastest).
 * ``mask`` (1, Nz, Ny, Nx): 1 at free nodes, 0 at Dirichlet nodes.
 
-``kmats`` ((p+1)^3, 3 q^3), ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24)
-are the same data in the layouts the kernels read (one contiguous row per
-node / per q-point / per cell).  ``mma_mats`` (``split2m`` only) is the
-matrix of the tensor-core cell pass rounded once to bf16 and packed as its
-fragments (:func:`mma_tables`): ``mats`` for the apply family, ``mats2d``
-for the fused path.
+``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24) are the same data with one
+contiguous row per q-point / per cell: the kernels read ``kpds``, and the
+split2m tensor-core pass of B1/B2 ``kcoeffs``.  ``mma_mats`` (``split2m``
+only) is the matrix of the tensor-core cell pass rounded once to bf16 and
+packed as its fragments (:func:`mma_tables`): ``mats`` for the apply
+family, ``mats2d`` for the fused path.
 """
 
 from __future__ import annotations
@@ -152,7 +157,6 @@ class OperatorData:
     w3: torch.Tensor
     coeffs: torch.Tensor
     mask: torch.Tensor
-    kmats: torch.Tensor
     kpds: torch.Tensor
     kcoeffs: torch.Tensor
     degree: int
@@ -317,7 +321,6 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         mats2d=m2, sz=t(sz), dz=t(dz), mats=m3,
         gmetric=None if gmetric is None else t(gmetric),
         pds=pds_t, w3=t(w3), coeffs=co, mask=t(mask),
-        kmats=m3.t().contiguous(),
         kpds=pds_t.reshape(3, q**3, 8).permute(1, 0, 2).reshape(q**3, 24)
         .contiguous(),
         kcoeffs=co.reshape(24, nc).t().contiguous(),
@@ -328,11 +331,12 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
 
 
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
-                  precision: str = "split2m", factor: str = "twostage",
-                  metric: str = "onthefly", cofactor: str = "adjj",
+                  precision: str = "highest", factor: str = "dense",
+                  metric: str = "precomputed", cofactor: str = "adjj",
                   device: torch.device | str = "cuda",
-                  windowing: str = "pieces") -> OperatorData:
-    """Build the operator data for ``layout`` (q = p + 2 Gauss points)."""
+                  windowing: str = "reshape") -> OperatorData:
+    """Build the operator data for ``layout`` (q = p + 2 Gauss points); the
+    defaults are ``make_pallas_operator``'s."""
     check_config(precision, factor, metric, cofactor, dtype, windowing)
     p = layout.degree
     q = p + 2

@@ -117,16 +117,19 @@ def test_mma_emulation_matches_jax_split2m(p):
     assert _rel(got, ref[:, :nc]) < tol
 
 
+@pytest.mark.parametrize("metric", ["precomputed", "onthefly"])
 @pytest.mark.parametrize("rung", ["f64", "f32"])
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
-def test_sumfac_emulation_matches_jax_highest(p, rung):
+def test_sumfac_emulation_matches_jax_highest(p, rung, metric):
     """The ``highest`` kernel's sum-factorized arithmetic (1D contractions
     with S and D in the kernel's order) against JAX's dense
-    ``apply_local_batched`` at ``precision="highest"``, interpret mode:
-    1e-12 in f64, 1e-5 in f32 against the JAX f32 run (another order of
-    the sums, and S S D against the rounded dense entry)."""
+    ``apply_local_batched`` at ``precision="highest"``, interpret mode, with
+    the streamed metric (B3, ``_kernel_g``) or the metric rebuilt from the
+    coefficients (B4, ``_kernel``): 1e-12 in f64, 1e-5 in f32 against the
+    JAX f32 run (another order of the sums, and S S D against the rounded
+    dense entry)."""
     s = 3
-    jp, tp, nd, tol = _problems(s, p, rung, "reshape", "precomputed")
+    jp, tp, nd, tol = _problems(s, p, rung, "reshape", metric)
     nc = tp.op.n_cells
     rng = np.random.default_rng(30 + p)
     u = rng.standard_normal((3 * (p + 1) ** 3, nc)).astype(nd)
@@ -138,37 +141,51 @@ def test_sumfac_emulation_matches_jax_highest(p, rung):
     assert _rel(got, ref[:, :nc]) < tol
 
 
+@pytest.mark.parametrize("factor", ["dense", "twostage"])
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
-def test_sumfac_factors_reproduce_dense_mats(p):
+def test_sumfac_factors_reproduce_dense_mats(p, factor):
     """What the sum-factorized pass relies on: kron(S, S, D), kron(S, D, S)
     and kron(D, S, S) of ``op.sz`` (S) and ``op.dz`` (D) are ``op.mats``'
-    M_x, M_y and M_z within f32 rounding, for an operator from ``build``
-    and one converted from the JAX package's arrays (pieces windowing, so
-    the converter undoes the piece column order)."""
+    M_x, M_y and M_z (``factor="dense"``, B3-B6), and kron(S, D), kron(D,
+    S) and kron(S, S) are ``op.mats2d``'s Dx2d, Dy2d and S2d (twostage,
+    B1/B2), within f32 rounding, for an operator from ``build`` and one
+    converted from the JAX package's arrays (pieces windowing, so the
+    converter undoes the piece column order)."""
     s = 3
+    metric = "precomputed" if factor == "dense" else "onthefly"
     jp = jbp4.build(s, p, dtype=jnp.float32, backend="pallas",
-                    precision="highest", windowing="pieces", factor="dense",
-                    metric="precomputed")
+                    precision="highest", windowing="pieces", factor=factor,
+                    metric=metric)
     jop = jp.op
+    name = "mats" if factor == "dense" else "mats2d"
     conv = bp4.from_jax_arrays(
-        s, p, mats=np.asarray(jop.mats), gmetric=np.asarray(jop.gmetric),
+        s, p, **{name: np.asarray(getattr(jop, name))},
+        gmetric=None if jop.gmetric is None else np.asarray(jop.gmetric),
         pds=np.asarray(jop.pds), w3=np.asarray(jop.w3),
         coeffs=np.asarray(jop.coeffs), mask=np.asarray(jop.mask),
         b=np.asarray(jp.b), inv_diag=np.asarray(jp.inv_diag),
-        factor="dense", windowing="pieces", precision="highest",
+        factor=factor, windowing="pieces", precision="highest",
         dtype=torch.float32, device="cpu")
-    own = bp4.build(s, p, torch.float32, "highest", factor="dense",
-                    metric="precomputed", windowing="pieces", device="cpu")
+    own = bp4.build(s, p, torch.float32, "highest", factor=factor,
+                    metric=metric, windowing="pieces", device="cpu")
     eps = torch.finfo(torch.float32).eps
     for op in (own.op, conv.op):
         S, D = op.sz.double(), op.dz.double()
 
-        def kron(a, b, c):
-            return torch.kron(torch.kron(a, b), c)
+        def kron(*m):
+            out = m[0]
+            for a in m[1:]:
+                out = torch.kron(out, a)
+            return out
 
-        want = torch.cat([kron(S, S, D), kron(S, D, S), kron(D, S, S)])
-        got = op.mats.double()
-        assert got.shape == want.shape == (3 * (p + 2) ** 3, (p + 1) ** 3)
+        if factor == "dense":
+            want = torch.cat([kron(S, S, D), kron(S, D, S), kron(D, S, S)])
+            shape = (3 * (p + 2) ** 3, (p + 1) ** 3)
+        else:
+            want = torch.cat([kron(S, D), kron(D, S), kron(S, S)])
+            shape = (3 * (p + 2) ** 2, (p + 1) ** 2)
+        got = getattr(op, name).double()
+        assert got.shape == want.shape == shape
         assert (got - want).abs().max() <= 4 * eps * got.abs().max()
 
 
@@ -221,7 +238,7 @@ def test_operator_from_jax_arrays(windowing):
         b=np.asarray(jp.b), inv_diag=np.asarray(jp.inv_diag),
         factor="dense", windowing=windowing, precision="highest",
         dtype=torch.float64, device="cpu")
-    for name in ("mats", "kmats", "gmetric", "pds", "w3", "coeffs", "mask",
+    for name in ("mats", "gmetric", "pds", "w3", "coeffs", "mask",
                  "kcoeffs"):
         np.testing.assert_allclose(getattr(conv.op, name).numpy(),
                                    getattr(tp.op, name).numpy(), rtol=0,

@@ -29,7 +29,8 @@ def _jax_problem(s, dtype=jnp.float64, precision="highest"):
 
 
 def _port_problem(s, dtype=torch.float64, precision="highest"):
-    return bp4.build(s, P, dtype=dtype, precision=precision, device="cpu")
+    return bp4.build(s, P, dtype=dtype, precision=precision, device="cpu",
+                     factor="twostage", metric="onthefly", windowing="pieces")
 
 
 def _to_compact(u, p):
@@ -42,17 +43,16 @@ def _from_compact(v, p, lataxis):
                                            lataxis))
 
 
-def test_fused_iteration_matches_jax_f64():
-    """One fused iteration from a random boundary-zero state: the four
-    vectors and the 8 scalars agree with the JAX kernel to 1e-12."""
-    s = 4
-    jp = _jax_problem(s)
+def _jax_iteration(jp, seed, dtype):
+    """A random boundary-zero state, and one JAX fused iteration from it:
+    (inputs as numpy, the four vectors out, the 8 scalars out)."""
     lat = jp.layout.n_nodes_axis
     mask = np.asarray(jp.op.mask)
-    rng = np.random.default_rng(11)
-    x, g, d, h = (rng.standard_normal((3,) + lat) * mask for _ in range(4))
-    prec = np.asarray(jp.inv_diag).reshape((1,) + lat) * mask
-    scal = np.array([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6])
+    rng = np.random.default_rng(seed)
+    x, g, d, h = ((rng.standard_normal((3,) + lat) * mask).astype(dtype)
+                  for _ in range(4))
+    prec = (np.asarray(jp.inv_diag).reshape((1,) + lat) * mask).astype(dtype)
+    scal = np.array([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6], dtype)
 
     # JAX side: compact piece inputs as cg_fused.py:118-142 builds them
     xs, gs, ds, hs = (_to_compact(v, P) for v in (x, g, d, h))
@@ -61,8 +61,16 @@ def test_fused_iteration_matches_jax_f64():
         jfk.zplanes_init(ds, P), jfk.zplanes_init(hs, P), jnp.asarray(scal),
         _to_compact(prec, P), compact=True)
     ref = [_from_compact(v, P, lat) for v in (out[0], out[1], out[2], out[3])]
-    ref_scal = np.asarray(out[7])
+    return (x, g, d, h, scal, prec), ref, np.asarray(out[7])
 
+
+def test_fused_iteration_matches_jax_f64():
+    """One fused iteration from a random boundary-zero state: the four
+    vectors and the 8 scalars agree with the JAX kernel to 1e-12."""
+    s = 4
+    jp = _jax_problem(s)
+    (x, g, d, h, scal, prec), ref, ref_scal = _jax_iteration(jp, 11,
+                                                             np.float64)
     op = _port_problem(s).op
     t = [torch.as_tensor(v) for v in (x, g, d, h)]
     res = fk.fused_cg_iteration(op, *t, torch.as_tensor(scal),
@@ -71,6 +79,30 @@ def test_fused_iteration_matches_jax_f64():
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-12 * np.abs(want).max())
     np.testing.assert_allclose(res[4].numpy(), ref_scal, rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype,tdtype,tol,tol_scal", [
+    (np.float64, torch.float64, 1e-12, 1e-12),
+    (np.float32, torch.float32, 1e-5, 1e-4)])
+@pytest.mark.parametrize("s", [3, 5])
+def test_fused_iteration_sumfac_emulation_matches_jax(s, dtype, tdtype, tol,
+                                                      tol_scal):
+    """B2's ``highest`` kernel arithmetic — update4b, then the
+    sum-factorized cell pass with the metric rebuilt
+    (``_cell_apply_sumfac_emulated``), the sums and the recurrence —
+    against the JAX kernel under ``highest`` in interpret mode, f64 and f32:
+    the vectors to ``tol`` of their max, the scalars to ``tol_scal``
+    relative (f32: sums of ~1e4 terms in another order)."""
+    jp = _jax_problem(s, jnp.dtype(dtype), "highest")
+    (x, g, d, h, scal, prec), ref, ref_scal = _jax_iteration(jp, 60 + s,
+                                                             dtype)
+    op = _port_problem(s, tdtype).op
+    res = fk._fused_iteration_plain(
+        op, *(torch.as_tensor(v) for v in (x, g, d, h, scal, prec)),
+        cell_apply=fk._cell_apply_sumfac_emulated)
+    for got, want in zip(res[:4], ref):
+        assert np.abs(got.numpy() - want).max() < tol * np.abs(want).max()
+    np.testing.assert_allclose(res[4].numpy(), ref_scal, rtol=tol_scal)
 
 
 def test_scalar_recurrence_matches_jax():

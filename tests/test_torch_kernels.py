@@ -21,6 +21,8 @@ from mf_data_locality_tpu_torch.solvers import cg_fused
 
 P = 4
 SCAL = [0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6]
+# the fused solver's configuration (B1, B2)
+FUSED = dict(factor="twostage", metric="onthefly", windowing="pieces")
 # kernel vs plain (max |diff| / max |plain|): another summation order
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -45,7 +47,7 @@ def _rel(a, b):
 
 def test_wrappers_refuse_other_devices():
     """Only CPU (plain version) and CUDA (kernel) tensors are accepted."""
-    op = bp4.build(3, P, torch.float64, "highest", device="cpu").op
+    op = bp4.build(3, P, torch.float64, "highest", device="cpu", **FUSED).op
     d = torch.empty((3,) + op.n_nodes_axis, device="meta")
     with pytest.raises(ValueError, match="meta"):
         fk.matvec(op, d)
@@ -59,7 +61,7 @@ def test_wrappers_refuse_other_devices():
     (torch.float32, "split2m"), (torch.float32, "highest"),
     (torch.float64, "highest")])
 def test_matvec_kernel_matches_plain(cuda_device, dtype, precision):
-    op = bp4.build(5, P, dtype, precision, device=cuda_device).op
+    op = bp4.build(5, P, dtype, precision, device=cuda_device, **FUSED).op
     (u,) = _state(op, 1, seed=0)
     before = fk.matvec.launches
     got = fk.matvec(op, u)
@@ -69,9 +71,10 @@ def test_matvec_kernel_matches_plain(cuda_device, dtype, precision):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,precision", [
-    (torch.float32, "split2m"), (torch.float64, "highest")])
+    (torch.float32, "split2m"), (torch.float32, "highest"),
+    (torch.float64, "highest")])
 def test_fused_iteration_kernel_matches_plain(cuda_device, dtype, precision):
-    pb = bp4.build(5, P, dtype, precision, device=cuda_device)
+    pb = bp4.build(5, P, dtype, precision, device=cuda_device, **FUSED)
     op = pb.op
     x, g, d, h = _state(op, 4, seed=1)
     prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
@@ -93,7 +96,8 @@ def test_split2m_cell_pass_matches_plain_and_repeats(cuda_device, s):
     order, no atomics).  s=3: 8 cells, one ragged 16-cell tile; s=5, 7:
     tiles that cross rows of cells (4 and 8 cells a row); s=10: every tile
     one row of 16 cells (the row gather)."""
-    pb = bp4.build(s, P, torch.float32, "split2m", device=cuda_device)
+    pb = bp4.build(s, P, torch.float32, "split2m", device=cuda_device,
+                   **FUSED)
     op = pb.op
     (u,) = _state(op, 1, seed=20 + s)
     got, again = fk.matvec(op, u), fk.matvec(op, u)
@@ -114,8 +118,47 @@ def test_split2m_cell_pass_matches_plain_and_repeats(cuda_device, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", ["ragged", 3, 5, 7])
+def test_highest_cell_pass_matches_plain_and_repeats(cuda_device, mesh,
+                                                     dtype):
+    """B1 and B2 under f32 and f64 highest run the sum-factorized pass with
+    the metric rebuilt in the kernel: against their plain versions (the
+    twostage form, summed in another order), and two calls give
+    bitwise-equal output.  "ragged": 3 x 5 x 7 = 105 cells, not a multiple
+    of a block's cells; s=3, 5, 7: 8, 32 and 128 cells."""
+    if mesh == "ragged":
+        layout = DofLayout(BoxMesh((3, 5, 7), 0.25), P)
+        op = laplace_cuda.make_operator(layout, dtype, "highest",
+                                        device=cuda_device, **FUSED)
+        prec = (_state(op, 1, seed=5)[0][:1].abs() + 0.5) * op.mask
+    else:
+        pb = bp4.build(mesh, P, dtype, "highest", device=cuda_device, **FUSED)
+        op = pb.op
+        prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis)
+    prec = prec.contiguous()
+    (u,) = _state(op, 1, seed=40)
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[dtype]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=41)
+    scal = torch.tensor(SCAL, dtype=dtype, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[dtype]
+    scal_tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < scal_tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_their_arguments(cuda_device):
-    pb = bp4.build(4, P, torch.float32, "split2m", device=cuda_device)
+    pb = bp4.build(4, P, torch.float32, "split2m", device=cuda_device,
+                   **FUSED)
     op = pb.op
     x, g, d, h = _state(op, 4, seed=2)
     prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
@@ -134,13 +177,14 @@ def test_solve_on_card_matches_plain_solve(cuda_device):
     """The kernel solve and the plain solve (same problem, on the CPU)
     take the same iterations at p=4, s=5 in f64, with one kernel launch
     per iteration."""
-    pb = bp4.build(5, P, torch.float64, "highest", device=cuda_device)
+    pb = bp4.build(5, P, torch.float64, "highest", device=cuda_device,
+                   **FUSED)
     lat = pb.layout.n_nodes_axis
     args = (pb.b.reshape((3,) + lat), pb.inv_diag.reshape((1,) + lat))
     before = fk.fused_cg_iteration.launches
     res = cg_fused.fused_merged_cg_solve(pb.op, lat, *args)
     assert fk.fused_cg_iteration.launches - before == res.n_iterations
-    cpu = bp4.build(5, P, torch.float64, "highest", device="cpu")
+    cpu = bp4.build(5, P, torch.float64, "highest", device="cpu", **FUSED)
     ref = cg_fused.fused_merged_cg_solve(
         cpu.op, lat, *(a.cpu() for a in args))
     assert res.converged and res.n_iterations == ref.n_iterations
@@ -201,20 +245,28 @@ def test_apply_kernel_matches_plain(cuda_device, p, kernel, dtype, precision):
     (torch.float32, "split2m"), (torch.float32, "highest"),
     (torch.float64, "highest")])
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
-@pytest.mark.parametrize("kernel", ["batched_g", "zslab"])
+@pytest.mark.parametrize("kernel", ["batched_g", "zslab", "batched_onthefly"])
 def test_split2m_kernels_ragged_and_deterministic(cuda_device, p, kernel,
                                                   dtype, precision):
     """The cell passes of B3 and B6 on every rung — the tensor-core pass
-    (f32 split2m) and the sum-factorized pass (f32 and f64 highest) — on
-    3 x 5 x 7 = 105 cells, not a multiple of a block's cells (the ragged
-    last block stores nothing past the end), against the plain version;
-    two calls give bitwise-equal output (fixed order, no atomics)."""
+    (f32 split2m) and the sum-factorized pass (f32 and f64 highest) — and
+    of B4 (the sum-factorized pass with the metric rebuilt, exact on every
+    rung) on 3 x 5 x 7 = 105 cells, not a multiple of a block's cells (the
+    ragged last block stores nothing past the end), against the plain
+    version; two calls give bitwise-equal output (fixed order, no
+    atomics)."""
     layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
-    op = laplace_cuda.make_operator(layout, dtype, precision,
-                                    factor="dense", metric="precomputed",
-                                    device=cuda_device, windowing="zslab")
+    onthefly = kernel == "batched_onthefly"
+    op = laplace_cuda.make_operator(
+        layout, dtype, precision, factor="dense",
+        metric="onthefly" if onthefly else "precomputed", device=cuda_device,
+        windowing="reshape" if onthefly else "zslab")
     (u,) = _state(op, 1, seed=10 + p)
-    if kernel == "batched_g":
+    if onthefly:
+        x = la.to_cell_batches(u, p).contiguous()
+        wrapper = la.apply_local_batched_onthefly
+        want = la._batched_plain(op, x, la._metric(op), False)
+    elif kernel == "batched_g":
         x = la.to_cell_batches(u, p).contiguous()
         wrapper = la.apply_local_batched_g
         want = la._batched_plain(op, x, la._metric(op),

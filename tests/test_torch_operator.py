@@ -22,6 +22,8 @@ from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.ops import laplace_cuda
 
 P = 4
+# the fused solver's configuration (B1, B2)
+FUSED = dict(factor="twostage", metric="onthefly", windowing="pieces")
 
 
 def _jax_matvec(s, u, dtype, precision):
@@ -38,7 +40,7 @@ def _jax_matvec(s, u, dtype, precision):
 
 def _random_state(s, dtype, seed):
     pb = bp4.build(s, P, dtype=torch.float64, precision="highest",
-                   device="cpu")
+                   device="cpu", **FUSED)
     rng = np.random.default_rng(seed)
     u = rng.standard_normal((3,) + pb.layout.n_nodes_axis)
     return (u * pb.op.mask.numpy()).astype(dtype)
@@ -51,7 +53,8 @@ def _random_state(s, dtype, seed):
 def test_matvec_matches_piece_vmult(s, dtype, tdtype, precision, tol):
     u = _random_state(s, dtype, seed=s)
     ref = _jax_matvec(s, u, jnp.dtype(dtype), precision)
-    op = bp4.build(s, P, dtype=tdtype, precision=precision, device="cpu").op
+    op = bp4.build(s, P, dtype=tdtype, precision=precision, device="cpu",
+                   **FUSED).op
     got = fk.matvec(op, torch.as_tensor(u)).numpy()
     err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err < tol, err
@@ -62,7 +65,7 @@ def test_metric_matches_host_metric():
     f64 metric ``laplace_pallas._metric_entries``."""
     s = 4
     op = bp4.build(s, P, dtype=torch.float64, precision="highest",
-                   device="cpu").op
+                   device="cpu", **FUSED).op
     q = P + 2
     ref = jlp.metric_for_coeffs(op.coeffs.numpy(), P, q)  # (6 q^3, nc)
     got = fk.metric_onthefly(op).permute(0, 2, 1).reshape(6 * q ** 3, -1)
@@ -73,7 +76,7 @@ def test_metric_matches_host_metric():
 def test_matvec_is_symmetric_and_masked():
     s = 3
     op = bp4.build(s, P, dtype=torch.float64, precision="highest",
-                   device="cpu").op
+                   device="cpu", **FUSED).op
     u, v = (torch.as_tensor(_random_state(s, np.float64, seed))
             for seed in (1, 2))
     au, av = fk.matvec(op, u), fk.matvec(op, v)
@@ -86,7 +89,7 @@ def test_matvec_cpu_uses_plain_version():
     """On CPU tensors the wrapper runs the plain version and counts no
     kernel launch; an ``out`` buffer receives the result."""
     op = bp4.build(3, P, dtype=torch.float64, precision="highest",
-                   device="cpu").op
+                   device="cpu", **FUSED).op
     u = torch.as_tensor(_random_state(3, np.float64, seed=4))
     before = fk.matvec.launches
     out = torch.empty_like(u)
@@ -101,7 +104,7 @@ def test_mma_tables_2d_unpack_to_bf16_mats2d(p):
     """The fused path's split2m tables: both fragment orders unpack to
     ``op.mats2d`` in bf16, bit for bit, every pad entry is 0, and the
     rounding to bf16 is exact (``mats2d`` is already bf16-valued)."""
-    op = bp4.build(1, p, torch.float32, "split2m", device="cpu").op
+    op = bp4.build(1, p, torch.float32, "split2m", device="cpu", **FUSED).op
     q2, p12 = (p + 2) ** 2, (p + 1) ** 2
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
     assert q2p % 16 == 0 and p12p % 16 == 0
@@ -116,8 +119,8 @@ def test_mma_tables_2d_unpack_to_bf16_mats2d(p):
         assert torch.equal(m[:, :q2, :p12], want)
         m[:, :q2, :p12] = 0
         assert not m.any()
-    assert bp4.build(1, p, torch.float32, "highest",
-                     device="cpu").op.mma_mats is None
+    assert bp4.build(1, p, torch.float32, "highest", device="cpu",
+                     **FUSED).op.mma_mats is None
 
 
 @pytest.mark.parametrize("s", [3, 5])
@@ -130,10 +133,28 @@ def test_cell_mma_emulation_matches_piece_vmult(s):
     u = _random_state(s, np.float32, seed=30 + s)
     ref = _jax_matvec(s, u, jnp.float32, "split2m")
     op = bp4.build(s, P, dtype=torch.float32, precision="split2m",
-                   device="cpu").op
+                   device="cpu", **FUSED).op
     ut = torch.as_tensor(u) * op.mask
     cells = fk._cell_apply_mma_emulated(op, ut)
     got = (fk._assemble(op, cells) * op.mask).numpy()
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
     plain = fk._cell_apply(op, ut)
     assert ((cells - plain).abs().max() / plain.abs().max()).item() < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tdtype,tol", [
+    (np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-5)])
+@pytest.mark.parametrize("s", [3, 5])
+def test_sumfac_emulation_matches_piece_vmult(s, dtype, tdtype, tol):
+    """The ``highest`` cell pass of B1/B2 (``csrc/apply_sumfac.cuh``: x, y,
+    z passes with S and D, the metric rebuilt) against JAX's
+    ``piece_vmult`` under ``highest`` (twostage) in interpret mode, f64 and
+    f32: the same function summed in another order, within 1e-12 (f64)
+    and 1e-5 (f32, where the JAX Jacobian is split3 bf16 products)."""
+    u = _random_state(s, dtype, seed=50 + s)
+    ref = _jax_matvec(s, u, jnp.dtype(dtype), "highest")
+    op = bp4.build(s, P, dtype=tdtype, precision="highest", device="cpu",
+                   **FUSED).op
+    got = fk._matvec_plain(op, torch.as_tensor(u),
+                           fk._cell_apply_sumfac_emulated).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < tol

@@ -14,6 +14,7 @@ from mf_data_locality_tpu.models import bp4 as jbp4
 from mf_data_locality_tpu.ops import diagonal as jdiagonal
 from mf_data_locality_tpu.ops import geometry as jgeometry
 from mf_data_locality_tpu.ops import lagrange as jlagrange
+from mf_data_locality_tpu.ops import laplace_pallas as jlp
 from mf_data_locality_tpu.ops import quadrature as jquadrature
 from mf_data_locality_tpu_torch.mesh.box import BoxMesh
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
@@ -97,7 +98,8 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
         mask=np.asarray(jop.mask), b=np.asarray(jp.b),
         inv_diag=np.asarray(jp.inv_diag), precision=precision, dtype=tdtype,
         device="cpu")
-    own = bp4.build(s, p, dtype=tdtype, precision=precision, device="cpu")
+    own = bp4.build(s, p, dtype=tdtype, precision=precision, device="cpu",
+                    factor="twostage", metric="onthefly", windowing="pieces")
     for name in ("mats2d", "sz", "dz", "pds", "w3", "coeffs", "mask",
                  "kpds", "kcoeffs"):
         a, b = getattr(own.op, name), getattr(conv.op, name)
@@ -111,12 +113,39 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
 
 
 def test_operator_rejects_unported_configurations():
+    """Configurations the JAX package has and the port does not yet
+    (ROADMAP queue B) raise, each spelled out in full."""
     layout = DofLayout(BoxMesh.from_s(3), 4)
-    for kw in ({"factor": "dense"}, {"metric": "precomputed"},
-               {"cofactor": "jtj"}, {"precision": "split3"},
-               {"precision": "split2m", "dtype": torch.float64}):
+    fused = {"factor": "twostage", "metric": "onthefly",
+             "windowing": "pieces"}
+    for kw in ({**fused, "metric": "precomputed"},
+               {**fused, "factor": "dense"},
+               {**fused, "cofactor": "jtj"},
+               {"precision": "split3"},
+               {**fused, "precision": "split3"},
+               {"precision": "split2m", "dtype": torch.float64},
+               {**fused, "precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            laplace_cuda.make_operator(layout, **kw)
+            laplace_cuda.make_operator(layout, device="cpu", **kw)
+
+
+def test_build_defaults_match_jax():
+    """``bp4.build`` and ``make_operator`` default to the JAX ``bp4.build``'s
+    and ``make_pallas_operator``'s configuration: highest, dense,
+    precomputed, reshape, adjj."""
+    names = ("precision", "factor", "metric", "windowing", "cofactor")
+
+    def defaults(fn):
+        params = inspect.signature(fn).parameters
+        return {n: params[n].default for n in names}
+
+    want = defaults(jbp4.build)
+    assert want == {"precision": "highest", "factor": "dense",
+                    "metric": "precomputed", "windowing": "reshape",
+                    "cofactor": "adjj"}
+    assert defaults(jlp.make_pallas_operator) == want
+    for fn in (bp4.build, laplace_cuda.make_operator):
+        assert defaults(fn) == want, fn.__name__
 
 
 def test_builders_default_to_the_card():
