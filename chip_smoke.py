@@ -7,17 +7,29 @@ Phases (each raises on failure, so any failure exits nonzero):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels from ``mf_data_locality_tpu_torch/csrc`` with nvcc;
-3. at the main paths' size (p=4, 2^13 cells, 1,635,075 DoFs) compare each
-   kernel with its plain PyTorch version on the same inputs, and time both
-   beside the bound of its work: B1/B2 (f32 split2m — the tensor-core cell
-   pass —, f32 highest and f64 — the sum-factorized pass with the metric
-   rebuilt), B3-B6 (f32 highest — the sum-factorized pass, B4's with the
-   metric rebuilt —, f32 split2m except B4 — the tensor-core pass of
-   B3/B5/B6 —, f64 highest);
+3. compare each kernel with its plain PyTorch version on the same inputs,
+   and time both beside the bound of its work: at the main paths' size
+   (p=4, 2^13 cells, 1,635,075 DoFs) B1/B2 twostage + onthefly (f32 split2m
+   — the tensor-core cell pass —, f32 highest and f64 — the sum-factorized
+   pass with the metric rebuilt) and B3-B6 (f32 highest — the
+   sum-factorized pass, B4's with the metric rebuilt —, f32 split2m except
+   B4 — the tensor-core pass of B3/B5/B6 —, f64 highest); B1/B2 in each
+   dense configuration of DENSE_RUNS at the p and s of its drive in phase
+   5 (dense + precomputed under f32 and f64 highest — the sum-factorized
+   pass, the metric streamed —, under f32 split2m at p=1, 3 — the dense
+   tensor-core pass, the metric streamed —, dense + onthefly under f32
+   split2m at p=2 and p=4 — the same pass, the metric rebuilt);
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged (streamed metric and ``metric="onthefly"``) and baseline
    alike — f32 "split2m" (fused; merged with ``--windowing reshape``) and
-   f32 "highest" (fused, merged, baseline) 91..94 and converge;
+   f32 "highest" (fused, merged, baseline) 91..94 and converge; and the
+   fused solver through the auto-dispatch at the parity points of
+   PARITY.md:91-123: f64 p=2 s=11 87 and p=4 s=7 91 (equal to the merged
+   solver's), p=3 s=9 94..95 (on the tolerance's edge); f32 split2m p=2
+   s=11 87..90, p=3 s=9 94..98 converged, or, where the rung's floor lies
+   above the tolerance, at the cap within 10x the tolerance by the f64
+   count with ``edge_witness`` showing the kernel's sums right; f32
+   highest the f64 count + 0..3;
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
@@ -27,6 +39,11 @@ Phases (each raises on failure, so any failure exits nonzero):
    - the same path under f32 split2m ``benchmark.run_one(4, 13,
      solver="merged", windowing="reshape", precision="split2m")`` (B3 on
      the tensor cores);
+   - the fused solver in each dense configuration of DENSE_RUNS at its p
+     and s, through the auto-dispatch except split2m at p=4: at full width
+     ``run_one(4, 13, solver="fused", windowing="pieces",
+     precision="highest")`` (dense + precomputed) and ``run_one(2, 16, ...,
+     precision="split2m")`` (dense + onthefly), the others short;
    - short runs at s=11 of the baseline solver (B3), ``--geometry
      onthefly`` (B4), ``--windowing pieces`` (B5) and ``zslab`` (B6),
      ``zslab`` under split2m (B6 on the tensor cores), and the fused solver
@@ -34,14 +51,17 @@ Phases (each raises on failure, so any failure exits nonzero):
    then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
 6. print the kernels' JSON line (B1/B2 at f32 split2m, also with their f32
-   highest and f64 times; B3-B6 at f32 highest, also with their f64 and
-   (B3/B5/B6) split2m times; each row with the bound of its work on this
-   card, from the shapes) and, last, the device JSON line.
+   highest and f64 times and, for each dense configuration, fields with
+   its suffix — ``ms_dense``, ``launches_dense_split2m_p3``, ... — and its
+   ``p_s``; B3-B6 at f32 highest, also with their f64 and (B3/B5/B6)
+   split2m times; each row with the bound of its work on this card, from
+   the shapes) and, last, the device JSON line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -60,8 +80,35 @@ TOL_SCAL_F32 = 1e-4
 # f64 CUDA cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_F64, HBM_BPS = 989e12, 67e12, 34e12, 3.35e12
 METRIC_FMA = 117  # adjj rebuild per q-point: J 72, adjugate 21, entries 24
-# the fused solver's configuration (B1, B2)
+# the fused solver's configuration at p=4 under split2m (B1, B2), and its
+# dense configurations (the auto-dispatch's under highest, and at p=2 under
+# split2m)
 FUSED = dict(factor="twostage", metric="onthefly", windowing="pieces")
+DENSE_PRE = dict(factor="dense", metric="precomputed", windowing="pieces")
+DENSE_OTF = dict(factor="dense", metric="onthefly", windowing="pieces")
+# B1/B2 in the dense configurations: (dtype, precision, configuration, p, s,
+# key suffix in the kernels line).  Phase 3 compares and times each at its
+# p and s; phase 5 drives the fused solver in the same configuration at the
+# same p and s, and that drive's counts are the row's launches.  The first
+# two are the auto-dispatch's full-width paths; "_dense_split2m_p4" is
+# explicit (split2m auto at p=4 is twostage), the others auto.
+DENSE_RUNS = ((torch.float32, "highest", DENSE_PRE, 4, S, "_dense"),
+              (torch.float32, "split2m", DENSE_OTF, 2, 16, "_dense_split2m"),
+              (torch.float64, "highest", DENSE_PRE, 4, S, "_dense_f64"),
+              (torch.float32, "split2m", DENSE_OTF, 4, S, "_dense_split2m_p4"),
+              (torch.float32, "split2m", DENSE_PRE, 1, S_SHORT,
+               "_dense_split2m_p1"),
+              (torch.float32, "split2m", DENSE_PRE, 3, S_SHORT,
+               "_dense_split2m_p3"),
+              (torch.float64, "highest", DENSE_PRE, 1, S_SHORT, "_dense_f64_p1"),
+              (torch.float64, "highest", DENSE_PRE, 3, S_SHORT, "_dense_f64_p3"))
+FULL_WIDTH = ("_dense", "_dense_split2m")
+# B1/B2 runs of phase 3: the twostage + onthefly ones fill the row's own
+# fields (split2m) and its "_highest" and "_f64" ones
+FUSED_RUNS = ((torch.float32, "split2m", FUSED, DEGREE, S, ""),
+              (torch.float32, "highest", FUSED, DEGREE, S, "_highest"),
+              (torch.float64, "highest", FUSED, DEGREE, S, "_f64"),
+              *DENSE_RUNS)
 
 
 def sumfac_fma(p: int, q: int) -> int:
@@ -77,22 +124,30 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
     once, outputs written once) over HBM_BPS and its operations over the
     peak of their type (under split2m the products on the tensor cores in
     bf16, counting both stream parts, the rest in f32; else all at the
-    working type).  The products: under split2m the dense count (B3-B6)
-    or twostage's 2D stage (B1/B2), because split2m's rounding of those
-    entries defines that function; under highest the sum-factorized count,
-    the least work for the function."""
+    working type).  The products: under split2m the dense count (B3-B6,
+    B1/B2 dense) or twostage's 2D stage (B1/B2 twostage), because split2m's
+    rounding of those entries defines that function; under highest the
+    sum-factorized count, the least work for the function.  The metric:
+    6 q^3 words a cell streamed, or 24 coefficient words a cell and its
+    rebuild's FMAs."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
     word = op.dtype.itemsize
-    if name in ("matvec", "fused_cg_iteration"):  # rebuilt metric
-        if split:  # twostage: the 2D stage on the tensor cores
+    if name in ("matvec", "fused_cg_iteration"):
+        rebuilt = op.gmetric is None
+        if split and op.factor == "twostage":  # the 2D stage, tensor cores
             products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
-            other = 12 * q * p13 + 27 * q3 + METRIC_FMA * q3
+            other = 12 * q * p13 + 27 * q3
+        elif split:  # the dense M on the tensor cores
+            products = 2 * 3 * 3 * q3 * p13
+            other = 27 * q3
         else:
             products = sumfac_fma(p, q)
-            other = 27 * q3 + METRIC_FMA * q3
-        words = (6 if name == "matvec" else 25) * nn + 24 * nc
+            other = 27 * q3
+        other += METRIC_FMA * q3 if rebuilt else 0
+        words = ((6 if name == "matvec" else 25) * nn
+                 + (24 if rebuilt else 6 * q3) * nc)
     else:  # the apply family; metric streamed, or rebuilt (B4)
         products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
         onthefly = name == "apply_local_batched_onthefly"
@@ -139,6 +194,93 @@ def time_pair(kern, plain, dev, timing, inner: int = 20):
     tk2 = timing.time_per_call(kern, dev, inner=inner, repeats=3)
     tp2 = timing.time_per_call(plain, dev, inner=5, repeats=3)
     return min(tk1, tk2) * 1e3, min(tp1, tp2) * 1e3
+
+
+def stepped_solve(op, b, prec, carry64: bool) -> tuple[list, float]:
+    """The fused solve's loop (``cg_fused.fused_merged_cg_solve``), stepped
+    here with the 7 update3b sums recomputed in f64 from each iteration's
+    vectors: (residual estimate / res0 by iteration, the largest relative
+    error of the kernel's alpha, beta and res2 against the scalars from the
+    f64 sums).  ``carry64``: those scalars go on in place of the kernel's."""
+    from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+
+    P = prec[:1].contiguous()
+    g0 = (-(b * op.mask)).contiguous()
+    res0 = torch.sqrt(torch.sum(g0 * g0)).item()
+    scal = torch.zeros((8,), dtype=op.dtype, device=op.device)
+    scal[4] = 1.0
+    state = (torch.zeros_like(g0), g0, torch.zeros_like(g0),
+             torch.zeros_like(g0), scal)
+    spare = tuple(torch.empty_like(t) for t in state)
+    work = fk.Workspace(op)
+    hist, err, pick = [1.0], 0.0, [0, 1, 5]
+    for _ in range(100):
+        _, g, d, h, new = fk.fused_cg_iteration(op, *state, P, out=spare,
+                                                work=work)
+        g, d, h, p64 = (t.double() for t in (g, d, h, P))
+        s = torch.stack([torch.sum(d * h), torch.sum(h * h),
+                         torch.sum(g * h), torch.sum(g * g),
+                         torch.sum(g * p64 * h), torch.sum(h * p64 * h),
+                         torch.sum(g * p64 * g),
+                         torch.zeros((), dtype=torch.float64, device=g.device)])
+        old = state[4].double()
+        ref = fk.scalar_recurrence(s, old[0], old[1], old[4])
+        err = max(err, ((new.double() - ref)[pick].abs()
+                        / ref[pick].abs()).max().item())
+        if carry64:
+            new.copy_(ref)
+        state, spare = spare, state
+        res = math.sqrt(max(new[5].item(), 0.0))
+        hist.append(res / res0)
+        if res <= 1e-8 * res0:
+            break
+    return hist, err
+
+
+def edge_witness(pb, hist, n: int, s: int, p: int) -> bool:
+    """Readings at a parity point where the f32 split2m fused solve did not
+    converge (``n`` iterations, history ``hist``): the solve stepped with its sums recomputed
+    in f64 (:func:`stepped_solve`, with the kernel's scalars and with the
+    f64 ones carried); the operator's asymmetry |v.Au - u.Av| / (|v| |Au|)
+    on the card, against f32 highest's at the same point; the plain
+    version's solve on the CPU.  True when the stepped solve repeats the
+    solver's history and the kernel's scalars agree with the f64 sums' to
+    1e-5 relative: then the floor is the rung's, not a fault of the
+    kernel's sums."""
+    from mf_data_locality_tpu_torch.models import bp4
+    from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+    from mf_data_locality_tpu_torch.solvers import cg_fused
+
+    op, lat = pb.op, pb.layout.n_nodes_axis
+    b, prec = pb.b.reshape((3,) + lat), pb.inv_diag.reshape((1,) + lat)
+    mine, err = stepped_solve(op, b, prec, carry64=False)
+    h64, err64 = stepped_solve(op, b, prec, carry64=True)
+    same = len(mine) == n + 1 and all(
+        abs(a - c / hist[0]) <= 1e-6 * a for a, c in zip(mine, hist))
+    print(f"  witness: stepped solve {len(mine) - 1} iterations, history "
+          f"{'equal to' if same else 'DIFFERENT from'} the solver's; kernel "
+          f"alpha, beta, res2 vs the f64 sums' max rel err {err:.3e}; with "
+          f"the f64 scalars carried: {len(h64) - 1} iterations, lowest "
+          f"{min(h64):.3e} res0 (max rel err {err64:.3e})")
+    for precision in ("split2m", "highest"):
+        o = op if precision == "split2m" else bp4.build(
+            s, p, torch.float32, "highest", factor=op.factor,
+            metric=op.metric, windowing="pieces", device=op.device).op
+        u, v = random_state(o, 2, seed=5)
+        au, av = fk.matvec(o, u).double(), fk.matvec(o, v).double()
+        u, v = u.double(), v.double()
+        asym = (torch.sum(v * au) - torch.sum(u * av)).abs() / (
+            v.norm() * au.norm())
+        print(f"  witness: asymmetry of the f32 {precision} operator on the "
+              f"card {asym.item():.3e}")
+    cpu = bp4.build(s, p, torch.float32, "split2m", factor=op.factor,
+                    metric=op.metric, windowing="pieces", device="cpu")
+    r = cg_fused.fused_merged_cg_solve(
+        cpu.op, lat, cpu.b.reshape((3,) + lat),
+        cpu.inv_diag.reshape((1,) + lat))
+    print(f"  witness: the plain version on the CPU: itCG {r.n_iterations}, "
+          f"converged {r.converged}")
+    return same and err <= 1e-5
 
 
 def main() -> int:
@@ -197,18 +339,18 @@ def main() -> int:
             print("  ptxas:", entry[:60], line.strip())
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
-    print(f"kernels vs plain at p={DEGREE}, s={S}:")
+    print("kernels vs plain:")
     errs, times, errs_split, times_split, bounds = {}, {}, {}, {}, {}
-    # B1-B6 at f64 highest, B1/B2 at f32 highest: (kernel ms, plain ms),
-    # bound, max |diff|
+    # B1-B6 at f64 highest, B1/B2 at f32 highest and in the dense
+    # configurations: (kernel ms, plain ms), bound, max |diff|
     f64, highest = {}, {}
-    for dtype, precision in ((torch.float32, "split2m"),
-                             (torch.float32, "highest"),
-                             (torch.float64, "highest")):
-        pb = bp4.build(S, DEGREE, dtype, precision, device=dev, **FUSED)
+    dense = {run[-1]: {} for run in DENSE_RUNS}
+    for dtype, precision, config, p, s, sfx in FUSED_RUNS:
+        pb = bp4.build(s, p, dtype, precision, device=dev, **config)
         op = pb.op
         prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
-        tag = f"{str(dtype)[6:]} {precision}"
+        tag = (f"p={p} s={s} {str(dtype)[6:]} {precision} {op.factor} "
+               f"{op.metric}")
 
         (d,) = random_state(op, 1, seed=1)
         rel, diff = rel_err(fk.matvec(op, d), fk._matvec_plain(op, d))
@@ -245,7 +387,9 @@ def main() -> int:
             b = bound(name, op, split=precision == "split2m")
             print(f"  {name} {tag}: kernel {t[name][0]:.4f} ms, plain "
                   f"{t[name][1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-            if dtype == torch.float64:
+            if sfx in dense:
+                dense[sfx][name] = t[name], b, err
+            elif dtype == torch.float64:
                 f64[name] = t[name], b, err
             elif precision == "highest":
                 highest[name] = t[name], b, err
@@ -258,7 +402,7 @@ def main() -> int:
     for dtype, precision in ((torch.float32, "highest"),
                              (torch.float32, "split2m"),
                              (torch.float64, "highest")):
-        tag = f"{str(dtype)[6:]} {precision}"
+        tag = f"p={DEGREE} s={S} {str(dtype)[6:]} {precision}"
         ops = {"precomputed": bp4.build(S, DEGREE, dtype, precision,
                                         factor="dense", metric="precomputed",
                                         windowing="reshape", device=dev).op}
@@ -344,16 +488,68 @@ def main() -> int:
         if dtype == torch.float64 and len(set(its.values())) > 1:
             raise AssertionError(f"merged and baseline itCG differ: {its}")
 
+    # the fused solver through the auto-dispatch at the parity points
+    # (PARITY.md:91-123): (p, s, f64 itCG allowed, split2m allowed or None).
+    # p=3 s=9 sits on the tolerance's edge: JAX merged f64 stops at 95 with
+    # its residual 0.3% above it, so any summation order may stop one
+    # earlier.  f32 split2m levels off there at 0.9-2.4e-8 res0, about the
+    # 1e-8 tolerance (the TPU stopped at 96, the plain version on the CPU
+    # stops at 96): if it does not converge, edge_witness must show that the
+    # kernel's sums are right and that it is the rung's floor, and the
+    # residual must be within 10x the tolerance by the f64 count
+    for p, s, allowed64, allowed_split in ((2, 11, (87,), range(87, 91)),
+                                           (3, 9, (94, 95), range(94, 99)),
+                                           (4, 7, (91,), None)):
+        its = {}
+        for dtype, precision in ((torch.float64, "highest"),
+                                 (torch.float32, "highest"),
+                                 (torch.float32, "split2m")):
+            if precision == "split2m" and allowed_split is None:
+                continue  # p=4 split2m: twostage + onthefly, checked above
+            factor, metric, _ = benchmark.resolve_config(
+                p, "fused", "pieces", precision, dtype)
+            pb = bp4.build(s, p, dtype, precision, factor=factor,
+                           metric=metric, windowing="pieces", device=dev)
+            lat = pb.layout.n_nodes_axis
+            res = cg_fused.fused_merged_cg_solve(
+                pb.op, lat, pb.b.reshape((3,) + lat),
+                pb.inv_diag.reshape((1,) + lat))
+            n = its[(dtype, precision)] = res.n_iterations
+            n64 = its[(torch.float64, "highest")]  # run first
+            allowed = (allowed64 if dtype == torch.float64 else allowed_split
+                       if precision == "split2m" else range(n64, n64 + 4))
+            hist = res.res_history.cpu().numpy()
+            at64 = hist[min(n, n64)] / hist[0]
+            print(f"p={p} s={s} fused auto {str(dtype)[6:]} {precision} "
+                  f"({factor}, {metric}), n_dofs {pb.n_dofs}: itCG {n}, "
+                  f"converged {res.converged}, residual at it {n64} "
+                  f"{at64:.3e} res0")
+            ok = res.converged and n in allowed
+            if not res.converged and (p, precision, n) == (3, "split2m", 100):
+                ok = at64 <= 1e-7 and edge_witness(pb, hist, n, s, p)
+            if not ok:
+                raise AssertionError(f"p={p} s={s} fused {precision}: itCG "
+                                     f"{n}, converged {res.converged}; "
+                                     f"allowed {tuple(allowed)}")
+        if p != 3:  # fused == merged in f64 away from the tolerance's edge
+            pb = bp4.build(s, p, torch.float64, "highest", device=dev)
+            n = bp4.solve_merged(pb).n_iterations
+            print(f"p={p} s={s} merged f64 highest: itCG {n}")
+            if n != its[(torch.float64, "highest")]:
+                raise AssertionError(f"p={p} s={s}: fused and merged f64 "
+                                     f"itCG differ ({its}, merged {n})")
+        del pb
+
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
     launches, launches_split, launches_highest = {}, {}, {}
 
-    def drive(label, s, expect, into=launches, **kw):
+    def drive(label, s, expect, into=launches, degree=DEGREE, **kw):
         zero_counts()
-        r = benchmark.run_one(DEGREE, s, device=dev, **kw)
+        r = benchmark.run_one(degree, s, device=dev, **kw)
         got = counts()
         share = r.dofs_per_s_per_it / (bw / 36)  # 9 f32 words/DoF (bench.py)
-        print(f"{label} p={DEGREE} s={s}: n_dofs {r.n_dofs} itCG "
+        print(f"{label} p={degree} s={s}: n_dofs {r.n_dofs} itCG "
               f"{r.n_iterations} converged {r.converged} time/it "
               f"{r.time_per_it:.6e} s DoF/s/it {r.dofs_per_s_per_it:.6e} "
               f"time/matvec {r.time_per_matvec:.6e} s roofline share "
@@ -379,10 +575,26 @@ def main() -> int:
     r_split = drive("merged, f32 split2m, reshape", S,
                     ("apply_local_batched_g",), into=launches_split,
                     solver="merged", precision="split2m", windowing="reshape")
-    for r in (r_fused, r_main, r_split):
-        if r.n_dofs != 1_635_075:
-            raise AssertionError(f"main-path row at the wrong size: {r}")
     short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=5)
+    # the fused solver in each dense configuration of phase 3, at its p and s
+    launches_dense = {sfx: {} for sfx in dense}
+    full = [r_fused, r_main, r_split]
+    for dtype, precision, config, p, s, sfx in DENSE_RUNS:
+        fm = (config["factor"], config["metric"])
+        auto = benchmark.resolve_config(p, "fused", "pieces", precision,
+                                        dtype)[:2] == fm
+        r = drive(f"fused {'auto' if auto else 'explicit'}, "
+                  f"{str(dtype)[6:]} {precision} {fm}", s,
+                  ("matvec", "fused_cg_iteration"),
+                  into=launches_dense[sfx], degree=p, solver="fused",
+                  dtype=dtype, precision=precision, windowing="pieces",
+                  **({} if auto else dict(zip(("factor", "metric"), fm))),
+                  **({} if sfx in FULL_WIDTH else short))
+        if sfx in FULL_WIDTH:
+            full.append(r)
+    if len(full) != 3 + len(FULL_WIDTH) or any(
+            r.n_dofs != 1_635_075 for r in full):
+        raise AssertionError(f"main-path rows at the wrong size: {full}")
     # B3's count in the kernels line is the main path's
     drive("baseline (reshape)", S_SHORT, ("apply_local_batched_g",),
           into=None, solver="baseline", **short)
@@ -448,6 +660,16 @@ def main() -> int:
                        max_abs_err_highest=err, bound_ms_highest=bms,
                        bound_by_highest=by,
                        launches_highest=launches_highest[name])
+        for _, precision, _, p, s, sfx in DENSE_RUNS:  # B1, B2: dense
+            if name in dense[sfx]:
+                (k, pl), (bms, by), err = dense[sfx][name]
+                src = ("apply_mma.cuh" if precision == "split2m"
+                       else "apply_sumfac.cuh")
+                row.update({f"source{sfx}": CSRC + src, f"p_s{sfx}": [p, s],
+                            f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                            f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
+                            f"bound_by{sfx}": by,
+                            f"launches{sfx}": launches_dense[sfx][name]})
         if name in times_split:  # B3, B5, B6: the tensor-core split2m pass
             row.update(source_split2m=CSRC + "apply_mma.cuh",
                        ms_split2m=times_split[name][0],

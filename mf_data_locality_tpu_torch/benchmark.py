@@ -16,10 +16,14 @@ Usage (the reference's positional CLI, ``benchmark.h:280-288``)::
 
 The defaults are the JAX CLI's: the merged CG on the cell-batched operator
 (``--windowing reshape``, kernel B3) at ``--precision highest``.  The
-fused solver needs ``--windowing pieces`` and runs on the twostage +
-onthefly + adjj operator only; other unported choices raise
-NotImplementedError (ROADMAP.md, queues A and B).  ``s < 1`` runs the
-reference's auto size ladder.
+fused solver needs ``--windowing pieces`` and runs at degrees 1..4 on the
+configurations the resolvers give it (``laplace_cuda.fused_configs``):
+dense or twostage, the metric streamed or rebuilt (adjj), every pair under
+``highest``, the dense pair and twostage + onthefly at p=4 under
+``split2m``.  Other unported choices raise NotImplementedError
+(ROADMAP.md, queues A and B): split2m twostage at p != 4 or with the
+streamed metric, ``--cofactor jtj``, the split3 and bf16 rungs, p >= 5.
+``s < 1`` runs the reference's auto size ladder.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -204,7 +208,7 @@ def resolve_config(degree: int, solver: str, windowing: str,
     cofactor = resolve_cofactor(cofactor, degree, factor, metric,
                                 precision=precision)
     laplace_cuda.check_config(precision, factor, metric, cofactor, dtype,
-                              windowing, solver)
+                              windowing, solver, degree)
     return factor, metric, cofactor
 
 
@@ -340,11 +344,13 @@ def main(argv: list[str] | None = None) -> None:
                     default="auto",
                     help="metric source: qpoint = streamed precomputed "
                          "metric, onthefly = rebuilt per q-point in the "
-                         "kernel (B4 on reshape; the fused solver's)")
+                         "kernel (B4 on reshape; either in the fused "
+                         "solver)")
     ap.add_argument("--factor", choices=["auto", "dense", "twostage"],
                     default="auto",
-                    help="contraction factorization: the apply family is "
-                         "dense, the fused solver twostage")
+                    help="contraction factorization: dense (the apply "
+                         "family; the fused solver at p=1..4) or twostage "
+                         "(the fused solver; under split2m at p=4 only)")
     ap.add_argument("--cofactor", choices=["auto", "adjj", "jtj"],
                     default="auto",
                     help="onthefly inversion chain; the port has adjj only")

@@ -1,14 +1,18 @@
-// The f32 split2m cell pass of the apply family on Hopper's tensor cores
-// (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32 accumulation):
-// v = sum_e M_e^T G_ef M_f u per cell, on cell batches (B3) and on the
-// lattice (B5, B6; the assemble pass follows in laplace_apply.cu).
+// The f32 split2m cell pass of the dense factorization on Hopper's tensor
+// cores (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32
+// accumulation): v = sum_e M_e^T G_ef M_f u per cell, on cell batches (B3)
+// and on the lattice (B5, B6, B1, B2; the assemble pass follows in
+// laplace_apply.cu and cg_fused.cu).
 //
-// Replaces, under precision "split2m", the TPU kernels of
-// mf_data_locality_tpu/ops/laplace_pallas.py:
-//   B3  _kernel_g          :479  (pallas_call :1023)
-//   B6  _kernel_g_zslab    :576  (pallas_call :664)
-//   B5  _kernel_g_pieces   :845  (pallas_call :947)
-// The "highest" and f64 rungs stay on apply_kernel (laplace_apply.cu):
+// Replaces, under precision "split2m", the TPU kernels
+//   B3  laplace_pallas.py   _kernel_g          :479  (pallas_call :1023)
+//   B6  laplace_pallas.py   _kernel_g_zslab    :576  (pallas_call :664)
+//   B5  laplace_pallas.py   _kernel_g_pieces   :845  (pallas_call :947)
+//   B1  cg_fused_kernel.py  _matvec_kernel           (pallas_call :1116)
+//   B2  cg_fused_kernel.py  _fused_cg_kernel         (pallas_call :1476)
+// of mf_data_locality_tpu/ops/, B1 and B2 in the dense factorization (the
+// JAX auto-dispatch's fused configuration under split2m at p=1..3).  The
+// "highest" and f64 rungs run the sum-factorized pass (apply_sumfac.cuh):
 // bf16 products cannot give exact f32 or f64.
 //
 // split2m (laplace_pallas._mm :447-463) is by definition bf16 x bf16
@@ -56,6 +60,24 @@
 // that fits two blocks an SM spills 100 bytes at p=4; one block an SM at
 // 255 registers ran 10% slower, one or four cell tiles a block 4-9%.
 //
+// Input form (FORM, bp4_operator.cuh): kCellBatch (B3), kLattice (B5, B6,
+// B1: the gather times the mask), kLatticeUpdate (B2: update4b's d' from
+// cell_input, the owner cell writing x', g', d'; the four scalars staged
+// once a block).  Metric source (REBUILD): streamed, each thread reading G
+// at its own (cell, q-point) entries from global memory; or rebuilt from
+// the block's 24 coefficients a cell, staged in shared memory: before each
+// chunk of 16 q-points the block's threads rebuild G at the chunk's 16 x 32
+// (q-point, cell) slots once (onthefly_metric, as apply_sumfac.cuh does)
+// into one of two shared buffers, and one barrier a chunk hands them to
+// the six warps (double-buffered, so the next chunk's rebuild cannot
+// overwrite what a slower warp still reads).  A rebuild per warp would
+// repeat it for the three components and hold J and the adjugate in the
+// registers beside v's accumulators.  Padded q-points get G = 0, as the JAX
+// _pad_row_blocks guard gives them.  Rows of the buffer are 36 words, so
+// the warp's reads (t4 selects the q-point pair, g the cell) fall into 32
+// banks.  The two buffers and the coefficients add 30.7 KB to a block's
+// shared memory (83 KB at p=4: still two blocks an SM).
+//
 // The CUDA-core design this replaces (apply_kernel with the stream split,
 // 1.56 ms at p=4 s=13 on an H100 80GB HBM3 at 700 W) was bound by
 // occupancy (f32 stream parts of u and t, 148 KB of shared memory, one
@@ -85,34 +107,93 @@ struct MmaShape {
   static constexpr int LDU = P13P + 8;  // u row stride: no bank conflicts
 };
 
-template <int P>
+constexpr int kMmaGLd = 36;  // row stride of the rebuilt metric's buffer
+
+// What the pass reads beyond the fragment tables, the streamed metric and
+// its input: the rebuild's tables and update4b's vectors (B2).
+struct MmaFusedArgs {
+  const float* pds;     // (Q3, 24)
+  const float* w3;      // (Q3,)
+  const float* coeffs;  // (24, n_cells), the cell fastest
+  CellIo<float> io;     // kLatticeUpdate: update4b's vectors and scalars
+};
+
+template <bool REBUILD>
+struct MmaExtraSmem {
+  float sc[4];  // kLatticeUpdate: alpha, beta, c1, aob
+};
+template <>
+struct MmaExtraSmem<true> {
+  float sc[4];
+  float g[2][6][16][kMmaGLd];      // a chunk's G, entries 00 .. 22, two buffers
+  float c24[24][kMmaBlockCells];   // the block's coefficients
+};
+
+template <int P, bool REBUILD>
 struct MmaSmem {
   // hi and lo parts of the input per (cell tile, component): (cell, node)
   __nv_bfloat16 u[kMmaGroups][kComps][2][kMmaCells][MmaShape<P>::LDU];
+  MmaExtraSmem<REBUILD> x;
 };
 
+// G at q-points 16 j .. 16 j + 15 of the block's cells, rebuilt from the
+// staged coefficients; zero at padded q-points and cells past the end.
+template <int P>
+__device__ __forceinline__ void rebuild_metric_chunk(
+    float (&g)[6][16][kMmaGLd], const float (&c24)[24][kMmaBlockCells],
+    const MmaFusedArgs& x, int j) {
+  for (int i = threadIdx.x; i < 16 * kMmaBlockCells; i += blockDim.x) {
+    const int b = i % kMmaBlockCells, ql = i / kMmaBlockCells;
+    const int qp = 16 * j + ql;
+    float gm[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (qp < Shape<P>::Q3) {
+      float pq[24];
+      load_pds_row(x.pds + qp * 24, pq);
+      onthefly_metric<kMmaBlockCells>(pq, &c24[0][b], __ldg(x.w3 + qp), gm);
+    }
+#pragma unroll
+    for (int e = 0; e < 6; ++e) g[e][ql][b] = gm[e];
+  }
+}
+
 // mf, mb: the forward and backward fragment tables, fragment (n8 tile nt,
-// k16 step ks) at (nt * K / 16 + ks) * 32 + lane.  LATTICE false (B3): u
-// and out are cell batches (C P13, n_cells); true (B5/B6): u is the
-// lattice, gathered times the mask, and out the masked cell-local values
-// (C, n_cells, P13).
-template <int P, bool LATTICE>
+// k16 step ks) at (nt * K / 16 + ks) * 32 + lane.  FORM kCellBatch (B3): u
+// and out are cell batches (C P13, n_cells); kLattice (B5, B6, B1): u is
+// the lattice, gathered times the mask, and out the masked cell-local
+// values (C, n_cells, P13); kLatticeUpdate (B2): as kLattice, the input
+// update4b's d' (x.io).  REBUILD: G from x.coeffs, gmetric unused.
+template <int P, int FORM, bool REBUILD>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     apply_mma_kernel(const uint2* __restrict__ mf, const uint2* __restrict__ mb,
                      const float* __restrict__ gmetric, Grid gr,
                      const float* __restrict__ mask,
-                     const float* __restrict__ u, float* __restrict__ out) {
+                     const float* __restrict__ u, float* __restrict__ out,
+                     MmaFusedArgs x) {
   using S = Shape<P>;
   using Ms = MmaShape<P>;
   constexpr int P13 = S::P13, Q3 = S::Q3, P13P = Ms::P13P, Q3P = Ms::Q3P;
   constexpr int KF = P13P / 16, KB = Ms::RP / 16, NB = P13P / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<MmaSmem<P>*>(smem_raw);
+  auto& sm = *reinterpret_cast<MmaSmem<P, REBUILD>*>(smem_raw);
   const int nc = gr.n_cells();
   const size_t n_nodes = gr.n_nodes();
   const int cell0 = blockIdx.x * kMmaBlockCells;
   const int tid = threadIdx.x;
 
+  if constexpr (FORM == kLatticeUpdate) {
+    if (tid < 4) sm.x.sc[tid] = x.io.scal[tid];
+    __syncthreads();
+  }
+  if constexpr (REBUILD) {
+    // the cells' coefficients (zero past the end: a zero metric)
+    for (int i = tid; i < 24 * kMmaBlockCells; i += blockDim.x) {
+      const int b = i % kMmaBlockCells;
+      sm.x.c24[i / kMmaBlockCells][b] =
+          cell0 + b < nc
+              ? x.coeffs[static_cast<size_t>(i / kMmaBlockCells) * nc + cell0 + b]
+              : 0.f;
+    }
+  }
   // input stream parts; padded nodes and cells past the end are zero
   for (int i = tid; i < kComps * P13P * kMmaBlockCells; i += blockDim.x) {
     const int b = i % kMmaBlockCells, k = (i / kMmaBlockCells) % P13P,
@@ -120,10 +201,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int cell = cell0 + b;
     float val = 0.f;
     if (k < P13 && cell < nc) {
-      if constexpr (LATTICE) {
+      if constexpr (FORM == kLattice) {
         float m;
         const size_t node = cell_node<P>(gr, cell, k, mask, &m);
         val = u[c * n_nodes + node] * m;
+      } else if constexpr (FORM == kLatticeUpdate) {
+        val = cell_input<float, P, true>(
+            x.io, sm.x.sc, gr, c, cell / (gr.ncx * gr.ncy),
+            (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
+            (k / S::P1) % S::P1, k % S::P1);
       } else {
         val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
       }
@@ -143,6 +229,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 
   float v[NB][4] = {};
   for (int j = 0; j < Ms::QC; ++j) {
+    if constexpr (REBUILD) {
+      rebuild_metric_chunk<P>(sm.x.g[j % 2], sm.x.c24, x, j);
+      __syncthreads();
+    }
     // forward: g^T at q-points 16 j .. 16 j + 15, tile [d][h] = direction d,
     // q-points 16 j + 8 h .. + 7
     float ga[3][2][4] = {};
@@ -181,13 +271,17 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         float tv[3][2];
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
-          const int qp = 16 * j + 8 * h + 2 * t4 + e2;
+          const int ql = 8 * h + 2 * t4 + e2, qp = 16 * j + ql;
           const bool live = qp < Q3 && cell < nc;
           float G[6];
 #pragma unroll
-          for (int e = 0; e < 6; ++e)
-            G[e] = live ? __ldg(gmetric + static_cast<size_t>(e * Q3 + qp) * nc + cell)
-                        : 0.f;
+          for (int e = 0; e < 6; ++e) {
+            if constexpr (REBUILD)
+              G[e] = sm.x.g[j % 2][e][ql][cell - cell0];
+            else
+              G[e] = live ? __ldg(gmetric + static_cast<size_t>(e * Q3 + qp) * nc + cell)
+                          : 0.f;
+          }
           const float gx = ga[0][h][2 * r + e2], gy = ga[1][h][2 * r + e2],
                       gz = ga[2][h][2 * r + e2];
           tv[0][e2] = G[0] * gx + G[1] * gy + G[2] * gz;
@@ -217,7 +311,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int i = 0; i < 4; ++i) {
       const int cell = tile0 + g + 8 * (i / 2), k = nt * 8 + 2 * t4 + i % 2;
       if (cell >= nc || k >= P13) continue;
-      if constexpr (LATTICE) {
+      if constexpr (FORM != kCellBatch) {
         float m;
         cell_node<P>(gr, cell, k, mask, &m);
         out[(static_cast<size_t>(c) * nc + cell) * P13 + k] = v[nt][i] * m;
@@ -227,19 +321,20 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
 }
 
-template <int P, bool LATTICE>
+template <int P, int FORM, bool REBUILD>
 cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
                        const Grid& gr, const float* mask, const float* u,
-                       float* out, cudaStream_t st) {
-  auto kern = apply_mma_kernel<P, LATTICE>;
+                       float* out, const MmaFusedArgs& x, cudaStream_t st) {
+  using Sm = MmaSmem<P, REBUILD>;
+  auto kern = apply_mma_kernel<P, FORM, REBUILD>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(MmaSmem<P>));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
   const int blocks = (gr.n_cells() + kMmaBlockCells - 1) / kMmaBlockCells;
-  kern<<<blocks, kMmaThreads, sizeof(MmaSmem<P>), st>>>(
+  kern<<<blocks, kMmaThreads, sizeof(Sm), st>>>(
       static_cast<const uint2*>(mf), static_cast<const uint2*>(mb), gmetric,
-      gr, mask, u, out);
+      gr, mask, u, out, x);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // The "highest" cell pass of the BP4 operator on Hopper's CUDA cores
 // (sm_90a), f32 or f64: v = sum_e M_e^T G_ef M_f u per cell, by sum
-// factorization, with the metric G streamed (B3, B5, B6) or rebuilt in the
-// kernel from the cell's trilinear coefficients (B4, B1, B2), on cell
-// batches (B3, B4) or on the lattice (B5, B6, B1, B2; the assemble pass of
+// factorization, with the metric G streamed (B3, B5, B6; B1, B2 built with
+// the precomputed metric) or rebuilt in the kernel from the cell's
+// trilinear coefficients (B4; B1, B2 built on the fly), on cell batches
+// (B3, B4) or on the lattice (B5, B6, B1, B2; the assemble pass of
 // bp4_operator.cuh follows in laplace_apply.cu and cg_fused.cu).
 //
 // Replaces, under precision "highest" (f32 and f64; B4 on every rung), the
@@ -23,7 +24,9 @@
 // M_y = S (x) D (x) S, M_z = D (x) S (x) S ((z, y, x) order; S, D the (Q,
 // P1) values and derivatives of the 1D basis at the Gauss points), because
 // contractions of depth P1 waste the MXU (laplace_pallas.py:15-20); B1/B2
-// contract z by S, D and then a dense 2D stage (twostage).  Exact f32 or f64
+// contract z by S, D and then a dense 2D stage (twostage), or use the dense
+// M as well (the JAX auto-dispatch's fused configuration under "highest" at
+// p <= 4).  Exact f32 or f64
 // on this card runs on the CUDA cores, where the FMA count is what binds, so
 // this pass applies the 1D factors in x, y, z (p=4: ~5.0e4 FMAs a cell
 // against the dense form's 4.9e5 and twostage's 1.4e5).  Under "highest" it
@@ -64,15 +67,10 @@
 //             pass instead, the rebuild made the lattice forms spill and
 //             ran slower (PERF.md, utils/variants.py).
 //
-// Input forms (FORM):
-//   kCellBatch      B3, B4: u and out are cell batches (C P13, n_cells);
-//   kLattice        B5, B6, B1: u is the lattice, gathered by cell_node
-//                   times the mask (B6: the mask tensor; B5, B1: the box's
-//                   Dirichlet mask from the indices); out the masked
-//                   cell-local values (C, n_cells, P13);
-//   kLatticeUpdate  B2: as kLattice, the input being update4b's d' at each
-//                   (cell, node) (cell_input), whose owner cell writes x',
-//                   g', d'; the four scalars are staged once a block.
+// Input forms (FORM, bp4_operator.cuh): kCellBatch (B3, B4); kLattice (B5,
+// B6, B1; B6 masks by the mask tensor, B5 and B1 by the box's Dirichlet
+// mask from the indices); kLatticeUpdate (B2, the four scalars staged once
+// a block).
 // With the cell the fastest index, a warp's gather reads P-strided nodes
 // that neighbouring threads complete, so it touches about one sector per 8
 // words.  The masked cell-local result is staged in shared memory and
@@ -97,8 +95,6 @@
 #include "bp4_operator.cuh"
 
 namespace bp4 {
-
-enum : int { kCellBatch = 0, kLattice = 1, kLatticeUpdate = 2 };
 
 template <typename T>
 struct SumfacCells {
@@ -196,30 +192,6 @@ struct SumfacInput {
     }
   }
 };
-
-// The pds row of one q-point (24 words, 16-byte aligned) by 16-byte loads.
-template <typename T>
-__device__ __forceinline__ void load_pds_row(const T* row, T (&pq)[24]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4* r = reinterpret_cast<const float4*>(row);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float4 v = __ldg(r + k);
-      pq[4 * k] = v.x;
-      pq[4 * k + 1] = v.y;
-      pq[4 * k + 2] = v.z;
-      pq[4 * k + 3] = v.w;
-    }
-  } else {
-    const double2* r = reinterpret_cast<const double2*>(row);
-#pragma unroll
-    for (int k = 0; k < 12; ++k) {
-      const double2 v = __ldg(r + k);
-      pq[2 * k] = v.x;
-      pq[2 * k + 1] = v.y;
-    }
-  }
-}
 
 // Three blocks an SM (73.4 KB of shared memory each at p=4 with the rebuilt
 // metric, 72.6 KB streamed) cap a thread at 72 registers in f32.

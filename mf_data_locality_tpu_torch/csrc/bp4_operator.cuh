@@ -40,6 +40,16 @@ constexpr int kComps = 3;           // vector components of BP4
 constexpr int kNodeThreads = 256;   // threads per block of the node passes
 constexpr int kDots = 7;            // update3b sums (cg_fused_kernel.py:891)
 
+// Input forms of the cell passes (apply_sumfac.cuh, apply_mma.cuh):
+//   kCellBatch      B3, B4: u and out are cell batches (C P13, n_cells);
+//   kLattice        B5, B6, B1: u is the lattice, gathered by cell_node
+//                   times the mask; out the masked cell-local values
+//                   (C, n_cells, P13);
+//   kLatticeUpdate  B2: as kLattice, the input being update4b's d' at each
+//                   (cell, node) (cell_input), whose owner cell writes x',
+//                   g', d'.
+enum : int { kCellBatch = 0, kLattice = 1, kLatticeUpdate = 2 };
+
 template <int P>
 struct Shape {
   static constexpr int P1 = P + 1, Q = P + 2;
@@ -48,10 +58,13 @@ struct Shape {
 };
 
 // Read-only operator tables of B1/B2, device pointers at the working type T.
-// split2m (cell_mma.cuh): mats the bf16 fragment tables of the 2D stage,
-// coeffs (n_cells, 24); highest (apply_sumfac.cuh): mats unused, coeffs
-// (24, n_cells), the cell fastest.  Coordinate d's monomial coefficient k
-// is entry d*8 + k of a cell.
+// split2m twostage (cell_mma.cuh): mats the bf16 fragment tables of the 2D
+// stage, coeffs (n_cells, 24); split2m dense (apply_mma.cuh): mats the bf16
+// fragment tables of the dense M, coeffs (24, n_cells), the cell fastest;
+// highest (apply_sumfac.cuh): mats unused, coeffs (24, n_cells).
+// Coordinate d's monomial coefficient k is entry d*8 + k of a cell.
+// gmetric: the streamed metric (6 Q3, n_cells), or null: G rebuilt from the
+// coefficients.
 template <typename T>
 struct OpTables {
   const T* mats;
@@ -60,6 +73,7 @@ struct OpTables {
   const T* pds;     // (Q3, 24): d(monomial k)/d(u_e) at e*8 + k
   const T* w3;      // (Q3,)
   const T* coeffs;
+  const T* gmetric;
 };
 
 struct Grid {
@@ -124,6 +138,30 @@ __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
     for (int f0 = e0; f0 < 3; ++f0, ++r)
       g[r] = (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
               adj[e0][2] * adj[f0][2]) * scale;
+}
+
+// The pds row of one q-point (24 words, 16-byte aligned) by 16-byte loads.
+template <typename T>
+__device__ __forceinline__ void load_pds_row(const T* row, T (&pq)[24]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float4 v = __ldg(r + k);
+      pq[4 * k] = v.x;
+      pq[4 * k + 1] = v.y;
+      pq[4 * k + 2] = v.z;
+      pq[4 * k + 3] = v.w;
+    }
+  } else {
+    const double2* r = reinterpret_cast<const double2*>(row);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const double2 v = __ldg(r + k);
+      pq[2 * k] = v.x;
+      pq[2 * k + 1] = v.y;
+    }
+  }
 }
 
 // The vectors of the B1 (d -> cells) and B2 (update4b, then d' -> cells)

@@ -54,7 +54,8 @@ cudaError_t metric_pass(int split, const void* m0, const void* m1,
                                                                        st);
   }
   if constexpr (std::is_same_v<T, float>)
-    return launch_mma<P, LATTICE>(m0, m1, gm, gr, mm, uu, oo, st);
+    return launch_mma<P, LATTICE ? kLattice : kCellBatch, false>(
+        m0, m1, gm, gr, mm, uu, oo, MmaFusedArgs{}, st);
   return static_cast<cudaError_t>(-1);
 }
 

@@ -91,8 +91,10 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     The defaults are the JAX ``bp4.build``'s: the apply family's exact
     operator (dense factorization, streamed metric, reshape windowing);
     ``metric="onthefly"`` (reshape) or the ``pieces`` and ``zslab``
-    windowings select its other kernels, and ``factor="twostage",
-    metric="onthefly", windowing="pieces"`` builds the fused solver's.
+    windowings select its other kernels.  ``windowing="pieces"`` with a
+    (factor, metric) pair of ``laplace_cuda.fused_configs`` builds the
+    fused solver's operator: dense or twostage, the metric streamed or
+    rebuilt (the JAX fused tests' default is the dense, streamed one).
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     op = laplace_cuda.make_operator(layout, dtype=dtype, precision=precision,
@@ -127,7 +129,9 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     (6 q^3, nc_pad).  The padded cell columns are dropped; under
     ``pieces`` the TPU's corner-piece column order of ``mats``
     (``laplace_pallas._piece_perm``) and ``mats2d`` (``_piece_perm2d``) is
-    undone.  Matrices not given are built from ``degree``.
+    undone.  Matrices not given are built from ``degree``.  ``factor``
+    is the JAX operator's: a fused operator built dense carries its
+    ``mats`` (and ``gmetric`` if streamed) across.
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     nc = layout.mesh.n_cells

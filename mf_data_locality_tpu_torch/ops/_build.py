@@ -30,8 +30,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bp4_partials_len": (_I, [_I] * 4),
     "bp4_error_string": (ctypes.c_char_p, [_I]),
-    "bp4_matvec": (_I, [_I] * 3 + [_P] * 9 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 3 + [_P] * 19 + [_I] * 3 + [_P]),
+    "bp4_matvec": (_I, [_I] * 4 + [_P] * 10 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 4 + [_P] * 20 + [_I] * 3 + [_P]),
     "bp4_apply_batched": (_I, [_I] * 4 + [_P] * 8 + [_I] + [_P]),
     "bp4_apply_lattice": (_I, [_I] * 3 + [_P] * 7 + [_I] * 3 + [_P]),
 }

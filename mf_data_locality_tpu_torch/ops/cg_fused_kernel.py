@@ -12,19 +12,28 @@ Vectors are lattices ``(C, Nz, Ny, Nx)`` that vanish on the boundary (the
 solver's invariant); the preconditioner is ``(1, Nz, Ny, Nx)``; ``scal`` is
 the 8-vector (alpha, beta, c1, aob, parity, res2, alpha_old, beta_old).
 
-Each wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``; its
-f32 ``split2m`` cell pass is the tensor-core pass of ``csrc/cell_mma.cuh``
-on the bf16 tables ``op.mma_mats``, its ``highest`` cell pass the
-sum-factorized pass of ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz``
-with the metric rebuilt from ``op.coeffs``) for tensors on a CUDA device
-and the plain PyTorch version (:func:`_matvec_plain`,
-:func:`_fused_iteration_plain`) for tensors on the CPU; other devices
-raise.  The plain versions do the same arithmetic — same bf16 rounding
-points for ``split2m``, same masking — with einsum over cells, in another
-summation order (under ``highest`` the kernel contracts x, y, z by the 1D
-factors where the plain version runs twostage's z stage and 2D matrices:
-the same function, summed in another order).  ``matvec.launches`` and
-``fused_cg_iteration.launches`` count kernel launches (not plain calls).
+The operator is the one ``op`` was built with (``op.factor``, ``op.metric``;
+``laplace_cuda.fused_configs``): the dense factorization or twostage, the
+metric streamed (``op.gmetric``) or rebuilt per q-point from the
+coefficients, at degrees 1..4.  Each wrapper runs the hand-written CUDA
+kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
+PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
+for tensors on the CPU; other devices raise.  The kernel's cell pass:
+
+* ``highest`` (f32, f64), every configuration: the sum-factorized pass of
+  ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz``, the metric streamed or
+  rebuilt from ``op.coeffs`` — the dense and twostage operators are one
+  function, which it sums in another order than the plain versions;
+* f32 ``split2m``, dense: the tensor-core pass of ``csrc/apply_mma.cuh`` on
+  the bf16 tables ``op.mma_mats`` of the dense M, the metric streamed or
+  rebuilt;
+* f32 ``split2m``, twostage + onthefly (p=4): the tensor-core pass of
+  ``csrc/cell_mma.cuh`` on the 2D stage's tables.
+
+The plain versions do the same arithmetic — the same bf16 rounding points
+for ``split2m``, the same masking — with einsum over cells, in another
+summation order.  ``matvec.launches`` and ``fused_cg_iteration.launches``
+count kernel launches (not plain calls).
 """
 
 from __future__ import annotations
@@ -34,7 +43,6 @@ import torch
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
-KERNEL_DEGREES = (4,)  # degrees instantiated in csrc/cg_fused.cu
 N_COMPONENTS = 3
 
 
@@ -69,21 +77,56 @@ def metric_onthefly(op: OperatorData) -> torch.Tensor:
                         for r in range(3) for s in range(r, 3)])
 
 
-def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
-    """Cell-local operator: (C, Nz, Ny, Nx) -> (C, n_cells, p1, p1^2)."""
-    p, q = op.degree, op.n_q
-    p1, q2 = p + 1, q * q
-    split = op.precision == "split2m"
+def cell_metric(op: OperatorData) -> torch.Tensor:
+    """(6, n_cells, q^3) metric entries of ``op``: the streamed
+    ``op.gmetric``, or rebuilt from the coefficients."""
+    if op.gmetric is None:
+        return metric_onthefly(op)
+    return op.gmetric.reshape(6, op.n_q ** 3, op.n_cells).transpose(1, 2)
+
+
+def _cells(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
+    """(C, Nz, Ny, Nx) -> the cells' node values (C, n_cells, p1, p1^2)."""
+    p, p1 = op.degree, op.degree + 1
+    return (u.unfold(1, p1, p).unfold(2, p1, p).unfold(3, p1, p)
+            .reshape(u.shape[0], op.n_cells, p1, p1 * p1))
+
+
+def _on_batch(op: OperatorData, u: torch.Tensor, apply) -> torch.Tensor:
+    """A cell-batch apply ``apply(u_loc (C p1^3, n_cells), G (6, q^3,
+    n_cells))`` (``laplace_apply``'s) on the cells of a lattice vector, with
+    the metric of :func:`cell_metric`: (C, Nz, Ny, Nx) -> (C, n_cells, p1,
+    p1^2)."""
+    p1 = op.degree + 1
     n_comp, nc = u.shape[0], op.n_cells
-    cells = (u.unfold(1, p1, p).unfold(2, p1, p).unfold(3, p1, p)
-             .reshape(n_comp, nc, p1, p1 * p1))            # (C, n, kz, k2)
+    batch = _cells(op, u).reshape(n_comp, nc, p1 ** 3).transpose(1, 2)
+    v = apply(batch.reshape(n_comp * p1 ** 3, nc),
+              cell_metric(op).transpose(1, 2))
+    return v.reshape(n_comp, p1 ** 3, nc).transpose(1, 2).reshape(
+        n_comp, nc, p1, p1 * p1)
+
+
+def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
+    """Cell-local operator in ``op.factor``'s form: (C, Nz, Ny, Nx) -> (C,
+    n_cells, p1, p1^2).  Dense: ``laplace_apply._batched_plain`` on the
+    cells; twostage: the z stage by S and D, then the 2D matrices."""
+    # laplace_apply imports this module, so it is imported here
+    from mf_data_locality_tpu_torch.ops import laplace_apply
+
+    split = op.precision == "split2m"
+    if op.factor == "dense":
+        return _on_batch(op, u, lambda b, G: laplace_apply._batched_plain(
+            op, b, G, split))
+    q = op.n_q
+    q2 = q * q
+    cells = _cells(op, u)                                   # (C, n, kz, k2)
     uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
     uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
     mxy, mz = op.mats2d[:2 * q2], op.mats2d[2 * q2:]
     gxy = sum(torch.einsum("sr,cnqr->cnqs", mxy, b) for b in _parts(uS, split))
     gz = sum(torch.einsum("sr,cnqr->cnqs", mz, b) for b in _parts(uD, split))
     gx, gy = gxy[..., :q2], gxy[..., q2:]
-    G = metric_onthefly(op).reshape(6, 1, nc, q, q2)
+    G = cell_metric(op).reshape(6, 1, op.n_cells, q, q2)
     t0 = G[0] * gx + G[1] * gy + G[2] * gz
     t1 = G[1] * gx + G[3] * gy + G[4] * gz
     t2 = G[2] * gx + G[4] * gy + G[5] * gz
@@ -96,21 +139,25 @@ def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
 
 def _cell_apply_mma_emulated(op: OperatorData,
                              u: torch.Tensor) -> torch.Tensor:
-    """The split2m tensor-core cell pass's arithmetic (``csrc/cell_mma.cuh``)
-    in plain PyTorch, for the tests: the 2D matrices from their packed bf16
-    tables, (ky, kx) columns and q^2 rows zero-padded, the f32 z stage
-    unrounded, the K-stacked products [Mh | Mh] [uh; ul] and, after the
-    metric apply, [Mh | Mh]^T [th; tl] in f32.  Same result shape as
-    :func:`_cell_apply`."""
+    """The split2m tensor-core cell passes' arithmetic in plain PyTorch, for
+    the tests.  Dense (``csrc/apply_mma.cuh`` in its lattice forms):
+    ``laplace_apply._batched_mma_emulated`` on the cells with the streamed
+    or rebuilt metric.  Twostage (``csrc/cell_mma.cuh``): the 2D matrices
+    from their packed bf16 tables, (ky, kx) columns and q^2 rows
+    zero-padded, the f32 z stage unrounded, the K-stacked products [Mh | Mh]
+    [uh; ul] and, after the metric apply, [Mh | Mh]^T [th; tl] in f32.
+    Same result shape as :func:`_cell_apply`."""
+    if op.factor == "dense":
+        from mf_data_locality_tpu_torch.ops import laplace_apply
+
+        return _on_batch(op, u, lambda b, G: laplace_apply
+                         ._batched_mma_emulated(op, b, G))
     p, q = op.degree, op.n_q
     p1, q2 = p + 1, q * q
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
     mf, mb = (m.to(op.dtype) for m in laplace_cuda.unpack_mma_tables(
         op.mma_mats, p, "twostage"))
-    n_comp, nc = u.shape[0], op.n_cells
-    cells = (u.unfold(1, p1, p).unfold(2, p1, p).unfold(3, p1, p)
-             .reshape(n_comp, nc, p1, p1 * p1))
-    cells = torch.nn.functional.pad(cells, (0, p12p - p1 * p1))
+    cells = torch.nn.functional.pad(_cells(op, u), (0, p12p - p1 * p1))
     uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
     uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
 
@@ -119,8 +166,8 @@ def _cell_apply_mma_emulated(op: OperatorData,
 
     gxy = fwd(mf[:2 * q2p], uS)
     gx, gy, gz = gxy[..., :q2p], gxy[..., q2p:], fwd(mf[2 * q2p:], uD)
-    G = torch.nn.functional.pad(metric_onthefly(op).reshape(6, 1, nc, q, q2),
-                                (0, q2p - q2))
+    G = torch.nn.functional.pad(
+        cell_metric(op).reshape(6, 1, op.n_cells, q, q2), (0, q2p - q2))
     t0 = G[0] * gx + G[1] * gy + G[2] * gz
     t1 = G[1] * gx + G[3] * gy + G[4] * gz
     t2 = G[2] * gx + G[4] * gy + G[5] * gz
@@ -137,22 +184,14 @@ def _cell_apply_mma_emulated(op: OperatorData,
 def _cell_apply_sumfac_emulated(op: OperatorData,
                                 u: torch.Tensor) -> torch.Tensor:
     """The ``highest`` cell pass's arithmetic (``csrc/apply_sumfac.cuh`` in
-    its lattice forms, the metric rebuilt) in plain PyTorch, for the tests:
-    the x, y, z passes with S and D in the kernel's order and the rebuilt
-    metric, in place of twostage's z stage and 2D matrices.  Same result
-    shape as :func:`_cell_apply`."""
-    # laplace_apply imports this module, so it is imported here
+    its lattice forms, the metric streamed or rebuilt) in plain PyTorch, for
+    the tests: the x, y, z passes with S and D in the kernel's order, in
+    place of the dense M or twostage's z stage and 2D matrices.  Same
+    result shape as :func:`_cell_apply`."""
     from mf_data_locality_tpu_torch.ops import laplace_apply
 
-    p1 = op.degree + 1
-    n_comp, nc = u.shape[0], op.n_cells
-    cells = (u.unfold(1, p1, op.degree).unfold(2, p1, op.degree)
-             .unfold(3, p1, op.degree).reshape(n_comp, nc, p1 ** 3))
-    v = laplace_apply._batched_sumfac_emulated(
-        op, cells.transpose(1, 2).reshape(n_comp * p1 ** 3, nc),
-        metric_onthefly(op).transpose(1, 2))
-    return v.reshape(n_comp, p1 ** 3, nc).transpose(1, 2).reshape(
-        n_comp, nc, p1, p1 * p1)
+    return _on_batch(op, u, lambda b, G: laplace_apply
+                     ._batched_sumfac_emulated(op, b, G))
 
 
 def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
@@ -258,16 +297,27 @@ def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
     if prec is not None:
         want.append((prec, (1,) + op.n_nodes_axis))
     want += [(s, (8,)) for s in scals]
-    q, p1 = op.n_q, op.degree + 1
-    want += [(op.sz, (q, p1)), (op.dz, (q, p1)), (op.kpds, (q ** 3, 24)),
-             (op.w3, (q ** 3, 1))]
+    q, p1, q3 = op.n_q, op.degree + 1, op.n_q ** 3
+    want += [(op.sz, (q, p1)), (op.dz, (q, p1)), (op.kpds, (q3, 24)),
+             (op.w3, (q3, 1))]
+    if op.gmetric is not None:
+        want.append((op.gmetric, (6 * q3, op.n_cells)))
+    twostage_split = op.precision == "split2m" and op.factor == "twostage"
     if op.precision == "split2m":
-        q2p, p12p = laplace_cuda.mma_dims(op.degree, "twostage")
-        want += [(op.mma_mats, (2, 3 * q2p * p12p), torch.bfloat16),
-                 (op.kcoeffs, (op.n_cells, 24))]
+        rp, cp = laplace_cuda.mma_dims(op.degree, op.factor)
+        want.append((op.mma_mats, (2, 3 * rp * cp), torch.bfloat16))
+    if twostage_split:
+        want.append((op.kcoeffs, (op.n_cells, 24)))
     else:
         want.append((op.coeffs, (3, 8, op.n_cells)))
-    check_tensors(op, KERNEL_DEGREES, want)
+    # csrc/cg_fused.cu instantiates the fused configurations, no other
+    if (op.factor, op.metric) not in laplace_cuda.fused_configs(op.precision,
+                                                                op.degree):
+        raise NotImplementedError(
+            f"factor={op.factor!r}, metric={op.metric!r} at degree "
+            f"{op.degree} under {op.precision!r} has no CUDA kernel of the "
+            f"fused solver; see ROADMAP.md queue B")
+    check_tensors(op, laplace_cuda.FUSED_DEGREES, want)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -284,14 +334,20 @@ def dtype_code(op: OperatorData) -> int:
 
 
 def _common_args(op: OperatorData):
-    # split2m: the 2D matrices as bf16 fragment tables and the coefficients
-    # a row per cell; highest: no matrix (the sum-factorized pass applies S
-    # and D) and the coefficients (3, 8, n_cells), the cell fastest
+    # split2m: the bf16 fragment tables of the factorization's tensor-core
+    # pass (dense: apply_mma.cuh, the coefficients (3, 8, n_cells);
+    # twostage: cell_mma.cuh, the coefficients a row per cell); highest: no
+    # matrix (the sum-factorized pass applies S and D), the coefficients
+    # (3, 8, n_cells), the cell fastest.  The metric: streamed, or null
+    # (rebuilt from the coefficients).
     split = op.precision == "split2m"
-    return (dtype_code(op), int(split), op.degree,
+    dense = op.factor == "dense"
+    return (dtype_code(op), int(split), op.degree, int(dense),
             op.mma_mats.data_ptr() if split else None,
             op.sz.data_ptr(), op.dz.data_ptr(), op.kpds.data_ptr(),
-            op.w3.data_ptr(), (op.kcoeffs if split else op.coeffs).data_ptr())
+            op.w3.data_ptr(),
+            (op.kcoeffs if split and not dense else op.coeffs).data_ptr(),
+            None if op.gmetric is None else op.gmetric.data_ptr())
 
 
 class Workspace:

@@ -40,7 +40,8 @@ import torch
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
-    N_COMPONENTS, _parts, _route, check_tensors, dtype_code, metric_onthefly)
+    N_COMPONENTS, _parts, _route, cell_metric, check_tensors, dtype_code,
+    metric_onthefly)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
 KERNEL_DEGREES = (1, 2, 3, 4)  # degrees instantiated in csrc/laplace_apply.cu
@@ -101,10 +102,7 @@ def from_cell_batches(v: torch.Tensor, p: int, n_cells_axis) -> torch.Tensor:
 
 def _metric(op: OperatorData) -> torch.Tensor:
     """(6, q^3, n_cells): the streamed metric, or the rebuilt one."""
-    q3 = op.n_q ** 3
-    if op.gmetric is not None:
-        return op.gmetric.reshape(6, q3, op.n_cells)
-    return metric_onthefly(op).permute(0, 2, 1)
+    return cell_metric(op).transpose(1, 2)
 
 
 def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,

@@ -2,10 +2,14 @@
 
 Two families of configurations, named by (factor, metric, windowing):
 
-* the fused path (``solvers/cg_fused``, kernels B1/B2): ``("twostage",
-  "onthefly", "pieces")`` with the adjugate inversion chain ("adjj") — the z
-  direction contracted by 1D factors, a dense 2D stage, geometry rebuilt per
-  quadrature point from 24 trilinear coefficients per cell;
+* the fused path (``solvers/cg_fused``, kernels B1/B2) on ``"pieces"``, at
+  degrees 1..4 (:func:`fused_configs`): the dense factorization or
+  twostage (the z direction contracted by 1D factors, then a dense 2D
+  stage), with the metric streamed (``"precomputed"``) or rebuilt per
+  quadrature point from 24 trilinear coefficients per cell
+  (``"onthefly"``, the adjugate inversion chain "adjj") — every pair under
+  ``highest``; under ``split2m`` the dense pair and twostage + onthefly at
+  p=4;
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
@@ -42,10 +46,11 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24) are the same data with one
 contiguous row per q-point / per cell: the kernels read ``kpds``, and the
-split2m tensor-core pass of B1/B2 ``kcoeffs``.  ``mma_mats`` (``split2m``
-only) is the matrix of the tensor-core cell pass rounded once to bf16 and
-packed as its fragments (:func:`mma_tables`): ``mats`` for the apply
-family, ``mats2d`` for the fused path.
+twostage split2m tensor-core pass of B1/B2 ``kcoeffs``.  ``mma_mats``
+(``split2m`` only) is the matrix of the tensor-core cell pass rounded once
+to bf16 and packed as its fragments (:func:`mma_tables`): ``mats`` for the
+dense factorization (the apply family, and the fused path's dense
+configurations), ``mats2d`` for twostage.  ``factor`` records which.
 """
 
 from __future__ import annotations
@@ -63,8 +68,8 @@ _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
          "configurations)")
 
 WINDOWINGS = ("reshape", "pieces", "zslab")
-# (factor, metric, windowing) the port has; the fused path needs the first
-FUSED_CONFIG = ("twostage", "onthefly", "pieces")
+FUSED_DEGREES = (1, 2, 3, 4)  # degrees of the fused solver's kernels
+# (factor, metric, windowing) of the apply family
 APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
                  ("dense", "precomputed", "pieces"),
                  ("dense", "precomputed", "zslab"),
@@ -164,11 +169,16 @@ class OperatorData:
     n_cells_axis: tuple[int, int, int]
     precision: str
     windowing: str = "pieces"
+    factor: str = "dense"
     mma_mats: torch.Tensor | None = None
 
     @property
     def dtype(self) -> torch.dtype:
         return self.w3.dtype
+
+    @property
+    def metric(self) -> str:
+        return "onthefly" if self.gmetric is None else "precomputed"
 
     @property
     def device(self) -> torch.device:
@@ -243,16 +253,37 @@ def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense"
             _from_fragments(tables[1], 3 * rp, cp))
 
 
+def fused_configs(precision: str,
+                  degree: int | None = None) -> tuple[tuple[str, str], ...]:
+    """The (factor, metric) pairs the fused solver runs on (windowing
+    ``"pieces"``) at ``degree`` (None: at any of its degrees).  Under
+    ``highest`` the dense and twostage operators are one function, which
+    one sum-factorized pass computes with the metric streamed or rebuilt;
+    under ``split2m`` each factorization's rounding defines the rung, and
+    its tensor-core passes are the dense one (either metric) and
+    twostage + onthefly at p=4."""
+    if degree is not None and degree not in FUSED_DEGREES:
+        return ()
+    dense = (("dense", "precomputed"), ("dense", "onthefly"))
+    twostage = (("twostage", "onthefly"),)
+    if precision != "split2m":
+        return dense + twostage + (("twostage", "precomputed"),)
+    return dense + (twostage if degree in (None, 4) else ())
+
+
 def check_config(precision: str, factor: str = "twostage",
                  metric: str = "onthefly", cofactor: str = "adjj",
                  dtype: torch.dtype = torch.float32,
-                 windowing: str = "pieces", solver: str | None = None) -> None:
+                 windowing: str = "pieces", solver: str | None = None,
+                 degree: int | None = None) -> None:
     """Raise for a configuration the port lacks (NotImplementedError) or
     that the JAX package refuses too (ValueError).
 
     ``solver``: also check that the configuration is the one its solver
-    runs on — the fused path on the fused configuration, the merged and
-    baseline solvers on the apply family.
+    runs on — the fused path on :func:`fused_configs` at ``degree``, the
+    merged and baseline solvers on the apply family.  Without a solver (the
+    builders) the fused configurations of any degree pass: the plain
+    versions take every degree, the kernels check theirs.
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
@@ -272,14 +303,24 @@ def check_config(precision: str, factor: str = "twostage",
     config = (factor, metric, windowing)
     if metric == "onthefly" and cofactor != "adjj":
         raise NotImplementedError(
-            f"cofactor={cofactor!r} is {_TODO}; the port has adjj")
-    wanted = ((FUSED_CONFIG,) if solver == "fused" else APPLY_CONFIGS
-              if solver is not None else (FUSED_CONFIG,) + APPLY_CONFIGS)
+            f"cofactor={cofactor!r} is not ported yet: see ROADMAP.md, "
+            f"queue B item 6c; the port has adjj")
+    if solver == "fused" and degree not in FUSED_DEGREES:
+        raise NotImplementedError(
+            f"degree {degree} of the fused solver is not ported yet: see "
+            f"ROADMAP.md, queue B item 7 (has {FUSED_DEGREES})")
+    fused = tuple(fm + ("pieces",) for fm in fused_configs(precision, degree))
+    wanted = (fused if solver == "fused" else APPLY_CONFIGS
+              if solver is not None else fused + APPLY_CONFIGS)
     if config not in wanted:
+        todo = (f"not ported yet: see ROADMAP.md, queue B item 6f (split2m "
+                f"twostage has p=4 and the rebuilt metric)"
+                if config[0] == "twostage" and precision == "split2m"
+                else _TODO)
         raise NotImplementedError(
             f"factor={factor!r}, metric={metric!r}, windowing={windowing!r}"
             + (f" with solver={solver!r}" if solver else "")
-            + f" is {_TODO}; the port has {wanted}")
+            + f" is {todo}; the port has {wanted}")
 
 
 def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
@@ -325,7 +366,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         .contiguous(),
         kcoeffs=co.reshape(24, nc).t().contiguous(),
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
-        precision=precision, windowing=windowing,
+        precision=precision, windowing=windowing, factor=factor,
         mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor)
                   if precision == "split2m" else None))
 

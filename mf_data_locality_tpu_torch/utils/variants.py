@@ -1,7 +1,8 @@
 """Time source variants of the cell passes on the card.
 
     python -m mf_data_locality_tpu_torch.utils.variants \
-        [ablate|stamps|sumfac|sfstamps|rebuilt|paths] [sf_name ...] [DIR ...]
+        [ablate|stamps|sumfac|sfstamps|rebuilt|paths|dense]
+        [sf_name ...] [DIR ...]
 
 Each variant is a copy of the package with a few text patches applied to
 ``csrc/`` (built by its own process, all builds at once, into the copy's
@@ -26,6 +27,11 @@ fail, so every variant is timed in its own process.
 * ``paths [DIR ...]`` times two rows of the benchmark at p=4 s=13 in the
   same turns: merged ``--geometry onthefly`` (B4) and the fused solver
   under f32 ``highest`` (B1, B2): time/it and time/matvec, in ms.
+* ``dense [DIR ...]`` times B1 and B2 in the fused solver's dense
+  configurations — f32 split2m (the tensor-core pass of
+  ``csrc/apply_mma.cuh``) with the metric streamed and rebuilt, f32
+  ``highest`` streamed (the sum-factorized pass) — and B5 under split2m,
+  at p=4 s=13 and p=2 s=16, in turns.
 * ``rebuilt [sf_name ...] [DIR ...]`` times B1, B2 and B4 under
   ``highest`` (f32 and f64) at p=4 s=13 — the pass with the metric rebuilt
   from the coefficients — in the package as it is (or in the named
@@ -508,6 +514,48 @@ print(json.dumps(out))
 '''
 
 
+_TIME_DENSE = r'''
+import json, torch
+from mf_data_locality_tpu_torch.models import bp4
+from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+from mf_data_locality_tpu_torch.ops import laplace_apply as la
+from mf_data_locality_tpu_torch.utils import timing
+dev = torch.device("cuda")
+out = {}
+for p, s in ((4, 13), (2, 16)):
+    for precision, metric in (("split2m", "precomputed"),
+                              ("split2m", "onthefly"),
+                              ("highest", "precomputed")):
+        pb = bp4.build(s, p, torch.float32, precision, factor="dense",
+                       metric=metric, windowing="pieces", device=dev)
+        op = pb.op
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x, g, d, h = [(torch.randn((3,) + op.n_nodes_axis, generator=gen,
+                                   device=dev) * op.mask).contiguous()
+                      for _ in range(4)]
+        prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
+        scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                            device=dev)
+        o, work = torch.empty_like(d), fk.Workspace(op)
+        bufs = tuple(torch.empty_like(t) for t in (x, g, d, h, scal))
+        tag = f"p{p} {precision} {metric}"
+        out[f"B1 {tag}"] = timing.time_per_call(
+            lambda: fk.matvec(op, d, out=o, work=work), dev, inner=20,
+            repeats=5) * 1e3
+        out[f"B2 {tag}"] = timing.time_per_call(
+            lambda: fk.fused_cg_iteration(op, x, g, d, h, scal, prec,
+                                          out=bufs, work=work), dev,
+            inner=20, repeats=5) * 1e3
+        if metric == "precomputed" and precision == "split2m":
+            out[f"B5 {tag}"] = timing.time_per_call(
+                lambda: la.apply_lattice_pieces(op, d), dev, inner=20,
+                repeats=5) * 1e3
+        del pb, op, x, g, d, h, prec, o, work, bufs
+        torch.cuda.empty_cache()
+print(json.dumps(out))
+'''
+
+
 def _copy(name: str, patches) -> Path:
     dst = ROOT / name
     if dst.exists():
@@ -596,7 +644,7 @@ def main(argv: list[str] | None = None) -> None:
     others = {Path(w).name: Path(w).resolve() for w in which
               if Path(w).is_dir()}
     for mode, code in (("rebuilt", _TIME_REBUILT), ("sumfac", _TIME_SUMFAC),
-                       ("paths", _TIME_PATHS)):
+                       ("paths", _TIME_PATHS), ("dense", _TIME_DENSE)):
         if mode in which:
             names = sf_names or (["sf_base"] if others or mode != "sumfac"
                                  else list(SUMFAC))

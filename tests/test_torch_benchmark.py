@@ -63,15 +63,19 @@ def test_run_one_refuses_without_card_and_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         benchmark.run_one(4, 3, solver="merged", windowing="matmul",
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        benchmark.run_one(4, 3, solver="fused", precision="highest",
-                          windowing="pieces",
-                          device="cpu")  # resolves to dense + precomputed
+    for p, kw in ((5, {}),  # p >= 5 (twostage + onthefly + jtj)
+                  (4, {"factor": "twostage", "metric": "precomputed"}),
+                  (3, {"factor": "twostage", "metric": "onthefly"})):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            benchmark.run_one(p, 3, solver="fused", precision="split2m",
+                              windowing="pieces", device="cpu", **kw)
     with pytest.raises(ValueError, match="pieces"):
         benchmark.run_one(4, 3, solver="fused", precision="split2m",
                           device="cpu")  # the JAX CLI's refusal too
     for kw in ({"solver": "fused", "precision": "split2m",
                 "windowing": "pieces"},
+               {"solver": "fused", "precision": "highest",
+                "windowing": "pieces"},  # resolves to dense + precomputed
                {"solver": "merged"}, {"solver": "baseline",
                                       "windowing": "zslab"}):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -110,7 +114,7 @@ def test_cli_defaults_match_jax(monkeypatch):
 
 def test_imports_no_jax():
     code = ("import sys\n"
-            "import mf_data_locality_tpu_torch, "
+            "import bench_torch, mf_data_locality_tpu_torch, "
             "mf_data_locality_tpu_torch.benchmark, "
             "mf_data_locality_tpu_torch.solvers.cg_fused, "
             "mf_data_locality_tpu_torch.solvers.cg_merged, "

@@ -303,3 +303,58 @@ def test_run_one_merged_and_baseline_on_card(cuda_device):
                               device=cuda_device)
             for solver in ("merged", "baseline")]
     assert all(r.converged and r.time_per_it > 0 for r in rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precision", RUNGS)
+@pytest.mark.parametrize("metric", ["precomputed", "onthefly"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_dense_fused_kernels_match_plain_and_repeat(cuda_device, p, metric,
+                                                    dtype, precision):
+    """B1 and B2 in the dense configurations of the fused solver — the
+    sum-factorized pass under f32/f64 highest, the dense tensor-core pass
+    under f32 split2m, the metric streamed or rebuilt — on 3 x 5 x 7 = 105
+    cells (a ragged last block) at every degree: against their plain
+    versions, each twice and bitwise equal."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(layout, dtype, precision, factor="dense",
+                                    metric=metric, windowing="pieces",
+                                    device=cuda_device)
+    prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+    (u,) = _state(op, 1, seed=50 + p)
+    before = fk.matvec.launches
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert fk.matvec.launches == before + 2
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[dtype]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=60 + p)
+    scal = torch.tensor(SCAL, dtype=dtype, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[dtype]
+    scal_tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < scal_tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precision", RUNGS)
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_run_one_fused_every_degree_on_card(cuda_device, p, dtype,
+                                            precision):
+    """The fused solver at every degree through the auto-dispatch (dense +
+    precomputed under highest; under split2m dense + precomputed at p=1, 3,
+    dense + onthefly at p=2, twostage + onthefly at p=4): B1 and B2
+    launch, and the solve converges."""
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    r = benchmark.run_one(p, 5, solver="fused", dtype=dtype,
+                          precision=precision, windowing="pieces",
+                          solve_repeats=1, matvec_repeats=1, matvec_inner=5,
+                          device=cuda_device)
+    assert fk.matvec.launches > before[0]
+    assert fk.fused_cg_iteration.launches > before[1]
+    assert r.converged and r.time_per_it > 0 and r.time_per_matvec > 0

@@ -118,8 +118,8 @@ def test_operator_rejects_unported_configurations():
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
-    for kw in ({**fused, "metric": "precomputed"},
-               {**fused, "factor": "dense"},
+    for kw in ({**fused, "precision": "split2m", "metric": "precomputed"},
+               {**fused, "windowing": "reshape"},
                {**fused, "cofactor": "jtj"},
                {"precision": "split3"},
                {**fused, "precision": "split3"},
