@@ -15,15 +15,19 @@ Usage (the reference's positional CLI, ``benchmark.h:280-288``)::
        [--dtype f32|f64]
 
 The defaults are the JAX CLI's: the merged CG on the cell-batched operator
-(``--windowing reshape``, kernel B3) at ``--precision highest``.  The
-fused solver needs ``--windowing pieces`` and runs at degrees 1..4 on the
-configurations the resolvers give it (``laplace_cuda.fused_configs``):
-dense or twostage, the metric streamed or rebuilt (adjj), every pair under
-``highest``, the dense pair and twostage + onthefly at p=4 under
-``split2m``.  Other unported choices raise NotImplementedError
-(ROADMAP.md, queues A and B): split2m twostage at p != 4 or with the
-streamed metric, ``--cofactor jtj``, the split3 and bf16 rungs, p >= 5.
-``s < 1`` runs the reference's auto size ladder.
+(``--windowing reshape``, kernel B3) at ``--precision highest``, at every
+degree of the reference's table, 1..11.  The fused solver needs
+``--windowing pieces`` and runs on the configurations the resolvers give
+it (``laplace_cuda.fused_configs``): under ``highest`` (f32, f64) at
+degrees 1..11 every (factor, metric) pair — dense or twostage, the metric
+streamed or rebuilt by either chain, ``--cofactor adjj|jtj`` (the auto
+path at p >= 5 is twostage + the streamed metric) —; under ``split2m``
+at degrees 1..4 the dense pair and twostage + onthefly at p=4 (adjj).
+Other unported choices raise NotImplementedError naming their ROADMAP
+item (queues A and B), with no fallback to another rung or to the plain
+version: ``split2m`` at p >= 5 or with jtj, split2m twostage at p != 4 or
+with the streamed metric, the split3 and bf16 rungs.  ``s < 1`` runs the
+reference's auto size ladder.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -349,11 +353,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--factor", choices=["auto", "dense", "twostage"],
                     default="auto",
                     help="contraction factorization: dense (the apply "
-                         "family; the fused solver at p=1..4) or twostage "
-                         "(the fused solver; under split2m at p=4 only)")
+                         "family, or the fused solver) or twostage (the "
+                         "fused solver; under split2m at p=4 only)")
     ap.add_argument("--cofactor", choices=["auto", "adjj", "jtj"],
                     default="auto",
-                    help="onthefly inversion chain; the port has adjj only")
+                    help="onthefly inversion chain of the fused solver "
+                         "(jtj under highest only; B4 always runs adjj)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

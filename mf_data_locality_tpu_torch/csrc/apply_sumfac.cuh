@@ -40,7 +40,9 @@
 //   backward  the transposes in reverse order: z, then y, then x
 //
 // Layout: one block is BC cells (8 f32, 4 f64: one 32-byte sector of every
-// cell-fastest row) times the Q^2 (qy, qx) columns of a cell, the cell the
+// cell-fastest row; from p=7 fewer, SumfacCells, so that the block's
+// shared memory fits in 227 KB) times the Q^2 (qy, qx) columns of a cell,
+// the cell the
 // fastest thread index, so the metric or coefficients, the batched u and v
 // are read and written a full sector per 8 (4) threads.  A thread owns one
 // column and carries the z direction in registers ("2D threads, z in
@@ -58,7 +60,8 @@
 //             1,296 at p=4) copied to shared memory; in the prologue, while
 //             component 0's input arrives, each thread rebuilds G at its
 //             own Q slots by onthefly_metric (J = pds . c24 in exact FMA at
-//             the working type, the adjugate, G = w adj adj^T / det), once
+//             the working type, then the chain a.cofactor: the adjugate,
+//             G = w adj adj^T / det, or jtj; uniform over the block), once
 //             per (cell, q-point) for the three components, as _kernel does
 //             (laplace_pallas.py:558-560); the slots are thread-private, so
 //             the rebuild needs only the coefficients' barrier.  The pds
@@ -87,6 +90,11 @@
 // in f32) is bound by its operations, 18.5 us (f64 37 us); B1 (14 MB) by
 // its operations too, B2 (55 MB) by its bytes, 16.5 us.  The measured times
 // and what holds them are in PERF.md.
+//
+// Degrees 5..11: p=5, 6 keep the layout (one 118-179 KB block an SM); from
+// p=7 BC halves (f32 4 at p=7, 8; 2 at p=9..11) and one block of 121-400
+// threads runs an SM, so these degrees are latency-bound (PERF.md: 10-26%
+// of the bound at p=6 and p=8).
 
 #pragma once
 
@@ -96,13 +104,31 @@
 
 namespace bp4 {
 
-template <typename T>
+constexpr size_t kSmemBlock = 232448;  // shared memory a block may use
+constexpr size_t kSmemSm = 233472;     // an SM's, 1 KB of it a block's own
+
+// Cells a block: 8 f32 (4 f64), one 32-byte sector of every cell-fastest
+// row, halved from p=7 on until the block's shared memory (SumfacSmem with
+// the coefficients) fits in kSmemBlock: f32 4 at p=7, 8; 2 at p=9..11 (f64
+// half as many).
+template <typename T, int P>
+constexpr size_t sumfac_bytes(int bc) {
+  using S = Shape<P>;
+  return sizeof(T) *
+         (static_cast<size_t>(bc) * (6 * S::Q3 + 2 * S::P12 * S::Q +
+                                     3 * S::P1 * S::Q2 + S::P13 + 24) +
+          2 * S::Q * S::P1 + 4);
+}
+template <typename T, int P>
+constexpr int sumfac_cells() {
+  int bc = 32 / static_cast<int>(sizeof(T));
+  while (bc > 1 && sumfac_bytes<T, P>(bc) > kSmemBlock) bc /= 2;
+  return bc;
+}
+template <typename T, int P>
 struct SumfacCells {
-  static constexpr int N = 8;
-};
-template <>
-struct SumfacCells<double> {
-  static constexpr int N = 4;
+  static constexpr int N = sumfac_cells<T, P>();
+  static_assert(sumfac_bytes<T, P>(N) <= kSmemBlock, "no layout fits");
 };
 
 // What the pass reads and writes, device pointers at the working type T.
@@ -118,12 +144,13 @@ struct SumfacArgs {
   const T* mask;     // B6's mask tensor; null: the box's mask from the indices
   CellIo<T> io;      // io.d the input; kLatticeUpdate: update4b's vectors
   T* out;
+  int cofactor;      // rebuilt: the inversion chain, kAdjj or kJtj
 };
 
 template <typename T, int P, bool REBUILD>
 struct SumfacSmem {
   using S = Shape<P>;
-  static constexpr int BC = SumfacCells<T>::N;
+  static constexpr int BC = SumfacCells<T, P>::N;
   static constexpr int kThreads = S::Q2 * BC;
   T g[6][S::Q3][BC];               // the block's metric, entries 00 .. 22
   T x[2][S::P1][S::P1][S::Q][BC];  // x-direction partials (S, D): (kz, ky, qx)
@@ -193,10 +220,18 @@ struct SumfacInput {
   }
 };
 
-// Three blocks an SM (73.4 KB of shared memory each at p=4 with the rebuilt
-// metric, 72.6 KB streamed) cap a thread at 72 registers in f32.
+// Blocks an SM: three at p <= 4 (73.4 KB of shared memory each at p=4 with
+// the rebuilt metric, 72.6 KB streamed), which cap a thread at 72
+// registers in f32; from p=5 as many as the shared memory holds, one.
+template <typename T, int P, bool REBUILD>
+constexpr int sumfac_blocks() {
+  const size_t n = kSmemSm / (sizeof(SumfacSmem<T, P, REBUILD>) + 1024);
+  return n < 3 ? static_cast<int>(n) : 3;
+}
+
 template <typename T, int P, int FORM, bool REBUILD>
-__global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads, 3)
+__global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
+                                  sumfac_blocks<T, P, REBUILD>())
     apply_sumfac_kernel(SumfacArgs<T> a, Grid gr) {
   using S = Shape<P>;
   using Sm = SumfacSmem<T, P, REBUILD>;
@@ -250,7 +285,10 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads, 3)
       const int qp = qz * Q2 + col;
       T pq[24], gm[6];
       load_pds_row(a.pds + qp * 24, pq);
-      onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
+      if (a.cofactor == kJtj)
+        onthefly_metric<BC, kJtj>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
+      else
+        onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
 #pragma unroll
       for (int e = 0; e < 6; ++e) sm.g[e][qp][b] = gm[e];
     }
@@ -422,8 +460,8 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads, 3)
 }
 
 template <typename T, int P, int FORM, bool REBUILD>
-cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
-                          cudaStream_t st) {
+cudaError_t launch_sumfac_here(const SumfacArgs<T>& a, const Grid& gr,
+                               cudaStream_t st) {
   using Sm = SumfacSmem<T, P, REBUILD>;
   auto kern = apply_sumfac_kernel<T, P, FORM, REBUILD>;
   // above 48 KB a block's shared memory must be requested explicitly
@@ -434,5 +472,46 @@ cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
   kern<<<blocks, Sm::kThreads, sizeof(Sm), st>>>(a, gr);
   return cudaGetLastError();
 }
+
+// The pass of one form.  Degrees 1..4 are instantiated where they are
+// called (laplace_apply.cu, cg_fused.cu); degrees 5..11, the largest
+// unrolled instantiations, in one source a degree (sumfac_p05.cu ..
+// sumfac_p11.cu, BP4_SUMFAC_DEGREE), which nvcc compiles in parallel with
+// the others: the declarations below keep the callers from instantiating
+// them.
+template <typename T, int P, int FORM, bool REBUILD>
+cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
+                          cudaStream_t st) {
+  return launch_sumfac_here<T, P, FORM, REBUILD>(a, gr, st);
+}
+
+#define BP4_SUMFAC_FORM_DECLARE(T, P, FORM, REBUILD)    \
+  template <>                                           \
+  cudaError_t launch_sumfac<T, P, FORM, REBUILD>(       \
+      const SumfacArgs<T>& a, const Grid& gr, cudaStream_t st);
+#define BP4_SUMFAC_FORM_DEFINE(T, P, FORM, REBUILD)                  \
+  template <>                                                        \
+  cudaError_t launch_sumfac<T, P, FORM, REBUILD>(                    \
+      const SumfacArgs<T>& a, const Grid& gr, cudaStream_t st) {     \
+    return launch_sumfac_here<T, P, FORM, REBUILD>(a, gr, st);       \
+  }
+#define BP4_SUMFAC_FORMS(P, M)                                        \
+  M(float, P, kCellBatch, false) M(float, P, kCellBatch, true)        \
+  M(float, P, kLattice, false) M(float, P, kLattice, true)            \
+  M(float, P, kLatticeUpdate, false) M(float, P, kLatticeUpdate, true) \
+  M(double, P, kCellBatch, false) M(double, P, kCellBatch, true)      \
+  M(double, P, kLattice, false) M(double, P, kLattice, true)          \
+  M(double, P, kLatticeUpdate, false) M(double, P, kLatticeUpdate, true)
+#define BP4_SUMFAC_DECLARE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DECLARE)
+// the definitions of degree P's forms, in its own source
+#define BP4_SUMFAC_DEGREE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DEFINE)
+
+BP4_SUMFAC_DECLARE(5)
+BP4_SUMFAC_DECLARE(6)
+BP4_SUMFAC_DECLARE(7)
+BP4_SUMFAC_DECLARE(8)
+BP4_SUMFAC_DECLARE(9)
+BP4_SUMFAC_DECLARE(10)
+BP4_SUMFAC_DECLARE(11)
 
 }  // namespace bp4

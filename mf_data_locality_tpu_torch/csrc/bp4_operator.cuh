@@ -13,7 +13,8 @@
 //   z stage     uS[qz] = sum_kz Sz[qz,kz] u[kz],  uD[qz] = sum_kz Dz[qz,kz] u[kz]
 //   2D stage    gx, gy = [Dx2d; Dy2d] uS[qz],     gz = S2d uD[qz]
 //   metric      J = pds . c24 (trilinear Jacobian), adj = det(J) J^-1,
-//               G = w3 adj adj^T / det            (adjugate chain, "adjj")
+//               G = w3 adj adj^T / det            (adjugate chain, "adjj"),
+//               or C = J^T J, G = w3 adj(C) / sqrt(det C)  ("jtj", :219-241)
 //   apply       t = G [gx, gy, gz]
 //   backward    w1 = [Dx2d; Dy2d]^T [t0; t1],     w2 = S2d^T t2
 //               v[kz] = sum_qz Sz[qz,kz] w1[qz] + Dz[qz,kz] w2[qz]
@@ -104,12 +105,23 @@ __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
   return node;
 }
 
+// Inversion chains of the rebuilt metric (benchmark.resolve_cofactor):
+// "adjj" the adjugate of J, G = w adj adj^T / det J (the reference's
+// do_invert form); "jtj" C = J^T J, G = w adj(C) / sqrt(det C)
+// (cg_fused_kernel.py:219-241).  The two are one metric where det J > 0;
+// models/bp4.build refuses jtj on a mesh with det J <= 0 at a q-point.
+enum : int { kAdjj = 0, kJtj = 1 };
+
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
 // Metric entries (00, 01, 02, 11, 12, 22) at one q-point, rebuilt from the
-// cell's 24 trilinear coefficients: J = pds . c24 in exact FMA, the adjugate
-// chain ("adjj"), G = w adj adj^T / det.  `pq` is the q-point's row of pds
-// (d(monomial k)/d(u_e) at e*8 + k), `c24` holds coordinate d's coefficient
-// k at (d*8 + k) STRIDE.
-template <int STRIDE = 1, typename T>
+// cell's 24 trilinear coefficients: J = pds . c24 in exact FMA, then the
+// COFACTOR chain.  `pq` is the q-point's row of pds (d(monomial k)/d(u_e)
+// at e*8 + k), `c24` holds coordinate d's coefficient k at (d*8 + k)
+// STRIDE.  A zero Jacobian (a cell past the end) gives G = 0: adjj guards
+// det = 0, jtj det C <= 0, as the TPU kernel does for its padded rows.
+template <int STRIDE = 1, int COFACTOR = kAdjj, typename T>
 __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
                                                 T w, T* g) {
   T J[3][3];
@@ -123,21 +135,39 @@ __device__ __forceinline__ void onthefly_metric(const T* pq, const T* c24,
         a = fma(pq[e * 8 + k], c24[(d * 8 + k) * STRIDE], a);
       J[d][e] = a;
     }
-  const T a = J[0][0], b = J[0][1], c = J[0][2];
-  const T d = J[1][0], e = J[1][1], f = J[1][2];
-  const T gg = J[2][0], h = J[2][1], i = J[2][2];
-  const T adj[3][3] = {{e * i - f * h, c * h - b * i, b * f - c * e},
-                       {f * gg - d * i, a * i - c * gg, c * d - a * f},
-                       {d * h - e * gg, b * gg - a * h, a * e - b * d}};
-  const T det = a * adj[0][0] + b * adj[1][0] + c * adj[2][0];
-  const T scale = w / (det == T(0) ? T(1) : det);
-  int r = 0;
+  if constexpr (COFACTOR == kJtj) {
+    T C[3][3];
 #pragma unroll
-  for (int e0 = 0; e0 < 3; ++e0)
+    for (int e = 0; e < 3; ++e)
 #pragma unroll
-    for (int f0 = e0; f0 < 3; ++f0, ++r)
-      g[r] = (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
-              adj[e0][2] * adj[f0][2]) * scale;
+      for (int f = e; f < 3; ++f)
+        C[e][f] = J[0][e] * J[0][f] + J[1][e] * J[1][f] + J[2][e] * J[2][f];
+    const T c00 = C[0][0], c01 = C[0][1], c02 = C[0][2];
+    const T c11 = C[1][1], c12 = C[1][2], c22 = C[2][2];
+    const T adj[6] = {c11 * c22 - c12 * c12, c02 * c12 - c01 * c22,
+                      c01 * c12 - c02 * c11, c00 * c22 - c02 * c02,
+                      c01 * c02 - c00 * c12, c00 * c11 - c01 * c01};
+    const T det = c00 * adj[0] + c01 * adj[1] + c02 * adj[2];
+    const T scale = w * rsqrt_t(det <= T(0) ? T(1) : det);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) g[r] = adj[r] * scale;
+  } else {
+    const T a = J[0][0], b = J[0][1], c = J[0][2];
+    const T d = J[1][0], e = J[1][1], f = J[1][2];
+    const T gg = J[2][0], h = J[2][1], i = J[2][2];
+    const T adj[3][3] = {{e * i - f * h, c * h - b * i, b * f - c * e},
+                         {f * gg - d * i, a * i - c * gg, c * d - a * f},
+                         {d * h - e * gg, b * gg - a * h, a * e - b * d}};
+    const T det = a * adj[0][0] + b * adj[1][0] + c * adj[2][0];
+    const T scale = w / (det == T(0) ? T(1) : det);
+    int r = 0;
+#pragma unroll
+    for (int e0 = 0; e0 < 3; ++e0)
+#pragma unroll
+      for (int f0 = e0; f0 < 3; ++f0, ++r)
+        g[r] = (adj[e0][0] * adj[f0][0] + adj[e0][1] * adj[f0][1] +
+                adj[e0][2] * adj[f0][2]) * scale;
+  }
 }
 
 // The pds row of one q-point (24 words, 16-byte aligned) by 16-byte loads.

@@ -3,9 +3,9 @@
 // Replace the TPU kernels of mf_data_locality_tpu/ops/cg_fused_kernel.py:
 //   B1  piece_vmult -> _matvec_kernel        (pallas_call at :1116)
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call at :1476)
-// at degrees 1..4, in the configurations the JAX auto-dispatch gives the
-// fused solver there (laplace_cuda.fused_configs): the dense factorization
-// or twostage, the metric streamed or rebuilt by the adjj chain
+// at degrees 1..11, in the configurations of laplace_cuda.fused_configs
+// (the JAX auto-dispatch's among them): the dense factorization or
+// twostage, the metric streamed or rebuilt by the adjj or the jtj chain
 // (bp4_operator.cuh).
 //
 // State is the lattice (C, Nz, Ny, Nx), not the TPU's corner-piece rows.
@@ -30,17 +30,18 @@
 // read each +1 plane before it was overwritten (cg_fused_kernel.py:820-829).
 //
 // The cell pass, by configuration:
-//   "highest" (f32, f64), any factorization and metric source: the
-//     sum-factorized pass of apply_sumfac.cuh in its lattice forms (B1: the
-//     gather masked from the indices, as B5; B2: update4b at the gathered
-//     nodes), 8 f32 (4 f64) cells a block, the metric streamed or rebuilt
-//     from the coefficients.  Under "highest" the dense and twostage
-//     operators are one function; this pass sums it in its own order.
-//   f32 "split2m", dense: the tensor-core pass of apply_mma.cuh in its
-//     lattice forms, 32 cells a block, the metric streamed or rebuilt per
-//     chunk of 16 q-points into shared memory.
-//   f32 "split2m", twostage + onthefly, p=4: one block per 16 cells, the 2D
-//     stage on the tensor cores (cell_mma.cuh).
+//   "highest" (f32, f64), any factorization and metric source, p=1..11:
+//     the sum-factorized pass of apply_sumfac.cuh in its lattice forms
+//     (B1: the gather masked from the indices, as B5; B2: update4b at the
+//     gathered nodes), 8 f32 (4 f64) cells a block (fewer from p=7), the
+//     metric streamed or rebuilt from the coefficients by either chain.
+//     Under "highest" the dense and twostage operators are one function;
+//     this pass sums it in its own order.
+//   f32 "split2m", dense, p=1..4: the tensor-core pass of apply_mma.cuh in
+//     its lattice forms, 32 cells a block, the metric streamed or rebuilt
+//     (adjj) per chunk of 16 q-points into shared memory.
+//   f32 "split2m", twostage + onthefly (adjj), p=4: one block per 16
+//     cells, the 2D stage on the tensor cores (cell_mma.cuh).
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -62,20 +63,22 @@
 namespace bp4 {
 
 // The cell pass of B1 (FUSED false) or B2 for the configuration (split,
-// dense, tb.gmetric null or not); each writes the masked cell-local result
-// to cells[(c * n_cells + cell) * P13 + l].  -1: no instantiation.
+// dense, cofactor, tb.gmetric null or not); each writes the masked
+// cell-local result to cells[(c * n_cells + cell) * P13 + l].  -1: no
+// instantiation (the tensor-core passes: p <= 4 and adjj only).
 template <typename T, int P, bool FUSED>
-cudaError_t launch_cells(int split, int dense, const OpTables<T>& tb,
-                         const Grid& gr, const CellIo<T>& io, T* cells,
-                         cudaStream_t st) {
+cudaError_t launch_cells(int split, int dense, int cofactor,
+                         const OpTables<T>& tb, const Grid& gr,
+                         const CellIo<T>& io, T* cells, cudaStream_t st) {
   constexpr int FORM = FUSED ? kLatticeUpdate : kLattice;
   if (!split) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
-                          tb.coeffs, nullptr, io,         cells};
+                          tb.coeffs, nullptr, io,         cells,  cofactor};
     return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
                       : launch_sumfac<T, P, FORM, true>(a, gr, st);
   }
-  if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float> && P <= 4) {
+    if (cofactor != kAdjj) return static_cast<cudaError_t>(-1);
     if (dense) {
       // the forward table, then the backward one (laplace_cuda.mma_tables)
       const auto mf = reinterpret_cast<const uint2*>(tb.mats);
@@ -136,27 +139,27 @@ __global__ void __launch_bounds__(kNodeThreads)
 
 template <typename T, int P>
 struct Launch {
-  static int matvec(int split, int dense, const OpTables<T>& tb,
-                    const Grid& gr, const T* d, T* cells, T* h,
-                    cudaStream_t st) {
+  static int matvec(int split, int dense, int cofactor,
+                    const OpTables<T>& tb, const Grid& gr, const T* d,
+                    T* cells, T* h, cudaStream_t st) {
     CellIo<T> io{};
     io.d = d;
-    cudaError_t e =
-        launch_cells<T, P, false>(split, dense, tb, gr, io, cells, st);
+    cudaError_t e = launch_cells<T, P, false>(split, dense, cofactor, tb, gr,
+                                              io, cells, st);
     if (e != cudaSuccess) return e;
     assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
         gr, cells, h, nullptr, nullptr, nullptr, nullptr);
     return cudaGetLastError();
   }
 
-  static int fused(int split, int dense, const OpTables<T>& tb,
-                   const Grid& gr, const T* x, const T* g, const T* d,
-                   const T* h, const T* prec, const T* scal, T* x2, T* g2,
-                   T* d2, T* h2, T* scal2, T* cells, T* partials,
-                   cudaStream_t st) {
+  static int fused(int split, int dense, int cofactor,
+                   const OpTables<T>& tb, const Grid& gr, const T* x,
+                   const T* g, const T* d, const T* h, const T* prec,
+                   const T* scal, T* x2, T* g2, T* d2, T* h2, T* scal2,
+                   T* cells, T* partials, cudaStream_t st) {
     const CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
-    cudaError_t e =
-        launch_cells<T, P, true>(split, dense, tb, gr, io, cells, st);
+    cudaError_t e = launch_cells<T, P, true>(split, dense, cofactor, tb, gr,
+                                             io, cells, st);
     if (e != cudaSuccess) return e;
     const int nb = node_blocks(gr);
     assemble_kernel<T, P, true><<<nb, kNodeThreads, 0, st>>>(
@@ -191,13 +194,30 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; f32 and
-// f64 "highest" (mats unused, coeffs (24, n_cells)), f32 "split2m" (split
-// = 1): dense (dense = 1: mats the bf16 fragment tables of apply_mma.cuh,
-// coeffs (24, n_cells)) and, at degree 4, twostage with the rebuilt metric
-// (dense = 0: mats the bf16 fragment tables of cell_mma.cuh, coeffs
-// (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), or null
-// for the metric rebuilt from the coefficients.
+// return F(T, P) for P = degree, 1..11
+#define BP4_SWITCH_DEGREE(F, T)                          \
+  switch (degree) {                                      \
+    case 1: return F(T, 1);                              \
+    case 2: return F(T, 2);                              \
+    case 3: return F(T, 3);                              \
+    case 4: return F(T, 4);                              \
+    case 5: return F(T, 5);                              \
+    case 6: return F(T, 6);                              \
+    case 7: return F(T, 7);                              \
+    case 8: return F(T, 8);                              \
+    case 9: return F(T, 9);                              \
+    case 10: return F(T, 10);                            \
+    case 11: return F(T, 11);                            \
+  }
+
+// dtype: 0 = float32, 1 = float64.  Instantiated: f32 and f64 "highest"
+// at degrees 1..11 (mats unused, coeffs (24, n_cells)); f32 "split2m"
+// (split = 1) at degrees 1..4 with cofactor adjj: dense (dense = 1: mats
+// the bf16 fragment tables of apply_mma.cuh, coeffs (24, n_cells)) and, at
+// degree 4, twostage with the rebuilt metric (dense = 0: mats the bf16
+// fragment tables of cell_mma.cuh, coeffs (n_cells, 24)).  gmetric: the
+// streamed metric (6 Q3, n_cells), or null for the metric rebuilt from the
+// coefficients by the chain `cofactor` (0 adjj, 1 jtj).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {
@@ -208,24 +228,19 @@ const char* bp4_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int bp4_matvec(int dtype, int split, int degree, int dense, const void* mats,
-               const void* sz, const void* dz, const void* pds, const void* w3,
-               const void* coeffs, const void* gmetric, const void* d,
-               void* cells, void* h, int ncz, int ncy, int ncx, void* stream) {
+int bp4_matvec(int dtype, int split, int degree, int dense, int cofactor,
+               const void* mats, const void* sz, const void* dz,
+               const void* pds, const void* w3, const void* coeffs,
+               const void* gmetric, const void* d, void* cells, void* h,
+               int ncz, int ncy, int ncx, void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_MATVEC(T, P)                                                      \
-  Launch<T, P>::matvec(split, dense,                                          \
+  Launch<T, P>::matvec(split, dense, cofactor,                                \
                        tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric), gr, \
                        static_cast<const T*>(d), static_cast<T*>(cells),      \
                        static_cast<T*>(h), st)
-#define BP4_DEGREES(T)                   \
-  switch (degree) {                      \
-    case 1: return BP4_MATVEC(T, 1);     \
-    case 2: return BP4_MATVEC(T, 2);     \
-    case 3: return BP4_MATVEC(T, 3);     \
-    case 4: return BP4_MATVEC(T, 4);     \
-  }
+#define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_MATVEC, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !split) BP4_DEGREES(double)
 #undef BP4_DEGREES
@@ -234,31 +249,27 @@ int bp4_matvec(int dtype, int split, int degree, int dense, const void* mats,
 }
 
 int bp4_fused_iteration(int dtype, int split, int degree, int dense,
-                        const void* mats, const void* sz, const void* dz,
-                        const void* pds, const void* w3, const void* coeffs,
-                        const void* gmetric, const void* x, const void* g,
-                        const void* d, const void* h, const void* prec,
-                        const void* scal, void* x2, void* g2, void* d2,
-                        void* h2, void* scal2, void* cells, void* partials,
-                        int ncz, int ncy, int ncx, void* stream) {
+                        int cofactor, const void* mats, const void* sz,
+                        const void* dz, const void* pds, const void* w3,
+                        const void* coeffs, const void* gmetric,
+                        const void* x, const void* g, const void* d,
+                        const void* h, const void* prec, const void* scal,
+                        void* x2, void* g2, void* d2, void* h2, void* scal2,
+                        void* cells, void* partials, int ncz, int ncy,
+                        int ncx, void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_FUSED(T, P)                                                       \
   Launch<T, P>::fused(                                                        \
-      split, dense, tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric), gr,    \
+      split, dense, cofactor,                                                 \
+      tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric), gr,                  \
       static_cast<const T*>(x), static_cast<const T*>(g),                     \
       static_cast<const T*>(d), static_cast<const T*>(h),                     \
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
       static_cast<T*>(x2), static_cast<T*>(g2), static_cast<T*>(d2),          \
       static_cast<T*>(h2), static_cast<T*>(scal2), static_cast<T*>(cells),    \
       static_cast<T*>(partials), st)
-#define BP4_DEGREES(T)                  \
-  switch (degree) {                     \
-    case 1: return BP4_FUSED(T, 1);     \
-    case 2: return BP4_FUSED(T, 2);     \
-    case 3: return BP4_FUSED(T, 3);     \
-    case 4: return BP4_FUSED(T, 4);     \
-  }
+#define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !split) BP4_DEGREES(double)
 #undef BP4_DEGREES

@@ -9,13 +9,14 @@
 //   B6  apply_lattice_zslab  -> _kernel_g_zslab                 (pallas_call :664)
 //
 // Which cell pass runs (precision: laplace_pallas._mm):
-//   B3, B5, B6  "highest", f32 or f64: the sum-factorized pass on the CUDA
-//               cores with the metric streamed, apply_sumfac.cuh;
-//               f32 "split2m": the tensor-core pass, apply_mma.cuh;
+//   B3, B5, B6  "highest", f32 or f64, p=1..11: the sum-factorized pass on
+//               the CUDA cores with the metric streamed, apply_sumfac.cuh;
+//               f32 "split2m", p=1..4: the tensor-core pass, apply_mma.cuh;
 //   B4          every rung, exact at the working type as _kernel
-//               (Precision.HIGHEST, :529): the sum-factorized pass with the
-//               metric rebuilt per (cell, q-point) from the 24 trilinear
-//               coefficients, apply_sumfac.cuh.
+//               (Precision.HIGHEST, :529), p=1..11: the sum-factorized pass
+//               with the metric rebuilt per (cell, q-point) from the 24
+//               trilinear coefficients by the adjj chain (_kernel has no
+//               other), apply_sumfac.cuh.
 // B5 and B6 write masked cell-local values to scratch; the assemble pass
 // (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
 // order (no atomics).  The TPU kernels walk z-cell layers in order carrying
@@ -53,7 +54,7 @@ cudaError_t metric_pass(int split, const void* m0, const void* m1,
     return launch_sumfac<T, P, LATTICE ? kLattice : kCellBatch, false>(a, gr,
                                                                        st);
   }
-  if constexpr (std::is_same_v<T, float>)
+  if constexpr (std::is_same_v<T, float> && P <= 4)
     return launch_mma<P, LATTICE ? kLattice : kCellBatch, false>(
         m0, m1, gm, gr, mm, uu, oo, MmaFusedArgs{}, st);
   return static_cast<cudaError_t>(-1);
@@ -70,6 +71,7 @@ cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
                   static_cast<const T*>(coeffs)};
   a.io.d = static_cast<const T*>(u);
   a.out = static_cast<T*>(out);
+  a.cofactor = kAdjj;
   return launch_sumfac<T, P, kCellBatch, true>(a, gr, st);
 }
 
@@ -128,11 +130,27 @@ int lattice_for_degree(int dtype, int split, const void* mats,
 
 }  // namespace bp4
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: degrees 1..4; "highest"
-// f32 and f64 (B3, B5, B6: the sum-factorized pass, mats = S, kmats = D),
-// f32 split2m (B3, B5, B6: the tensor-core pass, mats/kmats = its fragment
-// tables); B4 (onthefly: the sum-factorized pass, mats = S, kmats = D, pds
-// (Q3, 24), w3, coeffs (24, n_cells)) ignores split.
+// dtype: 0 = float32, 1 = float64.  Instantiated: "highest" f32 and f64 at
+// degrees 1..11 (B3, B5, B6: the sum-factorized pass, mats = S, kmats =
+// D), f32 split2m at degrees 1..4 (B3, B5, B6: the tensor-core pass,
+// mats/kmats = its fragment tables); B4 (onthefly: the sum-factorized pass,
+// mats = S, kmats = D, pds (Q3, 24), w3, coeffs (24, n_cells)) at degrees
+// 1..11 ignores split.
+#define BP4_SWITCH_DEGREE(F)     \
+  switch (degree) {              \
+    case 1: return F(1);         \
+    case 2: return F(2);         \
+    case 3: return F(3);         \
+    case 4: return F(4);         \
+    case 5: return F(5);         \
+    case 6: return F(6);         \
+    case 7: return F(7);         \
+    case 8: return F(8);         \
+    case 9: return F(9);         \
+    case 10: return F(10);       \
+    case 11: return F(11);       \
+  }
+
 extern "C" {
 
 int bp4_apply_batched(int dtype, int split, int degree, int onthefly,
@@ -143,12 +161,7 @@ int bp4_apply_batched(int dtype, int split, int degree, int onthefly,
 #define BP4_BATCHED(P)                                                       \
   bp4::batched_for_degree<P>(dtype, split, onthefly, mats, kmats, gmetric,   \
                              pds, w3, coeffs, u, v, n_cells, st)
-  switch (degree) {
-    case 1: return BP4_BATCHED(1);
-    case 2: return BP4_BATCHED(2);
-    case 3: return BP4_BATCHED(3);
-    case 4: return BP4_BATCHED(4);
-  }
+  BP4_SWITCH_DEGREE(BP4_BATCHED)
 #undef BP4_BATCHED
   return -1;
 }
@@ -163,12 +176,7 @@ int bp4_apply_lattice(int dtype, int split, int degree, const void* mats,
 #define BP4_LATTICE(P)                                                       \
   bp4::lattice_for_degree<P>(dtype, split, mats, kmats, gmetric, mask, u,    \
                              cells, v, gr, st)
-  switch (degree) {
-    case 1: return BP4_LATTICE(1);
-    case 2: return BP4_LATTICE(2);
-    case 3: return BP4_LATTICE(3);
-    case 4: return BP4_LATTICE(4);
-  }
+  BP4_SWITCH_DEGREE(BP4_LATTICE)
 #undef BP4_LATTICE
   return -1;
 }

@@ -94,7 +94,11 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     windowings select its other kernels.  ``windowing="pieces"`` with a
     (factor, metric) pair of ``laplace_cuda.fused_configs`` builds the
     fused solver's operator: dense or twostage, the metric streamed or
-    rebuilt (the JAX fused tests' default is the dense, streamed one).
+    rebuilt (the JAX fused tests' default is the dense, streamed one), by
+    ``cofactor`` "adjj" or "jtj".  With jtj the build raises ValueError
+    unless det J > 0 at every quadrature point: jtj scales by |det J|, adjj
+    by det J (``laplace_cuda.check_orientation``; the JAX package does not
+    check).
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     op = laplace_cuda.make_operator(layout, dtype=dtype, precision=precision,
@@ -116,7 +120,7 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
                     mats: np.ndarray | None = None,
                     gmetric: np.ndarray | None = None,
                     factor: str = "twostage", windowing: str = "pieces",
-                    precision: str = "split2m",
+                    cofactor: str = "adjj", precision: str = "split2m",
                     dtype: torch.dtype = torch.float32,
                     device: torch.device | str = "cuda") -> BP4Problem:
     """The port's problem from the JAX package's arrays, passed as numpy.
@@ -130,8 +134,9 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     ``pieces`` the TPU's corner-piece column order of ``mats``
     (``laplace_pallas._piece_perm``) and ``mats2d`` (``_piece_perm2d``) is
     undone.  Matrices not given are built from ``degree``.  ``factor``
-    is the JAX operator's: a fused operator built dense carries its
-    ``mats`` (and ``gmetric`` if streamed) across.
+    and ``cofactor`` are the JAX operator's: a fused operator built dense
+    carries its ``mats`` (and ``gmetric`` if streamed) across; jtj needs
+    det J > 0 at every quadrature point, as in :func:`build`.
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     nc = layout.mesh.n_cells
@@ -151,7 +156,7 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
         mats=canonical(mats, piece_perm(degree)),
         gmetric=(None if gmetric is None else
                  np.asarray(gmetric).reshape(6 * q ** 3, -1)[:, :nc]),
-        factor=factor, windowing=windowing)
+        factor=factor, windowing=windowing, cofactor=cofactor)
     return BP4Problem(
         layout, op,
         torch.tensor(np.asarray(inv_diag)).to(device=device, dtype=dtype),

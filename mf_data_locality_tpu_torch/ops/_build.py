@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels (``csrc/``) at first use.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
-sources at once in parallel processes, and links them into one shared
+sources at once in parallel processes (the sum-factorized pass of each
+degree 5..11 has a source of its own, ``sumfac_pNN.cu``, the largest
+instantiations), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
 the package, under a name keyed by a hash of the sources and flags, so a
@@ -30,8 +32,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bp4_partials_len": (_I, [_I] * 4),
     "bp4_error_string": (ctypes.c_char_p, [_I]),
-    "bp4_matvec": (_I, [_I] * 4 + [_P] * 10 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 4 + [_P] * 20 + [_I] * 3 + [_P]),
+    # dtype, split, degree, dense, cofactor; the tables and vectors; the
+    # cells per axis; the stream
+    "bp4_matvec": (_I, [_I] * 5 + [_P] * 10 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 5 + [_P] * 20 + [_I] * 3 + [_P]),
     "bp4_apply_batched": (_I, [_I] * 4 + [_P] * 8 + [_I] + [_P]),
     "bp4_apply_lattice": (_I, [_I] * 3 + [_P] * 7 + [_I] * 3 + [_P]),
 }

@@ -12,16 +12,18 @@ Vectors are lattices ``(C, Nz, Ny, Nx)`` that vanish on the boundary (the
 solver's invariant); the preconditioner is ``(1, Nz, Ny, Nx)``; ``scal`` is
 the 8-vector (alpha, beta, c1, aob, parity, res2, alpha_old, beta_old).
 
-The operator is the one ``op`` was built with (``op.factor``, ``op.metric``;
-``laplace_cuda.fused_configs``): the dense factorization or twostage, the
-metric streamed (``op.gmetric``) or rebuilt per q-point from the
-coefficients, at degrees 1..4.  Each wrapper runs the hand-written CUDA
+The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
+``op.cofactor``; ``laplace_cuda.fused_configs``): the dense factorization
+or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
+from the coefficients by the adjj or the jtj chain, at degrees 1..11
+(split2m: 1..4, adjj).  Each wrapper runs the hand-written CUDA
 kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
 PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
 for tensors on the CPU; other devices raise.  The kernel's cell pass:
 
 * ``highest`` (f32, f64), every configuration: the sum-factorized pass of
-  ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz``, the metric streamed or
+  ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz`` (degrees 5..11 built in
+  ``csrc/sumfac_p05.cu`` .. ``sumfac_p11.cu``), the metric streamed or
   rebuilt from ``op.coeffs`` — the dense and twostage operators are one
   function, which it sums in another order than the plain versions;
 * f32 ``split2m``, dense: the tensor-core pass of ``csrc/apply_mma.cuh`` on
@@ -58,20 +60,35 @@ def _parts(t: torch.Tensor, split: bool) -> tuple[torch.Tensor, ...]:
     return hi, (t - hi).to(torch.bfloat16).to(t.dtype)
 
 
-def metric_onthefly(op: OperatorData) -> torch.Tensor:
+def metric_onthefly(op: OperatorData,
+                    cofactor: str | None = None) -> torch.Tensor:
     """(6, n_cells, q^3) metric entries (00, 01, 02, 11, 12, 22) rebuilt from
-    the trilinear coefficients: J = pds . c, adjugate chain, G = w adj
-    adj^T / det (``_metric_onthefly``, adjj form; J in exact arithmetic)."""
+    the trilinear coefficients (``_metric_onthefly``; J = pds . c in exact
+    arithmetic) by the chain ``cofactor`` (default ``op.cofactor``): adjj,
+    G = w adj(J) adj(J)^T / det J; jtj, C = J^T J and G = w adj(C) /
+    sqrt(det C), det C <= 0 guarded to 1 (a zero Jacobian gives G = 0)."""
     q3 = op.n_q ** 3
     pds = op.pds.reshape(3, q3, 8)
     J = torch.einsum("eqk,dkn->denq", pds, op.coeffs)  # (3, 3, nc, q3)
+    w = op.w3.reshape(1, q3)
+    if (cofactor or op.cofactor) == "jtj":
+        C = {(e_, f_): J[0][e_] * J[0][f_] + J[1][e_] * J[1][f_]
+             + J[2][e_] * J[2][f_] for e_ in range(3) for f_ in range(e_, 3)}
+        c00, c01, c02 = C[0, 0], C[0, 1], C[0, 2]
+        c11, c12, c22 = C[1, 1], C[1, 2], C[2, 2]
+        adj_c = [c11 * c22 - c12 * c12, c02 * c12 - c01 * c22,
+                 c01 * c12 - c02 * c11, c00 * c22 - c02 * c02,
+                 c01 * c02 - c00 * c12, c00 * c11 - c01 * c01]
+        det_c = c00 * adj_c[0] + c01 * adj_c[1] + c02 * adj_c[2]
+        scale = w * torch.rsqrt(torch.where(det_c <= 0,
+                                            torch.ones_like(det_c), det_c))
+        return torch.stack([r * scale for r in adj_c])
     (a, b, c), (d, e, f), (g, h, i) = J
     adj = [[e * i - f * h, c * h - b * i, b * f - c * e],
            [f * g - d * i, a * i - c * g, c * d - a * f],
            [d * h - e * g, b * g - a * h, a * e - b * d]]
     det = a * adj[0][0] + b * adj[1][0] + c * adj[2][0]
-    scale = op.w3.reshape(1, q3) / torch.where(det == 0, torch.ones_like(det),
-                                               det)
+    scale = w / torch.where(det == 0, torch.ones_like(det), det)
     return torch.stack([(adj[r][0] * adj[s][0] + adj[r][1] * adj[s][1]
                          + adj[r][2] * adj[s][2]) * scale
                         for r in range(3) for s in range(r, 3)])
@@ -339,10 +356,11 @@ def _common_args(op: OperatorData):
     # twostage: cell_mma.cuh, the coefficients a row per cell); highest: no
     # matrix (the sum-factorized pass applies S and D), the coefficients
     # (3, 8, n_cells), the cell fastest.  The metric: streamed, or null
-    # (rebuilt from the coefficients).
+    # (rebuilt from the coefficients by the chain: 0 adjj, 1 jtj).
     split = op.precision == "split2m"
     dense = op.factor == "dense"
     return (dtype_code(op), int(split), op.degree, int(dense),
+            laplace_cuda.COFACTORS.index(op.cofactor),
             op.mma_mats.data_ptr() if split else None,
             op.sz.data_ptr(), op.dz.data_ptr(), op.kpds.data_ptr(),
             op.w3.data_ptr(),

@@ -44,7 +44,9 @@ from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
     metric_onthefly)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
-KERNEL_DEGREES = (1, 2, 3, 4)  # degrees instantiated in csrc/laplace_apply.cu
+# degrees instantiated in csrc/laplace_apply.cu: under "highest" (and B4)
+# the reference's table 1..11, under split2m 1..4 (the builders refuse more)
+KERNEL_DEGREES = laplace_cuda.FUSED_DEGREES
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +103,10 @@ def from_cell_batches(v: torch.Tensor, p: int, n_cells_axis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _metric(op: OperatorData) -> torch.Tensor:
-    """(6, q^3, n_cells): the streamed metric, or the rebuilt one."""
+    """(6, q^3, n_cells): the streamed metric, or the one B4 rebuilds (by
+    adjj whatever ``op.cofactor`` says: ``_kernel`` has no other chain)."""
+    if op.gmetric is None:
+        return metric_onthefly(op, "adjj").transpose(1, 2)
     return cell_metric(op).transpose(1, 2)
 
 
@@ -261,8 +266,7 @@ def apply_local_batched_onthefly(op: OperatorData,
     the trilinear coefficients; exact at the working dtype whatever
     ``op.precision`` says (``_kernel`` runs at ``Precision.HIGHEST``)."""
     if _route(u_loc) == "plain":
-        return _batched_plain(op, u_loc, metric_onthefly(op).permute(0, 2, 1),
-                              split=False)
+        return _batched_plain(op, u_loc, _metric(op), split=False)
     out = _batched_kernel(op, u_loc, onthefly=True)
     apply_local_batched_onthefly.launches += 1
     return out

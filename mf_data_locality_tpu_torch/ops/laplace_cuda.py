@@ -2,18 +2,21 @@
 
 Two families of configurations, named by (factor, metric, windowing):
 
-* the fused path (``solvers/cg_fused``, kernels B1/B2) on ``"pieces"``, at
-  degrees 1..4 (:func:`fused_configs`): the dense factorization or
-  twostage (the z direction contracted by 1D factors, then a dense 2D
-  stage), with the metric streamed (``"precomputed"``) or rebuilt per
-  quadrature point from 24 trilinear coefficients per cell
-  (``"onthefly"``, the adjugate inversion chain "adjj") — every pair under
-  ``highest``; under ``split2m`` the dense pair and twostage + onthefly at
-  p=4;
+* the fused path (``solvers/cg_fused``, kernels B1/B2) on ``"pieces"``
+  (:func:`fused_configs`): the dense factorization or twostage (the z
+  direction contracted by 1D factors, then a dense 2D stage), with the
+  metric streamed (``"precomputed"``) or rebuilt per quadrature point from
+  24 trilinear coefficients per cell (``"onthefly"``, by the inversion
+  chain ``cofactor``: "adjj", the adjugate of J, or "jtj", adj(J^T J)
+  rsqrt(det)) — every pair and both chains under ``highest`` at degrees
+  1..11; under ``split2m`` (adjj only) the dense pair at 1..4 and
+  twostage + onthefly at p=4;
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
-  ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``).
+  ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``;
+  always by adjj, as ``laplace_pallas._kernel``), at degrees 1..11 under
+  ``highest`` and 1..4 under ``split2m``.
 
 The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
@@ -68,12 +71,24 @@ _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
          "configurations)")
 
 WINDOWINGS = ("reshape", "pieces", "zslab")
-FUSED_DEGREES = (1, 2, 3, 4)  # degrees of the fused solver's kernels
-# (factor, metric, windowing) of the apply family
+COFACTORS = ("adjj", "jtj")
+# the reference's degree table (benchmark.h:290-313): the fused solver's
+# and the apply family's kernels under "highest"; the split2m tensor-core
+# passes have the first four
+FUSED_DEGREES = tuple(range(1, 12))
+SPLIT_DEGREES = (1, 2, 3, 4)
+_SPLIT_TODO = ("not ported yet: see ROADMAP.md, queue B item 7b (split2m at "
+               "p >= 5 and with jtj: the tensor-core passes' next slice)")
+# (factor, metric, windowing) of the apply family; under highest also
+# twostage on pieces, where the JAX resolvers put the merged and baseline
+# solvers' --windowing pieces at p >= 5 (B5 reads the dense operator
+# whatever the factor says: ``laplace_pallas.apply_lattice_pieces``)
 APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
                  ("dense", "precomputed", "pieces"),
                  ("dense", "precomputed", "zslab"),
                  ("dense", "onthefly", "reshape"))
+APPLY_CONFIGS_HIGHEST = APPLY_CONFIGS + (("twostage", "precomputed",
+                                          "pieces"),)
 
 
 def dense_gradient_matrices(p: int, q: int) -> np.ndarray:
@@ -171,6 +186,7 @@ class OperatorData:
     windowing: str = "pieces"
     factor: str = "dense"
     mma_mats: torch.Tensor | None = None
+    cofactor: str = "adjj"  # the rebuilt metric's chain (B1/B2; B4: adjj)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -258,11 +274,12 @@ def fused_configs(precision: str,
     """The (factor, metric) pairs the fused solver runs on (windowing
     ``"pieces"``) at ``degree`` (None: at any of its degrees).  Under
     ``highest`` the dense and twostage operators are one function, which
-    one sum-factorized pass computes with the metric streamed or rebuilt;
-    under ``split2m`` each factorization's rounding defines the rung, and
-    its tensor-core passes are the dense one (either metric) and
-    twostage + onthefly at p=4."""
-    if degree is not None and degree not in FUSED_DEGREES:
+    one sum-factorized pass computes with the metric streamed or rebuilt,
+    at degrees 1..11; under ``split2m`` each factorization's rounding
+    defines the rung, and its tensor-core passes are the dense one (either
+    metric) at 1..4 and twostage + onthefly at p=4."""
+    if degree is not None and degree not in (
+            SPLIT_DEGREES if precision == "split2m" else FUSED_DEGREES):
         return ()
     dense = (("dense", "precomputed"), ("dense", "onthefly"))
     twostage = (("twostage", "onthefly"),)
@@ -283,7 +300,9 @@ def check_config(precision: str, factor: str = "twostage",
     runs on — the fused path on :func:`fused_configs` at ``degree``, the
     merged and baseline solvers on the apply family.  Without a solver (the
     builders) the fused configurations of any degree pass: the plain
-    versions take every degree, the kernels check theirs.
+    versions take every degree, the kernels check theirs.  ``degree``
+    given: ``split2m`` past :data:`SPLIT_DEGREES` raises (no rung falls
+    back to another, nor a kernel to its plain version).
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
@@ -301,17 +320,25 @@ def check_config(precision: str, factor: str = "twostage",
     if metric == "onthefly" and windowing == "zslab":
         raise ValueError("windowing='zslab' requires metric='precomputed'")
     config = (factor, metric, windowing)
-    if metric == "onthefly" and cofactor != "adjj":
+    if cofactor not in COFACTORS:
+        raise ValueError(f"unknown cofactor mode {cofactor!r}")
+    if precision == "split2m" and cofactor == "jtj":
         raise NotImplementedError(
-            f"cofactor={cofactor!r} is not ported yet: see ROADMAP.md, "
-            f"queue B item 6c; the port has adjj")
+            f"cofactor='jtj' under precision='split2m' is {_SPLIT_TODO}")
+    if precision == "split2m" and degree is not None and (
+            degree not in SPLIT_DEGREES):
+        raise NotImplementedError(
+            f"precision='split2m' at degree {degree} is {_SPLIT_TODO}; "
+            f"it has degrees {SPLIT_DEGREES}")
     if solver == "fused" and degree not in FUSED_DEGREES:
         raise NotImplementedError(
-            f"degree {degree} of the fused solver is not ported yet: see "
-            f"ROADMAP.md, queue B item 7 (has {FUSED_DEGREES})")
-    fused = tuple(fm + ("pieces",) for fm in fused_configs(precision, degree))
-    wanted = (fused if solver == "fused" else APPLY_CONFIGS
-              if solver is not None else fused + APPLY_CONFIGS)
+            f"degree {degree} of the fused solver has no kernel: the "
+            f"reference's table is {FUSED_DEGREES} (benchmark.h:290-313)")
+    fused = tuple(fm + ("pieces",) for fm in fused_configs(
+        precision, degree if solver == "fused" else None))
+    apply = APPLY_CONFIGS_HIGHEST if precision == "highest" else APPLY_CONFIGS
+    wanted = (fused if solver == "fused" else apply
+              if solver is not None else fused + apply)
     if config not in wanted:
         todo = (f"not ported yet: see ROADMAP.md, queue B item 6f (split2m "
                 f"twostage has p=4 and the rebuilt metric)"
@@ -332,16 +359,22 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          mats: np.ndarray | None = None,
                          gmetric: np.ndarray | None = None,
                          factor: str = "twostage",
-                         windowing: str = "pieces") -> OperatorData:
+                         windowing: str = "pieces",
+                         cofactor: str = "adjj") -> OperatorData:
     """Wrap host arrays (any float dtype) as an :class:`OperatorData`.
 
     ``mats2d`` and ``mats`` default to the canonical matrices of ``degree``;
     ``gmetric`` given means ``metric="precomputed"``.  Values are rounded to
     ``dtype`` first and, for ``mats2d`` under ``split2m``, from there to
-    bf16 — the same two roundings the JAX package applies.
+    bf16 — the same two roundings the JAX package applies.  ``cofactor="jtj"``
+    raises ValueError unless det J > 0 at every quadrature point
+    (:func:`check_orientation`).
     """
     metric = "onthefly" if gmetric is None else "precomputed"
-    check_config(precision, factor, metric, "adjj", dtype, windowing)
+    check_config(precision, factor, metric, cofactor, dtype, windowing,
+                 degree=degree)
+    if cofactor == "jtj":
+        check_orientation(pds, coeffs)
     p = degree
     q = p + 2
 
@@ -368,7 +401,34 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
         precision=precision, windowing=windowing, factor=factor,
         mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor)
-                  if precision == "split2m" else None))
+                  if precision == "split2m" else None),
+        cofactor=cofactor)
+
+
+def jacobian_determinants(pds: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
+    """det J at every (q-point, cell), in f64 on the host: ``pds`` (3 q^3,
+    8), ``coeffs`` (3, 8, n_cells).  Returns (q^3, n_cells)."""
+    pds = np.asarray(pds, np.float64)
+    jac = np.einsum("eqk,dkn->qnde", pds.reshape(3, -1, 8),
+                    np.asarray(coeffs, np.float64))
+    return np.linalg.det(jac)
+
+
+def check_orientation(pds: np.ndarray, coeffs: np.ndarray) -> None:
+    """Raise ValueError unless det J > 0 at every quadrature point.
+
+    The jtj chain scales the metric by |det J| (rsqrt of det J^T J), the
+    adjj chain by det J: on an orientation-reversing cell the two differ in
+    sign.  The JAX package does not check this (its ``_metric_onthefly``
+    assumes det J > 0); the port refuses such a mesh under jtj — a
+    deliberate divergence (ROADMAP C1).
+    """
+    det = jacobian_determinants(pds, coeffs)
+    if not det.size or det.min() <= 0.0:
+        raise ValueError(
+            f"cofactor='jtj' needs det J > 0 at every quadrature point "
+            f"(min {det.min() if det.size else float('nan'):.3e}): jtj "
+            f"scales by |det J|, adjj by det J")
 
 
 def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
@@ -378,7 +438,8 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   windowing: str = "reshape") -> OperatorData:
     """Build the operator data for ``layout`` (q = p + 2 Gauss points); the
     defaults are ``make_pallas_operator``'s."""
-    check_config(precision, factor, metric, cofactor, dtype, windowing)
+    check_config(precision, factor, metric, cofactor, dtype, windowing,
+                 degree=layout.degree)
     p = layout.degree
     q = p + 2
     shape = lagrange.make_shape(p, q)
@@ -392,4 +453,4 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
         monomial_derivative_matrices(shape.q_points), w3,
         coeffs.transpose(2, 1, 0), mask.astype(np.float64), p,
         layout.mesh.n_cells_axis, precision, dtype, device, gmetric=gmetric,
-        factor=factor, windowing=windowing)
+        factor=factor, windowing=windowing, cofactor=cofactor)

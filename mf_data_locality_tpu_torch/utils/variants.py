@@ -156,14 +156,19 @@ __device__ __forceinline__ void sumfac_prefetch(const Grid& gr,
 
 '''
 
-_SF_BOUNDS = "SumfacSmem<T, P, REBUILD>::kThreads, 3)"
+_SF_BOUNDS = ("SumfacSmem<T, P, REBUILD>::kThreads,\n"
+              "                                  sumfac_blocks<T, P, REBUILD>())")
 
+_SF_METRIC = """      if (a.cofactor == kJtj)
+        onthefly_metric<BC, kJtj>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
+      else
+        onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
+"""
 _SF_REBUILD = """    for (int qz = 0; qz < Q; ++qz) {
       const int qp = qz * Q2 + col;
       T pq[24], gm[6];
       load_pds_row(a.pds + qp * 24, pq);
-      onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);
-#pragma unroll
+""" + _SF_METRIC + """#pragma unroll
       for (int e = 0; e < 6; ++e) sm.g[e][qp][b] = gm[e];
     }
   }
@@ -180,8 +185,8 @@ SUMFAC = {
     # once its metric has arrived, a block brings the inputs of the block
     # that runs one wave later (132 SMs x 3 blocks) into L2
     "sf_l2_prefetch": [
-        (SF, "// Three blocks an SM (73.4 KB",
-         _SF_PREFETCH + "// Three blocks an SM (73.4 KB"),
+        (SF, "// Blocks an SM: three at p <= 4",
+         _SF_PREFETCH + "// Blocks an SM: three at p <= 4"),
         (SF, _SF_WAIT,
          _SF_WAIT + "    if (c == 0)\n      sumfac_prefetch<T, P, FORM != "
          "kCellBatch>(gr, a.gmetric, a.io.d, cell0 + 396 * BC);\n")],
@@ -205,19 +210,21 @@ SUMFAC = {
                           "REBUILD;")],
     # four f32 cells a block (half a sector a row), 144 threads, six blocks
     # an SM
-    "sf_bc4": [(SF, "struct SumfacCells {\n  static constexpr int N = 8;",
-                "struct SumfacCells {\n  static constexpr int N = 4;"),
+    "sf_bc4": [(SF, "struct SumfacCells {\n  static constexpr int N = "
+                    "sumfac_cells<T, P>();",
+                "struct SumfacCells {\n  static constexpr int N = "
+                "sizeof(T) == 4 && P <= 4 ? 4 : sumfac_cells<T, P>();"),
                (SF, _SF_BOUNDS, "SumfacSmem<T, P, REBUILD>::kThreads, 6)")],
     # S and D read from (unset) constant memory, not shared memory: what
     # the table loads cost
     "sf_const_tables": [
-        (SF, "template <typename T>\nstruct SumfacCells {",
+        (SF, "template <typename T, int P>\nstruct SumfacCells {",
          "__constant__ float c_sf_f[2][64];\n__constant__ double c_sf_d[2][64];"
          "\ntemplate <typename T>\n__device__ __forceinline__ const T* "
          "sf_ct(int i) {\n  if constexpr (sizeof(T) == 4) return "
          "reinterpret_cast<const T*>(c_sf_f[i]);\n  else return "
          "reinterpret_cast<const T*>(c_sf_d[i]);\n}\n\n"
-         "template <typename T>\nstruct SumfacCells {"),
+         "template <typename T, int P>\nstruct SumfacCells {"),
         (SF, "    sm.sz[i] = a.sz[i];\n    sm.dz[i] = a.dz[i];", "    ;"),
         (SF, "sm.sz[", "sf_ct<T>(0)["), (SF, "sm.dz[", "sf_ct<T>(1)[")],
     # the metric entries not read from shared memory (constants): what
@@ -243,9 +250,8 @@ SUMFAC = {
     # the metric rebuild (B4, B1, B2) replaced by a diagonal metric from the
     # pds row (its loads stay): what the adjugate chain costs
     "sf_no_rebuild": [
-        (SF, "onthefly_metric<BC>(pq, &sm.c24[0][b], __ldg(a.w3 + qp), gm);",
-         "gm[0] = gm[3] = gm[5] = pq[0] + T(1);\n      "
-         "gm[1] = gm[2] = gm[4] = T(0);")],
+        (SF, _SF_METRIC, "      gm[0] = gm[3] = gm[5] = pq[0] + T(1);\n"
+         "      gm[1] = gm[2] = gm[4] = T(0);\n")],
     # the rebuild's pds row read word by word, not by 16-byte loads
     "sf_pds_scalar": [
         (SF, "      load_pds_row(a.pds + qp * 24, pq);",
@@ -257,8 +263,8 @@ SUMFAC = {
          "    __syncthreads();  // the coefficients\n    T cr[24];\n"
          "#pragma unroll\n    for (int k = 0; k < 24; ++k) cr[k] = "
          "sm.c24[k][b];\n"),
-        (SF, "onthefly_metric<BC>(pq, &sm.c24[0][b],",
-         "onthefly_metric(pq, cr,")],
+        (SF, _SF_METRIC, "      onthefly_metric(pq, cr, __ldg(a.w3 + qp), "
+         "gm);\n")],
     # the rebuild after component 0's x pass, not in the prologue
     "sf_rebuild_late": [
         (SF, "  if constexpr (REBUILD) {\n    // while component 0's input "

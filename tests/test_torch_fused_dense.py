@@ -207,7 +207,8 @@ def test_solve_f64_matches_jax(s, p):
 def test_fused_dispatch_resolves_to_ported_configurations(p):
     """The fused solver's auto-dispatch (the JAX resolvers, verbatim) at
     p=1..4 on the port's rungs gives a configuration the port runs, the
-    same as the JAX resolvers give; what stays unported raises."""
+    same as the JAX resolvers give; jtj runs under highest; what stays
+    unported (split2m with jtj, or at p >= 5) raises."""
     want = {"highest": ("dense", "precomputed"),
             "split2m": {1: ("dense", "precomputed"),
                         2: ("dense", "onthefly"),
@@ -231,7 +232,7 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                      factor, metric)
     refused = [dict(precision="split2m", factor="twostage",
                     metric="precomputed"),
-               dict(precision="highest", metric="onthefly", cofactor="jtj"),
+               dict(precision="split2m", metric="onthefly", cofactor="jtj"),
                dict(precision="split3"),
                dict(precision="split2m", dtype=torch.float64)]
     if p != 4:
@@ -241,8 +242,10 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
         args = dict(precision="highest", dtype=torch.float32) | kw
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             benchmark.resolve_config(p, "fused", "pieces", **args)
+    benchmark.resolve_config(p, "fused", "pieces", "highest", torch.float32,
+                             "twostage", "onthefly", "jtj")
     with pytest.raises(NotImplementedError, match="item 7"):
-        benchmark.resolve_config(p + 4, "fused", "pieces", "highest",
+        benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
                                  torch.float32)
 
 

@@ -358,3 +358,102 @@ def test_run_one_fused_every_degree_on_card(cuda_device, p, dtype,
     assert fk.matvec.launches > before[0]
     assert fk.fused_cg_iteration.launches > before[1]
     assert r.converged and r.time_per_it > 0 and r.time_per_matvec > 0
+
+
+HIGH = (5, 6, 7, 8, 9, 10, 11)
+HIGHEST = [(torch.float32, "highest"), (torch.float64, "highest")]
+# B1/B2 at p >= 5: the auto path's configuration, the metric rebuilt by
+# each chain, the dense factorization
+HIGH_FUSED = [("twostage", "precomputed", "adjj"),
+              ("twostage", "onthefly", "jtj"),
+              ("twostage", "onthefly", "adjj"),
+              ("dense", "precomputed", "adjj")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precision", HIGHEST)
+@pytest.mark.parametrize("p", HIGH)
+def test_high_degree_apply_kernels_match_plain(cuda_device, p, dtype,
+                                               precision):
+    """B3-B6 at p = 5..11 (the sum-factorized pass; from p=7 fewer cells a
+    block) on 3 x 5 x 7 = 105 cells: against their plain versions, each
+    twice and bitwise equal."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    opg = laplace_cuda.make_operator(layout, dtype, precision,
+                                     device=cuda_device)
+    opo = laplace_cuda.make_operator(layout, dtype, precision,
+                                     metric="onthefly", device=cuda_device)
+    (u,) = _state(opg, 1, seed=70 + p)
+    u_loc = la.to_cell_batches(u, p).contiguous()
+    cases = [(la.apply_local_batched_g, opg, u_loc,
+              lambda: la._batched_plain(opg, u_loc, la._metric(opg), False)),
+             (la.apply_local_batched_onthefly, opo, u_loc,
+              lambda: la._batched_plain(opo, u_loc, la._metric(opo), False)),
+             (la.apply_lattice_pieces, opg, u,
+              lambda: la._lattice_plain(opg, u, la._index_mask(opg))),
+             (la.apply_lattice_zslab, opg, u,
+              lambda: la._lattice_plain(opg, u, opg.mask))]
+    for fn, op, arg, plain in cases:
+        before = fn.launches
+        got, again = fn(op, arg), fn(op, arg)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert _rel(got, plain()) < TOL[dtype]
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", HIGH_FUSED)
+@pytest.mark.parametrize("dtype,precision", HIGHEST)
+@pytest.mark.parametrize("p", HIGH)
+def test_high_degree_fused_kernels_match_plain(cuda_device, p, dtype,
+                                               precision, config):
+    """B1 and B2 at p = 5..11 in the fused solver's configurations under
+    highest (the metric streamed, or rebuilt by adjj or jtj) on 105 cells:
+    against their plain versions, each twice and bitwise equal."""
+    factor, metric, cofactor = config
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(layout, dtype, precision, factor=factor,
+                                    metric=metric, cofactor=cofactor,
+                                    windowing="pieces", device=cuda_device)
+    prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+    (u,) = _state(op, 1, seed=80 + p)
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[dtype]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=90 + p)
+    scal = torch.tensor(SCAL, dtype=dtype, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[dtype]
+    scal_tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < scal_tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", HIGH)
+def test_run_one_every_path_high_degree_on_card(cuda_device, p):
+    """At p = 5..11 the JAX CLI's default path (merged, reshape: B3), the
+    fused auto path under f64 (twostage + precomputed: B1, B2) and the
+    fused solver with the metric rebuilt (jtj) launch their kernels and
+    converge, or from p=8 reach the 100-iteration cap at s=4 as their
+    plain versions do; split2m raises."""
+    wrappers = (la.apply_local_batched_g, fk.matvec, fk.fused_cg_iteration)
+    before = [w.launches for w in wrappers]
+    short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
+                 device=cuda_device)
+    rows = [benchmark.run_one(p, 4, **short),
+            benchmark.run_one(p, 4, solver="fused", dtype=torch.float64,
+                              windowing="pieces", **short),
+            benchmark.run_one(p, 4, solver="fused", windowing="pieces",
+                              metric="onthefly", **short)]
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    assert all((r.converged if p < 8 else r.n_iterations == 100)
+               and r.time_per_it > 0 for r in rows)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        benchmark.run_one(p, 4, precision="split2m", **short)

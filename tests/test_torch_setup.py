@@ -120,7 +120,7 @@ def test_operator_rejects_unported_configurations():
              "windowing": "pieces"}
     for kw in ({**fused, "precision": "split2m", "metric": "precomputed"},
                {**fused, "windowing": "reshape"},
-               {**fused, "cofactor": "jtj"},
+               {**fused, "cofactor": "jtj", "precision": "split2m"},
                {"precision": "split3"},
                {**fused, "precision": "split3"},
                {"precision": "split2m", "dtype": torch.float64},
