@@ -24,7 +24,12 @@ Phases (each raises on failure, so any failure exits nonzero):
    streamed metric, the metric rebuilt by jtj and by adjj, dense), and at
    the full-width points p=6 s=12 (2,738,019 DoFs) and p=8 s=11
    (3,244,995 DoFs) each kernel compared and timed in f32 (B1/B2 in the
-   auto path's twostage + precomputed; also f64 at p=8);
+   auto path's twostage + precomputed; also f64 at p=8); under f32 split2m
+   B1/B2 in twostage (the tensor-core pass of cell_mma_hd.cuh; at p=4 with
+   the metric rebuilt, cell_mma.cuh) compared at every degree 4..11 on the
+   105-cell box in each configuration of SPLIT_HIGH (the metric rebuilt by
+   jtj — the auto path's —, by adjj, and streamed), and compared and timed
+   at p=6 s=12 and p=8 s=11 in the auto path's configuration;
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged (streamed metric and ``metric="onthefly"``) and baseline
    alike — f32 "split2m" (fused; merged with ``--windowing reshape``) and
@@ -40,7 +45,10 @@ Phases (each raises on failure, so any failure exits nonzero):
    with the metric rebuilt (jtj, and adjj explicit), merged and baseline,
    f32 highest + 0..3 — or, for a fused solve at the cap, the f32
    recurrence's floor shown by ``stepped_readings`` (the kernel's scalars
-   right, the f64 scalars carried converging);
+   right, the f64 scalars carried converging); and at the same two points
+   the fused solver under f32 split2m in each configuration of SPLIT_HIGH
+   (the auto path first), the f64 count + 0..3, or at the cap with
+   ``edge_witness``'s readings showing that floor;
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
@@ -65,9 +73,14 @@ Phases (each raises on failure, so any failure exits nonzero):
      windowing="pieces", precision="highest")`` (B1, B2), the fused solver
      in f64 at p=8 (short), and short runs of baseline, ``--geometry
      onthefly`` (B4), ``--windowing pieces`` (B5), ``zslab`` (B6) and the
-     fused solver with the metric rebuilt (jtj);
-   - at every degree 5..11, s=6, short runs of each path and of the fused
-     solver in every HIGH_FUSED configuration;
+     fused solver with the metric rebuilt (jtj); and at full depth the
+     fused auto path under f32 split2m ``run_one(p, s, solver="fused",
+     windowing="pieces", precision="split2m")`` (twostage + onthefly + jtj:
+     B1, B2 on the tensor cores), printed beside the same point's highest
+     auto path;
+   - at every degree 5..11, s=6, short runs of each path, of the fused
+     solver in every HIGH_FUSED configuration and, under split2m, in every
+     SPLIT_HIGH configuration;
    then the solutions of the three p=4 s=13 paths are checked for shape,
    finiteness, and their true residual against the solver's estimate;
 6. print the kernels' JSON line (B1/B2 at f32 split2m, also with their f32
@@ -75,8 +88,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    its suffix — ``ms_dense``, ``launches_dense_split2m_p3``, ... — and its
    ``p_s``; B3-B6 at f32 highest, also with their f64 and (B3/B5/B6)
    split2m times; at p >= 5 fields with the suffix ``_p6``, ``_p8``
-   (B1/B2 also ``_p8_f64``), each timed at the (p, s) of the drive that
-   gives its launches; each row with the bound of its work on this card,
+   (B1/B2 also ``_p8_f64``, and ``_split2m_p6``, ``_split2m_p8`` for the
+   split2m auto path), each timed at the (p, s) of the drive that gives
+   its launches; each row with the bound of its work on this card,
    from the shapes), the build time and the script's wall time, and,
    last, the device JSON line.
 """
@@ -103,6 +117,8 @@ TOL_SCAL_F32 = 1e-4
 # f64 CUDA cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_F64, HBM_BPS = 989e12, 67e12, 34e12, 3.35e12
 METRIC_FMA = 117  # adjj rebuild per q-point: J 72, adjugate 21, entries 24
+# jtj rebuild per q-point: J 72, C = J^T J 18, adj(C) 12, det C 3, scale 7
+METRIC_FMA_JTJ = 112
 # the fused solver's configuration at p=4 under split2m (B1, B2), and its
 # dense configurations (the auto-dispatch's under highest, and at p=2 under
 # split2m)
@@ -158,6 +174,17 @@ S_EVERY = 6  # phase 5's short runs of every path at every degree 5..11
 # package's own structured and Pallas backends differ by 1.4e-2 at
 # iteration 90), so another summation order may stop at 94
 PARITY_HIGH = ((5, 6, (94, 95)), (6, 4, (75,)))
+# f32 split2m past p=4: B1/B2 in twostage on the tensor cores
+# (csrc/cell_mma_hd.cuh; at p=4 the rebuilt metric on cell_mma.cuh), in
+# each (metric, cofactor) of SPLIT_HIGH — the auto path's jtj first, adjj,
+# the streamed metric —, compared at every degree of SPLIT_CMP on the
+# RAGGED box, timed and driven at FULL_HIGH in the auto path's
+# configuration, driven short at every degree 5..11, and checked for itCG
+# at PARITY_SPLIT: (p, s, f64 itCG), split2m + 0..3
+SPLIT_HIGH = (("onthefly", "jtj"), ("onthefly", "adjj"),
+              ("precomputed", "adjj"))
+SPLIT_CMP = (4,) + HIGH_DEGREES
+PARITY_SPLIT = ((5, 6, 95), (6, 4, 75))
 
 
 def sumfac_fma(p: int, q: int) -> int:
@@ -178,7 +205,7 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
     rounding of those entries defines that function; under highest the
     sum-factorized count, the least work for the function.  The metric:
     6 q^3 words a cell streamed, or 24 coefficient words a cell and its
-    rebuild's FMAs."""
+    rebuild's FMAs (B1/B2: by their chain, adjj or jtj; B4: adjj)."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
@@ -194,7 +221,8 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
         else:
             products = sumfac_fma(p, q)
             other = 27 * q3
-        other += METRIC_FMA * q3 if rebuilt else 0
+        other += ((METRIC_FMA_JTJ if op.cofactor == "jtj" else METRIC_FMA)
+                  * q3 if rebuilt else 0)
         words = ((6 if name == "matvec" else 25) * nn
                  + (24 if rebuilt else 6 * q3) * nc)
     else:  # the apply family; metric streamed, or rebuilt (B4)
@@ -318,33 +346,36 @@ def asymmetry(op) -> float:
             / (v.norm() * au.norm())).item()
 
 
-def edge_witness(pb, hist, n: int, s: int, p: int) -> bool:
+def edge_witness(pb, hist, n: int, s: int, p: int) -> tuple[bool, list]:
     """Readings at a parity point where the f32 split2m fused solve did not
     converge (``n`` iterations, history ``hist``): :func:`stepped_readings`;
     the operator's asymmetry on the card, against f32 highest's at the
     same point; the plain version's solve on the CPU.  True when the
     stepped solve repeats the solver's history and the kernel's scalars
     agree with the f64 sums' to 1e-5 relative: then the floor is the
-    rung's, not a fault of the kernel's sums."""
+    rung's, not a fault of the kernel's sums; and the history of the solve
+    with the f64 scalars carried."""
     from mf_data_locality_tpu_torch.models import bp4
     from mf_data_locality_tpu_torch.solvers import cg_fused
 
     op, lat = pb.op, pb.layout.n_nodes_axis
-    same, err, _ = stepped_readings(pb, hist, n)
+    same, err, h64 = stepped_readings(pb, hist, n)
     for precision in ("split2m", "highest"):
         o = op if precision == "split2m" else bp4.build(
             s, p, torch.float32, "highest", factor=op.factor,
-            metric=op.metric, windowing="pieces", device=op.device).op
+            metric=op.metric, cofactor=op.cofactor, windowing="pieces",
+            device=op.device).op
         print(f"  witness: asymmetry of the f32 {precision} operator on the "
               f"card {asymmetry(o):.3e}")
     cpu = bp4.build(s, p, torch.float32, "split2m", factor=op.factor,
-                    metric=op.metric, windowing="pieces", device="cpu")
+                    metric=op.metric, cofactor=op.cofactor,
+                    windowing="pieces", device="cpu")
     r = cg_fused.fused_merged_cg_solve(
         cpu.op, lat, cpu.b.reshape((3,) + lat),
         cpu.inv_diag.reshape((1,) + lat))
     print(f"  witness: the plain version on the CPU: itCG {r.n_iterations}, "
           f"converged {r.converged}")
-    return same and err <= 1e-5
+    return same and err <= 1e-5, h64
 
 
 def kernel_cases(fk, la, ops, u, d, state, scal, prec):
@@ -528,6 +559,117 @@ def parity_high(benchmark, bp4, dev) -> None:
                         f"{res.n_iterations} not in {tuple(allowed)}")
 
 
+def split_op(layout, dev, metric="onthefly", cofactor="jtj"):
+    """B1/B2's operator on ``layout`` under f32 split2m in twostage (the
+    auto path's at p >= 5 by default)."""
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    return laplace_cuda.make_operator(layout, torch.float32, "split2m",
+                                      factor="twostage", metric=metric,
+                                      cofactor=cofactor, windowing="pieces",
+                                      device=dev)
+
+
+def split_cases(fk, op, seed: int):
+    """(kernel call, plain call) of B1 and B2 on ``op`` with random state."""
+    d, x, g, dd, h = random_state(op, 5, seed=seed)
+    prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
+            * op.mask).contiguous()
+    scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                        device=op.device)
+    work, out = fk.Workspace(op), torch.empty_like(d)
+    bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
+    return {
+        "matvec": (lambda: fk.matvec(op, d, out=out, work=work),
+                   lambda: fk._matvec_plain(op, d)),
+        "fused_cg_iteration": (
+            lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
+                                          out=bufs, work=work),
+            lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal, prec))}
+
+
+def compare_split_high(fk, dev) -> None:
+    """Phase 3 under f32 split2m: B1 and B2 in twostage against their plain
+    versions at every degree of SPLIT_CMP on the RAGGED box, in every
+    (metric, cofactor) of SPLIT_HIGH.  One line per degree; raises on the
+    first disagreement (TOL, and TOL_SCAL_F32 for B2's scalars)."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+
+    for p in SPLIT_CMP:
+        layout = DofLayout(BoxMesh(RAGGED, 0.25), p)
+        worst = {}
+        for i, (metric, cof) in enumerate(SPLIT_HIGH):
+            op = split_op(layout, dev, metric, cof)
+            for name, (kern, plain) in split_cases(fk, op, 30 + i).items():
+                rel, _ = compare(name, kern(), plain(), torch.float32,
+                                 f"p={p} split2m twostage {metric} {cof}",
+                                 quiet=True)
+                key = f"{name}[{metric[0]}{cof[0]}]"
+                worst[key] = max(worst.get(key, 0.0), rel)
+            del op
+        print(f"  p={p} f32 split2m twostage ragged {RAGGED}: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+        torch.cuda.empty_cache()
+
+
+def time_split_high(fk, dev, timing, p: int, s: int) -> dict:
+    """B1 and B2 under f32 split2m in the auto path's configuration
+    (twostage + onthefly + jtj) at the full-width point (p, s): compared
+    with the plain versions, then both timed in turns.  Returns name ->
+    ((kernel ms, plain ms), (bound ms, bound by), max |diff|)."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+
+    op = split_op(DofLayout(BoxMesh.from_s(s), p), dev)
+    out = {}
+    tag = f"p={p} s={s} f32 split2m twostage onthefly jtj"
+    for name, (kern, plain) in split_cases(fk, op, 40).items():
+        _, diff = compare(name, kern(), plain(), torch.float32, tag)
+        t = time_pair(kern, plain, dev, timing, inner=10)
+        b = bound(name, op, split=True)
+        print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), share {b[0] / t[0]:.3f}")
+        out[name] = t, b, diff
+    del op
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_split(benchmark, bp4, dev) -> None:
+    """Phase 4 under f32 split2m at p >= 5: the fused solver through the
+    auto-dispatch (twostage + onthefly + jtj), with the metric rebuilt by
+    adjj and with it streamed (explicit), at PARITY_SPLIT: the f64 count
+    + 0..3 (PARITY.md:95,102-105,122: the JAX interpret split2m run 96-97
+    at p=5 s=6, 76 at p=6 s=4), converged — or, at the cap, edge_witness's
+    readings showing the f32 recurrence's floor (its history repeated, the
+    kernel's scalars within 1e-5 of the f64 sums', and with the f64
+    scalars carried converged in the f64 count + 0..3)."""
+    for p, s, n64 in PARITY_SPLIT:
+        allowed = range(n64, n64 + 4)
+        for label, kw in (("fused auto", {}),
+                          ("fused onthefly adjj", {"cofactor": "adjj"}),
+                          ("fused precomputed", {"metric": "precomputed"})):
+            config = benchmark.resolve_config(p, "fused", "pieces",
+                                              "split2m", torch.float32, **kw)
+            pb = bp4.build(s, p, torch.float32, "split2m",
+                           windowing="pieces", device=dev, **dict(zip(
+                               ("factor", "metric", "cofactor"), config)))
+            res = benchmark.solver_call(pb, "fused")()
+            hist = res.res_history.cpu().numpy()
+            print(f"p={p} s={s} {label} f32 split2m {config}: itCG "
+                  f"{res.n_iterations}, converged {res.converged}, residual "
+                  f"{hist[res.n_iterations] / hist[0]:.3e} res0")
+            ok = res.converged and res.n_iterations in allowed
+            if not ok and res.n_iterations == 100:
+                same, h64 = edge_witness(pb, hist, 100, s, p)
+                ok = same and h64[-1] <= 1e-8 and len(h64) - 1 in allowed
+            if not ok:
+                raise AssertionError(
+                    f"p={p} s={s} {label} f32 split2m: itCG "
+                    f"{res.n_iterations} not in {tuple(allowed)}")
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -578,11 +720,17 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.name})")
     entry = ""  # the kernel a ptxas line is about
+    hd_regs = []
     for line in log.splitlines():
         if "Function properties for" in line:
             entry = line.split("for ")[-1].strip()
         elif re.search(r"[1-9]\d* bytes spill", line):
             print("  ptxas:", entry[:60], line.strip())
+        elif "cells_mma_hd_kernel" in entry and "registers" in line:
+            hd_regs.append(int(re.search(r"(\d+) registers", line)[1]))
+    if hd_regs:  # the split2m twostage pass at p=4 (streamed) and 5..11
+        print(f"  ptxas: cells_mma_hd_kernel, {len(hd_regs)} instantiations: "
+              f"{min(hd_regs)}-{max(hd_regs)} registers")
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print("kernels vs plain:")
@@ -699,6 +847,12 @@ def main() -> int:
         if p == F64_HIGH:
             high[sfx + "_f64"] = time_high(fk, la, dev, timing, p, s,
                                            torch.float64)
+    print(f"kernels vs plain under split2m at p={SPLIT_CMP[0]}.."
+          f"{SPLIT_CMP[-1]} (B1/B2 twostage, f32):")
+    compare_split_high(fk, dev)
+    split_hi = {}  # "_split2m" + p's suffix -> name -> (times, bound, diff)
+    for p, s, sfx in FULL_HIGH:
+        split_hi["_split2m" + sfx] = time_split_high(fk, dev, timing, p, s)
 
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
     for dtype, precision, allowed in ((torch.float64, "highest", (91,)),
@@ -776,7 +930,7 @@ def main() -> int:
                   f"{at64:.3e} res0")
             ok = res.converged and n in allowed
             if not res.converged and (p, precision, n) == (3, "split2m", 100):
-                ok = at64 <= 1e-7 and edge_witness(pb, hist, n, s, p)
+                ok = at64 <= 1e-7 and edge_witness(pb, hist, n, s, p)[0]
             if not ok:
                 raise AssertionError(f"p={p} s={s} fused {precision}: itCG "
                                      f"{n}, converged {res.converged}; "
@@ -791,6 +945,7 @@ def main() -> int:
         del pb
 
     parity_high(benchmark, bp4, dev)
+    parity_split(benchmark, bp4, dev)
 
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
@@ -876,7 +1031,7 @@ def main() -> int:
     # at p=F64_HIGH, and short runs of the other paths of each kernel
     # (their counts are the rows' launches there) and of the fused solver
     # with the metric rebuilt (jtj)
-    launches_hi = {sfx: {} for sfx in high}
+    launches_hi = {sfx: {} for sfx in (*high, *split_hi)}
     fused_kw = dict(solver="fused", windowing="pieces", precision="highest")
     b1b2 = ("matvec", "fused_cg_iteration")
     for p, s, sfx in FULL_HIGH:
@@ -887,6 +1042,17 @@ def main() -> int:
                       windowing="reshape"),
                 drive("fused auto (f32 highest: twostage, precomputed)", s,
                       b1b2, into=into, degree=p, **fused_kw)]
+        # the same point's split2m auto path (twostage + onthefly + jtj)
+        r_split2m = drive("fused auto (f32 split2m: twostage, onthefly, jtj)",
+                          s, b1b2, into=launches_hi["_split2m" + sfx],
+                          degree=p, solver="fused", windowing="pieces",
+                          precision="split2m")
+        rows.append(r_split2m)
+        print(f"  p={p} s={s} fused auto, split2m vs highest: time/it "
+              f"{r_split2m.time_per_it:.6e} vs {rows[1].time_per_it:.6e} s, "
+              f"itCG {r_split2m.n_iterations} vs {rows[1].n_iterations}, "
+              f"time/matvec {r_split2m.time_per_matvec:.6e} vs "
+              f"{rows[1].time_per_matvec:.6e} s")
         if p == F64_HIGH:
             drive("fused auto, f64", s, b1b2, into=launches_hi[sfx + "_f64"],
                   degree=p, dtype=torch.float64, **fused_kw, **short)
@@ -928,7 +1094,11 @@ def main() -> int:
                  dict(solver="merged", windowing="zslab")),
                 *((f"fused {f} {m} {c}", b1b2,
                    dict(factor=f, metric=m, cofactor=c, **fused_kw))
-                  for f, m, c in HIGH_FUSED)):
+                  for f, m, c in HIGH_FUSED),
+                *((f"fused split2m twostage {m} {c}", b1b2,
+                   dict(solver="fused", windowing="pieces",
+                        precision="split2m", metric=m, cofactor=c))
+                  for m, c in SPLIT_HIGH)):
             drive(label, S_EVERY, expect, degree=p, **kw, **tiny)
 
     # the three p=4 s=13 solutions: shape, finite, and their true residual
@@ -1001,12 +1171,15 @@ def main() -> int:
             (k, pl), (bms, by), err = f64[name]
             row.update(ms_f64=k, plain_ms_f64=pl, max_abs_err_f64=err,
                        bound_ms_f64=bms, bound_by_f64=by)
-        for sfx, times_hi in high.items():  # p >= 5, full width
+        for sfx, times_hi in (*high.items(), *split_hi.items()):  # p >= 5
             if name not in times_hi:
                 continue
             (k, pl), (bms, by), err = times_hi[name]
-            p, s = next((p, s) for p, s, x in FULL_HIGH if sfx.startswith(x))
-            row.update({f"source{sfx}": CSRC + f"sumfac_p{p:02d}.cu",
+            p, s = next((p, s) for p, s, x in FULL_HIGH
+                        if sfx.removeprefix("_split2m").startswith(x))
+            src = ("cell_mma_p" if sfx.startswith("_split2m")
+                   else "sumfac_p")
+            row.update({f"source{sfx}": CSRC + f"{src}{p:02d}.cu",
                         f"p_s{sfx}": [p, s], f"ms{sfx}": k,
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,

@@ -22,12 +22,15 @@ it (``laplace_cuda.fused_configs``): under ``highest`` (f32, f64) at
 degrees 1..11 every (factor, metric) pair — dense or twostage, the metric
 streamed or rebuilt by either chain, ``--cofactor adjj|jtj`` (the auto
 path at p >= 5 is twostage + the streamed metric) —; under ``split2m``
-at degrees 1..4 the dense pair and twostage + onthefly at p=4 (adjj).
-Other unported choices raise NotImplementedError naming their ROADMAP
-item (queues A and B), with no fallback to another rung or to the plain
-version: ``split2m`` at p >= 5 or with jtj, split2m twostage at p != 4 or
-with the streamed metric, the split3 and bf16 rungs.  ``s < 1`` runs the
-reference's auto size ladder.
+the dense pair at degrees 1..4 (adjj) and twostage with either metric at
+4..11, the rebuilt one by either chain (the auto path from p=5 is
+twostage + onthefly + jtj).  Other unported choices raise
+NotImplementedError naming their ROADMAP item (queues A and B), with no
+fallback to another rung or to the plain version: split2m's dense pass at
+p >= 5 (the merged and baseline solvers, the fused solver's dense
+factorization), split2m twostage at p=1..3, jtj in split2m's dense pass,
+the split3 and bf16 rungs.  ``s < 1`` runs the reference's auto size
+ladder.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -354,11 +357,12 @@ def main(argv: list[str] | None = None) -> None:
                     default="auto",
                     help="contraction factorization: dense (the apply "
                          "family, or the fused solver) or twostage (the "
-                         "fused solver; under split2m at p=4 only)")
+                         "fused solver; under split2m from p=4)")
     ap.add_argument("--cofactor", choices=["auto", "adjj", "jtj"],
                     default="auto",
                     help="onthefly inversion chain of the fused solver "
-                         "(jtj under highest only; B4 always runs adjj)")
+                         "(under split2m jtj in twostage only; B4 always "
+                         "runs adjj)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -7,9 +7,11 @@
 // mf_data_locality_tpu/ops/cg_fused_kernel.py:
 //   B1  piece_vmult -> _matvec_kernel          (pallas_call :1116)
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call :1476)
-// for the twostage + onthefly + adjj configuration.  "highest" (f32, f64)
-// runs on the CUDA cores (apply_sumfac.cuh): bf16 products cannot give
-// exact f32 or f64.
+// for the twostage + onthefly configuration at p=4: the metric rebuilt by
+// the adjj chain (the JAX auto-dispatch's) or by jtj (COFACTOR).  Degrees
+// 5..11, and p=4 with the streamed metric, run on cell_mma_hd.cuh.
+// "highest" (f32, f64) runs on the CUDA cores (apply_sumfac.cuh): bf16
+// products cannot give exact f32 or f64.
 //
 // split2m (_prestack :86-99, _mm_pre :328-355) is by definition bf16 x bf16
 // products with f32 accumulation: the 2D matrices M rounded once to bf16,
@@ -28,7 +30,8 @@
 //             q-points: six n8 tiles (x, y, z x two halves), so one thread
 //             holds gx, gy and gz of the same (cell, q-point)
 //   metric    G of a plane, rebuilt once per (cell, q-point) by the
-//             whole block into shared memory (adjj chain, exact f32), read
+//             whole block into shared memory (adjj or jtj chain, exact
+//             f32), read
 //             by the three component warps; plane qz + 1's is built while
 //             plane qz's is read (two buffers, one barrier a plane)
 //   apply     t = G [gx, gy, gz] on the accumulators and split hi/lo: the
@@ -229,7 +232,7 @@ __device__ void gather_cells(CellMmaSmem<P>& sm, const CellIo<float>& io,
 // The metric entries of plane qz at the tile's cells into g (the padded
 // q-points of g are zeroed once by the caller; cells past the end have zero
 // coefficients, hence a zero metric): item (q2, b), cells fastest.
-template <int P>
+template <int P, int COFACTOR>
 __device__ void metric_plane(float (&g)[6][kTileCells][CellMmaShape<P>::LDG],
                              const float (&c24)[kTileCells][CellMmaShape<P>::LDC],
                              const OpTables<float>& tb, int qz) {
@@ -246,14 +249,14 @@ __device__ void metric_plane(float (&g)[6][kTileCells][CellMmaShape<P>::LDG],
       pq[4 * k + 2] = r.z;
       pq[4 * k + 3] = r.w;
     }
-    onthefly_metric(pq, c24[b], __ldg(tb.w3 + qp), gm);
+    onthefly_metric<1, COFACTOR>(pq, c24[b], __ldg(tb.w3 + qp), gm);
 #pragma unroll
     for (int e = 0; e < 6; ++e) g[e][b][q2] = gm[e];
   }
 }
 
 // tb.mats: the two fragment tables, forward then backward, TF + TB uint2.
-template <int P, bool FUSED>
+template <int P, bool FUSED, int COFACTOR>
 __global__ void __launch_bounds__(kCellMmaThreads, 2)
     cells_mma_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                      float* __restrict__ cells) {
@@ -324,13 +327,13 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   float v[P1][Ms::NB][4] = {};
 
   __syncthreads();  // coefficients ready
-  metric_plane<P>(sm.g[0], sm.c24, tb, 0);
+  metric_plane<P, COFACTOR>(sm.g[0], sm.c24, tb, 0);
   for (int qz = 0; qz < S::Q; ++qz) {
     // plane qz's metric and the inputs are ready, and every warp is done
     // with plane qz - 1, whose buffer now takes plane qz + 1's metric
     __syncthreads();
     if (qz + 1 < S::Q)
-      metric_plane<P>(sm.g[(qz + 1) & 1], sm.c24, tb, qz + 1);
+      metric_plane<P, COFACTOR>(sm.g[(qz + 1) & 1], sm.c24, tb, qz + 1);
     if (warp == kComps) continue;  // the fourth warp only rebuilds metrics
     const auto& gpl = sm.g[qz & 1];
     const float* uc = &sm.u[c][0][0];
@@ -474,11 +477,11 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   }
 }
 
-template <int P, bool FUSED>
+template <int P, bool FUSED, int COFACTOR>
 cudaError_t launch_cells_mma(const OpTables<float>& tb, const Grid& gr,
                              const CellIo<float>& io, float* cells,
                              cudaStream_t st) {
-  auto kern = cells_mma_kernel<P, FUSED>;
+  auto kern = cells_mma_kernel<P, FUSED, COFACTOR>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -13,7 +13,7 @@
 // shared z plane and the dot partials from one grid step to the next; the
 // H100 runs blocks in no order, so each apply is split into passes:
 //
-//   cells     one block per 8 f32 or 4 f64 cells (split2m: per 16 cells):
+//   cells     one block per 8 f32 or 4 f64 cells (split2m: see below):
 //             (B2: update4b at the cells' nodes, the owning cell writes x',
 //             g', d') then the cell operator; writes the masked cell-local
 //             result to scratch (C, n_cells, (P+1)^3).
@@ -40,8 +40,13 @@
 //   f32 "split2m", dense, p=1..4: the tensor-core pass of apply_mma.cuh in
 //     its lattice forms, 32 cells a block, the metric streamed or rebuilt
 //     (adjj) per chunk of 16 q-points into shared memory.
-//   f32 "split2m", twostage + onthefly (adjj), p=4: one block per 16
-//     cells, the 2D stage on the tensor cores (cell_mma.cuh).
+//   f32 "split2m", twostage + onthefly (adjj or jtj), p=4: one block per
+//     16 cells, the 2D stage on the tensor cores (cell_mma.cuh).
+//   f32 "split2m", twostage, p=5..11 (the metric rebuilt by either chain
+//     or streamed) and p=4 streamed: one warp per 8 cells and component,
+//     two q-planes of them the rows of the 2D stage's tensor-core tiles
+//     (cell_mma_hd.cuh, degrees 5..11 built in cell_mma_p05.cu ..
+//     cell_mma_p11.cu).
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -59,13 +64,14 @@
 #include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
 #include "cell_mma.cuh"
+#include "cell_mma_hd.cuh"
 
 namespace bp4 {
 
 // The cell pass of B1 (FUSED false) or B2 for the configuration (split,
 // dense, cofactor, tb.gmetric null or not); each writes the masked
 // cell-local result to cells[(c * n_cells + cell) * P13 + l].  -1: no
-// instantiation (the tensor-core passes: p <= 4 and adjj only).
+// instantiation (split2m: dense at p <= 4 with adjj, twostage at p >= 4).
 template <typename T, int P, bool FUSED>
 cudaError_t launch_cells(int split, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
@@ -77,9 +83,10 @@ cudaError_t launch_cells(int split, int dense, int cofactor,
     return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
                       : launch_sumfac<T, P, FORM, true>(a, gr, st);
   }
+  const auto none = static_cast<cudaError_t>(-1);
   if constexpr (std::is_same_v<T, float> && P <= 4) {
-    if (cofactor != kAdjj) return static_cast<cudaError_t>(-1);
     if (dense) {
+      if (cofactor != kAdjj) return none;
       // the forward table, then the backward one (laplace_cuda.mma_tables)
       const auto mf = reinterpret_cast<const uint2*>(tb.mats);
       const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
@@ -90,11 +97,25 @@ cudaError_t launch_cells(int split, int dense, int cofactor,
                  : launch_mma<P, FORM, true>(mf, mb, nullptr, gr, nullptr,
                                              io.d, cells, x, st);
     }
+  }
+  if constexpr (std::is_same_v<T, float> && P >= 4) {
+    if (dense) return none;
+    if (tb.gmetric)
+      return launch_cells_mma_hd<P, FUSED, false, kAdjj>(tb, gr, io, cells,
+                                                         st);
     if constexpr (P == 4) {
-      if (!tb.gmetric) return launch_cells_mma<P, FUSED>(tb, gr, io, cells, st);
+      return cofactor == kJtj
+                 ? launch_cells_mma<P, FUSED, kJtj>(tb, gr, io, cells, st)
+                 : launch_cells_mma<P, FUSED, kAdjj>(tb, gr, io, cells, st);
+    } else {
+      return cofactor == kJtj
+                 ? launch_cells_mma_hd<P, FUSED, true, kJtj>(tb, gr, io,
+                                                             cells, st)
+                 : launch_cells_mma_hd<P, FUSED, true, kAdjj>(tb, gr, io,
+                                                              cells, st);
     }
   }
-  return static_cast<cudaError_t>(-1);
+  return none;
 }
 
 // The merged-CG scalar update from the 7 sums (cg_fused_kernel.scalar_recurrence,
@@ -212,12 +233,12 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 
 // dtype: 0 = float32, 1 = float64.  Instantiated: f32 and f64 "highest"
 // at degrees 1..11 (mats unused, coeffs (24, n_cells)); f32 "split2m"
-// (split = 1) at degrees 1..4 with cofactor adjj: dense (dense = 1: mats
-// the bf16 fragment tables of apply_mma.cuh, coeffs (24, n_cells)) and, at
-// degree 4, twostage with the rebuilt metric (dense = 0: mats the bf16
-// fragment tables of cell_mma.cuh, coeffs (n_cells, 24)).  gmetric: the
-// streamed metric (6 Q3, n_cells), or null for the metric rebuilt from the
-// coefficients by the chain `cofactor` (0 adjj, 1 jtj).
+// (split = 1): dense at degrees 1..4 with cofactor adjj (dense = 1: mats
+// the bf16 fragment tables of apply_mma.cuh, coeffs (24, n_cells)), and
+// twostage at degrees 4..11 (dense = 0: mats the bf16 fragment tables of
+// the 2D stage, coeffs (n_cells, 24)).  gmetric: the streamed metric
+// (6 Q3, n_cells), or null for the metric rebuilt from the coefficients by
+// the chain `cofactor` (0 adjj, 1 jtj).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (``csrc/``) at first use.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
-sources at once in parallel processes (the sum-factorized pass of each
-degree 5..11 has a source of its own, ``sumfac_pNN.cu``, the largest
+sources at once in parallel processes (the sum-factorized pass and the
+split2m twostage tensor-core pass of each degree 5..11 have a source of
+their own, ``sumfac_pNN.cu`` and ``cell_mma_pNN.cu``, the largest
 instantiations), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside

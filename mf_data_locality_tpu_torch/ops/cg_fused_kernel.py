@@ -16,7 +16,8 @@ The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
 ``op.cofactor``; ``laplace_cuda.fused_configs``): the dense factorization
 or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
 from the coefficients by the adjj or the jtj chain, at degrees 1..11
-(split2m: 1..4, adjj).  Each wrapper runs the hand-written CUDA
+(split2m: dense at 1..4 with adjj, twostage at 4..11).  Each wrapper runs
+the hand-written CUDA
 kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
 PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
 for tensors on the CPU; other devices raise.  The kernel's cell pass:
@@ -29,8 +30,13 @@ for tensors on the CPU; other devices raise.  The kernel's cell pass:
 * f32 ``split2m``, dense: the tensor-core pass of ``csrc/apply_mma.cuh`` on
   the bf16 tables ``op.mma_mats`` of the dense M, the metric streamed or
   rebuilt;
-* f32 ``split2m``, twostage + onthefly (p=4): the tensor-core pass of
-  ``csrc/cell_mma.cuh`` on the 2D stage's tables.
+* f32 ``split2m``, twostage + onthefly at p=4: the tensor-core pass of
+  ``csrc/cell_mma.cuh`` on the 2D stage's tables;
+* f32 ``split2m``, twostage at p=5..11 (either metric, either chain) and
+  at p=4 with the streamed metric: the tensor-core pass of
+  ``csrc/cell_mma_hd.cuh`` on the same tables, two q-planes of 8 cells the
+  rows of its tiles (built one source a degree, ``csrc/cell_mma_p05.cu``
+  .. ``cell_mma_p11.cu``).
 
 The plain versions do the same arithmetic — the same bf16 rounding points
 for ``split2m``, the same masking — with einsum over cells, in another
@@ -159,24 +165,29 @@ def _cell_apply_mma_emulated(op: OperatorData,
     """The split2m tensor-core cell passes' arithmetic in plain PyTorch, for
     the tests.  Dense (``csrc/apply_mma.cuh`` in its lattice forms):
     ``laplace_apply._batched_mma_emulated`` on the cells with the streamed
-    or rebuilt metric.  Twostage (``csrc/cell_mma.cuh``): the 2D matrices
-    from their packed bf16 tables, (ky, kx) columns and q^2 rows
-    zero-padded, the f32 z stage unrounded, the K-stacked products [Mh | Mh]
-    [uh; ul] and, after the metric apply, [Mh | Mh]^T [th; tl] in f32.
-    Same result shape as :func:`_cell_apply`."""
+    or rebuilt metric.  Twostage (``csrc/cell_mma.cuh`` at p=4,
+    ``csrc/cell_mma_hd.cuh``): the 2D matrices from their packed bf16
+    tables, (ky, kx) columns and q^2 rows zero-padded, the q-planes padded
+    to pairs (the rows of ``cell_mma_hd.cuh``'s tiles: the padded plane has
+    zero z factors and G = 0), the f32 z stage unrounded, the K-stacked
+    products [Mh | Mh] [uh; ul] and, after the metric apply, [Mh | Mh]^T
+    [th; tl] in f32, then the z stage back, plane after plane.  Same result
+    shape as :func:`_cell_apply`."""
     if op.factor == "dense":
         from mf_data_locality_tpu_torch.ops import laplace_apply
 
         return _on_batch(op, u, lambda b, G: laplace_apply
                          ._batched_mma_emulated(op, b, G))
     p, q = op.degree, op.n_q
-    p1, q2 = p + 1, q * q
+    p1, q2, qe = p + 1, q * q, q + q % 2
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
     mf, mb = (m.to(op.dtype) for m in laplace_cuda.unpack_mma_tables(
         op.mma_mats, p, "twostage"))
     cells = torch.nn.functional.pad(_cells(op, u), (0, p12p - p1 * p1))
-    uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
-    uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
+    sz, dz = (torch.nn.functional.pad(m, (0, 0, 0, qe - q))
+              for m in (op.sz, op.dz))
+    uS = torch.einsum("qk,cnkr->cnqr", sz, cells)
+    uD = torch.einsum("qk,cnkr->cnqr", dz, cells)
 
     def fwd(m, b):  # (rows, p12p) x (..., p12p), K-stacked hi/lo
         return torch.cat(_parts(b, True), -1) @ torch.cat([m, m], 1).t()
@@ -184,7 +195,8 @@ def _cell_apply_mma_emulated(op: OperatorData,
     gxy = fwd(mf[:2 * q2p], uS)
     gx, gy, gz = gxy[..., :q2p], gxy[..., q2p:], fwd(mf[2 * q2p:], uD)
     G = torch.nn.functional.pad(
-        cell_metric(op).reshape(6, 1, op.n_cells, q, q2), (0, q2p - q2))
+        cell_metric(op).reshape(6, 1, op.n_cells, q, q2),
+        (0, q2p - q2, 0, qe - q))
     t0 = G[0] * gx + G[1] * gy + G[2] * gz
     t1 = G[1] * gx + G[3] * gy + G[4] * gz
     t2 = G[2] * gx + G[4] * gy + G[5] * gz
@@ -194,8 +206,11 @@ def _cell_apply_mma_emulated(op: OperatorData,
 
     w1 = bwd(mb[:2 * q2p], torch.cat([t0, t1], -1))[..., :p1 * p1]
     w2 = bwd(mb[2 * q2p:], t2)[..., :p1 * p1]
-    return (torch.einsum("qk,cnqr->cnkr", op.sz, w1)
-            + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
+    v = w1.new_zeros(w1.shape[:2] + (p1, p1 * p1))
+    for qz in range(q):  # the planes in order, as the kernels add them
+        v = v + (sz[qz, :, None] * w1[:, :, qz, None]
+                 + dz[qz, :, None] * w2[:, :, qz, None])
+    return v
 
 
 def _cell_apply_sumfac_emulated(op: OperatorData,

@@ -9,8 +9,8 @@ Two families of configurations, named by (factor, metric, windowing):
   24 trilinear coefficients per cell (``"onthefly"``, by the inversion
   chain ``cofactor``: "adjj", the adjugate of J, or "jtj", adj(J^T J)
   rsqrt(det)) — every pair and both chains under ``highest`` at degrees
-  1..11; under ``split2m`` (adjj only) the dense pair at 1..4 and
-  twostage + onthefly at p=4;
+  1..11; under ``split2m`` the dense pair at 1..4 (adjj) and twostage with
+  either metric (the rebuilt one by either chain) at 4..11;
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
@@ -49,7 +49,10 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
 
 ``kpds`` (q^3, 24) and ``kcoeffs`` (n_cells, 24) are the same data with one
 contiguous row per q-point / per cell: the kernels read ``kpds``, and the
-twostage split2m tensor-core pass of B1/B2 ``kcoeffs``.  ``mma_mats``
+twostage split2m tensor-core passes of B1/B2 ``kcoeffs`` (from p=5 each
+thread rebuilds G at its own cell's q-points, or reads them from the
+streamed ``gmetric`` in its canonical layout, where the 8 cells of a warp
+are one 32-byte sector of a q-point's row).  ``mma_mats``
 (``split2m`` only) is the matrix of the tensor-core cell pass rounded once
 to bf16 and packed as its fragments (:func:`mma_tables`): ``mats`` for the
 dense factorization (the apply family, and the fused path's dense
@@ -73,12 +76,19 @@ _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
 # the reference's degree table (benchmark.h:290-313): the fused solver's
-# and the apply family's kernels under "highest"; the split2m tensor-core
-# passes have the first four
+# and the apply family's kernels under "highest"; under split2m the dense
+# tensor-core pass (csrc/apply_mma.cuh: B3/B5/B6, B1/B2 dense) has the
+# first four, the twostage one of B1/B2 (csrc/cell_mma.cuh at p=4 with the
+# rebuilt metric, csrc/cell_mma_hd.cuh) p=4..11
 FUSED_DEGREES = tuple(range(1, 12))
-SPLIT_DEGREES = (1, 2, 3, 4)
-_SPLIT_TODO = ("not ported yet: see ROADMAP.md, queue B item 7b (split2m at "
-               "p >= 5 and with jtj: the tensor-core passes' next slice)")
+SPLIT_DENSE_DEGREES = (1, 2, 3, 4)
+SPLIT_TWOSTAGE_DEGREES = tuple(range(4, 12))
+_DENSE_TODO = ("not ported yet: see ROADMAP.md, queue B item 7c (split2m's "
+               "dense tensor-core pass at p >= 5: B3/B5/B6 and B1/B2 dense)")
+_TWOSTAGE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6f (split2m "
+                  "twostage at p=1..3)")
+_JTJ_TODO = ("not ported yet: see ROADMAP.md, queue B item 6c (the jtj "
+             "chain in split2m's dense pass)")
 # (factor, metric, windowing) of the apply family; under highest also
 # twostage on pieces, where the JAX resolvers put the merged and baseline
 # solvers' --windowing pieces at p >= 5 (B5 reads the dense operator
@@ -224,8 +234,8 @@ def _mma_block(p: int, factor: str) -> tuple[int, int]:
 def mma_dims(p: int, factor: str = "dense") -> tuple[int, int]:
     """(q-points per direction, nodes) of degree ``p``, each padded to a
     multiple of 16: the tensor-core tiles of ``csrc/apply_mma.cuh``
-    (``factor="dense"``) or of the 2D stage in ``csrc/cell_mma.cuh``
-    (``"twostage"``: q^2 and (p+1)^2)."""
+    (``factor="dense"``) or of the 2D stage in ``csrc/cell_mma.cuh`` and
+    ``csrc/cell_mma_hd.cuh`` (``"twostage"``: q^2 and (p+1)^2)."""
     return tuple(-(-n // 16) * 16 for n in _mma_block(p, factor))
 
 
@@ -276,16 +286,19 @@ def fused_configs(precision: str,
     ``highest`` the dense and twostage operators are one function, which
     one sum-factorized pass computes with the metric streamed or rebuilt,
     at degrees 1..11; under ``split2m`` each factorization's rounding
-    defines the rung, and its tensor-core passes are the dense one (either
-    metric) at 1..4 and twostage + onthefly at p=4."""
-    if degree is not None and degree not in (
-            SPLIT_DEGREES if precision == "split2m" else FUSED_DEGREES):
-        return ()
+    defines the rung, and its tensor-core passes are the dense one at
+    :data:`SPLIT_DENSE_DEGREES` and the twostage one at
+    :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
+    one by adjj, and in twostage by jtj too)."""
+    def at(degrees, pairs):
+        return pairs if degree is None or degree in degrees else ()
+
     dense = (("dense", "precomputed"), ("dense", "onthefly"))
-    twostage = (("twostage", "onthefly"),)
+    twostage = (("twostage", "onthefly"), ("twostage", "precomputed"))
     if precision != "split2m":
-        return dense + twostage + (("twostage", "precomputed"),)
-    return dense + (twostage if degree in (None, 4) else ())
+        return at(FUSED_DEGREES, dense + twostage)
+    return at(SPLIT_DENSE_DEGREES, dense) + at(SPLIT_TWOSTAGE_DEGREES,
+                                               twostage)
 
 
 def check_config(precision: str, factor: str = "twostage",
@@ -301,8 +314,9 @@ def check_config(precision: str, factor: str = "twostage",
     merged and baseline solvers on the apply family.  Without a solver (the
     builders) the fused configurations of any degree pass: the plain
     versions take every degree, the kernels check theirs.  ``degree``
-    given: ``split2m`` past :data:`SPLIT_DEGREES` raises (no rung falls
-    back to another, nor a kernel to its plain version).
+    given: ``split2m`` past :data:`SPLIT_DENSE_DEGREES` raises unless the
+    configuration is the fused solver's twostage one (no rung falls back
+    to another, nor a kernel to its plain version).
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
@@ -322,14 +336,19 @@ def check_config(precision: str, factor: str = "twostage",
     config = (factor, metric, windowing)
     if cofactor not in COFACTORS:
         raise ValueError(f"unknown cofactor mode {cofactor!r}")
-    if precision == "split2m" and cofactor == "jtj":
+    if precision == "split2m" and cofactor == "jtj" and factor == "dense":
         raise NotImplementedError(
-            f"cofactor='jtj' under precision='split2m' is {_SPLIT_TODO}")
+            f"cofactor='jtj' with factor='dense' under precision='split2m' "
+            f"is {_JTJ_TODO}")
+    fused_twostage = (factor == "twostage" and windowing == "pieces"
+                      and solver in (None, "fused"))
     if precision == "split2m" and degree is not None and (
-            degree not in SPLIT_DEGREES):
+            degree not in SPLIT_DENSE_DEGREES and not fused_twostage):
         raise NotImplementedError(
-            f"precision='split2m' at degree {degree} is {_SPLIT_TODO}; "
-            f"it has degrees {SPLIT_DEGREES}")
+            f"factor={factor!r}, windowing={windowing!r}"
+            + (f" with solver={solver!r}" if solver else "")
+            + f" under precision='split2m' at degree {degree} is "
+            f"{_DENSE_TODO}; it has degrees {SPLIT_DENSE_DEGREES}")
     if solver == "fused" and degree not in FUSED_DEGREES:
         raise NotImplementedError(
             f"degree {degree} of the fused solver has no kernel: the "
@@ -340,8 +359,7 @@ def check_config(precision: str, factor: str = "twostage",
     wanted = (fused if solver == "fused" else apply
               if solver is not None else fused + apply)
     if config not in wanted:
-        todo = (f"not ported yet: see ROADMAP.md, queue B item 6f (split2m "
-                f"twostage has p=4 and the rebuilt metric)"
+        todo = (_TWOSTAGE_TODO
                 if config[0] == "twostage" and precision == "split2m"
                 else _TODO)
         raise NotImplementedError(

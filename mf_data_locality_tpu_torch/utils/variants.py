@@ -62,7 +62,8 @@ _STAMP = "if (threadIdx.x == 0) g_prof[blockIdx.x][{k}] = clock64();"
 ABLATE = {
     "base": [],
     # the metric rebuild replaced by a diagonal metric (no Jacobian chain)
-    "nometric": [(CM, "onthefly_metric(pq, c24[b], __ldg(tb.w3 + qp), gm);",
+    "nometric": [(CM, "onthefly_metric<1, COFACTOR>(pq, c24[b], "
+                       "__ldg(tb.w3 + qp), gm);",
                   "gm[0] = gm[3] = gm[5] = pq[0] + 1.f; "
                   "gm[1] = gm[2] = gm[4] = 0.f;")],
     # no gather: the inputs are constants (no loads of d, g, h, P, x)
@@ -105,9 +106,9 @@ STAMPS = {"stamps": [
      "  const int cell0 = blockIdx.x * kTileCells;\n  " + _STAMP.format(k=0)
      + "\n\n"),
     (CM, "  __syncthreads();  // coefficients ready\n"
-         "  metric_plane<P>(sm.g[0], sm.c24, tb, 0);\n",
+         "  metric_plane<P, COFACTOR>(sm.g[0], sm.c24, tb, 0);\n",
      "  __syncthreads();  // coefficients ready\n  " + _STAMP.format(k=1)
-     + "\n  metric_plane<P>(sm.g[0], sm.c24, tb, 0);\n  "
+     + "\n  metric_plane<P, COFACTOR>(sm.g[0], sm.c24, tb, 0);\n  "
      + _STAMP.format(k=2) + "\n"),
     (CM, "    __syncthreads();\n    if (qz + 1 < S::Q)",
      "    __syncthreads();\n    if (qz > 0 && threadIdx.x == 0) "

@@ -207,8 +207,11 @@ def test_solve_f64_matches_jax(s, p):
 def test_fused_dispatch_resolves_to_ported_configurations(p):
     """The fused solver's auto-dispatch (the JAX resolvers, verbatim) at
     p=1..4 on the port's rungs gives a configuration the port runs, the
-    same as the JAX resolvers give; jtj runs under highest; what stays
-    unported (split2m with jtj, or at p >= 5) raises."""
+    same as the JAX resolvers give; jtj runs under highest, and under
+    split2m in twostage (p=4); what stays unported (split2m twostage at
+    p=1..3, jtj in split2m's dense pass, split2m dense at p >= 5) raises;
+    the split2m auto path at p+4 >= 5 resolves to twostage + onthefly +
+    jtj."""
     want = {"highest": ("dense", "precomputed"),
             "split2m": {1: ("dense", "precomputed"),
                         2: ("dense", "onthefly"),
@@ -230,30 +233,41 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                ("dense", "onthefly")):
             benchmark.resolve_config(p, "fused", "pieces", precision, dtype,
                                      factor, metric)
-    refused = [dict(precision="split2m", factor="twostage",
-                    metric="precomputed"),
-               dict(precision="split2m", metric="onthefly", cofactor="jtj"),
+    refused = [dict(precision="split2m", factor="dense", metric="onthefly",
+                    cofactor="jtj"),
                dict(precision="split3"),
                dict(precision="split2m", dtype=torch.float64)]
     if p != 4:
-        refused.append(dict(precision="split2m", factor="twostage",
-                            metric="onthefly"))
+        refused += [dict(precision="split2m", factor="twostage",
+                         metric="onthefly"),
+                    dict(precision="split2m", factor="twostage",
+                         metric="precomputed"),
+                    dict(precision="split2m", metric="onthefly",
+                         cofactor="jtj")]
+    else:
+        for kw in (dict(factor="twostage", metric="precomputed"),
+                   dict(metric="onthefly", cofactor="jtj")):
+            benchmark.resolve_config(p, "fused", "pieces", "split2m",
+                                     torch.float32, **kw)
     for kw in refused:
         args = dict(precision="highest", dtype=torch.float32) | kw
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             benchmark.resolve_config(p, "fused", "pieces", **args)
     benchmark.resolve_config(p, "fused", "pieces", "highest", torch.float32,
                              "twostage", "onthefly", "jtj")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    assert benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
+                                    torch.float32) == ("twostage",
+                                                       "onthefly", "jtj")
+    with pytest.raises(NotImplementedError, match="item 7c"):
         benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
-                                 torch.float32)
+                                 torch.float32, "dense")
 
 
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 def test_kernel_wrappers_take_the_fused_configurations(p):
     """The kernels' argument check takes an operator exactly when its
     (factor, metric) is one of ``laplace_cuda.fused_configs`` at its degree
-    (split2m twostage at p=4 only); the others raise, naming ROADMAP."""
+    (split2m twostage from p=4); the others raise, naming ROADMAP."""
     for precision, factor, metric in itertools.product(
             ("highest", "split2m"), ("dense", "twostage"),
             ("precomputed", "onthefly")):

@@ -131,9 +131,13 @@ def test_configurations_at_every_degree(p):
     """``highest`` (f32, f64) takes every (factor, metric) and both
     cofactors at p = 1..11, and the merged and baseline solvers every
     windowing as the JAX resolvers give it (twostage on pieces from p=5,
-    which B5 computes as the dense operator); split2m at p >= 5, and split2m
-    with jtj, raise NotImplementedError naming ROADMAP queue B item 7;
-    ``fused_configs`` and the fused auto-dispatch agree."""
+    which B5 computes as the dense operator); under split2m the fused
+    solver takes twostage from p=4 (either metric, either chain; the auto
+    path twostage + onthefly + jtj from p=5, as the JAX resolvers give),
+    and the dense factorization and the merged and baseline solvers at
+    p=1..4: past those, split2m raises NotImplementedError naming ROADMAP
+    queue B item 7c (dense), 6f (twostage at p=1..3) or 6c (jtj in the
+    dense pass); ``fused_configs`` and the fused auto-dispatch agree."""
     for dtype in (torch.float32, torch.float64):
         for factor, metric in laplace_cuda.fused_configs("highest", p):
             for cofactor in laplace_cuda.COFACTORS:
@@ -153,31 +157,61 @@ def test_configurations_at_every_degree(p):
                 assert metric == "precomputed"
     assert len(laplace_cuda.fused_configs("highest", p)) == 4
     split = laplace_cuda.fused_configs("split2m", p)
-    assert (split == ()) == (p >= 5)
+    assert (("dense", "onthefly") in split) == (p <= 4)
+    assert (("twostage", "onthefly") in split) == (p >= 4)
+    assert (("twostage", "precomputed") in split) == (p >= 4)
     for f, m, c in (("twostage", "onthefly", "jtj"),
-                    ("dense", "onthefly", "jtj")):
-        with pytest.raises(NotImplementedError, match="queue B item 7"):
+                    ("twostage", "onthefly", "adjj"),
+                    ("twostage", "precomputed", "adjj")):
+        if p >= 4:
             laplace_cuda.check_config("split2m", f, m, c, torch.float32,
                                       "pieces", "fused", p)
+        else:
+            with pytest.raises(NotImplementedError, match="queue B item 6f"):
+                laplace_cuda.check_config("split2m", f, m, c, torch.float32,
+                                          "pieces", "fused", p)
+    with pytest.raises(NotImplementedError, match="queue B item 6c"):
+        laplace_cuda.check_config("split2m", "dense", "onthefly", "jtj",
+                                  torch.float32, "pieces", "fused", p)
+    config = benchmark.resolve_config(p, "fused", "pieces", "split2m",
+                                      torch.float32)
+    jf = jbench.resolve_factor("auto", p, "pieces", precision="split2m",
+                               solver="fused")
+    jm = jbench.resolve_metric("auto", "fused", "pieces", jf, p,
+                               precision="split2m")
+    assert config == (jf, jm, jbench.resolve_cofactor("auto", p, jf, jm,
+                                                      precision="split2m"))
+    assert config[:2] in split
     if p >= 5:
-        for solver, windowing in (("fused", "pieces"), ("merged", "reshape"),
-                                  ("baseline", "zslab")):
-            with pytest.raises(NotImplementedError, match="queue B item 7"):
+        assert config == ("twostage", "onthefly", "jtj")
+        for solver, windowing, kw in (
+                ("fused", "pieces", {"factor": "dense"}),
+                ("merged", "reshape", {}), ("merged", "pieces", {}),
+                ("baseline", "zslab", {})):
+            with pytest.raises(NotImplementedError, match="queue B item 7c"):
                 benchmark.resolve_config(p, solver, windowing, "split2m",
-                                         torch.float32)
+                                         torch.float32, **kw)
 
 
 def test_run_one_refuses_split2m_past_p4():
-    """``run_one(p >= 5, ..., precision="split2m")`` raises before it
-    builds anything: no fallback to ``highest`` or to the plain version."""
-    for p, kw in ((5, dict(solver="fused", windowing="pieces")),
+    """``run_one(p >= 5, ..., precision="split2m")`` on a path still
+    unported (the dense tensor-core pass: merged, baseline, the fused
+    solver's dense factorization) raises before it builds anything, naming
+    ROADMAP item 7c; the fused solver's twostage path is ported and, on the
+    CPU, raises for lack of a card: no fallback to ``highest`` or to the
+    plain version either way."""
+    for p, kw in ((5, dict(solver="fused", windowing="pieces",
+                           factor="dense")),
                   (8, dict(solver="merged")),
-                  (11, dict(solver="fused", windowing="pieces",
-                            metric="onthefly", cofactor="jtj"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                  (11, dict(solver="baseline", windowing="zslab"))):
+        with pytest.raises(NotImplementedError, match="item 7c"):
             benchmark.run_one(p, 6, precision="split2m", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         bp4.build(S, 6, torch.float32, "split2m", device="cpu")
+    for p, kw in ((5, {}), (11, dict(metric="precomputed"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            benchmark.run_one(p, 3, solver="fused", windowing="pieces",
+                              precision="split2m", device="cpu", **kw)
 
 
 @pytest.mark.parametrize("p,s,n", [(5, 6, 95), (6, 4, 75)])

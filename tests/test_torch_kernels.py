@@ -457,3 +457,66 @@ def test_run_one_every_path_high_degree_on_card(cuda_device, p):
                and r.time_per_it > 0 for r in rows)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         benchmark.run_one(p, 4, precision="split2m", **short)
+
+
+# B1/B2 under f32 split2m in twostage: (metric, cofactor); from p=5 the
+# tensor-core pass of csrc/cell_mma_hd.cuh, at p=4 that of cell_mma.cuh
+# with the metric rebuilt and cell_mma_hd.cuh's with it streamed
+SPLIT_TWOSTAGE = [("onthefly", "jtj"), ("onthefly", "adjj"),
+                  ("precomputed", "adjj")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,cofactor", SPLIT_TWOSTAGE)
+@pytest.mark.parametrize("p", (4,) + HIGH)
+def test_split2m_twostage_kernels_match_plain(cuda_device, p, metric,
+                                              cofactor):
+    """B1 and B2 under f32 split2m in twostage at p = 4..11 (the metric
+    rebuilt by jtj or adjj, or streamed) on 3 x 5 x 7 = 105 cells, not a
+    multiple of the 8 cells of a task: against their plain versions, each
+    twice and bitwise equal, each launch counted."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(layout, torch.float32, "split2m",
+                                    factor="twostage", metric=metric,
+                                    cofactor=cofactor, windowing="pieces",
+                                    device=cuda_device)
+    prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+    (u,) = _state(op, 1, seed=110 + p)
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[torch.float32]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=120 + p)
+    scal = torch.tensor(SCAL, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[torch.float32]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (fk.matvec.launches, fk.fused_cg_iteration.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", HIGH)
+def test_run_one_fused_split2m_high_degree_on_card(cuda_device, p):
+    """At p = 5..11 the fused solver under split2m through the
+    auto-dispatch (twostage + onthefly + jtj) launches B1 and B2 and
+    converges, or from p=8 reaches the 100-iteration cap at s=4 as the
+    ``highest`` paths do; the dense pass stays refused (ROADMAP item 7c)."""
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
+                 device=cuda_device)
+    r = benchmark.run_one(p, 4, solver="fused", windowing="pieces",
+                          precision="split2m", **short)
+    assert fk.matvec.launches > before[0]
+    assert fk.fused_cg_iteration.launches > before[1]
+    assert (r.converged if p < 8 else r.n_iterations == 100)
+    assert r.time_per_it > 0
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        benchmark.run_one(p, 4, solver="fused", windowing="pieces",
+                          precision="split2m", factor="dense", **short)

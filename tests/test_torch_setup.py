@@ -118,15 +118,20 @@ def test_operator_rejects_unported_configurations():
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
-    for kw in ({**fused, "precision": "split2m", "metric": "precomputed"},
+    dense = {"factor": "dense", "metric": "onthefly", "windowing": "pieces"}
+    for kw in ({**dense, "precision": "split2m", "cofactor": "jtj"},
                {**fused, "windowing": "reshape"},
-               {**fused, "cofactor": "jtj", "precision": "split2m"},
                {"precision": "split3"},
                {**fused, "precision": "split3"},
                {"precision": "split2m", "dtype": torch.float64},
                {**fused, "precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             laplace_cuda.make_operator(layout, device="cpu", **kw)
+    # split2m's dense pass past p=4 (the apply family, the fused dense)
+    for kw in ({"precision": "split2m"}, {**dense, "precision": "split2m"}):
+        with pytest.raises(NotImplementedError, match="item 7c"):
+            laplace_cuda.make_operator(DofLayout(BoxMesh.from_s(1), 5),
+                                       device="cpu", **kw)
 
 
 def test_build_defaults_match_jax():
