@@ -14,11 +14,14 @@ reference merged solver's ideal traffic of ~9 f32 words per DoF per
 iteration against the bandwidth measured on the same card.
 
 On stderr: the card's name and power limit (``nvidia-smi``), n_dofs, itCG,
-time/it, time/matvec, the bandwidth and whether the solve converged.
-``bench.py``'s split3 and bf16 variant lines are not ported yet (ROADMAP.md
-queue B item 6d); its TPU-only lines (the latency recheck, the one-chain
-protocol, the piece layout's streamed-bytes model) have no counterpart.
-Without a CUDA device it prints nothing on stdout and exits 1.
+time/it, time/matvec, the bandwidth and whether the solve converged; then
+``bench.py``'s two variant lines at the same point, with its fields: the
+split3 rung (f32 state, three products a tile) and the bf16 rung with the
+bf16 state and the bf16 metric stream (``dtype=torch.bfloat16,
+metric_dtype=torch.bfloat16``), each through the auto-dispatch.
+``bench.py``'s TPU-only lines (the latency recheck, the one-chain protocol,
+the piece layout's streamed-bytes model) have no counterpart.  Without a
+CUDA device it prints nothing on stdout and exits 1.
 """
 
 from __future__ import annotations
@@ -66,9 +69,25 @@ def main() -> int:
           f"time/it={r.time_per_it:.6e}s time/matvec={r.time_per_matvec:.6e}s "
           f"measured_bw={bw / 1e9:.1f}GB/s roofline={roofline / 1e9:.3f}"
           f"GDoF/s/it converged={r.converged}", file=sys.stderr)
-    for variant in ("split3", "bf16"):
-        print(f"# {variant} variant: not ported (ROADMAP queue B item 6d)",
-              file=sys.stderr)
+    # split3 variant: bf16 hi/lo 3-product decomposition, f32 class
+    r2 = benchmark.run_one(DEGREE, S, solver="fused", dtype=torch.float32,
+                           precision="split3", windowing="pieces",
+                           solve_repeats=2, matvec_repeats=2,
+                           matvec_inner=20, device=dev)
+    print(f"# split3 variant: dofs/s/it={r2.dofs_per_s_per_it:.3e} "
+          f"({r2.dofs_per_s_per_it / roofline:.3f} of roofline) "
+          f"time/it={r2.time_per_it:.3e}s itCG={r2.n_iterations}",
+          file=sys.stderr)
+    # reduced-precision variant: bf16 storage of d and h, one bf16 product
+    # a tile, the bf16 metric stream
+    rb = benchmark.run_one(DEGREE, S, solver="fused", dtype=torch.bfloat16,
+                           precision="bf16", windowing="pieces",
+                           metric_dtype=torch.bfloat16, solve_repeats=2,
+                           matvec_repeats=2, matvec_inner=20, device=dev)
+    print(f"# bf16 variant: dofs/s/it={rb.dofs_per_s_per_it:.3e} "
+          f"({rb.dofs_per_s_per_it / roofline:.3f} of roofline) "
+          f"time/it={rb.time_per_it:.3e}s "
+          f"time/matvec={rb.time_per_matvec:.3e}s", file=sys.stderr)
     return 0
 
 

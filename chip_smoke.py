@@ -29,7 +29,14 @@ Phases (each raises on failure, so any failure exits nonzero):
    the metric rebuilt, cell_mma.cuh) compared at every degree 4..11 on the
    105-cell box in each configuration of SPLIT_HIGH (the metric rebuilt by
    jtj — the auto path's —, by adjj, and streamed), and compared and timed
-   at p=6 s=12 and p=8 s=11 in the auto path's configuration;
+   at p=6 s=12 and p=8 s=11 in the auto path's configuration; under the
+   reduced rungs (REDUCED: split3 with an f32 state, bf16 with the bf16
+   state and the bf16 metric stream; on the box also bf16 with an f32
+   state) every kernel of theirs compared on the 105-cell box — B1/B2
+   dense and B3/B5/B6 at p=1..4, B1/B2 twostage in each SPLIT_HIGH
+   configuration at REDUCED_CMP —, B1/B2 in the fused auto path's
+   configuration compared and timed at p=4 s=13 (bench.py's two variant
+   configurations), p=6 s=12 and p=8 s=11, B3/B5/B6 at p=4 s=13;
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged (streamed metric and ``metric="onthefly"``) and baseline
    alike — f32 "split2m" (fused; merged with ``--windowing reshape``) and
@@ -48,7 +55,10 @@ Phases (each raises on failure, so any failure exits nonzero):
    right, the f64 scalars carried converging); and at the same two points
    the fused solver under f32 split2m in each configuration of SPLIT_HIGH
    (the auto path first), the f64 count + 0..3, or at the cap with
-   ``edge_witness``'s readings showing that floor;
+   ``edge_witness``'s readings showing that floor; and PARITY_REDUCED
+   (PARITY.md:91-96): the fused auto path under split3 at p=4 s=7, p=5
+   s=6, p=6 s=4, under bf16 (bf16 state and metric) at p=6 s=4 and p=4
+   s=7, and the merged solver under split3 at p=4 s=7;
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
@@ -81,16 +91,25 @@ Phases (each raises on failure, so any failure exits nonzero):
    - at every degree 5..11, s=6, short runs of each path, of the fused
      solver in every HIGH_FUSED configuration and, under split2m, in every
      SPLIT_HIGH configuration;
-   then the solutions of the three p=4 s=13 paths are checked for shape,
-   finiteness, and their true residual against the solver's estimate;
+   - bench.py's split3 and bf16 lines at full depth, ``run_one(4, 13,
+     solver="fused", windowing="pieces", precision="split3")`` and the
+     same with ``dtype=torch.bfloat16, precision="bf16",
+     metric_dtype=torch.bfloat16`` (B1, B2), each printed beside the
+     split2m fused path; under each, short merged runs on reshape, pieces
+     and zslab (B3, B5, B6), and the fused auto path short at p=6 s=12,
+     p=8 s=11 and at every degree 5..11 (s=6);
+   then the solutions of the three p=4 s=13 paths and of bench.py's two
+   variant paths are checked for shape, finiteness, and their true
+   residual against the solver's estimate;
 6. print the kernels' JSON line (B1/B2 at f32 split2m, also with their f32
    highest and f64 times and, for each dense configuration, fields with
    its suffix — ``ms_dense``, ``launches_dense_split2m_p3``, ... — and its
    ``p_s``; B3-B6 at f32 highest, also with their f64 and (B3/B5/B6)
    split2m times; at p >= 5 fields with the suffix ``_p6``, ``_p8``
    (B1/B2 also ``_p8_f64``, and ``_split2m_p6``, ``_split2m_p8`` for the
-   split2m auto path), each timed at the (p, s) of the drive that gives
-   its launches; each row with the bound of its work on this card,
+   split2m auto path; ``_split3``, ``_bf16`` and with ``_p6``, ``_p8``
+   for the reduced rungs), each timed at the (p, s) of the drive that
+   gives its launches; each row with the bound of its work on this card,
    from the shapes), the build time and the script's wall time, and,
    last, the device JSON line.
 """
@@ -185,6 +204,42 @@ SPLIT_HIGH = (("onthefly", "jtj"), ("onthefly", "adjj"),
               ("precomputed", "adjj"))
 SPLIT_CMP = (4,) + HIGH_DEGREES
 PARITY_SPLIT = ((5, 6, 95), (6, 4, 75))
+# the reduced rungs: (precision, state dtype, metric dtype, key suffix) —
+# split3 with an f32 state (bench.py's split3 line), bf16 with the bf16
+# state and the bf16 metric stream (bench.py's bf16 line).  Phase 3
+# compares every kernel of theirs with its plain version on the RAGGED box
+# at p=1..4 (B1/B2 dense, B3/B5/B6) and at REDUCED_CMP (B1/B2 twostage in
+# each SPLIT_HIGH configuration), and compares and times B1/B2 in the auto
+# path's configuration at p=4 s=13 and at FULL_HIGH, B3/B5/B6 at p=4 s=13;
+# phase 4 checks PARITY_REDUCED; phase 5 drives them.  bf16 vectors are
+# held to TOL_BF16 (relative L2, max): a t value the two sum in another
+# order can round to the other side of a bf16 boundary, 2^-8 of it.  The
+# L2 limit lies between the readings of the rung (kernel vs plain up to
+# 7.8e-5 at p=4 s=13) and of its control, split2m's product set in place
+# of bf16's (3.6e-4 .. 2.6e-3 on the RAGGED box, the plain versions on the
+# CPU), which every bf16 comparison here reads too and which must exceed
+# it; a max limit cannot tell them apart (5.3e-3 against 1.5e-3).  The
+# scalars: kernel and plain sum the same stored values in another order
+# (<= 4.8e-6 on the box); sums over the unrounded d' (skipping the rounding
+# point, cg_fused_kernel.py:856) move them by 7e-6..3e-3 on random inputs,
+# so utils/bf16_check.rounding_point builds inputs on which they move by
+# 2.9e-3 or more (the plain versions on the CPU, every degree of the box)
+REDUCED = (("split3", torch.float32, None, "_split3"),
+           ("bf16", torch.bfloat16, torch.bfloat16, "_bf16"))
+REDUCED_CMP = (4, 5, 8, 11)
+TOL_BF16 = (3e-4, 1e-2)
+TOL_SCAL_BF16 = 1e-4
+# the bf16 full-width solution's |b - A x| against the plain version's
+# (relative; both carry the t rounding's noise in x, nearly the same)
+TOL_BF16_TRUE = 5e-2
+# PARITY.md:91-96: (p, s, rung, itCG allowed; None: bf16 at p=4 s=7, which
+# may reach the cap, its final residual <= 1e-4 res0); merged split3 at p=4
+# s=7 is the f64 count + 0..3
+PARITY_REDUCED = ((4, 7, "split3", range(91, 96)),
+                  (5, 6, "split3", range(95, 99)),
+                  (6, 4, "split3", range(75, 79)),
+                  (6, 4, "bf16", range(1, 101)),
+                  (4, 7, "bf16", None))
 
 
 def sumfac_fma(p: int, q: int) -> int:
@@ -194,22 +249,31 @@ def sumfac_fma(p: int, q: int) -> int:
     return 3 * 2 * (2 * p1 ** 3 * q + 3 * p1 ** 2 * q ** 2 + 3 * p1 * q ** 3)
 
 
-def bound(name: str, op, split: bool) -> tuple[float, str]:
+def bound(name: str, op, split: bool,
+          state: torch.dtype | None = None) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for the
     kernel's work on ``op``'s shapes — the larger of its bytes (inputs read
     once, outputs written once) over HBM_BPS and its operations over the
-    peak of their type (under split2m the products on the tensor cores in
-    bf16, counting both stream parts, the rest in f32; else all at the
-    working type).  The products: under split2m the dense count (B3-B6,
-    B1/B2 dense) or twostage's 2D stage (B1/B2 twostage), because split2m's
-    rounding of those entries defines that function; under highest the
-    sum-factorized count, the least work for the function.  The metric:
-    6 q^3 words a cell streamed, or 24 coefficient words a cell and its
-    rebuild's FMAs (B1/B2: by their chain, adjj or jtj; B4: adjj)."""
+    peak of their type (under a tensor-core rung the products on the
+    tensor cores in bf16, counting each of the rung's products a tile —
+    split3 3, split2m 2, bf16 1 —, the rest in f32; else all at the
+    working type).  The products: under a tensor-core rung the dense count
+    (B3-B6, B1/B2 dense) or twostage's 2D stage (B1/B2 twostage), because
+    the rung's rounding of those entries defines that function; under
+    highest the sum-factorized count, the least work for the function.
+    The metric: 6 q^3 words a cell streamed, at its storage's size (bf16:
+    2 bytes), or 24 coefficient words a cell and its rebuild's FMAs
+    (B1/B2: by their chain, adjj or jtj; B4: adjj).  ``state``: B1/B2's d
+    and h storage (bf16: 2 bytes each read and written)."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
     word = op.dtype.itemsize
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    n_prod = laplace_cuda.RUNG_PRODUCTS[op.precision]
+    mword = op.metric_dtype.itemsize
+    sword = (state or op.dtype).itemsize
     if name in ("matvec", "fused_cg_iteration"):
         rebuilt = op.gmetric is None
         if split and op.factor == "twostage":  # the 2D stage, tensor cores
@@ -223,18 +287,21 @@ def bound(name: str, op, split: bool) -> tuple[float, str]:
             other = 27 * q3
         other += ((METRIC_FMA_JTJ if op.cofactor == "jtj" else METRIC_FMA)
                   * q3 if rebuilt else 0)
-        words = ((6 if name == "matvec" else 25) * nn
-                 + (24 if rebuilt else 6 * q3) * nc)
+        # B1: d read, h written; B2: x, g, d, h read, P, x', g', d', h'
+        nbytes = (6 * nn * sword if name == "matvec"
+                  else 13 * nn * word + 12 * nn * sword)
+        nbytes += 24 * nc * word if rebuilt else 6 * q3 * nc * mword
     else:  # the apply family; metric streamed, or rebuilt (B4)
         products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
         onthefly = name == "apply_local_batched_onthefly"
         other = 27 * q3 + (METRIC_FMA * q3 if onthefly else 0)
-        words = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
-                 + (24 if onthefly else 6 * q3) * nc
-                 + (nn if name == "apply_lattice_zslab" else 0))
-    t_bytes = words * word / HBM_BPS
+        nbytes = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
+                  + (24 * nc if onthefly else 0)
+                  + (nn if name == "apply_lattice_zslab" else 0)) * word
+        nbytes += 0 if onthefly else 6 * q3 * nc * mword
+    t_bytes = nbytes / HBM_BPS
     if split:
-        t_ops = max(2 * 2 * products * nc / PEAK_BF16,
+        t_ops = max(2 * n_prod * products * nc / PEAK_BF16,
                     2 * other * nc / PEAK_F32)
     else:
         peak = PEAK_F32 if op.dtype == torch.float32 else PEAK_F64
@@ -670,6 +737,308 @@ def parity_split(benchmark, bp4, dev) -> None:
                     f"{res.n_iterations} not in {tuple(allowed)}")
 
 
+def tc_source(config, p: int) -> str:
+    """The source of the tensor-core cell pass that runs ``config``
+    (factor, metric, ...) at degree p."""
+    if config[0] == "dense":
+        return "apply_mma.cuh"
+    if p == 4:
+        return "cell_mma.cuh" if config[1] == "onthefly" else "cell_mma_hd.cuh"
+    return f"cell_mma_p{p:02d}.cu"
+
+
+def compare_rung(name: str, got, want, rung: str, tag: str,
+                 quiet: bool = False, control=None) -> dict:
+    """:func:`compare` at the rung's tolerance: split3 as f32; bf16 (its
+    vectors, bf16 where the state is) relative L2 and max TOL_BF16, the
+    scalars TOL_SCAL_BF16.  ``control`` (bf16): the plain version with
+    split2m's product set in place of bf16's, what a kernel of the wrong
+    rung gives; its relative L2 from the kernel's result must exceed
+    TOL_BF16's, or the check could not tell the two apart.  Returns the
+    readings: "rel" (max rel err), "diff" (max |diff|) and under bf16 "l2",
+    "control", and "scal" for B2."""
+    from mf_data_locality_tpu_torch.utils import bf16_check
+
+    if rung != "bf16":
+        rel, diff = compare(name, got, want, torch.float32, tag, quiet)
+        return {"rel": rel, "diff": diff}
+
+    def vectors(r):
+        return list(r[:4]) if name == "fused_cg_iteration" else [r]
+
+    def l2(rs, refs):
+        return max(((a.double() - b.double()).norm() / b.double().norm()
+                    ).item() for a, b in zip(vectors(rs), vectors(refs)))
+
+    errs = [rel_err(a.double(), b.double())
+            for a, b in zip(vectors(got), vectors(want))]
+    out = {"rel": max(e[0] for e in errs), "diff": max(e[1] for e in errs),
+           "l2": l2(got, want)}
+    check(f"{name} {tag} rel L2", out["l2"], TOL_BF16[0], quiet)
+    check(f"{name} {tag} max", out["rel"], TOL_BF16[1], quiet)
+    if name == "fused_cg_iteration":
+        out["scal"] = bf16_check.scal_err(got[4], want[4])
+        check(f"{name} {tag} scal", out["scal"], TOL_SCAL_BF16, quiet)
+    if control is not None:
+        out["control"] = l2(got, control)
+        if not quiet:
+            print(f"  {name} {tag} control (split2m's product set): rel L2 "
+                  f"{out['control']:.3e} from the kernel's (must exceed "
+                  f"{TOL_BF16[0]:.0e})")
+        if not out["control"] > TOL_BF16[0]:
+            raise AssertionError(f"{name} {tag}: the bf16 check cannot tell "
+                                 f"split2m's product set from bf16's "
+                                 f"({out['control']:.3e})")
+    return out
+
+
+def check_rounding_point(op, seed: int, tag: str,
+                         quiet: bool = False) -> float:
+    """``utils/bf16_check.rounding_point``: the kernel within TOL_SCAL_BF16
+    of the plain version, and the unrounded-d' variant outside it (else the
+    check could not see that rounding point).  Returns the variant's
+    reading."""
+    from mf_data_locality_tpu_torch.utils import bf16_check
+
+    err, control = bf16_check.rounding_point(op, seed)
+    check(f"fused_cg_iteration {tag} rounding point scal", err,
+          TOL_SCAL_BF16, quiet)
+    if not quiet:
+        print(f"  fused_cg_iteration {tag} control (the unrounded d'): scal "
+              f"max rel err {control:.3e} from the kernel's (must exceed "
+              f"{TOL_SCAL_BF16:.0e})")
+    if not control > TOL_SCAL_BF16:
+        raise AssertionError(f"{tag}: the scalars' check cannot see the "
+                             f"rounding point of d' ({control:.3e})")
+    return control
+
+
+def reduced_cases(fk, op, state, seed: int):
+    """(kernel call, plain call, control call or None) of B1 and B2 on
+    ``op`` with random vectors, d and h (and B1's d) stored as ``state``
+    (the control: :func:`compare_rung`'s, under bf16)."""
+    d, x, g, dd, h = random_state(op, 5, seed=seed)
+    d, dd, h = (t.to(state).contiguous() for t in (d, dd, h))
+    prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
+            * op.mask).contiguous()
+    scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                        device=op.device)
+    work, out = fk.Workspace(op), torch.empty_like(d)
+    bufs = tuple(torch.empty_like(t) for t in (x, g, dd, h, scal))
+    from mf_data_locality_tpu_torch.utils.bf16_check import control_op
+
+    ctl = control_op(op) if op.precision == "bf16" else None
+    return {
+        "matvec": (lambda: fk.matvec(op, d, out=out, work=work),
+                   lambda: fk._matvec_plain(op, d),
+                   ctl and (lambda: fk._matvec_plain(ctl, d))),
+        "fused_cg_iteration": (
+            lambda: fk.fused_cg_iteration(op, x, g, dd, h, scal, prec,
+                                          out=bufs, work=work),
+            lambda: fk._fused_iteration_plain(op, x, g, dd, h, scal, prec),
+            ctl and (lambda: fk._fused_iteration_plain(ctl, x, g, dd, h,
+                                                       scal, prec)))}
+
+
+def reduced_op(p, s, rung, state, mdt, dev, config=None, layout=None):
+    """B1/B2's operator under a reduced rung: the fused auto path's
+    configuration at p, or ``config`` (factor, metric, cofactor)."""
+    from mf_data_locality_tpu_torch import benchmark
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    factor, metric, cofactor = config or benchmark.resolve_config(
+        p, "fused", "pieces", rung, state, metric_dtype=mdt)
+    layout = layout or DofLayout(BoxMesh.from_s(s), p)
+    return laplace_cuda.make_operator(
+        layout, state, rung, factor=factor, metric=metric, cofactor=cofactor,
+        windowing="pieces", device=dev,
+        metric_dtype=mdt if metric == "precomputed" else None)
+
+
+def time_reduced(fk, dev, timing, p: int, s: int, rung, state, mdt) -> dict:
+    """B1 and B2 under a reduced rung in the fused auto path's
+    configuration at (p, s): compared with the plain versions, then both
+    timed in turns.  Returns name -> ((kernel ms, plain ms), (bound ms,
+    bound by), max |diff|), and the operator's configuration under
+    "config"."""
+    op = reduced_op(p, s, rung, state, mdt, dev)
+    out = {"config": (op.factor, op.metric, op.cofactor)}
+    tag = (f"p={p} s={s} {rung} {str(state)[6:]} state {op.factor} "
+           f"{op.metric} {op.cofactor}")
+    for name, (kern, plain, ctl) in reduced_cases(fk, op, state,
+                                                  50 + p).items():
+        diff = compare_rung(name, kern(), plain(), rung, tag,
+                            control=ctl and ctl())["diff"]
+        t = time_pair(kern, plain, dev, timing, inner=10)
+        b = bound(name, op, split=True, state=state)
+        print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), share {b[0] / t[0]:.3f}")
+        out[name] = t, b, diff
+    if state == torch.bfloat16:
+        check_rounding_point(op, 80 + p, tag)
+    del op
+    torch.cuda.empty_cache()
+    return out
+
+
+def apply_cases(la, op, u, u_loc) -> dict:
+    """(kernel call, plain call, control call or None) of B3, B5 and B6 on
+    ``op``: the lattice vector ``u`` and its cell batches ``u_loc`` (the
+    control: :func:`compare_rung`'s, under bf16)."""
+    from mf_data_locality_tpu_torch.utils.bf16_check import control_op
+
+    ctl = control_op(op) if op.precision == "bf16" else None
+    return {
+        "apply_local_batched_g": (
+            lambda: la.apply_local_batched_g(op, u_loc),
+            lambda: la._batched_plain(op, u_loc, la._metric(op), True),
+            ctl and (lambda: la._batched_plain(ctl, u_loc, la._metric(op),
+                                               True))),
+        "apply_lattice_pieces": (
+            lambda: la.apply_lattice_pieces(op, u),
+            lambda: la._lattice_plain(op, u, la._index_mask(op)),
+            ctl and (lambda: la._lattice_plain(ctl, u, la._index_mask(op)))),
+        "apply_lattice_zslab": (
+            lambda: la.apply_lattice_zslab(op, u),
+            lambda: la._lattice_plain(op, u, op.mask),
+            ctl and (lambda: la._lattice_plain(ctl, u, op.mask)))}
+
+
+def time_reduced_apply(la, dev, timing, rung, mdt) -> dict:
+    """B3, B5 and B6 under a reduced rung at p=4 s=13, the metric stored as
+    ``mdt``: compared with the plain versions and timed in turns."""
+    from mf_data_locality_tpu_torch.models import bp4
+
+    op = bp4.build(S, DEGREE, torch.float32, rung, factor="dense",
+                   metric="precomputed", windowing="reshape", device=dev,
+                   metric_dtype=mdt).op
+    (u,) = random_state(op, 1, seed=3)
+    u_loc = la.to_cell_batches(u, DEGREE).contiguous()
+    cases = apply_cases(la, op, u, u_loc)
+    out = {}
+    tag = f"p={DEGREE} s={S} {rung} metric {str(op.metric_dtype)[6:]}"
+    for name, (kern, plain, ctl) in cases.items():
+        diff = compare_rung(name, kern(), plain(), rung, tag,
+                            control=ctl and ctl())["diff"]
+        t = time_pair(kern, plain, dev, timing, inner=10)
+        b = bound(name, op, split=True)
+        print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), share {b[0] / t[0]:.3f}")
+        out[name] = t, b, diff
+    del op, u, u_loc, cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_reduced_box(fk, la, dev) -> None:
+    """Phase 3 under the reduced rungs on the RAGGED box: at p=1..4 B1/B2
+    dense (the metric streamed and rebuilt) and B3/B5/B6, at REDUCED_CMP
+    B1/B2 twostage in every SPLIT_HIGH configuration; each rung of REDUCED
+    and bf16 with an f32 state.  One line per degree: each kernel's max
+    rel err, and under bf16 the largest rel L2 and scalars' err and the
+    smallest readings of the controls (:func:`compare_rung`,
+    :func:`check_rounding_point`); raises on the first disagreement."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    rungs = REDUCED + (("bf16", torch.float32, None, "_bf16_f32"),)
+    for p in sorted(set(range(1, 5)) | set(REDUCED_CMP)):
+        layout = DofLayout(BoxMesh(RAGGED, 0.25), p)
+        worst, bf16 = {}, {}
+        for rung, state, mdt, sfx in rungs:
+            configs = ([("dense", "precomputed", "adjj"),
+                        ("dense", "onthefly", "adjj")] if p <= 4 else [])
+            if p in REDUCED_CMP:
+                configs += [("twostage", m, c) for m, c in SPLIT_HIGH]
+            for i, config in enumerate(configs):
+                op = reduced_op(p, 0, rung, state, mdt, dev, config, layout)
+                tag = f"p={p} {rung}{sfx} {' '.join(config)}"
+                for name, (kern, plain, ctl) in reduced_cases(
+                        fk, op, state, 60 + i).items():
+                    r = compare_rung(name, kern(), plain(), rung, tag,
+                                     quiet=True, control=ctl and ctl())
+                    key = f"{name}{sfx}[{''.join(c[0] for c in config)}]"
+                    worst[key] = max(worst.get(key, 0.0), r["rel"])
+                    note(bf16, r)
+                if state == torch.bfloat16:
+                    note(bf16, {"unrounded": check_rounding_point(
+                        op, 90 + i, tag, quiet=True)})
+                del op
+            if p <= 4:
+                op = laplace_cuda.make_operator(
+                    layout, torch.float32, rung, factor="dense",
+                    metric="precomputed", windowing="zslab", device=dev,
+                    metric_dtype=mdt)
+                (u,) = random_state(op, 1, seed=70)
+                u_loc = la.to_cell_batches(u, p).contiguous()
+                for name, (kern, plain, ctl) in apply_cases(
+                        la, op, u, u_loc).items():
+                    r = compare_rung(name, kern(), plain(), rung,
+                                     f"p={p} {rung}{sfx}", quiet=True,
+                                     control=ctl and ctl())
+                    worst[name + sfx] = max(worst.get(name + sfx, 0.0),
+                                            r["rel"])
+                    note(bf16, r)
+                del op
+        print(f"  p={p} reduced rungs ragged {RAGGED}: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+        print(f"  p={p} bf16: rel L2 <= {bf16['l2']:.2e} (tol "
+              f"{TOL_BF16[0]:.0e}), scal <= {bf16['scal']:.2e} (tol "
+              f"{TOL_SCAL_BF16:.0e}); controls: split2m's product set rel "
+              f"L2 >= {bf16['control']:.2e}, the unrounded d' "
+              f"(rounding_point) scal >= {bf16['unrounded']:.2e}")
+        torch.cuda.empty_cache()
+
+
+def note(acc: dict, r: dict) -> None:
+    """Fold :func:`compare_rung`'s readings ``r`` into ``acc``: the largest
+    rel L2 and scalars' err, the smallest readings of the controls."""
+    for k, v in r.items():
+        if k in ("l2", "scal"):
+            acc[k] = max(acc.get(k, 0.0), v)
+        elif k in ("control", "unrounded"):
+            acc[k] = min(acc.get(k, math.inf), v)
+
+
+def parity_reduced(benchmark, bp4, dev) -> None:
+    """Phase 4 under the reduced rungs (PARITY.md:91-96, accuracy only):
+    the fused auto path at PARITY_REDUCED — split3 (f32 state) in its
+    range, converged; bf16 (the bf16 state and metric) at p=6 s=4
+    converged in <= 100, at p=4 s=7 converged or at the cap with its final
+    residual <= 1e-4 res0 and finite — and the merged solver under split3
+    (reshape, B3) at p=4 s=7, the f64 count + 0..3 (91..94)."""
+    for p, s, rung, allowed in PARITY_REDUCED:
+        state = torch.bfloat16 if rung == "bf16" else torch.float32
+        mdt = torch.bfloat16 if rung == "bf16" else None
+        config = benchmark.resolve_config(p, "fused", "pieces", rung, state,
+                                          metric_dtype=mdt)
+        pb = bp4.build(s, p, state, rung, windowing="pieces", device=dev,
+                       metric_dtype=mdt, **dict(zip(
+                           ("factor", "metric", "cofactor"), config)))
+        res = benchmark.solver_call(pb, "fused")()
+        hist = res.res_history.cpu().numpy()
+        final = hist[res.n_iterations] / hist[0]
+        print(f"p={p} s={s} fused auto {rung} ({str(state)[6:]} state) "
+              f"{config}: itCG {res.n_iterations}, converged "
+              f"{res.converged}, residual {final:.3e} res0")
+        ok = (res.converged and res.n_iterations in allowed
+              if allowed is not None
+              else (res.converged or math.isfinite(final) and final <= 1e-4))
+        if not ok:
+            raise AssertionError(f"p={p} s={s} fused {rung}: itCG "
+                                 f"{res.n_iterations}, residual {final:.3e}")
+    pb = bp4.build(7, DEGREE, torch.float32, "split3", device=dev)
+    res = bp4.solve_merged(pb)
+    print(f"p=4 s=7 merged split3 (reshape): itCG {res.n_iterations}, "
+          f"converged {res.converged}")
+    if not (res.converged and res.n_iterations in range(91, 95)):
+        raise AssertionError(f"p=4 s=7 merged split3: itCG "
+                             f"{res.n_iterations} not in 91..94")
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -720,17 +1089,25 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.name})")
     entry = ""  # the kernel a ptxas line is about
-    hd_regs = []
+    regs = {}  # (tensor-core pass, products a tile) -> registers
     for line in log.splitlines():
         if "Function properties for" in line:
             entry = line.split("for ")[-1].strip()
         elif re.search(r"[1-9]\d* bytes spill", line):
-            print("  ptxas:", entry[:60], line.strip())
-        elif "cells_mma_hd_kernel" in entry and "registers" in line:
-            hd_regs.append(int(re.search(r"(\d+) registers", line)[1]))
-    if hd_regs:  # the split2m twostage pass at p=4 (streamed) and 5..11
-        print(f"  ptxas: cells_mma_hd_kernel, {len(hd_regs)} instantiations: "
-              f"{min(hd_regs)}-{max(hd_regs)} registers")
+            print("  ptxas:", entry[:72], line.strip())
+        elif "registers" in line and "mma" in entry:
+            kern = re.search(r"(apply_mma|cells_mma_hd|cells_mma)_kernel",
+                             entry)[1]
+            n_prod = re.findall(r"Li(\d+)E", entry)[-1]
+            regs.setdefault((kern, n_prod), []).append(
+                int(re.search(r"(\d+) registers", line)[1]))
+    for (kern, n_prod), r in sorted(regs.items()):
+        print(f"  ptxas: {kern}_kernel, {n_prod} products a tile, {len(r)} "
+              f"instantiations: {min(r)}-{max(r)} registers")
+    slowest = sorted(re.findall(r"^nvcc: (.*) ([\d.]+) s$", log, re.M),
+                     key=lambda x: -float(x[1]))[:3]
+    print("  slowest compiles: " + ", ".join(f"{n} {t} s"
+                                             for n, t in slowest))
 
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print("kernels vs plain:")
@@ -853,6 +1230,16 @@ def main() -> int:
     split_hi = {}  # "_split2m" + p's suffix -> name -> (times, bound, diff)
     for p, s, sfx in FULL_HIGH:
         split_hi["_split2m" + sfx] = time_split_high(fk, dev, timing, p, s)
+    print("kernels vs plain under split3 and bf16:")
+    compare_reduced_box(fk, la, dev)
+    reduced = {}  # rung's suffix (+ p's) -> name -> (times, bound, diff)
+    for rung, state, mdt, sfx in REDUCED:
+        reduced[sfx] = time_reduced(fk, dev, timing, DEGREE, S, rung, state,
+                                    mdt)
+        reduced[sfx].update(time_reduced_apply(la, dev, timing, rung, mdt))
+        for p, s, x in FULL_HIGH:
+            reduced[sfx + x] = time_reduced(fk, dev, timing, p, s, rung,
+                                            state, mdt)
 
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
     for dtype, precision, allowed in ((torch.float64, "highest", (91,)),
@@ -946,6 +1333,7 @@ def main() -> int:
 
     parity_high(benchmark, bp4, dev)
     parity_split(benchmark, bp4, dev)
+    parity_reduced(benchmark, bp4, dev)
 
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
@@ -1101,6 +1489,37 @@ def main() -> int:
                   for m, c in SPLIT_HIGH)):
             drive(label, S_EVERY, expect, degree=p, **kw, **tiny)
 
+    # the reduced rungs: bench.py's split3 and bf16 lines at full depth
+    # (the fused auto path at p=4 s=13), B3/B5/B6 under each (merged,
+    # short), the fused auto path short at FULL_HIGH and at every degree
+    # 5..11 (s=6)
+    launches_red = {sfx: {} for sfx in reduced}
+    r_red = {}
+    for rung, state, mdt, sfx in REDUCED:
+        kw = dict(solver="fused", windowing="pieces", precision=rung,
+                  dtype=state, metric_dtype=mdt)
+        r_red[sfx] = drive(f"fused path ({rung}, {str(state)[6:]} state, "
+                           f"pieces)", S, b1b2, into=launches_red[sfx], **kw)
+        print(f"  {rung} vs split2m: DoF/s/it "
+              f"{r_red[sfx].dofs_per_s_per_it:.6e} vs "
+              f"{r_fused.dofs_per_s_per_it:.6e}, time/it "
+              f"{r_red[sfx].time_per_it:.6e} vs {r_fused.time_per_it:.6e} "
+              f"s, itCG {r_red[sfx].n_iterations} vs {r_fused.n_iterations}")
+        for label, windowing, name in (
+                ("reshape", "reshape", "apply_local_batched_g"),
+                ("--windowing pieces", "pieces", "apply_lattice_pieces"),
+                ("--windowing zslab", "zslab", "apply_lattice_zslab")):
+            drive(f"merged {label}, {rung}", S_SHORT, (name,),
+                  into=launches_red[sfx], solver="merged",
+                  windowing=windowing, precision=rung, metric_dtype=mdt,
+                  **short)
+        for p, s, x in FULL_HIGH:
+            drive(f"fused auto ({rung})", s, b1b2,
+                  into=launches_red[sfx + x], degree=p, **kw, **short)
+        for p in HIGH_DEGREES:
+            drive(f"fused auto ({rung})", S_EVERY, b1b2, degree=p, **kw,
+                  **tiny)
+
     # the three p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
     # f32 solves stop at the 100-iteration cap, so the residual is not small)
@@ -1120,13 +1539,63 @@ def main() -> int:
         solutions.append((f"merged {precision}", res, torch.linalg.norm(
             pb.b - pb.a_apply(res.x)).item(), tuple(pb.b.shape), row))
         del pb
+    # and the reduced rungs' fused solutions.  bf16's true residual is not
+    # its estimate: each of the solve's matvecs rounds t to bf16 (2^-9 of
+    # it), and x carries that noise (0.065-0.088 |b| from the estimate for
+    # the plain version on the CPU at p=4 s=9..10).  So its |b - A x|, by
+    # the operator with the same bf16 matrices and an f32-class stream
+    # (split2m), is held to that of the same solve on the card with the
+    # plain version in place of the kernel (TOL_BF16_TRUE relative), and
+    # its residual estimate to the f32 split2m fused path's at the same
+    # iteration (2e-2 relative; the JAX package's own contract for it,
+    # tests/test_cg_fused.py:205-212, its recurrence in the f32 class)
+    for rung, state, mdt, sfx in REDUCED:
+        config = dict(zip(("factor", "metric", "cofactor"),
+                          reduced[sfx]["config"]))
+        pb = bp4.build(S, DEGREE, state, rung, windowing="pieces",
+                       device=dev, metric_dtype=mdt, **config)
+        b = pb.b.reshape((3,) + lat).float()
+        res = cg_fused.fused_merged_cg_solve(
+            pb.op, lat, pb.b.reshape((3,) + lat),
+            pb.inv_diag.reshape((1,) + lat))
+        op = pb.op if rung == "split3" else bp4.build(
+            S, DEGREE, torch.float32, "split2m", windowing="pieces",
+            device=dev, **config).op
+        true_res = torch.linalg.norm(
+            b - fk.matvec(op, res.x.contiguous())).item()
+        solutions.append((f"fused {rung}", res, true_res, (3,) + lat,
+                          r_red[sfx]))
+        if rung == "bf16":
+            plain = cg_fused.fused_merged_cg_solve(
+                pb.op, lat, pb.b.reshape((3,) + lat),
+                pb.inv_diag.reshape((1,) + lat),
+                iteration=fk._fused_iteration_plain)
+            true_plain = torch.linalg.norm(
+                b - fk.matvec(op, plain.x.contiguous())).item()
+            gap = abs(true_res - true_plain) / true_plain
+            print(f"fused bf16 solution, the plain version in place of the "
+                  f"kernel: itCG {plain.n_iterations}, |b - Ax| "
+                  f"{true_plain:.6e} vs estimate {plain.res_norm:.6e}; the "
+                  f"kernel's |b - Ax| {true_res:.6e} (rel gap {gap:.2e}, "
+                  f"tol {TOL_BF16_TRUE:.0e})")
+            if not (plain.n_iterations == res.n_iterations
+                    and gap < TOL_BF16_TRUE):
+                raise AssertionError("fused bf16 solution: its true "
+                                     "residual is not the plain version's")
+            del plain
+        del pb, b, op
     for label, res, true_res, shape, row in solutions:
-        gap = abs(true_res - res.res_norm) / res.res_norm
+        if label == "fused bf16":  # against the f32 split2m fused path's
+            ref, tol = solutions[0][1].res_norm, 2e-2
+        else:
+            ref, tol = true_res, 1e-3
+        gap = abs(ref - res.res_norm) / res.res_norm
         print(f"{label} solution: shape {tuple(res.x.shape)}, itCG "
               f"{res.n_iterations}, |b - Ax| {true_res:.6e} vs estimate "
-              f"{res.res_norm:.6e} (rel gap {gap:.2e}, tol 1e-3)")
+              f"{res.res_norm:.6e}, checked against {ref:.6e} (rel gap "
+              f"{gap:.2e}, tol {tol:.0e})")
         if tuple(res.x.shape) != shape or not torch.isfinite(res.x).all() \
-                or res.n_iterations != row.n_iterations or not gap < 1e-3:
+                or res.n_iterations != row.n_iterations or not gap < tol:
             raise AssertionError(f"{label} solution is wrong")
 
     # no single PyTorch call computes any of these functions (each is a
@@ -1171,6 +1640,19 @@ def main() -> int:
             (k, pl), (bms, by), err = f64[name]
             row.update(ms_f64=k, plain_ms_f64=pl, max_abs_err_f64=err,
                        bound_ms_f64=bms, bound_by_f64=by)
+        for sfx, tab in reduced.items():  # split3, bf16
+            if name not in tab:
+                continue
+            (k, pl), (bms, by), err = tab[name]
+            p, s = next(((p, s) for p, s, x in FULL_HIGH
+                         if sfx.endswith(x)), (DEGREE, S))
+            row.update({f"source{sfx}": CSRC + tc_source(
+                            tab["config"] if name in b1b2 else
+                            ("dense", "precomputed"), p),
+                        f"p_s{sfx}": [p, s], f"ms{sfx}": k,
+                        f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
+                        f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
+                        f"launches{sfx}": launches_red[sfx][name]})
         for sfx, times_hi in (*high.items(), *split_hi.items()):  # p >= 5
             if name not in times_hi:
                 continue

@@ -28,10 +28,16 @@ __version__ = "0.1.0"
 
 # Kernel-matmul precision rungs (``laplace_pallas._mm``):
 #   "highest": exact accumulation at the working dtype (f32 or f64);
-#   "split2m": 2D-stage matrices rounded to bf16 once, the streamed
-#              operand split hi/lo into two bf16 parts, products summed
-#              in f32 (f32 only).
-PRECISIONS = frozenset({"highest", "split2m"})
+#   "split3":  matrices split into bf16 hi/lo parts, the streamed
+#              operand too, three products (hi.hi + lo.hi + hi.lo) summed
+#              in f32 (f32 only);
+#   "split2m": matrices rounded to bf16 once, the streamed operand split
+#              hi/lo into two bf16 parts, products summed in f32 (f32
+#              only);
+#   "bf16":    matrices and the streamed operand rounded to bf16, one
+#              product, summed in f32 (f32 tables; d and h may be stored
+#              in bf16, ``dtype=torch.bfloat16``).
+PRECISIONS = frozenset({"highest", "split3", "split2m", "bf16"})
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -10,9 +10,10 @@ the fixed-width result row::
 Usage (the reference's positional CLI, ``benchmark.h:280-288``)::
 
    python -m mf_data_locality_tpu_torch.benchmark <degree> [s] [compact] \
-       [--solver merged|baseline|fused] [--precision highest|split2m] \
+       [--solver merged|baseline|fused] \
+       [--precision highest|split3|split2m|bf16] \
        [--windowing reshape|pieces|zslab] [--geometry auto|qpoint|onthefly] \
-       [--dtype f32|f64]
+       [--dtype f32|f64|bf16] [--metric-dtype f32|bf16]
 
 The defaults are the JAX CLI's: the merged CG on the cell-batched operator
 (``--windowing reshape``, kernel B3) at ``--precision highest``, at every
@@ -21,16 +22,20 @@ degree of the reference's table, 1..11.  The fused solver needs
 it (``laplace_cuda.fused_configs``): under ``highest`` (f32, f64) at
 degrees 1..11 every (factor, metric) pair — dense or twostage, the metric
 streamed or rebuilt by either chain, ``--cofactor adjj|jtj`` (the auto
-path at p >= 5 is twostage + the streamed metric) —; under ``split2m``
-the dense pair at degrees 1..4 (adjj) and twostage with either metric at
-4..11, the rebuilt one by either chain (the auto path from p=5 is
-twostage + onthefly + jtj).  Other unported choices raise
+path at p >= 5 is twostage + the streamed metric) —; under the
+tensor-core rungs ``split2m``, ``split3`` and ``bf16`` the dense pair at
+degrees 1..4 (adjj) and twostage with either metric at 4..11, the rebuilt
+one by either chain (the auto path from p=5 is twostage + onthefly +
+jtj).  ``--dtype bf16`` (the fused solver under ``--precision bf16``)
+stores d and h in bf16; ``--metric-dtype bf16`` (``split3``, ``bf16``)
+streams the metric in bf16.  Other unported choices raise
 NotImplementedError naming their ROADMAP item (queues A and B), with no
-fallback to another rung or to the plain version: split2m's dense pass at
-p >= 5 (the merged and baseline solvers, the fused solver's dense
-factorization), split2m twostage at p=1..3, jtj in split2m's dense pass,
-the split3 and bf16 rungs.  ``s < 1`` runs the reference's auto size
-ladder.
+fallback to another rung or to the plain version: the tensor-core rungs'
+dense pass at p >= 5 (the merged and baseline solvers, the fused solver's
+dense factorization), their twostage pass at p=1..3, jtj in their dense
+pass, a bf16 state under another rung or in the merged and baseline
+solvers, a bf16 metric under ``highest`` and ``split2m``.  ``s < 1`` runs
+the reference's auto size ladder.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -53,7 +58,7 @@ from mf_data_locality_tpu_torch.ops import laplace_cuda
 from mf_data_locality_tpu_torch.solvers import cg_fused
 from mf_data_locality_tpu_torch.utils import timing
 
-DTYPES = {"f32": torch.float32, "f64": torch.float64}
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 HEADER = (" p |  q | n_element |     n_dofs |     time/it |   dofs/s/it |"
           " itCG | time/matvec")
 
@@ -203,19 +208,23 @@ def resolve_cofactor(cofactor: str, degree: int, factor: str, metric: str,
 
 def resolve_config(degree: int, solver: str, windowing: str,
                    precision: str, dtype: torch.dtype, factor: str = "auto",
-                   metric: str = "auto",
-                   cofactor: str = "auto") -> tuple[str, str, str]:
+                   metric: str = "auto", cofactor: str = "auto",
+                   metric_dtype: torch.dtype | None = None
+                   ) -> tuple[str, str, str]:
     """(factor, metric, cofactor) as the JAX ``run_one(...,
     backend="pallas")`` resolves them; raises for a configuration the port
-    lacks or the JAX CLI refuses."""
-    factor = resolve_factor(factor, degree, windowing, precision=precision,
+    lacks or the JAX CLI refuses.  With a bf16 state the streamed operands
+    are bf16 whatever the rung, so the dispatch sees the bf16 rung (the
+    JAX ``run_one``'s ``eff_prec``)."""
+    eff_prec = "bf16" if dtype == torch.bfloat16 else precision
+    factor = resolve_factor(factor, degree, windowing, precision=eff_prec,
                             solver=solver, metric=metric)
     metric = resolve_metric(metric, solver, windowing, factor, degree,
-                            precision=precision)
+                            precision=eff_prec)
     cofactor = resolve_cofactor(cofactor, degree, factor, metric,
-                                precision=precision)
+                                precision=eff_prec)
     laplace_cuda.check_config(precision, factor, metric, cofactor, dtype,
-                              windowing, solver, degree)
+                              windowing, solver, degree, metric_dtype)
     return factor, metric, cofactor
 
 
@@ -239,7 +248,8 @@ def run_one(degree: int, s: int, solver: str = "merged",
             factor: str = "auto", solve_repeats: int = 4,
             matvec_repeats: int = 2, matvec_inner: int = 50,
             metric: str = "auto", cofactor: str = "auto",
-            device: torch.device | str = "cuda") -> RunResult:
+            device: torch.device | str = "cuda",
+            metric_dtype: torch.dtype | None = None) -> RunResult:
     """Set up and time one (p, s) benchmark point (``benchmark.h:50-226``)
     on a CUDA ``device``; raises without one.
 
@@ -247,20 +257,25 @@ def run_one(degree: int, s: int, solver: str = "merged",
     backend="pallas")`` does.  The fused solver's kernels work on the
     lattice in place of the piece windowing; the merged and baseline
     solvers run on the apply family (B3-B6, ``ops/laplace_apply``).
+    ``dtype=torch.bfloat16``: the fused solver's bf16 state (d, h) under
+    the ``bf16`` rung; ``metric_dtype``: the streamed metric's storage.
     """
     factor, metric, cofactor = resolve_config(
-        degree, solver, windowing, precision, dtype, factor, metric, cofactor)
+        degree, solver, windowing, precision, dtype, factor, metric, cofactor,
+        metric_dtype)
     device = timing.require_cuda(device)
 
     setup_t0 = time.perf_counter()
     problem = bp4.build(s, degree, dtype=dtype, precision=precision,
                         factor=factor, metric=metric, cofactor=cofactor,
-                        device=device, windowing=windowing)
+                        device=device, windowing=windowing,
+                        metric_dtype=metric_dtype)
     op = problem.op
     if verbose:
         # reference verbose mode: diagonal norm + setup time
         # (benchmark.h:149-154, 178-182)
-        diag_norm = float(torch.linalg.norm(1.0 / problem.inv_diag))
+        diag_norm = float(torch.linalg.norm(1.0 / problem.inv_diag.to(
+            op.dtype)))
         print(f"Norm of diagonal for preconditioner: {diag_norm:.6e}",
               file=sys.stderr)
         print(f"Setup time:         {time.perf_counter() - setup_t0:.3f}s",
@@ -270,7 +285,8 @@ def run_one(degree: int, s: int, solver: str = "merged",
     # the fused path's on the solver's lattice vectors; for merged and
     # baseline the full vmult on b, as the JAX run_one times it
     if solver == "fused":
-        d = (problem.b.reshape(problem.lattice_shape) * op.mask).contiguous()
+        d = (problem.b.reshape(problem.lattice_shape) * op.mask).to(
+            problem.b.dtype).contiguous()
         h = torch.empty_like(d)
         work = fk.Workspace(op)
         matvec = lambda: fk.matvec(op, d, out=h, work=work)  # noqa: E731
@@ -336,11 +352,18 @@ def main(argv: list[str] | None = None) -> None:
                          "fused-iteration kernel per CG iteration "
                          "(requires --windowing pieces)")
     ap.add_argument("--dtype", choices=list(DTYPES), default="f32")
-    ap.add_argument("--precision", choices=["highest", "split2m"],
+    ap.add_argument("--precision",
+                    choices=["highest", "split3", "split2m", "bf16"],
                     default="highest",
                     help="kernel matmul rung: highest = exact at the "
-                         "working dtype; split2m = bf16-rounded matrices "
-                         "with a hi/lo-split stream (f32 only)")
+                         "working dtype; split3 = bf16 hi/lo matrices and "
+                         "stream, three products; split2m = bf16-rounded "
+                         "matrices with a hi/lo-split stream; bf16 = one "
+                         "product of bf16-rounded operands (the three f32 "
+                         "only)")
+    ap.add_argument("--metric-dtype", choices=["f32", "bf16"], default="f32",
+                    help="storage dtype of the precomputed metric stream "
+                         "(bf16: split3 and bf16 rungs)")
     ap.add_argument("--windowing", choices=["reshape", "pieces", "zslab"],
                     default="reshape",
                     help="lattice<->cell form: reshape = cell batches "
@@ -377,7 +400,9 @@ def main(argv: list[str] | None = None) -> None:
                     factor=args.factor,
                     metric={"auto": "auto", "qpoint": "precomputed",
                             "onthefly": "onthefly"}[args.geometry],
-                    cofactor=args.cofactor, device=args.device)
+                    cofactor=args.cofactor, device=args.device,
+                    metric_dtype=(torch.bfloat16 if args.metric_dtype == "bf16"
+                                  else None))
         print(r.row() + ("" if r.converged else "   [not converged]"))
 
 

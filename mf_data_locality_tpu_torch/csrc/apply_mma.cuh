@@ -1,10 +1,11 @@
-// The f32 split2m cell pass of the dense factorization on Hopper's tensor
-// cores (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32
-// accumulation): v = sum_e M_e^T G_ef M_f u per cell, on cell batches (B3)
-// and on the lattice (B5, B6, B1, B2; the assemble pass follows in
-// laplace_apply.cu and cg_fused.cu).
+// The f32 tensor-core cell pass of the dense factorization (sm_90a,
+// mma.sync m16n8k16, bf16 x bf16 products, f32 accumulation): v = sum_e
+// M_e^T G_ef M_f u per cell, on cell batches (B3) and on the lattice (B5,
+// B6, B1, B2; the assemble pass follows in laplace_apply.cu and
+// cg_fused.cu), at the rungs split2m, split3 and bf16.
 //
-// Replaces, under precision "split2m", the TPU kernels
+// Replaces, under precision "split2m" (and "split3", "bf16"), the TPU
+// kernels
 //   B3  laplace_pallas.py   _kernel_g          :479  (pallas_call :1023)
 //   B6  laplace_pallas.py   _kernel_g_zslab    :576  (pallas_call :664)
 //   B5  laplace_pallas.py   _kernel_g_pieces   :845  (pallas_call :947)
@@ -19,7 +20,13 @@
 // products with f32 accumulation: M rounded once to bf16, the streamed
 // operand (u forward, t backward) split into hi = bf16(x) and lo =
 // bf16(x - hi), K-stacked as [Mh | Mh] [xh; xl].  That is what the tensor
-// cores compute.
+// cores compute.  The rung is the template parameter NP, the products a
+// tile (mma.cuh): split3 (NP = 3, _mm :422-446) adds xh Ml beside each
+// pair, Ml = bf16(M - Mh) from a second pair of tables; bf16 (NP = 1)
+// keeps only xh Mh.  The split3 and bf16 instantiations also read the
+// streamed metric in bf16 (x.metric_bf16), the bf16 one B1/B2's d and h in
+// bf16 (the bf16 state, x.io.bf16), both upcast at the load; split2m's
+// reads f32 only, and its code is what it was before the other rungs came.
 //
 // What one warp computes: one component of a tile of 16 cells, in the
 // transposed form with rows = cells (P13 nodes, R = 3 Q3 gradient rows):
@@ -41,7 +48,8 @@
 // the B-operand fragments the warps load, 8 bytes a lane and 256 coalesced
 // bytes a fragment (laplace_cuda.mma_tables): one table for the forward
 // (B = Mh^T), one for the backward (B = Mh), 172 KB each at p=4, read
-// through L1 from L2.  Budget of shared memory: only u's hi and lo parts,
+// through L1 from L2; under split3 Ml's two tables follow them (the
+// forward's 2 * 3 Q3P P13P bf16 after mf, the backward's as far after mb).  Budget of shared memory: only u's hi and lo parts,
 // in bf16 (52 KB a block at p=4), so two blocks (12 warps) fit an SM with
 // the register cap of __launch_bounds__.  Padded nodes and cells past the
 // end are zeros in shared memory, the metric is zero at padded q-points
@@ -115,7 +123,9 @@ struct MmaFusedArgs {
   const float* pds;     // (Q3, 24)
   const float* w3;      // (Q3,)
   const float* coeffs;  // (24, n_cells), the cell fastest
-  CellIo<float> io;     // kLatticeUpdate: update4b's vectors and scalars
+  CellIo<float> io;     // kLatticeUpdate: update4b's vectors and scalars;
+                        // io.bf16: B1/B2's d and h in bf16 (NP == 1)
+  int metric_bf16 = 0;  // the streamed metric in bf16 (NP != 2)
 };
 
 template <bool REBUILD>
@@ -161,8 +171,9 @@ __device__ __forceinline__ void rebuild_metric_chunk(
 // and out are cell batches (C P13, n_cells); kLattice (B5, B6, B1): u is
 // the lattice, gathered times the mask, and out the masked cell-local
 // values (C, n_cells, P13); kLatticeUpdate (B2): as kLattice, the input
-// update4b's d' (x.io).  REBUILD: G from x.coeffs, gmetric unused.
-template <int P, int FORM, bool REBUILD>
+// update4b's d' (x.io).  REBUILD: G from x.coeffs, gmetric unused.  NP:
+// the rung's products a tile (mma.cuh).
+template <int P, int FORM, bool REBUILD, int NP>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     apply_mma_kernel(const uint2* __restrict__ mf, const uint2* __restrict__ mb,
                      const float* __restrict__ gmetric, Grid gr,
@@ -173,6 +184,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   using Ms = MmaShape<P>;
   constexpr int P13 = S::P13, Q3 = S::Q3, P13P = Ms::P13P, Q3P = Ms::Q3P;
   constexpr int KF = P13P / 16, KB = Ms::RP / 16, NB = P13P / 8;
+  // split3: Ml's tables, this far after Mh's (laplace_cuda.mma_tables)
+  constexpr int ML = 2 * 3 * Q3P * P13P / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<MmaSmem<P, REBUILD>*>(smem_raw);
   const int nc = gr.n_cells();
@@ -204,9 +217,12 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       if constexpr (FORM == kLattice) {
         float m;
         const size_t node = cell_node<P>(gr, cell, k, mask, &m);
-        val = u[c * n_nodes + node] * m;
+        if constexpr (NP != 1)
+          val = u[c * n_nodes + node] * m;
+        else
+          val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
       } else if constexpr (FORM == kLatticeUpdate) {
-        val = cell_input<float, P, true>(
+        val = cell_input<float, P, true, NP == 1>(
             x.io, sm.x.sc, gr, c, cell / (gr.ncx * gr.ncy),
             (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
             (k / S::P1) % S::P1, k % S::P1);
@@ -217,7 +233,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const __nv_bfloat16 hi = __float2bfloat16_rn(val);
     auto& parts = sm.u[b / kMmaCells][c];
     parts[0][b % kMmaCells][k] = hi;
-    parts[1][b % kMmaCells][k] = __float2bfloat16_rn(val - __bfloat162float(hi));
+    if constexpr (NP != 1)
+      parts[1][b % kMmaCells][k] =
+          __float2bfloat16_rn(val - __bfloat162float(hi));
   }
   __syncthreads();
 
@@ -255,7 +273,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           const int nt = d * (Q3P / 8) + 2 * j + h;
           const uint2 bf = __ldg(mf + (nt * KF + ks) * 32 + lane);
           mma_bf16(ga[d][h], a[0], bf);
-          mma_bf16(ga[d][h], a[1], bf);
+          if constexpr (NP != 1) mma_bf16(ga[d][h], a[1], bf);
+          if constexpr (NP == 3)
+            mma_bf16(ga[d][h], a[0], __ldg(mf + ML + (nt * KF + ks) * 32 + lane));
         }
     }
 
@@ -278,8 +298,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           for (int e = 0; e < 6; ++e) {
             if constexpr (REBUILD)
               G[e] = sm.x.g[j % 2][e][ql][cell - cell0];
-            else
+            else if constexpr (NP == 2)
               G[e] = live ? __ldg(gmetric + static_cast<size_t>(e * Q3 + qp) * nc + cell)
+                          : 0.f;
+            else
+              G[e] = live ? ldg_flex(gmetric,
+                                     static_cast<size_t>(e * Q3 + qp) * nc + cell,
+                                     x.metric_bf16)
                           : 0.f;
           }
           const float gx = ga[0][h][2 * r + e2], gy = ga[1][h][2 * r + e2],
@@ -290,7 +315,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         }
 #pragma unroll
         for (int e = 0; e < 3; ++e)
-          split_pair(tv[e][0], tv[e][1], th[e][2 * h + r], tl[e][2 * h + r]);
+          stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * h + r],
+                           tl[e][2 * h + r]);
       }
 
     // backward: v^T += [th | tl] . [Mh; Mh] over gradient rows e Q3P + 16 j
@@ -300,7 +326,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       for (int nt = 0; nt < NB; ++nt) {
         const uint2 bb = __ldg(mb + (nt * KB + e * Ms::QC + j) * 32 + lane);
         mma_bf16(v[nt], th[e], bb);
-        mma_bf16(v[nt], tl[e], bb);
+        if constexpr (NP != 1) mma_bf16(v[nt], tl[e], bb);
+        if constexpr (NP == 3)
+          mma_bf16(v[nt], th[e],
+                   __ldg(mb + ML + (nt * KB + e * Ms::QC + j) * 32 + lane));
       }
   }
 
@@ -321,12 +350,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
 }
 
-template <int P, int FORM, bool REBUILD>
-cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
-                       const Grid& gr, const float* mask, const float* u,
-                       float* out, const MmaFusedArgs& x, cudaStream_t st) {
+template <int P, int FORM, bool REBUILD, int NP>
+cudaError_t launch_mma_here(const void* mf, const void* mb,
+                            const float* gmetric, const Grid& gr,
+                            const float* mask, const float* u, float* out,
+                            const MmaFusedArgs& x, cudaStream_t st) {
   using Sm = MmaSmem<P, REBUILD>;
-  auto kern = apply_mma_kernel<P, FORM, REBUILD>;
+  auto kern = apply_mma_kernel<P, FORM, REBUILD, NP>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
@@ -337,5 +367,43 @@ cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
       gr, mask, u, out, x);
   return cudaGetLastError();
 }
+
+// The pass of one configuration: split2m (NP = 2) is instantiated where it
+// is called (cg_fused.cu, laplace_apply.cu), split3 and bf16 in
+// mma_rungs.cu, built once per rung (-DBP4_RUNG=3, 1) in parallel with the
+// other sources.
+template <int P, int FORM, bool REBUILD, int NP>
+cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
+                       const Grid& gr, const float* mask, const float* u,
+                       float* out, const MmaFusedArgs& x, cudaStream_t st) {
+  return launch_mma_here<P, FORM, REBUILD, NP>(mf, mb, gmetric, gr, mask, u,
+                                               out, x, st);
+}
+
+#define BP4_MMA_SIGNATURE(P, FORM, REBUILD, NP)                              \
+  template <>                                                                \
+  cudaError_t launch_mma<P, FORM, REBUILD, NP>(                              \
+      const void* mf, const void* mb, const float* gmetric, const Grid& gr,  \
+      const float* mask, const float* u, float* out, const MmaFusedArgs& x, \
+      cudaStream_t st)
+#define BP4_MMA_DECLARE1(P, FORM, REBUILD, NP) \
+  BP4_MMA_SIGNATURE(P, FORM, REBUILD, NP);
+#define BP4_MMA_DEFINE1(P, FORM, REBUILD, NP)                                 \
+  BP4_MMA_SIGNATURE(P, FORM, REBUILD, NP) {                                   \
+    return launch_mma_here<P, FORM, REBUILD, NP>(mf, mb, gmetric, gr, mask, u, \
+                                                 out, x, st);                  \
+  }
+// the forms and metric sources of B3 (cell batch), B5/B6/B1 (lattice,
+// streamed), B1 (rebuilt), B2 (update4b, streamed or rebuilt)
+#define BP4_MMA_CONFIGS(P, NP, M)                                     \
+  M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
+  M(P, kLattice, true, NP) M(P, kLatticeUpdate, false, NP)            \
+  M(P, kLatticeUpdate, true, NP)
+#define BP4_MMA_RUNG(NP, M)                                           \
+  BP4_MMA_CONFIGS(1, NP, M) BP4_MMA_CONFIGS(2, NP, M)                 \
+  BP4_MMA_CONFIGS(3, NP, M) BP4_MMA_CONFIGS(4, NP, M)
+
+BP4_MMA_RUNG(1, BP4_MMA_DECLARE1)
+BP4_MMA_RUNG(3, BP4_MMA_DECLARE1)
 
 }  // namespace bp4

@@ -35,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace bp4 {
 
 constexpr int kComps = 3;           // vector components of BP4
@@ -58,6 +60,60 @@ struct Shape {
   static constexpr int Q2 = Q * Q, Q3 = Q2 * Q;
 };
 
+// Element i of a float array that holds bf16 values instead when `bf16` is
+// set (warp-uniform): the metric stream and the bf16 state's d and h of
+// the split3 and bf16 instantiations, whose storage is a runtime choice.
+__device__ __forceinline__ float load_flex(const float* p, size_t i,
+                                           bool bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+              : p[i];
+}
+__device__ __forceinline__ float ldg_flex(const float* p, size_t i,
+                                          bool bf16) {
+  return bf16 ? __bfloat162float(
+                    __ldg(reinterpret_cast<const __nv_bfloat16*>(p) + i))
+              : __ldg(p + i);
+}
+// v as it is stored: rounded to bf16 when `bf16` is set.
+__device__ __forceinline__ float round_flex(float v, bool bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+__device__ __forceinline__ void store_flex(float* p, size_t i, float v,
+                                           bool bf16) {
+  if (bf16)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    p[i] = v;
+}
+// A value of the assemble pass's h and d stored as V (T, or bf16: the bf16
+// state), and back at the working type T.
+template <typename V, typename T>
+__device__ __forceinline__ V to_store(T v) {
+  if constexpr (std::is_same_v<V, __nv_bfloat16>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+template <typename T, typename V>
+__device__ __forceinline__ T to_acc(V v) {
+  if constexpr (std::is_same_v<V, __nv_bfloat16>)
+    return __bfloat162float(v);
+  else
+    return v;
+}
+
+// f(std::integral_constant<int, NP>) for the tensor-core rung with NP
+// products a tile (1 bf16, 2 split2m, 3 split3); -1 for any other.
+template <typename F>
+cudaError_t with_rung(int rung, F&& f) {
+  switch (rung) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+  }
+  return static_cast<cudaError_t>(-1);
+}
+
 // Read-only operator tables of B1/B2, device pointers at the working type T.
 // split2m twostage (cell_mma.cuh): mats the bf16 fragment tables of the 2D
 // stage, coeffs (n_cells, 24); split2m dense (apply_mma.cuh): mats the bf16
@@ -65,7 +121,8 @@ struct Shape {
 // highest (apply_sumfac.cuh): mats unused, coeffs (24, n_cells).
 // Coordinate d's monomial coefficient k is entry d*8 + k of a cell.
 // gmetric: the streamed metric (6 Q3, n_cells), or null: G rebuilt from the
-// coefficients.
+// coefficients; stored in bf16 where metric_bf16 is set (the split3 and
+// bf16 tensor-core passes read it with ldg_flex).
 template <typename T>
 struct OpTables {
   const T* mats;
@@ -75,6 +132,7 @@ struct OpTables {
   const T* w3;      // (Q3,)
   const T* coeffs;
   const T* gmetric;
+  int metric_bf16 = 0;
 };
 
 struct Grid {
@@ -195,18 +253,22 @@ __device__ __forceinline__ void load_pds_row(const T* row, T (&pq)[24]) {
 }
 
 // The vectors of the B1 (d -> cells) and B2 (update4b, then d' -> cells)
-// cell passes; B1 sets only d.
+// cell passes; B1 sets only d.  bf16: d, h and d2 hold bf16 values (the
+// bf16 state; read by the bf16 rung's tensor-core passes, FLEX).
 template <typename T>
 struct CellIo {
   const T *x, *g, *d, *h, *prec, *scal;
   T *x2, *g2, *d2;
+  int bf16 = 0;
 };
 
 // The operator input at local node (kz, ky, kx) of cell (cz, cy, cx),
 // component c, zero at Dirichlet nodes: B1 d; B2 update4b's d'
 // (cg_fused_kernel.py:836-858) from the scalars sc = (alpha, beta, c1,
-// aob), and the node's owner cell writes x', g', d'.
-template <typename T, int P, bool FUSED>
+// aob), and the node's owner cell writes x', g', d'.  FLEX (T float): d
+// and h may be bf16 (io.bf16); then d' is stored in bf16 and the operator
+// takes the stored, rounded d' (cg_fused_kernel.py:856).
+template <typename T, int P, bool FUSED, bool FLEX = false>
 __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                                         const Grid& gr, int c, int cz, int cy,
                                         int cx, int kz, int ky, int kx) {
@@ -214,7 +276,26 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
   const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + xx;
   const size_t idx = c * static_cast<size_t>(gr.n_nodes()) + node;
   const bool in = interior(gr, z, y, xx);
-  if constexpr (!FUSED) {
+  if constexpr (FLEX) {
+    const bool bf = io.bf16;
+    if constexpr (!FUSED) {
+      return in ? load_flex(io.d, idx, bf) : 0.f;
+    } else {
+      const float pv = io.prec[node], gv = io.g[idx],
+                  dv = load_flex(io.d, idx, bf);
+      const float gn = gv + sc[0] * load_flex(io.h, idx, bf);
+      const float dn = round_flex(sc[1] * dv - pv * gn, bf);
+      const bool owner = (kz < P || cz == gr.ncz - 1) &&
+                         (ky < P || cy == gr.ncy - 1) &&
+                         (kx < P || cx == gr.ncx - 1);
+      if (owner) {
+        io.x2[idx] = io.x[idx] + sc[2] * dv + sc[3] * (pv * gv);
+        io.g2[idx] = gn;
+        store_flex(io.d2, idx, dn, bf);
+      }
+      return in ? dn : 0.f;
+    }
+  } else if constexpr (!FUSED) {
     return in ? io.d[idx] : T(0);
   } else {
     const T pv = io.prec[node], gv = io.g[idx], dv = io.d[idx];
@@ -295,11 +376,13 @@ __device__ void block_sum(T (*red)[kNodeThreads], const T* v) {
 // fixed order, masks, and writes h; with DOTS it also writes per-block
 // partials of the 7 update3b sums over d', g' as stored and h'
 // (cg_fused_kernel.py:877-895).  Replaces the TPU kernels' lane-roll
-// consistency and z carry plane.
-template <typename T, int P, bool DOTS>
+// consistency and z carry plane.  V: the storage of h and d (T, or bf16
+// for the bf16 state: h is rounded where it is stored, and the sums read
+// the stored d' and h').
+template <typename T, int P, bool DOTS, typename V = T>
 __global__ void __launch_bounds__(kNodeThreads)
-    assemble_kernel(Grid gr, const T* __restrict__ cells, T* __restrict__ h,
-                    const T* __restrict__ g, const T* __restrict__ d,
+    assemble_kernel(Grid gr, const T* __restrict__ cells, V* __restrict__ h,
+                    const T* __restrict__ g, const V* __restrict__ d,
                     const T* __restrict__ prec, T* __restrict__ partials) {
   __shared__ T red[DOTS ? kDots : 1][kNodeThreads];
   const int n_nodes = gr.n_nodes();
@@ -313,10 +396,11 @@ __global__ void __launch_bounds__(kNodeThreads)
     if constexpr (DOTS) pv = prec[node];
     for (int c = 0; c < kComps; ++c) {
       const size_t idx = static_cast<size_t>(c) * n_nodes + node;
-      const T hv = in ? gather_node<T, P>(cells, gr, c, z, y, x) : T(0);
-      h[idx] = hv;
+      const V hs = to_store<V>(in ? gather_node<T, P>(cells, gr, c, z, y, x)
+                                  : T(0));
+      h[idx] = hs;
       if constexpr (DOTS) {
-        const T gv = g[idx], dv = d[idx];
+        const T hv = to_acc<T>(hs), gv = g[idx], dv = to_acc<T>(d[idx]);
         const T ph = pv * hv, pg = pv * gv;
         acc[0] += dv * hv;
         acc[1] += hv * hv;

@@ -1,9 +1,10 @@
-// The f32 split2m cell pass of the matvec (B1) and the fused CG iteration
-// (B2) on Hopper's tensor cores (sm_90a, mma.sync m16n8k16, bf16 x bf16
-// products, f32 accumulation); cg_fused.cu's assemble and finalize passes
-// follow it unchanged.
+// The f32 tensor-core cell pass of the matvec (B1) and the fused CG
+// iteration (B2) (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32
+// accumulation) at the rungs split2m, split3 and bf16; cg_fused.cu's
+// assemble and finalize passes follow it unchanged.
 //
-// Replaces, under precision "split2m", the cell work of the TPU kernels of
+// Replaces, under precision "split2m" (and "split3", "bf16"), the cell work
+// of the TPU kernels of
 // mf_data_locality_tpu/ops/cg_fused_kernel.py:
 //   B1  piece_vmult -> _matvec_kernel          (pallas_call :1116)
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call :1476)
@@ -16,7 +17,12 @@
 // split2m (_prestack :86-99, _mm_pre :328-355) is by definition bf16 x bf16
 // products with f32 accumulation: the 2D matrices M rounded once to bf16,
 // the streamed operand (uS, uD forward, t backward) split into hi =
-// bf16(x) and lo = bf16(x - hi), K-stacked as [Mh | Mh] [xh; xl].
+// bf16(x) and lo = bf16(x - hi), K-stacked as [Mh | Mh] [xh; xl].  The
+// rung is the template parameter NP (mma.cuh): split3 adds xh Ml beside
+// each pair, from Ml's tables, which a split3 block copies to shared
+// memory after the rest (18.4 KB more at p=4: 102 KB a block, still two
+// blocks an SM); bf16 keeps xh Mh only.  The split3 and bf16
+// instantiations read d and h in bf16 where the state is (io.bf16).
 //
 // What one block computes: a tile of 16 consecutive cells (the m16 rows),
 // one warp per component (and a fourth that helps with the gather and the
@@ -135,14 +141,23 @@ struct CellMmaSmem {
   float dz[S::Q * S::P1];
 };
 
+// Ml's fragment tables (split3), forward then backward, after the rest.
+template <int P>
+struct CellMmaSmemSplit3 : CellMmaSmem<P> {
+  alignas(16) uint2 ml[CellMmaShape<P>::TF + CellMmaShape<P>::TB];
+};
+template <int P, int NP>
+using CellMmaSmemFor =
+    std::conditional_t<NP == 3, CellMmaSmemSplit3<P>, CellMmaSmem<P>>;
+
 // The input of a tile inside one x row of cells (every tile when 16
 // divides ncx): its (c, kz, ky) node rows are runs of 16 P + 1 contiguous
 // nodes, each loaded once, in batches whose loads all issue before the
 // batch's first store, and written to the one or two cells that hold it.
 // The owner of a node (it writes B2's x', g', d') is the cell it is local
 // node kx < P of, or the tile's last cell when that ends the x row, as in
-// cell_input.
-template <int P, bool FUSED>
+// cell_input.  FLEX: d and h may be bf16 (io.bf16), as in cell_input.
+template <int P, bool FUSED, bool FLEX>
 __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
                                 const float (&sc)[4], const Grid& gr,
                                 int cell0) {
@@ -171,10 +186,16 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
                  (ky < P || cy == gr.ncy - 1) &&
                  (kx < P || cx0 + b == gr.ncx - 1);
       if (i < ITEMS) {
-        dv[k] = __ldg(io.d + idx[k]);
+        if constexpr (FLEX)
+          dv[k] = ldg_flex(io.d, idx[k], io.bf16);
+        else
+          dv[k] = __ldg(io.d + idx[k]);
         if constexpr (FUSED) {
           gv[k] = __ldg(io.g + idx[k]);
-          hv[k] = __ldg(io.h + idx[k]);
+          if constexpr (FLEX)
+            hv[k] = ldg_flex(io.h, idx[k], io.bf16);
+          else
+            hv[k] = __ldg(io.h + idx[k]);
           pv[k] = __ldg(io.prec + node);
           if (owner[k]) xv[k] = __ldg(io.x + idx[k]);
         }
@@ -191,10 +212,14 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
       if constexpr (FUSED) {
         const float gn = gv[k] + sc[0] * hv[k];
         val = sc[1] * dv[k] - pv[k] * gn;
+        if constexpr (FLEX) val = round_flex(val, io.bf16);
         if (owner[k]) {
           io.x2[idx[k]] = xv[k] + sc[2] * dv[k] + sc[3] * (pv[k] * gv[k]);
           io.g2[idx[k]] = gn;
-          io.d2[idx[k]] = val;
+          if constexpr (FLEX)
+            store_flex(io.d2, idx[k], val, io.bf16);
+          else
+            io.d2[idx[k]] = val;
         }
       }
       if (!interior(gr, cz * P + kz, cy * P + ky, cx0 * P + ox)) val = 0.f;
@@ -207,7 +232,7 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
 
 // The input of any other tile (ragged, or crossing a row of cells): per
 // (cell, local node), kx fastest, then the tile's cells, then (c, kz, ky).
-template <int P, bool FUSED>
+template <int P, bool FUSED, bool FLEX>
 __device__ void gather_cells(CellMmaSmem<P>& sm, const CellIo<float>& io,
                              const float (&sc)[4], const Grid& gr, int cell0) {
   using S = Shape<P>;
@@ -223,7 +248,8 @@ __device__ void gather_cells(CellMmaSmem<P>& sm, const CellIo<float>& io,
     if (cell < nc) {
       const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
                 cz = cell / (gr.ncx * gr.ncy);
-      val = cell_input<float, P, FUSED>(io, sc, gr, c, cz, cy, cx, kz, ky, kx);
+      val = cell_input<float, P, FUSED, FLEX>(io, sc, gr, c, cz, cy, cx, kz,
+                                              ky, kx);
     }
     sm.u[c][b][kz * P12P + ky * P1 + kx] = val;
   }
@@ -255,8 +281,9 @@ __device__ void metric_plane(float (&g)[6][kTileCells][CellMmaShape<P>::LDG],
   }
 }
 
-// tb.mats: the two fragment tables, forward then backward, TF + TB uint2.
-template <int P, bool FUSED, int COFACTOR>
+// tb.mats: the two fragment tables, forward then backward, TF + TB uint2
+// (split3: Ml's two follow).  NP: the rung's products a tile (mma.cuh).
+template <int P, bool FUSED, int COFACTOR, int NP>
 __global__ void __launch_bounds__(kCellMmaThreads, 2)
     cells_mma_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                      float* __restrict__ cells) {
@@ -264,8 +291,9 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   using Ms = CellMmaShape<P>;
   constexpr int P1 = S::P1, P12 = S::P12, P13 = S::P13, Q2 = S::Q2;
   constexpr int P12P = Ms::P12P, LDU = Ms::LDU, LDG = Ms::LDG;
+  constexpr bool FLEX = NP == 1;  // the bf16 state: the bf16 rung only
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellMmaSmem<P>*>(smem_raw);
+  auto& sm = *reinterpret_cast<CellMmaSmemFor<P, NP>*>(smem_raw);
   const int tid = threadIdx.x;
   const int nc = gr.n_cells();
   const int cell0 = blockIdx.x * kTileCells;
@@ -285,6 +313,17 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
 #pragma unroll
     for (int k = 0; k < PER; ++k)
       if (tid + k * kCellMmaThreads < NT) tdst[tid + k * kCellMmaThreads] = t[k];
+    if constexpr (NP == 3) {  // Ml's tables, the same way
+      uint4* ldst = reinterpret_cast<uint4*>(sm.ml);
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (tid + k * kCellMmaThreads < NT)
+          t[k] = __ldg(tsrc + NT + tid + k * kCellMmaThreads);
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (tid + k * kCellMmaThreads < NT)
+          ldst[tid + k * kCellMmaThreads] = t[k];
+    }
   }
   for (int i = tid; i < S::Q * P1; i += blockDim.x) {
     sm.sz[i] = tb.sz[i];
@@ -317,9 +356,9 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
     for (int k = 0; k < 4; ++k) sc[k] = io.scal[k];
   }
   if (cell0 + kTileCells <= nc && cell0 % gr.ncx + kTileCells <= gr.ncx)
-    gather_row_tile<P, FUSED>(sm, io, sc, gr, cell0);
+    gather_row_tile<P, FUSED, FLEX>(sm, io, sc, gr, cell0);
   else
-    gather_cells<P, FUSED>(sm, io, sc, gr, cell0);
+    gather_cells<P, FUSED, FLEX>(sm, io, sc, gr, cell0);
 
   const int warp = tid / 32, lane = tid % 32;
   const int c = warp;                     // this warp's component
@@ -360,8 +399,8 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
             d = make_float2(fmaf(x.x, bz, d.x), fmaf(x.y, bz, d.y));
           }
         }
-        split_pair(s.x, s.y, ash[ks][r4], asl[ks][r4]);
-        split_pair(d.x, d.y, adh[ks][r4], adl[ks][r4]);
+        stream_parts<NP>(s.x, s.y, ash[ks][r4], asl[ks][r4]);
+        stream_parts<NP>(d.x, d.y, adh[ks][r4], adl[ks][r4]);
       }
 
     float w1[Ms::NB][4] = {}, w2[Ms::NB][4] = {};
@@ -379,10 +418,17 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
             const uint2 bf = sm.mf[(nt * Ms::KF + ks) * 32 + lane];
             if (e < 2) {
               mma_bf16(ga[e][h], ash[ks], bf);
-              mma_bf16(ga[e][h], asl[ks], bf);
+              if constexpr (NP != 1) mma_bf16(ga[e][h], asl[ks], bf);
             } else {
               mma_bf16(ga[e][h], adh[ks], bf);
-              mma_bf16(ga[e][h], adl[ks], bf);
+              if constexpr (NP != 1) mma_bf16(ga[e][h], adl[ks], bf);
+            }
+            if constexpr (NP == 3) {
+              const uint2 bl = sm.ml[(nt * Ms::KF + ks) * 32 + lane];
+              if (e < 2)
+                mma_bf16(ga[e][h], ash[ks], bl);
+              else
+                mma_bf16(ga[e][h], adh[ks], bl);
             }
           }
 
@@ -415,7 +461,8 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
           }
 #pragma unroll
           for (int e = 0; e < 3; ++e)
-            split_pair(tv[e][0], tv[e][1], th[e][2 * h + r], tl[e][2 * h + r]);
+            stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * h + r],
+                             tl[e][2 * h + r]);
         }
 
       // backward over chunk j of each direction's q-points
@@ -424,11 +471,17 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
         const uint2* bn = sm.mb + (nt * Ms::KB + j) * 32 + lane;
         const uint2 bx = bn[0], by = bn[Ms::QC * 32], bz = bn[2 * Ms::QC * 32];
         mma_bf16(w1[nt], th[0], bx);
-        mma_bf16(w1[nt], tl[0], bx);
+        if constexpr (NP != 1) mma_bf16(w1[nt], tl[0], bx);
         mma_bf16(w1[nt], th[1], by);
-        mma_bf16(w1[nt], tl[1], by);
+        if constexpr (NP != 1) mma_bf16(w1[nt], tl[1], by);
         mma_bf16(w2[nt], th[2], bz);
-        mma_bf16(w2[nt], tl[2], bz);
+        if constexpr (NP != 1) mma_bf16(w2[nt], tl[2], bz);
+        if constexpr (NP == 3) {
+          const uint2* bl = sm.ml + Ms::TF + (nt * Ms::KB + j) * 32 + lane;
+          mma_bf16(w1[nt], th[0], bl[0]);
+          mma_bf16(w1[nt], th[1], bl[Ms::QC * 32]);
+          mma_bf16(w2[nt], th[2], bl[2 * Ms::QC * 32]);
+        }
       }
     }
 
@@ -477,20 +530,49 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   }
 }
 
-template <int P, bool FUSED, int COFACTOR>
+template <int P, bool FUSED, int COFACTOR, int NP>
+cudaError_t launch_cells_mma_here(const OpTables<float>& tb, const Grid& gr,
+                                  const CellIo<float>& io, float* cells,
+                                  cudaStream_t st) {
+  using Sm = CellMmaSmemFor<P, NP>;
+  auto kern = cells_mma_kernel<P, FUSED, COFACTOR, NP>;
+  // above 48 KB a block's shared memory must be requested explicitly
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
+  if (attr != cudaSuccess) return attr;
+  const int blocks = (gr.n_cells() + kTileCells - 1) / kTileCells;
+  kern<<<blocks, kCellMmaThreads, sizeof(Sm), st>>>(tb, gr, io, cells);
+  return cudaGetLastError();
+}
+
+// The pass of one configuration: split2m (NP = 2) is instantiated where it
+// is called (cg_fused.cu), split3 and bf16 in mma_rungs.cu.
+template <int P, bool FUSED, int COFACTOR, int NP>
 cudaError_t launch_cells_mma(const OpTables<float>& tb, const Grid& gr,
                              const CellIo<float>& io, float* cells,
                              cudaStream_t st) {
-  auto kern = cells_mma_kernel<P, FUSED, COFACTOR>;
-  // above 48 KB a block's shared memory must be requested explicitly
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sizeof(CellMmaSmem<P>));
-  if (attr != cudaSuccess) return attr;
-  const int blocks = (gr.n_cells() + kTileCells - 1) / kTileCells;
-  kern<<<blocks, kCellMmaThreads, sizeof(CellMmaSmem<P>), st>>>(tb, gr, io,
-                                                                 cells);
-  return cudaGetLastError();
+  return launch_cells_mma_here<P, FUSED, COFACTOR, NP>(tb, gr, io, cells,
+                                                       st);
 }
+
+#define BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP)                       \
+  template <>                                                             \
+  cudaError_t launch_cells_mma<4, FUSED, COFACTOR, NP>(                   \
+      const OpTables<float>& tb, const Grid& gr, const CellIo<float>& io, \
+      float* cells, cudaStream_t st)
+#define BP4_CELL_MMA_DECLARE1(FUSED, COFACTOR, NP) \
+  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP);
+#define BP4_CELL_MMA_DEFINE1(FUSED, COFACTOR, NP)                            \
+  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP) {                              \
+    return launch_cells_mma_here<4, FUSED, COFACTOR, NP>(tb, gr, io, cells, \
+                                                         st);               \
+  }
+// B1, B2 x the rebuilt metric's chains, at p=4
+#define BP4_CELL_MMA_RUNG(NP, M)                                  \
+  M(false, kAdjj, NP) M(false, kJtj, NP) M(true, kAdjj, NP)       \
+  M(true, kJtj, NP)
+
+BP4_CELL_MMA_RUNG(1, BP4_CELL_MMA_DECLARE1)
+BP4_CELL_MMA_RUNG(3, BP4_CELL_MMA_DECLARE1)
 
 }  // namespace bp4

@@ -1,10 +1,11 @@
-// The f32 split2m cell pass of the matvec (B1) and the fused CG iteration
-// (B2) at degrees 5..11 (and at 4 with the streamed metric) on Hopper's
-// tensor cores (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32
-// accumulation); cg_fused.cu's assemble and finalize passes follow it
-// unchanged.
+// The f32 tensor-core cell pass of the matvec (B1) and the fused CG
+// iteration (B2) at degrees 5..11 (and at 4 with the streamed metric)
+// (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32 accumulation), at
+// the rungs split2m, split3 and bf16; cg_fused.cu's assemble and finalize
+// passes follow it unchanged.
 //
-// Replaces, under precision "split2m", the cell work of the TPU kernels of
+// Replaces, under precision "split2m" (and "split3", "bf16"), the cell work
+// of the TPU kernels of
 // mf_data_locality_tpu/ops/cg_fused_kernel.py:
 //   B1  piece_vmult -> _matvec_kernel          (pallas_call :1116)
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call :1476)
@@ -17,10 +18,15 @@
 // stages in f32, unrounded; the 2D matrices [Dx2d; Dy2d; S2d] rounded once
 // to bf16; the streamed operand split into hi = bf16(x) and lo = bf16(x -
 // hi), K-stacked as [Mh | Mh] [xh; xl]; the metric in exact f32 (the TPU's
-// Jacobian is a split3 product, bp4_operator.cuh).  That pass cannot reach
-// p=5: it keeps v (P1 x (P+1)^2 per 16 cells) in registers across the
-// planes, 144 a thread at p=5 beside its ~242 at p=4, and its u/v tile and
-// two fragment copies of the tables outgrow shared memory by p=8 and p=11.
+// Jacobian is a split3 product, bp4_operator.cuh).  The rung is the
+// template parameter NP (mma.cuh): split3 adds xh Ml beside each pair (Ml's
+// tables follow Mh's, read the same way), bf16 keeps xh Mh only; their
+// instantiations read the streamed metric in bf16 where it is stored so
+// (tb.metric_bf16), the bf16 one B1/B2's d and h too (io.bf16).
+// cell_mma.cuh's pass cannot reach p=5: it keeps v (P1 x (P+1)^2 per 16
+// cells) in registers across the planes, 144 a thread at p=5 beside its
+// ~242 at p=4, and its u/v tile and two fragment copies of the tables
+// outgrow shared memory by p=8 and p=11.
 //
 // Layout: one warp is one block, and one (component, 8-cell) task; the 16
 // rows of an m16 tile are (plane, cell) pairs, two q-planes (qz = 2 pt,
@@ -52,7 +58,8 @@
 //
 // Tables: laplace_cuda.mma_tables(..., "twostage") (the same packing as at
 // p=4), read through L1 from global memory: the two copies are 37-304 KB
-// at p=5..11, past what shared memory holds beside the tile.
+// at p=5..11, past what shared memory holds beside the tile (split3: twice
+// that, Ml's after Mh's).
 //
 // Bound: the 2D stage's products (3 components x Q planes x 2 q^2 (p+1)^2
 // x 2 stream parts a cell, as at p=4) run at the tensor cores' bf16 rate,
@@ -106,8 +113,9 @@ struct CellMmaHdSmem {
 };
 
 // G at q-point (qz, q2) of `cell`, zero past the plane's q^2 q-points, past
-// Q planes and past the last cell (its coefficients are zero).
-template <int P, bool REBUILD, int COFACTOR>
+// Q planes and past the last cell (its coefficients are zero).  FLEX: the
+// streamed metric may be bf16 (tb.metric_bf16).
+template <int P, bool REBUILD, int COFACTOR, bool FLEX>
 __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
                                           const float* c24, int nc, int cell,
                                           int qz, int q2, float (&g)[6]) {
@@ -125,17 +133,21 @@ __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
   } else {
     const bool live = cell < nc;
 #pragma unroll
-    for (int e = 0; e < 6; ++e)
-      g[e] = live ? __ldg(tb.gmetric + static_cast<size_t>(e * S::Q3 + qp) *
-                                           nc + cell)
-                  : 0.f;
+    for (int e = 0; e < 6; ++e) {
+      const size_t i = static_cast<size_t>(e * S::Q3 + qp) * nc + cell;
+      if constexpr (FLEX)
+        g[e] = live ? ldg_flex(tb.gmetric, i, tb.metric_bf16) : 0.f;
+      else
+        g[e] = live ? __ldg(tb.gmetric + i) : 0.f;
+    }
   }
 }
 
 // tb.mats: the two fragment tables, forward then backward; tb.coeffs:
 // (n_cells, 24) (rebuilt); tb.gmetric: (6 Q3, n_cells) (streamed).
-// blockIdx.x: the 8-cell group, blockIdx.y: the component.
-template <int P, bool FUSED, bool REBUILD, int COFACTOR>
+// blockIdx.x: the 8-cell group, blockIdx.y: the component.  NP: the rung's
+// products a tile (mma.cuh); split3's Ml tables follow Mh's.
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
 __global__ void __launch_bounds__(kHdThreads)
     cells_mma_hd_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                         float* __restrict__ cells) {
@@ -149,8 +161,12 @@ __global__ void __launch_bounds__(kHdThreads)
   const int c = blockIdx.y;
   const int nc = gr.n_cells();
   const int cell0 = blockIdx.x * kHdCells;
+  // the bf16 state (the bf16 rung only) and the bf16 metric stream
+  constexpr bool FLEX_STATE = NP == 1, FLEX_METRIC = NP != 2;
   const uint2* mf = reinterpret_cast<const uint2*>(tb.mats);
   const uint2* mb = mf + Hs::TF;
+  const uint2* mfl = mf + 2 * Hs::TF;  // split3's Ml (TF = TB)
+  const uint2* mbl = mb + 2 * Hs::TF;
 
   // z factors (a zero plane past Q), coefficients (zero past the end),
   // v = 0, the padded columns of u zero
@@ -190,7 +206,8 @@ __global__ void __launch_bounds__(kHdThreads)
     if (cell < nc) {
       const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
                 cz = cell / (gr.ncx * gr.ncy);
-      val = cell_input<float, P, FUSED>(io, sc, gr, c, cz, cy, cx, kz, ky, kx);
+      val = cell_input<float, P, FUSED, FLEX_STATE>(io, sc, gr, c, cz, cy, cx, kz,
+                                              ky, kx);
     }
     sm.u[b][kz * P12P + ky * P1 + kx] = val;
   }
@@ -232,8 +249,10 @@ __global__ void __launch_bounds__(kHdThreads)
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          split_pair(s[h].x, s[h].y, r[0][2 * hc + h], r[1][2 * hc + h]);
-          split_pair(d[h].x, d[h].y, r[2][2 * hc + h], r[3][2 * hc + h]);
+          stream_parts<NP>(s[h].x, s[h].y, r[0][2 * hc + h],
+                           r[1][2 * hc + h]);
+          stream_parts<NP>(d[h].x, d[h].y, r[2][2 * hc + h],
+                           r[3][2 * hc + h]);
         }
       }
 #pragma unroll
@@ -261,7 +280,10 @@ __global__ void __launch_bounds__(kHdThreads)
             const int nt = e * (Hs::Q2P / 8) + 2 * j + hh;
             const uint2 bf = __ldg(mf + (nt * KF + ks) * 32 + lane);
             mma_bf16(ga[e][hh], af[e < 2 ? 0 : 2], bf);
-            mma_bf16(ga[e][hh], af[e < 2 ? 1 : 3], bf);
+            if constexpr (NP != 1) mma_bf16(ga[e][hh], af[e < 2 ? 1 : 3], bf);
+            if constexpr (NP == 3)
+              mma_bf16(ga[e][hh], af[e < 2 ? 0 : 2],
+                       __ldg(mfl + (nt * KF + ks) * 32 + lane));
           }
       }
       // accumulator 2 r + e2 of n8 half hh: row gq + 8 r (plane qz0 + r),
@@ -276,8 +298,9 @@ __global__ void __launch_bounds__(kHdThreads)
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
             float G[6];
-            hd_metric<P, REBUILD, COFACTOR>(tb, sm.c24[b], nc, cell, qz0 + r,
-                                            16 * j + 8 * hh + 2 * t4 + e2, G);
+            hd_metric<P, REBUILD, COFACTOR, FLEX_METRIC>(
+                tb, sm.c24[b], nc, cell, qz0 + r, 16 * j + 8 * hh + 2 * t4 + e2,
+                G);
             const float gx = ga[0][hh][2 * r + e2], gy = ga[1][hh][2 * r + e2],
                         gz = ga[2][hh][2 * r + e2];
             tv[0][e2] = G[0] * gx + G[1] * gy + G[2] * gz;
@@ -286,8 +309,8 @@ __global__ void __launch_bounds__(kHdThreads)
           }
 #pragma unroll
           for (int e = 0; e < 3; ++e)
-            split_pair(tv[e][0], tv[e][1], th[e][2 * hh + r],
-                       tl[e][2 * hh + r]);
+            stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * hh + r],
+                             tl[e][2 * hh + r]);
         }
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
@@ -318,11 +341,17 @@ __global__ void __launch_bounds__(kHdThreads)
           const uint2 bx = __ldg(bn), by = __ldg(bn + QC * 32),
                       bz = __ldg(bn + 2 * QC * 32);
           mma_bf16(w1[g], tf[0][0], bx);
-          mma_bf16(w1[g], tf[0][1], bx);
+          if constexpr (NP != 1) mma_bf16(w1[g], tf[0][1], bx);
           mma_bf16(w1[g], tf[1][0], by);
-          mma_bf16(w1[g], tf[1][1], by);
+          if constexpr (NP != 1) mma_bf16(w1[g], tf[1][1], by);
           mma_bf16(w2[g], tf[2][0], bz);
-          mma_bf16(w2[g], tf[2][1], bz);
+          if constexpr (NP != 1) mma_bf16(w2[g], tf[2][1], bz);
+          if constexpr (NP == 3) {
+            const uint2* bl = mbl + ((n0 + g) * Hs::KB + kb) * 32 + lane;
+            mma_bf16(w1[g], tf[0][0], __ldg(bl));
+            mma_bf16(w1[g], tf[1][0], __ldg(bl + QC * 32));
+            mma_bf16(w2[g], tf[2][0], __ldg(bl + 2 * QC * 32));
+          }
         }
       }
 #pragma unroll
@@ -362,11 +391,11 @@ __global__ void __launch_bounds__(kHdThreads)
   }
 }
 
-template <int P, bool FUSED, bool REBUILD, int COFACTOR>
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
 cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
                                      const CellIo<float>& io, float* cells,
                                      cudaStream_t st) {
-  auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR>;
+  auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR, NP>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -378,39 +407,45 @@ cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
 }
 
 // The pass of one configuration: degree 4 (the streamed metric) is
-// instantiated where it is called (cg_fused.cu), degrees 5..11 in one
-// source a degree (cell_mma_p05.cu .. cell_mma_p11.cu,
-// BP4_CELL_MMA_HD_DEGREE), compiled in parallel with the others.
-template <int P, bool FUSED, bool REBUILD, int COFACTOR>
+// instantiated where it is called (cg_fused.cu) under split2m and in
+// mma_rungs.cu under split3 and bf16, degrees 5..11 in one source a degree
+// and rung (cell_mma_p05.cu .. cell_mma_p11.cu, each built once per rung,
+// -DBP4_RUNG=n: BP4_CELL_MMA_HD_DEGREE), compiled in parallel with the
+// others.
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
 cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
                                 const CellIo<float>& io, float* cells,
                                 cudaStream_t st) {
-  return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR>(tb, gr, io,
-                                                               cells, st);
+  return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP>(
+      tb, gr, io, cells, st);
 }
 
-#define BP4_CELL_MMA_HD_DECLARE1(P, FUSED, REBUILD, COFACTOR)             \
+#define BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP)        \
   template <>                                                             \
-  cudaError_t launch_cells_mma_hd<P, FUSED, REBUILD, COFACTOR>(           \
+  cudaError_t launch_cells_mma_hd<P, FUSED, REBUILD, COFACTOR, NP>(       \
       const OpTables<float>& tb, const Grid& gr, const CellIo<float>& io, \
-      float* cells, cudaStream_t st);
-#define BP4_CELL_MMA_HD_DEFINE1(P, FUSED, REBUILD, COFACTOR)              \
-  template <>                                                             \
-  cudaError_t launch_cells_mma_hd<P, FUSED, REBUILD, COFACTOR>(           \
-      const OpTables<float>& tb, const Grid& gr, const CellIo<float>& io, \
-      float* cells, cudaStream_t st) {                                    \
-    return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR>(         \
-        tb, gr, io, cells, st);                                           \
+      float* cells, cudaStream_t st)
+#define BP4_CELL_MMA_HD_DECLARE1(P, FUSED, REBUILD, COFACTOR, NP) \
+  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP);
+#define BP4_CELL_MMA_HD_DEFINE1(P, FUSED, REBUILD, COFACTOR, NP)         \
+  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP) {           \
+    return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP>(    \
+        tb, gr, io, cells, st);                                          \
   }
-#define BP4_CELL_MMA_HD_CONFIGS(P, M)                             \
-  M(P, false, false, kAdjj) M(P, false, true, kAdjj)              \
-  M(P, false, true, kJtj) M(P, true, false, kAdjj)                \
-  M(P, true, true, kAdjj) M(P, true, true, kJtj)
-#define BP4_CELL_MMA_HD_DECLARE(P) \
-  BP4_CELL_MMA_HD_CONFIGS(P, BP4_CELL_MMA_HD_DECLARE1)
-// the definitions of degree P's configurations, in its own source
-#define BP4_CELL_MMA_HD_DEGREE(P) \
-  BP4_CELL_MMA_HD_CONFIGS(P, BP4_CELL_MMA_HD_DEFINE1)
+#define BP4_CELL_MMA_HD_CONFIGS(P, NP, M)                             \
+  M(P, false, false, kAdjj, NP) M(P, false, true, kAdjj, NP)          \
+  M(P, false, true, kJtj, NP) M(P, true, false, kAdjj, NP)            \
+  M(P, true, true, kAdjj, NP) M(P, true, true, kJtj, NP)
+#define BP4_CELL_MMA_HD_DECLARE(P)                            \
+  BP4_CELL_MMA_HD_CONFIGS(P, 1, BP4_CELL_MMA_HD_DECLARE1)     \
+  BP4_CELL_MMA_HD_CONFIGS(P, 2, BP4_CELL_MMA_HD_DECLARE1)     \
+  BP4_CELL_MMA_HD_CONFIGS(P, 3, BP4_CELL_MMA_HD_DECLARE1)
+// the definitions of degree P's configurations at one rung, in its source
+#define BP4_CELL_MMA_HD_DEGREE(P, NP) \
+  BP4_CELL_MMA_HD_CONFIGS(P, NP, BP4_CELL_MMA_HD_DEFINE1)
+// degree 4, the streamed metric, under split3 and bf16 (mma_rungs.cu)
+#define BP4_CELL_MMA_HD_P4(NP, M) \
+  M(4, false, false, kAdjj, NP) M(4, true, false, kAdjj, NP)
 
 BP4_CELL_MMA_HD_DECLARE(5)
 BP4_CELL_MMA_HD_DECLARE(6)
@@ -419,5 +454,7 @@ BP4_CELL_MMA_HD_DECLARE(8)
 BP4_CELL_MMA_HD_DECLARE(9)
 BP4_CELL_MMA_HD_DECLARE(10)
 BP4_CELL_MMA_HD_DECLARE(11)
+BP4_CELL_MMA_HD_P4(1, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_P4(3, BP4_CELL_MMA_HD_DECLARE1)
 
 }  // namespace bp4

@@ -1,12 +1,14 @@
-// The split2m twostage cell pass of B1/B2 (cell_mma_hd.cuh) at degree 8,
-// in its six configurations (B1, B2 x the metric streamed, rebuilt by adjj,
-// rebuilt by jtj): one source a degree, so that nvcc builds the degrees in
-// parallel (ops/_build.py); cg_fused.cu calls them.
+// The twostage tensor-core cell pass of B1/B2 (cell_mma_hd.cuh) at degree
+// 8, in its six configurations (B1, B2 x the metric streamed, rebuilt by
+// adjj, rebuilt by jtj) at the rung BP4_RUNG (the products a tile: 1
+// bf16, 2 split2m, 3 split3): one source a degree, built once per rung, so
+// that nvcc builds the degrees and rungs in parallel (ops/_build.py);
+// cg_fused.cu calls them.
 
 #include "cell_mma_hd.cuh"
 
 namespace bp4 {
 
-BP4_CELL_MMA_HD_DEGREE(8)
+BP4_CELL_MMA_HD_DEGREE(8, BP4_RUNG)
 
 }  // namespace bp4

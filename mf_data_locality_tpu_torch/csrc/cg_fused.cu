@@ -13,7 +13,7 @@
 // shared z plane and the dot partials from one grid step to the next; the
 // H100 runs blocks in no order, so each apply is split into passes:
 //
-//   cells     one block per 8 f32 or 4 f64 cells (split2m: see below):
+//   cells     one block per 8 f32 or 4 f64 cells (tensor cores: below):
 //             (B2: update4b at the cells' nodes, the owning cell writes x',
 //             g', d') then the cell operator; writes the masked cell-local
 //             result to scratch (C, n_cells, (P+1)^3).
@@ -37,16 +37,24 @@
 //     metric streamed or rebuilt from the coefficients by either chain.
 //     Under "highest" the dense and twostage operators are one function;
 //     this pass sums it in its own order.
-//   f32 "split2m", dense, p=1..4: the tensor-core pass of apply_mma.cuh in
-//     its lattice forms, 32 cells a block, the metric streamed or rebuilt
-//     (adjj) per chunk of 16 q-points into shared memory.
-//   f32 "split2m", twostage + onthefly (adjj or jtj), p=4: one block per
-//     16 cells, the 2D stage on the tensor cores (cell_mma.cuh).
-//   f32 "split2m", twostage, p=5..11 (the metric rebuilt by either chain
-//     or streamed) and p=4 streamed: one warp per 8 cells and component,
-//     two q-planes of them the rows of the 2D stage's tensor-core tiles
+//   f32 "split2m", "split3", "bf16" (the tensor-core rungs, a template
+//   parameter NP of each pass: the products a tile, mma.cuh; split2m's
+//   instantiated here, the others in mma_rungs.cu and cell_mma_pNN.cu):
+//   - dense, p=1..4: the tensor-core pass of apply_mma.cuh in its lattice
+//     forms, 32 cells a block, the metric streamed or rebuilt (adjj) per
+//     chunk of 16 q-points into shared memory;
+//   - twostage + onthefly (adjj or jtj), p=4: one block per 16 cells, the
+//     2D stage on the tensor cores (cell_mma.cuh);
+//   - twostage, p=5..11 (the metric rebuilt by either chain or streamed)
+//     and p=4 streamed: one warp per 8 cells and component, two q-planes
+//     of them the rows of the 2D stage's tensor-core tiles
 //     (cell_mma_hd.cuh, degrees 5..11 built in cell_mma_p05.cu ..
-//     cell_mma_p11.cu).
+//     cell_mma_p11.cu, once per rung).
+//   Under split3 and bf16 the streamed metric may be bf16, and under bf16
+//   d and h too (the bf16 state, B1/B2's `store`): the passes upcast them
+//   at the load, d' is stored rounded and the operator takes the rounded
+//   d', and the assemble pass rounds h' where it stores it and sums the
+//   stored d' and h' (cg_fused_kernel.py:856, 877).
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -68,52 +76,65 @@
 
 namespace bp4 {
 
-// The cell pass of B1 (FUSED false) or B2 for the configuration (split,
+// The cell pass of B1 (FUSED false) or B2 for the configuration (rung,
 // dense, cofactor, tb.gmetric null or not); each writes the masked
-// cell-local result to cells[(c * n_cells + cell) * P13 + l].  -1: no
-// instantiation (split2m: dense at p <= 4 with adjj, twostage at p >= 4).
+// cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
+// highest, the sum-factorized pass; 1..3: the tensor-core rungs.  -1: no
+// instantiation (the tensor-core rungs: dense at p <= 4 with adjj,
+// twostage at p >= 4).
 template <typename T, int P, bool FUSED>
-cudaError_t launch_cells(int split, int dense, int cofactor,
+cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
                          const CellIo<T>& io, T* cells, cudaStream_t st) {
   constexpr int FORM = FUSED ? kLatticeUpdate : kLattice;
-  if (!split) {
+  if (!rung) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
                           tb.coeffs, nullptr, io,         cells,  cofactor};
     return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
                       : launch_sumfac<T, P, FORM, true>(a, gr, st);
   }
   const auto none = static_cast<cudaError_t>(-1);
-  if constexpr (std::is_same_v<T, float> && P <= 4) {
-    if (dense) {
-      if (cofactor != kAdjj) return none;
-      // the forward table, then the backward one (laplace_cuda.mma_tables)
-      const auto mf = reinterpret_cast<const uint2*>(tb.mats);
-      const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
-      const MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
-      return tb.gmetric
-                 ? launch_mma<P, FORM, false>(mf, mb, tb.gmetric, gr, nullptr,
-                                              io.d, cells, x, st)
-                 : launch_mma<P, FORM, true>(mf, mb, nullptr, gr, nullptr,
-                                             io.d, cells, x, st);
-    }
-  }
-  if constexpr (std::is_same_v<T, float> && P >= 4) {
-    if (dense) return none;
-    if (tb.gmetric)
-      return launch_cells_mma_hd<P, FUSED, false, kAdjj>(tb, gr, io, cells,
-                                                         st);
-    if constexpr (P == 4) {
-      return cofactor == kJtj
-                 ? launch_cells_mma<P, FUSED, kJtj>(tb, gr, io, cells, st)
-                 : launch_cells_mma<P, FUSED, kAdjj>(tb, gr, io, cells, st);
-    } else {
-      return cofactor == kJtj
-                 ? launch_cells_mma_hd<P, FUSED, true, kJtj>(tb, gr, io,
-                                                             cells, st)
-                 : launch_cells_mma_hd<P, FUSED, true, kAdjj>(tb, gr, io,
-                                                              cells, st);
-    }
+  if constexpr (std::is_same_v<T, float>) {
+    return with_rung(rung, [&](auto np) {
+      constexpr int NP = decltype(np)::value;
+      if constexpr (P <= 4) {
+        if (dense) {
+          if (cofactor != kAdjj) return none;
+          // the forward table, then the backward one
+          // (laplace_cuda.mma_tables)
+          const auto mf = reinterpret_cast<const uint2*>(tb.mats);
+          const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
+          MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
+          x.metric_bf16 = tb.metric_bf16;
+          return tb.gmetric ? launch_mma<P, FORM, false, NP>(
+                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
+                                  cells, x, st)
+                            : launch_mma<P, FORM, true, NP>(
+                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
+                                  x, st);
+        }
+      }
+      if constexpr (P >= 4) {
+        if (dense) return none;
+        if (tb.gmetric)
+          return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP>(tb, gr, io,
+                                                                 cells, st);
+        if constexpr (P == 4) {
+          return cofactor == kJtj
+                     ? launch_cells_mma<P, FUSED, kJtj, NP>(tb, gr, io, cells,
+                                                            st)
+                     : launch_cells_mma<P, FUSED, kAdjj, NP>(tb, gr, io,
+                                                             cells, st);
+        } else {
+          return cofactor == kJtj
+                     ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP>(
+                           tb, gr, io, cells, st)
+                     : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP>(
+                           tb, gr, io, cells, st);
+        }
+      }
+      return none;
+    });
   }
   return none;
 }
@@ -158,34 +179,60 @@ __global__ void __launch_bounds__(kNodeThreads)
   }
 }
 
+// The assemble pass of B1 (DOTS false) or B2 with h and d stored at T, or
+// in bf16 (`store`, the bf16 state).
+template <typename T, int P, bool DOTS>
+cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
+                            void* h, const T* g, const void* d,
+                            const T* prec, T* partials, cudaStream_t st) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (store) {
+      assemble_kernel<T, P, DOTS, __nv_bfloat16>
+          <<<node_blocks(gr), kNodeThreads, 0, st>>>(
+              gr, cells, static_cast<__nv_bfloat16*>(h), g,
+              static_cast<const __nv_bfloat16*>(d), prec, partials);
+      return cudaGetLastError();
+    }
+  }
+  if (store) return static_cast<cudaError_t>(-1);
+  assemble_kernel<T, P, DOTS><<<node_blocks(gr), kNodeThreads, 0, st>>>(
+      gr, cells, static_cast<T*>(h), g, static_cast<const T*>(d), prec,
+      partials);
+  return cudaGetLastError();
+}
+
+// store: d and h (d' and h') in bf16, the bf16 state (the bf16 rung only).
 template <typename T, int P>
 struct Launch {
-  static int matvec(int split, int dense, int cofactor,
+  static int matvec(int rung, int dense, int cofactor, int store,
                     const OpTables<T>& tb, const Grid& gr, const T* d,
                     T* cells, T* h, cudaStream_t st) {
+    if (store && rung != 1) return -1;
     CellIo<T> io{};
     io.d = d;
-    cudaError_t e = launch_cells<T, P, false>(split, dense, cofactor, tb, gr,
+    io.bf16 = store;
+    cudaError_t e = launch_cells<T, P, false>(rung, dense, cofactor, tb, gr,
                                               io, cells, st);
     if (e != cudaSuccess) return e;
-    assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-        gr, cells, h, nullptr, nullptr, nullptr, nullptr);
-    return cudaGetLastError();
+    return launch_assemble<T, P, false>(store, gr, cells, h, nullptr, nullptr,
+                                        nullptr, nullptr, st);
   }
 
-  static int fused(int split, int dense, int cofactor,
+  static int fused(int rung, int dense, int cofactor, int store,
                    const OpTables<T>& tb, const Grid& gr, const T* x,
                    const T* g, const T* d, const T* h, const T* prec,
                    const T* scal, T* x2, T* g2, T* d2, T* h2, T* scal2,
                    T* cells, T* partials, cudaStream_t st) {
-    const CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
-    cudaError_t e = launch_cells<T, P, true>(split, dense, cofactor, tb, gr,
+    if (store && rung != 1) return -1;
+    CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
+    io.bf16 = store;
+    cudaError_t e = launch_cells<T, P, true>(rung, dense, cofactor, tb, gr,
                                              io, cells, st);
     if (e != cudaSuccess) return e;
     const int nb = node_blocks(gr);
-    assemble_kernel<T, P, true><<<nb, kNodeThreads, 0, st>>>(
-        gr, cells, h2, g2, d2, prec, partials);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = launch_assemble<T, P, true>(store, gr, cells, h2, g2, d2, prec,
+                                    partials, st);
+    if (e != cudaSuccess) return e;
     finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, scal, scal2);
     return cudaGetLastError();
   }
@@ -194,11 +241,11 @@ struct Launch {
 template <typename T>
 OpTables<T> tables(const void* mats, const void* sz, const void* dz,
                    const void* pds, const void* w3, const void* coeffs,
-                   const void* gmetric) {
+                   const void* gmetric, int metric_bf16) {
   return {static_cast<const T*>(mats),   static_cast<const T*>(sz),
           static_cast<const T*>(dz),     static_cast<const T*>(pds),
           static_cast<const T*>(w3),     static_cast<const T*>(coeffs),
-          static_cast<const T*>(gmetric)};
+          static_cast<const T*>(gmetric), metric_bf16};
 }
 
 }  // namespace bp4
@@ -231,14 +278,17 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
     case 11: return F(T, 11);                            \
   }
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: f32 and f64 "highest"
-// at degrees 1..11 (mats unused, coeffs (24, n_cells)); f32 "split2m"
-// (split = 1): dense at degrees 1..4 with cofactor adjj (dense = 1: mats
-// the bf16 fragment tables of apply_mma.cuh, coeffs (24, n_cells)), and
-// twostage at degrees 4..11 (dense = 0: mats the bf16 fragment tables of
-// the 2D stage, coeffs (n_cells, 24)).  gmetric: the streamed metric
-// (6 Q3, n_cells), or null for the metric rebuilt from the coefficients by
-// the chain `cofactor` (0 adjj, 1 jtj).
+// dtype: 0 = float32, 1 = float64.  rung: 0 "highest", else the products
+// a tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).
+// Instantiated: f32 and f64 "highest" at degrees 1..11 (mats unused,
+// coeffs (24, n_cells)); f32 on the tensor-core rungs: dense at degrees
+// 1..4 with cofactor adjj (dense = 1: mats the bf16 fragment tables of
+// apply_mma.cuh, coeffs (24, n_cells)), and twostage at degrees 4..11
+// (dense = 0: mats the bf16 fragment tables of the 2D stage, coeffs
+// (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), in bf16
+// where metric_bf16 is set (split3, bf16), or null for the metric rebuilt
+// from the coefficients by the chain `cofactor` (0 adjj, 1 jtj).  store:
+// d, h, d2, h2 in bf16 (the bf16 rung only).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {
@@ -249,41 +299,44 @@ const char* bp4_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int bp4_matvec(int dtype, int split, int degree, int dense, int cofactor,
-               const void* mats, const void* sz, const void* dz,
-               const void* pds, const void* w3, const void* coeffs,
-               const void* gmetric, const void* d, void* cells, void* h,
-               int ncz, int ncy, int ncx, void* stream) {
+int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
+               int store, int metric_bf16, const void* mats, const void* sz,
+               const void* dz, const void* pds, const void* w3,
+               const void* coeffs, const void* gmetric, const void* d,
+               void* cells, void* h, int ncz, int ncy, int ncx, void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
-#define BP4_MATVEC(T, P)                                                      \
-  Launch<T, P>::matvec(split, dense, cofactor,                                \
-                       tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric), gr, \
-                       static_cast<const T*>(d), static_cast<T*>(cells),      \
-                       static_cast<T*>(h), st)
+  if (metric_bf16 && rung != 1 && rung != 3) return -1;
+#define BP4_MATVEC(T, P)                                                   \
+  Launch<T, P>::matvec(                                                    \
+      rung, dense, cofactor, store,                                        \
+      tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr, \
+      static_cast<const T*>(d), static_cast<T*>(cells), static_cast<T*>(h), \
+      st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_MATVEC, T)
   if (dtype == 0) BP4_DEGREES(float)
-  if (dtype == 1 && !split) BP4_DEGREES(double)
+  if (dtype == 1 && !rung) BP4_DEGREES(double)
 #undef BP4_DEGREES
 #undef BP4_MATVEC
   return -1;
 }
 
-int bp4_fused_iteration(int dtype, int split, int degree, int dense,
-                        int cofactor, const void* mats, const void* sz,
-                        const void* dz, const void* pds, const void* w3,
-                        const void* coeffs, const void* gmetric,
-                        const void* x, const void* g, const void* d,
-                        const void* h, const void* prec, const void* scal,
-                        void* x2, void* g2, void* d2, void* h2, void* scal2,
-                        void* cells, void* partials, int ncz, int ncy,
-                        int ncx, void* stream) {
+int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
+                        int cofactor, int store, int metric_bf16,
+                        const void* mats, const void* sz, const void* dz,
+                        const void* pds, const void* w3, const void* coeffs,
+                        const void* gmetric, const void* x, const void* g,
+                        const void* d, const void* h, const void* prec,
+                        const void* scal, void* x2, void* g2, void* d2,
+                        void* h2, void* scal2, void* cells, void* partials,
+                        int ncz, int ncy, int ncx, void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
+  if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
   Launch<T, P>::fused(                                                        \
-      split, dense, cofactor,                                                 \
-      tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric), gr,                  \
+      rung, dense, cofactor, store,                                           \
+      tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr,     \
       static_cast<const T*>(x), static_cast<const T*>(g),                     \
       static_cast<const T*>(d), static_cast<const T*>(h),                     \
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
@@ -292,7 +345,7 @@ int bp4_fused_iteration(int dtype, int split, int degree, int dense,
       static_cast<T*>(partials), st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
-  if (dtype == 1 && !split) BP4_DEGREES(double)
+  if (dtype == 1 && !rung) BP4_DEGREES(double)
 #undef BP4_DEGREES
 #undef BP4_FUSED
   return -1;

@@ -11,7 +11,9 @@
 // Which cell pass runs (precision: laplace_pallas._mm):
 //   B3, B5, B6  "highest", f32 or f64, p=1..11: the sum-factorized pass on
 //               the CUDA cores with the metric streamed, apply_sumfac.cuh;
-//               f32 "split2m", p=1..4: the tensor-core pass, apply_mma.cuh;
+//               f32 "split2m", "split3", "bf16", p=1..4: the tensor-core
+//               pass, apply_mma.cuh (split3's and bf16's built in
+//               mma_rungs.cu; their metric may be streamed in bf16);
 //   B4          every rung, exact at the working type as _kernel
 //               (Precision.HIGHEST, :529), p=1..11: the sum-factorized pass
 //               with the metric rebuilt per (cell, q-point) from the 24
@@ -35,18 +37,23 @@
 
 namespace bp4 {
 
-// The cell pass of B3, B5 and B6 (streamed metric): under split (f32 only)
-// the tensor-core pass, whose m0/m1 are apply_mma.cuh's bf16 fragment
-// tables; else the sum-factorized pass, whose m0/m1 are S and D (Q, P1).
+// The cell pass of B3, B5 and B6 (streamed metric): under a tensor-core
+// rung (f32 only; rung = its products a tile, 1..3) the tensor-core pass,
+// whose m0/m1 are apply_mma.cuh's bf16 fragment tables and whose metric is
+// bf16 where metric_bf16 is set (split3, bf16); under highest (rung 0) the
+// sum-factorized pass, whose m0/m1 are S and D (Q, P1).
 template <typename T, int P, bool LATTICE>
-cudaError_t metric_pass(int split, const void* m0, const void* m1,
-                        const void* gmetric, const Grid& gr, const void* mask,
-                        const void* u, void* out, cudaStream_t st) {
+cudaError_t metric_pass(int rung, int metric_bf16, const void* m0,
+                        const void* m1, const void* gmetric, const Grid& gr,
+                        const void* mask, const void* u, void* out,
+                        cudaStream_t st) {
   const auto gm = static_cast<const T*>(gmetric);
   const auto mm = static_cast<const T*>(mask);
   const auto uu = static_cast<const T*>(u);
   const auto oo = static_cast<T*>(out);
-  if (!split) {
+  if (metric_bf16 && rung != 1 && rung != 3)
+    return static_cast<cudaError_t>(-1);
+  if (!rung) {
     SumfacArgs<T> a{static_cast<const T*>(m0), static_cast<const T*>(m1), gm};
     a.mask = mm;
     a.io.d = uu;
@@ -54,9 +61,15 @@ cudaError_t metric_pass(int split, const void* m0, const void* m1,
     return launch_sumfac<T, P, LATTICE ? kLattice : kCellBatch, false>(a, gr,
                                                                        st);
   }
-  if constexpr (std::is_same_v<T, float> && P <= 4)
-    return launch_mma<P, LATTICE ? kLattice : kCellBatch, false>(
-        m0, m1, gm, gr, mm, uu, oo, MmaFusedArgs{}, st);
+  if constexpr (std::is_same_v<T, float> && P <= 4) {
+    return with_rung(rung, [&](auto np) {
+      MmaFusedArgs x{};
+      x.metric_bf16 = metric_bf16;
+      return launch_mma<P, LATTICE ? kLattice : kCellBatch, false,
+                        decltype(np)::value>(m0, m1, gm, gr, mm, uu, oo, x,
+                                             st);
+    });
+  }
   return static_cast<cudaError_t>(-1);
 }
 
@@ -78,23 +91,25 @@ cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
 // B3 (metric streamed) and B4 (onthefly) on a cell batch (C P13, n_cells).
 // mats/kmats: the tables of metric_pass (B3); S and D (B4).
 template <int P>
-int batched_for_degree(int dtype, int split, int onthefly, const void* mats,
-                       const void* kmats, const void* gmetric, const void* pds,
-                       const void* w3, const void* coeffs, const void* u,
-                       void* v, int n_cells, cudaStream_t st) {
+int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
+                       const void* mats, const void* kmats,
+                       const void* gmetric, const void* pds, const void* w3,
+                       const void* coeffs, const void* u, void* v,
+                       int n_cells, cudaStream_t st) {
   const Grid gr{1, 1, n_cells, 1, 1, 1};
   if (dtype == 0)
     return onthefly  // B4 is exact on every rung
                ? rebuilt_pass<float, P>(mats, kmats, pds, w3, coeffs, gr, u, v,
                                         st)
-               : metric_pass<float, P, false>(split, mats, kmats, gmetric, gr,
-                                              nullptr, u, v, st);
+               : metric_pass<float, P, false>(rung, metric_bf16, mats, kmats,
+                                              gmetric, gr, nullptr, u, v, st);
   if (dtype == 1)
     return onthefly
                ? rebuilt_pass<double, P>(mats, kmats, pds, w3, coeffs, gr, u,
                                          v, st)
-               : metric_pass<double, P, false>(split, mats, kmats, gmetric,
-                                               gr, nullptr, u, v, st);
+               : metric_pass<double, P, false>(rung, metric_bf16, mats, kmats,
+                                               gmetric, gr, nullptr, u, v,
+                                               st);
   return -1;
 }
 
@@ -102,40 +117,45 @@ int batched_for_degree(int dtype, int split, int onthefly, const void* mats,
 // tensor) on the lattice: the cell pass into the scratch `cells`, then the
 // assemble pass.  mats/kmats: the tables of metric_pass.
 template <typename T, int P>
-int lattice_typed(int split, const void* mats, const void* kmats,
-                  const void* gmetric, const void* mask, const void* u,
-                  void* cells, void* v, const Grid& gr, cudaStream_t st) {
-  const cudaError_t e = metric_pass<T, P, true>(split, mats, kmats, gmetric,
-                                                gr, mask, u, cells, st);
+int lattice_typed(int rung, int metric_bf16, const void* mats,
+                  const void* kmats, const void* gmetric, const void* mask,
+                  const void* u, void* cells, void* v, const Grid& gr,
+                  cudaStream_t st) {
+  const cudaError_t e = metric_pass<T, P, true>(
+      rung, metric_bf16, mats, kmats, gmetric, gr, mask, u, cells, st);
   if (e != cudaSuccess) return e;
-  assemble_kernel<T, P, false><<<node_blocks(gr), kNodeThreads, 0, st>>>(
+  assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
       gr, static_cast<const T*>(cells), static_cast<T*>(v), nullptr, nullptr,
       nullptr, nullptr);
   return cudaGetLastError();
 }
 
 template <int P>
-int lattice_for_degree(int dtype, int split, const void* mats,
-                       const void* kmats, const void* gmetric,
-                       const void* mask, const void* u, void* cells, void* v,
-                       const Grid& gr, cudaStream_t st) {
+int lattice_for_degree(int dtype, int rung, int metric_bf16,
+                       const void* mats, const void* kmats,
+                       const void* gmetric, const void* mask, const void* u,
+                       void* cells, void* v, const Grid& gr,
+                       cudaStream_t st) {
   if (dtype == 0)
-    return lattice_typed<float, P>(split, mats, kmats, gmetric, mask, u,
-                                   cells, v, gr, st);
+    return lattice_typed<float, P>(rung, metric_bf16, mats, kmats, gmetric,
+                                   mask, u, cells, v, gr, st);
   if (dtype == 1)
-    return lattice_typed<double, P>(split, mats, kmats, gmetric, mask, u,
-                                    cells, v, gr, st);
+    return lattice_typed<double, P>(rung, metric_bf16, mats, kmats, gmetric,
+                                    mask, u, cells, v, gr, st);
   return -1;
 }
 
 }  // namespace bp4
 
-// dtype: 0 = float32, 1 = float64.  Instantiated: "highest" f32 and f64 at
-// degrees 1..11 (B3, B5, B6: the sum-factorized pass, mats = S, kmats =
-// D), f32 split2m at degrees 1..4 (B3, B5, B6: the tensor-core pass,
-// mats/kmats = its fragment tables); B4 (onthefly: the sum-factorized pass,
-// mats = S, kmats = D, pds (Q3, 24), w3, coeffs (24, n_cells)) at degrees
-// 1..11 ignores split.
+// dtype: 0 = float32, 1 = float64.  rung: 0 "highest", else the products a
+// tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).  Instantiated:
+// "highest" f32 and f64 at degrees 1..11 (B3, B5, B6: the sum-factorized
+// pass, mats = S, kmats = D), the f32 tensor-core rungs at degrees 1..4
+// (B3, B5, B6: the tensor-core pass, mats/kmats = its forward and backward
+// fragment tables, split3's Ml tables after them; the metric in bf16 where
+// metric_bf16 is set, split3 and bf16 only); B4 (onthefly: the
+// sum-factorized pass, mats = S, kmats = D, pds (Q3, 24), w3, coeffs (24,
+// n_cells)) at degrees 1..11 ignores the rung.
 #define BP4_SWITCH_DEGREE(F)     \
   switch (degree) {              \
     case 1: return F(1);         \
@@ -153,29 +173,31 @@ int lattice_for_degree(int dtype, int split, const void* mats,
 
 extern "C" {
 
-int bp4_apply_batched(int dtype, int split, int degree, int onthefly,
-                      const void* mats, const void* kmats, const void* gmetric,
-                      const void* pds, const void* w3, const void* coeffs,
-                      const void* u, void* v, int n_cells, void* stream) {
+int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
+                      int metric_bf16, const void* mats, const void* kmats,
+                      const void* gmetric, const void* pds, const void* w3,
+                      const void* coeffs, const void* u, void* v, int n_cells,
+                      void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define BP4_BATCHED(P)                                                       \
-  bp4::batched_for_degree<P>(dtype, split, onthefly, mats, kmats, gmetric,   \
-                             pds, w3, coeffs, u, v, n_cells, st)
+#define BP4_BATCHED(P)                                                      \
+  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16, mats,      \
+                             kmats, gmetric, pds, w3, coeffs, u, v, n_cells, \
+                             st)
   BP4_SWITCH_DEGREE(BP4_BATCHED)
 #undef BP4_BATCHED
   return -1;
 }
 
-int bp4_apply_lattice(int dtype, int split, int degree, const void* mats,
-                      const void* kmats, const void* gmetric, const void* mask,
-                      const void* u, void* cells, void* v, int ncz, int ncy,
-                      int ncx, void* stream) {
+int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
+                      const void* mats, const void* kmats, const void* gmetric,
+                      const void* mask, const void* u, void* cells, void* v,
+                      int ncz, int ncy, int ncx, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bp4::Grid gr{ncz, ncy, ncx, degree * ncz + 1, degree * ncy + 1,
                      degree * ncx + 1};
-#define BP4_LATTICE(P)                                                       \
-  bp4::lattice_for_degree<P>(dtype, split, mats, kmats, gmetric, mask, u,    \
-                             cells, v, gr, st)
+#define BP4_LATTICE(P)                                                      \
+  bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, mats, kmats, gmetric, \
+                             mask, u, cells, v, gr, st)
   BP4_SWITCH_DEGREE(BP4_LATTICE)
 #undef BP4_LATTICE
   return -1;

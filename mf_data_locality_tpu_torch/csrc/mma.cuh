@@ -1,7 +1,15 @@
-// The two tensor-core primitives of the split2m cell passes (apply_mma.cuh:
-// B3, B5, B6; cell_mma.cuh: B1, B2): one mma.sync m16n8k16 with bf16
+// The tensor-core primitives of the cell passes of the rungs split2m,
+// split3 and bf16 (apply_mma.cuh: B3, B5, B6, B1/B2 dense; cell_mma.cuh,
+// cell_mma_hd.cuh: B1, B2 twostage): one mma.sync m16n8k16 with bf16
 // operands and f32 accumulation, and the split of f32 values into their
-// bf16 hi/lo stream parts.
+// bf16 stream parts.
+//
+// A rung is its number of products a tile, NP (laplace_pallas._mm,
+// cg_fused_kernel._prestack / _stream_parts), with Mh = bf16(M), Ml =
+// bf16(M - Mh), xh = bf16(x), xl = bf16(x - xh), all f32-accumulated:
+//   NP = 1  bf16     xh Mh
+//   NP = 2  split2m  xh Mh + xl Mh
+//   NP = 3  split3   xh Mh + xl Mh + xh Ml  (the lo.lo product dropped)
 
 #pragma once
 
@@ -33,4 +41,17 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// The stream parts of a rung with NP products: hi and lo as split_pair
+// gives them; the bf16 rung (NP = 1) rounds to hi only (lo = 0, unused).
+template <int NP>
+__device__ __forceinline__ void stream_parts(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  if constexpr (NP == 1) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = 0u;
+  } else {
+    split_pair(x0, x1, hi, lo);
+  }
+}
 }  // namespace bp4

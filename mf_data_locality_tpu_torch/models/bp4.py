@@ -37,8 +37,8 @@ from mf_data_locality_tpu_torch.solvers.cg import SolveResult
 class BP4Problem:
     layout: DofLayout
     op: OperatorData
-    inv_diag: torch.Tensor  # (1, n_nodes)
-    b: torch.Tensor         # (C, n_nodes)
+    inv_diag: torch.Tensor  # (1, n_nodes); bf16 for a bf16 state
+    b: torch.Tensor         # (C, n_nodes); bf16 for a bf16 state
     n_components: int
 
     @property
@@ -85,7 +85,8 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
           precision: str = "highest", factor: str = "dense",
           metric: str = "precomputed", cofactor: str = "adjj",
           device: torch.device | str = "cuda",
-          windowing: str = "reshape") -> BP4Problem:
+          windowing: str = "reshape",
+          metric_dtype: torch.dtype | None = None) -> BP4Problem:
     """BP4 on 2**s cells at ``degree``; every array on ``device``.
 
     The defaults are the JAX ``bp4.build``'s: the apply family's exact
@@ -98,17 +99,22 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     ``cofactor`` "adjj" or "jtj".  With jtj the build raises ValueError
     unless det J > 0 at every quadrature point: jtj scales by |det J|, adjj
     by det J (``laplace_cuda.check_orientation``; the JAX package does not
-    check).
+    check).  ``dtype=torch.bfloat16`` (the fused solver under the ``bf16``
+    rung, ``windowing="pieces"``) keeps the operator's tables in f32 and
+    stores b and the preconditioner in bf16, the preconditioner rounded
+    from f32 as the JAX ``bp4.build`` does; ``metric_dtype=torch.bfloat16``
+    streams the metric in bf16 (``split3``, ``bf16``).
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     op = laplace_cuda.make_operator(layout, dtype=dtype, precision=precision,
                                     factor=factor, metric=metric,
                                     cofactor=cofactor, device=device,
-                                    windowing=windowing)
-    inv_diag = diagonal.compute_inverse_diagonal(layout)
+                                    windowing=windowing,
+                                    metric_dtype=metric_dtype)
+    inv_diag = torch.as_tensor(diagonal.compute_inverse_diagonal(layout))
     return BP4Problem(
         layout, op,
-        torch.as_tensor(inv_diag[None, :]).to(device=device, dtype=dtype),
+        inv_diag[None, :].to(op.dtype).to(device=device, dtype=dtype),
         torch.as_tensor(rhs(layout)).to(device=device, dtype=dtype)
         .contiguous(), 3)
 
@@ -122,7 +128,8 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
                     factor: str = "twostage", windowing: str = "pieces",
                     cofactor: str = "adjj", precision: str = "split2m",
                     dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cuda") -> BP4Problem:
+                    device: torch.device | str = "cuda",
+                    metric_dtype: torch.dtype | None = None) -> BP4Problem:
     """The port's problem from the JAX package's arrays, passed as numpy.
 
     Takes the arrays of a ``BP4Problem`` / ``PallasOperatorData`` built with
@@ -136,7 +143,10 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     undone.  Matrices not given are built from ``degree``.  ``factor``
     and ``cofactor`` are the JAX operator's: a fused operator built dense
     carries its ``mats`` (and ``gmetric`` if streamed) across; jtj needs
-    det J > 0 at every quadrature point, as in :func:`build`.
+    det J > 0 at every quadrature point, as in :func:`build`.  bf16 arrays
+    (a bf16 ``gmetric``; ``b`` and ``inv_diag`` of a bf16 state) are
+    carried bit for bit (``laplace_cuda.host_tensor``); ``metric_dtype``
+    defaults to ``gmetric``'s when that is bf16.
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     nc = layout.mesh.n_cells
@@ -149,6 +159,10 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
         out[:, perm] = a
         return out
 
+    if gmetric is not None and metric_dtype is None and np.asarray(
+            gmetric).dtype.name == "bfloat16":
+        metric_dtype = torch.bfloat16
+
     op = laplace_cuda.operator_from_arrays(
         pds, w3, np.asarray(coeffs)[:, :, :nc], mask, degree,
         layout.mesh.n_cells_axis, precision, dtype, device,
@@ -156,18 +170,27 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
         mats=canonical(mats, piece_perm(degree)),
         gmetric=(None if gmetric is None else
                  np.asarray(gmetric).reshape(6 * q ** 3, -1)[:, :nc]),
-        factor=factor, windowing=windowing, cofactor=cofactor)
+        factor=factor, windowing=windowing, cofactor=cofactor,
+        metric_dtype=metric_dtype)
+    host = laplace_cuda.host_tensor
     return BP4Problem(
-        layout, op,
-        torch.tensor(np.asarray(inv_diag)).to(device=device, dtype=dtype),
-        torch.tensor(np.ascontiguousarray(b)).to(device=device, dtype=dtype),
+        layout, op, host(inv_diag).to(device=device, dtype=dtype),
+        host(b).contiguous().to(device=device, dtype=dtype),
         int(np.asarray(b).shape[0]))
+
+
+def _host_loop_state(problem: BP4Problem) -> None:
+    if problem.b.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"the merged and baseline solvers with a bf16 state are "
+            f"{laplace_cuda._BF16_STATE_TODO}")
 
 
 def solve_baseline(problem: BP4Problem, max_iter: int = 100,
                    rel_tol: float = 1e-8) -> SolveResult:
     """Textbook PCG with the full vmult (constrained identity), as the
     reference's ``benchmark_precond``."""
+    _host_loop_state(problem)
     return cg.cg_solve(problem.a_apply_full, problem.b, problem.inv_diag,
                        max_iter=max_iter, rel_tol=rel_tol)
 
@@ -176,6 +199,7 @@ def solve_merged(problem: BP4Problem, max_iter: int = 100,
                  rel_tol: float = 1e-8) -> SolveResult:
     """Fully merged CG; the operator without the constrained-identity
     fixup, as ``vmult_with_merged_sums`` (poisson_operator.h:327-377)."""
+    _host_loop_state(problem)
     return cg_merged.merged_cg_solve(problem.a_apply, problem.b,
                                      problem.inv_diag, max_iter=max_iter,
                                      rel_tol=rel_tol)

@@ -2,9 +2,10 @@
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
 sources at once in parallel processes (the sum-factorized pass and the
-split2m twostage tensor-core pass of each degree 5..11 have a source of
-their own, ``sumfac_pNN.cu`` and ``cell_mma_pNN.cu``, the largest
-instantiations), and links them into one shared
+twostage tensor-core pass of each degree 5..11 have a source of their
+own, ``sumfac_pNN.cu`` and ``cell_mma_pNN.cu``, the largest
+instantiations; the tensor-core sources of :data:`RUNG_BUILDS` are
+compiled once per rung, ``-DBP4_RUNG=n``), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
 the package, under a name keyed by a hash of the sources and flags, so a
@@ -20,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,17 +31,27 @@ BUILD_DIR = _PKG / "_kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# sources compiled once per rung, -DBP4_RUNG=n with n the products a tile
+# (1 bf16, 2 split2m, 3 split3), so that nvcc builds the rungs in parallel:
+# the twostage tensor-core pass at p=5..11 on every rung, and the
+# tensor-core passes at p <= 4 on the rungs other than split2m (whose
+# instantiations stay in cg_fused.cu and laplace_apply.cu)
+RUNG_BUILDS = {"mma_rungs.cu": (1, 3),
+               **{f"cell_mma_p{p:02d}.cu": (1, 2, 3) for p in range(5, 12)}}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "bp4_partials_len": (_I, [_I] * 4),
     "bp4_error_string": (ctypes.c_char_p, [_I]),
-    # dtype, split, degree, dense, cofactor; the tables and vectors; the
-    # cells per axis; the stream
-    "bp4_matvec": (_I, [_I] * 5 + [_P] * 10 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 5 + [_P] * 20 + [_I] * 3 + [_P]),
-    "bp4_apply_batched": (_I, [_I] * 4 + [_P] * 8 + [_I] + [_P]),
-    "bp4_apply_lattice": (_I, [_I] * 3 + [_P] * 7 + [_I] * 3 + [_P]),
+    # dtype, rung, degree, dense, cofactor, bf16 state, bf16 metric; the
+    # tables and vectors; the cells per axis; the stream
+    "bp4_matvec": (_I, [_I] * 7 + [_P] * 10 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 7 + [_P] * 20 + [_I] * 3 + [_P]),
+    # dtype, rung, degree, onthefly, bf16 metric; ...
+    "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 8 + [_I] + [_P]),
+    # dtype, rung, bf16 metric, degree; ...
+    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 
@@ -64,6 +77,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(RUNG_BUILDS.items())).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -75,7 +89,8 @@ def build() -> tuple[Path, str]:
 
     Returns (library path, compiler output — empty when the library was
     already built).  The output includes ``-Xptxas -v``'s per-kernel
-    register and shared-memory report.
+    register and shared-memory report and, per compile, a line ``nvcc:
+    <source> [-DBP4_RUNG=n] <seconds> s``.
     """
     lib = library_path()
     if lib.exists():
@@ -83,17 +98,28 @@ def build() -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{lib.stem}.{os.getpid()}"
-    objs, procs = [], []
+    objs, procs, names = [], [], []
+    t0 = time.perf_counter()
     for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = [proc.communicate()[0] for proc in procs]
-    log = "".join(logs)
+        for rung in RUNG_BUILDS.get(src.name, (None,)):
+            flags = () if rung is None else (f"-DBP4_RUNG={rung}",)
+            obj = BUILD_DIR / f"{tag}.{src.stem}{rung or ''}.o"
+            objs.append(obj)
+            names.append(" ".join((src.name, *flags)))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def finish(i):  # (output, seconds from the start to this compile's end)
+        out = procs[i].communicate()[0]
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        ends = list(pool.map(finish, range(len(procs))))
+    log = "".join(f"{out}nvcc: {name} {t:.1f} s\n"
+                  for name, (out, t) in zip(names, ends))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    failed = [p.args[-3] for p in procs if p.returncode != 0]
+    failed = [n for n, p in zip(names, procs) if p.returncode != 0]
     if not failed:
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
                                *map(str, objs)], capture_output=True,

@@ -16,7 +16,9 @@ The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
 ``op.cofactor``; ``laplace_cuda.fused_configs``): the dense factorization
 or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
 from the coefficients by the adjj or the jtj chain, at degrees 1..11
-(split2m: dense at 1..4 with adjj, twostage at 4..11).  Each wrapper runs
+(the tensor-core rungs split2m, split3, bf16: dense at 1..4 with adjj,
+twostage at 4..11).  Under bf16, d and h (in and out) may be stored in
+bf16 — the bf16 state —, x, g, the preconditioner and the scalars at f32.  Each wrapper runs
 the hand-written CUDA
 kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
 PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
@@ -27,20 +29,21 @@ for tensors on the CPU; other devices raise.  The kernel's cell pass:
   ``csrc/sumfac_p05.cu`` .. ``sumfac_p11.cu``), the metric streamed or
   rebuilt from ``op.coeffs`` — the dense and twostage operators are one
   function, which it sums in another order than the plain versions;
-* f32 ``split2m``, dense: the tensor-core pass of ``csrc/apply_mma.cuh`` on
-  the bf16 tables ``op.mma_mats`` of the dense M, the metric streamed or
-  rebuilt;
-* f32 ``split2m``, twostage + onthefly at p=4: the tensor-core pass of
+* f32 ``split2m``, ``split3``, ``bf16`` (the rung a template parameter
+  of each tensor-core pass, its products a tile), dense: the tensor-core
+  pass of ``csrc/apply_mma.cuh`` on the bf16 tables ``op.mma_mats`` of
+  the dense M, the metric streamed or rebuilt;
+* the same rungs, twostage + onthefly at p=4: the tensor-core pass of
   ``csrc/cell_mma.cuh`` on the 2D stage's tables;
-* f32 ``split2m``, twostage at p=5..11 (either metric, either chain) and
+* the same rungs, twostage at p=5..11 (either metric, either chain) and
   at p=4 with the streamed metric: the tensor-core pass of
   ``csrc/cell_mma_hd.cuh`` on the same tables, two q-planes of 8 cells the
-  rows of its tiles (built one source a degree, ``csrc/cell_mma_p05.cu``
-  .. ``cell_mma_p11.cu``).
+  rows of its tiles (built one source a degree and rung,
+  ``csrc/cell_mma_p05.cu`` .. ``cell_mma_p11.cu``).
 
 The plain versions do the same arithmetic — the same bf16 rounding points
-for ``split2m``, the same masking — with einsum over cells, in another
-summation order.  ``matvec.launches`` and ``fused_cg_iteration.launches``
+for the tensor-core rungs (:func:`_terms`) and the bf16 state, the same
+masking — with einsum over cells, in another summation order.  ``matvec.launches`` and ``fused_cg_iteration.launches``
 count kernel launches (not plain calls).
 """
 
@@ -58,12 +61,49 @@ N_COMPONENTS = 3
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _parts(t: torch.Tensor, split: bool) -> tuple[torch.Tensor, ...]:
-    """Stream parts: (t,) or its bf16 hi/lo pair (``_stream_parts``)."""
-    if not split:
-        return (t,)
-    hi = t.to(torch.bfloat16).to(t.dtype)
-    return hi, (t - hi).to(torch.bfloat16).to(t.dtype)
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, held at its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _terms(m: torch.Tensor, x: torch.Tensor,
+           precision: str) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The (matrix part, stream part) pairs whose products, summed, are one
+    product of ``m`` with the stream ``x`` at ``precision``
+    (``laplace_pallas._mm``; ``cg_fused_kernel._prestack`` /
+    ``_stream_parts``): highest m x; bf16 Mh xh; split2m Mh xh + Mh xl;
+    split3 Mh xh + Ml xh + Mh xl, with Mh = bf16(m), Ml = bf16(m - Mh),
+    xh = bf16(x), xl = bf16(x - xh)."""
+    if precision == "highest":
+        return [(m, x)]
+    mh, xh = _bf16(m), _bf16(x)
+    if precision == "bf16":
+        return [(mh, xh)]
+    xl = _bf16(x - xh)
+    if precision == "split2m":
+        return [(mh, xh), (mh, xl)]
+    return [(mh, xh), (_bf16(m - mh), xh), (mh, xl)]
+
+
+def _mma_terms(tables, x: torch.Tensor, precision: str,
+               back: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """A tensor-core pass's product at ``precision`` K-stacked, as its
+    kernels issue the mma tiles: (the stream parts concatenated along the
+    last axis, the matrix parts stacked to match).  ``tables``: the
+    (forward's, backward's) padded bf16 matrices of each matrix part
+    (``laplace_cuda.unpack_mma_tables``), Mh first; ``back``: the
+    backward's (stacked along rows) rather than the forward's (along
+    columns).  The products: xh Mh, then xl Mh (split2m, split3), then xh
+    Ml (split3)."""
+    xh = _bf16(x)
+    parts = [(xh, 0)]
+    if precision != "bf16":
+        parts.append((_bf16(x - xh), 0))
+    if precision == "split3":
+        parts.append((xh, 1))
+    mats = [tables[k][1 if back else 0].to(x.dtype) for _, k in parts]
+    return (torch.cat([p for p, _ in parts], -1),
+            torch.cat(mats, 0) if back else torch.cat(mats, 1))
 
 
 def metric_onthefly(op: OperatorData,
@@ -102,10 +142,12 @@ def metric_onthefly(op: OperatorData,
 
 def cell_metric(op: OperatorData) -> torch.Tensor:
     """(6, n_cells, q^3) metric entries of ``op``: the streamed
-    ``op.gmetric``, or rebuilt from the coefficients."""
+    ``op.gmetric`` (upcast from its storage dtype), or rebuilt from the
+    coefficients."""
     if op.gmetric is None:
         return metric_onthefly(op)
-    return op.gmetric.reshape(6, op.n_q ** 3, op.n_cells).transpose(1, 2)
+    return op.gmetric.to(op.dtype).reshape(6, op.n_q ** 3,
+                                           op.n_cells).transpose(1, 2)
 
 
 def _cells(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
@@ -132,47 +174,52 @@ def _on_batch(op: OperatorData, u: torch.Tensor, apply) -> torch.Tensor:
 def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     """Cell-local operator in ``op.factor``'s form: (C, Nz, Ny, Nx) -> (C,
     n_cells, p1, p1^2).  Dense: ``laplace_apply._batched_plain`` on the
-    cells; twostage: the z stage by S and D, then the 2D matrices."""
+    cells; twostage: the z stage by S and D, then the 2D matrices, each
+    product at ``op.precision`` (:func:`_terms`)."""
     # laplace_apply imports this module, so it is imported here
     from mf_data_locality_tpu_torch.ops import laplace_apply
 
-    split = op.precision == "split2m"
+    rung = op.precision
     if op.factor == "dense":
         return _on_batch(op, u, lambda b, G: laplace_apply._batched_plain(
-            op, b, G, split))
+            op, b, G, True))
     q = op.n_q
     q2 = q * q
     cells = _cells(op, u)                                   # (C, n, kz, k2)
     uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
     uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
     mxy, mz = op.mats2d[:2 * q2], op.mats2d[2 * q2:]
-    gxy = sum(torch.einsum("sr,cnqr->cnqs", mxy, b) for b in _parts(uS, split))
-    gz = sum(torch.einsum("sr,cnqr->cnqs", mz, b) for b in _parts(uD, split))
+    gxy = sum(torch.einsum("sr,cnqr->cnqs", a, b)
+              for a, b in _terms(mxy, uS, rung))
+    gz = sum(torch.einsum("sr,cnqr->cnqs", a, b)
+             for a, b in _terms(mz, uD, rung))
     gx, gy = gxy[..., :q2], gxy[..., q2:]
     G = cell_metric(op).reshape(6, 1, op.n_cells, q, q2)
     t0 = G[0] * gx + G[1] * gy + G[2] * gz
     t1 = G[1] * gx + G[3] * gy + G[4] * gz
     t2 = G[2] * gx + G[4] * gy + G[5] * gz
     t01 = torch.cat([t0, t1], dim=-1)
-    w1 = sum(torch.einsum("sr,cnqs->cnqr", mxy, b) for b in _parts(t01, split))
-    w2 = sum(torch.einsum("sr,cnqs->cnqr", mz, b) for b in _parts(t2, split))
+    w1 = sum(torch.einsum("sr,cnqs->cnqr", a, b)
+             for a, b in _terms(mxy, t01, rung))
+    w2 = sum(torch.einsum("sr,cnqs->cnqr", a, b)
+             for a, b in _terms(mz, t2, rung))
     return (torch.einsum("qk,cnqr->cnkr", op.sz, w1)
             + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
 
 
 def _cell_apply_mma_emulated(op: OperatorData,
                              u: torch.Tensor) -> torch.Tensor:
-    """The split2m tensor-core cell passes' arithmetic in plain PyTorch, for
-    the tests.  Dense (``csrc/apply_mma.cuh`` in its lattice forms):
+    """The tensor-core cell passes' arithmetic in plain PyTorch, for the
+    tests.  Dense (``csrc/apply_mma.cuh`` in its lattice forms):
     ``laplace_apply._batched_mma_emulated`` on the cells with the streamed
     or rebuilt metric.  Twostage (``csrc/cell_mma.cuh`` at p=4,
     ``csrc/cell_mma_hd.cuh``): the 2D matrices from their packed bf16
     tables, (ky, kx) columns and q^2 rows zero-padded, the q-planes padded
     to pairs (the rows of ``cell_mma_hd.cuh``'s tiles: the padded plane has
     zero z factors and G = 0), the f32 z stage unrounded, the K-stacked
-    products [Mh | Mh] [uh; ul] and, after the metric apply, [Mh | Mh]^T
-    [th; tl] in f32, then the z stage back, plane after plane.  Same result
-    shape as :func:`_cell_apply`."""
+    products of the rung (:func:`_mma_terms`; split2m [uh | ul] [Mh; Mh])
+    and, after the metric apply, those of t in f32, then the z stage back,
+    plane after plane.  Same result shape as :func:`_cell_apply`."""
     if op.factor == "dense":
         from mf_data_locality_tpu_torch.ops import laplace_apply
 
@@ -181,19 +228,21 @@ def _cell_apply_mma_emulated(op: OperatorData,
     p, q = op.degree, op.n_q
     p1, q2, qe = p + 1, q * q, q + q % 2
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
-    mf, mb = (m.to(op.dtype) for m in laplace_cuda.unpack_mma_tables(
-        op.mma_mats, p, "twostage"))
+    tables = mma_parts(op)
     cells = torch.nn.functional.pad(_cells(op, u), (0, p12p - p1 * p1))
     sz, dz = (torch.nn.functional.pad(m, (0, 0, 0, qe - q))
               for m in (op.sz, op.dz))
     uS = torch.einsum("qk,cnkr->cnqr", sz, cells)
     uD = torch.einsum("qk,cnkr->cnqr", dz, cells)
 
-    def fwd(m, b):  # (rows, p12p) x (..., p12p), K-stacked hi/lo
-        return torch.cat(_parts(b, True), -1) @ torch.cat([m, m], 1).t()
+    def fwd(rows, b):  # (rows, p12p) x (..., p12p), K-stacked parts
+        x, m = _mma_terms([(f[rows], bk) for f, bk in tables], b,
+                          op.precision, back=False)
+        return x @ m.t()
 
-    gxy = fwd(mf[:2 * q2p], uS)
-    gx, gy, gz = gxy[..., :q2p], gxy[..., q2p:], fwd(mf[2 * q2p:], uD)
+    gxy = fwd(slice(0, 2 * q2p), uS)
+    gx, gy = gxy[..., :q2p], gxy[..., q2p:]
+    gz = fwd(slice(2 * q2p, None), uD)
     G = torch.nn.functional.pad(
         cell_metric(op).reshape(6, 1, op.n_cells, q, q2),
         (0, q2p - q2, 0, qe - q))
@@ -201,16 +250,26 @@ def _cell_apply_mma_emulated(op: OperatorData,
     t1 = G[1] * gx + G[3] * gy + G[4] * gz
     t2 = G[2] * gx + G[4] * gy + G[5] * gz
 
-    def bwd(m, b):  # (rows, p12p)^T x (..., rows), K-stacked hi/lo
-        return torch.cat(_parts(b, True), -1) @ torch.cat([m, m], 0)
+    def bwd(rows, b):  # (rows, p12p)^T x (..., rows), K-stacked parts
+        x, m = _mma_terms([(f, bk[rows]) for f, bk in tables], b,
+                          op.precision, back=True)
+        return x @ m
 
-    w1 = bwd(mb[:2 * q2p], torch.cat([t0, t1], -1))[..., :p1 * p1]
-    w2 = bwd(mb[2 * q2p:], t2)[..., :p1 * p1]
+    w1 = bwd(slice(0, 2 * q2p), torch.cat([t0, t1], -1))[..., :p1 * p1]
+    w2 = bwd(slice(2 * q2p, None), t2)[..., :p1 * p1]
     v = w1.new_zeros(w1.shape[:2] + (p1, p1 * p1))
     for qz in range(q):  # the planes in order, as the kernels add them
         v = v + (sz[qz, :, None] * w1[:, :, qz, None]
                  + dz[qz, :, None] * w2[:, :, qz, None])
     return v
+
+
+def mma_parts(op: OperatorData) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The (forward's, backward's) padded bf16 matrices of each matrix part
+    that ``op.mma_mats`` packs (Mh; under split3 also Ml)."""
+    return [laplace_cuda.unpack_mma_tables(op.mma_mats, op.degree, op.factor,
+                                           part)
+            for part in range(op.mma_mats.shape[0] // 2)]
 
 
 def _cell_apply_sumfac_emulated(op: OperatorData,
@@ -245,8 +304,10 @@ def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
 def _matvec_plain(op: OperatorData, d: torch.Tensor,
                   cell_apply=_cell_apply) -> torch.Tensor:
     """h = M A M d; ``cell_apply`` the cell pass (the tests pass the
-    kernels' emulations)."""
-    return _assemble(op, cell_apply(op, d * op.mask)) * op.mask
+    kernels' emulations).  A bf16 d (the bf16 state) is applied at the
+    working dtype and h rounded to bf16."""
+    h = _assemble(op, cell_apply(op, d.to(op.dtype) * op.mask)) * op.mask
+    return h.to(d.dtype)
 
 
 def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
@@ -273,15 +334,23 @@ def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
 
 def _fused_iteration_plain(op, x, g, d, h, scal, prec,
                            cell_apply=_cell_apply):
+    """One merged-CG iteration.  With d and h in bf16 (the bf16 state;
+    x, g, prec and scal at the working dtype) every value is computed at
+    the working dtype and rounded where it is stored, as the TPU kernel
+    does (``cg_fused_kernel.py:856, 877``): the operator takes the stored
+    d', and the sums read the stored d' and h'."""
     alpha, beta, c1, aob = scal[0], scal[1], scal[2], scal[3]
+    store = d.dtype
+    d, h = d.to(g.dtype), h.to(g.dtype)
     g2 = g + alpha * h
-    d2 = beta * d - prec * g2
+    d2 = (beta * d - prec * g2).to(store)
     x2 = x + c1 * d + aob * (prec * g)
     h2 = _matvec_plain(op, d2, cell_apply)
-    ph, pg = prec * h2, prec * g2
-    s = torch.stack([torch.sum(d2 * h2), torch.sum(h2 * h2),
-                     torch.sum(g2 * h2), torch.sum(g2 * g2),
-                     torch.sum(g2 * ph), torch.sum(h2 * ph),
+    d2a, h2a = d2.to(g.dtype), h2.to(g.dtype)
+    ph, pg = prec * h2a, prec * g2
+    s = torch.stack([torch.sum(d2a * h2a), torch.sum(h2a * h2a),
+                     torch.sum(g2 * h2a), torch.sum(g2 * g2),
+                     torch.sum(g2 * ph), torch.sum(h2a * ph),
                      torch.sum(g2 * pg), torch.zeros((), dtype=g.dtype,
                                                      device=g.device)])
     return x2, g2, d2, h2, scalar_recurrence(s, alpha, beta, scal[4])
@@ -324,8 +393,20 @@ def check_tensors(op: OperatorData, degrees, pairs) -> None:
                 f"{t.device}")
 
 
-def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
-    want = [(v, (N_COMPONENTS,) + op.n_nodes_axis) for v in vectors]
+def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
+                scals=()) -> None:
+    """Check the operator's tables and the vectors for the kernels:
+    ``vectors`` at the working dtype, ``state`` (d and h, in and out) at
+    the state's storage dtype, which must be the working dtype or, under
+    the ``bf16`` rung, bf16."""
+    lat = (N_COMPONENTS,) + op.n_nodes_axis
+    store = (torch.bfloat16 if state and state[0].dtype == torch.bfloat16
+             else op.dtype)
+    if store == torch.bfloat16 and op.precision != "bf16":
+        raise NotImplementedError(
+            f"a bf16 state under precision={op.precision!r} is "
+            f"{laplace_cuda._DEGRADED_TODO}")
+    want = [(v, lat) for v in vectors] + [(v, lat, store) for v in state]
     if prec is not None:
         want.append((prec, (1,) + op.n_nodes_axis))
     want += [(s, (8,)) for s in scals]
@@ -333,11 +414,13 @@ def _check_cuda(op: OperatorData, vectors, prec=None, scals=()) -> None:
     want += [(op.sz, (q, p1)), (op.dz, (q, p1)), (op.kpds, (q3, 24)),
              (op.w3, (q3, 1))]
     if op.gmetric is not None:
-        want.append((op.gmetric, (6 * q3, op.n_cells)))
-    twostage_split = op.precision == "split2m" and op.factor == "twostage"
-    if op.precision == "split2m":
+        want.append((op.gmetric, (6 * q3, op.n_cells), op.metric_dtype))
+    tensor_rung = op.precision in laplace_cuda.TENSOR_RUNGS
+    twostage_split = tensor_rung and op.factor == "twostage"
+    if tensor_rung:
         rp, cp = laplace_cuda.mma_dims(op.degree, op.factor)
-        want.append((op.mma_mats, (2, 3 * rp * cp), torch.bfloat16))
+        want.append((op.mma_mats, (4 if op.precision == "split3" else 2,
+                                   3 * rp * cp), torch.bfloat16))
     if twostage_split:
         want.append((op.kcoeffs, (op.n_cells, 24)))
     else:
@@ -365,17 +448,29 @@ def dtype_code(op: OperatorData) -> int:
     return {torch.float32: 0, torch.float64: 1}[op.dtype]
 
 
-def _common_args(op: OperatorData):
-    # split2m: the bf16 fragment tables of the factorization's tensor-core
-    # pass (dense: apply_mma.cuh, the coefficients (3, 8, n_cells);
-    # twostage: cell_mma.cuh, the coefficients a row per cell); highest: no
-    # matrix (the sum-factorized pass applies S and D), the coefficients
-    # (3, 8, n_cells), the cell fastest.  The metric: streamed, or null
-    # (rebuilt from the coefficients by the chain: 0 adjj, 1 jtj).
-    split = op.precision == "split2m"
+def rung_args(op: OperatorData) -> tuple[int, int]:
+    """The kernels' rung arguments: the products a tile (0: highest, the
+    sum-factorized pass; 1 bf16, 2 split2m, 3 split3), and 1 for a metric
+    streamed in bf16."""
+    return (laplace_cuda.RUNG_PRODUCTS[op.precision],
+            int(op.metric_dtype == torch.bfloat16))
+
+
+def _common_args(op: OperatorData, state: torch.Tensor):
+    # the tensor-core rungs: the bf16 fragment tables of the
+    # factorization's tensor-core pass (dense: apply_mma.cuh, the
+    # coefficients (3, 8, n_cells); twostage: cell_mma.cuh, the
+    # coefficients a row per cell); highest: no matrix (the sum-factorized
+    # pass applies S and D), the coefficients (3, 8, n_cells), the cell
+    # fastest.  The metric: streamed, or null (rebuilt from the
+    # coefficients by the chain: 0 adjj, 1 jtj).  ``state``: d, whose dtype
+    # is that of d and h (1: bf16).
+    split = op.precision in laplace_cuda.TENSOR_RUNGS
     dense = op.factor == "dense"
-    return (dtype_code(op), int(split), op.degree, int(dense),
+    rung, metric_bf16 = rung_args(op)
+    return (dtype_code(op), rung, op.degree, int(dense),
             laplace_cuda.COFACTORS.index(op.cofactor),
+            int(state.dtype == torch.bfloat16), metric_bf16,
             op.mma_mats.data_ptr() if split else None,
             op.sz.data_ptr(), op.dz.data_ptr(), op.kpds.data_ptr(),
             op.w3.data_ptr(),
@@ -403,12 +498,12 @@ def matvec(op: OperatorData, d: torch.Tensor, out: torch.Tensor | None = None,
     if _route(d) == "plain":
         h = _matvec_plain(op, d)
         return h if out is None else out.copy_(h)
-    _check_cuda(op, [d] + ([out] if out is not None else []))
+    _check_cuda(op, [], [d] + ([out] if out is not None else []))
     lib = _build.load()
     out = torch.empty_like(d) if out is None else out
     work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
-    rc = lib.bp4_matvec(*_common_args(op), d.data_ptr(),
+    rc = lib.bp4_matvec(*_common_args(op, d), d.data_ptr(),
                         work.cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,
                         torch.cuda.current_stream(d.device).cuda_stream)
     _build.check(lib, rc, "bp4_matvec")
@@ -425,7 +520,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
 
     ``out``: optional (x', g', d', h', scal') buffers, distinct from the
     inputs (the kernel reads every node's old values after other cells
-    have written theirs, so it cannot update in place).
+    have written theirs, so it cannot update in place).  d and h (and d',
+    h') may be bf16 under the ``bf16`` rung: the bf16 state.
     """
     if _route(x) == "plain":
         res = _fused_iteration_plain(op, x, g, d, h, scal, prec)
@@ -433,7 +529,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
                                              for o, r in zip(out, res))
     out = out if out is not None else tuple(
         torch.empty_like(t) for t in (x, g, d, h, scal))
-    _check_cuda(op, [x, g, d, h, *out[:4]], prec, (scal, out[4]))
+    _check_cuda(op, [x, g, out[0], out[1]], [d, h, out[2], out[3]], prec,
+                (scal, out[4]))
     if {t.data_ptr() for t in out} & {t.data_ptr() for t in (x, g, d, h,
                                                              scal)}:
         raise ValueError("fused_cg_iteration cannot update in place: pass "
@@ -442,7 +539,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
     rc = lib.bp4_fused_iteration(
-        *_common_args(op), *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
+        *_common_args(op, d),
+        *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
         work.partials.data_ptr(), ncz, ncy, ncx,
         torch.cuda.current_stream(x.device).cuda_stream)

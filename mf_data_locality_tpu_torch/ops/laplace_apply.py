@@ -25,10 +25,12 @@ Each kernel wrapper runs the hand-written CUDA kernel
 (``csrc/laplace_apply.cu``: B3, B5 and B6 run its sum-factorized pass,
 ``csrc/apply_sumfac.cuh``, on the 1D factors ``op.sz`` and ``op.dz`` under
 ``highest``, and its tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16
-tables ``op.mma_mats`` under f32 ``split2m``; B4 the sum-factorized pass
-with the metric rebuilt from ``op.coeffs`` on every rung) for tensors on a
-CUDA device and its plain PyTorch version (the dense einsum over cells,
-the same bf16 rounding points for ``split2m``) for tensors on the CPU;
+tables ``op.mma_mats`` under the f32 tensor-core rungs ``split2m``,
+``split3`` and ``bf16``, the metric streamed in f32 or, under the last two,
+in bf16; B4 the sum-factorized pass with the metric rebuilt from
+``op.coeffs`` on every rung) for tensors on a CUDA device and its plain
+PyTorch version (the dense einsum over cells, the same bf16 rounding
+points for the rung) for tensors on the CPU;
 other devices raise.  Each wrapper counts its kernel launches in
 ``.launches``.
 """
@@ -40,12 +42,13 @@ import torch
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
-    N_COMPONENTS, _parts, _route, cell_metric, check_tensors, dtype_code,
-    metric_onthefly)
+    N_COMPONENTS, _mma_terms, _route, _terms, cell_metric, check_tensors,
+    dtype_code, metric_onthefly, mma_parts, rung_args)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
 # degrees instantiated in csrc/laplace_apply.cu: under "highest" (and B4)
-# the reference's table 1..11, under split2m 1..4 (the builders refuse more)
+# the reference's table 1..11, under the tensor-core rungs 1..4 (the
+# builders refuse more)
 KERNEL_DEGREES = laplace_cuda.FUSED_DEGREES
 
 
@@ -111,44 +114,51 @@ def _metric(op: OperatorData) -> torch.Tensor:
 
 
 def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
-                   split: bool) -> torch.Tensor:
-    """v = sum_e M_e^T G_ef M_f u on a cell batch (``_kernel_g`` / ``_kernel``)."""
+                   at_rung: bool) -> torch.Tensor:
+    """v = sum_e M_e^T G_ef M_f u on a cell batch (``_kernel_g`` /
+    ``_kernel``), the products at ``op.precision`` when ``at_rung``, else
+    exact (B4's ``Precision.HIGHEST``)."""
     p13 = (op.degree + 1) ** 3
     q3 = op.n_q ** 3
     nc = u_loc.shape[1]
     u = u_loc.reshape(-1, p13, nc)
-    m = op.mats.to(torch.bfloat16).to(op.dtype) if split else op.mats
-    g = sum(torch.einsum("rk,ckn->crn", m, b) for b in _parts(u, split))
+    rung = op.precision if at_rung else "highest"
+    g = sum(torch.einsum("rk,ckn->crn", a, b)
+            for a, b in _terms(op.mats, u, rung))
     gx, gy, gz = g.reshape(-1, 3, q3, nc).unbind(1)
     t = torch.stack([G[0] * gx + G[1] * gy + G[2] * gz,
                      G[1] * gx + G[3] * gy + G[4] * gz,
                      G[2] * gx + G[4] * gy + G[5] * gz], dim=1)
     t = t.reshape(-1, 3 * q3, nc)
-    v = sum(torch.einsum("rk,crn->ckn", m, b) for b in _parts(t, split))
+    v = sum(torch.einsum("rk,crn->ckn", a, b)
+            for a, b in _terms(op.mats, t, rung))
     return v.reshape(-1, nc)
 
 
 def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
                           G: torch.Tensor) -> torch.Tensor:
-    """The split2m tensor-core kernel's arithmetic (``csrc/apply_mma.cuh``)
-    in plain PyTorch, for the tests: M from its packed bf16 tables,
-    nodes and q-points zero-padded, the K-stacked products [Mh | Mh] [uh;
-    ul] and [Mh | Mh]^T [th; tl] in f32, t split after the metric apply."""
+    """The tensor-core kernel's arithmetic (``csrc/apply_mma.cuh``) in
+    plain PyTorch, for the tests: M from its packed bf16 tables (Mh, and
+    Ml under split3), nodes and q-points zero-padded, the K-stacked
+    products of the rung (``cg_fused_kernel._mma_terms``; split2m [Mh |
+    Mh] [uh; ul] and [Mh | Mh]^T [th; tl]) in f32, t split after the
+    metric apply."""
     p13, q3 = (op.degree + 1) ** 3, op.n_q ** 3
     q3p, p13p = laplace_cuda.mma_dims(op.degree)
-    mf, mb = (m.to(op.dtype)
-              for m in laplace_cuda.unpack_mma_tables(op.mma_mats, op.degree))
+    tables = mma_parts(op)
     nc = u_loc.shape[1]
     u = torch.nn.functional.pad(u_loc.reshape(-1, p13, nc),
                                 (0, 0, 0, p13p - p13))
-    g = torch.cat([mf, mf], dim=1) @ torch.cat(_parts(u, True), dim=1)
+    x, m = _mma_terms(tables, u.transpose(1, 2), op.precision, back=False)
+    g = (x @ m.t()).transpose(1, 2)
     gx, gy, gz = g.reshape(-1, 3, q3p, nc).unbind(1)
     G = torch.nn.functional.pad(G, (0, 0, 0, q3p - q3))
     t = torch.stack([G[0] * gx + G[1] * gy + G[2] * gz,
                      G[1] * gx + G[3] * gy + G[4] * gz,
                      G[2] * gx + G[4] * gy + G[5] * gz], dim=1)
     t = t.reshape(-1, 3 * q3p, nc)
-    v = torch.cat([mb, mb], dim=0).t() @ torch.cat(_parts(t, True), dim=1)
+    x, m = _mma_terms(tables, t.transpose(1, 2), op.precision, back=True)
+    v = (x @ m).transpose(1, 2)
     return v[:, :p13].reshape(-1, nc)
 
 
@@ -189,8 +199,7 @@ def _lattice_plain(op: OperatorData, u: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """M A M u on the lattice through the cell batches."""
     p = op.degree
-    v = _batched_plain(op, to_cell_batches(u * mask, p), _metric(op),
-                       op.precision == "split2m")
+    v = _batched_plain(op, to_cell_batches(u * mask, p), _metric(op), True)
     return from_cell_batches(v, p, op.n_cells_axis) * mask
 
 
@@ -208,13 +217,15 @@ def _index_mask(op: OperatorData) -> torch.Tensor:
 def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     """The operator tables the kernels read by pointer, with their shapes
     (and dtype where it is not the operator's), and the two pointers of the
-    C interface's matrix slots: for B3/B5/B6 under ``split2m`` the
-    tensor-core pass's bf16 fragment tables, else (B4 on every rung) the
-    sum-factorized pass's 1D factors S and D."""
+    C interface's matrix slots: for B3/B5/B6 under a tensor-core rung the
+    tensor-core pass's bf16 fragment tables (forward, backward; split3's
+    Ml pair follows them), else (B4 on every rung) the sum-factorized
+    pass's 1D factors S and D."""
     p1, q3 = op.degree + 1, op.n_q ** 3
-    if op.precision == "split2m" and not onthefly:
+    if op.precision in laplace_cuda.TENSOR_RUNGS and not onthefly:
         q3p, p13p = laplace_cuda.mma_dims(op.degree)
-        pairs = [(op.mma_mats, (2, 3 * q3p * p13p), torch.bfloat16)]
+        pairs = [(op.mma_mats, (op.mma_mats.shape[0], 3 * q3p * p13p),
+                  torch.bfloat16)]
         ptrs = (op.mma_mats[0].data_ptr(), op.mma_mats[1].data_ptr())
     else:
         pairs = [(op.sz, (op.n_q, p1)), (op.dz, (op.n_q, p1))]
@@ -223,20 +234,21 @@ def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
         pairs += [(op.kpds, (q3, 24)), (op.w3, (q3, 1)),
                   (op.coeffs, (3, 8, op.n_cells))]
     else:
-        pairs.append((op.gmetric, (6 * q3, op.n_cells)))
+        pairs.append((op.gmetric, (6 * q3, op.n_cells), op.metric_dtype))
     return pairs, *ptrs
 
 
 def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
     shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
-    split = op.precision == "split2m" and not onthefly
+    rung, metric_bf16 = rung_args(op)
     tables, mats, kmats = _tables(op, onthefly)
     check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + tables)
     lib = _build.load()
     out = torch.empty_like(u_loc)
     rc = lib.bp4_apply_batched(
-        dtype_code(op), int(split), op.degree, int(onthefly), mats, kmats,
+        dtype_code(op), 0 if onthefly else rung, op.degree, int(onthefly),
+        0 if onthefly else metric_bf16, mats, kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
         op.w3.data_ptr(), op.coeffs.data_ptr(), u_loc.data_ptr(),
         out.data_ptr(), op.n_cells,
@@ -250,8 +262,7 @@ def apply_local_batched_g(op: OperatorData, u_loc: torch.Tensor) -> torch.Tensor
     if op.gmetric is None:
         raise ValueError("apply_local_batched_g needs metric='precomputed'")
     if _route(u_loc) == "plain":
-        return _batched_plain(op, u_loc, _metric(op),
-                              op.precision == "split2m")
+        return _batched_plain(op, u_loc, _metric(op), True)
     out = _batched_kernel(op, u_loc, onthefly=False)
     apply_local_batched_g.launches += 1
     return out
@@ -266,7 +277,7 @@ def apply_local_batched_onthefly(op: OperatorData,
     the trilinear coefficients; exact at the working dtype whatever
     ``op.precision`` says (``_kernel`` runs at ``Precision.HIGHEST``)."""
     if _route(u_loc) == "plain":
-        return _batched_plain(op, u_loc, _metric(op), split=False)
+        return _batched_plain(op, u_loc, _metric(op), at_rung=False)
     out = _batched_kernel(op, u_loc, onthefly=True)
     apply_local_batched_onthefly.launches += 1
     return out
@@ -287,7 +298,6 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
     if op.gmetric is None:
         raise ValueError("the lattice applies need metric='precomputed'")
     lat = (N_COMPONENTS,) + op.n_nodes_axis
-    split = op.precision == "split2m"
     tables, mats, kmats = _tables(op, onthefly=False)
     check_tensors(op, KERNEL_DEGREES, [(u, lat)] + tables)
     lib = _build.load()
@@ -296,7 +306,7 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
                         dtype=op.dtype, device=op.device)
     ncz, ncy, ncx = op.n_cells_axis
     rc = lib.bp4_apply_lattice(
-        dtype_code(op), int(split), op.degree, mats, kmats,
+        dtype_code(op), *rung_args(op), op.degree, mats, kmats,
         op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
         cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,

@@ -10,25 +10,29 @@ Two families of configurations, named by (factor, metric, windowing):
   chain ``cofactor``: "adjj", the adjugate of J, or "jtj", adj(J^T J)
   rsqrt(det)) — every pair and both chains under ``highest`` at degrees
   1..11; under ``split2m`` the dense pair at 1..4 (adjj) and twostage with
-  either metric (the rebuilt one by either chain) at 4..11;
+  either metric (the rebuilt one by either chain) at 4..11; the other
+  tensor-core rungs, ``split3`` and ``bf16``, as ``split2m``;
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
   ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``;
   always by adjj, as ``laplace_pallas._kernel``), at degrees 1..11 under
-  ``highest`` and 1..4 under ``split2m``.
+  ``highest`` and 1..4 under the tensor-core rungs (``split2m``,
+  ``split3``, ``bf16``).
 
 The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
 permutation, no cell padding and no windowed mask are held.
 
-Arrays (working dtype ``T``, f32 or f64, all on ``device``):
+Arrays (working dtype ``T``, f32 or f64, all on ``device``; a bf16 state,
+``dtype=torch.bfloat16``, keeps them in f32, as the JAX package does):
 
 * ``mats2d`` (3 q^2, (p+1)^2): ``[Dx2d; Dy2d; S2d]``, rows (qy, qx) and
   columns (ky, kx), x fastest (``laplace_pallas._dense_gradient_matrices_2d``),
-  as the fused path's plain version applies them: for the ``split2m`` rung
-  rounded to bf16 once here (``cg_fused_kernel._prestack``), held in the
-  working dtype (its kernel reads them as ``mma_mats``).
+  as the fused path's plain version applies them: for the ``split2m`` and
+  ``bf16`` rungs rounded to bf16 once here (``cg_fused_kernel._prestack``),
+  held in the working dtype (their kernels read them as ``mma_mats``);
+  unrounded for ``split3``, whose hi and lo parts both come from it.
 * ``sz``, ``dz`` (q, p+1): the 1D factors S and D
   (``laplace_pallas._z_matrices``): twostage's z factors, and every
   direction's in the sum-factorized ``highest`` kernels.
@@ -39,8 +43,9 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``):
   on-the-fly apply (B4) is exact on every rung; the ``highest`` kernels
   apply their factors ``sz`` and ``dz`` instead.
 * ``gmetric`` (6 q^3, n_cells) or None: the metric entries (00, 01, 02, 11,
-  12, 22) per q-point, computed on the host in f64 and rounded to ``T``
-  once (``metric="precomputed"``).
+  12, 22) per q-point, computed on the host in f64 and rounded once to
+  ``T``, or to bf16 (``metric_dtype``, the split3 and bf16 rungs; the
+  kernels upcast it at the load) (``metric="precomputed"``).
 * ``pds`` (3 q^3, 8): derivatives of the trilinear monomials at the tensor
   quadrature points; ``w3`` (q^3, 1) the tensor weights.
 * ``coeffs`` (3, 8, n_cells): trilinear coefficients, cell-minor (the
@@ -53,9 +58,10 @@ twostage split2m tensor-core passes of B1/B2 ``kcoeffs`` (from p=5 each
 thread rebuilds G at its own cell's q-points, or reads them from the
 streamed ``gmetric`` in its canonical layout, where the 8 cells of a warp
 are one 32-byte sector of a q-point's row).  ``mma_mats``
-(``split2m`` only) is the matrix of the tensor-core cell pass rounded once
-to bf16 and packed as its fragments (:func:`mma_tables`): ``mats`` for the
-dense factorization (the apply family, and the fused path's dense
+(the tensor-core rungs only) is the matrix of the tensor-core cell pass
+rounded once to bf16 — under ``split3`` also its bf16 remainder — and
+packed as its fragments (:func:`mma_tables`): ``mats`` for the dense
+factorization (the apply family, and the fused path's dense
 configurations), ``mats2d`` for twostage.  ``factor`` records which.
 """
 
@@ -72,23 +78,36 @@ from mf_data_locality_tpu_torch.ops import geometry, lagrange
 
 _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
          "configurations)")
+# the rungs on the tensor cores, and their products a tile (the kernels'
+# rung argument; 0: highest, the sum-factorized pass)
+TENSOR_RUNGS = ("split2m", "split3", "bf16")
+RUNG_PRODUCTS = {"highest": 0, "bf16": 1, "split2m": 2, "split3": 3}
+_BF16_STATE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (bf16 "
+                    "storage of d and h outside the fused solver: the merged "
+                    "and baseline host loops)")
+_DEGRADED_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (the "
+                  "degraded combinations: a bf16 state under highest, "
+                  "split2m or split3)")
+_METRIC_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (a bf16 "
+                "metric stream under highest and split2m)")
 
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
 # the reference's degree table (benchmark.h:290-313): the fused solver's
-# and the apply family's kernels under "highest"; under split2m the dense
-# tensor-core pass (csrc/apply_mma.cuh: B3/B5/B6, B1/B2 dense) has the
-# first four, the twostage one of B1/B2 (csrc/cell_mma.cuh at p=4 with the
-# rebuilt metric, csrc/cell_mma_hd.cuh) p=4..11
+# and the apply family's kernels under "highest"; under the tensor-core
+# rungs the dense tensor-core pass (csrc/apply_mma.cuh: B3/B5/B6, B1/B2
+# dense) has the first four, the twostage one of B1/B2 (csrc/cell_mma.cuh
+# at p=4 with the rebuilt metric, csrc/cell_mma_hd.cuh) p=4..11
 FUSED_DEGREES = tuple(range(1, 12))
 SPLIT_DENSE_DEGREES = (1, 2, 3, 4)
 SPLIT_TWOSTAGE_DEGREES = tuple(range(4, 12))
-_DENSE_TODO = ("not ported yet: see ROADMAP.md, queue B item 7c (split2m's "
-               "dense tensor-core pass at p >= 5: B3/B5/B6 and B1/B2 dense)")
-_TWOSTAGE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6f (split2m "
-                  "twostage at p=1..3)")
+_DENSE_TODO = ("not ported yet: see ROADMAP.md, queue B item 7c (the "
+               "tensor-core rungs' dense pass at p >= 5: B3/B5/B6 and B1/B2 "
+               "dense)")
+_TWOSTAGE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6f (the "
+                  "tensor-core rungs' twostage pass at p=1..3)")
 _JTJ_TODO = ("not ported yet: see ROADMAP.md, queue B item 6c (the jtj "
-             "chain in split2m's dense pass)")
+             "chain in the tensor-core rungs' dense pass)")
 # (factor, metric, windowing) of the apply family; under highest also
 # twostage on pieces, where the JAX resolvers put the merged and baseline
 # solvers' --windowing pieces at p >= 5 (B5 reads the dense operator
@@ -207,6 +226,12 @@ class OperatorData:
         return "onthefly" if self.gmetric is None else "precomputed"
 
     @property
+    def metric_dtype(self) -> torch.dtype:
+        """The streamed metric's storage dtype (the working dtype when the
+        metric is rebuilt)."""
+        return self.dtype if self.gmetric is None else self.gmetric.dtype
+
+    @property
     def device(self) -> torch.device:
         return self.w3.device
 
@@ -254,29 +279,36 @@ def _from_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return t.permute(1, 4, 3, 5, 0, 2).reshape(k, n)
 
 
-def mma_tables(mats: torch.Tensor, p: int,
-               factor: str = "dense") -> torch.Tensor:
-    """The split2m tensor-core pass's matrix: ``mats`` ((3 q^3, (p+1)^3)
-    dense, or the (3 q^2, (p+1)^2) 2D stage for ``factor="twostage"``)
-    rounded once to bf16, each direction's block zero-padded to (RP, CP)
+def mma_tables(mats: torch.Tensor, p: int, factor: str = "dense",
+               precision: str = "split2m") -> torch.Tensor:
+    """The tensor-core pass's matrix: ``mats`` ((3 q^3, (p+1)^3) dense, or
+    the (3 q^2, (p+1)^2) 2D stage for ``factor="twostage"``) rounded once
+    to bf16, Mh, each direction's block zero-padded to (RP, CP)
     (:func:`mma_dims`), packed as fragments: row 0 for the forward product
-    (B = Mh^T), row 1 for the backward (B = Mh).  Shape (2, 3 RP CP),
-    bf16."""
+    (B = Mh^T), row 1 for the backward (B = Mh); under ``split3`` rows 2
+    and 3 hold the remainder Ml = bf16(mats - Mh) in the same order
+    (``cg_fused_kernel._prestack``).  Shape (2 or 4, 3 RP CP), bf16."""
     rows, cols = _mma_block(p, factor)
     rp, cp = mma_dims(p, factor)
-    mh = mats.new_zeros((3, rp, cp), dtype=torch.bfloat16)
-    mh[:, :rows, :cols] = mats.reshape(3, rows, cols)
-    mh = mh.reshape(3 * rp, cp)
-    return torch.stack([_fragments(mh.t()), _fragments(mh)])
+    mh = mats.to(torch.bfloat16)
+    parts = [mh] + ([(mats - mh.to(mats.dtype)).to(torch.bfloat16)]
+                    if precision == "split3" else [])
+    out = []
+    for part in parts:
+        m = mats.new_zeros((3, rp, cp), dtype=torch.bfloat16)
+        m[:, :rows, :cols] = part.reshape(3, rows, cols)
+        m = m.reshape(3 * rp, cp)
+        out += [_fragments(m.t()), _fragments(m)]
+    return torch.stack(out)
 
 
-def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense"
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The padded (3 RP, CP) bf16 matrices the two rows of
-    :func:`mma_tables` hold: (forward's, backward's)."""
+def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense",
+                      part: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded (3 RP, CP) bf16 matrices that :func:`mma_tables` holds
+    for ``part`` (0: Mh, 1: split3's Ml): (forward's, backward's)."""
     rp, cp = mma_dims(p, factor)
-    return (_from_fragments(tables[0], cp, 3 * rp).t(),
-            _from_fragments(tables[1], 3 * rp, cp))
+    return (_from_fragments(tables[2 * part], cp, 3 * rp).t(),
+            _from_fragments(tables[2 * part + 1], 3 * rp, cp))
 
 
 def fused_configs(precision: str,
@@ -285,17 +317,17 @@ def fused_configs(precision: str,
     ``"pieces"``) at ``degree`` (None: at any of its degrees).  Under
     ``highest`` the dense and twostage operators are one function, which
     one sum-factorized pass computes with the metric streamed or rebuilt,
-    at degrees 1..11; under ``split2m`` each factorization's rounding
-    defines the rung, and its tensor-core passes are the dense one at
-    :data:`SPLIT_DENSE_DEGREES` and the twostage one at
-    :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
+    at degrees 1..11; under a tensor-core rung (:data:`TENSOR_RUNGS`) each
+    factorization's rounding defines the rung, and its tensor-core passes
+    are the dense one at :data:`SPLIT_DENSE_DEGREES` and the twostage one
+    at :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
     one by adjj, and in twostage by jtj too)."""
     def at(degrees, pairs):
         return pairs if degree is None or degree in degrees else ()
 
     dense = (("dense", "precomputed"), ("dense", "onthefly"))
     twostage = (("twostage", "onthefly"), ("twostage", "precomputed"))
-    if precision != "split2m":
+    if precision not in TENSOR_RUNGS:
         return at(FUSED_DEGREES, dense + twostage)
     return at(SPLIT_DENSE_DEGREES, dense) + at(SPLIT_TWOSTAGE_DEGREES,
                                                twostage)
@@ -305,7 +337,8 @@ def check_config(precision: str, factor: str = "twostage",
                  metric: str = "onthefly", cofactor: str = "adjj",
                  dtype: torch.dtype = torch.float32,
                  windowing: str = "pieces", solver: str | None = None,
-                 degree: int | None = None) -> None:
+                 degree: int | None = None,
+                 metric_dtype: torch.dtype | None = None) -> None:
     """Raise for a configuration the port lacks (NotImplementedError) or
     that the JAX package refuses too (ValueError).
 
@@ -314,17 +347,41 @@ def check_config(precision: str, factor: str = "twostage",
     merged and baseline solvers on the apply family.  Without a solver (the
     builders) the fused configurations of any degree pass: the plain
     versions take every degree, the kernels check theirs.  ``degree``
-    given: ``split2m`` past :data:`SPLIT_DENSE_DEGREES` raises unless the
-    configuration is the fused solver's twostage one (no rung falls back
-    to another, nor a kernel to its plain version).
+    given: a tensor-core rung past :data:`SPLIT_DENSE_DEGREES` raises
+    unless the configuration is the fused solver's twostage one (no rung
+    falls back to another, nor a kernel to its plain version).
+    ``dtype=torch.bfloat16`` is the fused solver's bf16 state (d and h;
+    f32 tables), under the ``bf16`` rung only; ``metric_dtype`` the
+    streamed metric's storage (None: the working dtype), bf16 under
+    ``split3`` and ``bf16`` only (ignored where the metric is rebuilt).
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
-    if dtype not in (torch.float32, torch.float64):
+    if dtype == torch.bfloat16:
+        if precision != "bf16":
+            raise NotImplementedError(
+                f"dtype=torch.bfloat16 with precision={precision!r} is "
+                f"{_DEGRADED_TODO}")
+        if solver in ("merged", "baseline") or (solver is None
+                                                and windowing != "pieces"):
+            raise NotImplementedError(
+                f"dtype=torch.bfloat16 with windowing={windowing!r}"
+                + (f", solver={solver!r}" if solver else "")
+                + f" is {_BF16_STATE_TODO}")
+    elif dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"dtype={dtype} is {_TODO}")
-    if precision == "split2m" and dtype != torch.float32:
+    if precision in TENSOR_RUNGS and dtype == torch.float64:
         raise NotImplementedError(
-            f"precision='split2m' with dtype={dtype} is {_TODO}")
+            f"precision={precision!r} with dtype={dtype} is {_TODO}")
+    table = torch.float32 if dtype == torch.bfloat16 else dtype
+    if metric_dtype not in (None, table, torch.bfloat16):
+        raise ValueError(f"metric_dtype={metric_dtype} with dtype={dtype}: "
+                         f"the metric is stored at {table} or in bf16")
+    if (metric_dtype == torch.bfloat16 and metric == "precomputed"
+            and precision not in ("split3", "bf16")):
+        raise NotImplementedError(
+            f"metric_dtype=torch.bfloat16 under precision={precision!r} is "
+            f"{_METRIC_TODO}")
     if windowing not in WINDOWINGS:
         raise NotImplementedError(
             f"windowing={windowing!r} is not ported (XLA-level windowing in "
@@ -336,18 +393,18 @@ def check_config(precision: str, factor: str = "twostage",
     config = (factor, metric, windowing)
     if cofactor not in COFACTORS:
         raise ValueError(f"unknown cofactor mode {cofactor!r}")
-    if precision == "split2m" and cofactor == "jtj" and factor == "dense":
+    if precision in TENSOR_RUNGS and cofactor == "jtj" and factor == "dense":
         raise NotImplementedError(
-            f"cofactor='jtj' with factor='dense' under precision='split2m' "
-            f"is {_JTJ_TODO}")
+            f"cofactor='jtj' with factor='dense' under "
+            f"precision={precision!r} is {_JTJ_TODO}")
     fused_twostage = (factor == "twostage" and windowing == "pieces"
                       and solver in (None, "fused"))
-    if precision == "split2m" and degree is not None and (
+    if precision in TENSOR_RUNGS and degree is not None and (
             degree not in SPLIT_DENSE_DEGREES and not fused_twostage):
         raise NotImplementedError(
             f"factor={factor!r}, windowing={windowing!r}"
             + (f" with solver={solver!r}" if solver else "")
-            + f" under precision='split2m' at degree {degree} is "
+            + f" under precision={precision!r} at degree {degree} is "
             f"{_DENSE_TODO}; it has degrees {SPLIT_DENSE_DEGREES}")
     if solver == "fused" and degree not in FUSED_DEGREES:
         raise NotImplementedError(
@@ -360,7 +417,7 @@ def check_config(precision: str, factor: str = "twostage",
               if solver is not None else fused + apply)
     if config not in wanted:
         todo = (_TWOSTAGE_TODO
-                if config[0] == "twostage" and precision == "split2m"
+                if config[0] == "twostage" and precision in TENSOR_RUNGS
                 else _TODO)
         raise NotImplementedError(
             f"factor={factor!r}, metric={metric!r}, windowing={windowing!r}"
@@ -378,31 +435,37 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          gmetric: np.ndarray | None = None,
                          factor: str = "twostage",
                          windowing: str = "pieces",
-                         cofactor: str = "adjj") -> OperatorData:
-    """Wrap host arrays (any float dtype) as an :class:`OperatorData`.
+                         cofactor: str = "adjj",
+                         metric_dtype: torch.dtype | None = None
+                         ) -> OperatorData:
+    """Wrap host arrays (any float dtype, bf16 ones of the JAX package bit
+    for bit) as an :class:`OperatorData`.
 
     ``mats2d`` and ``mats`` default to the canonical matrices of ``degree``;
-    ``gmetric`` given means ``metric="precomputed"``.  Values are rounded to
-    ``dtype`` first and, for ``mats2d`` under ``split2m``, from there to
-    bf16 — the same two roundings the JAX package applies.  ``cofactor="jtj"``
-    raises ValueError unless det J > 0 at every quadrature point
-    (:func:`check_orientation`).
+    ``gmetric`` given means ``metric="precomputed"``, stored at
+    ``metric_dtype`` (None: the working dtype).  Values are rounded to
+    ``dtype`` first and, for ``mats2d`` under ``split2m`` and ``bf16``, from
+    there to bf16 — the same two roundings the JAX package applies.
+    ``dtype=torch.bfloat16`` (the fused solver's bf16 state) keeps the
+    tables in f32.  ``cofactor="jtj"`` raises ValueError unless det J > 0 at
+    every quadrature point (:func:`check_orientation`).
     """
     metric = "onthefly" if gmetric is None else "precomputed"
     check_config(precision, factor, metric, cofactor, dtype, windowing,
-                 degree=degree)
+                 degree=degree, metric_dtype=metric_dtype)
     if cofactor == "jtj":
         check_orientation(pds, coeffs)
     p = degree
     q = p + 2
+    if dtype == torch.bfloat16:  # a bf16 state; the tables stay f32
+        dtype = torch.float32
 
-    def t(a):
+    def t(a, to=dtype):
         # C order: the kernels read the tables by raw pointer
-        return torch.tensor(np.ascontiguousarray(a)).to(device=device,
-                                                         dtype=dtype)
+        return host_tensor(a).contiguous().to(device=device, dtype=to)
 
     m2 = t(dense_gradient_matrices_2d(p, q) if mats2d is None else mats2d)
-    if precision == "split2m":
+    if precision in ("split2m", "bf16"):
         m2 = m2.to(torch.bfloat16).to(dtype)
     m3 = t(dense_gradient_matrices(p, q) if mats is None else mats)
     sz, dz = z_matrices(p, q)
@@ -411,16 +474,31 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
     nc = co.shape[-1]
     return OperatorData(
         mats2d=m2, sz=t(sz), dz=t(dz), mats=m3,
-        gmetric=None if gmetric is None else t(gmetric),
+        gmetric=None if gmetric is None else t(gmetric,
+                                               metric_dtype or dtype),
         pds=pds_t, w3=t(w3), coeffs=co, mask=t(mask),
         kpds=pds_t.reshape(3, q**3, 8).permute(1, 0, 2).reshape(q**3, 24)
         .contiguous(),
         kcoeffs=co.reshape(24, nc).t().contiguous(),
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
         precision=precision, windowing=windowing, factor=factor,
-        mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor)
-                  if precision == "split2m" else None),
+        mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor,
+                             precision)
+                  if precision in TENSOR_RUNGS else None),
         cofactor=cofactor)
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A CPU tensor of a host array: a torch tensor as it is; a JAX bf16
+    array (numpy's ``ml_dtypes.bfloat16``, which ``torch.tensor`` does not
+    take) bit for bit through its uint16 view; any other array copied."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(a))
 
 
 def jacobian_determinants(pds: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
@@ -453,11 +531,12 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   precision: str = "highest", factor: str = "dense",
                   metric: str = "precomputed", cofactor: str = "adjj",
                   device: torch.device | str = "cuda",
-                  windowing: str = "reshape") -> OperatorData:
+                  windowing: str = "reshape",
+                  metric_dtype: torch.dtype | None = None) -> OperatorData:
     """Build the operator data for ``layout`` (q = p + 2 Gauss points); the
     defaults are ``make_pallas_operator``'s."""
     check_config(precision, factor, metric, cofactor, dtype, windowing,
-                 degree=layout.degree)
+                 degree=layout.degree, metric_dtype=metric_dtype)
     p = layout.degree
     q = p + 2
     shape = lagrange.make_shape(p, q)
@@ -471,4 +550,5 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
         monomial_derivative_matrices(shape.q_points), w3,
         coeffs.transpose(2, 1, 0), mask.astype(np.float64), p,
         layout.mesh.n_cells_axis, precision, dtype, device, gmetric=gmetric,
-        factor=factor, windowing=windowing, cofactor=cofactor)
+        factor=factor, windowing=windowing, cofactor=cofactor,
+        metric_dtype=metric_dtype)

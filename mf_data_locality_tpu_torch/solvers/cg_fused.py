@@ -5,7 +5,11 @@ The recurrence of the reference's merged CG (``solver_cg_optimized.h:
 :func:`~mf_data_locality_tpu_torch.ops.cg_fused_kernel.fused_cg_iteration`
 — update4b, the operator, the seven update3b sums and the scalar
 recurrence in one pass over the state.  The state (x, g, d, h) is held as
-lattice vectors in two sets of buffers that swap roles every iteration.
+lattice vectors in two sets of buffers that swap roles every iteration;
+with a bf16 ``b`` (``bp4.build(dtype=torch.bfloat16)``, the ``bf16`` rung)
+d and h are stored in bf16 and x, g, the preconditioner and the scalars
+at the operator's f32 (``solvers/cg_fused.py:127-140`` of the JAX
+package).
 
 The loop runs on the host with the reference's condition
 ``(res > tol) & (it < max_iter)``; it reads the residual estimate from the
@@ -25,7 +29,8 @@ from mf_data_locality_tpu_torch.solvers.cg import SolveResult, np_dtype
 def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
                           prec: torch.Tensor, x0: torch.Tensor | None = None,
                           max_iter: int = 100, abs_tol: float = 1e-15,
-                          rel_tol: float = 1e-8) -> SolveResult:
+                          rel_tol: float = 1e-8,
+                          iteration=None) -> SolveResult:
     """Solve A x = b for lattice vectors (C, Nz, Ny, Nx).
 
     ``prec``: (C or 1, Nz, Ny, Nx) inverse node diagonal; one scalar per
@@ -35,11 +40,17 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
     Stops when the residual estimate drops to ``max(abs_tol, rel_tol *
     res0)`` or after ``max_iter`` iterations.  On breakdown (d.h = 0) the
     estimate is NaN and the solve stops with ``converged = False``.
+
+    ``iteration``: one iteration, ``(op, x, g, d, h, scal, prec) -> (x',
+    g', d', h', scal')``; by default the kernel's wrapper
+    :func:`~mf_data_locality_tpu_torch.ops.cg_fused_kernel.fused_cg_iteration`
+    (a check passes its plain version, ``_fused_iteration_plain``).
     """
     if tuple(b.shape[1:]) != tuple(n_nodes_axis):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected (C,) + "
                          f"{tuple(n_nodes_axis)}")
     dtype = op.dtype
+    store = b.dtype if b.dtype == torch.bfloat16 else dtype  # d and h
     nd = np_dtype(dtype)
     mask = op.mask
     work = fk.Workspace(op) if b.device.type == "cuda" else None
@@ -47,7 +58,8 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
     b_eff = b.to(dtype)
     if x0 is not None:
         x0 = x0.to(dtype)
-        b_eff = b_eff - fk.matvec(op, (x0 * mask).contiguous(), work=work)
+        b_eff = b_eff - fk.matvec(op, (x0 * mask).to(store).contiguous(),
+                                  work=work).to(dtype)
     # the state vanishes on the boundary; Dirichlet rows are never re-masked
     b_eff = b_eff * mask
     P = prec[:1].to(dtype).contiguous()
@@ -58,22 +70,24 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
     history = np.full((max_iter + 1,), np.nan, nd)
     history[0] = res0
 
-    zeros = [torch.zeros_like(g0) for _ in range(3)]
     scal0 = torch.zeros((8,), dtype=dtype, device=b.device)
     scal0[4] = 1.0  # parity of iteration 1
-    state = (zeros[0], g0, zeros[1], zeros[2], scal0)  # x, g, d, h, scal
+    state = (torch.zeros_like(g0), g0,  # x, g, d, h, scal
+             torch.zeros_like(g0, dtype=store),
+             torch.zeros_like(g0, dtype=store), scal0)
     spare = tuple(torch.empty_like(t) for t in state)
 
     it, res = 0, res0
     while res > tol and it < max_iter:
         it += 1
-        new = fk.fused_cg_iteration(op, *state, P, out=spare, work=work)
+        new = (fk.fused_cg_iteration(op, *state, P, out=spare, work=work)
+               if iteration is None else iteration(op, *state, P))
         state, spare = new, state
         res = np.sqrt(np.maximum(nd(state[4][5].item()), 0))
         history[it] = res
 
     x, g, d, _, scal = state
-    x = fk.delayed_x_fixup(x, g, d, P, scal, it)
+    x = fk.delayed_x_fixup(x, g, d.to(dtype), P, scal, it)
     if x0 is not None:
         x = x + x0
     return SolveResult(x, it, float(res),

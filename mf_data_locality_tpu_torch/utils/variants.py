@@ -67,10 +67,12 @@ ABLATE = {
                   "gm[0] = gm[3] = gm[5] = pq[0] + 1.f; "
                   "gm[1] = gm[2] = gm[4] = 0.f;")],
     # no gather: the inputs are constants (no loads of d, g, h, P, x)
-    "nogather": [(CM, "    gather_row_tile<P, FUSED>(sm, io, sc, gr, cell0);",
+    "nogather": [(CM, "    gather_row_tile<P, FUSED, FLEX>(sm, io, sc, gr, "
+                      "cell0);",
                   "    for (int i = tid; i < kComps * kTileCells * LDU; "
                   "i += blockDim.x) (&sm.u[0][0][0])[i] = 0.25f * (i % 7);"),
-                 (CM, "    gather_cells<P, FUSED>(sm, io, sc, gr, cell0);",
+                 (CM, "    gather_cells<P, FUSED, FLEX>(sm, io, sc, gr, "
+                      "cell0);",
                   "    for (int i = tid; i < kComps * kTileCells * LDU; "
                   "i += blockDim.x) (&sm.u[0][0][0])[i] = 0.25f * (i % 7);")],
     # every tile gathered per (cell, node), as a tile that crosses rows

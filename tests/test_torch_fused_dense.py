@@ -235,7 +235,7 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                      factor, metric)
     refused = [dict(precision="split2m", factor="dense", metric="onthefly",
                     cofactor="jtj"),
-               dict(precision="split3"),
+               dict(precision="split3", dtype=torch.bfloat16),
                dict(precision="split2m", dtype=torch.float64)]
     if p != 4:
         refused += [dict(precision="split2m", factor="twostage",

@@ -18,6 +18,7 @@ from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.ops import laplace_apply as la
 from mf_data_locality_tpu_torch.ops import laplace_cuda
 from mf_data_locality_tpu_torch.solvers import cg_fused
+from mf_data_locality_tpu_torch.utils import bf16_check
 
 P = 4
 SCAL = [0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6]
@@ -520,3 +521,146 @@ def test_run_one_fused_split2m_high_degree_on_card(cuda_device, p):
     with pytest.raises(NotImplementedError, match="item 7c"):
         benchmark.run_one(p, 4, solver="fused", windowing="pieces",
                           precision="split2m", factor="dense", **short)
+
+
+# the reduced rungs: (precision, state dtype, metric dtype) — split3, bf16
+# with an f32 state, bf16 with the bf16 state and the bf16 metric stream
+REDUCED = [("split3", torch.float32, None), ("bf16", torch.float32, None),
+           ("bf16", torch.bfloat16, torch.bfloat16)]
+# B1/B2's configurations under them: dense at p=1..4, twostage at p=4..11
+REDUCED_CONFIGS = ([(p, "dense", m, "adjj") for p in (1, 2, 3, 4)
+                    for m in ("precomputed", "onthefly")]
+                   + [(p, "twostage", m, c) for p in (4,) + HIGH
+                      for m, c in SPLIT_TWOSTAGE])
+
+
+def _close(rung, got, want):
+    """Kernel vs plain at the rung's tolerance: split3 as f32; bf16
+    relative L2 3e-4 and max 1e-2 (a t value the two sum in another order
+    can round to the other side of a bf16 boundary, 2^-8 of it).  The L2
+    limit lies between the bf16 readings (kernel vs plain) and those of
+    split2m's product set in place of bf16's (``bf16_check.control_op``),
+    both printed by ``utils/bf16_check.py`` for this box and these
+    inputs."""
+    if rung != "bf16":
+        return _rel(got, want) < TOL[torch.float32]
+    return (bf16_check.l2(got, want) <= 3e-4
+            and _rel(got.double(), want.double()) <= 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,state,mdt", REDUCED)
+@pytest.mark.parametrize("p,factor,metric,cofactor", REDUCED_CONFIGS)
+def test_reduced_rung_fused_kernels_match_plain(cuda_device, p, factor,
+                                                metric, cofactor, precision,
+                                                state, mdt):
+    """B1 and B2 under split3 and bf16 (f32 state; bf16 state with the bf16
+    metric) in every configuration of ``fused_configs`` on 3 x 5 x 7 = 105
+    cells: against their plain versions at the rung's tolerance (the
+    scalars 1e-4), each twice and bitwise equal, each launch counted; under
+    bf16 the plain version with split2m's product set is refused, and with
+    the bf16 state the scalars see the rounding point of d'
+    (``bf16_check.rounding_point``: the unrounded-d' variant misses 1e-4)."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(
+        layout, state, precision, factor=factor, metric=metric,
+        cofactor=cofactor, windowing="pieces", device=cuda_device,
+        metric_dtype=mdt if metric == "precomputed" else None)
+    prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+    (u,) = (v.to(state) for v in _state(op, 1, seed=130 + p))
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    torch.cuda.synchronize()
+    assert got.dtype == state
+    assert _close(precision, got, fk._matvec_plain(op, u))
+    if precision == "bf16":
+        ctl = fk._matvec_plain(bf16_check.control_op(op), u)
+        assert bf16_check.l2(got, ctl) > 3e-4
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=140 + p)
+    d, h = d.to(state), h.to(state)
+    scal = torch.tensor(SCAL, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype and _close(precision, a, b)
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < 1e-4
+    if precision == "bf16":
+        ctl = fk._fused_iteration_plain(bf16_check.control_op(op), x, g, d,
+                                        h, scal, prec)
+        assert bf16_check.l2(got[3], ctl[3]) > 3e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (fk.matvec.launches, fk.fused_cg_iteration.launches) == (
+        before[0] + 2, before[1] + 2)
+    if state == torch.bfloat16:
+        err, control = bf16_check.rounding_point(op, seed=160 + p)
+        assert err < 1e-4 < control
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", [None, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["split3", "bf16"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("kernel", ["batched_g", "pieces", "zslab"])
+def test_reduced_rung_apply_kernels_match_plain(cuda_device, kernel, p,
+                                                precision, mdt):
+    """B3, B5 and B6 under split3 and bf16, the metric streamed in f32 or
+    bf16, on 105 cells: against the plain version at the rung's tolerance,
+    twice and bitwise equal; under bf16 the plain version with split2m's
+    product set is refused."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(
+        layout, torch.float32, precision, factor="dense",
+        metric="precomputed", device=cuda_device,
+        windowing="reshape" if kernel == "batched_g" else kernel,
+        metric_dtype=mdt)
+    (u,) = _state(op, 1, seed=150 + p)
+    if kernel == "batched_g":
+        x = la.to_cell_batches(u, p).contiguous()
+        wrapper = la.apply_local_batched_g
+        want = la._batched_plain(op, x, la._metric(op), True)
+    else:
+        x = u
+        wrapper = (la.apply_lattice_pieces if kernel == "pieces"
+                   else la.apply_lattice_zslab)
+        want = la._lattice_plain(op, u, la._index_mask(op)
+                                 if kernel == "pieces" else op.mask)
+    before = wrapper.launches
+    got, again = wrapper(op, x), wrapper(op, x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert _close(precision, got, want)
+    if precision == "bf16":
+        ctl_op = bf16_check.control_op(op)
+        ctl = (la._batched_plain(ctl_op, x, la._metric(op), True)
+               if kernel == "batched_g" else la._lattice_plain(
+                   ctl_op, u, la._index_mask(op)
+                   if kernel == "pieces" else op.mask))
+        assert bf16_check.l2(got, ctl) > 3e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,state,mdt", [REDUCED[0], REDUCED[2]])
+@pytest.mark.parametrize("p", (1, 2, 3, 4) + HIGH)
+def test_run_one_fused_reduced_rungs_on_card(cuda_device, p, precision,
+                                             state, mdt):
+    """The fused solver under split3 (f32 state) and bf16 (the bf16 state
+    and metric) through the auto-dispatch at every degree launches B1 and
+    B2 and gives a finite row; the merged solver under the rung at p <= 4
+    launches B3."""
+    before = (fk.matvec.launches, fk.fused_cg_iteration.launches,
+              la.apply_local_batched_g.launches)
+    short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
+                 device=cuda_device, precision=precision, metric_dtype=mdt)
+    r = benchmark.run_one(p, 4, solver="fused", windowing="pieces",
+                          dtype=state, **short)
+    assert fk.matvec.launches > before[0]
+    assert fk.fused_cg_iteration.launches > before[1]
+    assert 0 < r.n_iterations <= 100 and r.time_per_it > 0
+    if p <= 4:
+        r = benchmark.run_one(p, 4, solver="merged", **short)
+        assert la.apply_local_batched_g.launches > before[2]
+        assert r.converged or r.n_iterations == 100

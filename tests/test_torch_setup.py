@@ -121,8 +121,8 @@ def test_operator_rejects_unported_configurations():
     dense = {"factor": "dense", "metric": "onthefly", "windowing": "pieces"}
     for kw in ({**dense, "precision": "split2m", "cofactor": "jtj"},
                {**fused, "windowing": "reshape"},
-               {"precision": "split3"},
-               {**fused, "precision": "split3"},
+               {"precision": "split3", "dtype": torch.bfloat16},
+               {**fused, "precision": "split3", "dtype": torch.bfloat16},
                {"precision": "split2m", "dtype": torch.float64},
                {**fused, "precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
