@@ -36,7 +36,15 @@ Phases (each raises on failure, so any failure exits nonzero):
    dense and B3/B5/B6 at p=1..4, B1/B2 twostage in each SPLIT_HIGH
    configuration at REDUCED_CMP —, B1/B2 in the fused auto path's
    configuration compared and timed at p=4 s=13 (bench.py's two variant
-   configurations), p=6 s=12 and p=8 s=11, B3/B5/B6 at p=4 s=13;
+   configurations), p=6 s=12 and p=8 s=11, B3/B5/B6 at p=4 s=13; the
+   dense tensor-core pass past p=4 (apply_mma_hd.cuh) under split2m,
+   split3 and bf16 (DENSE_RUNGS; bf16 with the bf16 state and metric):
+   B3/B5/B6 (B5 also on the merged solver's twostage operator) and B1/B2
+   dense, the metric streamed and rebuilt, compared at every degree 5..11
+   on the 105-cell box, and compared and timed at p=6 s=12 and p=8 s=11
+   (B1/B2 in the fused solver's --factor dense configuration), with
+   ``torch.matmul`` of the forward's bf16 product beside them under
+   split2m;
 4. convergence class at p=4, s=7: f64 "highest" must take 91 iterations —
    fused, merged (streamed metric and ``metric="onthefly"``) and baseline
    alike — f32 "split2m" (fused; merged with ``--windowing reshape``) and
@@ -58,7 +66,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``edge_witness``'s readings showing that floor; and PARITY_REDUCED
    (PARITY.md:91-96): the fused auto path under split3 at p=4 s=7, p=5
    s=6, p=6 s=4, under bf16 (bf16 state and metric) at p=6 s=4 and p=4
-   s=7, and the merged solver under split3 at p=4 s=7;
+   s=7, and the merged solver under split3 at p=4 s=7; the merged solver
+   under split2m (B3 on the dense tensor-core pass) at p=5 s=6 and p=6
+   s=4, the f64 count + 0..3 (PARITY_SPLIT);
 5. the paths, each with the kernels' launch counters zeroed just before and
    read just after:
    - the fused path ``benchmark.run_one(4, 13, solver="fused",
@@ -98,6 +108,13 @@ Phases (each raises on failure, so any failure exits nonzero):
      split2m fused path; under each, short merged runs on reshape, pieces
      and zslab (B3, B5, B6), and the fused auto path short at p=6 s=12,
      p=8 s=11 and at every degree 5..11 (s=6);
+   - the dense tensor-core pass: ``run_one(6, 12, solver="merged",
+     precision="split2m")`` at full depth (B3), at p=6 s=12 and p=8 s=11
+     under each rung short runs of merged reshape, pieces, zslab (B3, B5,
+     B6) and the fused solver with ``factor="dense"`` (B1, B2), and at
+     every degree 5..11 (s=6) under each rung merged reshape and the fused
+     --factor dense, to p=8 also merged pieces and zslab and baseline on
+     one windowing (reshape, pieces, zslab in turn);
    then the solutions of the three p=4 s=13 paths and of bench.py's two
    variant paths are checked for shape, finiteness, and their true
    residual against the solver's estimate;
@@ -108,7 +125,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    split2m times; at p >= 5 fields with the suffix ``_p6``, ``_p8``
    (B1/B2 also ``_p8_f64``, and ``_split2m_p6``, ``_split2m_p8`` for the
    split2m auto path; ``_split3``, ``_bf16`` and with ``_p6``, ``_p8``
-   for the reduced rungs), each timed at the (p, s) of the drive that
+   for the reduced rungs; ``_dense_split2m_p6``, ``_dense_split3_p8``,
+   ... for the dense tensor-core pass, B3's with ``matmul_ms``), each
+   timed at the (p, s) of the drive that
    gives its launches; each row with the bound of its work on this card,
    from the shapes), the build time and the script's wall time, and,
    last, the device JSON line.
@@ -240,6 +259,30 @@ PARITY_REDUCED = ((4, 7, "split3", range(91, 96)),
                   (6, 4, "split3", range(75, 79)),
                   (6, 4, "bf16", range(1, 101)),
                   (4, 7, "bf16", None))
+
+
+# the tensor-core rungs' dense pass past p=4 (csrc/apply_mma_hd.cuh, one
+# source a degree and rung, apply_mma_pNN.cu): (precision, B1/B2's state
+# dtype, metric dtype, key suffix).  Phase 3 compares B3/B5/B6 (B5 also on
+# the twostage operator of the merged solver's --windowing pieces) and
+# B1/B2 dense (the metric streamed and rebuilt) with their plain versions
+# at every degree 5..11 on the RAGGED box under each, bf16 with the bf16
+# state and metric at TOL_BF16 (its control must miss), and times them at
+# FULL_HIGH, split2m in full and split3 and bf16 short (DENSE_INNER);
+# phase 4 checks the merged solver under split2m at PARITY_SPLIT; phase 5
+# drives the merged solver under split2m at p=6 s=12 at full depth, the
+# timed kernels' paths short at FULL_HIGH, and merged/baseline on every
+# windowing and the fused solver's --factor dense short at every degree
+# 5..11 on every rung (the last two paths only from p=9)
+DENSE_RUNGS = (("split2m", torch.float32, None, "_dense_split2m"),
+               ("split3", torch.float32, None, "_dense_split3"),
+               ("bf16", torch.bfloat16, torch.bfloat16, "_dense_bf16"))
+DENSE_INNER = {"split2m": 10, "split3": 3, "bf16": 3}
+WINDOWINGS_EVERY = ("reshape", "pieces", "zslab")
+WINDOWED_KERNEL = {"reshape": "apply_local_batched_g",
+                   "pieces": "apply_lattice_pieces",
+                   "zslab": "apply_lattice_zslab"}
+DENSE_MAIN = (6, 12)  # the merged split2m drive at full depth
 
 
 def sumfac_fma(p: int, q: int) -> int:
@@ -993,6 +1036,150 @@ def compare_reduced_box(fk, la, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def dense_ops(layout, rung, state, mdt, dev) -> dict:
+    """The dense pass's operators on ``layout`` under a tensor-core rung:
+    B1/B2's in the dense factorization with the metric streamed ("p") and
+    rebuilt ("o"), the apply family's (dense, streamed: "a") and the merged
+    solver's on --windowing pieces from p=5 (twostage, streamed: "t"), the
+    last two with an f32 state."""
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    def apply_op(factor):
+        return laplace_cuda.make_operator(
+            layout, torch.float32, rung, factor=factor, metric="precomputed",
+            windowing="pieces", device=dev, metric_dtype=mdt)
+
+    return {"p": reduced_op(0, 0, rung, state, mdt, dev,
+                            ("dense", "precomputed", "adjj"), layout),
+            "o": reduced_op(0, 0, rung, state, mdt, dev,
+                            ("dense", "onthefly", "adjj"), layout),
+            "a": apply_op("dense"), "t": apply_op("twostage")}
+
+
+def dense_cases(fk, la, ops, state, seed: int) -> dict:
+    """(kernel call, plain call, control call or None) of B1/B2 on
+    ``ops["p"]`` and ``ops["o"]`` (keys ``matvec[p]``, ...), B3/B5/B6 on
+    ``ops["a"]`` and B5 on ``ops["t"]`` (``apply_lattice_pieces[t]``)."""
+    out = {}
+    for m in ("p", "o"):
+        for name, c in reduced_cases(fk, ops[m], state, seed).items():
+            out[f"{name}[{m}]"] = c
+    (u,) = random_state(ops["a"], 1, seed=seed + 1)
+    u_loc = la.to_cell_batches(u, ops["a"].degree).contiguous()
+    out.update(apply_cases(la, ops["a"], u, u_loc))
+    pieces = apply_cases(la, ops["t"], u, u_loc)["apply_lattice_pieces"]
+    out["apply_lattice_pieces[t]"] = pieces
+    return out
+
+
+def compare_dense_box(fk, la, dev) -> None:
+    """Phase 3 for the dense pass at p=5..11: every case of
+    :func:`dense_cases` against its plain version on the RAGGED box under
+    each rung of DENSE_RUNGS (:func:`compare_rung`'s tolerances and, under
+    bf16, controls; the bf16 state's rounding point,
+    :func:`check_rounding_point`).  One line per degree; raises on the first
+    disagreement."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+
+    for p in HIGH_DEGREES:
+        layout = DofLayout(BoxMesh(RAGGED, 0.25), p)
+        worst, bf16 = {}, {}
+        for rung, state, mdt, sfx in DENSE_RUNGS:
+            ops = dense_ops(layout, rung, state, mdt, dev)
+            for name, (kern, plain, ctl) in dense_cases(
+                    fk, la, ops, state, 150 + p).items():
+                r = compare_rung(name.split("[")[0], kern(), plain(), rung,
+                                 f"p={p} {rung} dense {name}", quiet=True,
+                                 control=ctl and ctl())
+                key = f"{rung} {name}"
+                worst[key] = max(worst.get(key, 0.0), r["rel"])
+                note(bf16, r)
+            if state == torch.bfloat16:
+                note(bf16, {"unrounded": check_rounding_point(
+                    ops["p"], 160 + p, f"p={p} {rung} dense", quiet=True)})
+            del ops
+        print(f"  p={p} dense tensor-core pass ragged {RAGGED}: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+        print(f"  p={p} dense bf16: rel L2 <= {bf16['l2']:.2e} (tol "
+              f"{TOL_BF16[0]:.0e}), scal <= {bf16['scal']:.2e}; controls: "
+              f"split2m's product set rel L2 >= {bf16['control']:.2e}, the "
+              f"unrounded d' scal >= {bf16['unrounded']:.2e}")
+        torch.cuda.empty_cache()
+
+
+def time_dense(fk, la, dev, timing, p: int, s: int, rung, state,
+               mdt) -> dict:
+    """The dense pass at the full-width point (p, s) under a tensor-core
+    rung: B1/B2 in the fused solver's --factor dense configuration, B3/B5/B6
+    on the merged solver's dense operator, each compared with its plain
+    version, then both timed in turns (DENSE_INNER launches a repeat).
+    Returns name -> ((kernel ms, plain ms), (bound ms, bound by), max
+    |diff|), the B1/B2 configuration under "config" and, under split2m,
+    ``torch.matmul``'s time of the forward's bf16 product at the padded
+    shapes, (3 Q3P, P13P) x (P13P, 3 n_cells), under "matmul_ms"."""
+    from mf_data_locality_tpu_torch import benchmark
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    layout = DofLayout(BoxMesh.from_s(s), p)
+    config = benchmark.resolve_config(p, "fused", "pieces", rung, state,
+                                      factor="dense", metric_dtype=mdt)
+    op = reduced_op(p, s, rung, state, mdt, dev, config, layout)
+    opa = laplace_cuda.make_operator(layout, torch.float32, rung,
+                                     factor="dense", metric="precomputed",
+                                     windowing="reshape", device=dev,
+                                     metric_dtype=mdt)
+    (u,) = random_state(opa, 1, seed=170)
+    u_loc = la.to_cell_batches(u, p).contiguous()
+    cases = {**reduced_cases(fk, op, state, 171),
+             **apply_cases(la, opa, u, u_loc)}
+    out = {"config": config}
+    tag = f"p={p} s={s} {rung} dense"
+    for name, (kern, plain, ctl) in cases.items():
+        diff = compare_rung(name, kern(), plain(), rung, tag,
+                            control=ctl and ctl())["diff"]
+        t = time_pair(kern, plain, dev, timing, inner=DENSE_INNER[rung])
+        b = bound(name, op if name in ("matvec", "fused_cg_iteration")
+                  else opa, split=True, state=state)
+        print(f"  {name} {tag}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), share {b[0] / t[0]:.3f}")
+        out[name] = t, b, diff
+    if rung == "split2m":
+        q3p, p13p = laplace_cuda.mma_dims(p)
+        m = torch.randn((3 * q3p, p13p), device=dev).to(torch.bfloat16)
+        x = torch.randn((p13p, 3 * op.n_cells), device=dev).to(
+            torch.bfloat16)
+        out["matmul_ms"] = timing.time_per_call(
+            lambda: torch.matmul(m, x), dev, inner=10, repeats=3) * 1e3
+        print(f"  torch.matmul of the forward's bf16 product {tuple(m.shape)}"
+              f" x {tuple(x.shape)} (a yardstick, not the function): "
+              f"{out['matmul_ms']:.4f} ms")
+        del m, x
+    del op, opa, u, u_loc, cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_merged_split(bp4, dev) -> None:
+    """Phase 4 for the dense pass: the merged solver under f32 split2m
+    (reshape, B3 on the tensor-core pass) at PARITY_SPLIT, the f64 count +
+    0..3 and converged, as PARITY_SPLIT holds the fused path."""
+    for p, s, n64 in PARITY_SPLIT:
+        pb = bp4.build(s, p, torch.float32, "split2m", device=dev)
+        res = bp4.solve_merged(pb)
+        hist = res.res_history.cpu().numpy()
+        print(f"p={p} s={s} merged f32 split2m (reshape, {pb.op.factor}, "
+              f"{pb.op.metric}): itCG {res.n_iterations}, converged "
+              f"{res.converged}, residual "
+              f"{hist[res.n_iterations] / hist[0]:.3e} res0")
+        if not (res.converged and res.n_iterations in range(n64, n64 + 4)):
+            raise AssertionError(f"p={p} s={s} merged split2m: itCG "
+                                 f"{res.n_iterations} not in "
+                                 f"{n64}..{n64 + 3}")
+
+
 def note(acc: dict, r: dict) -> None:
     """Fold :func:`compare_rung`'s readings ``r`` into ``acc``: the largest
     rel L2 and scalars' err, the smallest readings of the controls."""
@@ -1095,9 +1282,10 @@ def main() -> int:
             entry = line.split("for ")[-1].strip()
         elif re.search(r"[1-9]\d* bytes spill", line):
             print("  ptxas:", entry[:72], line.strip())
-        elif "registers" in line and "mma" in entry:
-            kern = re.search(r"(apply_mma|cells_mma_hd|cells_mma)_kernel",
-                             entry)[1]
+        elif "registers" in line and ("mma" in entry or "dense_hd" in entry):
+            kern = re.search(r"(apply_mma|cells_mma_hd|cells_mma|dense_hd_"
+                             r"gather|dense_hd_forward|dense_hd_backward)"
+                             r"_kernel", entry)[1]
             n_prod = re.findall(r"Li(\d+)E", entry)[-1]
             regs.setdefault((kern, n_prod), []).append(
                 int(re.search(r"(\d+) registers", line)[1]))
@@ -1240,6 +1428,14 @@ def main() -> int:
         for p, s, x in FULL_HIGH:
             reduced[sfx + x] = time_reduced(fk, dev, timing, p, s, rung,
                                             state, mdt)
+    print(f"kernels vs plain, the dense tensor-core pass at p="
+          f"{HIGH_DEGREES[0]}..{HIGH_DEGREES[-1]} (split2m, split3, bf16):")
+    compare_dense_box(fk, la, dev)
+    dense_hi = {}  # rung's suffix + p's -> name -> (times, bound, diff)
+    for rung, state, mdt, sfx in DENSE_RUNGS:
+        for p, s, x in FULL_HIGH:
+            dense_hi[sfx + x] = time_dense(fk, la, dev, timing, p, s, rung,
+                                           state, mdt)
 
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
     for dtype, precision, allowed in ((torch.float64, "highest", (91,)),
@@ -1334,6 +1530,7 @@ def main() -> int:
     parity_high(benchmark, bp4, dev)
     parity_split(benchmark, bp4, dev)
     parity_reduced(benchmark, bp4, dev)
+    parity_merged_split(bp4, dev)
 
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
@@ -1520,6 +1717,59 @@ def main() -> int:
             drive(f"fused auto ({rung})", S_EVERY, b1b2, degree=p, **kw,
                   **tiny)
 
+    # the dense tensor-core pass past p=4: the merged solver under split2m
+    # at DENSE_MAIN at full depth (B3), and at each full-width point and
+    # rung short runs of the timed kernels' paths (their counts are the
+    # rows' launches there); then at every degree 5..11 on every rung the
+    # merged solver on each windowing, the baseline solver on one
+    # (rotating) and the fused solver's --factor dense, short (p >= 9: the
+    # merged reshape and the fused paths only)
+    launches_dh = {sfx: {} for sfx in dense_hi}
+    r_dense_main = None
+    for rung, state, mdt, sfx in DENSE_RUNGS:
+        fused_dense = dict(solver="fused", windowing="pieces", precision=rung,
+                           dtype=state, metric_dtype=mdt, factor="dense")
+        for p, s, x in FULL_HIGH:
+            into = launches_dh[sfx + x]
+            for label, name, kw in (
+                    ("merged reshape", "apply_local_batched_g", {}),
+                    ("merged --windowing pieces (twostage: B5 on the dense "
+                     "M)", "apply_lattice_pieces", dict(windowing="pieces")),
+                    ("merged --windowing zslab", "apply_lattice_zslab",
+                     dict(windowing="zslab"))):
+                main = (rung == "split2m" and (p, s) == DENSE_MAIN
+                        and name == "apply_local_batched_g")
+                r = drive(f"{label}, {rung}", s, (name,), into=into,
+                          degree=p, solver="merged", precision=rung,
+                          metric_dtype=mdt, **kw, **({} if main else short))
+                if main:
+                    r_dense_main = r
+            drive(f"fused --factor dense, {rung} ({str(state)[6:]} state)", s,
+                  b1b2, into=into, degree=p, **fused_dense, **short)
+    if r_dense_main is None or r_dense_main.n_dofs != FULL_DOFS[6]:
+        raise AssertionError(f"the merged split2m drive: {r_dense_main}")
+    print(f"paths at every degree {HIGH_DEGREES[0]}..{HIGH_DEGREES[-1]}, "
+          f"s={S_EVERY}, the dense tensor-core pass (split2m, split3, "
+          f"bf16):")
+    for p in HIGH_DEGREES:
+        for rung, state, mdt, sfx in DENSE_RUNGS:
+            paths = [("merged reshape", ("apply_local_batched_g",),
+                      dict(solver="merged")),
+                     ("fused --factor dense", b1b2,
+                      dict(solver="fused", windowing="pieces", dtype=state,
+                           factor="dense"))]
+            if p < 9:
+                w = WINDOWINGS_EVERY[p % 3]
+                paths += [("merged pieces", ("apply_lattice_pieces",),
+                           dict(solver="merged", windowing="pieces")),
+                          ("merged zslab", ("apply_lattice_zslab",),
+                           dict(solver="merged", windowing="zslab")),
+                          (f"baseline {w}", (WINDOWED_KERNEL[w],),
+                           dict(solver="baseline", windowing=w))]
+            for label, expect, kw in paths:
+                drive(f"{label} {rung}", S_EVERY, expect, degree=p,
+                      precision=rung, metric_dtype=mdt, **kw, **tiny)
+
     # the three p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
     # f32 solves stop at the 100-iteration cap, so the residual is not small)
@@ -1653,6 +1903,22 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_red[sfx][name]})
+        for sfx, tab in dense_hi.items():  # the dense pass, p >= 5
+            if name not in tab:
+                continue
+            (k, pl), (bms, by), err = tab[name]
+            p, s = next((p, s) for p, s, x in FULL_HIGH if sfx.endswith(x))
+            row.update({f"source{sfx}": CSRC + f"apply_mma_p{p:02d}.cu",
+                        f"p_s{sfx}": [p, s], f"ms{sfx}": k,
+                        f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
+                        f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
+                        f"launches{sfx}": launches_dh[sfx][name]})
+            if name in b1b2:
+                row[f"config{sfx}"] = list(tab["config"])
+            if name == "apply_local_batched_g" and "matmul_ms" in tab:
+                # torch.matmul of the forward's bf16 product alone: a
+                # yardstick, not one call that computes the function
+                row[f"matmul_ms{sfx}"] = tab["matmul_ms"]
         for sfx, times_hi in (*high.items(), *split_hi.items()):  # p >= 5
             if name not in times_hi:
                 continue

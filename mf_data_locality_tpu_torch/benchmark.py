@@ -24,18 +24,18 @@ degrees 1..11 every (factor, metric) pair — dense or twostage, the metric
 streamed or rebuilt by either chain, ``--cofactor adjj|jtj`` (the auto
 path at p >= 5 is twostage + the streamed metric) —; under the
 tensor-core rungs ``split2m``, ``split3`` and ``bf16`` the dense pair at
-degrees 1..4 (adjj) and twostage with either metric at 4..11, the rebuilt
-one by either chain (the auto path from p=5 is twostage + onthefly +
-jtj).  ``--dtype bf16`` (the fused solver under ``--precision bf16``)
-stores d and h in bf16; ``--metric-dtype bf16`` (``split3``, ``bf16``)
-streams the metric in bf16.  Other unported choices raise
-NotImplementedError naming their ROADMAP item (queues A and B), with no
-fallback to another rung or to the plain version: the tensor-core rungs'
-dense pass at p >= 5 (the merged and baseline solvers, the fused solver's
-dense factorization), their twostage pass at p=1..3, jtj in their dense
-pass, a bf16 state under another rung or in the merged and baseline
-solvers, a bf16 metric under ``highest`` and ``split2m``.  ``s < 1`` runs
-the reference's auto size ladder.
+degrees 1..11 (adjj) and twostage with either metric at 4..11, the
+rebuilt one by either chain (the auto path from p=5 is twostage +
+onthefly + jtj); the merged and baseline solvers on every windowing at
+every degree and rung.  ``--dtype bf16`` (the fused solver under
+``--precision bf16``) stores d and h in bf16; ``--metric-dtype bf16``
+(``split3``, ``bf16``) streams the metric in bf16.  Other unported
+choices raise NotImplementedError naming their ROADMAP item (queues A and
+B), with no fallback to another rung or to the plain version: the
+tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass, a
+bf16 state under another rung or in the merged and baseline solvers, a
+bf16 metric under ``highest`` and ``split2m``.  ``s < 1`` runs the
+reference's auto size ladder.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until

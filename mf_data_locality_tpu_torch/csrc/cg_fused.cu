@@ -42,7 +42,10 @@
 //   instantiated here, the others in mma_rungs.cu and cell_mma_pNN.cu):
 //   - dense, p=1..4: the tensor-core pass of apply_mma.cuh in its lattice
 //     forms, 32 cells a block, the metric streamed or rebuilt (adjj) per
-//     chunk of 16 q-points into shared memory;
+//     chunk of 16 q-points into shared memory; p=5..11: that of
+//     apply_mma_hd.cuh (a gather, a forward and a backward GEMM-shaped
+//     kernel tiled in cells and nodes through the workspace's `scratch`;
+//     built in apply_mma_p05.cu .. apply_mma_p11.cu, once per rung);
 //   - twostage + onthefly (adjj or jtj), p=4: one block per 16 cells, the
 //     2D stage on the tensor cores (cell_mma.cuh);
 //   - twostage, p=5..11 (the metric rebuilt by either chain or streamed)
@@ -69,6 +72,7 @@
 #include <type_traits>
 
 #include "apply_mma.cuh"
+#include "apply_mma_hd.cuh"
 #include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
 #include "cell_mma.cuh"
@@ -80,12 +84,13 @@ namespace bp4 {
 // dense, cofactor, tb.gmetric null or not); each writes the masked
 // cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
 // highest, the sum-factorized pass; 1..3: the tensor-core rungs.  -1: no
-// instantiation (the tensor-core rungs: dense at p <= 4 with adjj,
-// twostage at p >= 4).
+// instantiation (the tensor-core rungs: dense with adjj, twostage at
+// p >= 4).  scratch: the dense tensor-core pass's at p >= 5.
 template <typename T, int P, bool FUSED>
 cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
-                         const CellIo<T>& io, T* cells, cudaStream_t st) {
+                         const CellIo<T>& io, T* cells, void* scratch,
+                         cudaStream_t st) {
   constexpr int FORM = FUSED ? kLatticeUpdate : kLattice;
   if (!rung) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
@@ -97,25 +102,30 @@ cudaError_t launch_cells(int rung, int dense, int cofactor,
   if constexpr (std::is_same_v<T, float>) {
     return with_rung(rung, [&](auto np) {
       constexpr int NP = decltype(np)::value;
-      if constexpr (P <= 4) {
-        if (dense) {
-          if (cofactor != kAdjj) return none;
-          // the forward table, then the backward one
-          // (laplace_cuda.mma_tables)
-          const auto mf = reinterpret_cast<const uint2*>(tb.mats);
-          const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
-          MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
-          x.metric_bf16 = tb.metric_bf16;
+      if (dense) {
+        if (cofactor != kAdjj) return none;
+        // the forward table, then the backward one
+        // (laplace_cuda.mma_tables)
+        const auto mf = reinterpret_cast<const uint2*>(tb.mats);
+        const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
+        MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
+        x.metric_bf16 = tb.metric_bf16;
+        if constexpr (P <= 4)
           return tb.gmetric ? launch_mma<P, FORM, false, NP>(
                                   mf, mb, tb.gmetric, gr, nullptr, io.d,
                                   cells, x, st)
                             : launch_mma<P, FORM, true, NP>(
                                   mf, mb, nullptr, gr, nullptr, io.d, cells,
                                   x, st);
-        }
+        else
+          return tb.gmetric ? launch_mma_hd<P, FORM, false, NP>(
+                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
+                                  cells, x, scratch, st)
+                            : launch_mma_hd<P, FORM, true, NP>(
+                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
+                                  x, scratch, st);
       }
       if constexpr (P >= 4) {
-        if (dense) return none;
         if (tb.gmetric)
           return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP>(tb, gr, io,
                                                                  cells, st);
@@ -206,13 +216,13 @@ template <typename T, int P>
 struct Launch {
   static int matvec(int rung, int dense, int cofactor, int store,
                     const OpTables<T>& tb, const Grid& gr, const T* d,
-                    T* cells, T* h, cudaStream_t st) {
+                    T* cells, T* h, void* scratch, cudaStream_t st) {
     if (store && rung != 1) return -1;
     CellIo<T> io{};
     io.d = d;
     io.bf16 = store;
     cudaError_t e = launch_cells<T, P, false>(rung, dense, cofactor, tb, gr,
-                                              io, cells, st);
+                                              io, cells, scratch, st);
     if (e != cudaSuccess) return e;
     return launch_assemble<T, P, false>(store, gr, cells, h, nullptr, nullptr,
                                         nullptr, nullptr, st);
@@ -222,12 +232,12 @@ struct Launch {
                    const OpTables<T>& tb, const Grid& gr, const T* x,
                    const T* g, const T* d, const T* h, const T* prec,
                    const T* scal, T* x2, T* g2, T* d2, T* h2, T* scal2,
-                   T* cells, T* partials, cudaStream_t st) {
+                   T* cells, T* partials, void* scratch, cudaStream_t st) {
     if (store && rung != 1) return -1;
     CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
     io.bf16 = store;
     cudaError_t e = launch_cells<T, P, true>(rung, dense, cofactor, tb, gr,
-                                             io, cells, st);
+                                             io, cells, scratch, st);
     if (e != cudaSuccess) return e;
     const int nb = node_blocks(gr);
     e = launch_assemble<T, P, true>(store, gr, cells, h2, g2, d2, prec,
@@ -282,8 +292,10 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // a tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).
 // Instantiated: f32 and f64 "highest" at degrees 1..11 (mats unused,
 // coeffs (24, n_cells)); f32 on the tensor-core rungs: dense at degrees
-// 1..4 with cofactor adjj (dense = 1: mats the bf16 fragment tables of
-// apply_mma.cuh, coeffs (24, n_cells)), and twostage at degrees 4..11
+// 1..11 with cofactor adjj (dense = 1: mats the bf16 fragment tables of
+// the dense M, coeffs (24, n_cells); from p=5 scratch holds
+// bp4_dense_scratch_len 16-byte words, else it is unused), and twostage
+// at degrees 4..11
 // (dense = 0: mats the bf16 fragment tables of the 2D stage, coeffs
 // (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), in bf16
 // where metric_bf16 is set (split3, bf16), or null for the metric rebuilt
@@ -303,7 +315,8 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
                int store, int metric_bf16, const void* mats, const void* sz,
                const void* dz, const void* pds, const void* w3,
                const void* coeffs, const void* gmetric, const void* d,
-               void* cells, void* h, int ncz, int ncy, int ncx, void* stream) {
+               void* cells, void* h, void* scratch, int ncz, int ncy, int ncx,
+               void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
@@ -312,7 +325,7 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
       rung, dense, cofactor, store,                                        \
       tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr, \
       static_cast<const T*>(d), static_cast<T*>(cells), static_cast<T*>(h), \
-      st)
+      scratch, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_MATVEC, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !rung) BP4_DEGREES(double)
@@ -329,7 +342,8 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
                         const void* d, const void* h, const void* prec,
                         const void* scal, void* x2, void* g2, void* d2,
                         void* h2, void* scal2, void* cells, void* partials,
-                        int ncz, int ncy, int ncx, void* stream) {
+                        void* scratch, int ncz, int ncy, int ncx,
+                        void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
@@ -342,7 +356,7 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
       static_cast<T*>(x2), static_cast<T*>(g2), static_cast<T*>(d2),          \
       static_cast<T*>(h2), static_cast<T*>(scal2), static_cast<T*>(cells),    \
-      static_cast<T*>(partials), st)
+      static_cast<T*>(partials), scratch, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !rung) BP4_DEGREES(double)

@@ -11,9 +11,13 @@
 // Which cell pass runs (precision: laplace_pallas._mm):
 //   B3, B5, B6  "highest", f32 or f64, p=1..11: the sum-factorized pass on
 //               the CUDA cores with the metric streamed, apply_sumfac.cuh;
-//               f32 "split2m", "split3", "bf16", p=1..4: the tensor-core
-//               pass, apply_mma.cuh (split3's and bf16's built in
-//               mma_rungs.cu; their metric may be streamed in bf16);
+//               f32 "split2m", "split3", "bf16": the tensor-core pass,
+//               at p=1..4 apply_mma.cuh (split3's and bf16's built in
+//               mma_rungs.cu), at p=5..11 apply_mma_hd.cuh (its
+//               instantiations in apply_mma_p05.cu .. apply_mma_p11.cu,
+//               built once per rung; the caller's scratch holds its
+//               operands' fragments); their metric may be streamed in bf16
+//               under split3 and bf16;
 //   B4          every rung, exact at the working type as _kernel
 //               (Precision.HIGHEST, :529), p=1..11: the sum-factorized pass
 //               with the metric rebuilt per (cell, q-point) from the 24
@@ -32,6 +36,7 @@
 #include <type_traits>
 
 #include "apply_mma.cuh"
+#include "apply_mma_hd.cuh"
 #include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
 
@@ -39,14 +44,15 @@ namespace bp4 {
 
 // The cell pass of B3, B5 and B6 (streamed metric): under a tensor-core
 // rung (f32 only; rung = its products a tile, 1..3) the tensor-core pass,
-// whose m0/m1 are apply_mma.cuh's bf16 fragment tables and whose metric is
-// bf16 where metric_bf16 is set (split3, bf16); under highest (rung 0) the
-// sum-factorized pass, whose m0/m1 are S and D (Q, P1).
+// whose m0/m1 are the dense M's bf16 fragment tables and whose metric is
+// bf16 where metric_bf16 is set (split3, bf16), from p=5 with `scratch`
+// (dense_hd_scratch_len); under highest (rung 0) the sum-factorized pass,
+// whose m0/m1 are S and D (Q, P1).
 template <typename T, int P, bool LATTICE>
 cudaError_t metric_pass(int rung, int metric_bf16, const void* m0,
                         const void* m1, const void* gmetric, const Grid& gr,
                         const void* mask, const void* u, void* out,
-                        cudaStream_t st) {
+                        void* scratch, cudaStream_t st) {
   const auto gm = static_cast<const T*>(gmetric);
   const auto mm = static_cast<const T*>(mask);
   const auto uu = static_cast<const T*>(u);
@@ -61,13 +67,18 @@ cudaError_t metric_pass(int rung, int metric_bf16, const void* m0,
     return launch_sumfac<T, P, LATTICE ? kLattice : kCellBatch, false>(a, gr,
                                                                        st);
   }
-  if constexpr (std::is_same_v<T, float> && P <= 4) {
+  if constexpr (std::is_same_v<T, float>) {
     return with_rung(rung, [&](auto np) {
+      constexpr int FORM = LATTICE ? kLattice : kCellBatch;
+      constexpr int NP = decltype(np)::value;
       MmaFusedArgs x{};
       x.metric_bf16 = metric_bf16;
-      return launch_mma<P, LATTICE ? kLattice : kCellBatch, false,
-                        decltype(np)::value>(m0, m1, gm, gr, mm, uu, oo, x,
-                                             st);
+      if constexpr (P <= 4)
+        return launch_mma<P, FORM, false, NP>(m0, m1, gm, gr, mm, uu, oo, x,
+                                              st);
+      else
+        return launch_mma_hd<P, FORM, false, NP>(m0, m1, gm, gr, mm, uu, oo,
+                                                 x, scratch, st);
     });
   }
   return static_cast<cudaError_t>(-1);
@@ -95,21 +106,22 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
                        const void* mats, const void* kmats,
                        const void* gmetric, const void* pds, const void* w3,
                        const void* coeffs, const void* u, void* v,
-                       int n_cells, cudaStream_t st) {
+                       void* scratch, int n_cells, cudaStream_t st) {
   const Grid gr{1, 1, n_cells, 1, 1, 1};
   if (dtype == 0)
     return onthefly  // B4 is exact on every rung
                ? rebuilt_pass<float, P>(mats, kmats, pds, w3, coeffs, gr, u, v,
                                         st)
                : metric_pass<float, P, false>(rung, metric_bf16, mats, kmats,
-                                              gmetric, gr, nullptr, u, v, st);
+                                              gmetric, gr, nullptr, u, v,
+                                              scratch, st);
   if (dtype == 1)
     return onthefly
                ? rebuilt_pass<double, P>(mats, kmats, pds, w3, coeffs, gr, u,
                                          v, st)
                : metric_pass<double, P, false>(rung, metric_bf16, mats, kmats,
                                                gmetric, gr, nullptr, u, v,
-                                               st);
+                                               scratch, st);
   return -1;
 }
 
@@ -119,10 +131,11 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
 template <typename T, int P>
 int lattice_typed(int rung, int metric_bf16, const void* mats,
                   const void* kmats, const void* gmetric, const void* mask,
-                  const void* u, void* cells, void* v, const Grid& gr,
-                  cudaStream_t st) {
+                  const void* u, void* cells, void* v, void* scratch,
+                  const Grid& gr, cudaStream_t st) {
   const cudaError_t e = metric_pass<T, P, true>(
-      rung, metric_bf16, mats, kmats, gmetric, gr, mask, u, cells, st);
+      rung, metric_bf16, mats, kmats, gmetric, gr, mask, u, cells, scratch,
+      st);
   if (e != cudaSuccess) return e;
   assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
       gr, static_cast<const T*>(cells), static_cast<T*>(v), nullptr, nullptr,
@@ -134,14 +147,14 @@ template <int P>
 int lattice_for_degree(int dtype, int rung, int metric_bf16,
                        const void* mats, const void* kmats,
                        const void* gmetric, const void* mask, const void* u,
-                       void* cells, void* v, const Grid& gr,
+                       void* cells, void* v, void* scratch, const Grid& gr,
                        cudaStream_t st) {
   if (dtype == 0)
     return lattice_typed<float, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                   mask, u, cells, v, gr, st);
+                                   mask, u, cells, v, scratch, gr, st);
   if (dtype == 1)
     return lattice_typed<double, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                    mask, u, cells, v, gr, st);
+                                    mask, u, cells, v, scratch, gr, st);
   return -1;
 }
 
@@ -150,10 +163,11 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16,
 // dtype: 0 = float32, 1 = float64.  rung: 0 "highest", else the products a
 // tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).  Instantiated:
 // "highest" f32 and f64 at degrees 1..11 (B3, B5, B6: the sum-factorized
-// pass, mats = S, kmats = D), the f32 tensor-core rungs at degrees 1..4
+// pass, mats = S, kmats = D), the f32 tensor-core rungs at degrees 1..11
 // (B3, B5, B6: the tensor-core pass, mats/kmats = its forward and backward
 // fragment tables, split3's Ml tables after them; the metric in bf16 where
-// metric_bf16 is set, split3 and bf16 only); B4 (onthefly: the
+// metric_bf16 is set, split3 and bf16 only; from p=5 scratch holds
+// bp4_dense_scratch_len 16-byte words, else it is unused); B4 (onthefly: the
 // sum-factorized pass, mats = S, kmats = D, pds (Q3, 24), w3, coeffs (24,
 // n_cells)) at degrees 1..11 ignores the rung.
 #define BP4_SWITCH_DEGREE(F)     \
@@ -173,16 +187,39 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16,
 
 extern "C" {
 
+// The scratch of the dense tensor-core pass at degrees 5..11 (B3, B5, B6,
+// B1/B2 dense) under the rung with `rung` products a tile, for n_cells
+// cells, in 16-byte words; 0 where the pass needs none.
+int bp4_dense_scratch_len(int rung, int degree, int n_cells) {
+#define BP4_SCRATCH(P)                                                 \
+  static_cast<int>(                                                    \
+      rung == 1   ? bp4::dense_hd_scratch_len<P, 1>(n_cells)           \
+      : rung == 2 ? bp4::dense_hd_scratch_len<P, 2>(n_cells)           \
+                  : bp4::dense_hd_scratch_len<P, 3>(n_cells))
+  if (rung < 1 || rung > 3) return 0;
+  switch (degree) {
+    case 5: return BP4_SCRATCH(5);
+    case 6: return BP4_SCRATCH(6);
+    case 7: return BP4_SCRATCH(7);
+    case 8: return BP4_SCRATCH(8);
+    case 9: return BP4_SCRATCH(9);
+    case 10: return BP4_SCRATCH(10);
+    case 11: return BP4_SCRATCH(11);
+  }
+#undef BP4_SCRATCH
+  return 0;
+}
+
 int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
                       int metric_bf16, const void* mats, const void* kmats,
                       const void* gmetric, const void* pds, const void* w3,
-                      const void* coeffs, const void* u, void* v, int n_cells,
-                      void* stream) {
+                      const void* coeffs, const void* u, void* v,
+                      void* scratch, int n_cells, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define BP4_BATCHED(P)                                                      \
-  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16, mats,      \
-                             kmats, gmetric, pds, w3, coeffs, u, v, n_cells, \
-                             st)
+#define BP4_BATCHED(P)                                                       \
+  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16, mats,       \
+                             kmats, gmetric, pds, w3, coeffs, u, v, scratch, \
+                             n_cells, st)
   BP4_SWITCH_DEGREE(BP4_BATCHED)
 #undef BP4_BATCHED
   return -1;
@@ -191,13 +228,14 @@ int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
 int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
                       const void* mats, const void* kmats, const void* gmetric,
                       const void* mask, const void* u, void* cells, void* v,
-                      int ncz, int ncy, int ncx, void* stream) {
+                      void* scratch, int ncz, int ncy, int ncx,
+                      void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bp4::Grid gr{ncz, ncy, ncx, degree * ncz + 1, degree * ncy + 1,
                      degree * ncx + 1};
 #define BP4_LATTICE(P)                                                      \
   bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, mats, kmats, gmetric, \
-                             mask, u, cells, v, gr, st)
+                             mask, u, cells, v, scratch, gr, st)
   BP4_SWITCH_DEGREE(BP4_LATTICE)
 #undef BP4_LATTICE
   return -1;

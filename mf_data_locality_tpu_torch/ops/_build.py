@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels (``csrc/``) at first use.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
-sources at once in parallel processes (the sum-factorized pass and the
-twostage tensor-core pass of each degree 5..11 have a source of their
-own, ``sumfac_pNN.cu`` and ``cell_mma_pNN.cu``, the largest
-instantiations; the tensor-core sources of :data:`RUNG_BUILDS` are
+sources at once in parallel processes (the sum-factorized pass, the
+twostage tensor-core pass and the dense tensor-core pass of each degree
+5..11 have a source of their own, ``sumfac_pNN.cu``, ``cell_mma_pNN.cu``
+and ``apply_mma_pNN.cu``, the largest instantiations; the tensor-core
+sources of :data:`RUNG_BUILDS` are
 compiled once per rung, ``-DBP4_RUNG=n``), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
@@ -33,25 +34,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # sources compiled once per rung, -DBP4_RUNG=n with n the products a tile
 # (1 bf16, 2 split2m, 3 split3), so that nvcc builds the rungs in parallel:
-# the twostage tensor-core pass at p=5..11 on every rung, and the
-# tensor-core passes at p <= 4 on the rungs other than split2m (whose
-# instantiations stay in cg_fused.cu and laplace_apply.cu)
+# the twostage and the dense tensor-core passes at p=5..11 on every rung,
+# and the tensor-core passes at p <= 4 on the rungs other than split2m
+# (whose instantiations stay in cg_fused.cu and laplace_apply.cu)
 RUNG_BUILDS = {"mma_rungs.cu": (1, 3),
-               **{f"cell_mma_p{p:02d}.cu": (1, 2, 3) for p in range(5, 12)}}
+               **{f"{pass_}_p{p:02d}.cu": (1, 2, 3)
+                  for pass_ in ("cell_mma", "apply_mma")
+                  for p in range(5, 12)}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "bp4_partials_len": (_I, [_I] * 4),
     "bp4_error_string": (ctypes.c_char_p, [_I]),
+    # rung, degree, cells
+    "bp4_dense_scratch_len": (_I, [_I] * 3),
     # dtype, rung, degree, dense, cofactor, bf16 state, bf16 metric; the
-    # tables and vectors; the cells per axis; the stream
-    "bp4_matvec": (_I, [_I] * 7 + [_P] * 10 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 7 + [_P] * 20 + [_I] * 3 + [_P]),
+    # tables, vectors and the dense pass's scratch; the cells per axis; the
+    # stream
+    "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 7 + [_P] * 21 + [_I] * 3 + [_P]),
     # dtype, rung, degree, onthefly, bf16 metric; ...
-    "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 8 + [_I] + [_P]),
+    "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
     # dtype, rung, bf16 metric, degree; ...
-    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 7 + [_I] * 3 + [_P]),
+    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 8 + [_I] * 3 + [_P]),
 }
 
 

@@ -16,8 +16,8 @@ The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
 ``op.cofactor``; ``laplace_cuda.fused_configs``): the dense factorization
 or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
 from the coefficients by the adjj or the jtj chain, at degrees 1..11
-(the tensor-core rungs split2m, split3, bf16: dense at 1..4 with adjj,
-twostage at 4..11).  Under bf16, d and h (in and out) may be stored in
+(the tensor-core rungs split2m, split3, bf16: dense with adjj, twostage
+at 4..11).  Under bf16, d and h (in and out) may be stored in
 bf16 — the bf16 state —, x, g, the preconditioner and the scalars at f32.  Each wrapper runs
 the hand-written CUDA
 kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
@@ -31,8 +31,11 @@ for tensors on the CPU; other devices raise.  The kernel's cell pass:
   function, which it sums in another order than the plain versions;
 * f32 ``split2m``, ``split3``, ``bf16`` (the rung a template parameter
   of each tensor-core pass, its products a tile), dense: the tensor-core
-  pass of ``csrc/apply_mma.cuh`` on the bf16 tables ``op.mma_mats`` of
-  the dense M, the metric streamed or rebuilt;
+  pass of ``csrc/apply_mma.cuh`` (p=1..4) or ``csrc/apply_mma_hd.cuh``
+  (p=5..11, built one source a degree and rung, ``csrc/apply_mma_p05.cu``
+  .. ``apply_mma_p11.cu``, its operands' fragments in
+  :func:`dense_scratch`) on the bf16 tables ``op.mma_mats`` of the dense
+  M, the metric streamed or rebuilt;
 * the same rungs, twostage + onthefly at p=4: the tensor-core pass of
   ``csrc/cell_mma.cuh`` on the 2D stage's tables;
 * the same rungs, twostage at p=5..11 (either metric, either chain) and
@@ -210,7 +213,8 @@ def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
 def _cell_apply_mma_emulated(op: OperatorData,
                              u: torch.Tensor) -> torch.Tensor:
     """The tensor-core cell passes' arithmetic in plain PyTorch, for the
-    tests.  Dense (``csrc/apply_mma.cuh`` in its lattice forms):
+    tests.  Dense (``csrc/apply_mma.cuh``, ``csrc/apply_mma_hd.cuh`` in
+    their lattice forms):
     ``laplace_apply._batched_mma_emulated`` on the cells with the streamed
     or rebuilt metric.  Twostage (``csrc/cell_mma.cuh`` at p=4,
     ``csrc/cell_mma_hd.cuh``): the 2D matrices from their packed bf16
@@ -228,7 +232,7 @@ def _cell_apply_mma_emulated(op: OperatorData,
     p, q = op.degree, op.n_q
     p1, q2, qe = p + 1, q * q, q + q % 2
     q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
-    tables = mma_parts(op)
+    tables = mma_parts(op, op.mma_mats, op.factor)
     cells = torch.nn.functional.pad(_cells(op, u), (0, p12p - p1 * p1))
     sz, dz = (torch.nn.functional.pad(m, (0, 0, 0, qe - q))
               for m in (op.sz, op.dz))
@@ -264,12 +268,13 @@ def _cell_apply_mma_emulated(op: OperatorData,
     return v
 
 
-def mma_parts(op: OperatorData) -> list[tuple[torch.Tensor, torch.Tensor]]:
+def mma_parts(op: OperatorData, tables: torch.Tensor,
+              factor: str) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """The (forward's, backward's) padded bf16 matrices of each matrix part
-    that ``op.mma_mats`` packs (Mh; under split3 also Ml)."""
-    return [laplace_cuda.unpack_mma_tables(op.mma_mats, op.degree, op.factor,
-                                           part)
-            for part in range(op.mma_mats.shape[0] // 2)]
+    that ``tables`` (of ``factor``'s matrix, :func:`laplace_cuda.mma_tables`)
+    packs (Mh; under split3 also Ml)."""
+    return [laplace_cuda.unpack_mma_tables(tables, op.degree, factor, part)
+            for part in range(tables.shape[0] // 2)]
 
 
 def _cell_apply_sumfac_emulated(op: OperatorData,
@@ -492,6 +497,27 @@ class Workspace:
         self.partials = torch.empty((n,), dtype=op.dtype, device=op.device)
 
 
+def dense_scratch(op: OperatorData) -> int | None:
+    """The pointer to the scratch of the dense tensor-core pass at p >= 5
+    (``csrc/apply_mma_hd.cuh``: its operands' fragments, the
+    ``bp4_dense_scratch_len`` 16-byte words of ``op``'s rung, degree and
+    cells), allocated once an operator and kept in ``op.cache``; None
+    where the pass needs none."""
+    n = _build.load().bp4_dense_scratch_len(rung_args(op)[0], op.degree,
+                                            op.n_cells)
+    if not n:
+        return None
+    if "dense_scratch" not in op.cache:
+        op.cache["dense_scratch"] = torch.empty((n, 4), dtype=torch.int32,
+                                                device=op.device)
+    return op.cache["dense_scratch"].data_ptr()
+
+
+def _b12_scratch(op: OperatorData) -> int | None:
+    # B1/B2 run the dense pass only in the dense factorization
+    return dense_scratch(op) if op.factor == "dense" else None
+
+
 def matvec(op: OperatorData, d: torch.Tensor, out: torch.Tensor | None = None,
            work: Workspace | None = None) -> torch.Tensor:
     """h = M A M d on a (C, Nz, Ny, Nx) lattice vector (``piece_vmult``)."""
@@ -504,7 +530,8 @@ def matvec(op: OperatorData, d: torch.Tensor, out: torch.Tensor | None = None,
     work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
     rc = lib.bp4_matvec(*_common_args(op, d), d.data_ptr(),
-                        work.cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,
+                        work.cells.data_ptr(), out.data_ptr(),
+                        _b12_scratch(op), ncz, ncy, ncx,
                         torch.cuda.current_stream(d.device).cuda_stream)
     _build.check(lib, rc, "bp4_matvec")
     matvec.launches += 1
@@ -542,7 +569,7 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
         *_common_args(op, d),
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
-        work.partials.data_ptr(), ncz, ncy, ncx,
+        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "bp4_fused_iteration")
     fused_cg_iteration.launches += 1

@@ -24,10 +24,12 @@ is XLA outside the Pallas kernels in JAX.
 Each kernel wrapper runs the hand-written CUDA kernel
 (``csrc/laplace_apply.cu``: B3, B5 and B6 run its sum-factorized pass,
 ``csrc/apply_sumfac.cuh``, on the 1D factors ``op.sz`` and ``op.dz`` under
-``highest``, and its tensor-core pass, ``csrc/apply_mma.cuh``, on the bf16
-tables ``op.mma_mats`` under the f32 tensor-core rungs ``split2m``,
-``split3`` and ``bf16``, the metric streamed in f32 or, under the last two,
-in bf16; B4 the sum-factorized pass with the metric rebuilt from
+``highest``, and its tensor-core pass on the dense M's bf16 tables
+(``laplace_cuda.dense_mma_tables``) under the f32 tensor-core rungs
+``split2m``, ``split3`` and ``bf16`` — ``csrc/apply_mma.cuh`` at p=1..4,
+``csrc/apply_mma_hd.cuh`` at p=5..11 with a scratch for its operands'
+fragments (:func:`dense_scratch`) —, the metric streamed in f32 or, under
+the last two, in bf16; B4 the sum-factorized pass with the metric rebuilt from
 ``op.coeffs`` on every rung) for tensors on a CUDA device and its plain
 PyTorch version (the dense einsum over cells, the same bf16 rounding
 points for the rung) for tensors on the CPU;
@@ -43,12 +45,11 @@ from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
     N_COMPONENTS, _mma_terms, _route, _terms, cell_metric, check_tensors,
-    dtype_code, metric_onthefly, mma_parts, rung_args)
+    dense_scratch, dtype_code, metric_onthefly, mma_parts, rung_args)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
-# degrees instantiated in csrc/laplace_apply.cu: under "highest" (and B4)
-# the reference's table 1..11, under the tensor-core rungs 1..4 (the
-# builders refuse more)
+# degrees instantiated in csrc/laplace_apply.cu: the reference's table
+# 1..11, on every rung
 KERNEL_DEGREES = laplace_cuda.FUSED_DEGREES
 
 
@@ -137,15 +138,16 @@ def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
 
 def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
                           G: torch.Tensor) -> torch.Tensor:
-    """The tensor-core kernel's arithmetic (``csrc/apply_mma.cuh``) in
-    plain PyTorch, for the tests: M from its packed bf16 tables (Mh, and
-    Ml under split3), nodes and q-points zero-padded, the K-stacked
+    """The tensor-core kernels' arithmetic (``csrc/apply_mma.cuh``,
+    ``csrc/apply_mma_hd.cuh``) in plain PyTorch, for the tests: M from its
+    packed bf16 tables (Mh, and Ml under split3; the dense ones whatever
+    ``op.factor`` says), nodes and q-points zero-padded, the K-stacked
     products of the rung (``cg_fused_kernel._mma_terms``; split2m [Mh |
     Mh] [uh; ul] and [Mh | Mh]^T [th; tl]) in f32, t split after the
     metric apply."""
     p13, q3 = (op.degree + 1) ** 3, op.n_q ** 3
     q3p, p13p = laplace_cuda.mma_dims(op.degree)
-    tables = mma_parts(op)
+    tables = mma_parts(op, laplace_cuda.dense_mma_tables(op), "dense")
     nc = u_loc.shape[1]
     u = torch.nn.functional.pad(u_loc.reshape(-1, p13, nc),
                                 (0, 0, 0, p13p - p13))
@@ -218,15 +220,15 @@ def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     """The operator tables the kernels read by pointer, with their shapes
     (and dtype where it is not the operator's), and the two pointers of the
     C interface's matrix slots: for B3/B5/B6 under a tensor-core rung the
-    tensor-core pass's bf16 fragment tables (forward, backward; split3's
-    Ml pair follows them), else (B4 on every rung) the sum-factorized
-    pass's 1D factors S and D."""
+    tensor-core pass's bf16 fragment tables of the dense M (forward,
+    backward; split3's Ml pair follows them), else (B4 on every rung) the
+    sum-factorized pass's 1D factors S and D."""
     p1, q3 = op.degree + 1, op.n_q ** 3
     if op.precision in laplace_cuda.TENSOR_RUNGS and not onthefly:
         q3p, p13p = laplace_cuda.mma_dims(op.degree)
-        pairs = [(op.mma_mats, (op.mma_mats.shape[0], 3 * q3p * p13p),
-                  torch.bfloat16)]
-        ptrs = (op.mma_mats[0].data_ptr(), op.mma_mats[1].data_ptr())
+        mm = laplace_cuda.dense_mma_tables(op)
+        pairs = [(mm, (mm.shape[0], 3 * q3p * p13p), torch.bfloat16)]
+        ptrs = (mm[0].data_ptr(), mm[1].data_ptr())
     else:
         pairs = [(op.sz, (op.n_q, p1)), (op.dz, (op.n_q, p1))]
         ptrs = (op.sz.data_ptr(), op.dz.data_ptr())
@@ -251,7 +253,7 @@ def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
         0 if onthefly else metric_bf16, mats, kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
         op.w3.data_ptr(), op.coeffs.data_ptr(), u_loc.data_ptr(),
-        out.data_ptr(), op.n_cells,
+        out.data_ptr(), None if onthefly else dense_scratch(op), op.n_cells,
         torch.cuda.current_stream(u_loc.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_batched")
     return out
@@ -309,7 +311,7 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
         dtype_code(op), *rung_args(op), op.degree, mats, kmats,
         op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
-        cells.data_ptr(), out.data_ptr(), ncz, ncy, ncx,
+        cells.data_ptr(), out.data_ptr(), dense_scratch(op), ncz, ncy, ncx,
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_lattice")
     return out

@@ -9,16 +9,18 @@ Two families of configurations, named by (factor, metric, windowing):
   24 trilinear coefficients per cell (``"onthefly"``, by the inversion
   chain ``cofactor``: "adjj", the adjugate of J, or "jtj", adj(J^T J)
   rsqrt(det)) — every pair and both chains under ``highest`` at degrees
-  1..11; under ``split2m`` the dense pair at 1..4 (adjj) and twostage with
-  either metric (the rebuilt one by either chain) at 4..11; the other
+  1..11; under ``split2m`` the dense pair at 1..11 (adjj) and twostage
+  with either metric (the rebuilt one by either chain) at 4..11; the other
   tensor-core rungs, ``split3`` and ``bf16``, as ``split2m``;
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
   ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``;
-  always by adjj, as ``laplace_pallas._kernel``), at degrees 1..11 under
-  ``highest`` and 1..4 under the tensor-core rungs (``split2m``,
-  ``split3``, ``bf16``).
+  always by adjj, as ``laplace_pallas._kernel``), at degrees 1..11 on
+  every rung (``highest`` and the tensor-core rungs ``split2m``,
+  ``split3``, ``bf16``); from p=5 also twostage on ``pieces``, where the
+  JAX resolvers put the merged and baseline solvers' ``--windowing
+  pieces`` (B5 reads the dense operator whatever the factor says).
 
 The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
@@ -62,12 +64,14 @@ are one 32-byte sector of a q-point's row).  ``mma_mats``
 rounded once to bf16 — under ``split3`` also its bf16 remainder — and
 packed as its fragments (:func:`mma_tables`): ``mats`` for the dense
 factorization (the apply family, and the fused path's dense
-configurations), ``mats2d`` for twostage.  ``factor`` records which.
+configurations), ``mats2d`` for twostage.  ``factor`` records which; the
+apply family reads the dense tables whatever it says
+(:func:`dense_mma_tables`, built once an operator).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -95,23 +99,21 @@ WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
 # the reference's degree table (benchmark.h:290-313): the fused solver's
 # and the apply family's kernels under "highest"; under the tensor-core
-# rungs the dense tensor-core pass (csrc/apply_mma.cuh: B3/B5/B6, B1/B2
-# dense) has the first four, the twostage one of B1/B2 (csrc/cell_mma.cuh
-# at p=4 with the rebuilt metric, csrc/cell_mma_hd.cuh) p=4..11
+# rungs the dense tensor-core pass (B3/B5/B6, B1/B2 dense: csrc/apply_mma.cuh
+# at p=1..4, csrc/apply_mma_hd.cuh at 5..11) has them all, the twostage one
+# of B1/B2 (csrc/cell_mma.cuh at p=4 with the rebuilt metric,
+# csrc/cell_mma_hd.cuh) p=4..11
 FUSED_DEGREES = tuple(range(1, 12))
-SPLIT_DENSE_DEGREES = (1, 2, 3, 4)
 SPLIT_TWOSTAGE_DEGREES = tuple(range(4, 12))
-_DENSE_TODO = ("not ported yet: see ROADMAP.md, queue B item 7c (the "
-               "tensor-core rungs' dense pass at p >= 5: B3/B5/B6 and B1/B2 "
-               "dense)")
 _TWOSTAGE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6f (the "
                   "tensor-core rungs' twostage pass at p=1..3)")
 _JTJ_TODO = ("not ported yet: see ROADMAP.md, queue B item 6c (the jtj "
              "chain in the tensor-core rungs' dense pass)")
-# (factor, metric, windowing) of the apply family; under highest also
-# twostage on pieces, where the JAX resolvers put the merged and baseline
-# solvers' --windowing pieces at p >= 5 (B5 reads the dense operator
-# whatever the factor says: ``laplace_pallas.apply_lattice_pieces``)
+# (factor, metric, windowing) of the apply family; also twostage on pieces,
+# where the JAX resolvers put the merged and baseline solvers' --windowing
+# pieces at p >= 5 (B5 reads the dense operator whatever the factor says:
+# ``laplace_pallas.apply_lattice_pieces``): under highest at every degree,
+# under the tensor-core rungs from p=5 (:func:`apply_configs`)
 APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
                  ("dense", "precomputed", "pieces"),
                  ("dense", "precomputed", "zslab"),
@@ -216,6 +218,10 @@ class OperatorData:
     factor: str = "dense"
     mma_mats: torch.Tensor | None = None
     cofactor: str = "adjj"  # the rebuilt metric's chain (B1/B2; B4: adjj)
+    # what is built once from the fields above: :func:`dense_mma_tables`,
+    # the dense pass's scratch (``cg_fused_kernel.dense_scratch``)
+    cache: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -311,6 +317,33 @@ def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense",
             _from_fragments(tables[2 * part + 1], 3 * rp, cp))
 
 
+def dense_mma_tables(op: OperatorData) -> torch.Tensor:
+    """:func:`mma_tables` of the dense M at ``op.precision``: the apply
+    family's tables (B3/B5/B6) whatever ``op.factor`` says — B5 on a
+    twostage operator (the merged and baseline solvers' ``pieces`` from
+    p=5) reads the dense M, as ``laplace_pallas.apply_lattice_pieces``
+    does —, built from ``op.mats`` once an operator and kept in
+    ``op.cache``; ``op.mma_mats`` where that is the dense one."""
+    if op.factor == "dense":
+        return op.mma_mats
+    if "dense_mma" not in op.cache:
+        op.cache["dense_mma"] = mma_tables(op.mats, op.degree, "dense",
+                                           op.precision)
+    return op.cache["dense_mma"]
+
+
+def apply_configs(precision: str,
+                  degree: int | None = None) -> tuple[tuple[str, str, str],
+                                                       ...]:
+    """The (factor, metric, windowing) triples of the apply family (the
+    merged and baseline solvers) at ``degree`` (None: at any): the dense
+    ones, and twostage on ``pieces`` under ``highest`` and, from p=5, under
+    the tensor-core rungs (the JAX resolvers' ``--windowing pieces``)."""
+    if precision in TENSOR_RUNGS and degree is not None and degree < 5:
+        return APPLY_CONFIGS
+    return APPLY_CONFIGS_HIGHEST
+
+
 def fused_configs(precision: str,
                   degree: int | None = None) -> tuple[tuple[str, str], ...]:
     """The (factor, metric) pairs the fused solver runs on (windowing
@@ -319,8 +352,8 @@ def fused_configs(precision: str,
     one sum-factorized pass computes with the metric streamed or rebuilt,
     at degrees 1..11; under a tensor-core rung (:data:`TENSOR_RUNGS`) each
     factorization's rounding defines the rung, and its tensor-core passes
-    are the dense one at :data:`SPLIT_DENSE_DEGREES` and the twostage one
-    at :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
+    are the dense one at every degree and the twostage one at
+    :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
     one by adjj, and in twostage by jtj too)."""
     def at(degrees, pairs):
         return pairs if degree is None or degree in degrees else ()
@@ -329,8 +362,7 @@ def fused_configs(precision: str,
     twostage = (("twostage", "onthefly"), ("twostage", "precomputed"))
     if precision not in TENSOR_RUNGS:
         return at(FUSED_DEGREES, dense + twostage)
-    return at(SPLIT_DENSE_DEGREES, dense) + at(SPLIT_TWOSTAGE_DEGREES,
-                                               twostage)
+    return dense + at(SPLIT_TWOSTAGE_DEGREES, twostage)
 
 
 def check_config(precision: str, factor: str = "twostage",
@@ -344,12 +376,10 @@ def check_config(precision: str, factor: str = "twostage",
 
     ``solver``: also check that the configuration is the one its solver
     runs on — the fused path on :func:`fused_configs` at ``degree``, the
-    merged and baseline solvers on the apply family.  Without a solver (the
-    builders) the fused configurations of any degree pass: the plain
-    versions take every degree, the kernels check theirs.  ``degree``
-    given: a tensor-core rung past :data:`SPLIT_DENSE_DEGREES` raises
-    unless the configuration is the fused solver's twostage one (no rung
-    falls back to another, nor a kernel to its plain version).
+    merged and baseline solvers on :func:`apply_configs` at ``degree``.
+    Without a solver (the builders) the fused configurations of any degree
+    pass: the plain versions take every degree, the kernels check theirs
+    (no rung falls back to another, nor a kernel to its plain version).
     ``dtype=torch.bfloat16`` is the fused solver's bf16 state (d and h;
     f32 tables), under the ``bf16`` rung only; ``metric_dtype`` the
     streamed metric's storage (None: the working dtype), bf16 under
@@ -397,22 +427,13 @@ def check_config(precision: str, factor: str = "twostage",
         raise NotImplementedError(
             f"cofactor='jtj' with factor='dense' under "
             f"precision={precision!r} is {_JTJ_TODO}")
-    fused_twostage = (factor == "twostage" and windowing == "pieces"
-                      and solver in (None, "fused"))
-    if precision in TENSOR_RUNGS and degree is not None and (
-            degree not in SPLIT_DENSE_DEGREES and not fused_twostage):
-        raise NotImplementedError(
-            f"factor={factor!r}, windowing={windowing!r}"
-            + (f" with solver={solver!r}" if solver else "")
-            + f" under precision={precision!r} at degree {degree} is "
-            f"{_DENSE_TODO}; it has degrees {SPLIT_DENSE_DEGREES}")
     if solver == "fused" and degree not in FUSED_DEGREES:
         raise NotImplementedError(
             f"degree {degree} of the fused solver has no kernel: the "
             f"reference's table is {FUSED_DEGREES} (benchmark.h:290-313)")
     fused = tuple(fm + ("pieces",) for fm in fused_configs(
         precision, degree if solver == "fused" else None))
-    apply = APPLY_CONFIGS_HIGHEST if precision == "highest" else APPLY_CONFIGS
+    apply = apply_configs(precision, degree)
     wanted = (fused if solver == "fused" else apply
               if solver is not None else fused + apply)
     if config not in wanted:

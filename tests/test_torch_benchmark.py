@@ -63,8 +63,7 @@ def test_run_one_refuses_without_card_and_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         benchmark.run_one(4, 3, solver="merged", windowing="matmul",
                           device="cpu")
-    for p, kw in ((5, {"factor": "dense"}),  # the dense pass at p >= 5
-                  (2, {"factor": "twostage", "metric": "precomputed"}),
+    for p, kw in ((2, {"factor": "twostage", "metric": "precomputed"}),
                   (3, {"factor": "twostage", "metric": "onthefly"})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             benchmark.run_one(p, 3, solver="fused", precision="split2m",
@@ -74,6 +73,9 @@ def test_run_one_refuses_without_card_and_unported_paths():
                           device="cpu")  # the JAX CLI's refusal too
     for p, kw in ((5, {"solver": "fused", "precision": "split2m",
                        "windowing": "pieces"}),  # twostage + onthefly + jtj
+                  (5, {"solver": "fused", "precision": "split2m",
+                       "windowing": "pieces",
+                       "factor": "dense"}),  # the dense pass at p >= 5
                   (4, {"solver": "fused", "precision": "split2m",
                        "windowing": "pieces", "factor": "twostage",
                        "metric": "precomputed"})):

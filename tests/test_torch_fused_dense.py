@@ -209,9 +209,9 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
     p=1..4 on the port's rungs gives a configuration the port runs, the
     same as the JAX resolvers give; jtj runs under highest, and under
     split2m in twostage (p=4); what stays unported (split2m twostage at
-    p=1..3, jtj in split2m's dense pass, split2m dense at p >= 5) raises;
-    the split2m auto path at p+4 >= 5 resolves to twostage + onthefly +
-    jtj."""
+    p=1..3, jtj in split2m's dense pass) raises; the split2m auto path at
+    p+4 >= 5 resolves to twostage + onthefly + jtj, and split2m dense
+    there to the JAX resolvers' metric."""
     want = {"highest": ("dense", "precomputed"),
             "split2m": {1: ("dense", "precomputed"),
                         2: ("dense", "onthefly"),
@@ -258,9 +258,9 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
     assert benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
                                     torch.float32) == ("twostage",
                                                        "onthefly", "jtj")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
-                                 torch.float32, "dense")
+    assert benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",
+                                    torch.float32, "dense") == (
+        "dense", "precomputed" if p % 2 else "onthefly", "adjj")
 
 
 @pytest.mark.parametrize("p", [1, 2, 3, 4])

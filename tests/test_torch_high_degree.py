@@ -135,9 +135,10 @@ def test_configurations_at_every_degree(p):
     solver takes twostage from p=4 (either metric, either chain; the auto
     path twostage + onthefly + jtj from p=5, as the JAX resolvers give),
     and the dense factorization and the merged and baseline solvers at
-    p=1..4: past those, split2m raises NotImplementedError naming ROADMAP
-    queue B item 7c (dense), 6f (twostage at p=1..3) or 6c (jtj in the
-    dense pass); ``fused_configs`` and the fused auto-dispatch agree."""
+    every degree, as the JAX resolvers give them; split2m raises
+    NotImplementedError naming ROADMAP queue B item 6f (twostage at
+    p=1..3) or 6c (jtj in the dense pass); ``fused_configs`` and the fused
+    auto-dispatch agree."""
     for dtype in (torch.float32, torch.float64):
         for factor, metric in laplace_cuda.fused_configs("highest", p):
             for cofactor in laplace_cuda.COFACTORS:
@@ -157,7 +158,8 @@ def test_configurations_at_every_degree(p):
                 assert metric == "precomputed"
     assert len(laplace_cuda.fused_configs("highest", p)) == 4
     split = laplace_cuda.fused_configs("split2m", p)
-    assert (("dense", "onthefly") in split) == (p <= 4)
+    assert ("dense", "onthefly") in split
+    assert ("dense", "precomputed") in split
     assert (("twostage", "onthefly") in split) == (p >= 4)
     assert (("twostage", "precomputed") in split) == (p >= 4)
     for f, m, c in (("twostage", "onthefly", "jtj"),
@@ -188,26 +190,33 @@ def test_configurations_at_every_degree(p):
                 ("fused", "pieces", {"factor": "dense"}),
                 ("merged", "reshape", {}), ("merged", "pieces", {}),
                 ("baseline", "zslab", {})):
-            with pytest.raises(NotImplementedError, match="queue B item 7c"):
-                benchmark.resolve_config(p, solver, windowing, "split2m",
-                                         torch.float32, **kw)
+            jf = jbench.resolve_factor(kw.get("factor", "auto"), p,
+                                       windowing, precision="split2m",
+                                       solver=solver)
+            jm = jbench.resolve_metric("auto", solver, windowing, jf, p,
+                                       precision="split2m")
+            assert benchmark.resolve_config(
+                p, solver, windowing, "split2m", torch.float32, **kw) == (
+                jf, jm, "adjj")
 
 
 def test_run_one_refuses_split2m_past_p4():
-    """``run_one(p >= 5, ..., precision="split2m")`` on a path still
-    unported (the dense tensor-core pass: merged, baseline, the fused
-    solver's dense factorization) raises before it builds anything, naming
-    ROADMAP item 7c; the fused solver's twostage path is ported and, on the
-    CPU, raises for lack of a card: no fallback to ``highest`` or to the
-    plain version either way."""
+    """``run_one(p >= 5, ..., precision="split2m")`` on the dense
+    tensor-core pass (merged, baseline, the fused solver's dense
+    factorization) and on the fused solver's twostage path resolves and,
+    on the CPU, raises for lack of a card: no fallback to ``highest`` or to
+    the plain version; the builder gives the dense operator with its
+    tables."""
     for p, kw in ((5, dict(solver="fused", windowing="pieces",
                            factor="dense")),
                   (8, dict(solver="merged")),
                   (11, dict(solver="baseline", windowing="zslab"))):
-        with pytest.raises(NotImplementedError, match="item 7c"):
+        with pytest.raises(RuntimeError, match="CUDA"):
             benchmark.run_one(p, 6, precision="split2m", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        bp4.build(S, 6, torch.float32, "split2m", device="cpu")
+    op = bp4.build(S, 6, torch.float32, "split2m", device="cpu").op
+    assert (op.factor, op.metric, op.windowing) == ("dense", "precomputed",
+                                                    "reshape")
+    assert op.mma_mats.shape == (2, 3 * 512 * 352)
     for p, kw in ((5, {}), (11, dict(metric="precomputed"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             benchmark.run_one(p, 3, solver="fused", windowing="pieces",

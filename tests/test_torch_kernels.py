@@ -443,7 +443,8 @@ def test_run_one_every_path_high_degree_on_card(cuda_device, p):
     fused auto path under f64 (twostage + precomputed: B1, B2) and the
     fused solver with the metric rebuilt (jtj) launch their kernels and
     converge, or from p=8 reach the 100-iteration cap at s=4 as their
-    plain versions do; split2m raises."""
+    plain versions do; so does the default path under split2m (B3 on the
+    dense tensor-core pass)."""
     wrappers = (la.apply_local_batched_g, fk.matvec, fk.fused_cg_iteration)
     before = [w.launches for w in wrappers]
     short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
@@ -456,8 +457,10 @@ def test_run_one_every_path_high_degree_on_card(cuda_device, p):
     assert all(w.launches > b for w, b in zip(wrappers, before))
     assert all((r.converged if p < 8 else r.n_iterations == 100)
                and r.time_per_it > 0 for r in rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        benchmark.run_one(p, 4, precision="split2m", **short)
+    before = la.apply_local_batched_g.launches
+    r = benchmark.run_one(p, 4, precision="split2m", **short)
+    assert la.apply_local_batched_g.launches > before
+    assert (r.converged or r.n_iterations == 100) and r.time_per_it > 0
 
 
 # B1/B2 under f32 split2m in twostage: (metric, cofactor); from p=5 the
@@ -508,7 +511,8 @@ def test_run_one_fused_split2m_high_degree_on_card(cuda_device, p):
     """At p = 5..11 the fused solver under split2m through the
     auto-dispatch (twostage + onthefly + jtj) launches B1 and B2 and
     converges, or from p=8 reaches the 100-iteration cap at s=4 as the
-    ``highest`` paths do; the dense pass stays refused (ROADMAP item 7c)."""
+    ``highest`` paths do; so does its dense factorization, on the dense
+    tensor-core pass (``csrc/apply_mma_hd.cuh``)."""
     before = fk.matvec.launches, fk.fused_cg_iteration.launches
     short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
                  device=cuda_device)
@@ -518,17 +522,22 @@ def test_run_one_fused_split2m_high_degree_on_card(cuda_device, p):
     assert fk.fused_cg_iteration.launches > before[1]
     assert (r.converged if p < 8 else r.n_iterations == 100)
     assert r.time_per_it > 0
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        benchmark.run_one(p, 4, solver="fused", windowing="pieces",
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    r = benchmark.run_one(p, 4, solver="fused", windowing="pieces",
                           precision="split2m", factor="dense", **short)
+    assert fk.matvec.launches > before[0]
+    assert fk.fused_cg_iteration.launches > before[1]
+    assert (r.converged if p < 8 else r.n_iterations == 100)
+    assert r.time_per_it > 0
 
 
 # the reduced rungs: (precision, state dtype, metric dtype) — split3, bf16
 # with an f32 state, bf16 with the bf16 state and the bf16 metric stream
 REDUCED = [("split3", torch.float32, None), ("bf16", torch.float32, None),
            ("bf16", torch.bfloat16, torch.bfloat16)]
-# B1/B2's configurations under them: dense at p=1..4, twostage at p=4..11
-REDUCED_CONFIGS = ([(p, "dense", m, "adjj") for p in (1, 2, 3, 4)
+# B1/B2's configurations under them: dense at p=1..11 (from p=5 the dense
+# pass of csrc/apply_mma_hd.cuh), twostage at p=4..11
+REDUCED_CONFIGS = ([(p, "dense", m, "adjj") for p in (1, 2, 3, 4) + HIGH
                     for m in ("precomputed", "onthefly")]
                    + [(p, "twostage", m, c) for p in (4,) + HIGH
                       for m, c in SPLIT_TWOSTAGE])
@@ -602,14 +611,15 @@ def test_reduced_rung_fused_kernels_match_plain(cuda_device, p, factor,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mdt", [None, torch.bfloat16])
 @pytest.mark.parametrize("precision", ["split3", "bf16"])
-@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("p", (1, 2, 3, 4) + HIGH)
 @pytest.mark.parametrize("kernel", ["batched_g", "pieces", "zslab"])
 def test_reduced_rung_apply_kernels_match_plain(cuda_device, kernel, p,
                                                 precision, mdt):
     """B3, B5 and B6 under split3 and bf16, the metric streamed in f32 or
-    bf16, on 105 cells: against the plain version at the rung's tolerance,
-    twice and bitwise equal; under bf16 the plain version with split2m's
-    product set is refused."""
+    bf16, on 105 cells (p <= 4 ``csrc/apply_mma.cuh``, from p=5
+    ``csrc/apply_mma_hd.cuh``): against the plain version at the rung's
+    tolerance, twice and bitwise equal; under bf16 the plain version with
+    split2m's product set is refused."""
     layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
     op = laplace_cuda.make_operator(
         layout, torch.float32, precision, factor="dense",
@@ -649,8 +659,8 @@ def test_run_one_fused_reduced_rungs_on_card(cuda_device, p, precision,
                                              state, mdt):
     """The fused solver under split3 (f32 state) and bf16 (the bf16 state
     and metric) through the auto-dispatch at every degree launches B1 and
-    B2 and gives a finite row; the merged solver under the rung at p <= 4
-    launches B3."""
+    B2 and gives a finite row; so does the merged solver under the rung,
+    launching B3."""
     before = (fk.matvec.launches, fk.fused_cg_iteration.launches,
               la.apply_local_batched_g.launches)
     short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
@@ -660,7 +670,80 @@ def test_run_one_fused_reduced_rungs_on_card(cuda_device, p, precision,
     assert fk.matvec.launches > before[0]
     assert fk.fused_cg_iteration.launches > before[1]
     assert 0 < r.n_iterations <= 100 and r.time_per_it > 0
-    if p <= 4:
-        r = benchmark.run_one(p, 4, solver="merged", **short)
-        assert la.apply_local_batched_g.launches > before[2]
-        assert r.converged or r.n_iterations == 100
+    r = benchmark.run_one(p, 4, solver="merged", **short)
+    assert la.apply_local_batched_g.launches > before[2]
+    assert r.converged or r.n_iterations == 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", HIGH)
+def test_split2m_dense_kernels_match_plain(cuda_device, p):
+    """The dense tensor-core pass at p=5..11 under split2m
+    (``csrc/apply_mma_hd.cuh``) on 105 cells: B3, B5 and B6 (B5 also on
+    the twostage operator of the merged solver's ``pieces``, which reads
+    the dense M) and B1/B2 dense with the metric streamed and rebuilt,
+    each against its plain version (1e-5; B2's scalars 1e-4), twice and
+    bitwise equal, each launch counted."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    (u,) = _state(laplace_cuda.make_operator(
+        layout, torch.float32, "split2m", device=cuda_device), 1, seed=170)
+    for factor in ("dense", "twostage"):
+        op = laplace_cuda.make_operator(
+            layout, torch.float32, "split2m", factor=factor,
+            metric="precomputed", windowing="pieces", device=cuda_device)
+        cases = {la.apply_lattice_pieces: (
+            u, la._lattice_plain(op, u, la._index_mask(op)))}
+        if factor == "dense":
+            x = la.to_cell_batches(u, p).contiguous()
+            cases[la.apply_local_batched_g] = (
+                x, la._batched_plain(op, x, la._metric(op), True))
+            cases[la.apply_lattice_zslab] = (
+                u, la._lattice_plain(op, u, op.mask))
+        for wrapper, (arg, want) in cases.items():
+            before = wrapper.launches
+            got, again = wrapper(op, arg), wrapper(op, arg)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 2
+            assert _rel(got, want) < TOL[torch.float32], (factor, wrapper)
+            assert torch.equal(got, again)
+    for metric in ("precomputed", "onthefly"):
+        op = laplace_cuda.make_operator(
+            layout, torch.float32, "split2m", factor="dense", metric=metric,
+            windowing="pieces", device=cuda_device)
+        prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5)
+                * op.mask).contiguous()
+        before = fk.matvec.launches, fk.fused_cg_iteration.launches
+        got, again = fk.matvec(op, u), fk.matvec(op, u)
+        assert _rel(got, fk._matvec_plain(op, u)) < TOL[torch.float32]
+        assert torch.equal(got, again)
+        x, g, d, h = _state(op, 4, seed=180 + p)
+        scal = torch.tensor(SCAL, device=cuda_device)
+        got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+        for a, b in zip(got[:4], want[:4]):
+            assert _rel(a, b) < TOL[torch.float32]
+        assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+                ).max().item() < 1e-4
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert (fk.matvec.launches, fk.fused_cg_iteration.launches) == (
+            before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", HIGH)
+def test_run_one_merged_split2m_high_degree_on_card(cuda_device, p):
+    """The merged and baseline solvers under split2m at p=5..11 on every
+    windowing (pieces on the twostage operator the resolvers give) launch
+    B3, B5 or B6 on the dense tensor-core pass and give a finite row."""
+    short = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
+                 device=cuda_device, precision="split2m")
+    for solver, windowing, wrapper in (
+            ("merged", "reshape", la.apply_local_batched_g),
+            ("merged", "pieces", la.apply_lattice_pieces),
+            ("baseline", "zslab", la.apply_lattice_zslab)):
+        before = wrapper.launches
+        r = benchmark.run_one(p, 4, solver=solver, windowing=windowing,
+                              **short)
+        assert wrapper.launches > before
+        assert 0 < r.n_iterations <= 100 and r.time_per_it > 0

@@ -329,16 +329,15 @@ def test_dispatch_matches_jax_eff_prec(p):
         assert got == (f, m, jbench.resolve_cofactor("auto", p, f, m,
                                                      precision=eff))
         laplace_cuda.check_config(rung, *got, dtype, "pieces", "fused", p)
-    for rung in RUNGS:  # the merged solver on the apply family, p <= 4
+    for rung in RUNGS:  # the merged solver on the apply family
         for windowing in ("reshape", "pieces", "zslab"):
-            if p <= 4:
-                assert benchmark.resolve_config(
-                    p, "merged", windowing, rung, torch.float32,
-                    metric_dtype=BF) == ("dense", "precomputed", "adjj")
-            else:
-                with pytest.raises(NotImplementedError, match="item 7c"):
-                    benchmark.resolve_config(p, "merged", windowing, rung,
-                                             torch.float32)
+            factor = jbench.resolve_factor("auto", p, windowing,
+                                           precision=rung, solver="merged")
+            assert benchmark.resolve_config(
+                p, "merged", windowing, rung, torch.float32,
+                metric_dtype=BF) == (factor, "precomputed", "adjj")
+            assert factor == ("twostage" if p >= 5 and windowing == "pieces"
+                              else "dense")
         # B4 (--geometry onthefly) is exact on every rung: let through
         assert benchmark.resolve_config(
             min(p, 4), "merged", "reshape", rung, torch.float32,
@@ -360,10 +359,11 @@ REFUSED = {
                                   metric_dtype=BF), "item 6d"),
     "bf16 metric, split2m": (dict(precision="split2m", metric="precomputed",
                                   metric_dtype=BF), "item 6d"),
+    # ported since (the dense tensor-core pass at p >= 5): None, they run
     "split3 merged at p=5": (dict(solver="merged", windowing="reshape",
-                                  precision="split3", degree=5), "item 7c"),
+                                  precision="split3", degree=5), None),
     "bf16 fused dense at p=6": (dict(precision="bf16", factor="dense",
-                                     degree=6), "item 7c"),
+                                     degree=6), None),
     "split3 twostage at p=3": (dict(precision="split3", factor="twostage",
                                     degree=3), "item 6f"),
     "bf16 jtj dense": (dict(precision="bf16", factor="dense",
@@ -375,14 +375,29 @@ REFUSED = {
 def test_left_out_combinations_raise(case):
     """What this slice leaves out raises NotImplementedError naming its
     ROADMAP item, and no configuration runs on another rung in its
-    place."""
+    place; a combination ported since (item None) resolves to its own
+    rung's configuration, as the JAX resolvers give it, and builds."""
     kw, item = REFUSED[case]
     args = dict(degree=2, solver="fused", windowing="pieces",
                 dtype=torch.float32) | kw
+    call = (args.pop("degree"), args.pop("solver"), args.pop("windowing"),
+            args.pop("precision"), args.pop("dtype"))
+    if item is None:
+        p, solver, windowing, rung, dtype = call
+        config = benchmark.resolve_config(*call, **args)
+        f = jbench.resolve_factor(args.get("factor", "auto"), p, windowing,
+                                  precision=rung, solver=solver)
+        m = jbench.resolve_metric("auto", solver, windowing, f, p,
+                                  precision=rung)
+        assert config == (f, m, "adjj") and f == "dense"
+        op = bp4.build(1, p, dtype, rung, windowing=windowing, device="cpu",
+                       **dict(zip(("factor", "metric", "cofactor"),
+                                  config))).op
+        assert op.precision == rung and op.mma_mats.shape[0] == (
+            4 if rung == "split3" else 2)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        benchmark.resolve_config(args.pop("degree"), args.pop("solver"),
-                                 args.pop("windowing"), args.pop("precision"),
-                                 args.pop("dtype"), **args)
+        benchmark.resolve_config(*call, **args)
     if case.startswith("bf16 state, merged"):
         pb = bp4.build(S, 2, BF, "bf16", factor="dense", windowing="pieces",
                        device="cpu")

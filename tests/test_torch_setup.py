@@ -114,7 +114,9 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
 
 def test_operator_rejects_unported_configurations():
     """Configurations the JAX package has and the port does not yet
-    (ROADMAP queue B) raise, each spelled out in full."""
+    (ROADMAP queue B) raise, each spelled out in full; split2m's dense pass
+    past p=4 (the apply family, the fused dense) builds, with the dense
+    M's tables, B5 on a twostage operator too."""
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
@@ -128,10 +130,20 @@ def test_operator_rejects_unported_configurations():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             laplace_cuda.make_operator(layout, device="cpu", **kw)
     # split2m's dense pass past p=4 (the apply family, the fused dense)
-    for kw in ({"precision": "split2m"}, {**dense, "precision": "split2m"}):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            laplace_cuda.make_operator(DofLayout(BoxMesh.from_s(1), 5),
-                                       device="cpu", **kw)
+    layout = DofLayout(BoxMesh.from_s(1), 5)
+    rp, cp = laplace_cuda.mma_dims(5)
+    for kw in ({"precision": "split2m"}, {**dense, "precision": "split2m"},
+               {**fused, "precision": "split2m", "metric": "precomputed"}):
+        op = laplace_cuda.make_operator(layout, device="cpu", **kw)
+        tables = laplace_cuda.dense_mma_tables(op)
+        assert tables.shape == (2, 3 * rp * cp)
+        assert tables is laplace_cuda.dense_mma_tables(op)  # built once
+        fwd, bwd = laplace_cuda.unpack_mma_tables(tables, 5)
+        want = torch.zeros((3, rp, cp), dtype=torch.bfloat16)
+        want[:, :7 ** 3, :6 ** 3] = op.mats.reshape(3, 7 ** 3, 6 ** 3).to(
+            torch.bfloat16)
+        assert torch.equal(bwd, want.reshape(3 * rp, cp))
+        assert torch.equal(fwd, bwd)
 
 
 def test_build_defaults_match_jax():
