@@ -115,9 +115,9 @@ Phases (each raises on failure, so any failure exits nonzero):
      every degree 5..11 (s=6) under each rung merged reshape and the fused
      --factor dense, to p=8 also merged pieces and zslab and baseline on
      one windowing (reshape, pieces, zslab in turn);
-   then the solutions of the three p=4 s=13 paths and of bench.py's two
-   variant paths are checked for shape, finiteness, and their true
-   residual against the solver's estimate;
+   then (the checks of section 7 below) the solutions of the three p=4
+   s=13 paths and of bench.py's two variant paths are checked for shape,
+   finiteness, and their true residual against the solver's estimate;
 6. print the kernels' JSON line (B1/B2 at f32 split2m, also with their f32
    highest and f64 times and, for each dense configuration, fields with
    its suffix — ``ms_dense``, ``launches_dense_split2m_p3``, ... — and its
@@ -129,8 +129,27 @@ Phases (each raises on failure, so any failure exits nonzero):
    ... for the dense tensor-core pass, B3's with ``matmul_ms``), each
    timed at the (p, s) of the drive that
    gives its launches; each row with the bound of its work on this card,
-   from the shapes), the build time and the script's wall time, and,
-   last, the device JSON line.
+   from the shapes; B2 also with ``_prec_bf16``, ``_x_bf16`` and with
+   ``_p6`` for section 7's runs, each beside ``ms_f32...``, the same
+   run's kernel with P and x at f32), the build time and the script's
+   wall time, and, last, the device JSON line;
+7. run in phase 5, before its solutions' check: B2 with the
+   preconditioner or x stored in bf16 (``prec_dtype``, ``x_dtype``;
+   ``csrc/cg_fused_px.cu``) at STORAGE_RUNS — the production command's
+   configuration at p=4 s=13 (split2m twostage + onthefly) and the auto
+   path under highest at p=6 s=12 (twostage + the streamed metric): with
+   x in bf16 g', d', h' and the scalars bitwise equal to the f32-x kernel
+   run's and x' within one bf16 step of the plain version, with P in bf16
+   the kernel against the plain version at TOL and the plain version with
+   P unrounded (the control) outside it, both timed beside the f32 run and
+   the bound with P or x at 2 bytes, and the fused solver driven through
+   ``run_one(..., prec_dtype=, x_dtype=)`` at both points (x: the f32
+   run's itCG; P: within 3); the structured and general backends at p=4
+   s=13 (f32, f64): vmult against B3 (TOL_BACKEND), then ``run_one(4, 13,
+   solver="merged"|"baseline", backend=...)``, the f64 itCG equal to the
+   pallas path's, their rows printed; and the discretization: the
+   manufactured solution solved in f64 by the merged CG through B3 at
+   CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35.
 """
 
 from __future__ import annotations
@@ -292,8 +311,9 @@ def sumfac_fma(p: int, q: int) -> int:
     return 3 * 2 * (2 * p1 ** 3 * q + 3 * p1 ** 2 * q ** 2 + 3 * p1 * q ** 3)
 
 
-def bound(name: str, op, split: bool,
-          state: torch.dtype | None = None) -> tuple[float, str]:
+def bound(name: str, op, split: bool, state: torch.dtype | None = None,
+          prec_word: int | None = None,
+          x_word: int | None = None) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for the
     kernel's work on ``op``'s shapes — the larger of its bytes (inputs read
     once, outputs written once) over HBM_BPS and its operations over the
@@ -307,7 +327,8 @@ def bound(name: str, op, split: bool,
     The metric: 6 q^3 words a cell streamed, at its storage's size (bf16:
     2 bytes), or 24 coefficient words a cell and its rebuild's FMAs
     (B1/B2: by their chain, adjj or jtj; B4: adjj).  ``state``: B1/B2's d
-    and h storage (bf16: 2 bytes each read and written)."""
+    and h storage (bf16: 2 bytes each read and written); ``prec_word``,
+    ``x_word``: B2's bytes a value of P and of x (prec_dtype, x_dtype)."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
@@ -332,7 +353,8 @@ def bound(name: str, op, split: bool,
                   * q3 if rebuilt else 0)
         # B1: d read, h written; B2: x, g, d, h read, P, x', g', d', h'
         nbytes = (6 * nn * sword if name == "matvec"
-                  else 13 * nn * word + 12 * nn * sword)
+                  else 6 * nn * word + nn * (prec_word or word)
+                  + 6 * nn * (x_word or word) + 12 * nn * sword)
         nbytes += 24 * nc * word if rebuilt else 6 * q3 * nc * mword
     else:  # the apply family; metric streamed, or rebuilt (B4)
         products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
@@ -1226,6 +1248,183 @@ def parity_reduced(benchmark, bp4, dev) -> None:
                              f"{res.n_iterations} not in 91..94")
 
 
+
+# B2 with the preconditioner or x stored in bf16 (the fused solver's
+# prec_dtype and x_dtype, csrc/cg_fused_px.cu): (p, s, dtype, precision,
+# configuration, key suffix) — the production command's configuration at
+# p=4 s=13 (split2m twostage + onthefly: cell_mma.cuh) and the auto path
+# under highest at p=6 s=12 (twostage + the streamed metric:
+# sumfac_p06.cu).  x feeds no dot, so B2 with x in bf16 must give g', d',
+# h' and the scalars bitwise equal to the f32-x kernel run beside it; x' is
+# held to its plain version within one bf16 step (2^-8 of its largest
+# value: the two round sums that differ in the last f32 bits); with P in
+# bf16 the kernel is held to its plain version at TOL, and a control, the
+# plain version with P unrounded, must miss TOL
+STORAGE_RUNS = ((DEGREE, S, torch.float32, "split2m",
+                 dict(factor="twostage", metric="onthefly", cofactor="adjj"),
+                 ""),
+                (6, 12, torch.float32, "highest",
+                 dict(factor="twostage", metric="precomputed",
+                      cofactor="adjj"), "_p6"))
+STORAGE = (("_prec_bf16", dict(prec_dtype=torch.bfloat16)),
+           ("_x_bf16", dict(x_dtype=torch.bfloat16)))
+# the plain backends at p=4 s=13 against B3 (the JAX CLI's default path's
+# operator) on the same vector, relative L2
+TOL_BACKEND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the discretization: (p, the two s), the L2 rate of the manufactured
+# solution between them must reach (p + 1) - 0.35 (h halves from one s to
+# the other; s = 3 at p=1 as tests/test_convergence.py, larger s at p=2,
+# 4 to stay in the asymptotic range).  The merged CG's tolerance: its
+# residual estimate s3 + 2 alpha s2 + alpha^2 s1 cancels to ~sqrt(eps)
+# res0 (~1e-8 in f64) once the true residual is at roundoff; at p=1 the
+# load is nearly an eigenvector and one step converges, so a tolerance
+# under that floor runs a second step on noise, whose even-count exit
+# fixup divides by a beta of roundoff size and returns a wrong x
+# (ROADMAP.md queue C item C9).  1e-7 stays above the floor; at p=4 s=9
+# the algebraic error is then < 1e-3 of the discretization error
+CONVERGENCE = ((1, (3, 6)), (2, (6, 9)), (4, (6, 9)))
+CONVERGENCE_TOL = 1e-7
+
+
+def compare_storage(fk, bp4, dev, timing) -> dict:
+    """B2 with bf16 P and with bf16 x at STORAGE_RUNS: the checks above,
+    kernel and plain times and the bound with P or x at 2 bytes; returns
+    {suffix: ((kernel ms, plain ms), bound, max |diff|), "_f32...": the
+    f32 run's} and the problems, for the drives."""
+    out, problems = {}, {}
+    for p, s, dtype, precision, config, sfx in STORAGE_RUNS:
+        pb = bp4.build(s, p, dtype, precision, windowing="pieces",
+                       device=dev, **config)
+        problems[sfx] = pb
+        op = pb.op
+        tag = f"p={p} s={s} {precision} {op.factor} {op.metric}"
+        prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
+        x, g, d, h = random_state(op, 4, seed=7)
+        scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                            dtype=dtype, device=dev)
+        pb16, xb16 = prec.to(torch.bfloat16), x.to(torch.bfloat16)
+        ref = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        rx = fk.fused_cg_iteration(op, xb16, g, d, h, scal, prec)
+        bitwise = all(torch.equal(a, b) for a, b in zip(ref[1:], rx[1:]))
+        want_x = fk._fused_iteration_plain(op, xb16, g, d, h, scal, prec)
+        xstep = ((rx[0].double() - want_x[0].double()).abs().max()
+                 / want_x[0].double().abs().max()).item()
+        print(f"  fused_cg_iteration {tag} x bf16: g' d' h' scal bitwise "
+              f"equal to the f32-x run: {bitwise}; x' vs plain {xstep:.3e} "
+              f"of its largest (tol {2.0 ** -8:.2e})")
+        if not (bitwise and xstep <= 2.0 ** -8):
+            raise AssertionError(f"B2 {tag} with x in bf16 is wrong")
+        rp = fk.fused_cg_iteration(op, x, g, d, h, scal, pb16)
+        want = fk._fused_iteration_plain(op, x, g, d, h, scal, pb16)
+        _, pdiff = compare("fused_cg_iteration", rp, want, dtype,
+                           tag + " P bf16")
+        ctrl = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+        miss = max(rel_err(a, b)[0] for a, b in zip(rp[1:4], ctrl[1:4]))
+        print(f"  fused_cg_iteration {tag} P bf16: control (P unrounded) "
+              f"{miss:.3e}, must exceed {TOL[dtype]:.0e}")
+        if not miss > TOL[dtype]:
+            raise AssertionError(f"B2 {tag}: the P-unrounded control "
+                                 "passes; bf16 P is not read")
+        work = fk.Workspace(op)
+        for key, xx, pp, err in (("_f32", x, prec, 0.0),
+                                 ("_prec_bf16", x, pb16, pdiff),
+                                 ("_x_bf16", xb16, prec,
+                                  (rx[0].float() - want_x[0].float())
+                                  .abs().max().item())):
+            bufs = tuple(torch.empty_like(t) for t in (xx, g, d, h, scal))
+            t = time_pair(
+                lambda: fk.fused_cg_iteration(op, xx, g, d, h, scal, pp,
+                                              out=bufs, work=work),
+                lambda: fk._fused_iteration_plain(op, xx, g, d, h, scal, pp),
+                dev, timing)
+            b = bound("fused_cg_iteration", op, split=precision == "split2m",
+                      prec_word=pp.element_size(), x_word=xx.element_size())
+            out[key + sfx] = t, b, err
+            print(f"  fused_cg_iteration {tag} {key[1:]}: kernel {t[0]:.4f} "
+                  f"ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        del op, x, g, d, h, ref, rx, rp, want, want_x, ctrl, work, bufs
+        torch.cuda.empty_cache()
+    return out, problems
+
+
+def compare_backends(bp4, la, dev) -> dict:
+    """The structured and general backends' vmult against B3 (merged,
+    reshape, highest: the JAX CLI's default operator) on the same vector at
+    p=4 s=13, f32 and f64; returns the problems, for the drives."""
+    problems = {}
+    for dtype in (torch.float32, torch.float64):
+        ref = bp4.build(S, DEGREE, dtype, "highest", device=dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        u = torch.randn(ref.b.shape, generator=gen, device=dev, dtype=dtype)
+        want = ref.a_apply_full(u)
+        del ref
+        for backend in ("structured", "general"):
+            pb = bp4.build(S, DEGREE, dtype, device=dev, backend=backend)
+            err = (torch.linalg.norm(pb.a_apply_full(u) - want)
+                   / torch.linalg.norm(want)).item()
+            print(f"  vmult {backend} p={DEGREE} s={S} {str(dtype)[6:]} vs "
+                  f"B3: rel L2 {err:.3e} (tol {TOL_BACKEND[dtype]:.0e})")
+            if not err <= TOL_BACKEND[dtype]:
+                raise AssertionError(f"{backend} backend disagrees with B3")
+            problems[backend, dtype] = pb
+        torch.cuda.empty_cache()
+    return problems
+
+
+def convergence_rates(la, dev) -> list:
+    """The manufactured solution sin(pi x) sin(pi y) sin(pi z) in each of
+    the 3 components on the undeformed box, solved in f64 by the merged CG
+    through B3 (the JAX CLI's default operator): the observed L2 rate
+    between the two s of CONVERGENCE must reach (p + 1) - 0.35; each solve
+    must launch B3.  Returns (p, errors, rate, launches)."""
+    import numpy as np
+
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import diagonal, laplace_cuda, rhs
+    from mf_data_locality_tpu_torch.solvers import cg_merged
+
+    def u1(x):
+        return (np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1])
+                * np.sin(np.pi * x[..., 2]))[..., None]
+
+    def u3(x):
+        return np.repeat(u1(x), 3, axis=-1)
+
+    out = []
+    for p, sizes in CONVERGENCE:
+        errors, launches = [], 0
+        for s in sizes:
+            layout = DofLayout(BoxMesh.from_s(s, deformed=False), p)
+            op = laplace_cuda.make_operator(layout, torch.float64,
+                                            "highest", device=dev)
+            lat = (3,) + layout.n_nodes_axis
+            b = torch.tensor(rhs.assemble_rhs(
+                layout, lambda x: 3 * np.pi ** 2 * u3(x)), device=dev)
+            prec = torch.tensor(diagonal.compute_inverse_diagonal(layout),
+                                device=dev)[None, :]
+            la.apply_local_batched_g.launches = 0
+            res = cg_merged.merged_cg_solve(
+                lambda v: la.vmult(op, v.reshape(lat),
+                                   constrained_identity=False)
+                .reshape(v.shape), b, prec, max_iter=400,
+                rel_tol=CONVERGENCE_TOL)
+            launches += la.apply_local_batched_g.launches
+            if not (res.converged and la.apply_local_batched_g.launches):
+                raise AssertionError(f"manufactured solve p={p} s={s}: "
+                                     f"converged {res.converged}")
+            errors.append(rhs.l2_error(layout, res.x, u3))
+        rate = math.log2(errors[0] / errors[1])
+        print(f"  p={p} s={sizes}: L2 errors {errors[0]:.6e} "
+              f"{errors[1]:.6e}, rate {rate:.4f} (>= {p + 1 - 0.35:.2f}), "
+              f"B3 launches {launches}")
+        if not rate >= p + 1 - 0.35:
+            raise AssertionError(f"p={p}: L2 rate {rate:.3f} below "
+                                 f"{p + 1 - 0.35}")
+        out.append((p, errors, rate, launches))
+    return out
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1770,6 +1969,90 @@ def main() -> int:
                 drive(f"{label} {rung}", S_EVERY, expect, degree=p,
                       precision=rung, metric_dtype=mdt, **kw, **tiny)
 
+    # -- 7. P and x in bf16 (B2), the plain backends, the discretization --
+    print("B2 with P or x stored in bf16:")
+    storage, st_problems = compare_storage(fk, bp4, dev, timing)
+    launches_st = {}
+    for p, s, dtype, precision, config, sfx in STORAGE_RUNS:
+        rows_st = {}
+        for key, kw in (("_f32", {}),) + STORAGE:
+            rows_st[key] = drive(
+                f"fused {precision} {config['factor']} {config['metric']} "
+                f"{key[1:]}", s, ("matvec", "fused_cg_iteration"),
+                into=launches_st.setdefault(key + sfx, {}), degree=p,
+                solver="fused", precision=precision, windowing="pieces",
+                problem=st_problems[sfx], **config, **kw)
+        f32_row = rows_st["_f32"]
+        for key, _ in STORAGE:
+            r = rows_st[key]
+            print(f"  p={p} s={s} {key[1:]}: itCG {r.n_iterations} vs f32 "
+                  f"{f32_row.n_iterations}, time/it {r.time_per_it:.6e} vs "
+                  f"{f32_row.time_per_it:.6e} s")
+            # x feeds no dot: the same count; bf16 P: within 3
+            # (tests/test_cg_fused.py:332-345)
+            allowed = 0 if key == "_x_bf16" else 3
+            if abs(r.n_iterations - f32_row.n_iterations) > allowed:
+                raise AssertionError(
+                    f"p={p} s={s} {key[1:]}: itCG {r.n_iterations} vs "
+                    f"{f32_row.n_iterations}")
+    del st_problems
+    torch.cuda.empty_cache()
+
+    print("the structured and general backends, p=4 s=13:")
+    be_problems = compare_backends(bp4, la, dev)
+    itcg, hist = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        ref = bp4.build(S, DEGREE, dtype, "highest", device=dev)
+        for solver in ("merged", "baseline"):
+            res = benchmark.solver_call(ref, solver)()
+            itcg["pallas", solver, dtype] = res.n_iterations
+            hist[solver, dtype] = res.res_history
+        del ref
+        for backend in ("structured", "general"):
+            for solver in ("merged", "baseline"):
+                zero_counts()
+                r = benchmark.run_one(
+                    DEGREE, S, solver=solver, dtype=dtype, backend=backend,
+                    device=dev, problem=be_problems[backend, dtype],
+                    solve_repeats=2, matvec_repeats=1, matvec_inner=10)
+                itcg[backend, solver, dtype] = r.n_iterations
+                print(f"{solver} {backend} {str(dtype)[6:]} p={DEGREE} "
+                      f"s={S}: n_dofs {r.n_dofs} itCG {r.n_iterations} "
+                      f"(pallas {itcg['pallas', solver, dtype]}) converged "
+                      f"{r.converged} time/it {r.time_per_it:.6e} s "
+                      f"DoF/s/it {r.dofs_per_s_per_it:.6e} time/matvec "
+                      f"{r.time_per_matvec:.6e} s; kernel launches "
+                      f"{sum(counts().values())} (plain PyTorch)")
+                if not (0 < r.n_iterations <= 100 and r.time_per_it > 0
+                        and r.time_per_matvec > 0):
+                    raise AssertionError(f"{backend} {solver}: implausible "
+                                         f"row: {r}")
+                if dtype == torch.float64:
+                    # the f64 count (at s=13 the cap, C4) and the whole
+                    # residual history against the pallas path's (the
+                    # operators agree to 1e-15 a vmult; 100 CG steps
+                    # amplify that, so 1e-6 res0, far under a wrong
+                    # operator's O(1))
+                    h = benchmark.solver_call(be_problems[backend, dtype],
+                                              solver)().res_history
+                    ref_h = hist[solver, dtype]
+                    n = r.n_iterations
+                    dev_h = ((h[:n + 1] - ref_h[:n + 1]).abs().max()
+                             / ref_h[0]).item()
+                    print(f"  f64 history vs the pallas path's: max "
+                          f"{dev_h:.3e} res0 (tol 1e-6)")
+                    if (r.n_iterations != itcg["pallas", solver, dtype]
+                            or not dev_h <= 1e-6):
+                        raise AssertionError(
+                            f"{backend} {solver} f64: itCG {r.n_iterations}"
+                            f" (pallas {itcg['pallas', solver, dtype]}), "
+                            f"history {dev_h:.3e} res0 from the pallas one")
+    del be_problems
+    torch.cuda.empty_cache()
+
+    print("the discretization: manufactured solution, f64, merged CG on B3:")
+    rates = convergence_rates(la, dev)
+
     # the three p=4 s=13 solutions: shape, finite, and their true residual
     # |b - A x| equal to the recurrence's residual estimate (at s=13 the
     # f32 solves stop at the 100-iteration cap, so the residual is not small)
@@ -1932,7 +2215,23 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_hi[sfx][name]})
+        if name == "fused_cg_iteration":  # B2 with P or x in bf16
+            for p, s, _, precision, config, run in STORAGE_RUNS:
+                for key, _ in STORAGE:
+                    sfx = key + run
+                    (k, pl), (bms, by), err = storage[sfx]
+                    row.update({f"source{sfx}": CSRC + "cg_fused_px.cu",
+                                f"p_s{sfx}": [p, s],
+                                f"config{sfx}": [precision, config["factor"],
+                                                 config["metric"]],
+                                f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                                f"max_abs_err{sfx}": err,
+                                f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
+                                f"launches{sfx}": launches_st[sfx][name],
+                                f"ms_f32{sfx}": storage["_f32" + run][0][0]})
         rows.append(row)
+    print("convergence rates: " + ", ".join(
+        f"p={p} {rate:.4f}" for p, _, rate, _ in rates))
     print(f"wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ Usage (the reference's positional CLI, ``benchmark.h:280-288``)::
        [--solver merged|baseline|fused] \
        [--precision highest|split3|split2m|bf16] \
        [--windowing reshape|pieces|zslab] [--geometry auto|qpoint|onthefly] \
-       [--dtype f32|f64|bf16] [--metric-dtype f32|bf16]
+       [--dtype f32|f64|bf16] [--metric-dtype f32|bf16] \
+       [--backend pallas|structured|general] [--prec-dtype f32|bf16] \
+       [--x-dtype f32|bf16]
 
 The defaults are the JAX CLI's: the merged CG on the cell-batched operator
 (``--windowing reshape``, kernel B3) at ``--precision highest``, at every
@@ -29,7 +31,13 @@ rebuilt one by either chain (the auto path from p=5 is twostage +
 onthefly + jtj); the merged and baseline solvers on every windowing at
 every degree and rung.  ``--dtype bf16`` (the fused solver under
 ``--precision bf16``) stores d and h in bf16; ``--metric-dtype bf16``
-(``split3``, ``bf16``) streams the metric in bf16.  Other unported
+(``split3``, ``bf16``) streams the metric in bf16.  ``--prec-dtype bf16``
+and ``--x-dtype bf16`` store the fused solver's preconditioner and
+solution x in bf16, in every configuration.  ``--backend structured`` and
+``--backend general`` run the merged and baseline solvers on the plain
+lattice and gather/scatter operators (``ops/laplace_structured``,
+``ops/laplace``); ``--precision``, ``--windowing`` and ``--geometry`` then
+change nothing, as in the JAX single-device ``run_one``.  Other unported
 choices raise NotImplementedError naming their ROADMAP item (queues A and
 B), with no fallback to another rung or to the plain version: the
 tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass, a
@@ -228,9 +236,12 @@ def resolve_config(degree: int, solver: str, windowing: str,
     return factor, metric, cofactor
 
 
-def solver_call(problem: bp4.BP4Problem, solver: str):
+def solver_call(problem: bp4.BP4Problem, solver: str,
+                prec_dtype: torch.dtype | None = None,
+                x_dtype: torch.dtype | None = None):
     """A zero-argument call that solves ``problem`` with ``solver``: the
-    merged or baseline CG on flat vectors, or the fused CG on the lattice."""
+    merged or baseline CG on flat vectors, or the fused CG on the lattice
+    (with P and x stored at ``prec_dtype``, ``x_dtype``)."""
     if solver == "merged":
         return lambda: bp4.solve_merged(problem)
     if solver == "baseline":
@@ -238,8 +249,34 @@ def solver_call(problem: bp4.BP4Problem, solver: str):
     lat = problem.lattice_shape
     b = problem.b.reshape(lat)
     prec = problem.inv_diag.reshape((1,) + lat[1:])
-    return lambda: cg_fused.fused_merged_cg_solve(problem.op, lat[1:], b,
-                                                  prec)
+    return lambda: cg_fused.fused_merged_cg_solve(
+        problem.op, lat[1:], b, prec, prec_dtype=prec_dtype,
+        x_dtype=x_dtype)
+
+
+def check_problem(problem: bp4.BP4Problem, backend: str, factor: str,
+                  metric: str, precision: str, cofactor: str) -> None:
+    """Raise ValueError unless a prebuilt ``problem`` is the configuration
+    the timings will be labelled with (the JAX ``run_one``'s checks, which
+    it makes on the pallas backend; the backend itself too)."""
+    if problem.backend != backend:
+        raise ValueError(f"prebuilt problem has backend="
+                         f"{problem.backend!r}, call passed {backend!r}")
+    if backend != "pallas":
+        return
+    op = problem.op
+    if op.factor != factor:
+        raise ValueError(f"prebuilt problem has factor={op.factor!r}, call "
+                         f"resolved {factor!r}")
+    if op.metric != metric:
+        raise ValueError(f"prebuilt problem geometry ({op.metric}) != "
+                         f"call's resolved metric {metric!r}")
+    if op.precision != precision:
+        raise ValueError(f"prebuilt problem has precision="
+                         f"{op.precision!r}, call passed {precision!r}")
+    if op.cofactor != cofactor:
+        raise ValueError(f"prebuilt problem has cofactor={op.cofactor!r}, "
+                         f"call resolved {cofactor!r}")
 
 
 def run_one(degree: int, s: int, solver: str = "merged",
@@ -249,27 +286,48 @@ def run_one(degree: int, s: int, solver: str = "merged",
             matvec_repeats: int = 2, matvec_inner: int = 50,
             metric: str = "auto", cofactor: str = "auto",
             device: torch.device | str = "cuda",
-            metric_dtype: torch.dtype | None = None) -> RunResult:
+            metric_dtype: torch.dtype | None = None,
+            backend: str = "pallas", prec_dtype: torch.dtype | None = None,
+            x_dtype: torch.dtype | None = None,
+            problem: bp4.BP4Problem | None = None) -> RunResult:
     """Set up and time one (p, s) benchmark point (``benchmark.h:50-226``)
     on a CUDA ``device``; raises without one.
 
-    The configuration resolves as the JAX package's ``run_one(...,
-    backend="pallas")`` does.  The fused solver's kernels work on the
-    lattice in place of the piece windowing; the merged and baseline
-    solvers run on the apply family (B3-B6, ``ops/laplace_apply``).
+    The configuration resolves as the JAX package's ``run_one`` does.  The
+    fused solver's kernels work on the lattice in place of the piece
+    windowing; the merged and baseline solvers run on ``backend``'s
+    operator: the apply family (B3-B6, ``ops/laplace_apply``) on
+    ``"pallas"`` (the default here and in the JAX CLI), the plain lattice
+    or gather/scatter operator on ``"structured"`` / ``"general"``, where
+    ``precision``, ``windowing``, ``factor``, ``metric`` and ``cofactor``
+    change nothing (the JAX ``bp4.build`` passes them to the pallas
+    builder only) and the fused solver is refused.
     ``dtype=torch.bfloat16``: the fused solver's bf16 state (d, h) under
-    the ``bf16`` rung; ``metric_dtype``: the streamed metric's storage.
+    the ``bf16`` rung; ``metric_dtype``: the streamed metric's storage;
+    ``prec_dtype``, ``x_dtype``: the fused solver's P and x storage.
+    ``problem``: a prebuilt problem of the same configuration (ValueError
+    where it is not, the JAX ``run_one``'s checks).
     """
-    factor, metric, cofactor = resolve_config(
-        degree, solver, windowing, precision, dtype, factor, metric, cofactor,
-        metric_dtype)
+    if backend not in bp4.BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if solver == "fused" and not (backend == "pallas"
+                                  and windowing == "pieces"):
+        raise ValueError("--solver fused requires --backend pallas "
+                         "--windowing pieces")
+    if backend == "pallas":
+        factor, metric, cofactor = resolve_config(
+            degree, solver, windowing, precision, dtype, factor, metric,
+            cofactor, metric_dtype)
+    if problem is not None:
+        check_problem(problem, backend, factor, metric, precision, cofactor)
     device = timing.require_cuda(device)
 
     setup_t0 = time.perf_counter()
-    problem = bp4.build(s, degree, dtype=dtype, precision=precision,
-                        factor=factor, metric=metric, cofactor=cofactor,
-                        device=device, windowing=windowing,
-                        metric_dtype=metric_dtype)
+    if problem is None:
+        problem = bp4.build(s, degree, dtype=dtype, precision=precision,
+                            factor=factor, metric=metric, cofactor=cofactor,
+                            device=device, windowing=windowing,
+                            metric_dtype=metric_dtype, backend=backend)
     op = problem.op
     if verbose:
         # reference verbose mode: diagonal norm + setup time
@@ -293,8 +351,10 @@ def run_one(degree: int, s: int, solver: str = "merged",
     else:
         a_full = problem.a_apply_full
         matvec = lambda: a_full(problem.b)  # noqa: E731
-    return _time_point(problem, solver_call(problem, solver), matvec, device,
-                       verbose, solve_repeats, matvec_repeats, matvec_inner)
+    return _time_point(problem,
+                       solver_call(problem, solver, prec_dtype, x_dtype),
+                       matvec, device, verbose, solve_repeats,
+                       matvec_repeats, matvec_inner)
 
 
 def _time_point(problem, solve, matvec, device, verbose: bool,
@@ -315,7 +375,7 @@ def _time_point(problem, solve, matvec, device, verbose: bool,
     degree = problem.layout.degree
     return RunResult(
         degree=degree,
-        n_q=degree + 2,
+        n_q=problem.n_q,
         n_cells=problem.layout.mesh.n_cells,
         n_dofs=problem.n_dofs,
         time_per_it=solver_time / max(n_it, 1),
@@ -386,6 +446,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="onthefly inversion chain of the fused solver "
                          "(under split2m jtj in twostage only; B4 always "
                          "runs adjj)")
+    ap.add_argument("--backend", choices=list(bp4.BACKENDS),
+                    default="pallas",
+                    help="operator of the merged and baseline solvers: "
+                         "pallas = the kernels (B3-B6), structured = the "
+                         "plain lattice operator, general = the plain "
+                         "gather/scatter operator (the fused solver needs "
+                         "pallas)")
+    ap.add_argument("--prec-dtype", choices=["f32", "bf16"], default="f32",
+                    help="fused solver: storage of the preconditioner "
+                         "(bf16 = ~0.4%% Jacobi perturbation)")
+    ap.add_argument("--x-dtype", choices=["f32", "bf16"], default="f32",
+                    help="fused solver: storage of the solution x only "
+                         "(bf16 halves x's traffic; the residual history "
+                         "is unchanged, the delivered x is rounded)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -402,7 +476,12 @@ def main(argv: list[str] | None = None) -> None:
                             "onthefly": "onthefly"}[args.geometry],
                     cofactor=args.cofactor, device=args.device,
                     metric_dtype=(torch.bfloat16 if args.metric_dtype == "bf16"
-                                  else None))
+                                  else None),
+                    backend=args.backend,
+                    prec_dtype=(torch.bfloat16 if args.prec_dtype == "bf16"
+                                else None),
+                    x_dtype=(torch.bfloat16 if args.x_dtype == "bf16"
+                             else None))
         print(r.row() + ("" if r.converged else "   [not converged]"))
 
 

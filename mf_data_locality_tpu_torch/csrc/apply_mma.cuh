@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const int cell0 = blockIdx.x * kMmaBlockCells;
   const int tid = threadIdx.x;
 
-  if constexpr (FORM == kLatticeUpdate) {
+  if constexpr (is_update(FORM)) {
     if (tid < 4) sm.x.sc[tid] = x.io.scal[tid];
     __syncthreads();
   }
@@ -221,8 +221,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           val = u[c * n_nodes + node] * m;
         else
           val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
-      } else if constexpr (FORM == kLatticeUpdate) {
-        val = cell_input<float, P, true, NP == 1>(
+      } else if constexpr (is_update(FORM)) {
+        val = cell_input<float, P, true, NP == 1,
+                         FORM == kLatticeUpdatePx>(
             x.io, sm.x.sc, gr, c, cell / (gr.ncx * gr.ncy),
             (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
             (k / S::P1) % S::P1, k % S::P1);
@@ -394,11 +395,13 @@ cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
                                                  out, x, st);                  \
   }
 // the forms and metric sources of B3 (cell batch), B5/B6/B1 (lattice,
-// streamed), B1 (rebuilt), B2 (update4b, streamed or rebuilt)
+// streamed), B1 (rebuilt), B2 (update4b, streamed or rebuilt; also with P
+// or x in bf16)
 #define BP4_MMA_CONFIGS(P, NP, M)                                     \
   M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
   M(P, kLattice, true, NP) M(P, kLatticeUpdate, false, NP)            \
-  M(P, kLatticeUpdate, true, NP)
+  M(P, kLatticeUpdate, true, NP) M(P, kLatticeUpdatePx, false, NP)    \
+  M(P, kLatticeUpdatePx, true, NP)
 #define BP4_MMA_RUNG(NP, M)                                           \
   BP4_MMA_CONFIGS(1, NP, M) BP4_MMA_CONFIGS(2, NP, M)                 \
   BP4_MMA_CONFIGS(3, NP, M) BP4_MMA_CONFIGS(4, NP, M)

@@ -163,10 +163,10 @@ __global__ void __launch_bounds__(kHdGatherThreads)
         val = u[c * n_nodes + node] * m;
       else
         val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
-    } else if constexpr (FORM == kLatticeUpdate) {
+    } else if constexpr (is_update(FORM)) {
       const float sc[4] = {x.io.scal[0], x.io.scal[1], x.io.scal[2],
                            x.io.scal[3]};
-      val = cell_input<float, P, true, NP == 1>(
+      val = cell_input<float, P, true, NP == 1, FORM == kLatticeUpdatePx>(
           x.io, sc, gr, c, cell / (gr.ncx * gr.ncy), (cell / gr.ncx) % gr.ncy,
           cell % gr.ncx, k / S::P12, (k / S::P1) % S::P1, k % S::P1);
     } else {

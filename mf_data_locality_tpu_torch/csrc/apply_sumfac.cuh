@@ -196,10 +196,10 @@ struct SumfacInput {
           const size_t node = cell_node<P>(gr, cell0 + bb, k, a.mask, &m[j]);
           v[j] = a.io.d[c * static_cast<size_t>(gr.n_nodes()) + node];
         }
-      } else if constexpr (FORM == kLatticeUpdate) {
+      } else if constexpr (is_update(FORM)) {
         if (live) {
           const int cell = cell0 + bb;
-          v[j] = cell_input<T, P, true>(
+          v[j] = cell_input<T, P, true, false, FORM == kLatticeUpdatePx>(
               a.io, sm.sc, gr, c, cell / (gr.ncx * gr.ncy),
               (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
               (k / S::P1) % S::P1, k % S::P1);
@@ -271,7 +271,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
     }
     __pipeline_commit();
   }
-  if constexpr (FORM == kLatticeUpdate) {
+  if constexpr (is_update(FORM)) {
     if (tid < 4) sm.sc[tid] = a.io.scal[tid];
     __syncthreads();
   }
@@ -495,13 +495,17 @@ cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
       const SumfacArgs<T>& a, const Grid& gr, cudaStream_t st) {     \
     return launch_sumfac_here<T, P, FORM, REBUILD>(a, gr, st);       \
   }
-#define BP4_SUMFAC_FORMS(P, M)                                        \
-  M(float, P, kCellBatch, false) M(float, P, kCellBatch, true)        \
-  M(float, P, kLattice, false) M(float, P, kLattice, true)            \
-  M(float, P, kLatticeUpdate, false) M(float, P, kLatticeUpdate, true) \
-  M(double, P, kCellBatch, false) M(double, P, kCellBatch, true)      \
-  M(double, P, kLattice, false) M(double, P, kLattice, true)          \
-  M(double, P, kLatticeUpdate, false) M(double, P, kLatticeUpdate, true)
+#define BP4_SUMFAC_FORMS(P, M)                                          \
+  M(float, P, kCellBatch, false) M(float, P, kCellBatch, true)          \
+  M(float, P, kLattice, false) M(float, P, kLattice, true)              \
+  M(float, P, kLatticeUpdate, false) M(float, P, kLatticeUpdate, true)  \
+  M(float, P, kLatticeUpdatePx, false)                                  \
+  M(float, P, kLatticeUpdatePx, true)                                   \
+  M(double, P, kCellBatch, false) M(double, P, kCellBatch, true)        \
+  M(double, P, kLattice, false) M(double, P, kLattice, true)            \
+  M(double, P, kLatticeUpdate, false) M(double, P, kLatticeUpdate, true) \
+  M(double, P, kLatticeUpdatePx, false)                                 \
+  M(double, P, kLatticeUpdatePx, true)
 #define BP4_SUMFAC_DECLARE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DECLARE)
 // the definitions of degree P's forms, in its own source
 #define BP4_SUMFAC_DEGREE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DEFINE)

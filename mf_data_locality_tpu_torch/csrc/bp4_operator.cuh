@@ -50,8 +50,19 @@ constexpr int kDots = 7;            // update3b sums (cg_fused_kernel.py:891)
 //                   (C, n_cells, P13);
 //   kLatticeUpdate  B2: as kLattice, the input being update4b's d' at each
 //                   (cell, node) (cell_input), whose owner cell writes x',
-//                   g', d'.
-enum : int { kCellBatch = 0, kLattice = 1, kLatticeUpdate = 2 };
+//                   g', d';
+//   kLatticeUpdatePx  B2 as kLatticeUpdate, with P or x stored in bf16
+//                   (io.prec_bf16, io.x_bf16; the fused solver's prec_dtype
+//                   and x_dtype, cg_fused.py:57-70 of the JAX package).
+enum : int {
+  kCellBatch = 0,
+  kLattice = 1,
+  kLatticeUpdate = 2,
+  kLatticeUpdatePx = 3
+};
+__host__ __device__ constexpr bool is_update(int form) {
+  return form >= kLatticeUpdate;
+}
 
 template <int P>
 struct Shape {
@@ -85,6 +96,35 @@ __device__ __forceinline__ void store_flex(float* p, size_t i, float v,
   else
     p[i] = v;
 }
+// Element i of a read-only T array (f32 or f64) that holds bf16 values
+// instead when `bf16` is set (warp-uniform), upcast to T: B2's
+// preconditioner and x under prec_dtype / x_dtype bf16.  In f32 one 32-bit
+// load either way, of the word that holds element i (bf16: the pair
+// i & ~1, i | 1), then its half or all of it: no branch around the load,
+// so a batch of them issues back to back.  store_px rounds as torch's
+// .to(bf16) does (an f64 value through f32).
+template <typename T>
+__device__ __forceinline__ T load_px(const T* p, size_t i, bool bf16) {
+  if constexpr (sizeof(T) == 4) {
+    const unsigned w =
+        __ldg(reinterpret_cast<const unsigned*>(p) + (bf16 ? i >> 1 : i));
+    return __uint_as_float(bf16 ? ((i & 1) ? (w & 0xffff0000u) : (w << 16))
+                                : w);
+  } else {
+    return bf16 ? static_cast<T>(__bfloat162float(
+                      reinterpret_cast<const __nv_bfloat16*>(p)[i]))
+                : p[i];
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_px(T* p, size_t i, T v, bool bf16) {
+  if (bf16)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] =
+        __float2bfloat16_rn(static_cast<float>(v));
+  else
+    p[i] = v;
+}
+
 // A value of the assemble pass's h and d stored as V (T, or bf16: the bf16
 // state), and back at the working type T.
 template <typename V, typename T>
@@ -255,20 +295,50 @@ __device__ __forceinline__ void load_pds_row(const T* row, T (&pq)[24]) {
 // The vectors of the B1 (d -> cells) and B2 (update4b, then d' -> cells)
 // cell passes; B1 sets only d.  bf16: d, h and d2 hold bf16 values (the
 // bf16 state; read by the bf16 rung's tensor-core passes, FLEX).
+// prec_bf16, x_bf16: prec, or x and x2, hold bf16 values (read by the PX
+// instantiations of B2's passes only).
 template <typename T>
 struct CellIo {
   const T *x, *g, *d, *h, *prec, *scal;
   T *x2, *g2, *d2;
   int bf16 = 0;
+  int prec_bf16 = 0, x_bf16 = 0;
 };
+
+// update4b's reads of P and x and its write of x' (cg_fused_kernel.py:
+// 836-858): at T, or (PX) through load_px / store_px by io.prec_bf16 and
+// io.x_bf16; the arithmetic is the working type's either way, and x' is
+// rounded where it is stored.
+template <bool PX, typename T>
+__device__ __forceinline__ T prec_at(const CellIo<T>& io, size_t node) {
+  if constexpr (PX)
+    return load_px(io.prec, node, io.prec_bf16);
+  else
+    return io.prec[node];
+}
+template <bool PX, typename T>
+__device__ __forceinline__ T x_at(const CellIo<T>& io, size_t idx) {
+  if constexpr (PX)
+    return load_px(io.x, idx, io.x_bf16);
+  else
+    return io.x[idx];
+}
+template <bool PX, typename T>
+__device__ __forceinline__ void set_x2(const CellIo<T>& io, size_t idx, T v) {
+  if constexpr (PX)
+    store_px(io.x2, idx, v, io.x_bf16);
+  else
+    io.x2[idx] = v;
+}
 
 // The operator input at local node (kz, ky, kx) of cell (cz, cy, cx),
 // component c, zero at Dirichlet nodes: B1 d; B2 update4b's d'
 // (cg_fused_kernel.py:836-858) from the scalars sc = (alpha, beta, c1,
 // aob), and the node's owner cell writes x', g', d'.  FLEX (T float): d
 // and h may be bf16 (io.bf16); then d' is stored in bf16 and the operator
-// takes the stored, rounded d' (cg_fused_kernel.py:856).
-template <typename T, int P, bool FUSED, bool FLEX = false>
+// takes the stored, rounded d' (cg_fused_kernel.py:856).  PX: P and x by
+// prec_at / x_at / set_x2.
+template <typename T, int P, bool FUSED, bool FLEX = false, bool PX = false>
 __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                                         const Grid& gr, int c, int cz, int cy,
                                         int cx, int kz, int ky, int kx) {
@@ -281,7 +351,7 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
     if constexpr (!FUSED) {
       return in ? load_flex(io.d, idx, bf) : 0.f;
     } else {
-      const float pv = io.prec[node], gv = io.g[idx],
+      const float pv = prec_at<PX>(io, node), gv = io.g[idx],
                   dv = load_flex(io.d, idx, bf);
       const float gn = gv + sc[0] * load_flex(io.h, idx, bf);
       const float dn = round_flex(sc[1] * dv - pv * gn, bf);
@@ -289,7 +359,8 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                          (ky < P || cy == gr.ncy - 1) &&
                          (kx < P || cx == gr.ncx - 1);
       if (owner) {
-        io.x2[idx] = io.x[idx] + sc[2] * dv + sc[3] * (pv * gv);
+        set_x2<PX>(io, idx,
+                   x_at<PX>(io, idx) + sc[2] * dv + sc[3] * (pv * gv));
         io.g2[idx] = gn;
         store_flex(io.d2, idx, dn, bf);
       }
@@ -298,7 +369,7 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
   } else if constexpr (!FUSED) {
     return in ? io.d[idx] : T(0);
   } else {
-    const T pv = io.prec[node], gv = io.g[idx], dv = io.d[idx];
+    const T pv = prec_at<PX>(io, node), gv = io.g[idx], dv = io.d[idx];
     const T gn = gv + sc[0] * io.h[idx];
     const T dn = sc[1] * dv - pv * gn;
     // each node is written by exactly one cell: the one it is local node
@@ -307,7 +378,8 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                        (ky < P || cy == gr.ncy - 1) &&
                        (kx < P || cx == gr.ncx - 1);
     if (owner) {
-      io.x2[idx] = io.x[idx] + sc[2] * dv + sc[3] * (pv * gv);
+      set_x2<PX>(io, idx,
+                 x_at<PX>(io, idx) + sc[2] * dv + sc[3] * (pv * gv));
       io.g2[idx] = gn;
       io.d2[idx] = dn;
     }
@@ -378,8 +450,9 @@ __device__ void block_sum(T (*red)[kNodeThreads], const T* v) {
 // (cg_fused_kernel.py:877-895).  Replaces the TPU kernels' lane-roll
 // consistency and z carry plane.  V: the storage of h and d (T, or bf16
 // for the bf16 state: h is rounded where it is stored, and the sums read
-// the stored d' and h').
-template <typename T, int P, bool DOTS, typename V = T>
+// the stored d' and h').  PBF: prec holds bf16 values (prec_dtype bf16),
+// upcast at the load.
+template <typename T, int P, bool DOTS, typename V = T, bool PBF = false>
 __global__ void __launch_bounds__(kNodeThreads)
     assemble_kernel(Grid gr, const T* __restrict__ cells, V* __restrict__ h,
                     const T* __restrict__ g, const V* __restrict__ d,
@@ -393,7 +466,10 @@ __global__ void __launch_bounds__(kNodeThreads)
               z = node / (gr.nx * gr.ny);
     const bool in = interior(gr, z, y, x);
     T pv = T(0);
-    if constexpr (DOTS) pv = prec[node];
+    if constexpr (DOTS && PBF)
+      pv = load_px(prec, node, true);
+    else if constexpr (DOTS)
+      pv = prec[node];
     for (int c = 0; c < kComps; ++c) {
       const size_t idx = static_cast<size_t>(c) * n_nodes + node;
       const V hs = to_store<V>(in ? gather_node<T, P>(cells, gr, c, z, y, x)

@@ -156,8 +156,9 @@ using CellMmaSmemFor =
 // batch's first store, and written to the one or two cells that hold it.
 // The owner of a node (it writes B2's x', g', d') is the cell it is local
 // node kx < P of, or the tile's last cell when that ends the x row, as in
-// cell_input.  FLEX: d and h may be bf16 (io.bf16), as in cell_input.
-template <int P, bool FUSED, bool FLEX>
+// cell_input.  FLEX: d and h may be bf16 (io.bf16), and PX: P and x
+// (io.prec_bf16, io.x_bf16), as in cell_input.
+template <int P, bool FUSED, bool FLEX, bool PX = false>
 __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
                                 const float (&sc)[4], const Grid& gr,
                                 int cell0) {
@@ -196,8 +197,13 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
             hv[k] = ldg_flex(io.h, idx[k], io.bf16);
           else
             hv[k] = __ldg(io.h + idx[k]);
-          pv[k] = __ldg(io.prec + node);
-          if (owner[k]) xv[k] = __ldg(io.x + idx[k]);
+          if constexpr (PX) {
+            pv[k] = load_px(io.prec, node, io.prec_bf16);
+            if (owner[k]) xv[k] = load_px(io.x, idx[k], io.x_bf16);
+          } else {
+            pv[k] = __ldg(io.prec + node);
+            if (owner[k]) xv[k] = __ldg(io.x + idx[k]);
+          }
         }
       }
     }
@@ -214,7 +220,8 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
         val = sc[1] * dv[k] - pv[k] * gn;
         if constexpr (FLEX) val = round_flex(val, io.bf16);
         if (owner[k]) {
-          io.x2[idx[k]] = xv[k] + sc[2] * dv[k] + sc[3] * (pv[k] * gv[k]);
+          set_x2<PX>(io, idx[k],
+                     xv[k] + sc[2] * dv[k] + sc[3] * (pv[k] * gv[k]));
           io.g2[idx[k]] = gn;
           if constexpr (FLEX)
             store_flex(io.d2, idx[k], val, io.bf16);
@@ -232,7 +239,7 @@ __device__ void gather_row_tile(CellMmaSmem<P>& sm, const CellIo<float>& io,
 
 // The input of any other tile (ragged, or crossing a row of cells): per
 // (cell, local node), kx fastest, then the tile's cells, then (c, kz, ky).
-template <int P, bool FUSED, bool FLEX>
+template <int P, bool FUSED, bool FLEX, bool PX = false>
 __device__ void gather_cells(CellMmaSmem<P>& sm, const CellIo<float>& io,
                              const float (&sc)[4], const Grid& gr, int cell0) {
   using S = Shape<P>;
@@ -248,8 +255,8 @@ __device__ void gather_cells(CellMmaSmem<P>& sm, const CellIo<float>& io,
     if (cell < nc) {
       const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
                 cz = cell / (gr.ncx * gr.ncy);
-      val = cell_input<float, P, FUSED, FLEX>(io, sc, gr, c, cz, cy, cx, kz,
-                                              ky, kx);
+      val = cell_input<float, P, FUSED, FLEX, PX>(io, sc, gr, c, cz, cy, cx,
+                                                  kz, ky, kx);
     }
     sm.u[c][b][kz * P12P + ky * P1 + kx] = val;
   }
@@ -283,7 +290,8 @@ __device__ void metric_plane(float (&g)[6][kTileCells][CellMmaShape<P>::LDG],
 
 // tb.mats: the two fragment tables, forward then backward, TF + TB uint2
 // (split3: Ml's two follow).  NP: the rung's products a tile (mma.cuh).
-template <int P, bool FUSED, int COFACTOR, int NP>
+// PX: B2 with P or x in bf16 (io.prec_bf16, io.x_bf16).
+template <int P, bool FUSED, int COFACTOR, int NP, bool PX = false>
 __global__ void __launch_bounds__(kCellMmaThreads, 2)
     cells_mma_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                      float* __restrict__ cells) {
@@ -356,9 +364,9 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
     for (int k = 0; k < 4; ++k) sc[k] = io.scal[k];
   }
   if (cell0 + kTileCells <= nc && cell0 % gr.ncx + kTileCells <= gr.ncx)
-    gather_row_tile<P, FUSED, FLEX>(sm, io, sc, gr, cell0);
+    gather_row_tile<P, FUSED, FLEX, PX>(sm, io, sc, gr, cell0);
   else
-    gather_cells<P, FUSED, FLEX>(sm, io, sc, gr, cell0);
+    gather_cells<P, FUSED, FLEX, PX>(sm, io, sc, gr, cell0);
 
   const int warp = tid / 32, lane = tid % 32;
   const int c = warp;                     // this warp's component
@@ -530,12 +538,12 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   }
 }
 
-template <int P, bool FUSED, int COFACTOR, int NP>
+template <int P, bool FUSED, int COFACTOR, int NP, bool PX = false>
 cudaError_t launch_cells_mma_here(const OpTables<float>& tb, const Grid& gr,
                                   const CellIo<float>& io, float* cells,
                                   cudaStream_t st) {
   using Sm = CellMmaSmemFor<P, NP>;
-  auto kern = cells_mma_kernel<P, FUSED, COFACTOR, NP>;
+  auto kern = cells_mma_kernel<P, FUSED, COFACTOR, NP, PX>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
@@ -547,30 +555,31 @@ cudaError_t launch_cells_mma_here(const OpTables<float>& tb, const Grid& gr,
 
 // The pass of one configuration: split2m (NP = 2) is instantiated where it
 // is called (cg_fused.cu), split3 and bf16 in mma_rungs.cu.
-template <int P, bool FUSED, int COFACTOR, int NP>
+template <int P, bool FUSED, int COFACTOR, int NP, bool PX = false>
 cudaError_t launch_cells_mma(const OpTables<float>& tb, const Grid& gr,
                              const CellIo<float>& io, float* cells,
                              cudaStream_t st) {
-  return launch_cells_mma_here<P, FUSED, COFACTOR, NP>(tb, gr, io, cells,
-                                                       st);
+  return launch_cells_mma_here<P, FUSED, COFACTOR, NP, PX>(tb, gr, io, cells,
+                                                           st);
 }
 
-#define BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP)                       \
+#define BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP, PX)                   \
   template <>                                                             \
-  cudaError_t launch_cells_mma<4, FUSED, COFACTOR, NP>(                   \
+  cudaError_t launch_cells_mma<4, FUSED, COFACTOR, NP, PX>(               \
       const OpTables<float>& tb, const Grid& gr, const CellIo<float>& io, \
       float* cells, cudaStream_t st)
-#define BP4_CELL_MMA_DECLARE1(FUSED, COFACTOR, NP) \
-  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP);
-#define BP4_CELL_MMA_DEFINE1(FUSED, COFACTOR, NP)                            \
-  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP) {                              \
-    return launch_cells_mma_here<4, FUSED, COFACTOR, NP>(tb, gr, io, cells, \
-                                                         st);               \
+#define BP4_CELL_MMA_DECLARE1(FUSED, COFACTOR, NP, PX) \
+  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP, PX);
+#define BP4_CELL_MMA_DEFINE1(FUSED, COFACTOR, NP, PX)                        \
+  BP4_CELL_MMA_SIGNATURE(FUSED, COFACTOR, NP, PX) {                          \
+    return launch_cells_mma_here<4, FUSED, COFACTOR, NP, PX>(tb, gr, io,    \
+                                                             cells, st);    \
   }
-// B1, B2 x the rebuilt metric's chains, at p=4
-#define BP4_CELL_MMA_RUNG(NP, M)                                  \
-  M(false, kAdjj, NP) M(false, kJtj, NP) M(true, kAdjj, NP)       \
-  M(true, kJtj, NP)
+// B1, B2 x the rebuilt metric's chains, at p=4; B2 also with P or x in bf16
+#define BP4_CELL_MMA_RUNG(NP, M)                                          \
+  M(false, kAdjj, NP, false) M(false, kJtj, NP, false)                    \
+  M(true, kAdjj, NP, false) M(true, kJtj, NP, false)                      \
+  M(true, kAdjj, NP, true) M(true, kJtj, NP, true)
 
 BP4_CELL_MMA_RUNG(1, BP4_CELL_MMA_DECLARE1)
 BP4_CELL_MMA_RUNG(3, BP4_CELL_MMA_DECLARE1)

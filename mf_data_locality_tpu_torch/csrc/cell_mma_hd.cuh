@@ -147,7 +147,8 @@ __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
 // (n_cells, 24) (rebuilt); tb.gmetric: (6 Q3, n_cells) (streamed).
 // blockIdx.x: the 8-cell group, blockIdx.y: the component.  NP: the rung's
 // products a tile (mma.cuh); split3's Ml tables follow Mh's.
-template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP,
+          bool PX = false>
 __global__ void __launch_bounds__(kHdThreads)
     cells_mma_hd_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                         float* __restrict__ cells) {
@@ -206,8 +207,8 @@ __global__ void __launch_bounds__(kHdThreads)
     if (cell < nc) {
       const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
                 cz = cell / (gr.ncx * gr.ncy);
-      val = cell_input<float, P, FUSED, FLEX_STATE>(io, sc, gr, c, cz, cy, cx, kz,
-                                              ky, kx);
+      val = cell_input<float, P, FUSED, FLEX_STATE, PX>(io, sc, gr, c, cz, cy,
+                                                        cx, kz, ky, kx);
     }
     sm.u[b][kz * P12P + ky * P1 + kx] = val;
   }
@@ -391,11 +392,12 @@ __global__ void __launch_bounds__(kHdThreads)
   }
 }
 
-template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP,
+          bool PX = false>
 cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
                                      const CellIo<float>& io, float* cells,
                                      cudaStream_t st) {
-  auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR, NP>;
+  auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR, NP, PX>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -412,30 +414,35 @@ cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
 // and rung (cell_mma_p05.cu .. cell_mma_p11.cu, each built once per rung,
 // -DBP4_RUNG=n: BP4_CELL_MMA_HD_DEGREE), compiled in parallel with the
 // others.
-template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP>
+template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP,
+          bool PX = false>
 cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
                                 const CellIo<float>& io, float* cells,
                                 cudaStream_t st) {
-  return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP>(
+  return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP, PX>(
       tb, gr, io, cells, st);
 }
 
-#define BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP)        \
+#define BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP, PX)    \
   template <>                                                             \
-  cudaError_t launch_cells_mma_hd<P, FUSED, REBUILD, COFACTOR, NP>(       \
+  cudaError_t launch_cells_mma_hd<P, FUSED, REBUILD, COFACTOR, NP, PX>(   \
       const OpTables<float>& tb, const Grid& gr, const CellIo<float>& io, \
       float* cells, cudaStream_t st)
-#define BP4_CELL_MMA_HD_DECLARE1(P, FUSED, REBUILD, COFACTOR, NP) \
-  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP);
-#define BP4_CELL_MMA_HD_DEFINE1(P, FUSED, REBUILD, COFACTOR, NP)         \
-  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP) {           \
-    return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP>(    \
-        tb, gr, io, cells, st);                                          \
+#define BP4_CELL_MMA_HD_DECLARE1(P, FUSED, REBUILD, COFACTOR, NP, PX) \
+  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP, PX);
+#define BP4_CELL_MMA_HD_DEFINE1(P, FUSED, REBUILD, COFACTOR, NP, PX)      \
+  BP4_CELL_MMA_HD_SIGNATURE(P, FUSED, REBUILD, COFACTOR, NP, PX) {        \
+    return launch_cells_mma_hd_here<P, FUSED, REBUILD, COFACTOR, NP, PX>( \
+        tb, gr, io, cells, st);                                           \
   }
-#define BP4_CELL_MMA_HD_CONFIGS(P, NP, M)                             \
-  M(P, false, false, kAdjj, NP) M(P, false, true, kAdjj, NP)          \
-  M(P, false, true, kJtj, NP) M(P, true, false, kAdjj, NP)            \
-  M(P, true, true, kAdjj, NP) M(P, true, true, kJtj, NP)
+// B1, B2 x the metric streamed, rebuilt by adjj, rebuilt by jtj; B2 also
+// with P or x in bf16
+#define BP4_CELL_MMA_HD_CONFIGS(P, NP, M)                                   \
+  M(P, false, false, kAdjj, NP, false) M(P, false, true, kAdjj, NP, false)  \
+  M(P, false, true, kJtj, NP, false) M(P, true, false, kAdjj, NP, false)    \
+  M(P, true, true, kAdjj, NP, false) M(P, true, true, kJtj, NP, false)      \
+  M(P, true, false, kAdjj, NP, true) M(P, true, true, kAdjj, NP, true)      \
+  M(P, true, true, kJtj, NP, true)
 #define BP4_CELL_MMA_HD_DECLARE(P)                            \
   BP4_CELL_MMA_HD_CONFIGS(P, 1, BP4_CELL_MMA_HD_DECLARE1)     \
   BP4_CELL_MMA_HD_CONFIGS(P, 2, BP4_CELL_MMA_HD_DECLARE1)     \
@@ -444,8 +451,9 @@ cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
 #define BP4_CELL_MMA_HD_DEGREE(P, NP) \
   BP4_CELL_MMA_HD_CONFIGS(P, NP, BP4_CELL_MMA_HD_DEFINE1)
 // degree 4, the streamed metric, under split3 and bf16 (mma_rungs.cu)
-#define BP4_CELL_MMA_HD_P4(NP, M) \
-  M(4, false, false, kAdjj, NP) M(4, true, false, kAdjj, NP)
+#define BP4_CELL_MMA_HD_P4(NP, M)                                   \
+  M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, false) \
+  M(4, true, false, kAdjj, NP, true)
 
 BP4_CELL_MMA_HD_DECLARE(5)
 BP4_CELL_MMA_HD_DECLARE(6)

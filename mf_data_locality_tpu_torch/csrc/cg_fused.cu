@@ -58,6 +58,11 @@
 //   at the load, d' is stored rounded and the operator takes the rounded
 //   d', and the assemble pass rounds h' where it stores it and sums the
 //   stored d' and h' (cg_fused_kernel.py:856, 877).
+//   In every configuration B2's preconditioner P, and x, may be bf16 (the
+//   fused solver's prec_dtype, x_dtype): one more instantiation of each
+//   cell pass (kLatticeUpdatePx, PX) and of the assemble pass reads them,
+//   built in cg_fused_px.cu (fused_iteration_px) and the per-degree
+//   sources; x' is rounded where it is stored.
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -69,147 +74,9 @@
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success),
 // or -1 for a configuration with no instantiation.
 
-#include <type_traits>
-
-#include "apply_mma.cuh"
-#include "apply_mma_hd.cuh"
-#include "apply_sumfac.cuh"
-#include "bp4_operator.cuh"
-#include "cell_mma.cuh"
-#include "cell_mma_hd.cuh"
+#include "cg_fused.cuh"
 
 namespace bp4 {
-
-// The cell pass of B1 (FUSED false) or B2 for the configuration (rung,
-// dense, cofactor, tb.gmetric null or not); each writes the masked
-// cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
-// highest, the sum-factorized pass; 1..3: the tensor-core rungs.  -1: no
-// instantiation (the tensor-core rungs: dense with adjj, twostage at
-// p >= 4).  scratch: the dense tensor-core pass's at p >= 5.
-template <typename T, int P, bool FUSED>
-cudaError_t launch_cells(int rung, int dense, int cofactor,
-                         const OpTables<T>& tb, const Grid& gr,
-                         const CellIo<T>& io, T* cells, void* scratch,
-                         cudaStream_t st) {
-  constexpr int FORM = FUSED ? kLatticeUpdate : kLattice;
-  if (!rung) {
-    const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
-                          tb.coeffs, nullptr, io,         cells,  cofactor};
-    return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
-                      : launch_sumfac<T, P, FORM, true>(a, gr, st);
-  }
-  const auto none = static_cast<cudaError_t>(-1);
-  if constexpr (std::is_same_v<T, float>) {
-    return with_rung(rung, [&](auto np) {
-      constexpr int NP = decltype(np)::value;
-      if (dense) {
-        if (cofactor != kAdjj) return none;
-        // the forward table, then the backward one
-        // (laplace_cuda.mma_tables)
-        const auto mf = reinterpret_cast<const uint2*>(tb.mats);
-        const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
-        MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
-        x.metric_bf16 = tb.metric_bf16;
-        if constexpr (P <= 4)
-          return tb.gmetric ? launch_mma<P, FORM, false, NP>(
-                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
-                                  cells, x, st)
-                            : launch_mma<P, FORM, true, NP>(
-                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
-                                  x, st);
-        else
-          return tb.gmetric ? launch_mma_hd<P, FORM, false, NP>(
-                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
-                                  cells, x, scratch, st)
-                            : launch_mma_hd<P, FORM, true, NP>(
-                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
-                                  x, scratch, st);
-      }
-      if constexpr (P >= 4) {
-        if (tb.gmetric)
-          return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP>(tb, gr, io,
-                                                                 cells, st);
-        if constexpr (P == 4) {
-          return cofactor == kJtj
-                     ? launch_cells_mma<P, FUSED, kJtj, NP>(tb, gr, io, cells,
-                                                            st)
-                     : launch_cells_mma<P, FUSED, kAdjj, NP>(tb, gr, io,
-                                                             cells, st);
-        } else {
-          return cofactor == kJtj
-                     ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP>(
-                           tb, gr, io, cells, st)
-                     : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP>(
-                           tb, gr, io, cells, st);
-        }
-      }
-      return none;
-    });
-  }
-  return none;
-}
-
-// The merged-CG scalar update from the 7 sums (cg_fused_kernel.scalar_recurrence,
-// solver_cg_optimized.h:249-295).  d.h = 0 (breakdown) propagates NaN into
-// alpha and res2 on purpose: the solver's `res > tol` test then ends the solve.
-template <typename T>
-__device__ void scalar_recurrence(const T* s, const T* scal, T* out) {
-  const T alpha = scal[0], beta = scal[1], parity = scal[4];
-  const T alpha_n = s[6] / s[0];
-  const T beta_n = alpha_n * (s[4] + alpha_n * s[5]) / s[6];
-  const T res2 = s[3] + T(2) * alpha_n * s[2] + alpha_n * alpha_n * s[1];
-  const T parity_next = T(1) - parity;
-  const bool is_pay = (parity_next > T(0.5)) && (alpha != T(0));
-  const T safe_b = beta == T(0) ? T(1) : beta;
-  const T aob_n = is_pay ? alpha / safe_b : T(0);
-  const T c1_n = is_pay ? alpha_n + aob_n : T(0);
-  out[0] = alpha_n;
-  out[1] = beta_n;
-  out[2] = c1_n;
-  out[3] = aob_n;
-  out[4] = parity_next;
-  out[5] = res2;
-  out[6] = alpha;
-  out[7] = beta;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kNodeThreads)
-    finalize_kernel(const T* __restrict__ partials, int n_blocks,
-                    const T* __restrict__ scal, T* __restrict__ scal2) {
-  __shared__ T red[kDots][kNodeThreads];
-  T acc[kDots] = {};
-  for (int b = threadIdx.x; b < n_blocks; b += kNodeThreads)
-    for (int k = 0; k < kDots; ++k) acc[k] += partials[b * 8 + k];
-  block_sum(red, acc);
-  if (threadIdx.x == 0) {
-    T s[kDots];
-    for (int k = 0; k < kDots; ++k) s[k] = red[k][0];
-    scalar_recurrence(s, scal, scal2);
-  }
-}
-
-// The assemble pass of B1 (DOTS false) or B2 with h and d stored at T, or
-// in bf16 (`store`, the bf16 state).
-template <typename T, int P, bool DOTS>
-cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
-                            void* h, const T* g, const void* d,
-                            const T* prec, T* partials, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, float>) {
-    if (store) {
-      assemble_kernel<T, P, DOTS, __nv_bfloat16>
-          <<<node_blocks(gr), kNodeThreads, 0, st>>>(
-              gr, cells, static_cast<__nv_bfloat16*>(h), g,
-              static_cast<const __nv_bfloat16*>(d), prec, partials);
-      return cudaGetLastError();
-    }
-  }
-  if (store) return static_cast<cudaError_t>(-1);
-  assemble_kernel<T, P, DOTS><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-      gr, cells, static_cast<T*>(h), g, static_cast<const T*>(d), prec,
-      partials);
-  return cudaGetLastError();
-}
 
 // store: d and h (d' and h') in bf16, the bf16 state (the bf16 rung only).
 template <typename T, int P>
@@ -228,23 +95,23 @@ struct Launch {
                                         nullptr, nullptr, st);
   }
 
+  // prec_bf16, x_bf16: P, or x and x2, in bf16 (prec_dtype, x_dtype):
+  // cg_fused_px.cu's instantiations
   static int fused(int rung, int dense, int cofactor, int store,
-                   const OpTables<T>& tb, const Grid& gr, const T* x,
-                   const T* g, const T* d, const T* h, const T* prec,
-                   const T* scal, T* x2, T* g2, T* d2, T* h2, T* scal2,
-                   T* cells, T* partials, void* scratch, cudaStream_t st) {
-    if (store && rung != 1) return -1;
+                   int prec_bf16, int x_bf16, const OpTables<T>& tb,
+                   const Grid& gr, const T* x, const T* g, const T* d,
+                   const T* h, const T* prec, const T* scal, T* x2, T* g2,
+                   T* d2, T* h2, T* scal2, T* cells, T* partials,
+                   void* scratch, cudaStream_t st) {
     CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
     io.bf16 = store;
-    cudaError_t e = launch_cells<T, P, true>(rung, dense, cofactor, tb, gr,
-                                             io, cells, scratch, st);
-    if (e != cudaSuccess) return e;
-    const int nb = node_blocks(gr);
-    e = launch_assemble<T, P, true>(store, gr, cells, h2, g2, d2, prec,
-                                    partials, st);
-    if (e != cudaSuccess) return e;
-    finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, scal, scal2);
-    return cudaGetLastError();
+    io.prec_bf16 = prec_bf16;
+    io.x_bf16 = x_bf16;
+    if (prec_bf16 || x_bf16)
+      return fused_iteration_px<T, P>(rung, dense, cofactor, tb, gr, io, h2,
+                                      scal2, cells, partials, scratch, st);
+    return fused_iteration<T, P, false>(rung, dense, cofactor, tb, gr, io, h2,
+                                        scal2, cells, partials, scratch, st);
   }
 };
 
@@ -300,7 +167,8 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), in bf16
 // where metric_bf16 is set (split3, bf16), or null for the metric rebuilt
 // from the coefficients by the chain `cofactor` (0 adjj, 1 jtj).  store:
-// d, h, d2, h2 in bf16 (the bf16 rung only).
+// d, h, d2, h2 in bf16 (the bf16 rung only).  prec_bf16 (bp4_fused_iteration):
+// prec in bf16; x_bf16: x and x2 in bf16 (every configuration above).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {
@@ -336,8 +204,9 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
 
 int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
                         int cofactor, int store, int metric_bf16,
-                        const void* mats, const void* sz, const void* dz,
-                        const void* pds, const void* w3, const void* coeffs,
+                        int prec_bf16, int x_bf16, const void* mats,
+                        const void* sz, const void* dz, const void* pds,
+                        const void* w3, const void* coeffs,
                         const void* gmetric, const void* x, const void* g,
                         const void* d, const void* h, const void* prec,
                         const void* scal, void* x2, void* g2, void* d2,
@@ -349,7 +218,7 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
   Launch<T, P>::fused(                                                        \
-      rung, dense, cofactor, store,                                           \
+      rung, dense, cofactor, store, prec_bf16, x_bf16,                        \
       tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr,     \
       static_cast<const T*>(x), static_cast<const T*>(g),                     \
       static_cast<const T*>(d), static_cast<const T*>(h),                     \

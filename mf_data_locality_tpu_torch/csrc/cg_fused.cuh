@@ -1,0 +1,193 @@
+// The passes of B1 and B2 (cg_fused.cu's header): the cell pass by
+// configuration, the assemble and finalize passes, and one B2 iteration.
+// cg_fused.cu instantiates them with P and x at the working type,
+// cg_fused_px.cu with P or x in bf16 (the fused solver's prec_dtype and
+// x_dtype).
+
+#pragma once
+
+#include <type_traits>
+
+#include "apply_mma.cuh"
+#include "apply_mma_hd.cuh"
+#include "apply_sumfac.cuh"
+#include "bp4_operator.cuh"
+#include "cell_mma.cuh"
+#include "cell_mma_hd.cuh"
+
+namespace bp4 {
+
+// The cell pass of B1 (FUSED false) or B2 for the configuration (rung,
+// dense, cofactor, tb.gmetric null or not); each writes the masked
+// cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
+// highest, the sum-factorized pass; 1..3: the tensor-core rungs.  -1: no
+// instantiation (the tensor-core rungs: dense with adjj, twostage at
+// p >= 4).  scratch: the dense tensor-core pass's at p >= 5.  PX: B2 with
+// P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX instantiations.
+template <typename T, int P, bool FUSED, bool PX = false>
+cudaError_t launch_cells(int rung, int dense, int cofactor,
+                         const OpTables<T>& tb, const Grid& gr,
+                         const CellIo<T>& io, T* cells, void* scratch,
+                         cudaStream_t st) {
+  constexpr int FORM =
+      FUSED ? (PX ? kLatticeUpdatePx : kLatticeUpdate) : kLattice;
+  if (!rung) {
+    const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
+                          tb.coeffs, nullptr, io,         cells,  cofactor};
+    return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
+                      : launch_sumfac<T, P, FORM, true>(a, gr, st);
+  }
+  const auto none = static_cast<cudaError_t>(-1);
+  if constexpr (std::is_same_v<T, float>) {
+    return with_rung(rung, [&](auto np) {
+      constexpr int NP = decltype(np)::value;
+      if (dense) {
+        if (cofactor != kAdjj) return none;
+        // the forward table, then the backward one
+        // (laplace_cuda.mma_tables)
+        const auto mf = reinterpret_cast<const uint2*>(tb.mats);
+        const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
+        MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
+        x.metric_bf16 = tb.metric_bf16;
+        if constexpr (P <= 4)
+          return tb.gmetric ? launch_mma<P, FORM, false, NP>(
+                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
+                                  cells, x, st)
+                            : launch_mma<P, FORM, true, NP>(
+                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
+                                  x, st);
+        else
+          return tb.gmetric ? launch_mma_hd<P, FORM, false, NP>(
+                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
+                                  cells, x, scratch, st)
+                            : launch_mma_hd<P, FORM, true, NP>(
+                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
+                                  x, scratch, st);
+      }
+      if constexpr (P >= 4) {
+        if (tb.gmetric)
+          return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(
+              tb, gr, io, cells, st);
+        if constexpr (P == 4) {
+          return cofactor == kJtj
+                     ? launch_cells_mma<P, FUSED, kJtj, NP, PX>(tb, gr, io,
+                                                                cells, st)
+                     : launch_cells_mma<P, FUSED, kAdjj, NP, PX>(tb, gr, io,
+                                                                 cells, st);
+        } else {
+          return cofactor == kJtj
+                     ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP, PX>(
+                           tb, gr, io, cells, st)
+                     : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP, PX>(
+                           tb, gr, io, cells, st);
+        }
+      }
+      return none;
+    });
+  }
+  return none;
+}
+
+// The merged-CG scalar update from the 7 sums (cg_fused_kernel.scalar_recurrence,
+// solver_cg_optimized.h:249-295).  d.h = 0 (breakdown) propagates NaN into
+// alpha and res2 on purpose: the solver's `res > tol` test then ends the solve.
+template <typename T>
+__device__ void scalar_recurrence(const T* s, const T* scal, T* out) {
+  const T alpha = scal[0], beta = scal[1], parity = scal[4];
+  const T alpha_n = s[6] / s[0];
+  const T beta_n = alpha_n * (s[4] + alpha_n * s[5]) / s[6];
+  const T res2 = s[3] + T(2) * alpha_n * s[2] + alpha_n * alpha_n * s[1];
+  const T parity_next = T(1) - parity;
+  const bool is_pay = (parity_next > T(0.5)) && (alpha != T(0));
+  const T safe_b = beta == T(0) ? T(1) : beta;
+  const T aob_n = is_pay ? alpha / safe_b : T(0);
+  const T c1_n = is_pay ? alpha_n + aob_n : T(0);
+  out[0] = alpha_n;
+  out[1] = beta_n;
+  out[2] = c1_n;
+  out[3] = aob_n;
+  out[4] = parity_next;
+  out[5] = res2;
+  out[6] = alpha;
+  out[7] = beta;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kNodeThreads)
+    finalize_kernel(const T* __restrict__ partials, int n_blocks,
+                    const T* __restrict__ scal, T* __restrict__ scal2) {
+  __shared__ T red[kDots][kNodeThreads];
+  T acc[kDots] = {};
+  for (int b = threadIdx.x; b < n_blocks; b += kNodeThreads)
+    for (int k = 0; k < kDots; ++k) acc[k] += partials[b * 8 + k];
+  block_sum(red, acc);
+  if (threadIdx.x == 0) {
+    T s[kDots];
+    for (int k = 0; k < kDots; ++k) s[k] = red[k][0];
+    scalar_recurrence(s, scal, scal2);
+  }
+}
+
+// The assemble pass of B1 (DOTS false) or B2 with h and d stored at T, or
+// in bf16 (`store`, the bf16 state); PBF: prec in bf16.
+template <typename T, int P, bool DOTS, bool PBF = false>
+cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
+                            void* h, const T* g, const void* d,
+                            const T* prec, T* partials, cudaStream_t st) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (store) {
+      assemble_kernel<T, P, DOTS, __nv_bfloat16, PBF>
+          <<<node_blocks(gr), kNodeThreads, 0, st>>>(
+              gr, cells, static_cast<__nv_bfloat16*>(h), g,
+              static_cast<const __nv_bfloat16*>(d), prec, partials);
+      return cudaGetLastError();
+    }
+  }
+  if (store) return static_cast<cudaError_t>(-1);
+  assemble_kernel<T, P, DOTS, T, PBF>
+      <<<node_blocks(gr), kNodeThreads, 0, st>>>(
+          gr, cells, static_cast<T*>(h), g, static_cast<const T*>(d), prec,
+          partials);
+  return cudaGetLastError();
+}
+
+// One B2 iteration (cells, assemble with the dot partials, finalize) on
+// io's vectors, d and h in bf16 where io.bf16 is set (the bf16 state);
+// PX: the cell pass's PX instantiation (P or x in bf16 by io.prec_bf16,
+// io.x_bf16) and the assemble pass reading P in bf16 where io.prec_bf16
+// is set.
+template <typename T, int P, bool PX>
+int fused_iteration(int rung, int dense, int cofactor, const OpTables<T>& tb,
+                    const Grid& gr, const CellIo<T>& io, T* h2, T* scal2,
+                    T* cells, T* partials, void* scratch, cudaStream_t st) {
+  if (io.bf16 && rung != 1) return -1;
+  cudaError_t e = launch_cells<T, P, true, PX>(rung, dense, cofactor, tb, gr,
+                                               io, cells, scratch, st);
+  if (e != cudaSuccess) return e;
+  const int nb = node_blocks(gr);
+  if constexpr (PX) {
+    e = io.prec_bf16
+            ? launch_assemble<T, P, true, true>(io.bf16, gr, cells, h2,
+                                                io.g2, io.d2, io.prec,
+                                                partials, st)
+            : launch_assemble<T, P, true>(io.bf16, gr, cells, h2, io.g2,
+                                          io.d2, io.prec, partials, st);
+  } else {
+    e = launch_assemble<T, P, true>(io.bf16, gr, cells, h2, io.g2, io.d2,
+                                    io.prec, partials, st);
+  }
+  if (e != cudaSuccess) return e;
+  finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, io.scal,
+                                                 scal2);
+  return cudaGetLastError();
+}
+
+// fused_iteration<T, P, true>: instantiated in cg_fused_px.cu, a source of
+// its own, so that nvcc builds it in parallel with cg_fused.cu.
+template <typename T, int P>
+int fused_iteration_px(int rung, int dense, int cofactor,
+                       const OpTables<T>& tb, const Grid& gr,
+                       const CellIo<T>& io, T* h2, T* scal2, T* cells,
+                       T* partials, void* scratch, cudaStream_t st);
+
+}  // namespace bp4

@@ -12,49 +12,81 @@ reference harness does (``common_code/benchmark.h:50-176``):
   numbering (``mf_data_locality_tpu/models/bp4.py:98-109``), so iteration
   counts match that package rather than published deal.II logs.
 
+Three operator backends, as the JAX package's:
+
+* ``"pallas"`` (default) — the kernels: the apply family
+  (:mod:`~mf_data_locality_tpu_torch.ops.laplace_apply`) for the merged and
+  baseline solvers, the fused solver's operator on ``windowing="pieces"``;
+* ``"structured"`` — the lattice operator with no gather or scatter
+  (:mod:`~mf_data_locality_tpu_torch.ops.laplace_structured`, plain
+  PyTorch);
+* ``"general"`` — gather and scatter through the cell-to-node map
+  (:mod:`~mf_data_locality_tpu_torch.ops.laplace`, plain PyTorch).
+
 Solver vectors are flat ``(C, n_nodes)``; :attr:`BP4Problem.a_apply` and
 :attr:`BP4Problem.a_apply_full` reshape them to the lattice only inside the
-operator (the apply family, :mod:`~mf_data_locality_tpu_torch.ops.
-laplace_apply`).  The fused solver works on lattice vectors directly.
+operator (``pallas``, ``structured``).  The fused solver works on lattice
+vectors directly.  BP4 pairs with q = p + 2; ``n_q`` and ``n_components``
+(1: the scalar BP1/BP3 analogues) reach every builder, and the kernels of
+``pallas`` are sized for q = p + 2 and 3 components (``ROADMAP.md`` queue
+B item 6g).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
 from mf_data_locality_tpu_torch.mesh.box import BoxMesh
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
-from mf_data_locality_tpu_torch.ops import diagonal, laplace_apply, laplace_cuda
-from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
+from mf_data_locality_tpu_torch.ops import (diagonal, laplace, laplace_apply,
+                                            laplace_cuda, laplace_structured)
 from mf_data_locality_tpu_torch.solvers import cg, cg_merged
 from mf_data_locality_tpu_torch.solvers.cg import SolveResult
+
+
+_VMULT = {"pallas": laplace_apply.vmult,
+          "structured": laplace_structured.vmult,
+          "general": laplace.vmult}
+BACKENDS = tuple(_VMULT)
 
 
 @dataclass(frozen=True)
 class BP4Problem:
     layout: DofLayout
-    op: OperatorData
+    # laplace_cuda.OperatorData (pallas), laplace_structured.
+    # StructuredOperatorData or laplace.LaplaceOperatorData
+    op: Any
     inv_diag: torch.Tensor  # (1, n_nodes); bf16 for a bf16 state
     b: torch.Tensor         # (C, n_nodes); bf16 for a bf16 state
     n_components: int
+    backend: str = "pallas"
 
     @property
     def n_dofs(self) -> int:
         return self.layout.n_nodes * self.n_components
 
     @property
+    def n_q(self) -> int:
+        return self.op.n_q
+
+    @property
     def lattice_shape(self) -> tuple[int, int, int, int]:
         return (self.n_components,) + self.layout.n_nodes_axis
 
     def _wrap(self, constrained_identity: bool):
+        vmult = _VMULT[self.backend]
+        if self.backend == "general":
+            return lambda u: vmult(self.op, u,
+                                   constrained_identity=constrained_identity)
         lat = self.lattice_shape
 
         def apply_flat(u: torch.Tensor) -> torch.Tensor:
-            v = laplace_apply.vmult(self.op, u.reshape(lat),
-                                    constrained_identity=constrained_identity)
+            v = vmult(self.op, u.reshape(lat),
+                      constrained_identity=constrained_identity)
             return v.reshape(u.shape)
 
         return apply_flat
@@ -86,7 +118,9 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
           metric: str = "precomputed", cofactor: str = "adjj",
           device: torch.device | str = "cuda",
           windowing: str = "reshape",
-          metric_dtype: torch.dtype | None = None) -> BP4Problem:
+          metric_dtype: torch.dtype | None = None,
+          n_components: int = 3, n_q: int | None = None,
+          backend: str = "pallas") -> BP4Problem:
     """BP4 on 2**s cells at ``degree``; every array on ``device``.
 
     The defaults are the JAX ``bp4.build``'s: the apply family's exact
@@ -104,19 +138,47 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     stores b and the preconditioner in bf16, the preconditioner rounded
     from f32 as the JAX ``bp4.build`` does; ``metric_dtype=torch.bfloat16``
     streams the metric in bf16 (``split3``, ``bf16``).
+
+    ``n_components`` (the RHS pattern ``dof_index % 8`` is taken with it)
+    and ``n_q`` (default p + 2) reach every backend's builder; ``backend``
+    ``"structured"`` or ``"general"`` builds the plain operators, which
+    take any of both, and ignores ``precision``, ``windowing``,
+    ``metric_dtype``, ``factor``, ``metric`` and ``cofactor``, as the JAX
+    ``bp4.build`` passes them to the pallas builder only.  On ``pallas``
+    other than q = p + 2 or 3 components raises NotImplementedError
+    (``ROADMAP.md`` queue B item 6g), and a bf16 state is ``pallas``'s
+    only (ValueError elsewhere, as in the JAX package).
     """
+    if backend not in _VMULT:
+        raise ValueError(f"unknown backend {backend!r}")
+    if dtype == torch.bfloat16 and backend != "pallas":
+        raise ValueError(
+            "bf16 vector storage is supported on the pallas backend (f32 "
+            f"compute in the kernels); use dtype=float32 with "
+            f"backend={backend!r}")
+    if backend == "pallas" and n_components != 3:
+        raise NotImplementedError(
+            f"backend='pallas' with n_components={n_components}: the "
+            f"kernels are {laplace_cuda._SHAPE_TODO}")
     layout = DofLayout(BoxMesh.from_s(s), degree)
-    op = laplace_cuda.make_operator(layout, dtype=dtype, precision=precision,
-                                    factor=factor, metric=metric,
-                                    cofactor=cofactor, device=device,
-                                    windowing=windowing,
-                                    metric_dtype=metric_dtype)
+    if backend == "pallas":
+        op = laplace_cuda.make_operator(
+            layout, dtype=dtype, precision=precision, factor=factor,
+            metric=metric, cofactor=cofactor, device=device,
+            windowing=windowing, metric_dtype=metric_dtype, n_q=n_q)
+    elif backend == "structured":
+        op = laplace_structured.make_structured_operator(
+            layout, n_q=n_q, dtype=dtype, device=device)
+    else:
+        op = laplace.make_operator(layout, n_q=n_q, dtype=dtype,
+                                   device=device)
     inv_diag = torch.as_tensor(diagonal.compute_inverse_diagonal(layout))
     return BP4Problem(
         layout, op,
         inv_diag[None, :].to(op.dtype).to(device=device, dtype=dtype),
-        torch.as_tensor(rhs(layout)).to(device=device, dtype=dtype)
-        .contiguous(), 3)
+        torch.as_tensor(rhs(layout, n_components)).to(device=device,
+                                                      dtype=dtype)
+        .contiguous(), n_components, backend)
 
 
 def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,

@@ -4,7 +4,8 @@
 sources at once in parallel processes (the sum-factorized pass, the
 twostage tensor-core pass and the dense tensor-core pass of each degree
 5..11 have a source of their own, ``sumfac_pNN.cu``, ``cell_mma_pNN.cu``
-and ``apply_mma_pNN.cu``, the largest instantiations; the tensor-core
+and ``apply_mma_pNN.cu``, the largest instantiations, and B2 with P or x
+in bf16 at p <= 4 ``cg_fused_px.cu``; the tensor-core
 sources of :data:`RUNG_BUILDS` are
 compiled once per rung, ``-DBP4_RUNG=n``), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
@@ -49,11 +50,11 @@ _SIGNATURES = {
     "bp4_error_string": (ctypes.c_char_p, [_I]),
     # rung, degree, cells
     "bp4_dense_scratch_len": (_I, [_I] * 3),
-    # dtype, rung, degree, dense, cofactor, bf16 state, bf16 metric; the
-    # tables, vectors and the dense pass's scratch; the cells per axis; the
-    # stream
+    # dtype, rung, degree, dense, cofactor, bf16 state, bf16 metric
+    # (bp4_fused_iteration: then bf16 P, bf16 x); the tables, vectors and
+    # the dense pass's scratch; the cells per axis; the stream
     "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 7 + [_P] * 21 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 9 + [_P] * 21 + [_I] * 3 + [_P]),
     # dtype, rung, degree, onthefly, bf16 metric; ...
     "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
     # dtype, rung, bf16 metric, degree; ...

@@ -18,9 +18,13 @@ or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
 from the coefficients by the adjj or the jtj chain, at degrees 1..11
 (the tensor-core rungs split2m, split3, bf16: dense with adjj, twostage
 at 4..11).  Under bf16, d and h (in and out) may be stored in
-bf16 — the bf16 state —, x, g, the preconditioner and the scalars at f32.  Each wrapper runs
-the hand-written CUDA
-kernel (``csrc/cg_fused.cu``) for tensors on a CUDA device and the plain
+bf16 — the bf16 state —, x, g, the preconditioner and the scalars at f32.
+In every configuration the preconditioner, and x (in and out), may be
+stored in bf16 (the fused solver's ``prec_dtype`` and ``x_dtype``): the
+kernel upcasts them at the load and rounds x' where it stores it (one
+more instantiation of each B2 cell pass, ``csrc/cg_fused_px.cu``).  Each
+wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``) for
+tensors on a CUDA device and the plain
 PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
 for tensors on the CPU; other devices raise.  The kernel's cell pass:
 
@@ -340,16 +344,18 @@ def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
 def _fused_iteration_plain(op, x, g, d, h, scal, prec,
                            cell_apply=_cell_apply):
     """One merged-CG iteration.  With d and h in bf16 (the bf16 state;
-    x, g, prec and scal at the working dtype) every value is computed at
-    the working dtype and rounded where it is stored, as the TPU kernel
-    does (``cg_fused_kernel.py:856, 877``): the operator takes the stored
-    d', and the sums read the stored d' and h'."""
+    g and scal at the working dtype) every value is computed at the
+    working dtype and rounded where it is stored, as the TPU kernel does
+    (``cg_fused_kernel.py:856, 877``): the operator takes the stored d',
+    and the sums read the stored d' and h'.  ``prec`` and ``x`` may be
+    bf16 too (``prec_dtype``, ``x_dtype``): upcast where they are read, x'
+    rounded where it is stored."""
     alpha, beta, c1, aob = scal[0], scal[1], scal[2], scal[3]
     store = d.dtype
-    d, h = d.to(g.dtype), h.to(g.dtype)
+    d, h, prec = d.to(g.dtype), h.to(g.dtype), prec.to(g.dtype)
     g2 = g + alpha * h
     d2 = (beta * d - prec * g2).to(store)
-    x2 = x + c1 * d + aob * (prec * g)
+    x2 = (x.to(g.dtype) + c1 * d + aob * (prec * g)).to(x.dtype)
     h2 = _matvec_plain(op, d2, cell_apply)
     d2a, h2a = d2.to(g.dtype), h2.to(g.dtype)
     ph, pg = prec * h2a, prec * g2
@@ -364,7 +370,9 @@ def _fused_iteration_plain(op, x, g, d, h, scal, prec,
 def delayed_x_fixup(x, g, d, prec, scal, it: int):
     """Delayed-x exit fixup (``solver_cg_optimized.h:254-289``): the merged
     recurrence updates x every second iteration; on exit the pending
-    contribution is applied with the parity-dependent coefficient."""
+    contribution is applied with the parity-dependent coefficient.  At
+    g's dtype, whatever x's and prec's storage."""
+    x, prec = x.to(g.dtype), prec.to(g.dtype)
     if it == 0:
         return x
     alpha, alpha_old, beta_old = scal[0], scal[6], scal[7]
@@ -378,6 +386,16 @@ def delayed_x_fixup(x, g, d, prec, scal, it: int):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def check_kernel_shape(op: OperatorData, n_components: int) -> None:
+    """Raise NotImplementedError unless the kernels are sized for ``op``'s
+    q and a vector of ``n_components``: q = p + 2 and BP4's 3 components
+    (the plain versions take any)."""
+    if op.n_q != op.degree + 2 or n_components != N_COMPONENTS:
+        raise NotImplementedError(
+            f"n_q={op.n_q} at degree {op.degree} with {n_components} "
+            f"component(s): the kernels are {laplace_cuda._SHAPE_TODO}")
+
 
 def check_tensors(op: OperatorData, degrees, pairs) -> None:
     """Raise unless ``op.degree`` has a kernel (``degrees``) and every
@@ -398,12 +416,21 @@ def check_tensors(op: OperatorData, degrees, pairs) -> None:
                 f"{t.device}")
 
 
+def _bf16_or_working(op: OperatorData, t: torch.Tensor) -> torch.dtype:
+    """The storage dtype a kernel takes ``t`` in: bf16 where it is bf16,
+    else the working dtype (which the checks then hold it to)."""
+    return torch.bfloat16 if t.dtype == torch.bfloat16 else op.dtype
+
+
 def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
-                scals=()) -> None:
+                scals=(), xs=()) -> None:
     """Check the operator's tables and the vectors for the kernels:
     ``vectors`` at the working dtype, ``state`` (d and h, in and out) at
     the state's storage dtype, which must be the working dtype or, under
-    the ``bf16`` rung, bf16."""
+    the ``bf16`` rung, bf16; ``prec`` and ``xs`` (x in and out) at the
+    working dtype or in bf16 (``prec_dtype``, ``x_dtype``: every
+    configuration)."""
+    check_kernel_shape(op, (list(vectors) + list(state))[0].shape[0])
     lat = (N_COMPONENTS,) + op.n_nodes_axis
     store = (torch.bfloat16 if state and state[0].dtype == torch.bfloat16
              else op.dtype)
@@ -412,8 +439,11 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
             f"a bf16 state under precision={op.precision!r} is "
             f"{laplace_cuda._DEGRADED_TODO}")
     want = [(v, lat) for v in vectors] + [(v, lat, store) for v in state]
+    if xs:
+        want += [(v, lat, _bf16_or_working(op, xs[0])) for v in xs]
     if prec is not None:
-        want.append((prec, (1,) + op.n_nodes_axis))
+        want.append((prec, (1,) + op.n_nodes_axis,
+                     _bf16_or_working(op, prec)))
     want += [(s, (8,)) for s in scals]
     q, p1, q3 = op.n_q, op.degree + 1, op.n_q ** 3
     want += [(op.sz, (q, p1)), (op.dz, (q, p1)), (op.kpds, (q3, 24)),
@@ -548,7 +578,9 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     ``out``: optional (x', g', d', h', scal') buffers, distinct from the
     inputs (the kernel reads every node's old values after other cells
     have written theirs, so it cannot update in place).  d and h (and d',
-    h') may be bf16 under the ``bf16`` rung: the bf16 state.
+    h') may be bf16 under the ``bf16`` rung: the bf16 state.  ``prec``,
+    and x with x', may be bf16 in every configuration (the solver's
+    ``prec_dtype``, ``x_dtype``).
     """
     if _route(x) == "plain":
         res = _fused_iteration_plain(op, x, g, d, h, scal, prec)
@@ -556,8 +588,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
                                              for o, r in zip(out, res))
     out = out if out is not None else tuple(
         torch.empty_like(t) for t in (x, g, d, h, scal))
-    _check_cuda(op, [x, g, out[0], out[1]], [d, h, out[2], out[3]], prec,
-                (scal, out[4]))
+    _check_cuda(op, [g, out[1]], [d, h, out[2], out[3]], prec,
+                (scal, out[4]), (x, out[0]))
     if {t.data_ptr() for t in out} & {t.data_ptr() for t in (x, g, d, h,
                                                              scal)}:
         raise ValueError("fused_cg_iteration cannot update in place: pass "
@@ -565,8 +597,10 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     lib = _build.load()
     work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
+    common = _common_args(op, d)
     rc = lib.bp4_fused_iteration(
-        *_common_args(op, d),
+        *common[:7], int(prec.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), *common[7:],
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
         work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,

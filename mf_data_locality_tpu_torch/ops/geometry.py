@@ -1,16 +1,26 @@
-"""Trilinear cell geometry (host-side NumPy).
+"""Trilinear cell geometry.
 
 The benchmark mesh is mapped trilinearly (``MappingQGeneric(1)``), so each
 cell is described by 8 coefficient vectors (24 numbers) from which the
 Jacobian at any reference point is rebuilt (``poisson_operator.h:151-179``).
 The operator kernels rebuild it per quadrature point on the device; this
-module provides the host-side coefficients and the f64 Jacobian/inverse the
-preconditioner diagonal needs.
+module provides the host-side coefficients and the f64 map, Jacobian and
+inverse that the preconditioner diagonal, the right-hand side and the
+assembled matrix need.  :func:`map_points`, :func:`jacobian` and
+:func:`invert_3x3` take NumPy arrays or torch tensors (the plain
+backends' metric, ``ops/laplace``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _stack(arrays, axis: int):
+    if isinstance(arrays[0], torch.Tensor):
+        return torch.stack(arrays, dim=axis)
+    return np.stack(arrays, axis=axis)
 
 
 def trilinear_coefficients(cell_vertices: np.ndarray) -> np.ndarray:
@@ -37,6 +47,16 @@ def trilinear_coefficients(cell_vertices: np.ndarray) -> np.ndarray:
     return c
 
 
+def map_points(coeffs, uvw):
+    """Evaluate the trilinear map: ``coeffs`` (..., 8, 3), ``uvw`` (..., 3)
+    -> (..., 3)."""
+    u, v, w = uvw[..., 0:1], uvw[..., 1:2], uvw[..., 2:3]
+    c = coeffs
+    return (c[..., 0, :] + c[..., 1, :] * u + c[..., 2, :] * v
+            + c[..., 3, :] * u * v + c[..., 4, :] * w + c[..., 5, :] * u * w
+            + c[..., 6, :] * v * w + c[..., 7, :] * u * v * w)
+
+
 def jacobian(coeffs: np.ndarray, uvw: np.ndarray) -> np.ndarray:
     """Jacobian J[d, e] = dx_d / d(uvw)_e of the trilinear map.
 
@@ -49,7 +69,7 @@ def jacobian(coeffs: np.ndarray, uvw: np.ndarray) -> np.ndarray:
     col0 = c[..., 1, :] + c[..., 3, :] * v + c[..., 5, :] * w + c[..., 7, :] * v * w
     col1 = c[..., 2, :] + c[..., 3, :] * u + c[..., 6, :] * w + c[..., 7, :] * u * w
     col2 = c[..., 4, :] + c[..., 5, :] * u + c[..., 6, :] * v + c[..., 7, :] * u * v
-    return np.stack([col0, col1, col2], axis=-1)
+    return _stack([col0, col1, col2], axis=-1)
 
 
 def invert_3x3(j: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -71,7 +91,6 @@ def invert_3x3(j: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     H = b * g - a * h
     I = a * e - b * d
     det = a * A + b * D + c * G
-    inv = np.stack([np.stack([A, B, C], axis=-1),
-                    np.stack([D, E, F], axis=-1),
-                    np.stack([G, H, I], axis=-1)], axis=-2)
+    inv = _stack([_stack([A, B, C], axis=-1), _stack([D, E, F], axis=-1),
+                  _stack([G, H, I], axis=-1)], axis=-2)
     return inv * (1.0 / det)[..., None, None], det

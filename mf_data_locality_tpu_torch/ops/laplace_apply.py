@@ -44,8 +44,9 @@ import torch
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
-    N_COMPONENTS, _mma_terms, _route, _terms, cell_metric, check_tensors,
-    dense_scratch, dtype_code, metric_onthefly, mma_parts, rung_args)
+    N_COMPONENTS, _mma_terms, _route, _terms, cell_metric,
+    check_kernel_shape, check_tensors, dense_scratch, dtype_code,
+    metric_onthefly, mma_parts, rung_args)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
 # degrees instantiated in csrc/laplace_apply.cu: the reference's table
@@ -242,6 +243,7 @@ def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
 
 def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
+    check_kernel_shape(op, u_loc.shape[0] // (op.degree + 1) ** 3)
     shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
     rung, metric_bf16 = rung_args(op)
     tables, mats, kmats = _tables(op, onthefly)
@@ -299,6 +301,7 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
                     mask: torch.Tensor | None) -> torch.Tensor:
     if op.gmetric is None:
         raise ValueError("the lattice applies need metric='precomputed'")
+    check_kernel_shape(op, u.shape[0])
     lat = (N_COMPONENTS,) + op.n_nodes_axis
     tables, mats, kmats = _tables(op, onthefly=False)
     check_tensors(op, KERNEL_DEGREES, [(u, lat)] + tables)

@@ -95,6 +95,9 @@ _DEGRADED_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (the "
 _METRIC_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (a bf16 "
                 "metric stream under highest and split2m)")
 
+_SHAPE_TODO = ("sized for q = p + 2 and 3 components: see ROADMAP.md, "
+               "queue B item 6g (q != p+2 or C != 3 on the kernels)")
+
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
 # the reference's degree table (benchmark.h:290-313): the fused solver's
@@ -553,12 +556,19 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   metric: str = "precomputed", cofactor: str = "adjj",
                   device: torch.device | str = "cuda",
                   windowing: str = "reshape",
-                  metric_dtype: torch.dtype | None = None) -> OperatorData:
+                  metric_dtype: torch.dtype | None = None,
+                  n_q: int | None = None) -> OperatorData:
     """Build the operator data for ``layout`` (q = p + 2 Gauss points); the
-    defaults are ``make_pallas_operator``'s."""
+    defaults are ``make_pallas_operator``'s.  ``n_q``: None or p + 2 (the
+    kernels are sized for it: NotImplementedError for any other, queue B
+    item 6g)."""
     check_config(precision, factor, metric, cofactor, dtype, windowing,
                  degree=layout.degree, metric_dtype=metric_dtype)
     p = layout.degree
+    if n_q not in (None, p + 2):
+        raise NotImplementedError(
+            f"n_q={n_q} at degree {p} on the pallas backend: the kernels "
+            f"are {_SHAPE_TODO}")
     q = p + 2
     shape = lagrange.make_shape(p, q)
     coeffs = geometry.trilinear_coefficients(layout.mesh.cell_vertices)

@@ -9,7 +9,9 @@ lattice vectors in two sets of buffers that swap roles every iteration;
 with a bf16 ``b`` (``bp4.build(dtype=torch.bfloat16)``, the ``bf16`` rung)
 d and h are stored in bf16 and x, g, the preconditioner and the scalars
 at the operator's f32 (``solvers/cg_fused.py:127-140`` of the JAX
-package).
+package).  ``prec_dtype`` and ``x_dtype`` store the preconditioner and the
+solution x in bf16 in any configuration (``cg_fused.py:57-70``): upcast
+where they are read, x rounded where it is stored.
 
 The loop runs on the host with the reference's condition
 ``(res > tol) & (it < max_iter)``; it reads the residual estimate from the
@@ -29,8 +31,9 @@ from mf_data_locality_tpu_torch.solvers.cg import SolveResult, np_dtype
 def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
                           prec: torch.Tensor, x0: torch.Tensor | None = None,
                           max_iter: int = 100, abs_tol: float = 1e-15,
-                          rel_tol: float = 1e-8,
-                          iteration=None) -> SolveResult:
+                          rel_tol: float = 1e-8, iteration=None,
+                          prec_dtype: torch.dtype | None = None,
+                          x_dtype: torch.dtype | None = None) -> SolveResult:
     """Solve A x = b for lattice vectors (C, Nz, Ny, Nx).
 
     ``prec``: (C or 1, Nz, Ny, Nx) inverse node diagonal; one scalar per
@@ -45,12 +48,24 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
     g', d', h', scal')``; by default the kernel's wrapper
     :func:`~mf_data_locality_tpu_torch.ops.cg_fused_kernel.fused_cg_iteration`
     (a check passes its plain version, ``_fused_iteration_plain``).
+
+    ``prec_dtype``: the preconditioner's storage (None: the working
+    dtype; bf16 perturbs the Jacobi diagonal by ~0.4%, and the kernel
+    upcasts it at the load).  ``x_dtype``: the storage of x alone (None:
+    the working dtype; bf16 halves x's traffic): x feeds none of the g, d,
+    h recurrences, so the residual history is unchanged and only the
+    delivered x is rounded, each pay iteration.  The returned x is at the
+    working dtype (the exit fixup adds the pending update to the stored x).
     """
     if tuple(b.shape[1:]) != tuple(n_nodes_axis):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected (C,) + "
                          f"{tuple(n_nodes_axis)}")
     dtype = op.dtype
     store = b.dtype if b.dtype == torch.bfloat16 else dtype  # d and h
+    for name, t in (("prec_dtype", prec_dtype), ("x_dtype", x_dtype)):
+        if t not in (None, dtype, torch.bfloat16):
+            raise ValueError(f"{name}={t}: the kernels store it at {dtype} "
+                             f"or in bf16")
     nd = np_dtype(dtype)
     mask = op.mask
     work = fk.Workspace(op) if b.device.type == "cuda" else None
@@ -62,7 +77,7 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
                                   work=work).to(dtype)
     # the state vanishes on the boundary; Dirichlet rows are never re-masked
     b_eff = b_eff * mask
-    P = prec[:1].to(dtype).contiguous()
+    P = prec[:1].to(dtype).to(prec_dtype or dtype).contiguous()
 
     g0 = (-b_eff).contiguous()
     res0 = nd(torch.sqrt(torch.sum(g0 * g0)).item())
@@ -72,8 +87,8 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
 
     scal0 = torch.zeros((8,), dtype=dtype, device=b.device)
     scal0[4] = 1.0  # parity of iteration 1
-    state = (torch.zeros_like(g0), g0,  # x, g, d, h, scal
-             torch.zeros_like(g0, dtype=store),
+    state = (torch.zeros_like(g0, dtype=x_dtype or dtype),  # x, g, d, h, scal
+             g0, torch.zeros_like(g0, dtype=store),
              torch.zeros_like(g0, dtype=store), scal0)
     spare = tuple(torch.empty_like(t) for t in state)
 

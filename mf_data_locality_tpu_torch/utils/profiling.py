@@ -4,7 +4,8 @@ device's idle share, from ``torch.profiler``.
     python -m mf_data_locality_tpu_torch.utils.profiling [degree] [s] \
         [--solver merged|baseline|fused] [--windowing reshape|pieces|zslab] \
         [--geometry auto|qpoint|onthefly] [--dtype f32|f64] \
-        [--precision highest|split2m]
+        [--precision highest|split2m] [--backend pallas|structured|general] \
+        [--prec-dtype f32|bf16] [--x-dtype f32|bf16]
 
 profiles one solve (after a warm-up solve) of the configuration the
 benchmark CLI resolves for the same flags (defaults: merged CG, reshape,
@@ -66,6 +67,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     ap.add_argument("--precision", choices=["highest", "split2m"],
                     default="highest")
+    ap.add_argument("--backend", choices=list(bp4.BACKENDS),
+                    default="pallas")
+    ap.add_argument("--prec-dtype", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("--x-dtype", choices=["f32", "bf16"], default="f32")
     args = ap.parse_args(argv)
     device = require_cuda("cuda")
     dtype = torch.float32 if args.dtype == "f32" else torch.float64
@@ -75,15 +80,17 @@ def main(argv: list[str] | None = None) -> None:
                 "onthefly": "onthefly"}[args.geometry])
     pb = bp4.build(args.s, args.degree, dtype, args.precision, factor=factor,
                    metric=metric, cofactor=cofactor, device=device,
-                   windowing=args.windowing)
-    solve = benchmark.solver_call(pb, args.solver)
+                   windowing=args.windowing, backend=args.backend)
+    bf16 = {"f32": None, "bf16": torch.bfloat16}
+    solve = benchmark.solver_call(pb, args.solver, bf16[args.prec_dtype],
+                                  bf16[args.x_dtype])
 
     n_it = solve().n_iterations  # warm-up
     rows, wall = kernel_breakdown(solve, device)
     busy = sum(r[2] for r in rows)
-    print(f"p={args.degree} s={args.s} {args.solver} {args.windowing} "
-          f"{factor}/{metric} {args.dtype} {args.precision}: "
-          f"{n_it} iterations")
+    print(f"p={args.degree} s={args.s} {args.solver} {args.backend} "
+          f"{args.windowing} {factor}/{metric} {args.dtype} {args.precision} "
+          f"P {args.prec_dtype} x {args.x_dtype}: {n_it} iterations")
     for name, calls, sec in rows:
         print(f"  {sec * 1e3:10.3f} ms  {calls:5d} calls  "
               f"{sec / calls * 1e6:9.2f} us/call  {name[:90]}")

@@ -1,7 +1,7 @@
 """Time source variants of the cell passes on the card.
 
     python -m mf_data_locality_tpu_torch.utils.variants \
-        [ablate|stamps|sumfac|sfstamps|rebuilt|paths|dense]
+        [ablate|stamps|sumfac|sfstamps|rebuilt|paths|dense|px]
         [sf_name ...] [DIR ...]
 
 Each variant is a copy of the package with a few text patches applied to
@@ -32,6 +32,11 @@ fail, so every variant is timed in its own process.
   ``csrc/apply_mma.cuh``) with the metric streamed and rebuilt, f32
   ``highest`` streamed (the sum-factorized pass) — and B5 under split2m,
   at p=4 s=13 and p=2 s=16, in turns.
+* ``px`` times the cell pass of B2 with P or x stored in bf16 (the PX
+  instantiation of ``csrc/cell_mma.cuh``) at p=4 s=13 under split2m by
+  ``torch.profiler``: the pass as it is (f32, bf16 P, bf16 x) and with
+  the storage known at compile time in its row gather (``ct_p``: bf16 P,
+  ``ct_x``: bf16 x; each timed only in its own storage), in turns.
 * ``rebuilt [sf_name ...] [DIR ...]`` times B1, B2 and B4 under
   ``highest`` (f32 and f64) at p=4 s=13 — the pass with the metric rebuilt
   from the coefficients — in the package as it is (or in the named
@@ -67,11 +72,11 @@ ABLATE = {
                   "gm[0] = gm[3] = gm[5] = pq[0] + 1.f; "
                   "gm[1] = gm[2] = gm[4] = 0.f;")],
     # no gather: the inputs are constants (no loads of d, g, h, P, x)
-    "nogather": [(CM, "    gather_row_tile<P, FUSED, FLEX>(sm, io, sc, gr, "
+    "nogather": [(CM, "    gather_row_tile<P, FUSED, FLEX, PX>(sm, io, sc, gr, "
                       "cell0);",
                   "    for (int i = tid; i < kComps * kTileCells * LDU; "
                   "i += blockDim.x) (&sm.u[0][0][0])[i] = 0.25f * (i % 7);"),
-                 (CM, "    gather_cells<P, FUSED, FLEX>(sm, io, sc, gr, "
+                 (CM, "    gather_cells<P, FUSED, FLEX, PX>(sm, io, sc, gr, "
                       "cell0);",
                   "    for (int i = tid; i < kComps * kTileCells * LDU; "
                   "i += blockDim.x) (&sm.u[0][0][0])[i] = 0.25f * (i % 7);")],
@@ -565,6 +570,60 @@ print(json.dumps(out))
 '''
 
 
+# B2's PX row gather with the storage of P or x fixed at compile time in
+# place of the warp-uniform flags (``px``)
+_GATHER_P = "pv[k] = load_px(io.prec, node, io.prec_bf16);"
+_GATHER_X = "if (owner[k]) xv[k] = load_px(io.x, idx[k], io.x_bf16);"
+_STORE_X = "set_x2<PX>(io, idx[k],"
+PX = {
+    "px_base": [],
+    "ct_p": [(CM, _GATHER_P, "pv[k] = load_px(io.prec, node, true);"),
+             (CM, _GATHER_X, "if (owner[k]) xv[k] = __ldg(io.x + idx[k]);"),
+             (CM, _STORE_X, "set_x2<false>(io, idx[k],")],
+    "ct_x": [(CM, _GATHER_P, "pv[k] = __ldg(io.prec + node);"),
+             (CM, _GATHER_X, "if (owner[k]) xv[k] = load_px(io.x, idx[k], "
+                             "true);"),
+             (CM, _STORE_X, "[&](size_t i_, float v_) { store_px(io.x2, i_, "
+                            "v_, true); }(idx[k],")],
+}
+
+_TIME_PX = r'''
+import json, os, torch
+from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+from mf_data_locality_tpu_torch.ops import laplace_cuda
+from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
+from mf_data_locality_tpu_torch.utils import profiling
+dev = torch.device("cuda")
+op = laplace_cuda.make_operator(
+    DofLayout(BoxMesh.from_s(13), 4), torch.float32, "split2m",
+    factor="twostage", metric="onthefly", device=dev, windowing="pieces")
+gen = torch.Generator(device=dev).manual_seed(1)
+shape = (3,) + op.n_nodes_axis
+x, g, d, h = [(torch.randn(shape, generator=gen, device=dev) * op.mask)
+              .contiguous() for _ in range(4)]
+prec = ((torch.rand((1,) + op.n_nodes_axis, generator=gen, device=dev)
+         + 0.5) * op.mask).contiguous()
+scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6], device=dev)
+work = fk.Workspace(op)
+name = os.path.basename(os.getcwd())
+cases = {"ct_p": ("P_bf16",), "ct_x": ("x_bf16",)}.get(
+    name, ("f32", "P_bf16", "x_bf16"))
+out = {}
+for case, xx, pp in (("f32", x, prec), ("P_bf16", x, prec.bfloat16()),
+                     ("x_bf16", x.bfloat16(), prec)):
+    if case not in cases:
+        continue
+    o = tuple(torch.empty_like(t) for t in (xx, g, d, h, scal))
+    rows, _ = profiling.kernel_breakdown(
+        lambda: [fk.fused_cg_iteration(op, xx, g, d, h, scal, pp, out=o,
+                                       work=work) for _ in range(30)], dev)
+    out[case] = [sec / calls * 1e3 for k, calls, sec in rows
+                 if "cells_mma" in k][0]
+print(json.dumps(out))
+'''
+
+
 def _copy(name: str, patches) -> Path:
     dst = ROOT / name
     if dst.exists():
@@ -668,6 +727,9 @@ def main(argv: list[str] | None = None) -> None:
         for name, root in build_all(STAMPS).items():
             r = _run(root, _READ_STAMPS)
             print(f"{name}:\n{r.stdout}{r.stderr[-2000:]}")
+    if "px" in which:
+        _print_min(time_in_turns(build_all(PX, "cells_mma_kernelILi4ELb1E"),
+                                 _TIME_PX), 10)
     if "ablate" in which:
         times = time_in_turns(build_all(ABLATE), _TIME)
         for name, rows in times.items():

@@ -18,7 +18,7 @@ from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.ops import laplace_apply as la
 from mf_data_locality_tpu_torch.ops import laplace_cuda
 from mf_data_locality_tpu_torch.solvers import cg_fused
-from mf_data_locality_tpu_torch.utils import bf16_check
+from mf_data_locality_tpu_torch.utils import bf16_check, storage_check
 
 P = 4
 SCAL = [0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6]
@@ -747,3 +747,94 @@ def test_run_one_merged_split2m_high_degree_on_card(cuda_device, p):
                               **short)
         assert wrapper.launches > before
         assert 0 < r.n_iterations <= 100 and r.time_per_it > 0
+
+
+STORAGE_RUNGS = [("highest", torch.float32), ("highest", torch.float64),
+                 ("split2m", torch.float32), ("split3", torch.float32),
+                 ("bf16", torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,dtype", STORAGE_RUNGS)
+@pytest.mark.parametrize("p", (1, 2, 3, 4) + HIGH)
+def test_fused_storage_kernels_match_plain(cuda_device, p, precision, dtype):
+    """B2 with P or x stored in bf16 (``csrc/cg_fused_px.cu``) in every
+    configuration of ``fused_configs`` on 105 cells, bf16 with its bf16
+    state (``utils.storage_check.compare``): with x in bf16, g', d', h' and
+    the scalars bitwise equal to the working-x kernel's and x' within one
+    bf16 step of the plain version; with P in bf16 (and with both) the
+    kernel against the plain version at the rung's tolerance, and the
+    plain version with P unrounded (the control) outside it."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    key = "highest64" if dtype == torch.float64 else precision
+    state = torch.bfloat16 if precision == "bf16" else dtype
+    before = fk.fused_cg_iteration.launches
+    n = 0
+    for factor, metric in laplace_cuda.fused_configs(precision, p):
+        chains = (("adjj", "jtj") if metric == "onthefly" and (
+            precision == "highest" or factor == "twostage") else ("adjj",))
+        for cofactor in chains:
+            op = laplace_cuda.make_operator(
+                layout, dtype, precision, factor=factor, metric=metric,
+                cofactor=cofactor, windowing="pieces", device=cuda_device)
+            ok, report = storage_check.compare(op, cuda_device, state,
+                                               storage_check.TOL[key])
+            assert ok, (factor, metric, cofactor, report)
+            n += 1
+    assert fk.fused_cg_iteration.launches == before + 4 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,precision", [(2, "highest"), (4, "split2m"),
+                                         (6, "split2m"), (6, "highest")])
+def test_fused_storage_solves_on_card(cuda_device, p, precision):
+    """The fused solver with x in bf16 takes the working-x solve's history
+    bit for bit; with P in bf16 it converges within 3 iterations of it
+    (``tests/test_cg_fused.py:332``); ``run_one`` takes both flags."""
+    factor, metric, cofactor = benchmark.resolve_config(
+        p, "fused", "pieces", precision, torch.float32)
+    pb = bp4.build(5, p, torch.float32, precision, factor=factor,
+                   metric=metric, cofactor=cofactor, windowing="pieces",
+                   device=cuda_device)
+    ref = benchmark.solver_call(pb, "fused")()
+    rx = benchmark.solver_call(pb, "fused", x_dtype=torch.bfloat16)()
+    rp = benchmark.solver_call(pb, "fused", prec_dtype=torch.bfloat16)()
+    n = ref.n_iterations
+    assert rx.n_iterations == n
+    assert torch.equal(rx.res_history[:n + 1], ref.res_history[:n + 1])
+    assert abs(rp.n_iterations - n) <= 3 and rp.converged == ref.converged
+    before = fk.fused_cg_iteration.launches
+    r = benchmark.run_one(p, 5, solver="fused", windowing="pieces",
+                          precision=precision, prec_dtype=torch.bfloat16,
+                          x_dtype=torch.bfloat16, problem=pb,
+                          solve_repeats=1, matvec_repeats=1, matvec_inner=2,
+                          device=cuda_device)
+    assert fk.fused_cg_iteration.launches > before
+    assert 0 < r.n_iterations <= 100 and r.time_per_it > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("backend", ["structured", "general"])
+def test_plain_backends_on_card(cuda_device, backend, dtype):
+    """``--backend structured|general`` on the card: vmult against B3 (the
+    JAX CLI's default operator) at 1e-5 (f32) / 1e-12 (f64) relative L2,
+    and ``run_one`` of both solvers, the f64 count equal to B3's."""
+    ref = bp4.build(6, 3, dtype, "highest", device=cuda_device)
+    pb = bp4.build(6, 3, dtype, device=cuda_device, backend=backend)
+    u = torch.randn(ref.b.shape, device=cuda_device, dtype=dtype,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(5))
+    want = ref.a_apply_full(u)
+    err = torch.linalg.norm(pb.a_apply_full(u) - want) / torch.linalg.norm(
+        want)
+    assert err.item() <= TOL[dtype]
+    for solver in ("merged", "baseline"):
+        r = benchmark.run_one(3, 6, solver=solver, dtype=dtype,
+                              backend=backend, problem=pb, solve_repeats=1,
+                              matvec_repeats=1, matvec_inner=2,
+                              device=cuda_device)
+        assert 0 < r.n_iterations <= 100 and r.time_per_it > 0
+        if dtype == torch.float64:
+            assert r.n_iterations == benchmark.solver_call(
+                ref, solver)().n_iterations
