@@ -149,7 +149,24 @@ Phases (each raises on failure, so any failure exits nonzero):
    solver="merged"|"baseline", backend=...)``, the f64 itCG equal to the
    pallas path's, their rows printed; and the discretization: the
    manufactured solution solved in f64 by the merged CG through B3 at
-   CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35.
+   CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35;
+8. the z-slab distributed solvers (``parallel/``; ranks are processes on
+   this card, joined by gloo, ~120 s): B2's slab form (``csrc/cg_fused.cu``
+   ``bp4_fused_iteration_slab``: the Dirichlet faces by global position, a
+   halo plane, raw sums over the owned planes, the carry) against its
+   plain version on a slab with a halo and on one with a dummy layer, at
+   p=4 and 6 under f64 and f32 highest, split2m, split3 and bf16 (with its
+   state and controls), both metrics; timed on a rank's slab of the
+   4-rank full width beside the unchanged B2 on a box of the same cells
+   (fields ``*_slab``, ``*_slab_f64``, ``ms_box_slab...``); f64 parity on
+   2 and 3 ranks at p=4 s=7 (fused, merged reshape, baseline: itCG 91 and
+   x against the same solver on one device, TOL_DIST_X) with every rank's
+   collectives counted; and at the full width, 4 ranks at p=4 s=15
+   (6,440,067 DoFs), the merged reshape f32 highest, fused split2m and
+   fused split2m onthefly solves with their rows, collectives per
+   iteration, launches (``launches_slab``, ``launches_dist``) and true
+   residuals, beside the single-device fused split2m path at the same
+   point (auto, and dense with the streamed metric).
 """
 
 from __future__ import annotations
@@ -1425,6 +1442,276 @@ def convergence_rates(la, dev) -> list:
     return out
 
 
+# the z-slab distributed solvers (section 8).  B2's slab form (halo planes,
+# Dirichlet faces by global position, the sums over the owned planes raw,
+# the carry in h''s top plane) against its plain version on two slabs of
+# the s=9 mesh (8 x 8 x 8 cells) over 3 ranks: rank 1 (z0 = 3 layers, its
+# top plane a halo of rank 2's plane 0) and rank 2 (z0 = 6, one dummy
+# layer), at SLAB_DEGREES under each rung of SLAB_RUNGS (rung, the
+# state's dtype; bf16 with its state) with the metric streamed and
+# rebuilt, at each rung's tolerance (bf16 with its controls); then timed
+# on rank 1's slab of DIST_FULL beside the unchanged B2 on a box of the
+# same cells
+SLAB_RUNGS = (("highest", torch.float64), ("highest", torch.float32),
+              ("split2m", torch.float32), ("split3", torch.float32),
+              ("bf16", torch.bfloat16))
+SLAB_DEGREES = (4, 6)
+SLAB_TIMED = (("split2m", torch.float32, ""),
+              ("highest", torch.float64, "_f64"))
+# f64 parity of the distributed solvers at PARITY.md's p=4 s=7 point on
+# DIST_RANKS ranks (3 does not divide ncz = 4): the fused (dense, the
+# metric streamed), merged (reshape: B3) and baseline solvers, each
+# against the same solver on one device on the card: itCG DIST_ITCG and x
+# within TOL_DIST_X max(1, |x|).  Not the 1e-11 of tests/test_dist_fused.py
+# :41, whose points (s=6, p <= 3) spread by ~1e-15: here 91 iterations
+# amplify rounding in x (|x| = 1231), and the JAX package's own fused
+# solve on 1 and on 2 devices differs by 5.1e-10 max(1, |x|) (its merged
+# by 9.1e-11; the port's plain versions on the CPU, single vs distributed,
+# by 1.0e-10 fused and 3.9e-10 merged; tests/test_torch_dist_cli.py)
+DIST_PARITY = (4, 7)
+DIST_ITCG = 91
+DIST_RANKS = (2, 3)
+TOL_DIST_X = 1e-9
+# the full width: 4 ranks at p=4 s=15 (6,440,067 DoFs, 32^3 cells: the
+# reference's ladder top for 4 ranks, ~1.6M DoFs a rank), f32: the JAX
+# CLI's default with --devices 4 (merged, reshape, highest), the
+# production command with --devices 4 (fused, pieces, split2m: dense, the
+# metric streamed) and the same with --geometry onthefly
+DIST_FULL = (4, 15, 4)
+
+
+def compare_slab_form(fk, dev) -> dict:
+    """B2's slab form vs its plain version (SLAB_RUNGS x SLAB_DEGREES x
+    both metrics x the two slabs); returns the largest readings a rung."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+    from mf_data_locality_tpu_torch.utils.bf16_check import control_op
+
+    worst = {}
+    for p in SLAB_DEGREES:
+        for rung, state in SLAB_RUNGS:
+            for metric in ("precomputed", "onthefly"):
+                for rank in (1, 2):
+                    op = distributed.build_slab(9, p, rank, 3, state,
+                                                "pallas", rung, "pieces",
+                                                metric, dev).op
+                    x, g, d, h = random_state(op, 4, seed=70 + rank)
+                    d, h = d.to(state).contiguous(), h.to(state).contiguous()
+                    prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
+                            * op.mask).contiguous()
+                    scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25,
+                                         0.6], dtype=op.dtype, device=dev)
+                    tag = (f"slab p={p} {rung} {str(state)[6:]} {metric} "
+                           f"rank {rank}/3 z0={op.slab[0]}")
+                    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+                    want = fk._fused_iteration_plain(op, x, g, d, h, scal,
+                                                     prec)
+                    if rung == "highest":
+                        err = compare("fused_cg_iteration", got, want,
+                                      op.dtype, tag, quiet=True)[0]
+                    else:
+                        ctl = (fk._fused_iteration_plain(control_op(op), x,
+                                                         g, d, h, scal, prec)
+                               if rung == "bf16" else None)
+                        r = compare_rung("fused_cg_iteration", got, want,
+                                         rung, tag, quiet=True, control=ctl)
+                        err = r.get("l2", r["rel"])
+                    key = (rung, str(state)[6:])
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    if state == torch.bfloat16:
+                        check_rounding_point(op, 80 + p, tag, quiet=True)
+    for (rung, state), err in worst.items():
+        print(f"  fused_cg_iteration slab form {rung} {state} (p in "
+              f"{SLAB_DEGREES}, both metrics, both slabs): largest "
+              f"{'rel L2' if rung == 'bf16' else 'max rel err'} {err:.3e}")
+    return worst
+
+
+def time_slab_form(fk, dev, timing) -> dict:
+    """B2's slab form on rank 1's slab of DIST_FULL (the fused full-width
+    configuration: dense, the metric streamed) under SLAB_TIMED, compared
+    with and timed beside its plain version and the bound, and the
+    unchanged B2 on a box of the same cells timed in the same turns;
+    returns {suffix: ((kernel ms, plain ms), bound, max |diff|, box ms)}."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    p, s, n = DIST_FULL
+    out = {}
+    for rung, dtype, sfx in SLAB_TIMED:
+        op = distributed.build_slab(s, p, 1, n, dtype, "pallas", rung,
+                                    "pieces", "precomputed", dev).op
+        box = laplace_cuda.make_operator(
+            DofLayout(BoxMesh(op.n_cells_axis, BoxMesh.from_s(s).spacing),
+                      p), dtype, rung, factor="dense", metric="precomputed",
+            windowing="pieces", device=dev)
+        tag = f"slab p={p} s={s} rank 1/{n} {rung} {str(dtype)[6:]}"
+        x, g, d, h = random_state(op, 4, seed=9)
+        prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
+                * op.mask).contiguous()
+        scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                            dtype=dtype, device=dev)
+        _, diff = compare("fused_cg_iteration",
+                          fk.fused_cg_iteration(op, x, g, d, h, scal, prec),
+                          fk._fused_iteration_plain(op, x, g, d, h, scal,
+                                                    prec), dtype, tag)
+        work, wbox = fk.Workspace(op), fk.Workspace(box)
+        bufs = tuple(torch.empty_like(t) for t in (x, g, d, h, scal))
+        t = time_pair(lambda: fk.fused_cg_iteration(op, x, g, d, h, scal,
+                                                    prec, out=bufs,
+                                                    work=work),
+                      lambda: fk._fused_iteration_plain(op, x, g, d, h, scal,
+                                                        prec), dev, timing)
+        t_box = min(timing.time_per_call(
+            lambda: fk.fused_cg_iteration(box, x, g, d, h, scal, prec,
+                                          out=bufs, work=wbox), dev,
+            inner=20, repeats=3) for _ in range(2)) * 1e3
+        b = bound("fused_cg_iteration", op, split=rung != "highest")
+        print(f"  fused_cg_iteration {tag}: kernel {t[0]:.4f} ms, plain "
+              f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); the unchanged "
+              f"B2 on a box of the same {op.n_cells} cells {t_box:.4f} ms")
+        out[sfx] = t, b, diff, t_box
+        del op, box, x, g, d, h, work, wbox, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_collectives(job, r: dict, n: int) -> None:
+    """Every rank's collectives in the job's first solve: the merged and
+    fused solvers one all-reduce an iteration and one for res0, the
+    baseline 3 an iteration and 2; two shifts an operator apply (merged,
+    baseline) or an iteration (fused, and one each for P's ghost plane and
+    x's top plane)."""
+    it = r["it"]
+    want = ((2 + 3 * it, 2 * it) if job.solver == "baseline" else
+            (it + 1, 2 * it + (2 if job.solver == "fused" else 0)))
+    got = {(x["allreduces"], x["shifts"]) for x in r["ranks"]}
+    if got != {want}:
+        raise AssertionError(f"{job.solver} on {n} ranks: (all-reduces, "
+                             f"shifts) {got}, expected {want}")
+
+
+def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> dict:
+    """f64 parity on DIST_RANKS ranks and the DIST_FULL drives beside the
+    single-device fused split2m path at the same point; returns the
+    kernels' launches summed over the full width's ranks {job label:
+    {kernel: n}} and its rows."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.parallel import comm, distributed
+
+    Job = distributed.Job
+    f64 = torch.float64
+    p, s = DIST_PARITY
+    pf = bp4.build(s, p, f64, "highest", factor="dense",
+                   metric="precomputed", windowing="pieces", device=dev)
+    lat = (3,) + pf.layout.n_nodes_axis
+    pm = bp4.build(s, p, f64, "highest", device=dev)
+    ref = {"fused": cg_fused.fused_merged_cg_solve(
+               pf.op, lat[1:], pf.b.reshape(lat),
+               pf.inv_diag.reshape((1,) + lat[1:])),
+           "merged": bp4.solve_merged(pm), "baseline": bp4.solve_baseline(pm)}
+    del pf, pm
+    jobs = [Job(solver, s, p, f64) for solver in ref]
+    for n in DIST_RANKS:
+        for job, r in zip(jobs, distributed.launch(jobs, n, "cuda")):
+            want = ref[job.solver]
+            xr = want.x.reshape(lat).cpu()
+            err = ((r["x"] - xr).abs().max() / max(1.0, xr.abs().max())
+                   ).item()
+            kern = ("fused_cg_iteration" if job.solver == "fused"
+                    else "apply_local_batched_g")
+            launched = sum(x["launches_solve"][kern] for x in r["ranks"])
+            print(f"  {job.solver} f64 p={p} s={s} on {n} ranks: itCG "
+                  f"{r['it']} (one device {want.n_iterations}), x "
+                  f"{err:.3e} max(1, |x|) from one device's (tol "
+                  f"{TOL_DIST_X:.0e}), {kern} launches {launched}")
+            check_collectives(job, r, n)
+            if not (r["it"] == want.n_iterations == DIST_ITCG
+                    and err <= TOL_DIST_X and launched == n * r["it"]):
+                raise AssertionError(f"distributed {job.solver} on {n} "
+                                     f"ranks disagrees with one device")
+
+    p, s, n = DIST_FULL
+    f32 = torch.float32
+    jobs = {"merged": Job("merged", s, p, f32, timed=True, solve_repeats=2),
+            "fused": Job("fused", s, p, f32, "pallas", "split2m",
+                         timed=True, solve_repeats=2),
+            "fused_onthefly": Job("fused", s, p, f32, "pallas", "split2m",
+                                  metric="onthefly", timed=True,
+                                  solve_repeats=2)}
+    lat_full = (3,) + DofLayout(BoxMesh.from_s(s), p).n_nodes_axis
+    print(f"  {comm.describe(n, 'cuda')}, p={p} s={s}:")
+    out = dict(zip(jobs, distributed.launch(jobs.values(), n, "cuda")))
+    launches, rows = {}, {}
+    for label, job in jobs.items():
+        r = out[label]
+        check_collectives(job, r, n)
+        row = benchmark.dist_row(job, r)
+        rows[label] = row
+        launches[label] = {k: sum(x["launches"][k] for x in r["ranks"])
+                           for k in r["ranks"][0]["launches"]}
+        it = r["it"]
+        print(f"  {label} {job.precision}: {row.row()}; per iteration "
+              f"{(r['allreduces'] - 1) / it:g} all-reduce, "
+              f"{r['shifts'] / it:.3g} shifts (rank 0)")
+        print(f"    launches (all ranks, the run with its timing): "
+              f"{launches[label]}")
+        ms = {k: max(x["comm_s"][k] for x in r["ranks"]) / it * 1e3
+              for k in r["comm_s"]}
+        print(f"    host ms an iteration (the slowest rank, first solve): "
+              f"wall {max(x['wall_s'] for x in r['ranks']) / it * 1e3:.3f}"
+              f"; in the collectives " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in ms.items()))
+        if tuple(r["x"].shape) != lat_full \
+                or not torch.isfinite(r["x"]).all():
+            raise AssertionError(f"{label}: x is wrong")
+    # the solutions: |b - A x| by one device's operator of the same
+    # configuration against the distributed solve's residual estimate
+    dense_pre = None  # one device's problem of the fused job, kept for its run
+    for label, job in jobs.items():
+        r = out[label]
+        if label == "merged":
+            pb = bp4.build(s, p, f32, "highest", device=dev)
+            x = r["x"].to(dev).reshape(3, -1)
+            true_res = torch.linalg.norm(pb.b - pb.a_apply(x)).item()
+        else:
+            pb = bp4.build(s, p, f32, "split2m", factor="dense",
+                           metric=job.metric, windowing="pieces", device=dev)
+            b = pb.b.reshape(r["x"].shape)
+            true_res = torch.linalg.norm(
+                b - fk.matvec(pb.op, r["x"].to(dev).contiguous())).item()
+            if job.metric == "precomputed":
+                dense_pre = pb
+        gap = abs(true_res - r["res"]) / r["res"]
+        print(f"  {label} solution: |b - Ax| {true_res:.6e} vs the estimate "
+              f"{r['res']:.6e} (rel gap {gap:.2e}, tol 1e-3)")
+        if not gap < 1e-3:
+            raise AssertionError(f"{label}: the distributed solution's "
+                                 f"residual is not its estimate")
+        del pb
+        torch.cuda.empty_cache()
+    for label, kw in (("one device, fused auto split2m", {}),
+                      ("one device, fused dense precomputed split2m",
+                       dict(factor="dense", metric="precomputed",
+                            problem=dense_pre))):
+        r1 = benchmark.run_one(p, s, solver="fused", windowing="pieces",
+                               precision="split2m", device=dev,
+                               solve_repeats=2, **kw)
+        rows[label] = r1
+        print(f"  {label}: {r1.row()}")
+    del dense_pre
+    for label, kern in (("merged", "apply_local_batched_g"),
+                        ("fused", "fused_cg_iteration"),
+                        ("fused", "apply_lattice_pieces"),
+                        ("fused_onthefly", "fused_cg_iteration")):
+        if not launches[label][kern]:
+            raise AssertionError(f"the distributed {label} path launched "
+                                 f"no {kern}")
+    return launches, rows
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2131,6 +2418,15 @@ def main() -> int:
                 or res.n_iterations != row.n_iterations or not gap < tol:
             raise AssertionError(f"{label} solution is wrong")
 
+    # -- 8. the z-slab distributed solvers ---------------------------------
+    t8 = time.perf_counter()
+    print("the z-slab distributed solvers: B2's slab form vs plain:")
+    compare_slab_form(fk, dev)
+    slab_t = time_slab_form(fk, dev, timing)
+    print("the distributed solvers (ranks: processes on this card, gloo):")
+    launches_dist, _ = distributed_phase(benchmark, bp4, cg_fused, fk, dev)
+    print(f"section 8: {time.perf_counter() - t8:.1f} s")
+
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
     # library_ms is null throughout
@@ -2215,6 +2511,24 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_hi[sfx][name]})
+        if name == "fused_cg_iteration":  # B2's slab form (section 8)
+            for rung, dtype, sfx in SLAB_TIMED:
+                (k, pl), (bms, by), err, box_ms = slab_t[sfx]
+                sfx = "_slab" + sfx
+                row.update({f"source{sfx}": CSRC + "cg_fused.cu",
+                            f"p_s{sfx}": list(DIST_FULL[:2]),
+                            f"config{sfx}": [rung, "dense", "precomputed"],
+                            f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                            f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
+                            f"bound_by{sfx}": by, f"ms_box{sfx}": box_ms})
+            row["launches_slab"] = launches_dist["fused"][name]
+            row["launches_slab_onthefly"] = launches_dist["fused_onthefly"][
+                name]
+        if name == "apply_lattice_pieces":  # the fused paths' matvec column
+            row["launches_dist"] = (launches_dist["fused"][name]
+                                    + launches_dist["fused_onthefly"][name])
+        if name == "apply_local_batched_g":  # the merged path's
+            row["launches_dist"] = launches_dist["merged"][name]
         if name == "fused_cg_iteration":  # B2 with P or x in bf16
             for p, s, _, precision, config, run in STORAGE_RUNS:
                 for key, _ in STORAGE:

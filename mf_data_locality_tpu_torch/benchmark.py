@@ -15,7 +15,7 @@ Usage (the reference's positional CLI, ``benchmark.h:280-288``)::
        [--windowing reshape|pieces|zslab] [--geometry auto|qpoint|onthefly] \
        [--dtype f32|f64|bf16] [--metric-dtype f32|bf16] \
        [--backend pallas|structured|general] [--prec-dtype f32|bf16] \
-       [--x-dtype f32|bf16]
+       [--x-dtype f32|bf16] [--devices N [--device cuda|cpu]]
 
 The defaults are the JAX CLI's: the merged CG on the cell-batched operator
 (``--windowing reshape``, kernel B3) at ``--precision highest``, at every
@@ -44,6 +44,14 @@ tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass, a
 bf16 state under another rung or in the merged and baseline solvers, a
 bf16 metric under ``highest`` and ``split2m``.  ``s < 1`` runs the
 reference's auto size ladder.
+
+``--devices N`` runs the merged, baseline or fused CG over N z-slab ranks
+(:func:`run_one_distributed`, ``parallel/``): processes on the card(s)
+joined by gloo, or with ``--device cpu`` on the CPU (the plain versions,
+no times); the operator is the dense factorization (the fused solver's
+metric streamed, or rebuilt with ``--geometry onthefly``), on every rung.
+``--overlap``, ``--backend general`` with ``--devices`` and meshes of 2
+or more dimensions raise NotImplementedError (ROADMAP.md queue A item 9b).
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -387,6 +395,78 @@ def _time_point(problem, solve, matvec, device, verbose: bool,
     )
 
 
+def run_one_distributed(degree: int, s: int, n_devices: int,
+                        solver: str = "merged",
+                        dtype: torch.dtype = torch.float32,
+                        backend: str = "pallas", overlap: bool = False,
+                        precision: str = "highest",
+                        windowing: str = "reshape", solve_repeats: int = 4,
+                        matvec_repeats: int = 2, matvec_inner: int = 50,
+                        metric: str = "auto",
+                        device: torch.device | str = "cuda"
+                        ) -> tuple[RunResult, dict]:
+    """The distributed solve and matvec over ``n_devices`` z-slab ranks
+    (``run_one_distributed`` of the JAX package; ``parallel/``): one
+    7-scalar all-reduce a merged or fused iteration, the halo shifts in
+    the operator.  The fused solver runs on dense slab operators, the
+    metric streamed (``metric="auto"``) or rebuilt (``"onthefly"``; its
+    matvec column then times the streamed-metric twin, as the JAX harness
+    does).  Returns the result row and the ranks' merged results
+    (``parallel.distributed.launch``: x, history, collectives and
+    launches per rank, ``transport``).
+
+    On a CUDA ``device`` the ranks share the card(s) and the times are
+    the slowest rank's CUDA-event times; ``device="cpu"`` runs the ranks'
+    plain versions on the CPU and measures no time (the row's times are
+    NaN).  ``overlap``, ``backend="general"`` and meshes of 2 or more
+    dimensions raise NotImplementedError (ROADMAP.md queue A item 9b).
+    """
+    from mf_data_locality_tpu_torch.parallel import comm, distributed
+
+    if solver == "fused":
+        metric = "precomputed" if metric == "auto" else metric
+        windowing = "pieces"
+    elif metric == "auto":
+        metric = "precomputed"
+    distributed.check_distributed(solver, backend, windowing, metric,
+                                  overlap)
+    if backend == "pallas":
+        laplace_cuda.check_config(precision, "dense", metric, "adjj", dtype,
+                                  windowing, solver, degree)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        timing.require_cuda(device)
+    job = distributed.Job(solver, s, degree, dtype, backend, precision,
+                          windowing, metric, timed=cuda,
+                          solve_repeats=solve_repeats,
+                          matvec_repeats=matvec_repeats,
+                          matvec_inner=matvec_inner)
+    out = distributed.launch([job], n_devices, str(device))[0]
+    out["transport"] = comm.describe(n_devices, str(device))
+    return dist_row(job, out), out
+
+
+def dist_row(job, out: dict) -> RunResult:
+    """The result row of a distributed ``job``
+    (``parallel.distributed.Job``) from its merged rank results: the
+    slowest rank's times, or NaN where the job was not timed (CPU ranks:
+    no device time)."""
+    n_it = out["it"]
+    nan = float("nan")
+    solve_s = out.get("solve_s", nan)
+    notes = ([] if job.timed else ["CPU ranks: times not measured"]) + (
+        ["matvec: precomputed-metric twin"]
+        if job.solver == "fused" and job.metric == "onthefly" else [])
+    n_dofs, n_cells = out["n_dofs"], out["n_cells"]
+    return RunResult(
+        degree=job.degree, n_q=job.degree + 2, n_cells=n_cells,
+        n_dofs=n_dofs, time_per_it=solve_s / max(n_it, 1),
+        dofs_per_s_per_it=n_dofs / solve_s * n_it,
+        n_iterations=n_it, time_per_matvec=out.get("matvec_s", nan),
+        converged=out["converged"], note="; ".join(notes),
+        time_per_it_wall=solve_s / max(n_it, 1))
+
+
 def ladder_sizes(degree: int, n_components: int = 3,
                  n_devices: int = 1) -> list[int]:
     """The reference auto size ladder (``benchmark.h:243-257``)."""
@@ -460,20 +540,53 @@ def main(argv: list[str] | None = None) -> None:
                     help="fused solver: storage of the solution x only "
                          "(bf16 halves x's traffic; the residual history "
                          "is unchanged, the delivered x is rounded)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (with --devices: the "
+                         "ranks' plain versions on the CPU, no times)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="distribute over N z-slab ranks, processes on "
+                         "the card(s) joined by gloo (0 = the "
+                         "single-device path)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap the halo exchange with interior compute "
+                         "(distributed path; not ported yet)")
     args = ap.parse_args(argv)
 
     if not 1 <= args.degree <= 11:
         raise SystemExit("Only degrees 1..11 implemented")  # benchmark.h:313
-    sizes = [args.s] if args.s >= 1 else ladder_sizes(args.degree)
+    metric = {"auto": "auto", "qpoint": "precomputed",
+              "onthefly": "onthefly"}[args.geometry]
+    if args.devices > 0:
+        single = [f"--{k.replace('_', '-')}" for k, default in (
+            ("factor", "auto"), ("cofactor", "auto"), ("metric_dtype", "f32"),
+            ("prec_dtype", "f32"), ("x_dtype", "f32"))
+            if getattr(args, k) != default]
+        if single:
+            raise SystemExit(f"{', '.join(single)}: the single-device "
+                             f"path's options; the distributed path "
+                             f"runs the dense factorization (adjj)")
+    sizes = ([args.s] if args.s >= 1 else
+             ladder_sizes(args.degree, n_devices=max(args.devices, 1)))
+    if args.devices > 0:
+        from mf_data_locality_tpu_torch.parallel import comm
+
+        print(f"transport: {comm.describe(args.devices, args.device)}")
     print(HEADER)
     for s in sizes:
+        if args.devices > 0:
+            r, _ = run_one_distributed(
+                args.degree, s, args.devices, solver=args.solver,
+                dtype=DTYPES[args.dtype], backend=args.backend,
+                overlap=args.overlap, precision=args.precision,
+                windowing=args.windowing, metric=metric, device=args.device)
+            print(r.row() + ("" if r.converged else "   [not converged]"))
+            continue
+        if args.overlap:
+            raise SystemExit("--overlap needs --devices N")
         r = run_one(args.degree, s, solver=args.solver,
                     dtype=DTYPES[args.dtype], verbose=not args.compact,
                     precision=args.precision, windowing=args.windowing,
-                    factor=args.factor,
-                    metric={"auto": "auto", "qpoint": "precomputed",
-                            "onthefly": "onthefly"}[args.geometry],
+                    factor=args.factor, metric=metric,
                     cofactor=args.cofactor, device=args.device,
                     metric_dtype=(torch.bfloat16 if args.metric_dtype == "bf16"
                                   else None),

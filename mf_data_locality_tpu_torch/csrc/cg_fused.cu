@@ -70,6 +70,24 @@
 // pass takes most of the time (PERF.md).  Later: the node passes fused into
 // the cell pass once a cell owns its output nodes.
 //
+// B2's z-slab form (bp4_fused_iteration_slab; the TPU kernel's halo, z0,
+// ncz_global, recurrence=False and want_carry=True, cg_fused_kernel.py:
+// 1236-1254), one slab of a z-decomposed lattice on each rank
+// (parallel/dist_fused.py): the slab's state is (C, Pp+1, Ny, Nx), its top
+// plane a ghost of the upper slab's plane 0.  The same three passes on the
+// slab's Grid (bp4_operator.cuh): the Dirichlet z faces by global position
+// (zlo, zhi: plane 0 only on the bottom slab, the top plane only at the
+// global top, dummy layers wholly); the caller has written the upper
+// slab's pre-update g, d, h plane 0 into the ghost plane, so update4b
+// there repeats that slab's arithmetic on the same inputs; the dots cover
+// the owned planes [0, Pp) (zown); the finalize pass writes the 7 raw
+// sums in place of the recurrence; and the ghost plane of h' holds the
+// slab's partial sums owed upward (the carry), the assemble pass's own
+// output there.  Still one launch sequence, no atomics.  Its
+// instantiations (kLatticeUpdateSlab of the dense passes, the assemble
+// pass's SLAB, the RAW finalize) are built in cg_fused_slab.cu and the
+// per-degree sources; the other forms' are untouched.
+//
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 on success),
 // or -1 for a configuration with no instantiation.
@@ -97,16 +115,24 @@ struct Launch {
 
   // prec_bf16, x_bf16: P, or x and x2, in bf16 (prec_dtype, x_dtype):
   // cg_fused_px.cu's instantiations
+  // slab: the slab form (gr a slab's Grid, the 7 sums in scal2), with P
+  // and x at T
   static int fused(int rung, int dense, int cofactor, int store,
                    int prec_bf16, int x_bf16, const OpTables<T>& tb,
                    const Grid& gr, const T* x, const T* g, const T* d,
                    const T* h, const T* prec, const T* scal, T* x2, T* g2,
                    T* d2, T* h2, T* scal2, T* cells, T* partials,
-                   void* scratch, cudaStream_t st) {
+                   void* scratch, int slab, cudaStream_t st) {
     CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
     io.bf16 = store;
     io.prec_bf16 = prec_bf16;
     io.x_bf16 = x_bf16;
+    if (slab)
+      return prec_bf16 || x_bf16
+                 ? -1
+                 : fused_iteration_slab<T, P>(rung, dense, cofactor, tb, gr,
+                                              io, h2, scal2, cells, partials,
+                                              scratch, st);
     if (prec_bf16 || x_bf16)
       return fused_iteration_px<T, P>(rung, dense, cofactor, tb, gr, io, h2,
                                       scal2, cells, partials, scratch, st);
@@ -134,7 +160,7 @@ using bp4::tables;
 namespace {
 
 Grid make_grid(int degree, int ncz, int ncy, int ncx) {
-  return {ncz, ncy, ncx, degree * ncz + 1, degree * ncy + 1, degree * ncx + 1};
+  return bp4::box_grid(degree, ncz, ncy, ncx);
 }
 
 }  // namespace
@@ -202,18 +228,20 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
   return -1;
 }
 
-int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
-                        int cofactor, int store, int metric_bf16,
-                        int prec_bf16, int x_bf16, const void* mats,
-                        const void* sz, const void* dz, const void* pds,
-                        const void* w3, const void* coeffs,
-                        const void* gmetric, const void* x, const void* g,
-                        const void* d, const void* h, const void* prec,
-                        const void* scal, void* x2, void* g2, void* d2,
-                        void* h2, void* scal2, void* cells, void* partials,
-                        void* scratch, int ncz, int ncy, int ncx,
-                        void* stream) {
-  const Grid gr = make_grid(degree, ncz, ncy, ncx);
+}  // extern "C"
+
+namespace {
+
+// B2 on `gr` (the box; slab = 1: a slab's Grid, the 7 sums in scal2)
+int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
+                int store, int metric_bf16, int prec_bf16, int x_bf16,
+                const void* mats, const void* sz, const void* dz,
+                const void* pds, const void* w3, const void* coeffs,
+                const void* gmetric, const void* x, const void* g,
+                const void* d, const void* h, const void* prec,
+                const void* scal, void* x2, void* g2, void* d2, void* h2,
+                void* scal2, void* cells, void* partials, void* scratch,
+                const Grid& gr, int slab, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
@@ -225,13 +253,58 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
       static_cast<T*>(x2), static_cast<T*>(g2), static_cast<T*>(d2),          \
       static_cast<T*>(h2), static_cast<T*>(scal2), static_cast<T*>(cells),    \
-      static_cast<T*>(partials), scratch, st)
+      static_cast<T*>(partials), scratch, slab, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !rung) BP4_DEGREES(double)
 #undef BP4_DEGREES
 #undef BP4_FUSED
   return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
+                        int cofactor, int store, int metric_bf16,
+                        int prec_bf16, int x_bf16, const void* mats,
+                        const void* sz, const void* dz, const void* pds,
+                        const void* w3, const void* coeffs,
+                        const void* gmetric, const void* x, const void* g,
+                        const void* d, const void* h, const void* prec,
+                        const void* scal, void* x2, void* g2, void* d2,
+                        void* h2, void* scal2, void* cells, void* partials,
+                        void* scratch, int ncz, int ncy, int ncx,
+                        void* stream) {
+  return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
+                     prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
+                     gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
+                     cells, partials, scratch,
+                     make_grid(degree, ncz, ncy, ncx), 0, stream);
+}
+
+// B2's slab form: the arguments of bp4_fused_iteration on a slab of ncz
+// cell layers (ncz * degree + 1 planes, the top one the ghost), then the
+// slab's zlo, zhi, zown (bp4_operator.cuh's Grid); scal2 receives the 7
+// raw sums and a 0.
+int bp4_fused_iteration_slab(
+    int dtype, int rung, int degree, int dense, int cofactor, int store,
+    int metric_bf16, int prec_bf16, int x_bf16, const void* mats,
+    const void* sz, const void* dz, const void* pds, const void* w3,
+    const void* coeffs, const void* gmetric, const void* x, const void* g,
+    const void* d, const void* h, const void* prec, const void* scal,
+    void* x2, void* g2, void* d2, void* h2, void* scal2, void* cells,
+    void* partials, void* scratch, int ncz, int ncy, int ncx, int zlo,
+    int zhi, int zown, void* stream) {
+  Grid gr = make_grid(degree, ncz, ncy, ncx);
+  gr.zlo = zlo;
+  gr.zhi = zhi;
+  gr.zown = zown;
+  return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
+                     prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
+                     gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
+                     cells, partials, scratch, gr, 1, stream);
 }
 
 }  // extern "C"

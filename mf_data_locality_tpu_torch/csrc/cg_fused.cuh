@@ -24,13 +24,17 @@ namespace bp4 {
 // instantiation (the tensor-core rungs: dense with adjj, twostage at
 // p >= 4).  scratch: the dense tensor-core pass's at p >= 5.  PX: B2 with
 // P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX instantiations.
-template <typename T, int P, bool FUSED, bool PX = false>
+// SLAB: B2's slab form (kLatticeUpdateSlab), the sum-factorized pass and
+// the dense tensor-core passes only (-1 for the rungs' twostage).
+template <typename T, int P, bool FUSED, bool PX = false, bool SLAB = false>
 cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
                          const CellIo<T>& io, T* cells, void* scratch,
                          cudaStream_t st) {
   constexpr int FORM =
-      FUSED ? (PX ? kLatticeUpdatePx : kLatticeUpdate) : kLattice;
+      !FUSED ? kLattice
+             : (SLAB ? kLatticeUpdateSlab
+                     : (PX ? kLatticeUpdatePx : kLatticeUpdate));
   if (!rung) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
                           tb.coeffs, nullptr, io,         cells,  cofactor};
@@ -64,7 +68,7 @@ cudaError_t launch_cells(int rung, int dense, int cofactor,
                                   mf, mb, nullptr, gr, nullptr, io.d, cells,
                                   x, scratch, st);
       }
-      if constexpr (P >= 4) {
+      if constexpr (P >= 4 && !SLAB) {
         if (tb.gmetric)
           return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(
               tb, gr, io, cells, st);
@@ -112,7 +116,12 @@ __device__ void scalar_recurrence(const T* s, const T* scal, T* out) {
   out[7] = beta;
 }
 
-template <typename T>
+// The finalize pass: one block reduces the assemble pass's partials in a
+// fixed order and runs the scalar recurrence on the 7 sums; RAW (B2's slab
+// form, the TPU kernel's recurrence=False) writes the 7 sums and a 0
+// instead, for the caller to correct, reduce over the ranks and run the
+// recurrence on (parallel/dist_fused.py).
+template <typename T, bool RAW = false>
 __global__ void __launch_bounds__(kNodeThreads)
     finalize_kernel(const T* __restrict__ partials, int n_blocks,
                     const T* __restrict__ scal, T* __restrict__ scal2) {
@@ -124,19 +133,25 @@ __global__ void __launch_bounds__(kNodeThreads)
   if (threadIdx.x == 0) {
     T s[kDots];
     for (int k = 0; k < kDots; ++k) s[k] = red[k][0];
-    scalar_recurrence(s, scal, scal2);
+    if constexpr (RAW) {
+      for (int k = 0; k < kDots; ++k) scal2[k] = s[k];
+      scal2[kDots] = T(0);
+    } else {
+      scalar_recurrence(s, scal, scal2);
+    }
   }
 }
 
 // The assemble pass of B1 (DOTS false) or B2 with h and d stored at T, or
-// in bf16 (`store`, the bf16 state); PBF: prec in bf16.
-template <typename T, int P, bool DOTS, bool PBF = false>
+// in bf16 (`store`, the bf16 state); PBF: prec in bf16; SLAB: the slab
+// form's.
+template <typename T, int P, bool DOTS, bool PBF = false, bool SLAB = false>
 cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
                             void* h, const T* g, const void* d,
                             const T* prec, T* partials, cudaStream_t st) {
   if constexpr (std::is_same_v<T, float>) {
     if (store) {
-      assemble_kernel<T, P, DOTS, __nv_bfloat16, PBF>
+      assemble_kernel<T, P, DOTS, __nv_bfloat16, PBF, SLAB>
           <<<node_blocks(gr), kNodeThreads, 0, st>>>(
               gr, cells, static_cast<__nv_bfloat16*>(h), g,
               static_cast<const __nv_bfloat16*>(d), prec, partials);
@@ -144,7 +159,7 @@ cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
     }
   }
   if (store) return static_cast<cudaError_t>(-1);
-  assemble_kernel<T, P, DOTS, T, PBF>
+  assemble_kernel<T, P, DOTS, T, PBF, SLAB>
       <<<node_blocks(gr), kNodeThreads, 0, st>>>(
           gr, cells, static_cast<T*>(h), g, static_cast<const T*>(d), prec,
           partials);
@@ -155,14 +170,17 @@ cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
 // io's vectors, d and h in bf16 where io.bf16 is set (the bf16 state);
 // PX: the cell pass's PX instantiation (P or x in bf16 by io.prec_bf16,
 // io.x_bf16) and the assemble pass reading P in bf16 where io.prec_bf16
-// is set.
-template <typename T, int P, bool PX>
+// is set.  SLAB: the slab form on a slab's Grid (cg_fused.cu's header),
+// the finalize pass writing the 7 sums to scal2 in place of the
+// recurrence.
+template <typename T, int P, bool PX, bool SLAB = false>
 int fused_iteration(int rung, int dense, int cofactor, const OpTables<T>& tb,
                     const Grid& gr, const CellIo<T>& io, T* h2, T* scal2,
                     T* cells, T* partials, void* scratch, cudaStream_t st) {
   if (io.bf16 && rung != 1) return -1;
-  cudaError_t e = launch_cells<T, P, true, PX>(rung, dense, cofactor, tb, gr,
-                                               io, cells, scratch, st);
+  cudaError_t e = launch_cells<T, P, true, PX, SLAB>(rung, dense, cofactor,
+                                                     tb, gr, io, cells,
+                                                     scratch, st);
   if (e != cudaSuccess) return e;
   const int nb = node_blocks(gr);
   if constexpr (PX) {
@@ -173,12 +191,12 @@ int fused_iteration(int rung, int dense, int cofactor, const OpTables<T>& tb,
             : launch_assemble<T, P, true>(io.bf16, gr, cells, h2, io.g2,
                                           io.d2, io.prec, partials, st);
   } else {
-    e = launch_assemble<T, P, true>(io.bf16, gr, cells, h2, io.g2, io.d2,
-                                    io.prec, partials, st);
+    e = launch_assemble<T, P, true, false, SLAB>(
+        io.bf16, gr, cells, h2, io.g2, io.d2, io.prec, partials, st);
   }
   if (e != cudaSuccess) return e;
-  finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, io.scal,
-                                                 scal2);
+  finalize_kernel<T, SLAB><<<1, kNodeThreads, 0, st>>>(partials, nb, io.scal,
+                                                       scal2);
   return cudaGetLastError();
 }
 
@@ -189,5 +207,13 @@ int fused_iteration_px(int rung, int dense, int cofactor,
                        const OpTables<T>& tb, const Grid& gr,
                        const CellIo<T>& io, T* h2, T* scal2, T* cells,
                        T* partials, void* scratch, cudaStream_t st);
+
+// fused_iteration<T, P, false, true>, the slab form: likewise in
+// cg_fused_slab.cu.
+template <typename T, int P>
+int fused_iteration_slab(int rung, int dense, int cofactor,
+                         const OpTables<T>& tb, const Grid& gr,
+                         const CellIo<T>& io, T* h2, T* scal2, T* cells,
+                         T* partials, void* scratch, cudaStream_t st);
 
 }  // namespace bp4

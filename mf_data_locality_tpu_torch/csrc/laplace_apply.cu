@@ -231,8 +231,7 @@ int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
                       void* scratch, int ncz, int ncy, int ncx,
                       void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const bp4::Grid gr{ncz, ncy, ncx, degree * ncz + 1, degree * ncy + 1,
-                     degree * ncx + 1};
+  const bp4::Grid gr = bp4::box_grid(degree, ncz, ncy, ncx);
 #define BP4_LATTICE(P)                                                      \
   bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, mats, kmats, gmetric, \
                              mask, u, cells, v, scratch, gr, st)

@@ -214,13 +214,6 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     nc = layout.mesh.n_cells
     q = degree + 2
 
-    def canonical(a, perm):
-        if a is None or windowing != "pieces":
-            return a
-        out = np.empty_like(np.asarray(a))
-        out[:, perm] = a
-        return out
-
     if gmetric is not None and metric_dtype is None and np.asarray(
             gmetric).dtype.name == "bfloat16":
         metric_dtype = torch.bfloat16
@@ -228,8 +221,9 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     op = laplace_cuda.operator_from_arrays(
         pds, w3, np.asarray(coeffs)[:, :, :nc], mask, degree,
         layout.mesh.n_cells_axis, precision, dtype, device,
-        mats2d=canonical(mats2d, piece_perm2d(degree)),
-        mats=canonical(mats, piece_perm(degree)),
+        mats2d=_canonical(mats2d, piece_perm2d(degree),
+                          windowing == "pieces"),
+        mats=_canonical(mats, piece_perm(degree), windowing == "pieces"),
         gmetric=(None if gmetric is None else
                  np.asarray(gmetric).reshape(6 * q ** 3, -1)[:, :nc]),
         factor=factor, windowing=windowing, cofactor=cofactor,
@@ -239,6 +233,77 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
         layout, op, host(inv_diag).to(device=device, dtype=dtype),
         host(b).contiguous().to(device=device, dtype=dtype),
         int(np.asarray(b).shape[0]))
+
+
+def slab_from_jax_arrays(*, degree: int, rank: int, ncz_global: int,
+                         n_dofs: int, n_cells: int,
+                         b: np.ndarray, inv_diag: np.ndarray,
+                         weight: np.ndarray, mask: np.ndarray,
+                         coeffs: np.ndarray, backend: str = "pallas",
+                         windowing: str = "reshape",
+                         precision: str = "highest",
+                         dtype: torch.dtype = torch.float64,
+                         device: torch.device | str = "cuda",
+                         pds: np.ndarray | None = None,
+                         w3: np.ndarray | None = None,
+                         mats: np.ndarray | None = None,
+                         mats2d: np.ndarray | None = None,
+                         gmetric: np.ndarray | None = None,
+                         values: np.ndarray | None = None,
+                         d_col: np.ndarray | None = None,
+                         q_pts: np.ndarray | None = None):
+    """One rank's slab problem (``parallel.distributed.SlabProblem``) from
+    the JAX ``DistributedBP4``'s arrays of device ``rank``, passed as numpy,
+    so that a port rank works on the JAX package's own slab.
+
+    ``b`` (C, Pp+1, Ny, Nx), ``inv_diag`` and ``mask`` (1, Pp+1, Ny, Nx),
+    ``weight`` (1, Pp+1, 1, 1); ``ncz_global``, ``n_dofs``, ``n_cells``
+    the global mesh's.  ``pallas`` (the dense factorization): ``pds``,
+    ``w3``, ``coeffs`` (3, 8, nc_pad), optionally ``mats``, ``mats2d``
+    (in the pieces column order under ``windowing="pieces"``) and
+    ``gmetric`` (6 q^3, nc_pad; None: the metric rebuilt), padded cell
+    columns dropped as :func:`from_jax_arrays` drops them; ``structured``:
+    ``values``, ``d_col``, ``q_pts``, ``w3`` (1, q, 1, q, 1, q) and
+    ``coeffs`` (ncz_loc, 1, ncy, 1, ncx, 1, 8, 3).
+    """
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    p = degree
+    _, pp1, ny, nx = np.asarray(mask).shape
+    cells = ((pp1 - 1) // p, (ny - 1) // p, (nx - 1) // p)
+    if backend == "structured":
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                               dtype=dtype)
+
+        op = laplace_structured.StructuredOperatorData(
+            values=t(values), d_col=t(d_col), q_pts=t(q_pts), w3=t(w3),
+            coeffs=t(coeffs), mask=t(mask))
+    else:
+        nc = cells[0] * cells[1] * cells[2]
+        perm = windowing == "pieces"
+        op = laplace_cuda.operator_from_arrays(
+            pds, w3, np.asarray(coeffs)[:, :, :nc], mask, p, cells,
+            precision, dtype, device,
+            mats2d=_canonical(mats2d, piece_perm2d(p), perm),
+            mats=_canonical(mats, piece_perm(p), perm),
+            gmetric=(None if gmetric is None else np.asarray(gmetric)
+                     .reshape(6 * (p + 2) ** 3, -1)[:, :nc]),
+            factor="dense", windowing=windowing,
+            slab=(rank * cells[0], ncz_global))
+    return distributed._slab_problem(
+        op, dict(inv_diag=inv_diag, b=b, weight=weight, n_dofs=n_dofs,
+                 n_cells=n_cells), dtype, device, backend)
+
+
+def _canonical(a, perm, pieces: bool):
+    """A JAX matrix in canonical column order (``pieces``: undo the TPU's
+    corner-piece order)."""
+    if a is None or not pieces:
+        return a
+    out = np.empty_like(np.asarray(a))
+    out[:, perm] = a
+    return out
 
 
 def _host_loop_state(problem: BP4Problem) -> None:

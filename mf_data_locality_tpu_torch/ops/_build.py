@@ -55,6 +55,9 @@ _SIGNATURES = {
     # the dense pass's scratch; the cells per axis; the stream
     "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
     "bp4_fused_iteration": (_I, [_I] * 9 + [_P] * 21 + [_I] * 3 + [_P]),
+    # ... the cells per axis, then the slab's zlo, zhi, zown; the stream
+    "bp4_fused_iteration_slab": (_I, [_I] * 9 + [_P] * 21 + [_I] * 6
+                                 + [_P]),
     # dtype, rung, degree, onthefly, bf16 metric; ...
     "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
     # dtype, rung, bf16 metric, degree; ...

@@ -349,7 +349,9 @@ def _fused_iteration_plain(op, x, g, d, h, scal, prec,
     (``cg_fused_kernel.py:856, 877``): the operator takes the stored d',
     and the sums read the stored d' and h'.  ``prec`` and ``x`` may be
     bf16 too (``prec_dtype``, ``x_dtype``): upcast where they are read, x'
-    rounded where it is stored."""
+    rounded where it is stored.  On a z-slab operator (``op.slab``) the
+    slab form of :func:`fused_cg_iteration`: the sums over the planes
+    [0, Pp), raw, in place of scal'."""
     alpha, beta, c1, aob = scal[0], scal[1], scal[2], scal[3]
     store = d.dtype
     d, h, prec = d.to(g.dtype), h.to(g.dtype), prec.to(g.dtype)
@@ -357,13 +359,17 @@ def _fused_iteration_plain(op, x, g, d, h, scal, prec,
     d2 = (beta * d - prec * g2).to(store)
     x2 = (x.to(g.dtype) + c1 * d + aob * (prec * g)).to(x.dtype)
     h2 = _matvec_plain(op, d2, cell_apply)
-    d2a, h2a = d2.to(g.dtype), h2.to(g.dtype)
-    ph, pg = prec * h2a, prec * g2
+    d2a, h2a, g2o, po = d2.to(g.dtype), h2.to(g.dtype), g2, prec
+    if op.slab is not None:  # the owned planes: all but the top (ghost)
+        d2a, h2a, g2o, po = (t[:, :-1] for t in (d2a, h2a, g2, prec))
+    ph, pg = po * h2a, po * g2o
     s = torch.stack([torch.sum(d2a * h2a), torch.sum(h2a * h2a),
-                     torch.sum(g2 * h2a), torch.sum(g2 * g2),
-                     torch.sum(g2 * ph), torch.sum(h2a * ph),
-                     torch.sum(g2 * pg), torch.zeros((), dtype=g.dtype,
-                                                     device=g.device)])
+                     torch.sum(g2o * h2a), torch.sum(g2o * g2o),
+                     torch.sum(g2o * ph), torch.sum(h2a * ph),
+                     torch.sum(g2o * pg), torch.zeros((), dtype=g.dtype,
+                                                      device=g.device)])
+    if op.slab is not None:
+        return x2, g2, d2, h2, s
     return x2, g2, d2, h2, scalar_recurrence(s, alpha, beta, scal[4])
 
 
@@ -548,12 +554,27 @@ def _b12_scratch(op: OperatorData) -> int | None:
     return dense_scratch(op) if op.factor == "dense" else None
 
 
+def slab_planes(op: OperatorData) -> tuple[int, int, int]:
+    """(zlo, zhi, zown) of a z-slab operator's lattice (``csrc/
+    bp4_operator.cuh``'s Grid): its z planes below zlo and from zhi on are
+    Dirichlet or dummy — plane 0 on the bottom slab only, the top plane at
+    the global top only —, and the sums cover the planes [0, zown), the
+    slab's own (the top plane is the upper slab's plane 0)."""
+    z0, ncz_global = op.slab
+    p, nz = op.degree, op.n_nodes_axis[0]
+    return (1 if z0 == 0 else 0, min(nz, (ncz_global - z0) * p), nz - 1)
+
+
 def matvec(op: OperatorData, d: torch.Tensor, out: torch.Tensor | None = None,
            work: Workspace | None = None) -> torch.Tensor:
     """h = M A M d on a (C, Nz, Ny, Nx) lattice vector (``piece_vmult``)."""
     if _route(d) == "plain":
         h = _matvec_plain(op, d)
         return h if out is None else out.copy_(h)
+    if op.slab is not None:
+        raise NotImplementedError(
+            "B1 on a z-slab operator is not ported: the distributed "
+            "matvec runs B5 (ROADMAP.md, queue A item 9b)")
     _check_cuda(op, [], [d] + ([out] if out is not None else []))
     lib = _build.load()
     out = torch.empty_like(d) if out is None else out
@@ -581,6 +602,17 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     h') may be bf16 under the ``bf16`` rung: the bf16 state.  ``prec``,
     and x with x', may be bf16 in every configuration (the solver's
     ``prec_dtype``, ``x_dtype``).
+
+    On a z-slab operator (``op.slab``) the slab form (the TPU kernel with
+    ``halo``, ``z0``, ``ncz_global``, ``recurrence=False`` and
+    ``want_carry=True``, ``parallel/dist_fused.py``): the vectors are the
+    slab's (C, Pp+1, Ny, Nx), whose top plane the caller has filled with
+    the upper slab's pre-update plane 0 of g, d and h (and P's); the
+    Dirichlet faces lie by global position (:func:`slab_planes`); scal'
+    is the 7 sums over the planes [0, Pp), raw, and a 0 (the caller
+    corrects, reduces and runs :func:`scalar_recurrence` on them); and
+    h''s top plane holds the slab's partial sums owed to the upper slab's
+    plane 0 (the carry).
     """
     if _route(x) == "plain":
         res = _fused_iteration_plain(op, x, g, d, h, scal, prec)
@@ -594,16 +626,24 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
                                                              scal)}:
         raise ValueError("fused_cg_iteration cannot update in place: pass "
                          "output buffers distinct from the inputs")
+    if (op.slab is not None and op.factor == "twostage"
+            and op.precision in laplace_cuda.TENSOR_RUNGS):
+        raise NotImplementedError(
+            f"B2's slab form on the {op.precision} rung's twostage pass is "
+            f"not instantiated (the distributed solvers' operator is dense): "
+            f"see ROADMAP.md, queue A item 9b")
     lib = _build.load()
     work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
     common = _common_args(op, d)
-    rc = lib.bp4_fused_iteration(
+    entry, slab = ((lib.bp4_fused_iteration, ()) if op.slab is None else
+                   (lib.bp4_fused_iteration_slab, slab_planes(op)))
+    rc = entry(
         *common[:7], int(prec.dtype == torch.bfloat16),
         int(x.dtype == torch.bfloat16), *common[7:],
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
-        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
+        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx, *slab,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "bp4_fused_iteration")
     fused_cg_iteration.launches += 1

@@ -322,10 +322,16 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
 
 def apply_lattice_pieces(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     """B5: M A M u on a (C, Nz, Ny, Nx) lattice, the Dirichlet mask built
-    from the node indices (``_dirichlet_mask_pieces``)."""
+    from the node indices (``_dirichlet_mask_pieces``); on a z-slab
+    operator (``op.slab``) the slab's mask, ``op.mask``, by the kernel's
+    mask pointer (the JAX slab operator's ``mask_mode="none"``, whose
+    caller masks both sides)."""
     if _route(u) == "plain":
-        return _lattice_plain(op, u, _index_mask(op))
-    out = _lattice_kernel(op, u, mask=None)
+        return _lattice_plain(op, u, _index_mask(op) if op.slab is None
+                              else op.mask)
+    if op.slab is not None:
+        check_tensors(op, KERNEL_DEGREES, [(op.mask, (1,) + op.n_nodes_axis)])
+    out = _lattice_kernel(op, u, mask=None if op.slab is None else op.mask)
     apply_lattice_pieces.launches += 1
     return out
 

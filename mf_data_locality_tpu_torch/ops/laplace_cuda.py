@@ -221,6 +221,13 @@ class OperatorData:
     factor: str = "dense"
     mma_mats: torch.Tensor | None = None
     cofactor: str = "adjj"  # the rebuilt metric's chain (B1/B2; B4: adjj)
+    # a z-slab of a global lattice (parallel/distributed.py): (z0,
+    # ncz_global), the slab's first global z-cell layer and the global
+    # mesh's real layer count; None for the whole box.  ``mask`` is then
+    # the slab's (Dirichlet faces by global position, dummy layers 0):
+    # B5 reads it in place of the box's index mask, and B2 runs its slab
+    # form (``cg_fused_kernel.fused_cg_iteration``)
+    slab: tuple[int, int] | None = None
     # what is built once from the fields above: :func:`dense_mma_tables`,
     # the dense pass's scratch (``cg_fused_kernel.dense_scratch``)
     cache: dict = field(default_factory=dict, init=False, repr=False,
@@ -460,7 +467,8 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          factor: str = "twostage",
                          windowing: str = "pieces",
                          cofactor: str = "adjj",
-                         metric_dtype: torch.dtype | None = None
+                         metric_dtype: torch.dtype | None = None,
+                         slab: tuple[int, int] | None = None
                          ) -> OperatorData:
     """Wrap host arrays (any float dtype, bf16 ones of the JAX package bit
     for bit) as an :class:`OperatorData`.
@@ -472,7 +480,8 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
     there to bf16 — the same two roundings the JAX package applies.
     ``dtype=torch.bfloat16`` (the fused solver's bf16 state) keeps the
     tables in f32.  ``cofactor="jtj"`` raises ValueError unless det J > 0 at
-    every quadrature point (:func:`check_orientation`).
+    every quadrature point (:func:`check_orientation`).  ``slab``: the
+    operator of a z-slab (:attr:`OperatorData.slab`), ``mask`` its mask.
     """
     metric = "onthefly" if gmetric is None else "precomputed"
     check_config(precision, factor, metric, cofactor, dtype, windowing,
@@ -509,7 +518,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor,
                              precision)
                   if precision in TENSOR_RUNGS else None),
-        cofactor=cofactor)
+        cofactor=cofactor, slab=slab)
 
 
 def host_tensor(a) -> torch.Tensor:

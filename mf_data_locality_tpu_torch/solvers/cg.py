@@ -33,8 +33,6 @@ def _prec_apply(prec: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return prec * v
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
 
 
 def np_dtype(dtype: torch.dtype):
@@ -45,7 +43,10 @@ def np_dtype(dtype: torch.dtype):
 def cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
              b: torch.Tensor, prec: torch.Tensor,
              x0: torch.Tensor | None = None, max_iter: int = 100,
-             abs_tol: float = 1e-15, rel_tol: float = 1e-8) -> SolveResult:
+             abs_tol: float = 1e-15, rel_tol: float = 1e-8,
+             reduce_scalar: Callable[[torch.Tensor], torch.Tensor]
+             | None = None,
+             dot_weight: torch.Tensor | None = None) -> SolveResult:
     """Textbook PCG solving A x = b to ``max(abs_tol, rel_tol * ||r0||)``.
 
     ``a_apply`` must be symmetric positive definite on the masked subspace;
@@ -53,8 +54,18 @@ def cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
     broadcastable against ``b``.  Iterations count as deal.II's
     ``ReductionControl`` does: the initial residual is step 0, each
     iteration adds one and is checked after the residual update.
+
+    The distributed solve's hooks (``cg.py:49-50`` of the JAX package):
+    ``reduce_scalar`` sums each local dot product over the ranks — one
+    reduction a dot, three an iteration —, and ``dot_weight`` weights the
+    local sums (0 on the planes another rank owns).
     """
     nd = np_dtype(b.dtype)
+
+    def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        t = u * v if dot_weight is None else u * v * dot_weight
+        s = torch.sum(t)
+        return s if reduce_scalar is None else reduce_scalar(s[None])[0]
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
     r = b - a_apply(x) if x0 is not None else b.clone()
     res0 = nd(torch.sqrt(_dot(r, r)).item())

@@ -32,25 +32,38 @@ from mf_data_locality_tpu_torch.solvers.cg import SolveResult, np_dtype
 def merged_cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
                     b: torch.Tensor, prec: torch.Tensor,
                     x0: torch.Tensor | None = None, max_iter: int = 100,
-                    abs_tol: float = 1e-15,
-                    rel_tol: float = 1e-8) -> SolveResult:
+                    abs_tol: float = 1e-15, rel_tol: float = 1e-8,
+                    reduce_sums: Callable[[torch.Tensor], torch.Tensor]
+                    | None = None,
+                    dot_weight: torch.Tensor | None = None) -> SolveResult:
     """Solve A x = b with the fully merged CG.
 
     ``x0``: optional start; the initial residual is then ``g = A x0 - b``
     (``solver_cg_optimized.h:221-228``); ``None`` starts from g = -b with
     no operator apply.  Stops when the estimate drops to ``max(abs_tol,
     rel_tol * res0)`` or after ``max_iter`` iterations.
+
+    The distributed solve's hooks (``cg_merged.py:52-53`` of the JAX
+    package): ``reduce_sums`` sums the local sums over the ranks — the 7
+    of an iteration in one call, and res0's —, so an iteration makes one
+    reduction; ``dot_weight`` (broadcast against ``b``) weights every
+    local sum, 0 on the planes another rank owns, so each global DoF
+    counts once.
     """
     nd = np_dtype(b.dtype)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    reduce_sums = reduce_sums or (lambda s: s)
+
+    def wsum(t):
+        return torch.sum(t if dot_weight is None else t * dot_weight)
 
     def dots7(g, d, h):
         """The update3b sums (solver_cg_optimized.h:12-61)."""
         ph, pg = prec * h, prec * g
-        return torch.stack([torch.sum(d * h), torch.sum(h * h),
-                            torch.sum(g * h), torch.sum(g * g),
-                            torch.sum(g * ph), torch.sum(h * ph),
-                            torch.sum(g * pg)])
+        return reduce_sums(torch.stack([wsum(d * h), wsum(h * h),
+                                        wsum(g * h), wsum(g * g),
+                                        wsum(g * ph), wsum(h * ph),
+                                        wsum(g * pg)]))
 
     def update4b(x, g, d, h, alpha, beta, alpha_old_eff, beta_old):
         """The vector updates before the sweep (solver_cg_optimized.h:
@@ -72,7 +85,7 @@ def merged_cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
     else:
         x = x0.to(b.dtype)
         g = a_apply(x) - b
-    res0 = nd(torch.sqrt(torch.sum(g * g)).item())
+    res0 = nd(torch.sqrt(reduce_sums(wsum(g * g)[None])[0]).item())
     tol = max(nd(abs_tol), nd(rel_tol) * res0)
     history = np.full((max_iter + 1,), np.nan, nd)
     history[0] = res0

@@ -63,14 +63,19 @@ def unrounded_scalars(op, x, g, d, h, scal, prec) -> torch.Tensor:
     """B2's scalars with a bf16 state from sums over the f32 d' before its
     store rounds it, against the TPU kernel's rounding point
     (``cg_fused_kernel.py:856``).  h' is the plain version's: the bf16 rung
-    rounds the operator's input anyway."""
+    rounds the operator's input anyway.  On a z-slab operator the slab
+    form's raw sums over its owned planes."""
     _, g2, _, h2, _ = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
     d2, h2 = scal[1] * d.float() - prec * g2, h2.float()
+    if op.slab is not None:
+        d2, h2, g2, prec = (t[:, :-1] for t in (d2, h2, g2, prec))
     ph, pg = prec * h2, prec * g2
     s = torch.stack([torch.sum(d2 * h2), torch.sum(h2 * h2),
                      torch.sum(g2 * h2), torch.sum(g2 * g2),
                      torch.sum(g2 * ph), torch.sum(h2 * ph),
                      torch.sum(g2 * pg), torch.zeros_like(scal[0])])
+    if op.slab is not None:
+        return s
     return fk.scalar_recurrence(s, scal[0], scal[1], scal[4])
 
 

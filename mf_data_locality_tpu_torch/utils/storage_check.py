@@ -76,12 +76,14 @@ def _unpx(name: str) -> str:
 
 def _is_px(name: str) -> bool:
     """An instantiation for P or x in bf16: the kLatticeUpdatePx form (3)
-    of the FORM passes, or PX / PBF true as the last template argument."""
+    of the FORM passes, PX true as the last template argument, or the
+    assemble pass's PBF true (before its SLAB)."""
     if re.search(r"(apply_sumfac_kernelI[fd]|apply_mma_kernelI|"
                  r"dense_hd_gather_kernelI)Li\d+ELi3E", name):
         return True
-    return bool(re.search(r"(cells_mma_kernel|cells_mma_hd_kernel|"
-                          r"assemble_kernel)I.*Lb1EEEv", name))
+    return bool(re.search(r"(cells_mma_kernel|cells_mma_hd_kernel)I.*"
+                          r"Lb1EEEv", name)
+                or re.search(r"assemble_kernelI.*Lb1ELb0EEEv", name))
 
 
 def build_report(parent: str | None) -> bool:

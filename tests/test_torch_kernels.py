@@ -838,3 +838,98 @@ def test_plain_backends_on_card(cuda_device, backend, dtype):
         if dtype == torch.float64:
             assert r.n_iterations == benchmark.solver_call(
                 ref, solver)().n_iterations
+
+
+# B2's slab form (the distributed fused solver's): (rung, state dtype) on
+# the two slabs of the s=9 mesh over 3 ranks (rank 1: a halo plane above;
+# rank 2: one dummy layer)
+SLAB_RUNGS = [("highest", torch.float64), ("highest", torch.float32),
+              ("split2m", torch.float32), ("split3", torch.float32),
+              ("bf16", torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["precomputed", "onthefly"])
+@pytest.mark.parametrize("precision,state", SLAB_RUNGS)
+@pytest.mark.parametrize("p", [2, 4, 6])
+def test_slab_form_matches_plain(cuda_device, p, precision, state, metric):
+    """B2 on z-slab operators (``bp4_fused_iteration_slab``: the Dirichlet
+    faces by global position, the raw sums over the owned planes, the
+    carry in h''s top plane) against its plain version: every plane of x',
+    g', d', h' and the 7 sums at the rung's tolerance (bf16 with its
+    state: relative L2 3e-4, sums 1e-4, split2m's product set refused);
+    twice, bitwise equal."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    for rank in (1, 2):
+        op = distributed.build_slab(9, p, rank, 3, state, "pallas",
+                                    precision, "pieces", metric,
+                                    cuda_device).op
+        x, g, d, h = _state(op, 4, 170 + rank)
+        d, h = d.to(state).contiguous(), h.to(state).contiguous()
+        prec = ((_state(op, 1, 6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+        scal = torch.tensor(SCAL, device=cuda_device, dtype=op.dtype)
+        got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert got[4][7] == 0
+        if precision == "bf16":
+            ctl = fk._fused_iteration_plain(bf16_check.control_op(op), x, g,
+                                            d, h, scal, prec)
+            assert max(bf16_check.l2(a, b)
+                       for a, b in zip(got[:4], want[:4])) <= 3e-4
+            assert bf16_check.scal_err(got[4], want[4]) <= 1e-4
+            assert bf16_check.l2(got[3], ctl[3]) > 3e-4
+            err, unrounded = bf16_check.rounding_point(op, 190 + p)
+            assert err <= 1e-4 < unrounded
+        else:
+            for a, b in zip(got[:4], want[:4]):
+                assert _rel(a, b) <= TOL[op.dtype]
+            assert bf16_check.scal_err(got[4][:7], want[4][:7]) <= (
+                1e-4 if op.dtype == torch.float32 else 1e-11)
+
+
+@pytest.mark.cuda
+def test_b1_refuses_slab_operators(cuda_device):
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    op = distributed.build_slab(6, 2, 1, 2, torch.float64, "pallas",
+                                "highest", "pieces", "precomputed",
+                                cuda_device).op
+    with pytest.raises(NotImplementedError, match="9b"):
+        fk.matvec(op, _state(op, 1, 3)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_distributed_solves_on_card(cuda_device, n):
+    """The fused, merged and baseline solvers on n ranks sharing the card
+    (gloo): at p=2 s=6 in f64 the single-device solve's itCG and x within
+    1e-11 max(1, |x|), one all-reduce a merged or fused iteration, and
+    every iteration through the kernels (B2's slab form; B3)."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    jobs = [distributed.Job(solver, 6, 2) for solver in
+            ("fused", "merged", "baseline")]
+    fpb = bp4.build(6, 2, torch.float64, device=cuda_device, factor="dense",
+                    metric="precomputed", windowing="pieces")
+    lat = (3,) + fpb.layout.n_nodes_axis
+    mpb = bp4.build(6, 2, torch.float64, device=cuda_device)
+    refs = [cg_fused.fused_merged_cg_solve(
+                fpb.op, lat[1:], fpb.b.reshape(lat),
+                fpb.inv_diag.reshape((1,) + lat[1:])),
+            bp4.solve_merged(mpb), bp4.solve_baseline(mpb)]
+    for job, got, ref in zip(jobs, distributed.launch(jobs, n, "cuda"),
+                             refs):
+        x1 = ref.x.reshape(lat).cpu()
+        assert got["it"] == ref.n_iterations
+        assert (got["x"] - x1).abs().max() <= 1e-11 * max(1.0,
+                                                          x1.abs().max())
+        kern = ("fused_cg_iteration" if job.solver == "fused"
+                else "apply_local_batched_g")
+        assert sum(r["launches_solve"][kern] for r in got["ranks"]) == (
+            n * got["it"])
+        if job.solver != "baseline":
+            assert all(r["allreduces"] == got["it"] + 1
+                       for r in got["ranks"])
