@@ -150,23 +150,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    pallas path's, their rows printed; and the discretization: the
    manufactured solution solved in f64 by the merged CG through B3 at
    CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35;
-8. the z-slab distributed solvers (``parallel/``; ranks are processes on
-   this card, joined by gloo, ~120 s): B2's slab form (``csrc/cg_fused.cu``
-   ``bp4_fused_iteration_slab``: the Dirichlet faces by global position, a
-   halo plane, raw sums over the owned planes, the carry) against its
-   plain version on a slab with a halo and on one with a dummy layer, at
-   p=4 and 6 under f64 and f32 highest, split2m, split3 and bf16 (with its
-   state and controls), both metrics; timed on a rank's slab of the
-   4-rank full width beside the unchanged B2 on a box of the same cells
-   (fields ``*_slab``, ``*_slab_f64``, ``ms_box_slab...``); f64 parity on
-   2 and 3 ranks at p=4 s=7 (fused, merged reshape, baseline: itCG 91 and
-   x against the same solver on one device, TOL_DIST_X) with every rank's
-   collectives counted; and at the full width, 4 ranks at p=4 s=15
-   (6,440,067 DoFs), the merged reshape f32 highest, fused split2m and
-   fused split2m onthefly solves with their rows, collectives per
-   iteration, launches (``launches_slab``, ``launches_dist``) and true
-   residuals, beside the single-device fused split2m path at the same
-   point (auto, and dense with the streamed metric).
+8. the distributed solvers (``parallel/``; ranks are processes on this
+   card, joined by gloo): B2's block form (``csrc/cg_fused_block.cu``
+   ``bp4_fused_iteration_block``: the Dirichlet faces by global position
+   on all three axes, every ghost face filled, raw sums over the owned
+   nodes, the carries) against its plain version on z-slabs (blocks of a
+   (3,) mesh: one with a halo plane, one with a dummy layer) and on the
+   BLOCK_CASES blocks, at p=4 and 6 under f64 and f32 highest, split2m,
+   split3 and bf16 (with its state and controls), both metrics; each timed on a rank's part of its
+   full width beside the unchanged B2 on a box of the same cells (fields
+   ``*_slab``, ``*_slab_f64``, ``*_block2d``, ``*_block3d`` and their
+   ``_f64``, ``ms_box_...``); f64 parity at p=4 s=7 on 2 and 3 z-slab
+   ranks and on the (2, 2) and (2, 2, 2) meshes (fused, merged reshape,
+   baseline: itCG 91 and x against the same solver on one device,
+   TOL_DIST_X) with every rank's collectives counted; at the full width, 4
+   ranks at p=4 s=15 (6,440,067 DoFs) — z-slabs: the merged reshape f32
+   highest, fused split2m and fused split2m onthefly solves; the (2, 2)
+   mesh: merged and fused split2m — and the (2, 2, 2) mesh at p=4 s=16
+   (12,830,211 DoFs, 8 ranks, fused split2m onthefly), each with its row,
+   collectives per iteration, the slowest rank's host seconds, launches
+   (``launches_slab``, ``launches_dist``, ``launches_block2d``,
+   ``launches_block3d``) and true residual, beside the single-device
+   fused split2m path at s=15 (auto, and dense with the streamed metric);
+   and ``dryrun_multichip(4)``'s and ``(8)``'s legs (1-3 and 5-8, in the
+   same spawns as the 4- and 8-rank drives; B2's launches in each fused
+   leg, ``launches_dryrun``); section 8's wall time.
 """
 
 from __future__ import annotations
@@ -1442,12 +1450,12 @@ def convergence_rates(la, dev) -> list:
     return out
 
 
-# the z-slab distributed solvers (section 8).  B2's slab form (halo planes,
-# Dirichlet faces by global position, the sums over the owned planes raw,
-# the carry in h''s top plane) against its plain version on two slabs of
-# the s=9 mesh (8 x 8 x 8 cells) over 3 ranks: rank 1 (z0 = 3 layers, its
-# top plane a halo of rank 2's plane 0) and rank 2 (z0 = 6, one dummy
-# layer), at SLAB_DEGREES under each rung of SLAB_RUNGS (rung, the
+# the z-slab distributed solvers (section 8).  B2's block form on z-slabs,
+# blocks of a (3,) mesh (halo planes, Dirichlet faces by global position,
+# the sums over the owned planes raw, the carry in h''s top plane),
+# against its plain version on two slabs of the s=9 mesh (8 x 8 x 8
+# cells) over 3 ranks: rank 1 (z0 = 3 layers, its top plane a halo of
+# rank 2's plane 0) and rank 2 (z0 = 6, one dummy layer), at SLAB_DEGREES under each rung of SLAB_RUNGS (rung, the
 # state's dtype; bf16 with its state) with the metric streamed and
 # rebuilt, at each rung's tolerance (bf16 with its controls); then timed
 # on rank 1's slab of DIST_FULL beside the unchanged B2 on a box of the
@@ -1478,30 +1486,62 @@ TOL_DIST_X = 1e-9
 # production command with --devices 4 (fused, pieces, split2m: dense, the
 # metric streamed) and the same with --geometry onthefly
 DIST_FULL = (4, 15, 4)
+# the (z, y) and (z, y, x) rank meshes (section 8).  B2's block form
+# against its plain version on three blocks of the s=9 mesh (8 x 8 x 8
+# cells): (0, 0) of a (2, 2) mesh and (0, 0, 0) of a (2, 2, 2) mesh,
+# every ghost face an upper neighbour's, and (1, 0, 2) of a (2, 1, 3) mesh
+# (the global top on z and x, a dummy x cell column), under SLAB_RUNGS x
+# SLAB_DEGREES x both metrics; timed at MESH_FULL beside the unchanged B2
+# on a box of the same cells
+BLOCK_CASES = ((9, (2, 2), (0, 0)), (9, (2, 2, 2), (0, 0, 0)),
+               (9, (2, 1, 3), (1, 0, 2)))
+# the full-width mesh drives at p=4: (key suffix, s, mesh) — the
+# reference's ladder tops, s=15 on 4 ranks (6,440,067 DoFs, 1.6M a rank:
+# the merged reshape f32 highest and the fused split2m dense streamed
+# solves) and s=16 = benchmark.ladder_sizes(4, n_devices=8)[-1] on 8 ranks
+# (12,830,211 DoFs: the fused split2m solve with the metric rebuilt, so
+# that the true residual's one-device operator needs no host metric; at
+# most 100 iterations as every solve here, one timed solve where the
+# 4-rank drives time two); f64 parity at DIST_PARITY on each mesh (fused,
+# merged, baseline: itCG DIST_ITCG, x within TOL_DIST_X of one device)
+MESH_FULL = (("_block2d", 15, (2, 2)), ("_block3d", 16, (2, 2, 2)))
 
 
-def compare_slab_form(fk, dev) -> dict:
-    """B2's slab form vs its plain version (SLAB_RUNGS x SLAB_DEGREES x
-    both metrics x the two slabs); returns the largest readings a rung."""
+def _slab_op(s, p, rank, n, state, rung, metric, dev):
     from mf_data_locality_tpu_torch.parallel import distributed
+
+    return distributed.build_slab(s, p, rank, n, state, "pallas", rung,
+                                  "pieces", metric, dev).op
+
+
+def _block_op(s, p, coords, mesh, state, rung, metric, dev):
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    return distributed.build_block(s, p, coords, mesh, state, "pallas", rung,
+                                   "pieces", metric, dev).op
+
+
+def compare_rank_forms(fk, dev, cases, form: str) -> dict:
+    """B2's block form vs its plain version on each of ``cases``
+    ((label, a function (p, state dtype, rung, metric) -> op)) under
+    SLAB_RUNGS x SLAB_DEGREES x both metrics, every ghost plane or face
+    holding the random state; returns the largest readings a rung."""
     from mf_data_locality_tpu_torch.utils.bf16_check import control_op
 
     worst = {}
     for p in SLAB_DEGREES:
         for rung, state in SLAB_RUNGS:
             for metric in ("precomputed", "onthefly"):
-                for rank in (1, 2):
-                    op = distributed.build_slab(9, p, rank, 3, state,
-                                                "pallas", rung, "pieces",
-                                                metric, dev).op
-                    x, g, d, h = random_state(op, 4, seed=70 + rank)
+                for k, (label, build) in enumerate(cases):
+                    op = build(p, state, rung, metric)
+                    x, g, d, h = random_state(op, 4, seed=70 + k)
                     d, h = d.to(state).contiguous(), h.to(state).contiguous()
                     prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
                             * op.mask).contiguous()
                     scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25,
                                          0.6], dtype=op.dtype, device=dev)
-                    tag = (f"slab p={p} {rung} {str(state)[6:]} {metric} "
-                           f"rank {rank}/3 z0={op.slab[0]}")
+                    tag = (f"{form} p={p} {rung} {str(state)[6:]} {metric} "
+                           f"{label}")
                     got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
                     want = fk._fused_iteration_plain(op, x, g, d, h, scal,
                                                      prec)
@@ -1520,33 +1560,32 @@ def compare_slab_form(fk, dev) -> dict:
                     if state == torch.bfloat16:
                         check_rounding_point(op, 80 + p, tag, quiet=True)
     for (rung, state), err in worst.items():
-        print(f"  fused_cg_iteration slab form {rung} {state} (p in "
-              f"{SLAB_DEGREES}, both metrics, both slabs): largest "
-              f"{'rel L2' if rung == 'bf16' else 'max rel err'} {err:.3e}")
+        print(f"  fused_cg_iteration {form} form {rung} {state} (p in "
+              f"{SLAB_DEGREES}, both metrics, {len(cases)} {form}s): "
+              f"largest {'rel L2' if rung == 'bf16' else 'max rel err'} "
+              f"{err:.3e}")
     return worst
 
 
-def time_slab_form(fk, dev, timing) -> dict:
-    """B2's slab form on rank 1's slab of DIST_FULL (the fused full-width
-    configuration: dense, the metric streamed) under SLAB_TIMED, compared
-    with and timed beside its plain version and the bound, and the
-    unchanged B2 on a box of the same cells timed in the same turns;
-    returns {suffix: ((kernel ms, plain ms), bound, max |diff|, box ms)}."""
+def time_rank_form(fk, dev, timing, build, s: int, label: str) -> dict:
+    """B2's block form on one rank's part (``build(rung, dtype) ->
+    op``; the fused full-width configuration: dense, the metric streamed)
+    under SLAB_TIMED, compared with and timed beside its plain version and
+    the bound, and the unchanged B2 on a box of the same cells timed in the
+    same turns; returns {suffix: ((kernel ms, plain ms), bound, max |diff|,
+    box ms)}."""
     from mf_data_locality_tpu_torch.mesh.box import BoxMesh
     from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
     from mf_data_locality_tpu_torch.ops import laplace_cuda
-    from mf_data_locality_tpu_torch.parallel import distributed
 
-    p, s, n = DIST_FULL
     out = {}
     for rung, dtype, sfx in SLAB_TIMED:
-        op = distributed.build_slab(s, p, 1, n, dtype, "pallas", rung,
-                                    "pieces", "precomputed", dev).op
+        op = build(rung, dtype)
         box = laplace_cuda.make_operator(
             DofLayout(BoxMesh(op.n_cells_axis, BoxMesh.from_s(s).spacing),
-                      p), dtype, rung, factor="dense", metric="precomputed",
-            windowing="pieces", device=dev)
-        tag = f"slab p={p} s={s} rank 1/{n} {rung} {str(dtype)[6:]}"
+                      op.degree), dtype, rung, factor="dense",
+            metric="precomputed", windowing="pieces", device=dev)
+        tag = f"{label} {rung} {str(dtype)[6:]}"
         x, g, d, h = random_state(op, 4, seed=9)
         prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
                 * op.mask).contiguous()
@@ -1578,31 +1617,96 @@ def time_slab_form(fk, dev, timing) -> dict:
 
 
 def check_collectives(job, r: dict, n: int) -> None:
-    """Every rank's collectives in the job's first solve: the merged and
-    fused solvers one all-reduce an iteration and one for res0, the
-    baseline 3 an iteration and 2; two shifts an operator apply (merged,
-    baseline) or an iteration (fused, and one each for P's ghost plane and
-    x's top plane)."""
+    """Every rank's collectives in the job's first solve, with k the split
+    axes of its rank grid (z-slabs: 1): the merged and fused solvers one
+    all-reduce an iteration and one for res0, the baseline 3 an iteration
+    and 2; 2k shifts an operator apply (merged, baseline) or an iteration
+    (fused, and k each for P's ghost faces and x's)."""
     it = r["it"]
-    want = ((2 + 3 * it, 2 * it) if job.solver == "baseline" else
-            (it + 1, 2 * it + (2 if job.solver == "fused" else 0)))
+    k = 1 if not job.blocks else sum(d > 1 for d in job.mesh_shape)
+    want = ((2 + 3 * it, 2 * k * it) if job.solver == "baseline" else
+            (it + 1, 2 * k * it + (2 * k if job.solver == "fused" else 0)))
     got = {(x["allreduces"], x["shifts"]) for x in r["ranks"]}
     if got != {want}:
         raise AssertionError(f"{job.solver} on {n} ranks: (all-reduces, "
                              f"shifts) {got}, expected {want}")
 
 
-def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> dict:
-    """f64 parity on DIST_RANKS ranks and the DIST_FULL drives beside the
-    single-device fused split2m path at the same point; returns the
-    kernels' launches summed over the full width's ranks {job label:
-    {kernel: n}} and its rows."""
-    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
-    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
-    from mf_data_locality_tpu_torch.parallel import comm, distributed
+def _parity(ref, jobs, out, lat, where: str) -> None:
+    """The f64 parity jobs' results against one device's solves."""
+    for job, r in zip(jobs, out):
+        want = ref[job.solver]
+        xr = want.x.reshape(lat).cpu()
+        err = ((r["x"] - xr).abs().max() / max(1.0, xr.abs().max())).item()
+        kern = ("fused_cg_iteration" if job.solver == "fused"
+                else "apply_local_batched_g")
+        launched = sum(x["launches_solve"][kern] for x in r["ranks"])
+        n = len(r["ranks"])
+        print(f"  {job.solver} f64 p={job.degree} s={job.s} on {where}: "
+              f"itCG {r['it']} (one device {want.n_iterations}), x "
+              f"{err:.3e} max(1, |x|) from one device's (tol "
+              f"{TOL_DIST_X:.0e}), {kern} launches {launched}")
+        check_collectives(job, r, n)
+        if not (r["it"] == want.n_iterations == DIST_ITCG
+                and err <= TOL_DIST_X and launched == n * r["it"]):
+            raise AssertionError(f"distributed {job.solver} on {where} "
+                                 f"disagrees with one device")
+
+
+def _drive(benchmark, label: str, job, r: dict) -> tuple[dict, object]:
+    """Print a full-width drive's row, collectives, launches and the
+    slowest rank's host seconds; check x's shape and finiteness.  Returns
+    (its launches summed over the ranks, its row)."""
+    n = len(r["ranks"])
+    check_collectives(job, r, n)
+    row = benchmark.dist_row(job, r)
+    launches = {k: sum(x["launches"][k] for x in r["ranks"])
+                for k in r["ranks"][0]["launches"]}
+    it = r["it"]
+    print(f"  {label} {job.precision}: {row.row()}; per iteration "
+          f"{(r['allreduces'] - 1) / it:g} all-reduce, "
+          f"{r['shifts'] / it:.3g} shifts (rank 0)")
+    print(f"    launches (all ranks, the run with its timing): {launches}")
+    ms = {k: max(x["comm_s"][k] for x in r["ranks"]) / it * 1e3
+          for k in r["comm_s"]}
+    print(f"    host ms an iteration (the slowest rank, first solve): wall "
+          f"{max(x['wall_s'] for x in r['ranks']) / it * 1e3:.3f}; in the "
+          f"collectives " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    lat = (3,) + job.nodes_axis()
+    if tuple(r["x"].shape) != lat or not torch.isfinite(r["x"]).all():
+        raise AssertionError(f"{label}: x is wrong")
+    return launches, row
+
+
+def _true_residual(fk, pb, r: dict, label: str) -> None:
+    """|b - A x| of a distributed solve's x by one device's problem ``pb``
+    of the same configuration, against the solve's residual estimate."""
+    b = pb.b.reshape(r["x"].shape)
+    x = r["x"].to(b.device).contiguous()
+    ax = (pb.a_apply(x.reshape(3, -1)).reshape(x.shape)
+          if pb.op.windowing == "reshape" else fk.matvec(pb.op, x))
+    true_res = torch.linalg.norm(b - ax).item()
+    gap = abs(true_res - r["res"]) / r["res"]
+    print(f"  {label} solution: |b - Ax| {true_res:.6e} vs the estimate "
+          f"{r['res']:.6e} (rel gap {gap:.2e}, tol 1e-3)")
+    if not gap < 1e-3:
+        raise AssertionError(f"{label}: the distributed solution's residual "
+                             f"is not its estimate")
+
+
+def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
+    """f64 parity on DIST_RANKS z-slab ranks and on the MESH_FULL meshes,
+    the DIST_FULL drives beside the single-device fused split2m path at
+    the same point, the MESH_FULL drives and ``dryrun_multichip``'s legs
+    on 4 and 8 ranks; returns the kernels' launches summed over each
+    full-width run's ranks {job label: {kernel: n}}, its rows, and B2's
+    launches summed over the ranks of each fused dry-run leg {(ranks,
+    leg): n} (each must have launched it; the merged legs 1 and 5 run the
+    structured backend, plain PyTorch)."""
+    from mf_data_locality_tpu_torch.parallel import comm, distributed, dryrun
 
     Job = distributed.Job
-    f64 = torch.float64
+    f64, f32 = torch.float64, torch.float32
     p, s = DIST_PARITY
     pf = bp4.build(s, p, f64, "highest", factor="dense",
                    metric="precomputed", windowing="pieces", device=dev)
@@ -1615,101 +1719,110 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> dict:
     del pf, pm
     jobs = [Job(solver, s, p, f64) for solver in ref]
     for n in DIST_RANKS:
-        for job, r in zip(jobs, distributed.launch(jobs, n, "cuda")):
-            want = ref[job.solver]
-            xr = want.x.reshape(lat).cpu()
-            err = ((r["x"] - xr).abs().max() / max(1.0, xr.abs().max())
-                   ).item()
-            kern = ("fused_cg_iteration" if job.solver == "fused"
-                    else "apply_local_batched_g")
-            launched = sum(x["launches_solve"][kern] for x in r["ranks"])
-            print(f"  {job.solver} f64 p={p} s={s} on {n} ranks: itCG "
-                  f"{r['it']} (one device {want.n_iterations}), x "
-                  f"{err:.3e} max(1, |x|) from one device's (tol "
-                  f"{TOL_DIST_X:.0e}), {kern} launches {launched}")
-            check_collectives(job, r, n)
-            if not (r["it"] == want.n_iterations == DIST_ITCG
-                    and err <= TOL_DIST_X and launched == n * r["it"]):
-                raise AssertionError(f"distributed {job.solver} on {n} "
-                                     f"ranks disagrees with one device")
+        t0 = time.perf_counter()
+        _parity(ref, jobs, distributed.launch(jobs, n, "cuda"), lat,
+                f"{n} ranks")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    p, s, n = DIST_FULL
-    f32 = torch.float32
-    jobs = {"merged": Job("merged", s, p, f32, timed=True, solve_repeats=2),
-            "fused": Job("fused", s, p, f32, "pallas", "split2m",
-                         timed=True, solve_repeats=2),
-            "fused_onthefly": Job("fused", s, p, f32, "pallas", "split2m",
-                                  metric="onthefly", timed=True,
-                                  solve_repeats=2)}
-    lat_full = (3,) + DofLayout(BoxMesh.from_s(s), p).n_nodes_axis
-    print(f"  {comm.describe(n, 'cuda')}, p={p} s={s}:")
-    out = dict(zip(jobs, distributed.launch(jobs.values(), n, "cuda")))
-    launches, rows = {}, {}
-    for label, job in jobs.items():
-        r = out[label]
-        check_collectives(job, r, n)
-        row = benchmark.dist_row(job, r)
-        rows[label] = row
-        launches[label] = {k: sum(x["launches"][k] for x in r["ranks"])
-                           for k in r["ranks"][0]["launches"]}
-        it = r["it"]
-        print(f"  {label} {job.precision}: {row.row()}; per iteration "
-              f"{(r['allreduces'] - 1) / it:g} all-reduce, "
-              f"{r['shifts'] / it:.3g} shifts (rank 0)")
-        print(f"    launches (all ranks, the run with its timing): "
-              f"{launches[label]}")
-        ms = {k: max(x["comm_s"][k] for x in r["ranks"]) / it * 1e3
-              for k in r["comm_s"]}
-        print(f"    host ms an iteration (the slowest rank, first solve): "
-              f"wall {max(x['wall_s'] for x in r['ranks']) / it * 1e3:.3f}"
-              f"; in the collectives " + ", ".join(
-                  f"{k} {v:.3f}" for k, v in ms.items()))
-        if tuple(r["x"].shape) != lat_full \
-                or not torch.isfinite(r["x"]).all():
-            raise AssertionError(f"{label}: x is wrong")
+    # one spawn a rank count: the z-slab full width and each mesh's f64
+    # parity jobs and full-width drives
+    launches, rows, out = {}, {}, {}
+    p_full, s_full, n = DIST_FULL
+    full = {n: {"merged": Job("merged", s_full, p_full, f32, timed=True,
+                              solve_repeats=2),
+                "fused": Job("fused", s_full, p_full, f32, "pallas",
+                             "split2m", timed=True, solve_repeats=2),
+                "fused_onthefly": Job("fused", s_full, p_full, f32,
+                                      "pallas", "split2m",
+                                      metric="onthefly", timed=True,
+                                      solve_repeats=2)}}
+    parity = {}
+    for sfx, s_mesh, mesh in MESH_FULL:
+        n = math.prod(mesh)
+        parity[n] = [Job(solver, s, p, f64, mesh_shape=mesh)
+                     for solver in ref]
+        drives = full.setdefault(n, {})
+        drives["fused" + sfx] = Job(
+            "fused", s_mesh, p_full, f32, "pallas", "split2m",
+            metric="onthefly" if len(mesh) == 3 else "precomputed",
+            timed=True, solve_repeats=1 if len(mesh) == 3 else 2,
+            mesh_shape=mesh)
+        if mesh == (2, 2):
+            drives["merged" + sfx] = Job("merged", s_mesh, p_full, f32,
+                                         timed=True, solve_repeats=2,
+                                         mesh_shape=mesh)
+    jobs, launches_dry = {}, {}
+    for n, drives in full.items():
+        t0 = time.perf_counter()
+        print(f"  {comm.describe(n, 'cuda')}:")
+        legs = dryrun.legs_for(n)
+        res = distributed.launch(parity[n] + list(drives.values())
+                                 + dryrun.jobs(n, legs), n, "cuda")
+        mesh = parity[n][0].mesh_shape
+        _parity(ref, parity[n], res[:3], lat,
+                f"the {'x'.join(map(str, mesh))} mesh")
+        for (label, job), r in zip(drives.items(), res[3:]):
+            print(f"  ranks {'x'.join(map(str, job.mesh(n)))}, p={p_full} "
+                  f"s={job.s}:")
+            out[label], jobs[label] = r, job
+            launches[label], rows[label] = _drive(benchmark, label, job, r)
+        print(f"  dryrun_multichip({n}) in the same spawn:")
+        dry = res[3 + len(drives):]
+        dryrun.report(n, legs, dry)
+        for leg, r in zip(legs, dry):
+            if leg in (1, 5):
+                continue
+            launches_dry[n, leg] = sum(
+                x["launches_solve"]["fused_cg_iteration"] for x in r["ranks"])
+            if not launches_dry[n, leg]:
+                raise AssertionError(f"dryrun_multichip({n}) leg {leg} "
+                                     f"launched no fused_cg_iteration")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     # the solutions: |b - A x| by one device's operator of the same
     # configuration against the distributed solve's residual estimate
-    dense_pre = None  # one device's problem of the fused job, kept for its run
-    for label, job in jobs.items():
-        r = out[label]
-        if label == "merged":
-            pb = bp4.build(s, p, f32, "highest", device=dev)
-            x = r["x"].to(dev).reshape(3, -1)
-            true_res = torch.linalg.norm(pb.b - pb.a_apply(x)).item()
-        else:
-            pb = bp4.build(s, p, f32, "split2m", factor="dense",
-                           metric=job.metric, windowing="pieces", device=dev)
-            b = pb.b.reshape(r["x"].shape)
-            true_res = torch.linalg.norm(
-                b - fk.matvec(pb.op, r["x"].to(dev).contiguous())).item()
-            if job.metric == "precomputed":
-                dense_pre = pb
-        gap = abs(true_res - r["res"]) / r["res"]
-        print(f"  {label} solution: |b - Ax| {true_res:.6e} vs the estimate "
-              f"{r['res']:.6e} (rel gap {gap:.2e}, tol 1e-3)")
-        if not gap < 1e-3:
-            raise AssertionError(f"{label}: the distributed solution's "
-                                 f"residual is not its estimate")
-        del pb
-        torch.cuda.empty_cache()
+    pb = bp4.build(s_full, p_full, f32, "highest", device=dev)
+    for label in ("merged", "merged_block2d"):
+        _true_residual(fk, pb, out[label], label)
+    del pb
+    pb = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
+                   metric="onthefly", windowing="pieces", device=dev)
+    _true_residual(fk, pb, out["fused_onthefly"], "fused_onthefly")
+    del pb
+    torch.cuda.empty_cache()
+    dense_pre = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
+                          metric="precomputed", windowing="pieces",
+                          device=dev)
+    for label in ("fused", "fused_block2d"):
+        _true_residual(fk, dense_pre, out[label], label)
+    pb = bp4.build(MESH_FULL[1][1], p_full, f32, "split2m", factor="dense",
+                   metric="onthefly", windowing="pieces", device=dev)
+    _true_residual(fk, pb, out["fused_block3d"], "fused_block3d")
+    del pb
+    torch.cuda.empty_cache()
     for label, kw in (("one device, fused auto split2m", {}),
                       ("one device, fused dense precomputed split2m",
                        dict(factor="dense", metric="precomputed",
                             problem=dense_pre))):
-        r1 = benchmark.run_one(p, s, solver="fused", windowing="pieces",
-                               precision="split2m", device=dev,
-                               solve_repeats=2, **kw)
+        r1 = benchmark.run_one(p_full, s_full, solver="fused",
+                               windowing="pieces", precision="split2m",
+                               device=dev, solve_repeats=2, **kw)
         rows[label] = r1
         print(f"  {label}: {r1.row()}")
     del dense_pre
+    print(f"  the solutions and one device ({time.perf_counter() - t0:.1f} "
+          f"s)")
     for label, kern in (("merged", "apply_local_batched_g"),
                         ("fused", "fused_cg_iteration"),
                         ("fused", "apply_lattice_pieces"),
-                        ("fused_onthefly", "fused_cg_iteration")):
+                        ("fused_onthefly", "fused_cg_iteration"),
+                        ("merged_block2d", "apply_local_batched_g"),
+                        ("fused_block2d", "fused_cg_iteration"),
+                        ("fused_block3d", "fused_cg_iteration")):
         if not launches[label][kern]:
             raise AssertionError(f"the distributed {label} path launched "
                                  f"no {kern}")
-    return launches, rows
+    return launches, rows, launches_dry
 
 
 def main() -> int:
@@ -2418,13 +2531,29 @@ def main() -> int:
                 or res.n_iterations != row.n_iterations or not gap < tol:
             raise AssertionError(f"{label} solution is wrong")
 
-    # -- 8. the z-slab distributed solvers ---------------------------------
+    # -- 8. the distributed solvers: z-slabs and rank meshes ---------------
     t8 = time.perf_counter()
-    print("the z-slab distributed solvers: B2's slab form vs plain:")
-    compare_slab_form(fk, dev)
-    slab_t = time_slab_form(fk, dev, timing)
+    print("the distributed solvers: B2's block form vs plain:")
+    compare_rank_forms(fk, dev, [
+        (f"rank {rank}/3", lambda p, st, rung, m, rank=rank: _slab_op(
+            9, p, rank, 3, st, rung, m, dev)) for rank in (1, 2)], "slab")
+    compare_rank_forms(fk, dev, [
+        (f"block {c} of {mesh}",
+         lambda p, st, rung, m, s=s, mesh=mesh, c=c: _block_op(
+             s, p, c, mesh, st, rung, m, dev)) for s, mesh, c in BLOCK_CASES],
+        "block")
+    p8, s8, n8 = DIST_FULL
+    slab_t = time_rank_form(fk, dev, timing, lambda rung, dt: _slab_op(
+        s8, p8, 1, n8, dt, rung, "precomputed", dev), s8,
+        f"slab p={p8} s={s8} rank 1/{n8}")
+    block_t = {sfx: time_rank_form(
+        fk, dev, timing, lambda rung, dt, sm=sm, mesh=mesh: _block_op(
+            sm, p8, (0,) * len(mesh), mesh, dt, rung, "precomputed", dev),
+        sm, f"block p={p8} s={sm} {(0,) * len(mesh)} of {mesh}")
+        for sfx, sm, mesh in MESH_FULL}
     print("the distributed solvers (ranks: processes on this card, gloo):")
-    launches_dist, _ = distributed_phase(benchmark, bp4, cg_fused, fk, dev)
+    launches_dist, _, launches_dry = distributed_phase(benchmark, bp4,
+                                                       cg_fused, fk, dev)
     print(f"section 8: {time.perf_counter() - t8:.1f} s")
 
     # no single PyTorch call computes any of these functions (each is a
@@ -2511,11 +2640,11 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_hi[sfx][name]})
-        if name == "fused_cg_iteration":  # B2's slab form (section 8)
-            for rung, dtype, sfx in SLAB_TIMED:
+        if name == "fused_cg_iteration":  # B2's block form (section 8)
+            for rung, dtype, sfx in SLAB_TIMED:  # on a z-slab
                 (k, pl), (bms, by), err, box_ms = slab_t[sfx]
                 sfx = "_slab" + sfx
-                row.update({f"source{sfx}": CSRC + "cg_fused.cu",
+                row.update({f"source{sfx}": CSRC + "cg_fused_block.cu",
                             f"p_s{sfx}": list(DIST_FULL[:2]),
                             f"config{sfx}": [rung, "dense", "precomputed"],
                             f"ms{sfx}": k, f"plain_ms{sfx}": pl,
@@ -2524,11 +2653,29 @@ def main() -> int:
             row["launches_slab"] = launches_dist["fused"][name]
             row["launches_slab_onthefly"] = launches_dist["fused_onthefly"][
                 name]
+            for msfx, sm, mesh in MESH_FULL:  # on the meshes' blocks
+                for rung, dtype, sfx in SLAB_TIMED:
+                    (k, pl), (bms, by), err, box_ms = block_t[msfx][sfx]
+                    key = msfx + sfx
+                    row.update({f"source{key}": CSRC + "cg_fused_block.cu",
+                                f"p_s{key}": [DIST_FULL[0], sm],
+                                f"mesh{key}": list(mesh),
+                                f"config{key}": [rung, "dense",
+                                                 "precomputed"],
+                                f"ms{key}": k, f"plain_ms{key}": pl,
+                                f"max_abs_err{key}": err,
+                                f"bound_ms{key}": bms, f"bound_by{key}": by,
+                                f"ms_box{key}": box_ms})
+                row[f"launches{msfx}"] = launches_dist["fused" + msfx][name]
+            row["launches_dryrun"] = {f"{n}:{leg}": v for (n, leg), v
+                                      in launches_dry.items()
+                                      if leg in (6, 7, 8)}
         if name == "apply_lattice_pieces":  # the fused paths' matvec column
             row["launches_dist"] = (launches_dist["fused"][name]
                                     + launches_dist["fused_onthefly"][name])
         if name == "apply_local_batched_g":  # the merged path's
             row["launches_dist"] = launches_dist["merged"][name]
+            row["launches_block2d"] = launches_dist["merged_block2d"][name]
         if name == "fused_cg_iteration":  # B2 with P or x in bf16
             for p, s, _, precision, config, run in STORAGE_RUNS:
                 for key, _ in STORAGE:

@@ -50,8 +50,11 @@ reference's auto size ladder.
 joined by gloo, or with ``--device cpu`` on the CPU (the plain versions,
 no times); the operator is the dense factorization (the fused solver's
 metric streamed, or rebuilt with ``--geometry onthefly``), on every rung.
-``--overlap``, ``--backend general`` with ``--devices`` and meshes of 2
-or more dimensions raise NotImplementedError (ROADMAP.md queue A item 9b).
+``--overlap`` and ``--backend general`` with ``--devices`` raise
+NotImplementedError (ROADMAP.md queue A item 9b).  The (z, y), (z, y, x)
+and 2-level rank meshes, which the JAX CLI does not reach either, run
+through ``parallel.distributed.Job(mesh_shape=...)`` and
+``parallel/dryrun.py``.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -418,8 +421,8 @@ def run_one_distributed(degree: int, s: int, n_devices: int,
     On a CUDA ``device`` the ranks share the card(s) and the times are
     the slowest rank's CUDA-event times; ``device="cpu"`` runs the ranks'
     plain versions on the CPU and measures no time (the row's times are
-    NaN).  ``overlap``, ``backend="general"`` and meshes of 2 or more
-    dimensions raise NotImplementedError (ROADMAP.md queue A item 9b).
+    NaN).  ``overlap`` and ``backend="general"`` raise
+    NotImplementedError (ROADMAP.md queue A item 9b).
     """
     from mf_data_locality_tpu_torch.parallel import comm, distributed
 

@@ -223,7 +223,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
       } else if constexpr (is_update(FORM)) {
         val = cell_input<float, P, true, NP == 1,
-                         FORM == kLatticeUpdatePx, is_slab(FORM)>(
+                         FORM == kLatticeUpdatePx, is_block(FORM)>(
             x.io, sm.x.sc, gr, c, cell / (gr.ncx * gr.ncy),
             (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
             (k / S::P1) % S::P1, k % S::P1);
@@ -343,7 +343,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       if (cell >= nc || k >= P13) continue;
       if constexpr (FORM != kCellBatch) {
         float m;
-        cell_node<P, is_slab(FORM)>(gr, cell, k, mask, &m);
+        cell_node<P, is_block(FORM)>(gr, cell, k, mask, &m);
         out[(static_cast<size_t>(c) * nc + cell) * P13 + k] = v[nt][i] * m;
       } else {
         out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[nt][i];
@@ -396,13 +396,14 @@ cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
   }
 // the forms and metric sources of B3 (cell batch), B5/B6/B1 (lattice,
 // streamed), B1 (rebuilt), B2 (update4b, streamed or rebuilt; also with P
-// or x in bf16, and in the slab form)
+// or x in bf16, and in the block form)
 #define BP4_MMA_CONFIGS(P, NP, M)                                     \
   M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
   M(P, kLattice, true, NP) M(P, kLatticeUpdate, false, NP)            \
   M(P, kLatticeUpdate, true, NP) M(P, kLatticeUpdatePx, false, NP)    \
-  M(P, kLatticeUpdatePx, true, NP) M(P, kLatticeUpdateSlab, false, NP) \
-  M(P, kLatticeUpdateSlab, true, NP)
+  M(P, kLatticeUpdatePx, true, NP)                                    \
+  M(P, kLatticeUpdateBlock, false, NP)                                \
+  M(P, kLatticeUpdateBlock, true, NP)
 #define BP4_MMA_RUNG(NP, M)                                           \
   BP4_MMA_CONFIGS(1, NP, M) BP4_MMA_CONFIGS(2, NP, M)                 \
   BP4_MMA_CONFIGS(3, NP, M) BP4_MMA_CONFIGS(4, NP, M)

@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(kHdGatherThreads)
       const float sc[4] = {x.io.scal[0], x.io.scal[1], x.io.scal[2],
                            x.io.scal[3]};
       val = cell_input<float, P, true, NP == 1, FORM == kLatticeUpdatePx,
-                       is_slab(FORM)>(
+                       is_block(FORM)>(
           x.io, sc, gr, c, cell / (gr.ncx * gr.ncy), (cell / gr.ncx) % gr.ncy,
           cell % gr.ncx, k / S::P12, (k / S::P1) % S::P1, k % S::P1);
     } else {
@@ -329,8 +329,8 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
 // (fragment (nt, ks) at (nt KB + ks) 32 + lane).  BATCH: out is the cell
 // batch (C P13, n_cells) (B3), else the masked cell-local values (C,
 // n_cells, P13), the mask the tensor's where one is given (B6), else the
-// box's from the indices (SLAB: B2's slab form, a z-slab's).
-template <int P, bool BATCH, int NP, bool SLAB = false>
+// box's from the indices (BLOCK: B2's block form, a block's).
+template <int P, bool BATCH, int NP, bool BLOCK = false>
 __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
     dense_hd_backward_kernel(const uint2* __restrict__ mb, Grid gr,
                              const float* __restrict__ mask,
@@ -402,7 +402,7 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
           out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[m][n][i];
         } else {
           float mk;
-          cell_node<P, SLAB>(gr, cell, k, mask, &mk);
+          cell_node<P, BLOCK>(gr, cell, k, mask, &mk);
           out[(static_cast<size_t>(c) * nc + cell) * P13 + k] = v[m][n][i] * mk;
         }
       }
@@ -433,7 +433,7 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   if (e != cudaSuccess) return e;
   constexpr int NG = (MmaShape<P>::P13P / 8 + kHdBwdTiles - 1) / kHdBwdTiles;
   const int tasks = lay.mt / 2 * NG;
-  dense_hd_backward_kernel<P, FORM == kCellBatch, NP, is_slab(FORM)>
+  dense_hd_backward_kernel<P, FORM == kCellBatch, NP, is_block(FORM)>
       <<<(tasks + kHdBwdWarps - 1) / kHdBwdWarps, 32 * kHdBwdWarps, 0, st>>>(
           static_cast<const uint2*>(mb), gr, mask, ts, out);
   return cudaGetLastError();

@@ -200,7 +200,7 @@ struct SumfacInput {
         if (live) {
           const int cell = cell0 + bb;
           v[j] = cell_input<T, P, true, false, FORM == kLatticeUpdatePx,
-                            is_slab(FORM)>(
+                            is_block(FORM)>(
               a.io, sm.sc, gr, c, cell / (gr.ncx * gr.ncy),
               (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
               (k / S::P1) % S::P1, k % S::P1);
@@ -442,7 +442,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
         if constexpr (FORM != kCellBatch) {
           T m = T(0);
           if (b < nlive)
-            cell_node<P, is_slab(FORM)>(gr, cell0 + b, k, a.mask, &m);
+            cell_node<P, is_block(FORM)>(gr, cell0 + b, k, a.mask, &m);
           stage[b * P13 + k] = v * m;
         } else if (b < nlive) {
           a.out[static_cast<size_t>(c * P13 + k) * nc + cell0 + b] = v;
@@ -503,15 +503,15 @@ cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
   M(float, P, kLatticeUpdate, false) M(float, P, kLatticeUpdate, true)  \
   M(float, P, kLatticeUpdatePx, false)                                  \
   M(float, P, kLatticeUpdatePx, true)                                   \
-  M(float, P, kLatticeUpdateSlab, false)                                \
-  M(float, P, kLatticeUpdateSlab, true)                                 \
+  M(float, P, kLatticeUpdateBlock, false)                               \
+  M(float, P, kLatticeUpdateBlock, true)                                \
   M(double, P, kCellBatch, false) M(double, P, kCellBatch, true)        \
   M(double, P, kLattice, false) M(double, P, kLattice, true)            \
   M(double, P, kLatticeUpdate, false) M(double, P, kLatticeUpdate, true) \
   M(double, P, kLatticeUpdatePx, false)                                 \
   M(double, P, kLatticeUpdatePx, true)                                  \
-  M(double, P, kLatticeUpdateSlab, false)                               \
-  M(double, P, kLatticeUpdateSlab, true)
+  M(double, P, kLatticeUpdateBlock, false)                              \
+  M(double, P, kLatticeUpdateBlock, true)
 #define BP4_SUMFAC_DECLARE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DECLARE)
 // the definitions of degree P's forms, in its own source
 #define BP4_SUMFAC_DEGREE(P) BP4_SUMFAC_FORMS(P, BP4_SUMFAC_FORM_DEFINE)

@@ -54,23 +54,25 @@ constexpr int kDots = 7;            // update3b sums (cg_fused_kernel.py:891)
 //   kLatticeUpdatePx  B2 as kLatticeUpdate, with P or x stored in bf16
 //                   (io.prec_bf16, io.x_bf16; the fused solver's prec_dtype
 //                   and x_dtype, cg_fused.py:57-70 of the JAX package).
-//   kLatticeUpdateSlab  B2's z-slab form (cg_fused.cu): as kLatticeUpdate
-//                   on a slab's Grid, its Dirichlet z faces by zlo and zhi
-//                   (interior<true>); the dense passes only (apply_sumfac.cuh,
-//                   apply_mma.cuh, apply_mma_hd.cuh), so that the other
-//                   forms' instantiations stay as they were.
+//   kLatticeUpdateBlock  B2's block form (cg_fused_block.cu): as
+//                   kLatticeUpdate on a rank's block of a (z), (z, y) or
+//                   (z, y, x) rank mesh (a z-slab is a block of a (N,)
+//                   mesh), its Dirichlet faces by the Grid's lo and hi on
+//                   each axis (interior<true>); the dense passes only
+//                   (apply_sumfac.cuh, apply_mma.cuh, apply_mma_hd.cuh), so
+//                   that the other forms' instantiations stay as they were.
 enum : int {
   kCellBatch = 0,
   kLattice = 1,
   kLatticeUpdate = 2,
   kLatticeUpdatePx = 3,
-  kLatticeUpdateSlab = 4
+  kLatticeUpdateBlock = 4
 };
 __host__ __device__ constexpr bool is_update(int form) {
   return form >= kLatticeUpdate;
 }
-__host__ __device__ constexpr bool is_slab(int form) {
-  return form == kLatticeUpdateSlab;
+__host__ __device__ constexpr bool is_block(int form) {
+  return form == kLatticeUpdateBlock;
 }
 
 template <int P>
@@ -184,36 +186,42 @@ struct OpTables {
   int metric_bf16 = 0;
 };
 
-// The lattice of a pass.  zlo, zhi, zown: read by B2's slab form only
-// (interior<true>, the assemble pass's SLAB): its z planes z < zlo and
-// z >= zhi hold Dirichlet nodes (or a dummy layer's), and its sums cover
-// the planes [0, zown).  A z-slab of a global lattice (parallel/
-// dist_fused.py; the TPU kernel's z0 and ncz_global, cg_fused_kernel.py:
-// 1236-1254): zlo = 1 on the bottom slab and 0 above it, zhi the local
-// index of the global top plane (<= 0 on a slab of dummy layers only),
-// zown = nz - 1 (the top plane is the upper slab's plane 0, which that
-// slab owns).  box_grid sets the box's values, 1, nz - 1 and nz.
+// The lattice of a pass.  The lo, hi, own of each axis: read by B2's
+// block form only (interior<true>, the assemble pass's BLOCK): along z
+// the planes z < zlo and z >= zhi hold Dirichlet nodes (or a dummy
+// cell's), and the sums cover the planes [0, zown); likewise along y and
+// x.  A block of a global lattice (parallel/dist_fused.py; the TPU
+// kernel's z0, ncz_global and, with y_split / x_split, y0, x0,
+// ncy_global, ncx_global, cg_fused_kernel.py:1200-1205, 1236-1266): on
+// each axis lo = 1 on the first block and 0 after it, hi the local index
+// of the global top face (<= 0 on a block of dummy cells only), own =
+// n - 1 (the top face is a ghost of the upper block's face 0, which that
+// block owns; on an axis the mesh does not split it is the Dirichlet top
+// face, whose nodes add only zeros).  box_grid sets the box's values, 1,
+// n - 1 and n on each axis.
 struct Grid {
   int ncz, ncy, ncx;  // cells per axis
   int nz, ny, nx;     // lattice nodes per axis
   int zlo, zhi, zown;
+  int ylo, yhi, yown, xlo, xhi, xown;
   __host__ __device__ int n_cells() const { return ncz * ncy * ncx; }
   __host__ __device__ int n_nodes() const { return nz * ny * nx; }
 };
 
 inline Grid box_grid(int degree, int ncz, int ncy, int ncx) {
-  const int nz = degree * ncz + 1;
-  return {ncz, ncy, ncx, nz, degree * ncy + 1, degree * ncx + 1,
-          1,   nz - 1, nz};
+  const int nz = degree * ncz + 1, ny = degree * ncy + 1,
+            nx = degree * ncx + 1;
+  return {ncz, ncy, ncx, nz, ny, nx, 1, nz - 1, nz,
+          1,   ny - 1, ny, 1, nx - 1, nx};
 }
 
-// A node off the Dirichlet faces: the box's (SLAB false), or a z-slab's
-// (SLAB: the z faces at zlo and zhi, B2's slab form).
-template <bool SLAB = false>
+// A node off the Dirichlet faces: the box's (BLOCK false), or a block's
+// (BLOCK: each axis's faces at its lo and hi, B2's block form).
+template <bool BLOCK = false>
 __device__ __forceinline__ bool interior(const Grid& gr, int z, int y, int x) {
-  if constexpr (SLAB)
-    return z >= gr.zlo && z < gr.zhi && y > 0 && y < gr.ny - 1 && x > 0 &&
-           x < gr.nx - 1;
+  if constexpr (BLOCK)
+    return z >= gr.zlo && z < gr.zhi && y >= gr.ylo && y < gr.yhi &&
+           x >= gr.xlo && x < gr.xhi;
   else
     return z > 0 && z < gr.nz - 1 && y > 0 && y < gr.ny - 1 && x > 0 &&
            x < gr.nx - 1;
@@ -221,8 +229,8 @@ __device__ __forceinline__ bool interior(const Grid& gr, int z, int y, int x) {
 
 // The lattice node of local node k of a cell, and its mask value: the mask
 // tensor's where one is given (B6), else the Dirichlet mask from the
-// indices (B5: the box's; SLAB: a z-slab's).
-template <int P, bool SLAB = false, typename T>
+// indices (B5: the box's; BLOCK: a block's).
+template <int P, bool BLOCK = false, typename T>
 __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
                                             const T* mask, T* m) {
   using S = Shape<P>;
@@ -231,7 +239,7 @@ __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
   const int z = cz * P + k / S::P12, y = cy * P + (k / S::P1) % S::P1,
             x = cx * P + k % S::P1;
   const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + x;
-  *m = mask ? mask[node] : (interior<SLAB>(gr, z, y, x) ? T(1) : T(0));
+  *m = mask ? mask[node] : (interior<BLOCK>(gr, z, y, x) ? T(1) : T(0));
   return node;
 }
 
@@ -369,16 +377,16 @@ __device__ __forceinline__ void set_x2(const CellIo<T>& io, size_t idx, T v) {
 // aob), and the node's owner cell writes x', g', d'.  FLEX (T float): d
 // and h may be bf16 (io.bf16); then d' is stored in bf16 and the operator
 // takes the stored, rounded d' (cg_fused_kernel.py:856).  PX: P and x by
-// prec_at / x_at / set_x2.  SLAB: a z-slab's Dirichlet faces.
+// prec_at / x_at / set_x2.  BLOCK: a block's Dirichlet faces.
 template <typename T, int P, bool FUSED, bool FLEX = false, bool PX = false,
-          bool SLAB = false>
+          bool BLOCK = false>
 __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                                         const Grid& gr, int c, int cz, int cy,
                                         int cx, int kz, int ky, int kx) {
   const int z = cz * P + kz, y = cy * P + ky, xx = cx * P + kx;
   const size_t node = (static_cast<size_t>(z) * gr.ny + y) * gr.nx + xx;
   const size_t idx = c * static_cast<size_t>(gr.n_nodes()) + node;
-  const bool in = interior<SLAB>(gr, z, y, xx);
+  const bool in = interior<BLOCK>(gr, z, y, xx);
   if constexpr (FLEX) {
     const bool bf = io.bf16;
     if constexpr (!FUSED) {
@@ -480,14 +488,15 @@ __device__ void block_sum(T (*red)[kNodeThreads], const T* v) {
 // cell-local contributions (cells[(c * n_cells + cell) * P13 + l]) in a
 // fixed order, masks, and writes h; with DOTS it also writes per-block
 // partials of the 7 update3b sums over d', g' as stored and h'
-// (cg_fused_kernel.py:877-895).  SLAB (B2's slab form): a slab's Dirichlet
-// faces, and the sums over its owned planes z < gr.zown.  Replaces the TPU kernels' lane-roll
-// consistency and z carry plane.  V: the storage of h and d (T, or bf16
+// (cg_fused_kernel.py:877-895).  BLOCK (B2's block form): a block's
+// Dirichlet faces, and the sums over its owned nodes (z < gr.zown, y <
+// gr.yown, x < gr.xown).  Replaces the TPU kernels' lane-roll consistency
+// and z carry plane.  V: the storage of h and d (T, or bf16
 // for the bf16 state: h is rounded where it is stored, and the sums read
 // the stored d' and h').  PBF: prec holds bf16 values (prec_dtype bf16),
 // upcast at the load.
 template <typename T, int P, bool DOTS, typename V = T, bool PBF = false,
-          bool SLAB = false>
+          bool BLOCK = false>
 __global__ void __launch_bounds__(kNodeThreads)
     assemble_kernel(Grid gr, const T* __restrict__ cells, V* __restrict__ h,
                     const T* __restrict__ g, const V* __restrict__ d,
@@ -499,7 +508,7 @@ __global__ void __launch_bounds__(kNodeThreads)
   if (node < n_nodes) {
     const int x = node % gr.nx, y = (node / gr.nx) % gr.ny,
               z = node / (gr.nx * gr.ny);
-    const bool in = interior<SLAB>(gr, z, y, x);
+    const bool in = interior<BLOCK>(gr, z, y, x);
     T pv = T(0);
     if constexpr (DOTS && PBF)
       pv = load_px(prec, node, true);
@@ -511,8 +520,8 @@ __global__ void __launch_bounds__(kNodeThreads)
                                   : T(0));
       h[idx] = hs;
       if constexpr (DOTS) {
-        if constexpr (SLAB) {
-          if (z >= gr.zown) continue;
+        if constexpr (BLOCK) {
+          if (z >= gr.zown || y >= gr.yown || x >= gr.xown) continue;
         }
         const T hv = to_acc<T>(hs), gv = g[idx], dv = to_acc<T>(d[idx]);
         const T ph = pv * hv, pg = pv * gv;

@@ -70,22 +70,28 @@
 // pass takes most of the time (PERF.md).  Later: the node passes fused into
 // the cell pass once a cell owns its output nodes.
 //
-// B2's z-slab form (bp4_fused_iteration_slab; the TPU kernel's halo, z0,
-// ncz_global, recurrence=False and want_carry=True, cg_fused_kernel.py:
-// 1236-1254), one slab of a z-decomposed lattice on each rank
-// (parallel/dist_fused.py): the slab's state is (C, Pp+1, Ny, Nx), its top
-// plane a ghost of the upper slab's plane 0.  The same three passes on the
-// slab's Grid (bp4_operator.cuh): the Dirichlet z faces by global position
-// (zlo, zhi: plane 0 only on the bottom slab, the top plane only at the
-// global top, dummy layers wholly); the caller has written the upper
-// slab's pre-update g, d, h plane 0 into the ghost plane, so update4b
-// there repeats that slab's arithmetic on the same inputs; the dots cover
-// the owned planes [0, Pp) (zown); the finalize pass writes the 7 raw
-// sums in place of the recurrence; and the ghost plane of h' holds the
-// slab's partial sums owed upward (the carry), the assemble pass's own
-// output there.  Still one launch sequence, no atomics.  Its
-// instantiations (kLatticeUpdateSlab of the dense passes, the assemble
-// pass's SLAB, the RAW finalize) are built in cg_fused_slab.cu and the
+// B2's block form (bp4_fused_iteration_block; the TPU kernel's halo, z0,
+// ncz_global, recurrence=False and want_carry=True, with y_split /
+// x_split, y0, x0, ncy_global, ncx_global, cg_fused_kernel.py:1200-1205,
+// 1236-1266), one block of a (z), (z, y) or (z, y, x) rank mesh on each
+// rank (parallel/dist_fused.py; a z-slab is a block of a (N,) mesh): the
+// block's state is (C, Pz+1, Py+1, Px+1), its top face on each axis a
+// ghost of the upper neighbour's face 0 (the global Dirichlet face where
+// the mesh does not split the axis).  The same three passes on the
+// block's Grid (bp4_operator.cuh): the Dirichlet faces by global position
+// on each axis (lo, hi: face 0 only on the first block, the top face only
+// at the global top, dummy cells wholly); the caller has written the
+// neighbours' pre-update g, d, h face 0 into the ghost faces, edges and
+// corners included, so update4b there repeats their arithmetic on the
+// same inputs; the dots cover the owned nodes [0, Pz) x [0, Py) x [0, Px)
+// (own); the finalize pass writes the 7 raw sums in place of the
+// recurrence; and the ghost faces of h' hold the block's partial sums
+// owed upward (the carries), the assemble pass's own output there.  The
+// TPU kernel's lane masks of _make_consistent (y_split, x_split) exist
+// for its piece layout only: on the lattice they are these ghost faces.
+// Still one launch sequence, no atomics.  Its
+// instantiations (kLatticeUpdateBlock of the dense passes, the assemble
+// pass's BLOCK, the RAW finalize) are built in cg_fused_block.cu and the
 // per-degree sources; the other forms' are untouched.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
@@ -115,24 +121,24 @@ struct Launch {
 
   // prec_bf16, x_bf16: P, or x and x2, in bf16 (prec_dtype, x_dtype):
   // cg_fused_px.cu's instantiations
-  // slab: the slab form (gr a slab's Grid, the 7 sums in scal2), with P
-  // and x at T
+  // block: the block form (gr a block's Grid, the 7 sums in scal2), with
+  // P and x at T
   static int fused(int rung, int dense, int cofactor, int store,
                    int prec_bf16, int x_bf16, const OpTables<T>& tb,
                    const Grid& gr, const T* x, const T* g, const T* d,
                    const T* h, const T* prec, const T* scal, T* x2, T* g2,
                    T* d2, T* h2, T* scal2, T* cells, T* partials,
-                   void* scratch, int slab, cudaStream_t st) {
+                   void* scratch, int block, cudaStream_t st) {
     CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
     io.bf16 = store;
     io.prec_bf16 = prec_bf16;
     io.x_bf16 = x_bf16;
-    if (slab)
+    if (block)
       return prec_bf16 || x_bf16
                  ? -1
-                 : fused_iteration_slab<T, P>(rung, dense, cofactor, tb, gr,
-                                              io, h2, scal2, cells, partials,
-                                              scratch, st);
+                 : fused_iteration_block<T, P>(rung, dense, cofactor, tb,
+                                               gr, io, h2, scal2, cells,
+                                               partials, scratch, st);
     if (prec_bf16 || x_bf16)
       return fused_iteration_px<T, P>(rung, dense, cofactor, tb, gr, io, h2,
                                       scal2, cells, partials, scratch, st);
@@ -232,7 +238,7 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
 
 namespace {
 
-// B2 on `gr` (the box; slab = 1: a slab's Grid, the 7 sums in scal2)
+// B2 on `gr` (the box; block = 1: a block's Grid, the 7 sums in scal2)
 int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
                 int store, int metric_bf16, int prec_bf16, int x_bf16,
                 const void* mats, const void* sz, const void* dz,
@@ -241,7 +247,7 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
                 const void* d, const void* h, const void* prec,
                 const void* scal, void* x2, void* g2, void* d2, void* h2,
                 void* scal2, void* cells, void* partials, void* scratch,
-                const Grid& gr, int slab, void* stream) {
+                const Grid& gr, int block, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
@@ -253,7 +259,7 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
       static_cast<T*>(x2), static_cast<T*>(g2), static_cast<T*>(d2),          \
       static_cast<T*>(h2), static_cast<T*>(scal2), static_cast<T*>(cells),    \
-      static_cast<T*>(partials), scratch, slab, st)
+      static_cast<T*>(partials), scratch, block, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !rung) BP4_DEGREES(double)
@@ -284,11 +290,11 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
                      make_grid(degree, ncz, ncy, ncx), 0, stream);
 }
 
-// B2's slab form: the arguments of bp4_fused_iteration on a slab of ncz
-// cell layers (ncz * degree + 1 planes, the top one the ghost), then the
-// slab's zlo, zhi, zown (bp4_operator.cuh's Grid); scal2 receives the 7
-// raw sums and a 0.
-int bp4_fused_iteration_slab(
+// B2's block form: the arguments of bp4_fused_iteration on a block of
+// ncz x ncy x ncx cells (n * degree + 1 nodes an axis, the top one a
+// ghost or the Dirichlet face), then the block's lo, hi, own on z, y and
+// x (bp4_operator.cuh's Grid); scal2 receives the 7 raw sums and a 0.
+int bp4_fused_iteration_block(
     int dtype, int rung, int degree, int dense, int cofactor, int store,
     int metric_bf16, int prec_bf16, int x_bf16, const void* mats,
     const void* sz, const void* dz, const void* pds, const void* w3,
@@ -296,11 +302,18 @@ int bp4_fused_iteration_slab(
     const void* d, const void* h, const void* prec, const void* scal,
     void* x2, void* g2, void* d2, void* h2, void* scal2, void* cells,
     void* partials, void* scratch, int ncz, int ncy, int ncx, int zlo,
-    int zhi, int zown, void* stream) {
+    int zhi, int zown, int ylo, int yhi, int yown, int xlo, int xhi,
+    int xown, void* stream) {
   Grid gr = make_grid(degree, ncz, ncy, ncx);
   gr.zlo = zlo;
   gr.zhi = zhi;
   gr.zown = zown;
+  gr.ylo = ylo;
+  gr.yhi = yhi;
+  gr.yown = yown;
+  gr.xlo = xlo;
+  gr.xhi = xhi;
+  gr.xown = xown;
   return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
                      prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
                      gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,

@@ -236,22 +236,7 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
 
 
 def slab_from_jax_arrays(*, degree: int, rank: int, ncz_global: int,
-                         n_dofs: int, n_cells: int,
-                         b: np.ndarray, inv_diag: np.ndarray,
-                         weight: np.ndarray, mask: np.ndarray,
-                         coeffs: np.ndarray, backend: str = "pallas",
-                         windowing: str = "reshape",
-                         precision: str = "highest",
-                         dtype: torch.dtype = torch.float64,
-                         device: torch.device | str = "cuda",
-                         pds: np.ndarray | None = None,
-                         w3: np.ndarray | None = None,
-                         mats: np.ndarray | None = None,
-                         mats2d: np.ndarray | None = None,
-                         gmetric: np.ndarray | None = None,
-                         values: np.ndarray | None = None,
-                         d_col: np.ndarray | None = None,
-                         q_pts: np.ndarray | None = None):
+                         **arrays):
     """One rank's slab problem (``parallel.distributed.SlabProblem``) from
     the JAX ``DistributedBP4``'s arrays of device ``rank``, passed as numpy,
     so that a port rank works on the JAX package's own slab.
@@ -266,11 +251,52 @@ def slab_from_jax_arrays(*, degree: int, rank: int, ncz_global: int,
     ``values``, ``d_col``, ``q_pts``, ``w3`` (1, q, 1, q, 1, q) and
     ``coeffs`` (ncz_loc, 1, ncy, 1, ncx, 1, 8, 3).
     """
+    cells = [(n - 1) // degree for n in np.asarray(arrays["mask"]).shape[1:]]
+    return _rank_from_jax_arrays(
+        degree, ((rank * cells[0], 0, 0), (ncz_global, *cells[1:])),
+        ((1, 0),), **arrays)
+
+
+def block_from_jax_arrays(*, degree: int, coords, mesh_shape, nc_global,
+                          **arrays):
+    """One rank's block (``parallel.distributed.SlabProblem`` of
+    ``build_block``) from the JAX ``DistributedBP4_2D``'s or ``_3D``'s
+    arrays of the device at ``coords`` of its ``mesh_shape`` mesh, passed as
+    numpy: the keywords of :func:`slab_from_jax_arrays` on the block's
+    (C, Pz+1, Py+1, Nx) or (C, Pz+1, Py+1, Px+1) lattice (``weight`` (1,
+    Pz+1, Py+1, 1) or (1, Pz+1, Py+1, Px+1); ``structured`` ``coeffs``
+    (Lz, 1, Ly, 1, Lx, 1, 8, 3)), and ``nc_global`` the global mesh's
+    real cell counts (the JAX ``nc_global``)."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    shape = np.asarray(arrays["mask"]).shape[1:]
+    origin = tuple(c * ((n - 1) // degree) for c, n in zip(
+        tuple(coords) + (0,) * (3 - len(coords)), shape))
+    return _rank_from_jax_arrays(degree, (origin, tuple(nc_global)),
+                                 distributed.halo_axes(mesh_shape), **arrays)
+
+
+def _rank_from_jax_arrays(degree: int, slab: tuple, halo: tuple, *,
+                          n_dofs: int, n_cells: int,
+                          b: np.ndarray, inv_diag: np.ndarray,
+                          weight: np.ndarray, mask: np.ndarray,
+                          coeffs: np.ndarray, backend: str = "pallas",
+                          windowing: str = "reshape",
+                          precision: str = "highest",
+                          dtype: torch.dtype = torch.float64,
+                          device: torch.device | str = "cuda",
+                          pds: np.ndarray | None = None,
+                          w3: np.ndarray | None = None,
+                          mats: np.ndarray | None = None,
+                          mats2d: np.ndarray | None = None,
+                          gmetric: np.ndarray | None = None,
+                          values: np.ndarray | None = None,
+                          d_col: np.ndarray | None = None,
+                          q_pts: np.ndarray | None = None):
     from mf_data_locality_tpu_torch.parallel import distributed
 
     p = degree
-    _, pp1, ny, nx = np.asarray(mask).shape
-    cells = ((pp1 - 1) // p, (ny - 1) // p, (nx - 1) // p)
+    cells = tuple((n - 1) // p for n in np.asarray(mask).shape[1:])
     if backend == "structured":
         def t(a):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
@@ -289,11 +315,10 @@ def slab_from_jax_arrays(*, degree: int, rank: int, ncz_global: int,
             mats=_canonical(mats, piece_perm(p), perm),
             gmetric=(None if gmetric is None else np.asarray(gmetric)
                      .reshape(6 * (p + 2) ** 3, -1)[:, :nc]),
-            factor="dense", windowing=windowing,
-            slab=(rank * cells[0], ncz_global))
+            factor="dense", windowing=windowing, slab=slab)
     return distributed._slab_problem(
         op, dict(inv_diag=inv_diag, b=b, weight=weight, n_dofs=n_dofs,
-                 n_cells=n_cells), dtype, device, backend)
+                 n_cells=n_cells), dtype, device, backend, halo)
 
 
 def _canonical(a, perm, pieces: bool):

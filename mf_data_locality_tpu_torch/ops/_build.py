@@ -5,7 +5,8 @@ sources at once in parallel processes (the sum-factorized pass, the
 twostage tensor-core pass and the dense tensor-core pass of each degree
 5..11 have a source of their own, ``sumfac_pNN.cu``, ``cell_mma_pNN.cu``
 and ``apply_mma_pNN.cu``, the largest instantiations, and B2 with P or x
-in bf16 at p <= 4 ``cg_fused_px.cu``; the tensor-core
+in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
+``cg_fused_block.cu``; the tensor-core
 sources of :data:`RUNG_BUILDS` are
 compiled once per rung, ``-DBP4_RUNG=n``), and links them into one shared
 library with a plain C interface, which is loaded with :mod:`ctypes` (no
@@ -55,9 +56,9 @@ _SIGNATURES = {
     # the dense pass's scratch; the cells per axis; the stream
     "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
     "bp4_fused_iteration": (_I, [_I] * 9 + [_P] * 21 + [_I] * 3 + [_P]),
-    # ... the cells per axis, then the slab's zlo, zhi, zown; the stream
-    "bp4_fused_iteration_slab": (_I, [_I] * 9 + [_P] * 21 + [_I] * 6
-                                 + [_P]),
+    # ... the cells per axis, then the block's (lo, hi, own) on z, y, x
+    "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 12
+                                  + [_P]),
     # dtype, rung, degree, onthefly, bf16 metric; ...
     "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
     # dtype, rung, bf16 metric, degree; ...

@@ -221,13 +221,14 @@ class OperatorData:
     factor: str = "dense"
     mma_mats: torch.Tensor | None = None
     cofactor: str = "adjj"  # the rebuilt metric's chain (B1/B2; B4: adjj)
-    # a z-slab of a global lattice (parallel/distributed.py): (z0,
-    # ncz_global), the slab's first global z-cell layer and the global
-    # mesh's real layer count; None for the whole box.  ``mask`` is then
-    # the slab's (Dirichlet faces by global position, dummy layers 0):
-    # B5 reads it in place of the box's index mask, and B2 runs its slab
-    # form (``cg_fused_kernel.fused_cg_iteration``)
-    slab: tuple[int, int] | None = None
+    # a block of a global lattice, a rank's of a (z), (z, y) or (z, y, x)
+    # rank mesh (parallel/distributed.py; a z-slab is a block of a (N,)
+    # mesh): ((z0, y0, x0), (ncz, ncy, ncx)), its first global cell per
+    # axis and the global mesh's real cell counts; None for the whole box.
+    # ``mask`` is then the block's (Dirichlet faces by global position,
+    # dummy cells 0): B5 reads it in place of the box's index mask, and B2
+    # runs its block form (``cg_fused_kernel.fused_cg_iteration``)
+    slab: tuple | None = None
     # what is built once from the fields above: :func:`dense_mma_tables`,
     # the dense pass's scratch (``cg_fused_kernel.dense_scratch``)
     cache: dict = field(default_factory=dict, init=False, repr=False,
@@ -468,8 +469,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          windowing: str = "pieces",
                          cofactor: str = "adjj",
                          metric_dtype: torch.dtype | None = None,
-                         slab: tuple[int, int] | None = None
-                         ) -> OperatorData:
+                         slab: tuple | None = None) -> OperatorData:
     """Wrap host arrays (any float dtype, bf16 ones of the JAX package bit
     for bit) as an :class:`OperatorData`.
 
@@ -481,7 +481,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
     ``dtype=torch.bfloat16`` (the fused solver's bf16 state) keeps the
     tables in f32.  ``cofactor="jtj"`` raises ValueError unless det J > 0 at
     every quadrature point (:func:`check_orientation`).  ``slab``: the
-    operator of a z-slab (:attr:`OperatorData.slab`), ``mask`` its mask.
+    operator of a block (:attr:`OperatorData.slab`), ``mask`` its mask.
     """
     metric = "onthefly" if gmetric is None else "precomputed"
     check_config(precision, factor, metric, cofactor, dtype, windowing,

@@ -1,9 +1,11 @@
-"""Distributed BP4: z-slab domain decomposition over rank processes.
+"""Distributed BP4: z-slab and block domain decomposition over rank
+processes.
 
 Counterpart of ``mf_data_locality_tpu.parallel.distributed`` (its 1D
-z-slab form; the 2D, 3D and 2-level meshes, ``dist_general`` and
-``--overlap`` are ROADMAP.md queue A item 9b).  The reference's MPI layer
-(SURVEY.md §2) maps onto it as in the JAX package:
+z-slab form and the (z, y) and (z, y, x) meshes of ``build_distributed_2d``
+/ ``_3d``; ``dist_general`` and ``--overlap`` are ROADMAP.md queue A item
+9b).  The reference's MPI layer (SURVEY.md §2) maps onto it as in the JAX
+package:
 
 * **p4est partition -> z-slab partition.**  The structured mesh is split
   into slabs of ``ceil(ncz / n_ranks)`` cell layers along z; rank r owns
@@ -24,18 +26,30 @@ z-slab form; the 2D, 3D and 2-level meshes, ``dist_general`` and
   the bottom plane of every rank above rank 0 (owned by the rank below)
   and the dummy planes get weight 0 in the local sums.
 
-State invariant: plane Pp of rank r equals plane 0 of rank r + 1; every
-update is elementwise, and the operator apply restores it after the halo
-sum.  Ranks, their devices and the transport are :mod:`.comm`'s; the
-fused solver's z-slab loop is :mod:`.dist_fused`'s.
+* **Blocks.**  On a (Dz, Dy) or (Dz, Dy, Dx) rank mesh (:func:`build_block`)
+  each rank owns a block of ``ceil(nc / D)`` cells along each axis, with a
+  ghost top face on every split axis: (C, Pz+1, Py+1, Px+1), the full
+  node count on an axis that is not split.  Trailing blocks carry dummy
+  cells on every axis.  The halo sum runs axis by axis, z, then y, then x,
+  two shifts each, each shift carrying the whole face, ghost rows of the
+  other axes included, so that edges and corners sum by linearity (the
+  JAX package's dimension-split ``_halo_sum_axis``); the weights are 0 on
+  the bottom face of each axis the rank does not own.
+
+State invariant: plane Pp of rank r equals plane 0 of rank r + 1 (on a
+mesh: each top face equals the upper neighbour's face 0 along that axis);
+every update is elementwise, and the operator apply restores it after the
+halo sum.  Ranks, their devices and the transport are :mod:`.comm`'s; the
+fused solver's loop is :mod:`.dist_fused`'s.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Any
 
+import math
 import time
 
 import numpy as np
@@ -52,8 +66,8 @@ from mf_data_locality_tpu_torch.solvers.cg import SolveResult
 
 BACKENDS = ("pallas", "structured")
 SOLVERS = ("merged", "baseline", "fused")
-_TODO_9B = ("not ported yet: see ROADMAP.md, queue A item 9b (2D, 3D and "
-            "2-level meshes, dist_general, --overlap, NCCL)")
+_TODO_9B = ("not ported yet: see ROADMAP.md, queue A item 9b "
+            "(dist_general, --overlap, NCCL)")
 # the kernel wrappers whose launches a rank counts
 WRAPPERS = {"matvec": fk.matvec,
             "fused_cg_iteration": fk.fused_cg_iteration,
@@ -66,15 +80,21 @@ WRAPPERS = {"matvec": fk.matvec,
 
 @dataclass(frozen=True)
 class SlabProblem:
-    """One rank's slab of the BP4 problem (the JAX ``DistributedBP4``'s
-    per-device arrays), every tensor on the rank's device.
+    """One rank's slab or block of the BP4 problem (the JAX
+    ``DistributedBP4``'s, ``_2D``'s or ``_3D``'s per-device arrays), every
+    tensor on the rank's device.
 
-    ``op``: the slab's operator — ``laplace_cuda.OperatorData`` with
-    ``slab=(z0, ncz_global)`` (``pallas``, dense factorization) or
-    ``laplace_structured.StructuredOperatorData`` (``structured``), on
-    (ncz_loc, ncy, ncx) cells and the slab's mask.  ``inv_diag`` (1,
-    Pp+1, Ny, Nx), ``b`` (C, Pp+1, Ny, Nx) and ``weight`` (1, Pp+1, 1, 1):
-    1 on owned planes, 0 on plane 0 above rank 0 and on dummy planes.
+    ``op``: the operator — ``laplace_cuda.OperatorData`` with
+    ``slab=((z0, y0, x0), (ncz, ncy, ncx))``, the block's origin and the
+    global cell counts (``pallas``, dense factorization), or
+    ``laplace_structured.StructuredOperatorData`` (``structured``), on the
+    rank's cells and mask.  ``inv_diag`` (1, Pz+1, Ny, Nx), ``b`` (C,
+    Pz+1, Ny, Nx) (a block: Py+1 and Px+1 on split axes) and ``weight``:
+    1 on owned nodes, 0 on the bottom face of each split axis above its
+    first rank and on dummy nodes; of size 1 along the axes it does not
+    vary on (a slab: (1, Pp+1, 1, 1)).  ``halo``: the (lattice dim, rank
+    grid axis) of each axis the halo sums run along, in order (a slab:
+    z, along grid axis 0, or (0, 1) on a 2-level grid).
     """
 
     op: Any
@@ -84,6 +104,7 @@ class SlabProblem:
     n_dofs: int   # the global problem's
     n_cells: int
     backend: str = "pallas"
+    halo: tuple = ((1, 0),)
 
 
 def cells_per_slab(ncz: int, n_ranks: int) -> int:
@@ -93,11 +114,10 @@ def cells_per_slab(ncz: int, n_ranks: int) -> int:
 
 def check_distributed(solver: str, backend: str, windowing: str,
                       metric: str, overlap: bool = False) -> None:
-    """Raise for what the z-slab path does not run: NotImplementedError
-    for the JAX package's distributed forms not ported yet (``--overlap``,
-    ``--backend general``; the meshes of 2 or more dimensions are
-    ``dryrun``'s legs 5-8), ValueError for what the JAX CLI refuses
-    too."""
+    """Raise for what the distributed paths do not run:
+    NotImplementedError for the JAX package's distributed forms not ported
+    yet (``--overlap``, ``--backend general``), ValueError for what the
+    JAX CLI refuses too."""
     if overlap:
         raise NotImplementedError(f"--overlap is {_TODO_9B}")
     if backend == "general":
@@ -120,105 +140,171 @@ def check_distributed(solver: str, backend: str, windowing: str,
             f"in-kernel rebuild)")
 
 
-def _layer_cells(mesh: BoxMesh, c0: int, c1: int) -> np.ndarray:
-    """Trilinear coefficients (c1 - c0, ncy, ncx, 8, 3) of the global
-    mesh's cell layers [c0, c1), from planes c0..c1 of its vertex lattice
-    (the global lattice is (ncz+1)(ncy+1)(ncx+1) points, cheap even at the
-    ladder's top; slicing it keeps every vertex the global build's, bit for
-    bit, where mapping the planes alone would round some sines apart)."""
-    _, ncy, ncx = mesh.n_cells_axis
-    n = c1 - c0
-    lat = mesh.vertex_lattice[c0:c1 + 1]
-    verts = np.empty((n, ncy, ncx, 8, 3))
+def _block_cells(mesh: BoxMesh, lo, hi) -> np.ndarray:
+    """Trilinear coefficients (hi - lo per axis, 8, 3) of the global mesh's
+    cells [lo, hi) on each axis (z, y, x), from that range of its vertex
+    lattice (the global lattice is (ncz+1)(ncy+1)(ncx+1) points, cheap even
+    at the ladder's top; slicing it keeps every vertex the global build's,
+    bit for bit, where mapping the block's vertices alone would round some
+    sines apart)."""
+    n = [b - a for a, b in zip(lo, hi)]
+    lat = mesh.vertex_lattice[lo[0]:hi[0] + 1, lo[1]:hi[1] + 1,
+                              lo[2]:hi[2] + 1]
+    verts = np.empty((*n, 8, 3))
     for v in range(8):
         dx, dy, dz = v & 1, (v >> 1) & 1, (v >> 2) & 1
-        verts[..., v, :] = lat[dz:dz + n, dy:dy + ncy, dx:dx + ncx, :]
+        verts[..., v, :] = lat[dz:dz + n[0], dy:dy + n[1], dx:dx + n[2], :]
     return geometry.trilinear_coefficients(verts)
 
 
-def _dummy_cells(n: int, ncy: int, ncx: int) -> np.ndarray:
-    """Unit-geometry dummy cells' coefficients (x = u, y = v, z = w)."""
-    co = np.zeros((n, ncy, ncx, 8, 3))
-    co[..., 1, 0] = co[..., 2, 1] = co[..., 4, 2] = 1.0
+def _pad_dummy_cells(co: np.ndarray, target) -> np.ndarray:
+    """A (ncz', ncy', ncx', 8, 3) coefficient block padded to ``target``
+    cells an axis with unit-geometry dummy cells (x = u, y = v, z = w;
+    ``_pad_dummy_cells``, ``poisson_operator.h:269-280``)."""
+    for ax in range(3):
+        short = target[ax] - co.shape[ax]
+        if short:
+            shape = list(co.shape)
+            shape[ax] = short
+            pad = np.zeros(shape)
+            pad[..., 1, 0] = pad[..., 2, 1] = pad[..., 4, 2] = 1.0
+            co = np.concatenate([co, pad], axis=ax)
     return co
 
 
-def slab_arrays(s: int, degree: int, rank: int, n_ranks: int,
-                n_components: int = 3) -> dict[str, Any]:
-    """Host arrays (f64 NumPy) of slab ``rank``: ``coeffs`` (ncz_loc, ncy,
-    ncx, 8, 3) with dummy layers past the global top, ``mask``, ``inv_diag``
-    (1, Pp+1, Ny, Nx), ``b`` (C, Pp+1, Ny, Nx), ``weight`` (1, Pp+1, 1,
-    1), and the global mesh's sizes.  The values are the global problem's
-    (``models/bp4.build``) on the slab's planes, zero on dummy planes."""
+def _mesh3(mesh_shape) -> tuple[int, int, int]:
+    return tuple(mesh_shape) + (1,) * (3 - len(mesh_shape))
+
+
+def block_arrays(s: int, degree: int, coords, mesh_shape,
+                 n_components: int = 3) -> dict[str, Any]:
+    """Host arrays (f64 NumPy) of the rank at ``coords`` of a ``mesh_shape``
+    rank mesh ((D,), (Dz, Dy) or (Dz, Dy, Dx); the JAX ``_pad_slice`` /
+    ``_pad_dummy_cells`` cuts of ``build_distributed_2d`` / ``_3d``):
+    ``coeffs`` (Lz, Ly, Lx, 8, 3), L = ceil(nc / D) on each axis, with
+    dummy cells past the global end, ``mask``, ``inv_diag`` (1, Pz+1,
+    Py+1, Px+1), ``b`` (C, Pz+1, Py+1, Px+1), ``weight`` (size 1 along y
+    and x where the mesh does not split them), ``origin`` (the first global
+    cell on each axis), ``nc_global`` and the global mesh's sizes.  The
+    values are the global problem's (``models/bp4.build``) on the block's
+    nodes, zero on dummy nodes; the weights are 0 on the bottom face of
+    each axis above its first rank (the rank below owns it) and past the
+    global end."""
     mesh = BoxMesh.from_s(s)
-    ncz, ncy, ncx = mesh.n_cells_axis
+    nc = mesh.n_cells_axis
+    shape, coords = _mesh3(mesh_shape), tuple(coords) + (0,) * (
+        3 - len(coords))
     p = degree
-    L = cells_per_slab(ncz, n_ranks)
-    Pp = L * p
-    nz, ny, nx = (p * ncz + 1, p * ncy + 1, p * ncx + 1)
-    c0 = rank * L
-    real = max(0, min(c0 + L, ncz) - c0)
-    co = _layer_cells(mesh, c0, c0 + real) if real else np.zeros(
-        (0, ncy, ncx, 8, 3))
-    co = np.concatenate([co, _dummy_cells(L - real, ncy, ncx)])
+    L = [cells_per_slab(n, D) for n, D in zip(nc, shape)]
+    lo = [c * l for c, l in zip(coords, L)]
+    real = [max(0, min(a + l, n) - a) for a, l, n in zip(lo, L, nc)]
+    co = (_block_cells(mesh, lo, [a + r for a, r in zip(lo, real)])
+          if all(real) else np.zeros((*real, 8, 3)))
+    co = _pad_dummy_cells(co, L)
 
-    zg = c0 * p + np.arange(Pp + 1)  # the slab's planes, global index
-    live = zg < nz
-    inner = (zg > 0) & (zg < nz - 1)
-    yx = np.zeros((ny, nx), bool)
-    yx[1:-1, 1:-1] = True
-    mask = (inner[:, None, None] & yx[None]).astype(np.float64)
+    nn = [p * n + 1 for n in nc]
+    idx = [a * p + np.arange(l * p + 1) for a, l in zip(lo, L)]  # global
+    live = [i < n for i, n in zip(idx, nn)]
+    inner = [(i > 0) & (i < n - 1) for i, n in zip(idx, nn)]
+    mask = (inner[0][:, None, None] & inner[1][None, :, None]
+            & inner[2][None, None, :]).astype(np.float64)
 
-    # the preconditioner: the cells of layers [w0, w1) touch every plane
-    # of the slab; their contributions summed in cell order, as the global
-    # diagonal sums them
-    inv = np.zeros((Pp + 1, ny, nx))
-    w0, w1 = max(c0 - 1, 0), min(c0 + L + 1, ncz)
-    if w0 < w1:
-        win = DofLayout(BoxMesh((w1 - w0, ncy, ncx), mesh.spacing,
-                                mesh.deformed, mesh.factor), p)
+    # the preconditioner: the cells [w0, w1) of each axis touch every node
+    # of the block; their contributions summed in global cell order, as
+    # the global diagonal sums them
+    inv = np.zeros(mask.shape)
+    w0 = [max(a - 1, 0) for a in lo]
+    w1 = [min(a + l + 1, n) for a, l, n in zip(lo, L, nc)]
+    if all(a < b for a, b in zip(w0, w1)):
+        cells = tuple(b - a for a, b in zip(w0, w1))
+        win = DofLayout(BoxMesh(cells, mesh.spacing, mesh.deformed,
+                                mesh.factor), p)
         diag = diagonal.summed_diagonal(
-            win, _layer_cells(mesh, w0, w1).reshape(-1, 8, 3)).reshape(
-            (w1 - w0) * p + 1, ny, nx)
-        k = np.flatnonzero(live)
-        d = diag[zg[k] - w0 * p]
-        free = mask[k] > 0
-        inv[k] = np.where(free, 1.0 / np.where(free, d, 1.0), 1.0)
+            win, _block_cells(mesh, w0, w1).reshape(-1, 8, 3)).reshape(
+            tuple(c * p + 1 for c in cells))
+        k = [np.flatnonzero(v) for v in live]
+        sel = np.ix_(*k)
+        d = diag[np.ix_(*(i[j] - a * p for i, j, a in zip(idx, k, w0)))]
+        free = mask[sel] > 0
+        inv[sel] = np.where(free, 1.0 / np.where(free, d, 1.0), 1.0)
 
-    node = (zg[:, None, None] * ny + np.arange(ny)[None, :, None]) * nx \
-        + np.arange(nx)[None, None, :]
+    node = ((idx[0][:, None, None] * nn[1] + idx[1][None, :, None]) * nn[2]
+            + idx[2][None, None, :])
     dof = node[None] * n_components + np.arange(n_components)[:, None, None,
                                                               None]
     b = (dof % 8).astype(np.float64) * (mask[None] > 0)
 
-    weight = live.astype(np.float64)
-    if rank > 0:
-        weight[0] = 0.0
+    w = [v.astype(np.float64) for v in live]
+    for ax in range(3):
+        if coords[ax] > 0:
+            w[ax][0] = 0.0
+        if ax and shape[ax] == 1:  # constant 1 along an axis not split
+            w[ax] = w[ax][:1]
+    weight = w[0][:, None, None] * w[1][None, :, None] * w[2][None, None, :]
     return dict(coeffs=co, mask=mask[None], inv_diag=inv[None], b=b,
-                weight=weight.reshape(1, Pp + 1, 1, 1),
-                ncz_global=ncz, n_cells_axis=(L, ncy, ncx), z0=c0,
-                n_dofs=nz * ny * nx * n_components, n_cells=mesh.n_cells)
+                weight=weight[None], origin=tuple(lo), nc_global=tuple(nc),
+                n_cells_axis=tuple(L), n_dofs=math.prod(nn) * n_components,
+                n_cells=mesh.n_cells)
+
+
+def slab_arrays(s: int, degree: int, rank: int, n_ranks: int,
+                n_components: int = 3) -> dict[str, Any]:
+    """:func:`block_arrays` of slab ``rank`` of ``n_ranks`` z-slabs, with
+    its first layer ``z0`` and the global layer count ``ncz_global``:
+    ``coeffs`` (ncz_loc, ncy, ncx, 8, 3), ``inv_diag`` (1, Pp+1, Ny, Nx),
+    ``b`` (C, Pp+1, Ny, Nx), ``weight`` (1, Pp+1, 1, 1)."""
+    a = block_arrays(s, degree, (rank,), (n_ranks,), n_components)
+    return dict(a, z0=a["origin"][0], ncz_global=a["nc_global"][0])
 
 
 def build_slab(s: int, degree: int, rank: int, n_ranks: int,
                dtype: torch.dtype = torch.float32, backend: str = "pallas",
                precision: str = "highest", windowing: str = "reshape",
                metric: str = "precomputed",
-               device: torch.device | str = "cuda") -> SlabProblem:
+               device: torch.device | str = "cuda",
+               axis: int | tuple[int, ...] = 0) -> SlabProblem:
     """Slab ``rank`` of BP4 on 2**s cells over ``n_ranks`` ranks
     (``build_distributed``): on ``pallas`` the dense factorization, the
     metric streamed or (the fused solver's ``metric="onthefly"``) rebuilt
     from the coefficients by adjj; ``dtype=torch.bfloat16`` is the fused
     solver's bf16 state (f32 tables; b and the preconditioner rounded to
-    bf16 from f64, as the JAX slabs are)."""
+    bf16 from f64, as the JAX slabs are).  ``axis``: the rank grid's axis
+    the slabs run along (``(0, 1)`` on a 2-level grid)."""
     a = slab_arrays(s, degree, rank, n_ranks)
+    return _build(a, (a["origin"], a["nc_global"]), ((1, axis),), degree,
+                  dtype, backend, precision, windowing, metric, device)
+
+
+def halo_axes(mesh_shape) -> tuple[tuple[int, int], ...]:
+    """The (lattice dim, rank grid axis) of each axis a ``mesh_shape``
+    block mesh splits, in the order z, y, x."""
+    return tuple((1 + a, a) for a, n in enumerate(mesh_shape) if n > 1)
+
+
+def build_block(s: int, degree: int, coords, mesh_shape,
+                dtype: torch.dtype = torch.float32, backend: str = "pallas",
+                precision: str = "highest", windowing: str = "reshape",
+                metric: str = "precomputed",
+                device: torch.device | str = "cuda") -> SlabProblem:
+    """The block of BP4 on 2**s cells of the rank at ``coords`` of a (Dz,
+    Dy) or (Dz, Dy, Dx) rank mesh (``build_distributed_2d`` / ``_3d``):
+    :func:`block_arrays`, then the operator as :func:`build_slab` builds
+    it, its ``slab`` the block's origin and the global cell counts."""
+    a = block_arrays(s, degree, coords, mesh_shape)
+    return _build(a, (a["origin"], a["nc_global"]), halo_axes(mesh_shape),
+                  degree, dtype, backend, precision, windowing, metric,
+                  device)
+
+
+def _build(a: dict, slab: tuple, halo: tuple, degree: int, dtype, backend,
+           precision, windowing, metric, device) -> SlabProblem:
     p, q = degree, degree + 2
     co = a["coeffs"].reshape(-1, 8, 3)
     if backend == "structured":
         shape = lagrange.make_shape(p, q)
         w = shape.q_weights
         w3 = w[:, None, None] * w[None, :, None] * w[None, None, :]
-        L, ncy, ncx = a["n_cells_axis"]
+        lz, ly, lx = a["n_cells_axis"]
 
         def t(x):
             return torch.as_tensor(np.ascontiguousarray(x)).to(device=device,
@@ -227,7 +313,7 @@ def build_slab(s: int, degree: int, rank: int, n_ranks: int,
         op = laplace_structured.StructuredOperatorData(
             values=t(shape.values), d_col=t(shape.d_col),
             q_pts=t(shape.q_points), w3=t(w3.reshape(1, q, 1, q, 1, q)),
-            coeffs=t(co.reshape(L, 1, ncy, 1, ncx, 1, 8, 3)),
+            coeffs=t(co.reshape(lz, 1, ly, 1, lx, 1, 8, 3)),
             mask=t(a["mask"]))
     elif backend == "pallas":
         shape = lagrange.make_shape(p, q)
@@ -238,14 +324,14 @@ def build_slab(s: int, degree: int, rank: int, n_ranks: int,
             precision, dtype, device,
             gmetric=(laplace_cuda.metric_entries(co, shape.q_points, w3)
                      if metric == "precomputed" else None),
-            factor="dense", windowing=windowing,
-            slab=(a["z0"], a["ncz_global"]))
+            factor="dense", windowing=windowing, slab=slab)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    return _slab_problem(op, a, dtype, device, backend)
+    return _slab_problem(op, a, dtype, device, backend, halo)
 
 
-def _slab_problem(op, a: dict, dtype, device, backend: str) -> SlabProblem:
+def _slab_problem(op, a: dict, dtype, device, backend: str,
+                  halo: tuple = ((1, 0),)) -> SlabProblem:
     vec = torch.float32 if dtype == torch.bfloat16 else op.dtype
 
     def t(x, to):
@@ -255,19 +341,24 @@ def _slab_problem(op, a: dict, dtype, device, backend: str) -> SlabProblem:
     return SlabProblem(op=op, inv_diag=t(a["inv_diag"], dtype),
                        b=t(a["b"], dtype), weight=t(a["weight"], vec),
                        n_dofs=a["n_dofs"], n_cells=a["n_cells"],
-                       backend=backend)
+                       backend=backend, halo=halo)
 
 
-def _halo_sum(comm: comm_mod.Comm, v: torch.Tensor) -> torch.Tensor:
-    """Complete the shared planes' partial sums (``_halo_sum``): the upper
-    slab's plane-0 partial is added to this slab's top plane, and the
-    completed top plane replaces the upper slab's stale plane 0."""
-    recv = comm.shift([v[:, 0]], up=False)
-    if recv is not None:
-        v[:, -1] += recv[0]
-    recv = comm.shift([v[:, -1]], up=True)
-    if recv is not None:
-        v[:, 0] = recv[0]
+def _halo_sum(comm: comm_mod.Comm, v: torch.Tensor,
+              halo: tuple) -> torch.Tensor:
+    """Complete the shared faces' partial sums along each axis of ``halo``
+    in turn (``_halo_sum_axis``): the upper neighbour's face-0 partial is
+    added to this rank's top face, and the completed top face replaces the
+    upper neighbour's stale face 0.  Each face is whole, the ghost rows of
+    the other axes included, so an edge or corner node sums over every
+    rank that holds it."""
+    for dim, axis in halo:
+        recv = comm.shift([v.select(dim, 0)], up=False, axis=axis)
+        if recv is not None:
+            v.select(dim, -1).add_(recv[0])
+        recv = comm.shift([v.select(dim, -1)], up=True, axis=axis)
+        if recv is not None:
+            v.select(dim, 0).copy_(recv[0])
     return v
 
 
@@ -279,14 +370,15 @@ def _apply(op, u: torch.Tensor, backend: str) -> torch.Tensor:
 
 def dist_vmult(slab: SlabProblem, comm: comm_mod.Comm, u: torch.Tensor,
                constrained_identity: bool = True) -> torch.Tensor:
-    """The operator on a slab vector (C, Pp+1, Ny, Nx) (``dist_vmult``,
-    without ``overlap``): the masked local apply — B3 on the slab's cell
-    batches (``reshape``), B5 or B6 with the slab's mask (``pieces``,
-    ``zslab``), or the structured operator —, the halo sum (two shifts),
-    the mask again; plus u at the constrained nodes when
-    ``constrained_identity``."""
+    """The operator on a slab or block vector (``dist_vmult``, without
+    ``overlap``; ``dist_vmult_2d``, ``solve_3d``'s ``a_fn``): the masked
+    local apply — B3 on the cell batches (``reshape``), B5 or B6 with the
+    rank's mask (``pieces``, ``zslab``), or the structured operator —, the
+    halo sum (two shifts an axis of ``slab.halo``), the mask again; plus u
+    at the constrained nodes when ``constrained_identity``."""
     mask = slab.op.mask
-    raw = _halo_sum(comm, _apply(slab.op, u * mask, slab.backend))
+    raw = _halo_sum(comm, _apply(slab.op, u * mask, slab.backend),
+                    slab.halo)
     v = raw * mask
     if constrained_identity:
         v = v + u * (1.0 - mask)
@@ -296,10 +388,11 @@ def dist_vmult(slab: SlabProblem, comm: comm_mod.Comm, u: torch.Tensor,
 def solve(slab: SlabProblem, comm: comm_mod.Comm, solver: str = "merged",
           max_iter: int = 100, rel_tol: float = 1e-8) -> SolveResult:
     """The rank's part of a distributed merged or baseline CG solve
-    (``distributed.solve``); x is the rank's slab.  The merged solver makes
-    one all-reduce an iteration (its 7 sums) and one for res0, beside the
-    two shifts of each operator apply; the baseline solver one a dot
-    product, 3 an iteration and 2 to start."""
+    (``distributed.solve``, ``solve_2d``, ``solve_3d``); x is the rank's
+    slab or block.  The merged solver makes one all-reduce an iteration
+    (its 7 sums, over every rank of the mesh) and one for res0, beside the
+    two shifts an axis of each operator apply; the baseline solver one a
+    dot product, 3 an iteration and 2 to start."""
     if slab.b.dtype == torch.bfloat16:
         raise NotImplementedError(
             f"the merged and baseline solvers with a bf16 state are "
@@ -325,23 +418,59 @@ def gather_global(slabs, nz: int | None = None) -> torch.Tensor:
     return full if nz is None else full[:, :nz]
 
 
+def gather_global_3d(blocks, mesh_shape, nz: int | None = None,
+                     ny: int | None = None,
+                     nx: int | None = None) -> torch.Tensor:
+    """Rank blocks (C, Pz+1, Py+1, Px+1) of a (Dz, Dy, Dx) mesh, in rank
+    order (row-major), -> the global (C, Nz, Ny, Nx) vector
+    (``gather_global_3d``): each block's shared faces dropped after the
+    first along each axis; ``nz``, ``ny``, ``nx`` trim trailing dummy
+    nodes."""
+    dz, dy, dx = _mesh3(mesh_shape)
+    it = iter(blocks)
+    grid = [[[next(it) for _ in range(dx)] for _ in range(dy)]
+            for _ in range(dz)]
+
+    def join(parts, dim):
+        return torch.cat([parts[0]] + [v.narrow(dim, 1, v.shape[dim] - 1)
+                                       for v in parts[1:]], dim=dim)
+
+    full = join([join([join(row, 3) for row in plane], 2) for plane in grid],
+                1)
+    return full[:, :nz, :ny, :nx]
+
+
+def gather_global_2d(blocks, mesh_shape, nz: int | None = None,
+                     ny: int | None = None) -> torch.Tensor:
+    """Rank blocks (C, Pz+1, Py+1, Nx) of a (Dz, Dy) mesh -> the global
+    vector (``gather_global_2d``)."""
+    return gather_global_3d(blocks, mesh_shape, nz, ny)
+
+
 # ---------------------------------------------------------------------------
 # runs on the ranks
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class Job:
-    """One distributed run, the same on every rank: the slab problem and
-    what to do with it.
+    """One distributed run, the same on every rank: the problem and what to
+    do with it.
 
     ``solver``: ``"merged"``, ``"baseline"``, ``"fused"`` (a solve) or
-    ``"matvec"`` (one :func:`dist_vmult` of b).  ``timed``: on a card, also
-    the solve's time (minimum over ``solve_repeats``) and the operator's
-    (``matvec_inner`` back-to-back applies, minimum over
+    ``"matvec"`` (one :func:`dist_vmult` of b).  ``mesh_shape``: the rank
+    grid — None for z-slabs over all ranks, (Dz, Dy) or (Dz, Dy, Dx) for
+    blocks (:func:`build_block`), or with ``two_level`` an (n_slices,
+    chips) grid the z-slabs run over, slab k on slice k // chips (the
+    fused solver only, as ``build_dist_fused_2level``).  ``x0``: the fused
+    z-slab solve's start, a global (C, Nz, Ny, Nx) array of which each
+    rank takes its slab (``solve_fused``'s ``x0``).  ``timed``: on a card,
+    also the solve's time (minimum over ``solve_repeats``) and the
+    operator's (``matvec_inner`` back-to-back applies, minimum over
     ``matvec_repeats``; the fused path with ``metric="onthefly"`` on its
     precomputed-metric twin, as the JAX ``run_one_distributed`` times
     it).  ``arrays``: per-rank arrays in place of the rank's own build
-    (``models/bp4.slab_from_jax_arrays``'s keywords).
+    (``models/bp4.slab_from_jax_arrays``' or ``block_from_jax_arrays``'
+    keywords).
     """
 
     solver: str
@@ -358,19 +487,41 @@ class Job:
     solve_repeats: int = 4
     matvec_repeats: int = 2
     matvec_inner: int = 50
+    mesh_shape: tuple | None = None
+    two_level: bool = False
     arrays: tuple | None = field(default=None, compare=False)
+    x0: Any = field(default=None, compare=False)
 
-    def build(self, rank: int, n_ranks: int,
-              device: torch.device) -> SlabProblem:
+    def mesh(self, n_ranks: int) -> tuple[int, ...]:
+        """The rank grid on ``n_ranks`` ranks."""
+        return tuple(self.mesh_shape or (n_ranks,))
+
+    @property
+    def blocks(self) -> bool:
+        """The ranks hold blocks of a (z, y) or (z, y, x) mesh."""
+        return self.mesh_shape is not None and not self.two_level
+
+    def build(self, comm: comm_mod.Comm) -> SlabProblem:
+        """This rank's slab or block (``comm``'s grid set to the job's)."""
         if self.arrays is not None:
             from mf_data_locality_tpu_torch.models import bp4
 
-            return bp4.slab_from_jax_arrays(**self.arrays[rank],
-                                            device=device)
+            make = (bp4.block_from_jax_arrays if self.blocks
+                    else bp4.slab_from_jax_arrays)
+            return make(**self.arrays[comm.rank], device=comm.device)
         windowing = "pieces" if self.solver == "fused" else self.windowing
-        return build_slab(self.s, self.degree, rank, n_ranks, self.dtype,
-                          self.backend, self.precision, windowing,
-                          self.metric, device)
+        args = (self.dtype, self.backend, self.precision, windowing,
+                self.metric, comm.device)
+        if self.blocks:
+            return build_block(self.s, self.degree, comm.coords,
+                               comm.mesh_shape, *args)
+        return build_slab(self.s, self.degree, comm.rank, comm.size, *args,
+                          axis=(0, 1) if self.two_level else 0)
+
+    def nodes_axis(self) -> tuple[int, int, int]:
+        """The global lattice's nodes an axis."""
+        return tuple(n * self.degree + 1
+                     for n in BoxMesh.from_s(self.s).n_cells_axis)
 
 
 def _launches() -> dict[str, int]:
@@ -382,18 +533,30 @@ def _zero_launches() -> None:
         fn.launches = 0
 
 
+def _slab_of(u, slab: SlabProblem) -> torch.Tensor:
+    """The z-slab of a global (C, Nz, Ny, Nx) array on ``slab``'s planes,
+    zero past the global top, on its device."""
+    z0 = slab.op.slab[0][0] * slab.op.degree
+    n = slab.b.shape[1]
+    u = laplace_cuda.host_tensor(u)[:, z0:z0 + n]
+    u = torch.nn.functional.pad(u, (0, 0, 0, 0, 0, n - u.shape[1]))
+    return u.to(device=slab.b.device, dtype=slab.op.dtype).contiguous()
+
+
 def _run_job(comm: comm_mod.Comm, job: Job) -> dict[str, Any]:
     from mf_data_locality_tpu_torch.parallel import dist_fused
     from mf_data_locality_tpu_torch.utils import timing
 
-    slab = job.build(comm.rank, comm.size, comm.device)
+    comm.set_mesh(job.mesh(comm.size))
+    slab = job.build(comm)
     if job.solver == "matvec":
         comm.reset()
         _zero_launches()
         v = dist_vmult(slab, comm, slab.b)
         return dict(x=v.cpu(), shifts=comm.shifts, launches=_launches())
     if job.solver == "fused":
-        solve_fn = partial(dist_fused.solve_fused, slab, comm,
+        x0 = None if job.x0 is None else _slab_of(job.x0, slab)
+        solve_fn = partial(dist_fused.solve_fused, slab, comm, x0=x0,
                            max_iter=job.max_iter, rel_tol=job.rel_tol)
     else:
         solve_fn = partial(solve, slab, comm, job.solver,
@@ -416,9 +579,7 @@ def _run_job(comm: comm_mod.Comm, job: Job) -> dict[str, Any]:
                                               warmup=0)
         mv = slab
         if job.solver == "fused" and job.metric == "onthefly":
-            mv = build_slab(job.s, job.degree, comm.rank, comm.size,
-                            job.dtype, "pallas", job.precision, "pieces",
-                            "precomputed", dev)
+            mv = replace(job, metric="precomputed").build(comm)
         out["matvec_s"] = timing.time_per_call(
             lambda: dist_vmult(mv, comm, mv.b), dev, inner=job.matvec_inner,
             repeats=job.matvec_repeats)
@@ -428,26 +589,30 @@ def _run_job(comm: comm_mod.Comm, job: Job) -> dict[str, Any]:
 
 def run_jobs(comm: comm_mod.Comm, jobs: tuple[Job, ...]) -> list[dict]:
     """The rank target: every job in turn on this rank; a result dict a
-    job (the rank's x slab, itCG, residual and history; of its first solve
-    the collectives, the kernel launches, the host wall seconds and those
-    in the collectives, ``Comm.seconds``; the times of a timed job)."""
+    job (the rank's x slab or block, itCG, residual and history; of its
+    first solve the collectives, the kernel launches, the host wall
+    seconds and those in the collectives, ``Comm.seconds``; the times of a
+    timed job)."""
     return [_run_job(comm, job) for job in jobs]
 
 
 def launch(jobs, n_ranks: int, device: str = "cuda") -> list[dict]:
     """Run ``jobs`` on ``n_ranks`` rank processes (:func:`comm.run`); per
     job the ranks' results merged: ``x`` the global vector
-    (:func:`gather_global`, dummy planes trimmed), ``it``, ``res``,
-    ``history`` and ``converged`` of rank 0 (every rank's itCG must agree),
-    ``ranks`` every rank's dict, and the slowest rank's times."""
+    (:func:`gather_global` or, for blocks, :func:`gather_global_3d`, dummy
+    nodes trimmed), ``it``, ``res``, ``history`` and ``converged`` of rank
+    0 (every rank's itCG must agree), ``ranks`` every rank's dict, and the
+    slowest rank's times."""
     jobs = tuple(jobs)
     per_rank = comm_mod.run(run_jobs, n_ranks, (jobs,), device)
     out = []
     for j, job in enumerate(jobs):
         rs = [r[j] for r in per_rank]
-        nz = BoxMesh.from_s(job.s).n_cells_axis[0] * job.degree + 1
-        merged = dict(rs[0], ranks=rs,
-                      x=gather_global([r["x"] for r in rs], nz))
+        nz, ny, nx = job.nodes_axis()
+        xs = [r["x"] for r in rs]
+        x = (gather_global_3d(xs, job.mesh(n_ranks), nz, ny, nx)
+             if job.blocks else gather_global(xs, nz))
+        merged = dict(rs[0], ranks=rs, x=x)
         if job.solver != "matvec":
             its = {r["it"] for r in rs}
             if len(its) != 1:
@@ -457,4 +622,3 @@ def launch(jobs, n_ranks: int, device: str = "cuda") -> list[dict]:
                 merged[key] = max(r[key] for r in rs)
         out.append(merged)
     return out
-

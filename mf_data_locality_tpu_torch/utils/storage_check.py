@@ -9,7 +9,10 @@ bf16: ``csrc/cg_fused_px.cu`` and the passes' ``kLatticeUpdatePx`` / ``PX``
 forms).  ``--parent DIR``: first builds the kernels of another checkout
 (the parent commit's ``git archive`` unpacked in DIR) in a process of its
 own, then compares every instantiation the two builds share, registers
-and spills, and prints how many are equal.
+and spills, and prints how many are equal; B2's block form
+(``kLatticeUpdateBlock``, the assemble and backward passes' BLOCK) is
+counted apart, since its names are those of the z-slab form it replaced
+(form 4, the last template argument true) and its code is not.
 
 Then, on a 3 x 5 x 7 box at every degree 1..11 and in every configuration
 of ``laplace_cuda.fused_configs`` under ``highest`` (f32, f64), split2m,
@@ -86,6 +89,16 @@ def _is_px(name: str) -> bool:
                 or re.search(r"assemble_kernelI.*Lb1ELb0EEEv", name))
 
 
+def _is_block(name: str) -> bool:
+    """An instantiation of B2's block form: the kLatticeUpdateBlock form
+    (4) of the FORM passes, or the assemble or dense backward pass with
+    BLOCK (the last template argument) true."""
+    return bool(re.search(r"(apply_sumfac_kernelI[fd]|apply_mma_kernelI|"
+                          r"dense_hd_gather_kernelI)Li\d+ELi4E", name)
+                or re.search(r"(assemble_kernelI|dense_hd_backward_kernelI)"
+                             r".*Lb1EEEv", name))
+
+
 def build_report(parent: str | None) -> bool:
     ok = True
     base = None
@@ -114,20 +127,37 @@ def build_report(parent: str | None) -> bool:
     print(f"PX instantiations: {len(px)}")
     for k, v in sorted(px.items()):
         print(f"  ptxas {k[:96]} regs {v[0]} spill {v[1]}/{v[2]}")
+    blocks = {k: v for k, v in table.items() if _is_block(k)}
+    print(f"block-form instantiations: {len(blocks)}, spilling "
+          f"{sum(1 for v in blocks.values() if v[1] or v[2])}")
     if base is not None:
         same = diff = 0
         for k, v in table.items():
             b = base.get(k, base.get(_unpx(k)))
-            if b is None:
+            if b is None or k in blocks:
                 continue
             if b == v:
                 same += 1
             else:
                 diff += 1
                 print(f"  CHANGED {k[:96]}: {b} -> {v}")
-        print(f"instantiations shared with the parent: {same + diff}, "
-              f"equal {same}, changed {diff}; parent's not found "
-              f"{len(set(base) - {_unpx(k) for k in table} - set(table))}")
+        print(f"instantiations shared with the parent (the block form "
+              f"apart): {same + diff}, equal {same}, changed {diff}; "
+              f"parent's not found "
+              f"{len(set(base) - {_unpx(k) for k in table} - set(table))}; "
+              f"the parent's of the block form's names "
+              f"{sum(1 for k in blocks if k in base)}")
+        pairs = [(base[k], v) for k, v in blocks.items() if k in base]
+        print(f"  the block form against the parent's instantiation of its "
+              f"name: registers equal "
+              f"{sum(1 for b, v in pairs if v[0] == b[0])}, more "
+              f"{sum(1 for b, v in pairs if v[0] > b[0])} (at most +"
+              f"{max([v[0] - b[0] for b, v in pairs] + [0])}), fewer "
+              f"{sum(1 for b, v in pairs if v[0] < b[0])}; spilling "
+              f"{sum(1 for b, v in pairs if v[1] or v[2])} against "
+              f"{sum(1 for b, v in pairs if b[1] or b[2])}, spill bytes "
+              f"{sum(v[1] + v[2] for b, v in pairs)} against "
+              f"{sum(b[1] + b[2] for b, v in pairs)}")
         ok = diff == 0
     return ok
 

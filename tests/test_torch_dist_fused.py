@@ -1,7 +1,8 @@
-"""PyTorch port: the distributed fused CG (B2's slab form) on gloo CPU
-ranks against the JAX package's ``parallel.dist_fused.solve_fused``.
+"""PyTorch port: the distributed fused CG (B2's block form on z-slabs) on
+gloo CPU ranks against the JAX package's ``parallel.dist_fused.
+solve_fused``.
 
-The port's ranks (``parallel/comm.py``) run the plain slab-form iteration
+The port's ranks (``parallel/comm.py``) run the plain block-form iteration
 (``cg_fused_kernel._fused_iteration_plain`` on slab operators); the JAX
 side runs its fused kernel in interpret mode under ``shard_map`` on the 8
 virtual CPU devices of ``tests/conftest.py``, at the sizes of
