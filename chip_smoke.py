@@ -172,9 +172,22 @@ Phases (each raises on failure, so any failure exits nonzero):
    (``launches_slab``, ``launches_dist``, ``launches_block2d``,
    ``launches_block3d``) and true residual, beside the single-device
    fused split2m path at s=15 (auto, and dense with the streamed metric);
-   and ``dryrun_multichip(4)``'s and ``(8)``'s legs (1-3 and 5-8, in the
+   and ``dryrun_multichip(4)``'s and ``(8)``'s legs (1-8, in the
    same spawns as the 4- and 8-rank drives; B2's launches in each fused
-   leg, ``launches_dryrun``); section 8's wall time.
+   leg, ``launches_dryrun``); section 8's wall time.  The overlap (PR
+   15): B2's layer-range form (``bp4_fused_iteration_block``'s cell pass
+   over a range of cells, then its node passes) bitwise against the one
+   launch and against its plain version on rank 1 of the 4 z-slabs at p=4
+   s=15 and at p=6 s=12 (f64 and f32 highest, split2m dense; the metric
+   streamed and rebuilt), timed at p=4 s=15 beside the one launch (the
+   ``fused_cg_iteration_range`` row); B3/B5/B6 on the overlapped apply's
+   layer ranges against their plain versions; at p=4 s=15 on 4 ranks the
+   CLI's merged reshape f32 highest with ``--overlap`` and
+   ``solve_fused(overlap=True)`` split2m dense beside the same solves
+   without it in the same spawn (fused: x and history bitwise; merged:
+   itCG equal, x within TOL_OVERLAP_X32), each rank's face wait an
+   iteration with and without; ``--backend general --devices 4`` at p=4
+   s=12 and dry-run leg 4 (the general backend, plain PyTorch).
 """
 
 from __future__ import annotations
@@ -1694,6 +1707,204 @@ def _true_residual(fk, pb, r: dict, label: str) -> None:
                              f"is not its estimate")
 
 
+# B2's layer-range form (section 8; the overlapped fused solve's): the cell
+# pass over the cell layers [0, n-1), then over [n-1, n), then one
+# assemble (``fused_cg_iteration(cells=)``, ``fused_cg_assemble``),
+# against the one launch bitwise and against the plain version at the
+# rung's tolerance, on rank 1 of RANGE_CASES' z-slabs (p=4 s=15: 8 layers;
+# p=6 s=12: 4 layers) under RANGE_RUNGS, the metric streamed and rebuilt;
+# timed at DIST_FULL under SLAB_TIMED beside the one launch
+RANGE_CASES = ((4, 15, 4), (6, 12, 4))  # (p, s, ranks)
+RANGE_RUNGS = (("highest", torch.float64), ("highest", torch.float32),
+               ("split2m", torch.float32))
+# the overlapped merged solve (f32, 100 iterations, the cap) against the
+# one without overlap in the same spawn: the sums at the layer seams are
+# taken in another order, and CG carries the difference into x; the bound
+# on max |x - x_plain| / max(1, |x|) (read: 1.14e-6, PERF.md §6)
+TOL_OVERLAP_X32 = 1e-4
+# --backend general --devices 4 at p=4 (section 8), short: 4,096 cells
+GENERAL_S = 12
+
+
+def range_iteration(fk, op, state, work, cut: int, out=None):
+    """B2's layer-range form on ``state`` (x, g, d, h, scal, prec): the
+    cell passes over [0, cut) and [cut, ncz), then the assemble."""
+    out = out or tuple(torch.empty_like(t) for t in state[:5])
+    for cells in ((0, cut), (cut, op.n_cells_axis[0])):
+        fk.fused_cg_iteration(op, *state, out=out, work=work, cells=cells)
+    return fk.fused_cg_assemble(op, out, state[5], state[4], work)
+
+
+def _rank_state(op, dev, seed: int):
+    x, g, d, h = random_state(op, 4, seed=seed)
+    prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
+            * op.mask).contiguous()
+    scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                        dtype=op.dtype, device=dev)
+    return x, g, d, h, scal, prec
+
+
+def compare_range_form(fk, dev) -> dict:
+    """The layer-range form against the one launch (bitwise) and the plain
+    version at RANGE_CASES x RANGE_RUNGS x both metrics; returns the
+    largest plain-version reading a rung."""
+    worst = {}
+    for p, s, n in RANGE_CASES:
+        for rung, dtype in RANGE_RUNGS:
+            for metric in ("precomputed", "onthefly"):
+                op = _slab_op(s, p, 1, n, dtype, rung, metric, dev)
+                state = _rank_state(op, dev, 90 + p)
+                tag = (f"layer-range p={p} s={s} rank 1/{n} {rung} "
+                       f"{str(dtype)[6:]} {metric}")
+                one = fk.fused_cg_iteration(op, *state)
+                ncz = op.n_cells_axis[0]
+                for cut in (ncz - 1, 1):
+                    got = range_iteration(fk, op, state, fk.Workspace(op),
+                                          cut)
+                    if not all(torch.equal(a, b) for a, b in zip(got, one)):
+                        raise AssertionError(f"{tag}, cut {cut}: not the "
+                                             f"one launch bitwise")
+                want = fk._fused_iteration_plain(op, *state)
+                r = (compare("fused_cg_iteration", got, want, dtype, tag,
+                             quiet=True)[0] if rung == "highest" else
+                     compare_rung("fused_cg_iteration", got, want, rung,
+                                  tag, quiet=True)["rel"])
+                key = (rung, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), r)
+                del op, state, one, got, want
+        torch.cuda.empty_cache()
+    for (rung, dt), err in worst.items():
+        print(f"  fused_cg_iteration layer-range form {rung} {dt} (rank 1 "
+              f"of {[c[:2] for c in RANGE_CASES]}, both metrics, cuts n-1 "
+              f"and 1): bitwise the one launch; vs plain max rel err "
+              f"{err:.3e}")
+    return worst
+
+
+def time_range_form(fk, dev, timing) -> dict:
+    """The layer-range form on rank 1 of DIST_FULL's z-slabs (dense, the
+    metric streamed) under SLAB_TIMED, compared with and timed beside its
+    plain version (the plain cell and assemble passes) and the one launch
+    in turns; returns {suffix: ((kernel ms, plain ms), bound, max |diff|,
+    one-launch ms)}."""
+    p, s, n = DIST_FULL
+    out = {}
+    for rung, dtype, sfx in SLAB_TIMED:
+        op = _slab_op(s, p, 1, n, dtype, rung, "precomputed", dev)
+        state = _rank_state(op, dev, 11)
+        ncz = op.n_cells_axis[0]
+        work = fk.Workspace(op)
+        bufs = tuple(torch.empty_like(t) for t in state[:5])
+        want = fk._fused_iteration_plain(op, *state)
+        _, diff = compare("fused_cg_iteration",
+                          range_iteration(fk, op, state, work, ncz - 1),
+                          want, dtype, f"layer-range {rung} {dtype}")
+
+        def plain():
+            fk._cells_plain(op, *state, bufs, work, 0, ncz - 1)
+            fk._cells_plain(op, *state, bufs, work, ncz - 1, ncz)
+            fk._assemble_plain(op, bufs, state[5], work)
+
+        t = time_pair(lambda: range_iteration(fk, op, state, work, ncz - 1,
+                                              bufs), plain, dev, timing)
+        t_one = min(timing.time_per_call(
+            lambda: fk.fused_cg_iteration(op, *state, out=bufs, work=work),
+            dev, inner=20, repeats=3) for _ in range(2)) * 1e3
+        b = bound("fused_cg_iteration", op, split=rung != "highest")
+        print(f"  fused_cg_iteration layer-range form p={p} s={s} rank "
+              f"1/{n} {rung} {str(dtype)[6:]} (cells [0, {ncz - 1}) + "
+              f"[{ncz - 1}, {ncz}) + assemble): kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); the one "
+              f"launch {t_one:.4f} ms")
+        out[sfx] = t, b, diff, t_one
+        del op, state, work, bufs, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_sub_applies(la, dev) -> None:
+    """B3/B5/B6 on rank 1 of DIST_FULL's z-slabs and on the operators of
+    the overlapped apply's three layer ranges of it
+    (``laplace_cuda.sub_operator``) against their plain versions, f32
+    highest and split2m (on a block's lattice B5/B6 keep the faces'
+    partial sums)."""
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    p, s, n = DIST_FULL
+    names = {"reshape": "apply_local_batched_g",
+             "pieces": "apply_lattice_pieces", "zslab": "apply_lattice_zslab"}
+    worst = {}
+    for rung in ("highest", "split2m"):
+        for windowing, name in names.items():
+            op = distributed.build_slab(s, p, 1, n, torch.float32, "pallas",
+                                        rung, windowing, "precomputed",
+                                        dev).op
+            u = random_state(op, 1, seed=13)[0]
+            ncz = op.n_cells_axis[0]
+            for c0, c1 in ((0, ncz), (0, 1), (1, ncz - 1), (ncz - 1, ncz)):
+                sub = laplace_cuda.sub_operator(op, c0, c1)
+                us = u[:, c0 * p:c1 * p + 1].contiguous()
+                got = la.apply_lattice(sub, us)
+                if windowing == "reshape":  # B3 between the windowings
+                    want = la.from_cell_batches(la._batched_plain(
+                        sub, la.to_cell_batches(us, p), la._metric(sub),
+                        True), p, sub.n_cells_axis)
+                else:  # B5, B6 on the sub-range's mask
+                    want = la._lattice_plain(sub, us, sub.mask)
+                err = compare(name, got, want, torch.float32,
+                              f"{rung} layers [{c0}, {c1})", quiet=True)[0]
+                worst[name, rung] = max(worst.get((name, rung), 0.0), err)
+            del op, u
+    print("  B3/B5/B6 on rank 1/4 at p=4 s=15 and on the overlapped "
+          "apply's layer ranges [0, 1), [1, n-1), [n-1, n) of it vs plain: "
+          + ", ".join(
+              f"{k[0]} {k[1]} {v:.3e}" for k, v in worst.items()))
+
+
+def overlap_readings(out: dict) -> dict:
+    """The overlapped drives against the ones without overlap in the same
+    spawn: the fused solve bitwise (x, history, itCG), the merged one with
+    itCG equal and x within TOL_OVERLAP_X32; the launches of the first
+    solve (the layer-range form: two cell passes and one assemble an
+    iteration a rank; the merged apply three B3 launches); each rank's
+    face wait (``Comm.seconds["wait"]``) an iteration, the slowest rank's.
+    Returns {"wait_ms": {label: ms}, "x_err": merged reading}."""
+    import numpy as np
+
+    n = len(out["fused"]["ranks"])
+    a, b = out["fused"], out["fused_overlap"]
+    if not (a["it"] == b["it"] and torch.equal(a["x"], b["x"])
+            and np.array_equal(a["history"], b["history"], equal_nan=True)):
+        raise AssertionError("solve_fused(overlap=True) is not the solve "
+                             "without it bitwise")
+    ls = {k: sum(r["launches_solve"][k] for r in b["ranks"])
+          for k in ("fused_cg_iteration", "fused_cg_assemble")}
+    if ls != {"fused_cg_iteration": 2 * n * b["it"],
+              "fused_cg_assemble": n * b["it"]}:
+        raise AssertionError(f"fused overlap launches {ls}")
+    a, b = out["merged"], out["merged_overlap"]
+    x_err = ((b["x"] - a["x"]).abs().max()
+             / max(1.0, a["x"].abs().max().item())).item()
+    nb3 = sum(r["launches_solve"]["apply_local_batched_g"]
+              for r in b["ranks"])
+    print(f"  overlap: fused split2m x and history bitwise the solve "
+          f"without (itCG {out['fused_overlap']['it']}; B2 launches "
+          f"{ls}); merged itCG {b['it']} vs {a['it']}, x {x_err:.3e} "
+          f"max(1, |x|) from the solve without (tol {TOL_OVERLAP_X32:.0e}), "
+          f"B3 launches {nb3} (3 layer ranges an apply)")
+    if not (a["it"] == b["it"] and x_err <= TOL_OVERLAP_X32
+            and nb3 == 3 * n * b["it"]):
+        raise AssertionError("the overlapped merged solve disagrees")
+    wait = {label: max(r["comm_s"]["wait"] for r in out[label]["ranks"])
+            / out[label]["it"] * 1e3
+            for label in ("merged", "merged_overlap", "fused",
+                          "fused_overlap")}
+    print("  face wait an iteration (the slowest rank's, first solve): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in wait.items()))
+    return {"wait_ms": wait, "x_err": x_err}
+
+
 def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     """f64 parity on DIST_RANKS z-slab ranks and on the MESH_FULL meshes,
     the DIST_FULL drives beside the single-device fused split2m path at
@@ -1735,7 +1946,19 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                 "fused_onthefly": Job("fused", s_full, p_full, f32,
                                       "pallas", "split2m",
                                       metric="onthefly", timed=True,
-                                      solve_repeats=2)}}
+                                      solve_repeats=2),
+                # --overlap: the CLI's merged solve, and solve_fused's
+                "merged_overlap": Job("merged", s_full, p_full, f32,
+                                      timed=True, solve_repeats=2,
+                                      overlap=True),
+                "fused_overlap": Job("fused", s_full, p_full, f32,
+                                     "pallas", "split2m", timed=True,
+                                     solve_repeats=2, overlap=True),
+                # --backend general --devices 4, short
+                "general": Job("merged", GENERAL_S, p_full, f32,
+                               backend="general", timed=True,
+                               solve_repeats=1, matvec_repeats=1,
+                               matvec_inner=10)}}
     parity = {}
     for sfx, s_mesh, mesh in MESH_FULL:
         n = math.prod(mesh)
@@ -1770,7 +1993,7 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         dry = res[3 + len(drives):]
         dryrun.report(n, legs, dry)
         for leg, r in zip(legs, dry):
-            if leg in (1, 5):
+            if leg in (1, 4, 5):  # the structured and general backends
                 continue
             launches_dry[n, leg] = sum(
                 x["launches_solve"]["fused_cg_iteration"] for x in r["ranks"])
@@ -1782,7 +2005,7 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     # the solutions: |b - A x| by one device's operator of the same
     # configuration against the distributed solve's residual estimate
     pb = bp4.build(s_full, p_full, f32, "highest", device=dev)
-    for label in ("merged", "merged_block2d"):
+    for label in ("merged", "merged_overlap", "merged_block2d"):
         _true_residual(fk, pb, out[label], label)
     del pb
     pb = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
@@ -1793,7 +2016,7 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     dense_pre = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
                           metric="precomputed", windowing="pieces",
                           device=dev)
-    for label in ("fused", "fused_block2d"):
+    for label in ("fused", "fused_overlap", "fused_block2d"):
         _true_residual(fk, dense_pre, out[label], label)
     pb = bp4.build(MESH_FULL[1][1], p_full, f32, "split2m", factor="dense",
                    metric="onthefly", windowing="pieces", device=dev)
@@ -1812,7 +2035,12 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     del dense_pre
     print(f"  the solutions and one device ({time.perf_counter() - t0:.1f} "
           f"s)")
+    overlap = overlap_readings(out)
     for label, kern in (("merged", "apply_local_batched_g"),
+                        ("merged_overlap", "apply_local_batched_g"),
+                        ("fused_overlap", "fused_cg_iteration"),
+                        ("fused_overlap", "fused_cg_assemble"),
+                        ("fused_overlap", "apply_lattice_pieces"),
                         ("fused", "fused_cg_iteration"),
                         ("fused", "apply_lattice_pieces"),
                         ("fused_onthefly", "fused_cg_iteration"),
@@ -1822,7 +2050,7 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         if not launches[label][kern]:
             raise AssertionError(f"the distributed {label} path launched "
                                  f"no {kern}")
-    return launches, rows, launches_dry
+    return launches, rows, launches_dry, overlap
 
 
 def main() -> int:
@@ -2551,9 +2779,14 @@ def main() -> int:
             sm, p8, (0,) * len(mesh), mesh, dt, rung, "precomputed", dev),
         sm, f"block p={p8} s={sm} {(0,) * len(mesh)} of {mesh}")
         for sfx, sm, mesh in MESH_FULL}
+    print("B2's layer-range form (the overlapped fused solve's) and "
+          "B3/B5/B6 on layer sub-ranges (the overlapped apply's):")
+    compare_range_form(fk, dev)
+    range_t = time_range_form(fk, dev, timing)
+    compare_sub_applies(la, dev)
     print("the distributed solvers (ranks: processes on this card, gloo):")
-    launches_dist, _, launches_dry = distributed_phase(benchmark, bp4,
-                                                       cg_fused, fk, dev)
+    launches_dist, _, launches_dry, overlap = distributed_phase(
+        benchmark, bp4, cg_fused, fk, dev)
     print(f"section 8: {time.perf_counter() - t8:.1f} s")
 
     # no single PyTorch call computes any of these functions (each is a
@@ -2691,6 +2924,27 @@ def main() -> int:
                                 f"launches{sfx}": launches_st[sfx][name],
                                 f"ms_f32{sfx}": storage["_f32" + run][0][0]})
         rows.append(row)
+    # B2's layer-range form (section 8): its launches those of the
+    # overlapped fused drive at DIST_FULL (an assemble per iteration a
+    # rank, after two cell passes), summed over its ranks
+    (k, pl), (bms, by), err, one = range_t[""]
+    row = {"name": "fused_cg_iteration_range", "route": "cuda",
+           "source": CSRC + "cg_fused_block.cu",
+           "replaces": "mf_data_locality_tpu/ops/cg_fused_kernel.py:1476",
+           "launches": launches_dist["fused_overlap"]["fused_cg_assemble"],
+           "max_abs_err": err, "ms": k, "plain_ms": pl, "bound_ms": bms,
+           "bound_by": by, "library_ms": None,
+           "p_s": list(DIST_FULL[:2]), "ranks": DIST_FULL[2],
+           "config": ["split2m", "dense", "precomputed"],
+           "ms_one_launch": one,
+           "launches_cell_passes": launches_dist["fused_overlap"][
+               "fused_cg_iteration"],
+           "overlap_wait_ms": overlap["wait_ms"],
+           "overlap_merged_x_err": overlap["x_err"]}
+    (k, pl), (bms, by), err, one = range_t["_f64"]
+    row.update(ms_f64=k, plain_ms_f64=pl, max_abs_err_f64=err,
+               bound_ms_f64=bms, bound_by_f64=by, ms_one_launch_f64=one)
+    rows.append(row)
     print("convergence rates: " + ", ".join(
         f"p={p} {rate:.4f}" for p, _, rate, _ in rates))
     print(f"wall time {time.perf_counter() - T0:.1f} s")

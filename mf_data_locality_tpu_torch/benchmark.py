@@ -50,11 +50,15 @@ reference's auto size ladder.
 joined by gloo, or with ``--device cpu`` on the CPU (the plain versions,
 no times); the operator is the dense factorization (the fused solver's
 metric streamed, or rebuilt with ``--geometry onthefly``), on every rung.
-``--overlap`` and ``--backend general`` with ``--devices`` raise
-NotImplementedError (ROADMAP.md queue A item 9b).  The (z, y), (z, y, x)
-and 2-level rank meshes, which the JAX CLI does not reach either, run
-through ``parallel.distributed.Job(mesh_shape=...)`` and
-``parallel/dryrun.py``.
+``--overlap`` overlaps the halo exchange with the interior cell layers'
+compute (the merged and baseline solves and the matvec column; with
+``--solver fused`` the matvec column only, as the JAX CLI, whose fused
+solve takes no ``overlap``: ``parallel.dist_fused.solve_fused(...,
+overlap=True)`` is the overlapped fused solve).  ``--backend general
+--devices N`` runs the merged or baseline CG over N cell-chunk ranks
+(``parallel/dist_general.py``).  The (z, y), (z, y, x) and 2-level rank
+meshes, which the JAX CLI does not reach either, run through
+``parallel.distributed.Job(mesh_shape=...)`` and ``parallel/dryrun.py``.
 
 The resolvers below are the JAX package's, verbatim.  Their speed
 rationale was measured on a TPU and stands for the H100 only until
@@ -421,8 +425,13 @@ def run_one_distributed(degree: int, s: int, n_devices: int,
     On a CUDA ``device`` the ranks share the card(s) and the times are
     the slowest rank's CUDA-event times; ``device="cpu"`` runs the ranks'
     plain versions on the CPU and measures no time (the row's times are
-    NaN).  ``overlap`` and ``backend="general"`` raise
-    NotImplementedError (ROADMAP.md queue A item 9b).
+    NaN).  ``overlap``, as the JAX harness (``mf_data_locality_tpu/
+    benchmark.py:391, 460, 475, 568``): the merged and baseline solves
+    and the matvec column boundary-first (``distributed.dist_vmult``); with
+    the fused solver the matvec column only (its solve takes none there,
+    ``:432``).  ``backend="general"``: the merged or baseline solver over
+    cell-chunk ranks (``parallel/dist_general.py``; ``overlap`` raises
+    ValueError there, which the JAX harness ignores).
     """
     from mf_data_locality_tpu_torch.parallel import comm, distributed
 
@@ -443,7 +452,9 @@ def run_one_distributed(degree: int, s: int, n_devices: int,
                           windowing, metric, timed=cuda,
                           solve_repeats=solve_repeats,
                           matvec_repeats=matvec_repeats,
-                          matvec_inner=matvec_inner)
+                          matvec_inner=matvec_inner,
+                          overlap=overlap and solver != "fused",
+                          overlap_matvec=overlap)
     out = distributed.launch([job], n_devices, str(device))[0]
     out["transport"] = comm.describe(n_devices, str(device))
     return dist_row(job, out), out
@@ -552,7 +563,9 @@ def main(argv: list[str] | None = None) -> None:
                          "single-device path)")
     ap.add_argument("--overlap", action="store_true",
                     help="overlap the halo exchange with interior compute "
-                         "(distributed path; not ported yet)")
+                         "(--devices N on z-slabs: the merged and baseline "
+                         "solves and the matvec column; with --solver "
+                         "fused the matvec column only, as the JAX CLI)")
     args = ap.parse_args(argv)
 
     if not 1 <= args.degree <= 11:

@@ -190,7 +190,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   auto& sm = *reinterpret_cast<MmaSmem<P, REBUILD>*>(smem_raw);
   const int nc = gr.n_cells();
   const size_t n_nodes = gr.n_nodes();
-  const int cell0 = blockIdx.x * kMmaBlockCells;
+  // the block form: the cells [gr.cbeg, gr.cend) (the layer-range form)
+  const int cend = is_block(FORM) ? gr.cend : nc;
+  const int cell0 = (is_block(FORM) ? gr.cbeg : 0) +
+                    blockIdx.x * kMmaBlockCells;
   const int tid = threadIdx.x;
 
   if constexpr (is_update(FORM)) {
@@ -202,7 +205,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int i = tid; i < 24 * kMmaBlockCells; i += blockDim.x) {
       const int b = i % kMmaBlockCells;
       sm.x.c24[i / kMmaBlockCells][b] =
-          cell0 + b < nc
+          cell0 + b < cend
               ? x.coeffs[static_cast<size_t>(i / kMmaBlockCells) * nc + cell0 + b]
               : 0.f;
     }
@@ -213,7 +216,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
               c = i / (kMmaBlockCells * P13P);
     const int cell = cell0 + b;
     float val = 0.f;
-    if (k < P13 && cell < nc) {
+    if (k < P13 && cell < cend) {
       if constexpr (FORM == kLattice) {
         float m;
         const size_t node = cell_node<P>(gr, cell, k, mask, &m);
@@ -293,7 +296,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
           const int ql = 8 * h + 2 * t4 + e2, qp = 16 * j + ql;
-          const bool live = qp < Q3 && cell < nc;
+          const bool live = qp < Q3 && cell < cend;
           float G[6];
 #pragma unroll
           for (int e = 0; e < 6; ++e) {
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int cell = tile0 + g + 8 * (i / 2), k = nt * 8 + 2 * t4 + i % 2;
-      if (cell >= nc || k >= P13) continue;
+      if (cell >= cend || k >= P13) continue;
       if constexpr (FORM != kCellBatch) {
         float m;
         cell_node<P, is_block(FORM)>(gr, cell, k, mask, &m);
@@ -362,8 +365,10 @@ cudaError_t launch_mma_here(const void* mf, const void* mb,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
-  const int blocks = (gr.n_cells() + kMmaBlockCells - 1) / kMmaBlockCells;
-  kern<<<blocks, kMmaThreads, sizeof(Sm), st>>>(
+  const int n = is_block(FORM) ? gr.cend - gr.cbeg : gr.n_cells();
+  if (n <= 0) return cudaSuccess;  // an empty range of the block form
+  kern<<<(n + kMmaBlockCells - 1) / kMmaBlockCells, kMmaThreads, sizeof(Sm),
+         st>>>(
       static_cast<const uint2*>(mf), static_cast<const uint2*>(mb), gmetric,
       gr, mask, u, out, x);
   return cudaGetLastError();

@@ -128,6 +128,15 @@ __device__ __forceinline__ size_t a_frag_pos(int mt, int ks, int ksteps,
          kk % 2;
 }
 
+// The row tiles of B2's block form: the cells [x, y), x and y multiples of
+// kHdRowCells, that hold the cells [gr.cbeg, gr.cend) (the layer-range
+// form; a tile it shares with the range next to it is gathered, computed
+// and read by each of the two launches, each writing only its own cells).
+__host__ __device__ __forceinline__ int2 hd_rows(const Grid& gr) {
+  return make_int2(gr.cbeg / kHdRowCells * kHdRowCells,
+                   (gr.cend + kHdRowCells - 1) / kHdRowCells * kHdRowCells);
+}
+
 __device__ __forceinline__ void ld_frag(const uint4* p, uint32_t (&a)[4]) {
   const uint4 v = __ldg(p);
   a[0] = v.x;
@@ -150,12 +159,18 @@ __global__ void __launch_bounds__(kHdGatherThreads)
   const L lay(nc);
   const size_t n_nodes = gr.n_nodes();
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(kComps) * P13P * lay.ncp) return;
-  const int cell = static_cast<int>(i % lay.ncp);
-  const int k = static_cast<int>((i / lay.ncp) % P13P);
-  const int c = static_cast<int>(i / (static_cast<size_t>(lay.ncp) * P13P));
+  // the block form: the row tiles that hold the cells [gr.cbeg, gr.cend),
+  // zero at their other cells (hd_rows)
+  const int2 rows = is_block(FORM) ? hd_rows(gr) : make_int2(0, 0);
+  const int ncr = is_block(FORM) ? rows.y - rows.x : lay.ncp;
+  if (i >= static_cast<size_t>(kComps) * P13P * ncr) return;
+  const int cell = rows.x + static_cast<int>(i % ncr);
+  const int k = static_cast<int>((i / ncr) % P13P);
+  const int c = static_cast<int>(i / (static_cast<size_t>(ncr) * P13P));
+  const bool live = is_block(FORM) ? cell >= gr.cbeg && cell < gr.cend
+                                   : cell < nc;
   float val = 0.f;
-  if (k < P13 && cell < nc) {
+  if (k < P13 && live) {
     if constexpr (FORM == kLattice) {
       float m;
       const size_t node = cell_node<P>(gr, cell, k, mask, &m);
@@ -187,8 +202,9 @@ __global__ void __launch_bounds__(kHdGatherThreads)
 // (fragment (n8 tile, k16 step) at (nt KF + ks) 32 + lane), u's and t's
 // fragments in the scratch.  REBUILD: G from x.coeffs (24, n_cells) by
 // adjj, else streamed (6 Q3, n_cells), in bf16 where x.metric_bf16 is set
-// (NP != 2).
-template <int P, bool REBUILD, int NP>
+// (NP != 2).  BLOCK: B2's block form, the row tiles of hd_rows, G = 0 at
+// their cells outside [gr.cbeg, gr.cend).
+template <int P, bool REBUILD, int NP, bool BLOCK = false>
 __global__ void __launch_bounds__(kHdFwdThreads, 1)
     dense_hd_forward_kernel(const uint2* __restrict__ mf,
                             const float* __restrict__ gmetric, Grid gr,
@@ -204,13 +220,18 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
   __shared__ float c24[REBUILD ? 24 : 1][kHdRowCells];
   const int nc = gr.n_cells();
   const L lay(nc);
-  const int cell0 = blockIdx.x * kHdRowCells, j = blockIdx.y;
+  const int cell0 = (BLOCK ? hd_rows(gr).x : 0) + blockIdx.x * kHdRowCells,
+            j = blockIdx.y;
+  // the cells whose G is computed: the range's (BLOCK), else the real ones
+  const auto live = [&](int cell) {
+    return BLOCK ? cell >= gr.cbeg && cell < gr.cend : cell < nc;
+  };
   const int tid = threadIdx.x;
 
   if constexpr (REBUILD) {
     for (int i = tid; i < 24 * kHdRowCells; i += blockDim.x) {
       const int b = i % kHdRowCells, e = i / kHdRowCells;
-      c24[e][b] = cell0 + b < nc
+      c24[e][b] = live(cell0 + b)
                       ? x.coeffs[static_cast<size_t>(e) * nc + cell0 + b]
                       : 0.f;
     }
@@ -220,7 +241,7 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
     const int b = i % kHdRowCells, ql = i / kHdRowCells;
     const int qp = 16 * j + ql, cell = cell0 + b;
     float gm[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (qp < Q3 && cell < nc) {
+    if (qp < Q3 && live(cell)) {
       if constexpr (REBUILD) {
         float pq[24];
         load_pds_row(x.pds + qp * 24, pq);
@@ -346,8 +367,15 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
   const int nc = gr.n_cells();
   const L lay(nc);
   const int task = blockIdx.x * kHdBwdWarps + threadIdx.x / 32;
-  if (task >= lay.mt / 2 * NG) return;  // no barrier in this kernel
-  const int mt0 = task / NG * 2, nt0 = task % NG * kHdBwdTiles;
+  // BLOCK: the row tiles of hd_rows of each component
+  const int2 rows = BLOCK ? hd_rows(gr) : make_int2(0, 0);
+  const int nrt = (rows.y - rows.x) / kHdRowCells;
+  // no barrier in this kernel
+  if (task >= (BLOCK ? kComps * nrt * NG : lay.mt / 2 * NG)) return;
+  const int mt0 = BLOCK ? ((task / NG / nrt) * lay.ncp + rows.x) / 16 +
+                              2 * (task / NG % nrt)
+                        : task / NG * 2;
+  const int nt0 = task % NG * kHdBwdTiles;
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   float v[2][kHdBwdTiles][4] = {};
   for (int k0 = 0; k0 < KB; k0 += kHdChunk) {
@@ -397,7 +425,10 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
         const int row = 16 * (mt0 + m) + g + 8 * (i / 2);
         const int c = row / lay.ncp, cell = row % lay.ncp;
         const int k = 8 * (nt0 + n) + 2 * t4 + i % 2;
-        if (cell >= nc || k >= P13) continue;
+        if (cell >= (BLOCK ? gr.cend : nc) || k >= P13) continue;
+        if constexpr (BLOCK) {
+          if (cell < gr.cbeg) continue;
+        }
         if constexpr (BATCH) {
           out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[m][n][i];
         } else {
@@ -419,20 +450,23 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   const L lay(nc);
   auto us = static_cast<uint4*>(scratch);
   uint4* ts = us + L::NPART * lay.u_part();
-  const size_t n_in =
-      static_cast<size_t>(kComps) * MmaShape<P>::P13P * lay.ncp;
+  // the block form: the row tiles that hold its cells [cbeg, cend)
+  const int2 rows = is_block(FORM) ? hd_rows(gr) : make_int2(0, lay.ncp);
+  const int ncr = rows.y - rows.x;
+  if (ncr <= 0) return cudaSuccess;  // an empty range of the block form
+  const size_t n_in = static_cast<size_t>(kComps) * MmaShape<P>::P13P * ncr;
   dense_hd_gather_kernel<P, FORM, NP>
       <<<(n_in + kHdGatherThreads - 1) / kHdGatherThreads, kHdGatherThreads,
          0, st>>>(gr, mask, u, x, reinterpret_cast<__nv_bfloat16*>(us));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dense_hd_forward_kernel<P, REBUILD, NP>
-      <<<dim3(lay.ncp / kHdRowCells, MmaShape<P>::QC), kHdFwdThreads, 0,
-         st>>>(static_cast<const uint2*>(mf), gmetric, gr, x, us, ts);
+  dense_hd_forward_kernel<P, REBUILD, NP, is_block(FORM)>
+      <<<dim3(ncr / kHdRowCells, MmaShape<P>::QC), kHdFwdThreads, 0, st>>>(
+          static_cast<const uint2*>(mf), gmetric, gr, x, us, ts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   constexpr int NG = (MmaShape<P>::P13P / 8 + kHdBwdTiles - 1) / kHdBwdTiles;
-  const int tasks = lay.mt / 2 * NG;
+  const int tasks = kComps * (ncr / kHdRowCells) * NG;
   dense_hd_backward_kernel<P, FORM == kCellBatch, NP, is_block(FORM)>
       <<<(tasks + kHdBwdWarps - 1) / kHdBwdWarps, 32 * kHdBwdWarps, 0, st>>>(
           static_cast<const uint2*>(mb), gr, mask, ts, out);

@@ -242,8 +242,9 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Sm*>(smem_raw);
   const int nc = gr.n_cells();
-  const int cell0 = blockIdx.x * BC;
-  const int nlive = min(BC, nc - cell0);  // cells past the end: zeros
+  // the block form: the cells [gr.cbeg, gr.cend) (the layer-range form)
+  const int cell0 = (is_block(FORM) ? gr.cbeg : 0) + blockIdx.x * BC;
+  const int nlive = min(BC, (is_block(FORM) ? gr.cend : nc) - cell0);
   const int tid = threadIdx.x;
   const int b = tid % BC, col = tid / BC;
 
@@ -470,8 +471,9 @@ cudaError_t launch_sumfac_here(const SumfacArgs<T>& a, const Grid& gr,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
-  const int blocks = (gr.n_cells() + Sm::BC - 1) / Sm::BC;
-  kern<<<blocks, Sm::kThreads, sizeof(Sm), st>>>(a, gr);
+  const int n = is_block(FORM) ? gr.cend - gr.cbeg : gr.n_cells();
+  if (n <= 0) return cudaSuccess;  // an empty range of the block form
+  kern<<<(n + Sm::BC - 1) / Sm::BC, Sm::kThreads, sizeof(Sm), st>>>(a, gr);
   return cudaGetLastError();
 }
 

@@ -198,12 +198,17 @@ struct OpTables {
 // n - 1 (the top face is a ghost of the upper block's face 0, which that
 // block owns; on an axis the mesh does not split it is the Dirichlet top
 // face, whose nodes add only zeros).  box_grid sets the box's values, 1,
-// n - 1 and n on each axis.
+// n - 1 and n on each axis.  cbeg, cend: the cells [cbeg, cend) that a
+// cell pass of the block form runs over, read by those passes only (the
+// layer-range form, the TPU kernel's step_range, cg_fused_kernel.py:
+// 1211-1212: cells are z-major, so a range of z-layers [c0, c1) is the
+// cells [c0 ncy ncx, c1 ncy ncx)); box_grid sets 0 and n_cells.
 struct Grid {
   int ncz, ncy, ncx;  // cells per axis
   int nz, ny, nx;     // lattice nodes per axis
   int zlo, zhi, zown;
   int ylo, yhi, yown, xlo, xhi, xown;
+  int cbeg, cend;
   __host__ __device__ int n_cells() const { return ncz * ncy * ncx; }
   __host__ __device__ int n_nodes() const { return nz * ny * nx; }
 };
@@ -212,7 +217,7 @@ inline Grid box_grid(int degree, int ncz, int ncy, int ncx) {
   const int nz = degree * ncz + 1, ny = degree * ncy + 1,
             nx = degree * ncx + 1;
   return {ncz, ncy, ncx, nz, ny, nx, 1, nz - 1, nz,
-          1,   ny - 1, ny, 1, nx - 1, nx};
+          1,   ny - 1, ny, 1, nx - 1, nx, 0, ncz * ncy * ncx};
 }
 
 // A node off the Dirichlet faces: the box's (BLOCK false), or a block's

@@ -128,7 +128,7 @@ struct Launch {
                    const Grid& gr, const T* x, const T* g, const T* d,
                    const T* h, const T* prec, const T* scal, T* x2, T* g2,
                    T* d2, T* h2, T* scal2, T* cells, T* partials,
-                   void* scratch, int block, cudaStream_t st) {
+                   void* scratch, int block, int passes, cudaStream_t st) {
     CellIo<T> io{x, g, d, h, prec, scal, x2, g2, d2};
     io.bf16 = store;
     io.prec_bf16 = prec_bf16;
@@ -138,7 +138,7 @@ struct Launch {
                  ? -1
                  : fused_iteration_block<T, P>(rung, dense, cofactor, tb,
                                                gr, io, h2, scal2, cells,
-                                               partials, scratch, st);
+                                               partials, scratch, st, passes);
     if (prec_bf16 || x_bf16)
       return fused_iteration_px<T, P>(rung, dense, cofactor, tb, gr, io, h2,
                                       scal2, cells, partials, scratch, st);
@@ -238,7 +238,8 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
 
 namespace {
 
-// B2 on `gr` (the box; block = 1: a block's Grid, the 7 sums in scal2)
+// B2 on `gr` (the box; block = 1: a block's Grid, the 7 sums in scal2,
+// `passes` as fused_iteration's)
 int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
                 int store, int metric_bf16, int prec_bf16, int x_bf16,
                 const void* mats, const void* sz, const void* dz,
@@ -247,7 +248,7 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
                 const void* d, const void* h, const void* prec,
                 const void* scal, void* x2, void* g2, void* d2, void* h2,
                 void* scal2, void* cells, void* partials, void* scratch,
-                const Grid& gr, int block, void* stream) {
+                const Grid& gr, int block, int passes, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
@@ -259,7 +260,7 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
       static_cast<const T*>(prec), static_cast<const T*>(scal),               \
       static_cast<T*>(x2), static_cast<T*>(g2), static_cast<T*>(d2),          \
       static_cast<T*>(h2), static_cast<T*>(scal2), static_cast<T*>(cells),    \
-      static_cast<T*>(partials), scratch, block, st)
+      static_cast<T*>(partials), scratch, block, passes, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
   if (dtype == 1 && !rung) BP4_DEGREES(double)
@@ -287,13 +288,20 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
                      prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
                      gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
                      cells, partials, scratch,
-                     make_grid(degree, ncz, ncy, ncx), 0, stream);
+                     make_grid(degree, ncz, ncy, ncx), 0,
+                     bp4::kCellPass | bp4::kNodePasses, stream);
 }
 
 // B2's block form: the arguments of bp4_fused_iteration on a block of
 // ncz x ncy x ncx cells (n * degree + 1 nodes an axis, the top one a
 // ghost or the Dirichlet face), then the block's lo, hi, own on z, y and
 // x (bp4_operator.cuh's Grid); scal2 receives the 7 raw sums and a 0.
+// Then the layer-range form: cbeg, cend the cells the cell pass runs over,
+// and passes (1 the cell pass alone, 2 the assemble and finalize passes
+// alone, 3 both: the iteration).  The cell pass writes x', g', d' at the
+// nodes its cells own and their cell-local results, each independent of
+// the range it was launched in, so two cell passes over [0, c) and
+// [c, n_cells) and one node pass after them are bitwise the one call.
 int bp4_fused_iteration_block(
     int dtype, int rung, int degree, int dense, int cofactor, int store,
     int metric_bf16, int prec_bf16, int x_bf16, const void* mats,
@@ -303,8 +311,10 @@ int bp4_fused_iteration_block(
     void* x2, void* g2, void* d2, void* h2, void* scal2, void* cells,
     void* partials, void* scratch, int ncz, int ncy, int ncx, int zlo,
     int zhi, int zown, int ylo, int yhi, int yown, int xlo, int xhi,
-    int xown, void* stream) {
+    int xown, int cbeg, int cend, int passes, void* stream) {
   Grid gr = make_grid(degree, ncz, ncy, ncx);
+  gr.cbeg = cbeg;
+  gr.cend = cend;
   gr.zlo = zlo;
   gr.zhi = zhi;
   gr.zown = zown;
@@ -317,7 +327,7 @@ int bp4_fused_iteration_block(
   return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
                      prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
                      gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
-                     cells, partials, scratch, gr, 1, stream);
+                     cells, partials, scratch, gr, 1, passes, stream);
 }
 
 }  // extern "C"

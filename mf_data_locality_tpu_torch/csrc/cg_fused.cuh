@@ -173,16 +173,21 @@ cudaError_t launch_assemble(int store, const Grid& gr, const T* cells,
 // io.x_bf16) and the assemble pass reading P in bf16 where io.prec_bf16
 // is set.  BLOCK: the block form on a block's Grid (cg_fused.cu's header),
 // the finalize pass writing the 7 sums to scal2 in place of the
-// recurrence.
+// recurrence; `passes` (the block form's layer-range form): kCellPass the
+// cell pass alone, over the Grid's cells [cbeg, cend), kNodePasses the
+// assemble and finalize passes alone, both the whole iteration.
+enum : int { kCellPass = 1, kNodePasses = 2 };
 template <typename T, int P, bool PX, bool BLOCK = false>
 int fused_iteration(int rung, int dense, int cofactor, const OpTables<T>& tb,
                     const Grid& gr, const CellIo<T>& io, T* h2, T* scal2,
-                    T* cells, T* partials, void* scratch, cudaStream_t st) {
+                    T* cells, T* partials, void* scratch, cudaStream_t st,
+                    int passes = kCellPass | kNodePasses) {
   if (io.bf16 && rung != 1) return -1;
-  cudaError_t e = launch_cells<T, P, true, PX, BLOCK>(rung, dense, cofactor,
-                                                      tb, gr, io, cells,
-                                                      scratch, st);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
+  if (passes & kCellPass)
+    e = launch_cells<T, P, true, PX, BLOCK>(rung, dense, cofactor, tb, gr, io,
+                                            cells, scratch, st);
+  if (e != cudaSuccess || !(passes & kNodePasses)) return e;
   const int nb = node_blocks(gr);
   if constexpr (PX) {
     e = io.prec_bf16
@@ -209,12 +214,13 @@ int fused_iteration_px(int rung, int dense, int cofactor,
                        const CellIo<T>& io, T* h2, T* scal2, T* cells,
                        T* partials, void* scratch, cudaStream_t st);
 
-// fused_iteration<T, P, false, true>, the block form: likewise in
-// cg_fused_block.cu.
+// fused_iteration<T, P, false, true>, the block form (`passes` as there):
+// likewise in cg_fused_block.cu.
 template <typename T, int P>
 int fused_iteration_block(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
                          const CellIo<T>& io, T* h2, T* scal2, T* cells,
-                         T* partials, void* scratch, cudaStream_t st);
+                         T* partials, void* scratch, cudaStream_t st,
+                         int passes);
 
 }  // namespace bp4

@@ -25,7 +25,11 @@
 //               other), apply_sumfac.cuh.
 // B5 and B6 write masked cell-local values to scratch; the assemble pass
 // (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
-// order (no atomics).  The TPU kernels walk z-cell layers in order carrying
+// order (no atomics), and zeroes the box's faces — or, on a block of a
+// global lattice (a rank's slab, a layer range of it; the mask tensor's
+// operator, laplace_cuda.OperatorData.slab), only sums: the mask applied
+// in the cell pass, its faces hold the partial sums the halo exchange
+// completes (the JAX slab operator's mask_mode "none").  The TPU kernels walk z-cell layers in order carrying
 // the shared z plane in VMEM; the assemble pass takes the carry's place, so
 // blocks run in any order.  The passes' notes give their bounds.
 //
@@ -127,19 +131,33 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
 
 // B5 (mask null: the box's Dirichlet mask from the indices) and B6 (mask
 // tensor) on the lattice: the cell pass into the scratch `cells`, then the
-// assemble pass.  mats/kmats: the tables of metric_pass.
+// assemble pass.  mats/kmats: the tables of metric_pass.  block: a block's
+// lattice (with a mask tensor), assembled without the box's faces (the
+// assemble pass's BLOCK on a Grid whose lo and hi take in every node).
 template <typename T, int P>
 int lattice_typed(int rung, int metric_bf16, const void* mats,
                   const void* kmats, const void* gmetric, const void* mask,
                   const void* u, void* cells, void* v, void* scratch,
-                  const Grid& gr, cudaStream_t st) {
+                  const Grid& gr, int block, cudaStream_t st) {
   const cudaError_t e = metric_pass<T, P, true>(
       rung, metric_bf16, mats, kmats, gmetric, gr, mask, u, cells, scratch,
       st);
   if (e != cudaSuccess) return e;
-  assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-      gr, static_cast<const T*>(cells), static_cast<T*>(v), nullptr, nullptr,
-      nullptr, nullptr);
+  if (block) {
+    Grid all = gr;
+    all.zlo = all.ylo = all.xlo = 0;
+    all.zhi = gr.nz;
+    all.yhi = gr.ny;
+    all.xhi = gr.nx;
+    assemble_kernel<T, P, false, T, false, true>
+        <<<node_blocks(gr), kNodeThreads, 0, st>>>(
+            all, static_cast<const T*>(cells), static_cast<T*>(v), nullptr,
+            nullptr, nullptr, nullptr);
+  } else {
+    assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
+        gr, static_cast<const T*>(cells), static_cast<T*>(v), nullptr,
+        nullptr, nullptr, nullptr);
+  }
   return cudaGetLastError();
 }
 
@@ -148,13 +166,14 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16,
                        const void* mats, const void* kmats,
                        const void* gmetric, const void* mask, const void* u,
                        void* cells, void* v, void* scratch, const Grid& gr,
-                       cudaStream_t st) {
+                       int block, cudaStream_t st) {
   if (dtype == 0)
     return lattice_typed<float, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                   mask, u, cells, v, scratch, gr, st);
+                                   mask, u, cells, v, scratch, gr, block, st);
   if (dtype == 1)
     return lattice_typed<double, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                    mask, u, cells, v, scratch, gr, st);
+                                    mask, u, cells, v, scratch, gr, block,
+                                    st);
   return -1;
 }
 
@@ -225,16 +244,19 @@ int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
   return -1;
 }
 
+// block: the lattice is a block of a global one (a rank's, with its mask
+// tensor): the assemble pass only sums, the faces keep their partial sums.
 int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
                       const void* mats, const void* kmats, const void* gmetric,
                       const void* mask, const void* u, void* cells, void* v,
-                      void* scratch, int ncz, int ncy, int ncx,
+                      void* scratch, int ncz, int ncy, int ncx, int block,
                       void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bp4::Grid gr = bp4::box_grid(degree, ncz, ncy, ncx);
+  if (block && !mask) return -1;
 #define BP4_LATTICE(P)                                                      \
   bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, mats, kmats, gmetric, \
-                             mask, u, cells, v, scratch, gr, st)
+                             mask, u, cells, v, scratch, gr, block, st)
   BP4_SWITCH_DEGREE(BP4_LATTICE)
 #undef BP4_LATTICE
   return -1;

@@ -54,7 +54,17 @@ class BoxMesh:
 
     @cached_property
     def vertex_lattice(self) -> np.ndarray:
-        """Deformed vertex coordinates, shape (ncz+1, ncy+1, ncx+1, 3) as (x,y,z)."""
+        """Deformed vertex coordinates, shape (ncz+1, ncy+1, ncx+1, 3) as
+        (x,y,z); the native builder where it loads and the factor is the
+        default, as the JAX package's."""
+        from mf_data_locality_tpu_torch import native
+        if native.AVAILABLE and self.factor == manifold.DEFAULT_FACTOR:
+            return native.vertex_lattice(*self.n_cells_axis, self.spacing,
+                                         deformed=self.deformed)
+        return self.vertex_lattice_np()
+
+    def vertex_lattice_np(self) -> np.ndarray:
+        """:attr:`vertex_lattice` in NumPy."""
         ncz, ncy, ncx = self.n_cells_axis
         z = np.arange(ncz + 1) * self.spacing
         y = np.arange(ncy + 1) * self.spacing

@@ -45,28 +45,42 @@ class DofLayout:
         """(n_cells, (p+1)^3) int32: global node id for each cell-local node.
 
         Cell-local nodes in lexicographic (z, y, x) order, x fastest; cells in
-        lexicographic order, z slowest (matching :class:`BoxMesh`).
+        lexicographic order, z slowest (matching :class:`BoxMesh`).  The
+        native builder where it loads (``mf_data_locality_tpu_torch.
+        native``), as the JAX package's.
         """
-        p = self.degree
-        ncz, ncy, ncx = self.mesh.n_cells_axis
-        nz, ny, nx = self.n_nodes_axis
-        cz, cy, cx = np.meshgrid(
-            np.arange(ncz), np.arange(ncy), np.arange(ncx), indexing="ij"
-        )
-        base = ((p * cz) * ny + p * cy) * nx + p * cx  # node (0,0,0) of each cell
-        k, j, i = np.meshgrid(
-            np.arange(p + 1), np.arange(p + 1), np.arange(p + 1), indexing="ij"
-        )
-        local = (k * ny + j) * nx + i
-        out = base.reshape(-1, 1) + local.reshape(1, -1)
-        if out.max() >= np.iinfo(np.int32).max:
-            raise ValueError("mesh too large for int32 gather indices")
-        return out.astype(np.int32)
+        if self.n_nodes < np.iinfo(np.int32).max:
+            from mf_data_locality_tpu_torch import native
+            if native.AVAILABLE:
+                return native.gather_map(self.degree, *self.mesh.n_cells_axis)
+        return gather_map_np(self.degree, self.mesh.n_cells_axis)
 
     @cached_property
     def boundary_node_mask(self) -> np.ndarray:
-        """(n_nodes,) bool: True where the node lies on the domain boundary."""
+        """(n_nodes,) bool: True where the node lies on the domain boundary
+        (the native builder where it loads)."""
+        from mf_data_locality_tpu_torch import native
+        if native.AVAILABLE:
+            return native.boundary_mask(*self.n_nodes_axis)
         return boundary_node_mask(self.n_nodes_axis)
+
+
+def gather_map_np(p: int, n_cells_axis: tuple[int, int, int]) -> np.ndarray:
+    """:attr:`DofLayout.gather_map` in NumPy."""
+    ncz, ncy, ncx = n_cells_axis
+    nz, ny, nx = n_nodes_axis(n_cells_axis, p)
+    cz, cy, cx = np.meshgrid(
+        np.arange(ncz), np.arange(ncy), np.arange(ncx), indexing="ij"
+    )
+    base = ((p * cz) * ny + p * cy) * nx + p * cx  # node (0,0,0) of each cell
+    k, j, i = np.meshgrid(
+        np.arange(p + 1), np.arange(p + 1), np.arange(p + 1), indexing="ij"
+    )
+    local = (k * ny + j) * nx + i
+    out = base.reshape(-1, 1) + local.reshape(1, -1)
+    if out.max() >= np.iinfo(np.int32).max:
+        raise ValueError("mesh too large for int32 gather indices")
+    return out.astype(np.int32)
 
 
 def boundary_node_mask(nodes_axis: tuple[int, int, int]) -> np.ndarray:

@@ -8,9 +8,10 @@ the scalar nodes so that nodes touched by one cell come first in
 first-touch sweep order, nodes shared between cells follow, and ghost
 nodes (shared with other partitions) come last.  The structured lattice
 has this order by construction; the general backend (``ops/laplace``)
-uses it.  The JAX package also has a native C++ path for the default
-strategies; here :func:`locality_permutation` is the NumPy path always
-(the native library is queue A item 7 of ``ROADMAP.md``).
+uses it.  :func:`locality_permutation` takes the native C++ path
+(``mf_data_locality_tpu_torch.native``) for the default strategies where
+it loads, as the JAX package does, and :func:`locality_permutation_np`
+otherwise; the two give the same permutation.
 """
 
 from __future__ import annotations
@@ -85,7 +86,15 @@ def locality_permutation(gather: np.ndarray, n_nodes: int,
                          grouping: str = "touch_count",
                          batch_cells: int | None = None,
                          ) -> tuple[np.ndarray, int]:
-    """The locality permutation, by :func:`locality_permutation_np`."""
+    """The locality permutation: native for the default strategies (the
+    benchmark's triple (0, 1, 2)) where it loads, else
+    :func:`locality_permutation_np`."""
+    from mf_data_locality_tpu_torch import native
+
+    if (native.AVAILABLE and touch_order == "first"
+            and grouping == "touch_count" and not batch_cells):
+        gf = None if ghost_flags is None else ghost_flags.astype(np.uint8)
+        return native.renumber_locality(gather, n_nodes, gf)
     return locality_permutation_np(gather, n_nodes, ghost_flags,
                                    touch_order=touch_order, grouping=grouping,
                                    batch_cells=batch_cells)

@@ -56,13 +56,14 @@ _SIGNATURES = {
     # the dense pass's scratch; the cells per axis; the stream
     "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
     "bp4_fused_iteration": (_I, [_I] * 9 + [_P] * 21 + [_I] * 3 + [_P]),
-    # ... the cells per axis, then the block's (lo, hi, own) on z, y, x
-    "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 12
+    # ... the cells per axis, then the block's (lo, hi, own) on z, y, x,
+    # the cell pass's range of cells and the passes to run
+    "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 15
                                   + [_P]),
     # dtype, rung, degree, onthefly, bf16 metric; ...
     "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
-    # dtype, rung, bf16 metric, degree; ...
-    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 8 + [_I] * 3 + [_P]),
+    # dtype, rung, bf16 metric, degree; ...; the cells per axis, a block's
+    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 

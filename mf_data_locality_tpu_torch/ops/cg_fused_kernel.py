@@ -6,7 +6,10 @@ Counterparts of ``mf_data_locality_tpu.ops.cg_fused_kernel``:
   ``h = M A M d`` with ``M`` the Dirichlet mask.
 * :func:`fused_cg_iteration` — ``fused_cg_iteration`` (TPU kernel
   ``_fused_cg_kernel``): one merged-CG iteration — update4b, the operator
-  on d', the seven update3b sums and the scalar recurrence.
+  on d', the seven update3b sums and the scalar recurrence; on a block
+  operator with ``cells`` the cell pass over a range of cell layers, and
+  :func:`fused_cg_assemble` the node passes after such passes (the
+  kernel's ``step_range``/``carry0``).
 
 Vectors are lattices ``(C, Nz, Ny, Nx)`` that vanish on the boundary (the
 solver's invariant); the preconditioner is ``(1, Nz, Ny, Nx)``; ``scal`` is
@@ -25,8 +28,9 @@ kernel upcasts them at the load and rounds x' where it stores it (one
 more instantiation of each B2 cell pass, ``csrc/cg_fused_px.cu``).  Each
 wrapper runs the hand-written CUDA kernel (``csrc/cg_fused.cu``) for
 tensors on a CUDA device and the plain
-PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`)
-for tensors on the CPU; other devices raise.  The kernel's cell pass:
+PyTorch version (:func:`_matvec_plain`, :func:`_fused_iteration_plain`,
+:func:`_cells_plain`, :func:`_assemble_plain`) for tensors on the CPU;
+other devices raise.  The kernel's cell pass:
 
 * ``highest`` (f32, f64), every configuration: the sum-factorized pass of
   ``csrc/apply_sumfac.cuh`` on ``op.sz``/``op.dz`` (degrees 5..11 built in
@@ -50,8 +54,9 @@ for tensors on the CPU; other devices raise.  The kernel's cell pass:
 
 The plain versions do the same arithmetic — the same bf16 rounding points
 for the tensor-core rungs (:func:`_terms`) and the bf16 state, the same
-masking — with einsum over cells, in another summation order.  ``matvec.launches`` and ``fused_cg_iteration.launches``
-count kernel launches (not plain calls).
+masking — with einsum over cells, in another summation order.  ``matvec.launches``,
+``fused_cg_iteration.launches`` and ``fused_cg_assemble.launches`` count
+kernel launches (not plain calls).
 """
 
 from __future__ import annotations
@@ -352,25 +357,72 @@ def _fused_iteration_plain(op, x, g, d, h, scal, prec,
     rounded where it is stored.  On a block operator (``op.slab``) the
     block form of :func:`fused_cg_iteration`: the sums over the owned
     nodes (:data:`OWNED`), raw, in place of scal'."""
+    x2, g2, d2 = _update4b(scal, x, g, d, h, prec)
+    h2 = _matvec_plain(op, d2, cell_apply)
+    s = _sums(op, g2, d2, h2, prec)
+    if op.slab is not None:
+        return x2, g2, d2, h2, s
+    return x2, g2, d2, h2, scalar_recurrence(s, scal[0], scal[1], scal[4])
+
+
+def _update4b(scal, x, g, d, h, prec):
+    """update4b (``cg_fused_kernel.py:836-858``): x', g', d' from the
+    stored vectors, at g's dtype, x' and d' rounded where they are
+    stored."""
     alpha, beta, c1, aob = scal[0], scal[1], scal[2], scal[3]
     store = d.dtype
     d, h, prec = d.to(g.dtype), h.to(g.dtype), prec.to(g.dtype)
     g2 = g + alpha * h
     d2 = (beta * d - prec * g2).to(store)
     x2 = (x.to(g.dtype) + c1 * d + aob * (prec * g)).to(x.dtype)
-    h2 = _matvec_plain(op, d2, cell_apply)
-    d2a, h2a, g2o, po = d2.to(g.dtype), h2.to(g.dtype), g2, prec
+    return x2, g2, d2
+
+
+def _cells_plain(op, x, g, d, h, scal, prec, out, work, c0: int, c1: int,
+                 cell_apply=_cell_apply) -> None:
+    """The layer-range form's cell pass (:func:`fused_cg_iteration` with
+    ``cells``): update4b on the planes [c0 p, c1 p] the layers touch, x',
+    g', d' written on the planes they own ([c0 p, c1 p), and the top
+    plane with the last layer), the operator on d' of the sub-lattice
+    (``laplace_cuda.sub_operator``) into those cells' rows of
+    ``work.cells``."""
+    p, ncz = op.degree, op.n_cells_axis[0]
+    z = slice(c0 * p, c1 * p + 1)
+    new = _update4b(scal, *(t[:, z] for t in (x, g, d, h, prec)))
+    own = slice(0, (c1 - c0) * p + (c1 == ncz))
+    for o, v in zip(out, new):
+        o[:, z][:, own] = v[:, own]
+    sub = laplace_cuda.sub_operator(op, c0, c1)
+    layer = op.n_cells // ncz
+    work.cells[:, c0 * layer:c1 * layer] = cell_apply(
+        sub, new[2].to(op.dtype) * sub.mask).reshape(
+        N_COMPONENTS, sub.n_cells, -1)
+
+
+def _sums(op, g2, d2, h2, prec) -> torch.Tensor:
+    """The 7 update3b sums and a 0 (``scalar_recurrence``'s ``s``): over
+    the owned nodes (:data:`OWNED`) on a block operator."""
+    d2a, h2a, g2o, po = d2.to(g2.dtype), h2.to(g2.dtype), g2, prec.to(
+        g2.dtype)
     if op.slab is not None:
-        d2a, h2a, g2o, po = (t[OWNED] for t in (d2a, h2a, g2, prec))
+        d2a, h2a, g2o, po = (t[OWNED] for t in (d2a, h2a, g2o, po))
     ph, pg = po * h2a, po * g2o
-    s = torch.stack([torch.sum(d2a * h2a), torch.sum(h2a * h2a),
-                     torch.sum(g2o * h2a), torch.sum(g2o * g2o),
-                     torch.sum(g2o * ph), torch.sum(h2a * ph),
-                     torch.sum(g2o * pg), torch.zeros((), dtype=g.dtype,
-                                                      device=g.device)])
-    if op.slab is not None:
-        return x2, g2, d2, h2, s
-    return x2, g2, d2, h2, scalar_recurrence(s, alpha, beta, scal[4])
+    return torch.stack([torch.sum(d2a * h2a), torch.sum(h2a * h2a),
+                        torch.sum(g2o * h2a), torch.sum(g2o * g2o),
+                        torch.sum(g2o * ph), torch.sum(h2a * ph),
+                        torch.sum(g2o * pg),
+                        torch.zeros((), dtype=g2.dtype, device=g2.device)])
+
+
+def _assemble_plain(op, out, prec, work) -> None:
+    """The layer-range form's node passes (:func:`fused_cg_assemble`): h'
+    from every cell's row of ``work.cells``, masked and rounded where it
+    is stored, and the 7 raw sums."""
+    p1 = op.degree + 1
+    h2 = (_assemble(op, work.cells.reshape(N_COMPONENTS, op.n_cells, p1,
+                                           p1 * p1)) * op.mask)
+    out[3].copy_(h2.to(out[3].dtype))
+    out[4].copy_(_sums(op, out[1], out[2], out[3], prec))
 
 
 def delayed_x_fixup(x, g, d, prec, scal, it: int):
@@ -522,15 +574,20 @@ def _common_args(op: OperatorData, state: torch.Tensor):
 class Workspace:
     """Scratch of the kernels: cell-local results (C, n_cells, (p+1)^3) and
     the per-block dot partials.  Allocate once per solve and pass it to
-    every call to keep allocation out of the iteration loop."""
+    every call to keep allocation out of the iteration loop.  On the CPU
+    the cell-local results alone (the plain layer-range form's,
+    :func:`fused_cg_iteration` with ``cells``)."""
 
     def __init__(self, op: OperatorData):
         p1 = op.degree + 1
         self.cells = torch.empty((N_COMPONENTS, op.n_cells, p1 ** 3),
                                  dtype=op.dtype, device=op.device)
-        ncz, ncy, ncx = op.n_cells_axis
-        n = _build.load().bp4_partials_len(op.degree, ncz, ncy, ncx)
-        self.partials = torch.empty((n,), dtype=op.dtype, device=op.device)
+        self.partials = None
+        if op.device.type == "cuda":
+            ncz, ncy, ncx = op.n_cells_axis
+            n = _build.load().bp4_partials_len(op.degree, ncz, ncy, ncx)
+            self.partials = torch.empty((n,), dtype=op.dtype,
+                                        device=op.device)
 
 
 def dense_scratch(op: OperatorData) -> int | None:
@@ -600,7 +657,8 @@ matvec.launches = 0
 
 
 def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
-                       out=None, work: Workspace | None = None):
+                       out=None, work: Workspace | None = None,
+                       cells: tuple[int, int] | None = None):
     """One merged-CG iteration; returns (x', g', d', h', scal').
 
     ``out``: optional (x', g', d', h', scal') buffers, distinct from the
@@ -622,13 +680,57 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     nodes [0, Pz) x [0, Py) x [0, Px), raw, and a 0 (the caller corrects,
     reduces and runs :func:`scalar_recurrence` on them); and h''s ghost
     faces hold the block's partial sums owed upward (the carries).
+
+    ``cells=(c0, c1)``, on a block operator: the layer-range form (the TPU
+    kernel's ``step_range``/``carry0``, ``cg_fused_kernel.py:1211-1212,
+    1296-1303``), the cell pass alone over the cell layers [c0, c1) —
+    x', g', d' on the nodes those cells own (the planes [c0 p, c1 p), and
+    the top face with the last layer) and their cell-local results in
+    ``work`` —, then :func:`fused_cg_assemble` once for h' and the sums.
+    Each cell's result is independent of the range it is launched in and
+    the assemble order is fixed, so cell passes over ranges that tile
+    [0, ncz) and one assemble are bitwise the one call, with no carry
+    between them; only the top layer reads the ghost face (the kernel
+    reads d' of a cell's own nodes), so the ranges below it may run
+    before the ghost faces are filled.  ``out`` and ``work`` are then
+    required; h' and scal' of ``out`` are left to the assemble.
     """
+    if cells is not None:
+        return _fused_cells(op, x, g, d, h, scal, prec, out, work, cells)
     if _route(x) == "plain":
         res = _fused_iteration_plain(op, x, g, d, h, scal, prec)
         return res if out is None else tuple(o.copy_(r)
                                              for o, r in zip(out, res))
     out = out if out is not None else tuple(
         torch.empty_like(t) for t in (x, g, d, h, scal))
+    _check_iteration(op, x, g, d, h, scal, prec, out)
+    work = Workspace(op) if work is None else work
+    if op.slab is not None:
+        _block_entry(op, x, g, d, h, scal, prec, out, work,
+                     (0, op.n_cells_axis[0]), _CELL_PASS | _NODE_PASSES)
+        fused_cg_iteration.launches += 1
+        return out
+    lib = _build.load()
+    ncz, ncy, ncx = op.n_cells_axis
+    common = _common_args(op, d)
+    rc = lib.bp4_fused_iteration(
+        *common[:7], int(prec.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), *common[7:],
+        *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
+        *(t.data_ptr() for t in out), work.cells.data_ptr(),
+        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "bp4_fused_iteration")
+    fused_cg_iteration.launches += 1
+    return out
+
+
+fused_cg_iteration.launches = 0
+
+
+def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> None:
+    """Check a B2 launch's tensors (:func:`_check_cuda`), its buffers
+    distinct from its inputs and, on a block operator, its pass."""
     _check_cuda(op, [g, out[1]], [d, h, out[2], out[3]], prec,
                 (scal, out[4]), (x, out[0]))
     if {t.data_ptr() for t in out} & {t.data_ptr() for t in (x, g, d, h,
@@ -641,22 +743,80 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
             f"B2's block form on the {op.precision} rung's twostage pass "
             f"is not instantiated (the distributed solvers' operator is "
             f"dense)")
+
+
+# passes of bp4_fused_iteration_block (csrc/cg_fused.cu)
+_CELL_PASS, _NODE_PASSES = 1, 2
+
+
+def _block_entry(op: OperatorData, x, g, d, h, scal, prec, out,
+                 work: Workspace, cells: tuple[int, int], passes: int):
+    """Launch B2's block form (``bp4_fused_iteration_block``): ``passes``
+    of it, the cell pass over the cells of the layers ``cells``."""
     lib = _build.load()
-    work = Workspace(op) if work is None else work
     ncz, ncy, ncx = op.n_cells_axis
+    layer = ncy * ncx
     common = _common_args(op, d)
-    entry, faces = ((lib.bp4_fused_iteration, ()) if op.slab is None else
-                    (lib.bp4_fused_iteration_block, block_faces(op)))
-    rc = entry(
+    rc = lib.bp4_fused_iteration_block(
         *common[:7], int(prec.dtype == torch.bfloat16),
         int(x.dtype == torch.bfloat16), *common[7:],
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
-        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx, *faces,
+        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
+        *block_faces(op), cells[0] * layer, cells[1] * layer, passes,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "bp4_fused_iteration")
+    _build.check(lib, rc, "bp4_fused_iteration_block")
+
+
+def _check_range_form(op: OperatorData, out, work,
+                      cells: tuple[int, int] | None = None) -> None:
+    if op.slab is None:
+        raise ValueError("the layer-range form of B2 runs on a block "
+                         "operator (op.slab)")
+    if out is None or work is None:
+        raise ValueError("the layer-range form of B2 needs its out and "
+                         "work buffers")
+    if cells is not None and not 0 <= cells[0] < cells[1] <= \
+            op.n_cells_axis[0]:
+        raise ValueError(f"cell layers {cells} are not a range of the "
+                         f"block's {op.n_cells_axis[0]}")
+
+
+def _fused_cells(op: OperatorData, x, g, d, h, scal, prec, out, work,
+                 cells: tuple[int, int]):
+    """:func:`fused_cg_iteration`'s layer-range form: the cell pass over
+    the cell layers ``cells``."""
+    _check_range_form(op, out, work, cells)
+    if _route(x) == "plain":
+        _cells_plain(op, x, g, d, h, scal, prec, out, work, *cells)
+        return out
+    _check_iteration(op, x, g, d, h, scal, prec, out)
+    _block_entry(op, x, g, d, h, scal, prec, out, work, cells, _CELL_PASS)
     fused_cg_iteration.launches += 1
     return out
 
 
-fused_cg_iteration.launches = 0
+def fused_cg_assemble(op: OperatorData, out, prec, scal,
+                      work: Workspace):
+    """The node passes of B2's layer-range form (after the cell passes of
+    :func:`fused_cg_iteration` with ``cells`` over ranges that tile the
+    block's layers): h' from ``work``'s cell-local results, masked, into
+    ``out[3]``, and the 7 raw sums over the owned nodes and a 0 into
+    ``out[4]``, read from x', g', d' in ``out`` and ``prec``; ``scal``
+    the iteration's scalars.  Returns ``out``."""
+    _check_range_form(op, out, work)
+    if _route(out[1]) == "plain":
+        _assemble_plain(op, out, prec, work)
+        return out
+    _check_cuda(op, [out[1]], [out[2], out[3]], prec, (scal, out[4]),
+                (out[0],))
+    if work.partials is None:
+        raise ValueError("the work buffers are not a CUDA workspace")
+    # the node passes read g', d', P and (not in the block form) scal
+    _block_entry(op, out[0], out[1], out[2], out[3], scal, prec, out, work,
+                 (0, 0), _NODE_PASSES)
+    fused_cg_assemble.launches += 1
+    return out
+
+
+fused_cg_assemble.launches = 0

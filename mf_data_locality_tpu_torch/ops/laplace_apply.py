@@ -299,6 +299,9 @@ def apply_local_batched(op: OperatorData, u_loc: torch.Tensor) -> torch.Tensor:
 
 def _lattice_kernel(op: OperatorData, u: torch.Tensor,
                     mask: torch.Tensor | None) -> torch.Tensor:
+    # on a block operator (op.slab: a rank's, or a layer range of it) the
+    # faces keep their partial sums: the mask tensor is applied in the cell
+    # pass and the assemble pass only sums, as the plain version masks
     if op.gmetric is None:
         raise ValueError("the lattice applies need metric='precomputed'")
     check_kernel_shape(op, u.shape[0])
@@ -315,6 +318,7 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
         op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
         cells.data_ptr(), out.data_ptr(), dense_scratch(op), ncz, ncy, ncx,
+        int(op.slab is not None),
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_lattice")
     return out

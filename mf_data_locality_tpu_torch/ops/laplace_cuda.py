@@ -71,7 +71,7 @@ apply family reads the dense tables whatever it says
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -182,11 +182,23 @@ def tensor_weights(p: int, q: int) -> np.ndarray:
 def metric_entries(coeffs: np.ndarray, q_points: np.ndarray,
                    w3: np.ndarray) -> np.ndarray:
     """G = det(J) w J^{-1} J^{-T} at every q-point, on the host in f64
-    (``laplace_pallas._metric_entries``, its NumPy branch).
+    (``laplace_pallas._metric_entries``): the native builder where it loads,
+    else :func:`metric_entries_np`.
 
     ``coeffs``: (n_cells, 8, 3).  Returns the 6 unique entries (00, 01, 02,
     11, 12, 22) stacked as rows: (6 q^3, n_cells).
     """
+    from mf_data_locality_tpu_torch import native
+
+    if native.AVAILABLE:
+        return native.metric_entries(coeffs, q_points, w3)
+    return metric_entries_np(coeffs, q_points, w3)
+
+
+def metric_entries_np(coeffs: np.ndarray, q_points: np.ndarray,
+                      w3: np.ndarray) -> np.ndarray:
+    """:func:`metric_entries` in NumPy (the JAX ``_metric_entries``'s
+    NumPy branch)."""
     qp = q_points
     w, v, u = np.meshgrid(qp, qp, qp, indexing="ij")
     uvw = np.stack([u.reshape(-1), v.reshape(-1), w.reshape(-1)], axis=-1)
@@ -260,6 +272,36 @@ class OperatorData:
     @property
     def n_nodes_axis(self) -> tuple[int, int, int]:
         return tuple(self.mask.shape[1:])
+
+
+def sub_operator(op: OperatorData, c0: int, c1: int) -> OperatorData:
+    """The operator on the cell layers [c0, c1) of ``op``'s lattice, its
+    planes [c0 p, c1 p] (the JAX package's ``_sub_op``,
+    ``mf_data_locality_tpu/parallel/distributed.py:322-368``): the
+    coefficients and the metric columns of those layers' cells (cells are
+    z-major: the cells [c0 ncy ncx, c1 ncy ncx)) and the mask's planes,
+    copied contiguous, since the kernels read them by pointer; the
+    matrices shared.  A block of ``op``'s lattice (``slab``: its first
+    layer c0 further up), so B5 reads the mask tensor and not the
+    sub-lattice's faces.  The port's kernels take any cell count, so no
+    dummy cells pad a batch as the JAX package's do.  Built once a range,
+    kept in ``op.cache``."""
+    ncz, ncy, ncx = op.n_cells_axis
+    if not 0 <= c0 < c1 <= ncz:
+        raise ValueError(f"cell layers [{c0}, {c1}) are not a range of "
+                         f"the operator's {ncz}")
+    key = ("sub_operator", c0, c1)
+    if key not in op.cache:
+        a, b, p = c0 * ncy * ncx, c1 * ncy * ncx, op.degree
+        (z0, y0, x0), nc = op.slab or ((0, 0, 0), op.n_cells_axis)
+        op.cache[key] = replace(
+            op, coeffs=op.coeffs[:, :, a:b].contiguous(),
+            kcoeffs=op.kcoeffs[a:b].contiguous(),
+            gmetric=(None if op.gmetric is None
+                     else op.gmetric[:, a:b].contiguous()),
+            mask=op.mask[:, c0 * p:c1 * p + 1].contiguous(),
+            n_cells_axis=(c1 - c0, ncy, ncx), slab=((z0 + c0, y0, x0), nc))
+    return op.cache[key]
 
 
 def _mma_block(p: int, factor: str) -> tuple[int, int]:

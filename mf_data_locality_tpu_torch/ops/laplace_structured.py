@@ -18,7 +18,7 @@ window-first variants, are ``ops/laplace_apply``'s.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -82,6 +82,16 @@ def make_structured_operator(layout: DofLayout, n_q: int | None = None,
         values=t(shape.values), d_col=t(shape.d_col), q_pts=t(shape.q_points),
         w3=t(w3.reshape(1, q, 1, q, 1, q)),
         coeffs=t(coeffs.reshape(ncz, 1, ncy, 1, ncx, 1, 8, 3)), mask=t(mask))
+
+
+def sub_operator(op: StructuredOperatorData, c0: int,
+                 c1: int) -> StructuredOperatorData:
+    """The operator on the cell layers [c0, c1) of ``op``'s lattice, its
+    planes [c0 p, c1 p] (the JAX package's ``_sub_op`` on this backend:
+    the coefficients of those layers; here also the mask's planes)."""
+    p = op.degree
+    return replace(op, coeffs=op.coeffs[c0:c1],
+                   mask=op.mask[:, c0 * p:c1 * p + 1])
 
 
 def cellify(u: torch.Tensor, axis: int, p: int) -> torch.Tensor:

@@ -11,7 +11,9 @@ A distributed solve runs one process per rank (:func:`run`):
 * rank r works on ``cuda:{r % device_count}``, or on the CPU where the
   caller asks for it (one torch thread a rank);
 * the transport is gloo.  gloo does no point-to-point on CUDA tensors, so
-  a halo plane goes through pinned host buffers (:meth:`Comm.shift`), and
+  a halo plane goes through pinned host buffers (:meth:`Comm.shift`, or
+  its halves :meth:`Comm.start` and :meth:`Comm.finish`, between which a
+  caller launches the work that does not need the planes), and
   the all-reduce of the seven sums is one call on their host copy
   (:meth:`Comm.allreduce`).  NCCL with one card per rank is queued
   (ROADMAP.md, queue A item 9b): NCCL refuses two ranks on one card.
@@ -25,10 +27,10 @@ A distributed solve runs one process per rank (:func:`run`):
   re-raises, and nothing here catches it.  No compute moves to the CPU.
 
 :class:`Comm` counts what a rank does: ``allreduces`` (calls of
-:meth:`Comm.allreduce`) and ``shifts`` (calls of :meth:`Comm.shift`: in
-one shift every rank sends one message to its neighbour on one side along
-one axis of the grid and receives one from the other side, the JAX
-package's one ``ppermute``),
+:meth:`Comm.allreduce`) and ``shifts`` (calls of :meth:`Comm.shift` or
+:meth:`Comm.start`: in one shift every rank sends one message to the rank
+``step`` places away on one side along one axis of the grid and receives
+one from the other side, the JAX package's one ``ppermute``),
 and the host seconds spent in them (``seconds``: ``"d2h"`` the copies of
 the planes to the host, which wait for the device's work before them;
 ``"wait"`` the messages, which wait for the neighbours; ``"h2d"`` the
@@ -125,16 +127,28 @@ class Comm:
         return self._buffers[key]
 
     def shift(self, planes: Sequence[torch.Tensor], up: bool,
-              axis: int | tuple[int, ...] = 0) -> list[torch.Tensor] | None:
+              axis: int | tuple[int, ...] = 0,
+              step: int = 1) -> list[torch.Tensor] | None:
         """Send ``planes`` (this rank's tensors, packed into one message) to
-        the neighbour above (``up``) or below along ``axis`` of the grid
-        (:meth:`neighbour`), and receive the same planes of the neighbour
-        on the other side: copies on this rank's device, or None where
-        that neighbour does not exist (the first rank of the axis
-        receiving from below, the last from above)."""
+        the rank ``step`` places above (``up``) or below along ``axis`` of
+        the grid (:meth:`neighbour`), and receive the same planes of the
+        rank as far on the other side: copies on this rank's device, or
+        None where that rank does not exist (the first ``step`` ranks of
+        the axis receiving from below, the last from above).
+        :meth:`start`, then :meth:`finish`."""
+        return self.finish(self.start(planes, up, axis, step))
+
+    def start(self, planes: Sequence[torch.Tensor], up: bool,
+              axis: int | tuple[int, ...] = 0, step: int = 1) -> tuple:
+        """The first half of :meth:`shift`: copy ``planes`` to the host
+        (from a card a synchronous copy, which waits for the work issued
+        before it on the stream, so call it before launching the work to
+        overlap) and post the send and the receive; returns what
+        :meth:`finish` takes.  One shift of the same planes' shapes may be
+        pending at a time (their host buffers are the shift's)."""
         self.shifts += 1
-        dst = self.neighbour(axis, 1 if up else -1)
-        src = self.neighbour(axis, -1 if up else 1)
+        dst = self.neighbour(axis, step if up else -step)
+        src = self.neighbour(axis, -step if up else step)
         send_buf, recv_buf, send_views, recv_views = self._packed(planes)
         t0 = time.perf_counter()
         reqs = []
@@ -142,16 +156,23 @@ class Comm:
             for v, p in zip(send_views, planes):
                 v.copy_(p)  # from a card: synchronous into pinned memory
             reqs.append(dist.isend(send_buf, dst))
-        t1 = time.perf_counter()
         if src is not None:
             reqs.append(dist.irecv(recv_buf, src))
+        self.seconds["d2h"] += time.perf_counter() - t0
+        return reqs, None if src is None else recv_views
+
+    def finish(self, pending: tuple) -> list[torch.Tensor] | None:
+        """The second half of :meth:`shift`: wait for the messages of
+        :meth:`start`'s ``pending``, then copy the received planes to this
+        rank's device (None where no rank sent)."""
+        reqs, recv_views = pending
+        t1 = time.perf_counter()
         for r in reqs:
             r.wait()
         t2 = time.perf_counter()
-        out = (None if src is None else
+        out = (None if recv_views is None else
                [v.to(self.device, copy=True) for v in recv_views])
         sec = self.seconds
-        sec["d2h"] += t1 - t0
         sec["wait"] += t2 - t1
         sec["h2d"] += time.perf_counter() - t2
         return out

@@ -1,9 +1,10 @@
 """Distributed fused merged CG over z-slab and block ranks.
 
 Counterpart of ``mf_data_locality_tpu.parallel.dist_fused`` (its z-slab
-form with ``x0``, the 2-level grid of ``build_dist_fused_2level``, and the
-(z, y) and (z, y, x) meshes of ``solve_fused_2d`` / ``_3d``; without
-``overlap``), the reference's merged solver in MPI operation
+form with ``x0`` and ``overlap``, the 2-level grid of
+``build_dist_fused_2level``, and the (z, y) and (z, y, x) meshes of
+``solve_fused_2d`` / ``_3d``), the reference's merged solver in MPI
+operation
 (``solver_cg_optimized.h:190-302`` with ``poisson_operator.h:327-377``).
 Each rank keeps x, g, d, h as its lattice block (C, Pz+1, Py+1, Px+1)
 (:mod:`.distributed`'s layout; a z-slab is a block of a (N,) mesh) and owns
@@ -34,6 +35,14 @@ An iteration's communication is exactly:
 With k split axes (a z-slab: k = 1) an iteration makes 2k shifts and one
 all-reduce; a solve adds k shifts for the preconditioner's ghost faces, k
 for x's at exit and one all-reduce for res0.
+
+``overlap`` (z-slabs, on a 1- or 2-level grid, as in the JAX package)
+splits step 2 around step 1: the ghost shift is posted, B2's cell pass
+runs over the cell layers below the top one (which read no ghost node),
+the shift is finished into the ghost face, the top layer's cell pass and
+the node passes follow (the layer-range form, ``fused_cg_iteration`` with
+``cells``, then ``fused_cg_assemble``) — bitwise the one launch sequence,
+so the solve is bitwise the one without ``overlap``.
 """
 
 from __future__ import annotations
@@ -73,15 +82,27 @@ def _face(dim: int, at: int, before: slice = slice(None),
                  before if e < dim else after for e in range(4))
 
 
+def _ghosts_start(comm: Comm, vs, dim: int, axis) -> tuple:
+    """Start the shift of face 0 along lattice dim ``dim`` of each of
+    ``vs`` to the lower neighbour (:meth:`Comm.start`)."""
+    return comm.start([v.select(dim, 0) for v in vs], up=False, axis=axis)
+
+
+def _ghosts_finish(comm: Comm, pending: tuple, vs, dim: int) -> None:
+    """Finish :func:`_ghosts_start`'s shift: the upper neighbour's faces
+    into the ghost faces of ``vs``, zero where there is none (the global
+    top face, Dirichlet)."""
+    recv = comm.finish(pending)
+    for v, face in zip(vs, recv or (0.0,) * len(vs)):
+        v[_face(dim, -1)] = face
+
+
 def _fill_ghosts(comm: Comm, vs, halo) -> None:
     """Write the upper neighbour's face 0 of each of ``vs`` into its ghost
     face, axis by axis of ``halo`` (one shift an axis); zero where there is
     no upper neighbour (the global top face, Dirichlet)."""
     for dim, axis in halo:
-        recv = comm.shift([v.select(dim, 0) for v in vs], up=False,
-                          axis=axis)
-        for v, face in zip(vs, recv or (0.0,) * len(vs)):
-            v[_face(dim, -1)] = face
+        _ghosts_finish(comm, _ghosts_start(comm, vs, dim, axis), vs, dim)
 
 
 def _carry(comm: Comm, halo, s: torch.Tensor, h2, d2, g2, P,
@@ -106,8 +127,8 @@ def _carry(comm: Comm, halo, s: torch.Tensor, h2, d2, g2, P,
 
 def solve_fused(slab: SlabProblem, comm: Comm,
                 x0: torch.Tensor | None = None, max_iter: int = 100,
-                abs_tol: float = 1e-15, rel_tol: float = 1e-8
-                ) -> SolveResult:
+                abs_tol: float = 1e-15, rel_tol: float = 1e-8,
+                overlap: bool = False) -> SolveResult:
     """The rank's part of the distributed fused merged-CG solve
     (``solve_fused``, ``solve_fused_2d``, ``solve_fused_3d``): per
     iteration one B2 launch sequence, 2k shifts and one all-reduce (the
@@ -127,6 +148,14 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     single-device solver; the carry is then h''s ghost face as stored,
     rounded to bf16 (the JAX kernel sends it at f32 before the add-back
     rounds it), a second rounding of face 0 of h above the first rank.
+
+    ``overlap``: each iteration's ghost shift overlapped with B2's cell
+    pass over the layers below the top one (the module's docstring; the
+    JAX ``_solve_local``'s ``do_overlap``, ``dist_fused.py:218-243``):
+    z-slabs only (ValueError on a (z, y) or (z, y, x) mesh, whose JAX
+    solvers take no ``overlap``), bitwise the solve without it; with fewer
+    than 2 cell layers a slab it falls back to that solve, as the JAX
+    package does.
     """
     op = slab.op
     if op.slab is None or op.windowing != "pieces":
@@ -134,6 +163,11 @@ def solve_fused(slab: SlabProblem, comm: Comm,
                          "windowing='pieces' (distributed.build_slab, "
                          "build_block)")
     halo = slab.halo
+    z_slabs = len(halo) == 1 and halo[0][0] == 1
+    if overlap and not z_slabs:
+        raise ValueError("solve_fused(overlap=True) runs on z-slabs only "
+                         "(the JAX package's solve_fused_2d / _3d have no "
+                         "overlap)")
     if x0 is not None and halo != ((1, 0),):
         raise ValueError("x0 starts are supported on z-slabs of a 1-level "
                          "rank grid only (as in the JAX package)")
@@ -163,13 +197,31 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     spare = tuple(torch.empty_like(t) for t in state) + (
         torch.empty_like(scal),)
 
+    ncz = op.n_cells_axis[0]
+    if overlap and ncz >= 2:
+        dim, axis = halo[0]
+        if work is None:  # the plain layer-range form's cell results
+            work = fk.Workspace(op)
+
+        def iteration(x, g, d, h, scal):
+            pending = _ghosts_start(comm, [g, d, h], dim, axis)
+            fk.fused_cg_iteration(op, x, g, d, h, scal, P, out=spare,
+                                  work=work, cells=(0, ncz - 1))
+            _ghosts_finish(comm, pending, [g, d, h], dim)
+            fk.fused_cg_iteration(op, x, g, d, h, scal, P, out=spare,
+                                  work=work, cells=(ncz - 1, ncz))
+            return fk.fused_cg_assemble(op, spare, P, scal, work)
+    else:
+        def iteration(x, g, d, h, scal):
+            _fill_ghosts(comm, [g, d, h], halo)
+            return fk.fused_cg_iteration(op, x, g, d, h, scal, P, out=spare,
+                                         work=work)
+
     it, res = 0, res0
     while res > tol and it < max_iter:
         it += 1
         x, g, d, h = state
-        _fill_ghosts(comm, [g, d, h], halo)
-        x2, g2, d2, h2, s = fk.fused_cg_iteration(op, x, g, d, h, scal, P,
-                                                  out=spare, work=work)
+        x2, g2, d2, h2, s = iteration(x, g, d, h, scal)
         s = _carry(comm, halo, s, h2, d2, g2, P, dtype)
         s = comm.allreduce(s)
         spare = (x, g, d, h, scal)

@@ -1,5 +1,4 @@
-"""The distributed dry run on N ranks: ``dryrun_multichip``'s legs 1-3
-and 5-8.
+"""The distributed dry run on N ranks: ``dryrun_multichip``'s legs 1-8.
 
 Counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``
 (``__graft_entry__.py:39-219``): each leg builds the BP4 problem of the
@@ -16,8 +15,8 @@ Legs (the JAX function's order and gates):
 2. the fused CG over z-slabs (B2's block form on blocks of an (N,)
    mesh), the metric streamed;
 3. the same with the metric rebuilt in the kernel (``onthefly``);
-4. the general backend's rank-set halos: not ported yet, it raises
-   NotImplementedError (ROADMAP.md queue A item 9b, with item 7);
+4. the merged CG on the general backend over cell-chunk ranks, the
+   rank-set halos one shift pair a rank offset (:mod:`.dist_general`);
 5. the merged CG on an (N/2, 2) (z, y) mesh, structured backend (N even,
    N >= 4);
 6. the fused CG on the same mesh (B2's block form; N even, N >= 4);
@@ -40,7 +39,7 @@ LEGS = {1: "merged z-slab (structured)", 2: "fused z-slab",
         3: "fused z-slab (onthefly geometry)", 4: "general backend",
         5: "2D mesh", 6: "fused 2D mesh", 7: "fused 2-level mesh",
         8: "fused 3D mesh"}
-PORTED = (1, 2, 3, 5, 6, 7, 8)
+PORTED = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def runs(n_ranks: int, leg: int) -> bool:
@@ -61,10 +60,8 @@ def jobs(n_ranks: int, legs=None) -> list[distributed.Job]:
     ported leg that runs there, :func:`legs_for`)."""
     legs = legs_for(n_ranks) if legs is None else legs
     for leg in legs:
-        if leg not in PORTED:
-            raise NotImplementedError(
-                f"dryrun leg {leg} ({LEGS[leg]}) is not ported yet: see "
-                f"ROADMAP.md, queue A item 9b (dist_general, with item 7)")
+        if leg not in LEGS:
+            raise ValueError(f"no dryrun leg {leg}")
         if not runs(n_ranks, leg):
             raise ValueError(f"dryrun leg {leg} ({LEGS[leg]}) does not run "
                              f"on {n_ranks} ranks")
@@ -75,6 +72,7 @@ def jobs(n_ranks: int, legs=None) -> list[distributed.Job]:
     job = {1: Job("merged", s, 2, f32, backend="structured", **short),
            2: Job("fused", s, 2, f32, **short),
            3: Job("fused", s, 2, f32, metric="onthefly", **short),
+           4: Job("merged", s, 2, f32, backend="general", **short),
            5: Job("merged", s, 2, f32, backend="structured",
                   mesh_shape=(n_ranks // 2, 2), **short),
            6: Job("fused", s, 2, f32, mesh_shape=(n_ranks // 2, 2), **short),
@@ -108,7 +106,9 @@ def report(n_ranks: int, legs, out: list[dict]) -> None:
             raise AssertionError(f"dryrun leg {leg} ({LEGS[leg]}): itCG "
                                  f"{r['it']}, residual {r['res']}")
         mesh = "x".join(map(str, job.mesh(n_ranks)))
-        print(f"dryrun_multichip {LEGS[leg]} ({mesh}): "
+        halos = (f", rank-set halos, offsets {r['offsets']}"
+                 if "offsets" in r else "")
+        print(f"dryrun_multichip {LEGS[leg]} ({mesh}{halos}): "
               f"{r['ranks'][0]['n_dofs']} DoFs, {r['it']} iterations, "
               f"residual {r['res']:.3e} — OK")
 

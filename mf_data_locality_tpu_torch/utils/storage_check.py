@@ -91,12 +91,12 @@ def _is_px(name: str) -> bool:
 
 def _is_block(name: str) -> bool:
     """An instantiation of B2's block form: the kLatticeUpdateBlock form
-    (4) of the FORM passes, or the assemble or dense backward pass with
-    BLOCK (the last template argument) true."""
+    (4) of the FORM passes, or the assemble or the dense forward or
+    backward pass with BLOCK (the last template argument) true."""
     return bool(re.search(r"(apply_sumfac_kernelI[fd]|apply_mma_kernelI|"
                           r"dense_hd_gather_kernelI)Li\d+ELi4E", name)
-                or re.search(r"(assemble_kernelI|dense_hd_backward_kernelI)"
-                             r".*Lb1EEEv", name))
+                or re.search(r"(assemble_kernelI|dense_hd_backward_kernelI|"
+                             r"dense_hd_forward_kernelI).*Lb1EEEv", name))
 
 
 def build_report(parent: str | None) -> bool:

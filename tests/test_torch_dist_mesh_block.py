@@ -257,24 +257,25 @@ def test_dryrun_legs_5_to_7_match_jax(runs4):
         assert got["res"] == pytest.approx(float(w.res_norm), rel=1e-5)
 
 
-@pytest.mark.parametrize("n,legs", [(2, (1, 2, 3)), (3, (1, 2, 3)),
-                                    (4, (1, 2, 3, 5, 6, 7)),
-                                    (6, (1, 2, 3, 5, 6, 7)),
-                                    (8, (1, 2, 3, 5, 6, 7, 8)),
-                                    (16, (1, 2, 3, 5, 6, 7, 8))])
+@pytest.mark.parametrize("n,legs", [(2, (1, 2, 3, 4)), (3, (1, 2, 3, 4)),
+                                    (4, (1, 2, 3, 4, 5, 6, 7)),
+                                    (6, (1, 2, 3, 4, 5, 6, 7)),
+                                    (8, (1, 2, 3, 4, 5, 6, 7, 8)),
+                                    (16, (1, 2, 3, 4, 5, 6, 7, 8))])
 def test_dryrun_leg_gates(n, legs):
-    """The JAX gates (__graft_entry__.py:162, 186, 205): legs 5-7 on an
-    even rank count >= 4, leg 8 on a multiple of 8; leg 4 still raises,
-    naming its ROADMAP item; the meshes of the legs."""
+    """The JAX gates (__graft_entry__.py:162, 186, 205): legs 1-4 on every
+    rank count, 5-7 on an even rank count >= 4, leg 8 on a multiple of 8;
+    leg 4 the general backend's cell chunks; the meshes of
+    the legs."""
     assert dryrun.legs_for(n) == legs
-    meshes = {leg: job.mesh(n) for leg, job in zip(legs, dryrun.jobs(n))}
+    jobs = dict(zip(legs, dryrun.jobs(n)))
+    meshes = {leg: job.mesh(n) for leg, job in jobs.items()}
+    assert jobs[4].backend == "general" and meshes[4] == (n,)
     if 5 in legs:
         assert meshes[5] == meshes[6] == (n // 2, 2)
         assert meshes[7] == (2, n // 2)
     if 8 in legs:
         assert meshes[8] == (n // 4, 2, 2)
-    with pytest.raises(NotImplementedError, match="9b"):
-        dryrun.jobs(n, (4,))
     for leg in set(range(5, 9)) - set(legs):
         with pytest.raises(ValueError, match="does not run"):
             dryrun.jobs(n, (leg,))

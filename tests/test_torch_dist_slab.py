@@ -227,24 +227,28 @@ def test_solver_hooks_are_identity_by_default():
 
 
 def test_refusals():
-    """The distributed forms not ported yet name queue A item 9b; what the
-    JAX CLI refuses raises ValueError."""
-    with pytest.raises(NotImplementedError, match="9b"):
-        dist.check_distributed("merged", "pallas", "reshape", "precomputed",
-                               overlap=True)
-    with pytest.raises(NotImplementedError, match="9b"):
-        dist.check_distributed("merged", "general", "reshape", "precomputed")
+    """What the distributed CLI paths do not run raises ValueError, as the
+    JAX CLI refuses it: ``overlap`` on the general backend, the fused
+    solver off ``pallas``/``pieces``, ``--geometry`` on the merged solver;
+    a dry-run leg that does not exist (``overlap`` on a rank mesh:
+    ``tests/test_torch_dist_overlap.py``)."""
+    dist.check_distributed("merged", "pallas", "reshape", "precomputed",
+                           overlap=True)
+    dist.check_distributed("merged", "general", "reshape", "precomputed")
+    with pytest.raises(ValueError, match="z-slab"):
+        dist.check_distributed("merged", "general", "reshape",
+                               "precomputed", overlap=True)
     with pytest.raises(ValueError, match="pieces"):
         dist.check_distributed("fused", "pallas", "reshape", "precomputed")
+    with pytest.raises(ValueError, match="pieces"):
+        dist.check_distributed("fused", "general", "pieces", "precomputed")
     with pytest.raises(ValueError, match="geometry"):
         dist.check_distributed("merged", "pallas", "reshape", "onthefly")
-    with pytest.raises(NotImplementedError, match="9b"):
-        benchmark.run_one_distributed(4, 7, 2, overlap=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="9b"):
+    with pytest.raises(ValueError, match="z-slab"):
         benchmark.run_one_distributed(4, 7, 2, backend="general",
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="9b"):
-        dryrun.jobs(8, legs=(4,))
+                                      overlap=True, device="cpu")
+    with pytest.raises(ValueError, match="no dryrun leg"):
+        dryrun.jobs(8, legs=(9,))
     with pytest.raises(SystemExit):
         benchmark.main(["4", "7", "--devices", "2", "--factor", "twostage",
                         "--device", "cpu"])

@@ -1018,3 +1018,65 @@ def test_distributed_solves_on_card(cuda_device, n):
         if job.solver != "baseline":
             assert all(r["allreduces"] == got["it"] + 1
                        for r in got["ranks"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["precomputed", "onthefly"])
+@pytest.mark.parametrize("precision,state", SLAB_RUNGS)
+@pytest.mark.parametrize("p", [2, 4, 6])
+def test_layer_range_form_is_the_one_launch(cuda_device, p, precision, state,
+                                            metric):
+    """B2's layer-range form (``fused_cg_iteration`` with ``cells``, then
+    ``fused_cg_assemble``: ``bp4_fused_iteration_block``'s cell pass over
+    a range of cells, then its node passes) on z-slabs of 3 cell layers
+    (rank 1 with a halo plane, rank 2 with a dummy layer): the ranges
+    [0, 2) + [2, 3) and [0, 1) + [1, 3) give x', g', d', h' and the sums
+    bitwise the one launch's."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    for rank in (1, 2):
+        op = distributed.build_slab(9, p, rank, 3, state, "pallas",
+                                    precision, "pieces", metric,
+                                    cuda_device).op
+        x, g, d, h = _state(op, 4, 370 + rank)
+        d, h = d.to(state).contiguous(), h.to(state).contiguous()
+        prec = ((_state(op, 1, 6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+        scal = torch.tensor(SCAL, device=cuda_device, dtype=op.dtype)
+        want = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+        for cut in (2, 1):
+            out = tuple(torch.full_like(t, float("nan"))
+                        for t in (x, g, d, h, scal))
+            work = fk.Workspace(op)
+            for cells in ((0, cut), (cut, 3)):
+                fk.fused_cg_iteration(op, x, g, d, h, scal, prec, out=out,
+                                      work=work, cells=cells)
+            fk.fused_cg_assemble(op, out, prec, scal, work)
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windowing", ["reshape", "pieces", "zslab"])
+@pytest.mark.parametrize("precision,dtype", [("highest", torch.float64),
+                                             ("highest", torch.float32),
+                                             ("split2m", torch.float32)])
+@pytest.mark.parametrize("p", [2, 4, 6])
+def test_sub_range_applies_match_plain(cuda_device, windowing, precision,
+                                       dtype, p):
+    """B3/B5/B6 on a z-slab's operator and on those of its cell-layer
+    sub-ranges (``laplace_cuda.sub_operator``, the overlapped apply's)
+    against their plain versions at the rung's tolerance: B5/B6 on a
+    block's lattice keep the partial sums of its faces (the halo exchange
+    completes them), the mask tensor's zeros aside."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    op, cpu = (distributed.build_slab(9, p, 1, 2, dtype, "pallas",
+                                      precision, windowing, "precomputed",
+                                      dev).op
+               for dev in (cuda_device, "cpu"))
+    u = _state(op, 1, 9)[0]
+    for c0, c1 in ((0, 4), (0, 1), (1, 3), (3, 4)):
+        us = u[:, c0 * p:c1 * p + 1].contiguous()
+        got = la.apply_lattice(laplace_cuda.sub_operator(op, c0, c1), us)
+        want = la.apply_lattice(laplace_cuda.sub_operator(cpu, c0, c1),
+                                us.cpu())
+        assert _rel(got.cpu(), want) <= TOL[dtype]
