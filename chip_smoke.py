@@ -187,7 +187,26 @@ Phases (each raises on failure, so any failure exits nonzero):
    without it in the same spawn (fused: x and history bitwise; merged:
    itCG equal, x within TOL_OVERLAP_X32), each rank's face wait an
    iteration with and without; ``--backend general --devices 4`` at p=4
-   s=12 and dry-run leg 4 (the general backend, plain PyTorch).
+   s=12 and dry-run leg 4 (the general backend, plain PyTorch); in the
+   4-rank spawn also the bf16 state's solves: the CLI's merged
+   solve with ``--dtype bf16`` (its count the single-device bf16 solve's,
+   the JAX package's claim) and the fused solve under highest (C10's f32
+   carry; within 2 of one device's);
+9. bf16 storage (``utils/bf16_state_check.py``): every storage
+   instantiation — the bf16 state on every rung (B1-B6; the cell passes'
+   ``kSbState`` forms, B5/B6's bf16 assemble), the bf16 metric under
+   highest and split2m (``kSbMetric``) — against its plain version on the
+   105-cell box at p=1..5, 8, 11 with its control (the same apply without
+   the bf16 store, the unrounded-d' scalars, the f32 metric), C10's f32
+   carry on a z-slab (the face as stored, the control); each TIMED row at
+   p=4 s=13 beside its plain version and its bound (2-byte state words;
+   fields ``*_bf16state``, ``*_bf16metric``, ... of B2, B3, B5, B6), and
+   the drives of B16_DRIVES: at full depth the JAX CLI's default with
+   ``--dtype bf16`` (``run_one(4, 13, solver="merged",
+   windowing="reshape", precision="highest", dtype=torch.bfloat16)``, B3)
+   and the fused solver with a bf16 state under highest, short the others.
+   The every-degree runs of phase 5 skip, at p=6 and p=8, the paths that
+   the FULL_HIGH drives run there (FULL_DRIVEN).
 """
 
 from __future__ import annotations
@@ -262,6 +281,14 @@ FULL_HIGH = ((6, 12, "_p6"), (8, 11, "_p8"))
 FULL_DOFS = {6: 2_738_019, 8: 3_244_995}
 F64_HIGH = 8
 S_EVERY = 6  # phase 5's short runs of every path at every degree 5..11
+# the paths of those runs that the FULL_HIGH drives run at their degrees
+# (merged and baseline on each windowing, B4, the fused auto paths and
+# the fused solver with the metric rebuilt by jtj), not run again there
+FULL_DRIVEN = ("merged reshape", "baseline", "merged onthefly",
+               "merged pieces", "merged zslab",
+               "fused twostage precomputed adjj",
+               "fused twostage onthefly jtj",
+               "fused split2m twostage onthefly jtj")
 # parity points at p >= 5 (PARITY.md:91-123): (p, s, f64 itCG allowed).
 # p=5 s=6 sits on the tolerance's edge: the JAX merged residual at
 # iteration 94 is 1.026e-8 res0, 2.6% above the tolerance, and by then CG
@@ -342,6 +369,66 @@ WINDOWED_KERNEL = {"reshape": "apply_local_batched_g",
 DENSE_MAIN = (6, 12)  # the merged split2m drive at full depth
 
 
+# bf16 storage (section 9): the drives of the timed storage
+# instantiations, their counts the rows' launches{suffix} — (label, s,
+# kernels, key suffix, run_one's keywords): at full depth the JAX CLI's
+# default with --dtype bf16 (B3) and the fused solver with a bf16 state
+# under highest (B1, B2); short (S_SHORT) merged and baseline with a bf16
+# state on pieces and zslab (B5, B6) and under split2m and split3 (B3),
+# the bf16 metric under highest and split2m (B3; B1/B2 dense, the metric
+# streamed) and the fused solver with a bf16 state under split2m
+BF = torch.bfloat16
+B16_DRIVES = (
+    ("main path, bf16 state (merged, reshape, f32 highest)", S,
+     ("apply_local_batched_g",), "_bf16state",
+     dict(solver="merged", windowing="reshape", precision="highest",
+          dtype=BF)),
+    ("fused, bf16 state, highest", S, ("matvec", "fused_cg_iteration"),
+     "_bf16state", dict(solver="fused", windowing="pieces",
+                        precision="highest", dtype=BF)),
+    ("merged pieces, bf16 state", S_SHORT, ("apply_lattice_pieces",),
+     "_bf16state", dict(solver="merged", windowing="pieces", dtype=BF)),
+    ("baseline zslab, bf16 state", S_SHORT, ("apply_lattice_zslab",),
+     "_bf16state", dict(solver="baseline", windowing="zslab", dtype=BF)),
+    ("merged reshape, bf16 state, split2m", S_SHORT,
+     ("apply_local_batched_g",), "_bf16state_split2m",
+     dict(solver="merged", precision="split2m", dtype=BF)),
+    ("baseline reshape, bf16 state, split3", S_SHORT,
+     ("apply_local_batched_g",), "_bf16state_split3",
+     dict(solver="baseline", precision="split3", dtype=BF)),
+    ("fused, bf16 state, split2m", S_SHORT, ("matvec", "fused_cg_iteration"),
+     "_bf16state_split2m", dict(solver="fused", windowing="pieces",
+                                precision="split2m", dtype=BF)),
+    ("merged reshape, bf16 metric", S_SHORT, ("apply_local_batched_g",),
+     "_bf16metric", dict(solver="merged", metric_dtype=BF)),
+    ("merged reshape, bf16 metric, split2m", S_SHORT,
+     ("apply_local_batched_g",), "_bf16metric_split2m",
+     dict(solver="merged", precision="split2m", metric_dtype=BF)),
+    ("fused dense, bf16 metric", S_SHORT, ("matvec", "fused_cg_iteration"),
+     "_bf16metric", dict(solver="fused", windowing="pieces", factor="dense",
+                         metric="precomputed", metric_dtype=BF)),
+    ("fused dense, bf16 metric, split2m", S_SHORT,
+     ("matvec", "fused_cg_iteration"), "_bf16metric_split2m",
+     dict(solver="fused", windowing="pieces", precision="split2m",
+          factor="dense", metric="precomputed", metric_dtype=BF)),
+)
+# the sources of section 9's timed rows (at p=4: the sum-factorized
+# pass's storage instantiations under highest, the dense tensor-core
+# pass's under split2m; B2's split2m auto configuration at p=4 with a
+# bf16 state, the bf16 rung's dispatch, is dense)
+B16_SOURCE = {
+    ("apply_local_batched_g", "_bf16state"): "sumfac_sb.cu",
+    ("apply_lattice_pieces", "_bf16state"): "sumfac_sb.cu",
+    ("apply_lattice_zslab", "_bf16state"): "sumfac_sb.cu",
+    ("apply_local_batched_g", "_bf16metric"): "sumfac_sb.cu",
+    ("apply_local_batched_g", "_bf16metric_split2m"): "mma_sb.cu",
+    ("fused_cg_iteration", "_bf16state"): "sumfac_sb.cu",
+    ("fused_cg_iteration", "_bf16state_split2m"): "mma_sb.cu",
+    ("fused_cg_iteration", "_bf16metric"): "sumfac_sb.cu",
+    ("fused_cg_iteration", "_bf16metric_split2m"): "mma_sb.cu",
+}
+
+
 def sumfac_fma(p: int, q: int) -> int:
     """FMAs of the sum-factorized apply a cell, three components: forward
     x pass (S, D), y pass (3), z pass (3), and the same backward."""
@@ -365,7 +452,8 @@ def bound(name: str, op, split: bool, state: torch.dtype | None = None,
     The metric: 6 q^3 words a cell streamed, at its storage's size (bf16:
     2 bytes), or 24 coefficient words a cell and its rebuild's FMAs
     (B1/B2: by their chain, adjj or jtj; B4: adjj).  ``state``: B1/B2's d
-    and h storage (bf16: 2 bytes each read and written); ``prec_word``,
+    and h storage, the apply family's u and v (bf16: 2 bytes each read and
+    written); ``prec_word``,
     ``x_word``: B2's bytes a value of P and of x (prec_dtype, x_dtype)."""
     p, q, nc = op.degree, op.n_q, op.n_cells
     nz, ny, nx = op.n_nodes_axis
@@ -398,9 +486,11 @@ def bound(name: str, op, split: bool, state: torch.dtype | None = None,
         products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
         onthefly = name == "apply_local_batched_onthefly"
         other = 27 * q3 + (METRIC_FMA * q3 if onthefly else 0)
+        # u read and v written at the state's size (bf16: 2 bytes)
         nbytes = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
-                  + (24 * nc if onthefly else 0)
-                  + (nn if name == "apply_lattice_zslab" else 0)) * word
+                  * sword + ((24 * nc if onthefly else 0)
+                             + (nn if name == "apply_lattice_zslab" else 0))
+                  * word)
         nbytes += 0 if onthefly else 6 * q3 * nc * mword
     t_bytes = nbytes / HBM_BPS
     if split:
@@ -1958,7 +2048,16 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                 "general": Job("merged", GENERAL_S, p_full, f32,
                                backend="general", timed=True,
                                solve_repeats=1, matvec_repeats=1,
-                               matvec_inner=10)}}
+                               matvec_inner=10),
+                # the bf16 state (section 9): the CLI's merged solve with
+                # --dtype bf16, and the fused solve (highest: C10's f32
+                # carry, the JAX test's rung)
+                "merged_bf16": Job("merged", s_full, p_full, BF,
+                                   timed=True, solve_repeats=1,
+                                   matvec_repeats=1, matvec_inner=10),
+                "fused_bf16": Job("fused", s_full, p_full, BF, "pallas",
+                                  "highest", timed=True, solve_repeats=1,
+                                  matvec_repeats=1, matvec_inner=10)}}
     parity = {}
     for sfx, s_mesh, mesh in MESH_FULL:
         n = math.prod(mesh)
@@ -2033,6 +2132,31 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         rows[label] = r1
         print(f"  {label}: {r1.row()}")
     del dense_pre
+    # the bf16 state: the merged solve's count is the single-device
+    # bf16 solve's (the JAX package's claim,
+    # tests/test_distributed.py:326-336); the fused one within 2 of its
+    # single-device solve
+    pb = bp4.build(s_full, p_full, BF, "highest", device=dev)
+    one = bp4.solve_merged(pb)
+    n_bf16 = len(out["merged_bf16"]["ranks"])
+    print(f"  merged_bf16: itCG {out['merged_bf16']['it']} on {n_bf16} "
+          f"ranks, {one.n_iterations} on one device")
+    if out["merged_bf16"]["it"] != one.n_iterations:
+        raise AssertionError("the distributed merged bf16 solve's count is "
+                             "not the single-device one's")
+    cfg = dict(factor="dense", metric="precomputed", windowing="pieces")
+    pb = bp4.build(s_full, p_full, BF, "highest", device=dev, **cfg)
+    lat1 = (3,) + pb.layout.n_nodes_axis
+    one = cg_fused.fused_merged_cg_solve(pb.op, lat1[1:], pb.b.reshape(lat1),
+                                         pb.inv_diag.reshape(
+                                             (1,) + lat1[1:]))
+    print(f"  fused_bf16: itCG {out['fused_bf16']['it']} on {n_bf16} "
+          f"ranks, {one.n_iterations} on one device")
+    if abs(out["fused_bf16"]["it"] - one.n_iterations) > 2:
+        raise AssertionError("the distributed fused bf16 solve is not the "
+                             "single-device one")
+    del pb, one
+    torch.cuda.empty_cache()
     print(f"  the solutions and one device ({time.perf_counter() - t0:.1f} "
           f"s)")
     overlap = overlap_readings(out)
@@ -2046,7 +2170,9 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                         ("fused_onthefly", "fused_cg_iteration"),
                         ("merged_block2d", "apply_local_batched_g"),
                         ("fused_block2d", "fused_cg_iteration"),
-                        ("fused_block3d", "fused_cg_iteration")):
+                        ("fused_block3d", "fused_cg_iteration"),
+                        ("merged_bf16", "apply_local_batched_g"),
+                        ("fused_bf16", "fused_cg_iteration")):
         if not launches[label][kern]:
             raise AssertionError(f"the distributed {label} path launched "
                                  f"no {kern}")
@@ -2103,7 +2229,7 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.name})")
     entry = ""  # the kernel a ptxas line is about
-    regs = {}  # (tensor-core pass, products a tile) -> registers
+    regs = {}  # (tensor-core pass, NP) -> registers
     for line in log.splitlines():
         if "Function properties for" in line:
             entry = line.split("for ")[-1].strip()
@@ -2117,13 +2243,16 @@ def main() -> int:
             regs.setdefault((kern, n_prod), []).append(
                 int(re.search(r"(\d+) registers", line)[1]))
     for (kern, n_prod), r in sorted(regs.items()):
-        print(f"  ptxas: {kern}_kernel, {n_prod} products a tile, {len(r)} "
+        # NP: the products a tile, and above them the storage flags
+        # (bp4_operator.cuh's kSbState 4, kSbMetric 8)
+        print(f"  ptxas: {kern}_kernel, NP {n_prod}, {len(r)} "
               f"instantiations: {min(r)}-{max(r)} registers")
     slowest = sorted(re.findall(r"^nvcc: (.*) ([\d.]+) s$", log, re.M),
                      key=lambda x: -float(x[1]))[:3]
     print("  slowest compiles: " + ", ".join(f"{n} {t} s"
                                              for n, t in slowest))
 
+    print(f"(phase 3 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 3. kernels vs plain versions at the main paths' size -------------
     print("kernels vs plain:")
     errs, times, errs_split, times_split, bounds = {}, {}, {}, {}, {}
@@ -2232,6 +2361,7 @@ def main() -> int:
     # full-width points, f32 (B1/B2 also f64 at p=F64_HIGH)
     print(f"kernels vs plain at p={HIGH_DEGREES[0]}..{HIGH_DEGREES[-1]} "
           f"(highest, f32 and f64):")
+    print(f"  (p >= 5 box: {time.perf_counter() - T0:.1f} s since the start)")
     compare_high_degrees(fk, la, dev)
     high = {}  # key suffix -> name -> ((ms, plain ms), bound, max |diff|)
     for p, s, sfx in FULL_HIGH:
@@ -2241,11 +2371,13 @@ def main() -> int:
                                            torch.float64)
     print(f"kernels vs plain under split2m at p={SPLIT_CMP[0]}.."
           f"{SPLIT_CMP[-1]} (B1/B2 twostage, f32):")
+    print(f"  (split2m twostage: {time.perf_counter() - T0:.1f} s since the start)")
     compare_split_high(fk, dev)
     split_hi = {}  # "_split2m" + p's suffix -> name -> (times, bound, diff)
     for p, s, sfx in FULL_HIGH:
         split_hi["_split2m" + sfx] = time_split_high(fk, dev, timing, p, s)
     print("kernels vs plain under split3 and bf16:")
+    print(f"  (the reduced rungs: {time.perf_counter() - T0:.1f} s since the start)")
     compare_reduced_box(fk, la, dev)
     reduced = {}  # rung's suffix (+ p's) -> name -> (times, bound, diff)
     for rung, state, mdt, sfx in REDUCED:
@@ -2264,6 +2396,7 @@ def main() -> int:
             dense_hi[sfx + x] = time_dense(fk, la, dev, timing, p, s, rung,
                                            state, mdt)
 
+    print(f"(phase 4 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 4. convergence class at the parity point p=4, s=7 ---------------
     for dtype, precision, allowed in ((torch.float64, "highest", (91,)),
                                       (torch.float32, "highest",
@@ -2359,6 +2492,7 @@ def main() -> int:
     parity_reduced(benchmark, bp4, dev)
     parity_merged_split(bp4, dev)
 
+    print(f"(phase 5 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 5. the paths -----------------------------------------------------
     bw = timing.measure_hbm_bandwidth(dev)
     launches, launches_split, launches_highest = {}, {}, {}
@@ -2486,12 +2620,15 @@ def main() -> int:
         want = FULL_DOFS[p]
         if any(r.n_dofs != want for r in rows):
             raise AssertionError(f"p={p} rows at the wrong size: {rows}")
+    print(f"  (every degree: {time.perf_counter() - T0:.1f} s since the start)")
     # every degree 5..11 on a small mesh: each path, and the fused solver
-    # in every HIGH_FUSED configuration
+    # in every HIGH_FUSED configuration; at the degrees of FULL_HIGH those
+    # that the drives above ran there (FULL_DRIVEN) are not run again
     print(f"paths at every degree {HIGH_DEGREES[0]}..{HIGH_DEGREES[-1]}, "
           f"s={S_EVERY}, f32 highest:")
     tiny = dict(solve_repeats=1, matvec_repeats=1, matvec_inner=2,
                 quiet=True, into=None)
+    full_p = {p for p, _, _ in FULL_HIGH}
     for p in HIGH_DEGREES:
         for label, expect, kw in (
                 ("merged reshape", ("apply_local_batched_g",),
@@ -2511,6 +2648,8 @@ def main() -> int:
                    dict(solver="fused", windowing="pieces",
                         precision="split2m", metric=m, cofactor=c))
                   for m, c in SPLIT_HIGH)):
+            if p in full_p and label in FULL_DRIVEN:
+                continue
             drive(label, S_EVERY, expect, degree=p, **kw, **tiny)
 
     # the reduced rungs: bench.py's split3 and bf16 lines at full depth
@@ -2541,8 +2680,9 @@ def main() -> int:
             drive(f"fused auto ({rung})", s, b1b2,
                   into=launches_red[sfx + x], degree=p, **kw, **short)
         for p in HIGH_DEGREES:
-            drive(f"fused auto ({rung})", S_EVERY, b1b2, degree=p, **kw,
-                  **tiny)
+            if p not in full_p:  # FULL_HIGH's drives ran there
+                drive(f"fused auto ({rung})", S_EVERY, b1b2, degree=p, **kw,
+                      **tiny)
 
     # the dense tensor-core pass past p=4: the merged solver under split2m
     # at DENSE_MAIN at full depth (B3), and at each full-width point and
@@ -2551,6 +2691,7 @@ def main() -> int:
     # merged solver on each windowing, the baseline solver on one
     # (rotating) and the fused solver's --factor dense, short (p >= 9: the
     # merged reshape and the fused paths only)
+    print(f"  (the dense pass's drives: {time.perf_counter() - T0:.1f} s since the start)")
     launches_dh = {sfx: {} for sfx in dense_hi}
     r_dense_main = None
     for rung, state, mdt, sfx in DENSE_RUNGS:
@@ -2594,9 +2735,12 @@ def main() -> int:
                           (f"baseline {w}", (WINDOWED_KERNEL[w],),
                            dict(solver="baseline", windowing=w))]
             for label, expect, kw in paths:
+                if p in full_p and not label.startswith("baseline"):
+                    continue  # the FULL_HIGH drives of the rung ran there
                 drive(f"{label} {rung}", S_EVERY, expect, degree=p,
                       precision=rung, metric_dtype=mdt, **kw, **tiny)
 
+    print(f"(phase 7 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 7. P and x in bf16 (B2), the plain backends, the discretization --
     print("B2 with P or x stored in bf16:")
     storage, st_problems = compare_storage(fk, bp4, dev, timing)
@@ -2759,6 +2903,7 @@ def main() -> int:
                 or res.n_iterations != row.n_iterations or not gap < tol:
             raise AssertionError(f"{label} solution is wrong")
 
+    print(f"(phase 8 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 8. the distributed solvers: z-slabs and rank meshes ---------------
     t8 = time.perf_counter()
     print("the distributed solvers: B2's block form vs plain:")
@@ -2784,10 +2929,28 @@ def main() -> int:
     compare_range_form(fk, dev)
     range_t = time_range_form(fk, dev, timing)
     compare_sub_applies(la, dev)
+    print(f"  (the spawns: {time.perf_counter() - T0:.1f} s since the start)")
     print("the distributed solvers (ranks: processes on this card, gloo):")
     launches_dist, _, launches_dry, overlap = distributed_phase(
         benchmark, bp4, cg_fused, fk, dev)
     print(f"section 8: {time.perf_counter() - t8:.1f} s")
+
+    # -- 9. bf16 storage: the bf16 state on every rung, the bf16 metric
+    #       under highest and split2m, C10's f32 carry -------------------
+    t9 = time.perf_counter()
+    from mf_data_locality_tpu_torch.utils import bf16_state_check as b16
+
+    print(f"bf16 storage: the storage instantiations vs plain on the "
+          f"{'x'.join(map(str, b16.RAGGED))} box at p in {b16.DEGREES}:")
+    b16.report(b16.compare_all(dev))
+    print(f"  ({time.perf_counter() - t9:.1f} s)")
+    b16_times = b16.time_all(
+        dev, lambda k, p: time_pair(k, p, dev, timing), bound)
+    launches_b16 = {}
+    for label, s_d, expect, sfx, kw in B16_DRIVES:
+        drive(label, s_d, expect, into=launches_b16.setdefault(sfx, {}),
+              quiet=s_d != S, **kw, **({} if s_d == S else short))
+    print(f"section 9: {time.perf_counter() - t9:.1f} s")
 
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
@@ -2903,6 +3066,19 @@ def main() -> int:
             row["launches_dryrun"] = {f"{n}:{leg}": v for (n, leg), v
                                       in launches_dry.items()
                                       if leg in (6, 7, 8)}
+        for (kname, sfx), ((k, pl), (bms, by), err, tag) in \
+                b16_times.items():  # bf16 storage (section 9)
+            if kname != name:
+                continue
+            row.update({f"source{sfx}": CSRC + B16_SOURCE[name, sfx],
+                        f"config{sfx}": tag, f"ms{sfx}": k,
+                        f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
+                        f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
+                        f"launches{sfx}": launches_b16[sfx][name]})
+        if name == "fused_cg_iteration":  # the fused bf16 solve on 4 ranks
+            row["launches_slab_bf16"] = launches_dist["fused_bf16"][name]
+        if name == "apply_local_batched_g":
+            row["launches_dist_bf16"] = launches_dist["merged_bf16"][name]
         if name == "apply_lattice_pieces":  # the fused paths' matvec column
             row["launches_dist"] = (launches_dist["fused"][name]
                                     + launches_dist["fused_onthefly"][name])

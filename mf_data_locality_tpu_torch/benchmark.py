@@ -29,9 +29,13 @@ tensor-core rungs ``split2m``, ``split3`` and ``bf16`` the dense pair at
 degrees 1..11 (adjj) and twostage with either metric at 4..11, the
 rebuilt one by either chain (the auto path from p=5 is twostage +
 onthefly + jtj); the merged and baseline solvers on every windowing at
-every degree and rung.  ``--dtype bf16`` (the fused solver under
-``--precision bf16``) stores d and h in bf16; ``--metric-dtype bf16``
-(``split3``, ``bf16``) streams the metric in bf16.  ``--prec-dtype bf16``
+every degree and rung.  ``--dtype bf16`` stores the solver's operator
+stream in bf16 — d and h of the merged and fused solvers, p and Ap of the
+baseline — with every solver, windowing and rung, on one device and on
+the ranks, as the JAX package does (x, g and the sums at f32; the
+configuration resolves as with the bf16 rung, the JAX ``run_one``'s
+``eff_prec``, the operator keeping ``--precision``); ``--metric-dtype
+bf16`` streams the metric in bf16 on every rung.  ``--prec-dtype bf16``
 and ``--x-dtype bf16`` store the fused solver's preconditioner and
 solution x in bf16, in every configuration.  ``--backend structured`` and
 ``--backend general`` run the merged and baseline solvers on the plain
@@ -40,9 +44,10 @@ lattice and gather/scatter operators (``ops/laplace_structured``,
 change nothing, as in the JAX single-device ``run_one``.  Other unported
 choices raise NotImplementedError naming their ROADMAP item (queues A and
 B), with no fallback to another rung or to the plain version: the
-tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass, a
-bf16 state under another rung or in the merged and baseline solvers, a
-bf16 metric under ``highest`` and ``split2m``.  ``s < 1`` runs the
+tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass; and
+the fused solver's ``--prec-dtype``/``--x-dtype bf16`` beside a bf16
+state or metric that only the storage instantiations read.  ``s < 1``
+runs the
 reference's auto size ladder.
 
 ``--devices N`` runs the merged, baseline or fused CG over N z-slab ranks
@@ -317,8 +322,9 @@ def run_one(degree: int, s: int, solver: str = "merged",
     ``precision``, ``windowing``, ``factor``, ``metric`` and ``cofactor``
     change nothing (the JAX ``bp4.build`` passes them to the pallas
     builder only) and the fused solver is refused.
-    ``dtype=torch.bfloat16``: the fused solver's bf16 state (d, h) under
-    the ``bf16`` rung; ``metric_dtype``: the streamed metric's storage;
+    ``dtype=torch.bfloat16``: the bf16 state (d and h, the baseline's p
+    and Ap) of every solver on every rung; ``metric_dtype``: the streamed
+    metric's storage;
     ``prec_dtype``, ``x_dtype``: the fused solver's P and x storage.
     ``problem``: a prebuilt problem of the same configuration (ValueError
     where it is not, the JAX ``run_one``'s checks).
@@ -505,7 +511,10 @@ def main(argv: list[str] | None = None) -> None:
                          "PCG (both on the apply family); fused = one "
                          "fused-iteration kernel per CG iteration "
                          "(requires --windowing pieces)")
-    ap.add_argument("--dtype", choices=list(DTYPES), default="f32")
+    ap.add_argument("--dtype", choices=list(DTYPES), default="f32",
+                    help="vector storage: bf16 stores the operator stream "
+                         "(d and h; the baseline's p and Ap) in bf16 with "
+                         "every solver and rung, x, g and the sums at f32")
     ap.add_argument("--precision",
                     choices=["highest", "split3", "split2m", "bf16"],
                     default="highest",
@@ -517,7 +526,7 @@ def main(argv: list[str] | None = None) -> None:
                          "only)")
     ap.add_argument("--metric-dtype", choices=["f32", "bf16"], default="f32",
                     help="storage dtype of the precomputed metric stream "
-                         "(bf16: split3 and bf16 rungs)")
+                         "(bf16: every rung)")
     ap.add_argument("--windowing", choices=["reshape", "pieces", "zslab"],
                     default="reshape",
                     help="lattice<->cell form: reshape = cell batches "

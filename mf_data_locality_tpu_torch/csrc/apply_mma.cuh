@@ -27,6 +27,14 @@
 // streamed metric in bf16 (x.metric_bf16), the bf16 one B1/B2's d and h in
 // bf16 (the bf16 state, x.io.bf16), both upcast at the load; split2m's
 // reads f32 only, and its code is what it was before the other rungs came.
+// Storage flags above the products a tile (NP = rung | kSbState |
+// kSbMetric, bp4_operator.cuh; the products rung_of(NP)): kSbState, built
+// at every rung, reads u (B3, B5, B6, B1) or d and h (B2) in bf16 by
+// io.bf16 and stores B3's output rounded to bf16 (the bf16 state under any
+// rung: a bf16 stream's lo part is zero, so its products add exact zeros,
+// which the kernel does not skip); kSbMetric (split2m) reads the streamed
+// metric in bf16, fixed at compile time.  Their instantiations are built
+// in mma_sb.cu, one object a rung.
 //
 // What one warp computes: one component of a tile of 16 cells, in the
 // transposed form with rows = cells (P13 nodes, R = 3 Q3 gradient rows):
@@ -186,6 +194,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   constexpr int KF = P13P / 16, KB = Ms::RP / 16, NB = P13P / 8;
   // split3: Ml's tables, this far after Mh's (laplace_cuda.mma_tables)
   constexpr int ML = 2 * 3 * Q3P * P13P / 4;
+  constexpr int kNP = rung_of(NP);  // the products a tile
+  constexpr bool kBfState = (NP & kSbState) != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<MmaSmem<P, REBUILD>*>(smem_raw);
   const int nc = gr.n_cells();
@@ -220,16 +230,19 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       if constexpr (FORM == kLattice) {
         float m;
         const size_t node = cell_node<P>(gr, cell, k, mask, &m);
-        if constexpr (NP != 1)
+        if constexpr (kNP != 1 && !kBfState)
           val = u[c * n_nodes + node] * m;
         else
           val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
       } else if constexpr (is_update(FORM)) {
-        val = cell_input<float, P, true, NP == 1,
+        val = cell_input<float, P, true, kNP == 1 || kBfState,
                          FORM == kLatticeUpdatePx, is_block(FORM)>(
             x.io, sm.x.sc, gr, c, cell / (gr.ncx * gr.ncy),
             (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
             (k / S::P1) % S::P1, k % S::P1);
+      } else if constexpr (kBfState) {
+        val = load_flex(u, static_cast<size_t>(c * P13 + k) * nc + cell,
+                        x.io.bf16);
       } else {
         val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
       }
@@ -237,7 +250,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const __nv_bfloat16 hi = __float2bfloat16_rn(val);
     auto& parts = sm.u[b / kMmaCells][c];
     parts[0][b % kMmaCells][k] = hi;
-    if constexpr (NP != 1)
+    if constexpr (kNP != 1)
       parts[1][b % kMmaCells][k] =
           __float2bfloat16_rn(val - __bfloat162float(hi));
   }
@@ -277,8 +290,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           const int nt = d * (Q3P / 8) + 2 * j + h;
           const uint2 bf = __ldg(mf + (nt * KF + ks) * 32 + lane);
           mma_bf16(ga[d][h], a[0], bf);
-          if constexpr (NP != 1) mma_bf16(ga[d][h], a[1], bf);
-          if constexpr (NP == 3)
+          if constexpr (kNP != 1) mma_bf16(ga[d][h], a[1], bf);
+          if constexpr (kNP == 3)
             mma_bf16(ga[d][h], a[0], __ldg(mf + ML + (nt * KF + ks) * 32 + lane));
         }
     }
@@ -302,7 +315,12 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           for (int e = 0; e < 6; ++e) {
             if constexpr (REBUILD)
               G[e] = sm.x.g[j % 2][e][ql][cell - cell0];
-            else if constexpr (NP == 2)
+            else if constexpr ((NP & kSbMetric) != 0)
+              G[e] = live ? metric_ldg<NP>(
+                                gmetric,
+                                static_cast<size_t>(e * Q3 + qp) * nc + cell)
+                          : 0.f;
+            else if constexpr (kNP == 2)
               G[e] = live ? __ldg(gmetric + static_cast<size_t>(e * Q3 + qp) * nc + cell)
                           : 0.f;
             else
@@ -319,7 +337,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         }
 #pragma unroll
         for (int e = 0; e < 3; ++e)
-          stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * h + r],
+          stream_parts<kNP>(tv[e][0], tv[e][1], th[e][2 * h + r],
                            tl[e][2 * h + r]);
       }
 
@@ -330,8 +348,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       for (int nt = 0; nt < NB; ++nt) {
         const uint2 bb = __ldg(mb + (nt * KB + e * Ms::QC + j) * 32 + lane);
         mma_bf16(v[nt], th[e], bb);
-        if constexpr (NP != 1) mma_bf16(v[nt], tl[e], bb);
-        if constexpr (NP == 3)
+        if constexpr (kNP != 1) mma_bf16(v[nt], tl[e], bb);
+        if constexpr (kNP == 3)
           mma_bf16(v[nt], th[e],
                    __ldg(mb + ML + (nt * KB + e * Ms::QC + j) * 32 + lane));
       }
@@ -348,6 +366,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         float m;
         cell_node<P, is_block(FORM)>(gr, cell, k, mask, &m);
         out[(static_cast<size_t>(c) * nc + cell) * P13 + k] = v[nt][i] * m;
+      } else if constexpr (kBfState) {
+        store_flex(out, static_cast<size_t>(c * P13 + k) * nc + cell,
+                   v[nt][i], x.io.bf16);
       } else {
         out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[nt][i];
       }
@@ -415,5 +436,31 @@ cudaError_t launch_mma(const void* mf, const void* mb, const float* gmetric,
 
 BP4_MMA_RUNG(1, BP4_MMA_DECLARE1)
 BP4_MMA_RUNG(3, BP4_MMA_DECLARE1)
+
+// The storage instantiations (mma_sb.cu, one object a rung): the bf16
+// state (kSbState) in B3's cell-batch form at every rung, in the lattice
+// and update4b forms at split2m and split3 (the bf16 rung's read it by
+// io.bf16 already); under split2m also with the bf16 metric (kSbMetric),
+// but in B2's block form (no distributed path streams a bf16 metric).
+#define BP4_MMA_SB_STATE(P, NP, M)                                    \
+  M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
+  M(P, kLattice, true, NP) M(P, kLatticeUpdate, false, NP)            \
+  M(P, kLatticeUpdate, true, NP) M(P, kLatticeUpdateBlock, false, NP) \
+  M(P, kLatticeUpdateBlock, true, NP)
+#define BP4_MMA_SB_METRIC(P, NP, M)                                   \
+  M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
+  M(P, kLatticeUpdate, false, NP)
+// rung 1 | 4, 2 | 4, 2 | 12, 3 | 4 at degree P
+#define BP4_MMA_SB_RUNG1(P, M) M(P, kCellBatch, false, 5)
+#define BP4_MMA_SB_RUNG2(P, M) \
+  BP4_MMA_SB_STATE(P, 6, M) BP4_MMA_SB_METRIC(P, 14, M)
+#define BP4_MMA_SB_RUNG3(P, M) BP4_MMA_SB_STATE(P, 7, M)
+#define BP4_MMA_SB_LO(R, M)                                          \
+  BP4_CAT(BP4_MMA_SB_RUNG, R)(1, M) BP4_CAT(BP4_MMA_SB_RUNG, R)(2, M) \
+  BP4_CAT(BP4_MMA_SB_RUNG, R)(3, M) BP4_CAT(BP4_MMA_SB_RUNG, R)(4, M)
+static_assert(kSbState == 4 && kSbMetric == 8, "BP4_MMA_SB_RUNG*");
+BP4_MMA_SB_LO(1, BP4_MMA_DECLARE1)
+BP4_MMA_SB_LO(2, BP4_MMA_DECLARE1)
+BP4_MMA_SB_LO(3, BP4_MMA_DECLARE1)
 
 }  // namespace bp4

@@ -97,7 +97,7 @@ constexpr int kHdGatherThreads = 256;
 template <int P, int NP>
 struct DenseHdLayout {
   using Ms = MmaShape<P>;
-  static constexpr int NPART = NP == 1 ? 1 : 2;
+  static constexpr int NPART = rung_of(NP) == 1 ? 1 : 2;
   static constexpr int KF = Ms::P13P / 16;  // forward k16 steps
   static constexpr int KB = Ms::RP / 16;    // backward k16 steps
   int ncp, mt;                              // padded cells, m16 row tiles
@@ -155,6 +155,8 @@ __global__ void __launch_bounds__(kHdGatherThreads)
   using S = Shape<P>;
   using L = DenseHdLayout<P, NP>;
   constexpr int P13 = S::P13, P13P = MmaShape<P>::P13P;
+  constexpr int kNP = rung_of(NP);
+  constexpr bool kBfState = (NP & kSbState) != 0;
   const int nc = gr.n_cells();
   const L lay(nc);
   const size_t n_nodes = gr.n_nodes();
@@ -174,17 +176,20 @@ __global__ void __launch_bounds__(kHdGatherThreads)
     if constexpr (FORM == kLattice) {
       float m;
       const size_t node = cell_node<P>(gr, cell, k, mask, &m);
-      if constexpr (NP != 1)
+      if constexpr (kNP != 1 && !kBfState)
         val = u[c * n_nodes + node] * m;
       else
         val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
     } else if constexpr (is_update(FORM)) {
       const float sc[4] = {x.io.scal[0], x.io.scal[1], x.io.scal[2],
                            x.io.scal[3]};
-      val = cell_input<float, P, true, NP == 1, FORM == kLatticeUpdatePx,
-                       is_block(FORM)>(
+      val = cell_input<float, P, true, kNP == 1 || kBfState,
+                       FORM == kLatticeUpdatePx, is_block(FORM)>(
           x.io, sc, gr, c, cell / (gr.ncx * gr.ncy), (cell / gr.ncx) % gr.ncy,
           cell % gr.ncx, k / S::P12, (k / S::P1) % S::P1, k % S::P1);
+    } else if constexpr (kBfState) {
+      val = load_flex(u, static_cast<size_t>(c * P13 + k) * nc + cell,
+                      x.io.bf16);
     } else {
       val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
     }
@@ -193,7 +198,7 @@ __global__ void __launch_bounds__(kHdGatherThreads)
   const size_t pos = a_frag_pos(row / 16, k / 16, L::KF, row % 16, k % 16);
   const __nv_bfloat16 hi = __float2bfloat16_rn(val);
   us[pos] = hi;
-  if constexpr (NP != 1)
+  if constexpr (kNP != 1)
     us[lay.u_part() * 8 + pos] = __float2bfloat16_rn(val - __bfloat162float(hi));
 }
 
@@ -214,6 +219,7 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
   using Ms = MmaShape<P>;
   using L = DenseHdLayout<P, NP>;
   constexpr int Q3 = S::Q3, Q3P = Ms::Q3P, KF = L::KF, KB = L::KB;
+  constexpr int kNP = rung_of(NP);
   // split3: Ml's forward table, this far after Mh's
   constexpr int ML = 2 * 3 * Q3P * Ms::P13P / 4;
   __shared__ float gs[6][16][kMmaGLd];  // G of the chunk: (entry, q, cell)
@@ -250,8 +256,11 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
 #pragma unroll
         for (int e = 0; e < 6; ++e) {
           const size_t at = static_cast<size_t>(e * Q3 + qp) * nc + cell;
-          gm[e] = NP == 2 ? __ldg(gmetric + at)
-                          : ldg_flex(gmetric, at, x.metric_bf16);
+          if constexpr ((NP & kSbMetric) != 0)
+            gm[e] = metric_ldg<NP>(gmetric, at);
+          else
+            gm[e] = NP == 2 ? __ldg(gmetric + at)
+                            : ldg_flex(gmetric, at, x.metric_bf16);
         }
       }
     }
@@ -283,13 +292,13 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
           const int nt = d * (Q3P / 8) + 2 * j + h;
           const uint2 bf = __ldg(mf + (nt * KF + ks) * 32 + lane);
           uint2 bl{};
-          if constexpr (NP == 3)
+          if constexpr (kNP == 3)
             bl = __ldg(mf + ML + (nt * KF + ks) * 32 + lane);
 #pragma unroll
           for (int m = 0; m < 2; ++m) {
             mma_bf16(part[m][d][h], a[m][0], bf);
-            if constexpr (NP != 1) mma_bf16(part[m][d][h], a[m][1], bf);
-            if constexpr (NP == 3) mma_bf16(part[m][d][h], a[m][0], bl);
+            if constexpr (kNP != 1) mma_bf16(part[m][d][h], a[m][1], bf);
+            if constexpr (kNP == 3) mma_bf16(part[m][d][h], a[m][0], bl);
           }
         }
     }
@@ -330,15 +339,15 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
         }
 #pragma unroll
         for (int e = 0; e < 3; ++e)
-          stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * h + r],
-                           tl[e][2 * h + r]);
+          stream_parts<kNP>(tv[e][0], tv[e][1], th[e][2 * h + r],
+                            tl[e][2 * h + r]);
       }
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
       const size_t at =
           (static_cast<size_t>(mt0 + m) * KB + e * Ms::QC + j) * 32 + lane;
       ts[at] = make_uint4(th[e][0], th[e][1], th[e][2], th[e][3]);
-      if constexpr (NP != 1)
+      if constexpr (kNP != 1)
         ts[lay.t_part() + at] = make_uint4(tl[e][0], tl[e][1], tl[e][2],
                                            tl[e][3]);
     }
@@ -361,6 +370,7 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
   using Ms = MmaShape<P>;
   using L = DenseHdLayout<P, NP>;
   constexpr int P13 = S::P13, KB = L::KB, NT = Ms::P13P / 8;
+  constexpr int kNP = rung_of(NP);
   constexpr int NG = (NT + kHdBwdTiles - 1) / kHdBwdTiles;  // node groups
   // split3: Ml's backward table, this far after Mh's
   constexpr int ML = 2 * 3 * Ms::Q3P * Ms::P13P / 4;
@@ -396,13 +406,13 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
         if (nt >= NT) break;
         const uint2 bb = __ldg(mb + (nt * KB + ks) * 32 + lane);
         uint2 bl{};
-        if constexpr (NP == 3)
+        if constexpr (kNP == 3)
           bl = __ldg(mb + ML + (nt * KB + ks) * 32 + lane);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           mma_bf16(part[m][n], a[m][0], bb);
-          if constexpr (NP != 1) mma_bf16(part[m][n], a[m][1], bb);
-          if constexpr (NP == 3) mma_bf16(part[m][n], a[m][0], bl);
+          if constexpr (kNP != 1) mma_bf16(part[m][n], a[m][1], bb);
+          if constexpr (kNP == 3) mma_bf16(part[m][n], a[m][0], bl);
         }
       }
     }
@@ -429,7 +439,12 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
         if constexpr (BLOCK) {
           if (cell < gr.cbeg) continue;
         }
-        if constexpr (BATCH) {
+        if constexpr (BATCH && (NP & kSbState) != 0) {
+          // B3 with the bf16 state: its output rounded where it is stored
+          reinterpret_cast<__nv_bfloat16*>(
+              out)[static_cast<size_t>(c * P13 + k) * nc + cell] =
+              __float2bfloat16_rn(v[m][n][i]);
+        } else if constexpr (BATCH) {
           out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[m][n][i];
         } else {
           float mk;
@@ -460,16 +475,30 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
          0, st>>>(gr, mask, u, x, reinterpret_cast<__nv_bfloat16*>(us));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dense_hd_forward_kernel<P, REBUILD, NP, is_block(FORM)>
+  // the storage flags each pass reads: the forward the metric's, the
+  // backward in B3's form the state's (its bf16 store, where io.bf16 is
+  // set), so that the other instantiations of a rung are shared
+  constexpr int NPF = NP & ~kSbState;
+  constexpr int NPB = FORM == kCellBatch ? NP & ~kSbMetric : rung_of(NP);
+  dense_hd_forward_kernel<P, REBUILD, NPF, is_block(FORM)>
       <<<dim3(ncr / kHdRowCells, MmaShape<P>::QC), kHdFwdThreads, 0, st>>>(
           static_cast<const uint2*>(mf), gmetric, gr, x, us, ts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   constexpr int NG = (MmaShape<P>::P13P / 8 + kHdBwdTiles - 1) / kHdBwdTiles;
   const int tasks = kComps * (ncr / kHdRowCells) * NG;
-  dense_hd_backward_kernel<P, FORM == kCellBatch, NP, is_block(FORM)>
-      <<<(tasks + kHdBwdWarps - 1) / kHdBwdWarps, 32 * kHdBwdWarps, 0, st>>>(
-          static_cast<const uint2*>(mb), gr, mask, ts, out);
+  const int nb = (tasks + kHdBwdWarps - 1) / kHdBwdWarps;
+  if constexpr (NPB != rung_of(NP)) {
+    if (!x.io.bf16) {  // B3's output at f32: the rung's own pass
+      dense_hd_backward_kernel<P, true, rung_of(NP), false>
+          <<<nb, 32 * kHdBwdWarps, 0, st>>>(static_cast<const uint2*>(mb), gr,
+                                           mask, ts, out);
+      return cudaGetLastError();
+    }
+  }
+  dense_hd_backward_kernel<P, FORM == kCellBatch, NPB, is_block(FORM)>
+      <<<nb, 32 * kHdBwdWarps, 0, st>>>(static_cast<const uint2*>(mb), gr,
+                                       mask, ts, out);
   return cudaGetLastError();
 }
 
@@ -511,6 +540,12 @@ cudaError_t launch_mma_hd(const void* mf, const void* mb, const float* gmetric,
   BP4_MMA_CONFIGS(P, 3, BP4_MMA_HD_DECLARE1)
 // the definitions of degree P's configurations at one rung, in its source
 #define BP4_MMA_HD_DEGREE(P, NP) BP4_MMA_CONFIGS(P, NP, BP4_MMA_HD_DEFINE1)
+// the storage instantiations (apply_mma.cuh's BP4_MMA_SB_RUNG*), in
+// apply_mma_sb.cu, one object a degree and rung
+#define BP4_MMA_HD_SB_DECLARE(P)                \
+  BP4_MMA_SB_RUNG1(P, BP4_MMA_HD_DECLARE1)     \
+  BP4_MMA_SB_RUNG2(P, BP4_MMA_HD_DECLARE1)     \
+  BP4_MMA_SB_RUNG3(P, BP4_MMA_HD_DECLARE1)
 
 BP4_MMA_HD_DECLARE(5)
 BP4_MMA_HD_DECLARE(6)
@@ -519,5 +554,12 @@ BP4_MMA_HD_DECLARE(8)
 BP4_MMA_HD_DECLARE(9)
 BP4_MMA_HD_DECLARE(10)
 BP4_MMA_HD_DECLARE(11)
+BP4_MMA_HD_SB_DECLARE(5)
+BP4_MMA_HD_SB_DECLARE(6)
+BP4_MMA_HD_SB_DECLARE(7)
+BP4_MMA_HD_SB_DECLARE(8)
+BP4_MMA_HD_SB_DECLARE(9)
+BP4_MMA_HD_SB_DECLARE(10)
+BP4_MMA_HD_SB_DECLARE(11)
 
 }  // namespace bp4

@@ -70,6 +70,15 @@
 //             pass instead, the rebuild made the lattice forms spill and
 //             ran slower (PERF.md, utils/variants.py).
 //
+// Storage (SB, bp4_operator.cuh), f32 only: kSbState, the state in bf16
+// by io.bf16 (B3/B4 read u and write v in bf16; B5/B6/B1 read u, B2 d and
+// h, and B2 stores d' rounded, the operator taking the rounded d'), the
+// arithmetic f32; kSbMetric, the streamed metric in bf16, fixed at compile
+// time: its words are upcast into shared memory by plain loads (cp.async
+// copies 4, 8 or 16 bytes, not 2), so the copy no longer overlaps
+// component 0's x pass.  SB = 0 is the pass as it was; the SB
+// instantiations are built in sumfac_sb.cu, one object a degree.
+//
 // Input forms (FORM, bp4_operator.cuh): kCellBatch (B3, B4); kLattice (B5,
 // B6, B1; B6 masks by the mask tensor, B5 and B1 by the box's Dirichlet
 // mask from the indices); kLatticeUpdate (B2, the four scalars staged once
@@ -172,7 +181,7 @@ struct SumfacSmem {
 // between; the lattice forms load it just before the store, because their
 // values and masks held across the passes spill under the three blocks an
 // SM and ran slower (PERF.md).
-template <typename T, int P, bool REBUILD, int FORM>
+template <typename T, int P, bool REBUILD, int FORM, int SB = 0>
 struct SumfacInput {
   using Sm = SumfacSmem<T, P, REBUILD>;
   static constexpr bool kMasked = FORM == kLattice;
@@ -194,19 +203,27 @@ struct SumfacInput {
         m[j] = T(0);
         if (live) {
           const size_t node = cell_node<P>(gr, cell0 + bb, k, a.mask, &m[j]);
-          v[j] = a.io.d[c * static_cast<size_t>(gr.n_nodes()) + node];
+          const size_t at = c * static_cast<size_t>(gr.n_nodes()) + node;
+          if constexpr ((SB & kSbState) != 0)
+            v[j] = load_flex(a.io.d, at, a.io.bf16);
+          else
+            v[j] = a.io.d[at];
         }
       } else if constexpr (is_update(FORM)) {
         if (live) {
           const int cell = cell0 + bb;
-          v[j] = cell_input<T, P, true, false, FORM == kLatticeUpdatePx,
-                            is_block(FORM)>(
+          v[j] = cell_input<T, P, true, (SB & kSbState) != 0,
+                            FORM == kLatticeUpdatePx, is_block(FORM)>(
               a.io, sm.sc, gr, c, cell / (gr.ncx * gr.ncy),
               (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
               (k / S::P1) % S::P1, k % S::P1);
         }
       } else if (live) {
-        v[j] = a.io.d[static_cast<size_t>(c * P13 + k) * nc + cell0 + bb];
+        const size_t at = static_cast<size_t>(c * P13 + k) * nc + cell0 + bb;
+        if constexpr ((SB & kSbState) != 0)
+          v[j] = load_flex(a.io.d, at, a.io.bf16);
+        else
+          v[j] = a.io.d[at];
       }
     }
   }
@@ -230,10 +247,11 @@ constexpr int sumfac_blocks() {
   return n < 3 ? static_cast<int>(n) : 3;
 }
 
-template <typename T, int P, int FORM, bool REBUILD>
+template <typename T, int P, int FORM, bool REBUILD, int SB = 0>
 __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
                                   sumfac_blocks<T, P, REBUILD>())
     apply_sumfac_kernel(SumfacArgs<T> a, Grid gr) {
+  static_assert(SB == 0 || std::is_same_v<T, float>, "bf16 storage: f32");
   using S = Shape<P>;
   using Sm = SumfacSmem<T, P, REBUILD>;
   constexpr int BC = Sm::BC, NT = Sm::kThreads;
@@ -260,6 +278,16 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
           bb < nlive ? a.coeffs[static_cast<size_t>(i / BC) * nc + cell0 + bb]
                      : T(0);
     }
+  } else if constexpr ((SB & kSbMetric) != 0) {
+    // the block's bf16 metric, upcast into shared memory (zero past the
+    // end); the first barrier below publishes it
+    for (int i = tid; i < 6 * Q3 * BC; i += NT) {
+      const int bb = i % BC;
+      (&sm.g[0][0][0])[i] =
+          bb < nlive ? metric_ldg<SB>(a.gmetric, static_cast<size_t>(i / BC) *
+                                                     nc + cell0 + bb)
+                     : T(0);
+    }
   } else {
     // the block's metric, copied asynchronously (cp.async) while component
     // 0's input arrives and its x pass runs; cells past the end zero-filled
@@ -277,7 +305,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
     if (tid < 4) sm.sc[tid] = a.io.scal[tid];
     __syncthreads();
   }
-  SumfacInput<T, P, REBUILD, FORM> in;
+  SumfacInput<T, P, REBUILD, FORM, SB> in;
   in.load(gr, a, sm, 0, cell0, nlive);
   if constexpr (REBUILD) {
     // while component 0's input arrives: G at this thread's own slots
@@ -322,7 +350,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
         sm.x[1][kz][ky][qx][b] = ad;
       }
     }
-    if constexpr (!REBUILD) {
+    if constexpr (!REBUILD && (SB & kSbMetric) == 0) {
       if (c == 0) __pipeline_wait_prior(0);  // this thread's metric copies
     }
     __syncthreads();
@@ -446,7 +474,11 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
             cell_node<P, is_block(FORM)>(gr, cell0 + b, k, a.mask, &m);
           stage[b * P13 + k] = v * m;
         } else if (b < nlive) {
-          a.out[static_cast<size_t>(c * P13 + k) * nc + cell0 + b] = v;
+          const size_t at = static_cast<size_t>(c * P13 + k) * nc + cell0 + b;
+          if constexpr ((SB & kSbState) != 0)
+            store_flex(a.out, at, v, a.io.bf16);
+          else
+            a.out[at] = v;
         }
       }
     }
@@ -462,11 +494,11 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
   }
 }
 
-template <typename T, int P, int FORM, bool REBUILD>
+template <typename T, int P, int FORM, bool REBUILD, int SB = 0>
 cudaError_t launch_sumfac_here(const SumfacArgs<T>& a, const Grid& gr,
                                cudaStream_t st) {
   using Sm = SumfacSmem<T, P, REBUILD>;
-  auto kern = apply_sumfac_kernel<T, P, FORM, REBUILD>;
+  auto kern = apply_sumfac_kernel<T, P, FORM, REBUILD, SB>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
@@ -483,10 +515,10 @@ cudaError_t launch_sumfac_here(const SumfacArgs<T>& a, const Grid& gr,
 // sumfac_p11.cu, BP4_SUMFAC_DEGREE), which nvcc compiles in parallel with
 // the others: the declarations below keep the callers from instantiating
 // them.
-template <typename T, int P, int FORM, bool REBUILD>
+template <typename T, int P, int FORM, bool REBUILD, int SB = 0>
 cudaError_t launch_sumfac(const SumfacArgs<T>& a, const Grid& gr,
                           cudaStream_t st) {
-  return launch_sumfac_here<T, P, FORM, REBUILD>(a, gr, st);
+  return launch_sumfac_here<T, P, FORM, REBUILD, SB>(a, gr, st);
 }
 
 #define BP4_SUMFAC_FORM_DECLARE(T, P, FORM, REBUILD)    \
@@ -525,5 +557,41 @@ BP4_SUMFAC_DECLARE(8)
 BP4_SUMFAC_DECLARE(9)
 BP4_SUMFAC_DECLARE(10)
 BP4_SUMFAC_DECLARE(11)
+
+// The storage instantiations (SB) in sumfac_sb.cu at every degree, f32:
+// the bf16 state in every form and metric source but B2's P/x one, and
+// with it the bf16 metric where the metric is streamed, but in B2's block
+// form (no distributed path streams a bf16 metric).
+#define BP4_SUMFAC_SB_DECLARE1(T, P, FORM, REBUILD, SB) \
+  template <>                                           \
+  cudaError_t launch_sumfac<T, P, FORM, REBUILD, SB>(   \
+      const SumfacArgs<T>& a, const Grid& gr, cudaStream_t st);
+#define BP4_SUMFAC_SB_DEFINE1(T, P, FORM, REBUILD, SB)            \
+  template <>                                                     \
+  cudaError_t launch_sumfac<T, P, FORM, REBUILD, SB>(             \
+      const SumfacArgs<T>& a, const Grid& gr, cudaStream_t st) {  \
+    return launch_sumfac_here<T, P, FORM, REBUILD, SB>(a, gr, st); \
+  }
+#define BP4_SUMFAC_SB_FORMS(P, M)                                        \
+  M(float, P, kCellBatch, false, 4) M(float, P, kCellBatch, true, 4)     \
+  M(float, P, kLattice, false, 4) M(float, P, kLattice, true, 4)         \
+  M(float, P, kLatticeUpdate, false, 4)                                  \
+  M(float, P, kLatticeUpdate, true, 4)                                   \
+  M(float, P, kLatticeUpdateBlock, false, 4)                             \
+  M(float, P, kLatticeUpdateBlock, true, 4)                              \
+  M(float, P, kCellBatch, false, 12) M(float, P, kLattice, false, 12)    \
+  M(float, P, kLatticeUpdate, false, 12)
+static_assert(kSbState == 4 && kSbMetric == 8, "BP4_SUMFAC_SB_FORMS");
+BP4_SUMFAC_SB_FORMS(1, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(2, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(3, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(4, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(5, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(6, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(7, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(8, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(9, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(10, BP4_SUMFAC_SB_DECLARE1)
+BP4_SUMFAC_SB_FORMS(11, BP4_SUMFAC_SB_DECLARE1)
 
 }  // namespace bp4

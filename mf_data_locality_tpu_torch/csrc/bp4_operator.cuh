@@ -153,6 +153,32 @@ __device__ __forceinline__ T to_acc(V v) {
     return v;
 }
 
+// Storage flags of the instantiations that read a bf16 state or metric
+// under a rung that had none (a template parameter: NP of the tensor-core
+// passes, above the products a tile; SB of the sum-factorized pass), so
+// that the instantiations without them are the code they were:
+//   kSbState   the state (B3's u and output, B5/B6/B1's u, B1/B2's d and
+//              h, B2's d') may be bf16, by the warp-uniform flag io.bf16
+//              (B2's store flag), upcast at the load, rounded at the store;
+//   kSbMetric  the streamed metric is bf16, fixed at compile time (no
+//              runtime branch at the load), upcast at the load.
+// The tensor-core rungs' products a tile are rung_of(NP).
+constexpr int kSbState = 4, kSbMetric = 8;
+#define BP4_CAT_(a, b) a##b
+#define BP4_CAT(a, b) BP4_CAT_(a, b)  // a##b after expanding both
+__host__ __device__ constexpr int rung_of(int np) { return np & 3; }
+
+// Element i of the streamed metric at storage SB: bf16 under kSbMetric,
+// upcast to T.
+template <int SB, typename T>
+__device__ __forceinline__ T metric_ldg(const T* p, size_t i) {
+  if constexpr (SB & kSbMetric)
+    return static_cast<T>(__bfloat162float(
+        __ldg(reinterpret_cast<const __nv_bfloat16*>(p) + i)));
+  else
+    return __ldg(p + i);
+}
+
 // f(std::integral_constant<int, NP>) for the tensor-core rung with NP
 // products a tile (1 bf16, 2 split2m, 3 split3); -1 for any other.
 template <typename F>
@@ -551,6 +577,85 @@ __global__ void __launch_bounds__(kNodeThreads)
 
 inline int node_blocks(const Grid& gr) {
   return (gr.n_nodes() + kNodeThreads - 1) / kNodeThreads;
+}
+
+// The assemble pass of B5 and B6 with a bf16 state: h in bf16 at the TPU
+// kernels' rounding points (laplace_pallas.py:671-693, 897-905 and the
+// wrappers' y/x sums, :640-644, :748-790).  Per node, each (y cell, x
+// cell) pair's z contributions (<= 2, from the masked cell-local f32
+// results) are summed in f32 and rounded to bf16, as the TPU kernels add
+// the z carry plane and store; then the pairs are summed in bf16, one
+// rounding an add, in the wrappers' order: B6 (PIECES false,
+// _from_zslab_form) along y, then along x; B5 (PIECES true,
+// _from_piece_forms) the corner pieces mm, mp, pm, pp in turn (a cell's
+// nodes below its top y and x faces, its top x face, its top y face, the
+// corner).  BLOCK: a block's lattice, only summed (laplace_apply.cu).
+template <int P, bool PIECES, bool BLOCK>
+__global__ void __launch_bounds__(kNodeThreads)
+    assemble_bf16_kernel(Grid gr, const float* __restrict__ cells,
+                         __nv_bfloat16* __restrict__ h) {
+  using S = Shape<P>;
+  const int n_nodes = gr.n_nodes();
+  const int node = blockIdx.x * kNodeThreads + threadIdx.x;
+  if (node >= n_nodes) return;
+  const int x = node % gr.nx, y = (node / gr.nx) % gr.ny,
+            z = node / (gr.nx * gr.ny);
+  const bool in = BLOCK || interior(gr, z, y, x);
+  int zc[2], zk[2], yc[2], yk[2], xc[2], xk[2];
+  const int nzc = axis_cells<P>(z, gr.ncz, zc, zk);
+  const int nyc = axis_cells<P>(y, gr.ncy, yc, yk);
+  const int nxc = axis_cells<P>(x, gr.ncx, xc, xk);
+  for (int c = 0; c < kComps; ++c) {
+    const size_t base = static_cast<size_t>(c) * gr.n_cells();
+    float r[2][2];  // the z sums of each (y cell, x cell), as stored
+    for (int b = 0; b < nyc; ++b)
+      for (int e = 0; e < nxc; ++e) {
+        float s = 0.f;
+        for (int a = 0; a < nzc; ++a) {
+          const int cell = (zc[a] * gr.ncy + yc[b]) * gr.ncx + xc[e];
+          const int l = (zk[a] * S::P1 + yk[b]) * S::P1 + xk[e];
+          s += cells[(base + cell) * S::P13 + l];
+        }
+        r[b][e] = round_flex(s, true);
+      }
+    float v = 0.f;
+    if constexpr (PIECES) {
+      for (int cls = 0; cls < 4; ++cls)  // mm, mp, pm, pp
+        for (int b = 0; b < nyc; ++b)
+          for (int e = 0; e < nxc; ++e)
+            if ((yk[b] == P) == (cls >= 2) && (xk[e] == P) == (cls % 2 == 1))
+              v = round_flex(v + r[b][e], true);
+    } else {
+      float ry[2];
+      for (int e = 0; e < nxc; ++e)
+        ry[e] = nyc == 2 ? round_flex(r[0][e] + r[1][e], true) : r[0][e];
+      v = nxc == 2 ? round_flex(ry[0] + ry[1], true) : ry[0];
+    }
+    h[static_cast<size_t>(c) * n_nodes + node] =
+        __float2bfloat16_rn(in ? v : 0.f);
+  }
+}
+
+// C10: the f32 carry of B2's block form under a bf16 state.  The top z
+// face of a block holds its partial sums owed to the upper rank; the TPU
+// kernel emits that plane at f32 (carry_out_ref, cg_fused_kernel.py:
+// 909-915) before any rounding, and only the add-back onto the upper
+// rank's face 0 rounds (parallel/dist_fused.py:253, 428).  This pass writes
+// the assemble pass's sums there at f32, unrounded, into carry (C, Ny,
+// Nx): the value the assemble pass rounds into h' (the same sum in the
+// same order).  The y and x faces travel as stored, as in the JAX package.
+template <int P>
+__global__ void __launch_bounds__(kNodeThreads)
+    block_carry_kernel(Grid gr, const float* __restrict__ cells,
+                       float* __restrict__ carry) {
+  const int n = gr.ny * gr.nx;
+  const int i = blockIdx.x * kNodeThreads + threadIdx.x;
+  if (i >= n) return;
+  const int x = i % gr.nx, y = i / gr.nx, z = gr.nz - 1;
+  const bool in = interior<true>(gr, z, y, x);
+  for (int c = 0; c < kComps; ++c)
+    carry[static_cast<size_t>(c) * n + i] =
+        in ? gather_node<float, P>(cells, gr, c, z, y, x) : 0.f;
 }
 
 }  // namespace bp4

@@ -148,7 +148,7 @@ struct CellMmaSmemSplit3 : CellMmaSmem<P> {
 };
 template <int P, int NP>
 using CellMmaSmemFor =
-    std::conditional_t<NP == 3, CellMmaSmemSplit3<P>, CellMmaSmem<P>>;
+    std::conditional_t<rung_of(NP) == 3, CellMmaSmemSplit3<P>, CellMmaSmem<P>>;
 
 // The input of a tile inside one x row of cells (every tile when 16
 // divides ncx): its (c, kz, ky) node rows are runs of 16 P + 1 contiguous
@@ -299,7 +299,8 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
   using Ms = CellMmaShape<P>;
   constexpr int P1 = S::P1, P12 = S::P12, P13 = S::P13, Q2 = S::Q2;
   constexpr int P12P = Ms::P12P, LDU = Ms::LDU, LDG = Ms::LDG;
-  constexpr bool FLEX = NP == 1;  // the bf16 state: the bf16 rung only
+  // the bf16 state: the bf16 rung's, and the storage instantiations'
+  constexpr bool FLEX = rung_of(NP) == 1 || (NP & kSbState) != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<CellMmaSmemFor<P, NP>*>(smem_raw);
   const int tid = threadIdx.x;
@@ -321,7 +322,7 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
 #pragma unroll
     for (int k = 0; k < PER; ++k)
       if (tid + k * kCellMmaThreads < NT) tdst[tid + k * kCellMmaThreads] = t[k];
-    if constexpr (NP == 3) {  // Ml's tables, the same way
+    if constexpr (rung_of(NP) == 3) {  // Ml's tables, the same way
       uint4* ldst = reinterpret_cast<uint4*>(sm.ml);
 #pragma unroll
       for (int k = 0; k < PER; ++k)
@@ -407,8 +408,8 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
             d = make_float2(fmaf(x.x, bz, d.x), fmaf(x.y, bz, d.y));
           }
         }
-        stream_parts<NP>(s.x, s.y, ash[ks][r4], asl[ks][r4]);
-        stream_parts<NP>(d.x, d.y, adh[ks][r4], adl[ks][r4]);
+        stream_parts<rung_of(NP)>(s.x, s.y, ash[ks][r4], asl[ks][r4]);
+        stream_parts<rung_of(NP)>(d.x, d.y, adh[ks][r4], adl[ks][r4]);
       }
 
     float w1[Ms::NB][4] = {}, w2[Ms::NB][4] = {};
@@ -426,12 +427,12 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
             const uint2 bf = sm.mf[(nt * Ms::KF + ks) * 32 + lane];
             if (e < 2) {
               mma_bf16(ga[e][h], ash[ks], bf);
-              if constexpr (NP != 1) mma_bf16(ga[e][h], asl[ks], bf);
+              if constexpr (rung_of(NP) != 1) mma_bf16(ga[e][h], asl[ks], bf);
             } else {
               mma_bf16(ga[e][h], adh[ks], bf);
-              if constexpr (NP != 1) mma_bf16(ga[e][h], adl[ks], bf);
+              if constexpr (rung_of(NP) != 1) mma_bf16(ga[e][h], adl[ks], bf);
             }
-            if constexpr (NP == 3) {
+            if constexpr (rung_of(NP) == 3) {
               const uint2 bl = sm.ml[(nt * Ms::KF + ks) * 32 + lane];
               if (e < 2)
                 mma_bf16(ga[e][h], ash[ks], bl);
@@ -469,7 +470,7 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
           }
 #pragma unroll
           for (int e = 0; e < 3; ++e)
-            stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * h + r],
+            stream_parts<rung_of(NP)>(tv[e][0], tv[e][1], th[e][2 * h + r],
                              tl[e][2 * h + r]);
         }
 
@@ -479,12 +480,12 @@ __global__ void __launch_bounds__(kCellMmaThreads, 2)
         const uint2* bn = sm.mb + (nt * Ms::KB + j) * 32 + lane;
         const uint2 bx = bn[0], by = bn[Ms::QC * 32], bz = bn[2 * Ms::QC * 32];
         mma_bf16(w1[nt], th[0], bx);
-        if constexpr (NP != 1) mma_bf16(w1[nt], tl[0], bx);
+        if constexpr (rung_of(NP) != 1) mma_bf16(w1[nt], tl[0], bx);
         mma_bf16(w1[nt], th[1], by);
-        if constexpr (NP != 1) mma_bf16(w1[nt], tl[1], by);
+        if constexpr (rung_of(NP) != 1) mma_bf16(w1[nt], tl[1], by);
         mma_bf16(w2[nt], th[2], bz);
-        if constexpr (NP != 1) mma_bf16(w2[nt], tl[2], bz);
-        if constexpr (NP == 3) {
+        if constexpr (rung_of(NP) != 1) mma_bf16(w2[nt], tl[2], bz);
+        if constexpr (rung_of(NP) == 3) {
           const uint2* bl = sm.ml + Ms::TF + (nt * Ms::KB + j) * 32 + lane;
           mma_bf16(w1[nt], th[0], bl[0]);
           mma_bf16(w1[nt], th[1], bl[Ms::QC * 32]);
@@ -583,5 +584,13 @@ cudaError_t launch_cells_mma(const OpTables<float>& tb, const Grid& gr,
 
 BP4_CELL_MMA_RUNG(1, BP4_CELL_MMA_DECLARE1)
 BP4_CELL_MMA_RUNG(3, BP4_CELL_MMA_DECLARE1)
+
+// the storage instantiations (mma_sb.cu): the bf16 state (kSbState) at
+// split2m and split3, the bf16 rung's reading it by io.bf16 already
+#define BP4_CELL_MMA_SB(NP, M)                                \
+  M(false, kAdjj, NP, false) M(false, kJtj, NP, false)        \
+  M(true, kAdjj, NP, false) M(true, kJtj, NP, false)
+BP4_CELL_MMA_SB(6, BP4_CELL_MMA_DECLARE1)
+BP4_CELL_MMA_SB(7, BP4_CELL_MMA_DECLARE1)
 
 }  // namespace bp4

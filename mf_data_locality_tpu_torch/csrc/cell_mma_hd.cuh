@@ -114,8 +114,8 @@ struct CellMmaHdSmem {
 
 // G at q-point (qz, q2) of `cell`, zero past the plane's q^2 q-points, past
 // Q planes and past the last cell (its coefficients are zero).  FLEX: the
-// streamed metric may be bf16 (tb.metric_bf16).
-template <int P, bool REBUILD, int COFACTOR, bool FLEX>
+// streamed metric is f32 (0), f32 or bf16 by tb.metric_bf16 (1), bf16 (2).
+template <int P, bool REBUILD, int COFACTOR, int FLEX>
 __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
                                           const float* c24, int nc, int cell,
                                           int qz, int q2, float (&g)[6]) {
@@ -135,7 +135,9 @@ __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
 #pragma unroll
     for (int e = 0; e < 6; ++e) {
       const size_t i = static_cast<size_t>(e * S::Q3 + qp) * nc + cell;
-      if constexpr (FLEX)
+      if constexpr (FLEX == 2)
+        g[e] = live ? metric_ldg<kSbMetric>(tb.gmetric, i) : 0.f;
+      else if constexpr (FLEX == 1)
         g[e] = live ? ldg_flex(tb.gmetric, i, tb.metric_bf16) : 0.f;
       else
         g[e] = live ? __ldg(tb.gmetric + i) : 0.f;
@@ -162,8 +164,11 @@ __global__ void __launch_bounds__(kHdThreads)
   const int c = blockIdx.y;
   const int nc = gr.n_cells();
   const int cell0 = blockIdx.x * kHdCells;
-  // the bf16 state (the bf16 rung only) and the bf16 metric stream
-  constexpr bool FLEX_STATE = NP == 1, FLEX_METRIC = NP != 2;
+  // the bf16 state (the bf16 rung's, and the storage instantiations')
+  constexpr bool FLEX_STATE = rung_of(NP) == 1 || (NP & kSbState) != 0;
+  // the metric: 2 bf16 (kSbMetric), 1 f32 or bf16 by tb.metric_bf16, 0 f32
+  constexpr int FLEX_METRIC =
+      (NP & kSbMetric) ? 2 : rung_of(NP) != 2 ? 1 : 0;
   const uint2* mf = reinterpret_cast<const uint2*>(tb.mats);
   const uint2* mb = mf + Hs::TF;
   const uint2* mfl = mf + 2 * Hs::TF;  // split3's Ml (TF = TB)
@@ -250,9 +255,9 @@ __global__ void __launch_bounds__(kHdThreads)
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          stream_parts<NP>(s[h].x, s[h].y, r[0][2 * hc + h],
+          stream_parts<rung_of(NP)>(s[h].x, s[h].y, r[0][2 * hc + h],
                            r[1][2 * hc + h]);
-          stream_parts<NP>(d[h].x, d[h].y, r[2][2 * hc + h],
+          stream_parts<rung_of(NP)>(d[h].x, d[h].y, r[2][2 * hc + h],
                            r[3][2 * hc + h]);
         }
       }
@@ -281,8 +286,8 @@ __global__ void __launch_bounds__(kHdThreads)
             const int nt = e * (Hs::Q2P / 8) + 2 * j + hh;
             const uint2 bf = __ldg(mf + (nt * KF + ks) * 32 + lane);
             mma_bf16(ga[e][hh], af[e < 2 ? 0 : 2], bf);
-            if constexpr (NP != 1) mma_bf16(ga[e][hh], af[e < 2 ? 1 : 3], bf);
-            if constexpr (NP == 3)
+            if constexpr (rung_of(NP) != 1) mma_bf16(ga[e][hh], af[e < 2 ? 1 : 3], bf);
+            if constexpr (rung_of(NP) == 3)
               mma_bf16(ga[e][hh], af[e < 2 ? 0 : 2],
                        __ldg(mfl + (nt * KF + ks) * 32 + lane));
           }
@@ -310,7 +315,7 @@ __global__ void __launch_bounds__(kHdThreads)
           }
 #pragma unroll
           for (int e = 0; e < 3; ++e)
-            stream_parts<NP>(tv[e][0], tv[e][1], th[e][2 * hh + r],
+            stream_parts<rung_of(NP)>(tv[e][0], tv[e][1], th[e][2 * hh + r],
                              tl[e][2 * hh + r]);
         }
 #pragma unroll
@@ -342,12 +347,12 @@ __global__ void __launch_bounds__(kHdThreads)
           const uint2 bx = __ldg(bn), by = __ldg(bn + QC * 32),
                       bz = __ldg(bn + 2 * QC * 32);
           mma_bf16(w1[g], tf[0][0], bx);
-          if constexpr (NP != 1) mma_bf16(w1[g], tf[0][1], bx);
+          if constexpr (rung_of(NP) != 1) mma_bf16(w1[g], tf[0][1], bx);
           mma_bf16(w1[g], tf[1][0], by);
-          if constexpr (NP != 1) mma_bf16(w1[g], tf[1][1], by);
+          if constexpr (rung_of(NP) != 1) mma_bf16(w1[g], tf[1][1], by);
           mma_bf16(w2[g], tf[2][0], bz);
-          if constexpr (NP != 1) mma_bf16(w2[g], tf[2][1], bz);
-          if constexpr (NP == 3) {
+          if constexpr (rung_of(NP) != 1) mma_bf16(w2[g], tf[2][1], bz);
+          if constexpr (rung_of(NP) == 3) {
             const uint2* bl = mbl + ((n0 + g) * Hs::KB + kb) * 32 + lane;
             mma_bf16(w1[g], tf[0][0], __ldg(bl));
             mma_bf16(w1[g], tf[1][0], __ldg(bl + QC * 32));
@@ -464,5 +469,37 @@ BP4_CELL_MMA_HD_DECLARE(10)
 BP4_CELL_MMA_HD_DECLARE(11)
 BP4_CELL_MMA_HD_P4(1, BP4_CELL_MMA_HD_DECLARE1)
 BP4_CELL_MMA_HD_P4(3, BP4_CELL_MMA_HD_DECLARE1)
+
+// the storage instantiations: the bf16 state (kSbState) at split2m and
+// split3 (the bf16 rung's read it by io.bf16 already), the bf16 metric
+// (kSbMetric) with it at split2m; p=4 in mma_sb.cu, 5..11 in
+// cell_mma_sb.cu, one object a degree and rung
+#define BP4_CELL_MMA_HD_SB_STATE(P, NP, M)                                 \
+  M(P, false, false, kAdjj, NP, false) M(P, false, true, kAdjj, NP, false) \
+  M(P, false, true, kJtj, NP, false) M(P, true, false, kAdjj, NP, false)   \
+  M(P, true, true, kAdjj, NP, false) M(P, true, true, kJtj, NP, false)
+#define BP4_CELL_MMA_HD_SB_RUNG1(P, M)
+#define BP4_CELL_MMA_HD_SB_RUNG2(P, M)                                   \
+  BP4_CELL_MMA_HD_SB_STATE(P, 6, M)                                      \
+  M(P, false, false, kAdjj, 14, false) M(P, true, false, kAdjj, 14, false)
+#define BP4_CELL_MMA_HD_SB_RUNG3(P, M) BP4_CELL_MMA_HD_SB_STATE(P, 7, M)
+#define BP4_CELL_MMA_HD_SB_P4(NP, M)                                     \
+  M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, false)
+#define BP4_CELL_MMA_HD_SB_P4_RUNG1(M)
+#define BP4_CELL_MMA_HD_SB_P4_RUNG2(M) \
+  BP4_CELL_MMA_HD_SB_P4(6, M) BP4_CELL_MMA_HD_SB_P4(14, M)
+#define BP4_CELL_MMA_HD_SB_P4_RUNG3(M) BP4_CELL_MMA_HD_SB_P4(7, M)
+#define BP4_CELL_MMA_HD_SB_DECLARE(P)                 \
+  BP4_CELL_MMA_HD_SB_RUNG2(P, BP4_CELL_MMA_HD_DECLARE1) \
+  BP4_CELL_MMA_HD_SB_RUNG3(P, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_SB_P4_RUNG2(BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_SB_P4_RUNG3(BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_SB_DECLARE(5)
+BP4_CELL_MMA_HD_SB_DECLARE(6)
+BP4_CELL_MMA_HD_SB_DECLARE(7)
+BP4_CELL_MMA_HD_SB_DECLARE(8)
+BP4_CELL_MMA_HD_SB_DECLARE(9)
+BP4_CELL_MMA_HD_SB_DECLARE(10)
+BP4_CELL_MMA_HD_SB_DECLARE(11)
 
 }  // namespace bp4

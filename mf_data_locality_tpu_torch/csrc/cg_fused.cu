@@ -53,11 +53,19 @@
 //     of them the rows of the 2D stage's tensor-core tiles
 //     (cell_mma_hd.cuh, degrees 5..11 built in cell_mma_p05.cu ..
 //     cell_mma_p11.cu, once per rung).
-//   Under split3 and bf16 the streamed metric may be bf16, and under bf16
-//   d and h too (the bf16 state, B1/B2's `store`): the passes upcast them
-//   at the load, d' is stored rounded and the operator takes the rounded
-//   d', and the assemble pass rounds h' where it stores it and sums the
-//   stored d' and h' (cg_fused_kernel.py:856, 877).
+//   On every rung (f32) the streamed metric may be bf16, and d and h too
+//   (the bf16 state, B1/B2's `store`): the passes upcast them at the load,
+//   d' is stored rounded and the operator takes the rounded d', and the
+//   assemble pass rounds h' where it stores it and sums the stored d' and
+//   h' (cg_fused_kernel.py:856, 877).  The bf16 rung's instantiations
+//   read both by their flags, split3's the metric; the others run the
+//   passes' storage instantiations (bp4_operator.cuh's kSbState,
+//   kSbMetric: apply_sumfac.cuh's SB, the tensor-core passes' NP), built
+//   in sumfac_sb.cu, mma_sb.cu, apply_mma_sb.cu and cell_mma_sb.cu.  A
+//   bf16 stream's lo part is zero, so the TPU kernel's degraded product
+//   sets (cg_fused_kernel._stream_parts) equal the full ones here: the
+//   passes keep their products, the zero ones included.  Under a bf16 state the
+//   block form's top z face also leaves at f32 (bp4_block_carry, C10).
 //   In every configuration B2's preconditioner P, and x, may be bf16 (the
 //   fused solver's prec_dtype, x_dtype): one more instantiation of each
 //   cell pass (kLatticeUpdatePx, PX) and of the assemble pass reads them,
@@ -102,13 +110,12 @@
 
 namespace bp4 {
 
-// store: d and h (d' and h') in bf16, the bf16 state (the bf16 rung only).
+// store: d and h (d' and h') in bf16, the bf16 state (every rung).
 template <typename T, int P>
 struct Launch {
   static int matvec(int rung, int dense, int cofactor, int store,
                     const OpTables<T>& tb, const Grid& gr, const T* d,
                     T* cells, T* h, void* scratch, cudaStream_t st) {
-    if (store && rung != 1) return -1;
     CellIo<T> io{};
     io.d = d;
     io.bf16 = store;
@@ -146,6 +153,14 @@ struct Launch {
                                         scal2, cells, partials, scratch, st);
   }
 };
+
+template <int P>
+int launch_block_carry(const Grid& gr, const float* cells, float* carry,
+                       cudaStream_t st) {
+  const int nb = (gr.ny * gr.nx + kNodeThreads - 1) / kNodeThreads;
+  block_carry_kernel<P><<<nb, kNodeThreads, 0, st>>>(gr, cells, carry);
+  return cudaGetLastError();
+}
 
 template <typename T>
 OpTables<T> tables(const void* mats, const void* sz, const void* dz,
@@ -197,10 +212,12 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // at degrees 4..11
 // (dense = 0: mats the bf16 fragment tables of the 2D stage, coeffs
 // (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), in bf16
-// where metric_bf16 is set (split3, bf16), or null for the metric rebuilt
-// from the coefficients by the chain `cofactor` (0 adjj, 1 jtj).  store:
-// d, h, d2, h2 in bf16 (the bf16 rung only).  prec_bf16 (bp4_fused_iteration):
-// prec in bf16; x_bf16: x and x2 in bf16 (every configuration above).
+// where metric_bf16 is set (f32, every rung), or null for the metric
+// rebuilt from the coefficients by the chain `cofactor` (0 adjj, 1 jtj).
+// store: d, h, d2, h2 in bf16 (f32, every rung).  prec_bf16
+// (bp4_fused_iteration): prec in bf16; x_bf16: x and x2 in bf16 (every
+// configuration above; with store or metric_bf16 only on the bf16 rung,
+// and with metric_bf16 on split3).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {
@@ -219,7 +236,6 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
                void* stream) {
   const Grid gr = make_grid(degree, ncz, ncy, ncx);
   auto st = static_cast<cudaStream_t>(stream);
-  if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_MATVEC(T, P)                                                   \
   Launch<T, P>::matvec(                                                    \
       rung, dense, cofactor, store,                                        \
@@ -250,7 +266,6 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
                 void* scal2, void* cells, void* partials, void* scratch,
                 const Grid& gr, int block, int passes, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (metric_bf16 && rung != 1 && rung != 3) return -1;
 #define BP4_FUSED(T, P)                                                       \
   Launch<T, P>::fused(                                                        \
       rung, dense, cofactor, store, prec_bf16, x_bf16,                        \
@@ -328,6 +343,44 @@ int bp4_fused_iteration_block(
                      prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
                      gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
                      cells, partials, scratch, gr, 1, passes, stream);
+}
+
+// C10: the f32 carry of B2's block form under a bf16 state
+// (block_carry_kernel): after the cell pass, the assemble pass's
+// unrounded sums on the block's top z face, from the cells scratch, into
+// carry (C, Ny, Nx).  The block's Grid as bp4_fused_iteration_block's; f32.
+int bp4_block_carry(int degree, int ncz, int ncy, int ncx, int zlo, int zhi,
+                    int zown, int ylo, int yhi, int yown, int xlo, int xhi,
+                    int xown, const void* cells, void* carry, void* stream) {
+  Grid gr = make_grid(degree, ncz, ncy, ncx);
+  gr.zlo = zlo;
+  gr.zhi = zhi;
+  gr.zown = zown;
+  gr.ylo = ylo;
+  gr.yhi = yhi;
+  gr.yown = yown;
+  gr.xlo = xlo;
+  gr.xhi = xhi;
+  gr.xown = xown;
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto c = static_cast<const float*>(cells);
+  const auto out = static_cast<float*>(carry);
+#define BP4_CARRY(P) bp4::launch_block_carry<P>(gr, c, out, st)
+  switch (degree) {
+    case 1: return BP4_CARRY(1);
+    case 2: return BP4_CARRY(2);
+    case 3: return BP4_CARRY(3);
+    case 4: return BP4_CARRY(4);
+    case 5: return BP4_CARRY(5);
+    case 6: return BP4_CARRY(6);
+    case 7: return BP4_CARRY(7);
+    case 8: return BP4_CARRY(8);
+    case 9: return BP4_CARRY(9);
+    case 10: return BP4_CARRY(10);
+    case 11: return BP4_CARRY(11);
+  }
+#undef BP4_CARRY
+  return -1;
 }
 
 }  // extern "C"

@@ -17,15 +17,83 @@
 
 namespace bp4 {
 
+// The tensor-core cell pass of B1 (FUSED false) or B2 for the
+// configuration (dense, cofactor, tb.gmetric null or not) at NP, the
+// rung's products a tile and the storage flags (bp4_operator.cuh): -1 for
+// a configuration with no instantiation (the tensor-core rungs: dense with
+// adjj, twostage at p >= 4; the bf16 metric (kSbMetric) streamed only).
+template <typename T, int P, bool FUSED, bool PX, bool BLOCK, int NP>
+cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
+                         const Grid& gr, const CellIo<T>& io, T* cells,
+                         void* scratch, cudaStream_t st) {
+  constexpr int FORM =
+      !FUSED ? kLattice
+             : (BLOCK ? kLatticeUpdateBlock
+                      : (PX ? kLatticeUpdatePx : kLatticeUpdate));
+  constexpr bool MB = (NP & kSbMetric) != 0;
+  const auto none = static_cast<cudaError_t>(-1);
+  if (dense) {
+    if (cofactor != kAdjj) return none;
+    // the forward table, then the backward one (laplace_cuda.mma_tables)
+    const auto mf = reinterpret_cast<const uint2*>(tb.mats);
+    const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
+    MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
+    x.metric_bf16 = tb.metric_bf16;
+    if (!tb.gmetric) {
+      if constexpr (MB) {
+        return none;
+      } else if constexpr (P <= 4) {
+        return launch_mma<P, FORM, true, NP>(mf, mb, nullptr, gr, nullptr,
+                                             io.d, cells, x, st);
+      } else {
+        return launch_mma_hd<P, FORM, true, NP>(mf, mb, nullptr, gr, nullptr,
+                                                io.d, cells, x, scratch, st);
+      }
+    }
+    if constexpr (P <= 4)
+      return launch_mma<P, FORM, false, NP>(mf, mb, tb.gmetric, gr, nullptr,
+                                            io.d, cells, x, st);
+    else
+      return launch_mma_hd<P, FORM, false, NP>(mf, mb, tb.gmetric, gr,
+                                               nullptr, io.d, cells, x,
+                                               scratch, st);
+  }
+  if constexpr (P >= 4 && !BLOCK) {
+    if (tb.gmetric)
+      return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(tb, gr, io,
+                                                                 cells, st);
+    if constexpr (MB) {
+      return none;
+    } else if constexpr (P == 4) {
+      return cofactor == kJtj
+                 ? launch_cells_mma<P, FUSED, kJtj, NP, PX>(tb, gr, io, cells,
+                                                            st)
+                 : launch_cells_mma<P, FUSED, kAdjj, NP, PX>(tb, gr, io,
+                                                             cells, st);
+    } else {
+      return cofactor == kJtj
+                 ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP, PX>(
+                       tb, gr, io, cells, st)
+                 : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP, PX>(
+                       tb, gr, io, cells, st);
+    }
+  }
+  return none;
+}
+
 // The cell pass of B1 (FUSED false) or B2 for the configuration (rung,
 // dense, cofactor, tb.gmetric null or not); each writes the masked
 // cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
-// highest, the sum-factorized pass; 1..3: the tensor-core rungs.  -1: no
-// instantiation (the tensor-core rungs: dense with adjj, twostage at
-// p >= 4).  scratch: the dense tensor-core pass's at p >= 5.  PX: B2 with
-// P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX instantiations.
-// BLOCK: B2's block form (kLatticeUpdateBlock), the sum-factorized pass and
-// the dense tensor-core passes only (-1 for the rungs' twostage).
+// highest, the sum-factorized pass; 1..3: the tensor-core rungs
+// (tensor_cells).  scratch: the dense tensor-core pass's at p >= 5.  PX:
+// B2 with P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX
+// instantiations.  BLOCK: B2's block form (kLatticeUpdateBlock), the
+// sum-factorized pass and the dense tensor-core passes only (-1 for the
+// rungs' twostage).  A bf16 state (io.bf16) or a bf16 streamed metric
+// (tb.metric_bf16) where the rung's own instantiations read none (the
+// bf16 rung reads both, split3 the metric, by their flags): the storage
+// instantiations (SB, NP | kSbState [| kSbMetric]), not built with PX,
+// nor with the bf16 metric in the block form (-1).
 template <typename T, int P, bool FUSED, bool PX = false, bool BLOCK = false>
 cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
@@ -35,58 +103,43 @@ cudaError_t launch_cells(int rung, int dense, int cofactor,
       !FUSED ? kLattice
              : (BLOCK ? kLatticeUpdateBlock
                       : (PX ? kLatticeUpdatePx : kLatticeUpdate));
+  const auto none = static_cast<cudaError_t>(-1);
+  const bool mbf = tb.metric_bf16 && tb.gmetric;
   if (!rung) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
                           tb.coeffs, nullptr, io,         cells,  cofactor};
+    if constexpr (std::is_same_v<T, float> && !PX) {
+      if constexpr (!BLOCK) {
+        if (mbf)
+          return launch_sumfac<T, P, FORM, false, kSbState | kSbMetric>(
+              a, gr, st);
+      }
+      if (io.bf16 && !mbf)
+        return tb.gmetric
+                   ? launch_sumfac<T, P, FORM, false, kSbState>(a, gr, st)
+                   : launch_sumfac<T, P, FORM, true, kSbState>(a, gr, st);
+    }
+    if (mbf || io.bf16) return none;
     return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
                       : launch_sumfac<T, P, FORM, true>(a, gr, st);
   }
-  const auto none = static_cast<cudaError_t>(-1);
   if constexpr (std::is_same_v<T, float>) {
     return with_rung(rung, [&](auto np) {
       constexpr int NP = decltype(np)::value;
-      if (dense) {
-        if (cofactor != kAdjj) return none;
-        // the forward table, then the backward one
-        // (laplace_cuda.mma_tables)
-        const auto mf = reinterpret_cast<const uint2*>(tb.mats);
-        const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
-        MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
-        x.metric_bf16 = tb.metric_bf16;
-        if constexpr (P <= 4)
-          return tb.gmetric ? launch_mma<P, FORM, false, NP>(
-                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
-                                  cells, x, st)
-                            : launch_mma<P, FORM, true, NP>(
-                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
-                                  x, st);
-        else
-          return tb.gmetric ? launch_mma_hd<P, FORM, false, NP>(
-                                  mf, mb, tb.gmetric, gr, nullptr, io.d,
-                                  cells, x, scratch, st)
-                            : launch_mma_hd<P, FORM, true, NP>(
-                                  mf, mb, nullptr, gr, nullptr, io.d, cells,
-                                  x, scratch, st);
+      if constexpr (NP == 2 && !PX && !BLOCK) {
+        if (mbf)
+          return tensor_cells<T, P, FUSED, PX, BLOCK,
+                              NP | kSbState | kSbMetric>(
+              dense, cofactor, tb, gr, io, cells, scratch, st);
       }
-      if constexpr (P >= 4 && !BLOCK) {
-        if (tb.gmetric)
-          return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(
-              tb, gr, io, cells, st);
-        if constexpr (P == 4) {
-          return cofactor == kJtj
-                     ? launch_cells_mma<P, FUSED, kJtj, NP, PX>(tb, gr, io,
-                                                                cells, st)
-                     : launch_cells_mma<P, FUSED, kAdjj, NP, PX>(tb, gr, io,
-                                                                 cells, st);
-        } else {
-          return cofactor == kJtj
-                     ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP, PX>(
-                           tb, gr, io, cells, st)
-                     : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP, PX>(
-                           tb, gr, io, cells, st);
-        }
+      if constexpr (NP != 1 && !PX) {
+        if (io.bf16)
+          return tensor_cells<T, P, FUSED, PX, BLOCK, NP | kSbState>(
+              dense, cofactor, tb, gr, io, cells, scratch, st);
       }
-      return none;
+      if ((NP != 1 && io.bf16) || (NP == 2 && mbf)) return none;
+      return tensor_cells<T, P, FUSED, PX, BLOCK, NP>(dense, cofactor, tb, gr,
+                                                      io, cells, scratch, st);
     });
   }
   return none;
@@ -182,7 +235,6 @@ int fused_iteration(int rung, int dense, int cofactor, const OpTables<T>& tb,
                     const Grid& gr, const CellIo<T>& io, T* h2, T* scal2,
                     T* cells, T* partials, void* scratch, cudaStream_t st,
                     int passes = kCellPass | kNodePasses) {
-  if (io.bf16 && rung != 1) return -1;
   cudaError_t e = cudaSuccess;
   if (passes & kCellPass)
     e = launch_cells<T, P, true, PX, BLOCK>(rung, dense, cofactor, tb, gr, io,

@@ -23,6 +23,19 @@
 //               with the metric rebuilt per (cell, q-point) from the 24
 //               trilinear coefficients by the adjj chain (_kernel has no
 //               other), apply_sumfac.cuh.
+// A bf16 state (the merged and baseline solvers' with --dtype bf16, every
+// rung; laplace_pallas.py's kernels with a bf16 u): the cell passes'
+// storage instantiations (bp4_operator.cuh's kSbState; apply_sumfac.cuh's
+// SB, the tensor-core passes' NP) read u in bf16 and compute in f32; B3
+// and B4 store their cell results rounded to bf16 (the TPU kernels'
+// out_ref in u's dtype), which laplace_apply.from_cell_batches then sums
+// in bf16 axis by axis, as _from_cell_batches does; B5 and B6 keep their
+// f32 cell results and assemble_bf16_kernel sums each node at the TPU
+// kernels' rounding points (the z carry at f32, then each y/x sum in
+// bf16, in B5's or B6's order).  A bf16 metric under highest and split2m
+// (kSbMetric) comes with the same instantiations, its storage fixed at
+// compile time; split3's and bf16's read it by metric_bf16, as before.
+//
 // B5 and B6 write masked cell-local values to scratch; the assemble pass
 // (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
 // order (no atomics), and zeroes the box's faces — or, on a block of a
@@ -48,44 +61,67 @@ namespace bp4 {
 
 // The cell pass of B3, B5 and B6 (streamed metric): under a tensor-core
 // rung (f32 only; rung = its products a tile, 1..3) the tensor-core pass,
-// whose m0/m1 are the dense M's bf16 fragment tables and whose metric is
-// bf16 where metric_bf16 is set (split3, bf16), from p=5 with `scratch`
-// (dense_hd_scratch_len); under highest (rung 0) the sum-factorized pass,
-// whose m0/m1 are S and D (Q, P1).
+// whose m0/m1 are the dense M's bf16 fragment tables, from p=5 with
+// `scratch` (dense_hd_scratch_len); under highest (rung 0) the
+// sum-factorized pass, whose m0/m1 are S and D (Q, P1).  metric_bf16: the
+// metric in bf16; state_bf16: u (and B3's output) in bf16 (both f32
+// only).
 template <typename T, int P, bool LATTICE>
-cudaError_t metric_pass(int rung, int metric_bf16, const void* m0,
-                        const void* m1, const void* gmetric, const Grid& gr,
-                        const void* mask, const void* u, void* out,
-                        void* scratch, cudaStream_t st) {
+cudaError_t metric_pass(int rung, int metric_bf16, int state_bf16,
+                        const void* m0, const void* m1, const void* gmetric,
+                        const Grid& gr, const void* mask, const void* u,
+                        void* out, void* scratch, cudaStream_t st) {
+  constexpr int FORM = LATTICE ? kLattice : kCellBatch;
   const auto gm = static_cast<const T*>(gmetric);
   const auto mm = static_cast<const T*>(mask);
   const auto uu = static_cast<const T*>(u);
   const auto oo = static_cast<T*>(out);
-  if (metric_bf16 && rung != 1 && rung != 3)
-    return static_cast<cudaError_t>(-1);
+  const auto none = static_cast<cudaError_t>(-1);
   if (!rung) {
     SumfacArgs<T> a{static_cast<const T*>(m0), static_cast<const T*>(m1), gm};
     a.mask = mm;
     a.io.d = uu;
+    a.io.bf16 = state_bf16;
     a.out = oo;
-    return launch_sumfac<T, P, LATTICE ? kLattice : kCellBatch, false>(a, gr,
-                                                                       st);
+    if constexpr (std::is_same_v<T, float>) {
+      if (metric_bf16)
+        return launch_sumfac<T, P, FORM, false, kSbState | kSbMetric>(a, gr,
+                                                                      st);
+      if (state_bf16)
+        return launch_sumfac<T, P, FORM, false, kSbState>(a, gr, st);
+    }
+    if (metric_bf16 || state_bf16) return none;
+    return launch_sumfac<T, P, FORM, false>(a, gr, st);
   }
   if constexpr (std::is_same_v<T, float>) {
     return with_rung(rung, [&](auto np) {
-      constexpr int FORM = LATTICE ? kLattice : kCellBatch;
       constexpr int NP = decltype(np)::value;
       MmaFusedArgs x{};
       x.metric_bf16 = metric_bf16;
-      if constexpr (P <= 4)
-        return launch_mma<P, FORM, false, NP>(m0, m1, gm, gr, mm, uu, oo, x,
-                                              st);
-      else
-        return launch_mma_hd<P, FORM, false, NP>(m0, m1, gm, gr, mm, uu, oo,
-                                                 x, scratch, st);
+      x.io.bf16 = state_bf16;
+      // the instantiation: split2m's bf16 metric, or a bf16 state the
+      // rung's own does not read (the bf16 rung's lattice form reads it
+      // by io.bf16), or the rung's own
+      auto run = [&](auto sb) {
+        constexpr int NPS = NP | decltype(sb)::value;
+        if constexpr (P <= 4)
+          return launch_mma<P, FORM, false, NPS>(m0, m1, gm, gr, mm, uu, oo,
+                                                 x, st);
+        else
+          return launch_mma_hd<P, FORM, false, NPS>(m0, m1, gm, gr, mm, uu,
+                                                    oo, x, scratch, st);
+      };
+      if constexpr (NP == 2) {
+        if (metric_bf16)
+          return run(std::integral_constant<int, kSbState | kSbMetric>{});
+      }
+      if constexpr (NP != 1 || !LATTICE) {
+        if (state_bf16) return run(std::integral_constant<int, kSbState>{});
+      }
+      return run(std::integral_constant<int, 0>{});
     });
   }
-  return static_cast<cudaError_t>(-1);
+  return none;
 }
 
 // B4: the sum-factorized pass with the metric rebuilt, on a cell batch;
@@ -93,13 +129,20 @@ cudaError_t metric_pass(int rung, int metric_bf16, const void* m0,
 template <typename T, int P>
 cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
                          const void* w3, const void* coeffs, const Grid& gr,
-                         const void* u, void* out, cudaStream_t st) {
+                         const void* u, void* out, int state_bf16,
+                         cudaStream_t st) {
   SumfacArgs<T> a{static_cast<const T*>(s), static_cast<const T*>(d), nullptr,
                   static_cast<const T*>(pds), static_cast<const T*>(w3),
                   static_cast<const T*>(coeffs)};
   a.io.d = static_cast<const T*>(u);
+  a.io.bf16 = state_bf16;
   a.out = static_cast<T*>(out);
   a.cofactor = kAdjj;
+  if constexpr (std::is_same_v<T, float>) {
+    if (state_bf16)
+      return launch_sumfac<T, P, kCellBatch, true, kSbState>(a, gr, st);
+  }
+  if (state_bf16) return static_cast<cudaError_t>(-1);
   return launch_sumfac<T, P, kCellBatch, true>(a, gr, st);
 }
 
@@ -107,7 +150,7 @@ cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
 // mats/kmats: the tables of metric_pass (B3); S and D (B4).
 template <int P>
 int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
-                       const void* mats, const void* kmats,
+                       int state_bf16, const void* mats, const void* kmats,
                        const void* gmetric, const void* pds, const void* w3,
                        const void* coeffs, const void* u, void* v,
                        void* scratch, int n_cells, cudaStream_t st) {
@@ -115,17 +158,17 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
   if (dtype == 0)
     return onthefly  // B4 is exact on every rung
                ? rebuilt_pass<float, P>(mats, kmats, pds, w3, coeffs, gr, u, v,
-                                        st)
-               : metric_pass<float, P, false>(rung, metric_bf16, mats, kmats,
-                                              gmetric, gr, nullptr, u, v,
-                                              scratch, st);
+                                        state_bf16, st)
+               : metric_pass<float, P, false>(rung, metric_bf16, state_bf16,
+                                              mats, kmats, gmetric, gr,
+                                              nullptr, u, v, scratch, st);
   if (dtype == 1)
     return onthefly
                ? rebuilt_pass<double, P>(mats, kmats, pds, w3, coeffs, gr, u,
-                                         v, st)
-               : metric_pass<double, P, false>(rung, metric_bf16, mats, kmats,
-                                               gmetric, gr, nullptr, u, v,
-                                               scratch, st);
+                                         v, state_bf16, st)
+               : metric_pass<double, P, false>(rung, metric_bf16, state_bf16,
+                                               mats, kmats, gmetric, gr,
+                                               nullptr, u, v, scratch, st);
   return -1;
 }
 
@@ -134,15 +177,37 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
 // assemble pass.  mats/kmats: the tables of metric_pass.  block: a block's
 // lattice (with a mask tensor), assembled without the box's faces (the
 // assemble pass's BLOCK on a Grid whose lo and hi take in every node).
+// state: 0 at T; 1 bf16, B6's y/x sums; 2 bf16, B5's (assemble_bf16_kernel).
 template <typename T, int P>
-int lattice_typed(int rung, int metric_bf16, const void* mats,
+int lattice_typed(int rung, int metric_bf16, int state, const void* mats,
                   const void* kmats, const void* gmetric, const void* mask,
                   const void* u, void* cells, void* v, void* scratch,
                   const Grid& gr, int block, cudaStream_t st) {
   const cudaError_t e = metric_pass<T, P, true>(
-      rung, metric_bf16, mats, kmats, gmetric, gr, mask, u, cells, scratch,
-      st);
+      rung, metric_bf16, state != 0, mats, kmats, gmetric, gr, mask, u,
+      cells, scratch, st);
   if (e != cudaSuccess) return e;
+  if (state) {
+    if constexpr (std::is_same_v<T, float>) {
+      const auto c = static_cast<const float*>(cells);
+      const auto h = static_cast<__nv_bfloat16*>(v);
+      const int nb = node_blocks(gr);
+      if (state == 2 && block)
+        assemble_bf16_kernel<P, true, true><<<nb, kNodeThreads, 0, st>>>(gr, c,
+                                                                        h);
+      else if (state == 2)
+        assemble_bf16_kernel<P, true, false><<<nb, kNodeThreads, 0, st>>>(gr,
+                                                                         c, h);
+      else if (block)
+        assemble_bf16_kernel<P, false, true><<<nb, kNodeThreads, 0, st>>>(gr,
+                                                                         c, h);
+      else
+        assemble_bf16_kernel<P, false, false><<<nb, kNodeThreads, 0, st>>>(
+            gr, c, h);
+      return cudaGetLastError();
+    }
+    return -1;
+  }
   if (block) {
     Grid all = gr;
     all.zlo = all.ylo = all.xlo = 0;
@@ -162,18 +227,19 @@ int lattice_typed(int rung, int metric_bf16, const void* mats,
 }
 
 template <int P>
-int lattice_for_degree(int dtype, int rung, int metric_bf16,
+int lattice_for_degree(int dtype, int rung, int metric_bf16, int state,
                        const void* mats, const void* kmats,
                        const void* gmetric, const void* mask, const void* u,
                        void* cells, void* v, void* scratch, const Grid& gr,
                        int block, cudaStream_t st) {
   if (dtype == 0)
-    return lattice_typed<float, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                   mask, u, cells, v, scratch, gr, block, st);
+    return lattice_typed<float, P>(rung, metric_bf16, state, mats, kmats,
+                                   gmetric, mask, u, cells, v, scratch, gr,
+                                   block, st);
   if (dtype == 1)
-    return lattice_typed<double, P>(rung, metric_bf16, mats, kmats, gmetric,
-                                    mask, u, cells, v, scratch, gr, block,
-                                    st);
+    return lattice_typed<double, P>(rung, metric_bf16, state, mats, kmats,
+                                    gmetric, mask, u, cells, v, scratch, gr,
+                                    block, st);
   return -1;
 }
 
@@ -184,11 +250,14 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16,
 // "highest" f32 and f64 at degrees 1..11 (B3, B5, B6: the sum-factorized
 // pass, mats = S, kmats = D), the f32 tensor-core rungs at degrees 1..11
 // (B3, B5, B6: the tensor-core pass, mats/kmats = its forward and backward
-// fragment tables, split3's Ml tables after them; the metric in bf16 where
-// metric_bf16 is set, split3 and bf16 only; from p=5 scratch holds
+// fragment tables, split3's Ml tables after them; from p=5 scratch holds
 // bp4_dense_scratch_len 16-byte words, else it is unused); B4 (onthefly: the
 // sum-factorized pass, mats = S, kmats = D, pds (Q3, 24), w3, coeffs (24,
-// n_cells)) at degrees 1..11 ignores the rung.
+// n_cells)) at degrees 1..11 ignores the rung.  metric_bf16: the streamed
+// metric in bf16 (f32, every rung).  state_bf16 (bp4_apply_batched):
+// u and v in bf16 (f32 only, every rung, B4 too); state
+// (bp4_apply_lattice): 0 u and v at the working type, 1 in bf16 with B6's
+// sums, 2 in bf16 with B5's (the cells scratch stays f32).
 #define BP4_SWITCH_DEGREE(F)     \
   switch (degree) {              \
     case 1: return F(1);         \
@@ -230,15 +299,16 @@ int bp4_dense_scratch_len(int rung, int degree, int n_cells) {
 }
 
 int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
-                      int metric_bf16, const void* mats, const void* kmats,
+                      int metric_bf16, int state_bf16, const void* mats,
+                      const void* kmats,
                       const void* gmetric, const void* pds, const void* w3,
                       const void* coeffs, const void* u, void* v,
                       void* scratch, int n_cells, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_BATCHED(P)                                                       \
-  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16, mats,       \
-                             kmats, gmetric, pds, w3, coeffs, u, v, scratch, \
-                             n_cells, st)
+  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16,            \
+                             state_bf16, mats, kmats, gmetric, pds, w3,      \
+                             coeffs, u, v, scratch, n_cells, st)
   BP4_SWITCH_DEGREE(BP4_BATCHED)
 #undef BP4_BATCHED
   return -1;
@@ -246,8 +316,9 @@ int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
 
 // block: the lattice is a block of a global one (a rank's, with its mask
 // tensor): the assemble pass only sums, the faces keep their partial sums.
-int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
-                      const void* mats, const void* kmats, const void* gmetric,
+int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int state,
+                      int degree, const void* mats, const void* kmats,
+                      const void* gmetric,
                       const void* mask, const void* u, void* cells, void* v,
                       void* scratch, int ncz, int ncy, int ncx, int block,
                       void* stream) {
@@ -255,8 +326,9 @@ int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int degree,
   const bp4::Grid gr = bp4::box_grid(degree, ncz, ncy, ncx);
   if (block && !mask) return -1;
 #define BP4_LATTICE(P)                                                      \
-  bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, mats, kmats, gmetric, \
-                             mask, u, cells, v, scratch, gr, block, st)
+  bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, state, mats, kmats,   \
+                             gmetric, mask, u, cells, v, scratch, gr, block, \
+                             st)
   BP4_SWITCH_DEGREE(BP4_LATTICE)
 #undef BP4_LATTICE
   return -1;

@@ -6,10 +6,9 @@ twostage tensor-core pass and the dense tensor-core pass of each degree
 5..11 have a source of their own, ``sumfac_pNN.cu``, ``cell_mma_pNN.cu``
 and ``apply_mma_pNN.cu``, the largest instantiations, and B2 with P or x
 in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
-``cg_fused_block.cu``; the tensor-core
-sources of :data:`RUNG_BUILDS` are
-compiled once per rung, ``-DBP4_RUNG=n``), and links them into one shared
-library with a plain C interface, which is loaded with :mod:`ctypes` (no
+``cg_fused_block.cu``; the sources of :data:`FLAG_BUILDS` are compiled
+once per flag set, ``-DBP4_RUNG=n`` and ``-DBP4_DEGREE=p``), and links
+them into one shared library with a plain C interface, which is loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
 the package, under a name keyed by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  A missing
@@ -34,15 +33,41 @@ BUILD_DIR = _PKG / "_kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# sources compiled once per rung, -DBP4_RUNG=n with n the products a tile
-# (1 bf16, 2 split2m, 3 split3), so that nvcc builds the rungs in parallel:
-# the twostage and the dense tensor-core passes at p=5..11 on every rung,
-# and the tensor-core passes at p <= 4 on the rungs other than split2m
-# (whose instantiations stay in cg_fused.cu and laplace_apply.cu)
-RUNG_BUILDS = {"mma_rungs.cu": (1, 3),
-               **{f"{pass_}_p{p:02d}.cu": (1, 2, 3)
-                  for pass_ in ("cell_mma", "apply_mma")
-                  for p in range(5, 12)}}
+def _rungs(*rungs: int) -> tuple[tuple[str, ...], ...]:
+    return tuple((f"-DBP4_RUNG={r}",) for r in rungs)
+
+
+def _rung_degrees(degrees) -> tuple[tuple[str, ...], ...]:
+    # the bf16 rung's few once for all degrees, split2m's and split3's
+    # once per degree
+    return _rungs(1) + tuple((f"-DBP4_RUNG={r}", f"-DBP4_DEGREE={p}")
+                             for r in (2, 3) for p in degrees)
+
+
+# sources compiled more than once, each time with one of their -D flag sets
+# (n the products a tile: 1 bf16, 2 split2m, 3 split3), so that nvcc
+# builds them in parallel: the twostage and the dense tensor-core passes
+# at p=5..11 once per rung, the tensor-core passes at p <= 4 once per rung
+# other than split2m (whose instantiations stay in cg_fused.cu and
+# laplace_apply.cu); the bf16-storage instantiations (the passes'
+# kSbState / kSbMetric) of the sum-factorized pass once for p=1..4 and
+# once per degree 5..11, of the tensor-core passes once per rung and
+# degree (p <= 4: mma_sb.cu; 5..11: apply_mma_sb.cu and cell_mma_sb.cu)
+FLAG_BUILDS = {
+    "mma_rungs.cu": _rungs(1, 3),
+    **{f"{pass_}_p{p:02d}.cu": _rungs(1, 2, 3)
+       for pass_ in ("cell_mma", "apply_mma") for p in range(5, 12)},
+    "sumfac_sb.cu": ((),) + tuple((f"-DBP4_DEGREE={p}",)
+                                  for p in range(5, 12)),
+    "mma_sb.cu": _rung_degrees(range(1, 5)),
+    "apply_mma_sb.cu": _rung_degrees(range(5, 12)),
+    "cell_mma_sb.cu": _rung_degrees(range(5, 12))[1:],
+}
+
+
+def _flags(name: str) -> tuple[tuple[str, ...], ...]:
+    """The -D flag sets a source is compiled with, one object each."""
+    return FLAG_BUILDS.get(name, ((),))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,10 +85,14 @@ _SIGNATURES = {
     # the cell pass's range of cells and the passes to run
     "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 15
                                   + [_P]),
-    # dtype, rung, degree, onthefly, bf16 metric; ...
-    "bp4_apply_batched": (_I, [_I] * 5 + [_P] * 9 + [_I] + [_P]),
-    # dtype, rung, bf16 metric, degree; ...; the cells per axis, a block's
-    "bp4_apply_lattice": (_I, [_I] * 4 + [_P] * 8 + [_I] * 4 + [_P]),
+    # dtype, rung, degree, onthefly, bf16 metric, bf16 state; ...
+    "bp4_apply_batched": (_I, [_I] * 6 + [_P] * 9 + [_I] + [_P]),
+    # dtype, rung, bf16 metric, bf16 state, degree; ...; the cells per
+    # axis, a block's
+    "bp4_apply_lattice": (_I, [_I] * 5 + [_P] * 8 + [_I] * 4 + [_P]),
+    # degree, the cells per axis, the block's (lo, hi, own) on z, y, x;
+    # the cell results, the carry; the stream
+    "bp4_block_carry": (_I, [_I] * 13 + [_P] * 3),
 }
 
 
@@ -89,7 +118,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(sorted(RUNG_BUILDS.items())).encode())
+    h.update(repr(sorted(FLAG_BUILDS.items())).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -113,9 +142,8 @@ def build() -> tuple[Path, str]:
     objs, procs, names = [], [], []
     t0 = time.perf_counter()
     for src in (s for s in _sources() if s.suffix == ".cu"):
-        for rung in RUNG_BUILDS.get(src.name, (None,)):
-            flags = () if rung is None else (f"-DBP4_RUNG={rung}",)
-            obj = BUILD_DIR / f"{tag}.{src.stem}{rung or ''}.o"
+        for flags in _flags(src.name):
+            obj = BUILD_DIR / f"{tag}.{src.stem}{''.join(flags)}.o"
             objs.append(obj)
             names.append(" ".join((src.name, *flags)))
             procs.append(subprocess.Popen(

@@ -20,8 +20,9 @@ The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
 or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
 from the coefficients by the adjj or the jtj chain, at degrees 1..11
 (the tensor-core rungs split2m, split3, bf16: dense with adjj, twostage
-at 4..11).  Under bf16, d and h (in and out) may be stored in
-bf16 — the bf16 state —, x, g, the preconditioner and the scalars at f32.
+at 4..11).  On every rung d and h (in and out) may be stored in bf16 —
+the bf16 state —, x, g, the preconditioner and the scalars at f32; the
+metric may be streamed in bf16.
 In every configuration the preconditioner, and x (in and out), may be
 stored in bf16 (the fused solver's ``prec_dtype`` and ``x_dtype``): the
 kernel upcasts them at the load and rounds x' where it stores it (one
@@ -316,12 +317,21 @@ def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
 
 
 def _matvec_plain(op: OperatorData, d: torch.Tensor,
-                  cell_apply=_cell_apply) -> torch.Tensor:
+                  cell_apply=_cell_apply, carry=None) -> torch.Tensor:
     """h = M A M d; ``cell_apply`` the cell pass (the tests pass the
     kernels' emulations).  A bf16 d (the bf16 state) is applied at the
-    working dtype and h rounded to bf16."""
+    working dtype and h rounded to bf16; ``carry`` (a block operator's)
+    then receives h's top z face before the rounding."""
     h = _assemble(op, cell_apply(op, d.to(op.dtype) * op.mask)) * op.mask
+    _carry_out(h, d.dtype, carry)
     return h.to(d.dtype)
+
+
+def _carry_out(h: torch.Tensor, store: torch.dtype, carry) -> None:
+    """C10: a block's top z face of h at the working dtype into ``carry``,
+    under a bf16 state (the JAX kernel's ``carry_out_ref``, sent at f32)."""
+    if carry is not None and store == torch.bfloat16:
+        carry.copy_(h[:, -1])
 
 
 def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
@@ -347,7 +357,7 @@ def scalar_recurrence(s: torch.Tensor, alpha: torch.Tensor,
 
 
 def _fused_iteration_plain(op, x, g, d, h, scal, prec,
-                           cell_apply=_cell_apply):
+                           cell_apply=_cell_apply, carry=None):
     """One merged-CG iteration.  With d and h in bf16 (the bf16 state;
     g and scal at the working dtype) every value is computed at the
     working dtype and rounded where it is stored, as the TPU kernel does
@@ -356,9 +366,10 @@ def _fused_iteration_plain(op, x, g, d, h, scal, prec,
     bf16 too (``prec_dtype``, ``x_dtype``): upcast where they are read, x'
     rounded where it is stored.  On a block operator (``op.slab``) the
     block form of :func:`fused_cg_iteration`: the sums over the owned
-    nodes (:data:`OWNED`), raw, in place of scal'."""
+    nodes (:data:`OWNED`), raw, in place of scal', and with a bf16 state
+    h''s top z face unrounded into ``carry`` where one is given."""
     x2, g2, d2 = _update4b(scal, x, g, d, h, prec)
-    h2 = _matvec_plain(op, d2, cell_apply)
+    h2 = _matvec_plain(op, d2, cell_apply, carry)
     s = _sums(op, g2, d2, h2, prec)
     if op.slab is not None:
         return x2, g2, d2, h2, s
@@ -421,6 +432,7 @@ def _assemble_plain(op, out, prec, work) -> None:
     p1 = op.degree + 1
     h2 = (_assemble(op, work.cells.reshape(N_COMPONENTS, op.n_cells, p1,
                                            p1 * p1)) * op.mask)
+    _carry_out(h2, out[3].dtype, work.carry)
     out[3].copy_(h2.to(out[3].dtype))
     out[4].copy_(_sums(op, out[1], out[2], out[3], prec))
 
@@ -484,18 +496,25 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
                 scals=(), xs=()) -> None:
     """Check the operator's tables and the vectors for the kernels:
     ``vectors`` at the working dtype, ``state`` (d and h, in and out) at
-    the state's storage dtype, which must be the working dtype or, under
-    the ``bf16`` rung, bf16; ``prec`` and ``xs`` (x in and out) at the
-    working dtype or in bf16 (``prec_dtype``, ``x_dtype``: every
-    configuration)."""
+    the state's storage dtype, the working dtype or, f32 on every rung,
+    bf16; ``prec`` and ``xs`` (x in and out) at the working dtype or in
+    bf16 (``prec_dtype``, ``x_dtype``: every configuration, and beside a
+    bf16 state or metric where the rung's own instantiations read them —
+    the bf16 rung, split3 with the metric)."""
     check_kernel_shape(op, (list(vectors) + list(state))[0].shape[0])
     lat = (N_COMPONENTS,) + op.n_nodes_axis
     store = (torch.bfloat16 if state and state[0].dtype == torch.bfloat16
-             else op.dtype)
-    if store == torch.bfloat16 and op.precision != "bf16":
+             and op.dtype == torch.float32 else op.dtype)
+    px = ((prec is not None and prec.dtype == torch.bfloat16)
+          or (bool(xs) and xs[0].dtype == torch.bfloat16))
+    storage = ((store == torch.bfloat16 and op.precision != "bf16")
+               or (op.metric_dtype == torch.bfloat16
+                   and op.precision in ("highest", "split2m")))
+    if px and storage:
         raise NotImplementedError(
-            f"a bf16 state under precision={op.precision!r} is "
-            f"{laplace_cuda._DEGRADED_TODO}")
+            f"B2 with P or x in bf16 beside a bf16 state or metric under "
+            f"precision={op.precision!r}: the storage instantiations are "
+            f"built without the P/x form (csrc/cg_fused.cuh launch_cells)")
     want = [(v, lat) for v in vectors] + [(v, lat, store) for v in state]
     if xs:
         want += [(v, lat, _bf16_or_working(op, xs[0])) for v in xs]
@@ -576,12 +595,18 @@ class Workspace:
     the per-block dot partials.  Allocate once per solve and pass it to
     every call to keep allocation out of the iteration loop.  On the CPU
     the cell-local results alone (the plain layer-range form's,
-    :func:`fused_cg_iteration` with ``cells``)."""
+    :func:`fused_cg_iteration` with ``cells``).  On a block operator also
+    ``carry`` (C, Ny, Nx) at the working dtype: B2's block form under a
+    bf16 state writes there its top z face of h' unrounded (C10, the JAX
+    kernel's ``carry_out``)."""
 
     def __init__(self, op: OperatorData):
         p1 = op.degree + 1
         self.cells = torch.empty((N_COMPONENTS, op.n_cells, p1 ** 3),
                                  dtype=op.dtype, device=op.device)
+        self.carry = (None if op.slab is None else torch.empty(
+            (N_COMPONENTS,) + op.n_nodes_axis[1:], dtype=op.dtype,
+            device=op.device))
         self.partials = None
         if op.device.type == "cuda":
             ncz, ncy, ncx = op.n_cells_axis
@@ -664,7 +689,7 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     ``out``: optional (x', g', d', h', scal') buffers, distinct from the
     inputs (the kernel reads every node's old values after other cells
     have written theirs, so it cannot update in place).  d and h (and d',
-    h') may be bf16 under the ``bf16`` rung: the bf16 state.  ``prec``,
+    h') may be bf16 on every rung: the bf16 state.  ``prec``,
     and x with x', may be bf16 in every configuration (the solver's
     ``prec_dtype``, ``x_dtype``).
 
@@ -679,7 +704,11 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     three axes (:func:`block_faces`); scal' is the 7 sums over the owned
     nodes [0, Pz) x [0, Py) x [0, Px), raw, and a 0 (the caller corrects,
     reduces and runs :func:`scalar_recurrence` on them); and h''s ghost
-    faces hold the block's partial sums owed upward (the carries).
+    faces hold the block's partial sums owed upward (the carries); under
+    a bf16 state ``work.carry`` receives the top z face of those sums at
+    the working dtype, before the store rounded them (C10: the JAX
+    kernel's ``carry_out``, which the caller sends up), on the CPU where
+    ``work`` is given.
 
     ``cells=(c0, c1)``, on a block operator: the layer-range form (the TPU
     kernel's ``step_range``/``carry0``, ``cg_fused_kernel.py:1211-1212,
@@ -698,7 +727,9 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     if cells is not None:
         return _fused_cells(op, x, g, d, h, scal, prec, out, work, cells)
     if _route(x) == "plain":
-        res = _fused_iteration_plain(op, x, g, d, h, scal, prec)
+        res = _fused_iteration_plain(
+            op, x, g, d, h, scal, prec,
+            carry=None if work is None else work.carry)
         return res if out is None else tuple(o.copy_(r)
                                              for o, r in zip(out, res))
     out = out if out is not None else tuple(
@@ -737,6 +768,12 @@ def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> None:
                                                              scal)}:
         raise ValueError("fused_cg_iteration cannot update in place: pass "
                          "output buffers distinct from the inputs")
+    if (op.slab is not None and op.metric_dtype == torch.bfloat16
+            and op.precision in ("highest", "split2m")):
+        raise NotImplementedError(
+            f"B2's block form with a bf16 metric under {op.precision!r} is "
+            f"not instantiated (no distributed path streams a bf16 "
+            f"metric)")
     if (op.slab is not None and op.factor == "twostage"
             and op.precision in laplace_cuda.TENSOR_RUNGS):
         raise NotImplementedError(
@@ -757,6 +794,7 @@ def _block_entry(op: OperatorData, x, g, d, h, scal, prec, out,
     ncz, ncy, ncx = op.n_cells_axis
     layer = ncy * ncx
     common = _common_args(op, d)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.bp4_fused_iteration_block(
         *common[:7], int(prec.dtype == torch.bfloat16),
         int(x.dtype == torch.bfloat16), *common[7:],
@@ -764,8 +802,14 @@ def _block_entry(op: OperatorData, x, g, d, h, scal, prec, out,
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
         work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
         *block_faces(op), cells[0] * layer, cells[1] * layer, passes,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        stream)
     _build.check(lib, rc, "bp4_fused_iteration_block")
+    if passes & _NODE_PASSES and d.dtype == torch.bfloat16:
+        # C10: the top z face of h' at f32, before the store rounded it
+        rc = lib.bp4_block_carry(op.degree, ncz, ncy, ncx, *block_faces(op),
+                                 work.cells.data_ptr(),
+                                 work.carry.data_ptr(), stream)
+        _build.check(lib, rc, "bp4_block_carry")
 
 
 def _check_range_form(op: OperatorData, out, work,

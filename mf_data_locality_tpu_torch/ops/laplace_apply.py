@@ -35,6 +35,19 @@ PyTorch version (the dense einsum over cells, the same bf16 rounding
 points for the rung) for tensors on the CPU;
 other devices raise.  Each wrapper counts its kernel launches in
 ``.launches``.
+
+A bf16 state (the merged and baseline solvers' ``dtype=torch.bfloat16``,
+every rung): u arrives in bf16 and the result leaves in bf16, the
+arithmetic at f32, rounded where the JAX package's kernels store
+(``laplace_pallas.py``): B3 and B4 round each cell's result (``out_ref``
+in u's dtype), which :func:`from_cell_batches` then sums in bf16 axis by
+axis, as ``_from_cell_batches`` does; B5 and B6 sum each node's z
+contributions at f32 and round (the kernels' z carry plane), then the y
+and x sums in bf16, in ``_from_piece_forms``'s order (B5) or
+``_from_zslab_form``'s (B6) (:func:`_from_cells_bf16`).  The metric may be
+streamed in bf16 on every rung (``op.metric_dtype``), upcast where it is
+read.  The kernels run the cell passes' storage instantiations
+(``csrc/laplace_apply.cu``).
 """
 
 from __future__ import annotations
@@ -116,14 +129,17 @@ def _metric(op: OperatorData) -> torch.Tensor:
 
 
 def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
-                   at_rung: bool) -> torch.Tensor:
+                   at_rung: bool, store: bool = True) -> torch.Tensor:
     """v = sum_e M_e^T G_ef M_f u on a cell batch (``_kernel_g`` /
     ``_kernel``), the products at ``op.precision`` when ``at_rung``, else
-    exact (B4's ``Precision.HIGHEST``)."""
+    exact (B4's ``Precision.HIGHEST``).  A bf16 ``u_loc`` is applied at the
+    working dtype (its lo part is zero: the JAX kernels' degraded product
+    sets are these) and the result rounded to bf16 when ``store`` (the
+    kernels' ``out_ref``), else left at the working dtype."""
     p13 = (op.degree + 1) ** 3
     q3 = op.n_q ** 3
     nc = u_loc.shape[1]
-    u = u_loc.reshape(-1, p13, nc)
+    u = u_loc.to(op.dtype).reshape(-1, p13, nc)
     rung = op.precision if at_rung else "highest"
     g = sum(torch.einsum("rk,ckn->crn", a, b)
             for a, b in _terms(op.mats, u, rung))
@@ -134,7 +150,7 @@ def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
     t = t.reshape(-1, 3 * q3, nc)
     v = sum(torch.einsum("rk,crn->ckn", a, b)
             for a, b in _terms(op.mats, t, rung))
-    return v.reshape(-1, nc)
+    return v.reshape(-1, nc).to(u_loc.dtype if store else op.dtype)
 
 
 def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
@@ -198,12 +214,61 @@ def _batched_sumfac_emulated(op: OperatorData, u_loc: torch.Tensor,
     return v.reshape(-1, nc)
 
 
-def _lattice_plain(op: OperatorData, u: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """M A M u on the lattice through the cell batches."""
+def _lattice_plain(op: OperatorData, u: torch.Tensor, mask: torch.Tensor,
+                   pieces: bool | None = None) -> torch.Tensor:
+    """M A M u on the lattice through the cell batches; a bf16 u summed at
+    B5's (``pieces``; None: ``op.windowing == "pieces"``) or B6's rounding
+    points (:func:`_from_cells_bf16`)."""
     p = op.degree
-    v = _batched_plain(op, to_cell_batches(u * mask, p), _metric(op), True)
-    return from_cell_batches(v, p, op.n_cells_axis) * mask
+    pieces = op.windowing == "pieces" if pieces is None else pieces
+    if u.dtype != torch.bfloat16:
+        v = _batched_plain(op, to_cell_batches(u * mask, p), _metric(op),
+                           True)
+        return from_cell_batches(v, p, op.n_cells_axis) * mask
+    m = mask.to(op.dtype)
+    v = _batched_plain(op, to_cell_batches(u.to(op.dtype) * m, p),
+                       _metric(op), True, store=False)
+    nc = v.shape[1]
+    v = (v.reshape(-1, (p + 1) ** 3, nc) * to_cell_batches(m, p)).reshape(
+        -1, nc)
+    return _from_cells_bf16(v, p, op.n_cells_axis, pieces)
+
+
+def _place(t: torch.Tensor, axis: int, p: int, top: bool) -> torch.Tensor:
+    """The windows of one class at (axis, axis+1) on the node axis, zero
+    elsewhere: a cell's windows 0..p-1 (``top`` false) or its window p,
+    the node it shares with the next cell (``top``)."""
+    nc = t.shape[axis + 1]
+    lead, tail = t.shape[:axis], t.shape[axis + 2:]
+    out = t.new_zeros(lead + (nc * p + 1,) + tail)
+    if top:
+        out[(slice(None),) * axis + (slice(p, None, p),)] = t.select(axis, p)
+    else:
+        main = t.narrow(axis, 0, p).transpose(axis, axis + 1)
+        out.narrow(axis, 0, nc * p).copy_(main.reshape(lead + (nc * p,)
+                                                       + tail))
+    return out
+
+
+def _from_cells_bf16(v: torch.Tensor, p: int, n_cells_axis,
+                     pieces: bool) -> torch.Tensor:
+    """(C (p+1)^3, n_cells) masked f32 cell results -> the bf16 lattice at
+    the JAX lattice kernels' rounding points: the z sums at f32 and rounded
+    (the kernels' carry plane and store), then the y and x sums in bf16 —
+    B6 along y, then along x (``_from_zslab_form``); B5 the corner pieces
+    mm, mp, pm, pp in turn (``_from_piece_forms``)."""
+    ncz, ncy, ncx = n_cells_axis
+    p1 = p + 1
+    t = v.reshape(-1, p1, p1, p1, ncz, ncy, ncx).permute(0, 1, 4, 2, 5, 3, 6)
+    t = overlap_add_t(t, 1, p).to(torch.bfloat16)  # (C, Nz, p1y, ncy, ...)
+    if not pieces:
+        return overlap_add_t(overlap_add_t(t, 2, p), 3, p)
+    out = None
+    for ty, tx in ((False, False), (False, True), (True, False),
+                   (True, True)):
+        piece = _place(_place(t, 2, p, ty), 3, p, tx)
+        out = piece if out is None else out + piece
+    return out
 
 
 def _index_mask(op: OperatorData) -> torch.Tensor:
@@ -241,18 +306,28 @@ def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     return pairs, *ptrs
 
 
+def _state(op: OperatorData, u: torch.Tensor) -> torch.dtype:
+    """The storage dtype of a kernel's u and output: bf16 (the bf16 state,
+    f32 operators only) or the working dtype."""
+    if u.dtype == torch.bfloat16 and op.dtype == torch.float32:
+        return torch.bfloat16
+    return op.dtype
+
+
 def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
     check_kernel_shape(op, u_loc.shape[0] // (op.degree + 1) ** 3)
     shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
     rung, metric_bf16 = rung_args(op)
     tables, mats, kmats = _tables(op, onthefly)
-    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape)] + tables)
+    state = _state(op, u_loc)
+    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape, state)] + tables)
     lib = _build.load()
     out = torch.empty_like(u_loc)
     rc = lib.bp4_apply_batched(
         dtype_code(op), 0 if onthefly else rung, op.degree, int(onthefly),
-        0 if onthefly else metric_bf16, mats, kmats,
+        0 if onthefly else metric_bf16, int(state == torch.bfloat16), mats,
+        kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
         op.w3.data_ptr(), op.coeffs.data_ptr(), u_loc.data_ptr(),
         out.data_ptr(), None if onthefly else dense_scratch(op), op.n_cells,
@@ -298,7 +373,7 @@ def apply_local_batched(op: OperatorData, u_loc: torch.Tensor) -> torch.Tensor:
 
 
 def _lattice_kernel(op: OperatorData, u: torch.Tensor,
-                    mask: torch.Tensor | None) -> torch.Tensor:
+                    mask: torch.Tensor | None, pieces: bool) -> torch.Tensor:
     # on a block operator (op.slab: a rank's, or a layer range of it) the
     # faces keep their partial sums: the mask tensor is applied in the cell
     # pass and the assemble pass only sums, as the plain version masks
@@ -307,14 +382,18 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
     check_kernel_shape(op, u.shape[0])
     lat = (N_COMPONENTS,) + op.n_nodes_axis
     tables, mats, kmats = _tables(op, onthefly=False)
-    check_tensors(op, KERNEL_DEGREES, [(u, lat)] + tables)
+    state = _state(op, u)
+    check_tensors(op, KERNEL_DEGREES, [(u, lat, state)] + tables)
     lib = _build.load()
     out = torch.empty_like(u)
     cells = torch.empty((N_COMPONENTS, op.n_cells, (op.degree + 1) ** 3),
                         dtype=op.dtype, device=op.device)
     ncz, ncy, ncx = op.n_cells_axis
+    # the state's code: 0 at the working dtype, bf16 summed as B6 (1) or
+    # B5 (2)
+    code = 0 if state != torch.bfloat16 else 2 if pieces else 1
     rc = lib.bp4_apply_lattice(
-        dtype_code(op), *rung_args(op), op.degree, mats, kmats,
+        dtype_code(op), *rung_args(op), code, op.degree, mats, kmats,
         op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
         cells.data_ptr(), out.data_ptr(), dense_scratch(op), ncz, ncy, ncx,
@@ -332,10 +411,11 @@ def apply_lattice_pieces(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     caller masks both sides)."""
     if _route(u) == "plain":
         return _lattice_plain(op, u, _index_mask(op) if op.slab is None
-                              else op.mask)
+                              else op.mask, pieces=True)
     if op.slab is not None:
         check_tensors(op, KERNEL_DEGREES, [(op.mask, (1,) + op.n_nodes_axis)])
-    out = _lattice_kernel(op, u, mask=None if op.slab is None else op.mask)
+    out = _lattice_kernel(op, u, mask=None if op.slab is None else op.mask,
+                          pieces=True)
     apply_lattice_pieces.launches += 1
     return out
 
@@ -347,9 +427,9 @@ def apply_lattice_zslab(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     """B6: M A M u on a (C, Nz, Ny, Nx) lattice, the mask read from
     ``op.mask``."""
     if _route(u) == "plain":
-        return _lattice_plain(op, u, op.mask)
+        return _lattice_plain(op, u, op.mask, pieces=False)
     check_tensors(op, KERNEL_DEGREES, [(op.mask, (1,) + op.n_nodes_axis)])
-    out = _lattice_kernel(op, u, mask=op.mask)
+    out = _lattice_kernel(op, u, mask=op.mask, pieces=False)
     apply_lattice_zslab.launches += 1
     return out
 
@@ -372,11 +452,13 @@ def apply_lattice(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
 def vmult(op: OperatorData, u: torch.Tensor,
           constrained_identity: bool = True) -> torch.Tensor:
     """The full operator with Dirichlet masking (``laplace_pallas.vmult``):
-    M A M u, plus u at the constrained nodes when ``constrained_identity``."""
+    M A M u, plus u at the constrained nodes when ``constrained_identity``;
+    the masks and the identity in u's dtype (exact: the mask is 0 or 1)."""
+    mask = op.mask.to(u.dtype)
     if op.windowing in ("zslab", "pieces"):
         v = apply_lattice(op, u)
     else:
-        v = apply_lattice(op, u * op.mask) * op.mask
+        v = apply_lattice(op, u * mask) * mask
     if constrained_identity:
-        v = v + u * (1.0 - op.mask)
+        v = v + u * (1.0 - mask)
     return v

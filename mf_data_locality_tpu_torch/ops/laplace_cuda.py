@@ -27,7 +27,8 @@ The arrays are kept in canonical order — the port works on the lattice
 permutation, no cell padding and no windowed mask are held.
 
 Arrays (working dtype ``T``, f32 or f64, all on ``device``; a bf16 state,
-``dtype=torch.bfloat16``, keeps them in f32, as the JAX package does):
+``dtype=torch.bfloat16`` — d and h of every solver on every rung —, keeps
+them in f32, as the JAX package does):
 
 * ``mats2d`` (3 q^2, (p+1)^2): ``[Dx2d; Dy2d; S2d]``, rows (qy, qx) and
   columns (ky, kx), x fastest (``laplace_pallas._dense_gradient_matrices_2d``),
@@ -46,8 +47,8 @@ Arrays (working dtype ``T``, f32 or f64, all on ``device``; a bf16 state,
   apply their factors ``sz`` and ``dz`` instead.
 * ``gmetric`` (6 q^3, n_cells) or None: the metric entries (00, 01, 02, 11,
   12, 22) per q-point, computed on the host in f64 and rounded once to
-  ``T``, or to bf16 (``metric_dtype``, the split3 and bf16 rungs; the
-  kernels upcast it at the load) (``metric="precomputed"``).
+  ``T``, or to bf16 (``metric_dtype``, every rung; the kernels upcast it
+  at the load) (``metric="precomputed"``).
 * ``pds`` (3 q^3, 8): derivatives of the trilinear monomials at the tensor
   quadrature points; ``w3`` (q^3, 1) the tensor weights.
 * ``coeffs`` (3, 8, n_cells): trilinear coefficients, cell-minor (the
@@ -86,17 +87,12 @@ _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
 # rung argument; 0: highest, the sum-factorized pass)
 TENSOR_RUNGS = ("split2m", "split3", "bf16")
 RUNG_PRODUCTS = {"highest": 0, "bf16": 1, "split2m": 2, "split3": 3}
-_BF16_STATE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (bf16 "
-                    "storage of d and h outside the fused solver: the merged "
-                    "and baseline host loops)")
-_DEGRADED_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (the "
-                  "degraded combinations: a bf16 state under highest, "
-                  "split2m or split3)")
-_METRIC_TODO = ("not ported yet: see ROADMAP.md, queue B item 6d (a bf16 "
-                "metric stream under highest and split2m)")
 
 _SHAPE_TODO = ("sized for q = p + 2 and 3 components: see ROADMAP.md, "
                "queue B item 6g (q != p+2 or C != 3 on the kernels)")
+_F64_TODO = ("not ported yet: see ROADMAP.md, queue B item 6h (f64 beside "
+             "bf16 parts: the tensor-core rungs and the bf16 metric stream "
+             "at f64)")
 
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
@@ -433,38 +429,26 @@ def check_config(precision: str, factor: str = "twostage",
     Without a solver (the builders) the fused configurations of any degree
     pass: the plain versions take every degree, the kernels check theirs
     (no rung falls back to another, nor a kernel to its plain version).
-    ``dtype=torch.bfloat16`` is the fused solver's bf16 state (d and h;
-    f32 tables), under the ``bf16`` rung only; ``metric_dtype`` the
-    streamed metric's storage (None: the working dtype), bf16 under
-    ``split3`` and ``bf16`` only (ignored where the metric is rebuilt).
+    ``dtype=torch.bfloat16`` is the bf16 state (d and h of every solver,
+    p and Ap of the baseline; f32 tables), on every rung and windowing;
+    ``metric_dtype`` the streamed metric's storage (None: the working
+    dtype), bf16 on every rung (ignored where the metric is rebuilt).
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
-    if dtype == torch.bfloat16:
-        if precision != "bf16":
-            raise NotImplementedError(
-                f"dtype=torch.bfloat16 with precision={precision!r} is "
-                f"{_DEGRADED_TODO}")
-        if solver in ("merged", "baseline") or (solver is None
-                                                and windowing != "pieces"):
-            raise NotImplementedError(
-                f"dtype=torch.bfloat16 with windowing={windowing!r}"
-                + (f", solver={solver!r}" if solver else "")
-                + f" is {_BF16_STATE_TODO}")
-    elif dtype not in (torch.float32, torch.float64):
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(f"dtype={dtype} is {_TODO}")
     if precision in TENSOR_RUNGS and dtype == torch.float64:
         raise NotImplementedError(
-            f"precision={precision!r} with dtype={dtype} is {_TODO}")
+            f"precision={precision!r} with dtype={dtype} is {_F64_TODO}")
     table = torch.float32 if dtype == torch.bfloat16 else dtype
     if metric_dtype not in (None, table, torch.bfloat16):
         raise ValueError(f"metric_dtype={metric_dtype} with dtype={dtype}: "
                          f"the metric is stored at {table} or in bf16")
     if (metric_dtype == torch.bfloat16 and metric == "precomputed"
-            and precision not in ("split3", "bf16")):
+            and dtype == torch.float64):
         raise NotImplementedError(
-            f"metric_dtype=torch.bfloat16 under precision={precision!r} is "
-            f"{_METRIC_TODO}")
+            f"metric_dtype=torch.bfloat16 with dtype={dtype} is {_F64_TODO}")
     if windowing not in WINDOWINGS:
         raise NotImplementedError(
             f"windowing={windowing!r} is not ported (XLA-level windowing in "

@@ -105,15 +105,20 @@ def _fill_ghosts(comm: Comm, vs, halo) -> None:
         _ghosts_finish(comm, _ghosts_start(comm, vs, dim, axis), vs, dim)
 
 
-def _carry(comm: Comm, halo, s: torch.Tensor, h2, d2, g2, P,
-           dtype) -> torch.Tensor:
+def _carry(comm: Comm, halo, s: torch.Tensor, h2, d2, g2, P, dtype,
+           carry_z: torch.Tensor | None = None) -> torch.Tensor:
     """Add each ghost face of h' onto the upper neighbour's face 0, axis by
     axis of ``halo`` (one shift an axis), and correct the 7 sums on the
     owned part of every face that received a carry, [0, P) on the other two
-    axes."""
+    axes.  ``carry_z``: the top z face at the working dtype, unrounded (a
+    bf16 state: B2's f32 carry, C10), sent in place of h''s face as stored,
+    so that the add-back rounds once; the y and x faces go as stored, as in
+    the JAX package (``dist_fused.py:253, 428`` against ``:442-460``)."""
     own = slice(0, -1)
     for dim, axis in halo:
-        recv = comm.shift([h2[_face(dim, -1, own)]], up=True, axis=axis)
+        face = (carry_z if dim == 1 and carry_z is not None
+                else h2[_face(dim, -1, own)])
+        recv = comm.shift([face], up=True, axis=axis)
         if recv is None:
             continue
         face = _face(dim, 0, own)
@@ -144,10 +149,10 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     Each iteration is the wrapper of B2's block form
     (``cg_fused_kernel.fused_cg_iteration`` on the rank's operator: the
     kernel on the card, its plain version on the CPU).  With a bf16 ``b``
-    (the bf16 rung's state) d and h are stored in bf16, as in the
-    single-device solver; the carry is then h''s ghost face as stored,
-    rounded to bf16 (the JAX kernel sends it at f32 before the add-back
-    rounds it), a second rounding of face 0 of h above the first rank.
+    (the bf16 state, every rung) d and h are stored in bf16, as in the
+    single-device solver; the z carry then leaves at f32, unrounded
+    (``work.carry``), and the upper rank adds it to its face 0 of h' and
+    rounds once, as the JAX kernel's ``carry_out`` does (C10).
 
     ``overlap``: each iteration's ghost shift overlapped with B2's cell
     pass over the layers below the top one (the module's docstring; the
@@ -175,7 +180,10 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     store = slab.b.dtype if slab.b.dtype == torch.bfloat16 else dtype
     nd = np_dtype(dtype)
     dev = slab.b.device
-    work = fk.Workspace(op) if dev.type == "cuda" else None
+    # the cell scratch on the card (the plain layer-range form's on the
+    # CPU), and the f32 z carry under a bf16 state
+    work = fk.Workspace(op)
+    carry_z = work.carry if store == torch.bfloat16 else None
     own = fk.OWNED
 
     P = slab.inv_diag[:1].to(dtype, copy=True).contiguous()
@@ -200,8 +208,6 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     ncz = op.n_cells_axis[0]
     if overlap and ncz >= 2:
         dim, axis = halo[0]
-        if work is None:  # the plain layer-range form's cell results
-            work = fk.Workspace(op)
 
         def iteration(x, g, d, h, scal):
             pending = _ghosts_start(comm, [g, d, h], dim, axis)
@@ -222,7 +228,7 @@ def solve_fused(slab: SlabProblem, comm: Comm,
         it += 1
         x, g, d, h = state
         x2, g2, d2, h2, s = iteration(x, g, d, h, scal)
-        s = _carry(comm, halo, s, h2, d2, g2, P, dtype)
+        s = _carry(comm, halo, s, h2, d2, g2, P, dtype, carry_z)
         s = comm.allreduce(s)
         spare = (x, g, d, h, scal)
         scal = fk.scalar_recurrence(s, scal[0], scal[1], scal[4])

@@ -53,6 +53,7 @@ from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Any
 
+import functools
 import math
 import time
 
@@ -185,6 +186,18 @@ def _mesh3(mesh_shape) -> tuple[int, int, int]:
 
 def block_arrays(s: int, degree: int, coords, mesh_shape,
                  n_components: int = 3) -> dict[str, Any]:
+    """:func:`_block_arrays`, computed once for the rank's jobs on the same
+    block (their host setup: the window's diagonal and geometry, seconds
+    at p=4 s=15); the arrays are the caller's copies."""
+    a = _block_arrays(s, degree, tuple(coords), tuple(mesh_shape),
+                      n_components)
+    return {k: v.copy() if isinstance(v, np.ndarray) else v
+            for k, v in a.items()}
+
+
+@functools.lru_cache(maxsize=4)
+def _block_arrays(s: int, degree: int, coords, mesh_shape,
+                  n_components: int = 3) -> dict[str, Any]:
     """Host arrays (f64 NumPy) of the rank at ``coords`` of a ``mesh_shape``
     rank mesh ((D,), (Dz, Dy) or (Dz, Dy, Dx); the JAX ``_pad_slice`` /
     ``_pad_dummy_cells`` cuts of ``build_distributed_2d`` / ``_3d``):
@@ -273,9 +286,9 @@ def build_slab(s: int, degree: int, rank: int, n_ranks: int,
     """Slab ``rank`` of BP4 on 2**s cells over ``n_ranks`` ranks
     (``build_distributed``): on ``pallas`` the dense factorization, the
     metric streamed or (the fused solver's ``metric="onthefly"``) rebuilt
-    from the coefficients by adjj; ``dtype=torch.bfloat16`` is the fused
-    solver's bf16 state (f32 tables; b and the preconditioner rounded to
-    bf16 from f64, as the JAX slabs are).  ``axis``: the rank grid's axis
+    from the coefficients by adjj; ``dtype=torch.bfloat16`` is the bf16
+    state of every solver (f32 tables; b and the preconditioner rounded
+    to bf16 from f64, as the JAX slabs are).  ``axis``: the rank grid's axis
     the slabs run along (``(0, 1)`` on a 2-level grid)."""
     a = slab_arrays(s, degree, rank, n_ranks)
     return _build(a, (a["origin"], a["nc_global"]), ((1, axis),), degree,
@@ -435,7 +448,7 @@ def dist_vmult(slab: SlabProblem, comm: comm_mod.Comm, u: torch.Tensor,
     the ranges' partial sums, the plain apply adds the cells' in its own
     order: the two agree to rounding, not bitwise (f64 p=4 s=7 solves:
     within 1e-9 max(1, |x|), ``tests/test_torch_dist_overlap.py``)."""
-    mask = slab.op.mask
+    mask = slab.op.mask.to(u.dtype)  # bf16 u: the masks exact in bf16
     um = u * mask
     raw = None
     if overlap:
@@ -462,10 +475,6 @@ def solve(slab: SlabProblem, comm: comm_mod.Comm, solver: str = "merged",
     two shifts an axis of each operator apply; the baseline solver one a
     dot product, 3 an iteration and 2 to start.  ``overlap``: each apply
     boundary-first (:func:`dist_vmult`; z-slabs only)."""
-    if slab.b.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"the merged and baseline solvers with a bf16 state are "
-            f"{laplace_cuda._BF16_STATE_TODO}")
     a = partial(dist_vmult, slab, comm,
                 constrained_identity=(solver == "baseline"),
                 overlap=overlap)

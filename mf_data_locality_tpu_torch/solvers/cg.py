@@ -59,34 +59,45 @@ def cg_solve(a_apply: Callable[[torch.Tensor], torch.Tensor],
     ``reduce_scalar`` sums each local dot product over the ranks — one
     reduction a dot, three an iteration —, and ``dot_weight`` weights the
     local sums (0 on the planes another rank owns).
+
+    A bf16 ``b`` is the bf16 state (``cg.py:65-101`` of the JAX package):
+    p and Ap, the operator's input and output, are stored in bf16, p
+    rounded where it is stored; x, r, z, the preconditioner, the dot
+    products and the scalars are f32.
     """
-    nd = np_dtype(b.dtype)
+    store = b.dtype
+    acc = torch.float32 if store == torch.bfloat16 else store
+    nd = np_dtype(acc)
+    prec = prec.to(acc)
 
     def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        u, v = u.to(acc), v.to(acc)
         t = u * v if dot_weight is None else u * v * dot_weight
         s = torch.sum(t)
         return s if reduce_scalar is None else reduce_scalar(s[None])[0]
-    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
-    r = b - a_apply(x) if x0 is not None else b.clone()
+    x = (torch.zeros_like(b, dtype=acc) if x0 is None
+         else x0.to(acc).clone())
+    r = (b.to(acc) - a_apply(x.to(store)).to(acc) if x0 is not None
+         else b.to(acc).clone())
     res0 = nd(torch.sqrt(_dot(r, r)).item())
     tol = max(nd(abs_tol), nd(rel_tol) * res0)
     history = np.full((max_iter + 1,), np.nan, nd)
     history[0] = res0
 
     z = _prec_apply(prec, r)
-    p = z
+    p = z.to(store)
     rz = _dot(r, z)
     it, res = 0, res0
     while res > tol and it < max_iter:
         ap = a_apply(p)
         alpha = rz / _dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
+        x = x + alpha * p.to(acc)
+        r = r - alpha * ap.to(acc)
         res = nd(torch.sqrt(_dot(r, r)).item())
         z = _prec_apply(prec, r)
         rz_new = _dot(r, z)
         beta = rz_new / rz
-        p = z + beta * p
+        p = (z + beta * p.to(acc)).to(store)
         rz = rz_new
         it += 1
         history[it] = res

@@ -72,9 +72,10 @@ def ptxas_table(log: str) -> dict[str, tuple[int, int, int]]:
 
 
 def _unpx(name: str) -> str:
-    # an instantiation whose trailing template argument is the new `false`
-    # default (PX, PBF) had no such argument before
-    return re.sub(r"Lb0E(E+v)", r"\1", name, count=1)
+    # an instantiation whose trailing template argument is a new default —
+    # `false` (PX, PBF) or the sum-factorized pass's SB = 0 — had no such
+    # argument before
+    return re.sub(r"L[bi]0E(E+v)", r"\1", name, count=1)
 
 
 def _is_px(name: str) -> bool:
@@ -118,7 +119,7 @@ def build_report(parent: str | None) -> bool:
     _, log = _build.build()
     wall = time.perf_counter() - t0
     table = ptxas_table(log)
-    ends = re.findall(r"nvcc: (\S+)( -DBP4_RUNG=\d)? ([\d.]+) s", log)
+    ends = re.findall(r"nvcc: (\S+)((?: -DBP4_\w+=\d+)*) ([\d.]+) s", log)
     print(f"build {wall:.1f} s, {len(table)} instantiations, "
           f"{len(ends)} compiles")
     for src, rung, t in sorted(ends, key=lambda e: float(e[2]))[-8:]:

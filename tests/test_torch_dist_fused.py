@@ -30,8 +30,9 @@ METRICS = ("precomputed", "onthefly")
 CASES = [(s, p, n, m) for s, p, n in POINTS for m in METRICS]
 
 
-# the bf16 rung with its state (d, h in bf16) on 4 ranks at (6, 2)
-BF16 = dist.Job("fused", 6, 2, torch.bfloat16, precision="bf16")
+# a bf16 state (d, h in bf16) on 4 ranks at (6, 2) under highest, the JAX
+# package's test_dist_fused_bf16_storage_converges
+BF16 = dist.Job("fused", 6, 2, torch.bfloat16, precision="highest")
 
 
 @pytest.fixture(scope="module")
@@ -97,26 +98,28 @@ def test_fused_collectives(runs, case):
 
 
 def test_fused_bf16_state_converges(runs):
-    """The bf16 rung with d and h in bf16 on 4 ranks converges within 6
-    iterations of the f32 single-device solve (the JAX package's
-    ``test_dist_fused_bf16_storage_converges``; there its rung is
-    ``highest``, a degraded combination the port refuses, 6d) and within
-    2 of the port's own single-device bf16 solve (the carry is added as
-    h' stores it, in bf16)."""
+    """A bf16 state (d and h in bf16) under ``highest`` on 4 ranks, the f32
+    carry added once (C10), against the JAX package's own run of it
+    (``test_dist_fused_bf16_storage_converges``: ``solve_fused`` with a
+    bf16 state under highest): converged, its iteration count within 2 of
+    the JAX one's, and within 6 of the f32 single-device solve (the JAX
+    test's claim) and 2 of the port's single-device bf16 solve."""
     got = runs["bf16"]
-    lat = None
+    dp, mesh = jdist_fused.build_dist_fused(6, 2, n_devices=4,
+                                            dtype=jnp.bfloat16)
+    want = jdist_fused.solve_fused(dp, mesh)
     its = {}
-    for dtype, precision in ((torch.float32, "highest"),
-                             (torch.bfloat16, "bf16")):
-        pb = bp4.build(6, 2, dtype, precision, device="cpu", factor="dense",
+    for dtype in (torch.float32, torch.bfloat16):
+        pb = bp4.build(6, 2, dtype, "highest", device="cpu", factor="dense",
                        metric="precomputed", windowing="pieces")
         lat = (3,) + pb.layout.n_nodes_axis
-        its[precision] = cg_fused.fused_merged_cg_solve(
+        its[dtype] = cg_fused.fused_merged_cg_solve(
             pb.op, lat[1:], pb.b.reshape(lat),
             pb.inv_diag.reshape((1,) + lat[1:])).n_iterations
-    assert got["converged"]
-    assert abs(got["it"] - its["highest"]) <= 6
-    assert abs(got["it"] - its["bf16"]) <= 2
+    assert got["converged"] and bool(want.converged)
+    assert abs(got["it"] - int(want.n_iterations)) <= 2
+    assert abs(got["it"] - its[torch.float32]) <= 6
+    assert abs(got["it"] - its[torch.bfloat16]) <= 2
     assert got["x"].shape == lat and torch.isfinite(got["x"]).all()
 
 

@@ -22,6 +22,7 @@ from mf_data_locality_tpu_torch.models import bp4
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 from mf_data_locality_tpu_torch.parallel import distributed as dist
 from mf_data_locality_tpu_torch.parallel import dryrun
+from mf_data_locality_tpu_torch.parallel.comm import Comm
 from mf_data_locality_tpu_torch.solvers import cg, cg_merged
 
 
@@ -254,8 +255,27 @@ def test_refusals():
                         "--device", "cpu"])
 
 
+class _Solo(Comm):
+    """One rank in this process: its shifts find no neighbour, and its
+    all-reduce is the identity."""
+
+    def allreduce(self, t):
+        self.allreduces += 1
+        return t
+
+
 def test_bf16_state_refused_in_merged_slabs():
-    slab = dist.build_slab(6, 2, 0, 2, torch.bfloat16, "pallas", "bf16",
+    """The merged solver on a bf16 slab (6d, refused before): a single
+    rank's slab solves as the single-device bf16 problem does, d and h in
+    bf16 and x at f32 — the same iteration count and the same x to
+    rounding (the slab's weighted sums, the one device's unweighted)."""
+    slab = dist.build_slab(6, 2, 0, 1, torch.bfloat16, "pallas", "bf16",
                            "pieces", "precomputed", "cpu")
-    with pytest.raises(NotImplementedError, match="6d"):
-        dist.solve(slab, None, "merged")
+    got = dist.solve(slab, _Solo(0, 1, "cpu"), "merged")
+    ref = bp4.solve_merged(bp4.build(6, 2, torch.bfloat16, "bf16",
+                                     factor="dense", windowing="pieces",
+                                     device="cpu"))
+    assert got.converged and got.x.dtype == torch.float32
+    assert got.n_iterations == ref.n_iterations
+    x = got.x.reshape(ref.x.shape)
+    assert ((x - ref.x).abs().max() / ref.x.abs().max()).item() < 1e-2

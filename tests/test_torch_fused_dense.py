@@ -208,8 +208,9 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
     """The fused solver's auto-dispatch (the JAX resolvers, verbatim) at
     p=1..4 on the port's rungs gives a configuration the port runs, the
     same as the JAX resolvers give; jtj runs under highest, and under
-    split2m in twostage (p=4); what stays unported (split2m twostage at
-    p=1..3, jtj in split2m's dense pass) raises; the split2m auto path at
+    split2m in twostage (p=4); a bf16 state under split3 resolves as the
+    bf16 rung's (6d); what stays unported (split2m twostage at p=1..3,
+    jtj in split2m's dense pass) raises; the split2m auto path at
     p+4 >= 5 resolves to twostage + onthefly + jtj, and split2m dense
     there to the JAX resolvers' metric."""
     want = {"highest": ("dense", "precomputed"),
@@ -235,8 +236,13 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                      factor, metric)
     refused = [dict(precision="split2m", factor="dense", metric="onthefly",
                     cofactor="jtj"),
-               dict(precision="split3", dtype=torch.bfloat16),
                dict(precision="split2m", dtype=torch.float64)]
+    # a bf16 state under a degraded rung runs since 6d: the dispatch on the
+    # bf16 rung (eff_prec), the operator at its own
+    assert benchmark.resolve_config(p, "fused", "pieces", "split3",
+                                    torch.bfloat16) == \
+        benchmark.resolve_config(p, "fused", "pieces", "bf16",
+                                 torch.bfloat16)
     if p != 4:
         refused += [dict(precision="split2m", factor="twostage",
                          metric="onthefly"),

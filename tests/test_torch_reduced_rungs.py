@@ -347,18 +347,20 @@ def test_dispatch_matches_jax_eff_prec(p):
 # each left-out combination: (resolve_config's arguments, the ROADMAP item
 # its message names)
 REFUSED = {
+    # ported since (6d: the bf16 state on every rung, solver and
+    # windowing, the bf16 metric under highest and split2m): None, they run
     "bf16 state, merged": (dict(solver="merged", windowing="reshape",
-                                precision="bf16", dtype=BF), "item 6d"),
+                                precision="bf16", dtype=BF), None),
     "bf16 state, baseline": (dict(solver="baseline", windowing="pieces",
-                                  precision="bf16", dtype=BF), "item 6d"),
-    "bf16 state, split3": (dict(precision="split3", dtype=BF), "item 6d"),
-    "bf16 state, split2m": (dict(precision="split2m", dtype=BF), "item 6d"),
-    "bf16 state, highest": (dict(precision="highest", dtype=BF), "item 6d"),
+                                  precision="bf16", dtype=BF), None),
+    "bf16 state, split3": (dict(precision="split3", dtype=BF), None),
+    "bf16 state, split2m": (dict(precision="split2m", dtype=BF), None),
+    "bf16 state, highest": (dict(precision="highest", dtype=BF), None),
     "bf16 metric, highest": (dict(precision="highest",
                                   metric="precomputed",
-                                  metric_dtype=BF), "item 6d"),
+                                  metric_dtype=BF), None),
     "bf16 metric, split2m": (dict(precision="split2m", metric="precomputed",
-                                  metric_dtype=BF), "item 6d"),
+                                  metric_dtype=BF), None),
     # ported since (the dense tensor-core pass at p >= 5): None, they run
     "split3 merged at p=5": (dict(solver="merged", windowing="reshape",
                                   precision="split3", degree=5), None),
@@ -376,7 +378,10 @@ def test_left_out_combinations_raise(case):
     """What this slice leaves out raises NotImplementedError naming its
     ROADMAP item, and no configuration runs on another rung in its
     place; a combination ported since (item None) resolves to its own
-    rung's configuration, as the JAX resolvers give it, and builds."""
+    rung's configuration, as the JAX resolvers give it (with a bf16 state
+    the dispatch on the bf16 rung, ``eff_prec``), and builds at its own
+    rung, the metric at its storage dtype; the merged solver with a bf16
+    state (6d) solves."""
     kw, item = REFUSED[case]
     args = dict(degree=2, solver="fused", windowing="pieces",
                 dtype=torch.float32) | kw
@@ -384,40 +389,47 @@ def test_left_out_combinations_raise(case):
             args.pop("precision"), args.pop("dtype"))
     if item is None:
         p, solver, windowing, rung, dtype = call
+        eff = "bf16" if dtype == BF else rung
         config = benchmark.resolve_config(*call, **args)
         f = jbench.resolve_factor(args.get("factor", "auto"), p, windowing,
-                                  precision=rung, solver=solver)
-        m = jbench.resolve_metric("auto", solver, windowing, f, p,
-                                  precision=rung)
+                                  precision=eff, solver=solver)
+        m = args.get("metric") or jbench.resolve_metric(
+            "auto", solver, windowing, f, p, precision=eff)
         assert config == (f, m, "adjj") and f == "dense"
         op = bp4.build(1, p, dtype, rung, windowing=windowing, device="cpu",
+                       metric_dtype=args.get("metric_dtype"),
                        **dict(zip(("factor", "metric", "cofactor"),
                                   config))).op
-        assert op.precision == rung and op.mma_mats.shape[0] == (
-            4 if rung == "split3" else 2)
+        assert op.precision == rung and (
+            op.mma_mats is None if rung == "highest"
+            else op.mma_mats.shape[0] == (4 if rung == "split3" else 2))
+        assert op.metric_dtype == (args.get("metric_dtype") or op.dtype
+                                   if m == "precomputed" else op.dtype)
+        if case.startswith("bf16 state, merged"):
+            pb = bp4.build(S, 2, BF, "bf16", factor="dense",
+                           windowing="pieces", device="cpu")
+            res = bp4.solve_merged(pb)
+            assert res.converged and res.x.dtype == torch.float32
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         benchmark.resolve_config(*call, **args)
-    if case.startswith("bf16 state, merged"):
-        pb = bp4.build(S, 2, BF, "bf16", factor="dense", windowing="pieces",
-                       device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6d"):
-            bp4.solve_merged(pb)
 
 
 def test_layout_checks_of_the_bf16_state():
-    """The wrappers take a bf16 d and h only under the bf16 rung: a bf16
-    state under split3 raises before any kernel is reached, and the
-    builders refuse a bf16 state outside the fused solver's windowing."""
+    """The wrappers take a bf16 d and h on every rung (6d): a bf16 state
+    under split3 passes the card checks, a bf16 d and h of the wrong shape
+    do not, and ``make_operator`` takes a bf16 state on the apply
+    family's windowing too (f32 tables)."""
     layout = DofLayout(BoxMesh.from_s(S), 2)
     op = laplace_cuda.make_operator(layout, torch.float32, "split3",
                                     factor="dense", windowing="pieces",
                                     device="cpu")
     d = torch.zeros((3,) + op.n_nodes_axis, dtype=BF)
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        fk._check_cuda(op, [], [d, d])
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        laplace_cuda.make_operator(layout, BF, "bf16", device="cpu")
+    fk._check_cuda(op, [], [d, d])
+    with pytest.raises(ValueError, match="shape"):
+        fk._check_cuda(op, [], [d[:, 1:].contiguous(), d])
+    built = laplace_cuda.make_operator(layout, BF, "bf16", device="cpu")
+    assert built.windowing == "reshape" and built.dtype == torch.float32
 
 
 def test_bench_torch_prints_bench_py_variant_lines(monkeypatch, capsys):

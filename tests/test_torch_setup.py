@@ -114,21 +114,24 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
 
 def test_operator_rejects_unported_configurations():
     """Configurations the JAX package has and the port does not yet
-    (ROADMAP queue B) raise, each spelled out in full; split2m's dense pass
-    past p=4 (the apply family, the fused dense) builds, with the dense
-    M's tables, B5 on a twostage operator too."""
+    (ROADMAP queue B) raise, each spelled out in full; a bf16 state under
+    split3 (6d) builds, its tables f32; split2m's dense pass past p=4 (the
+    apply family, the fused dense) builds, with the dense M's tables, B5
+    on a twostage operator too."""
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
     dense = {"factor": "dense", "metric": "onthefly", "windowing": "pieces"}
     for kw in ({**dense, "precision": "split2m", "cofactor": "jtj"},
                {**fused, "windowing": "reshape"},
-               {"precision": "split3", "dtype": torch.bfloat16},
-               {**fused, "precision": "split3", "dtype": torch.bfloat16},
                {"precision": "split2m", "dtype": torch.float64},
                {**fused, "precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             laplace_cuda.make_operator(layout, device="cpu", **kw)
+    for kw in ({"precision": "split3", "dtype": torch.bfloat16},
+               {**fused, "precision": "split3", "dtype": torch.bfloat16}):
+        op = laplace_cuda.make_operator(layout, device="cpu", **kw)
+        assert op.dtype == torch.float32 and op.precision == "split3"
     # split2m's dense pass past p=4 (the apply family, the fused dense)
     layout = DofLayout(BoxMesh.from_s(1), 5)
     rp, cp = laplace_cuda.mma_dims(5)
