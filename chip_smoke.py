@@ -206,7 +206,26 @@ Phases (each raises on failure, so any failure exits nonzero):
    windowing="reshape", precision="highest", dtype=torch.bfloat16)``, B3)
    and the fused solver with a bf16 state under highest, short the others.
    The every-degree runs of phase 5 skip, at p=6 and p=8, the paths that
-   the FULL_HIGH drives run there (FULL_DRIVEN).
+   the FULL_HIGH drives run there (FULL_DRIVEN);
+10. the tensor-core rungs on every factorization and chain
+   (``utils/tensor_rungs_check.py``): on the 105-cell box under split2m,
+   split3 and bf16 (with the bf16 state and metric) B1/B2 twostage at
+   p=1..3 with the metric streamed, rebuilt by adjj and by jtj
+   (``cell_mma_hd.cuh``, ``cell_mma_p01.cu`` .. ``p03.cu``), B1/B2 dense
+   with the metric rebuilt by jtj at p=1..5, 8, 11 (``mma_jtj.cu`` to
+   p=4, ``apply_mma_pNN.cu`` from p=5), each with B2's P/x forms, and B5
+   on the twostage operator at p=2, 4, against their plain versions
+   (bf16: the controls that must miss); their storage forms in section 9;
+   tensor_rungs_check.TIMED's rows timed beside their plain versions and
+   bounds (fields ``*_twostage_split2m_p3``,
+   ``*_auto_split2m_p3``, ``*_dense_jtj_split2m``, ``*_dense_adjj_split2m``
+   of B1/B2); the fused solver with ``--factor twostage --precision
+   split2m`` at p=3 s=14 at full depth and at the parity point p=3 s=9
+   (the f64 count 94..95 + 0..3, or C8's cap with ``edge_witness``), and
+   short drives of TS_DRIVES: the JAX CLI's ``--factor twostage`` at
+   p=1..3 and ``--factor dense --geometry onthefly --cofactor jtj`` at
+   p=4 under every tensor-core rung, and the merged solver's ``--factor
+   twostage --windowing pieces`` at p=2, 4 (B5).
 """
 
 from __future__ import annotations
@@ -412,6 +431,45 @@ B16_DRIVES = (
      dict(solver="fused", windowing="pieces", precision="split2m",
           factor="dense", metric="precomputed", metric_dtype=BF)),
 )
+# section 10: the timed rows' sources (tensor_rungs_check.TIMED's
+# suffixes) and the drives whose counts are their launches (the adjj row's
+# is DENSE_RUNS' "_dense_split2m_p4", the same configuration); the fused
+# solver with --factor twostage under split2m at the full-width point
+# p=3 s=14 ((p+1)^3 2^s 3 = 3.1M) at full depth, the auto path there short
+TS_SOURCE = {"_twostage_split2m_p3": "cell_mma_p03.cu",
+             "_auto_split2m_p3": "apply_mma.cuh",
+             "_dense_jtj_split2m": "mma_jtj.cu",
+             "_dense_adjj_split2m": "apply_mma.cuh"}
+TS_FULL = (3, 14)
+TS_PARITY = (3, 9, range(94, 99))
+# (label, p, s, kernels, key of the launches or None, run_one's keywords):
+# the fused solver's --factor twostage at p=1..3 under each rung (split2m
+# its resolved metric and chain, split3 the metric rebuilt by jtj, bf16
+# streamed), the dense jtj row's launches at its timed point, B5's on the
+# twostage operator those of the p=4 drive
+TS_DRIVES = (
+    *((f"fused --factor twostage{''.join(f' {v}' for v in kw.values())}, "
+       f"{rung}",
+       p, S_SHORT, ("matvec", "fused_cg_iteration"), None,
+       dict(solver="fused", windowing="pieces", precision=rung,
+            factor="twostage", **kw))
+      for rung, kw in (("split2m", {}),
+                       ("split3", dict(metric="onthefly", cofactor="jtj")),
+                       ("bf16", dict(metric="precomputed")))
+      for p in (1, 2, 3)),
+    *((f"fused --factor dense --geometry onthefly --cofactor jtj, {rung}",
+       4, S if rung == "split2m" else S_SHORT,
+       ("matvec", "fused_cg_iteration"),
+       "_dense_jtj_split2m" if rung == "split2m" else None,
+       dict(solver="fused", windowing="pieces", precision=rung,
+            factor="dense", metric="onthefly", cofactor="jtj"))
+      for rung in ("split2m", "split3", "bf16")),
+    *(("merged --factor twostage --windowing pieces, split2m", p, S_SHORT,
+       ("apply_lattice_pieces",), "_twostage_pieces",
+       dict(solver="merged", windowing="pieces", precision="split2m",
+            factor="twostage"))
+      for p in (2, 4)),
+)
 # the sources of section 9's timed rows (at p=4: the sum-factorized
 # pass's storage instantiations under highest, the dense tensor-core
 # pass's under split2m; B2's split2m auto configuration at p=4 with a
@@ -526,11 +584,13 @@ def random_state(op, n: int, seed: int):
 
 
 def time_pair(kern, plain, dev, timing, inner: int = 20):
-    """(kernel ms, plain ms): alternate plain, kernel, kernel, plain."""
-    tp1 = timing.time_per_call(plain, dev, inner=5, repeats=3)
+    """(kernel ms, plain ms): alternate plain, kernel, kernel, plain (the
+    plain version, a yardstick of ms where the kernel takes µs, 2 x 2
+    calls a side)."""
+    tp1 = timing.time_per_call(plain, dev, inner=2, repeats=2)
     tk1 = timing.time_per_call(kern, dev, inner=inner, repeats=3)
     tk2 = timing.time_per_call(kern, dev, inner=inner, repeats=3)
-    tp2 = timing.time_per_call(plain, dev, inner=5, repeats=3)
+    tp2 = timing.time_per_call(plain, dev, inner=2, repeats=2)
     return min(tk1, tk2) * 1e3, min(tp1, tp2) * 1e3
 
 
@@ -2030,20 +2090,20 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     launches, rows, out = {}, {}, {}
     p_full, s_full, n = DIST_FULL
     full = {n: {"merged": Job("merged", s_full, p_full, f32, timed=True,
-                              solve_repeats=2),
+                              solve_repeats=1),
                 "fused": Job("fused", s_full, p_full, f32, "pallas",
-                             "split2m", timed=True, solve_repeats=2),
+                             "split2m", timed=True, solve_repeats=1),
                 "fused_onthefly": Job("fused", s_full, p_full, f32,
                                       "pallas", "split2m",
                                       metric="onthefly", timed=True,
-                                      solve_repeats=2),
+                                      solve_repeats=1),
                 # --overlap: the CLI's merged solve, and solve_fused's
                 "merged_overlap": Job("merged", s_full, p_full, f32,
-                                      timed=True, solve_repeats=2,
+                                      timed=True, solve_repeats=1,
                                       overlap=True),
                 "fused_overlap": Job("fused", s_full, p_full, f32,
                                      "pallas", "split2m", timed=True,
-                                     solve_repeats=2, overlap=True),
+                                     solve_repeats=1, overlap=True),
                 # --backend general --devices 4, short
                 "general": Job("merged", GENERAL_S, p_full, f32,
                                backend="general", timed=True,
@@ -2067,11 +2127,11 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         drives["fused" + sfx] = Job(
             "fused", s_mesh, p_full, f32, "pallas", "split2m",
             metric="onthefly" if len(mesh) == 3 else "precomputed",
-            timed=True, solve_repeats=1 if len(mesh) == 3 else 2,
+            timed=True, solve_repeats=1,
             mesh_shape=mesh)
         if mesh == (2, 2):
             drives["merged" + sfx] = Job("merged", s_mesh, p_full, f32,
-                                         timed=True, solve_repeats=2,
+                                         timed=True, solve_repeats=1,
                                          mesh_shape=mesh)
     jobs, launches_dry = {}, {}
     for n, drives in full.items():
@@ -2243,8 +2303,9 @@ def main() -> int:
             regs.setdefault((kern, n_prod), []).append(
                 int(re.search(r"(\d+) registers", line)[1]))
     for (kern, n_prod), r in sorted(regs.items()):
-        # NP: the products a tile, and above them the storage flags
-        # (bp4_operator.cuh's kSbState 4, kSbMetric 8)
+        # NP: the products a tile, and above them the storage flags and
+        # the chain (bp4_operator.cuh's kSbState 4, kSbMetric 8, kJtjChain
+        # 16)
         print(f"  ptxas: {kern}_kernel, NP {n_prod}, {len(r)} "
               f"instantiations: {min(r)}-{max(r)} registers")
     slowest = sorted(re.findall(r"^nvcc: (.*) ([\d.]+) s$", log, re.M),
@@ -2389,6 +2450,8 @@ def main() -> int:
                                             state, mdt)
     print(f"kernels vs plain, the dense tensor-core pass at p="
           f"{HIGH_DEGREES[0]}..{HIGH_DEGREES[-1]} (split2m, split3, bf16):")
+    print(f"  (the dense pass: {time.perf_counter() - T0:.1f} s since the "
+          f"start)")
     compare_dense_box(fk, la, dev)
     dense_hi = {}  # rung's suffix + p's -> name -> (times, bound, diff)
     for rung, state, mdt, sfx in DENSE_RUNGS:
@@ -2656,6 +2719,8 @@ def main() -> int:
     # (the fused auto path at p=4 s=13), B3/B5/B6 under each (merged,
     # short), the fused auto path short at FULL_HIGH and at every degree
     # 5..11 (s=6)
+    print(f"  (the reduced rungs' drives: {time.perf_counter() - T0:.1f} s "
+          f"since the start)")
     launches_red = {sfx: {} for sfx in reduced}
     r_red = {}
     for rung, state, mdt, sfx in REDUCED:
@@ -2786,7 +2851,7 @@ def main() -> int:
                 r = benchmark.run_one(
                     DEGREE, S, solver=solver, dtype=dtype, backend=backend,
                     device=dev, problem=be_problems[backend, dtype],
-                    solve_repeats=2, matvec_repeats=1, matvec_inner=10)
+                    solve_repeats=1, matvec_repeats=1, matvec_inner=10)
                 itcg[backend, solver, dtype] = r.n_iterations
                 print(f"{solver} {backend} {str(dtype)[6:]} p={DEGREE} "
                       f"s={S}: n_dofs {r.n_dofs} itCG {r.n_iterations} "
@@ -2952,6 +3017,57 @@ def main() -> int:
               quiet=s_d != S, **kw, **({} if s_d == S else short))
     print(f"section 9: {time.perf_counter() - t9:.1f} s")
 
+    # -- 10. the tensor-core rungs' twostage pass at p=1..3 and the jtj
+    #        chain in their dense pass --------------------------------------
+    t10 = time.perf_counter()
+    from mf_data_locality_tpu_torch.utils import tensor_rungs_check as trc
+
+    print(f"the tensor-core rungs' twostage pass at p=1..3 and dense jtj vs "
+          f"plain on the {'x'.join(map(str, trc.RAGGED))} box:")
+    trc.report(trc.compare_all(dev))
+    print(f"  ({time.perf_counter() - t10:.1f} s)")
+    ts_times = trc.time_all(dev, lambda k, p: time_pair(k, p, dev, timing),
+                            bound)
+    launches_ts = {"_dense_adjj_split2m": launches_dense["_dense_split2m_p4"]}
+    p_ts, s_ts = TS_FULL
+    drive("fused --factor twostage, split2m (full width)", s_ts,
+          ("matvec", "fused_cg_iteration"),
+          into=launches_ts.setdefault("_twostage_split2m_p3", {}),
+          degree=p_ts, solver="fused", windowing="pieces",
+          precision="split2m", factor="twostage")
+    drive("fused auto, split2m", s_ts, ("matvec", "fused_cg_iteration"),
+          into=launches_ts.setdefault("_auto_split2m_p3", {}), degree=p_ts,
+          quiet=True, solver="fused", windowing="pieces",
+          precision="split2m", **short)
+    for label, p, s_d, expect, key, kw in TS_DRIVES:
+        drive(label, s_d, expect, degree=p, quiet=True,
+              into=None if key is None else launches_ts.setdefault(key, {}),
+              **kw, **short)
+    p, s, allowed = TS_PARITY
+    config = benchmark.resolve_config(p, "fused", "pieces", "split2m",
+                                      torch.float32, factor="twostage")
+    pb = bp4.build(s, p, torch.float32, "split2m", windowing="pieces",
+                   device=dev, **dict(zip(("factor", "metric", "cofactor"),
+                                          config)))
+    lat = pb.layout.n_nodes_axis
+    res = cg_fused.fused_merged_cg_solve(pb.op, lat, pb.b.reshape((3,) + lat),
+                                         pb.inv_diag.reshape((1,) + lat))
+    hist = res.res_history.cpu().numpy()
+    n = res.n_iterations
+    print(f"p={p} s={s} fused --factor twostage f32 split2m {config}: itCG "
+          f"{n}, converged {res.converged}, residual at it {allowed[1]} "
+          f"{hist[min(n, allowed[1])] / hist[0]:.3e} res0")
+    ok = res.converged and n in allowed
+    if not res.converged and n == 100:
+        ok = (hist[allowed[1]] / hist[0] <= 1e-7
+              and edge_witness(pb, hist, n, s, p)[0])
+    if not ok:
+        raise AssertionError(f"p={p} s={s} fused --factor twostage split2m: "
+                             f"itCG {n} not in {tuple(allowed)}")
+    del pb
+    torch.cuda.empty_cache()
+    print(f"section 10: {time.perf_counter() - t10:.1f} s")
+
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
     # library_ms is null throughout
@@ -3075,6 +3191,21 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_b16[sfx][name]})
+        for (kname, sfx), ((k, pl), (bms, by), err, config) in \
+                ts_times.items():  # section 10
+            if kname != name:
+                continue
+            p, s = (TS_FULL if sfx.endswith("_p3") else (DEGREE, S))
+            row.update({f"source{sfx}": CSRC + TS_SOURCE[sfx],
+                        f"p_s{sfx}": [p, s],
+                        f"config{sfx}": ["split2m", *config],
+                        f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                        f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
+                        f"bound_by{sfx}": by,
+                        f"launches{sfx}": launches_ts[sfx][name]})
+        if name == "apply_lattice_pieces":  # on the twostage operator
+            row["launches_twostage_pieces"] = launches_ts[
+                "_twostage_pieces"][name]
         if name == "fused_cg_iteration":  # the fused bf16 solve on 4 ranks
             row["launches_slab_bf16"] = launches_dist["fused_bf16"][name]
         if name == "apply_local_batched_g":

@@ -83,7 +83,8 @@
 // at its own (cell, q-point) entries from global memory; or rebuilt from
 // the block's 24 coefficients a cell, staged in shared memory: before each
 // chunk of 16 q-points the block's threads rebuild G at the chunk's 16 x 32
-// (q-point, cell) slots once (onthefly_metric, as apply_sumfac.cuh does)
+// (q-point, cell) slots once (onthefly_metric, as apply_sumfac.cuh does;
+// by adjj, or by jtj in the instantiations with kJtjChain)
 // into one of two shared buffers, and one barrier a chunk hands them to
 // the six warps (double-buffered, so the next chunk's rebuild cannot
 // overwrite what a slower warp still reads).  A rebuild per warp would
@@ -155,8 +156,9 @@ struct MmaSmem {
 };
 
 // G at q-points 16 j .. 16 j + 15 of the block's cells, rebuilt from the
-// staged coefficients; zero at padded q-points and cells past the end.
-template <int P>
+// staged coefficients by the chain COFACTOR; zero at padded q-points and
+// cells past the end.
+template <int P, int COFACTOR>
 __device__ __forceinline__ void rebuild_metric_chunk(
     float (&g)[6][16][kMmaGLd], const float (&c24)[24][kMmaBlockCells],
     const MmaFusedArgs& x, int j) {
@@ -167,7 +169,8 @@ __device__ __forceinline__ void rebuild_metric_chunk(
     if (qp < Shape<P>::Q3) {
       float pq[24];
       load_pds_row(x.pds + qp * 24, pq);
-      onthefly_metric<kMmaBlockCells>(pq, &c24[0][b], __ldg(x.w3 + qp), gm);
+      onthefly_metric<kMmaBlockCells, COFACTOR>(pq, &c24[0][b],
+                                                __ldg(x.w3 + qp), gm);
     }
 #pragma unroll
     for (int e = 0; e < 6; ++e) g[e][ql][b] = gm[e];
@@ -179,8 +182,9 @@ __device__ __forceinline__ void rebuild_metric_chunk(
 // and out are cell batches (C P13, n_cells); kLattice (B5, B6, B1): u is
 // the lattice, gathered times the mask, and out the masked cell-local
 // values (C, n_cells, P13); kLatticeUpdate (B2): as kLattice, the input
-// update4b's d' (x.io).  REBUILD: G from x.coeffs, gmetric unused.  NP:
-// the rung's products a tile (mma.cuh).
+// update4b's d' (x.io).  REBUILD: G from x.coeffs by the chain
+// chain_of(NP) (kJtjChain: jtj, else adjj), gmetric unused.  NP: the
+// rung's products a tile (mma.cuh) and the flags.
 template <int P, int FORM, bool REBUILD, int NP>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     apply_mma_kernel(const uint2* __restrict__ mf, const uint2* __restrict__ mb,
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   float v[NB][4] = {};
   for (int j = 0; j < Ms::QC; ++j) {
     if constexpr (REBUILD) {
-      rebuild_metric_chunk<P>(sm.x.g[j % 2], sm.x.c24, x, j);
+      rebuild_metric_chunk<P, chain_of(NP)>(sm.x.g[j % 2], sm.x.c24, x, j);
       __syncthreads();
     }
     // forward: g^T at q-points 16 j .. 16 j + 15, tile [d][h] = direction d,
@@ -462,5 +466,33 @@ static_assert(kSbState == 4 && kSbMetric == 8, "BP4_MMA_SB_RUNG*");
 BP4_MMA_SB_LO(1, BP4_MMA_DECLARE1)
 BP4_MMA_SB_LO(2, BP4_MMA_DECLARE1)
 BP4_MMA_SB_LO(3, BP4_MMA_DECLARE1)
+
+// The metric rebuilt by the jtj chain (NP | kJtjChain): B1 (lattice) and
+// B2 (update4b, and with P or x in bf16) at every rung (at p <= 4 in
+// mma_jtj.cu, from p=5 beside the rung's adjj forms in apply_mma_pNN.cu,
+// whose gather and backward passes they share), and with the bf16 state
+// (kSbState) at split2m and split3 as the adjj forms have it (mma_sb.cu,
+// apply_mma_sb.cu); not B2's block form (the distributed solvers run
+// adjj).
+#define BP4_MMA_JTJ_CONFIGS(P, NP, M)                                 \
+  M(P, kLattice, true, NP) M(P, kLatticeUpdate, true, NP)             \
+  M(P, kLatticeUpdatePx, true, NP)
+#define BP4_MMA_JTJ_SB(P, NP, M) \
+  M(P, kLattice, true, NP) M(P, kLatticeUpdate, true, NP)
+// rung 1 | 16, 2 | 16, 3 | 16 at degree P; the storage forms 2 | 4 | 16
+// and 3 | 4 | 16
+#define BP4_MMA_JTJ_RUNG(P, R, M) BP4_MMA_JTJ_CONFIGS(P, (R) | kJtjChain, M)
+#define BP4_MMA_JTJ_SB_RUNG1(P, M)
+#define BP4_MMA_JTJ_SB_RUNG2(P, M) BP4_MMA_JTJ_SB(P, 22, M)
+#define BP4_MMA_JTJ_SB_RUNG3(P, M) BP4_MMA_JTJ_SB(P, 23, M)
+#define BP4_MMA_JTJ_DECLARE(P, M)                                      \
+  BP4_MMA_JTJ_CONFIGS(P, 17, M) BP4_MMA_JTJ_CONFIGS(P, 18, M)          \
+  BP4_MMA_JTJ_CONFIGS(P, 19, M) BP4_MMA_JTJ_SB_RUNG2(P, M)             \
+  BP4_MMA_JTJ_SB_RUNG3(P, M)
+static_assert(kJtjChain == 16, "BP4_MMA_JTJ_*");
+BP4_MMA_JTJ_DECLARE(1, BP4_MMA_DECLARE1)
+BP4_MMA_JTJ_DECLARE(2, BP4_MMA_DECLARE1)
+BP4_MMA_JTJ_DECLARE(3, BP4_MMA_DECLARE1)
+BP4_MMA_JTJ_DECLARE(4, BP4_MMA_DECLARE1)
 
 }  // namespace bp4

@@ -20,7 +20,8 @@
 // xl Mh under split2m, + xh Ml under split3 (Ml's tables after Mh's), xh Mh
 // only under bf16, all accumulated in f32; t = G [gx, gy, gz] in f32 and
 // split there, once.  The same forms (FORM, bp4_operator.cuh) and metric
-// sources (REBUILD: adjj from the coefficients) as apply_mma.cuh.
+// sources (REBUILD: adjj, or jtj with kJtjChain, from the coefficients)
+// as apply_mma.cuh.
 //
 // apply_mma.cuh cannot be instantiated past p=4: one warp keeps the whole
 // v^T of 16 cells in registers (P13P / 2 a thread: 112 at p=5, 864 at
@@ -206,9 +207,9 @@ __global__ void __launch_bounds__(kHdGatherThreads)
 // (blockIdx.y) x 3 components (warps): mf the forward fragment table
 // (fragment (n8 tile, k16 step) at (nt KF + ks) 32 + lane), u's and t's
 // fragments in the scratch.  REBUILD: G from x.coeffs (24, n_cells) by
-// adjj, else streamed (6 Q3, n_cells), in bf16 where x.metric_bf16 is set
-// (NP != 2).  BLOCK: B2's block form, the row tiles of hd_rows, G = 0 at
-// their cells outside [gr.cbeg, gr.cend).
+// chain_of(NP), else streamed (6 Q3, n_cells), in bf16 where
+// x.metric_bf16 is set (NP != 2).  BLOCK: B2's block form, the row tiles
+// of hd_rows, G = 0 at their cells outside [gr.cbeg, gr.cend).
 template <int P, bool REBUILD, int NP, bool BLOCK = false>
 __global__ void __launch_bounds__(kHdFwdThreads, 1)
     dense_hd_forward_kernel(const uint2* __restrict__ mf,
@@ -251,7 +252,8 @@ __global__ void __launch_bounds__(kHdFwdThreads, 1)
       if constexpr (REBUILD) {
         float pq[24];
         load_pds_row(x.pds + qp * 24, pq);
-        onthefly_metric<kHdRowCells>(pq, &c24[0][b], __ldg(x.w3 + qp), gm);
+        onthefly_metric<kHdRowCells, chain_of(NP)>(pq, &c24[0][b],
+                                                   __ldg(x.w3 + qp), gm);
       } else {
 #pragma unroll
         for (int e = 0; e < 6; ++e) {
@@ -470,7 +472,7 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   const int ncr = rows.y - rows.x;
   if (ncr <= 0) return cudaSuccess;  // an empty range of the block form
   const size_t n_in = static_cast<size_t>(kComps) * MmaShape<P>::P13P * ncr;
-  dense_hd_gather_kernel<P, FORM, NP>
+  dense_hd_gather_kernel<P, FORM, NP & ~kJtjChain>
       <<<(n_in + kHdGatherThreads - 1) / kHdGatherThreads, kHdGatherThreads,
          0, st>>>(gr, mask, u, x, reinterpret_cast<__nv_bfloat16*>(us));
   cudaError_t e = cudaGetLastError();
@@ -538,8 +540,11 @@ cudaError_t launch_mma_hd(const void* mf, const void* mb, const float* gmetric,
   BP4_MMA_CONFIGS(P, 1, BP4_MMA_HD_DECLARE1) \
   BP4_MMA_CONFIGS(P, 2, BP4_MMA_HD_DECLARE1) \
   BP4_MMA_CONFIGS(P, 3, BP4_MMA_HD_DECLARE1)
-// the definitions of degree P's configurations at one rung, in its source
-#define BP4_MMA_HD_DEGREE(P, NP) BP4_MMA_CONFIGS(P, NP, BP4_MMA_HD_DEFINE1)
+// the definitions of degree P's configurations at one rung, in its source,
+// the metric rebuilt by jtj among them (apply_mma.cuh's BP4_MMA_JTJ_RUNG)
+#define BP4_MMA_HD_DEGREE(P, NP)           \
+  BP4_MMA_CONFIGS(P, NP, BP4_MMA_HD_DEFINE1) \
+  BP4_MMA_JTJ_RUNG(P, NP, BP4_MMA_HD_DEFINE1)
 // the storage instantiations (apply_mma.cuh's BP4_MMA_SB_RUNG*), in
 // apply_mma_sb.cu, one object a degree and rung
 #define BP4_MMA_HD_SB_DECLARE(P)                \
@@ -561,5 +566,14 @@ BP4_MMA_HD_SB_DECLARE(8)
 BP4_MMA_HD_SB_DECLARE(9)
 BP4_MMA_HD_SB_DECLARE(10)
 BP4_MMA_HD_SB_DECLARE(11)
+// the metric rebuilt by the jtj chain (apply_mma.cuh's BP4_MMA_JTJ_*), in
+// apply_mma_pNN.cu and apply_mma_sb.cu
+BP4_MMA_JTJ_DECLARE(5, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(6, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(7, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(8, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(9, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(10, BP4_MMA_HD_DECLARE1)
+BP4_MMA_JTJ_DECLARE(11, BP4_MMA_HD_DECLARE1)
 
 }  // namespace bp4

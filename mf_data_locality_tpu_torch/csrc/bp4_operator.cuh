@@ -162,8 +162,11 @@ __device__ __forceinline__ T to_acc(V v) {
 //              (B2's store flag), upcast at the load, rounded at the store;
 //   kSbMetric  the streamed metric is bf16, fixed at compile time (no
 //              runtime branch at the load), upcast at the load.
+// And of the dense tensor-core passes' instantiations that rebuild the
+// metric by the jtj chain (the adjj ones carry no flag):
+//   kJtjChain  onthefly_metric<.., kJtj> in place of kAdjj.
 // The tensor-core rungs' products a tile are rung_of(NP).
-constexpr int kSbState = 4, kSbMetric = 8;
+constexpr int kSbState = 4, kSbMetric = 8, kJtjChain = 16;
 #define BP4_CAT_(a, b) a##b
 #define BP4_CAT(a, b) BP4_CAT_(a, b)  // a##b after expanding both
 __host__ __device__ constexpr int rung_of(int np) { return np & 3; }
@@ -280,6 +283,10 @@ __device__ __forceinline__ size_t cell_node(const Grid& gr, int cell, int k,
 // (cg_fused_kernel.py:219-241).  The two are one metric where det J > 0;
 // models/bp4.build refuses jtj on a mesh with det J <= 0 at a q-point.
 enum : int { kAdjj = 0, kJtj = 1 };
+// the chain of a dense tensor-core instantiation NP (kJtjChain)
+__host__ __device__ constexpr int chain_of(int np) {
+  return (np & kJtjChain) ? kJtj : kAdjj;
+}
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }

@@ -1,8 +1,8 @@
 // The f32 tensor-core cell pass of the matvec (B1) and the fused CG
-// iteration (B2) at degrees 5..11 (and at 4 with the streamed metric)
-// (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32 accumulation), at
-// the rungs split2m, split3 and bf16; cg_fused.cu's assemble and finalize
-// passes follow it unchanged.
+// iteration (B2) at degrees 1..3 and 5..11 (and at 4 with the streamed
+// metric) (sm_90a, mma.sync m16n8k16, bf16 x bf16 products, f32
+// accumulation), at the rungs split2m, split3 and bf16; cg_fused.cu's
+// assemble and finalize passes follow it unchanged.
 //
 // Replaces, under precision "split2m" (and "split3", "bf16"), the cell work
 // of the TPU kernels of
@@ -11,7 +11,9 @@
 //   B2  fused_cg_iteration -> _fused_cg_kernel (pallas_call :1476)
 // in the twostage configurations: the metric rebuilt per (cell, q-point)
 // from the 24 trilinear coefficients by the adjj or the jtj chain (the JAX
-// auto-dispatch's twostage + onthefly + jtj from p=5), or streamed.
+// auto-dispatch's twostage + onthefly + jtj from p=5), or streamed.  At
+// p=1..3 only an explicit --factor twostage reaches it (the JAX resolvers
+// pick dense there).
 //
 // It computes what cell_mma.cuh computes at p=4 (_operator_block's
 // twostage branch, :583-651, under _prestack / _mm_pre's split2m): the z
@@ -55,6 +57,9 @@
 // Padding: the (ky, kx) columns past (P+1)^2 of u are zero, q-points past
 // q^2 have zero table rows and G = 0, the plane past Q (odd Q) has zero z
 // factors, cells past n_cells have zero input and G = 0 and store nothing.
+// At p=1..3 the tiles are mostly padding ((p+1)^2 = 4, 9, 16 columns in
+// one k16 step, q^2 = 9, 16, 25 q-points in one or two chunks): the same
+// code, one k16 step of the forward and n8 tile pair of the backward.
 //
 // Tables: laplace_cuda.mma_tables(..., "twostage") (the same packing as at
 // p=4), read through L1 from global memory: the two copies are 37-304 KB
@@ -415,10 +420,10 @@ cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
 
 // The pass of one configuration: degree 4 (the streamed metric) is
 // instantiated where it is called (cg_fused.cu) under split2m and in
-// mma_rungs.cu under split3 and bf16, degrees 5..11 in one source a degree
-// and rung (cell_mma_p05.cu .. cell_mma_p11.cu, each built once per rung,
-// -DBP4_RUNG=n: BP4_CELL_MMA_HD_DEGREE), compiled in parallel with the
-// others.
+// mma_rungs.cu under split3 and bf16, degrees 1..3 and 5..11 in one source
+// a degree and rung (cell_mma_p01.cu .. cell_mma_p03.cu, cell_mma_p05.cu
+// .. cell_mma_p11.cu, each built once per rung, -DBP4_RUNG=n:
+// BP4_CELL_MMA_HD_DEGREE), compiled in parallel with the others.
 template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP,
           bool PX = false>
 cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
@@ -460,6 +465,9 @@ cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
   M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, false) \
   M(4, true, false, kAdjj, NP, true)
 
+BP4_CELL_MMA_HD_DECLARE(1)
+BP4_CELL_MMA_HD_DECLARE(2)
+BP4_CELL_MMA_HD_DECLARE(3)
 BP4_CELL_MMA_HD_DECLARE(5)
 BP4_CELL_MMA_HD_DECLARE(6)
 BP4_CELL_MMA_HD_DECLARE(7)
@@ -472,7 +480,7 @@ BP4_CELL_MMA_HD_P4(3, BP4_CELL_MMA_HD_DECLARE1)
 
 // the storage instantiations: the bf16 state (kSbState) at split2m and
 // split3 (the bf16 rung's read it by io.bf16 already), the bf16 metric
-// (kSbMetric) with it at split2m; p=4 in mma_sb.cu, 5..11 in
+// (kSbMetric) with it at split2m; p=4 in mma_sb.cu, 1..3 and 5..11 in
 // cell_mma_sb.cu, one object a degree and rung
 #define BP4_CELL_MMA_HD_SB_STATE(P, NP, M)                                 \
   M(P, false, false, kAdjj, NP, false) M(P, false, true, kAdjj, NP, false) \
@@ -494,6 +502,9 @@ BP4_CELL_MMA_HD_P4(3, BP4_CELL_MMA_HD_DECLARE1)
   BP4_CELL_MMA_HD_SB_RUNG3(P, BP4_CELL_MMA_HD_DECLARE1)
 BP4_CELL_MMA_HD_SB_P4_RUNG2(BP4_CELL_MMA_HD_DECLARE1)
 BP4_CELL_MMA_HD_SB_P4_RUNG3(BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_SB_DECLARE(1)
+BP4_CELL_MMA_HD_SB_DECLARE(2)
+BP4_CELL_MMA_HD_SB_DECLARE(3)
 BP4_CELL_MMA_HD_SB_DECLARE(5)
 BP4_CELL_MMA_HD_SB_DECLARE(6)
 BP4_CELL_MMA_HD_SB_DECLARE(7)

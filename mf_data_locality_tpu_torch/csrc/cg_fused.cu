@@ -41,18 +41,19 @@
 //   parameter NP of each pass: the products a tile, mma.cuh; split2m's
 //   instantiated here, the others in mma_rungs.cu and cell_mma_pNN.cu):
 //   - dense, p=1..4: the tensor-core pass of apply_mma.cuh in its lattice
-//     forms, 32 cells a block, the metric streamed or rebuilt (adjj) per
-//     chunk of 16 q-points into shared memory; p=5..11: that of
+//     forms, 32 cells a block, the metric streamed or rebuilt (adjj, or
+//     jtj in the kJtjChain instantiations of mma_jtj.cu) per chunk of 16
+//     q-points into shared memory; p=5..11: that of
 //     apply_mma_hd.cuh (a gather, a forward and a backward GEMM-shaped
 //     kernel tiled in cells and nodes through the workspace's `scratch`;
 //     built in apply_mma_p05.cu .. apply_mma_p11.cu, once per rung);
 //   - twostage + onthefly (adjj or jtj), p=4: one block per 16 cells, the
 //     2D stage on the tensor cores (cell_mma.cuh);
-//   - twostage, p=5..11 (the metric rebuilt by either chain or streamed)
-//     and p=4 streamed: one warp per 8 cells and component, two q-planes
-//     of them the rows of the 2D stage's tensor-core tiles
-//     (cell_mma_hd.cuh, degrees 5..11 built in cell_mma_p05.cu ..
-//     cell_mma_p11.cu, once per rung).
+//   - twostage, p=1..3 and 5..11 (the metric rebuilt by either chain or
+//     streamed) and p=4 streamed: one warp per 8 cells and component, two
+//     q-planes of them the rows of the 2D stage's tensor-core tiles
+//     (cell_mma_hd.cuh, degrees 1..3 and 5..11 built in cell_mma_p01.cu
+//     .. cell_mma_p11.cu, once per rung).
 //   On every rung (f32) the streamed metric may be bf16, and d and h too
 //   (the bf16 state, B1/B2's `store`): the passes upcast them at the load,
 //   d' is stored rounded and the operator takes the rounded d', and the
@@ -206,14 +207,13 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // a tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).
 // Instantiated: f32 and f64 "highest" at degrees 1..11 (mats unused,
 // coeffs (24, n_cells)); f32 on the tensor-core rungs: dense at degrees
-// 1..11 with cofactor adjj (dense = 1: mats the bf16 fragment tables of
-// the dense M, coeffs (24, n_cells); from p=5 scratch holds
-// bp4_dense_scratch_len 16-byte words, else it is unused), and twostage
-// at degrees 4..11
-// (dense = 0: mats the bf16 fragment tables of the 2D stage, coeffs
-// (n_cells, 24)).  gmetric: the streamed metric (6 Q3, n_cells), in bf16
-// where metric_bf16 is set (f32, every rung), or null for the metric
-// rebuilt from the coefficients by the chain `cofactor` (0 adjj, 1 jtj).
+// 1..11 (dense = 1: mats the bf16 fragment tables of the dense M, coeffs
+// (24, n_cells); from p=5 scratch holds bp4_dense_scratch_len 16-byte
+// words, else it is unused), and twostage at degrees 1..11 (dense = 0:
+// mats the bf16 fragment tables of the 2D stage, coeffs (n_cells, 24)).
+// gmetric: the streamed metric (6 Q3, n_cells), in bf16 where metric_bf16
+// is set (f32, every rung), or null for the metric rebuilt from the
+// coefficients by the chain `cofactor` (0 adjj, 1 jtj).
 // store: d, h, d2, h2 in bf16 (f32, every rung).  prec_bf16
 // (bp4_fused_iteration): prec in bf16; x_bf16: x and x2 in bf16 (every
 // configuration above; with store or metric_bf16 only on the bf16 rung,

@@ -20,8 +20,12 @@ namespace bp4 {
 // The tensor-core cell pass of B1 (FUSED false) or B2 for the
 // configuration (dense, cofactor, tb.gmetric null or not) at NP, the
 // rung's products a tile and the storage flags (bp4_operator.cuh): -1 for
-// a configuration with no instantiation (the tensor-core rungs: dense with
-// adjj, twostage at p >= 4; the bf16 metric (kSbMetric) streamed only).
+// a configuration with no instantiation (the bf16 metric (kSbMetric) is
+// streamed only; the block form runs the dense pass, its metric rebuilt by
+// adjj only).  The dense pass rebuilds the metric by jtj in its
+// NP | kJtjChain instantiations (mma_jtj.cu, apply_mma_pNN.cu); twostage
+// runs cell_mma_hd.cuh's pass, cell_mma.cuh's at p=4 with the rebuilt
+// metric.
 template <typename T, int P, bool FUSED, bool PX, bool BLOCK, int NP>
 cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
                          const Grid& gr, const CellIo<T>& io, T* cells,
@@ -33,21 +37,31 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
   constexpr bool MB = (NP & kSbMetric) != 0;
   const auto none = static_cast<cudaError_t>(-1);
   if (dense) {
-    if (cofactor != kAdjj) return none;
     // the forward table, then the backward one (laplace_cuda.mma_tables)
     const auto mf = reinterpret_cast<const uint2*>(tb.mats);
     const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
     MmaFusedArgs x{tb.pds, tb.w3, tb.coeffs, io};
     x.metric_bf16 = tb.metric_bf16;
+    // the metric rebuilt by the instantiation NR's chain
+    const auto rebuilt = [&](auto nr) {
+      constexpr int NR = decltype(nr)::value;
+      if constexpr (P <= 4)
+        return launch_mma<P, FORM, true, NR>(mf, mb, nullptr, gr, nullptr,
+                                             io.d, cells, x, st);
+      else
+        return launch_mma_hd<P, FORM, true, NR>(mf, mb, nullptr, gr, nullptr,
+                                                io.d, cells, x, scratch, st);
+    };
     if (!tb.gmetric) {
       if constexpr (MB) {
         return none;
-      } else if constexpr (P <= 4) {
-        return launch_mma<P, FORM, true, NP>(mf, mb, nullptr, gr, nullptr,
-                                             io.d, cells, x, st);
       } else {
-        return launch_mma_hd<P, FORM, true, NP>(mf, mb, nullptr, gr, nullptr,
-                                                io.d, cells, x, scratch, st);
+        if (cofactor != kJtj)
+          return rebuilt(std::integral_constant<int, NP>{});
+        if constexpr (BLOCK)
+          return none;
+        else
+          return rebuilt(std::integral_constant<int, NP | kJtjChain>{});
       }
     }
     if constexpr (P <= 4)
@@ -58,7 +72,7 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
                                                nullptr, io.d, cells, x,
                                                scratch, st);
   }
-  if constexpr (P >= 4 && !BLOCK) {
+  if constexpr (!BLOCK) {
     if (tb.gmetric)
       return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(tb, gr, io,
                                                                  cells, st);
@@ -89,11 +103,11 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
 // B2 with P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX
 // instantiations.  BLOCK: B2's block form (kLatticeUpdateBlock), the
 // sum-factorized pass and the dense tensor-core passes only (-1 for the
-// rungs' twostage).  A bf16 state (io.bf16) or a bf16 streamed metric
-// (tb.metric_bf16) where the rung's own instantiations read none (the
-// bf16 rung reads both, split3 the metric, by their flags): the storage
-// instantiations (SB, NP | kSbState [| kSbMetric]), not built with PX,
-// nor with the bf16 metric in the block form (-1).
+// rungs' twostage and their dense jtj).  A bf16 state (io.bf16) or a bf16
+// streamed metric (tb.metric_bf16) where the rung's own instantiations
+// read none (the bf16 rung reads both, split3 the metric, by their
+// flags): the storage instantiations (SB, NP | kSbState [| kSbMetric]),
+// not built with PX, nor with the bf16 metric in the block form (-1).
 template <typename T, int P, bool FUSED, bool PX = false, bool BLOCK = false>
 cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,

@@ -2,7 +2,8 @@
 // under the rung BP4_RUNG (the products a tile: 1 bf16, 2 split2m, 3
 // split3) and the degree BP4_DEGREE (undefined: every degree 1..4):
 // apply_mma.cuh's with the bf16 state (kSbState; B3 at every rung,
-// B5/B6/B1/B2 at split2m and split3) and, at split2m, with the bf16 metric
+// B5/B6/B1/B2 at split2m and split3, B1/B2 also with the metric rebuilt by
+// jtj) and, at split2m, with the bf16 metric
 // (kSbMetric); at p=4 cell_mma.cuh's (B1/B2 twostage, the metric rebuilt)
 // and cell_mma_hd.cuh's (the metric streamed) with the bf16 state at
 // split2m and split3, and the latter with the bf16 metric at split2m.
@@ -18,6 +19,7 @@ namespace bp4 {
 
 #ifdef BP4_DEGREE
 BP4_CAT(BP4_MMA_SB_RUNG, BP4_RUNG)(BP4_DEGREE, BP4_MMA_DEFINE1)
+BP4_CAT(BP4_MMA_JTJ_SB_RUNG, BP4_RUNG)(BP4_DEGREE, BP4_MMA_DEFINE1)
 #else
 BP4_MMA_SB_LO(BP4_RUNG, BP4_MMA_DEFINE1)
 #endif

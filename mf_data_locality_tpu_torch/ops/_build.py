@@ -4,8 +4,9 @@
 sources at once in parallel processes (the sum-factorized pass, the
 twostage tensor-core pass and the dense tensor-core pass of each degree
 5..11 have a source of their own, ``sumfac_pNN.cu``, ``cell_mma_pNN.cu``
-and ``apply_mma_pNN.cu``, the largest instantiations, and B2 with P or x
-in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
+and ``apply_mma_pNN.cu``, the largest instantiations, the twostage one at
+p=1..3 too, the dense one at p <= 4 with the jtj chain ``mma_jtj.cu``, and
+B2 with P or x in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
 ``cg_fused_block.cu``; the sources of :data:`FLAG_BUILDS` are compiled
 once per flag set, ``-DBP4_RUNG=n`` and ``-DBP4_DEGREE=p``), and links
 them into one shared library with a plain C interface, which is loaded with :mod:`ctypes` (no
@@ -49,19 +50,25 @@ def _rung_degrees(degrees) -> tuple[tuple[str, ...], ...]:
 # builds them in parallel: the twostage and the dense tensor-core passes
 # at p=5..11 once per rung, the tensor-core passes at p <= 4 once per rung
 # other than split2m (whose instantiations stay in cg_fused.cu and
-# laplace_apply.cu); the bf16-storage instantiations (the passes'
-# kSbState / kSbMetric) of the sum-factorized pass once for p=1..4 and
-# once per degree 5..11, of the tensor-core passes once per rung and
-# degree (p <= 4: mma_sb.cu; 5..11: apply_mma_sb.cu and cell_mma_sb.cu)
+# laplace_apply.cu), and the twostage pass at p=1..3 once per rung and
+# degree (cell_mma_p01.cu .. p03.cu); the bf16-storage instantiations (the
+# passes' kSbState / kSbMetric) of the sum-factorized pass once for p=1..4
+# and once per degree 5..11, of the tensor-core passes once per rung and
+# degree (p <= 4: mma_sb.cu; 5..11: apply_mma_sb.cu and cell_mma_sb.cu;
+# the twostage pass's at p=1..3 once per rung, cell_mma_sb.cu); the dense
+# tensor-core pass at p <= 4 with the metric rebuilt by jtj (kJtjChain)
+# once per rung (mma_jtj.cu; from p=5 in apply_mma_pNN.cu)
 FLAG_BUILDS = {
     "mma_rungs.cu": _rungs(1, 3),
-    **{f"{pass_}_p{p:02d}.cu": _rungs(1, 2, 3)
-       for pass_ in ("cell_mma", "apply_mma") for p in range(5, 12)},
+    **{f"cell_mma_p{p:02d}.cu": _rungs(1, 2, 3)
+       for p in (*range(1, 4), *range(5, 12))},
+    **{f"apply_mma_p{p:02d}.cu": _rungs(1, 2, 3) for p in range(5, 12)},
     "sumfac_sb.cu": ((),) + tuple((f"-DBP4_DEGREE={p}",)
                                   for p in range(5, 12)),
     "mma_sb.cu": _rung_degrees(range(1, 5)),
     "apply_mma_sb.cu": _rung_degrees(range(5, 12)),
-    "cell_mma_sb.cu": _rung_degrees(range(5, 12))[1:],
+    "cell_mma_sb.cu": _rungs(2, 3) + _rung_degrees(range(5, 12))[1:],
+    "mma_jtj.cu": _rungs(1, 2, 3),
 }
 
 

@@ -18,9 +18,9 @@ the 8-vector (alpha, beta, c1, aob, parity, res2, alpha_old, beta_old).
 The operator is the one ``op`` was built with (``op.factor``, ``op.metric``,
 ``op.cofactor``; ``laplace_cuda.fused_configs``): the dense factorization
 or twostage, the metric streamed (``op.gmetric``) or rebuilt per q-point
-from the coefficients by the adjj or the jtj chain, at degrees 1..11
-(the tensor-core rungs split2m, split3, bf16: dense with adjj, twostage
-at 4..11).  On every rung d and h (in and out) may be stored in bf16 —
+from the coefficients by the adjj or the jtj chain, at degrees 1..11 on
+every rung (``highest`` and the tensor-core rungs split2m, split3,
+bf16).  On every rung d and h (in and out) may be stored in bf16 —
 the bf16 state —, x, g, the preconditioner and the scalars at f32; the
 metric may be streamed in bf16.
 In every configuration the preconditioner, and x (in and out), may be
@@ -44,14 +44,15 @@ other devices raise.  The kernel's cell pass:
   (p=5..11, built one source a degree and rung, ``csrc/apply_mma_p05.cu``
   .. ``apply_mma_p11.cu``, its operands' fragments in
   :func:`dense_scratch`) on the bf16 tables ``op.mma_mats`` of the dense
-  M, the metric streamed or rebuilt;
+  M, the metric streamed or rebuilt (by jtj in the passes' ``kJtjChain``
+  instantiations, ``csrc/mma_jtj.cu``);
 * the same rungs, twostage + onthefly at p=4: the tensor-core pass of
   ``csrc/cell_mma.cuh`` on the 2D stage's tables;
-* the same rungs, twostage at p=5..11 (either metric, either chain) and
-  at p=4 with the streamed metric: the tensor-core pass of
+* the same rungs, twostage at p=1..3 and 5..11 (either metric, either
+  chain) and at p=4 with the streamed metric: the tensor-core pass of
   ``csrc/cell_mma_hd.cuh`` on the same tables, two q-planes of 8 cells the
   rows of its tiles (built one source a degree and rung,
-  ``csrc/cell_mma_p05.cu`` .. ``cell_mma_p11.cu``).
+  ``csrc/cell_mma_p01.cu`` .. ``cell_mma_p11.cu``).
 
 The plain versions do the same arithmetic — the same bf16 rounding points
 for the tensor-core rungs (:func:`_terms`) and the bf16 state, the same
@@ -780,6 +781,13 @@ def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> None:
             f"B2's block form on the {op.precision} rung's twostage pass "
             f"is not instantiated (the distributed solvers' operator is "
             f"dense)")
+    if (op.slab is not None and op.metric == "onthefly"
+            and op.cofactor == "jtj"
+            and op.precision in laplace_cuda.TENSOR_RUNGS):
+        raise NotImplementedError(
+            f"B2's block form with the metric rebuilt by jtj on the "
+            f"{op.precision} rung's dense pass is not instantiated (the "
+            f"distributed solvers rebuild it by adjj)")
 
 
 # passes of bp4_fused_iteration_block (csrc/cg_fused.cu)

@@ -8,19 +8,18 @@ Two families of configurations, named by (factor, metric, windowing):
   metric streamed (``"precomputed"``) or rebuilt per quadrature point from
   24 trilinear coefficients per cell (``"onthefly"``, by the inversion
   chain ``cofactor``: "adjj", the adjugate of J, or "jtj", adj(J^T J)
-  rsqrt(det)) — every pair and both chains under ``highest`` at degrees
-  1..11; under ``split2m`` the dense pair at 1..11 (adjj) and twostage
-  with either metric (the rebuilt one by either chain) at 4..11; the other
-  tensor-core rungs, ``split3`` and ``bf16``, as ``split2m``;
+  rsqrt(det)) — every pair and both chains at degrees 1..11, under
+  ``highest`` and under each tensor-core rung (``split2m``, ``split3``,
+  ``bf16``);
 * the apply family (``ops/laplace_apply``, kernels B3-B6, used by the merged
   and baseline solvers): the dense factorization with the metric streamed
   (``metric="precomputed"``, any of the windowings ``reshape``, ``pieces``,
   ``zslab``) or rebuilt per q-point (``metric="onthefly"``, ``reshape``;
   always by adjj, as ``laplace_pallas._kernel``), at degrees 1..11 on
   every rung (``highest`` and the tensor-core rungs ``split2m``,
-  ``split3``, ``bf16``); from p=5 also twostage on ``pieces``, where the
-  JAX resolvers put the merged and baseline solvers' ``--windowing
-  pieces`` (B5 reads the dense operator whatever the factor says).
+  ``split3``, ``bf16``); also twostage on ``pieces``, where the JAX
+  resolvers put the merged and baseline solvers' ``--windowing pieces``
+  from p=5 (B5 reads the dense operator whatever the factor says).
 
 The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
@@ -97,28 +96,22 @@ _F64_TODO = ("not ported yet: see ROADMAP.md, queue B item 6h (f64 beside "
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
 # the reference's degree table (benchmark.h:290-313): the fused solver's
-# and the apply family's kernels under "highest"; under the tensor-core
+# and the apply family's kernels, on every rung — under the tensor-core
 # rungs the dense tensor-core pass (B3/B5/B6, B1/B2 dense: csrc/apply_mma.cuh
-# at p=1..4, csrc/apply_mma_hd.cuh at 5..11) has them all, the twostage one
-# of B1/B2 (csrc/cell_mma.cuh at p=4 with the rebuilt metric,
-# csrc/cell_mma_hd.cuh) p=4..11
+# at p=1..4, csrc/apply_mma_hd.cuh at 5..11) and the twostage one of B1/B2
+# (csrc/cell_mma.cuh at p=4 with the rebuilt metric, csrc/cell_mma_hd.cuh
+# at every other (degree, metric))
 FUSED_DEGREES = tuple(range(1, 12))
-SPLIT_TWOSTAGE_DEGREES = tuple(range(4, 12))
-_TWOSTAGE_TODO = ("not ported yet: see ROADMAP.md, queue B item 6f (the "
-                  "tensor-core rungs' twostage pass at p=1..3)")
-_JTJ_TODO = ("not ported yet: see ROADMAP.md, queue B item 6c (the jtj "
-             "chain in the tensor-core rungs' dense pass)")
 # (factor, metric, windowing) of the apply family; also twostage on pieces,
 # where the JAX resolvers put the merged and baseline solvers' --windowing
-# pieces at p >= 5 (B5 reads the dense operator whatever the factor says:
-# ``laplace_pallas.apply_lattice_pieces``): under highest at every degree,
-# under the tensor-core rungs from p=5 (:func:`apply_configs`)
+# pieces at p >= 5 and which an explicit --factor twostage gives at any
+# degree (B5 reads the dense operator whatever the factor says:
+# ``laplace_pallas.apply_lattice_pieces``)
 APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
                  ("dense", "precomputed", "pieces"),
                  ("dense", "precomputed", "zslab"),
-                 ("dense", "onthefly", "reshape"))
-APPLY_CONFIGS_HIGHEST = APPLY_CONFIGS + (("twostage", "precomputed",
-                                          "pieces"),)
+                 ("dense", "onthefly", "reshape"),
+                 ("twostage", "precomputed", "pieces"))
 
 
 def dense_gradient_matrices(p: int, q: int) -> np.ndarray:
@@ -381,37 +374,19 @@ def dense_mma_tables(op: OperatorData) -> torch.Tensor:
     return op.cache["dense_mma"]
 
 
-def apply_configs(precision: str,
-                  degree: int | None = None) -> tuple[tuple[str, str, str],
-                                                       ...]:
-    """The (factor, metric, windowing) triples of the apply family (the
-    merged and baseline solvers) at ``degree`` (None: at any): the dense
-    ones, and twostage on ``pieces`` under ``highest`` and, from p=5, under
-    the tensor-core rungs (the JAX resolvers' ``--windowing pieces``)."""
-    if precision in TENSOR_RUNGS and degree is not None and degree < 5:
-        return APPLY_CONFIGS
-    return APPLY_CONFIGS_HIGHEST
-
-
 def fused_configs(precision: str,
                   degree: int | None = None) -> tuple[tuple[str, str], ...]:
     """The (factor, metric) pairs the fused solver runs on (windowing
-    ``"pieces"``) at ``degree`` (None: at any of its degrees).  Under
-    ``highest`` the dense and twostage operators are one function, which
-    one sum-factorized pass computes with the metric streamed or rebuilt,
-    at degrees 1..11; under a tensor-core rung (:data:`TENSOR_RUNGS`) each
-    factorization's rounding defines the rung, and its tensor-core passes
-    are the dense one at every degree and the twostage one at
-    :data:`SPLIT_TWOSTAGE_DEGREES`, each with either metric (the rebuilt
-    one by adjj, and in twostage by jtj too)."""
-    def at(degrees, pairs):
-        return pairs if degree is None or degree in degrees else ()
-
-    dense = (("dense", "precomputed"), ("dense", "onthefly"))
-    twostage = (("twostage", "onthefly"), ("twostage", "precomputed"))
-    if precision not in TENSOR_RUNGS:
-        return at(FUSED_DEGREES, dense + twostage)
-    return dense + at(SPLIT_TWOSTAGE_DEGREES, twostage)
+    ``"pieces"``) at ``degree`` (None: at any of its degrees), the metric
+    rebuilt by either chain: every pair at degrees 1..11, whatever the
+    rung ``precision``.  Under ``highest`` the dense and twostage operators
+    are one function, which one sum-factorized pass computes; under a
+    tensor-core rung (:data:`TENSOR_RUNGS`) each factorization's rounding
+    defines the rung, and each has its tensor-core pass."""
+    if degree is not None and degree not in FUSED_DEGREES:
+        return ()
+    return (("dense", "precomputed"), ("dense", "onthefly"),
+            ("twostage", "onthefly"), ("twostage", "precomputed"))
 
 
 def check_config(precision: str, factor: str = "twostage",
@@ -425,7 +400,7 @@ def check_config(precision: str, factor: str = "twostage",
 
     ``solver``: also check that the configuration is the one its solver
     runs on — the fused path on :func:`fused_configs` at ``degree``, the
-    merged and baseline solvers on :func:`apply_configs` at ``degree``.
+    merged and baseline solvers on :data:`APPLY_CONFIGS`.
     Without a solver (the builders) the fused configurations of any degree
     pass: the plain versions take every degree, the kernels check theirs
     (no rung falls back to another, nor a kernel to its plain version).
@@ -460,27 +435,19 @@ def check_config(precision: str, factor: str = "twostage",
     config = (factor, metric, windowing)
     if cofactor not in COFACTORS:
         raise ValueError(f"unknown cofactor mode {cofactor!r}")
-    if precision in TENSOR_RUNGS and cofactor == "jtj" and factor == "dense":
-        raise NotImplementedError(
-            f"cofactor='jtj' with factor='dense' under "
-            f"precision={precision!r} is {_JTJ_TODO}")
     if solver == "fused" and degree not in FUSED_DEGREES:
         raise NotImplementedError(
             f"degree {degree} of the fused solver has no kernel: the "
             f"reference's table is {FUSED_DEGREES} (benchmark.h:290-313)")
     fused = tuple(fm + ("pieces",) for fm in fused_configs(
         precision, degree if solver == "fused" else None))
-    apply = apply_configs(precision, degree)
-    wanted = (fused if solver == "fused" else apply
-              if solver is not None else fused + apply)
+    wanted = (fused if solver == "fused" else APPLY_CONFIGS
+              if solver is not None else fused + APPLY_CONFIGS)
     if config not in wanted:
-        todo = (_TWOSTAGE_TODO
-                if config[0] == "twostage" and precision in TENSOR_RUNGS
-                else _TODO)
         raise NotImplementedError(
             f"factor={factor!r}, metric={metric!r}, windowing={windowing!r}"
             + (f" with solver={solver!r}" if solver else "")
-            + f" is {todo}; the port has {wanted}")
+            + f" is {_TODO}; the port has {wanted}")
 
 
 def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,

@@ -150,8 +150,8 @@ def main() -> None:
         for p in range(1, 12):
             layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
             for factor, metric in laplace_cuda.fused_configs("bf16", p):
-                for cofactor in (("adjj", "jtj") if factor == "twostage"
-                                 and metric == "onthefly" else ("adjj",)):
+                for cofactor in (("adjj", "jtj") if metric == "onthefly"
+                                 else ("adjj",)):
                     op = laplace_cuda.make_operator(
                         layout, store, "bf16", factor=factor, metric=metric,
                         cofactor=cofactor, windowing="pieces", device=dev,

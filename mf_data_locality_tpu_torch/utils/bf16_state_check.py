@@ -14,7 +14,8 @@ instantiations (the passes' ``kSbState``/``kSbMetric`` forms, which
   within :data:`LIMIT_L2`, and the control — the plain version without
   the bf16 store, its f32 result — outside it;
 * B1 and B2 with a bf16 state under highest, split2m and split3 in every
-  configuration of ``laplace_cuda.fused_configs``: the vectors within
+  configuration of ``laplace_cuda.fused_configs`` (the metric rebuilt by
+  either chain): the vectors within
   :data:`LIMIT_L2` and B2's scalars within :data:`LIMIT_SCAL`; controls,
   B1 without the store of h and B2's scalars from sums over the unrounded
   d' (``bf16_check.rounding_point``);
@@ -258,8 +259,8 @@ def compare_all(dev, quiet: bool = True, degrees=DEGREES,
                               ctl, quiet)
                         note((kernel, rung, str(state)[6:]), err, ctl)
             for factor, metric in laplace_cuda.fused_configs(rung, p):
-                cofactors = (("adjj", "jtj") if factor == "twostage"
-                             and metric == "onthefly" else ("adjj",))
+                cofactors = (("adjj", "jtj") if metric == "onthefly"
+                             else ("adjj",))
                 for cofactor in cofactors:
                     combos = [(BF, None)]
                     if rung in METRIC_RUNGS and metric == "precomputed":
@@ -415,8 +416,9 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    _, log = _build.build()
+    lib, log = _build.build()
     print(f"build {time.perf_counter() - t0:.1f} s")
+    log = log or lib.with_suffix(".log").read_text()  # built before
     table = storage_table(log)
     spill = {k: v for k, v in table.items() if v[1] or v[2]}
     print(f"storage instantiations: {len(table)}, registers "

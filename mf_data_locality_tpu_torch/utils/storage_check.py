@@ -233,9 +233,8 @@ def sweep(dev) -> bool:
         layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
         for precision, dtype, key in rungs:
             for factor, metric in laplace_cuda.fused_configs(precision, p):
-                cofs = (("adjj", "jtj") if metric == "onthefly" and (
-                    precision == "highest" or factor == "twostage")
-                    else ("adjj",))
+                cofs = ("adjj", "jtj") if metric == "onthefly" else (
+                    "adjj",)
                 for cof in cofs:
                     op = laplace_cuda.make_operator(
                         layout, dtype, precision, factor=factor,

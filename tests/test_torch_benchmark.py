@@ -63,11 +63,6 @@ def test_run_one_refuses_without_card_and_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         benchmark.run_one(4, 3, solver="merged", windowing="matmul",
                           device="cpu")
-    for p, kw in ((2, {"factor": "twostage", "metric": "precomputed"}),
-                  (3, {"factor": "twostage", "metric": "onthefly"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            benchmark.run_one(p, 3, solver="fused", precision="split2m",
-                              windowing="pieces", device="cpu", **kw)
     with pytest.raises(ValueError, match="pieces"):
         benchmark.run_one(4, 3, solver="fused", precision="split2m",
                           device="cpu")  # the JAX CLI's refusal too
@@ -78,7 +73,14 @@ def test_run_one_refuses_without_card_and_unported_paths():
                        "factor": "dense"}),  # the dense pass at p >= 5
                   (4, {"solver": "fused", "precision": "split2m",
                        "windowing": "pieces", "factor": "twostage",
-                       "metric": "precomputed"})):
+                       "metric": "precomputed"}),
+                  # ported since (ROADMAP 6f): split2m twostage at p <= 3
+                  (2, {"solver": "fused", "precision": "split2m",
+                       "windowing": "pieces", "factor": "twostage",
+                       "metric": "precomputed"}),
+                  (3, {"solver": "fused", "precision": "split2m",
+                       "windowing": "pieces", "factor": "twostage",
+                       "metric": "onthefly"})):
         with pytest.raises(RuntimeError, match="CUDA"):
             benchmark.run_one(p, 3, device="cpu", **kw)
     for kw in ({"solver": "fused", "precision": "split2m",

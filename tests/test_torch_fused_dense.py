@@ -209,8 +209,9 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
     p=1..4 on the port's rungs gives a configuration the port runs, the
     same as the JAX resolvers give; jtj runs under highest, and under
     split2m in twostage (p=4); a bf16 state under split3 resolves as the
-    bf16 rung's (6d); what stays unported (split2m twostage at p=1..3,
-    jtj in split2m's dense pass) raises; the split2m auto path at
+    bf16 rung's (6d); split2m twostage at p=1..3 and jtj in split2m's
+    dense pass (6f, 6c) resolve as the JAX resolvers give them, and what
+    stays unported (split2m at f64, 6h) raises; the split2m auto path at
     p+4 >= 5 resolves to twostage + onthefly + jtj, and split2m dense
     there to the JAX resolvers' metric."""
     want = {"highest": ("dense", "precomputed"),
@@ -234,9 +235,10 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                ("dense", "onthefly")):
             benchmark.resolve_config(p, "fused", "pieces", precision, dtype,
                                      factor, metric)
-    refused = [dict(precision="split2m", factor="dense", metric="onthefly",
-                    cofactor="jtj"),
-               dict(precision="split2m", dtype=torch.float64)]
+    refused = [dict(precision="split2m", dtype=torch.float64)]
+    # ported since (ROADMAP 6c: jtj in split2m's dense pass; 6f: split2m
+    # twostage at p=1..3): they resolve as the JAX resolvers give them
+    ported = [dict(factor="dense", metric="onthefly", cofactor="jtj")]
     # a bf16 state under a degraded rung runs since 6d: the dispatch on the
     # bf16 rung (eff_prec), the operator at its own
     assert benchmark.resolve_config(p, "fused", "pieces", "split3",
@@ -244,17 +246,24 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
         benchmark.resolve_config(p, "fused", "pieces", "bf16",
                                  torch.bfloat16)
     if p != 4:
-        refused += [dict(precision="split2m", factor="twostage",
-                         metric="onthefly"),
-                    dict(precision="split2m", factor="twostage",
-                         metric="precomputed"),
-                    dict(precision="split2m", metric="onthefly",
-                         cofactor="jtj")]
+        ported += [dict(factor="twostage", metric="onthefly"),
+                   dict(factor="twostage", metric="precomputed"),
+                   dict(metric="onthefly", cofactor="jtj")]
     else:
         for kw in (dict(factor="twostage", metric="precomputed"),
                    dict(metric="onthefly", cofactor="jtj")):
             benchmark.resolve_config(p, "fused", "pieces", "split2m",
                                      torch.float32, **kw)
+    for kw in ported:
+        jf = jbench.resolve_factor(kw.get("factor", "auto"), p, "pieces",
+                                   precision="split2m", solver="fused",
+                                   metric=kw["metric"])
+        jm = jbench.resolve_metric(kw["metric"], "fused", "pieces", jf, p,
+                                   precision="split2m")
+        assert benchmark.resolve_config(
+            p, "fused", "pieces", "split2m", torch.float32, **kw) == (
+            jf, jm, jbench.resolve_cofactor(kw.get("cofactor", "auto"), p,
+                                            jf, jm, precision="split2m"))
     for kw in refused:
         args = dict(precision="highest", dtype=torch.float32) | kw
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -273,7 +282,8 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
 def test_kernel_wrappers_take_the_fused_configurations(p):
     """The kernels' argument check takes an operator exactly when its
     (factor, metric) is one of ``laplace_cuda.fused_configs`` at its degree
-    (split2m twostage from p=4); the others raise, naming ROADMAP."""
+    (split2m twostage at every degree since ROADMAP 6f); the others raise,
+    naming ROADMAP."""
     for precision, factor, metric in itertools.product(
             ("highest", "split2m"), ("dense", "twostage"),
             ("precomputed", "onthefly")):

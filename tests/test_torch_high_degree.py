@@ -132,13 +132,14 @@ def test_configurations_at_every_degree(p):
     cofactors at p = 1..11, and the merged and baseline solvers every
     windowing as the JAX resolvers give it (twostage on pieces from p=5,
     which B5 computes as the dense operator); under split2m the fused
-    solver takes twostage from p=4 (either metric, either chain; the auto
-    path twostage + onthefly + jtj from p=5, as the JAX resolvers give),
-    and the dense factorization and the merged and baseline solvers at
-    every degree, as the JAX resolvers give them; split2m raises
-    NotImplementedError naming ROADMAP queue B item 6f (twostage at
-    p=1..3) or 6c (jtj in the dense pass); ``fused_configs`` and the fused
-    auto-dispatch agree."""
+    solver takes twostage at every degree (either metric, either chain;
+    the auto path twostage + onthefly + jtj from p=5, as the JAX resolvers
+    give) and the dense factorization with either chain, and the merged
+    and baseline solvers every degree, as the JAX resolvers give them:
+    twostage at p=1..3 (6f) and jtj in the dense pass (6c) pass
+    ``check_config``, build on the CPU with their configuration and
+    resolve as the JAX resolvers resolve them; ``fused_configs`` and the
+    fused auto-dispatch agree."""
     for dtype in (torch.float32, torch.float64):
         for factor, metric in laplace_cuda.fused_configs("highest", p):
             for cofactor in laplace_cuda.COFACTORS:
@@ -160,21 +161,26 @@ def test_configurations_at_every_degree(p):
     split = laplace_cuda.fused_configs("split2m", p)
     assert ("dense", "onthefly") in split
     assert ("dense", "precomputed") in split
-    assert (("twostage", "onthefly") in split) == (p >= 4)
-    assert (("twostage", "precomputed") in split) == (p >= 4)
+    assert ("twostage", "onthefly") in split
+    assert ("twostage", "precomputed") in split
     for f, m, c in (("twostage", "onthefly", "jtj"),
                     ("twostage", "onthefly", "adjj"),
-                    ("twostage", "precomputed", "adjj")):
-        if p >= 4:
-            laplace_cuda.check_config("split2m", f, m, c, torch.float32,
-                                      "pieces", "fused", p)
-        else:
-            with pytest.raises(NotImplementedError, match="queue B item 6f"):
-                laplace_cuda.check_config("split2m", f, m, c, torch.float32,
-                                          "pieces", "fused", p)
-    with pytest.raises(NotImplementedError, match="queue B item 6c"):
-        laplace_cuda.check_config("split2m", "dense", "onthefly", "jtj",
-                                  torch.float32, "pieces", "fused", p)
+                    ("twostage", "precomputed", "adjj"),
+                    ("dense", "onthefly", "jtj")):
+        laplace_cuda.check_config("split2m", f, m, c, torch.float32,
+                                  "pieces", "fused", p)
+        kw = dict(factor=f, metric=m, cofactor=c)
+        jf = jbench.resolve_factor(f, p, "pieces", precision="split2m",
+                                   solver="fused")
+        jm = jbench.resolve_metric(m, "fused", "pieces", jf, p,
+                                   precision="split2m")
+        assert benchmark.resolve_config(
+            p, "fused", "pieces", "split2m", torch.float32, **kw) == (
+            jf, jm, jbench.resolve_cofactor(c, p, jf, jm,
+                                            precision="split2m"))
+        op = bp4.build(1, p, torch.float32, "split2m", windowing="pieces",
+                       device="cpu", **kw).op
+        assert (op.factor, op.metric, op.cofactor) == (f, m, c)
     config = benchmark.resolve_config(p, "fused", "pieces", "split2m",
                                       torch.float32)
     jf = jbench.resolve_factor("auto", p, "pieces", precision="split2m",

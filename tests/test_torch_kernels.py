@@ -463,19 +463,20 @@ def test_run_one_every_path_high_degree_on_card(cuda_device, p):
     assert (r.converged or r.n_iterations == 100) and r.time_per_it > 0
 
 
-# B1/B2 under f32 split2m in twostage: (metric, cofactor); from p=5 the
-# tensor-core pass of csrc/cell_mma_hd.cuh, at p=4 that of cell_mma.cuh
-# with the metric rebuilt and cell_mma_hd.cuh's with it streamed
+# B1/B2 under f32 split2m in twostage: (metric, cofactor); at p=1..3 and
+# from p=5 the tensor-core pass of csrc/cell_mma_hd.cuh, at p=4 that of
+# cell_mma.cuh with the metric rebuilt and cell_mma_hd.cuh's with it
+# streamed
 SPLIT_TWOSTAGE = [("onthefly", "jtj"), ("onthefly", "adjj"),
                   ("precomputed", "adjj")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric,cofactor", SPLIT_TWOSTAGE)
-@pytest.mark.parametrize("p", (4,) + HIGH)
+@pytest.mark.parametrize("p", (1, 2, 3, 4) + HIGH)
 def test_split2m_twostage_kernels_match_plain(cuda_device, p, metric,
                                               cofactor):
-    """B1 and B2 under f32 split2m in twostage at p = 4..11 (the metric
+    """B1 and B2 under f32 split2m in twostage at p = 1..11 (the metric
     rebuilt by jtj or adjj, or streamed) on 3 x 5 x 7 = 105 cells, not a
     multiple of the 8 cells of a task: against their plain versions, each
     twice and bitwise equal, each launch counted."""
@@ -536,11 +537,16 @@ def test_run_one_fused_split2m_high_degree_on_card(cuda_device, p):
 REDUCED = [("split3", torch.float32, None), ("bf16", torch.float32, None),
            ("bf16", torch.bfloat16, torch.bfloat16)]
 # B1/B2's configurations under them: dense at p=1..11 (from p=5 the dense
-# pass of csrc/apply_mma_hd.cuh), twostage at p=4..11
+# pass of csrc/apply_mma_hd.cuh; the metric rebuilt by jtj too,
+# csrc/mma_jtj.cu), twostage at p=1..11
 REDUCED_CONFIGS = ([(p, "dense", m, "adjj") for p in (1, 2, 3, 4) + HIGH
                     for m in ("precomputed", "onthefly")]
                    + [(p, "twostage", m, c) for p in (4,) + HIGH
-                      for m, c in SPLIT_TWOSTAGE])
+                      for m, c in SPLIT_TWOSTAGE]
+                   + [(p, "twostage", m, c) for p in (1, 2, 3)
+                      for m, c in SPLIT_TWOSTAGE]
+                   + [(p, "dense", "onthefly", "jtj")
+                      for p in (1, 2, 3, 4) + HIGH])
 
 
 def _close(rung, got, want):
@@ -731,6 +737,49 @@ def test_split2m_dense_kernels_match_plain(cuda_device, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", (1, 2, 3, 4) + HIGH)
+def test_split2m_dense_jtj_kernels_match_plain(cuda_device, p):
+    """B1 and B2 dense with the metric rebuilt by jtj under split2m
+    (the dense tensor-core passes' kJtjChain instantiations,
+    ``csrc/mma_jtj.cu`` to p=4, ``apply_mma_pNN.cu`` from p=5) on 105 cells against their plain versions (1e-5; B2's
+    scalars 1e-4), twice and bitwise equal, each launch counted; and at
+    p <= 4 B5 on the twostage operator of the merged solver's ``--factor
+    twostage --windowing pieces`` (the dense tables) against its plain
+    version."""
+    layout = DofLayout(BoxMesh((3, 5, 7), 0.25), p)
+    op = laplace_cuda.make_operator(
+        layout, torch.float32, "split2m", factor="dense", metric="onthefly",
+        cofactor="jtj", windowing="pieces", device=cuda_device)
+    prec = ((_state(op, 1, seed=6)[0][:1].abs() + 0.5) * op.mask).contiguous()
+    (u,) = _state(op, 1, seed=190 + p)
+    before = fk.matvec.launches, fk.fused_cg_iteration.launches
+    got, again = fk.matvec(op, u), fk.matvec(op, u)
+    assert _rel(got, fk._matvec_plain(op, u)) < TOL[torch.float32]
+    assert torch.equal(got, again)
+    x, g, d, h = _state(op, 4, seed=200 + p)
+    scal = torch.tensor(SCAL, device=cuda_device)
+    got = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    again = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
+    want = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) < TOL[torch.float32]
+    assert ((got[4] - want[4]).abs() / want[4].abs().clamp_min(1e-30)
+            ).max().item() < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (fk.matvec.launches, fk.fused_cg_iteration.launches) == (
+        before[0] + 2, before[1] + 2)
+    if p <= 4:
+        op = laplace_cuda.make_operator(
+            layout, torch.float32, "split2m", factor="twostage",
+            metric="precomputed", windowing="pieces", device=cuda_device)
+        before = la.apply_lattice_pieces.launches
+        got = la.apply_lattice_pieces(op, u)
+        assert la.apply_lattice_pieces.launches == before + 1
+        assert _rel(got, la._lattice_plain(op, u, la._index_mask(op))) < \
+            TOL[torch.float32]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p", HIGH)
 def test_run_one_merged_split2m_high_degree_on_card(cuda_device, p):
     """The merged and baseline solvers under split2m at p=5..11 on every
@@ -771,8 +820,7 @@ def test_fused_storage_kernels_match_plain(cuda_device, p, precision, dtype):
     before = fk.fused_cg_iteration.launches
     n = 0
     for factor, metric in laplace_cuda.fused_configs(precision, p):
-        chains = (("adjj", "jtj") if metric == "onthefly" and (
-            precision == "highest" or factor == "twostage") else ("adjj",))
+        chains = ("adjj", "jtj") if metric == "onthefly" else ("adjj",)
         for cofactor in chains:
             op = laplace_cuda.make_operator(
                 layout, dtype, precision, factor=factor, metric=metric,

@@ -366,10 +366,12 @@ REFUSED = {
                                   precision="split3", degree=5), None),
     "bf16 fused dense at p=6": (dict(precision="bf16", factor="dense",
                                      degree=6), None),
+    # ported since (6f: twostage at p=1..3 on the tensor-core rungs; 6c:
+    # jtj in their dense pass): None, they run
     "split3 twostage at p=3": (dict(precision="split3", factor="twostage",
-                                    degree=3), "item 6f"),
+                                    degree=3), None),
     "bf16 jtj dense": (dict(precision="bf16", factor="dense",
-                            metric="onthefly", cofactor="jtj"), "item 6c"),
+                            metric="onthefly", cofactor="jtj"), None),
 }
 
 
@@ -378,8 +380,9 @@ def test_left_out_combinations_raise(case):
     """What this slice leaves out raises NotImplementedError naming its
     ROADMAP item, and no configuration runs on another rung in its
     place; a combination ported since (item None) resolves to its own
-    rung's configuration, as the JAX resolvers give it (with a bf16 state
-    the dispatch on the bf16 rung, ``eff_prec``), and builds at its own
+    rung's configuration (the factor and chain asked for, else dense and
+    adjj), as the JAX resolvers give it (with a bf16 state the dispatch on
+    the bf16 rung, ``eff_prec``), and builds at its own
     rung, the metric at its storage dtype; the merged solver with a bf16
     state (6d) solves."""
     kw, item = REFUSED[case]
@@ -395,7 +398,10 @@ def test_left_out_combinations_raise(case):
                                   precision=eff, solver=solver)
         m = args.get("metric") or jbench.resolve_metric(
             "auto", solver, windowing, f, p, precision=eff)
-        assert config == (f, m, "adjj") and f == "dense"
+        c = jbench.resolve_cofactor(args.get("cofactor", "auto"), p, f, m,
+                                    precision=eff)
+        assert config == (f, m, c) and f == args.get("factor", "dense")
+        assert c == args.get("cofactor", "adjj")
         op = bp4.build(1, p, dtype, rung, windowing=windowing, device="cpu",
                        metric_dtype=args.get("metric_dtype"),
                        **dict(zip(("factor", "metric", "cofactor"),

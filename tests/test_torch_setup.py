@@ -2,6 +2,7 @@
 operator arrays) against the JAX package, at small sizes."""
 
 import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,19 +116,23 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
 def test_operator_rejects_unported_configurations():
     """Configurations the JAX package has and the port does not yet
     (ROADMAP queue B) raise, each spelled out in full; a bf16 state under
-    split3 (6d) builds, its tables f32; split2m's dense pass past p=4 (the
-    apply family, the fused dense) builds, with the dense M's tables, B5
-    on a twostage operator too."""
+    split3 (6d) builds, its tables f32; split2m's dense pass with the metric
+    rebuilt by jtj (6c) builds, keeping the chain; split2m's dense pass
+    past p=4 (the apply family, the fused dense) builds, with the dense M's
+    tables, B5 on a twostage operator too."""
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
     dense = {"factor": "dense", "metric": "onthefly", "windowing": "pieces"}
-    for kw in ({**dense, "precision": "split2m", "cofactor": "jtj"},
-               {**fused, "windowing": "reshape"},
+    for kw in ({**fused, "windowing": "reshape"},
                {"precision": "split2m", "dtype": torch.float64},
                {**fused, "precision": "split2m", "dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             laplace_cuda.make_operator(layout, device="cpu", **kw)
+    op = laplace_cuda.make_operator(layout, device="cpu", **dense,
+                                    precision="split2m", cofactor="jtj")
+    assert (op.factor, op.metric, op.cofactor) == ("dense", "onthefly", "jtj")
+    assert op.mma_mats.shape == (2, 3 * math.prod(laplace_cuda.mma_dims(4)))
     for kw in ({"precision": "split3", "dtype": torch.bfloat16},
                {**fused, "precision": "split3", "dtype": torch.bfloat16}):
         op = laplace_cuda.make_operator(layout, device="cpu", **kw)
