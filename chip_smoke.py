@@ -225,7 +225,23 @@ Phases (each raises on failure, so any failure exits nonzero):
    short drives of TS_DRIVES: the JAX CLI's ``--factor twostage`` at
    p=1..3 and ``--factor dense --geometry onthefly --cofactor jtj`` at
    p=4 under every tensor-core rung, and the merged solver's ``--factor
-   twostage --windowing pieces`` at p=2, 4 (B5).
+   twostage --windowing pieces`` at p=2, 4 (B5);
+11. the shapes beyond BP4's, CEED BP3 (one component) and q = p + 1
+   (``utils/shape_check.py``, ``csrc/shapes.cu``): the shape
+   instantiations' registers and spills; on the 105-cell box at every
+   degree 1..11, for BP3, q = p + 1 and both, B3-B6 and B1/B2 (dense and
+   twostage, the metric streamed or rebuilt by adjj or jtj) under f32 and
+   f64 highest and f32 split2m against their plain versions;
+   shape_check.TIMED's rows timed beside their plain versions and bounds
+   (fields ``*_bp3_p4``, ``*_bp3_p6``, ``*_q1_p4`` of B1-B6); the drives
+   of SHAPE_DRIVES through ``run_one(problem=)`` — BP3 at p=4 s=15
+   (2,146,689 DoFs) on the JAX CLI's default path (merged, reshape, f32
+   highest: B3) and the production command (fused, split2m, pieces:
+   B1/B2), BP3 at p=6 s=14 (3,613,153 DoFs) on the production command,
+   q = p + 1 at p=4 s=13 (1,635,075 DoFs) on both, at full depth, and
+   B4, B5, B6 short —; and the parity points of SHAPE_PARITY (f64 merged
+   and fused: the JAX package's itCG exactly; f32 split2m fused + 0..3,
+   or C8's cap with ``edge_witness``).
 """
 
 from __future__ import annotations
@@ -470,6 +486,47 @@ TS_DRIVES = (
             factor="twostage"))
       for p in (2, 4)),
 )
+# section 11, the shapes beyond BP4's (queue B 6g): the drives through
+# run_one(problem=) — (label, key of the launches, components, q - p, p,
+# s, kernels, full depth, run_one's keywords) — at full depth the JAX
+# CLI's default path and the production command at the full-width points
+# ((p+1)^3 2^s C < 6e6: BP3 p=4 s=15, p=6 s=14; q = p + 1 p=4 s=13),
+# short (S_SHORT + 2 for BP3, S_SHORT for q = p + 1) B4, B5, B6
+_MAIN = dict(solver="merged", precision="highest", windowing="reshape")
+_PROD = dict(solver="fused", precision="split2m", windowing="pieces")
+_B12 = ("matvec", "fused_cg_iteration")
+SHAPE_DRIVES = (
+    ("BP3 main path (merged, f32 highest, reshape)", "_bp3_p4", 1, 2, 4,
+     15, ("apply_local_batched_g",), True, _MAIN),
+    ("BP3 production (fused, f32 split2m, pieces)", "_bp3_p4", 1, 2, 4, 15,
+     _B12, True, _PROD),
+    ("BP3 production (fused, f32 split2m, pieces)", "_bp3_p6", 1, 2, 6, 14,
+     _B12, True, _PROD),
+    ("q=p+1 main path (merged, f32 highest, reshape)", "_q1_p4", 3, 1, 4,
+     S, ("apply_local_batched_g",), True, _MAIN),
+    ("q=p+1 production (fused, f32 split2m, pieces)", "_q1_p4", 3, 1, 4, S,
+     _B12, True, _PROD),
+    *((f"{tag} {solver} {k}", key, c, dq, 4, s, (name,), False,
+       dict(solver=solver, precision="highest", windowing=w, **kw))
+      for tag, key, c, dq, s in (("BP3", "_bp3_p4", 1, 2, S_SHORT + 2),
+                                 ("q=p+1", "_q1_p4", 3, 1, S_SHORT))
+      for k, name, solver, w, kw in (
+          ("--geometry onthefly", "apply_local_batched_onthefly", "merged",
+           "reshape", dict(metric="onthefly")),
+          ("--windowing pieces", "apply_lattice_pieces", "merged", "pieces",
+           {}),
+          ("--windowing zslab", "apply_lattice_zslab", "baseline", "zslab",
+           {}))),
+)
+SHAPE_FULL = {"_bp3_p4": 2_146_689, "_bp3_p6": 3_613_153,
+              "_q1_p4": 1_635_075}
+# the timed rows' sources: B3-B6 under highest and B1/B2 in the
+# production configuration (twostage: cell_mma_hd.cuh at every degree)
+SHAPE_SOURCE = "shapes.cu"
+# the parity points: (p, s, components, q - p, the JAX package's f64
+# itCG, PARITY.md's protocol)
+SHAPE_PARITY = ((4, 7, 1, 2, 93), (2, 9, 1, 2, 50), (4, 7, 3, 1, 91),
+                (2, 9, 3, 1, 49))
 # the sources of section 9's timed rows (at p=4: the sum-factorized
 # pass's storage instantiations under highest, the dense tensor-core
 # pass's under split2m; B2's split2m auto configuration at p=4 with a
@@ -487,16 +544,18 @@ B16_SOURCE = {
 }
 
 
-def sumfac_fma(p: int, q: int) -> int:
-    """FMAs of the sum-factorized apply a cell, three components: forward
-    x pass (S, D), y pass (3), z pass (3), and the same backward."""
+def sumfac_fma(p: int, q: int, n_comp: int = 3) -> int:
+    """FMAs of the sum-factorized apply a cell, ``n_comp`` components (BP4
+    3, BP3 1): forward x pass (S, D), y pass (3), z pass (3), and the same
+    backward."""
     p1 = p + 1
-    return 3 * 2 * (2 * p1 ** 3 * q + 3 * p1 ** 2 * q ** 2 + 3 * p1 * q ** 3)
+    return n_comp * 2 * (2 * p1 ** 3 * q + 3 * p1 ** 2 * q ** 2
+                         + 3 * p1 * q ** 3)
 
 
 def bound(name: str, op, split: bool, state: torch.dtype | None = None,
-          prec_word: int | None = None,
-          x_word: int | None = None) -> tuple[float, str]:
+          prec_word: int | None = None, x_word: int | None = None,
+          n_comp: int = 3) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for the
     kernel's work on ``op``'s shapes — the larger of its bytes (inputs read
     once, outputs written once) over HBM_BPS and its operations over the
@@ -512,8 +571,11 @@ def bound(name: str, op, split: bool, state: torch.dtype | None = None,
     (B1/B2: by their chain, adjj or jtj; B4: adjj).  ``state``: B1/B2's d
     and h storage, the apply family's u and v (bf16: 2 bytes each read and
     written); ``prec_word``,
-    ``x_word``: B2's bytes a value of P and of x (prec_dtype, x_dtype)."""
+    ``x_word``: B2's bytes a value of P and of x (prec_dtype, x_dtype).
+    ``n_comp``: the vectors' components (BP4 3, BP3 1): the vectors' bytes
+    and the operations scale with it, the metric's do not."""
     p, q, nc = op.degree, op.n_q, op.n_cells
+    c = n_comp
     nz, ny, nx = op.n_nodes_axis
     nn, p13, q3 = nz * ny * nx, (p + 1) ** 3, q ** 3
     word = op.dtype.itemsize
@@ -525,27 +587,29 @@ def bound(name: str, op, split: bool, state: torch.dtype | None = None,
     if name in ("matvec", "fused_cg_iteration"):
         rebuilt = op.gmetric is None
         if split and op.factor == "twostage":  # the 2D stage, tensor cores
-            products = 3 * q * 2 * 3 * q * q * (p + 1) ** 2
-            other = 12 * q * p13 + 27 * q3
+            products = c * q * 2 * 3 * q * q * (p + 1) ** 2
+            other = c * (4 * q * p13 + 9 * q3)
         elif split:  # the dense M on the tensor cores
-            products = 2 * 3 * 3 * q3 * p13
-            other = 27 * q3
+            products = 2 * 3 * c * q3 * p13
+            other = 9 * c * q3
         else:
-            products = sumfac_fma(p, q)
-            other = 27 * q3
+            products = sumfac_fma(p, q, c)
+            other = 9 * c * q3
         other += ((METRIC_FMA_JTJ if op.cofactor == "jtj" else METRIC_FMA)
                   * q3 if rebuilt else 0)
         # B1: d read, h written; B2: x, g, d, h read, P, x', g', d', h'
-        nbytes = (6 * nn * sword if name == "matvec"
-                  else 6 * nn * word + nn * (prec_word or word)
-                  + 6 * nn * (x_word or word) + 12 * nn * sword)
+        nbytes = (2 * c * nn * sword if name == "matvec"
+                  else 2 * c * nn * word + nn * (prec_word or word)
+                  + 2 * c * nn * (x_word or word) + 4 * c * nn * sword)
         nbytes += 24 * nc * word if rebuilt else 6 * q3 * nc * mword
     else:  # the apply family; metric streamed, or rebuilt (B4)
-        products = 2 * 3 * 3 * q3 * p13 if split else sumfac_fma(p, q)
+        products = (2 * 3 * c * q3 * p13 if split
+                    else sumfac_fma(p, q, c))
         onthefly = name == "apply_local_batched_onthefly"
-        other = 27 * q3 + (METRIC_FMA * q3 if onthefly else 0)
+        other = 9 * c * q3 + (METRIC_FMA * q3 if onthefly else 0)
         # u read and v written at the state's size (bf16: 2 bytes)
-        nbytes = ((6 * p13 * nc if name.startswith("apply_local") else 6 * nn)
+        nbytes = ((2 * c * p13 * nc if name.startswith("apply_local")
+                   else 2 * c * nn)
                   * sword + ((24 * nc if onthefly else 0)
                              + (nn if name == "apply_lattice_zslab" else 0))
                   * word)
@@ -575,9 +639,9 @@ def check(name: str, err: float, tol: float, quiet: bool = False) -> None:
                              f"({err:.3e} > {tol:.0e})")
 
 
-def random_state(op, n: int, seed: int):
+def random_state(op, n: int, seed: int, n_comp: int = 3):
     gen = torch.Generator(device=op.device).manual_seed(seed)
-    shape = (3,) + op.n_nodes_axis
+    shape = (n_comp,) + op.n_nodes_axis
     return [(torch.randn(shape, generator=gen, device=op.device,
                          dtype=op.dtype) * op.mask).contiguous()
             for _ in range(n)]
@@ -610,7 +674,7 @@ def stepped_solve(op, b, prec, carry64: bool) -> tuple[list, float]:
     state = (torch.zeros_like(g0), g0, torch.zeros_like(g0),
              torch.zeros_like(g0), scal)
     spare = tuple(torch.empty_like(t) for t in state)
-    work = fk.Workspace(op)
+    work = fk.Workspace(op, b.shape[0])
     hist, err, pick = [1.0], 0.0, [0, 1, 5]
     for _ in range(100):
         _, g, d, h, new = fk.fused_cg_iteration(op, *state, P, out=spare,
@@ -642,7 +706,7 @@ def stepped_readings(pb, hist, n: int) -> tuple[bool, float, list]:
     solver's, ``n`` iterations and ``hist``; the kernel's alpha, beta, res2
     against the f64 sums', max rel err; the carried solve's history)."""
     op, lat = pb.op, pb.layout.n_nodes_axis
-    b, prec = pb.b.reshape((3,) + lat), pb.inv_diag.reshape((1,) + lat)
+    b, prec = pb.b.reshape(pb.lattice_shape), pb.inv_diag.reshape((1,) + lat)
     mine, err = stepped_solve(op, b, prec, carry64=False)
     h64, err64 = stepped_solve(op, b, prec, carry64=True)
     same = len(mine) == n + 1 and all(
@@ -655,11 +719,12 @@ def stepped_readings(pb, hist, n: int) -> tuple[bool, float, list]:
     return same, err, h64
 
 
-def asymmetry(op) -> float:
-    """|v.Au - u.Av| / (|v| |Au|) of ``op``'s matvec on random u, v."""
+def asymmetry(op, n_comp: int = 3) -> float:
+    """|v.Au - u.Av| / (|v| |Au|) of ``op``'s matvec on random u, v of
+    ``n_comp`` components."""
     from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
 
-    u, v = random_state(op, 2, seed=5)
+    u, v = random_state(op, 2, seed=5, n_comp=n_comp)
     au, av = fk.matvec(op, u).double(), fk.matvec(op, v).double()
     u, v = u.double(), v.double()
     return ((torch.sum(v * au) - torch.sum(u * av)).abs()
@@ -679,19 +744,20 @@ def edge_witness(pb, hist, n: int, s: int, p: int) -> tuple[bool, list]:
     from mf_data_locality_tpu_torch.solvers import cg_fused
 
     op, lat = pb.op, pb.layout.n_nodes_axis
+    shape = dict(n_components=pb.n_components, n_q=pb.n_q)
     same, err, h64 = stepped_readings(pb, hist, n)
     for precision in ("split2m", "highest"):
         o = op if precision == "split2m" else bp4.build(
             s, p, torch.float32, "highest", factor=op.factor,
             metric=op.metric, cofactor=op.cofactor, windowing="pieces",
-            device=op.device).op
+            device=op.device, **shape).op
         print(f"  witness: asymmetry of the f32 {precision} operator on the "
-              f"card {asymmetry(o):.3e}")
+              f"card {asymmetry(o, pb.n_components):.3e}")
     cpu = bp4.build(s, p, torch.float32, "split2m", factor=op.factor,
                     metric=op.metric, cofactor=op.cofactor,
-                    windowing="pieces", device="cpu")
+                    windowing="pieces", device="cpu", **shape)
     r = cg_fused.fused_merged_cg_solve(
-        cpu.op, lat, cpu.b.reshape((3,) + lat),
+        cpu.op, lat, cpu.b.reshape(cpu.lattice_shape),
         cpu.inv_diag.reshape((1,) + lat))
     print(f"  witness: the plain version on the CPU: itCG {r.n_iterations}, "
           f"converged {r.converged}")
@@ -2239,6 +2305,86 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     return launches, rows, launches_dry, overlap
 
 
+def shape_section(dev, drive, short: dict, log: str) -> tuple[dict, dict]:
+    """Section 11: the shapes beyond BP4's, CEED BP3 and q = p + 1 (queue
+    B 6g): the shape instantiations' registers, every kernel against its
+    plain version on the box, shape_check.TIMED's rows, SHAPE_DRIVES
+    through ``drive`` (main()'s: a ``run_one`` with the launch counts
+    zeroed before and read after) and SHAPE_PARITY.  Returns (the timed
+    rows, {key: launches})."""
+    from mf_data_locality_tpu_torch import benchmark
+    from mf_data_locality_tpu_torch.models import bp4
+    from mf_data_locality_tpu_torch.solvers import cg_fused
+    from mf_data_locality_tpu_torch.utils import shape_check as shc
+    from mf_data_locality_tpu_torch.utils import timing
+
+    t11 = time.perf_counter()
+    shc.print_table(log)
+    print(f"the shapes beyond BP4's (BP3, q = p + 1, both) vs plain on the "
+          f"{'x'.join(map(str, shc.RAGGED))} box at p=1..11:")
+    shc.report(shc.compare_all(dev))
+    print(f"  ({time.perf_counter() - t11:.1f} s)")
+    shape_times = shc.time_all(dev, lambda k, p: time_pair(k, p, dev, timing),
+                               bound)
+    launches_sh = {}
+    for label, key, c, dq, p, s_d, expect, full, kw in SHAPE_DRIVES:
+        dtype = torch.float32
+        config = benchmark.resolve_config(p, kw["solver"], kw["windowing"],
+                                          kw["precision"], dtype,
+                                          **{k: v for k, v in kw.items()
+                                             if k == "metric"})
+        pb = bp4.build(s_d, p, dtype, kw["precision"],
+                       windowing=kw["windowing"], device=dev,
+                       n_components=c, n_q=p + dq,
+                       **dict(zip(("factor", "metric", "cofactor"), config)))
+        r = drive(f"{label} C={c} q={p + dq}", s_d, expect, degree=p,
+                  into=launches_sh.setdefault(key, {}), quiet=not full,
+                  problem=pb, **kw, **({} if full else short))
+        if full and r.n_dofs != SHAPE_FULL[key]:
+            raise AssertionError(f"{label}: {r.n_dofs} DoFs, not the "
+                                 f"full-width point's {SHAPE_FULL[key]}")
+        del pb
+        torch.cuda.empty_cache()
+    for p, s_p, c, dq, want in SHAPE_PARITY:
+        for solver, precision, dtype in (("merged", "highest",
+                                          torch.float64),
+                                         ("fused", "highest", torch.float64),
+                                         ("fused", "split2m",
+                                          torch.float32)):
+            w = "pieces" if solver == "fused" else "reshape"
+            config = benchmark.resolve_config(p, solver, w, precision, dtype)
+            pb = bp4.build(s_p, p, dtype, precision, windowing=w, device=dev,
+                           n_components=c, n_q=p + dq,
+                           **dict(zip(("factor", "metric", "cofactor"),
+                                      config)))
+            lat = pb.layout.n_nodes_axis
+            if solver == "merged":
+                res = bp4.solve_merged(pb)
+            else:
+                res = cg_fused.fused_merged_cg_solve(
+                    pb.op, lat, pb.b.reshape(pb.lattice_shape),
+                    pb.inv_diag.reshape((1,) + lat))
+            n = res.n_iterations
+            print(f"  parity p={p} s={s_p} C={c} q={p + dq} {solver} "
+                  f"{str(dtype)[6:]} {precision} {config}: itCG {n} "
+                  f"(JAX f64 {want}), converged {res.converged}")
+            if precision == "highest":
+                ok = n == want and res.converged
+            else:
+                ok = res.converged and want <= n <= want + 3
+                if not res.converged and n == 100:
+                    hist = res.res_history.cpu().numpy()
+                    ok = edge_witness(pb, hist, n, s_p, p)[0]
+            if not ok:
+                raise AssertionError(f"parity p={p} s={s_p} C={c} "
+                                     f"q={p + dq} {solver} {precision}: "
+                                     f"itCG {n}, the JAX package's {want}")
+            del pb
+    torch.cuda.empty_cache()
+    print(f"section 11: {time.perf_counter() - t11:.1f} s")
+    return shape_times, launches_sh
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2250,6 +2396,7 @@ def main() -> int:
     from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
     from mf_data_locality_tpu_torch.ops import laplace_apply as la
     from mf_data_locality_tpu_torch.solvers import cg_fused
+    from mf_data_locality_tpu_torch.utils import shape_check as shc
     from mf_data_locality_tpu_torch.utils import timing
 
     # name -> (wrapper, source, TPU kernel it replaces)
@@ -3068,6 +3215,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"section 10: {time.perf_counter() - t10:.1f} s")
 
+    # -- 11. the shapes beyond BP4's: CEED BP3 and q = p + 1 (queue B 6g) --
+    shape_times, launches_sh = shape_section(
+        dev, drive, short, log or lib_path.with_suffix(".log").read_text())
+
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
     # library_ms is null throughout
@@ -3203,6 +3354,17 @@ def main() -> int:
                         f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
                         f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_ts[sfx][name]})
+        for (kname, sfx), ((k, pl), (bms, by), err, config) in \
+                shape_times.items():  # section 11
+            if kname != name:
+                continue
+            _, c, dq, p, s, _ = next(t for t in shc.TIMED if t[0] == sfx)
+            row.update({f"source{sfx}": CSRC + SHAPE_SOURCE,
+                        f"p_s{sfx}": [p, s], f"shape{sfx}": [c, p + dq],
+                        f"config{sfx}": config, f"ms{sfx}": k,
+                        f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
+                        f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
+                        f"launches{sfx}": launches_sh[sfx][name]})
         if name == "apply_lattice_pieces":  # on the twostage operator
             row["launches_twostage_pieces"] = launches_ts[
                 "_twostage_pieces"][name]

@@ -367,7 +367,7 @@ def run_one(degree: int, s: int, solver: str = "merged",
         d = (problem.b.reshape(problem.lattice_shape) * op.mask).to(
             problem.b.dtype).contiguous()
         h = torch.empty_like(d)
-        work = fk.Workspace(op)
+        work = fk.Workspace(op, d.shape[0])
         matvec = lambda: fk.matvec(op, d, out=h, work=work)  # noqa: E731
     else:
         a_full = problem.a_apply_full

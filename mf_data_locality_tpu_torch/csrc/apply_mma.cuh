@@ -114,9 +114,11 @@ constexpr int kMmaGroups = 2;  // cell tiles per block
 constexpr int kMmaBlockCells = kMmaCells * kMmaGroups;
 constexpr int kMmaThreads = 32 * kComps * kMmaGroups;
 
-template <int P>
+// SH: the shape flags (bp4_operator.cuh), read by apply_mma_hd.cuh, which
+// runs the dense pass at every degree for the shapes beyond BP4's.
+template <int P, int SH = 0>
 struct MmaShape {
-  using S = Shape<P>;
+  using S = Shape<P, SH>;
   static constexpr int P13P = (S::P13 + 15) / 16 * 16;  // nodes, padded
   static constexpr int Q3P = (S::Q3 + 15) / 16 * 16;    // q-points a direction
   static constexpr int RP = 3 * Q3P;                    // gradient rows

@@ -23,6 +23,12 @@
 // sources (REBUILD: adjj, or jtj with kJtjChain, from the coefficients)
 // as apply_mma.cuh.
 //
+// At the shapes beyond BP4's (shapes.cuh: one component, Q = P + 1; NP's
+// shape flags) it is the split2m dense pass at every degree, p <= 4 too:
+// C only counts its rows, forward warps and backward tasks, so one
+// component keeps every tile, while apply_mma.cuh's warps are the three
+// components of a tile.
+//
 // apply_mma.cuh cannot be instantiated past p=4: one warp keeps the whole
 // v^T of 16 cells in registers (P13P / 2 a thread: 112 at p=5, 864 at
 // p=11) and a block holds u's hi and lo parts in shared memory (89 KB at
@@ -88,7 +94,6 @@ namespace bp4 {
 
 constexpr int kHdRowCells = 32;   // cells of a row tile: two m16 tiles
 constexpr int kHdChunk = 8;       // k16 steps of one accumulation chain
-constexpr int kHdFwdThreads = 32 * kComps;
 constexpr int kHdBwdTiles = 8;    // n8 node tiles of a backward warp
 constexpr int kHdBwdWarps = 4;
 constexpr int kHdGatherThreads = 256;
@@ -97,14 +102,14 @@ constexpr int kHdGatherThreads = 256;
 // row tiles (m16) of rows c NCP + cell, then the parts' A fragments.
 template <int P, int NP>
 struct DenseHdLayout {
-  using Ms = MmaShape<P>;
+  using Ms = MmaShape<P, NP & kShMask>;
   static constexpr int NPART = rung_of(NP) == 1 ? 1 : 2;
   static constexpr int KF = Ms::P13P / 16;  // forward k16 steps
   static constexpr int KB = Ms::RP / 16;    // backward k16 steps
   int ncp, mt;                              // padded cells, m16 row tiles
   __host__ __device__ explicit DenseHdLayout(int nc)
       : ncp((nc + kHdRowCells - 1) / kHdRowCells * kHdRowCells),
-        mt(kComps * ncp / 16) {}
+        mt(Shape<P, NP>::C * ncp / 16) {}
   // uint4 units: u's fragments, then t's
   __host__ __device__ size_t u_part() const {
     return static_cast<size_t>(mt) * KF * 32;
@@ -153,9 +158,9 @@ __global__ void __launch_bounds__(kHdGatherThreads)
     dense_hd_gather_kernel(Grid gr, const float* __restrict__ mask,
                            const float* __restrict__ u, MmaFusedArgs x,
                            __nv_bfloat16* __restrict__ us) {
-  using S = Shape<P>;
+  using S = Shape<P, NP>;
   using L = DenseHdLayout<P, NP>;
-  constexpr int P13 = S::P13, P13P = MmaShape<P>::P13P;
+  constexpr int P13 = S::P13, P13P = L::Ms::P13P;
   constexpr int kNP = rung_of(NP);
   constexpr bool kBfState = (NP & kSbState) != 0;
   const int nc = gr.n_cells();
@@ -166,7 +171,7 @@ __global__ void __launch_bounds__(kHdGatherThreads)
   // zero at their other cells (hd_rows)
   const int2 rows = is_block(FORM) ? hd_rows(gr) : make_int2(0, 0);
   const int ncr = is_block(FORM) ? rows.y - rows.x : lay.ncp;
-  if (i >= static_cast<size_t>(kComps) * P13P * ncr) return;
+  if (i >= static_cast<size_t>(S::C) * P13P * ncr) return;
   const int cell = rows.x + static_cast<int>(i % ncr);
   const int k = static_cast<int>((i / ncr) % P13P);
   const int c = static_cast<int>(i / (static_cast<size_t>(ncr) * P13P));
@@ -211,13 +216,13 @@ __global__ void __launch_bounds__(kHdGatherThreads)
 // x.metric_bf16 is set (NP != 2).  BLOCK: B2's block form, the row tiles
 // of hd_rows, G = 0 at their cells outside [gr.cbeg, gr.cend).
 template <int P, bool REBUILD, int NP, bool BLOCK = false>
-__global__ void __launch_bounds__(kHdFwdThreads, 1)
+__global__ void __launch_bounds__(32 * Shape<P, NP>::C, 1)
     dense_hd_forward_kernel(const uint2* __restrict__ mf,
                             const float* __restrict__ gmetric, Grid gr,
                             MmaFusedArgs x, const uint4* __restrict__ us,
                             uint4* __restrict__ ts) {
-  using S = Shape<P>;
-  using Ms = MmaShape<P>;
+  using S = Shape<P, NP>;
+  using Ms = MmaShape<P, NP & kShMask>;
   using L = DenseHdLayout<P, NP>;
   constexpr int Q3 = S::Q3, Q3P = Ms::Q3P, KF = L::KF, KB = L::KB;
   constexpr int kNP = rung_of(NP);
@@ -368,8 +373,8 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
                              const float* __restrict__ mask,
                              const uint4* __restrict__ ts,
                              float* __restrict__ out) {
-  using S = Shape<P>;
-  using Ms = MmaShape<P>;
+  using S = Shape<P, NP>;
+  using Ms = MmaShape<P, NP & kShMask>;
   using L = DenseHdLayout<P, NP>;
   constexpr int P13 = S::P13, KB = L::KB, NT = Ms::P13P / 8;
   constexpr int kNP = rung_of(NP);
@@ -383,7 +388,7 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
   const int2 rows = BLOCK ? hd_rows(gr) : make_int2(0, 0);
   const int nrt = (rows.y - rows.x) / kHdRowCells;
   // no barrier in this kernel
-  if (task >= (BLOCK ? kComps * nrt * NG : lay.mt / 2 * NG)) return;
+  if (task >= (BLOCK ? S::C * nrt * NG : lay.mt / 2 * NG)) return;
   const int mt0 = BLOCK ? ((task / NG / nrt) * lay.ncp + rows.x) / 16 +
                               2 * (task / NG % nrt)
                         : task / NG * 2;
@@ -471,7 +476,9 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   const int2 rows = is_block(FORM) ? hd_rows(gr) : make_int2(0, lay.ncp);
   const int ncr = rows.y - rows.x;
   if (ncr <= 0) return cudaSuccess;  // an empty range of the block form
-  const size_t n_in = static_cast<size_t>(kComps) * MmaShape<P>::P13P * ncr;
+  using Ms = typename L::Ms;
+  constexpr int C = Shape<P, NP>::C;
+  const size_t n_in = static_cast<size_t>(C) * Ms::P13P * ncr;
   dense_hd_gather_kernel<P, FORM, NP & ~kJtjChain>
       <<<(n_in + kHdGatherThreads - 1) / kHdGatherThreads, kHdGatherThreads,
          0, st>>>(gr, mask, u, x, reinterpret_cast<__nv_bfloat16*>(us));
@@ -481,18 +488,19 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   // backward in B3's form the state's (its bf16 store, where io.bf16 is
   // set), so that the other instantiations of a rung are shared
   constexpr int NPF = NP & ~kSbState;
-  constexpr int NPB = FORM == kCellBatch ? NP & ~kSbMetric : rung_of(NP);
+  constexpr int NPR = rung_of(NP) | (NP & kShMask);  // the rung and shape
+  constexpr int NPB = FORM == kCellBatch ? NP & ~kSbMetric : NPR;
   dense_hd_forward_kernel<P, REBUILD, NPF, is_block(FORM)>
-      <<<dim3(ncr / kHdRowCells, MmaShape<P>::QC), kHdFwdThreads, 0, st>>>(
+      <<<dim3(ncr / kHdRowCells, Ms::QC), 32 * C, 0, st>>>(
           static_cast<const uint2*>(mf), gmetric, gr, x, us, ts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  constexpr int NG = (MmaShape<P>::P13P / 8 + kHdBwdTiles - 1) / kHdBwdTiles;
-  const int tasks = kComps * (ncr / kHdRowCells) * NG;
+  constexpr int NG = (Ms::P13P / 8 + kHdBwdTiles - 1) / kHdBwdTiles;
+  const int tasks = C * (ncr / kHdRowCells) * NG;
   const int nb = (tasks + kHdBwdWarps - 1) / kHdBwdWarps;
-  if constexpr (NPB != rung_of(NP)) {
+  if constexpr (NPB != NPR) {
     if (!x.io.bf16) {  // B3's output at f32: the rung's own pass
-      dense_hd_backward_kernel<P, true, rung_of(NP), false>
+      dense_hd_backward_kernel<P, true, NPR, false>
           <<<nb, 32 * kHdBwdWarps, 0, st>>>(static_cast<const uint2*>(mb), gr,
                                            mask, ts, out);
       return cudaGetLastError();

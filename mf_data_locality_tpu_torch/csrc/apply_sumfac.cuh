@@ -79,6 +79,12 @@
 // component 0's x pass.  SB = 0 is the pass as it was; the SB
 // instantiations are built in sumfac_sb.cu, one object a degree.
 //
+// Shape (SB's kShC1, kShQ1, bp4_operator.cuh): one component (CEED BP3)
+// and Q = P + 1; the same code, the component loop and the q extents
+// constants of the instantiation.  Every shape fits the layout above:
+// Q = P + 1 needs less shared memory than BP4's Q = P + 2, one component
+// as much (the block holds one component's input at a time).
+//
 // Input forms (FORM, bp4_operator.cuh): kCellBatch (B3, B4); kLattice (B5,
 // B6, B1; B6 masks by the mask tensor, B5 and B1 by the box's Dirichlet
 // mask from the indices); kLatticeUpdate (B2, the four scalars staged once
@@ -120,24 +126,24 @@ constexpr size_t kSmemSm = 233472;     // an SM's, 1 KB of it a block's own
 // row, halved from p=7 on until the block's shared memory (SumfacSmem with
 // the coefficients) fits in kSmemBlock: f32 4 at p=7, 8; 2 at p=9..11 (f64
 // half as many).
-template <typename T, int P>
+template <typename T, int P, int SH = 0>
 constexpr size_t sumfac_bytes(int bc) {
-  using S = Shape<P>;
+  using S = Shape<P, SH>;
   return sizeof(T) *
          (static_cast<size_t>(bc) * (6 * S::Q3 + 2 * S::P12 * S::Q +
                                      3 * S::P1 * S::Q2 + S::P13 + 24) +
           2 * S::Q * S::P1 + 4);
 }
-template <typename T, int P>
+template <typename T, int P, int SH = 0>
 constexpr int sumfac_cells() {
   int bc = 32 / static_cast<int>(sizeof(T));
-  while (bc > 1 && sumfac_bytes<T, P>(bc) > kSmemBlock) bc /= 2;
+  while (bc > 1 && sumfac_bytes<T, P, SH>(bc) > kSmemBlock) bc /= 2;
   return bc;
 }
-template <typename T, int P>
+template <typename T, int P, int SH = 0>
 struct SumfacCells {
-  static constexpr int N = sumfac_cells<T, P>();
-  static_assert(sumfac_bytes<T, P>(N) <= kSmemBlock, "no layout fits");
+  static constexpr int N = sumfac_cells<T, P, SH>();
+  static_assert(sumfac_bytes<T, P, SH>(N) <= kSmemBlock, "no layout fits");
 };
 
 // What the pass reads and writes, device pointers at the working type T.
@@ -156,10 +162,10 @@ struct SumfacArgs {
   int cofactor;      // rebuilt: the inversion chain, kAdjj or kJtj
 };
 
-template <typename T, int P, bool REBUILD>
+template <typename T, int P, bool REBUILD, int SH = 0>
 struct SumfacSmem {
-  using S = Shape<P>;
-  static constexpr int BC = SumfacCells<T, P>::N;
+  using S = Shape<P, SH>;
+  static constexpr int BC = SumfacCells<T, P, SH>::N;
   static constexpr int kThreads = S::Q2 * BC;
   T g[6][S::Q3][BC];               // the block's metric, entries 00 .. 22
   T x[2][S::P1][S::P1][S::Q][BC];  // x-direction partials (S, D): (kz, ky, qx)
@@ -183,7 +189,7 @@ struct SumfacSmem {
 // SM and ran slower (PERF.md).
 template <typename T, int P, bool REBUILD, int FORM, int SB = 0>
 struct SumfacInput {
-  using Sm = SumfacSmem<T, P, REBUILD>;
+  using Sm = SumfacSmem<T, P, REBUILD, SB & kShMask>;
   static constexpr bool kMasked = FORM == kLattice;
   T v[Sm::PER];
   T m[kMasked ? Sm::PER : 1];
@@ -191,7 +197,7 @@ struct SumfacInput {
   __device__ __forceinline__ void load(const Grid& gr, const SumfacArgs<T>& a,
                                        const Sm& sm, int c, int cell0,
                                        int nlive) {
-    using S = Shape<P>;
+    using S = Shape<P, SB>;
     constexpr int BC = Sm::BC, P13 = S::P13;
     const int nc = gr.n_cells();
 #pragma unroll
@@ -232,7 +238,7 @@ struct SumfacInput {
 #pragma unroll
     for (int j = 0; j < Sm::PER; ++j) {
       const int i = threadIdx.x + j * Sm::kThreads;
-      if (i < Shape<P>::P13 * Sm::BC)
+      if (i < Shape<P, SB>::P13 * Sm::BC)
         (&sm.u[0][0])[i] = kMasked ? v[j] * m[j] : v[j];
     }
   }
@@ -241,19 +247,22 @@ struct SumfacInput {
 // Blocks an SM: three at p <= 4 (73.4 KB of shared memory each at p=4 with
 // the rebuilt metric, 72.6 KB streamed), which cap a thread at 72
 // registers in f32; from p=5 as many as the shared memory holds, one.
-template <typename T, int P, bool REBUILD>
+template <typename T, int P, bool REBUILD, int SH = 0>
 constexpr int sumfac_blocks() {
-  const size_t n = kSmemSm / (sizeof(SumfacSmem<T, P, REBUILD>) + 1024);
+  const size_t n = kSmemSm / (sizeof(SumfacSmem<T, P, REBUILD, SH>) + 1024);
   return n < 3 ? static_cast<int>(n) : 3;
 }
 
 template <typename T, int P, int FORM, bool REBUILD, int SB = 0>
-__global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
-                                  sumfac_blocks<T, P, REBUILD>())
+__global__ void __launch_bounds__(
+    SumfacSmem<T, P, REBUILD, SB & kShMask>::kThreads,
+    sumfac_blocks<T, P, REBUILD, SB & kShMask>())
     apply_sumfac_kernel(SumfacArgs<T> a, Grid gr) {
-  static_assert(SB == 0 || std::is_same_v<T, float>, "bf16 storage: f32");
-  using S = Shape<P>;
-  using Sm = SumfacSmem<T, P, REBUILD>;
+  static_assert((SB & (kSbState | kSbMetric)) == 0 ||
+                    std::is_same_v<T, float>,
+                "bf16 storage: f32");
+  using S = Shape<P, SB>;
+  using Sm = SumfacSmem<T, P, REBUILD, SB & kShMask>;
   constexpr int BC = Sm::BC, NT = Sm::kThreads;
   constexpr int P1 = S::P1, Q = S::Q, Q2 = S::Q2, Q3 = S::Q3, P13 = S::P13;
   constexpr bool kAhead = FORM == kCellBatch;  // next component's input
@@ -325,7 +334,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
   }
   in.store(sm);
 
-  for (int c = 0; c < kComps; ++c) {
+  for (int c = 0; c < S::C; ++c) {
     __syncthreads();
 
     // x pass: thread (ky, qx)
@@ -421,7 +430,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
         sm.w[2][kz][col][b] = wss[kz];
       }
     }
-    if (kAhead && c + 1 < kComps) in.load(gr, a, sm, c + 1, cell0, nlive);
+    if (kAhead && c + 1 < S::C) in.load(gr, a, sm, c + 1, cell0, nlive);
     __syncthreads();
 
     // backward y pass: thread (ky, qx)
@@ -487,7 +496,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
       T* dst = a.out + (static_cast<size_t>(c) * nc + cell0) * P13;
       for (int i = tid; i < nlive * P13; i += NT) dst[i] = stage[i];
     }
-    if (c + 1 < kComps) {  // sm.u was last read by the x pass
+    if (c + 1 < S::C) {  // sm.u was last read by the x pass
       if (!kAhead) in.load(gr, a, sm, c + 1, cell0, nlive);
       in.store(sm);
     }
@@ -497,7 +506,7 @@ __global__ void __launch_bounds__(SumfacSmem<T, P, REBUILD>::kThreads,
 template <typename T, int P, int FORM, bool REBUILD, int SB = 0>
 cudaError_t launch_sumfac_here(const SumfacArgs<T>& a, const Grid& gr,
                                cudaStream_t st) {
-  using Sm = SumfacSmem<T, P, REBUILD>;
+  using Sm = SumfacSmem<T, P, REBUILD, SB & kShMask>;
   auto kern = apply_sumfac_kernel<T, P, FORM, REBUILD, SB>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -5,7 +5,8 @@
 // nodes (cell_input) and the assemble pass.
 //
 // What B1/B2 compute, per hex cell of the lattice (C = 3 components, degree
-// P, Q = P + 2 Gauss points per direction), on the cell's (P+1)^3 node
+// P, Q = P + 2 Gauss points per direction: BP4; the shape flags below give
+// C = 1, CEED BP3, and Q = P + 1), on the cell's (P+1)^3 node
 // values u (the TPU kernel's _operator_block twostage branch with
 // _metric_onthefly's adjj chain, mf_data_locality_tpu/ops/
 // cg_fused_kernel.py:583-651, :178-265):
@@ -75,9 +76,22 @@ __host__ __device__ constexpr bool is_block(int form) {
   return form == kLatticeUpdateBlock;
 }
 
-template <int P>
+// Shape flags of the instantiations beyond BP4's (C = 3 components, Q =
+// P + 2 Gauss points a direction), in the passes' flag argument beside the
+// storage flags (the sum-factorized pass's SB, the tensor-core passes'
+// NP): kShC1 one component (CEED BP3), kShQ1 Q = P + 1 (the Gauss rule of
+// deal.II's matrix-free programs, QGauss<dim>(fe_degree + 1)).  Without
+// them a pass is the code it was; each shape's instantiations are built in
+// shapes.cu, one object a degree and shape.  C is a constant of each
+// instantiation: as a run-time field of CellIo, read so that one
+// instantiation serves both counts, it moved the registers of five of
+// BP4's P/x instantiations (PERF.md).
+constexpr int kShC1 = 32, kShQ1 = 64, kShMask = kShC1 | kShQ1;
+
+template <int P, int F = 0>
 struct Shape {
-  static constexpr int P1 = P + 1, Q = P + 2;
+  static constexpr int C = (F & kShC1) ? 1 : kComps;
+  static constexpr int P1 = P + 1, Q = P + ((F & kShQ1) ? 1 : 2);
   static constexpr int P12 = P1 * P1, P13 = P12 * P1;
   static constexpr int Q2 = Q * Q, Q3 = Q2 * Q;
 };
@@ -532,9 +546,9 @@ __device__ void block_sum(T (*red)[kNodeThreads], const T* v) {
 // and z carry plane.  V: the storage of h and d (T, or bf16
 // for the bf16 state: h is rounded where it is stored, and the sums read
 // the stored d' and h').  PBF: prec holds bf16 values (prec_dtype bf16),
-// upcast at the load.
+// upcast at the load.  NC: the vectors' components (kComps; 1 for BP3).
 template <typename T, int P, bool DOTS, typename V = T, bool PBF = false,
-          bool BLOCK = false>
+          bool BLOCK = false, int NC = kComps>
 __global__ void __launch_bounds__(kNodeThreads)
     assemble_kernel(Grid gr, const T* __restrict__ cells, V* __restrict__ h,
                     const T* __restrict__ g, const V* __restrict__ d,
@@ -552,7 +566,7 @@ __global__ void __launch_bounds__(kNodeThreads)
       pv = load_px(prec, node, true);
     else if constexpr (DOTS)
       pv = prec[node];
-    for (int c = 0; c < kComps; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const size_t idx = static_cast<size_t>(c) * n_nodes + node;
       const V hs = to_store<V>(in ? gather_node<T, P>(cells, gr, c, z, y, x)
                                   : T(0));

@@ -13,7 +13,11 @@
 // from the 24 trilinear coefficients by the adjj or the jtj chain (the JAX
 // auto-dispatch's twostage + onthefly + jtj from p=5), or streamed.  At
 // p=1..3 only an explicit --factor twostage reaches it (the JAX resolvers
-// pick dense there).
+// pick dense there).  At the shapes beyond BP4's (shapes.cuh: one
+// component, Q = P + 1; NP's shape flags) it runs at every degree, p=4
+// included: a block is one component of 8 cells and C the grid's y, so
+// one component keeps the layout; an odd Q (Q = P + 1 at even P) pads its
+// last plane pair with the zero plane, as at P = 1, 3.
 //
 // It computes what cell_mma.cuh computes at p=4 (_operator_block's
 // twostage branch, :583-651, under _prestack / _mm_pre's split2m): the z
@@ -86,9 +90,9 @@ namespace bp4 {
 constexpr int kHdCells = 8;    // cells of a warp's task
 constexpr int kHdThreads = 32;  // one warp a block
 
-template <int P>
+template <int P, int SH = 0>
 struct CellMmaHdShape {
-  using S = Shape<P>;
+  using S = Shape<P, SH>;
   static constexpr int Q2P = (S::Q2 + 15) / 16 * 16;    // q-points a plane
   static constexpr int P12P = (S::P12 + 15) / 16 * 16;  // (ky, kx) columns
   static constexpr int QC = Q2P / 16;   // q-point chunks: backward k16 steps
@@ -102,10 +106,10 @@ struct CellMmaHdShape {
                 "strides and tiles of the tensor-core cell pass");
 };
 
-template <int P>
+template <int P, int SH = 0>
 struct CellMmaHdSmem {
-  using S = Shape<P>;
-  using Hs = CellMmaHdShape<P>;
+  using S = Shape<P, SH>;
+  using Hs = CellMmaHdShape<P, SH>;
   // lane-private fragments: the z stage's (uS hi, uS lo, uD hi, uD lo) per
   // k16 step, and the metric apply's (hi, lo) per direction and chunk
   uint4 a[Hs::KF][4][kHdThreads];
@@ -120,11 +124,11 @@ struct CellMmaHdSmem {
 // G at q-point (qz, q2) of `cell`, zero past the plane's q^2 q-points, past
 // Q planes and past the last cell (its coefficients are zero).  FLEX: the
 // streamed metric is f32 (0), f32 or bf16 by tb.metric_bf16 (1), bf16 (2).
-template <int P, bool REBUILD, int COFACTOR, int FLEX>
+template <int P, bool REBUILD, int COFACTOR, int FLEX, int SH = 0>
 __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
                                           const float* c24, int nc, int cell,
                                           int qz, int q2, float (&g)[6]) {
-  using S = Shape<P>;
+  using S = Shape<P, SH>;
   if (qz >= S::Q || q2 >= S::Q2) {
 #pragma unroll
     for (int e = 0; e < 6; ++e) g[e] = 0.f;
@@ -159,12 +163,13 @@ template <int P, bool FUSED, bool REBUILD, int COFACTOR, int NP,
 __global__ void __launch_bounds__(kHdThreads)
     cells_mma_hd_kernel(OpTables<float> tb, Grid gr, CellIo<float> io,
                         float* __restrict__ cells) {
-  using S = Shape<P>;
-  using Hs = CellMmaHdShape<P>;
+  constexpr int SH = NP & kShMask;
+  using S = Shape<P, SH>;
+  using Hs = CellMmaHdShape<P, SH>;
   constexpr int P1 = S::P1, P12 = S::P12, P13 = S::P13, Q = S::Q;
   constexpr int P12P = Hs::P12P, KF = Hs::KF, QC = Hs::QC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellMmaHdSmem<P>*>(smem_raw);
+  auto& sm = *reinterpret_cast<CellMmaHdSmem<P, SH>*>(smem_raw);
   const int lane = threadIdx.x;
   const int c = blockIdx.y;
   const int nc = gr.n_cells();
@@ -309,7 +314,7 @@ __global__ void __launch_bounds__(kHdThreads)
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
             float G[6];
-            hd_metric<P, REBUILD, COFACTOR, FLEX_METRIC>(
+            hd_metric<P, REBUILD, COFACTOR, FLEX_METRIC, SH>(
                 tb, sm.c24[b], nc, cell, qz0 + r, 16 * j + 8 * hh + 2 * t4 + e2,
                 G);
             const float gx = ga[0][hh][2 * r + e2], gy = ga[1][hh][2 * r + e2],
@@ -408,13 +413,14 @@ cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
                                      const CellIo<float>& io, float* cells,
                                      cudaStream_t st) {
   auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR, NP, PX>;
+  using Sm = CellMmaHdSmem<P, NP & kShMask>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sizeof(CellMmaHdSmem<P>));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((gr.n_cells() + kHdCells - 1) / kHdCells, kComps);
-  kern<<<grid, kHdThreads, sizeof(CellMmaHdSmem<P>), st>>>(tb, gr, io, cells);
+  const dim3 grid((gr.n_cells() + kHdCells - 1) / kHdCells,
+                  Shape<P, NP>::C);
+  kern<<<grid, kHdThreads, sizeof(Sm), st>>>(tb, gr, io, cells);
   return cudaGetLastError();
 }
 

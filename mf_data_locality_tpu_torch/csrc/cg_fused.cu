@@ -72,6 +72,10 @@
 //   cell pass (kLatticeUpdatePx, PX) and of the assemble pass reads them,
 //   built in cg_fused_px.cu (fused_iteration_px) and the per-degree
 //   sources; x' is rounded where it is stored.
+// At the shapes beyond BP4's (one component, CEED BP3; Q = P + 1;
+// shapes.cuh) the cell passes of shapes.cu: highest the sum-factorized
+// pass, split2m dense apply_mma_hd.cuh's and twostage cell_mma_hd.cuh's at
+// every degree; the assemble pass over the shape's components.
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -108,18 +112,62 @@
 // or -1 for a configuration with no instantiation.
 
 #include "cg_fused.cuh"
+#include "shapes.cuh"
 
 namespace bp4 {
 
+// The node passes of B1 (DOTS false) and B2 at a shape beyond BP4's
+// (shapes.cuh): the assemble pass over the shape's components and, for
+// B2, the finalize pass.
+template <typename T, int P, bool DOTS>
+int shape_node_passes(int shape, const Grid& gr, const T* cells, T* h,
+                      const CellIo<T>& io, T* scal2, T* partials,
+                      cudaStream_t st) {
+  const int nb = node_blocks(gr);
+  if (shape & kShC1)
+    assemble_kernel<T, P, DOTS, T, false, false, 1>
+        <<<nb, kNodeThreads, 0, st>>>(gr, cells, h, io.g2, io.d2, io.prec,
+                                      partials);
+  else
+    assemble_kernel<T, P, DOTS, T><<<nb, kNodeThreads, 0, st>>>(
+        gr, cells, h, io.g2, io.d2, io.prec, partials);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !DOTS) return e;
+  finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, io.scal,
+                                                 scal2);
+  return cudaGetLastError();
+}
+
+// B1 or B2 at a shape beyond BP4's: its cell pass (shapes.cu), then the
+// node passes; -1 for what the shapes are not built with (shapes.cuh).
+template <typename T, int P, bool FUSED>
+int shape_iteration(int shape, int rung, int dense, int cofactor,
+                    const OpTables<T>& tb, const Grid& gr,
+                    const CellIo<T>& io, T* h, T* scal2, T* cells,
+                    T* partials, void* scratch, cudaStream_t st) {
+  const cudaError_t e = with_shape(shape, [&](auto sh) {
+    return shape_cells<T, P, decltype(sh)::value, FUSED>(
+        rung, dense, cofactor, tb, gr, io, cells, scratch, st);
+  });
+  if (e != cudaSuccess) return e;
+  return shape_node_passes<T, P, FUSED>(shape, gr, cells, h, io, scal2,
+                                        partials, st);
+}
+
 // store: d and h (d' and h') in bf16, the bf16 state (every rung).
+// shape: 0 BP4's, else the shape flags of shapes.cuh.
 template <typename T, int P>
 struct Launch {
-  static int matvec(int rung, int dense, int cofactor, int store,
+  static int matvec(int rung, int shape, int dense, int cofactor, int store,
                     const OpTables<T>& tb, const Grid& gr, const T* d,
                     T* cells, T* h, void* scratch, cudaStream_t st) {
     CellIo<T> io{};
     io.d = d;
     io.bf16 = store;
+    if (shape)
+      return shape_iteration<T, P, false>(shape, rung, dense, cofactor, tb,
+                                          gr, io, h, nullptr, cells, nullptr,
+                                          scratch, st);
     cudaError_t e = launch_cells<T, P, false>(rung, dense, cofactor, tb, gr,
                                               io, cells, scratch, st);
     if (e != cudaSuccess) return e;
@@ -131,7 +179,7 @@ struct Launch {
   // cg_fused_px.cu's instantiations
   // block: the block form (gr a block's Grid, the 7 sums in scal2), with
   // P and x at T
-  static int fused(int rung, int dense, int cofactor, int store,
+  static int fused(int rung, int shape, int dense, int cofactor, int store,
                    int prec_bf16, int x_bf16, const OpTables<T>& tb,
                    const Grid& gr, const T* x, const T* g, const T* d,
                    const T* h, const T* prec, const T* scal, T* x2, T* g2,
@@ -141,6 +189,11 @@ struct Launch {
     io.bf16 = store;
     io.prec_bf16 = prec_bf16;
     io.x_bf16 = x_bf16;
+    if (shape)
+      return block ? -1
+                   : shape_iteration<T, P, true>(shape, rung, dense, cofactor,
+                                                 tb, gr, io, h2, scal2, cells,
+                                                 partials, scratch, st);
     if (block)
       return prec_bf16 || x_bf16
                  ? -1
@@ -214,6 +267,10 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // gmetric: the streamed metric (6 Q3, n_cells), in bf16 where metric_bf16
 // is set (f32, every rung), or null for the metric rebuilt from the
 // coefficients by the chain `cofactor` (0 adjj, 1 jtj).
+// shape: 0 BP4's (C = 3, Q = P + 2), else the shape flags of shapes.cuh
+// (kShC1 one component, kShQ1 Q = P + 1): highest (f32, f64) and split2m,
+// neither store, metric_bf16, prec_bf16 nor x_bf16 set; B2's block form is
+// BP4's only.
 // store: d, h, d2, h2 in bf16 (f32, every rung).  prec_bf16
 // (bp4_fused_iteration): prec in bf16; x_bf16: x and x2 in bf16 (every
 // configuration above; with store or metric_bf16 only on the bf16 rung,
@@ -228,7 +285,8 @@ const char* bp4_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
+int bp4_matvec(int dtype, int rung, int degree, int shape, int dense,
+               int cofactor,
                int store, int metric_bf16, const void* mats, const void* sz,
                const void* dz, const void* pds, const void* w3,
                const void* coeffs, const void* gmetric, const void* d,
@@ -238,7 +296,7 @@ int bp4_matvec(int dtype, int rung, int degree, int dense, int cofactor,
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_MATVEC(T, P)                                                   \
   Launch<T, P>::matvec(                                                    \
-      rung, dense, cofactor, store,                                        \
+      rung, shape, dense, cofactor, store,                                 \
       tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr, \
       static_cast<const T*>(d), static_cast<T*>(cells), static_cast<T*>(h), \
       scratch, st)
@@ -256,7 +314,8 @@ namespace {
 
 // B2 on `gr` (the box; block = 1: a block's Grid, the 7 sums in scal2,
 // `passes` as fused_iteration's)
-int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
+int fused_entry(int dtype, int rung, int degree, int shape, int dense,
+                int cofactor,
                 int store, int metric_bf16, int prec_bf16, int x_bf16,
                 const void* mats, const void* sz, const void* dz,
                 const void* pds, const void* w3, const void* coeffs,
@@ -268,7 +327,7 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_FUSED(T, P)                                                       \
   Launch<T, P>::fused(                                                        \
-      rung, dense, cofactor, store, prec_bf16, x_bf16,                        \
+      rung, shape, dense, cofactor, store, prec_bf16, x_bf16,                 \
       tables<T>(mats, sz, dz, pds, w3, coeffs, gmetric, metric_bf16), gr,     \
       static_cast<const T*>(x), static_cast<const T*>(g),                     \
       static_cast<const T*>(d), static_cast<const T*>(h),                     \
@@ -288,8 +347,8 @@ int fused_entry(int dtype, int rung, int degree, int dense, int cofactor,
 
 extern "C" {
 
-int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
-                        int cofactor, int store, int metric_bf16,
+int bp4_fused_iteration(int dtype, int rung, int degree, int shape,
+                        int dense, int cofactor, int store, int metric_bf16,
                         int prec_bf16, int x_bf16, const void* mats,
                         const void* sz, const void* dz, const void* pds,
                         const void* w3, const void* coeffs,
@@ -299,10 +358,10 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int dense,
                         void* h2, void* scal2, void* cells, void* partials,
                         void* scratch, int ncz, int ncy, int ncx,
                         void* stream) {
-  return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
-                     prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
-                     gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
-                     cells, partials, scratch,
+  return fused_entry(dtype, rung, degree, shape, dense, cofactor, store,
+                     metric_bf16, prec_bf16, x_bf16, mats, sz, dz, pds, w3,
+                     coeffs, gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2,
+                     scal2, cells, partials, scratch,
                      make_grid(degree, ncz, ncy, ncx), 0,
                      bp4::kCellPass | bp4::kNodePasses, stream);
 }
@@ -339,10 +398,10 @@ int bp4_fused_iteration_block(
   gr.xlo = xlo;
   gr.xhi = xhi;
   gr.xown = xown;
-  return fused_entry(dtype, rung, degree, dense, cofactor, store, metric_bf16,
-                     prec_bf16, x_bf16, mats, sz, dz, pds, w3, coeffs,
-                     gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2, scal2,
-                     cells, partials, scratch, gr, 1, passes, stream);
+  return fused_entry(dtype, rung, degree, 0, dense, cofactor, store,
+                     metric_bf16, prec_bf16, x_bf16, mats, sz, dz, pds, w3,
+                     coeffs, gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2,
+                     scal2, cells, partials, scratch, gr, 1, passes, stream);
 }
 
 // C10: the f32 carry of B2's block form under a bf16 state

@@ -36,6 +36,10 @@
 // (kSbMetric) comes with the same instantiations, its storage fixed at
 // compile time; split3's and bf16's read it by metric_bf16, as before.
 //
+// At the shapes beyond BP4's (one component, CEED BP3; Q = P + 1;
+// shapes.cuh): highest (and B4 on every rung) the sum-factorized pass,
+// split2m apply_mma_hd.cuh's dense pass at every degree (shapes.cu).
+//
 // B5 and B6 write masked cell-local values to scratch; the assemble pass
 // (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
 // order (no atomics), and zeroes the box's faces — or, on a block of a
@@ -56,6 +60,7 @@
 #include "apply_mma_hd.cuh"
 #include "apply_sumfac.cuh"
 #include "bp4_operator.cuh"
+#include "shapes.cuh"
 
 namespace bp4 {
 
@@ -148,13 +153,29 @@ cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
 
 // B3 (metric streamed) and B4 (onthefly) on a cell batch (C P13, n_cells).
 // mats/kmats: the tables of metric_pass (B3); S and D (B4).
+// shape: 0 BP4's, else the shape flags of shapes.cuh (neither bf16
+// argument set).
 template <int P>
-int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
-                       int state_bf16, const void* mats, const void* kmats,
-                       const void* gmetric, const void* pds, const void* w3,
-                       const void* coeffs, const void* u, void* v,
-                       void* scratch, int n_cells, cudaStream_t st) {
+int batched_for_degree(int dtype, int rung, int shape, int onthefly,
+                       int metric_bf16, int state_bf16, const void* mats,
+                       const void* kmats, const void* gmetric,
+                       const void* pds, const void* w3, const void* coeffs,
+                       const void* u, void* v, void* scratch, int n_cells,
+                       cudaStream_t st) {
   const Grid gr{1, 1, n_cells, 1, 1, 1};
+  if (shape) {
+    if (metric_bf16 || state_bf16 || dtype < 0 || dtype > 1) return -1;
+    return with_shape(shape, [&](auto sh) {
+      constexpr int SH = decltype(sh)::value;
+      return dtype == 0
+                 ? shape_batched<float, P, SH>(rung, onthefly, mats, kmats,
+                                               gmetric, pds, w3, coeffs, gr,
+                                               u, v, scratch, st)
+                 : shape_batched<double, P, SH>(rung, onthefly, mats, kmats,
+                                                gmetric, pds, w3, coeffs, gr,
+                                                u, v, scratch, st);
+    });
+  }
   if (dtype == 0)
     return onthefly  // B4 is exact on every rung
                ? rebuilt_pass<float, P>(mats, kmats, pds, w3, coeffs, gr, u, v,
@@ -178,11 +199,40 @@ int batched_for_degree(int dtype, int rung, int onthefly, int metric_bf16,
 // lattice (with a mask tensor), assembled without the box's faces (the
 // assemble pass's BLOCK on a Grid whose lo and hi take in every node).
 // state: 0 at T; 1 bf16, B6's y/x sums; 2 bf16, B5's (assemble_bf16_kernel).
+// shape: 0 BP4's, else the shape flags of shapes.cuh (state 0, no
+// bf16 metric, not a block).
 template <typename T, int P>
-int lattice_typed(int rung, int metric_bf16, int state, const void* mats,
-                  const void* kmats, const void* gmetric, const void* mask,
-                  const void* u, void* cells, void* v, void* scratch,
-                  const Grid& gr, int block, cudaStream_t st) {
+int lattice_shape(int rung, int shape, const void* mats, const void* kmats,
+                  const void* gmetric, const void* mask, const void* u,
+                  void* cells, void* v, void* scratch, const Grid& gr,
+                  cudaStream_t st) {
+  const cudaError_t e = with_shape(shape, [&](auto sh) {
+    return shape_lattice_cells<T, P, decltype(sh)::value>(
+        rung, mats, kmats, gmetric, gr, mask, u, cells, scratch, st);
+  });
+  if (e != cudaSuccess) return e;
+  const auto c = static_cast<const T*>(cells);
+  const auto h = static_cast<T*>(v);
+  if (shape & kShC1)
+    assemble_kernel<T, P, false, T, false, false, 1>
+        <<<node_blocks(gr), kNodeThreads, 0, st>>>(gr, c, h, nullptr,
+                                                   nullptr, nullptr, nullptr);
+  else
+    assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
+        gr, c, h, nullptr, nullptr, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T, int P>
+int lattice_typed(int rung, int shape, int metric_bf16, int state,
+                  const void* mats, const void* kmats, const void* gmetric,
+                  const void* mask, const void* u, void* cells, void* v,
+                  void* scratch, const Grid& gr, int block, cudaStream_t st) {
+  if (shape)
+    return metric_bf16 || state || block
+               ? -1
+               : lattice_shape<T, P>(rung, shape, mats, kmats, gmetric, mask,
+                                     u, cells, v, scratch, gr, st);
   const cudaError_t e = metric_pass<T, P, true>(
       rung, metric_bf16, state != 0, mats, kmats, gmetric, gr, mask, u,
       cells, scratch, st);
@@ -227,19 +277,19 @@ int lattice_typed(int rung, int metric_bf16, int state, const void* mats,
 }
 
 template <int P>
-int lattice_for_degree(int dtype, int rung, int metric_bf16, int state,
-                       const void* mats, const void* kmats,
+int lattice_for_degree(int dtype, int rung, int shape, int metric_bf16,
+                       int state, const void* mats, const void* kmats,
                        const void* gmetric, const void* mask, const void* u,
                        void* cells, void* v, void* scratch, const Grid& gr,
                        int block, cudaStream_t st) {
   if (dtype == 0)
-    return lattice_typed<float, P>(rung, metric_bf16, state, mats, kmats,
-                                   gmetric, mask, u, cells, v, scratch, gr,
-                                   block, st);
+    return lattice_typed<float, P>(rung, shape, metric_bf16, state, mats,
+                                   kmats, gmetric, mask, u, cells, v, scratch,
+                                   gr, block, st);
   if (dtype == 1)
-    return lattice_typed<double, P>(rung, metric_bf16, state, mats, kmats,
-                                    gmetric, mask, u, cells, v, scratch, gr,
-                                    block, st);
+    return lattice_typed<double, P>(rung, shape, metric_bf16, state, mats,
+                                    kmats, gmetric, mask, u, cells, v,
+                                    scratch, gr, block, st);
   return -1;
 }
 
@@ -257,7 +307,10 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16, int state,
 // metric in bf16 (f32, every rung).  state_bf16 (bp4_apply_batched):
 // u and v in bf16 (f32 only, every rung, B4 too); state
 // (bp4_apply_lattice): 0 u and v at the working type, 1 in bf16 with B6's
-// sums, 2 in bf16 with B5's (the cells scratch stays f32).
+// sums, 2 in bf16 with B5's (the cells scratch stays f32).  shape: 0
+// BP4's (C = 3, Q = P + 2), else the shape flags of shapes.cuh (kShC1 one
+// component, kShQ1 Q = P + 1): highest (f32, f64) and split2m, B4 on every
+// rung, u and v at the working type, the metric unrounded, not a block.
 #define BP4_SWITCH_DEGREE(F)     \
   switch (degree) {              \
     case 1: return F(1);         \
@@ -276,9 +329,25 @@ int lattice_for_degree(int dtype, int rung, int metric_bf16, int state,
 extern "C" {
 
 // The scratch of the dense tensor-core pass at degrees 5..11 (B3, B5, B6,
-// B1/B2 dense) under the rung with `rung` products a tile, for n_cells
-// cells, in 16-byte words; 0 where the pass needs none.
-int bp4_dense_scratch_len(int rung, int degree, int n_cells) {
+// B1/B2 dense) under the rung with `rung` products a tile, and at every
+// degree under split2m at a shape beyond BP4's (`shape`, shapes.cuh), for
+// n_cells cells, in 16-byte words; 0 where the pass needs none.
+int bp4_dense_scratch_len(int rung, int degree, int shape, int n_cells) {
+  if (shape) {
+    if (rung != 2) return 0;
+#define BP4_SHAPE_SCRATCH(P)                                                  \
+  static_cast<int>(shape == bp4::kShC1                                        \
+                       ? bp4::shape_dense_scratch_len<P, bp4::kShC1>(n_cells) \
+                   : shape == bp4::kShQ1                                      \
+                       ? bp4::shape_dense_scratch_len<P, bp4::kShQ1>(n_cells) \
+                       : bp4::shape_dense_scratch_len<P, bp4::kShMask>(       \
+                             n_cells))
+    if (shape != bp4::kShC1 && shape != bp4::kShQ1 && shape != bp4::kShMask)
+      return 0;
+    BP4_SWITCH_DEGREE(BP4_SHAPE_SCRATCH)
+#undef BP4_SHAPE_SCRATCH
+    return 0;
+  }
 #define BP4_SCRATCH(P)                                                 \
   static_cast<int>(                                                    \
       rung == 1   ? bp4::dense_hd_scratch_len<P, 1>(n_cells)           \
@@ -298,15 +367,16 @@ int bp4_dense_scratch_len(int rung, int degree, int n_cells) {
   return 0;
 }
 
-int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
-                      int metric_bf16, int state_bf16, const void* mats,
+int bp4_apply_batched(int dtype, int rung, int degree, int shape,
+                      int onthefly, int metric_bf16, int state_bf16,
+                      const void* mats,
                       const void* kmats,
                       const void* gmetric, const void* pds, const void* w3,
                       const void* coeffs, const void* u, void* v,
                       void* scratch, int n_cells, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define BP4_BATCHED(P)                                                       \
-  bp4::batched_for_degree<P>(dtype, rung, onthefly, metric_bf16,            \
+  bp4::batched_for_degree<P>(dtype, rung, shape, onthefly, metric_bf16,     \
                              state_bf16, mats, kmats, gmetric, pds, w3,      \
                              coeffs, u, v, scratch, n_cells, st)
   BP4_SWITCH_DEGREE(BP4_BATCHED)
@@ -317,7 +387,8 @@ int bp4_apply_batched(int dtype, int rung, int degree, int onthefly,
 // block: the lattice is a block of a global one (a rank's, with its mask
 // tensor): the assemble pass only sums, the faces keep their partial sums.
 int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int state,
-                      int degree, const void* mats, const void* kmats,
+                      int degree, int shape, const void* mats,
+                      const void* kmats,
                       const void* gmetric,
                       const void* mask, const void* u, void* cells, void* v,
                       void* scratch, int ncz, int ncy, int ncx, int block,
@@ -326,7 +397,8 @@ int bp4_apply_lattice(int dtype, int rung, int metric_bf16, int state,
   const bp4::Grid gr = bp4::box_grid(degree, ncz, ncy, ncx);
   if (block && !mask) return -1;
 #define BP4_LATTICE(P)                                                      \
-  bp4::lattice_for_degree<P>(dtype, rung, metric_bf16, state, mats, kmats,   \
+  bp4::lattice_for_degree<P>(dtype, rung, shape, metric_bf16, state, mats,   \
+                             kmats,                                          \
                              gmetric, mask, u, cells, v, scratch, gr, block, \
                              st)
   BP4_SWITCH_DEGREE(BP4_LATTICE)

@@ -27,9 +27,11 @@ Solver vectors are flat ``(C, n_nodes)``; :attr:`BP4Problem.a_apply` and
 :attr:`BP4Problem.a_apply_full` reshape them to the lattice only inside the
 operator (``pallas``, ``structured``).  The fused solver works on lattice
 vectors directly.  BP4 pairs with q = p + 2; ``n_q`` and ``n_components``
-(1: the scalar BP1/BP3 analogues) reach every builder, and the kernels of
-``pallas`` are sized for q = p + 2 and 3 components (``ROADMAP.md`` queue
-B item 6g).
+(1: the scalar BP1/BP3 analogues; CEED BP3 is one component at q = p + 2)
+reach every builder.  The kernels of ``pallas`` take one or three
+components and q = p + 1 or p + 2 under ``highest`` and ``split2m``
+(``laplace_cuda.check_shape``; the rest is ``ROADMAP.md`` queue B item
+6g).
 """
 
 from __future__ import annotations
@@ -146,9 +148,12 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     take any of both, and ignores ``precision``, ``windowing``,
     ``metric_dtype``, ``factor``, ``metric`` and ``cofactor``, as the JAX
     ``bp4.build`` passes them to the pallas builder only.  On ``pallas``
-    other than q = p + 2 or 3 components raises NotImplementedError
-    (``ROADMAP.md`` queue B item 6g), and a bf16 state is ``pallas``'s
-    only (ValueError elsewhere, as in the JAX package).
+    ``n_components`` 1 (CEED BP3) or 3 and ``n_q`` p + 1 or p + 2 under
+    ``highest`` and ``split2m`` with the vectors and the metric at the
+    working dtype; the rest of those shapes raises NotImplementedError
+    (``ROADMAP.md`` queue B item 6g, ``laplace_cuda.check_shape``).  A
+    bf16 state is ``pallas``'s only (ValueError elsewhere, as in the JAX
+    package).
     """
     if backend not in _VMULT:
         raise ValueError(f"unknown backend {backend!r}")
@@ -157,10 +162,10 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
             "bf16 vector storage is supported on the pallas backend (f32 "
             f"compute in the kernels); use dtype=float32 with "
             f"backend={backend!r}")
-    if backend == "pallas" and n_components != 3:
-        raise NotImplementedError(
-            f"backend='pallas' with n_components={n_components}: the "
-            f"kernels are {laplace_cuda._SHAPE_TODO}")
+    if backend == "pallas":
+        laplace_cuda.check_shape(degree, degree + 2 if n_q is None else n_q,
+                                 n_components, precision, dtype,
+                                 metric_dtype)
     layout = DofLayout(BoxMesh.from_s(s), degree)
     if backend == "pallas":
         op = laplace_cuda.make_operator(
@@ -182,7 +187,7 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
         .contiguous(), n_components, backend)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=32)
 def inverse_diagonal(s: int, degree: int) -> np.ndarray:
     """The preconditioner of 2**s cells at ``degree`` (f64, one entry a
     node: ``diagonal.compute_inverse_diagonal``), read-only and kept for
@@ -225,7 +230,7 @@ def from_jax_arrays(s: int, degree: int, *, pds: np.ndarray,
     """
     layout = DofLayout(BoxMesh.from_s(s), degree)
     nc = layout.mesh.n_cells
-    q = degree + 2
+    q = round(np.asarray(w3).size ** (1 / 3))  # the JAX operator's n_q
 
     if gmetric is not None and metric_dtype is None and np.asarray(
             gmetric).dtype.name == "bfloat16":

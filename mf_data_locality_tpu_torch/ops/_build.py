@@ -7,11 +7,13 @@ twostage tensor-core pass and the dense tensor-core pass of each degree
 and ``apply_mma_pNN.cu``, the largest instantiations, the twostage one at
 p=1..3 too, the dense one at p <= 4 with the jtj chain ``mma_jtj.cu``, and
 B2 with P or x in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
-``cg_fused_block.cu``; the sources of :data:`FLAG_BUILDS` are compiled
-once per flag set, ``-DBP4_RUNG=n`` and ``-DBP4_DEGREE=p``), and links
-them into one shared library with a plain C interface, which is loaded with :mod:`ctypes` (no
-PyTorch headers, so a build takes seconds).  The library lands in ``_kernel_build/`` inside
-the package, under a name keyed by a hash of the sources and flags, so a
+``cg_fused_block.cu``, the cell passes at the shapes beyond BP4's
+``shapes.cu``; the sources of :data:`FLAG_BUILDS` are compiled once per
+flag set, ``-DBP4_RUNG=n``, ``-DBP4_DEGREE=p`` and ``-DBP4_SHAPE=f``), and
+links them into one shared library with a plain C interface, which is
+loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
+The library lands in ``_kernel_build/`` inside the package, under a name
+keyed by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  A missing
 ``nvcc`` or a failed build raises.
 """
@@ -33,6 +35,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the shape flags of the instantiations beyond BP4's (csrc/bp4_operator.cuh:
+# kShC1 one component, kShQ1 q = p + 1; the kernels' shape argument)
+SHAPE_C1, SHAPE_Q1 = 32, 64
+
 
 def _rungs(*rungs: int) -> tuple[tuple[str, ...], ...]:
     return tuple((f"-DBP4_RUNG={r}",) for r in rungs)
@@ -69,6 +76,11 @@ FLAG_BUILDS = {
     "apply_mma_sb.cu": _rung_degrees(range(5, 12)),
     "cell_mma_sb.cu": _rungs(2, 3) + _rung_degrees(range(5, 12))[1:],
     "mma_jtj.cu": _rungs(1, 2, 3),
+    # the cell passes at the shapes beyond BP4's (csrc/shapes.cuh: one
+    # component, q = p + 1, both), one object a degree and shape
+    "shapes.cu": tuple((f"-DBP4_DEGREE={p}", f"-DBP4_SHAPE={sh}")
+                       for p in range(1, 12)
+                       for sh in (SHAPE_C1, SHAPE_Q1, SHAPE_C1 | SHAPE_Q1)),
 }
 
 
@@ -81,22 +93,23 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bp4_partials_len": (_I, [_I] * 4),
     "bp4_error_string": (ctypes.c_char_p, [_I]),
-    # rung, degree, cells
-    "bp4_dense_scratch_len": (_I, [_I] * 3),
-    # dtype, rung, degree, dense, cofactor, bf16 state, bf16 metric
+    # rung, degree, shape, cells
+    "bp4_dense_scratch_len": (_I, [_I] * 4),
+    # dtype, rung, degree, shape, dense, cofactor, bf16 state, bf16 metric
     # (bp4_fused_iteration: then bf16 P, bf16 x); the tables, vectors and
     # the dense pass's scratch; the cells per axis; the stream
-    "bp4_matvec": (_I, [_I] * 7 + [_P] * 11 + [_I] * 3 + [_P]),
-    "bp4_fused_iteration": (_I, [_I] * 9 + [_P] * 21 + [_I] * 3 + [_P]),
-    # ... the cells per axis, then the block's (lo, hi, own) on z, y, x,
-    # the cell pass's range of cells and the passes to run
+    "bp4_matvec": (_I, [_I] * 8 + [_P] * 11 + [_I] * 3 + [_P]),
+    "bp4_fused_iteration": (_I, [_I] * 10 + [_P] * 21 + [_I] * 3 + [_P]),
+    # dtype, rung, degree, dense, ... as bp4_fused_iteration without the
+    # shape (BP4's only); the cells per axis, then the block's (lo, hi,
+    # own) on z, y, x, the cell pass's range of cells and the passes to run
     "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 15
                                   + [_P]),
-    # dtype, rung, degree, onthefly, bf16 metric, bf16 state; ...
-    "bp4_apply_batched": (_I, [_I] * 6 + [_P] * 9 + [_I] + [_P]),
-    # dtype, rung, bf16 metric, bf16 state, degree; ...; the cells per
-    # axis, a block's
-    "bp4_apply_lattice": (_I, [_I] * 5 + [_P] * 8 + [_I] * 4 + [_P]),
+    # dtype, rung, degree, shape, onthefly, bf16 metric, bf16 state; ...
+    "bp4_apply_batched": (_I, [_I] * 7 + [_P] * 9 + [_I] + [_P]),
+    # dtype, rung, bf16 metric, bf16 state, degree, shape; ...; the cells
+    # per axis, a block's
+    "bp4_apply_lattice": (_I, [_I] * 6 + [_P] * 8 + [_I] * 4 + [_P]),
     # degree, the cells per axis, the block's (lo, hi, own) on z, y, x;
     # the cell results, the carry; the stream
     "bp4_block_carry": (_I, [_I] * 13 + [_P] * 3),

@@ -54,6 +54,14 @@ other devices raise.  The kernel's cell pass:
   rows of its tiles (built one source a degree and rung,
   ``csrc/cell_mma_p01.cu`` .. ``cell_mma_p11.cu``).
 
+The vectors' components C (BP4 3, CEED BP3 1) come from their shape and
+q from ``op.n_q``: at the shapes beyond BP4's (C = 1, q = p + 1, both;
+``laplace_cuda.check_shape``) the kernels run ``csrc/shapes.cu``'s cell
+passes under ``highest`` and ``split2m`` (the sum-factorized pass, the
+dense pass of ``csrc/apply_mma_hd.cuh`` and the twostage one of
+``csrc/cell_mma_hd.cuh`` at every degree), with d and h, P and x and the
+metric at the working dtype, on one device.
+
 The plain versions do the same arithmetic — the same bf16 rounding points
 for the tensor-core rungs (:func:`_terms`) and the bf16 state, the same
 masking — with einsum over cells, in another summation order.  ``matvec.launches``,
@@ -68,7 +76,7 @@ import torch
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
 
-N_COMPONENTS = 3
+N_COMPONENTS = 3  # BP4's; the vectors' own count is read from their shape
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +250,7 @@ def _cell_apply_mma_emulated(op: OperatorData,
                          ._batched_mma_emulated(op, b, G))
     p, q = op.degree, op.n_q
     p1, q2, qe = p + 1, q * q, q + q % 2
-    q2p, p12p = laplace_cuda.mma_dims(p, "twostage")
+    q2p, p12p = laplace_cuda.mma_dims(p, "twostage", q)
     tables = mma_parts(op, op.mma_mats, op.factor)
     cells = torch.nn.functional.pad(_cells(op, u), (0, p12p - p1 * p1))
     sz, dz = (torch.nn.functional.pad(m, (0, 0, 0, qe - q))
@@ -284,7 +292,8 @@ def mma_parts(op: OperatorData, tables: torch.Tensor,
     """The (forward's, backward's) padded bf16 matrices of each matrix part
     that ``tables`` (of ``factor``'s matrix, :func:`laplace_cuda.mma_tables`)
     packs (Mh; under split3 also Ml)."""
-    return [laplace_cuda.unpack_mma_tables(tables, op.degree, factor, part)
+    return [laplace_cuda.unpack_mma_tables(tables, op.degree, factor, part,
+                                           op.n_q)
             for part in range(tables.shape[0] // 2)]
 
 
@@ -408,7 +417,7 @@ def _cells_plain(op, x, g, d, h, scal, prec, out, work, c0: int, c1: int,
     layer = op.n_cells // ncz
     work.cells[:, c0 * layer:c1 * layer] = cell_apply(
         sub, new[2].to(op.dtype) * sub.mask).reshape(
-        N_COMPONENTS, sub.n_cells, -1)
+        d.shape[0], sub.n_cells, -1)
 
 
 def _sums(op, g2, d2, h2, prec) -> torch.Tensor:
@@ -431,8 +440,8 @@ def _assemble_plain(op, out, prec, work) -> None:
     from every cell's row of ``work.cells``, masked and rounded where it
     is stored, and the 7 raw sums."""
     p1 = op.degree + 1
-    h2 = (_assemble(op, work.cells.reshape(N_COMPONENTS, op.n_cells, p1,
-                                           p1 * p1)) * op.mask)
+    h2 = (_assemble(op, work.cells.reshape(-1, op.n_cells, p1, p1 * p1))
+          * op.mask)
     _carry_out(h2, out[3].dtype, work.carry)
     out[3].copy_(h2.to(out[3].dtype))
     out[4].copy_(_sums(op, out[1], out[2], out[3], prec))
@@ -458,14 +467,18 @@ def delayed_x_fixup(x, g, d, prec, scal, it: int):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def check_kernel_shape(op: OperatorData, n_components: int) -> None:
-    """Raise NotImplementedError unless the kernels are sized for ``op``'s
-    q and a vector of ``n_components``: q = p + 2 and BP4's 3 components
-    (the plain versions take any)."""
-    if op.n_q != op.degree + 2 or n_components != N_COMPONENTS:
-        raise NotImplementedError(
-            f"n_q={op.n_q} at degree {op.degree} with {n_components} "
-            f"component(s): the kernels are {laplace_cuda._SHAPE_TODO}")
+def check_kernel_shape(op: OperatorData, n_components: int,
+                       store: torch.dtype | None = None,
+                       px: bool = False) -> int:
+    """The kernels' shape argument for ``op``'s q and a vector of
+    ``n_components`` (``laplace_cuda.check_shape``): 0 for BP4's (q = p + 2,
+    3 components); one component and q = p + 1 under highest and split2m;
+    NotImplementedError (queue B item 6g) for the rest — any other shape,
+    and at those two a bf16 state (``store``), a bf16 metric, a block
+    operator or P or x in bf16 (``px``).  The plain versions take any."""
+    return laplace_cuda.check_shape(
+        op.degree, op.n_q, n_components, op.precision, store or op.dtype,
+        op.metric_dtype, block=op.slab is not None, px=px)
 
 
 def check_tensors(op: OperatorData, degrees, pairs) -> None:
@@ -494,20 +507,22 @@ def _bf16_or_working(op: OperatorData, t: torch.Tensor) -> torch.dtype:
 
 
 def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
-                scals=(), xs=()) -> None:
+                scals=(), xs=()) -> int:
     """Check the operator's tables and the vectors for the kernels:
     ``vectors`` at the working dtype, ``state`` (d and h, in and out) at
     the state's storage dtype, the working dtype or, f32 on every rung,
     bf16; ``prec`` and ``xs`` (x in and out) at the working dtype or in
     bf16 (``prec_dtype``, ``x_dtype``: every configuration, and beside a
     bf16 state or metric where the rung's own instantiations read them —
-    the bf16 rung, split3 with the metric)."""
-    check_kernel_shape(op, (list(vectors) + list(state))[0].shape[0])
-    lat = (N_COMPONENTS,) + op.n_nodes_axis
+    the bf16 rung, split3 with the metric).  Returns the kernels' shape
+    argument (:func:`check_kernel_shape` of the vectors' components)."""
+    n_comp = (list(vectors) + list(state))[0].shape[0]
+    lat = (n_comp,) + op.n_nodes_axis
     store = (torch.bfloat16 if state and state[0].dtype == torch.bfloat16
              and op.dtype == torch.float32 else op.dtype)
     px = ((prec is not None and prec.dtype == torch.bfloat16)
           or (bool(xs) and xs[0].dtype == torch.bfloat16))
+    shape = check_kernel_shape(op, n_comp, store, px)
     storage = ((store == torch.bfloat16 and op.precision != "bf16")
                or (op.metric_dtype == torch.bfloat16
                    and op.precision in ("highest", "split2m")))
@@ -531,7 +546,7 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
     tensor_rung = op.precision in laplace_cuda.TENSOR_RUNGS
     twostage_split = tensor_rung and op.factor == "twostage"
     if tensor_rung:
-        rp, cp = laplace_cuda.mma_dims(op.degree, op.factor)
+        rp, cp = laplace_cuda.mma_dims(op.degree, op.factor, op.n_q)
         want.append((op.mma_mats, (4 if op.precision == "split3" else 2,
                                    3 * rp * cp), torch.bfloat16))
     if twostage_split:
@@ -546,6 +561,7 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
             f"{op.degree} under {op.precision!r} has no CUDA kernel of the "
             f"fused solver; see ROADMAP.md queue B")
     check_tensors(op, laplace_cuda.FUSED_DEGREES, want)
+    return shape
 
 
 def _route(t: torch.Tensor) -> str:
@@ -569,7 +585,8 @@ def rung_args(op: OperatorData) -> tuple[int, int]:
             int(op.metric_dtype == torch.bfloat16))
 
 
-def _common_args(op: OperatorData, state: torch.Tensor):
+def _common_args(op: OperatorData, state: torch.Tensor,
+                 shape: int | None = 0):
     # the tensor-core rungs: the bf16 fragment tables of the
     # factorization's tensor-core pass (dense: apply_mma.cuh, the
     # coefficients (3, 8, n_cells); twostage: cell_mma.cuh, the
@@ -577,11 +594,15 @@ def _common_args(op: OperatorData, state: torch.Tensor):
     # pass applies S and D), the coefficients (3, 8, n_cells), the cell
     # fastest.  The metric: streamed, or null (rebuilt from the
     # coefficients by the chain: 0 adjj, 1 jtj).  ``state``: d, whose dtype
-    # is that of d and h (1: bf16).
+    # is that of d and h (1: bf16).  ``shape``: the kernels' shape argument
+    # (:func:`check_kernel_shape`), after the degree in bp4_matvec and
+    # bp4_fused_iteration; None for the block form (BP4's only), which
+    # takes none.
     split = op.precision in laplace_cuda.TENSOR_RUNGS
     dense = op.factor == "dense"
     rung, metric_bf16 = rung_args(op)
-    return (dtype_code(op), rung, op.degree, int(dense),
+    return (dtype_code(op), rung, op.degree,
+            *(() if shape is None else (shape,)), int(dense),
             laplace_cuda.COFACTORS.index(op.cofactor),
             int(state.dtype == torch.bfloat16), metric_bf16,
             op.mma_mats.data_ptr() if split else None,
@@ -593,20 +614,20 @@ def _common_args(op: OperatorData, state: torch.Tensor):
 
 class Workspace:
     """Scratch of the kernels: cell-local results (C, n_cells, (p+1)^3) and
-    the per-block dot partials.  Allocate once per solve and pass it to
-    every call to keep allocation out of the iteration loop.  On the CPU
-    the cell-local results alone (the plain layer-range form's,
-    :func:`fused_cg_iteration` with ``cells``).  On a block operator also
-    ``carry`` (C, Ny, Nx) at the working dtype: B2's block form under a
-    bf16 state writes there its top z face of h' unrounded (C10, the JAX
-    kernel's ``carry_out``)."""
+    the per-block dot partials, for vectors of ``n_components`` (C; BP4's
+    3 by default).  Allocate once per solve and pass it to every call to
+    keep allocation out of the iteration loop.  On the CPU the cell-local
+    results alone (the plain layer-range form's, :func:`fused_cg_iteration`
+    with ``cells``).  On a block operator also ``carry`` (C, Ny, Nx) at the
+    working dtype: B2's block form under a bf16 state writes there its top
+    z face of h' unrounded (C10, the JAX kernel's ``carry_out``)."""
 
-    def __init__(self, op: OperatorData):
+    def __init__(self, op: OperatorData, n_components: int = N_COMPONENTS):
         p1 = op.degree + 1
-        self.cells = torch.empty((N_COMPONENTS, op.n_cells, p1 ** 3),
+        self.cells = torch.empty((n_components, op.n_cells, p1 ** 3),
                                  dtype=op.dtype, device=op.device)
         self.carry = (None if op.slab is None else torch.empty(
-            (N_COMPONENTS,) + op.n_nodes_axis[1:], dtype=op.dtype,
+            (n_components,) + op.n_nodes_axis[1:], dtype=op.dtype,
             device=op.device))
         self.partials = None
         if op.device.type == "cuda":
@@ -616,25 +637,34 @@ class Workspace:
                                         device=op.device)
 
 
-def dense_scratch(op: OperatorData) -> int | None:
-    """The pointer to the scratch of the dense tensor-core pass at p >= 5
-    (``csrc/apply_mma_hd.cuh``: its operands' fragments, the
-    ``bp4_dense_scratch_len`` 16-byte words of ``op``'s rung, degree and
-    cells), allocated once an operator and kept in ``op.cache``; None
-    where the pass needs none."""
+def dense_scratch(op: OperatorData, shape: int = 0) -> int | None:
+    """The pointer to the scratch of the dense tensor-core pass at p >= 5,
+    and at every degree at a shape beyond BP4's (``shape``, the kernels'
+    shape argument) (``csrc/apply_mma_hd.cuh``: its operands'
+    fragments, the ``bp4_dense_scratch_len`` 16-byte words of ``op``'s
+    rung, degree, shape and cells), allocated once an operator and shape
+    and kept in ``op.cache``; None where the pass needs none."""
     n = _build.load().bp4_dense_scratch_len(rung_args(op)[0], op.degree,
-                                            op.n_cells)
+                                            shape, op.n_cells)
     if not n:
         return None
-    if "dense_scratch" not in op.cache:
-        op.cache["dense_scratch"] = torch.empty((n, 4), dtype=torch.int32,
-                                                device=op.device)
-    return op.cache["dense_scratch"].data_ptr()
+    key = ("dense_scratch", shape)
+    if key not in op.cache:
+        op.cache[key] = torch.empty((n, 4), dtype=torch.int32,
+                                    device=op.device)
+    return op.cache[key].data_ptr()
 
 
-def _b12_scratch(op: OperatorData) -> int | None:
+def _b12_scratch(op: OperatorData, shape: int = 0) -> int | None:
     # B1/B2 run the dense pass only in the dense factorization
-    return dense_scratch(op) if op.factor == "dense" else None
+    return dense_scratch(op, shape) if op.factor == "dense" else None
+
+
+def _check_work(work: Workspace, n_components: int) -> None:
+    if work.cells.shape[0] != n_components:
+        raise ValueError(f"the workspace holds {work.cells.shape[0]} "
+                         f"components, the vectors {n_components}: "
+                         f"Workspace(op, {n_components})")
 
 
 # The index of a block's own nodes in its (C, Z, Y, X) lattice vectors,
@@ -665,14 +695,15 @@ def matvec(op: OperatorData, d: torch.Tensor, out: torch.Tensor | None = None,
         raise NotImplementedError(
             "B1 on a block operator is not instantiated: the "
             "distributed matvec runs B5")
-    _check_cuda(op, [], [d] + ([out] if out is not None else []))
+    shape = _check_cuda(op, [], [d] + ([out] if out is not None else []))
     lib = _build.load()
     out = torch.empty_like(d) if out is None else out
-    work = Workspace(op) if work is None else work
+    work = Workspace(op, d.shape[0]) if work is None else work
+    _check_work(work, d.shape[0])
     ncz, ncy, ncx = op.n_cells_axis
-    rc = lib.bp4_matvec(*_common_args(op, d), d.data_ptr(),
+    rc = lib.bp4_matvec(*_common_args(op, d, shape), d.data_ptr(),
                         work.cells.data_ptr(), out.data_ptr(),
-                        _b12_scratch(op), ncz, ncy, ncx,
+                        _b12_scratch(op, shape), ncz, ncy, ncx,
                         torch.cuda.current_stream(d.device).cuda_stream)
     _build.check(lib, rc, "bp4_matvec")
     matvec.launches += 1
@@ -735,8 +766,9 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
                                              for o, r in zip(out, res))
     out = out if out is not None else tuple(
         torch.empty_like(t) for t in (x, g, d, h, scal))
-    _check_iteration(op, x, g, d, h, scal, prec, out)
-    work = Workspace(op) if work is None else work
+    shape = _check_iteration(op, x, g, d, h, scal, prec, out)
+    work = Workspace(op, d.shape[0]) if work is None else work
+    _check_work(work, d.shape[0])
     if op.slab is not None:
         _block_entry(op, x, g, d, h, scal, prec, out, work,
                      (0, op.n_cells_axis[0]), _CELL_PASS | _NODE_PASSES)
@@ -744,13 +776,13 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
         return out
     lib = _build.load()
     ncz, ncy, ncx = op.n_cells_axis
-    common = _common_args(op, d)
+    common = _common_args(op, d, shape)
     rc = lib.bp4_fused_iteration(
-        *common[:7], int(prec.dtype == torch.bfloat16),
-        int(x.dtype == torch.bfloat16), *common[7:],
+        *common[:8], int(prec.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), *common[8:],
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
-        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
+        work.partials.data_ptr(), _b12_scratch(op, shape), ncz, ncy, ncx,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "bp4_fused_iteration")
     fused_cg_iteration.launches += 1
@@ -760,11 +792,12 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
 fused_cg_iteration.launches = 0
 
 
-def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> None:
+def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> int:
     """Check a B2 launch's tensors (:func:`_check_cuda`), its buffers
-    distinct from its inputs and, on a block operator, its pass."""
-    _check_cuda(op, [g, out[1]], [d, h, out[2], out[3]], prec,
-                (scal, out[4]), (x, out[0]))
+    distinct from its inputs and, on a block operator, its pass; returns
+    the kernels' shape argument."""
+    shape = _check_cuda(op, [g, out[1]], [d, h, out[2], out[3]], prec,
+                        (scal, out[4]), (x, out[0]))
     if {t.data_ptr() for t in out} & {t.data_ptr() for t in (x, g, d, h,
                                                              scal)}:
         raise ValueError("fused_cg_iteration cannot update in place: pass "
@@ -788,6 +821,7 @@ def _check_iteration(op: OperatorData, x, g, d, h, scal, prec, out) -> None:
             f"B2's block form with the metric rebuilt by jtj on the "
             f"{op.precision} rung's dense pass is not instantiated (the "
             f"distributed solvers rebuild it by adjj)")
+    return shape
 
 
 # passes of bp4_fused_iteration_block (csrc/cg_fused.cu)
@@ -801,7 +835,7 @@ def _block_entry(op: OperatorData, x, g, d, h, scal, prec, out,
     lib = _build.load()
     ncz, ncy, ncx = op.n_cells_axis
     layer = ncy * ncx
-    common = _common_args(op, d)
+    common = _common_args(op, d, None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.bp4_fused_iteration_block(
         *common[:7], int(prec.dtype == torch.bfloat16),

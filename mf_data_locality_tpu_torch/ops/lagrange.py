@@ -22,7 +22,8 @@ Matrices produced (all float64 NumPy, applied per tensor axis):
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import functools
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 
@@ -112,6 +113,15 @@ class Shape1D:
 
 
 def make_shape(degree: int, n_q: int) -> Shape1D:
+    """The shape data of FE_Q(degree) at Gauss(n_q): computed once a
+    process, each call a copy of its arrays."""
+    shape = _make_shape(degree, n_q)
+    return replace(shape, **{k: v.copy() for k, v in vars(shape).items()
+                             if isinstance(v, np.ndarray)})
+
+
+@functools.lru_cache(maxsize=None)
+def _make_shape(degree: int, n_q: int) -> Shape1D:
     nodes = quadrature.gll_nodes(degree)
     qp, qw = quadrature.gauss(n_q)
     return Shape1D(

@@ -36,6 +36,12 @@ points for the rung) for tensors on the CPU;
 other devices raise.  Each wrapper counts its kernel launches in
 ``.launches``.
 
+The components C come from the vectors' shape and q from ``op.n_q``: at
+the shapes beyond BP4's (C = 1, CEED BP3; q = p + 1; both) the kernels
+run ``csrc/shapes.cu``'s cell passes, the sum-factorized one under
+``highest`` and ``apply_mma_hd.cuh``'s under ``split2m`` at every degree,
+with u and the metric at the working dtype (``laplace_cuda.check_shape``).
+
 A bf16 state (the merged and baseline solvers' ``dtype=torch.bfloat16``,
 every rung): u arrives in bf16 and the result leaves in bf16, the
 arithmetic at f32, rounded where the JAX package's kernels store
@@ -57,7 +63,7 @@ import torch
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
-    N_COMPONENTS, _mma_terms, _route, _terms, cell_metric,
+    _mma_terms, _route, _terms, cell_metric,
     check_kernel_shape, check_tensors, dense_scratch, dtype_code,
     metric_onthefly, mma_parts, rung_args)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
@@ -163,7 +169,7 @@ def _batched_mma_emulated(op: OperatorData, u_loc: torch.Tensor,
     Mh] [uh; ul] and [Mh | Mh]^T [th; tl]) in f32, t split after the
     metric apply."""
     p13, q3 = (op.degree + 1) ** 3, op.n_q ** 3
-    q3p, p13p = laplace_cuda.mma_dims(op.degree)
+    q3p, p13p = laplace_cuda.mma_dims(op.degree, "dense", op.n_q)
     tables = mma_parts(op, laplace_cuda.dense_mma_tables(op), "dense")
     nc = u_loc.shape[1]
     u = torch.nn.functional.pad(u_loc.reshape(-1, p13, nc),
@@ -291,7 +297,7 @@ def _tables(op: OperatorData, onthefly: bool) -> tuple[list, int, int]:
     sum-factorized pass's 1D factors S and D."""
     p1, q3 = op.degree + 1, op.n_q ** 3
     if op.precision in laplace_cuda.TENSOR_RUNGS and not onthefly:
-        q3p, p13p = laplace_cuda.mma_dims(op.degree)
+        q3p, p13p = laplace_cuda.mma_dims(op.degree, "dense", op.n_q)
         mm = laplace_cuda.dense_mma_tables(op)
         pairs = [(mm, (mm.shape[0], 3 * q3p * p13p), torch.bfloat16)]
         ptrs = (mm[0].data_ptr(), mm[1].data_ptr())
@@ -316,21 +322,25 @@ def _state(op: OperatorData, u: torch.Tensor) -> torch.dtype:
 
 def _batched_kernel(op: OperatorData, u_loc: torch.Tensor,
                     onthefly: bool) -> torch.Tensor:
-    check_kernel_shape(op, u_loc.shape[0] // (op.degree + 1) ** 3)
-    shape = (N_COMPONENTS * (op.degree + 1) ** 3, op.n_cells)
+    n_comp = u_loc.shape[0] // (op.degree + 1) ** 3
+    state = _state(op, u_loc)
+    code = check_kernel_shape(op, n_comp, state)
     rung, metric_bf16 = rung_args(op)
     tables, mats, kmats = _tables(op, onthefly)
-    state = _state(op, u_loc)
-    check_tensors(op, KERNEL_DEGREES, [(u_loc, shape, state)] + tables)
+    check_tensors(op, KERNEL_DEGREES,
+                  [(u_loc, (n_comp * (op.degree + 1) ** 3, op.n_cells),
+                    state)] + tables)
     lib = _build.load()
     out = torch.empty_like(u_loc)
     rc = lib.bp4_apply_batched(
-        dtype_code(op), 0 if onthefly else rung, op.degree, int(onthefly),
+        dtype_code(op), 0 if onthefly else rung, op.degree, code,
+        int(onthefly),
         0 if onthefly else metric_bf16, int(state == torch.bfloat16), mats,
         kmats,
         0 if onthefly else op.gmetric.data_ptr(), op.kpds.data_ptr(),
         op.w3.data_ptr(), op.coeffs.data_ptr(), u_loc.data_ptr(),
-        out.data_ptr(), None if onthefly else dense_scratch(op), op.n_cells,
+        out.data_ptr(), None if onthefly else dense_scratch(op, code),
+        op.n_cells,
         torch.cuda.current_stream(u_loc.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_batched")
     return out
@@ -379,24 +389,25 @@ def _lattice_kernel(op: OperatorData, u: torch.Tensor,
     # pass and the assemble pass only sums, as the plain version masks
     if op.gmetric is None:
         raise ValueError("the lattice applies need metric='precomputed'")
-    check_kernel_shape(op, u.shape[0])
-    lat = (N_COMPONENTS,) + op.n_nodes_axis
-    tables, mats, kmats = _tables(op, onthefly=False)
     state = _state(op, u)
+    code = check_kernel_shape(op, u.shape[0], state)
+    lat = (u.shape[0],) + op.n_nodes_axis
+    tables, mats, kmats = _tables(op, onthefly=False)
     check_tensors(op, KERNEL_DEGREES, [(u, lat, state)] + tables)
     lib = _build.load()
     out = torch.empty_like(u)
-    cells = torch.empty((N_COMPONENTS, op.n_cells, (op.degree + 1) ** 3),
+    cells = torch.empty((u.shape[0], op.n_cells, (op.degree + 1) ** 3),
                         dtype=op.dtype, device=op.device)
     ncz, ncy, ncx = op.n_cells_axis
     # the state's code: 0 at the working dtype, bf16 summed as B6 (1) or
     # B5 (2)
-    code = 0 if state != torch.bfloat16 else 2 if pieces else 1
+    store = 0 if state != torch.bfloat16 else 2 if pieces else 1
     rc = lib.bp4_apply_lattice(
-        dtype_code(op), *rung_args(op), code, op.degree, mats, kmats,
+        dtype_code(op), *rung_args(op), store, op.degree, code, mats, kmats,
         op.gmetric.data_ptr(),
         0 if mask is None else mask.data_ptr(), u.data_ptr(),
-        cells.data_ptr(), out.data_ptr(), dense_scratch(op), ncz, ncy, ncx,
+        cells.data_ptr(), out.data_ptr(), dense_scratch(op, code), ncz, ncy,
+        ncx,
         int(op.slab is not None),
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(lib, rc, "bp4_apply_lattice")

@@ -21,6 +21,12 @@ Two families of configurations, named by (factor, metric, windowing):
   resolvers put the merged and baseline solvers' ``--windowing pieces``
   from p=5 (B5 reads the dense operator whatever the factor says).
 
+The Gauss points a direction, q, are the operator's (``n_q``, default
+p + 2, the arrays' sizes): the kernels take q = p + 1 and p + 2 with one
+or three components under ``highest`` and ``split2m``
+(:func:`check_shape`; the rest is queue B item 6g), the plain versions
+any.
+
 The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
 permutation, no cell padding and no windowed mask are held.
@@ -71,6 +77,7 @@ apply family reads the dense tables whatever it says
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -79,6 +86,7 @@ import torch
 from mf_data_locality_tpu_torch import PRECISIONS
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout, boundary_node_mask
 from mf_data_locality_tpu_torch.ops import geometry, lagrange
+from mf_data_locality_tpu_torch.ops._build import SHAPE_C1, SHAPE_Q1
 
 _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
          "configurations)")
@@ -87,8 +95,14 @@ _TODO = ("not ported yet: see ROADMAP.md, queue B (remaining B1/B2 "
 TENSOR_RUNGS = ("split2m", "split3", "bf16")
 RUNG_PRODUCTS = {"highest": 0, "bf16": 1, "split2m": 2, "split3": 3}
 
-_SHAPE_TODO = ("sized for q = p + 2 and 3 components: see ROADMAP.md, "
-               "queue B item 6g (q != p+2 or C != 3 on the kernels)")
+_SHAPE_TODO = ("not instantiated: see ROADMAP.md, queue B item 6g (q != "
+               "p+2 or C != 3 on the kernels: the kernels take C in (1, 3) "
+               "and q in (p+1, p+2) under highest and split2m, at the "
+               "working dtype, on one device)")
+# the rungs of the kernels' instantiations beyond BP4's shape (3
+# components, q = p + 2); their shape flags (one component, CEED BP3;
+# q = p + 1) are _build.SHAPE_C1 and SHAPE_Q1
+SHAPE_PRECISIONS = ("highest", "split2m")
 _F64_TODO = ("not ported yet: see ROADMAP.md, queue B item 6h (f64 beside "
              "bf16 parts: the tensor-core rungs and the bf16 metric stream "
              "at f64)")
@@ -114,9 +128,10 @@ APPLY_CONFIGS = (("dense", "precomputed", "reshape"),
                  ("twostage", "precomputed", "pieces"))
 
 
+@functools.lru_cache(maxsize=None)
 def dense_gradient_matrices(p: int, q: int) -> np.ndarray:
     """[M_x; M_y; M_z] stacked (3 q^3, (p+1)^3): rows (qz, qy, qx) and
-    columns (kz, ky, kx), x fastest."""
+    columns (kz, ky, kx), x fastest; built once a process, read-only."""
     shape = lagrange.make_shape(p, q)
     S, Sg = shape.values, shape.grads
 
@@ -124,12 +139,16 @@ def dense_gradient_matrices(p: int, q: int) -> np.ndarray:
         out = np.einsum("ck,bj,ai->cbakji", az, ay, ax)
         return out.reshape(q ** 3, (p + 1) ** 3)
 
-    return np.ascontiguousarray(
+    out = np.ascontiguousarray(
         np.concatenate([t3(S, S, Sg), t3(S, Sg, S), t3(Sg, S, S)], axis=0))
+    out.setflags(write=False)
+    return out
 
 
+@functools.lru_cache(maxsize=None)
 def dense_gradient_matrices_2d(p: int, q: int) -> np.ndarray:
-    """[Dx2d; Dy2d; S2d] stacked (3 q^2, (p+1)^2), canonical (ky, kx) columns."""
+    """[Dx2d; Dy2d; S2d] stacked (3 q^2, (p+1)^2), canonical (ky, kx)
+    columns; built once a process, read-only."""
     shape = lagrange.make_shape(p, q)
     S, Sg = shape.values, shape.grads
 
@@ -137,7 +156,9 @@ def dense_gradient_matrices_2d(p: int, q: int) -> np.ndarray:
         out = np.einsum("bj,ai->baji", ay, ax)
         return np.ascontiguousarray(out.reshape(q * q, (p + 1) * (p + 1)))
 
-    return np.concatenate([t2(S, Sg), t2(Sg, S), t2(S, S)], axis=0)
+    out = np.concatenate([t2(S, Sg), t2(Sg, S), t2(S, S)], axis=0)
+    out.setflags(write=False)
+    return out
 
 
 def z_matrices(p: int, q: int) -> tuple[np.ndarray, np.ndarray]:
@@ -293,23 +314,28 @@ def sub_operator(op: OperatorData, c0: int, c1: int) -> OperatorData:
     return op.cache[key]
 
 
-def _mma_block(p: int, factor: str) -> tuple[int, int]:
+def _mma_block(p: int, factor: str,
+               q: int | None = None) -> tuple[int, int]:
     """(rows, columns) of one direction's block of the matrix the
     tensor-core pass of ``factor`` reads: the dense (q^3, (p+1)^3) or the
-    2D stage's (q^2, (p+1)^2)."""
+    2D stage's (q^2, (p+1)^2); q defaults to p + 2."""
+    q = p + 2 if q is None else q
     if factor == "dense":
-        return (p + 2) ** 3, (p + 1) ** 3
+        return q ** 3, (p + 1) ** 3
     if factor == "twostage":
-        return (p + 2) ** 2, (p + 1) ** 2
+        return q ** 2, (p + 1) ** 2
     raise ValueError(f"no tensor-core tables for factor={factor!r}")
 
 
-def mma_dims(p: int, factor: str = "dense") -> tuple[int, int]:
-    """(q-points per direction, nodes) of degree ``p``, each padded to a
-    multiple of 16: the tensor-core tiles of ``csrc/apply_mma.cuh``
-    (``factor="dense"``) or of the 2D stage in ``csrc/cell_mma.cuh`` and
-    ``csrc/cell_mma_hd.cuh`` (``"twostage"``: q^2 and (p+1)^2)."""
-    return tuple(-(-n // 16) * 16 for n in _mma_block(p, factor))
+def mma_dims(p: int, factor: str = "dense",
+             q: int | None = None) -> tuple[int, int]:
+    """(q-points per direction, nodes) of degree ``p`` and ``q`` Gauss
+    points a direction (default p + 2), each padded to a multiple of 16:
+    the tensor-core tiles of ``csrc/apply_mma.cuh`` and
+    ``csrc/apply_mma_hd.cuh`` (``factor="dense"``) or of the 2D stage in
+    ``csrc/cell_mma.cuh`` and ``csrc/cell_mma_hd.cuh`` (``"twostage"``:
+    q^2 and (p+1)^2)."""
+    return tuple(-(-n // 16) * 16 for n in _mma_block(p, factor, q))
 
 
 def _fragments(b: torch.Tensor) -> torch.Tensor:
@@ -328,16 +354,18 @@ def _from_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
 
 
 def mma_tables(mats: torch.Tensor, p: int, factor: str = "dense",
-               precision: str = "split2m") -> torch.Tensor:
+               precision: str = "split2m",
+               q: int | None = None) -> torch.Tensor:
     """The tensor-core pass's matrix: ``mats`` ((3 q^3, (p+1)^3) dense, or
     the (3 q^2, (p+1)^2) 2D stage for ``factor="twostage"``) rounded once
     to bf16, Mh, each direction's block zero-padded to (RP, CP)
     (:func:`mma_dims`), packed as fragments: row 0 for the forward product
     (B = Mh^T), row 1 for the backward (B = Mh); under ``split3`` rows 2
     and 3 hold the remainder Ml = bf16(mats - Mh) in the same order
-    (``cg_fused_kernel._prestack``).  Shape (2 or 4, 3 RP CP), bf16."""
-    rows, cols = _mma_block(p, factor)
-    rp, cp = mma_dims(p, factor)
+    (``cg_fused_kernel._prestack``).  Shape (2 or 4, 3 RP CP), bf16.  ``q``:
+    the Gauss points a direction (default p + 2)."""
+    rows, cols = _mma_block(p, factor, q)
+    rp, cp = mma_dims(p, factor, q)
     mh = mats.to(torch.bfloat16)
     parts = [mh] + ([(mats - mh.to(mats.dtype)).to(torch.bfloat16)]
                     if precision == "split3" else [])
@@ -351,10 +379,12 @@ def mma_tables(mats: torch.Tensor, p: int, factor: str = "dense",
 
 
 def unpack_mma_tables(tables: torch.Tensor, p: int, factor: str = "dense",
-                      part: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                      part: int = 0,
+                      q: int | None = None) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
     """The padded (3 RP, CP) bf16 matrices that :func:`mma_tables` holds
     for ``part`` (0: Mh, 1: split3's Ml): (forward's, backward's)."""
-    rp, cp = mma_dims(p, factor)
+    rp, cp = mma_dims(p, factor, q)
     return (_from_fragments(tables[2 * part], cp, 3 * rp).t(),
             _from_fragments(tables[2 * part + 1], 3 * rp, cp))
 
@@ -370,7 +400,7 @@ def dense_mma_tables(op: OperatorData) -> torch.Tensor:
         return op.mma_mats
     if "dense_mma" not in op.cache:
         op.cache["dense_mma"] = mma_tables(op.mats, op.degree, "dense",
-                                           op.precision)
+                                           op.precision, op.n_q)
     return op.cache["dense_mma"]
 
 
@@ -450,6 +480,42 @@ def check_config(precision: str, factor: str = "twostage",
             + f" is {_TODO}; the port has {wanted}")
 
 
+def check_shape(degree: int, n_q: int, n_components: int,
+                precision: str = "highest",
+                dtype: torch.dtype = torch.float32,
+                metric_dtype: torch.dtype | None = None,
+                block: bool = False, px: bool = False) -> int:
+    """The kernels' shape argument for ``n_components`` and ``n_q`` Gauss
+    points a direction at ``degree``: 0 for BP4's (3, p + 2), else
+    SHAPE_C1 (one component, CEED BP3) and/or SHAPE_Q1 (q = p + 1).
+    NotImplementedError (queue B item 6g) for any other shape, and at
+    those two for what they are not built with: a rung other than highest
+    and split2m (:data:`SHAPE_PRECISIONS`), a bf16 state (``dtype``) or
+    metric (``metric_dtype``), B2's block form (``block``, the distributed
+    solvers) and its P/x form (``px``).  The plain versions take every
+    shape."""
+    if n_components not in (1, 3) or n_q not in (degree + 1, degree + 2):
+        raise NotImplementedError(
+            f"n_q={n_q} at degree {degree} with {n_components} component(s) "
+            f"on the pallas backend is {_SHAPE_TODO}")
+    flags = ((SHAPE_C1 if n_components == 1 else 0)
+             | (SHAPE_Q1 if n_q == degree + 1 else 0))
+    if not flags:
+        return 0
+    lacks = [what for what, bad in (
+        (f"precision={precision!r}", precision not in SHAPE_PRECISIONS),
+        ("a bf16 state", dtype == torch.bfloat16),
+        ("a bf16 metric", metric_dtype == torch.bfloat16),
+        ("the block form (distributed)", block),
+        ("P or x in bf16", px)) if bad]
+    if lacks:
+        raise NotImplementedError(
+            f"{', '.join(lacks)} at n_q={n_q}, degree {degree}, "
+            f"{n_components} component(s) on the pallas backend is "
+            f"{_SHAPE_TODO}")
+    return flags
+
+
 def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
                          mask: np.ndarray, degree: int,
                          n_cells_axis: tuple[int, int, int], precision: str,
@@ -471,6 +537,9 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
     ``metric_dtype`` (None: the working dtype).  Values are rounded to
     ``dtype`` first and, for ``mats2d`` under ``split2m`` and ``bf16``, from
     there to bf16 — the same two roundings the JAX package applies.
+    The Gauss points a direction, q, are the arrays' (``w3`` holds q^3
+    weights): the plain versions take any q, the kernels p + 1 and p + 2
+    (:func:`check_shape`).
     ``dtype=torch.bfloat16`` (the fused solver's bf16 state) keeps the
     tables in f32.  ``cofactor="jtj"`` raises ValueError unless det J > 0 at
     every quadrature point (:func:`check_orientation`).  ``slab``: the
@@ -482,7 +551,10 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
     if cofactor == "jtj":
         check_orientation(pds, coeffs)
     p = degree
-    q = p + 2
+    n_w = host_tensor(w3).numel()
+    q = round(n_w ** (1 / 3))
+    if q ** 3 != n_w:
+        raise ValueError(f"w3 holds {n_w} weights, not q^3 for a whole q")
     if dtype == torch.bfloat16:  # a bf16 state; the tables stay f32
         dtype = torch.float32
 
@@ -509,7 +581,7 @@ def operator_from_arrays(pds: np.ndarray, w3: np.ndarray, coeffs: np.ndarray,
         degree=p, n_q=q, n_cells_axis=tuple(n_cells_axis),
         precision=precision, windowing=windowing, factor=factor,
         mma_mats=(mma_tables(m3 if factor == "dense" else m2, p, factor,
-                             precision)
+                             precision, q)
                   if precision in TENSOR_RUNGS else None),
         cofactor=cofactor, slab=slab)
 
@@ -531,9 +603,11 @@ def jacobian_determinants(pds: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
     """det J at every (q-point, cell), in f64 on the host: ``pds`` (3 q^3,
     8), ``coeffs`` (3, 8, n_cells).  Returns (q^3, n_cells)."""
     pds = np.asarray(pds, np.float64)
-    jac = np.einsum("eqk,dkn->qnde", pds.reshape(3, -1, 8),
-                    np.asarray(coeffs, np.float64))
-    return np.linalg.det(jac)
+    j = np.einsum("eqk,dkn->deqn", pds.reshape(3, -1, 8),
+                  np.asarray(coeffs, np.float64), optimize=True)
+    return (j[0, 0] * (j[1, 1] * j[2, 2] - j[1, 2] * j[2, 1])
+            - j[0, 1] * (j[1, 0] * j[2, 2] - j[1, 2] * j[2, 0])
+            + j[0, 2] * (j[1, 0] * j[2, 1] - j[1, 1] * j[2, 0]))
 
 
 def check_orientation(pds: np.ndarray, coeffs: np.ndarray) -> None:
@@ -560,18 +634,17 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
                   windowing: str = "reshape",
                   metric_dtype: torch.dtype | None = None,
                   n_q: int | None = None) -> OperatorData:
-    """Build the operator data for ``layout`` (q = p + 2 Gauss points); the
-    defaults are ``make_pallas_operator``'s.  ``n_q``: None or p + 2 (the
-    kernels are sized for it: NotImplementedError for any other, queue B
-    item 6g)."""
+    """Build the operator data for ``layout`` (``n_q`` Gauss points a
+    direction, default p + 2); the defaults are ``make_pallas_operator``'s.
+    ``n_q``: p + 1 or p + 2 under highest and split2m at the working dtype
+    (NotImplementedError for the rest, queue B item 6g:
+    :func:`check_shape`; the vectors' components are checked where they
+    meet the kernels)."""
     check_config(precision, factor, metric, cofactor, dtype, windowing,
                  degree=layout.degree, metric_dtype=metric_dtype)
     p = layout.degree
-    if n_q not in (None, p + 2):
-        raise NotImplementedError(
-            f"n_q={n_q} at degree {p} on the pallas backend: the kernels "
-            f"are {_SHAPE_TODO}")
-    q = p + 2
+    q = p + 2 if n_q is None else n_q
+    check_shape(p, q, 3, precision, dtype, metric_dtype)
     shape = lagrange.make_shape(p, q)
     coeffs = geometry.trilinear_coefficients(layout.mesh.cell_vertices)
     w3 = tensor_weights(p, q)

@@ -68,7 +68,8 @@ def fused_merged_cg_solve(op: OperatorData, n_nodes_axis, b: torch.Tensor,
                              f"or in bf16")
     nd = np_dtype(dtype)
     mask = op.mask
-    work = fk.Workspace(op) if b.device.type == "cuda" else None
+    work = (fk.Workspace(op, b.shape[0]) if b.device.type == "cuda"
+            else None)
 
     b_eff = b.to(dtype)
     if x0 is not None:

@@ -5,13 +5,15 @@ device's idle share, from ``torch.profiler``.
         [--solver merged|baseline|fused] [--windowing reshape|pieces|zslab] \
         [--geometry auto|qpoint|onthefly] [--dtype f32|f64] \
         [--precision highest|split2m] [--backend pallas|structured|general] \
-        [--prec-dtype f32|bf16] [--x-dtype f32|bf16]
+        [--prec-dtype f32|bf16] [--x-dtype f32|bf16] [--components 1|3] \
+        [--n-q Q]
 
 profiles one solve (after a warm-up solve) of the configuration the
 benchmark CLI resolves for the same flags (defaults: merged CG, reshape,
-highest) and prints one line per kernel name (calls, total device time,
-time per call) and the wall time, the summed kernel time and the idle
-share 1 - kernels / wall.
+highest; ``--components 1`` CEED BP3, ``--n-q`` the Gauss points a
+direction, default p + 2) and prints one line per kernel name (calls,
+total device time, time per call) and the wall time, the summed kernel
+time and the idle share 1 - kernels / wall.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ def main(argv: list[str] | None = None) -> None:
                     default="pallas")
     ap.add_argument("--prec-dtype", choices=["f32", "bf16"], default="f32")
     ap.add_argument("--x-dtype", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("--components", type=int, choices=[1, 3], default=3)
+    ap.add_argument("--n-q", type=int, default=None)
     args = ap.parse_args(argv)
     device = require_cuda("cuda")
     dtype = torch.float32 if args.dtype == "f32" else torch.float64
@@ -80,7 +84,8 @@ def main(argv: list[str] | None = None) -> None:
                 "onthefly": "onthefly"}[args.geometry])
     pb = bp4.build(args.s, args.degree, dtype, args.precision, factor=factor,
                    metric=metric, cofactor=cofactor, device=device,
-                   windowing=args.windowing, backend=args.backend)
+                   windowing=args.windowing, backend=args.backend,
+                   n_components=args.components, n_q=args.n_q)
     bf16 = {"f32": None, "bf16": torch.bfloat16}
     solve = benchmark.solver_call(pb, args.solver, bf16[args.prec_dtype],
                                   bf16[args.x_dtype])
@@ -88,9 +93,10 @@ def main(argv: list[str] | None = None) -> None:
     n_it = solve().n_iterations  # warm-up
     rows, wall = kernel_breakdown(solve, device)
     busy = sum(r[2] for r in rows)
-    print(f"p={args.degree} s={args.s} {args.solver} {args.backend} "
-          f"{args.windowing} {factor}/{metric} {args.dtype} {args.precision} "
-          f"P {args.prec_dtype} x {args.x_dtype}: {n_it} iterations")
+    print(f"p={args.degree} s={args.s} C={pb.n_components} q={pb.n_q} "
+          f"{args.solver} {args.backend} {args.windowing} {factor}/{metric} "
+          f"{args.dtype} {args.precision} P {args.prec_dtype} x "
+          f"{args.x_dtype}: {n_it} iterations")
     for name, calls, sec in rows:
         print(f"  {sec * 1e3:10.3f} ms  {calls:5d} calls  "
               f"{sec / calls * 1e6:9.2f} us/call  {name[:90]}")

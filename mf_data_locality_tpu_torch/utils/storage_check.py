@@ -1,7 +1,7 @@
 """Check of B2 with the preconditioner or x stored in bf16, on a card.
 
     python -m mf_data_locality_tpu_torch.utils.storage_check [--parent DIR]
-        [--time]
+        [--time] [--build-only]
 
 Builds the kernels and prints the build wall, each source's compile time
 and the ptxas registers and spills of B2's PX instantiations (P or x in
@@ -12,7 +12,11 @@ own, then compares every instantiation the two builds share, registers
 and spills, and prints how many are equal; B2's block form
 (``kLatticeUpdateBlock``, the assemble and backward passes' BLOCK) is
 counted apart, since its names are those of the z-slab form it replaced
-(form 4, the last template argument true) and its code is not.
+(form 4, the last template argument true) and its code is not.  The
+instantiations at the shapes beyond BP4's (``csrc/shapes.cu``: one
+component, q = p + 1) are listed with their registers and spills; the
+assemble pass's names are read without its component count (NC = 3), a
+template argument since those shapes.  ``--build-only``: this report alone.
 
 Then, on a 3 x 5 x 7 box at every degree 1..11 and in every configuration
 of ``laplace_cuda.fused_configs`` under ``highest`` (f32, f64), split2m,
@@ -78,6 +82,23 @@ def _unpx(name: str) -> str:
     return re.sub(r"L[bi]0E(E+v)", r"\1", name, count=1)
 
 
+def _unshape(name: str) -> str:
+    """The name an assemble pass had before its trailing component count
+    (NC = 3, BP4's) was a template argument."""
+    return re.sub(r"^(_ZN3bp415assemble_kernelI.*)Li3E(E+v)", r"\1\2",
+                  name)
+
+
+def _is_shape(name: str) -> bool:
+    """An instantiation at a shape beyond BP4's (csrc/shapes.cuh): a flag
+    argument with kShC1 (32) or kShQ1 (64), or the assemble pass over one
+    component (NC = 1, its last template argument)."""
+    flags = (int(v) for v in re.findall(r"Li(\d+)E", name))
+    return (any(v >= 32 for v in flags)
+            or bool(re.search(r"^_ZN3bp415assemble_kernelI.*Li1EE+v",
+                              name)))
+
+
 def _is_px(name: str) -> bool:
     """An instantiation for P or x in bf16: the kLatticeUpdatePx form (3)
     of the FORM passes, PX true as the last template argument, or the
@@ -116,9 +137,10 @@ def build_report(parent: str | None) -> bool:
         print(f"parent build {time.perf_counter() - t0:.1f} s, "
               f"{len(base)} instantiations")
     t0 = time.perf_counter()
-    _, log = _build.build()
+    lib, log = _build.build()
     wall = time.perf_counter() - t0
-    table = ptxas_table(log)
+    log = log or lib.with_suffix(".log").read_text()  # built before
+    table = {_unshape(k): v for k, v in ptxas_table(log).items()}
     ends = re.findall(r"nvcc: (\S+)((?: -DBP4_\w+=\d+)*) ([\d.]+) s", log)
     print(f"build {wall:.1f} s, {len(table)} instantiations, "
           f"{len(ends)} compiles")
@@ -131,11 +153,18 @@ def build_report(parent: str | None) -> bool:
     blocks = {k: v for k, v in table.items() if _is_block(k)}
     print(f"block-form instantiations: {len(blocks)}, spilling "
           f"{sum(1 for v in blocks.values() if v[1] or v[2])}")
+    shapes = {k: v for k, v in table.items() if _is_shape(k)}
+    print(f"shape instantiations (csrc/shapes.cu): {len(shapes)}, "
+          f"registers {min([v[0] for v in shapes.values()] + [0])}-"
+          f"{max([v[0] for v in shapes.values()] + [0])}, spilling "
+          f"{sum(1 for v in shapes.values() if v[1] or v[2])}")
+    for k, v in sorted(shapes.items()):
+        print(f"  ptxas {k[:110]} regs {v[0]} spill {v[1]}/{v[2]}")
     if base is not None:
         same = diff = 0
         for k, v in table.items():
             b = base.get(k, base.get(_unpx(k)))
-            if b is None or k in blocks:
+            if b is None or k in blocks or k in shapes:
                 continue
             if b == v:
                 same += 1
@@ -286,10 +315,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--parent")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--build-only", action="store_true",
+                    help="the build report alone")
     args = ap.parse_args()
     dev = timing.require_cuda("cuda")
     ok = build_report(args.parent)
-    ok &= sweep(dev)
+    if not args.build_only:
+        ok &= sweep(dev)
     if args.time:
         time_b2(dev)
     print("storage_check", "ok" if ok else "FAILED")

@@ -7,9 +7,9 @@ them in XLA contractions, no Pallas kernel).  Same inputs, made from a
 seed with numpy; f64 on the CPU: ``vmult`` within 1e-12 of the JAX one
 relative to its largest entry, and of the port's own ``assemble_dense``
 (the summation orders differ), ``assemble_dense`` within 1e-12 of JAX's,
-the permutation identical.  The kernels of ``pallas`` are sized for
-q = p + 2 and 3 components and refuse the others (``ROADMAP.md`` queue B
-item 6g).
+the permutation identical.  The kernels of ``pallas`` take 1 or 3
+components and q = p + 1 or p + 2 and refuse the others (``ROADMAP.md``
+queue B item 6g).
 """
 
 import jax.numpy as jnp
@@ -31,7 +31,8 @@ from mf_data_locality_tpu_torch.mesh.box import BoxMesh
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
 from mf_data_locality_tpu_torch.models import bp4
 from mf_data_locality_tpu_torch.ops import cg_fused_kernel as fk
-from mf_data_locality_tpu_torch.ops import laplace, laplace_structured
+from mf_data_locality_tpu_torch.ops import (laplace, laplace_cuda,
+                                            laplace_structured)
 from mf_data_locality_tpu_torch.solvers import cg, cg_merged
 
 TOL = 1e-12
@@ -198,15 +199,27 @@ def test_build_takes_n_q_and_n_components(backend):
 
 
 def test_pallas_refuses_other_q_and_components():
-    """Queue B item 6g: the builders and the kernels' checks."""
+    """Queue B item 6g, what stays of it: q = p + 3, two components and a
+    bf16 state at one component are refused by the builders and the
+    kernels' checks; BP3 (one component) and q = p + 1 are taken."""
     with pytest.raises(NotImplementedError, match="6g"):
         bp4.build(3, 2, torch.float64, device="cpu", n_q=5)
     with pytest.raises(NotImplementedError, match="6g"):
-        bp4.build(3, 2, torch.float64, device="cpu", n_components=1)
+        bp4.build(3, 2, torch.float64, device="cpu", n_components=2)
+    with pytest.raises(NotImplementedError, match="6g"):
+        bp4.build(3, 2, torch.bfloat16, "split2m", device="cpu",
+                  n_components=1)
     op = bp4.build(3, 2, torch.float64, device="cpu").op
     with pytest.raises(NotImplementedError, match="6g"):
-        fk.check_kernel_shape(op, 1)
-    fk.check_kernel_shape(op, 3)
+        fk.check_kernel_shape(op, 2)
+    with pytest.raises(NotImplementedError, match="6g"):
+        fk.check_kernel_shape(op, 1, torch.bfloat16)
+    assert fk.check_kernel_shape(op, 3) == 0
+    assert fk.check_kernel_shape(op, 1) == laplace_cuda.SHAPE_C1
+    q1 = bp4.build(3, 2, torch.float64, device="cpu", n_q=3,
+                   n_components=1).op
+    assert fk.check_kernel_shape(q1, 1) == (laplace_cuda.SHAPE_C1
+                                            | laplace_cuda.SHAPE_Q1)
 
 
 def test_bf16_state_only_on_pallas():

@@ -1128,3 +1128,46 @@ def test_sub_range_applies_match_plain(cuda_device, windowing, precision,
         want = la.apply_lattice(laplace_cuda.sub_operator(cpu, c0, c1),
                                 us.cpu())
         assert _rel(got.cpu(), want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", range(1, 12))
+def test_shape_kernels_match_plain(cuda_device, p):
+    """The shapes beyond BP4's (one component, q = p + 1, both; queue B
+    item 6g): B3-B6 and B1/B2 in every fused configuration under highest
+    (f32, f64) and split2m against their plain versions on the 105-cell
+    box (``utils/shape_check.compare_degree``: 1e-5 f32, 1e-12 f64)."""
+    from mf_data_locality_tpu_torch.utils import shape_check
+
+    worst = shape_check.compare_degree(p, cuda_device)
+    assert {k[0] for k in worst} == {"bp3", "q1", "bp3_q1"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (3, 1)])
+@pytest.mark.parametrize("solver,precision", [("merged", "highest"),
+                                              ("fused", "highest"),
+                                              ("fused", "split2m")])
+def test_shape_solves_on_card(cuda_device, shape, solver, precision):
+    """BP3 and q = p + 1 through ``run_one(problem=)`` on the card at p=4
+    s=7: the f64 itCG of the parity points (BP3 93, q = p + 1 91) under
+    highest at f64, split2m within +0..3 of it (or C8's cap)."""
+    c, dq = shape
+    dtype = torch.float64 if precision == "highest" else torch.float32
+    config = benchmark.resolve_config(4, solver, "pieces" if solver ==
+                                      "fused" else "reshape", precision,
+                                      dtype)
+    kw = dict(zip(("factor", "metric", "cofactor"), config))
+    windowing = "pieces" if solver == "fused" else "reshape"
+    pb = bp4.build(7, 4, dtype, precision, windowing=windowing,
+                   device=cuda_device, n_components=c, n_q=4 + dq, **kw)
+    r = benchmark.run_one(4, 7, solver=solver, dtype=dtype,
+                          precision=precision, windowing=windowing,
+                          device=cuda_device, problem=pb, solve_repeats=1,
+                          matvec_repeats=1, matvec_inner=2, **kw)
+    want = 93 if c == 1 else 91
+    assert r.n_dofs == pb.n_dofs and r.n_q == 4 + dq
+    if precision == "highest":
+        assert r.n_iterations == want
+    else:
+        assert want <= r.n_iterations <= want + 3 or r.n_iterations == 100
