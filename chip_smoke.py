@@ -241,7 +241,19 @@ Phases (each raises on failure, so any failure exits nonzero):
    q = p + 1 at p=4 s=13 (1,635,075 DoFs) on both, at full depth, and
    B4, B5, B6 short —; and the parity points of SHAPE_PARITY (f64 merged
    and fused: the JAX package's itCG exactly; f32 split2m fused + 0..3,
-   or C8's cap with ``edge_witness``).
+   or C8's cap with ``edge_witness``);
+12. the JAX package's modules without a Pallas kernel, plain PyTorch in
+   the port (``utils/modules_check.py``), at full width: the mass
+   operator, CEED BP2 and BP1 at p=4 s=13 (1,635,075 and 545,025 DoFs;
+   1^T M 1 = 2 to 1e-10 in f64, the card against the CPU to 1e-12, the
+   f32 error, vmult times); the general hex mesh, an L-shaped prism of
+   6,144 cells at p=4 (1,235,715 DoFs; vmult card vs CPU, a merged CG
+   with the Jacobi preconditioner timed); the 2D operator on 256 x 512
+   cells at p=4 (4,200,450 DoFs; vmult2d card vs CPU, 100 merged CG
+   iterations); and ``profiling.trace`` with ``marker("cg_solver")``
+   around 5 fused split2m iterations at p=4 s=13, ``trace_summary.
+   top_ops`` listing B2's three kernels, its B2 time within 10% of
+   ``kernel_breakdown``'s.
 """
 
 from __future__ import annotations
@@ -3218,6 +3230,13 @@ def main() -> int:
     # -- 11. the shapes beyond BP4's: CEED BP3 and q = p + 1 (queue B 6g) --
     shape_times, launches_sh = shape_section(
         dev, drive, short, log or lib_path.with_suffix(".log").read_text())
+
+    # -- 12. the plain modules: mass, the general mesh, 2D, the trace ------
+    from mf_data_locality_tpu_torch.utils import modules_check
+
+    print("the plain modules (mass BP2/BP1, an L-shaped general mesh, 2D, "
+          "the trace):")
+    modules_check.run_all(dev)
 
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so

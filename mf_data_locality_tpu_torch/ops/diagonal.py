@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+from mf_data_locality_tpu_torch.mesh.general import GeneralDofLayout
 from mf_data_locality_tpu_torch.ops import geometry, lagrange
 
 
@@ -42,8 +43,9 @@ def gll_metric(coeffs: np.ndarray, p: int) -> np.ndarray:
     return scale * np.einsum("...ab,...cb->...ac", jinv, jinv)
 
 
-def summed_diagonal(layout: DofLayout, coeffs: np.ndarray) -> np.ndarray:
-    """The operator diagonal at every node of ``layout``'s lattice, its
+def summed_diagonal(layout: DofLayout | GeneralDofLayout,
+                    coeffs: np.ndarray) -> np.ndarray:
+    """The operator diagonal at every node of ``layout``, its
     cells' (trilinear coefficients ``coeffs``, (n_cells, 8, 3))
     contributions summed in cell order: (n_nodes,).  A z-slab's cell
     layers give the global diagonal's values on its planes
@@ -70,8 +72,10 @@ def summed_diagonal(layout: DofLayout, coeffs: np.ndarray) -> np.ndarray:
     return diag
 
 
-def compute_inverse_diagonal(layout: DofLayout, dtype=np.float64) -> np.ndarray:
-    """Inverse scalar diagonal, one entry per node: (n_nodes,).
+def compute_inverse_diagonal(layout: DofLayout | GeneralDofLayout,
+                             dtype=np.float64) -> np.ndarray:
+    """Inverse scalar diagonal, one entry per node: (n_nodes,), on the
+    box or on any conforming hex mesh (:mod:`..mesh.general`).
 
     Constrained (boundary) nodes get 1.0, the reference's zero->1 fixup
     (``poisson_operator.h:420-424``).  Computed in f64; ``dtype`` only casts

@@ -27,6 +27,7 @@ import torch
 
 from mf_data_locality_tpu_torch.mesh import renumber as rn
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+from mf_data_locality_tpu_torch.mesh.general import GeneralDofLayout
 from mf_data_locality_tpu_torch.ops import geometry, lagrange
 
 
@@ -64,11 +65,13 @@ class LaplaceOperatorData:
         return self.values.device
 
 
-def make_operator(layout: DofLayout, n_q: int | None = None,
-                  dtype: torch.dtype = torch.float32,
+def make_operator(layout: DofLayout | GeneralDofLayout,
+                  n_q: int | None = None, dtype: torch.dtype = torch.float32,
                   device: torch.device | str = "cuda") -> LaplaceOperatorData:
-    """The operator of ``layout`` with q = ``n_q`` (default p + 2, the BP4
-    protocol, ``benchmark.h:290-313``) Gauss points per direction."""
+    """The operator of ``layout`` (the box's or any conforming hex
+    mesh's, :func:`~mf_data_locality_tpu_torch.mesh.general.
+    macro_hex_layout`) with q = ``n_q`` (default p + 2, the BP4 protocol,
+    ``benchmark.h:290-313``) Gauss points per direction."""
     p = layout.degree
     q = n_q if n_q is not None else p + 2
     shape = lagrange.make_shape(p, q)
@@ -77,19 +80,12 @@ def make_operator(layout: DofLayout, n_q: int | None = None,
     q_uvw = np.stack([qx, qy, qz], axis=-1).reshape(-1, 3)
     w = shape.q_weights
     q_w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(-1)
-    coeffs = geometry.trilinear_coefficients(layout.mesh.cell_vertices)
-    pos, valid = _transposed_scatter_map(layout.gather_map, layout.n_nodes)
-
-    def t(a, to=dtype):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
-                                                           dtype=to)
-
-    return LaplaceOperatorData(
-        values=t(shape.values), d_col=t(shape.d_col), q_uvw=t(q_uvw),
-        q_w3=t(q_w3), coeffs=t(coeffs),
-        gather=t(layout.gather_map, torch.int64),
-        unconstrained=t(~layout.boundary_node_mask),
-        scatter_pos=t(pos, torch.int64), scatter_valid=t(valid))
+    return operator_of_arrays(LaplaceOperatorData, dict(
+        values=shape.values, d_col=shape.d_col, q_uvw=q_uvw, q_w3=q_w3,
+        coeffs=geometry.trilinear_coefficients(layout.mesh.cell_vertices),
+        gather=layout.gather_map,
+        unconstrained=(~layout.boundary_node_mask).astype(np.float64)),
+        dtype, device)
 
 
 def renumber_operator(op: LaplaceOperatorData,
@@ -109,6 +105,27 @@ def renumber_operator(op: LaplaceOperatorData,
         unconstrained=torch.as_tensor(mask2, dtype=dt, device=dev),
         scatter_pos=torch.as_tensor(pos, dtype=torch.int64, device=dev),
         scatter_valid=torch.as_tensor(valid, dtype=dt, device=dev))
+
+
+def operator_of_arrays(cls, arrays: dict, dtype: torch.dtype | None,
+                       device: torch.device | str):
+    """A gather/scatter operator ``cls`` (a dataclass with one field a
+    host array of ``arrays``, ``gather`` and ``unconstrained`` among them,
+    and ``scatter_pos``/``scatter_valid``) on ``device``: the float arrays
+    at ``dtype`` (None: ``values``' own), the maps int64, the transposed
+    scatter map built from ``gather``."""
+    dtype = dtype or torch.as_tensor(np.array(arrays["values"])).dtype
+    gather = np.asarray(arrays["gather"])
+    pos, valid = _transposed_scatter_map(gather,
+                                         len(arrays["unconstrained"]))
+
+    def t(a, to=dtype):  # a C-ordered, writable copy on the host first
+        return torch.as_tensor(np.array(a, order="C")).to(device=device,
+                                                          dtype=to)
+
+    return cls(**{k: t(a) for k, a in arrays.items() if k != "gather"},
+               gather=t(gather, torch.int64), scatter_pos=t(pos, torch.int64),
+               scatter_valid=t(valid))
 
 
 def _transposed_scatter_map(gather_map: np.ndarray, n_nodes: int
@@ -180,10 +197,19 @@ def apply_cells(op: LaplaceOperatorData, u: torch.Tensor) -> torch.Tensor:
     n_comp = u.shape[0]
     u_loc = u[:, op.gather].reshape(n_comp, nc, p1, p1, p1)
     v_flat = local_apply(op, u_loc).reshape(n_comp, nc * nloc)
-    valid = op.scatter_valid.to(v_flat.dtype)
-    out = v_flat[:, op.scatter_pos[:, 0]] * valid[:, 0]
-    for k in range(1, op.scatter_pos.shape[1]):
-        out = out + v_flat[:, op.scatter_pos[:, k]] * valid[:, k]
+    return slot_sum(v_flat, op.scatter_pos, op.scatter_valid)
+
+
+def slot_sum(v_flat: torch.Tensor, pos: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """Each node's copies in the flattened cell-local output ``v_flat``
+    (C, n_cells nloc) summed in slot order through the transposed scatter
+    map (``pos``, ``valid``: :func:`_transposed_scatter_map`'s): (C,
+    n_nodes), the same bits on every run."""
+    valid = valid.to(v_flat.dtype)
+    out = v_flat[:, pos[:, 0]] * valid[:, 0]
+    for k in range(1, pos.shape[1]):
+        out = out + v_flat[:, pos[:, k]] * valid[:, k]
     return out
 
 
@@ -215,7 +241,8 @@ def vmult_add(op: LaplaceOperatorData, dst: torch.Tensor,
     return dst + apply_cells(op, src * mask) * mask + src * (1.0 - mask)
 
 
-def assemble_dense(layout: DofLayout, n_q: int | None = None,
+def assemble_dense(layout: DofLayout | GeneralDofLayout,
+                   n_q: int | None = None,
                    apply_constraints: bool = True,
                    rule: str = "gauss") -> np.ndarray:
     """The dense scalar stiffness matrix (n_nodes, n_nodes) by

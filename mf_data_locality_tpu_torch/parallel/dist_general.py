@@ -47,6 +47,7 @@ import torch
 from mf_data_locality_tpu_torch.mesh import renumber as rn
 from mf_data_locality_tpu_torch.mesh.box import BoxMesh
 from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+from mf_data_locality_tpu_torch.mesh.general import GeneralDofLayout
 from mf_data_locality_tpu_torch.ops import diagonal, geometry, lagrange, laplace
 from mf_data_locality_tpu_torch.parallel.comm import Comm
 from mf_data_locality_tpu_torch.solvers import cg, cg_merged
@@ -81,7 +82,8 @@ def _partition_cells(n_cells: int, n_ranks: int) -> list[np.ndarray]:
             for r in range(n_ranks)]
 
 
-def decompose(layout, n_ranks: int) -> tuple[list[dict], tuple[int, ...]]:
+def decompose(layout: DofLayout | GeneralDofLayout, n_ranks: int
+              ) -> tuple[list[dict], tuple[int, ...]]:
     """The host decomposition (``_decompose``): per rank its cells, global
     ids ``gids`` (old-local order), the locality-renumbered local gather
     map, ``order`` (new-local -> old-local), the per-offset export and
@@ -144,7 +146,8 @@ def decompose(layout, n_ranks: int) -> tuple[list[dict], tuple[int, ...]]:
     return per_rank, offsets
 
 
-def general_arrays(layout, n_ranks: int, n_components: int = 3
+def general_arrays(layout: DofLayout | GeneralDofLayout, n_ranks: int,
+                   n_components: int = 3
                    ) -> tuple[list[dict], tuple[int, ...]]:
     """Every rank's host arrays (f64 NumPy; ``build_dist_general``'s):
     ``coeffs`` (NC, 8, 3), ``gather`` (NC, nloc), ``uncon`` (NL,),
@@ -233,11 +236,14 @@ def _problem(degree: int, a: dict, offsets, n_dofs: int, n_cells: int,
 def build_general(s: int, degree: int, rank: int, n_ranks: int,
                   dtype: torch.dtype = torch.float32,
                   device: torch.device | str = "cuda",
-                  n_components: int = 3, layout=None) -> GeneralProblem:
+                  n_components: int = 3,
+                  layout: DofLayout | GeneralDofLayout | None = None
+                  ) -> GeneralProblem:
     """Rank ``rank``'s part of BP4 on 2**s cells over ``n_ranks`` ranks on
-    the general backend (``build_dist_general``).  ``layout``: any
-    DofLayout-like mesh (``mesh.cell_vertices``, ``gather_map``,
-    ``boundary_node_mask``); ``s`` is ignored then."""
+    the general backend (``build_dist_general``).  ``layout``: the box's
+    or any conforming hex mesh's (a :class:`~mf_data_locality_tpu_torch.
+    mesh.general.GeneralDofLayout`, e.g. ``macro_hex_layout``'s L-shape);
+    ``s`` is ignored then."""
     if layout is None:
         layout = DofLayout(BoxMesh.from_s(s), degree)
     arrays, offsets = general_arrays(layout, n_ranks, n_components)
@@ -325,7 +331,8 @@ def solve_general(prob: GeneralProblem, comm: Comm, solver: str = "merged",
     raise ValueError(f"unknown solver {solver!r}")
 
 
-def gather_global_general(xs, layout, n_components: int = 3) -> torch.Tensor:
+def gather_global_general(xs, layout: DofLayout | GeneralDofLayout,
+                          n_components: int = 3) -> torch.Tensor:
     """The ranks' local vectors (C, NL), in rank order, -> the global
     (C, n_nodes) vector (``gather_global_general``): each rank's owned
     nodes at their global ids."""

@@ -555,7 +555,9 @@ class Job:
     precomputed-metric twin, as the JAX ``run_one_distributed`` times
     it).  ``arrays``: per-rank arrays in place of the rank's own build
     (``models/bp4.slab_from_jax_arrays``' or ``block_from_jax_arrays``'
-    keywords).
+    keywords).  ``layout``: on the general backend, the mesh in place of
+    the s box (any conforming hex mesh's layout, e.g. ``mesh.general.
+    macro_hex_layout``'s; ``s`` is ignored then).
     """
 
     solver: str
@@ -578,6 +580,12 @@ class Job:
     overlap_matvec: bool = False
     arrays: tuple | None = field(default=None, compare=False)
     x0: Any = field(default=None, compare=False)
+    layout: Any = field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.layout is not None and self.backend != "general":
+            raise ValueError("a Job's layout= runs on the general backend "
+                             "only")
 
     def mesh(self, n_ranks: int) -> tuple[int, ...]:
         """The rank grid on ``n_ranks`` ranks."""
@@ -602,7 +610,7 @@ class Job:
         if self.backend == "general":
             return dist_general.build_general(self.s, self.degree, comm.rank,
                                               comm.size, self.dtype,
-                                              comm.device)
+                                              comm.device, layout=self.layout)
         windowing = "pieces" if self.solver == "fused" else self.windowing
         args = (self.dtype, self.backend, self.precision, windowing,
                 self.metric, comm.device)
@@ -708,9 +716,10 @@ def launch(jobs, n_ranks: int, device: str = "cuda") -> list[dict]:
     job the ranks' results merged: ``x`` the global vector
     (:func:`gather_global`; for blocks :func:`gather_global_3d`, dummy
     nodes trimmed; on the general backend
-    ``dist_general.gather_global_general``, as a lattice), ``it``, ``res``, ``history`` and ``converged`` of rank
-    0 (every rank's itCG must agree), ``ranks`` every rank's dict, and the
-    slowest rank's times."""
+    ``dist_general.gather_global_general``, as a lattice, or (C,
+    n_nodes) on a job's ``layout``), ``it``, ``res``, ``history`` and
+    ``converged`` of rank 0 (every rank's itCG must agree), ``ranks``
+    every rank's dict, and the slowest rank's times."""
     jobs = tuple(jobs)
     per_rank = comm_mod.run(run_jobs, n_ranks, (jobs,), device)
     out = []
@@ -718,7 +727,9 @@ def launch(jobs, n_ranks: int, device: str = "cuda") -> list[dict]:
         rs = [r[j] for r in per_rank]
         nz, ny, nx = job.nodes_axis()
         xs = [r["x"] for r in rs]
-        if job.backend == "general":
+        if job.layout is not None:  # (C, n_nodes) of the job's mesh
+            x = dist_general.gather_global_general(xs, job.layout)
+        elif job.backend == "general":
             layout = DofLayout(BoxMesh.from_s(job.s), job.degree)
             x = dist_general.gather_global_general(xs, layout).reshape(
                 xs[0].shape[0], nz, ny, nx)

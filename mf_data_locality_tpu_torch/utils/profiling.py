@@ -1,5 +1,19 @@
-"""Where a solve's time goes on the card: device time per kernel and the
-device's idle share, from ``torch.profiler``.
+"""Profiling hooks: trace capture, marker regions, and where a solve's
+time goes on the card (device time per kernel and the device's idle
+share), all from ``torch.profiler``.
+
+:func:`trace` and :func:`marker` are the slot of the reference's LIKWID
+regions (``benchmark.h:23-25,186-215``: "cg_solver" and "matvec" behind
+``LIKWID_PERFMON``), as the JAX package's ``utils.profiling``::
+
+    with profiling.trace(log_dir):          # LIKWID_MARKER_INIT/CLOSE
+        with profiling.marker("cg_solver"):  # LIKWID_MARKER_START/STOP
+            solve()
+
+writes one Chrome trace ``*.pt.trace.json`` into ``log_dir``, which
+:mod:`.trace_summary` reads (or TensorBoard, Perfetto).  Unlike the JAX
+helpers they swallow no error: ``torch.profiler`` runs on the CPU and on
+the card alike.
 
     python -m mf_data_locality_tpu_torch.utils.profiling [degree] [s] \
         [--solver merged|baseline|fused] [--windowing reshape|pieces|zslab] \
@@ -19,13 +33,37 @@ time and the idle share 1 - kernels / wall.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import (ProfilerActivity, profile, record_function,
+                            tensorboard_trace_handler)
 
 from mf_data_locality_tpu_torch.utils.timing import require_cuda
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[profile]:
+    """Record a ``torch.profiler`` trace of the block into ``log_dir`` (the
+    LIKWID_MARKER_INIT/CLOSE slot): CPU activity, and the card's when
+    ``torch.cuda.is_available()``; the card is synchronised before the
+    trace closes, so every kernel the block launched is in it."""
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+
+
+def marker(name: str) -> record_function:
+    """A named region in the trace (LIKWID_MARKER_START/STOP), a
+    ``user_annotation`` event: ``with marker("cg_solver"): ...``."""
+    return record_function(name)
 
 
 def kernel_breakdown(fn: Callable[[], object], device: torch.device | str):

@@ -14,9 +14,10 @@ and spills, and prints how many are equal; B2's block form
 counted apart, since its names are those of the z-slab form it replaced
 (form 4, the last template argument true) and its code is not.  The
 instantiations at the shapes beyond BP4's (``csrc/shapes.cu``: one
-component, q = p + 1) are listed with their registers and spills; the
-assemble pass's names are read without its component count (NC = 3), a
-template argument since those shapes.  ``--build-only``: this report alone.
+component, q = p + 1) are listed with their registers and spills, and
+compared where the parent has them; in both builds the assemble pass's
+names are read without its component count (NC = 3), a template argument
+since those shapes.  ``--build-only``: this report alone.
 
 Then, on a 3 x 5 x 7 box at every degree 1..11 and in every configuration
 of ``laplace_cuda.fused_configs`` under ``highest`` (f32, f64), split2m,
@@ -133,7 +134,8 @@ def build_report(parent: str | None) -> bool:
         if r.returncode:
             print(r.stdout[-2000:], r.stderr[-4000:])
             raise SystemExit("the parent's build failed")
-        base = ptxas_table(Path(r.stdout.split()[-1]).read_text())
+        base = {_unshape(k): v for k, v in ptxas_table(
+            Path(r.stdout.split()[-1]).read_text()).items()}
         print(f"parent build {time.perf_counter() - t0:.1f} s, "
               f"{len(base)} instantiations")
     t0 = time.perf_counter()
@@ -164,7 +166,7 @@ def build_report(parent: str | None) -> bool:
         same = diff = 0
         for k, v in table.items():
             b = base.get(k, base.get(_unpx(k)))
-            if b is None or k in blocks or k in shapes:
+            if b is None or k in blocks:  # shapes: where the parent has them
                 continue
             if b == v:
                 same += 1
