@@ -163,35 +163,53 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``_f64``, ``ms_box_...``); f64 parity at p=4 s=7 on 2 and 3 z-slab
    ranks and on the (2, 2) and (2, 2, 2) meshes (fused, merged reshape,
    baseline: itCG 91 and x against the same solver on one device,
-   TOL_DIST_X) with every rank's collectives counted; at the full width, 4
-   ranks at p=4 s=15 (6,440,067 DoFs) — z-slabs: the merged reshape f32
-   highest, fused split2m and fused split2m onthefly solves; the (2, 2)
-   mesh: merged and fused split2m — and the (2, 2, 2) mesh at p=4 s=16
-   (12,830,211 DoFs, 8 ranks, fused split2m onthefly), each with its row,
-   collectives per iteration, the slowest rank's host seconds, launches
-   (``launches_slab``, ``launches_dist``, ``launches_block2d``,
-   ``launches_block3d``) and true residual, beside the single-device
-   fused split2m path at s=15 (auto, and dense with the streamed metric);
-   and ``dryrun_multichip(4)``'s and ``(8)``'s legs (1-8, in the
-   same spawns as the 4- and 8-rank drives; B2's launches in each fused
-   leg, ``launches_dryrun``); section 8's wall time.  The overlap (PR
-   15): B2's layer-range form (``bp4_fused_iteration_block``'s cell pass
-   over a range of cells, then its node passes) bitwise against the one
-   launch and against its plain version on rank 1 of the 4 z-slabs at p=4
-   s=15 and at p=6 s=12 (f64 and f32 highest, split2m dense; the metric
-   streamed and rebuilt), timed at p=4 s=15 beside the one launch (the
-   ``fused_cg_iteration_range`` row); B3/B5/B6 on the overlapped apply's
-   layer ranges against their plain versions; at p=4 s=15 on 4 ranks the
-   CLI's merged reshape f32 highest with ``--overlap`` and
-   ``solve_fused(overlap=True)`` split2m dense beside the same solves
-   without it in the same spawn (fused: x and history bitwise; merged:
-   itCG equal, x within TOL_OVERLAP_X32), each rank's face wait an
-   iteration with and without; ``--backend general --devices 4`` at p=4
-   s=12 and dry-run leg 4 (the general backend, plain PyTorch); in the
-   4-rank spawn also the bf16 state's solves: the CLI's merged
-   solve with ``--dtype bf16`` (its count the single-device bf16 solve's,
-   the JAX package's claim) and the fused solve under highest (C10's f32
-   carry; within 2 of one device's);
+   TOL_DIST_X) with every rank's collectives counted; with the depth cut
+   DIST_SHORT, at the full width only the rows that no other
+   row covers: 4 z-slab ranks at p=4 s=15 (6,440,067 DoFs), the merged
+   reshape f32 highest and fused split2m solves, timed, and their
+   ``--overlap`` twins, timed (one solve and one run of the overlapped
+   matvec) (``solve_fused(overlap=True)`` bitwise the solve
+   without, the merged one's itCG equal and x within TOL_OVERLAP_X32,
+   each rank's face wait an iteration with and without; B2's layer-range
+   form, the ``fused_cg_iteration_range`` row); short (s=12, untimed) the
+   fused split2m onthefly, ``--backend general``, the bf16 state's merged
+   (its count the single-device bf16 solve's, the JAX package's claim) and
+   fused (C10's f32 carry; within 2 of one device's) solves, the (2, 2)
+   mesh's merged and fused split2m and the (2, 2, 2) mesh's fused split2m
+   onthefly; each with its row, collectives per iteration, the slowest
+   rank's host seconds, launches and true residual, beside the
+   single-device fused split2m path at s=15 (auto, and dense with the
+   streamed metric); ``dryrun_multichip(4)``'s and ``(8)``'s legs (1-8,
+   in the same spawns as the 4- and 8-rank drives; B2's launches in each
+   fused leg, ``launches_dryrun``); the layer-range form bitwise against
+   the one launch and against its plain version on rank 1 of the 4
+   z-slabs at p=4 s=15 and at p=6 s=12, timed at p=4 s=15; B3/B5/B6 on
+   the overlapped apply's layer ranges against their plain versions.
+   CEED BP3 on the ranks (``csrc/shapes_block.cu``): the same checks at
+   one component (``n_comp=1``) — at p=1..11 B2's block form on a z-slab
+   and a (2, 2) block (highest f64 and f32, split2m; both metrics) and its
+   layer-range form (bitwise the one launch, and against plain), timed at
+   p=4 s=17 on rank 1 of 4 (the block form streamed, rebuilt and f64 beside
+   the unchanged B2 on a box, the layer-range form beside the one launch),
+   B3/B5/B6 on that slab and its layer ranges, timed on the slab; then
+   ``utils/bp3_ranks_check.py``: with the bf16 state at p=1..11 the block
+   and layer-range forms, C10's carry over one component, B3/B5/B6 on a
+   slab, and on one device B1-B6 (every fused configuration), timed at
+   full width (the block form on rank 1 of 4, B3 and B2 on one device at
+   p=4 s=15), each held against its plain version at every size with its
+   control (fields ``*_bp3_slab``, ``*_bp3_slab_onthefly``,
+   ``*_bp3_slab_f64``, ``*_bp3_slab_bf16``, ``*_bp3_slab_reshape|pieces|
+   zslab``, ``*_bp3_bf16state``, the range row's ``*_bp3``); f64 parity
+   at BP3_PARITY on 2 and 3 z-slab ranks and on the (2, 2) mesh (fused,
+   merged: the single-device count, 93 and 50); BP3's 4-rank full width
+   p=4 s=17 (8,520,321 DoFs): the fused split2m dense onthefly solve and
+   the merged reshape highest one, timed, the fused one with
+   ``--overlap`` (bitwise, timed) and with the bf16 state (its residual
+   estimate within 2e-2 of the f32 solve's); short the merged
+   ``--windowing pieces``, baseline ``zslab`` and fused streamed solves and the fused solver on the (2, 2)
+   and (2, 2, 2) meshes; the one-device bf16 state at BP3 p=4 s=15 (the
+   JAX CLI's default and the production command with ``--dtype bf16``);
+   section 8's wall time;
 9. bf16 storage (``utils/bf16_state_check.py``): every storage
    instantiation — the bf16 state on every rung (B1-B6; the cell passes'
    ``kSbState`` forms, B5/B6's bf16 assemble), the bf16 metric under
@@ -1746,13 +1764,51 @@ BLOCK_CASES = ((9, (2, 2), (0, 0)), (9, (2, 2, 2), (0, 0, 0)),
 # 4-rank drives time two); f64 parity at DIST_PARITY on each mesh (fused,
 # merged, baseline: itCG DIST_ITCG, x within TOL_DIST_X of one device)
 MESH_FULL = (("_block2d", 15, (2, 2)), ("_block3d", 16, (2, 2, 2)))
+# the depth cut of section 8's rank drives: one full-width row a path that
+# no other row covers (the z-slab merged and fused solves and their
+# --overlap twins, whose readings need the same size, each timed once);
+# the repeats of a
+# kernel form on another mesh or configuration short, at s=DIST_SHORT
+# (4,096 cells) and untimed
+DIST_SHORT = 12
+# and stop at DIST_SHORT_IT iterations, where the recurrence's residual
+# estimate still is |b - Ax| (the true-residual check): at s=12 the f32
+# split2m solves reach 36 = ~1e-2 of |b| by iteration 100, where their
+# estimate drifts 1.8% from |b - Ax| on one device as on the ranks, the
+# rung's rounding, not the ranks' (highest: 5e-5)
+DIST_SHORT_IT = 30
+# CEED BP3 (one component) on the ranks (section 8): f64 parity at
+# SHAPE_PARITY's C = 1 points on DIST_RANKS z-slab ranks and on the (2, 2)
+# mesh (fused, merged reshape: the single-device count, x within
+# TOL_DIST_X of one device's); the full width p=4 s=17 on 4 ranks
+# (8,520,321 DoFs: benchmark.ladder_sizes(4, n_components=1,
+# n_devices=4)'s top): the fused solver in the production configuration
+# (split2m, dense, the metric rebuilt by adjj) and the merged reshape
+# highest solve, timed, the fused one with --overlap (bitwise, timed) and
+# with the bf16 state (its residual estimate within 2e-2 of the f32
+# solve's at the same iteration); short: B5 and B6 (merged pieces,
+# baseline zslab), the fused split2m streamed, and the fused solver on the
+# (2, 2) and (2, 2, 2) meshes
+BP3_PARITY = tuple((p, s, want) for p, s, c, dq, want in SHAPE_PARITY
+                   if c == 1 and dq == 2)
+BP3_FULL = (4, 17, 4)
+BP3_DOFS = 8_520_321
+# the kernel forms at one component (section 8): B2's block form on the
+# rank parts of ``utils/bp3_ranks_check`` at p=1..11 and its layer-range
+# form on rank 1 of 3 z-slabs of the s=9 mesh (3 cell layers) at each
+# degree, under RANGE_RUNGS, the rungs the block form takes at one
+# component (the bf16 state: bp3_ranks_check's own cases); timed, with
+# B3/B5/B6 on the rank's slab and the overlapped apply's layer ranges, at
+# BP3_FULL
+BP3_RANGE_CASES = tuple((p, 9, 3) for p in range(1, 12))
 
 
-def _slab_op(s, p, rank, n, state, rung, metric, dev):
+def _slab_op(s, p, rank, n, state, rung, metric, dev, n_comp=3):
     from mf_data_locality_tpu_torch.parallel import distributed
 
     return distributed.build_slab(s, p, rank, n, state, "pallas", rung,
-                                  "pieces", metric, dev).op
+                                  "pieces", metric, dev,
+                                  n_components=n_comp).op
 
 
 def _block_op(s, p, coords, mesh, state, rung, metric, dev):
@@ -1762,20 +1818,22 @@ def _block_op(s, p, coords, mesh, state, rung, metric, dev):
                                    "pieces", metric, dev).op
 
 
-def compare_rank_forms(fk, dev, cases, form: str) -> dict:
+def compare_rank_forms(fk, dev, cases, form: str, n_comp: int = 3,
+                       degrees=SLAB_DEGREES, rungs=SLAB_RUNGS) -> dict:
     """B2's block form vs its plain version on each of ``cases``
     ((label, a function (p, state dtype, rung, metric) -> op)) under
-    SLAB_RUNGS x SLAB_DEGREES x both metrics, every ghost plane or face
-    holding the random state; returns the largest readings a rung."""
+    ``rungs`` x ``degrees`` x both metrics, every ghost plane or face
+    holding the random state, vectors of ``n_comp`` components; returns
+    the largest readings a rung."""
     from mf_data_locality_tpu_torch.utils.bf16_check import control_op
 
     worst = {}
-    for p in SLAB_DEGREES:
-        for rung, state in SLAB_RUNGS:
+    for p in degrees:
+        for rung, state in rungs:
             for metric in ("precomputed", "onthefly"):
                 for k, (label, build) in enumerate(cases):
                     op = build(p, state, rung, metric)
-                    x, g, d, h = random_state(op, 4, seed=70 + k)
+                    x, g, d, h = random_state(op, 4, 70 + k, n_comp)
                     d, h = d.to(state).contiguous(), h.to(state).contiguous()
                     prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
                             * op.mask).contiguous()
@@ -1801,33 +1859,35 @@ def compare_rank_forms(fk, dev, cases, form: str) -> dict:
                     if state == torch.bfloat16:
                         check_rounding_point(op, 80 + p, tag, quiet=True)
     for (rung, state), err in worst.items():
-        print(f"  fused_cg_iteration {form} form {rung} {state} (p in "
-              f"{SLAB_DEGREES}, both metrics, {len(cases)} {form}s): "
+        print(f"  fused_cg_iteration {form} form C={n_comp} {rung} {state} "
+              f"(p in {tuple(degrees)}, both metrics, {len(cases)} {form}s): "
               f"largest {'rel L2' if rung == 'bf16' else 'max rel err'} "
               f"{err:.3e}")
     return worst
 
 
-def time_rank_form(fk, dev, timing, build, s: int, label: str) -> dict:
+def time_rank_form(fk, dev, timing, build, s: int, label: str,
+                   n_comp: int = 3, timed=SLAB_TIMED) -> dict:
     """B2's block form on one rank's part (``build(rung, dtype) ->
-    op``; the fused full-width configuration: dense, the metric streamed)
-    under SLAB_TIMED, compared with and timed beside its plain version and
-    the bound, and the unchanged B2 on a box of the same cells timed in the
-    same turns; returns {suffix: ((kernel ms, plain ms), bound, max |diff|,
-    box ms)}."""
+    op``; the fused full-width configuration: dense, the metric streamed,
+    or rebuilt where ``build`` rebuilds it) under ``timed``, on vectors of
+    ``n_comp`` components, compared with and timed beside its plain
+    version and the bound, and the unchanged B2 on a box of the same cells
+    (the same metric) timed in the same turns; returns {suffix: ((kernel
+    ms, plain ms), bound, max |diff|, box ms)}."""
     from mf_data_locality_tpu_torch.mesh.box import BoxMesh
     from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
     from mf_data_locality_tpu_torch.ops import laplace_cuda
 
     out = {}
-    for rung, dtype, sfx in SLAB_TIMED:
+    for rung, dtype, sfx in timed:
         op = build(rung, dtype)
         box = laplace_cuda.make_operator(
             DofLayout(BoxMesh(op.n_cells_axis, BoxMesh.from_s(s).spacing),
                       op.degree), dtype, rung, factor="dense",
-            metric="precomputed", windowing="pieces", device=dev)
-        tag = f"{label} {rung} {str(dtype)[6:]}"
-        x, g, d, h = random_state(op, 4, seed=9)
+            metric=op.metric, windowing="pieces", device=dev)
+        tag = f"{label} C={n_comp} {rung} {str(dtype)[6:]} {op.metric}"
+        x, g, d, h = random_state(op, 4, 9, n_comp)
         prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
                 * op.mask).contiguous()
         scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
@@ -1836,7 +1896,7 @@ def time_rank_form(fk, dev, timing, build, s: int, label: str) -> dict:
                           fk.fused_cg_iteration(op, x, g, d, h, scal, prec),
                           fk._fused_iteration_plain(op, x, g, d, h, scal,
                                                     prec), dtype, tag)
-        work, wbox = fk.Workspace(op), fk.Workspace(box)
+        work, wbox = fk.Workspace(op, n_comp), fk.Workspace(box, n_comp)
         bufs = tuple(torch.empty_like(t) for t in (x, g, d, h, scal))
         t = time_pair(lambda: fk.fused_cg_iteration(op, x, g, d, h, scal,
                                                     prec, out=bufs,
@@ -1847,7 +1907,8 @@ def time_rank_form(fk, dev, timing, build, s: int, label: str) -> dict:
             lambda: fk.fused_cg_iteration(box, x, g, d, h, scal, prec,
                                           out=bufs, work=wbox), dev,
             inner=20, repeats=3) for _ in range(2)) * 1e3
-        b = bound("fused_cg_iteration", op, split=rung != "highest")
+        b = bound("fused_cg_iteration", op, split=rung != "highest",
+                  n_comp=n_comp)
         print(f"  fused_cg_iteration {tag}: kernel {t[0]:.4f} ms, plain "
               f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); the unchanged "
               f"B2 on a box of the same {op.n_cells} cells {t_box:.4f} ms")
@@ -1873,25 +1934,58 @@ def check_collectives(job, r: dict, n: int) -> None:
                              f"shifts) {got}, expected {want}")
 
 
-def _parity(ref, jobs, out, lat, where: str) -> None:
-    """The f64 parity jobs' results against one device's solves."""
+def _one_device(bp4, cg_fused, p: int, s: int, n_comp: int, solvers,
+                dev) -> dict:
+    """One device's f64 solves at p, s and ``n_comp`` components: the
+    fused (dense, the metric streamed), merged and baseline (reshape: B3)
+    solvers of ``solvers``; {solver: result}."""
+    f64 = torch.float64
+    out = {}
+    if "fused" in solvers:
+        pf = bp4.build(s, p, f64, "highest", factor="dense",
+                       metric="precomputed", windowing="pieces", device=dev,
+                       n_components=n_comp)
+        lat = pf.lattice_shape
+        out["fused"] = cg_fused.fused_merged_cg_solve(
+            pf.op, lat[1:], pf.b.reshape(lat),
+            pf.inv_diag.reshape((1,) + lat[1:]))
+    pm = bp4.build(s, p, f64, "highest", device=dev, n_components=n_comp)
+    for solver in solvers:
+        if solver != "fused":
+            solve = (bp4.solve_merged if solver == "merged"
+                     else bp4.solve_baseline)
+            out[solver] = solve(pm)
+    return out
+
+
+def _parity(refs, jobs, out, where: str) -> int:
+    """The f64 parity jobs' results against one device's solves:
+    ``refs[(n_components, p, s)]`` {solver: result} and the itCG expected
+    there.  Returns B2's launches summed over the BP3 fused jobs' ranks."""
+    bp3_b2 = 0
     for job, r in zip(jobs, out):
+        ref, itcg = refs[job.n_components, job.degree, job.s]
         want = ref[job.solver]
-        xr = want.x.reshape(lat).cpu()
+        xr = want.x.reshape(r["x"].shape).cpu()
         err = ((r["x"] - xr).abs().max() / max(1.0, xr.abs().max())).item()
         kern = ("fused_cg_iteration" if job.solver == "fused"
                 else "apply_local_batched_g")
         launched = sum(x["launches_solve"][kern] for x in r["ranks"])
         n = len(r["ranks"])
-        print(f"  {job.solver} f64 p={job.degree} s={job.s} on {where}: "
-              f"itCG {r['it']} (one device {want.n_iterations}), x "
-              f"{err:.3e} max(1, |x|) from one device's (tol "
-              f"{TOL_DIST_X:.0e}), {kern} launches {launched}")
+        print(f"  {job.solver} f64 C={job.n_components} p={job.degree} "
+              f"s={job.s} on {where}: itCG {r['it']} (one device "
+              f"{want.n_iterations}), x {err:.3e} max(1, |x|) from one "
+              f"device's (tol {TOL_DIST_X:.0e}), {kern} launches "
+              f"{launched}")
         check_collectives(job, r, n)
-        if not (r["it"] == want.n_iterations == DIST_ITCG
+        if not (r["it"] == want.n_iterations == itcg
                 and err <= TOL_DIST_X and launched == n * r["it"]):
-            raise AssertionError(f"distributed {job.solver} on {where} "
+            raise AssertionError(f"distributed {job.solver} C="
+                                 f"{job.n_components} on {where} "
                                  f"disagrees with one device")
+        if job.n_components == 1 and job.solver == "fused":
+            bp3_b2 += launched
+    return bp3_b2
 
 
 def _drive(benchmark, label: str, job, r: dict) -> tuple[dict, object]:
@@ -1901,19 +1995,23 @@ def _drive(benchmark, label: str, job, r: dict) -> tuple[dict, object]:
     n = len(r["ranks"])
     check_collectives(job, r, n)
     row = benchmark.dist_row(job, r)
-    launches = {k: sum(x["launches"][k] for x in r["ranks"])
-                for k in r["ranks"][0]["launches"]}
+    # a timed drive's counts cover its timing runs too, an untimed one's
+    # its solve
+    key = "launches" if job.timed else "launches_solve"
+    launches = {k: sum(x[key][k] for x in r["ranks"])
+                for k in r["ranks"][0][key]}
     it = r["it"]
     print(f"  {label} {job.precision}: {row.row()}; per iteration "
           f"{(r['allreduces'] - 1) / it:g} all-reduce, "
           f"{r['shifts'] / it:.3g} shifts (rank 0)")
-    print(f"    launches (all ranks, the run with its timing): {launches}")
+    what = "the run with its timing" if job.timed else "the solve"
+    print(f"    launches (all ranks, {what}): {launches}")
     ms = {k: max(x["comm_s"][k] for x in r["ranks"]) / it * 1e3
           for k in r["comm_s"]}
     print(f"    host ms an iteration (the slowest rank, first solve): wall "
           f"{max(x['wall_s'] for x in r['ranks']) / it * 1e3:.3f}; in the "
           f"collectives " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
-    lat = (3,) + job.nodes_axis()
+    lat = (job.n_components,) + job.nodes_axis()
     if tuple(r["x"].shape) != lat or not torch.isfinite(r["x"]).all():
         raise AssertionError(f"{label}: x is wrong")
     return launches, row
@@ -1924,7 +2022,7 @@ def _true_residual(fk, pb, r: dict, label: str) -> None:
     of the same configuration, against the solve's residual estimate."""
     b = pb.b.reshape(r["x"].shape)
     x = r["x"].to(b.device).contiguous()
-    ax = (pb.a_apply(x.reshape(3, -1)).reshape(x.shape)
+    ax = (pb.a_apply(x.reshape(x.shape[0], -1)).reshape(x.shape)
           if pb.op.windowing == "reshape" else fk.matvec(pb.op, x))
     true_res = torch.linalg.norm(b - ax).item()
     gap = abs(true_res - r["res"]) / r["res"]
@@ -1963,8 +2061,8 @@ def range_iteration(fk, op, state, work, cut: int, out=None):
     return fk.fused_cg_assemble(op, out, state[5], state[4], work)
 
 
-def _rank_state(op, dev, seed: int):
-    x, g, d, h = random_state(op, 4, seed=seed)
+def _rank_state(op, dev, seed: int, n_comp: int = 3):
+    x, g, d, h = random_state(op, 4, seed, n_comp)
     prec = ((random_state(op, 1, seed=5)[0][:1].abs() + 0.5)
             * op.mask).contiguous()
     scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
@@ -1972,23 +2070,24 @@ def _rank_state(op, dev, seed: int):
     return x, g, d, h, scal, prec
 
 
-def compare_range_form(fk, dev) -> dict:
+def compare_range_form(fk, dev, cases=RANGE_CASES, n_comp: int = 3) -> dict:
     """The layer-range form against the one launch (bitwise) and the plain
-    version at RANGE_CASES x RANGE_RUNGS x both metrics; returns the
-    largest plain-version reading a rung."""
+    version on rank 1 of each of ``cases`` x RANGE_RUNGS x both metrics,
+    vectors of ``n_comp`` components; returns the largest plain-version
+    reading a rung."""
     worst = {}
-    for p, s, n in RANGE_CASES:
+    for p, s, n in cases:
         for rung, dtype in RANGE_RUNGS:
             for metric in ("precomputed", "onthefly"):
-                op = _slab_op(s, p, 1, n, dtype, rung, metric, dev)
-                state = _rank_state(op, dev, 90 + p)
-                tag = (f"layer-range p={p} s={s} rank 1/{n} {rung} "
-                       f"{str(dtype)[6:]} {metric}")
+                op = _slab_op(s, p, 1, n, dtype, rung, metric, dev, n_comp)
+                state = _rank_state(op, dev, 90 + p, n_comp)
+                tag = (f"layer-range C={n_comp} p={p} s={s} rank 1/{n} "
+                       f"{rung} {str(dtype)[6:]} {metric}")
                 one = fk.fused_cg_iteration(op, *state)
                 ncz = op.n_cells_axis[0]
                 for cut in (ncz - 1, 1):
-                    got = range_iteration(fk, op, state, fk.Workspace(op),
-                                          cut)
+                    got = range_iteration(fk, op, state,
+                                          fk.Workspace(op, n_comp), cut)
                     if not all(torch.equal(a, b) for a, b in zip(got, one)):
                         raise AssertionError(f"{tag}, cut {cut}: not the "
                                              f"one launch bitwise")
@@ -2002,31 +2101,33 @@ def compare_range_form(fk, dev) -> dict:
                 del op, state, one, got, want
         torch.cuda.empty_cache()
     for (rung, dt), err in worst.items():
-        print(f"  fused_cg_iteration layer-range form {rung} {dt} (rank 1 "
-              f"of {[c[:2] for c in RANGE_CASES]}, both metrics, cuts n-1 "
+        print(f"  fused_cg_iteration layer-range form C={n_comp} {rung} {dt} "
+              f"(rank 1 of {[c for c in cases]}, both metrics, cuts n-1 "
               f"and 1): bitwise the one launch; vs plain max rel err "
               f"{err:.3e}")
     return worst
 
 
-def time_range_form(fk, dev, timing) -> dict:
-    """The layer-range form on rank 1 of DIST_FULL's z-slabs (dense, the
-    metric streamed) under SLAB_TIMED, compared with and timed beside its
-    plain version (the plain cell and assemble passes) and the one launch
-    in turns; returns {suffix: ((kernel ms, plain ms), bound, max |diff|,
-    one-launch ms)}."""
-    p, s, n = DIST_FULL
+def time_range_form(fk, dev, timing, full=DIST_FULL, n_comp: int = 3,
+                    timed=SLAB_TIMED) -> dict:
+    """The layer-range form on rank 1 of ``full``'s z-slabs (p, s, ranks;
+    dense, the metric streamed) under ``timed``, vectors of ``n_comp``
+    components, compared with and timed beside its plain version (the
+    plain cell and assemble passes) and the one launch in turns; returns
+    {suffix: ((kernel ms, plain ms), bound, max |diff|, one-launch ms)}."""
+    p, s, n = full
     out = {}
-    for rung, dtype, sfx in SLAB_TIMED:
-        op = _slab_op(s, p, 1, n, dtype, rung, "precomputed", dev)
-        state = _rank_state(op, dev, 11)
+    for rung, dtype, sfx in timed:
+        op = _slab_op(s, p, 1, n, dtype, rung, "precomputed", dev, n_comp)
+        state = _rank_state(op, dev, 11, n_comp)
         ncz = op.n_cells_axis[0]
-        work = fk.Workspace(op)
+        work = fk.Workspace(op, n_comp)
         bufs = tuple(torch.empty_like(t) for t in state[:5])
         want = fk._fused_iteration_plain(op, *state)
         _, diff = compare("fused_cg_iteration",
                           range_iteration(fk, op, state, work, ncz - 1),
-                          want, dtype, f"layer-range {rung} {dtype}")
+                          want, dtype,
+                          f"layer-range C={n_comp} {rung} {dtype}")
 
         def plain():
             fk._cells_plain(op, *state, bufs, work, 0, ncz - 1)
@@ -2038,56 +2139,82 @@ def time_range_form(fk, dev, timing) -> dict:
         t_one = min(timing.time_per_call(
             lambda: fk.fused_cg_iteration(op, *state, out=bufs, work=work),
             dev, inner=20, repeats=3) for _ in range(2)) * 1e3
-        b = bound("fused_cg_iteration", op, split=rung != "highest")
-        print(f"  fused_cg_iteration layer-range form p={p} s={s} rank "
-              f"1/{n} {rung} {str(dtype)[6:]} (cells [0, {ncz - 1}) + "
-              f"[{ncz - 1}, {ncz}) + assemble): kernel {t[0]:.4f} ms, "
-              f"plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); the one "
-              f"launch {t_one:.4f} ms")
+        b = bound("fused_cg_iteration", op, split=rung != "highest",
+                  n_comp=n_comp)
+        print(f"  fused_cg_iteration layer-range form C={n_comp} p={p} "
+              f"s={s} rank 1/{n} {rung} {str(dtype)[6:]} (cells [0, "
+              f"{ncz - 1}) + [{ncz - 1}, {ncz}) + assemble): kernel "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]}); the one launch {t_one:.4f} ms")
         out[sfx] = t, b, diff, t_one
         del op, state, work, bufs, want
         torch.cuda.empty_cache()
     return out
 
 
-def compare_sub_applies(la, dev) -> None:
-    """B3/B5/B6 on rank 1 of DIST_FULL's z-slabs and on the operators of
-    the overlapped apply's three layer ranges of it
+def compare_sub_applies(la, dev, full=DIST_FULL, n_comp: int = 3,
+                        timing=None) -> dict:
+    """B3/B5/B6 on rank 1 of ``full``'s z-slabs (p, s, ranks) and on the
+    operators of the overlapped apply's three layer ranges of it
     (``laplace_cuda.sub_operator``) against their plain versions, f32
-    highest and split2m (on a block's lattice B5/B6 keep the faces'
-    partial sums)."""
-    from mf_data_locality_tpu_torch.ops import laplace_cuda
-    from mf_data_locality_tpu_torch.parallel import distributed
+    highest and split2m, on vectors of ``n_comp`` components (on a
+    block's lattice B5/B6 keep the faces' partial sums).  ``timing``: the
+    whole rank's apply under highest also timed beside its plain version
+    and the bound; returns {name: ((kernel ms, plain ms), bound, max
+    |diff|)} then."""
+    from dataclasses import replace
 
-    p, s, n = DIST_FULL
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    p, s, n = full
     names = {"reshape": "apply_local_batched_g",
              "pieces": "apply_lattice_pieces", "zslab": "apply_lattice_zslab"}
-    worst = {}
+    worst, out = {}, {}
     for rung in ("highest", "split2m"):
+        # one build a rung: the windowing is the operator's field alone
+        whole = _slab_op(s, p, 1, n, torch.float32, rung, "precomputed",
+                         dev, n_comp)
+        u = random_state(whole, 1, 13, n_comp)[0]
+        ncz = whole.n_cells_axis[0]
         for windowing, name in names.items():
-            op = distributed.build_slab(s, p, 1, n, torch.float32, "pallas",
-                                        rung, windowing, "precomputed",
-                                        dev).op
-            u = random_state(op, 1, seed=13)[0]
-            ncz = op.n_cells_axis[0]
-            for c0, c1 in ((0, ncz), (0, 1), (1, ncz - 1), (ncz - 1, ncz)):
-                sub = laplace_cuda.sub_operator(op, c0, c1)
+            op = replace(whole, windowing=windowing)
+            # None: the rank's operator itself
+            for rng in (None, (0, ncz), (0, 1), (1, ncz - 1),
+                        (ncz - 1, ncz)):
+                c0, c1 = rng or (0, ncz)
+                sub = op if rng is None else laplace_cuda.sub_operator(
+                    op, c0, c1)
                 us = u[:, c0 * p:c1 * p + 1].contiguous()
-                got = la.apply_lattice(sub, us)
-                if windowing == "reshape":  # B3 between the windowings
-                    want = la.from_cell_batches(la._batched_plain(
-                        sub, la.to_cell_batches(us, p), la._metric(sub),
-                        True), p, sub.n_cells_axis)
-                else:  # B5, B6 on the sub-range's mask
-                    want = la._lattice_plain(sub, us, sub.mask)
-                err = compare(name, got, want, torch.float32,
-                              f"{rung} layers [{c0}, {c1})", quiet=True)[0]
+
+                def kern(sub=sub, us=us):
+                    return la.apply_lattice(sub, us)
+
+                def plain(sub=sub, us=us, windowing=windowing):
+                    if windowing == "reshape":  # B3 between the windowings
+                        return la.from_cell_batches(la._batched_plain(
+                            sub, la.to_cell_batches(us, p), la._metric(sub),
+                            True), p, sub.n_cells_axis)
+                    return la._lattice_plain(sub, us, sub.mask)  # B5, B6
+
+                err, diff = compare(name, kern(), plain(), torch.float32,
+                                    f"C={n_comp} {rung} layers "
+                                    f"{rng or 'all'}", quiet=True)
                 worst[name, rung] = max(worst.get((name, rung), 0.0), err)
-            del op, u
-    print("  B3/B5/B6 on rank 1/4 at p=4 s=15 and on the overlapped "
-          "apply's layer ranges [0, 1), [1, n-1), [n-1, n) of it vs plain: "
-          + ", ".join(
+                if timing is not None and rung == "highest" and rng is None:
+                    t = time_pair(kern, plain, dev, timing)
+                    b = bound(name, op, False, n_comp=n_comp)
+                    print(f"  {name} p={p} s={s} rank 1/{n} C={n_comp} "
+                          f"highest float32: kernel {t[0]:.4f} ms, plain "
+                          f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+                    out[name] = t, b, diff
+            del op
+        del whole, u
+        torch.cuda.empty_cache()
+    print(f"  B3/B5/B6 C={n_comp} on rank 1/{n} at p={p} s={s} and on the "
+          f"overlapped apply's layer ranges [0, 1), [1, n-1), [n-1, n) of "
+          f"it vs plain: " + ", ".join(
               f"{k[0]} {k[1]} {v:.3e}" for k, v in worst.items()))
+    return out
 
 
 def overlap_readings(out: dict) -> dict:
@@ -2111,6 +2238,17 @@ def overlap_readings(out: dict) -> dict:
     if ls != {"fused_cg_iteration": 2 * n * b["it"],
               "fused_cg_assemble": n * b["it"]}:
         raise AssertionError(f"fused overlap launches {ls}")
+    a3, b3 = out["bp3_fused"], out["bp3_fused_overlap"]
+    ls3 = {k: sum(r["launches_solve"][k] for r in b3["ranks"])
+           for k in ("fused_cg_iteration", "fused_cg_assemble")}
+    print(f"  overlap: BP3 fused split2m x and history bitwise the solve "
+          f"without (itCG {b3['it']}; B2 launches {ls3})")
+    if not (a3["it"] == b3["it"] and torch.equal(a3["x"], b3["x"])
+            and np.array_equal(a3["history"], b3["history"], equal_nan=True)
+            and ls3 == {"fused_cg_iteration": 2 * n * b3["it"],
+                        "fused_cg_assemble": n * b3["it"]}):
+        raise AssertionError("BP3's solve_fused(overlap=True) is not the "
+                             "solve without it bitwise")
     a, b = out["merged"], out["merged_overlap"]
     x_err = ((b["x"] - a["x"]).abs().max()
              / max(1.0, a["x"].abs().max().item())).item()
@@ -2127,90 +2265,118 @@ def overlap_readings(out: dict) -> dict:
     wait = {label: max(r["comm_s"]["wait"] for r in out[label]["ranks"])
             / out[label]["it"] * 1e3
             for label in ("merged", "merged_overlap", "fused",
-                          "fused_overlap")}
+                          "fused_overlap", "bp3_fused", "bp3_fused_overlap")}
     print("  face wait an iteration (the slowest rank's, first solve): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in wait.items()))
     return {"wait_ms": wait, "x_err": x_err}
 
 
 def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
-    """f64 parity on DIST_RANKS z-slab ranks and on the MESH_FULL meshes,
-    the DIST_FULL drives beside the single-device fused split2m path at
-    the same point, the MESH_FULL drives and ``dryrun_multichip``'s legs
+    """f64 parity of BP4 (DIST_PARITY) and BP3 (BP3_PARITY) on DIST_RANKS
+    z-slab ranks and on the MESH_FULL meshes (BP3: the (2, 2) one), the
+    full-width rows (DIST_FULL's z-slab merged and fused solves and their
+    --overlap twins; BP3_FULL's rows) beside the single-device fused
+    split2m path, the short drives (DIST_SHORT: the repeats of a kernel
+    form on another mesh or configuration) and ``dryrun_multichip``'s legs
     on 4 and 8 ranks; returns the kernels' launches summed over each
-    full-width run's ranks {job label: {kernel: n}}, its rows, and B2's
-    launches summed over the ranks of each fused dry-run leg {(ranks,
-    leg): n} (each must have launched it; the merged legs 1 and 5 run the
-    structured backend, plain PyTorch)."""
+    drive's ranks {job label: {kernel: n}}, its rows, B2's launches summed
+    over the ranks of each fused dry-run leg {(ranks, leg): n} (each must
+    have launched it; the merged legs 1 and 5 run the structured backend,
+    plain PyTorch), the overlap readings, and B2's launches in the BP3
+    f64 parity jobs."""
+    from types import SimpleNamespace
+
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
     from mf_data_locality_tpu_torch.parallel import comm, distributed, dryrun
 
     Job = distributed.Job
     f64, f32 = torch.float64, torch.float32
     p, s = DIST_PARITY
-    pf = bp4.build(s, p, f64, "highest", factor="dense",
-                   metric="precomputed", windowing="pieces", device=dev)
-    lat = (3,) + pf.layout.n_nodes_axis
-    pm = bp4.build(s, p, f64, "highest", device=dev)
-    ref = {"fused": cg_fused.fused_merged_cg_solve(
-               pf.op, lat[1:], pf.b.reshape(lat),
-               pf.inv_diag.reshape((1,) + lat[1:])),
-           "merged": bp4.solve_merged(pm), "baseline": bp4.solve_baseline(pm)}
-    del pf, pm
-    jobs = [Job(solver, s, p, f64) for solver in ref]
+    refs = {(3, p, s): (_one_device(bp4, cg_fused, p, s, 3,
+                                    ("fused", "merged", "baseline"), dev),
+                        DIST_ITCG)}
+    for pp, ss, want in BP3_PARITY:
+        refs[1, pp, ss] = (_one_device(bp4, cg_fused, pp, ss, 1,
+                                       ("fused", "merged"), dev), want)
+    torch.cuda.empty_cache()
+    bp4_par = [Job(solver, s, p, f64) for solver in refs[3, p, s][0]]
+    bp3_par = [Job(solver, ss, pp, f64, n_components=1)
+               for pp, ss, _ in BP3_PARITY for solver in ("fused", "merged")]
+    bp3_b2 = 0
     for n in DIST_RANKS:
         t0 = time.perf_counter()
-        _parity(ref, jobs, distributed.launch(jobs, n, "cuda"), lat,
-                f"{n} ranks")
+        jobs = bp4_par + bp3_par
+        bp3_b2 += _parity(refs, jobs, distributed.launch(jobs, n, "cuda"),
+                          f"{n} ranks")
         print(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    # one spawn a rank count: the z-slab full width and each mesh's f64
-    # parity jobs and full-width drives
+    # one spawn a rank count: the parity jobs, the full-width rows and the
+    # short drives, the dry-run legs
     launches, rows, out = {}, {}, {}
     p_full, s_full, n = DIST_FULL
-    full = {n: {"merged": Job("merged", s_full, p_full, f32, timed=True,
-                              solve_repeats=1),
-                "fused": Job("fused", s_full, p_full, f32, "pallas",
-                             "split2m", timed=True, solve_repeats=1),
-                "fused_onthefly": Job("fused", s_full, p_full, f32,
-                                      "pallas", "split2m",
-                                      metric="onthefly", timed=True,
-                                      solve_repeats=1),
-                # --overlap: the CLI's merged solve, and solve_fused's
-                "merged_overlap": Job("merged", s_full, p_full, f32,
-                                      timed=True, solve_repeats=1,
-                                      overlap=True),
-                "fused_overlap": Job("fused", s_full, p_full, f32,
-                                     "pallas", "split2m", timed=True,
-                                     solve_repeats=1, overlap=True),
-                # --backend general --devices 4, short
-                "general": Job("merged", GENERAL_S, p_full, f32,
-                               backend="general", timed=True,
-                               solve_repeats=1, matvec_repeats=1,
-                               matvec_inner=10),
-                # the bf16 state (section 9): the CLI's merged solve with
-                # --dtype bf16, and the fused solve (highest: C10's f32
-                # carry, the JAX test's rung)
-                "merged_bf16": Job("merged", s_full, p_full, BF,
-                                   timed=True, solve_repeats=1,
-                                   matvec_repeats=1, matvec_inner=10),
-                "fused_bf16": Job("fused", s_full, p_full, BF, "pallas",
-                                  "highest", timed=True, solve_repeats=1,
-                                  matvec_repeats=1, matvec_inner=10)}}
+    p3, s3, _ = BP3_FULL
+    sh = DIST_SHORT
+    short = dict(max_iter=DIST_SHORT_IT)
+    split = dict(backend="pallas", precision="split2m")
+    timed = dict(timed=True, solve_repeats=1)
+    # the overlapped drives: one timed solve and one timed run of the
+    # overlapped matvec (B5 on the layer ranges' sub-operators)
+    overlapped = dict(overlap=True, timed=True, solve_repeats=1,
+                      matvec_repeats=1)
+    bp3 = dict(n_components=1)
+    full = {n: {
+        "merged": Job("merged", s_full, p_full, f32, **timed),
+        "fused": Job("fused", s_full, p_full, f32, **split, **timed),
+        # --overlap: the CLI's merged solve, and solve_fused's, beside the
+        # solves without it (their first solves' face waits)
+        "merged_overlap": Job("merged", s_full, p_full, f32, **overlapped),
+        "fused_overlap": Job("fused", s_full, p_full, f32, **split,
+                             **overlapped),
+        "fused_onthefly": Job("fused", sh, p_full, f32, **split,
+                              metric="onthefly", **short),
+        # --backend general --devices 4
+        "general": Job("merged", GENERAL_S, p_full, f32, backend="general",
+                       **short),
+        # the bf16 state (section 9): the CLI's merged solve with --dtype
+        # bf16, and the fused solve (highest: C10's f32 carry)
+        "merged_bf16": Job("merged", sh, p_full, BF),
+        "fused_bf16": Job("fused", sh, p_full, BF, "pallas", "highest"),
+        # CEED BP3 at its 4-rank full width: the production configuration
+        # and the JAX CLI's default, timed; --overlap and the bf16 state
+        "bp3_fused": Job("fused", s3, p3, f32, **split, metric="onthefly",
+                         **timed, **bp3),
+        "bp3_merged": Job("merged", s3, p3, f32, **timed, **bp3),
+        "bp3_fused_overlap": Job("fused", s3, p3, f32, **split,
+                                 metric="onthefly", **overlapped, **bp3),
+        "bp3_fused_bf16": Job("fused", s3, p3, BF, **split,
+                              metric="onthefly", **bp3),
+        # BP3 short: B5, B6, B2 with the streamed metric
+        "bp3_pieces": Job("merged", sh, p3, f32, windowing="pieces",
+                          **short, **bp3),
+        "bp3_zslab": Job("baseline", sh, p3, f32, windowing="zslab",
+                         **short, **bp3),
+        "bp3_fused_pre": Job("fused", sh, p3, f32, **split, **short,
+                             **bp3)}}
     parity = {}
-    for sfx, s_mesh, mesh in MESH_FULL:
-        n = math.prod(mesh)
-        parity[n] = [Job(solver, s, p, f64, mesh_shape=mesh)
-                     for solver in ref]
-        drives = full.setdefault(n, {})
-        drives["fused" + sfx] = Job(
-            "fused", s_mesh, p_full, f32, "pallas", "split2m",
-            metric="onthefly" if len(mesh) == 3 else "precomputed",
-            timed=True, solve_repeats=1,
-            mesh_shape=mesh)
+    for sfx, _, mesh in MESH_FULL:
+        nm = math.prod(mesh)
+        parity[nm] = [Job(solver, s, p, f64, mesh_shape=mesh)
+                      for solver in refs[3, p, s][0]]
         if mesh == (2, 2):
-            drives["merged" + sfx] = Job("merged", s_mesh, p_full, f32,
-                                         timed=True, solve_repeats=1,
-                                         mesh_shape=mesh)
+            parity[nm] += [Job(j.solver, j.s, j.degree, f64, mesh_shape=mesh,
+                               **bp3) for j in bp3_par]
+        drives = full.setdefault(nm, {})
+        metric = "onthefly" if len(mesh) == 3 else "precomputed"
+        drives["fused" + sfx] = Job("fused", sh, p_full, f32, **split,
+                                    metric=metric, mesh_shape=mesh, **short)
+        drives["bp3_fused" + sfx] = Job("fused", sh, p3, f32, **split,
+                                        metric=metric, mesh_shape=mesh,
+                                        **short, **bp3)
+        if mesh == (2, 2):
+            drives["merged" + sfx] = Job("merged", sh, p_full, f32,
+                                         mesh_shape=mesh, **short)
     jobs, launches_dry = {}, {}
     for n, drives in full.items():
         t0 = time.perf_counter()
@@ -2219,15 +2385,16 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         res = distributed.launch(parity[n] + list(drives.values())
                                  + dryrun.jobs(n, legs), n, "cuda")
         mesh = parity[n][0].mesh_shape
-        _parity(ref, parity[n], res[:3], lat,
-                f"the {'x'.join(map(str, mesh))} mesh")
-        for (label, job), r in zip(drives.items(), res[3:]):
-            print(f"  ranks {'x'.join(map(str, job.mesh(n)))}, p={p_full} "
-                  f"s={job.s}:")
+        npar = len(parity[n])
+        bp3_b2 += _parity(refs, parity[n], res[:npar],
+                          f"the {'x'.join(map(str, mesh))} mesh")
+        for (label, job), r in zip(drives.items(), res[npar:]):
+            print(f"  ranks {'x'.join(map(str, job.mesh(n)))}, C="
+                  f"{job.n_components} p={job.degree} s={job.s}:")
             out[label], jobs[label] = r, job
             launches[label], rows[label] = _drive(benchmark, label, job, r)
         print(f"  dryrun_multichip({n}) in the same spawn:")
-        dry = res[3 + len(drives):]
+        dry = res[npar + len(drives):]
         dryrun.report(n, legs, dry)
         for leg, r in zip(legs, dry):
             if leg in (1, 4, 5):  # the structured and general backends
@@ -2238,27 +2405,45 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                 raise AssertionError(f"dryrun_multichip({n}) leg {leg} "
                                      f"launched no fused_cg_iteration")
         print(f"  ({time.perf_counter() - t0:.1f} s)")
+    if out["bp3_fused"]["n_dofs"] != BP3_DOFS:
+        raise AssertionError(f"BP3 on 4 ranks: {out['bp3_fused']['n_dofs']} "
+                             f"DoFs, not the full width's {BP3_DOFS}")
     t0 = time.perf_counter()
     # the solutions: |b - A x| by one device's operator of the same
     # configuration against the distributed solve's residual estimate
-    pb = bp4.build(s_full, p_full, f32, "highest", device=dev)
-    for label in ("merged", "merged_overlap", "merged_block2d"):
-        _true_residual(fk, pb, out[label], label)
-    del pb
-    pb = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
-                   metric="onthefly", windowing="pieces", device=dev)
-    _true_residual(fk, pb, out["fused_onthefly"], "fused_onthefly")
-    del pb
-    torch.cuda.empty_cache()
-    dense_pre = bp4.build(s_full, p_full, f32, "split2m", factor="dense",
-                          metric="precomputed", windowing="pieces",
-                          device=dev)
-    for label in ("fused", "fused_overlap", "fused_block2d"):
-        _true_residual(fk, dense_pre, out[label], label)
-    pb = bp4.build(MESH_FULL[1][1], p_full, f32, "split2m", factor="dense",
-                   metric="onthefly", windowing="pieces", device=dev)
-    _true_residual(fk, pb, out["fused_block3d"], "fused_block3d")
-    del pb
+    for labels, s_p, c, kw in (
+            (("merged", "merged_overlap"), s_full, 3, {}),
+            (("fused", "fused_overlap"), s_full, 3,
+             dict(factor="dense", metric="precomputed")),
+            (("merged_block2d",), sh, 3, {}),
+            (("fused_block2d",), sh, 3,
+             dict(factor="dense", metric="precomputed")),
+            (("fused_onthefly", "fused_block3d"), sh, 3,
+             dict(factor="dense", metric="onthefly")),
+            (("bp3_fused_block2d", "bp3_fused_pre"), sh, 1,
+             dict(factor="dense", metric="precomputed")),
+            (("bp3_fused_block3d",), sh, 1,
+             dict(factor="dense", metric="onthefly"))):
+        rung = "split2m" if kw else "highest"
+        pb = bp4.build(s_p, p_full, f32, rung, windowing="pieces" if kw
+                       else "reshape", device=dev, n_components=c, **kw)
+        for label in labels:
+            _true_residual(fk, pb, out[label], label)
+        if labels[0] == "fused":  # the one-device row's problem below
+            dense_pre = pb
+        del pb
+        torch.cuda.empty_cache()
+    # BP3's full width: the operator and b on one device, without the
+    # preconditioner (its host set-up at s=17 would be the section's
+    # largest)
+    layout = DofLayout(BoxMesh.from_s(s3), p3)
+    _true_residual(fk, SimpleNamespace(
+        op=laplace_cuda.make_operator(layout, f32, "split2m", "dense",
+                                      "onthefly", windowing="pieces",
+                                      device=dev),
+        b=torch.as_tensor(bp4.rhs(layout, 1)).to(device=dev, dtype=f32)),
+        out["bp3_fused"], "bp3_fused")
+    del layout
     torch.cuda.empty_cache()
     for label, kw in (("one device, fused auto split2m", {}),
                       ("one device, fused dense precomputed split2m",
@@ -2266,35 +2451,42 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                             problem=dense_pre))):
         r1 = benchmark.run_one(p_full, s_full, solver="fused",
                                windowing="pieces", precision="split2m",
-                               device=dev, solve_repeats=2, **kw)
+                               device=dev, solve_repeats=1, **kw)
         rows[label] = r1
         print(f"  {label}: {r1.row()}")
     del dense_pre
-    # the bf16 state: the merged solve's count is the single-device
-    # bf16 solve's (the JAX package's claim,
-    # tests/test_distributed.py:326-336); the fused one within 2 of its
-    # single-device solve
-    pb = bp4.build(s_full, p_full, BF, "highest", device=dev)
-    one = bp4.solve_merged(pb)
-    n_bf16 = len(out["merged_bf16"]["ranks"])
-    print(f"  merged_bf16: itCG {out['merged_bf16']['it']} on {n_bf16} "
-          f"ranks, {one.n_iterations} on one device")
+    # the bf16 state: the merged solve's count is the single-device bf16
+    # solve's (the JAX package's claim, tests/test_distributed.py:326-336);
+    # the fused one within 2 of its single-device solve; BP3's full-width
+    # one's residual estimate within 2e-2 of the f32 solve's at the same
+    # iteration (section 7's contract for the bf16 state, the JAX
+    # package's, tests/test_cg_fused.py:205-212)
+    one = bp4.solve_merged(bp4.build(sh, p_full, BF, "highest", device=dev))
+    print(f"  merged_bf16: itCG {out['merged_bf16']['it']} on 4 ranks, "
+          f"{one.n_iterations} on one device")
     if out["merged_bf16"]["it"] != one.n_iterations:
         raise AssertionError("the distributed merged bf16 solve's count is "
                              "not the single-device one's")
-    cfg = dict(factor="dense", metric="precomputed", windowing="pieces")
-    pb = bp4.build(s_full, p_full, BF, "highest", device=dev, **cfg)
-    lat1 = (3,) + pb.layout.n_nodes_axis
-    one = cg_fused.fused_merged_cg_solve(pb.op, lat1[1:], pb.b.reshape(lat1),
-                                         pb.inv_diag.reshape(
-                                             (1,) + lat1[1:]))
-    print(f"  fused_bf16: itCG {out['fused_bf16']['it']} on {n_bf16} "
-          f"ranks, {one.n_iterations} on one device")
+    pb = bp4.build(sh, p_full, BF, "highest", factor="dense",
+                   metric="precomputed", windowing="pieces", device=dev)
+    lat = pb.lattice_shape
+    one = cg_fused.fused_merged_cg_solve(pb.op, lat[1:], pb.b.reshape(lat),
+                                         pb.inv_diag.reshape((1,) + lat[1:]))
+    print(f"  fused_bf16: itCG {out['fused_bf16']['it']} on 4 ranks, "
+          f"{one.n_iterations} on one device")
     if abs(out["fused_bf16"]["it"] - one.n_iterations) > 2:
-        raise AssertionError("the distributed fused bf16 solve is not the "
+        raise AssertionError("the distributed fused_bf16 solve is not the "
                              "single-device one")
     del pb, one
-    torch.cuda.empty_cache()
+    a, b = out["bp3_fused_bf16"], out["bp3_fused"]
+    k = min(a["it"], b["it"])
+    gap = abs(a["history"][k] - b["history"][k]) / b["history"][k]
+    print(f"  bp3_fused_bf16: itCG {a['it']} (f32 {b['it']}), the residual "
+          f"estimate at iteration {k} {a['history'][k]:.6e} vs the f32 "
+          f"solve's {b['history'][k]:.6e} (rel gap {gap:.2e}, tol 2e-2)")
+    if not gap < 2e-2:
+        raise AssertionError("BP3's distributed bf16 solve is not the f32 "
+                             "one's")
     print(f"  the solutions and one device ({time.perf_counter() - t0:.1f} "
           f"s)")
     overlap = overlap_readings(out)
@@ -2310,11 +2502,22 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
                         ("fused_block2d", "fused_cg_iteration"),
                         ("fused_block3d", "fused_cg_iteration"),
                         ("merged_bf16", "apply_local_batched_g"),
-                        ("fused_bf16", "fused_cg_iteration")):
+                        ("fused_bf16", "fused_cg_iteration"),
+                        ("bp3_fused", "fused_cg_iteration"),
+                        ("bp3_fused", "apply_lattice_pieces"),
+                        ("bp3_merged", "apply_local_batched_g"),
+                        ("bp3_fused_overlap", "fused_cg_assemble"),
+                        ("bp3_fused_overlap", "apply_lattice_pieces"),
+                        ("bp3_fused_bf16", "fused_cg_iteration"),
+                        ("bp3_pieces", "apply_lattice_pieces"),
+                        ("bp3_zslab", "apply_lattice_zslab"),
+                        ("bp3_fused_pre", "fused_cg_iteration"),
+                        ("bp3_fused_block2d", "fused_cg_iteration"),
+                        ("bp3_fused_block3d", "fused_cg_iteration")):
         if not launches[label][kern]:
             raise AssertionError(f"the distributed {label} path launched "
                                  f"no {kern}")
-    return launches, rows, launches_dry, overlap
+    return launches, rows, launches_dry, overlap, bp3_b2
 
 
 def shape_section(dev, drive, short: dict, log: str) -> tuple[dict, dict]:
@@ -2349,9 +2552,11 @@ def shape_section(dev, drive, short: dict, log: str) -> tuple[dict, dict]:
                        windowing=kw["windowing"], device=dev,
                        n_components=c, n_q=p + dq,
                        **dict(zip(("factor", "metric", "cofactor"), config)))
+        # full depth, one timed solve; the others short
         r = drive(f"{label} C={c} q={p + dq}", s_d, expect, degree=p,
                   into=launches_sh.setdefault(key, {}), quiet=not full,
-                  problem=pb, **kw, **({} if full else short))
+                  problem=pb, **kw,
+                  **(dict(solve_repeats=1) if full else short))
         if full and r.n_dofs != SHAPE_FULL[key]:
             raise AssertionError(f"{label}: {r.n_dofs} DoFs, not the "
                                  f"full-width point's {SHAPE_FULL[key]}")
@@ -3153,10 +3358,69 @@ def main() -> int:
     compare_range_form(fk, dev)
     range_t = time_range_form(fk, dev, timing)
     compare_sub_applies(la, dev)
+    print("CEED BP3 (one component) in the ranks' kernel forms, and the "
+          "bf16 state at one component, vs plain (p=1..11):")
+    from mf_data_locality_tpu_torch.utils import bp3_ranks_check as b3c
+
+    t_b3 = time.perf_counter()
+    b3c.print_table(log or lib_path.with_suffix(".log").read_text())
+    f32 = torch.float32
+    compare_rank_forms(fk, dev, [
+        (label, lambda p, st, rung, m, c=c, mesh=mesh: b3c.part_op(
+            b3c.S_PART, p, c, mesh, st, rung, m, dev=dev))
+        for label, c, mesh in b3c.PARTS], "BP3 part", n_comp=1,
+        degrees=b3c.DEGREES, rungs=RANGE_RUNGS)
+    compare_range_form(fk, dev, BP3_RANGE_CASES, n_comp=1)
+    b3c.report(b3c.compare_all(dev))
+    print(f"  ({time.perf_counter() - t_b3:.1f} s)")
+    # the timed rows at BP3's 4-rank full width (rank 1's slab) and one
+    # device's, each held against its plain version first: {(kernel,
+    # suffix): ((kernel ms, plain ms), bound, max |diff|, configuration)}
+    p3, s3, n3 = BP3_FULL
+    bp3_t = {}
+    for metric, timed in (("precomputed", SLAB_TIMED),
+                          ("onthefly", (("split2m", f32, "_onthefly"),))):
+        rows3 = time_rank_form(fk, dev, timing, lambda rung, dt, m=metric:
+                               _slab_op(s3, p3, 1, n3, dt, rung, m, dev, 1),
+                               s3, f"block form p={p3} s={s3} rank 1/{n3}",
+                               n_comp=1, timed=timed)
+        for sfx, (t, b, err, box) in rows3.items():
+            rung = "highest" if sfx == "_f64" else "split2m"
+            bp3_t["fused_cg_iteration", "_bp3_slab" + sfx] = (
+                t, b, err, [rung, "dense", metric, "adjj"], box)
+    (t, b, err, one) = time_range_form(fk, dev, timing, BP3_FULL, 1,
+                                       SLAB_TIMED[:1])[""]
+    bp3_t["fused_cg_iteration", "_bp3_range"] = (
+        t, b, err, ["split2m", "dense", "precomputed", "adjj"], one)
+    for name, (t, b, err) in compare_sub_applies(la, dev, BP3_FULL, 1,
+                                                 timing).items():
+        windowing = next(w for w, k in WINDOWED_KERNEL.items() if k == name)
+        bp3_t[name, "_bp3_slab_" + windowing] = (
+            t, b, err, ["highest", "dense", "precomputed", "adjj"], None)
+    bp3_t.update({k: v + (None,) for k, v in b3c.time_all(
+        dev, lambda k, p: time_pair(k, p, dev, timing), bound).items()})
+    # the one-device drives of the bf16 state at one component, short
+    # (s=13; the timed rows' p=4 s=15): the JAX CLI's default with --dtype
+    # bf16 (B3) and the production command with it (B1, B2)
+    launches_b3 = {}
+    for label, kw, expect in (
+            ("BP3 main path --dtype bf16", _MAIN, ("apply_local_batched_g",)),
+            ("BP3 production --dtype bf16", _PROD, _B12)):
+        p1, s1 = b3c.FULL_ONE[0], S
+        config = benchmark.resolve_config(p1, kw["solver"], kw["windowing"],
+                                          kw["precision"], BF)
+        pb = bp4.build(s1, p1, BF, kw["precision"],
+                       windowing=kw["windowing"], device=dev,
+                       n_components=1,
+                       **dict(zip(("factor", "metric", "cofactor"), config)))
+        drive(label, s1, expect, into=launches_b3, degree=p1, problem=pb,
+              dtype=BF, **kw, **short)
+        del pb
+        torch.cuda.empty_cache()
     print(f"  (the spawns: {time.perf_counter() - T0:.1f} s since the start)")
     print("the distributed solvers (ranks: processes on this card, gloo):")
-    launches_dist, _, launches_dry, overlap = distributed_phase(
-        benchmark, bp4, cg_fused, fk, dev)
+    launches_dist, _, launches_dry, overlap, launches_bp3_f64 = \
+        distributed_phase(benchmark, bp4, cg_fused, fk, dev)
     print(f"section 8: {time.perf_counter() - t8:.1f} s")
 
     # -- 9. bf16 storage: the bf16 state on every rung, the bf16 metric
@@ -3234,13 +3498,37 @@ def main() -> int:
     # -- 12. the plain modules: mass, the general mesh, 2D, the trace ------
     from mf_data_locality_tpu_torch.utils import modules_check
 
+    t12 = time.perf_counter()
     print("the plain modules (mass BP2/BP1, an L-shaped general mesh, 2D, "
           "the trace):")
     modules_check.run_all(dev)
 
+    print(f"section 12: {time.perf_counter() - t12:.1f} s")
+
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
     # library_ms is null throughout
+    # the BP3 rows' launches (section 8): each from the drive that runs
+    # its form, summed over its ranks
+    d = launches_dist
+    bp3_launches = {
+        ("fused_cg_iteration", "_bp3_slab"):
+            d["bp3_fused_pre"]["fused_cg_iteration"],
+        ("fused_cg_iteration", "_bp3_slab_onthefly"):
+            d["bp3_fused"]["fused_cg_iteration"],
+        ("fused_cg_iteration", "_bp3_slab_f64"): launches_bp3_f64,
+        ("fused_cg_iteration", "_bp3_slab_bf16"):
+            d["bp3_fused_bf16"]["fused_cg_iteration"],
+        ("apply_local_batched_g", "_bp3_slab_reshape"):
+            d["bp3_merged"]["apply_local_batched_g"],
+        ("apply_lattice_pieces", "_bp3_slab_pieces"):
+            d["bp3_pieces"]["apply_lattice_pieces"],
+        ("apply_lattice_zslab", "_bp3_slab_zslab"):
+            d["bp3_zslab"]["apply_lattice_zslab"],
+        ("apply_local_batched_g", "_bp3_bf16state"):
+            launches_b3["apply_local_batched_g"],
+        ("fused_cg_iteration", "_bp3_bf16state"):
+            launches_b3["fused_cg_iteration"]}
     rows = []
     for name, (_, src, line) in kernels.items():
         row = {"name": name, "route": "cuda", "source": CSRC + src,
@@ -3384,6 +3672,25 @@ def main() -> int:
                         f"plain_ms{sfx}": pl, f"max_abs_err{sfx}": err,
                         f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                         f"launches{sfx}": launches_sh[sfx][name]})
+        for (kname, sfx), ((k, pl), (bms, by), err, config, box) in \
+                bp3_t.items():  # BP3 in the ranks' forms (section 8)
+            if kname != name or sfx == "_bp3_range":
+                continue
+            if box is not None:  # the unchanged B2 on a box of its cells
+                row[f"ms_box{sfx}"] = box
+            one_dev = sfx == "_bp3_bf16state"
+            block = name == "fused_cg_iteration" and not one_dev
+            row.update({f"source{sfx}": CSRC + ("shapes_block.cu" if block
+                                                else "shapes.cu"),
+                        f"p_s{sfx}": list(b3c.FULL_ONE if one_dev
+                                          else BP3_FULL[:2]),
+                        f"components{sfx}": 1, f"config{sfx}": config,
+                        f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                        f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
+                        f"bound_by{sfx}": by,
+                        f"launches{sfx}": bp3_launches[name, sfx]})
+            if not one_dev:
+                row[f"ranks{sfx}"] = BP3_FULL[2]
         if name == "apply_lattice_pieces":  # on the twostage operator
             row["launches_twostage_pieces"] = launches_ts[
                 "_twostage_pieces"][name]
@@ -3432,6 +3739,17 @@ def main() -> int:
     (k, pl), (bms, by), err, one = range_t["_f64"]
     row.update(ms_f64=k, plain_ms_f64=pl, max_abs_err_f64=err,
                bound_ms_f64=bms, bound_by_f64=by, ms_one_launch_f64=one)
+    # at one component (CEED BP3): rank 1 of BP3_FULL's slabs, launches
+    # those of the overlapped BP3 drive (an assemble an iteration a rank)
+    (k, pl), (bms, by), err, config, one = bp3_t["fused_cg_iteration",
+                                                 "_bp3_range"]
+    row.update(source_bp3=CSRC + "shapes_block.cu",
+               p_s_bp3=list(BP3_FULL[:2]), ranks_bp3=BP3_FULL[2],
+               components_bp3=1, config_bp3=config, ms_bp3=k,
+               plain_ms_bp3=pl, max_abs_err_bp3=err, bound_ms_bp3=bms,
+               bound_by_bp3=by, ms_one_launch_bp3=one,
+               launches_bp3=launches_dist["bp3_fused_overlap"][
+                   "fused_cg_assemble"])
     rows.append(row)
     print("convergence rates: " + ", ".join(
         f"p={p} {rate:.4f}" for p, _, rate, _ in rates))

@@ -469,12 +469,12 @@ def run_one_distributed(degree: int, s: int, n_devices: int,
 def dist_row(job, out: dict) -> RunResult:
     """The result row of a distributed ``job``
     (``parallel.distributed.Job``) from its merged rank results: the
-    slowest rank's times, or NaN where the job was not timed (CPU ranks:
-    no device time)."""
+    slowest rank's times, or NaN where the job was not timed (CPU ranks,
+    which have no device time, or a drive run untimed)."""
     n_it = out["it"]
     nan = float("nan")
     solve_s = out.get("solve_s", nan)
-    notes = ([] if job.timed else ["CPU ranks: times not measured"]) + (
+    notes = ([] if job.timed else ["times not measured"]) + (
         ["matvec: precomputed-metric twin"]
         if job.solver == "fused" and job.metric == "onthefly" else [])
     n_dofs, n_cells = out["n_dofs"], out["n_cells"]

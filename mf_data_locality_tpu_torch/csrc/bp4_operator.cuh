@@ -611,7 +611,8 @@ inline int node_blocks(const Grid& gr) {
 // _from_piece_forms) the corner pieces mm, mp, pm, pp in turn (a cell's
 // nodes below its top y and x faces, its top x face, its top y face, the
 // corner).  BLOCK: a block's lattice, only summed (laplace_apply.cu).
-template <int P, bool PIECES, bool BLOCK>
+// NC: the vectors' components (kComps; 1 for BP3, shapes.cu).
+template <int P, bool PIECES, bool BLOCK, int NC = kComps>
 __global__ void __launch_bounds__(kNodeThreads)
     assemble_bf16_kernel(Grid gr, const float* __restrict__ cells,
                          __nv_bfloat16* __restrict__ h) {
@@ -626,7 +627,7 @@ __global__ void __launch_bounds__(kNodeThreads)
   const int nzc = axis_cells<P>(z, gr.ncz, zc, zk);
   const int nyc = axis_cells<P>(y, gr.ncy, yc, yk);
   const int nxc = axis_cells<P>(x, gr.ncx, xc, xk);
-  for (int c = 0; c < kComps; ++c) {
+  for (int c = 0; c < NC; ++c) {
     const size_t base = static_cast<size_t>(c) * gr.n_cells();
     float r[2][2];  // the z sums of each (y cell, x cell), as stored
     for (int b = 0; b < nyc; ++b)
@@ -665,7 +666,8 @@ __global__ void __launch_bounds__(kNodeThreads)
 // the assemble pass's sums there at f32, unrounded, into carry (C, Ny,
 // Nx): the value the assemble pass rounds into h' (the same sum in the
 // same order).  The y and x faces travel as stored, as in the JAX package.
-template <int P>
+// NC: the vectors' components (kComps; 1 for BP3, shapes_block.cu).
+template <int P, int NC = kComps>
 __global__ void __launch_bounds__(kNodeThreads)
     block_carry_kernel(Grid gr, const float* __restrict__ cells,
                        float* __restrict__ carry) {
@@ -674,7 +676,7 @@ __global__ void __launch_bounds__(kNodeThreads)
   if (i >= n) return;
   const int x = i % gr.nx, y = i / gr.nx, z = gr.nz - 1;
   const bool in = interior<true>(gr, z, y, x);
-  for (int c = 0; c < kComps; ++c)
+  for (int c = 0; c < NC; ++c)
     carry[static_cast<size_t>(c) * n + i] =
         in ? gather_node<float, P>(cells, gr, c, z, y, x) : 0.f;
 }

@@ -75,7 +75,10 @@
 // At the shapes beyond BP4's (one component, CEED BP3; Q = P + 1;
 // shapes.cuh) the cell passes of shapes.cu: highest the sum-factorized
 // pass, split2m dense apply_mma_hd.cuh's and twostage cell_mma_hd.cuh's at
-// every degree; the assemble pass over the shape's components.
+// every degree; the assemble pass over the shape's components.  At one
+// component and Q = P + 2 (CEED BP3) also the bf16 state, and B2's block
+// form (shapes_block.cu: the sum-factorized pass and the dense pass of
+// apply_mma_hd.cuh, with the bf16 state too).
 // Their notes give each pass's bound.  Bound of an iteration on the H100 at
 // p=4, s=13: it reads x, g, d, h, P (~28 MB), writes x', g', d', h' (~26
 // MB) and passes ~12 MB through the cell scratch, all close to the 50 MB
@@ -116,42 +119,26 @@
 
 namespace bp4 {
 
-// The node passes of B1 (DOTS false) and B2 at a shape beyond BP4's
-// (shapes.cuh): the assemble pass over the shape's components and, for
-// B2, the finalize pass.
-template <typename T, int P, bool DOTS>
-int shape_node_passes(int shape, const Grid& gr, const T* cells, T* h,
-                      const CellIo<T>& io, T* scal2, T* partials,
-                      cudaStream_t st) {
-  const int nb = node_blocks(gr);
-  if (shape & kShC1)
-    assemble_kernel<T, P, DOTS, T, false, false, 1>
-        <<<nb, kNodeThreads, 0, st>>>(gr, cells, h, io.g2, io.d2, io.prec,
-                                      partials);
-  else
-    assemble_kernel<T, P, DOTS, T><<<nb, kNodeThreads, 0, st>>>(
-        gr, cells, h, io.g2, io.d2, io.prec, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !DOTS) return e;
-  finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, nb, io.scal,
-                                                 scal2);
-  return cudaGetLastError();
-}
-
-// B1 or B2 at a shape beyond BP4's: its cell pass (shapes.cu), then the
-// node passes; -1 for what the shapes are not built with (shapes.cuh).
+// B1 (FUSED false) or B2 at a shape beyond BP4's (shapes.cuh), d and h in
+// bf16 where `store` is set (the bf16 state, one component): its cell pass
+// and assemble pass (shapes.cu), then B2's finalize pass; -1 for what the
+// shapes are not built with.
 template <typename T, int P, bool FUSED>
-int shape_iteration(int shape, int rung, int dense, int cofactor,
+int shape_iteration(int shape, int rung, int dense, int cofactor, int store,
                     const OpTables<T>& tb, const Grid& gr,
                     const CellIo<T>& io, T* h, T* scal2, T* cells,
                     T* partials, void* scratch, cudaStream_t st) {
-  const cudaError_t e = with_shape(shape, [&](auto sh) {
-    return shape_cells<T, P, decltype(sh)::value, FUSED>(
+  const cudaError_t e = with_shape_state<T>(shape, store, [&](auto sh) {
+    constexpr int SH = decltype(sh)::value;
+    const cudaError_t ec = shape_cells<T, P, SH, FUSED>(
         rung, dense, cofactor, tb, gr, io, cells, scratch, st);
+    if (ec != cudaSuccess) return ec;
+    return shape_assemble<T, P, SH, FUSED>(gr, cells, h, io, partials, st);
   });
-  if (e != cudaSuccess) return e;
-  return shape_node_passes<T, P, FUSED>(shape, gr, cells, h, io, scal2,
-                                        partials, st);
+  if (e != cudaSuccess || !FUSED) return e;
+  finalize_kernel<T><<<1, kNodeThreads, 0, st>>>(partials, node_blocks(gr),
+                                                 io.scal, scal2);
+  return cudaGetLastError();
 }
 
 // store: d and h (d' and h') in bf16, the bf16 state (every rung).
@@ -165,9 +152,9 @@ struct Launch {
     io.d = d;
     io.bf16 = store;
     if (shape)
-      return shape_iteration<T, P, false>(shape, rung, dense, cofactor, tb,
-                                          gr, io, h, nullptr, cells, nullptr,
-                                          scratch, st);
+      return shape_iteration<T, P, false>(shape, rung, dense, cofactor, store,
+                                          tb, gr, io, h, nullptr, cells,
+                                          nullptr, scratch, st);
     cudaError_t e = launch_cells<T, P, false>(rung, dense, cofactor, tb, gr,
                                               io, cells, scratch, st);
     if (e != cudaSuccess) return e;
@@ -189,11 +176,16 @@ struct Launch {
     io.bf16 = store;
     io.prec_bf16 = prec_bf16;
     io.x_bf16 = x_bf16;
+    if (shape && block)  // one component at Q = P + 2 (shapes_block.cu)
+      return shape != kShC1
+                 ? -1
+                 : shape_fused_block<T, P>(rung, dense, cofactor, tb, gr, io,
+                                           h2, scal2, cells, partials,
+                                           scratch, st, passes);
     if (shape)
-      return block ? -1
-                   : shape_iteration<T, P, true>(shape, rung, dense, cofactor,
-                                                 tb, gr, io, h2, scal2, cells,
-                                                 partials, scratch, st);
+      return shape_iteration<T, P, true>(shape, rung, dense, cofactor, store,
+                                         tb, gr, io, h2, scal2, cells,
+                                         partials, scratch, st);
     if (block)
       return prec_bf16 || x_bf16
                  ? -1
@@ -208,9 +200,12 @@ struct Launch {
   }
 };
 
+// n_components 3 (BP4's), or 1 (shapes_block.cu)
 template <int P>
-int launch_block_carry(const Grid& gr, const float* cells, float* carry,
-                       cudaStream_t st) {
+int launch_block_carry(int n_components, const Grid& gr, const float* cells,
+                       float* carry, cudaStream_t st) {
+  if (n_components == 1) return shape_block_carry<P>(gr, cells, carry, st);
+  if (n_components != kComps) return -1;
   const int nb = (gr.ny * gr.nx + kNodeThreads - 1) / kNodeThreads;
   block_carry_kernel<P><<<nb, kNodeThreads, 0, st>>>(gr, cells, carry);
   return cudaGetLastError();
@@ -269,8 +264,9 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // coefficients by the chain `cofactor` (0 adjj, 1 jtj).
 // shape: 0 BP4's (C = 3, Q = P + 2), else the shape flags of shapes.cuh
 // (kShC1 one component, kShQ1 Q = P + 1): highest (f32, f64) and split2m,
-// neither store, metric_bf16, prec_bf16 nor x_bf16 set; B2's block form is
-// BP4's only.
+// neither metric_bf16, prec_bf16 nor x_bf16 set; store (f32) and B2's
+// block form at kShC1 only (shapes_block.cu: highest, and split2m dense
+// with the metric streamed or rebuilt by adjj).
 // store: d, h, d2, h2 in bf16 (f32, every rung).  prec_bf16
 // (bp4_fused_iteration): prec in bf16; x_bf16: x and x2 in bf16 (every
 // configuration above; with store or metric_bf16 only on the bf16 rung,
@@ -366,8 +362,8 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int shape,
                      bp4::kCellPass | bp4::kNodePasses, stream);
 }
 
-// B2's block form: the arguments of bp4_fused_iteration on a block of
-// ncz x ncy x ncx cells (n * degree + 1 nodes an axis, the top one a
+// B2's block form: the arguments of bp4_fused_iteration (the shape among
+// them: 0, or kShC1) on a block of ncz x ncy x ncx cells (n * degree + 1 nodes an axis, the top one a
 // ghost or the Dirichlet face), then the block's lo, hi, own on z, y and
 // x (bp4_operator.cuh's Grid); scal2 receives the 7 raw sums and a 0.
 // Then the layer-range form: cbeg, cend the cells the cell pass runs over,
@@ -377,7 +373,8 @@ int bp4_fused_iteration(int dtype, int rung, int degree, int shape,
 // the range it was launched in, so two cell passes over [0, c) and
 // [c, n_cells) and one node pass after them are bitwise the one call.
 int bp4_fused_iteration_block(
-    int dtype, int rung, int degree, int dense, int cofactor, int store,
+    int dtype, int rung, int degree, int shape, int dense, int cofactor,
+    int store,
     int metric_bf16, int prec_bf16, int x_bf16, const void* mats,
     const void* sz, const void* dz, const void* pds, const void* w3,
     const void* coeffs, const void* gmetric, const void* x, const void* g,
@@ -398,7 +395,7 @@ int bp4_fused_iteration_block(
   gr.xlo = xlo;
   gr.xhi = xhi;
   gr.xown = xown;
-  return fused_entry(dtype, rung, degree, 0, dense, cofactor, store,
+  return fused_entry(dtype, rung, degree, shape, dense, cofactor, store,
                      metric_bf16, prec_bf16, x_bf16, mats, sz, dz, pds, w3,
                      coeffs, gmetric, x, g, d, h, prec, scal, x2, g2, d2, h2,
                      scal2, cells, partials, scratch, gr, 1, passes, stream);
@@ -407,10 +404,12 @@ int bp4_fused_iteration_block(
 // C10: the f32 carry of B2's block form under a bf16 state
 // (block_carry_kernel): after the cell pass, the assemble pass's
 // unrounded sums on the block's top z face, from the cells scratch, into
-// carry (C, Ny, Nx).  The block's Grid as bp4_fused_iteration_block's; f32.
-int bp4_block_carry(int degree, int ncz, int ncy, int ncx, int zlo, int zhi,
-                    int zown, int ylo, int yhi, int yown, int xlo, int xhi,
-                    int xown, const void* cells, void* carry, void* stream) {
+// carry (C, Ny, Nx), C = n_components (3, or 1: BP3).  The block's Grid
+// as bp4_fused_iteration_block's; f32.
+int bp4_block_carry(int degree, int n_components, int ncz, int ncy, int ncx,
+                    int zlo, int zhi, int zown, int ylo, int yhi, int yown,
+                    int xlo, int xhi, int xown, const void* cells,
+                    void* carry, void* stream) {
   Grid gr = make_grid(degree, ncz, ncy, ncx);
   gr.zlo = zlo;
   gr.zhi = zhi;
@@ -424,7 +423,8 @@ int bp4_block_carry(int degree, int ncz, int ncy, int ncx, int zlo, int zhi,
   auto st = static_cast<cudaStream_t>(stream);
   const auto c = static_cast<const float*>(cells);
   const auto out = static_cast<float*>(carry);
-#define BP4_CARRY(P) bp4::launch_block_carry<P>(gr, c, out, st)
+#define BP4_CARRY(P) \
+  bp4::launch_block_carry<P>(n_components, gr, c, out, st)
   switch (degree) {
     case 1: return BP4_CARRY(1);
     case 2: return BP4_CARRY(2);

@@ -38,7 +38,9 @@
 //
 // At the shapes beyond BP4's (one component, CEED BP3; Q = P + 1;
 // shapes.cuh): highest (and B4 on every rung) the sum-factorized pass,
-// split2m apply_mma_hd.cuh's dense pass at every degree (shapes.cu).
+// split2m apply_mma_hd.cuh's dense pass at every degree (shapes.cu); at
+// one component also with the bf16 state (the same rounding points) and
+// B5/B6 on a block's lattice (the ranks' windowings).
 //
 // B5 and B6 write masked cell-local values to scratch; the assemble pass
 // (bp4_operator.cuh) then sums each node's <= 8 contributions in a fixed
@@ -153,8 +155,8 @@ cudaError_t rebuilt_pass(const void* s, const void* d, const void* pds,
 
 // B3 (metric streamed) and B4 (onthefly) on a cell batch (C P13, n_cells).
 // mats/kmats: the tables of metric_pass (B3); S and D (B4).
-// shape: 0 BP4's, else the shape flags of shapes.cuh (neither bf16
-// argument set).
+// shape: 0 BP4's, else the shape flags of shapes.cuh (no bf16 metric; the
+// bf16 state at kShC1 only).
 template <int P>
 int batched_for_degree(int dtype, int rung, int shape, int onthefly,
                        int metric_bf16, int state_bf16, const void* mats,
@@ -163,18 +165,21 @@ int batched_for_degree(int dtype, int rung, int shape, int onthefly,
                        const void* u, void* v, void* scratch, int n_cells,
                        cudaStream_t st) {
   const Grid gr{1, 1, n_cells, 1, 1, 1};
-  if (shape) {
-    if (metric_bf16 || state_bf16 || dtype < 0 || dtype > 1) return -1;
-    return with_shape(shape, [&](auto sh) {
-      constexpr int SH = decltype(sh)::value;
-      return dtype == 0
-                 ? shape_batched<float, P, SH>(rung, onthefly, mats, kmats,
-                                               gmetric, pds, w3, coeffs, gr,
-                                               u, v, scratch, st)
-                 : shape_batched<double, P, SH>(rung, onthefly, mats, kmats,
-                                                gmetric, pds, w3, coeffs, gr,
-                                                u, v, scratch, st);
-    });
+  if (shape) {  // the bf16 state at one component: f32 (with_shape_state)
+    if (metric_bf16) return -1;
+    if (dtype == 0)
+      return with_shape_state<float>(shape, state_bf16, [&](auto sh) {
+        return shape_batched<float, P, decltype(sh)::value>(
+            rung, onthefly, mats, kmats, gmetric, pds, w3, coeffs, gr, u, v,
+            scratch, st);
+      });
+    if (dtype == 1)
+      return with_shape_state<double>(shape, state_bf16, [&](auto sh) {
+        return shape_batched<double, P, decltype(sh)::value>(
+            rung, onthefly, mats, kmats, gmetric, pds, w3, coeffs, gr, u, v,
+            scratch, st);
+      });
+    return -1;
   }
   if (dtype == 0)
     return onthefly  // B4 is exact on every rung
@@ -199,28 +204,24 @@ int batched_for_degree(int dtype, int rung, int shape, int onthefly,
 // lattice (with a mask tensor), assembled without the box's faces (the
 // assemble pass's BLOCK on a Grid whose lo and hi take in every node).
 // state: 0 at T; 1 bf16, B6's y/x sums; 2 bf16, B5's (assemble_bf16_kernel).
-// shape: 0 BP4's, else the shape flags of shapes.cuh (state 0, no
-// bf16 metric, not a block).
+// shape: 0 BP4's, else the shape flags of shapes.cuh (no bf16 metric; a
+// bf16 state or a block at kShC1 only).
+// B5/B6 at a shape beyond BP4's: the cell pass and the assemble pass
+// (shapes.cu), u and v in bf16 where `state` is set (1: summed as B6, 2:
+// as B5), on a block's lattice where `block` is set
 template <typename T, int P>
-int lattice_shape(int rung, int shape, const void* mats, const void* kmats,
-                  const void* gmetric, const void* mask, const void* u,
-                  void* cells, void* v, void* scratch, const Grid& gr,
-                  cudaStream_t st) {
-  const cudaError_t e = with_shape(shape, [&](auto sh) {
-    return shape_lattice_cells<T, P, decltype(sh)::value>(
+int lattice_shape(int rung, int shape, int state, const void* mats,
+                  const void* kmats, const void* gmetric, const void* mask,
+                  const void* u, void* cells, void* v, void* scratch,
+                  const Grid& gr, int block, cudaStream_t st) {
+  return with_shape_state<T>(shape, state, [&](auto sh) {
+    constexpr int SH = decltype(sh)::value;
+    const cudaError_t e = shape_lattice_cells<T, P, SH>(
         rung, mats, kmats, gmetric, gr, mask, u, cells, scratch, st);
+    if (e != cudaSuccess) return e;
+    return shape_lattice_nodes<T, P, SH>(gr, cells, v, state == 2, block,
+                                         st);
   });
-  if (e != cudaSuccess) return e;
-  const auto c = static_cast<const T*>(cells);
-  const auto h = static_cast<T*>(v);
-  if (shape & kShC1)
-    assemble_kernel<T, P, false, T, false, false, 1>
-        <<<node_blocks(gr), kNodeThreads, 0, st>>>(gr, c, h, nullptr,
-                                                   nullptr, nullptr, nullptr);
-  else
-    assemble_kernel<T, P, false, T><<<node_blocks(gr), kNodeThreads, 0, st>>>(
-        gr, c, h, nullptr, nullptr, nullptr, nullptr);
-  return cudaGetLastError();
 }
 
 template <typename T, int P>
@@ -229,10 +230,10 @@ int lattice_typed(int rung, int shape, int metric_bf16, int state,
                   const void* mask, const void* u, void* cells, void* v,
                   void* scratch, const Grid& gr, int block, cudaStream_t st) {
   if (shape)
-    return metric_bf16 || state || block
-               ? -1
-               : lattice_shape<T, P>(rung, shape, mats, kmats, gmetric, mask,
-                                     u, cells, v, scratch, gr, st);
+    return metric_bf16 ? -1
+                       : lattice_shape<T, P>(rung, shape, state, mats, kmats,
+                                             gmetric, mask, u, cells, v,
+                                             scratch, gr, block, st);
   const cudaError_t e = metric_pass<T, P, true>(
       rung, metric_bf16, state != 0, mats, kmats, gmetric, gr, mask, u,
       cells, scratch, st);
@@ -310,7 +311,8 @@ int lattice_for_degree(int dtype, int rung, int shape, int metric_bf16,
 // sums, 2 in bf16 with B5's (the cells scratch stays f32).  shape: 0
 // BP4's (C = 3, Q = P + 2), else the shape flags of shapes.cuh (kShC1 one
 // component, kShQ1 Q = P + 1): highest (f32, f64) and split2m, B4 on every
-// rung, u and v at the working type, the metric unrounded, not a block.
+// rung, the metric unrounded; at kShC1 also u and v in bf16 (f32) and a
+// block.
 #define BP4_SWITCH_DEGREE(F)     \
   switch (degree) {              \
     case 1: return F(1);         \

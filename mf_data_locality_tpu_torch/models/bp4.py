@@ -29,7 +29,8 @@ operator (``pallas``, ``structured``).  The fused solver works on lattice
 vectors directly.  BP4 pairs with q = p + 2; ``n_q`` and ``n_components``
 (1: the scalar BP1/BP3 analogues; CEED BP3 is one component at q = p + 2)
 reach every builder.  The kernels of ``pallas`` take one or three
-components and q = p + 1 or p + 2 under ``highest`` and ``split2m``
+components and q = p + 1 or p + 2 under ``highest`` and ``split2m``, at
+one component and q = p + 2 also the bf16 state and the ranks' blocks
 (``laplace_cuda.check_shape``; the rest is ``ROADMAP.md`` queue B item
 6g).
 """
@@ -149,11 +150,12 @@ def build(s: int, degree: int, dtype: torch.dtype = torch.float32,
     ``metric_dtype``, ``factor``, ``metric`` and ``cofactor``, as the JAX
     ``bp4.build`` passes them to the pallas builder only.  On ``pallas``
     ``n_components`` 1 (CEED BP3) or 3 and ``n_q`` p + 1 or p + 2 under
-    ``highest`` and ``split2m`` with the vectors and the metric at the
-    working dtype; the rest of those shapes raises NotImplementedError
-    (``ROADMAP.md`` queue B item 6g, ``laplace_cuda.check_shape``).  A
-    bf16 state is ``pallas``'s only (ValueError elsewhere, as in the JAX
-    package).
+    ``highest`` and ``split2m`` with the metric at the working dtype, and
+    the vectors at it too but at one component and q = p + 2, where the
+    bf16 state is taken; the rest of those shapes raises
+    NotImplementedError (``ROADMAP.md`` queue B item 6g,
+    ``laplace_cuda.check_shape``).  A bf16 state is ``pallas``'s only
+    (ValueError elsewhere, as in the JAX package).
     """
     if backend not in _VMULT:
         raise ValueError(f"unknown backend {backend!r}")

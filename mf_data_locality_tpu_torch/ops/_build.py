@@ -8,7 +8,8 @@ and ``apply_mma_pNN.cu``, the largest instantiations, the twostage one at
 p=1..3 too, the dense one at p <= 4 with the jtj chain ``mma_jtj.cu``, and
 B2 with P or x in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
 ``cg_fused_block.cu``, the cell passes at the shapes beyond BP4's
-``shapes.cu``; the sources of :data:`FLAG_BUILDS` are compiled once per
+``shapes.cu`` and B2's block form at one component ``shapes_block.cu``;
+the sources of :data:`FLAG_BUILDS` are compiled once per
 flag set, ``-DBP4_RUNG=n``, ``-DBP4_DEGREE=p`` and ``-DBP4_SHAPE=f``), and
 links them into one shared library with a plain C interface, which is
 loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
@@ -37,8 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the shape flags of the instantiations beyond BP4's (csrc/bp4_operator.cuh:
-# kShC1 one component, kShQ1 q = p + 1; the kernels' shape argument)
-SHAPE_C1, SHAPE_Q1 = 32, 64
+# kShC1 one component, kShQ1 q = p + 1; the kernels' shape argument), and
+# the storage flag of the bf16 state (kSbState; the kernels take it by
+# their state arguments)
+SHAPE_C1, SHAPE_Q1, STATE_BF16 = 32, 64, 4
 
 
 def _rungs(*rungs: int) -> tuple[tuple[str, ...], ...]:
@@ -77,10 +80,14 @@ FLAG_BUILDS = {
     "cell_mma_sb.cu": _rungs(2, 3) + _rung_degrees(range(5, 12))[1:],
     "mma_jtj.cu": _rungs(1, 2, 3),
     # the cell passes at the shapes beyond BP4's (csrc/shapes.cuh: one
-    # component, q = p + 1, both), one object a degree and shape
+    # component, q = p + 1, both; one component with the bf16 state,
+    # SHAPE_C1 | STATE_BF16), one object a degree and shape
     "shapes.cu": tuple((f"-DBP4_DEGREE={p}", f"-DBP4_SHAPE={sh}")
                        for p in range(1, 12)
-                       for sh in (SHAPE_C1, SHAPE_Q1, SHAPE_C1 | SHAPE_Q1)),
+                       for sh in (SHAPE_C1, SHAPE_Q1, SHAPE_C1 | SHAPE_Q1,
+                                  SHAPE_C1 | STATE_BF16)),
+    # B2's block form at one component, one object a degree
+    "shapes_block.cu": tuple((f"-DBP4_DEGREE={p}",) for p in range(1, 12)),
 }
 
 
@@ -100,19 +107,19 @@ _SIGNATURES = {
     # the dense pass's scratch; the cells per axis; the stream
     "bp4_matvec": (_I, [_I] * 8 + [_P] * 11 + [_I] * 3 + [_P]),
     "bp4_fused_iteration": (_I, [_I] * 10 + [_P] * 21 + [_I] * 3 + [_P]),
-    # dtype, rung, degree, dense, ... as bp4_fused_iteration without the
-    # shape (BP4's only); the cells per axis, then the block's (lo, hi,
-    # own) on z, y, x, the cell pass's range of cells and the passes to run
-    "bp4_fused_iteration_block": (_I, [_I] * 9 + [_P] * 21 + [_I] * 15
+    # the arguments of bp4_fused_iteration (the shape 0 or SHAPE_C1); the
+    # cells per axis, then the block's (lo, hi, own) on z, y, x, the cell
+    # pass's range of cells and the passes to run
+    "bp4_fused_iteration_block": (_I, [_I] * 10 + [_P] * 21 + [_I] * 15
                                   + [_P]),
     # dtype, rung, degree, shape, onthefly, bf16 metric, bf16 state; ...
     "bp4_apply_batched": (_I, [_I] * 7 + [_P] * 9 + [_I] + [_P]),
     # dtype, rung, bf16 metric, bf16 state, degree, shape; ...; the cells
     # per axis, a block's
     "bp4_apply_lattice": (_I, [_I] * 6 + [_P] * 8 + [_I] * 4 + [_P]),
-    # degree, the cells per axis, the block's (lo, hi, own) on z, y, x;
-    # the cell results, the carry; the stream
-    "bp4_block_carry": (_I, [_I] * 13 + [_P] * 3),
+    # degree, components, the cells per axis, the block's (lo, hi, own) on
+    # z, y, x; the cell results, the carry; the stream
+    "bp4_block_carry": (_I, [_I] * 14 + [_P] * 3),
 }
 
 

@@ -59,8 +59,11 @@ q from ``op.n_q``: at the shapes beyond BP4's (C = 1, q = p + 1, both;
 ``laplace_cuda.check_shape``) the kernels run ``csrc/shapes.cu``'s cell
 passes under ``highest`` and ``split2m`` (the sum-factorized pass, the
 dense pass of ``csrc/apply_mma_hd.cuh`` and the twostage one of
-``csrc/cell_mma_hd.cuh`` at every degree), with d and h, P and x and the
-metric at the working dtype, on one device.
+``csrc/cell_mma_hd.cuh`` at every degree), with P and x and the metric
+at the working dtype; at one component and q = p + 2 (CEED BP3) also
+with d and h in bf16 (the bf16 state) and in B2's block form
+(``csrc/shapes_block.cu``: the sum-factorized pass, and the dense pass of
+``apply_mma_hd.cuh`` under split2m), on one device and on the ranks.
 
 The plain versions do the same arithmetic — the same bf16 rounding points
 for the tensor-core rungs (:func:`_terms`) and the bf16 state, the same
@@ -472,10 +475,12 @@ def check_kernel_shape(op: OperatorData, n_components: int,
                        px: bool = False) -> int:
     """The kernels' shape argument for ``op``'s q and a vector of
     ``n_components`` (``laplace_cuda.check_shape``): 0 for BP4's (q = p + 2,
-    3 components); one component and q = p + 1 under highest and split2m;
-    NotImplementedError (queue B item 6g) for the rest — any other shape,
-    and at those two a bf16 state (``store``), a bf16 metric, a block
-    operator or P or x in bf16 (``px``).  The plain versions take any."""
+    3 components); one component and q = p + 1 under highest and split2m,
+    at one component and q = p + 2 (CEED BP3) also with a bf16 state
+    (``store``) and on a block operator; NotImplementedError (queue B item
+    6g) for the rest — any other shape, and at those a bf16 metric, P or
+    x in bf16 (``px``), and at q = p + 1 a bf16 state or a block operator.
+    The plain versions take any."""
     return laplace_cuda.check_shape(
         op.degree, op.n_q, n_components, op.precision, store or op.dtype,
         op.metric_dtype, block=op.slab is not None, px=px)
@@ -585,8 +590,7 @@ def rung_args(op: OperatorData) -> tuple[int, int]:
             int(op.metric_dtype == torch.bfloat16))
 
 
-def _common_args(op: OperatorData, state: torch.Tensor,
-                 shape: int | None = 0):
+def _common_args(op: OperatorData, state: torch.Tensor, shape: int = 0):
     # the tensor-core rungs: the bf16 fragment tables of the
     # factorization's tensor-core pass (dense: apply_mma.cuh, the
     # coefficients (3, 8, n_cells); twostage: cell_mma.cuh, the
@@ -595,14 +599,11 @@ def _common_args(op: OperatorData, state: torch.Tensor,
     # fastest.  The metric: streamed, or null (rebuilt from the
     # coefficients by the chain: 0 adjj, 1 jtj).  ``state``: d, whose dtype
     # is that of d and h (1: bf16).  ``shape``: the kernels' shape argument
-    # (:func:`check_kernel_shape`), after the degree in bp4_matvec and
-    # bp4_fused_iteration; None for the block form (BP4's only), which
-    # takes none.
+    # (:func:`check_kernel_shape`), after the degree.
     split = op.precision in laplace_cuda.TENSOR_RUNGS
     dense = op.factor == "dense"
     rung, metric_bf16 = rung_args(op)
-    return (dtype_code(op), rung, op.degree,
-            *(() if shape is None else (shape,)), int(dense),
+    return (dtype_code(op), rung, op.degree, shape, int(dense),
             laplace_cuda.COFACTORS.index(op.cofactor),
             int(state.dtype == torch.bfloat16), metric_bf16,
             op.mma_mats.data_ptr() if split else None,
@@ -771,7 +772,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     _check_work(work, d.shape[0])
     if op.slab is not None:
         _block_entry(op, x, g, d, h, scal, prec, out, work,
-                     (0, op.n_cells_axis[0]), _CELL_PASS | _NODE_PASSES)
+                     (0, op.n_cells_axis[0]), _CELL_PASS | _NODE_PASSES,
+                     shape)
         fused_cg_iteration.launches += 1
         return out
     lib = _build.load()
@@ -829,27 +831,29 @@ _CELL_PASS, _NODE_PASSES = 1, 2
 
 
 def _block_entry(op: OperatorData, x, g, d, h, scal, prec, out,
-                 work: Workspace, cells: tuple[int, int], passes: int):
+                 work: Workspace, cells: tuple[int, int], passes: int,
+                 shape: int):
     """Launch B2's block form (``bp4_fused_iteration_block``): ``passes``
-    of it, the cell pass over the cells of the layers ``cells``."""
+    of it, the cell pass over the cells of the layers ``cells``, at the
+    kernels' ``shape`` (0, or one component: CEED BP3)."""
     lib = _build.load()
     ncz, ncy, ncx = op.n_cells_axis
     layer = ncy * ncx
-    common = _common_args(op, d, None)
+    common = _common_args(op, d, shape)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.bp4_fused_iteration_block(
-        *common[:7], int(prec.dtype == torch.bfloat16),
-        int(x.dtype == torch.bfloat16), *common[7:],
+        *common[:8], int(prec.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), *common[8:],
         *(t.data_ptr() for t in (x, g, d, h, prec, scal)),
         *(t.data_ptr() for t in out), work.cells.data_ptr(),
-        work.partials.data_ptr(), _b12_scratch(op), ncz, ncy, ncx,
+        work.partials.data_ptr(), _b12_scratch(op, shape), ncz, ncy, ncx,
         *block_faces(op), cells[0] * layer, cells[1] * layer, passes,
         stream)
     _build.check(lib, rc, "bp4_fused_iteration_block")
     if passes & _NODE_PASSES and d.dtype == torch.bfloat16:
         # C10: the top z face of h' at f32, before the store rounded it
-        rc = lib.bp4_block_carry(op.degree, ncz, ncy, ncx, *block_faces(op),
-                                 work.cells.data_ptr(),
+        rc = lib.bp4_block_carry(op.degree, d.shape[0], ncz, ncy, ncx,
+                                 *block_faces(op), work.cells.data_ptr(),
                                  work.carry.data_ptr(), stream)
         _build.check(lib, rc, "bp4_block_carry")
 
@@ -876,8 +880,10 @@ def _fused_cells(op: OperatorData, x, g, d, h, scal, prec, out, work,
     if _route(x) == "plain":
         _cells_plain(op, x, g, d, h, scal, prec, out, work, *cells)
         return out
-    _check_iteration(op, x, g, d, h, scal, prec, out)
-    _block_entry(op, x, g, d, h, scal, prec, out, work, cells, _CELL_PASS)
+    shape = _check_iteration(op, x, g, d, h, scal, prec, out)
+    _check_work(work, d.shape[0])
+    _block_entry(op, x, g, d, h, scal, prec, out, work, cells, _CELL_PASS,
+                 shape)
     fused_cg_iteration.launches += 1
     return out
 
@@ -894,13 +900,14 @@ def fused_cg_assemble(op: OperatorData, out, prec, scal,
     if _route(out[1]) == "plain":
         _assemble_plain(op, out, prec, work)
         return out
-    _check_cuda(op, [out[1]], [out[2], out[3]], prec, (scal, out[4]),
-                (out[0],))
+    shape = _check_cuda(op, [out[1]], [out[2], out[3]], prec,
+                        (scal, out[4]), (out[0],))
     if work.partials is None:
         raise ValueError("the work buffers are not a CUDA workspace")
+    _check_work(work, out[2].shape[0])
     # the node passes read g', d', P and (not in the block form) scal
     _block_entry(op, out[0], out[1], out[2], out[3], scal, prec, out, work,
-                 (0, 0), _NODE_PASSES)
+                 (0, 0), _NODE_PASSES, shape)
     fused_cg_assemble.launches += 1
     return out
 

@@ -40,7 +40,10 @@ The components C come from the vectors' shape and q from ``op.n_q``: at
 the shapes beyond BP4's (C = 1, CEED BP3; q = p + 1; both) the kernels
 run ``csrc/shapes.cu``'s cell passes, the sum-factorized one under
 ``highest`` and ``apply_mma_hd.cuh``'s under ``split2m`` at every degree,
-with u and the metric at the working dtype (``laplace_cuda.check_shape``).
+with the metric at the working dtype (``laplace_cuda.check_shape``); u at
+the working dtype, or at one component and q = p + 2 (CEED BP3) also in
+bf16 (the bf16 state, its rounding points below), on one device and on a
+rank's block.
 
 A bf16 state (the merged and baseline solvers' ``dtype=torch.bfloat16``,
 every rung): u arrives in bf16 and the result leaves in bf16, the

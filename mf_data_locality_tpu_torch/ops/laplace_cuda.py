@@ -97,8 +97,10 @@ RUNG_PRODUCTS = {"highest": 0, "bf16": 1, "split2m": 2, "split3": 3}
 
 _SHAPE_TODO = ("not instantiated: see ROADMAP.md, queue B item 6g (q != "
                "p+2 or C != 3 on the kernels: the kernels take C in (1, 3) "
-               "and q in (p+1, p+2) under highest and split2m, at the "
-               "working dtype, on one device)")
+               "and q in (p+1, p+2) under highest and split2m with the "
+               "metric at the working dtype, on one device; at C = 1 and "
+               "q = p+2, CEED BP3, also the bf16 state and the ranks' "
+               "blocks)")
 # the rungs of the kernels' instantiations beyond BP4's shape (3
 # components, q = p + 2); their shape flags (one component, CEED BP3;
 # q = p + 1) are _build.SHAPE_C1 and SHAPE_Q1
@@ -490,10 +492,12 @@ def check_shape(degree: int, n_q: int, n_components: int,
     SHAPE_C1 (one component, CEED BP3) and/or SHAPE_Q1 (q = p + 1).
     NotImplementedError (queue B item 6g) for any other shape, and at
     those two for what they are not built with: a rung other than highest
-    and split2m (:data:`SHAPE_PRECISIONS`), a bf16 state (``dtype``) or
-    metric (``metric_dtype``), B2's block form (``block``, the distributed
-    solvers) and its P/x form (``px``).  The plain versions take every
-    shape."""
+    and split2m (:data:`SHAPE_PRECISIONS`), a bf16 metric
+    (``metric_dtype``), B2's P/x form (``px``), and at q = p + 1 a bf16
+    state (``dtype``) and a block operator (``block``, the distributed
+    solvers).  CEED BP3 (one component, q = p + 2) takes the bf16 state
+    and the block forms, on one device and on the ranks.  The plain
+    versions take every shape."""
     if n_components not in (1, 3) or n_q not in (degree + 1, degree + 2):
         raise NotImplementedError(
             f"n_q={n_q} at degree {degree} with {n_components} component(s) "
@@ -502,11 +506,12 @@ def check_shape(degree: int, n_q: int, n_components: int,
              | (SHAPE_Q1 if n_q == degree + 1 else 0))
     if not flags:
         return 0
+    q1 = bool(flags & SHAPE_Q1)
     lacks = [what for what, bad in (
         (f"precision={precision!r}", precision not in SHAPE_PRECISIONS),
-        ("a bf16 state", dtype == torch.bfloat16),
+        ("a bf16 state at q = p + 1", dtype == torch.bfloat16 and q1),
         ("a bf16 metric", metric_dtype == torch.bfloat16),
-        ("the block form (distributed)", block),
+        ("the block form (distributed) at q = p + 1", block and q1),
         ("P or x in bf16", px)) if bad]
     if lacks:
         raise NotImplementedError(

@@ -181,8 +181,8 @@ def solve_fused(slab: SlabProblem, comm: Comm,
     nd = np_dtype(dtype)
     dev = slab.b.device
     # the cell scratch on the card (the plain layer-range form's on the
-    # CPU), and the f32 z carry under a bf16 state
-    work = fk.Workspace(op)
+    # CPU), and the f32 z carry under a bf16 state, over b's components
+    work = fk.Workspace(op, slab.b.shape[0])
     carry_z = work.carry if store == torch.bfloat16 else None
     own = fk.OWNED
 

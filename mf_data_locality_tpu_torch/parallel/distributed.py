@@ -282,15 +282,18 @@ def build_slab(s: int, degree: int, rank: int, n_ranks: int,
                precision: str = "highest", windowing: str = "reshape",
                metric: str = "precomputed",
                device: torch.device | str = "cuda",
-               axis: int | tuple[int, ...] = 0) -> SlabProblem:
+               axis: int | tuple[int, ...] = 0,
+               n_components: int = 3) -> SlabProblem:
     """Slab ``rank`` of BP4 on 2**s cells over ``n_ranks`` ranks
     (``build_distributed``): on ``pallas`` the dense factorization, the
     metric streamed or (the fused solver's ``metric="onthefly"``) rebuilt
     from the coefficients by adjj; ``dtype=torch.bfloat16`` is the bf16
     state of every solver (f32 tables; b and the preconditioner rounded
     to bf16 from f64, as the JAX slabs are).  ``axis``: the rank grid's axis
-    the slabs run along (``(0, 1)`` on a 2-level grid)."""
-    a = slab_arrays(s, degree, rank, n_ranks)
+    the slabs run along (``(0, 1)`` on a 2-level grid).  ``n_components``:
+    the vectors' (1: CEED BP3, whose kernels take the bf16 state and the
+    block forms too; ``laplace_cuda.check_shape``)."""
+    a = slab_arrays(s, degree, rank, n_ranks, n_components)
     return _build(a, (a["origin"], a["nc_global"]), ((1, axis),), degree,
                   dtype, backend, precision, windowing, metric, device)
 
@@ -305,12 +308,14 @@ def build_block(s: int, degree: int, coords, mesh_shape,
                 dtype: torch.dtype = torch.float32, backend: str = "pallas",
                 precision: str = "highest", windowing: str = "reshape",
                 metric: str = "precomputed",
-                device: torch.device | str = "cuda") -> SlabProblem:
+                device: torch.device | str = "cuda",
+                n_components: int = 3) -> SlabProblem:
     """The block of BP4 on 2**s cells of the rank at ``coords`` of a (Dz,
     Dy) or (Dz, Dy, Dx) rank mesh (``build_distributed_2d`` / ``_3d``):
     :func:`block_arrays`, then the operator as :func:`build_slab` builds
-    it, its ``slab`` the block's origin and the global cell counts."""
-    a = block_arrays(s, degree, coords, mesh_shape)
+    it, its ``slab`` the block's origin and the global cell counts;
+    ``n_components`` as there."""
+    a = block_arrays(s, degree, coords, mesh_shape, n_components)
     return _build(a, (a["origin"], a["nc_global"]), halo_axes(mesh_shape),
                   degree, dtype, backend, precision, windowing, metric,
                   device)
@@ -336,6 +341,8 @@ def _build(a: dict, slab: tuple, halo: tuple, degree: int, dtype, backend,
             coeffs=t(co.reshape(lz, 1, ly, 1, lx, 1, 8, 3)),
             mask=t(a["mask"]))
     elif backend == "pallas":
+        laplace_cuda.check_shape(p, q, a["b"].shape[0], precision, dtype,
+                                 block=True)
         shape = lagrange.make_shape(p, q)
         w3 = laplace_cuda.tensor_weights(p, q)
         op = laplace_cuda.operator_from_arrays(
@@ -542,6 +549,7 @@ class Job:
     compute in the solve and the timed matvec (z-slabs;
     :func:`dist_vmult`, ``dist_fused.solve_fused``); ``overlap_matvec``:
     in the matvec only (the JAX CLI's ``--solver fused --overlap``).
+    ``n_components``: the vectors' (1: CEED BP3; :func:`build_slab`).
     ``mesh_shape``: the rank
     grid — None for z-slabs over all ranks, (Dz, Dy) or (Dz, Dy, Dx) for
     blocks (:func:`build_block`), or with ``two_level`` an (n_slices,
@@ -574,6 +582,7 @@ class Job:
     solve_repeats: int = 4
     matvec_repeats: int = 2
     matvec_inner: int = 50
+    n_components: int = 3
     mesh_shape: tuple | None = None
     two_level: bool = False
     overlap: bool = False
@@ -608,17 +617,20 @@ class Job:
                     else bp4.slab_from_jax_arrays)
             return make(**self.arrays[comm.rank], device=comm.device)
         if self.backend == "general":
-            return dist_general.build_general(self.s, self.degree, comm.rank,
-                                              comm.size, self.dtype,
-                                              comm.device, layout=self.layout)
+            return dist_general.build_general(
+                self.s, self.degree, comm.rank, comm.size, self.dtype,
+                comm.device, n_components=self.n_components,
+                layout=self.layout)
         windowing = "pieces" if self.solver == "fused" else self.windowing
         args = (self.dtype, self.backend, self.precision, windowing,
                 self.metric, comm.device)
         if self.blocks:
             return build_block(self.s, self.degree, comm.coords,
-                               comm.mesh_shape, *args)
+                               comm.mesh_shape, *args,
+                               n_components=self.n_components)
         return build_slab(self.s, self.degree, comm.rank, comm.size, *args,
-                          axis=(0, 1) if self.two_level else 0)
+                          axis=(0, 1) if self.two_level else 0,
+                          n_components=self.n_components)
 
     def nodes_axis(self) -> tuple[int, int, int]:
         """The global lattice's nodes an axis."""
@@ -727,12 +739,13 @@ def launch(jobs, n_ranks: int, device: str = "cuda") -> list[dict]:
         rs = [r[j] for r in per_rank]
         nz, ny, nx = job.nodes_axis()
         xs = [r["x"] for r in rs]
+        n_comp = xs[0].shape[0]
         if job.layout is not None:  # (C, n_nodes) of the job's mesh
-            x = dist_general.gather_global_general(xs, job.layout)
+            x = dist_general.gather_global_general(xs, job.layout, n_comp)
         elif job.backend == "general":
             layout = DofLayout(BoxMesh.from_s(job.s), job.degree)
-            x = dist_general.gather_global_general(xs, layout).reshape(
-                xs[0].shape[0], nz, ny, nx)
+            x = dist_general.gather_global_general(
+                xs, layout, n_comp).reshape(n_comp, nz, ny, nx)
         elif job.blocks:
             x = gather_global_3d(xs, job.mesh(n_ranks), nz, ny, nx)
         else:

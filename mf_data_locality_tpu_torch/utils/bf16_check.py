@@ -36,10 +36,11 @@ def control_op(op):
     return dataclasses.replace(op, precision="split2m")
 
 
-def state(op, n: int, seed: int) -> list[torch.Tensor]:
-    """``n`` random lattice vectors of ``op``, zero on the boundary."""
+def state(op, n: int, seed: int, n_comp: int = 3) -> list[torch.Tensor]:
+    """``n`` random lattice vectors of ``op`` of ``n_comp`` components, zero
+    on the boundary."""
     gen = torch.Generator(device=op.device).manual_seed(seed)
-    return [(torch.randn((3,) + op.n_nodes_axis, generator=gen,
+    return [(torch.randn((n_comp,) + op.n_nodes_axis, generator=gen,
                          device=op.device, dtype=op.dtype) * op.mask)
             .contiguous() for _ in range(n)]
 
@@ -79,7 +80,7 @@ def unrounded_scalars(op, x, g, d, h, scal, prec) -> torch.Tensor:
     return fk.scalar_recurrence(s, scal[0], scal[1], scal[4])
 
 
-def rounding_point(op, seed: int) -> tuple[float, float]:
+def rounding_point(op, seed: int, n_comp: int = 3) -> tuple[float, float]:
     """B2 with a bf16 state on inputs that make the rounding point of d'
     (``cg_fused_kernel.py:856``) move the scalars at any size: alpha = beta
     = 0, so d' = -P g, and g = -(1 + 0.45 2^-9) r / P for bf16 values r, so
@@ -87,8 +88,9 @@ def rounding_point(op, seed: int) -> tuple[float, float]:
     sums over the unrounded d' make d.h, and so alpha', 8.8e-4 larger (and
     beta' and res2 more).  Returns the max rel err of the kernel's scalars
     (on a CPU ``op``, the plain version's) against the plain version's and
-    against the unrounded-d' variant's (:func:`unrounded_scalars`)."""
-    x, r, d, h = state(op, 4, seed)
+    against the unrounded-d' variant's (:func:`unrounded_scalars`), on
+    vectors of ``n_comp`` components."""
+    x, r, d, h = state(op, 4, seed, n_comp)
     prec = ((state(op, 1, 5)[0][:1].abs() + 0.5) * op.mask).contiguous()
     r = r.to(BF).float()
     g = (-(1 + 0.45 * 2.0 ** -9) * r / (prec + (prec == 0))).contiguous()

@@ -91,20 +91,21 @@ def _layout(p: int) -> DofLayout:
     return DofLayout(BoxMesh(RAGGED, 0.25), p)
 
 
-def _vec(op, seed: int, store=torch.float32) -> torch.Tensor:
-    (v,) = bf16_check.state(op, 1, seed)
+def _vec(op, seed: int, store=torch.float32, n_comp: int = 3
+         ) -> torch.Tensor:
+    (v,) = bf16_check.state(op, 1, seed, n_comp)
     return v.to(store).contiguous()
 
 
 def apply_case(op, kernel: str, seed: int, state=BF,
-               ctl_op=None) -> tuple[float, float]:
+               ctl_op=None, n_comp: int = 3) -> tuple[float, float]:
     """(kernel vs plain, control vs plain) of one apply-family kernel on a
     random u stored at ``state``: relative L2 for a bf16 state (the
     control the plain version's f32 result, without the store), max
     relative otherwise (the control the plain version on ``ctl_op``, the
-    operator with the f32 metric)."""
+    operator with the f32 metric); vectors of ``n_comp`` components."""
     p = op.degree
-    u = _vec(op, seed, state)
+    u = _vec(op, seed, state, n_comp)
     ctl_op = op if ctl_op is None else ctl_op
     if kernel in ("batched_g", "batched_onthefly"):
         u_loc = la.to_cell_batches(u, p).contiguous()
@@ -129,12 +130,14 @@ def apply_case(op, kernel: str, seed: int, state=BF,
     return _rel(got, want), _rel(ctl, want)
 
 
-def fused_case(op, seed: int, state=BF, ctl_op=None) -> dict:
+def fused_case(op, seed: int, state=BF, ctl_op=None,
+               n_comp: int = 3) -> dict:
     """B1 and B2 on ``op`` with d and h stored at ``state``: their readings
     against the plain versions and the controls' (module docstring;
-    ``ctl_op``, with an f32 state, the operator with the f32 metric)."""
+    ``ctl_op``, with an f32 state, the operator with the f32 metric), on
+    vectors of ``n_comp`` components."""
     prec = ((_vec(op, seed)[:1].abs() + 0.5) * op.mask).contiguous()
-    d = _vec(op, seed + 1, state)
+    d = _vec(op, seed + 1, state, n_comp)
     got = fk.matvec(op, d)
     want = fk._matvec_plain(op, d)
     out = {}
@@ -144,8 +147,8 @@ def fused_case(op, seed: int, state=BF, ctl_op=None) -> dict:
     else:
         out["B1"] = (_rel(got, want), _rel(fk._matvec_plain(ctl_op, d),
                                            want))
-    x, g = (_vec(op, seed + k) for k in (2, 3))
-    dd, h = (_vec(op, seed + k, state) for k in (4, 5))
+    x, g = (_vec(op, seed + k, n_comp=n_comp) for k in (2, 3))
+    dd, h = (_vec(op, seed + k, state, n_comp) for k in (4, 5))
     scal = torch.tensor(SCAL, device=op.device)
     k = fk.fused_cg_iteration(op, x, g, dd, h, scal, prec)
     w = fk._fused_iteration_plain(op, x, g, dd, h, scal, prec)
@@ -153,7 +156,8 @@ def fused_case(op, seed: int, state=BF, ctl_op=None) -> dict:
     out["B2"] = max(err(a, b) for a, b in zip(k[:4], w[:4]))
     out["B2 scal"] = bf16_check.scal_err(k[4].double(), w[4].double())
     if state == BF:
-        out["rounding point"] = bf16_check.rounding_point(op, seed + 6)
+        out["rounding point"] = bf16_check.rounding_point(op, seed + 6,
+                                                          n_comp)
     else:
         c = fk._fused_iteration_plain(ctl_op, x, g, dd, h, scal, prec)
         out["B2 control"] = max(_rel(a, b) for a, b in zip(c[:4], w[:4]))
@@ -174,19 +178,19 @@ def _hold_fused(tag: str, r: dict, state, quiet: bool) -> None:
 
 
 def carry_case(p: int, rung: str, metric: str, dev, seed: int,
-               s: int = 5) -> tuple[float, float]:
-    """C10 on the lower of two z-slabs of 2^s cells: (the kernel's f32
-    carry vs the plain version's, the face as stored in h' vs the plain
-    carry), max relative."""
+               s: int = 5, n_comp: int = 3) -> tuple[float, float]:
+    """C10 on the lower of two z-slabs of 2^s cells, vectors of ``n_comp``
+    components: (the kernel's f32 carry vs the plain version's, the face
+    as stored in h' vs the plain carry), max relative."""
     from mf_data_locality_tpu_torch.parallel import distributed
 
     op = distributed.build_slab(s, p, 0, 2, BF, "pallas", rung, "pieces",
-                                metric, dev).op
+                                metric, dev, n_components=n_comp).op
     prec = ((_vec(op, seed)[:1].abs() + 0.5) * op.mask).contiguous()
-    x, g = (_vec(op, seed + k) for k in (1, 2))
-    d, h = (_vec(op, seed + k, BF) for k in (3, 4))
+    x, g = (_vec(op, seed + k, n_comp=n_comp) for k in (1, 2))
+    d, h = (_vec(op, seed + k, BF, n_comp) for k in (3, 4))
     scal = torch.tensor(SCAL, device=dev)
-    work = fk.Workspace(op)
+    work = fk.Workspace(op, n_comp)
     out = fk.fused_cg_iteration(op, x, g, d, h, scal, prec, work=work)
     plain = torch.empty_like(work.carry)
     fk._fused_iteration_plain(op, x, g, d, h, scal, prec, carry=plain)

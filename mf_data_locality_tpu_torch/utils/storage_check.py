@@ -14,10 +14,11 @@ and spills, and prints how many are equal; B2's block form
 counted apart, since its names are those of the z-slab form it replaced
 (form 4, the last template argument true) and its code is not.  The
 instantiations at the shapes beyond BP4's (``csrc/shapes.cu``: one
-component, q = p + 1) are listed with their registers and spills, and
-compared where the parent has them; in both builds the assemble pass's
-names are read without its component count (NC = 3), a template argument
-since those shapes.  ``--build-only``: this report alone.
+component, q = p + 1; ``csrc/shapes_block.cu``: B2's block form at one
+component) are listed with their registers and spills, and compared
+where the parent has them; in both builds the node passes' names are read
+without their component count (NC = 3), a template argument since those
+shapes.  ``--build-only``: this report alone.
 
 Then, on a 3 x 5 x 7 box at every degree 1..11 and in every configuration
 of ``laplace_cuda.fused_configs`` under ``highest`` (f32, f64), split2m,
@@ -84,20 +85,26 @@ def _unpx(name: str) -> str:
 
 
 def _unshape(name: str) -> str:
-    """The name an assemble pass had before its trailing component count
-    (NC = 3, BP4's) was a template argument."""
-    return re.sub(r"^(_ZN3bp415assemble_kernelI.*)Li3E(E+v)", r"\1\2",
-                  name)
+    """The name a node pass had before its trailing component count (NC =
+    3, BP4's) was a template argument: the assemble pass's, and the bf16
+    assemble and C10 carry passes' (after their P and flags)."""
+    for pat in (r"^(_ZN3bp415assemble_kernelI.*)Li3E(E+v)",
+                r"^(_ZN3bp420assemble_bf16_kernelILi\d+ELb[01]ELb[01]E)"
+                r"Li3E(E+v)",
+                r"^(_ZN3bp418block_carry_kernelILi\d+E)Li3E(E+v)"):
+        name = re.sub(pat, r"\1\2", name)
+    return name
 
 
 def _is_shape(name: str) -> bool:
     """An instantiation at a shape beyond BP4's (csrc/shapes.cuh): a flag
-    argument with kShC1 (32) or kShQ1 (64), or the assemble pass over one
+    argument with kShC1 (32) or kShQ1 (64), or a node pass over one
     component (NC = 1, its last template argument)."""
     flags = (int(v) for v in re.findall(r"Li(\d+)E", name))
     return (any(v >= 32 for v in flags)
-            or bool(re.search(r"^_ZN3bp415assemble_kernelI.*Li1EE+v",
-                              name)))
+            or bool(re.search(r"^_ZN3bp4\d+(assemble_kernel|"
+                              r"assemble_bf16_kernel|block_carry_kernel)I"
+                              r".*Li1EE+v", name)))
 
 
 def _is_px(name: str) -> bool:

@@ -200,20 +200,24 @@ def test_build_takes_n_q_and_n_components(backend):
 
 def test_pallas_refuses_other_q_and_components():
     """Queue B item 6g, what stays of it: q = p + 3, two components and a
-    bf16 state at one component are refused by the builders and the
-    kernels' checks; BP3 (one component) and q = p + 1 are taken."""
+    bf16 state at q = p + 1 are refused by the builders and the kernels'
+    checks; BP3 (one component) and q = p + 1 are taken, and at one
+    component and q = p + 2 the bf16 state too."""
     with pytest.raises(NotImplementedError, match="6g"):
         bp4.build(3, 2, torch.float64, device="cpu", n_q=5)
     with pytest.raises(NotImplementedError, match="6g"):
         bp4.build(3, 2, torch.float64, device="cpu", n_components=2)
     with pytest.raises(NotImplementedError, match="6g"):
         bp4.build(3, 2, torch.bfloat16, "split2m", device="cpu",
-                  n_components=1)
+                  n_components=1, n_q=3)
+    pb = bp4.build(3, 2, torch.bfloat16, "split2m", device="cpu",
+                   n_components=1)
+    assert pb.b.dtype == torch.bfloat16 and pb.b.shape[0] == 1
     op = bp4.build(3, 2, torch.float64, device="cpu").op
     with pytest.raises(NotImplementedError, match="6g"):
         fk.check_kernel_shape(op, 2)
-    with pytest.raises(NotImplementedError, match="6g"):
-        fk.check_kernel_shape(op, 1, torch.bfloat16)
+    assert fk.check_kernel_shape(pb.op, 1, torch.bfloat16) == \
+        laplace_cuda.SHAPE_C1
     assert fk.check_kernel_shape(op, 3) == 0
     assert fk.check_kernel_shape(op, 1) == laplace_cuda.SHAPE_C1
     q1 = bp4.build(3, 2, torch.float64, device="cpu", n_q=3,

@@ -1171,3 +1171,63 @@ def test_shape_solves_on_card(cuda_device, shape, solver, precision):
         assert r.n_iterations == want
     else:
         assert want <= r.n_iterations <= want + 3 or r.n_iterations == 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", range(1, 12))
+def test_bp3_rank_forms_match_plain(cuda_device, p):
+    """CEED BP3 (one component) in the ranks' kernel forms: B2's block
+    form on a z-slab and a (2, 2) block under highest (f32: 1e-5, f64:
+    1e-12 max relative) and split2m (1e-5), both metrics, and its
+    layer-range form bitwise the one launch; with the bf16 state the same
+    forms, C10's carry over one component and B3/B5/B6 on a slab
+    (``utils/bp3_ranks_check.compare_ranks``: the bf16 limits with their
+    controls)."""
+    from mf_data_locality_tpu_torch.utils import bp3_ranks_check as b3c
+
+    for rung, dtype, tol in (("highest", torch.float64, 1e-12),
+                             ("highest", torch.float32, 1e-5),
+                             ("split2m", torch.float32, 1e-5)):
+        for _, coords, mesh in b3c.PARTS:
+            for metric in ("precomputed", "onthefly"):
+                op = b3c.part_op(b3c.S_PART, p, coords, mesh, dtype, rung,
+                                 metric, dev=cuda_device)
+                x, g, d, h, scal, prec = b3c.iteration_args(op, 60 + p)
+                args = (x, g, d.to(dtype), h.to(dtype), scal, prec)
+                got = fk.fused_cg_iteration(op, *args)
+                want = fk._fused_iteration_plain(op, *args)
+                for a, b in zip(got[:4], want[:4]):
+                    assert ((a - b).abs().max()
+                            <= tol * b.abs().max()), (rung, dtype, metric)
+                cut = op.n_cells_axis[0] - 1
+                for a, b in zip(b3c.range_iteration(op, args, cut), got):
+                    assert torch.equal(a, b)
+    worst = b3c.compare_ranks(p, cuda_device)
+    assert ("C10 carry", "split2m") in worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", range(1, 12))
+def test_bp3_bf16_state_matches_plain(cuda_device, p):
+    """The bf16 state at one component on one device: B3, B4, B5, B6 and
+    B1/B2 in every fused configuration under highest and split2m on the
+    105-cell box (``utils/bp3_ranks_check.compare_one_device``)."""
+    from mf_data_locality_tpu_torch.utils import bp3_ranks_check
+
+    worst = bp3_ranks_check.compare_one_device(p, cuda_device)
+    assert {k[0] for k in worst} >= {"B1", "B2", "batched_g", "pieces"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh", [(2, None), (3, None), (4, (2, 2))])
+def test_bp3_distributed_solves_on_card(cuda_device, n, mesh):
+    """BP3's f64 parity point p=4 s=7 on the ranks (processes on the
+    card): the fused and merged solvers at one component take the
+    single-device count, 93."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
+    jobs = [distributed.Job(solver, 7, 4, torch.float64, n_components=1,
+                            mesh_shape=mesh) for solver in ("fused",
+                                                            "merged")]
+    for r in distributed.launch(jobs, n, "cuda"):
+        assert r["it"] == 93 and r["x"].shape[0] == 1
