@@ -130,28 +130,44 @@ Phases (each raises on failure, so any failure exits nonzero):
    timed at the (p, s) of the drive that
    gives its launches; each row with the bound of its work on this card,
    from the shapes; B2 also with ``_prec_bf16``, ``_x_bf16`` and with
-   ``_p6`` for section 7's runs, each beside ``ms_f32...``, the same
-   run's kernel with P and x at f32), the build time and the script's
+   each STORAGE_RUNS suffix for section 7's runs, each beside
+   ``ms_f32...``, the same run's kernel with P and x at f32, and
+   ``storage...``, the state's and the metric's dtype), the build time
+   and the script's
    wall time, and, last, the device JSON line;
 7. run in phase 5, before its solutions' check: B2 with the
    preconditioner or x stored in bf16 (``prec_dtype``, ``x_dtype``;
-   ``csrc/cg_fused_px.cu``) at STORAGE_RUNS — the production command's
-   configuration at p=4 s=13 (split2m twostage + onthefly) and the auto
-   path under highest at p=6 s=12 (twostage + the streamed metric): with
-   x in bf16 g', d', h' and the scalars bitwise equal to the f32-x kernel
-   run's and x' within one bf16 step of the plain version, with P in bf16
-   the kernel against the plain version at TOL and the plain version with
-   P unrounded (the control) outside it, both timed beside the f32 run and
-   the bound with P or x at 2 bytes, and the fused solver driven through
-   ``run_one(..., prec_dtype=, x_dtype=)`` at both points (x: the f32
-   run's itCG; P: within 3); the structured and general backends at p=4
+   ``csrc/cg_fused_px.cu``, and beside a bf16 state or metric B2's
+   storage instantiations, which are that P/x form): on the 105-cell box
+   at every degree 1..11 in each STORAGE_BOX configuration (the bf16
+   state under highest, split2m and split3 — the sum-factorized pass, the
+   dense and twostage tensor-core passes, the metric streamed and rebuilt
+   by either chain —, the bf16 metric under highest and split2m with and
+   without it), and at STORAGE_RUNS' full-width rows — the production
+   command's configuration at p=4 s=13 (split2m twostage + onthefly), the
+   auto path under highest at p=6 s=12 (twostage + the streamed metric),
+   the JAX CLI's ``--dtype bf16`` under highest, split2m and split3 and
+   ``--metric-dtype bf16`` under highest at p=4 s=13, the bf16 metric
+   streamed under split2m, the bf16 state and the bf16 metric at p=6 s=12
+   —, ``px_case``: with x in bf16 g', d', h' and the scalars bitwise
+   equal to the f32-x launch's and x' within one bf16 step of the plain
+   version, with P in bf16 the kernel against the plain version (beside a
+   bf16 state relative L2 TOL_PX_L2, else TOL) and the plain version with
+   P unrounded (the control) outside it, with both the P run's sums; each
+   full-width row timed beside the f32 run and the bound with P or x at 2
+   bytes, and the fused solver driven through ``run_one(...,
+   prec_dtype=, x_dtype=)`` on each (x: the f32 run's itCG; P: within 3;
+   and the CLI's ``--metric-dtype bf16 --prec-dtype bf16`` under split2m,
+   whose resolved twostage + onthefly streams no metric); the structured and general backends at p=4
    s=13 (f32, f64): vmult against B3 (TOL_BACKEND), then ``run_one(4, 13,
    solver="merged"|"baseline", backend=...)``, the f64 itCG equal to the
    pallas path's, their rows printed; and the discretization: the
    manufactured solution solved in f64 by the merged CG through B3 at
    CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35;
 8. the distributed solvers (``parallel/``; ranks are processes on this
-   card, joined by gloo): B2's block form (``csrc/cg_fused_block.cu``
+   card, joined by gloo; the spawns whose jobs are untimed — the parity
+   on 2 and 3 z-slab ranks, the 8-rank mesh's — run at once, the 4-rank
+   spawn of the timed rows alone after them): B2's block form (``csrc/cg_fused_block.cu``
    ``bp4_fused_iteration_block``: the Dirichlet faces by global position
    on all three axes, every ghost face filled, raw sums over the owned
    nodes, the carries) against its plain version on z-slabs (blocks of a
@@ -282,6 +298,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -1534,24 +1551,65 @@ def parity_reduced(benchmark, bp4, dev) -> None:
 
 
 # B2 with the preconditioner or x stored in bf16 (the fused solver's
-# prec_dtype and x_dtype, csrc/cg_fused_px.cu): (p, s, dtype, precision,
-# configuration, key suffix) — the production command's configuration at
-# p=4 s=13 (split2m twostage + onthefly: cell_mma.cuh) and the auto path
-# under highest at p=6 s=12 (twostage + the streamed metric:
-# sumfac_p06.cu).  x feeds no dot, so B2 with x in bf16 must give g', d',
-# h' and the scalars bitwise equal to the f32-x kernel run beside it; x' is
-# held to its plain version within one bf16 step (2^-8 of its largest
-# value: the two round sums that differ in the last f32 bits); with P in
-# bf16 the kernel is held to its plain version at TOL, and a control, the
-# plain version with P unrounded, must miss TOL
-STORAGE_RUNS = ((DEGREE, S, torch.float32, "split2m",
-                 dict(factor="twostage", metric="onthefly", cofactor="adjj"),
-                 ""),
-                (6, 12, torch.float32, "highest",
-                 dict(factor="twostage", metric="precomputed",
-                      cofactor="adjj"), "_p6"))
-STORAGE = (("_prec_bf16", dict(prec_dtype=torch.bfloat16)),
-           ("_x_bf16", dict(x_dtype=torch.bfloat16)))
+# prec_dtype and x_dtype: csrc/cg_fused_px.cu, and B2's storage
+# instantiations, which are that P/x form, beside a bf16 state or a bf16
+# metric): (p, s, state dtype, metric dtype, precision, configuration —
+# None: the JAX resolvers' —, key suffix).  Beside an f32 state and
+# metric: the production command's configuration at p=4 s=13 (split2m
+# twostage + onthefly: cell_mma.cuh) and the auto path under highest at
+# p=6 s=12 (twostage + the streamed metric: sumfac_p06.cu).  Beside the
+# storage forms: the JAX CLI's rows at p=4 s=13 — --dtype bf16 under
+# highest, split2m and split3 (the bf16 rung's dispatch: dense +
+# onthefly; sumfac_sb.cu, mma_sb.cu), --metric-dtype bf16 under highest
+# (dense + the streamed metric) —, the bf16 metric under split2m in the
+# dense pass with the metric streamed (the resolvers give split2m
+# twostage + onthefly, which streams no metric: the "" run's kernels,
+# driven with the flag too, STORAGE_CLI), and at p=6 s=12 the auto
+# path's twostage + the streamed metric with the bf16 state and with the
+# bf16 metric.  Each run is held and timed at full width (px_case, then
+# the kernel beside its plain version and its bound with P or x at 2
+# bytes) and driven through run_one: with x in bf16 the f32-x run's itCG,
+# with P in bf16 within 3 (tests/test_cg_fused.py:332-345).
+TS_STREAMED = dict(factor="twostage", metric="precomputed", cofactor="adjj")
+STORAGE_RUNS = (
+    (DEGREE, S, torch.float32, None, "split2m",
+     dict(factor="twostage", metric="onthefly", cofactor="adjj"), ""),
+    (6, 12, torch.float32, None, "highest", TS_STREAMED, "_p6"),
+    (DEGREE, S, BF, None, "highest", None, "_bf16state"),
+    (DEGREE, S, BF, None, "split2m", None, "_bf16state_split2m"),
+    (DEGREE, S, BF, None, "split3", None, "_bf16state_split3"),
+    (DEGREE, S, torch.float32, BF, "highest", None, "_bf16metric"),
+    (DEGREE, S, torch.float32, BF, "split2m",
+     dict(factor="dense", metric="precomputed", cofactor="adjj"),
+     "_bf16metric_split2m"),
+    (6, 12, BF, None, "highest", TS_STREAMED, "_bf16state_p6"),
+    (6, 12, torch.float32, BF, "highest", TS_STREAMED, "_bf16metric_p6"),
+)
+STORAGE = (("_prec_bf16", dict(prec_dtype=BF)), ("_x_bf16", dict(x_dtype=BF)))
+# the JAX CLI's --metric-dtype bf16 --prec-dtype bf16 under split2m on the
+# "" run's problem (the metric rebuilt: the flag changes no kernel)
+STORAGE_CLI = (("", dict(metric_dtype=BF, prec_dtype=BF)),)
+# the storage forms' P/x checks on the RAGGED box at every degree:
+# (precision, factor, metric, cofactor, ((state, metric dtype), ...)) — the
+# sum-factorized pass under highest (factor and chain read at run time),
+# the dense and twostage tensor-core passes under split2m and split3 (the
+# metric streamed, rebuilt by adjj, by jtj), the bf16 metric streamed
+# under highest and split2m with and without the bf16 state
+_SB_PRE = ((BF, None), (BF, BF), (torch.float32, BF))
+STORAGE_BOX = (
+    ("highest", "dense", "precomputed", "adjj", _SB_PRE),
+    ("highest", "dense", "onthefly", "adjj", ((BF, None),)),
+    *((rung, f, m, c, _SB_PRE if (rung, m) == ("split2m", "precomputed")
+       else ((BF, None),))
+      for rung in ("split2m", "split3") for f in ("dense", "twostage")
+      for m, c in (("precomputed", "adjj"), ("onthefly", "adjj"),
+                   ("onthefly", "jtj"))),
+)
+STORAGE_BOX_DEGREES = tuple(range(1, 12))
+# B2 beside a bf16 state against its plain version: relative L2 of the
+# vectors and max relative of the scalars (bf16_state_check's limits)
+TOL_PX_L2, TOL_PX_SCAL = 3e-4, 1e-4
+
 # the plain backends at p=4 s=13 against B3 (the JAX CLI's default path's
 # operator) on the same vector, relative L2
 TOL_BACKEND = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -1570,63 +1628,157 @@ CONVERGENCE = ((1, (3, 6)), (2, (6, 9)), (4, (6, 9)))
 CONVERGENCE_TOL = 1e-7
 
 
-def compare_storage(fk, bp4, dev, timing) -> dict:
-    """B2 with bf16 P and with bf16 x at STORAGE_RUNS: the checks above,
-    kernel and plain times and the bound with P or x at 2 bytes; returns
-    {suffix: ((kernel ms, plain ms), bound, max |diff|), "_f32...": the
-    f32 run's} and the problems, for the drives."""
+def px_case(fk, op, state, seed: int, tag: str,
+            full: bool = False) -> dict:
+    """B2 on ``op`` with d and h stored at ``state`` and P, x or both in
+    bf16 against its plain version, on random inputs (P a random positive
+    diagonal, which bf16 rounds): with x in bf16 g', d', h' and the scalars
+    bitwise equal to the f32-x launch's and x' within one bf16 step (2^-8
+    of its largest value: the two round sums that differ in the last f32
+    bits) of the plain version's; with P and x at f32, and with P in bf16,
+    the vectors within relative L2 TOL_PX_L2 beside a bf16 state, else
+    within TOL (max relative), and with P in bf16 the scalars within
+    TOL_PX_SCAL or TOL_SCAL_F32 and the control — the plain version with P
+    unrounded — outside; with both, g', d', h' and the scalars bitwise
+    those of P alone and x' within a bf16 step.
+    Raises on a failure.  ``full`` (a timed row): prints the readings and
+    returns {"_f32"|"_prec_bf16"|"_x_bf16": ((x, P), max |diff| against
+    the plain version)} and the other inputs."""
+    from mf_data_locality_tpu_torch.utils import bf16_check
+
+    bf = state == BF
+    x, g = random_state(op, 2, seed)
+    d, h = (v.to(state).contiguous() for v in random_state(op, 2, seed + 1))
+    gen = torch.Generator(device=op.device).manual_seed(seed + 2)
+    prec = ((torch.rand((1,) + op.n_nodes_axis, generator=gen,
+                        device=op.device, dtype=op.dtype) + 0.5)
+            * op.mask).contiguous()
+    scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
+                        dtype=op.dtype, device=op.device)
+    pb, xb = prec.to(BF).contiguous(), x.to(BF).contiguous()
+
+    def run(xx, pp):
+        return fk.fused_cg_iteration(op, xx, g, d, h, scal, pp)
+
+    def plain(xx, pp):
+        return fk._fused_iteration_plain(op, xx, g, d, h, scal, pp)
+
+    def xstep(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def vec_err(a, b):
+        return (bf16_check.l2 if bf else bf16_check.rel)(a.float(),
+                                                         b.float())
+
+    def diff(got, want):
+        return max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got[:4], want[:4]))
+
+    vtol, stol = (TOL_PX_L2, TOL_PX_SCAL) if bf else (TOL[op.dtype],
+                                                       TOL_SCAL_F32)
+    ref, base = run(x, prec), plain(x, prec)
+    e0 = max(vec_err(a, b) for a, b in zip(ref[:4], base[:4]))
+    rx = run(xb, prec)
+    want_x = plain(xb, prec)
+    bitwise = all(torch.equal(a, b) for a, b in zip(ref[1:], rx[1:]))
+    ex = xstep(rx[0], want_x[0])
+    rp = run(x, pb)
+    want = plain(x, pb)
+    ep = max(vec_err(a, b) for a, b in zip(rp[:4], want[:4]))
+    es = bf16_check.scal_err(rp[4].double()[:6], want[4].double()[:6])
+    ctl = max(vec_err(a, b) for a, b in zip(rp[1:4], base[1:4]))
+    rb = run(xb, pb)
+    both = (all(torch.equal(a, b) for a, b in zip(rb[1:], rp[1:]))
+            and xstep(rb[0], plain(xb, pb)[0]) <= 2.0 ** -8)
+    line = (f"fused_cg_iteration {tag} state {str(state)[6:]} metric "
+            f"{str(op.metric_dtype)[6:]}: P, x f32 {e0:.3e}; x bf16 g' d' "
+            f"h' scal bitwise "
+            f"{bitwise}, x' {ex:.2e} (one bf16 step {2.0 ** -8:.2e}); "
+            f"P bf16 {'L2' if bf else 'max rel'} {ep:.3e} (tol "
+            f"{vtol:.0e}), scal {es:.2e} (tol {stol:.0e}), control (P "
+            f"unrounded) {ctl:.3e}; both {both}")
+    if full:
+        print("  " + line)
+    if not (e0 <= vtol and bitwise and ex <= 2.0 ** -8 and ep <= vtol
+            and es <= stol and ctl > vtol and both):
+        raise AssertionError(f"B2 with P or x in bf16 is wrong: {line}")
+    if not full:
+        return None
+    return {"_f32": ((x, prec), diff(ref, base)),
+            "_prec_bf16": ((x, pb), diff(rp, want)),
+            "_x_bf16": ((xb, prec), diff(rx, want_x))}, (g, d, h, scal)
+
+
+def compare_storage_box(fk, dev) -> int:
+    """px_case on the RAGGED box at every degree of STORAGE_BOX_DEGREES in
+    each STORAGE_BOX configuration; returns the cases held."""
+    from mf_data_locality_tpu_torch.mesh.box import BoxMesh
+    from mf_data_locality_tpu_torch.mesh.dofs import DofLayout
+    from mf_data_locality_tpu_torch.ops import laplace_cuda
+
+    n = 0
+    for p in STORAGE_BOX_DEGREES:
+        layout = DofLayout(BoxMesh(RAGGED, 0.25), p)
+        for rung, factor, metric, cofactor, combos in STORAGE_BOX:
+            for state, mdt in combos:
+                op = laplace_cuda.make_operator(
+                    layout, state, rung, factor=factor, metric=metric,
+                    cofactor=cofactor, windowing="pieces", device=dev,
+                    metric_dtype=mdt)
+                px_case(fk, op, state, 40 + p,
+                        f"p={p} {rung} {factor} {metric} {cofactor}")
+                n += 1
+    return n
+
+
+def storage_source(op, state) -> str:
+    """The source of the B2 instantiation a STORAGE_RUNS run launches."""
+    storage = state == BF or op.metric_dtype == BF
+    p = op.degree
+    if not storage:
+        return "cg_fused_px.cu" if p <= 4 else f"sumfac_p{p:02d}.cu"
+    if op.precision == "highest":
+        return "sumfac_sb.cu"
+    if p <= 4:
+        return "mma_sb.cu"
+    return "apply_mma_sb.cu" if op.factor == "dense" else "cell_mma_sb.cu"
+
+
+def compare_storage(fk, bp4, benchmark, dev, timing) -> dict:
+    """B2 with bf16 P and with bf16 x at STORAGE_RUNS: px_case at full
+    width, then kernel and plain times and the bound with P or x at 2
+    bytes; returns {key + suffix: ((kernel ms, plain ms), bound, max
+    |diff|)} ("_f32" the run with P and x at f32), {suffix: (problem,
+    (factor, metric, cofactor), source)}, for the drives and the kernels
+    line."""
     out, problems = {}, {}
-    for p, s, dtype, precision, config, sfx in STORAGE_RUNS:
-        pb = bp4.build(s, p, dtype, precision, windowing="pieces",
-                       device=dev, **config)
-        problems[sfx] = pb
+    for p, s, state, mdt, precision, config, sfx in STORAGE_RUNS:
+        cfg = config or dict(zip(
+            ("factor", "metric", "cofactor"),
+            benchmark.resolve_config(p, "fused", "pieces", precision, state,
+                                     metric_dtype=mdt)))
+        pb = bp4.build(s, p, state, precision, windowing="pieces",
+                       device=dev, metric_dtype=mdt, **cfg)
         op = pb.op
-        tag = f"p={p} s={s} {precision} {op.factor} {op.metric}"
-        prec = pb.inv_diag.reshape((1,) + op.n_nodes_axis).contiguous()
-        x, g, d, h = random_state(op, 4, seed=7)
-        scal = torch.tensor([0.3, 0.7, 0.2, 0.1, 1.0, 0.0, 0.25, 0.6],
-                            dtype=dtype, device=dev)
-        pb16, xb16 = prec.to(torch.bfloat16), x.to(torch.bfloat16)
-        ref = fk.fused_cg_iteration(op, x, g, d, h, scal, prec)
-        rx = fk.fused_cg_iteration(op, xb16, g, d, h, scal, prec)
-        bitwise = all(torch.equal(a, b) for a, b in zip(ref[1:], rx[1:]))
-        want_x = fk._fused_iteration_plain(op, xb16, g, d, h, scal, prec)
-        xstep = ((rx[0].double() - want_x[0].double()).abs().max()
-                 / want_x[0].double().abs().max()).item()
-        print(f"  fused_cg_iteration {tag} x bf16: g' d' h' scal bitwise "
-              f"equal to the f32-x run: {bitwise}; x' vs plain {xstep:.3e} "
-              f"of its largest (tol {2.0 ** -8:.2e})")
-        if not (bitwise and xstep <= 2.0 ** -8):
-            raise AssertionError(f"B2 {tag} with x in bf16 is wrong")
-        rp = fk.fused_cg_iteration(op, x, g, d, h, scal, pb16)
-        want = fk._fused_iteration_plain(op, x, g, d, h, scal, pb16)
-        _, pdiff = compare("fused_cg_iteration", rp, want, dtype,
-                           tag + " P bf16")
-        ctrl = fk._fused_iteration_plain(op, x, g, d, h, scal, prec)
-        miss = max(rel_err(a, b)[0] for a, b in zip(rp[1:4], ctrl[1:4]))
-        print(f"  fused_cg_iteration {tag} P bf16: control (P unrounded) "
-              f"{miss:.3e}, must exceed {TOL[dtype]:.0e}")
-        if not miss > TOL[dtype]:
-            raise AssertionError(f"B2 {tag}: the P-unrounded control "
-                                 "passes; bf16 P is not read")
+        problems[sfx] = pb, cfg, storage_source(op, state)
+        tag = f"p={p} s={s} {precision} {op.factor} {op.metric} {op.cofactor}"
+        cases, (g, d, h, scal) = px_case(fk, op, state, 7, tag, full=True)
         work = fk.Workspace(op)
-        for key, xx, pp, err in (("_f32", x, prec, 0.0),
-                                 ("_prec_bf16", x, pb16, pdiff),
-                                 ("_x_bf16", xb16, prec,
-                                  (rx[0].float() - want_x[0].float())
-                                  .abs().max().item())):
+        for key, ((xx, pp), err) in cases.items():
             bufs = tuple(torch.empty_like(t) for t in (xx, g, d, h, scal))
             t = time_pair(
                 lambda: fk.fused_cg_iteration(op, xx, g, d, h, scal, pp,
                                               out=bufs, work=work),
                 lambda: fk._fused_iteration_plain(op, xx, g, d, h, scal, pp),
                 dev, timing)
-            b = bound("fused_cg_iteration", op, split=precision == "split2m",
+            b = bound("fused_cg_iteration", op,
+                      split=precision in ("split2m", "split3"), state=state,
                       prec_word=pp.element_size(), x_word=xx.element_size())
             out[key + sfx] = t, b, err
             print(f"  fused_cg_iteration {tag} {key[1:]}: kernel {t[0]:.4f} "
                   f"ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        del op, x, g, d, h, ref, rx, rp, want, want_x, ctrl, work, bufs
+        del op, cases, g, d, h, work, bufs
         torch.cuda.empty_cache()
     return out, problems
 
@@ -2305,12 +2457,6 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
     bp3_par = [Job(solver, ss, pp, f64, n_components=1)
                for pp, ss, _ in BP3_PARITY for solver in ("fused", "merged")]
     bp3_b2 = 0
-    for n in DIST_RANKS:
-        t0 = time.perf_counter()
-        jobs = bp4_par + bp3_par
-        bp3_b2 += _parity(refs, jobs, distributed.launch(jobs, n, "cuda"),
-                          f"{n} ranks")
-        print(f"  ({time.perf_counter() - t0:.1f} s)")
 
     # one spawn a rank count: the parity jobs, the full-width rows and the
     # short drives, the dry-run legs
@@ -2377,13 +2523,33 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
         if mesh == (2, 2):
             drives["merged" + sfx] = Job("merged", sh, p_full, f32,
                                          mesh_shape=mesh, **short)
+    spawns = {n: bp4_par + bp3_par for n in DIST_RANKS}
+    legs = {n: dryrun.legs_for(n) for n in full}
+    for n, drives in full.items():
+        spawns[n] = parity[n] + list(drives.values()) + dryrun.jobs(n,
+                                                                   legs[n])
+    # the spawns whose jobs are untimed (the z-slab parity on DIST_RANKS
+    # ranks; the 8-rank mesh's parity, short drives and dry-run legs) run
+    # at once, a thread each, so their host seconds are read beside the
+    # others' load; the spawn of the timed rows (DIST_FULL's ranks) alone
+    # after them
+    results, t0 = {}, time.perf_counter()
+    together = [n for n in spawns if n != DIST_FULL[2]]
+    with ThreadPoolExecutor(len(together)) as pool:
+        futures = {n: pool.submit(distributed.launch, spawns[n], n, "cuda")
+                   for n in together}
+        results.update({n: f.result() for n, f in futures.items()})
+    print(f"  the spawns of {', '.join(map(str, together))} ranks at once "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0, n = time.perf_counter(), DIST_FULL[2]
+    results[n] = distributed.launch(spawns[n], n, "cuda")
+    print(f"  the spawn of {n} ranks ({time.perf_counter() - t0:.1f} s)")
+    for n in DIST_RANKS:
+        bp3_b2 += _parity(refs, spawns[n], results[n], f"{n} ranks")
     jobs, launches_dry = {}, {}
     for n, drives in full.items():
-        t0 = time.perf_counter()
         print(f"  {comm.describe(n, 'cuda')}:")
-        legs = dryrun.legs_for(n)
-        res = distributed.launch(parity[n] + list(drives.values())
-                                 + dryrun.jobs(n, legs), n, "cuda")
+        res = results[n]
         mesh = parity[n][0].mesh_shape
         npar = len(parity[n])
         bp3_b2 += _parity(refs, parity[n], res[:npar],
@@ -2395,8 +2561,8 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
             launches[label], rows[label] = _drive(benchmark, label, job, r)
         print(f"  dryrun_multichip({n}) in the same spawn:")
         dry = res[npar + len(drives):]
-        dryrun.report(n, legs, dry)
-        for leg, r in zip(legs, dry):
+        dryrun.report(n, legs[n], dry)
+        for leg, r in zip(legs[n], dry):
             if leg in (1, 4, 5):  # the structured and general backends
                 continue
             launches_dry[n, leg] = sum(
@@ -2404,7 +2570,6 @@ def distributed_phase(benchmark, bp4, cg_fused, fk, dev) -> tuple:
             if not launches_dry[n, leg]:
                 raise AssertionError(f"dryrun_multichip({n}) leg {leg} "
                                      f"launched no fused_cg_iteration")
-        print(f"  ({time.perf_counter() - t0:.1f} s)")
     if out["bp3_fused"]["n_dofs"] != BP3_DOFS:
         raise AssertionError(f"BP3 on 4 ranks: {out['bp3_fused']['n_dofs']} "
                              f"DoFs, not the full width's {BP3_DOFS}")
@@ -3172,30 +3337,46 @@ def main() -> int:
     print(f"(phase 7 starts at {time.perf_counter() - T0:.1f} s)")
     # -- 7. P and x in bf16 (B2), the plain backends, the discretization --
     print("B2 with P or x stored in bf16:")
-    storage, st_problems = compare_storage(fk, bp4, dev, timing)
+    t7 = time.perf_counter()
+    n_box = compare_storage_box(fk, dev)
+    print(f"  the storage forms on the {'x'.join(map(str, RAGGED))} box at "
+          f"p=1..11: {n_box} configurations held "
+          f"({time.perf_counter() - t7:.1f} s)")
+    storage, st_problems = compare_storage(fk, bp4, benchmark, dev, timing)
     launches_st = {}
-    for p, s, dtype, precision, config, sfx in STORAGE_RUNS:
+    for p, s, state, mdt, precision, config, sfx in STORAGE_RUNS:
+        pb, cfg, _ = st_problems[sfx]
         rows_st = {}
-        for key, kw in (("_f32", {}),) + STORAGE:
+        cli = tuple(("_cli", kw) for run, kw in STORAGE_CLI if run == sfx)
+        for key, kw in (("_f32", {}),) + STORAGE + cli:
+            # the f32 run at full depth, its P/x twins short
+            kw = {**dict(prec_dtype=None, metric_dtype=mdt), **kw,
+                  **({} if key == "_f32" else short)}
             rows_st[key] = drive(
-                f"fused {precision} {config['factor']} {config['metric']} "
-                f"{key[1:]}", s, ("matvec", "fused_cg_iteration"),
+                f"fused {precision} state {str(state)[6:]} metric "
+                f"{str(kw['metric_dtype'])[6:]} {cfg['factor']} "
+                f"{cfg['metric']} {key[1:]}", s,
+                ("matvec", "fused_cg_iteration"),
                 into=launches_st.setdefault(key + sfx, {}), degree=p,
-                solver="fused", precision=precision, windowing="pieces",
-                problem=st_problems[sfx], **config, **kw)
+                quiet=key != "_f32", solver="fused", precision=precision,
+                windowing="pieces", problem=pb, dtype=state, **cfg, **kw)
         f32_row = rows_st["_f32"]
-        for key, _ in STORAGE:
-            r = rows_st[key]
-            print(f"  p={p} s={s} {key[1:]}: itCG {r.n_iterations} vs f32 "
-                  f"{f32_row.n_iterations}, time/it {r.time_per_it:.6e} vs "
-                  f"{f32_row.time_per_it:.6e} s")
+        for key, r in rows_st.items():
+            if key == "_f32":
+                continue
+            print(f"  p={p} s={s}{sfx} {key[1:]}: itCG {r.n_iterations} vs "
+                  f"f32 {f32_row.n_iterations}, time/it "
+                  f"{r.time_per_it:.6e} vs {f32_row.time_per_it:.6e} s")
             # x feeds no dot: the same count; bf16 P: within 3
             # (tests/test_cg_fused.py:332-345)
             allowed = 0 if key == "_x_bf16" else 3
             if abs(r.n_iterations - f32_row.n_iterations) > allowed:
                 raise AssertionError(
-                    f"p={p} s={s} {key[1:]}: itCG {r.n_iterations} vs "
+                    f"p={p} s={s}{sfx} {key[1:]}: itCG {r.n_iterations} vs "
                     f"{f32_row.n_iterations}")
+    print(f"section 7, P and x in bf16: {time.perf_counter() - t7:.1f} s")
+    st_sources = {sfx: (cfg, src) for sfx, (_, cfg, src)
+                  in st_problems.items()}
     del st_problems
     torch.cuda.empty_cache()
 
@@ -3705,19 +3886,25 @@ def main() -> int:
             row["launches_dist"] = launches_dist["merged"][name]
             row["launches_block2d"] = launches_dist["merged_block2d"][name]
         if name == "fused_cg_iteration":  # B2 with P or x in bf16
-            for p, s, _, precision, config, run in STORAGE_RUNS:
+            for p, s, state, mdt, precision, _, run in STORAGE_RUNS:
+                cfg, src = st_sources[run]
                 for key, _ in STORAGE:
                     sfx = key + run
                     (k, pl), (bms, by), err = storage[sfx]
-                    row.update({f"source{sfx}": CSRC + "cg_fused_px.cu",
+                    row.update({f"source{sfx}": CSRC + src,
                                 f"p_s{sfx}": [p, s],
-                                f"config{sfx}": [precision, config["factor"],
-                                                 config["metric"]],
+                                f"config{sfx}": [precision, cfg["factor"],
+                                                 cfg["metric"],
+                                                 cfg["cofactor"]],
+                                f"storage{sfx}": [
+                                    str(state)[6:],
+                                    str(mdt or torch.float32)[6:]],
                                 f"ms{sfx}": k, f"plain_ms{sfx}": pl,
                                 f"max_abs_err{sfx}": err,
                                 f"bound_ms{sfx}": bms, f"bound_by{sfx}": by,
                                 f"launches{sfx}": launches_st[sfx][name],
                                 f"ms_f32{sfx}": storage["_f32" + run][0][0]})
+            row["launches_cli"] = launches_st["_cli"][name]
         rows.append(row)
     # B2's layer-range form (section 8): its launches those of the
     # overlapped fused drive at DIST_FULL (an assemble per iteration a

@@ -37,18 +37,16 @@ configuration resolves as with the bf16 rung, the JAX ``run_one``'s
 ``eff_prec``, the operator keeping ``--precision``); ``--metric-dtype
 bf16`` streams the metric in bf16 on every rung.  ``--prec-dtype bf16``
 and ``--x-dtype bf16`` store the fused solver's preconditioner and
-solution x in bf16, in every configuration.  ``--backend structured`` and
+solution x in bf16, in every configuration, beside ``--dtype bf16`` and
+``--metric-dtype bf16`` too.  ``--backend structured`` and
 ``--backend general`` run the merged and baseline solvers on the plain
 lattice and gather/scatter operators (``ops/laplace_structured``,
 ``ops/laplace``); ``--precision``, ``--windowing`` and ``--geometry`` then
-change nothing, as in the JAX single-device ``run_one``.  Other unported
-choices raise NotImplementedError naming their ROADMAP item (queues A and
-B), with no fallback to another rung or to the plain version: the
-tensor-core rungs' twostage pass at p=1..3, jtj in their dense pass; and
-the fused solver's ``--prec-dtype``/``--x-dtype bf16`` beside a bf16
-state or metric that only the storage instantiations read.  ``s < 1``
-runs the
-reference's auto size ladder.
+change nothing, as in the JAX single-device ``run_one``.  What the port
+still lacks raises NotImplementedError naming its ROADMAP item, with no
+fallback to another rung or to the plain version: ``--dtype f64`` with a
+tensor-core rung or ``--metric-dtype bf16`` (queue B item 6h).  ``s < 1``
+runs the reference's auto size ladder.
 
 ``--devices N`` runs the merged, baseline or fused CG over N z-slab ranks
 (:func:`run_one_distributed`, ``parallel/``): processes on the card(s)

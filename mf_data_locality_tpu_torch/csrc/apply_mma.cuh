@@ -448,14 +448,17 @@ BP4_MMA_RUNG(3, BP4_MMA_DECLARE1)
 // and update4b forms at split2m and split3 (the bf16 rung's read it by
 // io.bf16 already); under split2m also with the bf16 metric (kSbMetric),
 // but in B2's block form (no distributed path streams a bf16 metric).
-#define BP4_MMA_SB_STATE(P, NP, M)                                    \
-  M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
-  M(P, kLattice, true, NP) M(P, kLatticeUpdate, false, NP)            \
-  M(P, kLatticeUpdate, true, NP) M(P, kLatticeUpdateBlock, false, NP) \
+// B2's update4b is its P/x form (kLatticeUpdatePx: P and x at f32 or in
+// bf16 by io.prec_bf16 and io.x_bf16, with both 0 bitwise the update
+// form).
+#define BP4_MMA_SB_STATE(P, NP, M)                                        \
+  M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)                   \
+  M(P, kLattice, true, NP) M(P, kLatticeUpdatePx, false, NP)              \
+  M(P, kLatticeUpdatePx, true, NP) M(P, kLatticeUpdateBlock, false, NP)   \
   M(P, kLatticeUpdateBlock, true, NP)
 #define BP4_MMA_SB_METRIC(P, NP, M)                                   \
   M(P, kCellBatch, false, NP) M(P, kLattice, false, NP)               \
-  M(P, kLatticeUpdate, false, NP)
+  M(P, kLatticeUpdatePx, false, NP)
 // rung 1 | 4, 2 | 4, 2 | 12, 3 | 4 at degree P
 #define BP4_MMA_SB_RUNG1(P, M) M(P, kCellBatch, false, 5)
 #define BP4_MMA_SB_RUNG2(P, M) \
@@ -474,13 +477,13 @@ BP4_MMA_SB_LO(3, BP4_MMA_DECLARE1)
 // mma_jtj.cu, from p=5 beside the rung's adjj forms in apply_mma_pNN.cu,
 // whose gather and backward passes they share), and with the bf16 state
 // (kSbState) at split2m and split3 as the adjj forms have it (mma_sb.cu,
-// apply_mma_sb.cu); not B2's block form (the distributed solvers run
-// adjj).
+// apply_mma_sb.cu), B2's in its P/x form; not B2's block form (the
+// distributed solvers run adjj).
 #define BP4_MMA_JTJ_CONFIGS(P, NP, M)                                 \
   M(P, kLattice, true, NP) M(P, kLatticeUpdate, true, NP)             \
   M(P, kLatticeUpdatePx, true, NP)
 #define BP4_MMA_JTJ_SB(P, NP, M) \
-  M(P, kLattice, true, NP) M(P, kLatticeUpdate, true, NP)
+  M(P, kLattice, true, NP) M(P, kLatticeUpdatePx, true, NP)
 // rung 1 | 16, 2 | 16, 3 | 16 at degree P; the storage forms 2 | 4 | 16
 // and 3 | 4 | 16
 #define BP4_MMA_JTJ_RUNG(P, R, M) BP4_MMA_JTJ_CONFIGS(P, (R) | kJtjChain, M)

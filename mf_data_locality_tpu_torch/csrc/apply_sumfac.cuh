@@ -191,6 +191,9 @@ template <typename T, int P, bool REBUILD, int FORM, int SB = 0>
 struct SumfacInput {
   using Sm = SumfacSmem<T, P, REBUILD, SB & kShMask>;
   static constexpr bool kMasked = FORM == kLattice;
+  // B2's storage P/x form (cg_fused.cuh's px_form)
+  static constexpr bool kStoragePx =
+      FORM == kLatticeUpdatePx && (SB & (kSbState | kSbMetric)) != 0;
   T v[Sm::PER];
   T m[kMasked ? Sm::PER : 1];
 
@@ -219,7 +222,8 @@ struct SumfacInput {
         if (live) {
           const int cell = cell0 + bb;
           v[j] = cell_input<T, P, true, (SB & kSbState) != 0,
-                            FORM == kLatticeUpdatePx, is_block(FORM)>(
+                            FORM == kLatticeUpdatePx, is_block(FORM),
+                            kStoragePx && P == 11>(
               a.io, sm.sc, gr, c, cell / (gr.ncx * gr.ncy),
               (cell / gr.ncx) % gr.ncy, cell % gr.ncx, k / S::P12,
               (k / S::P1) % S::P1, k % S::P1);
@@ -568,9 +572,11 @@ BP4_SUMFAC_DECLARE(10)
 BP4_SUMFAC_DECLARE(11)
 
 // The storage instantiations (SB) in sumfac_sb.cu at every degree, f32:
-// the bf16 state in every form and metric source but B2's P/x one, and
-// with it the bf16 metric where the metric is streamed, but in B2's block
-// form (no distributed path streams a bf16 metric).
+// the bf16 state in every form and metric source, and with it the bf16
+// metric where the metric is streamed, but in B2's block form (no
+// distributed path streams a bf16 metric).  B2's are its P/x form
+// (kLatticeUpdatePx): P and x at f32 or in bf16 by io.prec_bf16 and
+// io.x_bf16, with both 0 bitwise the update form.
 #define BP4_SUMFAC_SB_DECLARE1(T, P, FORM, REBUILD, SB) \
   template <>                                           \
   cudaError_t launch_sumfac<T, P, FORM, REBUILD, SB>(   \
@@ -584,12 +590,12 @@ BP4_SUMFAC_DECLARE(11)
 #define BP4_SUMFAC_SB_FORMS(P, M)                                        \
   M(float, P, kCellBatch, false, 4) M(float, P, kCellBatch, true, 4)     \
   M(float, P, kLattice, false, 4) M(float, P, kLattice, true, 4)         \
-  M(float, P, kLatticeUpdate, false, 4)                                  \
-  M(float, P, kLatticeUpdate, true, 4)                                   \
+  M(float, P, kLatticeUpdatePx, false, 4)                                \
+  M(float, P, kLatticeUpdatePx, true, 4)                                 \
   M(float, P, kLatticeUpdateBlock, false, 4)                             \
   M(float, P, kLatticeUpdateBlock, true, 4)                              \
   M(float, P, kCellBatch, false, 12) M(float, P, kLattice, false, 12)    \
-  M(float, P, kLatticeUpdate, false, 12)
+  M(float, P, kLatticeUpdatePx, false, 12)
 static_assert(kSbState == 4 && kSbMetric == 8, "BP4_SUMFAC_SB_FORMS");
 BP4_SUMFAC_SB_FORMS(1, BP4_SUMFAC_SB_DECLARE1)
 BP4_SUMFAC_SB_FORMS(2, BP4_SUMFAC_SB_DECLARE1)

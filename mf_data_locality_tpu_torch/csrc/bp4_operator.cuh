@@ -54,7 +54,10 @@ constexpr int kDots = 7;            // update3b sums (cg_fused_kernel.py:891)
 //                   g', d';
 //   kLatticeUpdatePx  B2 as kLatticeUpdate, with P or x stored in bf16
 //                   (io.prec_bf16, io.x_bf16; the fused solver's prec_dtype
-//                   and x_dtype, cg_fused.py:57-70 of the JAX package).
+//                   and x_dtype, cg_fused.py:57-70 of the JAX package);
+//                   B2's storage instantiations (kSbState, kSbMetric) are
+//                   this form only, P and x at the working type by both
+//                   flags 0 (cg_fused.cuh's px_form).
 //   kLatticeUpdateBlock  B2's block form (cg_fused_block.cu): as
 //                   kLatticeUpdate on a rank's block of a (z), (z, y) or
 //                   (z, y, x) rank mesh (a z-slab is a block of a (N,)
@@ -429,9 +432,14 @@ __device__ __forceinline__ void set_x2(const CellIo<T>& io, size_t idx, T v) {
 // aob), and the node's owner cell writes x', g', d'.  FLEX (T float): d
 // and h may be bf16 (io.bf16); then d' is stored in bf16 and the operator
 // takes the stored, rounded d' (cg_fused_kernel.py:856).  PX: P and x by
-// prec_at / x_at / set_x2.  BLOCK: a block's Dirichlet faces.
+// prec_at / x_at / set_x2.  BLOCK: a block's Dirichlet faces.  XFLEX
+// (FLEX, PX): x read and x' stored by load_flex / store_flex, a branch
+// around two loads, in place of load_px / store_px's select after one
+// load, the same values: the sum-factorized pass's storage P/x form at
+// p=11 (apply_sumfac.cuh), where the select took the register that
+// spilled under its 168-register cap.
 template <typename T, int P, bool FUSED, bool FLEX = false, bool PX = false,
-          bool BLOCK = false>
+          bool BLOCK = false, bool XFLEX = false>
 __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                                         const Grid& gr, int c, int cz, int cy,
                                         int cx, int kz, int ky, int kx) {
@@ -452,8 +460,13 @@ __device__ __forceinline__ T cell_input(const CellIo<T>& io, const T (&sc)[4],
                          (ky < P || cy == gr.ncy - 1) &&
                          (kx < P || cx == gr.ncx - 1);
       if (owner) {
-        set_x2<PX>(io, idx,
-                   x_at<PX>(io, idx) + sc[2] * dv + sc[3] * (pv * gv));
+        if constexpr (XFLEX)
+          store_flex(io.x2, idx,
+                     load_flex(io.x, idx, io.x_bf16) + sc[2] * dv +
+                         sc[3] * (pv * gv), io.x_bf16);
+        else
+          set_x2<PX>(io, idx,
+                     x_at<PX>(io, idx) + sc[2] * dv + sc[3] * (pv * gv));
         io.g2[idx] = gn;
         store_flex(io.d2, idx, dn, bf);
       }

@@ -586,10 +586,12 @@ BP4_CELL_MMA_RUNG(1, BP4_CELL_MMA_DECLARE1)
 BP4_CELL_MMA_RUNG(3, BP4_CELL_MMA_DECLARE1)
 
 // the storage instantiations (mma_sb.cu): the bf16 state (kSbState) at
-// split2m and split3, the bf16 rung's reading it by io.bf16 already
+// split2m and split3, the bf16 rung's reading it by io.bf16 already; B2's
+// in its P/x form (PX: P and x at f32 or in bf16 by io.prec_bf16 and
+// io.x_bf16, with both 0 bitwise the form without it)
 #define BP4_CELL_MMA_SB(NP, M)                                \
   M(false, kAdjj, NP, false) M(false, kJtj, NP, false)        \
-  M(true, kAdjj, NP, false) M(true, kJtj, NP, false)
+  M(true, kAdjj, NP, true) M(true, kJtj, NP, true)
 BP4_CELL_MMA_SB(6, BP4_CELL_MMA_DECLARE1)
 BP4_CELL_MMA_SB(7, BP4_CELL_MMA_DECLARE1)
 

@@ -486,19 +486,21 @@ BP4_CELL_MMA_HD_P4(3, BP4_CELL_MMA_HD_DECLARE1)
 
 // the storage instantiations: the bf16 state (kSbState) at split2m and
 // split3 (the bf16 rung's read it by io.bf16 already), the bf16 metric
-// (kSbMetric) with it at split2m; p=4 in mma_sb.cu, 1..3 and 5..11 in
-// cell_mma_sb.cu, one object a degree and rung
+// (kSbMetric) with it at split2m; B2's in its P/x form (PX: P and x at
+// f32 or in bf16 by io.prec_bf16 and io.x_bf16, with both 0 bitwise the
+// form without it); p=4 in mma_sb.cu, 1..3 and 5..11 in cell_mma_sb.cu,
+// one object a degree and rung
 #define BP4_CELL_MMA_HD_SB_STATE(P, NP, M)                                 \
   M(P, false, false, kAdjj, NP, false) M(P, false, true, kAdjj, NP, false) \
-  M(P, false, true, kJtj, NP, false) M(P, true, false, kAdjj, NP, false)   \
-  M(P, true, true, kAdjj, NP, false) M(P, true, true, kJtj, NP, false)
+  M(P, false, true, kJtj, NP, false) M(P, true, false, kAdjj, NP, true)    \
+  M(P, true, true, kAdjj, NP, true) M(P, true, true, kJtj, NP, true)
 #define BP4_CELL_MMA_HD_SB_RUNG1(P, M)
 #define BP4_CELL_MMA_HD_SB_RUNG2(P, M)                                   \
   BP4_CELL_MMA_HD_SB_STATE(P, 6, M)                                      \
-  M(P, false, false, kAdjj, 14, false) M(P, true, false, kAdjj, 14, false)
+  M(P, false, false, kAdjj, 14, false) M(P, true, false, kAdjj, 14, true)
 #define BP4_CELL_MMA_HD_SB_RUNG3(P, M) BP4_CELL_MMA_HD_SB_STATE(P, 7, M)
 #define BP4_CELL_MMA_HD_SB_P4(NP, M)                                     \
-  M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, false)
+  M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, true)
 #define BP4_CELL_MMA_HD_SB_P4_RUNG1(M)
 #define BP4_CELL_MMA_HD_SB_P4_RUNG2(M) \
   BP4_CELL_MMA_HD_SB_P4(6, M) BP4_CELL_MMA_HD_SB_P4(14, M)

@@ -71,7 +71,9 @@
 //   fused solver's prec_dtype, x_dtype): one more instantiation of each
 //   cell pass (kLatticeUpdatePx, PX) and of the assemble pass reads them,
 //   built in cg_fused_px.cu (fused_iteration_px) and the per-degree
-//   sources; x' is rounded where it is stored.
+//   sources; x' is rounded where it is stored.  B2's storage
+//   instantiations are that form themselves (cg_fused.cuh's px_form), so
+//   P or x in bf16 beside a bf16 state or metric adds no instantiation.
 // At the shapes beyond BP4's (one component, CEED BP3; Q = P + 1;
 // shapes.cuh) the cell passes of shapes.cu: highest the sum-factorized
 // pass, split2m dense apply_mma_hd.cuh's and twostage cell_mma_hd.cuh's at
@@ -269,8 +271,8 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // with the metric streamed or rebuilt by adjj).
 // store: d, h, d2, h2 in bf16 (f32, every rung).  prec_bf16
 // (bp4_fused_iteration): prec in bf16; x_bf16: x and x2 in bf16 (every
-// configuration above; with store or metric_bf16 only on the bf16 rung,
-// and with metric_bf16 on split3).
+// configuration above at shape 0, with store and metric_bf16 too; not in
+// B2's block form).
 extern "C" {
 
 int bp4_partials_len(int degree, int ncz, int ncy, int ncx) {

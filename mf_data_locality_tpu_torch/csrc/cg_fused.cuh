@@ -17,6 +17,22 @@
 
 namespace bp4 {
 
+// B2's P/x form (kLatticeUpdatePx, the twostage passes' PX) for a cell
+// pass with the storage flags F (the tensor-core passes' NP, the
+// sum-factorized pass's SB): with PX, and in every storage instantiation
+// of B2 but the block form's, whose flags io.prec_bf16 and io.x_bf16 then
+// select P and x at the working type or in bf16 (both 0: bitwise the
+// update form), so that one instantiation serves both.
+constexpr bool px_form(bool fused, bool px, bool block, int f) {
+  return fused && !block && (px || (f & (kSbState | kSbMetric)) != 0);
+}
+// The input form of B1 (FUSED false) or B2's cell pass.
+constexpr int cell_form(bool fused, bool px, bool block) {
+  return !fused ? kLattice
+                : (block ? kLatticeUpdateBlock
+                         : (px ? kLatticeUpdatePx : kLatticeUpdate));
+}
+
 // The tensor-core cell pass of B1 (FUSED false) or B2 for the
 // configuration (dense, cofactor, tb.gmetric null or not) at NP, the
 // rung's products a tile and the storage flags (bp4_operator.cuh): -1 for
@@ -25,15 +41,14 @@ namespace bp4 {
 // adjj only).  The dense pass rebuilds the metric by jtj in its
 // NP | kJtjChain instantiations (mma_jtj.cu, apply_mma_pNN.cu); twostage
 // runs cell_mma_hd.cuh's pass, cell_mma.cuh's at p=4 with the rebuilt
-// metric.
+// metric.  B2's storage instantiations (NP with kSbState or kSbMetric)
+// are its P/x form whether PX is set or not (px_form).
 template <typename T, int P, bool FUSED, bool PX, bool BLOCK, int NP>
 cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
                          const Grid& gr, const CellIo<T>& io, T* cells,
                          void* scratch, cudaStream_t st) {
-  constexpr int FORM =
-      !FUSED ? kLattice
-             : (BLOCK ? kLatticeUpdateBlock
-                      : (PX ? kLatticeUpdatePx : kLatticeUpdate));
+  constexpr bool PXF = px_form(FUSED, PX, BLOCK, NP);
+  constexpr int FORM = cell_form(FUSED, PXF, BLOCK);
   constexpr bool MB = (NP & kSbMetric) != 0;
   const auto none = static_cast<cudaError_t>(-1);
   if (dense) {
@@ -74,21 +89,21 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
   }
   if constexpr (!BLOCK) {
     if (tb.gmetric)
-      return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PX>(tb, gr, io,
-                                                                 cells, st);
+      return launch_cells_mma_hd<P, FUSED, false, kAdjj, NP, PXF>(tb, gr, io,
+                                                                  cells, st);
     if constexpr (MB) {
       return none;
     } else if constexpr (P == 4) {
       return cofactor == kJtj
-                 ? launch_cells_mma<P, FUSED, kJtj, NP, PX>(tb, gr, io, cells,
-                                                            st)
-                 : launch_cells_mma<P, FUSED, kAdjj, NP, PX>(tb, gr, io,
-                                                             cells, st);
+                 ? launch_cells_mma<P, FUSED, kJtj, NP, PXF>(tb, gr, io,
+                                                             cells, st)
+                 : launch_cells_mma<P, FUSED, kAdjj, NP, PXF>(tb, gr, io,
+                                                              cells, st);
     } else {
       return cofactor == kJtj
-                 ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP, PX>(
+                 ? launch_cells_mma_hd<P, FUSED, true, kJtj, NP, PXF>(
                        tb, gr, io, cells, st)
-                 : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP, PX>(
+                 : launch_cells_mma_hd<P, FUSED, true, kAdjj, NP, PXF>(
                        tb, gr, io, cells, st);
     }
   }
@@ -107,31 +122,32 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
 // streamed metric (tb.metric_bf16) where the rung's own instantiations
 // read none (the bf16 rung reads both, split3 the metric, by their
 // flags): the storage instantiations (SB, NP | kSbState [| kSbMetric]),
-// not built with PX, nor with the bf16 metric in the block form (-1).
+// B2's in its P/x form with PX set or not, none with the bf16 metric in
+// the block form (-1).
 template <typename T, int P, bool FUSED, bool PX = false, bool BLOCK = false>
 cudaError_t launch_cells(int rung, int dense, int cofactor,
                          const OpTables<T>& tb, const Grid& gr,
                          const CellIo<T>& io, T* cells, void* scratch,
                          cudaStream_t st) {
-  constexpr int FORM =
-      !FUSED ? kLattice
-             : (BLOCK ? kLatticeUpdateBlock
-                      : (PX ? kLatticeUpdatePx : kLatticeUpdate));
+  constexpr int FORM = cell_form(FUSED, PX, BLOCK);
+  // the storage instantiations' form
+  constexpr int SB_FORM = cell_form(FUSED, px_form(FUSED, PX, BLOCK, kSbState),
+                                    BLOCK);
   const auto none = static_cast<cudaError_t>(-1);
   const bool mbf = tb.metric_bf16 && tb.gmetric;
   if (!rung) {
     const SumfacArgs<T> a{tb.sz,     tb.dz,   tb.gmetric, tb.pds, tb.w3,
                           tb.coeffs, nullptr, io,         cells,  cofactor};
-    if constexpr (std::is_same_v<T, float> && !PX) {
+    if constexpr (std::is_same_v<T, float>) {
       if constexpr (!BLOCK) {
         if (mbf)
-          return launch_sumfac<T, P, FORM, false, kSbState | kSbMetric>(
+          return launch_sumfac<T, P, SB_FORM, false, kSbState | kSbMetric>(
               a, gr, st);
       }
       if (io.bf16 && !mbf)
         return tb.gmetric
-                   ? launch_sumfac<T, P, FORM, false, kSbState>(a, gr, st)
-                   : launch_sumfac<T, P, FORM, true, kSbState>(a, gr, st);
+                   ? launch_sumfac<T, P, SB_FORM, false, kSbState>(a, gr, st)
+                   : launch_sumfac<T, P, SB_FORM, true, kSbState>(a, gr, st);
     }
     if (mbf || io.bf16) return none;
     return tb.gmetric ? launch_sumfac<T, P, FORM, false>(a, gr, st)
@@ -140,13 +156,13 @@ cudaError_t launch_cells(int rung, int dense, int cofactor,
   if constexpr (std::is_same_v<T, float>) {
     return with_rung(rung, [&](auto np) {
       constexpr int NP = decltype(np)::value;
-      if constexpr (NP == 2 && !PX && !BLOCK) {
+      if constexpr (NP == 2 && !BLOCK) {
         if (mbf)
           return tensor_cells<T, P, FUSED, PX, BLOCK,
                               NP | kSbState | kSbMetric>(
               dense, cofactor, tb, gr, io, cells, scratch, st);
       }
-      if constexpr (NP != 1 && !PX) {
+      if constexpr (NP != 1) {
         if (io.bf16)
           return tensor_cells<T, P, FUSED, PX, BLOCK, NP | kSbState>(
               dense, cofactor, tb, gr, io, cells, scratch, st);

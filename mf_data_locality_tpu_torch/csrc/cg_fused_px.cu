@@ -7,11 +7,15 @@
 // the one of x at the working type, bit for bit.
 //
 // Every configuration of cg_fused.cu (f32 and f64 "highest", the
-// tensor-core rungs' dense and twostage passes, the bf16 state) in one
-// more instantiation of its cell pass each (kLatticeUpdatePx, PX): the
-// flags io.prec_bf16 and io.x_bf16 are warp-uniform, so one instantiation
-// serves bf16 P, bf16 x and both.  The instantiations with P and x at the
-// working type are untouched.  Bound: P is one word a node beside ~9 state
+// tensor-core rungs' dense and twostage passes, the bf16 state and
+// metric) in one more instantiation of its cell pass each
+// (kLatticeUpdatePx, PX): the flags io.prec_bf16 and io.x_bf16 are
+// warp-uniform, so one instantiation serves bf16 P, bf16 x and both.  The
+// instantiations with P and x at the working type are untouched, but the
+// storage instantiations (the bf16 state, or metric, where the rung's own
+// passes read neither), which are the P/x form for both (cg_fused.cuh's
+// px_form): launched from here they read P or x in bf16, from cg_fused.cu
+// both at the working type.  Bound: P is one word a node beside ~9 state
 // words a DoF, x two of them, so bf16 P saves <= 2% of an iteration's
 // bytes at p=4 and bf16 x ~8%.  Degrees 1..4 of the passes are built
 // here, 5..11 in their own sources (sumfac_pNN.cu, cell_mma_pNN.cu,

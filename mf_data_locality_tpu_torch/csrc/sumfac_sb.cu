@@ -1,7 +1,7 @@
-// The sum-factorized pass's storage instantiations (apply_sumfac.cuh, SB:
-// in f32 the bf16 state in every form but B2's P/x one, with the metric
-// streamed or rebuilt, and with it the bf16 metric where it is streamed;
-// in f64 the bf16 metric) at degree BP4_DEGREE (undefined: 1..4): one
+// The sum-factorized pass's storage instantiations (apply_sumfac.cuh, SB,
+// f32: the bf16 state in every form, B2's in its P/x form, with the
+// metric streamed or rebuilt, and with it the bf16 metric where it is
+// streamed) at degree BP4_DEGREE (undefined: 1..4): one
 // object a degree from p=5 (ops/_build.py), so that nvcc builds them in
 // parallel with the other sources; the instantiations without them stay
 // where they were.

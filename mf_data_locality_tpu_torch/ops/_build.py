@@ -34,7 +34,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernel_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+# -O is nvcc's level for the host code alone (the entry points' dispatch
+# and the launch stubs); the device code is optimized as it is without it.
+# -O0 there takes about a tenth of a source's compile time off, and the
+# build is CPU-bound (utils/smoke_profile.py --nvcc)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O0",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the shape flags of the instantiations beyond BP4's (csrc/bp4_operator.cuh:

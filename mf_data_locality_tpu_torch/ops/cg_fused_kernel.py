@@ -74,6 +74,8 @@ kernel launches (not plain calls).
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
@@ -314,18 +316,33 @@ def _cell_apply_sumfac_emulated(op: OperatorData,
 
 
 def _assemble(op: OperatorData, v: torch.Tensor) -> torch.Tensor:
-    """Sum cell-local values (C, n_cells, p1, p1^2) into the lattice."""
+    """Sum cell-local values (C, n_cells, p1, p1^2) into the lattice.
+
+    A node takes its cells' values in the order of their local index (kz,
+    ky, kx).  On each axis a local index is the cell's first plane (0), an
+    inner one (1..p-1) or its last (p), and a node takes at most one value
+    from each of the 27 classes these make, so one strided add a class, in
+    that order, sums every node as a loop over (kz, ky, kx) would, to the
+    bit."""
     p = op.degree
     p1 = p + 1
-    ncz, ncy, ncx = op.n_cells_axis
-    v = v.reshape(v.shape[0], ncz, ncy, ncx, p1, p1, p1)
+    nc = op.n_cells_axis
+    v = v.reshape((v.shape[0],) + tuple(nc) + (p1,) * 3).permute(
+        0, 1, 4, 2, 5, 3, 6)                       # (C, ncz, kz, ncy, ...)
     out = torch.zeros((v.shape[0],) + op.n_nodes_axis, dtype=v.dtype,
                       device=v.device)
-    for kz in range(p1):
-        for ky in range(p1):
-            for kx in range(p1):
-                out[:, kz:kz + p * ncz:p, ky:ky + p * ncy:p,
-                    kx:kx + p * ncx:p] += v[..., kz, ky, kx]
+    st = out.stride()
+
+    def classes(a):  # (sizes, strides, offset) of out's view, v's index
+        s = st[a + 1]
+        return (((nc[a],), (p * s,), 0, 0),
+                ((nc[a], p - 1), (p * s, s), s, slice(1, p)),
+                ((nc[a],), (p * s,), p * s, p))
+
+    for (zn, zs, zo, kz), (yn, ys, yo, ky), (xn, xs, xo, kx) in \
+            itertools.product(classes(0), classes(1), classes(2)):
+        out.as_strided(out.shape[:1] + zn + yn + xn, st[:1] + zs + ys + xs,
+                       zo + yo + xo).add_(v[:, :, kz, :, ky, :, kx])
     return out
 
 
@@ -517,10 +534,12 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
     ``vectors`` at the working dtype, ``state`` (d and h, in and out) at
     the state's storage dtype, the working dtype or, f32 on every rung,
     bf16; ``prec`` and ``xs`` (x in and out) at the working dtype or in
-    bf16 (``prec_dtype``, ``x_dtype``: every configuration, and beside a
-    bf16 state or metric where the rung's own instantiations read them —
-    the bf16 rung, split3 with the metric).  Returns the kernels' shape
-    argument (:func:`check_kernel_shape` of the vectors' components)."""
+    bf16 (``prec_dtype``, ``x_dtype``: every configuration at BP4's shape
+    on one device, beside a bf16 state or a bf16 metric too — B2's
+    storage instantiations are its P/x form —; NotImplementedError on a
+    block operator, queue A item 10, and at the shapes beyond BP4's,
+    :func:`check_kernel_shape`).  Returns the kernels' shape argument
+    (:func:`check_kernel_shape` of the vectors' components)."""
     n_comp = (list(vectors) + list(state))[0].shape[0]
     lat = (n_comp,) + op.n_nodes_axis
     store = (torch.bfloat16 if state and state[0].dtype == torch.bfloat16
@@ -528,14 +547,11 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
     px = ((prec is not None and prec.dtype == torch.bfloat16)
           or (bool(xs) and xs[0].dtype == torch.bfloat16))
     shape = check_kernel_shape(op, n_comp, store, px)
-    storage = ((store == torch.bfloat16 and op.precision != "bf16")
-               or (op.metric_dtype == torch.bfloat16
-                   and op.precision in ("highest", "split2m")))
-    if px and storage:
+    if px and op.slab is not None:
         raise NotImplementedError(
-            f"B2 with P or x in bf16 beside a bf16 state or metric under "
-            f"precision={op.precision!r}: the storage instantiations are "
-            f"built without the P/x form (csrc/cg_fused.cuh launch_cells)")
+            "B2's block form with P or x in bf16 is not instantiated: no "
+            "distributed JAX solver takes prec_dtype or x_dtype (see "
+            "ROADMAP.md, queue A item 10)")
     want = [(v, lat) for v in vectors] + [(v, lat, store) for v in state]
     if xs:
         want += [(v, lat, _bf16_or_working(op, xs[0])) for v in xs]
@@ -724,7 +740,8 @@ def fused_cg_iteration(op: OperatorData, x, g, d, h, scal, prec,
     have written theirs, so it cannot update in place).  d and h (and d',
     h') may be bf16 on every rung: the bf16 state.  ``prec``,
     and x with x', may be bf16 in every configuration (the solver's
-    ``prec_dtype``, ``x_dtype``).
+    ``prec_dtype``, ``x_dtype``), beside the bf16 state too, but in the
+    block form.
 
     On a block operator (``op.slab``; a z-slab is a block of a (N,) rank
     mesh) the block form (the TPU kernel with ``halo``, ``z0``,

@@ -207,6 +207,19 @@ def metric_entries(coeffs: np.ndarray, q_points: np.ndarray,
     return metric_entries_np(coeffs, q_points, w3)
 
 
+@functools.lru_cache(maxsize=4)
+def box_metric(mesh, p: int, q: int) -> np.ndarray:
+    """:func:`metric_entries` of a box mesh's cells at degree ``p`` and
+    ``q`` Gauss points a direction, read-only and kept for the process's
+    next operators on the same mesh, whose host set-up it dominates
+    (:func:`make_operator`)."""
+    g = metric_entries(geometry.trilinear_coefficients(mesh.cell_vertices),
+                       lagrange.make_shape(p, q).q_points,
+                       tensor_weights(p, q))
+    g.setflags(write=False)
+    return g
+
+
 def metric_entries_np(coeffs: np.ndarray, q_points: np.ndarray,
                       w3: np.ndarray) -> np.ndarray:
     """:func:`metric_entries` in NumPy (the JAX ``_metric_entries``'s
@@ -653,8 +666,8 @@ def make_operator(layout: DofLayout, dtype: torch.dtype = torch.float32,
     shape = lagrange.make_shape(p, q)
     coeffs = geometry.trilinear_coefficients(layout.mesh.cell_vertices)
     w3 = tensor_weights(p, q)
-    gmetric = (metric_entries(coeffs, shape.q_points, w3)
-               if metric == "precomputed" else None)
+    gmetric = box_metric(layout.mesh, p, q) if metric == "precomputed" \
+        else None
     nz, ny, nx = layout.n_nodes_axis
     mask = (~boundary_node_mask((nz, ny, nx))).reshape(1, nz, ny, nx)
     return operator_from_arrays(

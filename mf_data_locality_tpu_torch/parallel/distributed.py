@@ -188,11 +188,28 @@ def block_arrays(s: int, degree: int, coords, mesh_shape,
                  n_components: int = 3) -> dict[str, Any]:
     """:func:`_block_arrays`, computed once for the rank's jobs on the same
     block (their host setup: the window's diagonal and geometry, seconds
-    at p=4 s=15); the arrays are the caller's copies."""
-    a = _block_arrays(s, degree, tuple(coords), tuple(mesh_shape),
-                      n_components)
-    return {k: v.copy() if isinstance(v, np.ndarray) else v
-            for k, v in a.items()}
+    at p=4 s=15); the arrays are the caller's copies, and ``key`` the
+    arguments, by which the operator's build reads the block's metric
+    (:func:`_block_metric`)."""
+    key = (s, degree, tuple(coords), tuple(mesh_shape), n_components)
+    a = _block_arrays(*key)
+    return {**{k: v.copy() if isinstance(v, np.ndarray) else v
+               for k, v in a.items()}, "key": key}
+
+
+@functools.lru_cache(maxsize=2)
+def _block_metric(s: int, degree: int, coords, mesh_shape,
+                  n_components: int, n_q: int) -> np.ndarray:
+    """The streamed metric of :func:`_block_arrays`' cells at ``n_q`` Gauss
+    points a direction (``laplace_cuda.metric_entries``), read-only and
+    kept, as the arrays are, for the rank's next operators on the same
+    block."""
+    co = _block_arrays(s, degree, coords, mesh_shape, n_components)["coeffs"]
+    shape = lagrange.make_shape(degree, n_q)
+    g = laplace_cuda.metric_entries(co.reshape(-1, 8, 3), shape.q_points,
+                                    laplace_cuda.tensor_weights(degree, n_q))
+    g.setflags(write=False)
+    return g
 
 
 @functools.lru_cache(maxsize=4)
@@ -349,8 +366,9 @@ def _build(a: dict, slab: tuple, halo: tuple, degree: int, dtype, backend,
             laplace_cuda.monomial_derivative_matrices(shape.q_points), w3,
             co.transpose(2, 1, 0), a["mask"], p, a["n_cells_axis"],
             precision, dtype, device,
-            gmetric=(laplace_cuda.metric_entries(co, shape.q_points, w3)
-                     if metric == "precomputed" else None),
+            gmetric=(None if metric != "precomputed" else
+                     _block_metric(*a["key"], q) if "key" in a else
+                     laplace_cuda.metric_entries(co, shape.q_points, w3)),
             factor="dense", windowing=windowing, slab=slab)
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -9,7 +9,12 @@ bf16: ``csrc/cg_fused_px.cu`` and the passes' ``kLatticeUpdatePx`` / ``PX``
 forms).  ``--parent DIR``: first builds the kernels of another checkout
 (the parent commit's ``git archive`` unpacked in DIR) in a process of its
 own, then compares every instantiation the two builds share, registers
-and spills, and prints how many are equal; B2's block form
+and spills, and prints how many are equal.  B2's storage instantiations
+(the bf16 state or metric, ``kSbState``/``kSbMetric``), which are its P/x
+form since B2 reads P or x in bf16 beside them, are compared apart, each
+against the parent's instantiation of the update form with the same
+flags (:func:`b2_storage_parent`): each is listed with both readings,
+and one that spills where the parent's did not fails the check; B2's block form
 (``kLatticeUpdateBlock``, the assemble and backward passes' BLOCK) is
 counted apart, since its names are those of the z-slab form it replaced
 (form 4, the last template argument true) and its code is not.  The
@@ -18,7 +23,11 @@ component, q = p + 1; ``csrc/shapes_block.cu``: B2's block form at one
 component) are listed with their registers and spills, and compared
 where the parent has them; in both builds the node passes' names are read
 without their component count (NC = 3), a template argument since those
-shapes.  ``--build-only``: this report alone.
+shapes.  ``--build-only``: this report alone.  With ``--time`` too, B2's
+storage rows of ``bf16_state_check.TIMED`` (P and x at f32) are timed
+at p=4 s=13 in both checkouts, one process each, in turns parent,
+this, this, parent (:func:`ab_storage`); a row more than 3% slower here
+than in the parent fails the check.
 
 Then, on a 3 x 5 x 7 box at every degree 1..11 and in every configuration
 of ``laplace_cuda.fused_configs`` under ``highest`` (f32, f64), split2m,
@@ -119,6 +128,27 @@ def _is_px(name: str) -> bool:
                 or re.search(r"assemble_kernelI.*Lb1ELb0EEEv", name))
 
 
+def b2_storage_parent(name: str) -> str | None:
+    """The parent's name of one of B2's storage instantiations (the P/x
+    form, ``kLatticeUpdatePx`` or the twostage passes' PX true, with
+    kSbState or kSbMetric in its flags): the same with the update form
+    (``kLatticeUpdate``, PX false), which it replaces; None for any other
+    instantiation."""
+    for pat in (r"^(.*apply_sumfac_kernelIfLi\d+ELi)3(ELb[01]ELi(\d+)E.*)$",
+                r"^(.*apply_mma_kernelILi\d+ELi)3(ELb[01]ELi(\d+)E.*)$",
+                r"^(.*dense_hd_gather_kernelILi\d+ELi)3(ELi(\d+)E.*)$"):
+        m = re.match(pat, name)
+        if m and int(m[3]) & 12 and int(m[3]) < 32:
+            return m[1] + "2" + m[2]
+    for pat in (r"^(.*cells_mma_kernelILi\d+ELb1ELi[01]ELi(\d+)E)Lb1(E.*)$",
+                r"^(.*cells_mma_hd_kernelILi\d+ELb1ELb[01]ELi[01]ELi(\d+)E)"
+                r"Lb1(E.*)$"):
+        m = re.match(pat, name)
+        if m and int(m[2]) & 12:
+            return m[1] + "Lb0" + m[3]
+    return None
+
+
 def _is_block(name: str) -> bool:
     """An instantiation of B2's block form: the kLatticeUpdateBlock form
     (4) of the FORM passes, or the assemble or the dense forward or
@@ -171,19 +201,33 @@ def build_report(parent: str | None) -> bool:
         print(f"  ptxas {k[:110]} regs {v[0]} spill {v[1]}/{v[2]}")
     if base is not None:
         same = diff = 0
+        sb = {k: b2_storage_parent(k) for k in table}
+        sb = {k: v for k, v in sb.items() if v is not None}
+        print(f"B2's storage instantiations (the P/x form; the parent's: "
+              f"the update form): {len(sb)}")
+        new_spill = 0
+        for k, pk in sorted(sb.items()):
+            v, b = table[k], base.get(pk)
+            grew = bool(v[1] or v[2]) and not (b and (b[1] or b[2]))
+            new_spill += grew
+            print(f"  ptxas {k[:96]} regs {v[0]} spill {v[1]}/{v[2]}; "
+                  f"parent {'none' if b is None else b[0]} spill "
+                  f"{'-' if b is None else f'{b[1]}/{b[2]}'}"
+                  + (" SPILLS ANEW" if grew else ""))
         for k, v in table.items():
             b = base.get(k, base.get(_unpx(k)))
-            if b is None or k in blocks:  # shapes: where the parent has them
-                continue
+            if b is None or k in blocks or k in sb:
+                continue  # shapes: where the parent has them
             if b == v:
                 same += 1
             else:
                 diff += 1
                 print(f"  CHANGED {k[:96]}: {b} -> {v}")
+        missing = (set(base) - {_unpx(k) for k in table} - set(table)
+                   - set(sb.values()))
         print(f"instantiations shared with the parent (the block form "
-              f"apart): {same + diff}, equal {same}, changed {diff}; "
-              f"parent's not found "
-              f"{len(set(base) - {_unpx(k) for k in table} - set(table))}; "
+              f"and B2's storage forms apart): {same + diff}, equal {same}, "
+              f"changed {diff}; parent's not found {len(missing)}; "
               f"the parent's of the block form's names "
               f"{sum(1 for k in blocks if k in base)}")
         pairs = [(base[k], v) for k, v in blocks.items() if k in base]
@@ -197,7 +241,8 @@ def build_report(parent: str | None) -> bool:
               f"{sum(1 for b, v in pairs if b[1] or b[2])}, spill bytes "
               f"{sum(v[1] + v[2] for b, v in pairs)} against "
               f"{sum(b[1] + b[2] for b, v in pairs)}")
-        ok = diff == 0
+        ok = diff == 0 and new_spill == 0
+        print(f"B2's storage instantiations spilling anew: {new_spill}")
     return ok
 
 
@@ -320,6 +365,51 @@ def time_b2(dev) -> None:
                 f"{sec / calls * 1e6:.2f} us" for k, calls, sec in rows))
 
 
+# B2's storage rows of bf16_state_check.TIMED timed in one checkout, P and
+# x at f32: prints one line "AB {suffix: kernel ms}"
+_AB_CODE = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke
+from mf_data_locality_tpu_torch.utils import bf16_state_check as b16, timing
+dev = torch.device('cuda')
+b16.TIMED = tuple(r for r in b16.TIMED if r[1] == 'fused_cg_iteration')
+out = b16.time_all(dev, lambda k, p: chip_smoke.time_pair(k, p, dev, timing),
+                   chip_smoke.bound)
+print('AB', json.dumps({sfx: t[0][0] for (_, sfx), t in out.items()}))
+"""
+
+
+def ab_storage(parent: str, limit: float = 1.03) -> bool:
+    """B2's storage rows (bf16_state_check.TIMED) timed in the parent
+    checkout and in this one, a process each, in turns parent, this, this,
+    parent; each side's reading the smaller of its two.  False where a row
+    here takes more than ``limit`` times the parent's."""
+    import json
+
+    here = str(Path(__file__).resolve().parents[2])
+    runs = {parent: [], here: []}
+    for cwd in (parent, here, here, parent):
+        r = subprocess.run([sys.executable, "-c", _AB_CODE], cwd=cwd,
+                           capture_output=True, text=True)
+        line = next((ln for ln in r.stdout.splitlines()
+                     if ln.startswith("AB ")), None)
+        if r.returncode or line is None:
+            print(r.stdout[-2000:], r.stderr[-4000:])
+            raise SystemExit(f"the timing in {cwd} failed")
+        runs[cwd].append(json.loads(line[3:]))
+    ok = True
+    for sfx in runs[here][0]:
+        par = [t[sfx] for t in runs[parent]]
+        new = [t[sfx] for t in runs[here]]
+        ratio = min(new) / min(par)
+        ok &= ratio <= limit
+        print(f"B2{sfx} P and x at f32: parent {par[0]:.4f}, {par[1]:.4f} "
+              f"ms; here {new[0]:.4f}, {new[1]:.4f} ms; ratio {ratio:.4f} "
+              f"(limit {limit})")
+    return ok
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--parent")
@@ -333,6 +423,8 @@ def main() -> None:
         ok &= sweep(dev)
     if args.time:
         time_b2(dev)
+        if args.parent:
+            ok &= ab_storage(args.parent)
     print("storage_check", "ok" if ok else "FAILED")
     raise SystemExit(0 if ok else 1)
 

@@ -311,20 +311,37 @@ def test_storage_builds_keep_their_rung():
 
 
 def test_px_beside_storage_instantiations_is_refused():
-    """B2 with P or x in bf16 beside a bf16 state under a rung other than
-    bf16 (or a bf16 metric under highest or split2m) has no kernel: the
-    card check raises before any launch; the bf16 rung's, which its own
-    instantiations read, passes."""
+    """B2 with P, x or both in bf16 beside a bf16 state under every rung,
+    and beside a bf16 metric under highest and split2m (with an f32 or a
+    bf16 state), passes the card check: B2's storage instantiations are
+    its P/x form.  Only B2's block form (the distributed solvers, which
+    take no prec_dtype or x_dtype) still refuses P or x in bf16, naming
+    queue A item 10."""
+    from mf_data_locality_tpu_torch.parallel import distributed
+
     layout = DofLayout(BoxMesh.from_s(S), P)
-    d = None
-    for rung, ok in (("highest", False), ("split2m", False), ("bf16", True)):
-        op = laplace_cuda.make_operator(layout, BF, rung, factor="dense",
-                                        windowing="pieces", device="cpu")
-        d = torch.zeros((3,) + op.n_nodes_axis, dtype=BF)
+    for rung in RUNGS:
+        combos = [(BF, None)] + ([(torch.float32, BF), (BF, BF)]
+                                 if rung in ("highest", "split2m") else [])
+        for state, mdt in combos:
+            op = laplace_cuda.make_operator(
+                layout, state, rung, factor="dense", metric="precomputed",
+                windowing="pieces", device="cpu", metric_dtype=mdt)
+            lat = (3,) + op.n_nodes_axis
+            g, d = torch.zeros(lat), torch.zeros(lat, dtype=state)
+            x16 = torch.zeros(lat, dtype=BF)
+            p16, p32 = (torch.zeros((1,) + op.n_nodes_axis, dtype=t)
+                        for t in (BF, torch.float32))
+            for prec, xs in ((p16, (g, g)), (p32, (x16, x16)),
+                             (p16, (x16, x16)), (p32, (g, g))):
+                assert fk._check_cuda(op, [g, g], [d, d], prec, (),
+                                      xs) == 0
+    for state in (BF, torch.float32):
+        op = distributed.build_slab(S, P, 0, 2, state, "pallas", "highest",
+                                    "pieces", device="cpu").op
+        lat = (3,) + op.n_nodes_axis
+        d = torch.zeros(lat, dtype=state)
         prec = torch.zeros((1,) + op.n_nodes_axis, dtype=BF)
-        if ok:
+        with pytest.raises(NotImplementedError, match="queue A item 10"):
             fk._check_cuda(op, [], [d, d], prec)
-        else:
-            with pytest.raises(NotImplementedError, match="P/x"):
-                fk._check_cuda(op, [], [d, d], prec)
-        fk._check_cuda(op, [], [d, d])  # P at f32: the storage form
+        fk._check_cuda(op, [], [d, d], prec.float())  # P at f32
