@@ -93,7 +93,9 @@ Phases (each raises on failure, so any failure exits nonzero):
      windowing="pieces", precision="highest")`` (B1, B2), the fused solver
      in f64 at p=8 (short), and short runs of baseline, ``--geometry
      onthefly`` (B4), ``--windowing pieces`` (B5), ``zslab`` (B6) and the
-     fused solver with the metric rebuilt (jtj); and at full depth the
+     fused solver with the metric rebuilt (jtj) (the baseline and jtj
+     runs, whose counts feed no row, on 1/8 of the cells, s -
+     HIGH_SHORT_CUT: p=6 s=9, p=8 s=8); and at full depth the
      fused auto path under f32 split2m ``run_one(p, s, solver="fused",
      windowing="pieces", precision="split2m")`` (twostage + onthefly + jtj:
      B1, B2 on the tensor cores), printed beside the same point's highest
@@ -159,8 +161,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    prec_dtype=, x_dtype=)`` on each (x: the f32 run's itCG; P: within 3;
    and the CLI's ``--metric-dtype bf16 --prec-dtype bf16`` under split2m,
    whose resolved twostage + onthefly streams no metric); the structured and general backends at p=4
-   s=13 (f32, f64): vmult against B3 (TOL_BACKEND), then ``run_one(4, 13,
-   solver="merged"|"baseline", backend=...)``, the f64 itCG equal to the
+   s=11 (S_BACKEND; f32, f64): vmult against B3 (TOL_BACKEND), then
+   ``run_one(4, 11, solver="merged"|"baseline", backend=...)``, the f64
+   itCG equal to the
    pallas path's, their rows printed; and the discretization: the
    manufactured solution solved in f64 by the merged CG through B3 at
    CONVERGENCE, the observed L2 rates >= (p + 1) - 0.35;
@@ -287,7 +290,22 @@ Phases (each raises on failure, so any failure exits nonzero):
    iterations); and ``profiling.trace`` with ``marker("cg_solver")``
    around 5 fused split2m iterations at p=4 s=13, ``trace_summary.
    top_ops`` listing B2's three kernels, its B2 time within 10% of
-   ``kernel_breakdown``'s.
+   ``kernel_breakdown``'s;
+13. split2m at f64, the JAX CLI's ``--dtype f64 --precision split2m``
+   (``utils/f64_split2m_check.py``, ``csrc/mma_f64.cu``): the f64 form's
+   instantiations' registers and spills; on the 105-cell box at every
+   degree 1..11 B3, B5, B6 and B1/B2 in every fused configuration against
+   their plain versions (relative L2 1e-6), the f64 highest plain version
+   missing by at least 1e-4; B3 (merged, reshape), B5 (pieces), B6
+   (zslab) and B1/B2 (the fused auto path) at p=4 s=13 held against and
+   timed beside their plain versions, bounds and f64 highest twins
+   (fields ``*_f64_split2m``); the merged reshape and fused production
+   solves at p=4 s=13 at full depth, each beside the f64 highest solve's
+   itCG on the same mesh; the JAX package's itCG at the parity points of
+   F64_PARITY (merged and fused); one solve each of ``--windowing
+   pieces|zslab``, ``--geometry onthefly`` and ``--solver baseline`` at
+   p=4 s=13; and short drives (s=3) at every degree 1..11, merged and
+   fused.
 """
 
 from __future__ import annotations
@@ -363,6 +381,12 @@ FULL_HIGH = ((6, 12, "_p6"), (8, 11, "_p8"))
 FULL_DOFS = {6: 2_738_019, 8: 3_244_995}
 F64_HIGH = 8
 S_EVERY = 6  # phase 5's short runs of every path at every degree 5..11
+# phase 5's short runs at the FULL_HIGH degrees whose counts feed no row
+# of the kernels line (baseline, and the fused solver with the metric
+# rebuilt by jtj under highest: B3 and B1/B2 run at full width in the
+# same loop) run on 2^(s - HIGH_SHORT_CUT) cells, 1/8 of the full width's:
+# their host set-up, not their launches, sets their time
+HIGH_SHORT_CUT = 3
 # the paths of those runs that the FULL_HIGH drives run at their degrees
 # (merged and baseline on each windowing, B4, the fused auto paths and
 # the fused solver with the metric rebuilt by jtj), not run again there
@@ -574,6 +598,27 @@ SHAPE_SOURCE = "shapes.cu"
 # itCG, PARITY.md's protocol)
 SHAPE_PARITY = ((4, 7, 1, 2, 93), (2, 9, 1, 2, 50), (4, 7, 3, 1, 91),
                 (2, 9, 3, 1, 49))
+# section 13, split2m at f64: the parity points (p, s, the JAX package's
+# f64 split2m itCG, merged and fused alike; f64 highest gives the same),
+# the drives of the JAX CLI's other flags at the full width p=4 s=S (one
+# solve: their counts are the kernels line's f64 split2m launches at that
+# p and s) — (label, kernels, run_one's keywords) — and the size of the
+# drives at every degree (8 cells)
+F64_PARITY = ((2, 3, 11), (4, 2, 21))
+_F64 = dict(dtype=torch.float64, precision="split2m")
+F64_DRIVES = (
+    ("--windowing pieces", ("apply_lattice_pieces",),
+     dict(solver="merged", windowing="pieces")),
+    ("--windowing zslab", ("apply_lattice_zslab",),
+     dict(solver="merged", windowing="zslab")),
+    ("--geometry onthefly", ("apply_local_batched_onthefly",),
+     dict(solver="merged", windowing="reshape", metric="onthefly")),
+    ("--solver baseline", ("apply_local_batched_g",),
+     dict(solver="baseline", windowing="reshape")))
+F64_S_EVERY = 3
+# the timed rows' sources (csrc/mma_f64.cu: apply_mma_hd.cuh's and
+# cell_mma_hd.cuh's f64 forms)
+F64_SOURCE = "mma_f64.cu"
 # the sources of section 9's timed rows (at p=4: the sum-factorized
 # pass's storage instantiations under highest, the dense tensor-core
 # pass's under split2m; B2's split2m auto configuration at p=4 with a
@@ -662,9 +707,10 @@ def bound(name: str, op, split: bool, state: torch.dtype | None = None,
                   * word)
         nbytes += 0 if onthefly else 6 * q3 * nc * mword
     t_bytes = nbytes / HBM_BPS
-    if split:
+    if split:  # the rest at the working type (the f64 form's: f64)
         t_ops = max(2 * n_prod * products * nc / PEAK_BF16,
-                    2 * other * nc / PEAK_F32)
+                    2 * other * nc / (PEAK_F64 if op.dtype == torch.float64
+                                      else PEAK_F32))
     else:
         peak = PEAK_F32 if op.dtype == torch.float32 else PEAK_F64
         t_ops = 2 * (products + other) * nc / peak
@@ -1610,9 +1656,13 @@ STORAGE_BOX_DEGREES = tuple(range(1, 12))
 # vectors and max relative of the scalars (bf16_state_check's limits)
 TOL_PX_L2, TOL_PX_SCAL = 3e-4, 1e-4
 
-# the plain backends at p=4 s=13 against B3 (the JAX CLI's default path's
+# the plain backends at p=4 s=S_BACKEND against B3 (the JAX CLI's default path's
 # operator) on the same vector, relative L2
 TOL_BACKEND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the plain backends' size (section 7): no kernel of this repo runs there,
+# and the main path's full width runs in phase 5, so their drives and
+# checks are cut to S_SHORT's cells, a quarter of the full width's
+S_BACKEND = S_SHORT
 # the discretization: (p, the two s), the L2 rate of the manufactured
 # solution between them must reach (p + 1) - 0.35 (h halves from one s to
 # the other; s = 3 at p=1 as tests/test_convergence.py, larger s at p=2,
@@ -1786,19 +1836,21 @@ def compare_storage(fk, bp4, benchmark, dev, timing) -> dict:
 def compare_backends(bp4, la, dev) -> dict:
     """The structured and general backends' vmult against B3 (merged,
     reshape, highest: the JAX CLI's default operator) on the same vector at
-    p=4 s=13, f32 and f64; returns the problems, for the drives."""
+    p=4 s=S_BACKEND, f32 and f64; returns the problems, for the drives."""
     problems = {}
     for dtype in (torch.float32, torch.float64):
-        ref = bp4.build(S, DEGREE, dtype, "highest", device=dev)
+        ref = bp4.build(S_BACKEND, DEGREE, dtype, "highest", device=dev)
         gen = torch.Generator(device=dev).manual_seed(11)
         u = torch.randn(ref.b.shape, generator=gen, device=dev, dtype=dtype)
         want = ref.a_apply_full(u)
         del ref
         for backend in ("structured", "general"):
-            pb = bp4.build(S, DEGREE, dtype, device=dev, backend=backend)
+            pb = bp4.build(S_BACKEND, DEGREE, dtype, device=dev,
+                           backend=backend)
             err = (torch.linalg.norm(pb.a_apply_full(u) - want)
                    / torch.linalg.norm(want)).item()
-            print(f"  vmult {backend} p={DEGREE} s={S} {str(dtype)[6:]} vs "
+            print(f"  vmult {backend} p={DEGREE} s={S_BACKEND} "
+                  f"{str(dtype)[6:]} vs "
                   f"B3: rel L2 {err:.3e} (tol {TOL_BACKEND[dtype]:.0e})")
             if not err <= TOL_BACKEND[dtype]:
                 raise AssertionError(f"{backend} backend disagrees with B3")
@@ -2767,6 +2819,70 @@ def shape_section(dev, drive, short: dict, log: str) -> tuple[dict, dict]:
     return shape_times, launches_sh
 
 
+def f64_section(dev, drive, short: dict, log: str) -> tuple[dict, dict]:
+    """Section 13: split2m at f64 (queue B 6h's split2m half): the f64
+    form's registers, every kernel against its plain version on the box
+    at p=1..11 with the f64 highest control, f64_split2m_check.TIMED's
+    rows, the full-width merged and fused solves beside f64 highest's
+    itCG, F64_PARITY and F64_DRIVES through ``drive`` (main()'s).
+    Returns (the timed rows, {kernel: launches of this section's
+    drives})."""
+    from mf_data_locality_tpu_torch import benchmark
+    from mf_data_locality_tpu_torch.utils import f64_split2m_check as f64c
+    from mf_data_locality_tpu_torch.utils import timing
+
+    t13 = time.perf_counter()
+    f64c.print_table(log)
+    print(f"split2m at f64 vs plain on the "
+          f"{'x'.join(map(str, f64c.RAGGED))} box at p=1..11:")
+    f64c.report(f64c.compare_all(dev))
+    print(f"  ({time.perf_counter() - t13:.1f} s)")
+    times = f64c.time_all(dev, lambda k, p: time_pair(k, p, dev, timing),
+                          bound)
+    launches = {}
+    for solver, windowing, expect in (
+            ("merged", "reshape", ("apply_local_batched_g",)),
+            ("fused", "pieces", ("matvec", "fused_cg_iteration"))):
+        r = drive(f"{solver} {windowing}, f64 split2m (full width)", S,
+                  expect, into=launches, solver=solver, windowing=windowing,
+                  solve_repeats=1, **_F64)
+        h = drive(f"{solver} {windowing}, f64 highest (the same mesh)", S,
+                  expect, into=None, quiet=True, solver=solver,
+                  windowing=windowing, dtype=torch.float64,
+                  precision="highest", **short)
+        config = benchmark.resolve_config(DEGREE, solver, windowing,
+                                          "split2m", torch.float64)
+        print(f"  {solver} {windowing} p={DEGREE} s={S} {config}: itCG f64 "
+              f"split2m {r.n_iterations}, f64 highest {h.n_iterations}; "
+              f"time/it {r.time_per_it:.6e} s (f64 highest "
+              f"{h.time_per_it:.6e} s)")
+    for p, s_p, want in F64_PARITY:
+        for solver, windowing in (("merged", "reshape"), ("fused", "pieces")):
+            r = drive(f"parity {solver} f64 split2m", s_p,
+                      ("matvec",) if solver == "fused" else (
+                          "apply_local_batched_g",), into=None, degree=p,
+                      quiet=True, solver=solver, windowing=windowing,
+                      **_F64, **short)
+            if r.n_iterations != want or not r.converged:
+                raise AssertionError(
+                    f"parity p={p} s={s_p} {solver} f64 split2m: itCG "
+                    f"{r.n_iterations}, the JAX package's {want}")
+    for label, expect, kw in F64_DRIVES:  # B3's count: the merged path's
+        drive(f"{label}, f64 split2m", S, expect, quiet=True,
+              into=None if kw["solver"] == "baseline" else launches, **kw,
+              **_F64, **short)
+    for p in range(1, 12):
+        for solver, windowing, expect in (
+                ("merged", "reshape", ("apply_local_batched_g",)),
+                ("fused", "pieces", ("matvec", "fused_cg_iteration"))):
+            drive(f"{solver} {windowing} f64 split2m", F64_S_EVERY, expect,
+                  into=None, degree=p, quiet=True, solver=solver,
+                  windowing=windowing, **_F64, **short)
+    torch.cuda.empty_cache()
+    print(f"section 13: {time.perf_counter() - t13:.1f} s")
+    return times, launches
+
+
 def main() -> int:
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3205,9 +3321,9 @@ def main() -> int:
                  dict(solver="merged", windowing="zslab")),
                 ("fused --geometry onthefly (jtj)", None,
                  dict(metric="onthefly", **fused_kw))):
-            drive(label, s, expect or (("apply_local_batched_g",)
-                                       if kw["solver"] == "baseline"
-                                       else b1b2),
+            drive(label, s if expect else s - HIGH_SHORT_CUT,
+                  expect or (("apply_local_batched_g",)
+                             if kw["solver"] == "baseline" else b1b2),
                   into=into if expect else None, degree=p, **kw, **short)
         want = FULL_DOFS[p]
         if any(r.n_dofs != want for r in rows):
@@ -3380,11 +3496,11 @@ def main() -> int:
     del st_problems
     torch.cuda.empty_cache()
 
-    print("the structured and general backends, p=4 s=13:")
+    print(f"the structured and general backends, p={DEGREE} s={S_BACKEND}:")
     be_problems = compare_backends(bp4, la, dev)
     itcg, hist = {}, {}
     for dtype in (torch.float32, torch.float64):
-        ref = bp4.build(S, DEGREE, dtype, "highest", device=dev)
+        ref = bp4.build(S_BACKEND, DEGREE, dtype, "highest", device=dev)
         for solver in ("merged", "baseline"):
             res = benchmark.solver_call(ref, solver)()
             itcg["pallas", solver, dtype] = res.n_iterations
@@ -3394,12 +3510,14 @@ def main() -> int:
             for solver in ("merged", "baseline"):
                 zero_counts()
                 r = benchmark.run_one(
-                    DEGREE, S, solver=solver, dtype=dtype, backend=backend,
+                    DEGREE, S_BACKEND, solver=solver, dtype=dtype,
+                    backend=backend,
                     device=dev, problem=be_problems[backend, dtype],
                     solve_repeats=1, matvec_repeats=1, matvec_inner=10)
                 itcg[backend, solver, dtype] = r.n_iterations
                 print(f"{solver} {backend} {str(dtype)[6:]} p={DEGREE} "
-                      f"s={S}: n_dofs {r.n_dofs} itCG {r.n_iterations} "
+                      f"s={S_BACKEND}: n_dofs {r.n_dofs} itCG "
+                      f"{r.n_iterations} "
                       f"(pallas {itcg['pallas', solver, dtype]}) converged "
                       f"{r.converged} time/it {r.time_per_it:.6e} s "
                       f"DoF/s/it {r.dofs_per_s_per_it:.6e} time/matvec "
@@ -3410,7 +3528,7 @@ def main() -> int:
                     raise AssertionError(f"{backend} {solver}: implausible "
                                          f"row: {r}")
                 if dtype == torch.float64:
-                    # the f64 count (at s=13 the cap, C4) and the whole
+                    # the f64 count and the whole
                     # residual history against the pallas path's (the
                     # operators agree to 1e-15 a vmult; 100 CG steps
                     # amplify that, so 1e-6 res0, far under a wrong
@@ -3686,6 +3804,10 @@ def main() -> int:
 
     print(f"section 12: {time.perf_counter() - t12:.1f} s")
 
+    # -- 13. split2m at f64 (queue B 6h's split2m half) -------------------
+    f64_times, launches_f64 = f64_section(
+        dev, drive, short, log or lib_path.with_suffix(".log").read_text())
+
     # no single PyTorch call computes any of these functions (each is a
     # fused chain of contractions, the metric apply and masking), so
     # library_ms is null throughout
@@ -3872,6 +3994,23 @@ def main() -> int:
                         f"launches{sfx}": bp3_launches[name, sfx]})
             if not one_dev:
                 row[f"ranks{sfx}"] = BP3_FULL[2]
+        for (kname, sfx), ((k, pl), (bms, by), err, config, twin) in \
+                f64_times.items():  # section 13
+            if kname != name:
+                continue
+            row.update({f"source{sfx}": CSRC + F64_SOURCE,
+                        f"p_s{sfx}": [DEGREE, S],
+                        f"config{sfx}": ["split2m", *config],
+                        f"ms{sfx}": k, f"plain_ms{sfx}": pl,
+                        f"max_abs_err{sfx}": err, f"bound_ms{sfx}": bms,
+                        f"bound_by{sfx}": by, f"ms_highest_twin{sfx}": twin,
+                        f"launches{sfx}": launches_f64[name]})
+        if name in launches_f64 and (name, "_f64_split2m") not in f64_times:
+            # B4 (exact on every rung: the f64 sum-factorized pass) in
+            # section 13's --geometry onthefly drive
+            row.update(source_f64_split2m=CSRC + "apply_sumfac.cuh",
+                       p_s_f64_split2m=[DEGREE, S],
+                       launches_f64_split2m=launches_f64[name])
         if name == "apply_lattice_pieces":  # on the twostage operator
             row["launches_twostage_pieces"] = launches_ts[
                 "_twostage_pieces"][name]

@@ -38,15 +38,22 @@ configuration resolves as with the bf16 rung, the JAX ``run_one``'s
 bf16`` streams the metric in bf16 on every rung.  ``--prec-dtype bf16``
 and ``--x-dtype bf16`` store the fused solver's preconditioner and
 solution x in bf16, in every configuration, beside ``--dtype bf16`` and
-``--metric-dtype bf16`` too.  ``--backend structured`` and
+``--metric-dtype bf16`` too.  ``--dtype f64 --precision
+split2m`` runs every solver, windowing, geometry and fused configuration
+on one device at every degree (the tensor-core passes' f64 form: the bf16
+parts of f64 values, the products' sums in f64 for the merged and
+baseline solvers' applies and in f32 for the fused solver's, as the JAX
+package sums them).  ``--backend structured`` and
 ``--backend general`` run the merged and baseline solvers on the plain
 lattice and gather/scatter operators (``ops/laplace_structured``,
 ``ops/laplace``); ``--precision``, ``--windowing`` and ``--geometry`` then
 change nothing, as in the JAX single-device ``run_one``.  What the port
 still lacks raises NotImplementedError naming its ROADMAP item, with no
-fallback to another rung or to the plain version: ``--dtype f64`` with a
-tensor-core rung or ``--metric-dtype bf16`` (queue B item 6h).  ``s < 1``
-runs the reference's auto size ladder.
+fallback to another rung or to the plain version: ``--dtype f64`` with
+split3, bf16 or ``--metric-dtype bf16``, with ``--devices N`` under a
+tensor-core rung, and the fused solver's ``--prec-dtype``/``--x-dtype
+bf16`` beside it on the card (queue B item 6h).  ``s < 1`` runs the
+reference's auto size ladder.
 
 ``--devices N`` runs the merged, baseline or fused CG over N z-slab ranks
 (:func:`run_one_distributed`, ``parallel/``): processes on the card(s)

@@ -68,6 +68,24 @@
 // under split3 (PERF.md).  So each chain runs kHdChunk k16 steps from zero
 // and is added to the thread's f32 sum (rounded to nearest), in k order.
 //
+// The f64 form of split2m (kF64 in NP, bp4_operator.cuh; the JAX CLI's
+// --dtype f64 --precision split2m), at every degree 1..11 (mma_f64.cu):
+// u, the mask, update4b's vectors, the metric (streamed, or rebuilt from
+// the f64 coefficients into the block's f64 staging, 33.8 KB), t and the
+// cell results at f64; M's tables and the parts as split2m's, each part
+// rounded from f64 through f32 (bf16_of).  The products stay bf16 x bf16
+// -> f32 on the tensor cores; each k16 step's f32 sum (its chain,
+// hd_chain) is added into an f64 accumulator, in k order.  B3/B5/B6
+// (kAcc64) keep that sum at f64, where laplace_pallas._mm has XLA sum the
+// (exact) products at f64: the kernel's sum carries each k16 step's f32
+// rounding in the tensor cores (not round-to-nearest) in place of XLA's
+// f64 ones.  B1/B2 round it to f32 where it leaves the GEMM (gemm_out),
+// as cg_fused_kernel._mm_pre's preferred_element_type f32 gives XLA's
+// sum (XLA accumulates in f32, in its own order; this is the f32 value
+// nearest the f64 sum), and that f32 sum meets the f64 metric.  Chains of
+// kHdChunk steps added at f64 read 1.01e-6 of the result at p=9 (B3,
+// against the plain version; PERF.md), hence one step a chain.
+//
 // Scratch (the caller's, dense_scratch_len): u's parts (NPART x 3 NCP x
 // P13P bf16) and t's (NPART x 3 NCP x 3 Q3P), NCP = n_cells rounded up to
 // 32, NPART = 1 (bf16) or 2: 74 MB at p=8 s=11 under split2m.  Padding:
@@ -94,6 +112,24 @@ namespace bp4 {
 
 constexpr int kHdRowCells = 32;   // cells of a row tile: two m16 tiles
 constexpr int kHdChunk = 8;       // k16 steps of one accumulation chain
+// The f64 form's chains (kF64): one k16 step each, added at f64 (at
+// p=9 chains of kHdChunk added at f64 measured 1.01e-6 of the result
+// against the plain version, PERF.md)
+template <int NP>
+__host__ __device__ constexpr int hd_chain() {
+  return (NP & kF64) != 0 ? 1 : kHdChunk;
+}
+// The value of a chains' sum that leaves a dense pass's GEMM: the f64
+// form's B1/B2 (kF64 without kAcc64) round it to f32, as _mm_pre's
+// preferred_element_type=f32 gives it; every other form as it is.
+template <int NP>
+__device__ __forceinline__ mma_real<NP> gemm_out(
+    std::conditional_t<(NP & kF64) != 0, double, float> v) {
+  if constexpr ((NP & kF64) != 0 && (NP & kAcc64) == 0)
+    return static_cast<double>(static_cast<float>(v));
+  else
+    return v;
+}
 constexpr int kHdBwdTiles = 8;    // n8 node tiles of a backward warp
 constexpr int kHdBwdWarps = 4;
 constexpr int kHdGatherThreads = 256;
@@ -160,9 +196,12 @@ __global__ void __launch_bounds__(kHdGatherThreads)
                            __nv_bfloat16* __restrict__ us) {
   using S = Shape<P, NP>;
   using L = DenseHdLayout<P, NP>;
+  using T = mma_real<NP>;  // kF64: u, the mask and update4b's vectors f64
   constexpr int P13 = S::P13, P13P = L::Ms::P13P;
   constexpr int kNP = rung_of(NP);
   constexpr bool kBfState = (NP & kSbState) != 0;
+  const T* const ut = reinterpret_cast<const T*>(u);
+  const T* const mt = reinterpret_cast<const T*>(mask);
   const int nc = gr.n_cells();
   const L lay(nc);
   const size_t n_nodes = gr.n_nodes();
@@ -177,35 +216,34 @@ __global__ void __launch_bounds__(kHdGatherThreads)
   const int c = static_cast<int>(i / (static_cast<size_t>(ncr) * P13P));
   const bool live = is_block(FORM) ? cell >= gr.cbeg && cell < gr.cend
                                    : cell < nc;
-  float val = 0.f;
+  T val = T(0);
   if (k < P13 && live) {
     if constexpr (FORM == kLattice) {
-      float m;
-      const size_t node = cell_node<P>(gr, cell, k, mask, &m);
+      T m;
+      const size_t node = cell_node<P>(gr, cell, k, mt, &m);
       if constexpr (kNP != 1 && !kBfState)
-        val = u[c * n_nodes + node] * m;
+        val = ut[c * n_nodes + node] * m;
       else
         val = load_flex(u, c * n_nodes + node, x.io.bf16) * m;
     } else if constexpr (is_update(FORM)) {
-      const float sc[4] = {x.io.scal[0], x.io.scal[1], x.io.scal[2],
-                           x.io.scal[3]};
-      val = cell_input<float, P, true, kNP == 1 || kBfState,
+      const CellIo<T> io = io_as<T>(x.io);
+      const T sc[4] = {io.scal[0], io.scal[1], io.scal[2], io.scal[3]};
+      val = cell_input<T, P, true, kNP == 1 || kBfState,
                        FORM == kLatticeUpdatePx, is_block(FORM)>(
-          x.io, sc, gr, c, cell / (gr.ncx * gr.ncy), (cell / gr.ncx) % gr.ncy,
+          io, sc, gr, c, cell / (gr.ncx * gr.ncy), (cell / gr.ncx) % gr.ncy,
           cell % gr.ncx, k / S::P12, (k / S::P1) % S::P1, k % S::P1);
     } else if constexpr (kBfState) {
       val = load_flex(u, static_cast<size_t>(c * P13 + k) * nc + cell,
                       x.io.bf16);
     } else {
-      val = u[static_cast<size_t>(c * P13 + k) * nc + cell];
+      val = ut[static_cast<size_t>(c * P13 + k) * nc + cell];
     }
   }
   const int row = c * lay.ncp + cell;
   const size_t pos = a_frag_pos(row / 16, k / 16, L::KF, row % 16, k % 16);
-  const __nv_bfloat16 hi = __float2bfloat16_rn(val);
+  const __nv_bfloat16 hi = bf16_of(val);
   us[pos] = hi;
-  if constexpr (kNP != 1)
-    us[lay.u_part() * 8 + pos] = __float2bfloat16_rn(val - __bfloat162float(hi));
+  if constexpr (kNP != 1) us[lay.u_part() * 8 + pos] = lo_of(val, hi);
 }
 
 // The forward and the metric apply of 32 cells (blockIdx.x) x 16 q-points
@@ -224,12 +262,21 @@ __global__ void __launch_bounds__(32 * Shape<P, NP>::C, 1)
   using S = Shape<P, NP>;
   using Ms = MmaShape<P, NP & kShMask>;
   using L = DenseHdLayout<P, NP>;
+  // kF64: the metric, its rebuild and t at f64, the chains added at f64
+  // (hd_chain, gemm_out)
+  using T = mma_real<NP>;
+  using A = std::conditional_t<(NP & kF64) != 0, double, float>;
+  constexpr int CH = hd_chain<NP>();
   constexpr int Q3 = S::Q3, Q3P = Ms::Q3P, KF = L::KF, KB = L::KB;
   constexpr int kNP = rung_of(NP);
   // split3: Ml's forward table, this far after Mh's
   constexpr int ML = 2 * 3 * Q3P * Ms::P13P / 4;
-  __shared__ float gs[6][16][kMmaGLd];  // G of the chunk: (entry, q, cell)
-  __shared__ float c24[REBUILD ? 24 : 1][kHdRowCells];
+  __shared__ T gs[6][16][kMmaGLd];  // G of the chunk: (entry, q, cell)
+  __shared__ T c24[REBUILD ? 24 : 1][kHdRowCells];
+  const T* const gmt = reinterpret_cast<const T*>(gmetric);
+  const T* const pds = reinterpret_cast<const T*>(x.pds);
+  const T* const w3 = reinterpret_cast<const T*>(x.w3);
+  const T* const coeffs = reinterpret_cast<const T*>(x.coeffs);
   const int nc = gr.n_cells();
   const L lay(nc);
   const int cell0 = (BLOCK ? hd_rows(gr).x : 0) + blockIdx.x * kHdRowCells,
@@ -244,26 +291,28 @@ __global__ void __launch_bounds__(32 * Shape<P, NP>::C, 1)
     for (int i = tid; i < 24 * kHdRowCells; i += blockDim.x) {
       const int b = i % kHdRowCells, e = i / kHdRowCells;
       c24[e][b] = live(cell0 + b)
-                      ? x.coeffs[static_cast<size_t>(e) * nc + cell0 + b]
-                      : 0.f;
+                      ? coeffs[static_cast<size_t>(e) * nc + cell0 + b]
+                      : T(0);
     }
     __syncthreads();
   }
   for (int i = tid; i < 16 * kHdRowCells; i += blockDim.x) {
     const int b = i % kHdRowCells, ql = i / kHdRowCells;
     const int qp = 16 * j + ql, cell = cell0 + b;
-    float gm[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    T gm[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
     if (qp < Q3 && live(cell)) {
       if constexpr (REBUILD) {
-        float pq[24];
-        load_pds_row(x.pds + qp * 24, pq);
+        T pq[24];
+        load_pds_row(pds + qp * 24, pq);
         onthefly_metric<kHdRowCells, chain_of(NP)>(pq, &c24[0][b],
-                                                   __ldg(x.w3 + qp), gm);
+                                                   __ldg(w3 + qp), gm);
       } else {
 #pragma unroll
         for (int e = 0; e < 6; ++e) {
           const size_t at = static_cast<size_t>(e * Q3 + qp) * nc + cell;
-          if constexpr ((NP & kSbMetric) != 0)
+          if constexpr ((NP & kF64) != 0)
+            gm[e] = __ldg(gmt + at);
+          else if constexpr ((NP & kSbMetric) != 0)
             gm[e] = metric_ldg<NP>(gmetric, at);
           else
             gm[e] = NP == 2 ? __ldg(gmetric + at)
@@ -279,11 +328,11 @@ __global__ void __launch_bounds__(32 * Shape<P, NP>::C, 1)
   const int c = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int mt0 = (c * lay.ncp + cell0) / 16;
-  float acc[2][3][2][4] = {};  // m16 tile, direction, n8 half
-  for (int k0 = 0; k0 < KF; k0 += kHdChunk) {
+  A acc[2][3][2][4] = {};  // m16 tile, direction, n8 half
+  for (int k0 = 0; k0 < KF; k0 += CH) {
     float part[2][3][2][4] = {};  // this chunk's chains
 #pragma unroll 2
-    for (int ks = k0; ks < min(k0 + kHdChunk, KF); ++ks) {
+    for (int ks = k0; ks < min(k0 + CH, KF); ++ks) {
       uint32_t a[2][L::NPART][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -330,16 +379,16 @@ __global__ void __launch_bounds__(32 * Shape<P, NP>::C, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int b = 16 * m + g + 8 * r;
-        float tv[3][2];
+        T tv[3][2];
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
           const int ql = 8 * h + 2 * t4 + e2;
-          float G[6];
+          T G[6];
 #pragma unroll
           for (int e = 0; e < 6; ++e) G[e] = gs[e][ql][b];
-          const float gx = acc[m][0][h][2 * r + e2],
-                      gy = acc[m][1][h][2 * r + e2],
-                      gz = acc[m][2][h][2 * r + e2];
+          const T gx = gemm_out<NP>(acc[m][0][h][2 * r + e2]),
+                  gy = gemm_out<NP>(acc[m][1][h][2 * r + e2]),
+                  gz = gemm_out<NP>(acc[m][2][h][2 * r + e2]);
           tv[0][e2] = G[0] * gx + G[1] * gy + G[2] * gz;
           tv[1][e2] = G[1] * gx + G[3] * gy + G[4] * gz;
           tv[2][e2] = G[2] * gx + G[4] * gy + G[5] * gz;
@@ -376,6 +425,13 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
   using S = Shape<P, NP>;
   using Ms = MmaShape<P, NP & kShMask>;
   using L = DenseHdLayout<P, NP>;
+  // kF64: out and the mask at f64, the chains added at f64 (hd_chain,
+  // gemm_out)
+  using T = mma_real<NP>;
+  using A = std::conditional_t<(NP & kF64) != 0, double, float>;
+  constexpr int CH = hd_chain<NP>();
+  T* const ot = reinterpret_cast<T*>(out);
+  const T* const mt = reinterpret_cast<const T*>(mask);
   constexpr int P13 = S::P13, KB = L::KB, NT = Ms::P13P / 8;
   constexpr int kNP = rung_of(NP);
   constexpr int NG = (NT + kHdBwdTiles - 1) / kHdBwdTiles;  // node groups
@@ -394,11 +450,11 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
                         : task / NG * 2;
   const int nt0 = task % NG * kHdBwdTiles;
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-  float v[2][kHdBwdTiles][4] = {};
-  for (int k0 = 0; k0 < KB; k0 += kHdChunk) {
+  A v[2][kHdBwdTiles][4] = {};
+  for (int k0 = 0; k0 < KB; k0 += CH) {
     float part[2][kHdBwdTiles][4] = {};  // this chunk's chains
 #pragma unroll 2
-    for (int ks = k0; ks < min(k0 + kHdChunk, KB); ++ks) {
+    for (int ks = k0; ks < min(k0 + CH, KB); ++ks) {
       uint32_t a[2][L::NPART][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -452,11 +508,13 @@ __global__ void __launch_bounds__(32 * kHdBwdWarps, 1)
               out)[static_cast<size_t>(c * P13 + k) * nc + cell] =
               __float2bfloat16_rn(v[m][n][i]);
         } else if constexpr (BATCH) {
-          out[static_cast<size_t>(c * P13 + k) * nc + cell] = v[m][n][i];
+          ot[static_cast<size_t>(c * P13 + k) * nc + cell] =
+              gemm_out<NP>(v[m][n][i]);
         } else {
-          float mk;
-          cell_node<P, BLOCK>(gr, cell, k, mask, &mk);
-          out[(static_cast<size_t>(c) * nc + cell) * P13 + k] = v[m][n][i] * mk;
+          T mk;
+          cell_node<P, BLOCK>(gr, cell, k, mt, &mk);
+          ot[(static_cast<size_t>(c) * nc + cell) * P13 + k] =
+              gemm_out<NP>(v[m][n][i]) * mk;
         }
       }
 }
@@ -479,7 +537,8 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   using Ms = typename L::Ms;
   constexpr int C = Shape<P, NP>::C;
   const size_t n_in = static_cast<size_t>(C) * Ms::P13P * ncr;
-  dense_hd_gather_kernel<P, FORM, NP & ~kJtjChain>
+  // (B3/B5/B6's f64 form shares B1's gather: kAcc64 is the GEMMs')
+  dense_hd_gather_kernel<P, FORM, NP & ~(kJtjChain | kAcc64)>
       <<<(n_in + kHdGatherThreads - 1) / kHdGatherThreads, kHdGatherThreads,
          0, st>>>(gr, mask, u, x, reinterpret_cast<__nv_bfloat16*>(us));
   cudaError_t e = cudaGetLastError();
@@ -488,7 +547,8 @@ cudaError_t launch_mma_hd_here(const void* mf, const void* mb,
   // backward in B3's form the state's (its bf16 store, where io.bf16 is
   // set), so that the other instantiations of a rung are shared
   constexpr int NPF = NP & ~kSbState;
-  constexpr int NPR = rung_of(NP) | (NP & kShMask);  // the rung and shape
+  // the rung, the shape and the f64 form
+  constexpr int NPR = rung_of(NP) | (NP & (kShMask | kF64 | kAcc64));
   constexpr int NPB = FORM == kCellBatch ? NP & ~kSbMetric : NPR;
   dense_hd_forward_kernel<P, REBUILD, NPF, is_block(FORM)>
       <<<dim3(ncr / kHdRowCells, Ms::QC), 32 * C, 0, st>>>(
@@ -576,6 +636,30 @@ BP4_MMA_HD_SB_DECLARE(10)
 BP4_MMA_HD_SB_DECLARE(11)
 // the metric rebuilt by the jtj chain (apply_mma.cuh's BP4_MMA_JTJ_*), in
 // apply_mma_pNN.cu and apply_mma_sb.cu
+// The f64 form of split2m (kF64, bp4_operator.cuh) at every degree 1..11,
+// p <= 4 too (apply_mma.cuh's pass keeps v in registers, which f64 would
+// double past its register cap), in mma_f64.cu, one object a degree: B3
+// (cell batch) and B5/B6 (lattice, streamed) accumulating in f64
+// (kF64Apply); B1 (lattice, streamed, rebuilt by adjj or jtj) and B2
+// (update4b, the same three) in f32 (kF64Cg).  Not B2's P/x or block
+// forms, nor the storage flags.
+#define BP4_MMA_HD_F64(P, M)                                             \
+  M(P, kCellBatch, false, kF64Apply) M(P, kLattice, false, kF64Apply)    \
+  M(P, kLattice, false, kF64Cg) M(P, kLattice, true, kF64Cg)             \
+  M(P, kLattice, true, kF64Cg | kJtjChain)                               \
+  M(P, kLatticeUpdate, false, kF64Cg) M(P, kLatticeUpdate, true, kF64Cg) \
+  M(P, kLatticeUpdate, true, kF64Cg | kJtjChain)
+BP4_MMA_HD_F64(1, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(2, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(3, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(4, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(5, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(6, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(7, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(8, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(9, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(10, BP4_MMA_HD_DECLARE1)
+BP4_MMA_HD_F64(11, BP4_MMA_HD_DECLARE1)
 BP4_MMA_JTJ_DECLARE(5, BP4_MMA_HD_DECLARE1)
 BP4_MMA_JTJ_DECLARE(6, BP4_MMA_HD_DECLARE1)
 BP4_MMA_JTJ_DECLARE(7, BP4_MMA_HD_DECLARE1)

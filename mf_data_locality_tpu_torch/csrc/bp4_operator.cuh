@@ -188,6 +188,44 @@ constexpr int kSbState = 4, kSbMetric = 8, kJtjChain = 16;
 #define BP4_CAT(a, b) BP4_CAT_(a, b)  // a##b after expanding both
 __host__ __device__ constexpr int rung_of(int np) { return np & 3; }
 
+// The f64 form of split2m (the JAX CLI's --dtype f64 --precision split2m),
+// flags of NP beside the shape flags (kShC1 32, kShQ1 64):
+//   kF64    the state, the metric (streamed or rebuilt), the coefficients
+//           and the cell results at f64; the bf16 parts of M (the host's
+//           tables) and of the streams as split2m's, each rounded from f64
+//           through f32 as XLA and torch round f64 to bf16
+//           (bf16_of); the products bf16 x bf16 -> f32 on the tensor
+//           cores, each k16 step's sum added at f64, and the sum rounded
+//           to f32 where it leaves a GEMM (B1/B2: cg_fused_kernel.
+//           _mm_pre's preferred_element_type=f32), then met by the f64
+//           metric;
+//   kAcc64  with kF64: the sum kept at f64 (B3/B5/B6: laplace_pallas._mm
+//           accumulates at the operand's dtype, f64).
+// The pass's tensors keep their float-typed parameters, so that the other
+// instantiations keep their names; the f64 form reads them at
+// mma_real<NP>.
+constexpr int kF64 = 128, kAcc64 = 256;
+template <int NP>
+using mma_real = std::conditional_t<(NP & kF64) != 0, double, float>;
+// the f32 split2m rung in the f64 form: B1/B2 (kF64Cg), B3/B5/B6 (kF64Apply)
+constexpr int kF64Cg = 2 | kF64, kF64Apply = 2 | kF64 | kAcc64;
+
+// x rounded to bf16 as XLA and torch round it: an f64 value through f32
+// (Hopper's direct f64 -> bf16 conversion rounds once, which differs where
+// the f32 rounding lands on a bf16 tie).
+__device__ __forceinline__ __nv_bfloat16 bf16_of(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ __nv_bfloat16 bf16_of(double x) {
+  return __float2bfloat16_rn(__double2float_rn(x));
+}
+// The lo part of a stream value x whose hi part is hi: bf16(x - hi), the
+// difference at x's type.
+template <typename T>
+__device__ __forceinline__ __nv_bfloat16 lo_of(T x, __nv_bfloat16 hi) {
+  return bf16_of(x - static_cast<T>(__bfloat162float(hi)));
+}
+
 // Element i of the streamed metric at storage SB: bf16 under kSbMetric,
 // upcast to T.
 template <int SB, typename T>
@@ -399,6 +437,44 @@ struct CellIo {
   int bf16 = 0;
   int prec_bf16 = 0, x_bf16 = 0;
 };
+
+// The tables and vectors of one type seen as another's (kF64: the f64
+// form's tensors in the passes' float-typed parameters, and back).
+template <typename T, typename U>
+__host__ __device__ __forceinline__ CellIo<T> io_as(const CellIo<U>& io) {
+  if constexpr (std::is_same_v<T, U>) {
+    return io;
+  } else {
+    CellIo<T> o{reinterpret_cast<const T*>(io.x),
+                reinterpret_cast<const T*>(io.g),
+                reinterpret_cast<const T*>(io.d),
+                reinterpret_cast<const T*>(io.h),
+                reinterpret_cast<const T*>(io.prec),
+                reinterpret_cast<const T*>(io.scal),
+                reinterpret_cast<T*>(io.x2),
+                reinterpret_cast<T*>(io.g2),
+                reinterpret_cast<T*>(io.d2)};
+    o.bf16 = io.bf16;
+    o.prec_bf16 = io.prec_bf16;
+    o.x_bf16 = io.x_bf16;
+    return o;
+  }
+}
+template <typename T, typename U>
+__host__ __device__ __forceinline__ OpTables<T> tables_as(
+    const OpTables<U>& tb) {
+  if constexpr (std::is_same_v<T, U>) {
+    return tb;
+  } else {
+    return {reinterpret_cast<const T*>(tb.mats),
+            reinterpret_cast<const T*>(tb.sz),
+            reinterpret_cast<const T*>(tb.dz),
+            reinterpret_cast<const T*>(tb.pds),
+            reinterpret_cast<const T*>(tb.w3),
+            reinterpret_cast<const T*>(tb.coeffs),
+            reinterpret_cast<const T*>(tb.gmetric), tb.metric_bf16};
+  }
+}
 
 // update4b's reads of P and x and its write of x' (cg_fused_kernel.py:
 // 836-858): at T, or (PX) through load_px / store_px by io.prec_bf16 and

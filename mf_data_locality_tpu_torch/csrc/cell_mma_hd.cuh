@@ -65,6 +65,19 @@
 // one k16 step, q^2 = 9, 16, 25 q-points in one or two chunks): the same
 // code, one k16 step of the forward and n8 tile pair of the backward.
 //
+// The f64 form of split2m (kF64 in NP, bp4_operator.cuh; the JAX CLI's
+// --dtype f64 --precision split2m), at every degree 1..11, p=4 with the
+// rebuilt metric too (mma_f64.cu): u, the coefficients, the z factors,
+// the z stage, the metric (rebuilt at f64: the JAX Jacobian is exact at
+// f64), t and the cell results at f64, the parts rounded from f64 through
+// f32 (bf16_of); the 2D stage's products summed at f64 a k16 step at a
+// time and rounded to f32 where they leave it, as _mm_pre's
+// preferred_element_type f32 gives XLA's f32 sum (the f32 value nearest
+// the f64 sum; XLA accumulates in f32 in its own order), and the z stage
+// back at f32 on f32 z factors, as the JAX kernel's Python-float factors
+// meet its f32 w1, w2 (v stays f32 in shared memory: 223 KB at p=11 with
+// u at f64).
+//
 // Tables: laplace_cuda.mma_tables(..., "twostage") (the same packing as at
 // p=4), read through L1 from global memory: the two copies are 37-304 KB
 // at p=5..11, past what shared memory holds beside the tile (split3: twice
@@ -106,7 +119,11 @@ struct CellMmaHdShape {
                 "strides and tiles of the tensor-core cell pass");
 };
 
-template <int P, int SH = 0>
+// T: the input, the coefficients and the z factors' type (f64 in the f64
+// form, kF64); v stays f32, as the JAX kernel's z stage back runs in f32
+// whatever the state's type (w1, w2 are _mm_pre's f32 results and the z
+// factors Python floats, which JAX rounds to f32 there)
+template <int P, int SH = 0, typename T = float>
 struct CellMmaHdSmem {
   using S = Shape<P, SH>;
   using Hs = CellMmaHdShape<P, SH>;
@@ -114,31 +131,78 @@ struct CellMmaHdSmem {
   // k16 step, and the metric apply's (hi, lo) per direction and chunk
   uint4 a[Hs::KF][4][kHdThreads];
   uint4 t[3][Hs::QC][2][kHdThreads];
-  float u[kHdCells][Hs::LDU];  // input (kz, (ky,kx)), padded columns zero
+  T u[kHdCells][Hs::LDU];      // input (kz, (ky,kx)), padded columns zero
   float v[kHdCells][Hs::LDU];  // output, summed over the planes
-  float c24[kHdCells][25];     // coefficients (rebuilt metric)
-  float sz[(S::Q + 1) * S::P1];  // z factors, and a zero plane past Q
-  float dz[(S::Q + 1) * S::P1];
+  T c24[kHdCells][25];         // coefficients (rebuilt metric)
+  T sz[(S::Q + 1) * S::P1];    // z factors, and a zero plane past Q
+  T dz[(S::Q + 1) * S::P1];
 };
 
 // G at q-point (qz, q2) of `cell`, zero past the plane's q^2 q-points, past
 // Q planes and past the last cell (its coefficients are zero).  FLEX: the
 // streamed metric is f32 (0), f32 or bf16 by tb.metric_bf16 (1), bf16 (2).
-template <int P, bool REBUILD, int COFACTOR, int FLEX, int SH = 0>
+// The f64 form's sums of the 2D stage (kF64): an f32 accumulator array
+// set to zero before each k16 step, added into its f64 twin after it,
+// and the f64 sum rounded to f32 at the end.
+template <int N, int M>
+__device__ __forceinline__ void zero_acc(float (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < M; ++k) a[i][k] = 0.f;
+}
+template <int N, int M>
+__device__ __forceinline__ void zero_acc(float (&a)[3][N][M]) {
+#pragma unroll
+  for (int e = 0; e < 3; ++e) zero_acc(a[e]);
+}
+template <int N, int M>
+__device__ __forceinline__ void add_acc(double (&s)[N][M],
+                                        const float (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < M; ++k) s[i][k] += a[i][k];
+}
+template <int N, int M>
+__device__ __forceinline__ void add_acc(double (&s)[3][N][M],
+                                        const float (&a)[3][N][M]) {
+#pragma unroll
+  for (int e = 0; e < 3; ++e) add_acc(s[e], a[e]);
+}
+template <int N, int M>
+__device__ __forceinline__ void round_acc(float (&a)[N][M],
+                                          const double (&s)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < M; ++k) a[i][k] = static_cast<float>(s[i][k]);
+}
+template <int N, int M>
+__device__ __forceinline__ void round_acc(float (&a)[3][N][M],
+                                          const double (&s)[3][N][M]) {
+#pragma unroll
+  for (int e = 0; e < 3; ++e) round_acc(a[e], s[e]);
+}
+
+// T: f64 in the f64 form (kF64), tb's tables then f64.
+template <int P, bool REBUILD, int COFACTOR, int FLEX, int SH = 0,
+          typename T = float>
 __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
-                                          const float* c24, int nc, int cell,
-                                          int qz, int q2, float (&g)[6]) {
+                                          const T* c24, int nc, int cell,
+                                          int qz, int q2, T (&g)[6]) {
   using S = Shape<P, SH>;
   if (qz >= S::Q || q2 >= S::Q2) {
 #pragma unroll
-    for (int e = 0; e < 6; ++e) g[e] = 0.f;
+    for (int e = 0; e < 6; ++e) g[e] = T(0);
     return;
   }
+  const OpTables<T> tt = tables_as<T>(tb);
   const int qp = qz * S::Q2 + q2;
   if constexpr (REBUILD) {
-    float pq[24];
-    load_pds_row(tb.pds + qp * 24, pq);
-    onthefly_metric<1, COFACTOR>(pq, c24, __ldg(tb.w3 + qp), g);
+    T pq[24];
+    load_pds_row(tt.pds + qp * 24, pq);
+    onthefly_metric<1, COFACTOR>(pq, c24, __ldg(tt.w3 + qp), g);
   } else {
     const bool live = cell < nc;
 #pragma unroll
@@ -149,7 +213,7 @@ __device__ __forceinline__ void hd_metric(const OpTables<float>& tb,
       else if constexpr (FLEX == 1)
         g[e] = live ? ldg_flex(tb.gmetric, i, tb.metric_bf16) : 0.f;
       else
-        g[e] = live ? __ldg(tb.gmetric + i) : 0.f;
+        g[e] = live ? __ldg(tt.gmetric + i) : T(0);
     }
   }
 }
@@ -166,10 +230,18 @@ __global__ void __launch_bounds__(kHdThreads)
   constexpr int SH = NP & kShMask;
   using S = Shape<P, SH>;
   using Hs = CellMmaHdShape<P, SH>;
+  // kF64: the state, the tables, the z stage, the metric and the cell
+  // results at f64; each k16 step's products summed at f64, the sums
+  // rounded to f32 where they leave the 2D stage, the z stage back at f32
+  using T = mma_real<NP>;
+  constexpr bool F64 = (NP & kF64) != 0;
   constexpr int P1 = S::P1, P12 = S::P12, P13 = S::P13, Q = S::Q;
   constexpr int P12P = Hs::P12P, KF = Hs::KF, QC = Hs::QC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<CellMmaHdSmem<P, SH>*>(smem_raw);
+  auto& sm = *reinterpret_cast<CellMmaHdSmem<P, SH, T>*>(smem_raw);
+  const OpTables<T> tt = tables_as<T>(tb);
+  const CellIo<T> iot = io_as<T>(io);
+  T* const ct = reinterpret_cast<T*>(cells);
   const int lane = threadIdx.x;
   const int c = blockIdx.y;
   const int nc = gr.n_cells();
@@ -187,14 +259,14 @@ __global__ void __launch_bounds__(kHdThreads)
   // z factors (a zero plane past Q), coefficients (zero past the end),
   // v = 0, the padded columns of u zero
   for (int i = lane; i < (Q + 1) * P1; i += kHdThreads) {
-    sm.sz[i] = i < Q * P1 ? __ldg(tb.sz + i) : 0.f;
-    sm.dz[i] = i < Q * P1 ? __ldg(tb.dz + i) : 0.f;
+    sm.sz[i] = i < Q * P1 ? __ldg(tt.sz + i) : T(0);
+    sm.dz[i] = i < Q * P1 ? __ldg(tt.dz + i) : T(0);
   }
   if constexpr (REBUILD) {
     for (int i = lane; i < kHdCells * 24; i += kHdThreads) {
       const int b = i / 24, cell = cell0 + b;
-      sm.c24[b][i % 24] = cell < nc ? __ldg(tb.coeffs + cell * 24 + i % 24)
-                                    : 0.f;
+      sm.c24[b][i % 24] = cell < nc ? __ldg(tt.coeffs + cell * 24 + i % 24)
+                                    : T(0);
     }
   }
   for (int i = lane; i < kHdCells * Hs::LDU; i += kHdThreads)
@@ -203,27 +275,27 @@ __global__ void __launch_bounds__(kHdThreads)
     constexpr int NPAD = P12P - P12;
     for (int i = lane; i < kHdCells * P1 * NPAD; i += kHdThreads) {
       const int row = i / NPAD;  // (b, kz)
-      sm.u[row / P1][(row % P1) * P12P + P12 + i % NPAD] = 0.f;
+      sm.u[row / P1][(row % P1) * P12P + P12 + i % NPAD] = T(0);
     }
   }
   // the input at the cells' nodes, kx fastest, then the cell (the node
   // rows of neighbouring cells are neighbours in memory), then (kz, ky);
   // B2's update4b runs here, the owner cell writing x', g', d'
-  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  T sc[4] = {T(0), T(0), T(0), T(0)};
   if constexpr (FUSED) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sc[k] = io.scal[k];
+    for (int k = 0; k < 4; ++k) sc[k] = iot.scal[k];
   }
   for (int i = lane; i < kHdCells * P13; i += kHdThreads) {
     const int kx = i % P1, b = (i / P1) % kHdCells;
     const int row = i / (P1 * kHdCells), kz = row / P1, ky = row % P1;
     const int cell = cell0 + b;
-    float val = 0.f;
+    T val = T(0);
     if (cell < nc) {
       const int cx = cell % gr.ncx, cy = (cell / gr.ncx) % gr.ncy,
                 cz = cell / (gr.ncx * gr.ncy);
-      val = cell_input<float, P, FUSED, FLEX_STATE, PX>(io, sc, gr, c, cz, cy,
-                                                        cx, kz, ky, kx);
+      val = cell_input<T, P, FUSED, FLEX_STATE, PX>(iot, sc, gr, c, cz, cy,
+                                                    cx, kz, ky, kx);
     }
     sm.u[b][kz * P12P + ky * P1 + kx] = val;
   }
@@ -231,14 +303,14 @@ __global__ void __launch_bounds__(kHdThreads)
 
   const int gq = lane / 4, t4 = lane % 4;  // fragment row group, column pair
   const int b = gq;                        // this thread's cell
-  const float* ub = sm.u[b];
+  const T* ub = sm.u[b];
   float* vb = sm.v[b];
   const int cell = cell0 + b;
 
   for (int pt = 0; pt < Hs::NPAIR; ++pt) {
     const int qz0 = 2 * pt;
-    const float* s0 = sm.sz + qz0 * P1;  // plane qz0 + 1 follows
-    const float* d0 = sm.dz + qz0 * P1;
+    const T* s0 = sm.sz + qz0 * P1;  // plane qz0 + 1 follows
+    const T* d0 = sm.dz + qz0 * P1;
 
     // z stage: register r4 of k16 step ks holds row gq + 8 (r4 & 1) (plane
     // qz0 + (r4 & 1)), columns 16 ks + 8 (r4 >> 1) + 2 t4 + {0, 1}
@@ -246,20 +318,36 @@ __global__ void __launch_bounds__(kHdThreads)
       uint32_t r[4][4];  // [uS hi, uS lo, uD hi, uD lo][r4]
 #pragma unroll
       for (int hc = 0; hc < 2; ++hc) {
-        const float* up = ub + 16 * ks + 8 * hc + 2 * t4;
-        float2 s[2], d[2];
+        const T* up = ub + 16 * ks + 8 * hc + 2 * t4;
+        // the f64 form's pairs as double2, with fma at f64
+        using T2 = std::conditional_t<std::is_same_v<T, float>, float2,
+                                      double2>;
+        T2 s[2], d[2];
 #pragma unroll
         for (int kz = 0; kz < P1; ++kz) {
-          const float2 x = *reinterpret_cast<const float2*>(up + kz * P12P);
+          const T2 x = *reinterpret_cast<const T2*>(up + kz * P12P);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float a = s0[h * P1 + kz], bz = d0[h * P1 + kz];
-            if (kz == 0) {
-              s[h] = make_float2(x.x * a, x.y * a);
-              d[h] = make_float2(x.x * bz, x.y * bz);
+            const T a = s0[h * P1 + kz], bz = d0[h * P1 + kz];
+            if constexpr (std::is_same_v<T, float>) {
+              if (kz == 0) {
+                s[h] = make_float2(x.x * a, x.y * a);
+                d[h] = make_float2(x.x * bz, x.y * bz);
+              } else {
+                s[h] = make_float2(fmaf(x.x, a, s[h].x),
+                                   fmaf(x.y, a, s[h].y));
+                d[h] = make_float2(fmaf(x.x, bz, d[h].x),
+                                   fmaf(x.y, bz, d[h].y));
+              }
             } else {
-              s[h] = make_float2(fmaf(x.x, a, s[h].x), fmaf(x.y, a, s[h].y));
-              d[h] = make_float2(fmaf(x.x, bz, d[h].x), fmaf(x.y, bz, d[h].y));
+              if (kz == 0) {
+                s[h] = make_double2(x.x * a, x.y * a);
+                d[h] = make_double2(x.x * bz, x.y * bz);
+              } else {
+                s[h] = make_double2(fma(x.x, a, s[h].x), fma(x.y, a, s[h].y));
+                d[h] = make_double2(fma(x.x, bz, d[h].x),
+                                    fma(x.y, bz, d[h].y));
+              }
             }
           }
         }
@@ -279,7 +367,9 @@ __global__ void __launch_bounds__(kHdThreads)
     // forward, metric and its apply, per chunk j of 16 q-points
     for (int j = 0; j < QC; ++j) {
       float ga[3][2][4] = {};
+      double g64[F64 ? 3 : 1][2][4] = {};  // the f64 form's sums
       for (int ks = 0; ks < KF; ++ks) {
+        if constexpr (F64) zero_acc(ga);
         uint32_t af[4][4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -301,7 +391,9 @@ __global__ void __launch_bounds__(kHdThreads)
               mma_bf16(ga[e][hh], af[e < 2 ? 0 : 2],
                        __ldg(mfl + (nt * KF + ks) * 32 + lane));
           }
+        if constexpr (F64) add_acc(g64, ga);
       }
+      if constexpr (F64) round_acc(ga, g64);
       // accumulator 2 r + e2 of n8 half hh: row gq + 8 r (plane qz0 + r),
       // q-point 16 j + 8 hh + 2 t4 + e2; as the backward's A fragment it is
       // register 2 hh + r of k16 step j
@@ -310,15 +402,15 @@ __global__ void __launch_bounds__(kHdThreads)
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          float tv[3][2];
+          T tv[3][2];
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
-            float G[6];
+            T G[6];
             hd_metric<P, REBUILD, COFACTOR, FLEX_METRIC, SH>(
                 tb, sm.c24[b], nc, cell, qz0 + r, 16 * j + 8 * hh + 2 * t4 + e2,
                 G);
-            const float gx = ga[0][hh][2 * r + e2], gy = ga[1][hh][2 * r + e2],
-                        gz = ga[2][hh][2 * r + e2];
+            const T gx = ga[0][hh][2 * r + e2], gy = ga[1][hh][2 * r + e2],
+                    gz = ga[2][hh][2 * r + e2];
             tv[0][e2] = G[0] * gx + G[1] * gy + G[2] * gz;
             tv[1][e2] = G[1] * gx + G[3] * gy + G[4] * gz;
             tv[2][e2] = G[2] * gx + G[4] * gy + G[5] * gz;
@@ -339,7 +431,12 @@ __global__ void __launch_bounds__(kHdThreads)
     // row gq + 8 r (plane qz0 + r), column 8 (n0 + g) + 2 t4 + e2
     for (int n0 = 0; n0 < Hs::NB; n0 += 2) {
       float w1[2][4] = {}, w2[2][4] = {};
+      double w64[F64 ? 2 : 1][2][4] = {};  // the f64 form's sums
       for (int kb = 0; kb < QC; ++kb) {
+        if constexpr (F64) {
+          zero_acc(w1);
+          zero_acc(w2);
+        }
         uint32_t tf[3][2][4];
 #pragma unroll
         for (int e = 0; e < 3; ++e)
@@ -369,12 +466,22 @@ __global__ void __launch_bounds__(kHdThreads)
             mma_bf16(w2[g], tf[2][0], __ldg(bl + 2 * QC * 32));
           }
         }
+        if constexpr (F64) {
+          add_acc(w64[0], w1);
+          add_acc(w64[1], w2);
+        }
+      }
+      if constexpr (F64) {
+        round_acc(w1, w64[0]);
+        round_acc(w2, w64[1]);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (qz0 + r >= Q) break;  // the padded plane of odd Q
 #pragma unroll
         for (int kz = 0; kz < P1; ++kz) {
+          // (the f64 form: the z factors rounded to f32, as JAX's f32
+          // products with the Python-float factors round them)
           const float a = s0[r * P1 + kz], bz = d0[r * P1 + kz];
 #pragma unroll
           for (int g = 0; g < 2; ++g) {
@@ -397,7 +504,7 @@ __global__ void __launch_bounds__(kHdThreads)
     const int cl = cell0 + bb;
     const int cx = cl % gr.ncx, cy = (cl / gr.ncx) % gr.ncy,
               cz = cl / (gr.ncx * gr.ncy);
-    float* dst = cells + (static_cast<size_t>(c) * nc + cl) * P13;
+    T* dst = ct + (static_cast<size_t>(c) * nc + cl) * P13;
     for (int l = lane; l < P13; l += kHdThreads) {
       const int kz = l / P12, k2 = l % P12;
       dst[l] = interior(gr, cz * P + kz, cy * P + k2 / P1, cx * P + k2 % P1)
@@ -413,7 +520,7 @@ cudaError_t launch_cells_mma_hd_here(const OpTables<float>& tb, const Grid& gr,
                                      const CellIo<float>& io, float* cells,
                                      cudaStream_t st) {
   auto kern = cells_mma_hd_kernel<P, FUSED, REBUILD, COFACTOR, NP, PX>;
-  using Sm = CellMmaHdSmem<P, NP & kShMask>;
+  using Sm = CellMmaHdSmem<P, NP & kShMask, mma_real<NP>>;
   // above 48 KB a block's shared memory must be requested explicitly
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Sm));
@@ -471,6 +578,28 @@ cudaError_t launch_cells_mma_hd(const OpTables<float>& tb, const Grid& gr,
   M(4, false, false, kAdjj, NP, false) M(4, true, false, kAdjj, NP, false) \
   M(4, true, false, kAdjj, NP, true)
 
+// The f64 form of split2m (kF64Cg, bp4_operator.cuh: B1/B2's products
+// summed in f32) at every degree 1..11, p=4 with the rebuilt metric too
+// (cell_mma.cuh's pass keeps v in registers, which f64 would double past
+// its 242 of 255), in mma_f64.cu, one object a degree: B1, B2 x the metric
+// streamed, rebuilt by adjj, rebuilt by jtj; not B2's P/x form.  Shared
+// memory at p=11: u and the coefficients at f64, v at f32, 223 KB.
+#define BP4_CELL_MMA_HD_F64(P, M)                                            \
+  M(P, false, false, kAdjj, kF64Cg, false)                                   \
+  M(P, false, true, kAdjj, kF64Cg, false) M(P, false, true, kJtj, kF64Cg, false) \
+  M(P, true, false, kAdjj, kF64Cg, false) M(P, true, true, kAdjj, kF64Cg, false) \
+  M(P, true, true, kJtj, kF64Cg, false)
+BP4_CELL_MMA_HD_F64(1, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(2, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(3, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(4, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(5, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(6, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(7, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(8, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(9, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(10, BP4_CELL_MMA_HD_DECLARE1)
+BP4_CELL_MMA_HD_F64(11, BP4_CELL_MMA_HD_DECLARE1)
 BP4_CELL_MMA_HD_DECLARE(1)
 BP4_CELL_MMA_HD_DECLARE(2)
 BP4_CELL_MMA_HD_DECLARE(3)

@@ -37,6 +37,11 @@
 //     metric streamed or rebuilt from the coefficients by either chain.
 //     Under "highest" the dense and twostage operators are one function;
 //     this pass sums it in its own order.
+//   f64 "split2m" (bp4_operator.cuh's kF64): the dense pass of
+//     apply_mma_hd.cuh and the twostage one of cell_mma_hd.cuh at every
+//     degree 1..11, the metric streamed or rebuilt by either chain, the
+//     products' chains summed in f32 and met by the f64 metric, as
+//     cg_fused_kernel._mm_pre sums them (mma_f64.cu, one object a degree);
 //   f32 "split2m", "split3", "bf16" (the tensor-core rungs, a template
 //   parameter NP of each pass: the products a tile, mma.cuh; split2m's
 //   instantiated here, the others in mma_rungs.cu and cell_mma_pNN.cu):
@@ -256,7 +261,10 @@ Grid make_grid(int degree, int ncz, int ncy, int ncx) {
 // dtype: 0 = float32, 1 = float64.  rung: 0 "highest", else the products
 // a tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).
 // Instantiated: f32 and f64 "highest" at degrees 1..11 (mats unused,
-// coeffs (24, n_cells)); f32 on the tensor-core rungs: dense at degrees
+// coeffs (24, n_cells)); f64 split2m, dense and twostage at degrees 1..11
+// as f32's below (the dense pass's scratch at every degree), B1 and B2's
+// update form only (no store, metric_bf16, prec_bf16, x_bf16, shape or
+// block form); f32 on the tensor-core rungs: dense at degrees
 // 1..11 (dense = 1: mats the bf16 fragment tables of the dense M, coeffs
 // (24, n_cells); from p=5 scratch holds bp4_dense_scratch_len 16-byte
 // words, else it is unused), and twostage at degrees 1..11 (dense = 0:
@@ -300,7 +308,7 @@ int bp4_matvec(int dtype, int rung, int degree, int shape, int dense,
       scratch, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_MATVEC, T)
   if (dtype == 0) BP4_DEGREES(float)
-  if (dtype == 1 && !rung) BP4_DEGREES(double)
+  if (dtype == 1 && (!rung || rung == 2)) BP4_DEGREES(double)
 #undef BP4_DEGREES
 #undef BP4_MATVEC
   return -1;
@@ -335,7 +343,7 @@ int fused_entry(int dtype, int rung, int degree, int shape, int dense,
       static_cast<T*>(partials), scratch, block, passes, st)
 #define BP4_DEGREES(T) BP4_SWITCH_DEGREE(BP4_FUSED, T)
   if (dtype == 0) BP4_DEGREES(float)
-  if (dtype == 1 && !rung) BP4_DEGREES(double)
+  if (dtype == 1 && (!rung || rung == 2)) BP4_DEGREES(double)
 #undef BP4_DEGREES
 #undef BP4_FUSED
   return -1;

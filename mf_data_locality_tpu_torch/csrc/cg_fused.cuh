@@ -110,11 +110,51 @@ cudaError_t tensor_cells(int dense, int cofactor, const OpTables<T>& tb,
   return none;
 }
 
+// The f64 form of split2m's cell pass of B1 (FUSED false) or B2 (the
+// update form) for the configuration (dense, cofactor, tb.gmetric null or
+// not), kF64Cg (bp4_operator.cuh): the dense pass of apply_mma_hd.cuh and
+// the twostage one of cell_mma_hd.cuh at every degree (mma_f64.cu), their
+// f64 tensors in the passes' float-typed parameters.
+template <int P, bool FUSED>
+cudaError_t tensor_cells_f64(int dense, int cofactor,
+                             const OpTables<double>& tb, const Grid& gr,
+                             const CellIo<double>& io, double* cells,
+                             void* scratch, cudaStream_t st) {
+  constexpr int FORM = cell_form(FUSED, false, false);
+  const OpTables<float> tf = tables_as<float>(tb);
+  const CellIo<float> iof = io_as<float>(io);
+  const auto out = reinterpret_cast<float*>(cells);
+  if (dense) {
+    const auto mf = reinterpret_cast<const uint2*>(tb.mats);
+    const auto mb = mf + 3 * MmaShape<P>::Q3P * MmaShape<P>::P13P / 4;
+    const MmaFusedArgs x{tf.pds, tf.w3, tf.coeffs, iof};
+    if (tb.gmetric)
+      return launch_mma_hd<P, FORM, false, kF64Cg>(mf, mb, tf.gmetric, gr,
+                                                   nullptr, iof.d, out, x,
+                                                   scratch, st);
+    return cofactor == kJtj
+               ? launch_mma_hd<P, FORM, true, kF64Cg | kJtjChain>(
+                     mf, mb, nullptr, gr, nullptr, iof.d, out, x, scratch, st)
+               : launch_mma_hd<P, FORM, true, kF64Cg>(
+                     mf, mb, nullptr, gr, nullptr, iof.d, out, x, scratch,
+                     st);
+  }
+  if (tb.gmetric)
+    return launch_cells_mma_hd<P, FUSED, false, kAdjj, kF64Cg>(tf, gr, iof,
+                                                               out, st);
+  return cofactor == kJtj
+             ? launch_cells_mma_hd<P, FUSED, true, kJtj, kF64Cg>(tf, gr, iof,
+                                                                 out, st)
+             : launch_cells_mma_hd<P, FUSED, true, kAdjj, kF64Cg>(
+                   tf, gr, iof, out, st);
+}
+
 // The cell pass of B1 (FUSED false) or B2 for the configuration (rung,
 // dense, cofactor, tb.gmetric null or not); each writes the masked
 // cell-local result to cells[(c * n_cells + cell) * P13 + l].  rung 0:
 // highest, the sum-factorized pass; 1..3: the tensor-core rungs
-// (tensor_cells).  scratch: the dense tensor-core pass's at p >= 5.  PX:
+// (tensor_cells), at f64 split2m alone (tensor_cells_f64; not with P or
+// x in bf16, nor in the block form, nor with the bf16 state or metric).  scratch: the dense tensor-core pass's at p >= 5.  PX:
 // B2 with P or x in bf16 (io.prec_bf16, io.x_bf16), the passes' PX
 // instantiations.  BLOCK: B2's block form (kLatticeUpdateBlock), the
 // sum-factorized pass and the dense tensor-core passes only (-1 for the
@@ -171,6 +211,10 @@ cudaError_t launch_cells(int rung, int dense, int cofactor,
       return tensor_cells<T, P, FUSED, PX, BLOCK, NP>(dense, cofactor, tb, gr,
                                                       io, cells, scratch, st);
     });
+  } else if constexpr (!PX && !BLOCK) {
+    if (rung == 2 && !io.bf16 && !mbf)
+      return tensor_cells_f64<P, FUSED>(dense, cofactor, tb, gr, io, cells,
+                                        scratch, st);
   }
   return none;
 }

@@ -67,9 +67,10 @@
 namespace bp4 {
 
 // The cell pass of B3, B5 and B6 (streamed metric): under a tensor-core
-// rung (f32 only; rung = its products a tile, 1..3) the tensor-core pass,
-// whose m0/m1 are the dense M's bf16 fragment tables, from p=5 with
-// `scratch` (dense_hd_scratch_len); under highest (rung 0) the
+// rung (rung = its products a tile, 1..3; f64 split2m alone) the
+// tensor-core pass, whose m0/m1 are the dense M's bf16 fragment tables,
+// from p=5 (f64: at every degree) with `scratch` (dense_hd_scratch_len);
+// under highest (rung 0) the
 // sum-factorized pass, whose m0/m1 are S and D (Q, P1).  metric_bf16: the
 // metric in bf16; state_bf16: u (and B3's output) in bf16 (both f32
 // only).
@@ -127,8 +128,16 @@ cudaError_t metric_pass(int rung, int metric_bf16, int state_bf16,
       }
       return run(std::integral_constant<int, 0>{});
     });
+  } else {
+    // the f64 form of split2m (kF64Apply: the products summed in f64),
+    // apply_mma_hd.cuh's pass at every degree (mma_f64.cu), its f64
+    // tensors in the pass's float-typed parameters
+    if (rung != 2 || metric_bf16 || state_bf16) return none;
+    return launch_mma_hd<P, FORM, false, kF64Apply>(
+        m0, m1, reinterpret_cast<const float*>(gm), gr,
+        reinterpret_cast<const float*>(mm), reinterpret_cast<const float*>(uu),
+        reinterpret_cast<float*>(oo), MmaFusedArgs{}, scratch, st);
   }
-  return none;
 }
 
 // B4: the sum-factorized pass with the metric rebuilt, on a cell batch;
@@ -299,7 +308,9 @@ int lattice_for_degree(int dtype, int rung, int shape, int metric_bf16,
 // dtype: 0 = float32, 1 = float64.  rung: 0 "highest", else the products a
 // tile of a tensor-core rung (1 bf16, 2 split2m, 3 split3).  Instantiated:
 // "highest" f32 and f64 at degrees 1..11 (B3, B5, B6: the sum-factorized
-// pass, mats = S, kmats = D), the f32 tensor-core rungs at degrees 1..11
+// pass, mats = S, kmats = D), f64 split2m at degrees 1..11 (the metric and
+// u at f64, scratch at every degree; neither metric_bf16 nor a bf16
+// state), the f32 tensor-core rungs at degrees 1..11
 // (B3, B5, B6: the tensor-core pass, mats/kmats = its forward and backward
 // fragment tables, split3's Ml tables after them; from p=5 scratch holds
 // bp4_dense_scratch_len 16-byte words, else it is unused); B4 (onthefly: the
@@ -332,8 +343,9 @@ extern "C" {
 
 // The scratch of the dense tensor-core pass at degrees 5..11 (B3, B5, B6,
 // B1/B2 dense) under the rung with `rung` products a tile, and at every
-// degree under split2m at a shape beyond BP4's (`shape`, shapes.cuh), for
-// n_cells cells, in 16-byte words; 0 where the pass needs none.
+// degree under split2m at a shape beyond BP4's (`shape`, shapes.cuh) and
+// in its f64 form (`rung` 2 | kF64, 130), for n_cells cells, in 16-byte
+// words; 0 where the pass needs none.
 int bp4_dense_scratch_len(int rung, int degree, int shape, int n_cells) {
   if (shape) {
     if (rung != 2) return 0;
@@ -355,6 +367,11 @@ int bp4_dense_scratch_len(int rung, int degree, int shape, int n_cells) {
       rung == 1   ? bp4::dense_hd_scratch_len<P, 1>(n_cells)           \
       : rung == 2 ? bp4::dense_hd_scratch_len<P, 2>(n_cells)           \
                   : bp4::dense_hd_scratch_len<P, 3>(n_cells))
+  if (rung == (2 | bp4::kF64)) {  // the f64 form: at every degree
+    rung = 2;
+    BP4_SWITCH_DEGREE(BP4_SCRATCH)
+    return 0;
+  }
   if (rung < 1 || rung > 3) return 0;
   switch (degree) {
     case 5: return BP4_SCRATCH(5);

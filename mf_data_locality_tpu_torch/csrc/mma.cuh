@@ -17,6 +17,8 @@
 
 #include <cstdint>
 
+#include "bp4_operator.cuh"
+
 namespace bp4 {
 
 // c += a . b on one m16n8k16 tile: a row-major bf16 (4 registers), b
@@ -53,5 +55,19 @@ __device__ __forceinline__ void stream_parts(float x0, float x1, uint32_t& hi,
   } else {
     split_pair(x0, x1, hi, lo);
   }
+}
+// split2m's stream parts of two f64 values (the f64 form, kF64): hi =
+// bf16(x) rounded through f32 (bp4_operator.cuh's bf16_of), lo = bf16(x -
+// hi) from the f64 difference, as cg_fused_kernel._stream_parts splits an
+// f64 stream.
+template <int NP>
+__device__ __forceinline__ void stream_parts(double x0, double x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  static_assert(NP == 2, "the f64 form is split2m's");
+  const __nv_bfloat16 h0 = bf16_of(x0), h1 = bf16_of(x1);
+  const __nv_bfloat162 h = __halves2bfloat162(h0, h1),
+                       l = __halves2bfloat162(lo_of(x0, h0), lo_of(x1, h1));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 }  // namespace bp4

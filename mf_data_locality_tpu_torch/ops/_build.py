@@ -8,7 +8,8 @@ and ``apply_mma_pNN.cu``, the largest instantiations, the twostage one at
 p=1..3 too, the dense one at p <= 4 with the jtj chain ``mma_jtj.cu``, and
 B2 with P or x in bf16 at p <= 4 ``cg_fused_px.cu``, its block form
 ``cg_fused_block.cu``, the cell passes at the shapes beyond BP4's
-``shapes.cu`` and B2's block form at one component ``shapes_block.cu``;
+``shapes.cu``, B2's block form at one component ``shapes_block.cu`` and
+the f64 form of split2m's tensor-core passes ``mma_f64.cu``;
 the sources of :data:`FLAG_BUILDS` are compiled once per
 flag set, ``-DBP4_RUNG=n``, ``-DBP4_DEGREE=p`` and ``-DBP4_SHAPE=f``), and
 links them into one shared library with a plain C interface, which is
@@ -46,6 +47,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O0",
 # the storage flag of the bf16 state (kSbState; the kernels take it by
 # their state arguments)
 SHAPE_C1, SHAPE_Q1, STATE_BF16 = 32, 64, 4
+# the f64 form of split2m's tensor-core passes (kF64): bp4_dense_scratch_len
+# takes its rung as 2 | F64_FORM
+F64_FORM = 128
 
 
 def _rungs(*rungs: int) -> tuple[tuple[str, ...], ...]:
@@ -92,6 +96,9 @@ FLAG_BUILDS = {
                                   SHAPE_C1 | STATE_BF16)),
     # B2's block form at one component, one object a degree
     "shapes_block.cu": tuple((f"-DBP4_DEGREE={p}",) for p in range(1, 12)),
+    # the f64 form of split2m (the dense and twostage tensor-core passes
+    # at f64, csrc/bp4_operator.cuh's kF64), one object a degree
+    "mma_f64.cu": tuple((f"-DBP4_DEGREE={p}",) for p in range(1, 12)),
 }
 
 

@@ -52,7 +52,14 @@ other devices raise.  The kernel's cell pass:
   chain) and at p=4 with the streamed metric: the tensor-core pass of
   ``csrc/cell_mma_hd.cuh`` on the same tables, two q-planes of 8 cells the
   rows of its tiles (built one source a degree and rung,
-  ``csrc/cell_mma_p01.cu`` .. ``cell_mma_p11.cu``).
+  ``csrc/cell_mma_p01.cu`` .. ``cell_mma_p11.cu``);
+* f64 ``split2m`` (the JAX CLI's ``--dtype f64 --precision split2m``),
+  every fused configuration at p=1..11 with P and x at f64, on one
+  device: the f64 form of ``csrc/apply_mma_hd.cuh``'s dense pass and of
+  ``csrc/cell_mma_hd.cuh``'s twostage pass at every degree
+  (``csrc/mma_f64.cu``), the bf16 parts rounded from f64 through f32, the
+  products' sums rounded to f32 (``_mm_pre``'s f32 result) and met by the
+  f64 metric, as the plain versions round them (:func:`_f32_sums`).
 
 The vectors' components C (BP4 3, CEED BP3 1) come from their shape and
 q from ``op.n_q``: at the shapes beyond BP4's (C = 1, q = p + 1, both;
@@ -198,28 +205,42 @@ def _on_batch(op: OperatorData, u: torch.Tensor, apply) -> torch.Tensor:
         n_comp, nc, p1, p1 * p1)
 
 
+def _f32_sums(op: OperatorData, t: torch.Tensor) -> torch.Tensor:
+    """``t``, a sum of a tensor-core rung's products, rounded to f32 and
+    held at the working dtype: B1/B2 sum them in f32 whatever the state's
+    dtype (``_mm_pre``'s ``preferred_element_type=jnp.float32``), which at
+    f64 (split2m) rounds; under ``highest`` ``t`` as it is."""
+    if op.precision not in laplace_cuda.TENSOR_RUNGS:
+        return t
+    return t.to(torch.float32).to(t.dtype)
+
+
 def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
     """Cell-local operator in ``op.factor``'s form: (C, Nz, Ny, Nx) -> (C,
     n_cells, p1, p1^2).  Dense: ``laplace_apply._batched_plain`` on the
     cells; twostage: the z stage by S and D, then the 2D matrices, each
-    product at ``op.precision`` (:func:`_terms`)."""
+    product at ``op.precision`` (:func:`_terms`).  Under a tensor-core rung
+    each product's sum is f32 (:func:`_f32_sums`) and twostage's z stage
+    back runs at f32, as the JAX kernels' (their factors Python floats,
+    rounded to f32 against the f32 products); at f32 that is the working
+    dtype, at f64 (split2m) the JAX package's rounding points."""
     # laplace_apply imports this module, so it is imported here
     from mf_data_locality_tpu_torch.ops import laplace_apply
 
     rung = op.precision
     if op.factor == "dense":
         return _on_batch(op, u, lambda b, G: laplace_apply._batched_plain(
-            op, b, G, True))
+            op, b, G, True, f32_sums=True))
     q = op.n_q
     q2 = q * q
     cells = _cells(op, u)                                   # (C, n, kz, k2)
     uS = torch.einsum("qk,cnkr->cnqr", op.sz, cells)
     uD = torch.einsum("qk,cnkr->cnqr", op.dz, cells)
     mxy, mz = op.mats2d[:2 * q2], op.mats2d[2 * q2:]
-    gxy = sum(torch.einsum("sr,cnqr->cnqs", a, b)
-              for a, b in _terms(mxy, uS, rung))
-    gz = sum(torch.einsum("sr,cnqr->cnqs", a, b)
-             for a, b in _terms(mz, uD, rung))
+    gxy = _f32_sums(op, sum(torch.einsum("sr,cnqr->cnqs", a, b)
+                            for a, b in _terms(mxy, uS, rung)))
+    gz = _f32_sums(op, sum(torch.einsum("sr,cnqr->cnqs", a, b)
+                           for a, b in _terms(mz, uD, rung)))
     gx, gy = gxy[..., :q2], gxy[..., q2:]
     G = cell_metric(op).reshape(6, 1, op.n_cells, q, q2)
     t0 = G[0] * gx + G[1] * gy + G[2] * gz
@@ -230,8 +251,10 @@ def _cell_apply(op: OperatorData, u: torch.Tensor) -> torch.Tensor:
              for a, b in _terms(mxy, t01, rung))
     w2 = sum(torch.einsum("sr,cnqs->cnqr", a, b)
              for a, b in _terms(mz, t2, rung))
-    return (torch.einsum("qk,cnqr->cnkr", op.sz, w1)
-            + torch.einsum("qk,cnqr->cnkr", op.dz, w2))
+    back = torch.float32 if rung in laplace_cuda.TENSOR_RUNGS else op.dtype
+    return (torch.einsum("qk,cnqr->cnkr", op.sz.to(back), w1.to(back))
+            + torch.einsum("qk,cnqr->cnkr", op.dz.to(back), w2.to(back))
+            ).to(op.dtype)
 
 
 def _cell_apply_mma_emulated(op: OperatorData,
@@ -547,6 +570,11 @@ def _check_cuda(op: OperatorData, vectors, state=(), prec=None,
     px = ((prec is not None and prec.dtype == torch.bfloat16)
           or (bool(xs) and xs[0].dtype == torch.bfloat16))
     shape = check_kernel_shape(op, n_comp, store, px)
+    if (px and op.dtype == torch.float64
+            and op.precision in laplace_cuda.TENSOR_RUNGS):
+        raise NotImplementedError(
+            f"B2 with P or x in bf16 under {op.precision!r} at f64 is not "
+            f"instantiated: see ROADMAP.md, queue B item 6h")
     if px and op.slab is not None:
         raise NotImplementedError(
             "B2's block form with P or x in bf16 is not instantiated: no "
@@ -657,12 +685,16 @@ class Workspace:
 def dense_scratch(op: OperatorData, shape: int = 0) -> int | None:
     """The pointer to the scratch of the dense tensor-core pass at p >= 5,
     and at every degree at a shape beyond BP4's (``shape``, the kernels'
-    shape argument) (``csrc/apply_mma_hd.cuh``: its operands'
-    fragments, the ``bp4_dense_scratch_len`` 16-byte words of ``op``'s
-    rung, degree, shape and cells), allocated once an operator and shape
-    and kept in ``op.cache``; None where the pass needs none."""
-    n = _build.load().bp4_dense_scratch_len(rung_args(op)[0], op.degree,
-                                            shape, op.n_cells)
+    shape argument) and at f64 (split2m's f64 form) (``csrc/
+    apply_mma_hd.cuh``: its operands' fragments, the
+    ``bp4_dense_scratch_len`` 16-byte words of ``op``'s rung, degree,
+    shape and cells), allocated once an operator and shape and kept in
+    ``op.cache``; None where the pass needs none."""
+    rung = rung_args(op)[0]
+    if rung and op.dtype == torch.float64:
+        rung |= _build.F64_FORM
+    n = _build.load().bp4_dense_scratch_len(rung, op.degree, shape,
+                                            op.n_cells)
     if not n:
         return None
     key = ("dense_scratch", shape)

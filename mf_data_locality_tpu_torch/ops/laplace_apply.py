@@ -29,7 +29,11 @@ Each kernel wrapper runs the hand-written CUDA kernel
 ``split2m``, ``split3`` and ``bf16`` — ``csrc/apply_mma.cuh`` at p=1..4,
 ``csrc/apply_mma_hd.cuh`` at p=5..11 with a scratch for its operands'
 fragments (:func:`dense_scratch`) —, the metric streamed in f32 or, under
-the last two, in bf16; B4 the sum-factorized pass with the metric rebuilt from
+the last two, in bf16, and under ``split2m`` at f64 (the JAX CLI's
+``--dtype f64 --precision split2m``) the f64 form of
+``csrc/apply_mma_hd.cuh``'s pass at every degree (``csrc/mma_f64.cu``:
+the bf16 parts rounded from f64 through f32, the products' sums in f64,
+as ``laplace_pallas._mm`` sums them); B4 the sum-factorized pass with the metric rebuilt from
 ``op.coeffs`` on every rung) for tensors on a CUDA device and its plain
 PyTorch version (the dense einsum over cells, the same bf16 rounding
 points for the rung) for tensors on the CPU;
@@ -66,7 +70,7 @@ import torch
 from mf_data_locality_tpu_torch.mesh.dofs import boundary_node_mask
 from mf_data_locality_tpu_torch.ops import _build, laplace_cuda
 from mf_data_locality_tpu_torch.ops.cg_fused_kernel import (
-    _mma_terms, _route, _terms, cell_metric,
+    _f32_sums, _mma_terms, _route, _terms, cell_metric,
     check_kernel_shape, check_tensors, dense_scratch, dtype_code,
     metric_onthefly, mma_parts, rung_args)
 from mf_data_locality_tpu_torch.ops.laplace_cuda import OperatorData
@@ -138,27 +142,32 @@ def _metric(op: OperatorData) -> torch.Tensor:
 
 
 def _batched_plain(op: OperatorData, u_loc: torch.Tensor, G: torch.Tensor,
-                   at_rung: bool, store: bool = True) -> torch.Tensor:
+                   at_rung: bool, store: bool = True,
+                   f32_sums: bool = False) -> torch.Tensor:
     """v = sum_e M_e^T G_ef M_f u on a cell batch (``_kernel_g`` /
     ``_kernel``), the products at ``op.precision`` when ``at_rung``, else
     exact (B4's ``Precision.HIGHEST``).  A bf16 ``u_loc`` is applied at the
     working dtype (its lo part is zero: the JAX kernels' degraded product
     sets are these) and the result rounded to bf16 when ``store`` (the
-    kernels' ``out_ref``), else left at the working dtype."""
+    kernels' ``out_ref``), else left at the working dtype.  The products'
+    sums are at the working dtype (``laplace_pallas._mm``: f64 at f64), or
+    with ``f32_sums`` (B1/B2, ``cg_fused_kernel._f32_sums``) rounded to
+    f32 under a tensor-core rung."""
+    sums = _f32_sums if f32_sums else (lambda _, t: t)
     p13 = (op.degree + 1) ** 3
     q3 = op.n_q ** 3
     nc = u_loc.shape[1]
     u = u_loc.to(op.dtype).reshape(-1, p13, nc)
     rung = op.precision if at_rung else "highest"
-    g = sum(torch.einsum("rk,ckn->crn", a, b)
-            for a, b in _terms(op.mats, u, rung))
+    g = sums(op, sum(torch.einsum("rk,ckn->crn", a, b)
+                     for a, b in _terms(op.mats, u, rung)))
     gx, gy, gz = g.reshape(-1, 3, q3, nc).unbind(1)
     t = torch.stack([G[0] * gx + G[1] * gy + G[2] * gz,
                      G[1] * gx + G[3] * gy + G[4] * gz,
                      G[2] * gx + G[4] * gy + G[5] * gz], dim=1)
     t = t.reshape(-1, 3 * q3, nc)
-    v = sum(torch.einsum("rk,crn->ckn", a, b)
-            for a, b in _terms(op.mats, t, rung))
+    v = sums(op, sum(torch.einsum("rk,crn->ckn", a, b)
+                     for a, b in _terms(op.mats, t, rung)))
     return v.reshape(-1, nc).to(u_loc.dtype if store else op.dtype)
 
 

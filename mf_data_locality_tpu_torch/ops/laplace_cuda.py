@@ -31,6 +31,12 @@ The arrays are kept in canonical order — the port works on the lattice
 ``(C, Nz, Ny, Nx)``, not on the TPU's corner-piece rows — so no column
 permutation, no cell padding and no windowed mask are held.
 
+Under the tensor-core rungs the working dtype is f32, and under
+``split2m`` also f64 (:data:`F64_RUNGS`; the JAX CLI's ``--dtype f64
+--precision split2m``), on one device at BP4's shape; split3 and bf16 at
+f64, the bf16 metric at f64 and a tensor-core rung at f64 on the ranks'
+blocks are queue B item 6h's rest.
+
 Arrays (working dtype ``T``, f32 or f64, all on ``device``; a bf16 state,
 ``dtype=torch.bfloat16`` — d and h of every solver on every rung —, keeps
 them in f32, as the JAX package does):
@@ -106,8 +112,13 @@ _SHAPE_TODO = ("not instantiated: see ROADMAP.md, queue B item 6g (q != "
 # q = p + 1) are _build.SHAPE_C1 and SHAPE_Q1
 SHAPE_PRECISIONS = ("highest", "split2m")
 _F64_TODO = ("not ported yet: see ROADMAP.md, queue B item 6h (f64 beside "
-             "bf16 parts: the tensor-core rungs and the bf16 metric stream "
-             "at f64)")
+             "bf16 parts: split2m at f64 runs on one device at BP4's shape; "
+             "split3, bf16, the bf16 metric stream and the ranks' blocks "
+             "at f64 do not yet)")
+# the rung whose f64 form the kernels have (csrc/bp4_operator.cuh's kF64)
+F64_RUNGS = ("split2m",)
+_BLOCK_Q1 = ("not instantiated: see ROADMAP.md, queue A item 10 (no "
+             "distributed JAX solver runs q = p + 1)")
 
 WINDOWINGS = ("reshape", "pieces", "zslab")
 COFACTORS = ("adjj", "jtj")
@@ -458,7 +469,8 @@ def check_config(precision: str, factor: str = "twostage",
         raise NotImplementedError(f"precision={precision!r} is {_TODO}")
     if dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(f"dtype={dtype} is {_TODO}")
-    if precision in TENSOR_RUNGS and dtype == torch.float64:
+    if (precision in TENSOR_RUNGS and precision not in F64_RUNGS
+            and dtype == torch.float64):
         raise NotImplementedError(
             f"precision={precision!r} with dtype={dtype} is {_F64_TODO}")
     table = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -505,32 +517,40 @@ def check_shape(degree: int, n_q: int, n_components: int,
     SHAPE_C1 (one component, CEED BP3) and/or SHAPE_Q1 (q = p + 1).
     NotImplementedError (queue B item 6g) for any other shape, and at
     those two for what they are not built with: a rung other than highest
-    and split2m (:data:`SHAPE_PRECISIONS`), a bf16 metric
+    and split2m (:data:`SHAPE_PRECISIONS`), split2m at f64, a bf16 metric
     (``metric_dtype``), B2's P/x form (``px``), and at q = p + 1 a bf16
-    state (``dtype``) and a block operator (``block``, the distributed
-    solvers).  CEED BP3 (one component, q = p + 2) takes the bf16 state
-    and the block forms, on one device and on the ranks.  The plain
-    versions take every shape."""
+    state (``dtype``); a block operator (``block``, the distributed
+    solvers) at q = p + 1 (queue A item 10) and, at any shape, under a
+    tensor-core rung at f64 (queue B item 6h).  CEED BP3 (one component,
+    q = p + 2) takes the bf16 state and the block forms, on one device
+    and on the ranks.  The plain versions take every shape."""
     if n_components not in (1, 3) or n_q not in (degree + 1, degree + 2):
         raise NotImplementedError(
             f"n_q={n_q} at degree {degree} with {n_components} component(s) "
             f"on the pallas backend is {_SHAPE_TODO}")
     flags = ((SHAPE_C1 if n_components == 1 else 0)
              | (SHAPE_Q1 if n_q == degree + 1 else 0))
-    if not flags:
-        return 0
     q1 = bool(flags & SHAPE_Q1)
     lacks = [what for what, bad in (
         (f"precision={precision!r}", precision not in SHAPE_PRECISIONS),
+        (f"precision={precision!r} at f64",
+         precision in TENSOR_RUNGS and dtype == torch.float64),
         ("a bf16 state at q = p + 1", dtype == torch.bfloat16 and q1),
         ("a bf16 metric", metric_dtype == torch.bfloat16),
-        ("the block form (distributed) at q = p + 1", block and q1),
         ("P or x in bf16", px)) if bad]
-    if lacks:
+    if flags and lacks:
         raise NotImplementedError(
             f"{', '.join(lacks)} at n_q={n_q}, degree {degree}, "
             f"{n_components} component(s) on the pallas backend is "
             f"{_SHAPE_TODO}")
+    if block and q1:
+        raise NotImplementedError(
+            f"the block form (distributed) at q = p + 1 (n_q={n_q}, degree "
+            f"{degree}, {n_components} component(s)) is {_BLOCK_Q1}")
+    if block and precision in TENSOR_RUNGS and dtype == torch.float64:
+        raise NotImplementedError(
+            f"precision={precision!r} with dtype={dtype} on a block (the "
+            f"ranks) is {_F64_TODO}")
     return flags
 
 

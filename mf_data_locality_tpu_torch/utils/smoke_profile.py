@@ -3,6 +3,8 @@
     python -m mf_data_locality_tpu_torch.utils.smoke_profile [--out DIR]
     python -m mf_data_locality_tpu_torch.utils.smoke_profile --nvcc \\
         SOURCE [-DNAME=VALUE ...]
+    python -m mf_data_locality_tpu_torch.utils.smoke_profile \\
+        --build-log LOG [--cores 8]
 
 The first runs ``chip_smoke.main()`` (from the repository's root) under a
 stack sampler: every 20 ms it reads the main thread's stack and counts
@@ -17,14 +19,23 @@ The second compiles one ``csrc`` source (with the given ``-D`` flags) at
 the build's flags (``ops/_build.NVCC_FLAGS``) and again with the host
 level ``-O3`` in their place, both at once, under ``nvcc --time``: each
 phase's milliseconds and each compile's CPU seconds.
+
+The third reads a build's log (``_kernel_build/libbp4_*.log``: each
+compile's ``nvcc: SOURCE FLAGS T s`` end time, all started together, and
+ptxas's per-kernel lines) and, taking the ``--cores`` as shared evenly
+among the compiles still running, gives each compile's CPU seconds, the
+share of ptxas's (the end of each compile's life), each source's sum, and
+the kernels compiled in more than one object.  No card is needed.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import csv
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -120,11 +131,71 @@ def compile_times(source: str, defines: list[str]) -> None:
                     print(f"  {row[1].strip():24s} {float(row[6]):10.1f} ms")
 
 
+def build_log_costs(log: Path, cores: int = 8) -> None:
+    """Print the CPU accounting of a build log (module docstring)."""
+    compiles, kernels, name = [], [], None
+    for line in log.read_text().splitlines():
+        if m := re.match(r"ptxas info\s+: Compiling entry function '(\S+)'",
+                         line):
+            name = m.group(1)
+        elif m := re.match(r"ptxas info\s+: Compile time = ([\d.]+) ms",
+                           line):
+            kernels.append((name, float(m.group(1)) / 1e3))
+        elif m := re.match(r"nvcc: (.*) ([\d.]+) s$", line):
+            compiles.append((m.group(1), float(m.group(2)), kernels))
+            kernels = []
+    ends = sorted(end for _, end, _ in compiles)
+
+    def cpu(t0: float, t1: float, dt: float = 0.05) -> float:
+        # seconds of one core a compile had over [t0, t1]
+        total, t = 0.0, t0
+        while t < t1:
+            running = len(ends) - bisect.bisect_right(ends, t)
+            total += min(1.0, cores / max(running, 1)) * min(dt, t1 - t)
+            t += dt
+        return total
+
+    by_source = collections.defaultdict(lambda: [0.0, 0.0, 0])
+    seen = collections.defaultdict(list)
+    for label, end, ks in compiles:
+        ptxas = sum(t for _, t in ks)
+        row = by_source[label.split()[0]]
+        row[0] += cpu(0.0, end)
+        row[1] += cpu(max(0.0, end - ptxas), end)
+        row[2] += 1
+        for k, t in ks:
+            seen[k].append((label, t))
+    total = sum(r[0] for r in by_source.values())
+    ptxas = sum(r[1] for r in by_source.values())
+    print(f"{len(compiles)} compiles, the last ending at {ends[-1]:.1f} s: "
+          f"{total:.0f} CPU s on {cores} cores ({total / cores:.1f} s), "
+          f"ptxas {ptxas:.0f} CPU s")
+    for src, (c, p, n) in sorted(by_source.items(), key=lambda x: -x[1][0]):
+        print(f"  {src:24s} {c:8.1f} CPU s, ptxas {p:7.1f}, {n} objects")
+    again = {k: v for k, v in seen.items() if len(v) > 1}
+    extra = sum(t for v in again.values() for _, t in v[1:])
+    whole = sum(t for v in seen.values() for _, t in v)
+    print(f"{len(seen)} kernels, {len(again)} compiled in more than one "
+          f"object ({sum(len(v) - 1 for v in again.values())} compiles "
+          f"again, {extra / whole:.1%} of ptxas's seconds)")
+    pairs = collections.Counter()
+    for v in again.values():
+        pairs[tuple(sorted({re.sub(r"=\d+", "=n", o) for o, _ in v}))] += (
+            len(v) - 1)
+    for objs, n in pairs.most_common(6):
+        print(f"  {n:4d}  {' / '.join(objs)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("."))
     ap.add_argument("--nvcc", metavar="SOURCE")
+    ap.add_argument("--build-log", type=Path, metavar="LOG")
+    ap.add_argument("--cores", type=int, default=8)
     args, defines = ap.parse_known_args(argv)
+    if args.build_log:
+        build_log_costs(args.build_log, args.cores)
+        return 0
     if args.nvcc:
         compile_times(args.nvcc, defines)
         return 0

@@ -110,7 +110,7 @@ def _is_shape(name: str) -> bool:
     argument with kShC1 (32) or kShQ1 (64), or a node pass over one
     component (NC = 1, its last template argument)."""
     flags = (int(v) for v in re.findall(r"Li(\d+)E", name))
-    return (any(v >= 32 for v in flags)
+    return (any(v & 96 for v in flags)
             or bool(re.search(r"^_ZN3bp4\d+(assemble_kernel|"
                               r"assemble_bf16_kernel|block_carry_kernel)I"
                               r".*Li1EE+v", name)))
@@ -201,7 +201,10 @@ def build_report(parent: str | None) -> bool:
         print(f"  ptxas {k[:110]} regs {v[0]} spill {v[1]}/{v[2]}")
     if base is not None:
         same = diff = 0
-        sb = {k: b2_storage_parent(k) for k in table}
+        # B2's storage forms new to this tree (a parent before them holds
+        # the update form in their place); where the parent holds the same
+        # name they count among the shared instantiations
+        sb = {k: b2_storage_parent(k) for k in table if k not in base}
         sb = {k: v for k, v in sb.items() if v is not None}
         print(f"B2's storage instantiations (the P/x form; the parent's: "
               f"the update form): {len(sb)}")
@@ -226,8 +229,8 @@ def build_report(parent: str | None) -> bool:
         missing = (set(base) - {_unpx(k) for k in table} - set(table)
                    - set(sb.values()))
         print(f"instantiations shared with the parent (the block form "
-              f"and B2's storage forms apart): {same + diff}, equal {same}, "
-              f"changed {diff}; parent's not found {len(missing)}; "
+              f"and B2's new storage forms apart): {same + diff}, equal "
+              f"{same}, changed {diff}; parent's not found {len(missing)}; "
               f"the parent's of the block form's names "
               f"{sum(1 for k in blocks if k in base)}")
         pairs = [(base[k], v) for k, v in blocks.items() if k in base]

@@ -257,6 +257,11 @@ def test_check_shape_takes_bp3_blocks_and_bf16_state(precision, dtype,
                                         block=block) == SC1
 
 
+# the ROADMAP item a refusal names: 6g, but q = p + 1 on a block (queue A
+# item 10: no distributed JAX solver runs it)
+ITEM_10 = "queue A item 10"
+
+
 @pytest.mark.parametrize("kw,label", [
     (dict(n_q=3, n_components=1, block=True),
      r"the block form \(distributed\) at q = p \+ 1"),
@@ -275,13 +280,16 @@ def test_check_shape_takes_bp3_blocks_and_bf16_state(precision, dtype,
     (dict(n_q=5, n_components=1, block=True), "item 6g"),
     (dict(n_q=4, n_components=2, dtype=BF), "item 6g")])
 def test_check_shape_refusals_stay(kw, label):
-    """What stays refused (queue B item 6g): q = p + 1 on a block or with
-    a bf16 state, a bf16 metric, P or x in bf16, the other rungs, any other
-    q or C; each names itself and the ROADMAP item."""
+    """What stays refused (queue B item 6g): q = p + 1 with a bf16 state,
+    a bf16 metric, P or x in bf16, the other rungs, any other q or C; and
+    q = p + 1 on a block (queue A item 10); each names itself and the
+    ROADMAP item."""
+    item = (ITEM_10 if kw.get("block") and kw["n_q"] == 3
+            and "dtype" not in kw else "item 6g")
     kw = {"precision": "highest", "dtype": torch.float32, **kw}
     with pytest.raises(NotImplementedError, match=label):
         laplace_cuda.check_shape(2, **kw)
-    with pytest.raises(NotImplementedError, match="item 6g"):
+    with pytest.raises(NotImplementedError, match=item):
         laplace_cuda.check_shape(2, **kw)
 
 

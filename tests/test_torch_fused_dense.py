@@ -209,11 +209,12 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
     p=1..4 on the port's rungs gives a configuration the port runs, the
     same as the JAX resolvers give; jtj runs under highest, and under
     split2m in twostage (p=4); a bf16 state under split3 resolves as the
-    bf16 rung's (6d); split2m twostage at p=1..3 and jtj in split2m's
-    dense pass (6f, 6c) resolve as the JAX resolvers give them, and what
-    stays unported (split2m at f64, 6h) raises; the split2m auto path at
-    p+4 >= 5 resolves to twostage + onthefly + jtj, and split2m dense
-    there to the JAX resolvers' metric."""
+    bf16 rung's (6d); split2m twostage at p=1..3, jtj in split2m's dense
+    pass and split2m at f64 (6f, 6c, 6h's split2m half) resolve as the
+    JAX resolvers give them, and what stays unported (split3 and bf16 at
+    f64, 6h) raises; the split2m auto path at p+4 >= 5 resolves to
+    twostage + onthefly + jtj, and split2m dense there to the JAX
+    resolvers' metric."""
     want = {"highest": ("dense", "precomputed"),
             "split2m": {1: ("dense", "precomputed"),
                         2: ("dense", "onthefly"),
@@ -235,10 +236,22 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
                                ("dense", "onthefly")):
             benchmark.resolve_config(p, "fused", "pieces", precision, dtype,
                                      factor, metric)
-    refused = [dict(precision="split2m", dtype=torch.float64)]
+    f64 = [dict(precision="split2m", dtype=torch.float64)]
     # ported since (ROADMAP 6c: jtj in split2m's dense pass; 6f: split2m
     # twostage at p=1..3): they resolve as the JAX resolvers give them
     ported = [dict(factor="dense", metric="onthefly", cofactor="jtj")]
+    # 6h's split2m half: split2m at f64 resolves as the JAX resolvers give
+    # split2m (the dispatch reads the rung, not the dtype); split3 and bf16
+    # at f64 still raise, naming 6h
+    for kw in f64:
+        assert benchmark.resolve_config(p, "fused", "pieces", **kw) == \
+            benchmark.resolve_config(p, "fused", "pieces", "split2m",
+                                     torch.float32) == want["split2m"] + (
+            "adjj",)
+        for rung in ("split3", "bf16"):
+            with pytest.raises(NotImplementedError, match="item 6h"):
+                benchmark.resolve_config(p, "fused", "pieces",
+                                         **{**kw, "precision": rung})
     # a bf16 state under a degraded rung runs since 6d: the dispatch on the
     # bf16 rung (eff_prec), the operator at its own
     assert benchmark.resolve_config(p, "fused", "pieces", "split3",
@@ -264,10 +277,6 @@ def test_fused_dispatch_resolves_to_ported_configurations(p):
             p, "fused", "pieces", "split2m", torch.float32, **kw) == (
             jf, jm, jbench.resolve_cofactor(kw.get("cofactor", "auto"), p,
                                             jf, jm, precision="split2m"))
-    for kw in refused:
-        args = dict(precision="highest", dtype=torch.float32) | kw
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            benchmark.resolve_config(p, "fused", "pieces", **args)
     benchmark.resolve_config(p, "fused", "pieces", "highest", torch.float32,
                              "twostage", "onthefly", "jtj")
     assert benchmark.resolve_config(p + 4, "fused", "pieces", "split2m",

@@ -115,11 +115,13 @@ def test_build_matches_jax_arrays(dtype, tdtype, precision):
 
 def test_operator_rejects_unported_configurations():
     """Configurations the JAX package has and the port does not yet
-    (ROADMAP queue B) raise, each spelled out in full; a bf16 state under
-    split3 (6d) builds, its tables f32; split2m's dense pass with the metric
-    rebuilt by jtj (6c) builds, keeping the chain; split2m's dense pass
-    past p=4 (the apply family, the fused dense) builds, with the dense M's
-    tables, B5 on a twostage operator too."""
+    (ROADMAP queue B) raise, each spelled out in full; split2m at f64 (6h's
+    split2m half) builds, at f64 with the dense or the 2D stage's bf16
+    tables, while split3 and bf16 at f64 still raise naming 6h; a bf16
+    state under split3 (6d) builds, its tables f32; split2m's dense pass
+    with the metric rebuilt by jtj (6c) builds, keeping the chain;
+    split2m's dense pass past p=4 (the apply family, the fused dense)
+    builds, with the dense M's tables, B5 on a twostage operator too."""
     layout = DofLayout(BoxMesh.from_s(3), 4)
     fused = {"factor": "twostage", "metric": "onthefly",
              "windowing": "pieces"}
@@ -127,8 +129,18 @@ def test_operator_rejects_unported_configurations():
     for kw in ({**fused, "windowing": "reshape"},
                {"precision": "split2m", "dtype": torch.float64},
                {**fused, "precision": "split2m", "dtype": torch.float64}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            laplace_cuda.make_operator(layout, device="cpu", **kw)
+        if kw.get("precision") != "split2m":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                laplace_cuda.make_operator(layout, device="cpu", **kw)
+            continue
+        op = laplace_cuda.make_operator(layout, device="cpu", **kw)
+        assert (op.dtype, op.precision) == (torch.float64, "split2m")
+        assert op.mma_mats.shape == (2, 3 * math.prod(laplace_cuda.mma_dims(
+            4, op.factor)))
+        for rung in ("split3", "bf16"):
+            with pytest.raises(NotImplementedError, match="item 6h"):
+                laplace_cuda.make_operator(layout, device="cpu",
+                                           **{**kw, "precision": rung})
     op = laplace_cuda.make_operator(layout, device="cpu", **dense,
                                     precision="split2m", cofactor="jtj")
     assert (op.factor, op.metric, op.cofactor) == ("dense", "onthefly", "jtj")
